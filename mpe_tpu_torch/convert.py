@@ -3,8 +3,9 @@
 ``state_from_numpy`` turns the leaves of a JAX ``WorldState`` (read out
 with ``np.asarray``) into the port's env-leading ``WorldState``;
 ``state_to_numpy`` goes back. ``spec_fields`` lists a spec's tables so the
-two packages' specs can be compared field by field. This slice has no
-learnable parameters; the learner slices add their conversion here.
+two packages' specs can be compared field by field. ``params_from_numpy``
+and ``params_to_numpy`` carry learner parameters (``{layer: {"w": [in, out],
+"b": [out]}}``, the same layout in both packages).
 """
 
 from __future__ import annotations
@@ -47,3 +48,17 @@ def state_to_numpy(state: WorldState, env_axis: int = 0) -> tuple[np.ndarray, ..
 def spec_fields(spec) -> dict:
     """A spec's fields (either package's ``ScenarioSpec``) as a dict."""
     return {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+
+
+def params_from_numpy(tree, device=None, dtype=torch.float32) -> dict:
+    """A params pytree of numpy arrays (``{layer: {"w", "b"}}``, e.g. a JAX
+    ``init_ac`` read out with ``np.asarray``) -> the port's params."""
+    device = resolve_device(device)
+    return {k: {q: torch.tensor(np.asarray(x), dtype=dtype, device=device)
+                for q, x in layer.items()} for k, layer in tree.items()}
+
+
+def params_to_numpy(params) -> dict:
+    """The port's params -> the same tree of numpy arrays."""
+    return {k: {q: x.detach().cpu().numpy() for q, x in layer.items()}
+            for k, layer in params.items()}

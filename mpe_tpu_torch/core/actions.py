@@ -1,4 +1,4 @@
-"""Batched action decoding (PyTorch counterpart of ``mpe_tpu.core.actions``).
+"""Batched action decoding (PyTorch counterpart of ``mpe_tpu/core/actions.py``).
 
 Replicates ``MultiAgentEnv._set_action`` (reference environment.py:144-192)
 on a canonical padded action layout with any number of leading batch axes:

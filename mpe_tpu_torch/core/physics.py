@@ -1,5 +1,5 @@
 """Batched point-mass physics step (PyTorch counterpart of
-``mpe_tpu.core.physics``; reference multiagent/core.py:117-196).
+``mpe_tpu/core/physics.py``; reference multiagent/core.py:117-196).
 
   apply_action_force      -> masked add of the [..., A, P] action force
   apply_environment_force -> one [..., E, E, P] pairwise soft-collision

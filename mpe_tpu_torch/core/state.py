@@ -1,6 +1,6 @@
 """Struct-of-arrays world state + static per-scenario entity table.
 
-PyTorch counterpart of ``mpe_tpu.core.state`` (reference
+PyTorch counterpart of ``mpe_tpu/core/state.py`` (reference
 multiagent/core.py:4-99):
 
   - ``WorldState`` -- a dataclass of tensors over a unified entity axis

@@ -1,5 +1,5 @@
 """Batched functional multi-agent environment (PyTorch counterpart of
-``mpe_tpu.envs.functional``; reference multiagent/environment.py:80-104).
+``mpe_tpu/envs/functional.py``; reference multiagent/environment.py:80-104).
 
 Step order as in the reference: decode all actions -> one world step ->
 obs / reward / done / info -> collaborative shared-reward broadcast

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 Each source under ``mpe_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds). The library
-goes into ``build/kernels/`` beside the package at first use and is
-rebuilt only when the source or the flags change (the file name carries
-their hash). ``-fmad=false`` keeps every multiply and add separately
-rounded, as PyTorch's elementwise ops round them, so a kernel can be held
-tightly against its plain version.
+``sm_90a`` into its own shared library with a plain C interface and loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
+libraries go into ``build/kernels/`` beside the package at first use; the
+sources build in parallel, and each is rebuilt only when it, the shared
+header or the flags change (the file name carries their hash).
+``-fmad=false`` keeps every multiply and add separately rounded, as
+PyTorch's elementwise ops round them, so a kernel can be held tightly
+against its plain version.
 
 Nothing here runs at import: the tests import every module on machines
 without ``nvcc`` or a card.
@@ -27,7 +28,8 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mpe_kernels.cu",)
+SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu")
+HEADERS = ("spread_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,7 +47,8 @@ def nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
@@ -76,18 +79,37 @@ def build_all() -> dict[str, str]:
     return logs
 
 
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# argtypes of each library's C functions (all return a cudaError_t as int)
+SIGNATURES = {
+    "mpe_kernels.cu": {
+        "mpe_spread_rollout_a3l3c2": [_P] * 5 + [_I] * 4 + [_U, _U, _P],
+        "mpe_spread_det_rollout_a3l3c2": [_P] * 8 + [_I] * 3 + [_P],
+    },
+    "mpe_policy.cu": {
+        "mpe_spread_policy_traj_a3l3": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
+        "mpe_spread_policy_rollout_a3l3": [_P] * 5 + [_I] * 4 + [_U, _U, _P],
+    },
+    "mpe_update.cu": {
+        "mpe_ppo_update_h64": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_P],
+        "mpe_ppo_update_packed_size": [],
+    },
+}
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
+def library(source: str = "mpe_kernels.cu") -> ctypes.CDLL:
+    """The loaded library of one source under ``csrc/`` (every source is
+    built first if needed)."""
     build_all()
-    lib = ctypes.CDLL(str(_target("mpe_kernels.cu")))
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.mpe_spread_rollout_a3l3c2.argtypes = [p, p, p, p, p, i, i, i, i, u, u, p]
-    lib.mpe_spread_rollout_a3l3c2.restype = i
-    lib.mpe_spread_det_rollout_a3l3c2.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
-    lib.mpe_spread_det_rollout_a3l3c2.restype = i
-    lib.mpe_cuda_error_string.argtypes = [i]
-    lib.mpe_cuda_error_string.restype = ctypes.c_char_p
+    lib = ctypes.CDLL(str(_target(source)))
+    for name, argtypes in SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    if source == "mpe_kernels.cu":
+        lib.mpe_cuda_error_string.argtypes = [_I]
+        lib.mpe_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -1,5 +1,5 @@
 """Env-minor batched step math in plain PyTorch (counterpart of
-``mpe_tpu.ops.batched``).
+``mpe_tpu/ops/batched.py``).
 
 Same semantics as ``core.physics.step_world`` plus the simple_spread
 callbacks (reference core.py:117-196, simple_spread.py:72-100), on blocks

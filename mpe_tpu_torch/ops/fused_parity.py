@@ -1,5 +1,5 @@
 """Deterministic fused rollout: kernel K1 and its plain PyTorch version
-(counterpart of ``mpe_tpu.ops.fused_parity``).
+(counterpart of ``mpe_tpu/ops/fused_parity.py``).
 
 The initial state is an input, per-step moves come from the stateless
 hash ``hash_uniform_2d`` of (step, agent, row, lane within the block), and

@@ -1,0 +1,333 @@
+"""Policy-in-the-loop fused rollouts: kernels K4 and K5 and their plain
+PyTorch versions (counterpart of ``mpe_tpu/ops/fused_policy.py``).
+
+The shared 2-hidden-layer tanh MLP (``learner.pg.init_policy`` layout, or
+the actor of ``init_ac``) runs on every agent's observation, a move is
+sampled by Gumbel-max over its logits, and the env steps with per-lane
+auto-reset at the horizon:
+
+- ``fused_policy_trajectory`` (K5, ``spread_policy_traj_kernel``) streams
+  the on-policy batch: the obs each agent acted on ``[T, A, OW, N]``, the
+  move indices ``[T, A, N]`` int32, the rewards ``[T, R, N]`` and the
+  bootstrap obs ``[A, OW, N]``;
+- ``fused_policy_rollout`` (K4, ``spread_policy_rollout_kernel``) evaluates
+  a policy: per-lane returns ``[R, N]``, final positions ``[E, P, N]`` and
+  completed episodes ``[1, N]``.
+
+On a CUDA device the builders launch the kernels in
+``csrc/mpe_policy.cu``; on the CPU they run the plain versions. The RNG is
+the JAX kernels' interpret-mode hash stream (``fused_rollout.make_uniform``);
+K5 salts it with the time-chunk index, so ``t_chunk`` is part of its
+definition. Each layer of the plain MLP sums over its inputs in order and
+then adds the bias (``_seq_dense``), the order the kernels use: Gumbel-max
+turns a one-ulp change in a logit into another action, so the kernel and its
+plain version are held to equal actions on the card.
+
+Only scenarios without a comm head are ported (simple_spread); the comm
+draws on call id 9 wait for the comm scenarios (ROADMAP B3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mpe_tpu_torch._device import resolve_device
+from mpe_tpu_torch.ops.fused_rollout import (_MASK, make_lane_reset, make_uniform,
+                                             pick_block_envs)
+
+HIDDEN, OBS_W, MOVES = 64, 18, 5     # the widths the CUDA kernels are built for
+
+
+def _argmax_onehot(z, dim: int = 0):
+    """Scores -> first-max one-hot along ``dim`` (the ``jnp.argmax``
+    tie-break: every row ``>=`` the max, then only the first is kept)."""
+    onehot = (z >= z.amax(dim, keepdim=True)).to(z.dtype)
+    taken = torch.zeros_like(onehot.select(dim, 0))
+    rows = []
+    for r in range(z.shape[dim]):
+        row = onehot.select(dim, r) * (1.0 - taken)
+        taken = torch.clamp_max(taken + row, 1.0)
+        rows.append(row)
+    return torch.stack(rows, dim)
+
+
+def _gumbel_onehot(logits, u, dim: int = 0):
+    """Logits + U[0, 1) of the same shape -> one-hot categorical sample
+    along ``dim``: argmax of ``logits - log(-log(u + 1e-12) + 1e-12)``."""
+    return _argmax_onehot(logits - torch.log(-torch.log(u + 1e-12) + 1e-12), dim)
+
+
+def _seq_dense(w, b, x):
+    """``w [out, in] @ x [..., in, N] + b [out, 1]``, summed over ``in`` in
+    order from the first product, then the bias: the kernels' order."""
+    acc = w[:, 0:1] * x[..., 0:1, :]
+    for k in range(1, w.shape[1]):
+        acc = acc + w[:, k:k + 1] * x[..., k:k + 1, :]
+    return acc + b
+
+
+def _policy_sample(kscn, weights, obs, uniform, step: int):
+    """obs [A, OW, N] -> move one-hots [A, 5, N]: MLP, then Gumbel-max with
+    ``uniform((5, A*nb), step, 7)`` of the JAX kernel, whose element (row r,
+    agent i, lane l) has hash index ``r*A*nb + i*nb + l``."""
+    w1, b1, w2, b2, w3, b3 = weights
+    mw = 2 * kscn.spec.dim_p + 1
+    h = torch.tanh(_seq_dense(w1, b1, obs))
+    h = torch.tanh(_seq_dense(w2, b2, h))
+    logits = _seq_dense(w3, b3, h)                                   # [A, 5, N]
+    u = uniform((mw, kscn.spec.n_agents), step, 7).transpose(0, 1)   # [A, 5, N]
+    return _gumbel_onehot(logits[:, :mw], u, dim=1)
+
+
+def _onehot_index(onehot):
+    """[A, K, N] one-hots -> [A, N] int32 indices (weighted row sum, exact
+    for 0/1 values)."""
+    idx = onehot[:, 1]
+    for r in range(2, onehot.shape[1]):
+        idx = idx + onehot[:, r] * float(r)
+    return idx.to(torch.int32)
+
+
+def _kernel_weights(params, device=None):
+    """init_policy-layout params -> the kernels' weights: w [out, in] and
+    b [out, 1], float32."""
+    def f32(x):
+        return x.detach().to(device=device, dtype=torch.float32)
+
+    return tuple(t for q in ("l1", "l2", "out")
+                 for t in (f32(params[q]["w"]).T.contiguous(), f32(params[q]["b"])[:, None]))
+
+
+def _pack_weights(weights) -> torch.Tensor:
+    """The kernels' weight buffer: w1, b1, w2, b2, w3, b3 flattened in order."""
+    return torch.cat([w.reshape(-1) for w in weights]).contiguous()
+
+
+def _resolve(scenario):
+    from mpe_tpu_torch.core.state import ScenarioSpec
+    from mpe_tpu_torch.ops.kernel_scenarios import KernelScenario, KernelSpread, kernel_scenario
+
+    if isinstance(scenario, KernelScenario):
+        kscn = scenario
+    elif isinstance(scenario, ScenarioSpec):
+        kscn = KernelSpread(scenario)
+    else:
+        kscn = kernel_scenario(scenario)
+    if kscn.uses_comm:
+        raise NotImplementedError(f"{kscn.spec.name!r} has a comm head; the policy kernels are "
+                                  "ported for move-only scenarios (ROADMAP B3)")
+    return kscn
+
+
+def _check_widths(kscn, params):
+    w_in, w_out = params["l1"]["w"].shape[0], params["out"]["w"].shape[1]
+    mw = 2 * kscn.spec.dim_p + 1
+    if (w_in, w_out) != (kscn.obs_w, mw):
+        raise ValueError(f"policy maps {w_in} -> {w_out}; {kscn.spec.name!r} needs "
+                         f"{kscn.obs_w} -> {mw}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def plain_policy_trajectory(kscn, weights, n_envs: int, n_steps: int, horizon: int,
+                            block_envs: int, t_chunk: int, seed: int, block_offset: int = 0,
+                            device=None):
+    """The JAX ``_policy_traj_kernel`` over all RNG blocks at once ->
+    (obs [T, A, OW, N], act [T, A, N] int32, rew [T, R, N], last_obs
+    [A, OW, N]). Every lane starts at t = 0 and resets on the shared
+    horizon, so one step counter serves all lanes."""
+    spec = kscn.spec
+    a, n_blocks = spec.n_agents, n_envs // block_envs
+    f32 = torch.float32
+    obs_out = torch.empty((n_steps, a, kscn.obs_w, n_envs), dtype=f32, device=device)
+    act_out = torch.empty((n_steps, a, n_envs), dtype=torch.int32, device=device)
+    rew_out = torch.empty((n_steps, kscn.reward_rows, n_envs), dtype=f32, device=device)
+    t = 0
+    for chunk in range(n_steps // t_chunk):
+        uniform = make_uniform(seed, block_offset, n_blocks, block_envs, chunk, device=device)
+        init, fresh = make_lane_reset(kscn, uniform)
+        if chunk == 0:
+            pos, vel, obs, goal, _ = init()
+        for step in range(t_chunk):
+            ts = chunk * t_chunk + step
+            move = _policy_sample(kscn, weights, obs, uniform, step)
+            pos, vel = kscn.physics(pos, vel, move)
+            rew, obs_next = kscn.reward_obs(pos, vel, None, goal)
+            obs_out[ts], act_out[ts], rew_out[ts] = obs, _onehot_index(move), rew
+            t += 1
+            if t >= horizon:
+                pos, obs, goal = fresh(step, vel)
+                vel, t = torch.zeros_like(vel), 0
+            else:
+                obs = obs_next
+    return obs_out, act_out, rew_out, obs
+
+
+def plain_policy_rollout(kscn, weights, n_envs: int, n_steps: int, horizon: int,
+                         block_envs: int, seed: int, block_offset: int = 0, device=None):
+    """The JAX ``_policy_rollout_kernel`` over all RNG blocks at once ->
+    (ret [R, N], pos [E, P, N], episodes [1, N]), float32."""
+    uniform = make_uniform(seed, block_offset, n_envs // block_envs, block_envs, device=device)
+    init, fresh = make_lane_reset(kscn, uniform)
+    pos, vel, obs, goal, _ = init()
+    ret = torch.zeros((kscn.reward_rows, n_envs), dtype=torch.float32, device=device)
+    eps = torch.zeros((1, n_envs), dtype=torch.float32, device=device)
+    t = 0
+    for step in range(n_steps):
+        move = _policy_sample(kscn, weights, obs, uniform, step)
+        pos, vel = kscn.physics(pos, vel, move)
+        rew, obs = kscn.reward_obs(pos, vel, None, goal)
+        ret = ret + rew
+        t += 1
+        if t >= horizon:
+            eps = eps + 1.0
+            pos, obs, goal = fresh(step, vel)
+            vel, t = torch.zeros_like(vel), 0
+    return ret, pos, eps
+
+
+# ---------------------------------------------------------------------------
+# kernels K5 and K4
+# ---------------------------------------------------------------------------
+
+def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device):
+    """Checks shared by both wrappers -> (spread params, weight buffer)."""
+    from mpe_tpu_torch.ops import _build
+
+    if device.type != "cuda":
+        raise ValueError(f"the policy kernels need a CUDA device, got {device}")
+    if n_envs <= 0 or n_envs % block_envs:
+        raise ValueError(f"n_envs={n_envs} must be a positive multiple of block_envs={block_envs}")
+    if n_steps < 0 or horizon < 1:
+        raise ValueError(f"need n_steps >= 0 and horizon >= 1, got {n_steps}, {horizon}")
+    shapes = [tuple(w.shape) for w in weights]
+    want = [(HIDDEN, OBS_W), (HIDDEN, 1), (HIDDEN, HIDDEN), (HIDDEN, 1), (MOVES, HIDDEN),
+            (MOVES, 1)]
+    if shapes != want:
+        raise NotImplementedError(f"the policy kernels are built for an {OBS_W}-{HIDDEN}-"
+                                  f"{HIDDEN}-{MOVES} MLP; got weight shapes {shapes}")
+    params = _build.spread_params(kscn)
+    return params, _pack_weights([w.to(device=device, dtype=torch.float32) for w in weights])
+
+
+def spread_policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int,
+                            block_envs: int, t_chunk: int, seed: int, block_offset: int = 0,
+                            device=None):
+    """Launch kernel K5 on ``device``: the outputs of
+    ``plain_policy_trajectory``. Counts launches in ``.launches``."""
+    from mpe_tpu_torch.ops import _build
+
+    device = torch.device(device)
+    if t_chunk < 1 or n_steps % t_chunk:
+        raise ValueError(f"n_steps={n_steps} must be a multiple of t_chunk={t_chunk}")
+    params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device)
+    a, ow = kscn.spec.n_agents, kscn.obs_w
+    obs = torch.empty((n_steps, a, ow, n_envs), dtype=torch.float32, device=device)
+    act = torch.empty((n_steps, a, n_envs), dtype=torch.int32, device=device)
+    rew = torch.empty((n_steps, 1, n_envs), dtype=torch.float32, device=device)
+    last_obs = torch.empty((a, ow, n_envs), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _build.library("mpe_policy.cu").mpe_spread_policy_traj_a3l3(
+            ctypes.byref(params), wbuf.data_ptr(), obs.data_ptr(), act.data_ptr(), rew.data_ptr(),
+            last_obs.data_ptr(), n_envs, block_envs, n_steps // t_chunk, t_chunk, horizon,
+            int(seed) & _MASK, int(block_offset) & _MASK, stream)
+    if rc != 0:
+        raise RuntimeError(f"spread_policy_traj_kernel launch failed: {_build.error_string(rc)}")
+    spread_policy_traj_cuda.launches += 1
+    return obs, act, rew, last_obs
+
+
+spread_policy_traj_cuda.launches = 0
+
+
+def spread_policy_rollout_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int,
+                               block_envs: int, seed: int, block_offset: int = 0, device=None):
+    """Launch kernel K4 on ``device``: the outputs of
+    ``plain_policy_rollout``. Counts launches in ``.launches``."""
+    from mpe_tpu_torch.ops import _build
+
+    device = torch.device(device)
+    params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device)
+    spec = kscn.spec
+    ret = torch.empty((1, n_envs), dtype=torch.float32, device=device)
+    pos = torch.empty((spec.n_entities, spec.dim_p, n_envs), dtype=torch.float32, device=device)
+    eps = torch.empty((1, n_envs), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _build.library("mpe_policy.cu").mpe_spread_policy_rollout_a3l3(
+            ctypes.byref(params), wbuf.data_ptr(), ret.data_ptr(), pos.data_ptr(), eps.data_ptr(),
+            n_envs, block_envs, n_steps, horizon, int(seed) & _MASK, int(block_offset) & _MASK,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"spread_policy_rollout_kernel launch failed: {_build.error_string(rc)}")
+    spread_policy_rollout_cuda.launches += 1
+    return ret, pos, eps
+
+
+spread_policy_rollout_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# builders
+# ---------------------------------------------------------------------------
+
+def fused_policy_trajectory(scenario, params, n_envs: int, n_steps: int, horizon: int = 100,
+                            block_envs: int = 1024, t_chunk: int = 8, device=None):
+    """Build ``run(seed, params, block_offset=0) -> (obs [T, A, OW, N], act
+    [T, A, N] int32, rew [T, R, N], last_obs [A, OW, N])``: the on-policy
+    batch, collected by kernel K5 on CUDA and by ``plain_policy_trajectory``
+    on the CPU; ``run.plain`` is the plain version on the same device.
+    ``obs[t]`` is the obs the policy acted on at step t; done flags are
+    ``(t + 1) % horizon == 0`` for every lane. ``params`` (init_policy
+    layout) fixes the widths; pass the current params at each call."""
+    kscn = _resolve(scenario)
+    _check_widths(kscn, params)
+    device = resolve_device(device)
+    block_envs = pick_block_envs(n_envs, block_envs)
+    if t_chunk < 1 or n_steps % t_chunk:
+        raise ValueError(f"n_steps={n_steps} must be a multiple of t_chunk={t_chunk}")
+    args = (n_envs, n_steps, horizon, block_envs, t_chunk)
+
+    def plain(seed, params, block_offset=0):
+        return plain_policy_trajectory(kscn, _kernel_weights(params, device), *args, seed,
+                                       block_offset, device)
+
+    def run(seed, params, block_offset=0):
+        if device.type == "cuda":
+            return spread_policy_traj_cuda(kscn, _kernel_weights(params, device), *args, seed,
+                                           block_offset, device)
+        return plain(seed, params, block_offset)
+
+    run.plain = plain
+    return run
+
+
+def fused_policy_rollout(scenario_or_spec, params, n_envs: int, n_steps: int,
+                         horizon: int = 100, block_envs: int = 1024, device=None):
+    """Build ``run(seed, params, block_offset=0) -> (returns [R, N], pos
+    [E, P, N], episodes [1, N])``: a policy evaluation, by kernel K4 on CUDA
+    and by ``plain_policy_rollout`` on the CPU; ``run.plain`` is the plain
+    version on the same device."""
+    kscn = _resolve(scenario_or_spec)
+    _check_widths(kscn, params)
+    device = resolve_device(device)
+    block_envs = pick_block_envs(n_envs, block_envs)
+    args = (n_envs, n_steps, horizon, block_envs)
+
+    def plain(seed, params, block_offset=0):
+        return plain_policy_rollout(kscn, _kernel_weights(params, device), *args, seed,
+                                    block_offset, device)
+
+    def run(seed, params, block_offset=0):
+        if device.type == "cuda":
+            return spread_policy_rollout_cuda(kscn, _kernel_weights(params, device), *args, seed,
+                                              block_offset, device)
+        return plain(seed, params, block_offset)
+
+    run.plain = plain
+    return run

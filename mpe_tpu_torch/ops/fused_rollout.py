@@ -1,5 +1,5 @@
 """Fused multi-step rollout: kernel K2 and its plain PyTorch version
-(counterpart of ``mpe_tpu.ops.fused_rollout``).
+(counterpart of ``mpe_tpu/ops/fused_rollout.py``).
 
 On a CUDA device ``fused_rollout``/``fused_spread_rollout`` launch
 ``spread_rollout_kernel`` (``csrc/mpe_kernels.cu``): one thread per env
@@ -161,14 +161,18 @@ def _hash_uniform(salt: int, shape, device=None, dtype=torch.float32) -> torch.T
     return _fmix_unit((_flat_index(shape, device) + s) & _MASK, dtype)
 
 
-def make_uniform(seed: int, block_offset: int, n_blocks: int, block_envs: int, device=None):
+def make_uniform(seed: int, block_offset: int, n_blocks: int, block_envs: int, *extra_salts,
+                 device=None):
     """The stream of ``make_uniform``'s interpret branch over ``n_blocks``
     RNG blocks at once: ``uniform(shape, step, call_id)`` returns
     ``shape + (n_blocks * block_envs,)`` where lane ``b * block_envs + l``
     holds element ``(..., l)`` of global block ``b + block_offset``'s draw.
-    The salt is ``seed*7919 + block*104729 + step*64 + call_id`` (mod 2**32)."""
+    The salt is ``seed*7919 + block*104729 + sum_i extra_i*(15485863 + 2i)
+    + step*64 + call_id`` (mod 2**32); the policy trajectory salts with its
+    time-chunk index as the one extra."""
     blocks = torch.arange(n_blocks, dtype=torch.int64, device=device)
-    mixed = (int(seed) * 7919 + (blocks + int(block_offset)) * 104729) & _MASK     # [n_blocks]
+    mixed = int(seed) * 7919 + sum(int(x) * (15485863 + 2 * i) for i, x in enumerate(extra_salts))
+    mixed = (mixed + (blocks + int(block_offset)) * 104729) & _MASK              # [n_blocks]
     index_cache: dict[tuple, torch.Tensor] = {}
 
     def uniform(shape, step: int, call_id: int) -> torch.Tensor:
@@ -216,6 +220,39 @@ def make_samplers(kscn, uniform):
     return sample_state, sample_goal, sample_comm
 
 
+def make_lane_reset(kscn, uniform):
+    """Block init and per-lane reset draws of the stateful policy kernels
+    (``make_lane_reset`` of the JAX package): ``(init, fresh)``.
+    ``init()`` draws the initial state on call ids 0/1 (goals 8+2+g) with
+    zero velocity and comm -> ``(pos0, vel0, obs0, goal0, comm0)``;
+    ``fresh(step, vel)`` draws reset candidates on call ids 3/4 (goals
+    24+2+g) -> ``(pos_f, obs_f, goal_f)``, the obs computed at zero
+    velocity."""
+    spec = kscn.spec
+    sample_state, sample_goal, _ = make_samplers(kscn, uniform)
+    a = spec.n_agents
+    dim_c = spec.dim_c if kscn.uses_comm else 0
+
+    def zero_comm(like):
+        return like.new_zeros((a, dim_c, like.shape[-1])) if dim_c else None
+
+    def init():
+        pos0 = sample_state(0, 0)
+        vel0 = torch.zeros_like(pos0)
+        goal0 = sample_goal(0, 8)
+        comm0 = zero_comm(pos0)
+        _, obs0 = kscn.reward_obs(pos0, vel0, comm0, goal0)
+        return pos0, vel0, obs0, goal0, comm0
+
+    def fresh(step, vel):
+        pos_f = sample_state(step, 3)
+        goal_f = sample_goal(step, 24)
+        _, obs_f = kscn.reward_obs(pos_f, torch.zeros_like(vel), zero_comm(pos_f), goal_f)
+        return pos_f, obs_f, goal_f
+
+    return init, fresh
+
+
 def pick_block_envs(n_envs: int, requested: int = 1024) -> int:
     """Largest divisor of ``n_envs`` not exceeding ``requested``."""
     b = max(1, min(requested, n_envs))
@@ -237,7 +274,7 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
     a, e, p = spec.n_agents, spec.n_entities, spec.dim_p
     if n_envs % block_envs:
         raise ValueError(f"n_envs={n_envs} is not a multiple of block_envs={block_envs}")
-    uniform = make_uniform(seed, block_offset, n_envs // block_envs, block_envs, device)
+    uniform = make_uniform(seed, block_offset, n_envs // block_envs, block_envs, device=device)
     sample_state, sample_goal, sample_comm = make_samplers(kscn, uniform)
     f32 = torch.float32
 

@@ -1,5 +1,5 @@
 """Kernel-scenario blocks of the fused rollouts, as plain env-minor PyTorch
-(counterpart of ``mpe_tpu.ops.kernel_scenarios``).
+(counterpart of ``mpe_tpu/ops/kernel_scenarios.py``).
 
 These are the plain versions of what the CUDA kernels in
 ``csrc/mpe_kernels.cu`` compute per env lane: the per-entity scalars of
@@ -7,7 +7,7 @@ the spec are read as Python floats, the tiny entity loops are unrolled,
 and every row is ``[P, N]`` or ``[1, N]`` with the env axis last.
 
 Only simple_spread is ported (``KernelSpread``). Specs with at least
-``MIN_MXU_PAIRS`` collide pairs take ``mpe_tpu.ops.mxu_physics`` in the JAX
+``MIN_MXU_PAIRS`` collide pairs take ``mpe_tpu/ops/mxu_physics.py`` in the JAX
 package; that block is ROADMAP B4 and raises here.
 """
 

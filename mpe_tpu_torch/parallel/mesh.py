@@ -1,5 +1,5 @@
 """Batched on-device rollout (PyTorch counterpart of
-``mpe_tpu.parallel.mesh.build_rollout`` on a single device).
+``mpe_tpu/parallel/mesh.py::build_rollout`` on a single device).
 
 ``build_rollout`` loops over steps in Python; every step is the batched env
 step on the env's device, so there is no host round trip inside the loop

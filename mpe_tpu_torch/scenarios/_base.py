@@ -1,5 +1,5 @@
 """Scenario contract + shared batched building blocks (PyTorch counterpart
-of ``mpe_tpu.scenarios._base``).
+of ``mpe_tpu/scenarios/_base.py``).
 
 A scenario is a static ``ScenarioSpec`` plus functions of a batched
 ``WorldState`` (leading env axis):

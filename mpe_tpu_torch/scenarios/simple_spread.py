@@ -1,6 +1,6 @@
 """Scenario ``simple_spread`` (cooperative navigation), batched.
 
-Counterpart of ``mpe_tpu.scenarios.simple_spread`` (reference
+Counterpart of ``mpe_tpu/scenarios/simple_spread.py`` (reference
 multiagent/scenarios/simple_spread.py):
   - world: 3 colliding silent agents (size 0.15), 3 landmarks, dim_c=2,
     collaborative (simple_spread.py:7-29);

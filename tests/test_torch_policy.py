@@ -1,0 +1,181 @@
+"""The port's policy-in-the-loop rollouts (plain versions of kernels K4 and
+K5) against the JAX package on the CPU.
+
+- ``make_uniform`` with the chunk salt: bit for bit against the JAX
+  kernels' interpret-mode stream, drawn inside a Pallas interpret call;
+- ``_argmax_onehot``: equal to JAX's on tie cases;
+- the plain trajectory and evaluation rollouts against
+  ``fused_policy_trajectory`` / ``fused_policy_rollout`` in Pallas interpret
+  mode, from the same weights: actions and episode counts equal, float32
+  values at atol and rtol 1e-5 (XLA's dot sums in its own order and CPU
+  libm differs from XLA's tanh/log by ulps).
+
+The CUDA kernels run only on a card: ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` hold them against these plain versions there.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from mpe_tpu.learner import init_policy as j_init_policy
+from mpe_tpu_torch.convert import params_from_numpy
+
+j_fused = importlib.import_module("mpe_tpu.ops.fused_rollout")
+j_policy = importlib.import_module("mpe_tpu.ops.fused_policy")
+t_fused = importlib.import_module("mpe_tpu_torch.ops.fused_rollout")
+t_policy = importlib.import_module("mpe_tpu_torch.ops.fused_policy")
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+SMALL = dict(n_envs=128, n_steps=16, horizon=6, block_envs=64)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _params(hidden=16, seed=0):
+    """JAX init_policy params as numpy, and the same weights in the port."""
+    tree = jax.tree.map(np.asarray, j_init_policy(jax.random.PRNGKey(seed), 18, 5, hidden=hidden))
+    return tree, params_from_numpy(tree, device="cpu")
+
+
+@pytest.mark.parametrize("seed,block_offset", [(3, 0), (-5, 2), (2**31 - 1, 1)])
+def test_make_uniform_chunk_salt_bit_exact(seed, block_offset):
+    """Draws of JAX's ``make_uniform(seed_ref, True, program_id(1))`` on a
+    (block, chunk) grid, against the port's stream with the chunk as extra
+    salt."""
+    n, n_blocks, n_chunks, step, call = 32, 2, 3, 5, 7
+
+    def kernel(seed_ref, out_ref):
+        uniform, _ = j_fused.make_uniform(seed_ref, True, pl.program_id(1))
+        out_ref[0] = uniform((5, 3 * n), step, call)
+
+    call_ = pl.pallas_call(
+        kernel, grid=(n_blocks, n_chunks),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
+        out_specs=pl.BlockSpec((1, 5, 3 * n), lambda i, j: (j, 0, i)),
+        out_shape=jax.ShapeDtypeStruct((n_chunks, 5, 3 * n * n_blocks), jnp.float32),
+        interpret=True)
+    want = np.asarray(call_(jnp.asarray([seed, block_offset], jnp.int32)))
+    for chunk in range(n_chunks):
+        u = t_fused.make_uniform(seed, block_offset, n_blocks, n, chunk)((5, 3), step, call)
+        # the port lays lanes of all blocks last: [5, 3, blocks * n]; JAX [5, blocks * (3n)]
+        got = u.reshape(5, 3, n_blocks, n).permute(0, 2, 1, 3).reshape(5, -1)
+        np.testing.assert_array_equal(got.numpy(), want[chunk])
+
+
+def test_make_uniform_without_extra_salt_is_unchanged():
+    u0 = t_fused.make_uniform(9, 1, 2, 16)((3, 2), 4, 2)
+    u1 = t_fused.make_uniform(9, 1, 2, 16, 0)((3, 2), 4, 2)
+    torch.testing.assert_close(u0, u1, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("z", [
+    [[1.0, 2.0, 0.5], [1.0, 2.0, 0.5], [0.0, 2.0, 0.4]],       # ties in the first rows
+    [[0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]],       # all tied: row 0
+    [[-1.0, 3.0, 7.0], [2.0, 3.0, 1.0], [2.0, -3.0, 7.0]],     # tie between rows 1 and 2
+])
+def test_argmax_onehot_first_max_tie_break(z):
+    z = np.asarray(z, np.float32)
+    want = np.asarray(j_policy._argmax_onehot(jnp.asarray(z)))
+    got = t_policy._argmax_onehot(torch.tensor(z)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got.sum(0) == 1).all()
+
+
+def test_plain_policy_trajectory_matches_jax_interpret():
+    tree, params = _params()
+    j_run = j_policy.fused_policy_trajectory("simple_spread", tree, t_chunk=4, interpret=True,
+                                             **SMALL)
+    t_run = t_policy.fused_policy_trajectory("simple_spread", params, t_chunk=4, device="cpu",
+                                             **SMALL)
+    for block_offset in (0, 3):
+        want = j_run(11, tree, block_offset)
+        got = t_run(11, params, block_offset)
+        obs, act, rew, last_obs = got
+        assert obs.shape == (16, 3, 18, 128) and act.dtype == torch.int32
+        np.testing.assert_array_equal(_np(act), _np(want[1]))
+        for name, a, b in zip(("obs", "rew", "last_obs"), (obs, rew, last_obs),
+                              (want[0], want[2], want[3])):
+            assert a.dtype == torch.float32 and tuple(a.shape) == b.shape, name
+            np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
+    # horizon 6 over 16 steps: the obs after each reset has zero velocity
+    assert np.abs(_np(obs)[6, :, 0:2]).max() == 0.0 and np.abs(_np(obs)[5, :, 0:2]).max() > 0
+
+
+def test_plain_policy_rollout_matches_jax_interpret():
+    tree, params = _params(seed=1)
+    j_run = j_policy.fused_policy_rollout("simple_spread", tree, interpret=True, **SMALL)
+    t_run = t_policy.fused_policy_rollout("simple_spread", params, device="cpu", **SMALL)
+    for block_offset in (0, 1):
+        want = j_run(4, tree, block_offset)
+        ret, pos, eps = t_run(4, params, block_offset)
+        np.testing.assert_array_equal(_np(eps), _np(want[2]))
+        assert float(eps[0, 0]) == 16 // 6
+        for name, a, b in zip(("ret", "pos"), (ret, pos), want[:2]):
+            np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
+
+
+def test_policy_trajectory_samples_from_a_hard_biased_head():
+    """A head biased hard toward action 2 emits only action 2 (MLP ->
+    Gumbel-max -> index, end to end), as in the JAX package's test."""
+    tree, _ = _params(hidden=32)
+    tree = jax.tree.map(np.zeros_like, tree)
+    tree["out"]["b"] = np.asarray([-30.0, -30.0, 30.0, -30.0, -30.0], np.float32)
+    params = params_from_numpy(tree, device="cpu")
+    run = t_policy.fused_policy_trajectory("simple_spread", params, n_envs=64, n_steps=8,
+                                           horizon=100, block_envs=64, t_chunk=4, device="cpu")
+    _, act, _, _ = run(0, params)
+    assert (act == 2).all()
+
+
+def test_policy_builders_refuse_what_they_do_not_compute():
+    tree, params = _params()
+    with pytest.raises(ValueError, match="multiple of t_chunk"):
+        t_policy.fused_policy_trajectory("simple_spread", params, 64, 10, t_chunk=4,
+                                         device="cpu")
+    bad = params_from_numpy({**tree, "out": {"w": np.zeros((16, 7), np.float32),
+                                            "b": np.zeros(7, np.float32)}}, device="cpu")
+    with pytest.raises(ValueError, match="needs 18 -> 5"):
+        t_policy.fused_policy_rollout("simple_spread", bad, 64, 10, device="cpu")
+    # the kernels take the 18-64-64-5 MLP only
+    weights = t_policy._kernel_weights(params)
+    with pytest.raises(NotImplementedError, match="18-64-64-5"):
+        t_policy._kernel_args(t_policy._resolve("simple_spread"), weights, 64, 8, 4, 64,
+                              torch.device("cuda"))
+
+
+def test_policy_entry_points_need_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: device=None resolves to it")
+    _, params = _params()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_policy.fused_policy_trajectory("simple_spread", params, 64, 8, t_chunk=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_policy.fused_policy_rollout("simple_spread", params, 64, 8)
+
+
+@pytest.mark.parametrize("change", ["max_speed", "initial_mass", "collide"])
+def test_policy_kernel_wrappers_refuse_other_specs(change):
+    """The policy kernels compute simple_spread's physics only; another spec
+    is refused before any launch (the check runs without a card)."""
+    import dataclasses
+
+    from mpe_tpu_torch.ops.kernel_scenarios import KernelSpread
+
+    spec = t_policy._resolve("simple_spread").spec
+    value = getattr(spec, change).copy()
+    value[0] = {"max_speed": 1.0, "initial_mass": 2.0, "collide": False}[change]
+    kscn = KernelSpread(dataclasses.replace(spec, **{change: value}))
+    params = params_from_numpy(jax.tree.map(np.asarray, j_init_policy(jax.random.PRNGKey(0), 18,
+                                                                      5)), device="cpu")
+    with pytest.raises(NotImplementedError, match="simple_spread's physics only"):
+        t_policy._kernel_args(kscn, t_policy._kernel_weights(params), 64, 8, 4, 64,
+                              torch.device("cuda"))
