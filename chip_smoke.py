@@ -8,7 +8,7 @@ failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time and the compiler's register report;
-  2. three main paths, each with every kernel's launch count set to 0 just
+  2. five main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -23,17 +23,33 @@ failure ends the run with a non-zero exit code:
           block_envs 1024, t_chunk 8) for 20 iterations (kernels K5 and K6),
           with per-iteration CUDA-event times by phase and transitions/s over
           iterations 1-19; every metric must be finite;
+       b2. MAPPO training: build_fused_mappo_step at the same width for 20
+          iterations (kernels K5 and K7), timed and checked the same way;
        c. evaluation: fused_policy_rollout of the trained actor (kernel K4),
           4096 envs x 1000 steps, horizon 25; mean return per episode;
+       d. MADDPG: build_fused_maddpg_runner("simple_spread", n_envs=1024,
+          horizon=25, batch=1024) (tools/train_bench.py's fused_maddpg row)
+          with the runner's defaults (tau 0.01, lr 1e-3, ent 0.01, eps 0.1,
+          a ring of 1,638,400 rows), actor_start 250, 40 chunks = 1000
+          updates (kernels K8 and K9), CUDA-event times split into collect
+          and update, transitions/s over chunks 1-39, critic loss and mean
+          reward of the first and last chunk, which must be finite;
   3. every kernel held against its plain PyTorch version on the card: K1
      and K2 over 20 steps (K2 with horizon 10, so resets happen); K5 and K4
      over 16 steps with horizon 8, two block offsets, and at the main paths'
-     shapes; K6 on a batch of the trainer and on the same batch with both
-     clips binding; one whole trainer iteration (params and metrics)
-     against the same iteration with the plain K5 and K6;
+     shapes; K6 and K7 on a batch of their trainer and on the same batch
+     with both clips binding; one whole trainer iteration of each (params
+     and metrics) against the same iteration with the plain versions; K8 at
+     1024 envs x 25 steps, two block offsets, with the actor of
+     checkpoints/maddpg_spread_fused.npz and with the runner's actor, in
+     both output forms; K9 on 1024 rows of the runner's ring (with the
+     target actions' agreement and their smallest logit gap) and one update
+     chunk of 25 updates with the same indices;
   4. the plain versions timed at the main paths' shapes, each kernel's bound
-     from the operations its function needs (OPS below), and for K6 the
-     same gradient by autograd of the trainer's loss (the library yardstick);
+     from the operations its function needs (OPS below), and for K6, K7 and
+     K9 the same gradient by autograd (the library yardstick); one MADDPG
+     update chunk under torch.profiler (K9's device time, the device's busy
+     share);
   5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
      line, and ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -66,12 +82,17 @@ TRAIN = dict(n_envs=4096, n_steps=64, horizon=32, hidden=64, lr=3e-4, gamma=0.95
 TRAIN_ITERS = 20
 EVAL_STEPS, EVAL_HORIZON = 1000, 25
 POLICY_CHECK_STEPS, POLICY_CHECK_HORIZON = 16, 8
+# MADDPG (tools/train_bench.py:123-126, the runner's defaults otherwise)
+MADDPG = dict(n_envs=1024, horizon=25, batch=1024)
+MADDPG_CHUNKS, MADDPG_ACTOR_START = 40, 250
+MADDPG_CKPT = "checkpoints/maddpg_spread_fused.npz"
 
 # Kernel against plain version on the card, 20 steps. The library is built
 # with -fmad=false, so the dynamics round op for op as PyTorch's
 # elementwise ops do; what is left is the order of the obs-checksum sum.
 TOL = {"pos": 1e-5, "vel": 1e-5, "rew_sum": 1e-4, "rew": 1e-5, "obs": 1e-5, "obs_sum": 1e-3,
-       "ret": 1e-5, "last_obs": 1e-5, "act": 0.0, "episodes": 0.0, "params": 1e-5}
+       "ret": 1e-5, "last_obs": 1e-5, "act": 0.0, "episodes": 0.0, "params": 1e-5,
+       "obs2": 1e-5, "rows": 0.0, "chunk params": 1e-4}
 # K6 sums the batch in its own order: each leaf within 1e-4 of its largest
 # entry, the metric means within 1e-4 relative. Where the ratio is 1 (an
 # epoch-0 batch) the pg mean is 0 up to rounding, since the advantages are
@@ -191,6 +212,50 @@ OPS["spread_policy_rollout_kernel"] = {"step": _ops(*POLICY_STEP, (1, ACCUMULATE
                                        "env": {}}
 OPS["ppo_update_kernel"] = {"step": UPDATE_SAMPLE, "reset": {}, "env": {}}   # a "step" is a sample
 
+# K7 (csrc/mpe_update.cu): an actor sample is K6's without the value output:
+# the MLP, dense(64, 5), the softmax and surrogate gradient (K6's 94 fp32 and
+# 8 SFU less the value clip's 13 fp32), the backward pass (64 x (5
+# multiply-adds, 1 - h^2, the product) for gh2, 64 x 64 + 64 x 2 for gh1) and
+# the weight gradients (64 x 18 + 64 x 64 + 5 x 64 multiply-adds, 133 bias
+# sums). A critic sample: the 54-64-64-1 MLP, the value clip (13), the
+# backward pass (64 x 3 for gh2, 64 x 64 + 64 x 2) and the weight gradients
+# (64 x 54 + 64 x 64 + 64 multiply-adds, 129 bias sums).
+MAPPO_ACTOR_SAMPLE = _ops(*MLP, dense(64, 5), (1, {"fp32": 81, "sfu": 8}),
+                          (1, {"fp32": 64 * 7 + 64 * 64 + 64 * 2}),
+                          (1, {"fp32": 64 * 18 + 64 * 64 + 5 * 64 + 133}))
+MAPPO_CRITIC_SAMPLE = _ops(dense(54, 64), (64, TANH), dense(64, 64), (64, TANH), dense(64, 1),
+                           (1, {"fp32": 13}), (1, {"fp32": 64 * 3 + 64 * 64 + 64 * 2}),
+                           (1, {"fp32": 64 * 54 + 64 * 64 + 64 + 129}))
+# a "step" is an actor sample (t, agent, env), a "reset" a critic sample (t, env)
+OPS["mappo_update_kernel"] = {"step": MAPPO_ACTOR_SAMPLE, "reset": MAPPO_CRITIC_SAMPLE, "env": {}}
+
+# K8 (csrc/mpe_maddpg.cu) per env-step: per agent K5's MLP and Gumbel-max,
+# the eps one-hot's Gumbel-max (5 more draws), the eps coin (a hash, compare,
+# select) and 3 salts; the spread step; the obs2 rows (30 relative
+# coordinates).
+MADDPG_AGENT = _ops((1, POLICY_AGENT), (5, GUMBEL), (1, {"int": 13, "cvt": 1, "fp32": 3}))
+MADDPG_STEP = ((3, MADDPG_AGENT), (3, DECODE), (3, PAIR_FORCE), (3, INTEGRATE), (9, LANDMARK_DIST),
+               (3, PAIR_COLLISION), (1, REWARD_REST), (3, {"int": 1}), (1, {"fp32": 30}))
+OPS["spread_maddpg_traj_kernel"] = {"step": _ops(*MADDPG_STEP), "reset": RESET, "env": {}}
+
+# K9 per sample, for each of the 3 agents: the target actor and its
+# first-argmax (4 compares, 4 selects); the target critic (69-64-64-1) and y
+# (1 fma); the critic forward with the candidates' base (64 x (5 fma + 1)); 5
+# candidates (64 adds, layers 2-3); d, g3 and the backward pass (64 x 3,
+# 64 x 64 + 64 x 2); the critic's weight gradients (64 x 69 + 64 x 64 + 64
+# multiply-adds, 129 bias sums); the actor forward; the entropy softmax,
+# expected Q and logit gradient (88 fp32, 16 SFU: 5 exp, 1 + 5 reciprocals,
+# 5 logs); the actor backward and weight gradients as in K7.
+MADDPG_AGENT_UPDATE = _ops(
+    *MLP, dense(64, 5), (1, {"fp32": 8}),
+    dense(69, 64), (64, TANH), dense(64, 64), (64, TANH), dense(64, 1), (1, {"fp32": 1}),
+    dense(69, 64), (64, {"fp32": 6}), (64, TANH), dense(64, 64), (64, TANH), dense(64, 1),
+    (5 * 64, {"fp32": 1}), (5 * 64, TANH), (5, _ops(dense(64, 64), (64, TANH), dense(64, 1))),
+    (1, {"fp32": 2 + 64 * 3 + 64 * 64 + 64 * 2}), (1, {"fp32": 64 * 69 + 64 * 64 + 64 + 129}),
+    *MLP, dense(64, 5), (1, {"fp32": 88, "sfu": 16}),
+    (1, {"fp32": 64 * 7 + 64 * 64 + 64 * 2}), (1, {"fp32": 64 * 18 + 64 * 64 + 5 * 64 + 133}))
+OPS["maddpg_update_kernel"] = {"step": _ops((3, MADDPG_AGENT_UPDATE)), "reset": {}, "env": {}}
+
 
 def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
              bytes_moved: int) -> tuple[float, str, float]:
@@ -288,7 +353,7 @@ def check_update(label: str, update, params, batch, gated: tuple[str, ...]) -> f
 
 def library_ppo_grads(step, params, batch):
     """The epoch gradient by autograd of the trainer's own loss (its forward
-    is torch.einsum, so torch.matmul): the library yardstick for K6, timed
+    is torch.einsum, so torch.matmul): the library yardstick for K6 and K7, timed
     here only and never on the port's path. The loss normalizes the
     advantages again, a near-identity on the normalized ones."""
     import torch
@@ -367,14 +432,13 @@ def rollout_path(wrappers, spec, dev):
     return launches, k2, k2_ms_at, k1_ms, det_inputs
 
 
-def training_path(wrappers, kscn):
-    """Main path b: TRAIN_ITERS iterations of the fused PPO trainer (K5, K6),
-    timed by phase with CUDA events."""
+def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
+    """Main path b (PPO: K5, K6) or b2 (MAPPO: K5, K7): TRAIN_ITERS
+    iterations of the fused trainer ``build``, timed by phase with CUDA
+    events."""
     import torch
 
-    from mpe_tpu_torch.learner import build_fused_ppo_step
-
-    step = build_fused_ppo_step(kscn, **TRAIN)
+    step = build(kscn, **TRAIN)
     params = step.init_params(torch.Generator().manual_seed(0))
     state0 = step.init_state(params)
     zero_launches(wrappers)
@@ -388,18 +452,17 @@ def training_path(wrappers, kscn):
             phases[name] += a.elapsed_time(b)
         total = events[0][1].elapsed_time(events[-1][1])
         m = {k: float(v) for k, v in metrics.items()}
-        assert all(math.isfinite(v) for v in m.values()), f"iteration {i}: metrics {m}"
+        assert all(math.isfinite(v) for v in m.values()), f"{label} iteration {i}: metrics {m}"
         iters.append((total, phases, m))
-        print(f"train iter {i:2d}: {total:8.3f} ms ({step.n_transitions / (total * 1e-3):.6g} "
+        print(f"{label} iter {i:2d}: {total:8.3f} ms ({step.n_transitions / (total * 1e-3):.6g} "
               f"transitions/s); " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
               + f" ms; mean_reward {m['mean_reward']:.5f}, entropy {m['entropy']:.5f}, "
               f"loss {m['loss']:.5f}")
-    launches = read_launches(wrappers, ["spread_policy_traj_kernel", "ppo_update_kernel"],
-                             "training path")
+    launches = read_launches(wrappers, kernels, f"{label} path")
     steady = iters[1:]          # iteration 0 sets up the batched forward
     total_ms = sum(t for t, _, _ in steady)
     phase_ms = {k: sum(p[k] for _, p, _ in steady) for k in steady[0][1]}
-    print(f"training, iterations 1-{TRAIN_ITERS - 1}: "
+    print(f"{label}, iterations 1-{TRAIN_ITERS - 1}: "
           f"{step.n_transitions * len(steady) / (total_ms * 1e-3):.6g} transitions/s "
           f"({len(steady)} x {step.n_transitions} transitions in {total_ms:.3f} ms); mean per "
           f"iteration {total_ms / len(steady):.3f} ms: "
@@ -407,9 +470,55 @@ def training_path(wrappers, kscn):
           + f"; median per iteration {statistics.median(t for t, _, _ in steady):.3f} ms")
     for i in (0, 9, 19):
         m = iters[i][2]
-        print(f"train iter {i}: mean_reward {m['mean_reward']:.6f}, entropy {m['entropy']:.6f}, "
-              f"loss {m['loss']:.6f}, pg_loss {m['pg_loss']:.6f}, v_loss {m['v_loss']:.6f}")
+        print(f"{label} iter {i}: mean_reward {m['mean_reward']:.6f}, entropy "
+              f"{m['entropy']:.6f}, loss {m['loss']:.6f}, pg_loss {m['pg_loss']:.6f}, v_loss "
+              f"{m['v_loss']:.6f}")
     return launches, step, state0, state
+
+
+def maddpg_path(wrappers):
+    """Main path d: the fused MADDPG loop (K8 collection, K9 updates) for
+    MADDPG_CHUNKS chunks, timed by phase with CUDA events."""
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_maddpg_runner
+
+    run = build_fused_maddpg_runner("simple_spread", **MADDPG)
+    horizon = MADDPG["horizon"]
+    zero_launches(wrappers)
+    events = []
+    t0 = time.perf_counter()
+    params, info = run(MADDPG_CHUNKS * horizon, seed=0, actor_start=MADDPG_ACTOR_START,
+                       events=events)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(wrappers, ["spread_maddpg_traj_kernel", "maddpg_update_kernel"],
+                             "MADDPG path")
+    chunks = []                 # (collect ms, update ms) per chunk
+    for c in range(MADDPG_CHUNKS):
+        start, col, upd = events[2 * c][1], events[2 * c + 1][1], events[2 * c + 2][1]
+        chunks.append((start.elapsed_time(col), col.elapsed_time(upd)))
+    steady = chunks[1:]         # chunk 0 sets up the update's first allocations
+    collect_ms, update_ms = (sum(x[q] for x in steady) for q in (0, 1))
+    total_ms = collect_ms + update_ms
+    n = run.transitions_per_chunk
+    mr, cl = info["mean_reward"].double(), info["critic_loss"].double()
+    assert bool(torch.isfinite(mr).all()) and bool(torch.isfinite(cl).all()), (mr, cl)
+    for net in params.values():
+        for layer in net.values():
+            assert all(bool(torch.isfinite(x).all()) for x in layer.values())
+    print(f"MADDPG, chunks 1-{MADDPG_CHUNKS - 1}: {n * len(steady) / (total_ms * 1e-3):.6g} "
+          f"transitions/s ({len(steady)} x {n} transitions, {len(steady) * horizon} updates of "
+          f"batch {MADDPG['batch']}, in {total_ms:.3f} ms); mean per chunk "
+          f"{total_ms / len(steady):.3f} ms: collect {collect_ms / len(steady):.3f} ms (K8 + "
+          f"insert), update {update_ms / len(steady):.3f} ms ({horizon} x gather + K9 + Adam + "
+          f"polyak); median chunk {statistics.median(a + b for a, b in steady):.3f} ms; the "
+          f"whole run with the warm-up {wall_s:.2f} s (host clock)")
+    print(f"MADDPG chunk 0: mean reward {float(mr[0]):.6f}, critic loss {float(cl[0]):.6f}; "
+          f"chunk {MADDPG_CHUNKS - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
+          f"{float(cl[-1]):.6f}; ring {info['buffer'].size} of {run.capacity} rows "
+          f"({info['buffer'].data.numel() * 4 / 1e6:.0f} MB)")
+    return launches, run, params, info
 
 
 def evaluation_path(wrappers, kscn, params):
@@ -434,6 +543,215 @@ def evaluation_path(wrappers, kscn, params):
     return launches, k4, actor, k4_ms, (ret, pos, eps)
 
 
+def check_mappo(mstep, mstate0, mstate):
+    """K7 against its plain version on the MAPPO trainer's batch, on the same
+    batch with both clips binding, and over one whole iteration; then K7, its
+    plain version and autograd of the trainer's loss timed on the trainer's
+    batch -> (max abs err, ms, plain ms, library ms, bound)."""
+    import torch
+
+    from mpe_tpu_torch.ops.fused_update import clip_binding_inputs
+
+    params = mstate[0]
+    obs, mv_oh, logp_old, value, adv_n, ret = mstep.collect(params, 3)
+    batch = (obs, mv_oh, None, logp_old, adv_n, ret, value)
+    lpo_c, v_c, shares = clip_binding_inputs(logp_old, value, clip=TRAIN["clip"],
+                                             generator=torch.Generator("cuda").manual_seed(11))
+    print(f"K7 clip-binding batch: the ratio clip binds for {shares[0]:.4f} of the actor samples, "
+          f"the value clip for {shares[1]:.4f} of the critic samples")
+    assert all(0.2 < s < 0.8 for s in shares), f"the clips bind for too few or too many: {shares}"
+    err = max(check_update("K7 (trainer batch)", mstep.update, params, batch, ("vloss", "entropy")),
+              check_update("K7 (clip-binding batch)", mstep.update, params,
+                           (obs, mv_oh, None, lpo_c, adv_n, ret, v_c), ("pg", "vloss", "entropy")))
+    (p_kernel, _), m_kernel = mstep(mstate0, 7)
+    (p_plain, _), m_plain = mstep.plain(mstate0, 7)
+    it_err = max(max_err(p_kernel[k][q], p_plain[k][q]) for k in p_kernel for q in p_kernel[k])
+    check("one MAPPO iteration (kernels vs plain)", {"params": it_err})
+    print("one MAPPO iteration, metrics kernels vs plain: "
+          + ", ".join(f"{k} {float(m_kernel[k]):.8g} vs {float(m_plain[k]):.8g}" for k in m_plain))
+    assert all(abs(float(m_kernel[k]) - float(m_plain[k])) <= METRIC_RTOL * abs(float(m_plain[k]))
+               for k in m_plain), "the MAPPO metrics disagree with the plain trainer's"
+    ms, _ = cuda_time(lambda: mstep.update(params, *batch), REPEATS)
+    plain_ms, _ = cuda_time(lambda: mstep.update.plain(params, *batch), REPEATS)
+    lib_ms, _ = cuda_time(lambda: library_ppo_grads(mstep, params, (obs, mv_oh, logp_old, value,
+                                                                     adv_n, ret)), REPEATS)
+    t, a, _, n = obs.shape
+    bound = bound_ms(OPS["mappo_update_kernel"], t * a * n, t * n, 0,
+                     t * a * n * (18 + 5 + 1) * 4 + t * n * 3 * 4 + 2 * (5701 + 7745) * 4)
+    print(f"K7 {ms:.4f} ms (one epoch, {t * a * n} actor and {t * n} critic samples), plain "
+          f"{plain_ms:.3f} ms, autograd of the trainer's loss {lib_ms:.3f} ms; bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor {bound[2]:.4f} ms")
+    return err, ms, plain_ms, lib_ms, bound
+
+
+def replay_rows(obs, act, rew, obs2):
+    """K8's tensor form [T, A, X, N] / [T, 1, N] -> its rows form [T, N, W]."""
+    import torch
+
+    a = obs.shape[1]
+    return torch.cat([obs.movedim(-1, 1).flatten(2), act.movedim(-1, 1).flatten(2),
+                      rew.expand(-1, a, -1).movedim(-1, 1), obs2.movedim(-1, 1).flatten(2)],
+                     dim=-1)
+
+
+def check_maddpg_collect(run, actor):
+    """K8 against its plain version at the runner's shape (1024 envs x 25
+    steps, two block offsets) with the checkpoint's actor and the runner's,
+    both output forms; then K8 and its plain version timed -> (max abs err,
+    ms, plain ms, bound)."""
+    import torch
+
+    from mpe_tpu_torch.convert import params_from_numpy, read_checkpoint_params
+    from mpe_tpu_torch.ops.fused_maddpg import fused_maddpg_trajectory
+    from mpe_tpu_torch.ops.fused_rollout import make_uniform
+
+    n, hor = MADDPG["n_envs"], MADDPG["horizon"]
+    traj = run.collect.traj                                  # the runner's rows form
+    t_chunk = traj.t_chunk
+    ckpt = params_from_numpy(read_checkpoint_params(MADDPG_CKPT), device="cuda")
+    tens = fused_maddpg_trajectory("simple_spread", actor, n, hor, horizon=hor, eps_greedy=0.1,
+                                   block_envs=BLOCK_ENVS, t_chunk=t_chunk)
+    errs, coins = {}, []
+    for label, a_params in (("checkpoint", ckpt["actor"]), ("runner", actor)):
+        for offset in (0, 1):
+            got, ref = tens(3, a_params, offset), tens.plain(3, a_params, offset)
+            report_actions(f"K8 ({label} actor, block offset {offset})", got[1], ref[1])
+            for k, a, b in zip(("obs", "act", "rew", "obs2"), got, ref):
+                errs[k] = max(errs.get(k, 0.0), max_err(a, b))
+            errs["rows"] = max(errs.get("rows", 0.0),
+                               max_err(traj(3, a_params, offset), replay_rows(*got)))
+            for chunk in range(hor // t_chunk):
+                u = make_uniform(3, offset, n // BLOCK_ENVS, BLOCK_ENVS, chunk, device="cuda")
+                coins += [float((u((1,), step, 30 + 6 * i) < 0.1).double().mean())
+                          for step in range(t_chunk) for i in range(3)]
+    share = sum(coins) / len(coins)
+    print(f"K8 eps coin: binds for {share:.4f} of the draws (eps 0.1)")
+    assert 0.08 < share < 0.12, share
+    err = check(f"K8 ({n} envs x {hor} steps, two actors, two block offsets, both forms)", errs)
+    ms, _ = cuda_time(lambda: traj(1, actor), REPEATS)
+    plain_ms, _ = cuda_time(lambda: traj.plain(1, actor), 1)
+    bound = bound_ms(OPS["spread_maddpg_traj_kernel"], n * hor, n * 2, n,
+                     n * hor * 126 * 4 + 3 * 5701 * 4)
+    print(f"K8 {ms:.4f} ms ({n} envs x {hor} steps, rows form), plain {plain_ms:.1f} ms; bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor {bound[2]:.4f} ms")
+    return err, ms, plain_ms, bound
+
+
+def check_maddpg_update(run, params, info):
+    """K9 against its plain version on 1024 rows of the runner's ring, with
+    the runner's params and targets = params + 0.1 N(0, 1), then one update
+    chunk of 25 updates with the same indices (kernels vs plain); then K9,
+    its plain version and autograd of the losses timed -> (max abs err, ms,
+    plain ms, library ms, bound)."""
+    import torch
+
+    from mpe_tpu_torch.learner.fused_loop import actor_gates
+    from mpe_tpu_torch.learner.maddpg import maddpg_xla_grads
+    from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda, target_logits
+
+    buf, b = info["buffer"], MADDPG["batch"]
+    gen = torch.Generator("cuda").manual_seed(5)
+    rows = buf.data[torch.randint(0, buf.size, (b,), generator=gen, device="cuda")].contiguous()
+    targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda")
+                       for w, x in layer.items()} for q, layer in net.items()}
+               for n, net in params.items()}
+    grads_fn = run.update_chunk.grads_fn
+    act2 = torch.empty((3, b), dtype=torch.int32, device="cuda")
+    got, got_m = maddpg_update_cuda(params, targets, rows, gamma=0.95, ent_coef=0.01,
+                                    target_actions=act2)
+    ref, ref_m = grads_fn.plain.from_rows(params, targets, rows)
+    errs, worst = {}, 0.0
+    for n in ref:
+        for q in ref[n]:
+            for w in ref[n][q]:
+                e = max_err(got[n][q][w], ref[n][q][w])
+                errs[f"{n}.{q}.{w}"] = e / float(ref[n][q][w].abs().max())
+                worst = max(worst, e)
+    logits = target_logits(targets["actor"], rows[:, -54:].reshape(b, 3, 18))
+    top2 = logits.topk(2, dim=-1).values
+    agree = float((act2.long() == logits.argmax(-1).T).double().mean())
+    print(f"K9 target actions equal to plain: {agree:.6f}; smallest gap between the best and "
+          f"the second target logit {float((top2[..., 0] - top2[..., 1]).min()):.3g}")
+    names = ("critic_loss", "actor_loss", "q_mean")
+    print("K9 max abs err vs plain over each leaf's largest entry: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + "; metrics kernel vs plain: "
+          + ", ".join(f"{k} {float(x):.8g} vs {float(y):.8g}"
+                      for k, x, y in zip(names, got_m, ref_m)))
+    assert max(errs.values()) <= GRAD_TOL, "K9: the gradient disagrees with its plain version"
+    assert all(abs(float(x) - float(y)) <= METRIC_RTOL * abs(float(y))
+               for x, y in zip(got_m, ref_m)), "K9: the metrics disagree with their plain version"
+
+    h = MADDPG["horizon"]
+    idx = torch.randint(0, buf.size, (h, b), generator=gen, device="cuda")
+    gates = actor_gates(MADDPG_CHUNKS, h, MADDPG_ACTOR_START)
+    state = (params, info["targets"], info["opt_states"])
+    pk, tk, _, mk = run.update_chunk(*state, buf, 0, gates, indices=idx)
+    pp, tp, _, mp = run.update_chunk.plain(*state, buf, 0, gates, indices=idx)
+    chunk_err = max(max_err(x[n][q][w], y[n][q][w]) for x, y in ((pk, pp), (tk, tp))
+                    for n in x for q in x[n] for w in x[n][q])
+    check(f"one MADDPG update chunk ({h} updates, kernels vs plain)", {"chunk params": chunk_err})
+    print("one MADDPG update chunk, last metrics kernels vs plain: "
+          + ", ".join(f"{k} {float(mk[k]):.8g} vs {float(mp[k]):.8g}" for k in mk))
+
+    ms, _ = cuda_time(lambda: grads_fn.from_rows(params, targets, rows), REPEATS)
+    plain_ms, _ = cuda_time(lambda: grads_fn.plain.from_rows(params, targets, rows), REPEATS)
+    split = buf._split(rows)
+    lib_ms, _ = cuda_time(lambda: maddpg_xla_grads(params, targets, *split, mw=5, cw=0,
+                                                   gamma=0.95, ent_coef=0.01), REPEATS)
+    bound = bound_ms(OPS["maddpg_update_kernel"], b, 0, 0,
+                     b * 126 * 4 + 2 * 3 * (5701 + 8705) * 4 + 3 * 14409 * 4)
+    print(f"K9 {ms:.4f} ms (batch {b}), plain {plain_ms:.3f} ms, autograd of the losses "
+          f"{lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue "
+          f"floor {bound[2]:.4f} ms")
+    return worst, ms, plain_ms, lib_ms, bound
+
+
+def profile_maddpg_update(run, params, info):
+    """One MADDPG update chunk (25 updates) under torch.profiler: K9's device
+    time per update (its three kernels), the device's busy share of the
+    chunk's CUDA-event time, and the kernels that take the most device time.
+    It reports and gates nothing; without device events it says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpe_tpu_torch.learner.fused_loop import actor_gates
+
+    h = MADDPG["horizon"]
+    state = (params, info["targets"], info["opt_states"])
+    gates = actor_gates(MADDPG_CHUNKS, h, MADDPG_ACTOR_START)
+    run.update_chunk(*state, info["buffer"], 1, gates)          # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run.update_chunk(*state, info["buffer"], 2, gates)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    if not kernels:
+        print("MADDPG update chunk under torch.profiler: device time not measured (no device "
+              "events)")
+        return
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    k9_ms = {n: sum(device_us(e) for e in kernels if n in e.key) / 1e3 / h
+             for n in ("maddpg_target_actions_kernel", "maddpg_update_kernel",
+                       "maddpg_reduce_kernel")}
+    print(f"MADDPG update chunk under torch.profiler ({h} updates, {wall_ms:.3f} ms by CUDA "
+          f"events): device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f} of the time, idle "
+          f"{1 - busy_ms / wall_ms:.4f}); K9 device time per update "
+          f"{sum(k9_ms.values()):.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in k9_ms.items())
+          + f"); {sum(e.count for e in kernels) / h:.1f} kernel launches per update")
+    top = sorted(kernels, key=device_us, reverse=True)[:6]
+    print("  most device time: " + "; ".join(
+        f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms in {e.count}" for e in top))
+
+
 def main() -> int:
     import torch
 
@@ -447,14 +765,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from mpe_tpu_torch import scenarios
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
     from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
+    from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda
     from mpe_tpu_torch.ops.fused_parity import (fused_det_rollout, plain_det_rollout_blocked,
                                                 spread_det_rollout_cuda)
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
                                                 spread_policy_rollout_cuda,
                                                 spread_policy_traj_cuda)
     from mpe_tpu_torch.ops.fused_rollout import fused_spread_rollout, spread_rollout_cuda
-    from mpe_tpu_torch.ops.fused_update import clip_binding_inputs, ppo_update_cuda
+    from mpe_tpu_torch.ops.fused_update import (clip_binding_inputs, mappo_update_cuda,
+                                                ppo_update_cuda)
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off (plain versions)"
@@ -478,14 +800,25 @@ def main() -> int:
                 "spread_det_rollout_kernel": spread_det_rollout_cuda,
                 "spread_policy_traj_kernel": spread_policy_traj_cuda,
                 "spread_policy_rollout_kernel": spread_policy_rollout_cuda,
-                "ppo_update_kernel": ppo_update_cuda}
+                "ppo_update_kernel": ppo_update_cuda,
+                "mappo_update_kernel": mappo_update_cuda,
+                "spread_maddpg_traj_kernel": maddpg_traj_cuda,
+                "maddpg_update_kernel": maddpg_update_cuda}
 
     # ---- main paths ----------------------------------------------------------
     launches, k2, k2_ms_at, k1_ms, det_inputs = rollout_path(wrappers, spec, torch.device("cuda"))
-    train_launches, step, state0, state = training_path(wrappers, kscn)
+    train_launches, step, state0, state = training_path(
+        wrappers, kscn, build_fused_ppo_step, "train", ["spread_policy_traj_kernel",
+                                                        "ppo_update_kernel"])
     launches.update(train_launches)
+    mappo_launches, mstep, mstate0, mstate = training_path(
+        wrappers, kscn, build_fused_mappo_step, "MAPPO", ["spread_policy_traj_kernel",
+                                                          "mappo_update_kernel"])
+    launches["mappo_update_kernel"] = mappo_launches["mappo_update_kernel"]   # K5: path b's
     eval_launches, k4, actor, k4_ms, k4_out = evaluation_path(wrappers, kscn, state[0])
     launches.update(eval_launches)
+    maddpg_launches, run, mparams, minfo = maddpg_path(wrappers)
+    launches.update(maddpg_launches)
     zero_launches(wrappers)
 
     # ---- kernels against their plain versions -------------------------------
@@ -580,6 +913,12 @@ def main() -> int:
           f"({N_ENVS} envs x {N_STEPS} steps); K5 {plain_k5_ms:.1f} ms, K6 {plain_k6_ms:.3f} ms, "
           f"K4 {plain_k4_ms:.1f} ms; K6 by autograd of the trainer's loss {lib_k6_ms:.3f} ms")
 
+    # ---- this slice's kernels: K7 (MAPPO), K8 and K9 (MADDPG) ---------------
+    k7_err, k7_ms, plain_k7_ms, lib_k7_ms, b7 = check_mappo(mstep, mstate0, mstate)
+    k8_err, k8_ms, plain_k8_ms, b8 = check_maddpg_collect(run, mparams["actor"])
+    k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9 = check_maddpg_update(run, mparams, minfo)
+    profile_maddpg_update(run, mparams, minfo)
+
     # ---- bounds ---------------------------------------------------------------
     # bytes: K2 writes pos, vel (2 x 6 x 2 floats), rew_sum and obs_sum per
     # env; K1 reads pos0, vel0 and writes pos, vel, rew_sum, rew and obs [3,18];
@@ -634,6 +973,13 @@ def main() -> int:
                k4_err, k4_ms, plain_k4_ms, (b4, by4)),
         record("ppo_update_kernel", "mpe_update.cu", "mpe_tpu/ops/fused_update.py:188",
                k6_err, k6_ms, plain_k6_ms, (b6, by6), lib_k6_ms),
+        record("mappo_update_kernel", "mpe_update.cu", "mpe_tpu/ops/fused_update.py:245",
+               k7_err, k7_ms, plain_k7_ms, b7, lib_k7_ms),
+        record("spread_maddpg_traj_kernel", "mpe_maddpg.cu", "mpe_tpu/ops/fused_maddpg.py:105",
+               k8_err, k8_ms, plain_k8_ms, b8),
+        record("maddpg_update_kernel", "mpe_maddpg.cu",
+               "mpe_tpu/ops/fused_maddpg_update.py:142", k9_err, k9_ms, plain_k9_ms, b9,
+               lib_k9_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,13 +4,18 @@
 with ``np.asarray``) into the port's env-leading ``WorldState``;
 ``state_to_numpy`` goes back. ``spec_fields`` lists a spec's tables so the
 two packages' specs can be compared field by field. ``params_from_numpy``
-and ``params_to_numpy`` carry learner parameters (``{layer: {"w": [in, out],
-"b": [out]}}``, the same layout in both packages).
+and ``params_to_numpy`` carry learner parameters (nested dicts of arrays:
+``{layer: {"w": [in, out], "b": [out]}}``, or MADDPG's ``{"actor" |
+"critic": {layer: {"w", "b"}}}`` with a leading agent axis; the same layout
+in both packages). ``read_checkpoint_params`` reads the params tree of a
+checkpoint written by ``mpe_tpu/utils/checkpoint.py`` with numpy alone.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -50,15 +55,54 @@ def spec_fields(spec) -> dict:
     return {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
 
 
+def _map_tree(fn, tree):
+    """``fn`` over the leaves of nested dicts."""
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def params_from_numpy(tree, device=None, dtype=torch.float32) -> dict:
-    """A params pytree of numpy arrays (``{layer: {"w", "b"}}``, e.g. a JAX
-    ``init_ac`` read out with ``np.asarray``) -> the port's params."""
+    """A params tree of numpy arrays (nested dicts, e.g. a JAX ``init_ac``
+    or ``init_maddpg`` read out with ``np.asarray``) -> the port's params."""
     device = resolve_device(device)
-    return {k: {q: torch.tensor(np.asarray(x), dtype=dtype, device=device)
-                for q, x in layer.items()} for k, layer in tree.items()}
+    return _map_tree(lambda x: torch.tensor(np.asarray(x), dtype=dtype, device=device), tree)
 
 
 def params_to_numpy(params) -> dict:
     """The port's params -> the same tree of numpy arrays."""
-    return {k: {q: x.detach().cpu().numpy() for q, x in layer.items()}
-            for k, layer in params.items()}
+    return _map_tree(lambda x: x.detach().cpu().numpy(), params)
+
+
+def read_checkpoint_params(path) -> dict:
+    """The params tree of an ``.npz`` checkpoint of the JAX package
+    (``mpe_tpu/utils/checkpoint.py::save_checkpoint``), as numpy arrays.
+
+    The file holds ``leaf_0 .. leaf_{n-1}`` and a ``__meta__`` JSON whose
+    ``treedef`` is the printed structure of ``{"state": params}``; JAX
+    flattens dicts in sorted-key order, so the leaves are assigned in that
+    order. Only a tree of dicts of arrays is read (the rest of a training
+    state waits for ROADMAP A11); anything else raises ``ValueError``."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["__meta__"]))
+        leaves = [z[f"leaf_{i}"] for i in range(meta["n_leaves"])]
+    text = meta["treedef"]
+    if not (text.startswith("PyTreeDef(") and text.endswith(")")):
+        raise ValueError(f"not a printed JAX treedef: {text[:80]!r}")
+    try:
+        structure = ast.literal_eval(text[len("PyTreeDef("):-1].replace("*", "None"))
+    except (ValueError, SyntaxError) as e:
+        raise ValueError(f"the checkpoint's tree is not a tree of dicts: {text[:120]!r}") from e
+    if not isinstance(structure, dict) or set(structure) != {"state"}:
+        raise ValueError(f"expected a {{'state': params}} payload, got {text[:120]!r}")
+    it = iter(leaves)
+
+    def fill(node):
+        if node is None:
+            return next(it)
+        if not isinstance(node, dict):
+            raise ValueError(f"the checkpoint's tree is not a tree of dicts: {text[:120]!r}")
+        return {k: fill(node[k]) for k in sorted(node)}
+
+    params = fill(structure["state"])
+    if next(it, None) is not None:
+        raise ValueError(f"{meta['n_leaves']} leaves for a tree with fewer")
+    return params

@@ -22,9 +22,8 @@
 // four units at a time, into the five logit sums, so no second 64-float array
 // is live.
 //
-// Rounding: every layer sums over its inputs in order, starting from the first
-// product, then adds the bias, as the plain versions (ops/fused_policy.py::
-// _seq_dense) do; with -fmad=false each multiply and add rounds on its own, and
+// Rounding: the MLP (policy_mlp.cuh) sums each layer in the plain versions'
+// order; with -fmad=false each multiply and add rounds on its own, and
 // tanhf/logf are the functions PyTorch's CUDA tanh/log call. So the kernels
 // reproduce their plain versions on the card, actions included: Gumbel-max turns
 // a one-ulp change in a logit into another action and the trajectories part.
@@ -34,38 +33,11 @@
 // part of the stream's definition although the thread does not chunk time.
 // K4 has no chunk salt and counts steps from 0 to n_steps - 1.
 
-#include "spread_common.cuh"
+#include "policy_mlp.cuh"
 
 namespace {
 
-constexpr int OW = 18;           // simple_spread obs width
-constexpr int H = 64;            // hidden width
-constexpr int K = MW;            // move logits (spread has no comm head)
-// packed weights, kernel layout (ops/fused_policy.py::_pack_weights):
-// w1 [H,OW], b1 [H], w2 [H,H], b2 [H], w3 [K,H], b3 [K]
-constexpr int W1 = 0, B1 = W1 + H * OW, W2 = B1 + H, B2 = W2 + H * H, W3 = B2 + H,
-              B3 = W3 + K * H, NW = B3 + K;
-static_assert(W2 % 4 == 0 && H % 4 == 0, "w2 rows are read as float4, four rows at a time");
 constexpr int POLICY_THREADS = 32;   // one warp per CTA, as K2 (4096 envs -> 128 SMs)
-
-// four rows g..g+3 of w2 against h, each summed over its 64 inputs in order
-// from the first product; the rows are independent chains, interleaved for
-// instruction-level parallelism (one warp per SM has no other warp to hide
-// the adds' latency)
-__device__ __forceinline__ void dot64x4(const float* __restrict__ rows, const float (&h)[H],
-                                        float (&acc)[4]) {
-#pragma unroll
-  for (int q = 0; q < H / 4; ++q) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 v = reinterpret_cast<const float4*>(rows + j * H)[q];
-      acc[j] = (q == 0) ? v.x * h[0] : acc[j] + v.x * h[4 * q + 0];
-      acc[j] = acc[j] + v.y * h[4 * q + 1];
-      acc[j] = acc[j] + v.z * h[4 * q + 2];
-      acc[j] = acc[j] + v.w * h[4 * q + 3];
-    }
-  }
-}
 
 // _policy_sample for agent `agent`: MLP on its obs x, Gumbel-max over the K
 // move logits with uniforms uniform((K, A*n), step, 7), first-max tie-break.
@@ -73,36 +45,13 @@ __device__ __forceinline__ void dot64x4(const float* __restrict__ rows, const fl
 template <int A>
 __device__ __noinline__ int sample_move(const float* __restrict__ w, const float (&x)[OW],
                                            uint32_t salt, uint32_t n, uint32_t lane, int agent) {
-  float h1[H];
-#pragma unroll
-  for (int g = 0; g < H; ++g) {
-    const float* row = w + W1 + g * OW;
-    float acc = row[0] * x[0];
-#pragma unroll
-    for (int k = 1; k < OW; ++k) acc = acc + row[k] * x[k];
-    h1[g] = tanhf(acc + w[B1 + g]);
-  }
-  float z[K] = {};
-#pragma unroll 1
-  for (int g = 0; g < H; g += 4) {
-    float acc[4];
-    dot64x4(w + W2 + g * H, h1, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {                 // the logit sums run over g in order
-      const float h2 = tanhf(acc[j] + w[B2 + g + j]);
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const float p = w[W3 + c * H + g + j] * h2;
-        z[c] = (g + j == 0) ? p : z[c] + p;
-      }
-    }
-  }
+  float z[K];
+  policy_logits(w, x, z);
   int best = 0;
   float best_s = 0.0f;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    const float u = hash_uniform(salt, (uint32_t)(c * A + agent) * n + lane);
-    const float s = (z[c] + w[B3 + c]) - logf(-logf(u + 1e-12f) + 1e-12f);
+    const float s = gumbel_score(z[c], hash_uniform(salt, (uint32_t)(c * A + agent) * n + lane));
     if (c == 0 || s > best_s) {
       best_s = s;
       best = c;

@@ -1,7 +1,9 @@
-"""PPO on the fused engine, one device (counterpart of
+"""PPO and MAPPO on the fused engine, one device (counterpart of
 ``mpe_tpu/learner/fused_ppo.py``).
 
-One iteration of ``build_fused_ppo_step``:
+One iteration of ``build_fused_ppo_step`` (``build_fused_mappo_step`` is the
+same with a centralized critic on the joint obs, GAE over the team reward
+[T, N], and kernel K7 in place of K6):
 
 1. collection: kernel K5 (``ops/fused_policy.fused_policy_trajectory``)
    runs the actor inside the env loop and emits the on-policy batch
@@ -31,9 +33,9 @@ import torch
 
 from mpe_tpu_torch._device import resolve_device
 from mpe_tpu_torch.learner.optim import apply_updates, clip_adam, linear_schedule, tree_map
-from mpe_tpu_torch.learner.ppo import init_ac
+from mpe_tpu_torch.learner.ppo import init_ac, init_mappo
 from mpe_tpu_torch.ops.fused_policy import _resolve, fused_policy_trajectory
-from mpe_tpu_torch.ops.fused_update import fused_ppo_update
+from mpe_tpu_torch.ops.fused_update import fused_mappo_update, fused_ppo_update
 
 
 @contextlib.contextmanager
@@ -237,6 +239,88 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
         _, last_value = forward(params, last_obs)
         adv, ret = _gae_minor(value, _agent_rewards(kscn, rew).to(dtype), nonterm_t, last_value,
                               gamma, lam)
+        return obs.to(dtype), mv_oh, logp_old, value, adv, ret
+
+    def trainer(traj, kernel_update):
+        return _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update,
+                              ppo_epochs=ppo_epochs, vf_coef=vf_coef, ent_coef=ent_coef,
+                              fused_update=fused_update, init_params=init_params,
+                              n_transitions=n_envs * n_steps)
+
+    step = trainer(traj, kernel_update)
+    step.plain = trainer(traj.plain, kernel_update.plain if fused_update else None)
+    return step
+
+
+def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int = 100,
+                           hidden: int = 64, lr: float = 3e-4, gamma: float = 0.95,
+                           lam: float = 0.95, clip: float = 0.2, vf_coef: float = 0.5,
+                           ent_coef: float = 0.01, ppo_epochs: int = 4,
+                           anneal_iters: int | None = None, block_envs: int = 1024,
+                           t_chunk: int = 8, fused_update: bool = True, device=None,
+                           dtype=torch.float32):
+    """MAPPO iteration on the fused engine (the contract of
+    ``build_fused_ppo_step``; params in ``learner.ppo.init_mappo`` layout).
+    The decentralized actor (``a1, a2, pi``) runs inside kernel K5; the
+    centralized critic (``c1, c2, v``) reads the joint obs ``[.., A*OW, N]``
+    outside it. The value, its targets and the advantage are team streams
+    ``[T, N]``: GAE over the mean reward across agents. Each epoch's gradient
+    is kernel K7 (``ops/fused_update.fused_mappo_update``; with
+    ``fused_update=False``, autograd of ``step.loss_fn``). ``step.plain`` is
+    the same trainer with the plain versions of K5 and K7."""
+    kscn = _resolve(scenario)
+    device = resolve_device(device)
+    a, ow = kscn.spec.n_agents, kscn.obs_w
+    mw = 2 * kscn.spec.dim_p + 1
+    sched = linear_schedule(lr, 0.0, anneal_iters * ppo_epochs) if anneal_iters else lr
+    opt = clip_adam(sched, max_norm=0.5)
+
+    def init_params(generator):
+        params = init_mappo(generator, ow, mw, a, hidden=hidden, dtype=dtype)
+        return tree_map(lambda x: x.to(device), params)
+
+    def actor(p):
+        return {"l1": p["a1"], "l2": p["a2"], "out": p["pi"]}
+
+    tmpl = init_mappo(torch.Generator().manual_seed(0), ow, mw, a, hidden=hidden)
+    traj = fused_policy_trajectory(kscn, actor(tmpl), n_envs, n_steps, horizon=horizon,
+                                   block_envs=block_envs, t_chunk=t_chunk, device=device)
+    kernel_update = fused_mappo_update(kscn, n_envs, n_steps, hidden, clip=clip,
+                                       vf_coef=vf_coef, ent_coef=ent_coef, device=device,
+                                       dtype=dtype) if fused_update else None
+    nonterm_t = [0.0 if (t + 1) % horizon == 0 else 1.0 for t in range(n_steps)]
+
+    def actor_logits(params, obs):
+        """obs [..., A, OW, N] -> logits [..., A, K, N]."""
+        return _head_minor(params["pi"], _torso_minor(params["a1"], params["a2"], obs.to(dtype)))
+
+    def central_value(params, obs):
+        """obs [..., A, OW, N] -> joint-state value [..., N]."""
+        joint = obs.to(dtype).reshape(obs.shape[:-3] + (a * ow,) + obs.shape[-1:])
+        h = _torso_minor(params["c1"], params["c2"], joint)
+        return _head_minor(params["v"], h)[..., 0, :]
+
+    def loss_fn(params, batch):
+        obs, mv_oh, logp_old, value_old, adv, ret = batch
+        logp, ent = _factored_logp_ent(kscn, actor_logits(params, obs), mv_oh)
+        value = central_value(params, obs)
+        ratio = torch.exp(logp - logp_old)
+        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        adv_b = adv_n[..., None, :]                     # the team advantage of every agent
+        pg = -torch.minimum(ratio * adv_b, torch.clamp(ratio, 1 - clip, 1 + clip) * adv_b).mean()
+        v_clip = value_old + torch.clamp(value - value_old, -clip, clip)
+        vloss = torch.maximum((value - ret).square(), (v_clip - ret).square()).mean()
+        return pg + vf_coef * vloss - ent_coef * ent.mean(), (pg, vloss, ent.mean())
+
+    def prep(params, obs, act, rew, last_obs):
+        """Centralized value on the joint obs [T, N]; GAE over the team
+        reward (the mean across agents)."""
+        mv_oh = _factored_onehots(kscn, act).to(dtype).contiguous()
+        logp_old, _ = _factored_logp_ent(kscn, actor_logits(params, obs), mv_oh)
+        value = central_value(params, obs).contiguous()
+        last_value = central_value(params, last_obs)
+        team_rew = _agent_rewards(kscn, rew).to(dtype).mean(-2)
+        adv, ret = _gae_minor(value, team_rew, nonterm_t, last_value, gamma, lam)
         return obs.to(dtype), mv_oh, logp_old, value, adv, ret
 
     def trainer(traj, kernel_update):

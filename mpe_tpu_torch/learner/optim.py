@@ -1,6 +1,7 @@
-"""The PPO trainers' optimizer, ``optax.chain(clip_by_global_norm(max_norm),
-adam(learning_rate))``, written with optax's formulas in optax's order so
-that the port can be held to it at 1e-12 in float64:
+"""The trainers' optimizers, written with optax's formulas in optax's order
+so that the port can be held to them at 1e-12 in float64: the PPO
+trainers' ``optax.chain(clip_by_global_norm(max_norm), adam(learning_rate))``
+(``clip_adam``) and MADDPG's plain ``optax.adam(learning_rate)`` (``adam``):
 
 - the global norm is ``sqrt`` of the sum over leaves (sorted keys) of each
   leaf's sum of squares, and the clip is ``where(norm < max_norm, g,
@@ -73,17 +74,16 @@ class Optimizer(NamedTuple):
     update: Callable        # (grads, state) -> (updates, state)
 
 
-def clip_adam(learning_rate, max_norm: float = 0.5, b1: float = 0.9, b2: float = 0.999,
-              eps: float = 1e-8) -> Optimizer:
-    """Global-norm clip, then Adam scaled by ``-learning_rate`` (a float or
-    a schedule of the update count)."""
+def _adam(learning_rate, transform, b1: float, b2: float, eps: float) -> Optimizer:
+    """Adam scaled by ``-learning_rate`` (a float or a schedule of the update
+    count), after ``transform`` of the gradients (the identity or a clip)."""
 
     def init(params) -> AdamState:
         zeros = tree_map(torch.zeros_like, params)
         return AdamState(0, zeros, tree_map(torch.zeros_like, params), 0)
 
     def update(grads, state: AdamState):
-        g = clip_by_global_norm(grads, max_norm)
+        g = transform(grads)
         mu = tree_map(lambda x, m: (1 - b1) * x + b1 * m, g, state.mu)
         nu = tree_map(lambda x, v: (1 - b2) * (x * x) + b2 * v, g, state.nu)
         count = state.count + 1
@@ -106,6 +106,18 @@ def clip_adam(learning_rate, max_norm: float = 0.5, b1: float = 0.9, b2: float =
         return u, AdamState(count, mu, nu, state.schedule_count + 1)
 
     return Optimizer(init, update)
+
+
+def clip_adam(learning_rate, max_norm: float = 0.5, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8) -> Optimizer:
+    """Global-norm clip, then Adam scaled by ``-learning_rate`` (a float or
+    a schedule of the update count)."""
+    return _adam(learning_rate, lambda g: clip_by_global_norm(g, max_norm), b1, b2, eps)
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+    """``optax.adam``: Adam scaled by ``-learning_rate``, no clip."""
+    return _adam(learning_rate, lambda g: g, b1, b2, eps)
 
 
 def apply_updates(params, updates):

@@ -28,8 +28,8 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu")
-HEADERS = ("spread_common.cuh",)
+SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu")
+HEADERS = ("spread_common.cuh", "policy_mlp.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -93,6 +93,13 @@ SIGNATURES = {
     "mpe_update.cu": {
         "mpe_ppo_update_h64": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_P],
         "mpe_ppo_update_packed_size": [],
+        "mpe_mappo_update_h64": [_P] * 10 + [_I] * 4 + [_F] * 7 + [_P],
+        "mpe_mappo_update_packed_size": [_I],
+    },
+    "mpe_maddpg.cu": {
+        "mpe_spread_maddpg_traj_a3l3": [_P] * 7 + [_I] * 5 + [_F, _U, _U, _P],
+        "mpe_maddpg_update_a3h64": [_P] * 5 + [_I] + [_F] * 3 + [_P],
+        "mpe_maddpg_update_layout": [_I],
     },
 }
 

@@ -13,7 +13,11 @@ another order (atol 1e-3 over 20 steps). The policy kernels K4/K5 sum each
 layer in the plain version's order: actions and episode counts equal,
 values within 1e-5. The update kernel K6 sums the batch in its own order:
 each gradient leaf within 1e-4 of the largest entry of the leaf, the
-metrics within 1e-4 relative, on a batch where both clips bind too.
+metrics within 1e-4 relative, on a batch where both clips bind too; so does
+the MAPPO update kernel K7. The MADDPG collection kernel K8 takes the plain
+version's actions exactly (values within 1e-5) in both output forms; the
+MADDPG update kernel K9 takes the plain version's target actions and its
+gradient leaves lie within 1e-4 of each leaf's largest entry.
 """
 
 import dataclasses
@@ -23,7 +27,7 @@ import torch
 
 from mpe_tpu_torch import scenarios
 from mpe_tpu_torch.learner import init_policy
-from mpe_tpu_torch.learner.fused_ppo import build_fused_ppo_step
+from mpe_tpu_torch.learner.fused_ppo import build_fused_mappo_step, build_fused_ppo_step
 from mpe_tpu_torch.ops import fused_parity, fused_policy, fused_rollout, fused_update
 from mpe_tpu_torch.ops.kernel_scenarios import KernelSpread, kernel_scenario
 
@@ -147,3 +151,91 @@ def test_policy_kernels_refuse_other_specs(card, change):
         fused_policy.spread_policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device=card)
     with pytest.raises(NotImplementedError, match="simple_spread's physics only"):
         fused_policy.spread_policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device=card)
+
+
+def _leaf_close(got, ref, rel: float, name: str):
+    """Every leaf of a nested gradient tree within ``rel`` of its largest entry."""
+    if isinstance(ref, dict):
+        for key in ref:
+            _leaf_close(got[key], ref[key], rel, f"{name}.{key}")
+        return
+    torch.testing.assert_close(got, ref, rtol=0, atol=rel * float(ref.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+def test_mappo_update_kernel_matches_plain(card):
+    """K7 on the MAPPO trainer's epoch-0 batch and on the same batch with
+    both clips binding for about half of the samples (team value streams)."""
+    step = build_fused_mappo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
+                                  device=card)
+    params = step.init_params(torch.Generator().manual_seed(1))
+    obs, mv_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
+    assert value.shape == (16, 1024) and adv_n.shape == (16, 1024)
+    lpo_c, v_c, shares = fused_update.clip_binding_inputs(
+        logp_old, value, clip=0.2, generator=torch.Generator(card).manual_seed(3))
+    assert all(0.2 < s < 0.8 for s in shares), shares
+    for lpo, v_old, first_metric in ((logp_old, value, 1), (lpo_c, v_c, 0)):
+        before = fused_update.mappo_update_cuda.launches
+        got, got_m = step.update(params, obs, mv_oh, None, lpo, adv_n, ret, v_old)
+        assert fused_update.mappo_update_cuda.launches == before + 1
+        ref, ref_m = step.update.plain(params, obs, mv_oh, None, lpo, adv_n, ret, v_old)
+        _leaf_close(got, ref, 1e-4, "grads")
+        for a, b in zip(got_m[first_metric:], ref_m[first_metric:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+
+
+def _maddpg_actor(card, seed=0):
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+
+    params = init_maddpg(torch.Generator().manual_seed(seed), 18, 5, 3)
+    return {n: {q: {w: x.to(card) for w, x in layer.items()} for q, layer in net.items()}
+            for n, net in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [0.1, 0.0])
+def test_maddpg_traj_kernel_matches_plain(card, eps):
+    from mpe_tpu_torch.ops import fused_maddpg
+
+    actor = _maddpg_actor(card)["actor"]
+    for rows in (False, True):
+        run = fused_maddpg.fused_maddpg_trajectory("simple_spread", actor, 2048, 20, horizon=10,
+                                                   eps_greedy=eps, block_envs=1024, t_chunk=5,
+                                                   emit_rows=rows, device=card)
+        before = fused_maddpg.maddpg_traj_cuda.launches
+        got = run(4, actor, 1)
+        assert fused_maddpg.maddpg_traj_cuda.launches == before + 1
+        ref = run.plain(4, actor, 1)
+        got, ref = ((got,), (ref,)) if rows else (got, ref)
+        for name, a, b in zip(("obs", "act", "rew", "obs2"), got, ref):
+            atol = 0 if name == "act" else 1e-5
+            torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=f"{name} (rows={rows})")
+
+
+@pytest.mark.cuda
+def test_maddpg_update_kernel_matches_plain(card):
+    from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update
+
+    params = _maddpg_actor(card, 1)
+    gen = torch.Generator(card).manual_seed(2)
+    targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device=card)
+                       for w, x in layer.items()} for q, layer in net.items()}
+               for n, net in params.items()}
+    rows = fused_maddpg.fused_maddpg_trajectory("simple_spread", params["actor"], 1024, 10,
+                                                horizon=5, block_envs=1024, t_chunk=5,
+                                                emit_rows=True, device=card)(0, params["actor"])
+    rows = rows.reshape(-1, rows.shape[-1])[torch.randperm(10240, generator=gen, device=card)[:512]]
+    grads_fn = fused_maddpg_update.fused_maddpg_update(3, 18, 5, 5, 64, 512, device=card)
+    act2 = torch.empty((3, 512), dtype=torch.int32, device=card)
+    before = fused_maddpg_update.maddpg_update_cuda.launches
+    got, got_m = fused_maddpg_update.maddpg_update_cuda(params, targets, rows.contiguous(),
+                                                        gamma=0.95, ent_coef=0.01,
+                                                        target_actions=act2)
+    assert fused_maddpg_update.maddpg_update_cuda.launches == before + 1
+    ref, ref_m = grads_fn.plain.from_rows(params, targets, rows)
+    obs2 = rows[:, -54:].reshape(512, 3, 18)
+    want_act2 = fused_maddpg_update.target_logits(targets["actor"], obs2).argmax(-1).T
+    assert torch.equal(act2.long(), want_act2)
+    _leaf_close(got, ref, 1e-4, "grads")
+    for a, b in zip(got_m, ref_m):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
