@@ -8,7 +8,7 @@ failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time and the compiler's register report;
-  2. five main paths, each with every kernel's launch count set to 0 just
+  2. six main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -34,6 +34,15 @@ failure ends the run with a non-zero exit code:
           updates (kernels K8 and K9), CUDA-event times split into collect
           and update, transitions/s over chunks 1-39, critic loss and mean
           reward of the first and last chunk, which must be finite;
+       e. the other scenarios and trajectories: the fused engine (K2) on
+          simple, simple_reference and simple_speaker_listener at 4096 envs x
+          10000 steps, horizon 100, each mean reward per env-step within 5
+          standard errors of the generic engine's (4096 envs x 200 steps);
+          fused_trajectory (kernel K3) on those three and simple_spread at
+          4096 envs x 64 steps, horizon 32, block_envs 1024, t_chunk 8 (the
+          learner batch of tools/train_bench.py), and on simple_spread and
+          simple_reference at 65536 envs x 64 steps: median CUDA-event time of
+          3 runs, bytes written and the write bandwidth they reach;
   3. every kernel held against its plain PyTorch version on the card: K1
      and K2 over 20 steps (K2 with horizon 10, so resets happen); K5 and K4
      over 16 steps with horizon 8, two block offsets, and at the main paths'
@@ -44,14 +53,25 @@ failure ends the run with a non-zero exit code:
      checkpoints/maddpg_spread_fused.npz and with the runner's actor, in
      both output forms; K9 on 1024 rows of the runner's ring (with the
      target actions' agreement and their smallest logit gap) and one update
-     chunk of 25 updates with the same indices;
+     chunk of 25 updates with the same indices; K2 on the three other
+     scenarios as on simple_spread, and on simple_reference at path e's 4096
+     envs x 10000 steps (the obs sums within 1e-4 of the largest); K3 on
+     each of the four scenarios at 512 envs x 24 steps (horizon 10, t_chunk
+     4, block_envs 256, two block offsets, so that chunk salts and resets
+     both occur), at path e's 4096 envs x 64 steps and, on simple_spread and
+     simple_reference, at path e's 65536 envs x 64 steps, actions equal and
+     the rest within 1e-5 (at path e's shapes with another seed than path
+     e's, so that no stale output can pass);
   4. the plain versions timed at the main paths' shapes, each kernel's bound
      from the operations its function needs (OPS below), and for K6, K7 and
      K9 the same gradient by autograd (the library yardstick); one MADDPG
      update chunk under torch.profiler (K9's device time, the device's busy
-     share);
-  5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
-     line, and ``{"ok": true, "device": {...}}`` as the last line.
+     share), and each K3 call of path e (its device time);
+  5. a ``{"kernels": [...]}`` line (K2 is two rows, spread_rollout_kernel
+     and scenario_rollout_kernel; each K2 and K3 row names its scenarios
+     and the one it was timed on), the ``nvidia-smi`` name/power-limit
+     line, and ``{"ok":
+     true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the ``mpe_tpu_torch`` package beside it, and
 exits non-zero without either.
@@ -86,13 +106,21 @@ POLICY_CHECK_STEPS, POLICY_CHECK_HORIZON = 16, 8
 MADDPG = dict(n_envs=1024, horizon=25, batch=1024)
 MADDPG_CHUNKS, MADDPG_ACTOR_START = 40, 250
 MADDPG_CKPT = "checkpoints/maddpg_spread_fused.npz"
+# the other scenarios (K2) and the trajectories (K3): the learner batch of
+# tools/train_bench.py and tools/tpu_smoke.py's t_chunk; the gate's shape
+SCENARIOS = ("simple", "simple_reference", "simple_speaker_listener")
+K2_TIMED = "simple_reference"           # the scenario_rollout_kernel row's numbers
+TRAJ = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
+TRAJ_WIDE = ("simple_spread", "simple_reference")
+TRAJ_CHECK = dict(n_envs=512, n_steps=24, horizon=10, block_envs=256, t_chunk=4)
 
 # Kernel against plain version on the card, 20 steps. The library is built
 # with -fmad=false, so the dynamics round op for op as PyTorch's
-# elementwise ops do; what is left is the order of the obs-checksum sum.
+# elementwise ops do; what is left is the order of the obs-checksum sum
+# (over a whole rollout: relative to the largest sum).
 TOL = {"pos": 1e-5, "vel": 1e-5, "rew_sum": 1e-4, "rew": 1e-5, "obs": 1e-5, "obs_sum": 1e-3,
        "ret": 1e-5, "last_obs": 1e-5, "act": 0.0, "episodes": 0.0, "params": 1e-5,
-       "obs2": 1e-5, "rows": 0.0, "chunk params": 1e-4}
+       "obs2": 1e-5, "rows": 0.0, "chunk params": 1e-4, "obs_sum_rel": 1e-4}
 # K6 sums the batch in its own order: each leaf within 1e-4 of its largest
 # entry, the metric means within 1e-4 relative. Where the ratio is 1 (an
 # epoch-0 batch) the pg mean is 0 up to rounding, since the advantages are
@@ -256,6 +284,68 @@ MADDPG_AGENT_UPDATE = _ops(
     (1, {"fp32": 64 * 7 + 64 * 64 + 64 * 2}), (1, {"fp32": 64 * 18 + 64 * 64 + 5 * 64 + 133}))
 OPS["maddpg_update_kernel"] = {"step": _ops((3, MADDPG_AGENT_UPDATE)), "reset": {}, "env": {}}
 
+# K3 (csrc/mpe_trajectory.cu) per env-step. It emits every move draw, so all 5
+# columns are hashed, and the comm draws of non-silent agents; then the step,
+# the reward and the obs rows, and the move salt, the comm salt, the horizon
+# counter and test (int). A goal's landmark is picked by 2 compares (int) and
+# 2 selects per coordinate; a goal color entry is a compare and a select. A
+# reset draws the positions (a hash and a fma per coordinate, a salt per call
+# id) and each goal (a hash, x k, floor, a conversion, a salt).
+GOAL_PICK = {"int": 2, "fp32": 4}
+GOAL_DRAW = _ops((1, HASH), (1, {"fp32": 2, "cvt": 1, "int": 1}))
+
+
+def reset_ops(coords: int, goals: int) -> dict:
+    return _ops((coords, HASH), (coords, {"fp32": 1}), (2, {"int": 1}), (goals, GOAL_DRAW))
+
+
+TRAJ_OPS = {
+    # K2's spread step with 15 move hashes, + 30 obs coordinates; counter 3
+    "simple_spread": {"step": _ops((15, HASH), *SPREAD_STEP[1:], (1, {"fp32": 30}),
+                                   (3, {"int": 1})), "reset": RESET},
+    # decode, integrate; reward: 2 differences, d2 (mul, fma); the obs reuses them
+    "simple": {"step": _ops((5, HASH), (1, DECODE), (1, INTEGRATE), (1, {"fp32": 4}),
+                            (3, {"int": 1})), "reset": reset_ops(4, 0)},
+    # 2 agents: 10 move and 20 comm hashes; reward per agent: the goal pick, dx,
+    # dy, d2 (2), the running sum; obs: 12 landmark coordinates, 6 color entries
+    "simple_reference": {"step": _ops((30, HASH), (2, DECODE), (2, INTEGRATE), (2, GOAL_PICK),
+                                      (2, {"fp32": 5}), (1, {"fp32": 12}),
+                                      (6, {"int": 1, "fp32": 1}), (4, {"int": 1})),
+                         "reset": reset_ops(10, 2)},
+    # the listener moves, the speaker speaks: 10 move and 3 comm hashes; reward:
+    # the goal pick, dx, dy, d2 (2), x -2; obs: 6 landmark coordinates, 3 colors
+    "simple_speaker_listener": {"step": _ops((13, HASH), (1, DECODE), (1, INTEGRATE),
+                                             (1, GOAL_PICK), (1, {"fp32": 5}), (1, {"fp32": 6}),
+                                             (3, {"int": 1, "fp32": 1}), (4, {"int": 1})),
+                                "reset": reset_ops(10, 1)},
+}
+OPS.update({f"trajectory_kernel[{k}]": {**v, "env": {}} for k, v in TRAJ_OPS.items()})
+
+# K2 on the other scenarios (csrc/mpe_kernels.cu::scenario_rollout_kernel) per
+# env-step: the move hashes that the decode reads (4 per movable agent), the
+# comm hashes that the obs reads (non-silent agents), the step and reward as
+# in K3, the obs sum (per row over agents, then over rows, then the running
+# sum; the speaker's zero rows add nothing), the running reward sum, and the
+# move salt, the comm salt (with comm), the horizon counter and test.
+K2_SCN_OPS = {
+    "simple": {"step": _ops((4, HASH), (1, DECODE), (1, INTEGRATE), (1, {"fp32": 4}),
+                            (1, {"fp32": 4}), (1, ACCUMULATE), (3, {"int": 1})),
+               "reset": reset_ops(4, 0)},
+    # obs: 21 rows over 2 agents, 20 adds over rows, the running sum
+    "simple_reference": {"step": _ops((28, HASH), (2, DECODE), (2, INTEGRATE), (2, GOAL_PICK),
+                                      (2, {"fp32": 5}), (1, {"fp32": 12}),
+                                      (6, {"int": 1, "fp32": 1}), (1, {"fp32": 42}),
+                                      (1, ACCUMULATE), (4, {"int": 1})),
+                         "reset": reset_ops(10, 2)},
+    # obs: 3 color rows over 2 agents, 10 adds over rows, the running sum
+    "simple_speaker_listener": {"step": _ops((7, HASH), (1, DECODE), (1, INTEGRATE),
+                                             (1, GOAL_PICK), (1, {"fp32": 5}), (1, {"fp32": 6}),
+                                             (3, {"int": 1, "fp32": 1}), (1, {"fp32": 14}),
+                                             (1, ACCUMULATE), (4, {"int": 1})),
+                                "reset": reset_ops(10, 1)},
+}
+OPS.update({f"scenario_rollout_kernel[{k}]": {**v, "env": {}} for k, v in K2_SCN_OPS.items()})
+
 
 def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
              bytes_moved: int) -> tuple[float, str, float]:
@@ -271,12 +361,13 @@ def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), 1e3 * t_issue
 
 
-def cuda_time(fn, repeats: int):
+def cuda_time(fn, repeats: int, warm_up: bool = True):
     """(median ms, last output) of ``fn()`` over ``repeats`` runs after one
-    warm-up, by CUDA events on the current stream."""
+    warm-up (or none), by CUDA events on the current stream."""
     import torch
 
-    out = fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
@@ -364,18 +455,19 @@ def library_ppo_grads(step, params, batch):
     return torch.autograd.grad(loss, [x for layer in leaves.values() for x in layer.values()])
 
 
-def rollout_path(wrappers, spec, dev):
-    """Main path a: generic engine, K2 at three widths, K1."""
+def generic_engine(name: str, dev):
+    """The generic engine (build_rollout over MpeEnv, env-minor, horizon
+    HORIZON) on ``name`` at N_ENVS x GENERIC_STEPS, timed: (mean reward per
+    env-step, its SE over envs)."""
     import torch
 
     from mpe_tpu_torch import scenarios
     from mpe_tpu_torch.envs.functional import MpeEnv
-    from mpe_tpu_torch.ops.fused_parity import fused_det_rollout, make_det_inputs
-    from mpe_tpu_torch.ops.fused_rollout import fused_spread_rollout
     from mpe_tpu_torch.parallel.mesh import build_rollout
 
-    zero_launches(wrappers)
-    env = MpeEnv(scenarios.load("simple_spread"), max_steps=HORIZON, auto_reset=True)
+    scn = scenarios.load(name)
+    a, ow = scn.spec.n_agents, max(scn.obs_dims)
+    env = MpeEnv(scn, max_steps=HORIZON, auto_reset=True)
     rollout = build_rollout(env, n_envs=N_ENVS, n_steps=GENERIC_STEPS, env_axis=-1)
     gen = torch.Generator(device=dev).manual_seed(0)
     float(rollout(gen)[1])                              # warm-up
@@ -388,13 +480,35 @@ def rollout_path(wrappers, spec, dev):
                                  return_trajectory=True)
     _, traj = traj_rollout(gen)
     rew = traj["reward"]                                # [T, A, N]
-    assert rew.shape == (GENERIC_STEPS, 3, N_ENVS) and bool(torch.isfinite(rew).all())
-    assert traj["obs"].shape == (GENERIC_STEPS, 3, 18, N_ENVS)
+    assert rew.shape == (GENERIC_STEPS, a, N_ENVS) and bool(torch.isfinite(rew).all())
+    assert traj["obs"].shape == (GENERIC_STEPS, a, ow, N_ENVS)
     assert bool(torch.isfinite(states.pos).all())
-    g_mean, g_se = mean_se(rew[:, 0, :].mean(0))
-    print(f"generic engine: {N_ENVS * GENERIC_STEPS / generic_s:.6g} env-steps/s "
+    g_mean, g_se = mean_se(rew[:, 0, :].mean(0))        # the shared reward
+    print(f"generic engine, {name}: {N_ENVS * GENERIC_STEPS / generic_s:.6g} env-steps/s "
           f"({N_ENVS} envs x {GENERIC_STEPS} steps in {generic_s * 1e3:.1f} ms); "
           f"mean reward per env-step {g_mean:.5f} +- {g_se:.5f}")
+    return g_mean, g_se
+
+
+def agree_with_generic(label: str, rew_sum, g_mean: float, g_se: float) -> None:
+    """The fused engine's mean reward per env-step within 5 SE of the
+    generic engine's."""
+    f_mean, f_se = mean_se(rew_sum[0] / N_STEPS)
+    z = abs(f_mean - g_mean) / math.hypot(f_se, g_se)
+    print(f"{label}: mean reward per env-step {f_mean:.5f} +- {f_se:.5f}; fused vs generic "
+          f"{z:.2f} standard errors apart")
+    assert z < 5, f"{label}: fused and generic engines disagree in mean reward ({z:.2f} SE)"
+
+
+def rollout_path(wrappers, spec, dev):
+    """Main path a: generic engine, K2 at three widths, K1."""
+    import torch
+
+    from mpe_tpu_torch.ops.fused_parity import fused_det_rollout, make_det_inputs
+    from mpe_tpu_torch.ops.fused_rollout import fused_spread_rollout
+
+    zero_launches(wrappers)
+    g_mean, g_se = generic_engine("simple_spread", dev)
 
     k2 = fused_spread_rollout(spec, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
     k2_ms, out = cuda_time(lambda: k2(1), REPEATS)
@@ -402,13 +516,9 @@ def rollout_path(wrappers, spec, dev):
     assert pos.shape == (6, 2, N_ENVS) and rew_sum.shape == (1, N_ENVS)
     for x in out:
         assert bool(torch.isfinite(x).all())
-    f_mean, f_se = mean_se(rew_sum[0] / N_STEPS)
     print(f"fused engine (K2): {N_ENVS * N_STEPS / (k2_ms * 1e-3):.6g} env-steps/s "
-          f"({N_ENVS} envs x {N_STEPS} steps, kernel {k2_ms:.4f} ms, median of {REPEATS}); "
-          f"mean reward per env-step {f_mean:.5f} +- {f_se:.5f}")
-    z = abs(f_mean - g_mean) / math.hypot(f_se, g_se)
-    print(f"fused vs generic mean reward: {z:.2f} standard errors apart")
-    assert z < 5, f"fused and generic engines disagree in mean reward ({z:.2f} SE)"
+          f"({N_ENVS} envs x {N_STEPS} steps, kernel {k2_ms:.4f} ms, median of {REPEATS})")
+    agree_with_generic("fused engine (K2), simple_spread", rew_sum, g_mean, g_se)
 
     k2_ms_at = {N_ENVS: k2_ms}
     for n in (MID_ENVS, WIDE_ENVS):
@@ -519,6 +629,134 @@ def maddpg_path(wrappers):
           f"{float(cl[-1]):.6f}; ring {info['buffer'].size} of {run.capacity} rows "
           f"({info['buffer'].data.numel() * 4 / 1e6:.0f} MB)")
     return launches, run, params, info
+
+
+def traj_bytes(name: str, n_envs: int, n_steps: int) -> int:
+    """Bytes K3 writes on scenario ``name``: obs, act and rew per env-step,
+    the final pos and vel."""
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    kscn = kernel_scenario(name)
+    spec = kscn.spec
+    a = spec.n_agents
+    act_w = 2 * spec.dim_p + 1 + (spec.dim_c if kscn.uses_comm else 0)
+    per_step = a * kscn.obs_w + a * act_w + kscn.reward_rows
+    return 4 * n_envs * (n_steps * per_step + 2 * spec.n_entities * spec.dim_p)
+
+
+def rollout_bytes(name: str, n_envs: int) -> int:
+    """Bytes K2 writes on scenario ``name``: pos and vel, the reward and
+    obs sums."""
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    kscn = kernel_scenario(name)
+    spec = kscn.spec
+    return 4 * n_envs * (2 * spec.n_entities * spec.dim_p + kscn.reward_rows + 1)
+
+
+def scenarios_path(wrappers, dev):
+    """Main path e: K2 on the three other scenarios against the generic
+    engine, then K3 on the four scenarios at N_ENVS and on TRAJ_WIDE at
+    WIDE_ENVS -> (launches, K2 ms by scenario, {(scenario, envs): K3 ms})."""
+    import torch
+
+    from mpe_tpu_torch.ops.fused_rollout import fused_rollout
+    from mpe_tpu_torch.ops.fused_trajectory import fused_trajectory
+
+    zero_launches(wrappers)
+    k2_ms = {}
+    for name in SCENARIOS:
+        g_mean, g_se = generic_engine(name, dev)
+        run = fused_rollout(name, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
+        k2_ms[name], out = cuda_time(lambda: run(1), REPEATS)
+        for x in out:
+            assert bool(torch.isfinite(x).all())
+        print(f"fused engine (K2), {name}: {N_ENVS * N_STEPS / (k2_ms[name] * 1e-3):.6g} "
+              f"env-steps/s ({N_ENVS} envs x {N_STEPS} steps, kernel {k2_ms[name]:.4f} ms, "
+              f"median of {REPEATS})")
+        agree_with_generic(f"fused engine (K2), {name}", out[2], g_mean, g_se)
+
+    k3_ms = {}
+    for name, n in [(x, N_ENVS) for x in ("simple_spread",) + SCENARIOS] + \
+            [(x, WIDE_ENVS) for x in TRAJ_WIDE]:
+        run = fused_trajectory(name, n, **TRAJ)
+        k3_ms[name, n], out = cuda_time(lambda: run(1), REPEATS)
+        obs, act, rew, pos, vel = out
+        for x in out:
+            assert bool(torch.isfinite(x).all())
+        assert obs.shape[0] == act.shape[0] == rew.shape[0] == TRAJ["n_steps"]
+        assert bool(((act >= 0) & (act < 1)).all())
+        nbytes = traj_bytes(name, n, TRAJ["n_steps"])
+        print(f"trajectory (K3), {name}: {n} envs x {TRAJ['n_steps']} steps, kernel "
+              f"{k3_ms[name, n]:.4f} ms (median of {REPEATS}); writes {nbytes} bytes, "
+              f"{nbytes / (k3_ms[name, n] * 1e-3) / 1e12:.4f} TB/s "
+              f"({nbytes / (k3_ms[name, n] * 1e-3) / HBM_BYTES_PER_S:.3f} of 3.35 TB/s); "
+              f"{n * TRAJ['n_steps'] / (k3_ms[name, n] * 1e-3):.6g} env-steps/s; mean reward "
+              f"per env-step {float(rew.double().mean()):.5f}")
+        del out, obs, act, rew, pos, vel
+    launches = read_launches(wrappers, ["scenario_rollout_kernel", "trajectory_kernel"],
+                             "scenarios and trajectories path")
+    return launches, k2_ms, k3_ms
+
+
+def check_scenario_kernels():
+    """K2 on the three other scenarios and K3 on all four against their
+    plain versions: K2 over CHECK_STEPS at N_ENVS with horizon CHECK_HORIZON
+    (two block offsets), and on K2_TIMED at path e's N_ENVS x N_STEPS; K3
+    at TRAJ_CHECK (two block offsets), at path e's N_ENVS x 64 and, on
+    TRAJ_WIDE, at WIDE_ENVS x 64. At path e's shapes the seed is not path
+    e's, so no output that path e left in a recycled buffer can pass for the
+    kernel's -> (K2 max abs err, plain K2 ms on K2_TIMED at path e's shape,
+    K3 max abs err, plain K3 ms at path e's simple_spread shape)."""
+    from mpe_tpu_torch.ops.fused_rollout import fused_rollout
+    from mpe_tpu_torch.ops.fused_trajectory import fused_trajectory
+
+    k2_err = 0.0
+    for name in SCENARIOS:
+        run = fused_rollout(name, N_ENVS, CHECK_STEPS, horizon=CHECK_HORIZON,
+                            block_envs=BLOCK_ENVS)
+        errs = {}
+        for offset in (0, 1):
+            got, ref = run(7, offset), run.plain(7, offset)
+            for k, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), got, ref):
+                errs[k] = max(errs.get(k, 0.0), max_err(a, b))
+        k2_err = max(k2_err, check(f"K2 ({name})", errs))
+    # the whole rollout: the obs sums, summed in another order each step,
+    # drift apart over N_STEPS, so they are held relative to their largest
+    run = fused_rollout(K2_TIMED, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
+    plain_k2_ms, ref = cuda_time(lambda: run.plain(5), 1, warm_up=False)
+    got = run(5)
+    errs = {k: max_err(a, b) for k, a, b in zip(("pos", "vel", "rew_sum"), got, ref)}
+    k2_err = max(k2_err, *errs.values())
+    errs["obs_sum_rel"] = max_err(got[3], ref[3]) / float(ref[3].abs().max())
+    check(f"K2 ({K2_TIMED}, {N_ENVS} envs x {N_STEPS} steps)", errs)
+
+    k3_err, plain_k3_ms = 0.0, None
+    for name in ("simple_spread",) + SCENARIOS:
+        small = fused_trajectory(name, **TRAJ_CHECK)
+        errs = {}
+        for offset in (0, 1):
+            got, ref = small(3, offset), small.plain(3, offset)
+            report_actions(f"K3 ({name}, block offset {offset})", got[1], ref[1])
+            for k, a, b in zip(("obs", "act", "rew", "pos", "vel"), got, ref):
+                errs[k] = max(errs.get(k, 0.0), max_err(a, b))
+        widths = (N_ENVS, WIDE_ENVS) if name in TRAJ_WIDE else (N_ENVS,)
+        for n in widths:
+            full = fused_trajectory(name, n, **TRAJ)
+            got = full(5)
+            if (name, n) == ("simple_spread", N_ENVS):
+                plain_k3_ms, ref = cuda_time(lambda: full.plain(5), 1)
+            else:
+                ref = full.plain(5)
+            report_actions(f"K3 ({name}, {n} envs x {TRAJ['n_steps']} steps)", got[1], ref[1])
+            for k, a, b in zip(("obs", "act", "rew", "pos", "vel"), got, ref):
+                errs[k] = max(errs[k], max_err(a, b))
+            del got, ref
+        k3_err = max(k3_err, check(f"K3 ({name}; {TRAJ_CHECK['n_envs']} envs x "
+                                   f"{TRAJ_CHECK['n_steps']} steps, two block offsets, and "
+                                   + " and ".join(f"{n} x {TRAJ['n_steps']}" for n in widths)
+                                   + ")", errs))
+    return k2_err, plain_k2_ms, k3_err, plain_k3_ms
 
 
 def evaluation_path(wrappers, kscn, params):
@@ -706,6 +944,44 @@ def check_maddpg_update(run, params, info):
     return worst, ms, plain_ms, lib_ms, bound
 
 
+def device_us(e) -> float:
+    """A profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profile_trajectories(k3_ms: dict) -> dict:
+    """Each K3 call of path e once more under torch.profiler: the kernel's
+    device time beside the call's CUDA-event time from path e, which also
+    holds the wrapper's host work before the launch. It gates nothing;
+    without device events it says so -> {(scenario, envs): device ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpe_tpu_torch.ops.fused_trajectory import fused_trajectory
+
+    device_ms = {}
+    for (name, n), ms in k3_ms.items():
+        run = fused_trajectory(name, n, **TRAJ)
+        run(1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(1)
+            torch.cuda.synchronize()
+        us = sum(device_us(e) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "trajectory_kernel" in e.key)
+        if us <= 0:
+            print(f"K3 under torch.profiler, {name} at {n} envs: device time not measured (no "
+                  "device events)")
+            continue
+        device_ms[name, n] = us / 1e3
+        nbytes = traj_bytes(name, n, TRAJ["n_steps"])
+        print(f"K3 under torch.profiler, {name} at {n} envs: device time {us / 1e3:.4f} ms "
+              f"({nbytes / (us * 1e-6) / 1e12:.4f} TB/s) against {ms:.4f} ms by CUDA events "
+              f"around the call")
+    return device_ms
+
+
 def profile_maddpg_update(run, params, info):
     """One MADDPG update chunk (25 updates) under torch.profiler: K9's device
     time per update (its three kernels), the device's busy share of the
@@ -728,9 +1004,6 @@ def profile_maddpg_update(run, params, info):
         end.record()
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
@@ -774,7 +1047,9 @@ def main() -> int:
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
                                                 spread_policy_rollout_cuda,
                                                 spread_policy_traj_cuda)
-    from mpe_tpu_torch.ops.fused_rollout import fused_spread_rollout, spread_rollout_cuda
+    from mpe_tpu_torch.ops.fused_rollout import (fused_spread_rollout, scenario_rollout_cuda,
+                                                 spread_rollout_cuda)
+    from mpe_tpu_torch.ops.fused_trajectory import trajectory_cuda
     from mpe_tpu_torch.ops.fused_update import (clip_binding_inputs, mappo_update_cuda,
                                                 ppo_update_cuda)
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
@@ -797,6 +1072,8 @@ def main() -> int:
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
     wrappers = {"spread_rollout_kernel": spread_rollout_cuda,
+                "scenario_rollout_kernel": scenario_rollout_cuda,
+                "trajectory_kernel": trajectory_cuda,
                 "spread_det_rollout_kernel": spread_det_rollout_cuda,
                 "spread_policy_traj_kernel": spread_policy_traj_cuda,
                 "spread_policy_rollout_kernel": spread_policy_rollout_cuda,
@@ -819,6 +1096,8 @@ def main() -> int:
     launches.update(eval_launches)
     maddpg_launches, run, mparams, minfo = maddpg_path(wrappers)
     launches.update(maddpg_launches)
+    scn_launches, k2_scn_ms, k3_ms = scenarios_path(wrappers, torch.device("cuda"))
+    launches.update(scn_launches)
     zero_launches(wrappers)
 
     # ---- kernels against their plain versions -------------------------------
@@ -902,9 +1181,10 @@ def main() -> int:
     plain_k6_ms, _ = cuda_time(lambda: step.update.plain(params, *batch), REPEATS)
     lib_batch = (obs, mv_oh, logp_old, value, adv_n, ret)
     lib_k6_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
-    plain_k2_ms, _ = cuda_time(lambda: k2.plain(1), 1)
+    # the 10,000-step plain loops run once: one call is tens of seconds
+    plain_k2_ms, _ = cuda_time(lambda: k2.plain(1), 1, warm_up=False)
     plain_k1 = plain_det_rollout_blocked("simple_spread", N_STEPS, BLOCK_ENVS)
-    plain_k1_ms, _ = cuda_time(lambda: plain_k1(*det_inputs), 1)
+    plain_k1_ms, _ = cuda_time(lambda: plain_k1(*det_inputs), 1, warm_up=False)
     samples = obs.shape[0] * obs.shape[1] * obs.shape[3]
     print(f"kernels at the main paths' shapes: K5 {k5_ms:.4f} ms ({TRAIN['n_envs']} envs x "
           f"{TRAIN['n_steps']} steps), K6 {k6_ms:.4f} ms (one epoch, {samples} samples), "
@@ -918,6 +1198,8 @@ def main() -> int:
     k8_err, k8_ms, plain_k8_ms, b8 = check_maddpg_collect(run, mparams["actor"])
     k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9 = check_maddpg_update(run, mparams, minfo)
     profile_maddpg_update(run, mparams, minfo)
+    k3_device_ms = profile_trajectories(k3_ms)
+    k2s_err, plain_k2s_ms, k3_err, plain_k3_ms = check_scenario_kernels()
 
     # ---- bounds ---------------------------------------------------------------
     # bytes: K2 writes pos, vel (2 x 6 x 2 floats), rew_sum and obs_sum per
@@ -950,21 +1232,52 @@ def main() -> int:
                                N_ENVS * 14 * 4 + 5701 * 4)
     b6, by6, issue6 = bound_ms(OPS["ppo_update_kernel"], samples, 0, 0,
                                samples * 27 * 4 + 2 * 5766 * 4)
+    for (name, n), ms in k3_ms.items():
+        ops = OPS[f"trajectory_kernel[{name}]"]
+        b, by, issue = bound_ms(ops, n * TRAJ["n_steps"],                # resets and
+                                n * (TRAJ["n_steps"] // TRAJ["horizon"] + 1), n,  # initial draws
+                                traj_bytes(name, n, TRAJ["n_steps"]))
+        dev = k3_device_ms.get((name, n))
+        print(f"K3 bound, {name} at {n} envs: {b:.4f} ms by {by} ({ms / b:.2f}x by CUDA events"
+              + (f", {dev / b:.2f}x in device time" if dev else "") + f"); issue floor "
+              f"{issue:.4f} ms")
+        if (name, n) == ("simple_spread", N_ENVS):
+            b3 = (b, by)
+    for name, ms in k2_scn_ms.items():
+        b, by, issue = bound_ms(OPS[f"scenario_rollout_kernel[{name}]"], N_ENVS * N_STEPS,
+                                N_ENVS * (N_STEPS // HORIZON + 1), N_ENVS,
+                                rollout_bytes(name, N_ENVS))
+        print(f"K2 bound, {name} at {N_ENVS} envs: {b:.4f} ms by {by} ({ms / b:.2f}x); issue "
+              f"floor {issue:.4f} ms ({ms / issue:.2f}x)")
+        if name == K2_TIMED:
+            b2s = (b, by)
+    print(f"plain versions on the card: K2 on {K2_TIMED} ({N_ENVS} envs x {N_STEPS} steps) "
+          f"{plain_k2s_ms:.1f} ms; K3 on simple_spread ({N_ENVS} envs x {TRAJ['n_steps']} "
+          f"steps) {plain_k3_ms:.1f} ms")
     for label, ms, (b, by, issue) in (("K5", k5_ms, (b5, by5, issue5)),
                                       ("K4", k4_ms, (b4, by4, issue4)),
                                       ("K6", k6_ms, (b6, by6, issue6))):
         print(f"{label} bound: {b:.4f} ms by {by} ({ms / b:.2f}x); issue floor {issue:.4f} ms "
               f"({ms / issue:.2f}x)")
 
-    def record(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+    def record(name, source, replaces, err, ms, plain_ms, bound, library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": f"mpe_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
 
     kernels = [
+        # K2 is two kernels: simple_spread's at 4096 envs x 10000 steps (path
+        # a), and the other scenarios' with K2_TIMED's numbers (path e)
         record("spread_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_rollout.py:359",
-               k2_err, k2_ms_at[N_ENVS], plain_k2_ms, (b2, by2)),
+               k2_err, k2_ms_at[N_ENVS], plain_k2_ms, (b2, by2), scenarios=["simple_spread"]),
+        record("scenario_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_rollout.py:359",
+               k2s_err, k2_scn_ms[K2_TIMED], plain_k2s_ms, b2s, scenarios=list(SCENARIOS),
+               timed_on=K2_TIMED),
+        # K3's numbers are simple_spread's at 4096 envs x 64 steps
+        record("trajectory_kernel", "mpe_trajectory.cu", "mpe_tpu/ops/fused_trajectory.py:40",
+               k3_err, k3_ms["simple_spread", N_ENVS], plain_k3_ms, b3,
+               scenarios=["simple_spread", *SCENARIOS], timed_on="simple_spread"),
         record("spread_det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
                k1_err, k1_ms, plain_k1_ms, (b1, by1)),
         record("spread_policy_traj_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:245",

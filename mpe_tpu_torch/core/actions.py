@@ -22,6 +22,7 @@ import enum
 
 import torch
 
+from mpe_tpu_torch._device import device_table
 from mpe_tpu_torch.core.state import ScenarioSpec
 
 
@@ -54,9 +55,9 @@ def decode_actions(
     """Canonical ``[..., A, W]`` actions -> (u ``[..., A, P]``, c ``[..., A, C]``)."""
     a, p, dc = spec.n_agents, spec.dim_p, spec.dim_c
     dev = actions.device
-    movable = torch.tensor(spec.movable[:a], dtype=dtype, device=dev)[:, None]
-    silent = torch.tensor(spec.silent, device=dev)[:, None]
-    sensitivity = torch.tensor(spec.accel, dtype=dtype, device=dev)[:, None]
+    movable = device_table(spec.movable[:a], dtype, dev)[:, None]
+    silent = device_table(spec.silent, device=dev)[:, None]
+    sensitivity = device_table(spec.accel, dtype, dev)[:, None]
 
     if mode is ActionMode.DISCRETE_INDEX:
         actions = actions.to(torch.int32)

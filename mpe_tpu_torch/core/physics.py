@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from mpe_tpu_torch._device import device_table
 from mpe_tpu_torch.core.state import ScenarioSpec, WorldState
 
 
@@ -37,12 +38,12 @@ def collision_forces(spec: ScenarioSpec, pos: torch.Tensor) -> torch.Tensor:
     e = spec.n_entities
     delta = pos[..., :, None, :] - pos[..., None, :, :]          # [..., E, E, P]
     dist2 = delta.square().sum(-1)                               # [..., E, E]
-    collide = torch.tensor(spec.collide, device=dev)
+    collide = device_table(spec.collide, device=dev)
     pair_mask = (collide[:, None] & collide[None, :]
                  & ~torch.eye(e, dtype=torch.bool, device=dev))
     safe_dist = torch.where(dist2 > 0, dist2, torch.ones((), dtype=dtype, device=dev)).sqrt()
-    dist_min = torch.tensor(spec.size[:, None] + spec.size[None, :], dtype=dtype, device=dev)
-    k = torch.tensor(spec.contact_margin, dtype=dtype, device=dev)
+    dist_min = device_table(spec.size[:, None] + spec.size[None, :], dtype, dev)
+    k = device_table(spec.contact_margin, dtype, dev)
     x = -(safe_dist - dist_min) / k
     penetration = logaddexp0(x) * k
     coeff = torch.where(pair_mask & (dist2 > 0),
@@ -77,32 +78,32 @@ def step_world(
     if noisy and (spec.u_noise > 0).any():
         if n_u is None:
             n_u = torch.randn(u.shape, generator=generator, dtype=dtype, device=dev)
-        gate = torch.tensor(spec.u_noise, dtype=dtype, device=dev)[:, None]
+        gate = device_table(spec.u_noise, dtype, dev)[:, None]
         u = u + n_u.to(dtype) * gate
-    agent_movable = torch.tensor(spec.movable[:a], dtype=dtype, device=dev)[:, None]
+    agent_movable = device_table(spec.movable[:a], dtype, dev)[:, None]
     force = torch.zeros_like(state.pos)
     force[..., :a, :] = u * agent_movable
 
     force = force + collision_forces(spec, state.pos)
 
-    mass = torch.tensor(spec.initial_mass, dtype=dtype, device=dev)[:, None]
+    mass = device_table(spec.initial_mass, dtype, dev)[:, None]
     vel = state.vel * (1 - spec.damping)
     vel = vel + force / mass * spec.dt
     speed = vel.square().sum(-1, keepdim=True).sqrt()
-    max_speed = torch.tensor(spec.max_speed, dtype=dtype, device=dev)[:, None]
+    max_speed = device_table(spec.max_speed, dtype, dev)[:, None]
     over = speed > max_speed                                     # inf => never
     safe_speed = torch.where(speed > 0, speed, torch.ones((), dtype=dtype, device=dev))
     vel = torch.where(over, vel / safe_speed * max_speed, vel)
-    movable = torch.tensor(spec.movable, device=dev)[:, None]
+    movable = device_table(spec.movable, device=dev)[:, None]
     vel = torch.where(movable, vel, state.vel)
     pos = torch.where(movable, state.pos + vel * spec.dt, state.pos)
 
     if noisy and (spec.c_noise > 0).any():
         if n_c is None:
             n_c = torch.randn(c.shape, generator=generator, dtype=dtype, device=dev)
-        gate = torch.tensor(spec.c_noise, dtype=dtype, device=dev)[:, None]
+        gate = device_table(spec.c_noise, dtype, dev)[:, None]
         c = c + n_c.to(dtype) * gate
-    silent = torch.tensor(spec.silent, device=dev)[:, None]
+    silent = device_table(spec.silent, device=dev)[:, None]
     comm = torch.where(silent, torch.zeros((), dtype=dtype, device=dev), c)
 
     return state.replace(pos=pos, vel=vel, comm=comm, t=state.t + 1)

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) kernels of the simple_spread rollout.
+// Hopper (sm_90a) kernels of the fused rollouts.
 //
 // K1  spread_det_rollout_kernel  replaces  mpe_tpu/ops/fused_parity.py::_det_kernel
 //     (fused_det_rollout): n_steps of generic_physics_block + the spread
@@ -8,6 +8,9 @@
 //     (fused_rollout with KernelSpread): uniform moves from the murmur hash
 //     _hash_uniform, physics, reward and obs-checksum accumulation, per-lane
 //     reset at the horizon. Out: pos, vel [E,P,N], rew_sum [1,N], obs_sum [1,N].
+//     scenario_rollout_kernel<S> is the same rollout for simple, simple_reference
+//     and simple_speaker_listener (scenario_blocks.cuh), with their goal draws
+//     (call ids 10+, resets 26+) and silent-masked comm draws (call id 16).
 //
 // What bounds them: operation issue, not bytes. K2 reads nothing and writes
 // 104 B per env (pos and vel 6x2 floats each, two sums); K1 reads 96 B and
@@ -31,15 +34,16 @@
 // The library is built with -fmad=false: every multiply and add is rounded
 // on its own, as PyTorch's elementwise ops round them, so the kernels agree
 // with their plain versions on the card up to the order of the obs sum.
-// The kernels implement simple_spread's physics only: every agent collides,
-// unit masses (dt/mass = dt) and no speed limit; ops/_build.py::spread_params
-// refuses any other spec.
+// The spread kernels implement simple_spread's physics only: every agent
+// collides, unit masses (dt/mass = dt) and no speed limit;
+// ops/_build.py::spread_params refuses any other spec. The other scenarios have
+// no collide pair and the same limits (ops/_build.py::scenario_params).
 //
 // The RNG block (block_envs lanes) is part of each stream's definition: the
 // hash indexes the lane within its RNG block, and K2 salts with the global
 // RNG block id. It is an argument, independent of the CUDA block size.
 
-#include "spread_common.cuh"
+#include "scenario_blocks.cuh"
 
 namespace {
 
@@ -97,6 +101,62 @@ spread_rollout_kernel(const SpreadParams<A, L> c, float* __restrict__ pos, float
   }
   rew_sum[g] = racc;
   obs_sum[g] = oacc;
+}
+
+template <class S>
+__global__ void __launch_bounds__(THREADS)
+scenario_rollout_kernel(const typename S::Params c, float* __restrict__ pos,
+                        float* __restrict__ vel, float* __restrict__ rew_sum,
+                        float* __restrict__ obs_sum, int n_envs, int block_envs, int n_steps,
+                        int horizon, uint32_t seed, uint32_t block_offset) {
+  constexpr int A = S::A;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n_envs) return;
+  const uint32_t n = (uint32_t)block_envs;
+  const uint32_t lane = (uint32_t)g % n;
+  const uint32_t rng_block = (uint32_t)g / n + block_offset;
+  const uint32_t mixed = seed * 7919u + rng_block * 104729u;
+
+  typename S::W w;
+  draw_world<S>(c, mixed, n, lane, 0, 0, 8, w);
+  float racc = 0.0f, oacc = 0.0f;
+  int t = 0;
+  for (int step = 0; step < n_steps; ++step) {
+    float mv[A][MW];
+    draw_moves<A>(rollout_salt(mixed, step, 2), n, lane, mv);
+    S::physics(c, mv, w);
+    float cm[A][S::CW];
+    draw_comm<S>(c, rollout_salt(mixed, step, 16), n, lane, cm);
+    racc = racc + S::reward(c, w);
+    float total = 0.0f;                             // the obs sum: per row over agents
+#pragma unroll
+    for (int r = 0; r < S::OW; ++r) {
+      float col = 0.0f;
+#pragma unroll
+      for (int i = 0; i < A; ++i) col = col + S::obs(i, r, w, cm);
+      total = total + col;
+    }
+    oacc = oacc + total;
+    t += 1;
+    if (horizon > 0 && t >= horizon) {              // per-lane reset, call ids 3/4, goals 26+
+      draw_world<S>(c, mixed, n, lane, step, 3, 24, w);
+      t = 0;
+    }
+  }
+  store_world<S>(w, pos, vel, (size_t)n_envs, g);
+  rew_sum[g] = racc;
+  obs_sum[g] = oacc;
+}
+
+template <class S>
+int launch_rollout(const void* params, float* pos, float* vel, float* rew_sum, float* obs_sum,
+                   int n_envs, int block_envs, int n_steps, int horizon, uint32_t seed,
+                   uint32_t block_offset, cudaStream_t stream) {
+  const int blocks = (n_envs + THREADS - 1) / THREADS;
+  scenario_rollout_kernel<S><<<blocks, THREADS, 0, stream>>>(
+      *static_cast<const typename S::Params*>(params), pos, vel, rew_sum, obs_sum, n_envs,
+      block_envs, n_steps, horizon, seed, block_offset);
+  return (int)cudaGetLastError();
 }
 
 // ---- K1 ---------------------------------------------------------------------
@@ -193,6 +253,27 @@ int mpe_spread_det_rollout_a3l3c2(const void* params, const float* pos0, const f
       *static_cast<const SpreadParams<3, 3>*>(params), pos0, vel0, pos, vel, rew_sum, rew_last,
       obs_last, n_envs, block_envs, n_steps);
   return (int)cudaGetLastError();
+}
+
+// scenario: 1 simple, 2 simple_reference, 3 simple_speaker_listener
+// (ops/_build.py::SCENARIO_IDS; simple_spread takes mpe_spread_rollout_a3l3c2)
+int mpe_scenario_rollout(int scenario, const void* params, float* pos, float* vel, float* rew_sum,
+                         float* obs_sum, int n_envs, int block_envs, int n_steps, int horizon,
+                         uint32_t seed, uint32_t block_offset, cudaStream_t stream) {
+  switch (scenario) {
+    case 1:
+      return launch_rollout<SimpleScn>(params, pos, vel, rew_sum, obs_sum, n_envs, block_envs,
+                                       n_steps, horizon, seed, block_offset, stream);
+    case 2:
+      return launch_rollout<ReferenceScn>(params, pos, vel, rew_sum, obs_sum, n_envs, block_envs,
+                                          n_steps, horizon, seed, block_offset, stream);
+    case 3:
+      return launch_rollout<SpeakerListenerScn>(params, pos, vel, rew_sum, obs_sum, n_envs,
+                                                block_envs, n_steps, horizon, seed, block_offset,
+                                                stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mpe_cuda_error_string(int code) {

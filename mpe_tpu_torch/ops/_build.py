@@ -6,6 +6,7 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 libraries go into ``build/kernels/`` beside the package at first use; the
 sources build in parallel, and each is rebuilt only when it, the shared
 header or the flags change (the file name carries their hash).
+``spread_params`` and ``scenario_params`` fill the kernels' constant structs.
 ``-fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise ops round them, so a kernel can be held tightly
 against its plain version.
@@ -28,8 +29,9 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu")
-HEADERS = ("spread_common.cuh", "policy_mlp.cuh")
+SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu",
+           "mpe_trajectory.cu")
+HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -85,6 +87,7 @@ SIGNATURES = {
     "mpe_kernels.cu": {
         "mpe_spread_rollout_a3l3c2": [_P] * 5 + [_I] * 4 + [_U, _U, _P],
         "mpe_spread_det_rollout_a3l3c2": [_P] * 8 + [_I] * 3 + [_P],
+        "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _P],
     },
     "mpe_policy.cu": {
         "mpe_spread_policy_traj_a3l3": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
@@ -101,7 +104,19 @@ SIGNATURES = {
         "mpe_maddpg_update_a3h64": [_P] * 5 + [_I] + [_F] * 3 + [_P],
         "mpe_maddpg_update_layout": [_I],
     },
+    "mpe_trajectory.cu": {
+        "mpe_trajectory": [_I] + [_P] * 6 + [_I] * 5 + [_U, _U, _P],
+    },
 }
+
+# the scenario argument of mpe_scenario_rollout and mpe_trajectory
+# (csrc/scenario_blocks.cuh): kernel-scenario class -> id
+SCENARIO_IDS = {"KernelSpread": 0, "KernelSimple": 1, "KernelReference": 2,
+                "KernelSpeakerListener": 3}
+# what each block instantiation is compiled for: (agents, landmarks, dim_c,
+# goal choices)
+_BLOCK_SHAPES = {"KernelSimple": (1, 1, 0, ()), "KernelReference": (2, 3, 10, (3, 3)),
+                 "KernelSpeakerListener": (2, 3, 3, (3,))}
 
 
 @functools.cache
@@ -176,3 +191,70 @@ def spread_params(kscn):
     params.contact_margin = float(spec.contact_margin)
     params.agent_range, params.landmark_range = (float(r) for r in kscn.reset_ranges())
     return params
+
+
+@functools.cache
+def _block_params_type(a: int) -> type:
+    """ctypes mirror of ``BlockParams<A>`` in ``scenario_blocks.cuh``."""
+    f, i = ctypes.c_float, ctypes.c_int
+
+    class BlockParams(ctypes.Structure):
+        _fields_ = [
+            ("accel", f * a), ("movable", i * a), ("silent", i * a), ("keep_vel", f), ("dt", f),
+            ("agent_range", f), ("landmark_range", f),
+        ]
+
+    return BlockParams
+
+
+def scenario_params(kscn):
+    """The constants of simple, simple_reference or simple_speaker_listener's
+    kernels (``BlockParams`` in ``csrc/scenario_blocks.cuh``), each computed
+    in double and rounded once to float32, as ``spread_params``'s.
+
+    Raises ``NotImplementedError`` for a spec outside what those kernels
+    compute: another scenario or shape than the instantiation's, any collide
+    pair, a finite ``max_speed``, an agent mass other than 1, a movable
+    landmark or a ``dim_p`` other than 2."""
+    from mpe_tpu_torch.ops.kernel_scenarios import collide_pairs
+
+    spec = kscn.spec
+    a, l = spec.n_agents, spec.n_landmarks
+    kind = type(kscn).__name__
+    shape = (a, l, spec.dim_c, tuple(kscn.goal_choices))
+    problems = []
+    if _BLOCK_SHAPES.get(kind) != shape:
+        problems.append(f"{kind} with (agents, landmarks, dim_c, goals) {shape}")
+    if collide_pairs(spec):
+        problems.append(f"collide pairs {collide_pairs(spec)}")
+    if np.isfinite(spec.max_speed).any():
+        problems.append(f"max_speed {spec.max_speed.tolist()}")
+    if (spec.initial_mass[:a] != 1.0).any():
+        problems.append(f"agent masses {spec.initial_mass[:a].tolist()}")
+    if spec.movable[a:].any() or spec.dim_p != 2:
+        problems.append(f"movable landmarks or dim_p={spec.dim_p}")
+    if problems:
+        raise NotImplementedError(
+            f"the CUDA kernels compute simple, simple_reference and simple_speaker_listener "
+            f"as published only (no collide pair, unit masses, no speed limit, fixed "
+            f"landmarks, dim_p=2); got {spec.name!r} with " + "; ".join(problems))
+    params = _block_params_type(a)()
+    for i in range(a):
+        params.accel[i] = float(spec.accel[i])
+        params.movable[i] = int(spec.movable[i])
+        params.silent[i] = int(spec.silent[i])
+    params.keep_vel = 1.0 - float(spec.damping)
+    params.dt = float(spec.dt)
+    params.agent_range, params.landmark_range = (float(r) for r in kscn.reset_ranges())
+    return params
+
+
+def kernel_params(kscn):
+    """``(scenario id, constants)`` of a kernel scenario for the kernels
+    that take every scenario (K2's ``mpe_scenario_rollout``, K3)."""
+    kind = type(kscn).__name__
+    if kind not in SCENARIO_IDS:
+        raise NotImplementedError(f"no CUDA instantiation for {kind} ({kscn.spec.name!r}); "
+                                  f"the kernels take {sorted(SCENARIO_IDS)}")
+    params = spread_params(kscn) if kind == "KernelSpread" else scenario_params(kscn)
+    return SCENARIO_IDS[kind], params

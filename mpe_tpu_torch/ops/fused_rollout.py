@@ -1,9 +1,11 @@
 """Fused multi-step rollout: kernel K2 and its plain PyTorch version
 (counterpart of ``mpe_tpu/ops/fused_rollout.py``).
 
-On a CUDA device ``fused_rollout``/``fused_spread_rollout`` launch
-``spread_rollout_kernel`` (``csrc/mpe_kernels.cu``): one thread per env
-lane runs the whole rollout with its state in registers. On the CPU they
+On a CUDA device ``fused_rollout``/``fused_spread_rollout`` launch K2
+(``csrc/mpe_kernels.cu``: ``spread_rollout_kernel`` for simple_spread,
+``scenario_rollout_kernel`` for simple, simple_reference and
+simple_speaker_listener): one thread per env lane runs the whole rollout
+with its state in registers. On the CPU they
 run ``plain_rollout``, the body of the JAX kernel ``_generic_rollout_kernel``
 written as a torch loop over steps.
 
@@ -302,41 +304,79 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
     return pos, vel, rew_acc, obs_acc
 
 
-def spread_rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None,
-                        block_envs: int, seed: int, block_offset: int = 0, device=None):
-    """Launch kernel K2 (``spread_rollout_kernel``) on ``device``, a CUDA
-    device: same outputs as ``plain_rollout``. Counts its launches in
-    ``spread_rollout_cuda.launches``."""
+def rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None, block_envs: int,
+                 seed: int, block_offset: int = 0, device=None):
+    """Launch kernel K2 on ``device``, a CUDA device: ``spread_rollout_cuda``
+    for simple_spread, ``scenario_rollout_cuda`` for simple,
+    simple_reference and simple_speaker_listener. Same outputs as
+    ``plain_rollout``."""
     from mpe_tpu_torch.ops import _build
 
+    spread = _build.SCENARIO_IDS.get(type(kscn).__name__) == 0
+    launch = spread_rollout_cuda if spread else scenario_rollout_cuda
+    return launch(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device)
+
+
+def spread_rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None, block_envs: int,
+                        seed: int, block_offset: int = 0, device=None):
+    """Launch ``spread_rollout_kernel`` (K2 on simple_spread). Counts its
+    launches in ``spread_rollout_cuda.launches``."""
+    out = _launch_rollout(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device,
+                          spread=True)
+    spread_rollout_cuda.launches += 1
+    return out
+
+
+def scenario_rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None,
+                          block_envs: int, seed: int, block_offset: int = 0, device=None):
+    """Launch ``scenario_rollout_kernel<S>`` (K2 on simple, simple_reference
+    or simple_speaker_listener). Counts its launches in
+    ``scenario_rollout_cuda.launches``."""
+    out = _launch_rollout(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device,
+                          spread=False)
+    scenario_rollout_cuda.launches += 1
+    return out
+
+
+spread_rollout_cuda.launches = 0
+scenario_rollout_cuda.launches = 0
+
+
+def _launch_rollout(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device,
+                    spread: bool):
+    """K2's launch: ``mpe_spread_rollout_a3l3c2`` if ``spread``, else
+    ``mpe_scenario_rollout``; raises on a bad argument or a failed launch."""
+    from mpe_tpu_torch.ops import _build
+
+    scenario, params = _build.kernel_params(kscn)
+    if (scenario == 0) != spread:
+        raise ValueError(f"{type(kscn).__name__} does not run on "
+                         f"{'spread' if spread else 'scenario'}_rollout_kernel")
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"spread_rollout_cuda needs a CUDA device, got {device}")
+        raise ValueError(f"rollout_cuda needs a CUDA device, got {device}")
     if n_envs % block_envs or n_envs <= 0:
         raise ValueError(f"n_envs={n_envs} must be a positive multiple of block_envs={block_envs}")
     if n_steps < 0 or (horizon is not None and horizon < 1):
         raise ValueError(f"need n_steps >= 0 and horizon >= 1 or None, got {n_steps}, {horizon}")
-    params = _build.spread_params(kscn)
     spec = kscn.spec
     e, p = spec.n_entities, spec.dim_p
     f32 = torch.float32
     pos = torch.empty((e, p, n_envs), dtype=f32, device=device)
     vel = torch.empty((e, p, n_envs), dtype=f32, device=device)
-    rew = torch.empty((1, n_envs), dtype=f32, device=device)
+    rew = torch.empty((kscn.reward_rows, n_envs), dtype=f32, device=device)
     obs_sum = torch.empty((1, n_envs), dtype=f32, device=device)
+    args = (ctypes.byref(params), pos.data_ptr(), vel.data_ptr(), rew.data_ptr(),
+            obs_sum.data_ptr(), n_envs, block_envs, n_steps, 0 if horizon is None else horizon,
+            int(seed) & _MASK, int(block_offset) & _MASK)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.library().mpe_spread_rollout_a3l3c2(
-            ctypes.byref(params), pos.data_ptr(), vel.data_ptr(), rew.data_ptr(),
-            obs_sum.data_ptr(), n_envs, block_envs, n_steps, 0 if horizon is None else horizon,
-            int(seed) & _MASK, int(block_offset) & _MASK, stream)
+        lib = _build.library()
+        rc = (lib.mpe_spread_rollout_a3l3c2(*args, stream) if spread
+              else lib.mpe_scenario_rollout(scenario, *args, stream))
     if rc != 0:
-        raise RuntimeError(f"spread_rollout_kernel launch failed: {_build.error_string(rc)}")
-    spread_rollout_cuda.launches += 1
+        raise RuntimeError(f"rollout kernel K2 launch failed: {_build.error_string(rc)}")
     return pos, vel, rew, obs_sum
-
-
-spread_rollout_cuda.launches = 0
 
 
 def fused_rollout(scenario, n_envs: int, n_steps: int, horizon: int | None = 100,
@@ -358,7 +398,7 @@ def fused_rollout(scenario, n_envs: int, n_steps: int, horizon: int | None = 100
 
     def run(seed, block_offset=0):
         if device.type == "cuda":
-            return spread_rollout_cuda(*args, seed, block_offset, device)
+            return rollout_cuda(*args, seed, block_offset, device)
         return plain(seed, block_offset)
 
     run.plain = plain

@@ -1,14 +1,17 @@
 """Kernel-scenario blocks of the fused rollouts, as plain env-minor PyTorch
 (counterpart of ``mpe_tpu/ops/kernel_scenarios.py``).
 
-These are the plain versions of what the CUDA kernels in
-``csrc/mpe_kernels.cu`` compute per env lane: the per-entity scalars of
+These are the plain versions of what the CUDA kernels compute per env lane
+(``csrc/spread_common.cuh`` and ``csrc/scenario_blocks.cuh``): the per-entity scalars of
 the spec are read as Python floats, the tiny entity loops are unrolled,
 and every row is ``[P, N]`` or ``[1, N]`` with the env axis last.
 
-Only simple_spread is ported (``KernelSpread``). Specs with at least
-``MIN_MXU_PAIRS`` collide pairs take ``mpe_tpu/ops/mxu_physics.py`` in the JAX
-package; that block is ROADMAP B4 and raises here.
+Ported: simple_spread (``KernelSpread``), simple (``KernelSimple``),
+simple_reference (``KernelReference``) and simple_speaker_listener
+(``KernelSpeakerListener``); the goal and comm helpers select by an unrolled
+compare, as the CUDA kernels do. Specs with at least ``MIN_MXU_PAIRS``
+collide pairs take ``mpe_tpu/ops/mxu_physics.py`` in the JAX package; that
+block is ROADMAP B4 and raises here.
 """
 
 from __future__ import annotations
@@ -114,6 +117,21 @@ class KernelScenario:
         raise NotImplementedError
 
 
+class KernelSimple(KernelScenario):
+    """simple: reward -dist^2 to the landmark; obs [vel, landmark_rel]
+    (reference simple.py:41-50)."""
+
+    def __init__(self, spec: ScenarioSpec):
+        self.spec = spec
+        self.obs_w = 4
+        self.reward_rows = 1
+
+    def reward_obs(self, pos, vel, comm=None, goal=None):
+        rel = pos[1] - pos[0]                                    # [P, N]
+        rew = -rel.square().sum(0, keepdim=True)
+        return rew, torch.cat([vel[0], rel], dim=0)[None]         # [1, 4, N]
+
+
 class KernelSpread(KernelScenario):
     """simple_spread (see ``fused_rollout.spread_reward_obs_block``)."""
 
@@ -127,7 +145,85 @@ class KernelSpread(KernelScenario):
         return spread_reward_obs_block(self.spec, pos[:a], vel[:a], pos[a:])
 
 
-_KERNEL_SCENARIOS = {"simple_spread": KernelSpread}
+# ---------------------------------------------------------------------------
+# goal / comm helpers
+# ---------------------------------------------------------------------------
+
+def select_by_goal(goal_row, values):
+    """``values[goal]`` per lane: goal_row [1, N] int, values[j] [.., N]
+    (an unrolled select, as the kernels pick a landmark)."""
+    out = values[0]
+    for j in range(1, len(values)):
+        out = torch.where(goal_row == j, values[j], out)
+    return out
+
+
+def color_rows_by_goal(goal_row, colors, n, dtype):
+    """[3, N] RGB rows of ``colors[goal]`` per lane."""
+    return torch.cat([select_by_goal(goal_row, [torch.full((1, n), c[ch], dtype=dtype,
+                                                           device=goal_row.device)
+                                                for c in colors])
+                      for ch in range(3)])
+
+
+class KernelReference(KernelScenario):
+    """simple_reference (collaborative; reference simple_reference.py:55-80).
+    Returns the post-broadcast shared reward [1, N]."""
+
+    LMK_COLORS = ((0.75, 0.25, 0.25), (0.25, 0.75, 0.25), (0.25, 0.25, 0.75))
+
+    def __init__(self, spec: ScenarioSpec):
+        self.spec = spec
+        self.obs_w = 21
+        self.reward_rows = 1
+        self.goal_choices = (3, 3)
+        self.uses_comm = True
+
+    def reward_obs(self, pos, vel, comm=None, goal=None):
+        n = pos.shape[-1]
+        lpos = [pos[2], pos[3], pos[4]]
+        shared = pos.new_zeros((1, n))
+        for i, other in ((0, 1), (1, 0)):
+            gpos = select_by_goal(goal[i:i + 1], lpos)
+            shared = shared - (pos[other] - gpos).square().sum(0, keepdim=True)
+        rows = []
+        for i, other in ((0, 1), (1, 0)):
+            color = color_rows_by_goal(goal[i:i + 1], self.LMK_COLORS, n, pos.dtype)
+            rows.append(torch.cat([vel[i]] + [pos[j] - pos[i] for j in (2, 3, 4)]
+                                  + [color, comm[other]]))
+        return shared, torch.stack(rows)
+
+
+class KernelSpeakerListener(KernelScenario):
+    """simple_speaker_listener (collaborative; reference :63-92): the shared
+    reward is -2 d^2, the sum over its 2 agents."""
+
+    LMK_COLORS = ((0.65, 0.15, 0.15), (0.15, 0.65, 0.15), (0.15, 0.15, 0.65))
+
+    def __init__(self, spec: ScenarioSpec):
+        self.spec = spec
+        self.obs_w = 11
+        self.reward_rows = 1
+        self.goal_choices = (3,)
+        self.uses_comm = True
+
+    def reward_obs(self, pos, vel, comm=None, goal=None):
+        n = pos.shape[-1]
+        g = goal[0:1]
+        gpos = select_by_goal(g, [pos[2], pos[3], pos[4]])
+        shared = -2.0 * (pos[1] - gpos).square().sum(0, keepdim=True)
+        color = color_rows_by_goal(g, self.LMK_COLORS, n, pos.dtype)
+        speaker = torch.cat([color, pos.new_zeros((8, n))])      # padded 3 -> 11
+        listener = torch.cat([vel[1], pos[2] - pos[1], pos[3] - pos[1], pos[4] - pos[1], comm[0]])
+        return shared, torch.stack([speaker, listener])
+
+
+_KERNEL_SCENARIOS = {
+    "simple": KernelSimple,
+    "simple_reference": KernelReference,
+    "simple_speaker_listener": KernelSpeakerListener,
+    "simple_spread": KernelSpread,
+}
 
 _MXU_MSG = ("spec {name!r} has at least 4 collide pairs, where the JAX kernels take "
             "ops/mxu_physics.py::mxu_physics_block; that block is not ported yet "

@@ -13,6 +13,10 @@ from mpe_tpu_torch.scenarios._base import Scenario
 
 # name -> (module, class); modules imported lazily
 _REGISTRY: dict[str, tuple[str, str]] = {
+    "simple": ("mpe_tpu_torch.scenarios.simple", "SimpleScenario"),
+    "simple_reference": ("mpe_tpu_torch.scenarios.simple_reference", "SimpleReferenceScenario"),
+    "simple_speaker_listener": ("mpe_tpu_torch.scenarios.simple_speaker_listener",
+                                "SimpleSpeakerListenerScenario"),
     "simple_spread": ("mpe_tpu_torch.scenarios.simple_spread", "SimpleSpreadScenario"),
 }
 

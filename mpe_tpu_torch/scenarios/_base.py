@@ -6,9 +6,10 @@ A scenario is a static ``ScenarioSpec`` plus functions of a batched
 
     reset(n_envs, generator, dtype, device) -> WorldState
     reward(state)         -> [B, A]
-    observation(state)    -> [B, A, max(obs_dims)]
+    observation(state)    -> [B, A, max(obs_dims)] (rows zero-padded)
     benchmark_data(state) -> dict of [B, ...] tensors
     done(state)           -> bool [B, A]
+    entity_colors(state)  -> [B, E, 3]
 
 Every helper takes any number of leading batch axes.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from mpe_tpu_torch._device import device_table
 from mpe_tpu_torch.core.state import ScenarioSpec, WorldState
 
 
@@ -25,6 +27,10 @@ class Scenario:
 
     spec: ScenarioSpec
     obs_dims: tuple[int, ...]
+    #: ``benchmark_data`` keys whose last axis is the agent axis (the
+    #: reference computes benchmark_data per agent); every other key is
+    #: one value per env
+    per_agent_info: frozenset[str] = frozenset()
 
     def reset(self, n_envs: int, generator: torch.Generator,
               dtype=torch.float32, device=None) -> WorldState:
@@ -49,6 +55,15 @@ class Scenario:
     def done(self, state: WorldState) -> torch.Tensor:
         return torch.zeros(state.t.shape + (self.spec.n_agents,),
                            dtype=torch.bool, device=state.device)
+
+    def entity_colors(self, state: WorldState) -> torch.Tensor:
+        """[..., E, 3] render colors (the reference stores them on entities)."""
+        return const([[0.5, 0.5, 0.5]] * self.spec.n_entities, state).expand(
+            state.t.shape + (self.spec.n_entities, 3))
+
+    @property
+    def obs_width(self) -> int:
+        return max(self.obs_dims)
 
 
 def uniform_reset(
@@ -103,13 +118,13 @@ def other_rel(spec: ScenarioSpec, state: WorldState) -> torch.Tensor:
     """[..., A, A-1, P] other agents' positions in each agent's frame, in
     world order excluding self (simple_spread.py:96-99)."""
     ap = agent_pos(spec, state)
-    idx = torch.tensor(spec.others_idx, device=ap.device)
+    idx = device_table(spec.others_idx, torch.int64, ap.device)
     return ap[..., idx, :] - ap[..., :, None, :]
 
 
 def other_comm(spec: ScenarioSpec, state: WorldState) -> torch.Tensor:
     """[..., A, A-1, C] other agents' utterances."""
-    idx = torch.tensor(spec.others_idx, device=state.comm.device)
+    idx = device_table(spec.others_idx, torch.int64, state.comm.device)
     return state.comm[..., idx, :]
 
 
@@ -130,7 +145,7 @@ def collisions(spec: ScenarioSpec, state: WorldState) -> torch.Tensor:
     simple_spread.py:66-70 and :78-81)."""
     ap = agent_pos(spec, state)
     a = spec.n_agents
-    smin = torch.tensor(spec.size[:a, None] + spec.size[None, :a], dtype=ap.dtype, device=ap.device)
+    smin = device_table(spec.size[:a, None] + spec.size[None, :a], ap.dtype, ap.device)
     return pairwise_dist(ap, ap) < smin
 
 
@@ -141,3 +156,28 @@ def bound_penalty(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0.9, zero,
                        torch.where(x < 1.0, (x - 0.9) * 10.0,
                                    torch.clamp_max(torch.exp(2 * x - 2), 10.0)))
+
+
+def pad_stack(rows: list[torch.Tensor], width: int) -> torch.Tensor:
+    """Stack per-agent obs rows ``[..., w_i]`` into ``[..., A, width]``,
+    zero-padding each on the right (heterogeneous obs dims, e.g. speaker 3
+    vs listener 11)."""
+    return torch.stack([torch.nn.functional.pad(r, (0, width - r.shape[-1])) for r in rows],
+                       dim=-2)
+
+
+def const(v, like: WorldState | torch.Tensor) -> torch.Tensor:
+    """A constant table in the dtype and on the device of ``like``, made
+    once and shared (``device_table``): never write to it in place."""
+    return device_table(v, like.dtype, like.device)
+
+
+def take_row(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row ``idx`` of ``table`` per env: table ``[..., L, W]`` (leading axes
+    broadcast against idx's), idx ``[...]`` int -> ``[..., W]``. The JAX
+    package contracts a one-hot instead of gathering, which is faster on the
+    TPU; the values are the same."""
+    idx = idx.long()
+    table = table.expand(idx.shape + table.shape[-2:])
+    index = idx[..., None, None].expand(idx.shape + (1, table.shape[-1]))
+    return torch.gather(table, -2, index).squeeze(-2)

@@ -21,6 +21,7 @@ from mpe_tpu_torch.scenarios import _base as B
 
 
 class SimpleSpreadScenario(B.Scenario):
+    per_agent_info = frozenset({"rew", "collisions"})
     name = "simple_spread"
 
     def __init__(self):
@@ -59,3 +60,7 @@ class SimpleSpreadScenario(B.Scenario):
             "min_dists": mins.sum(-1),
             "occupied_landmarks": (mins < 0.1).sum(-1),
         }
+
+    def entity_colors(self, state):
+        colors = [[0.35, 0.35, 0.85]] * 3 + [[0.25, 0.25, 0.25]] * 3
+        return B.const(colors, state).expand(state.t.shape + (6, 3))

@@ -17,7 +17,10 @@ metrics within 1e-4 relative, on a batch where both clips bind too; so does
 the MAPPO update kernel K7. The MADDPG collection kernel K8 takes the plain
 version's actions exactly (values within 1e-5) in both output forms; the
 MADDPG update kernel K9 takes the plain version's target actions and its
-gradient leaves lie within 1e-4 of each leaf's largest entry.
+gradient leaves lie within 1e-4 of each leaf's largest entry. The trajectory
+kernel K3 emits the plain version's actions exactly (raw hash draws) and its
+obs, rewards, positions and velocities within 1e-5; K2 on simple,
+simple_reference and simple_speaker_listener is held as on simple_spread.
 """
 
 import dataclasses
@@ -28,7 +31,8 @@ import torch
 from mpe_tpu_torch import scenarios
 from mpe_tpu_torch.learner import init_policy
 from mpe_tpu_torch.learner.fused_ppo import build_fused_mappo_step, build_fused_ppo_step
-from mpe_tpu_torch.ops import fused_parity, fused_policy, fused_rollout, fused_update
+from mpe_tpu_torch.ops import (fused_parity, fused_policy, fused_rollout, fused_trajectory,
+                               fused_update)
 from mpe_tpu_torch.ops.kernel_scenarios import KernelSpread, kernel_scenario
 
 
@@ -75,6 +79,52 @@ def test_kernel_wrappers_refuse_bad_inputs(card):
         fused_parity.spread_det_rollout_cuda(kscn, 4, 128, pos0[..., :128], vel0, comm0, goal0)
     with pytest.raises(ValueError, match="multiple"):
         fused_rollout.spread_rollout_cuda(kscn, 256, 4, 10, 100, 0, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple", "simple_reference", "simple_speaker_listener"])
+def test_scenario_rollout_kernel_matches_plain(card, name):
+    run = fused_rollout.fused_rollout(name, 2048, 20, horizon=10, block_envs=1024)
+    for block_offset in (0, 1):
+        before = fused_rollout.scenario_rollout_cuda.launches
+        got = run(5, block_offset)
+        assert fused_rollout.scenario_rollout_cuda.launches == before + 1
+        for label, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), got,
+                               run.plain(5, block_offset)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-3 if label == "obs_sum" else 0,
+                                       msg=f"{label} (block offset {block_offset})")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple_spread", "simple", "simple_reference",
+                                  "simple_speaker_listener"])
+def test_trajectory_kernel_matches_plain(card, name):
+    run = fused_trajectory.fused_trajectory(name, 512, 24, horizon=10, block_envs=256,
+                                            t_chunk=4)
+    for block_offset in (0, 1):
+        before = fused_trajectory.trajectory_cuda.launches
+        got = run(3, block_offset)
+        assert fused_trajectory.trajectory_cuda.launches == before + 1
+        ref = run.plain(3, block_offset)
+        for label, a, b in zip(("obs", "act", "rew", "pos", "vel"), got, ref):
+            assert a.is_cuda and a.shape == b.shape, label
+            torch.testing.assert_close(a, b, rtol=0, atol=0 if label == "act" else 1e-5,
+                                       msg=f"{label} (block offset {block_offset})")
+
+
+@pytest.mark.cuda
+def test_trajectory_wrappers_refuse_bad_inputs(card):
+    kscn = kernel_scenario("simple_reference")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_trajectory.trajectory_cuda(kscn, 64, 8, 5, 32, 4, 0, device="cpu")
+    with pytest.raises(ValueError, match="multiple of t_chunk"):
+        fused_trajectory.trajectory_cuda(kscn, 64, 6, 5, 32, 4, 0, device=card)
+    spec = kscn.spec
+    heavy = type(kscn)(dataclasses.replace(spec, initial_mass=spec.initial_mass * 2))
+    with pytest.raises(NotImplementedError, match="as published only"):
+        fused_trajectory.trajectory_cuda(heavy, 64, 8, 5, 32, 4, 0, device=card)
+    with pytest.raises(NotImplementedError, match="as published only"):
+        fused_rollout.rollout_cuda(heavy, 64, 8, 5, 32, 0, device=card)
 
 
 def _policy(card):

@@ -6,6 +6,8 @@ actions are made with numpy. The two packages' random streams differ, so
 auto-reset is checked by its semantics, not value for value.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,9 +154,10 @@ def test_convert_round_trip_env_minor():
 
 
 def test_scenario_registry():
-    assert t_scenarios.names() == ["simple_spread"]
+    names = ["simple", "simple_reference", "simple_speaker_listener", "simple_spread"]
+    assert t_scenarios.names() == names
     assert t_scenarios.load("simple_spread.py").spec.name == "simple_spread"
-    with pytest.raises(KeyError, match="available: \\['simple_spread'\\]"):
+    with pytest.raises(KeyError, match="available: " + re.escape(str(names))):
         t_scenarios.load("simple_tag")
 
 
