@@ -17,7 +17,8 @@ failure ends the run with a non-zero exit code:
           and 65536 envs; the deterministic rollout (kernel K1) on
           make_det_inputs, 4096 envs x 10000 steps; the fused mean reward
           per env-step must agree with the generic engine's within 5
-          standard errors;
+          standard errors; K2 is one kernel template with one C entry,
+          scenario_rollout_kernel<S>, here its simple_spread instantiation;
        b. training: build_fused_ppo_step at tools/train_bench.py's width
           (4096 envs x 64 steps, horizon 32, hidden 64, 4 PPO epochs,
           block_envs 1024, t_chunk 8) for 20 iterations (kernels K5 and K6),
@@ -34,15 +35,20 @@ failure ends the run with a non-zero exit code:
           updates (kernels K8 and K9), CUDA-event times split into collect
           and update, transitions/s over chunks 1-39, critic loss and mean
           reward of the first and last chunk, which must be finite;
-       e. the other scenarios and trajectories: the fused engine (K2) on
-          simple, simple_reference and simple_speaker_listener at 4096 envs x
-          10000 steps, horizon 100, each mean reward per env-step within 5
+       e. the other scenarios and trajectories, as tools/tpu_smoke.py runs
+          every scenario: the fused engine (K2) on the eight scenarios other
+          than simple_spread (simple, simple_reference,
+          simple_speaker_listener, simple_adversary, simple_push,
+          simple_crypto, simple_tag and simple_world_comm; the last two
+          through the pair physics) at 4096 envs x 10000 steps, horizon
+          100, the mean reward per env-step of each reward row within 5
           standard errors of the generic engine's (4096 envs x 200 steps);
-          fused_trajectory (kernel K3) on those three and simple_spread at
-          4096 envs x 64 steps, horizon 32, block_envs 1024, t_chunk 8 (the
-          learner batch of tools/train_bench.py), and on simple_spread and
-          simple_reference at 65536 envs x 64 steps: median CUDA-event time of
-          3 runs, bytes written and the write bandwidth they reach;
+          fused_trajectory (kernel K3) on all nine at 4096 envs x 64 steps,
+          horizon 32, block_envs 1024, t_chunk 8 (the learner batch of
+          tools/train_bench.py), and on simple_spread, simple_reference and
+          simple_world_comm (the widest writer) at 65536 envs x 64 steps:
+          median CUDA-event time of 3 runs, bytes written and the write
+          bandwidth they reach; the launches of each instantiation;
   3. every kernel held against its plain PyTorch version on the card: K1
      and K2 over 20 steps (K2 with horizon 10, so resets happen); K5 and K4
      over 16 steps with horizon 8, two block offsets, and at the main paths'
@@ -53,24 +59,29 @@ failure ends the run with a non-zero exit code:
      checkpoints/maddpg_spread_fused.npz and with the runner's actor, in
      both output forms; K9 on 1024 rows of the runner's ring (with the
      target actions' agreement and their smallest logit gap) and one update
-     chunk of 25 updates with the same indices; K2 on the three other
-     scenarios as on simple_spread, and on simple_reference at path e's 4096
-     envs x 10000 steps (the obs sums within 1e-4 of the largest); K3 on
-     each of the four scenarios at 512 envs x 24 steps (horizon 10, t_chunk
-     4, block_envs 256, two block offsets, so that chunk salts and resets
-     both occur), at path e's 4096 envs x 64 steps and, on simple_spread and
-     simple_reference, at path e's 65536 envs x 64 steps, actions equal and
-     the rest within 1e-5 (at path e's shapes with another seed than path
-     e's, so that no stale output can pass);
+     chunk of 25 updates with the same indices; K2 on all nine scenarios
+     over 20 steps (two block offsets, kernel and plain version timed there),
+     on simple_reference at path e's 4096 envs x 10000 steps (the obs sums
+     within 1e-4 of the largest) and on each of the five scenarios ported
+     last (simple_adversary, simple_push, simple_crypto, simple_tag and
+     simple_world_comm) at 4096 envs x 1000 steps (pos, vel and rewards
+     within 1e-5: on simple_tag and simple_world_comm collisions magnify any
+     difference in the order of operations, so each max error is printed);
+     K3 on each of the nine scenarios at 512 envs x 24 steps (horizon 10,
+     t_chunk 4, block_envs 256, two block offsets, so that chunk salts and
+     resets both occur), at path e's 4096 envs x 64 steps and, on
+     TRAJ_WIDE, at path e's 65536 envs x 64 steps, actions equal and the
+     rest within 1e-5 (at path e's shapes with another seed than path e's,
+     so that no stale output can pass);
   4. the plain versions timed at the main paths' shapes, each kernel's bound
      from the operations its function needs (OPS below), and for K6, K7 and
      K9 the same gradient by autograd (the library yardstick); one MADDPG
      update chunk under torch.profiler (K9's device time, the device's busy
      share), and each K3 call of path e (its device time);
-  5. a ``{"kernels": [...]}`` line (K2 is two rows, spread_rollout_kernel
-     and scenario_rollout_kernel; each K2 and K3 row names its scenarios
-     and the one it was timed on), the ``nvidia-smi`` name/power-limit
-     line, and ``{"ok":
+  5. a ``{"kernels": [...]}`` line (the K2 and K3 rows name their scenarios
+     and the one their top-level numbers were timed on, and carry per
+     scenario the launches, time, bound, plain time and error of each
+     instantiation), the ``nvidia-smi`` name/power-limit line, and ``{"ok":
      true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the ``mpe_tpu_torch`` package beside it, and
@@ -108,10 +119,16 @@ MADDPG_CHUNKS, MADDPG_ACTOR_START = 40, 250
 MADDPG_CKPT = "checkpoints/maddpg_spread_fused.npz"
 # the other scenarios (K2) and the trajectories (K3): the learner batch of
 # tools/train_bench.py and tools/tpu_smoke.py's t_chunk; the gate's shape
-SCENARIOS = ("simple", "simple_reference", "simple_speaker_listener")
-K2_TIMED = "simple_reference"           # the scenario_rollout_kernel row's numbers
+SCENARIOS = ("simple", "simple_reference", "simple_speaker_listener", "simple_adversary",
+             "simple_push", "simple_crypto", "simple_tag", "simple_world_comm")
+ALL_SCENARIOS = ("simple_spread",) + SCENARIOS
+K2_LONG = "simple_reference"            # K2 against plain at path e's whole shape
+# the long K2 gates of the scenarios ported last, at path e's envs
+LONG_GATE = ("simple_adversary", "simple_push", "simple_crypto", "simple_tag",
+             "simple_world_comm")
+LONG_GATE_STEPS = 1000
 TRAJ = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
-TRAJ_WIDE = ("simple_spread", "simple_reference")
+TRAJ_WIDE = ("simple_spread", "simple_reference", "simple_world_comm")
 TRAJ_CHECK = dict(n_envs=512, n_steps=24, horizon=10, block_envs=256, t_chunk=4)
 
 # Kernel against plain version on the card, 20 steps. The library is built
@@ -185,7 +202,7 @@ SPREAD_STEP = ((12, HASH), (3, DECODE), (3, PAIR_FORCE), (3, INTEGRATE), (9, LAN
 RESET = _ops((12, HASH), (12, {"fp32": 1}), (2, {"int": 1}))
 OPS = {
     # step: + the move salt (1 int), the horizon counter and test (2 int)
-    "spread_rollout_kernel": {
+    "scenario_rollout_kernel[simple_spread]": {
         "step": _ops(*SPREAD_STEP, (1, ACCUMULATE), (1, OBS_SUM), (3, {"int": 1})),
         "reset": RESET,
         "env": {},
@@ -344,7 +361,86 @@ K2_SCN_OPS = {
                                              (1, ACCUMULATE), (4, {"int": 1})),
                                 "reset": reset_ops(10, 1)},
 }
+
+# The five scenarios of csrc/scenario_blocks.cuh with PhysParams. A pair with a
+# landmark accumulates into one agent only (2 fp32 less than PAIR_FORCE); the
+# pair physics (mxu_physics_block's order) adds the action force to the pair
+# sum (2 more per agent) and clamps each agent's speed: s2 (mul, fma), max,
+# rsqrt, compare, max_speed x inv_s, select, factor - 1, 1 +, 2 products.
+LANDMARK_PAIR_FORCE = {"fp32": 19, "sfu": 3}
+CLAMP = {"fp32": 10, "sfu": 1}
+INTEGRATE_PAIRS = {"fp32": 8}
+DIST = {"fp32": 5, "sfu": 1}                # dx, dy, d2 (mul, fma), sqrt
+D2_TEST = {"fp32": 7}                       # dx, dy, d2 (2), compare, select, running add
+BOUND = {"fp32": 9, "sfu": 1}               # 2 compares, x - 0.9, x 10, 2x - 2 (fma), x log2e,
+#                                             exp, min 10, 2 selects; + the sum over axes
+STEP_INT = {"int": 1}                       # a salt, the horizon counter or its test
+
+# Per scenario: the hashes that K2 draws (the move columns that the decode
+# reads, 4 per movable agent, and the comm of the speakers) and that K3 draws
+# (all 5 move columns of every agent), the decode, the (agent, agent) and
+# (agent, landmark) pairs, the integration (and the clamp), the reward terms,
+# the obs coordinates and selects; K2 adds the obs sum (one add per nonzero
+# entry) and the running sums of the reward rows; the salts, the counter and
+# its test.
+PHYS = {
+    # 3 movable agents, no pair; reward: the goal pick, 3 distances, -d0^2, the
+    # min, + d0; obs: 28 relative coordinates, 28 nonzero entries; 3 rows
+    "simple_adversary": dict(agents=3, moves=12, all_moves=15, comm=0, pairs=(0, 0), clamp=False,
+                             reward=((1, GOAL_PICK), (3, DIST), (1, {"fp32": 3})), obs_rel=28,
+                             entries=28, rows=3, reset=reset_ops(10, 1)),
+    # 2 agents, 1 pair (generic order); reward: the pick, 2 distances, d1 - d0;
+    # obs: 14 coordinates, the own color (2 compares, 2 selects), 27 entries
+    "simple_push": dict(agents=2, moves=8, all_moves=10, comm=0, pairs=(1, 0), clamp=False,
+                        reward=((1, GOAL_PICK), (2, DIST), (1, {"fp32": 1}),
+                                (1, {"int": 2, "fp32": 2})), obs_rel=14, entries=27, rows=2,
+                        reset=reset_ops(8, 1)),
+    # immobile agents, 12 comm hashes; reward: 2 guarded errors (4 x (!= 0,
+    # select, max) + 4 x (goal compare, select, -, square or fma) + x nz) and
+    # -gb + ge; obs: 12 one-hot entries (compare, select), 20 nonzero entries
+    "simple_crypto": dict(agents=0, moves=0, all_moves=15, comm=12, pairs=(0, 0), clamp=False,
+                          reward=((2, {"fp32": 25, "int": 4}), (1, {"fp32": 1}),
+                                  (1, {"int": 12, "fp32": 12})), obs_rel=0, entries=20, rows=3,
+                          reset=reset_ops(10, 2)),
+    # 4 agents, 6 + 8 pairs, clamped; reward: 3 prey tests, 2 bound terms,
+    # 10 hits, -10 hits - bound; obs: 40 coordinates, 62 entries
+    "simple_tag": dict(agents=4, moves=16, all_moves=20, comm=0, pairs=(6, 8), clamp=True,
+                       reward=((3, D2_TEST), (2, BOUND), (1, {"fp32": 3})), obs_rel=40,
+                       entries=62, rows=4, reset=reset_ops(12, 0)),
+    # 6 agents, 15 + 6 pairs, clamped; 4 leader comm hashes. Derived: 8 good x
+    # adversary d2 (4 each), 12 forest tests (5 each), the visibility (6
+    # boolean operations for each of 30 ordered pairs). Reward: 8 pair hits
+    # (compare, select, add); 4 adversary rows (min, sqrt, -0.1 x, + 5 ph);
+    # 2 good rows (4 hits (select, add), 2 BOUND, 2 food tests (D2_TEST) and
+    # their min, sqrt, 4 terms). Obs: 120 coordinates, 60 + 20 masking
+    # selects, 12 forest selects, 192 nonzero entries
+    "simple_world_comm": dict(agents=6, moves=24, all_moves=30, comm=4, pairs=(15, 6), clamp=True,
+                              reward=((8, {"fp32": 4}), (12, {"fp32": 5}), (30, {"int": 6}),
+                                      (8, {"fp32": 3}), (4, {"fp32": 4}), (4, {"sfu": 1}),
+                                      (2, _ops((4, {"fp32": 2}), (2, BOUND), (2, D2_TEST),
+                                               (1, {"fp32": 6, "sfu": 1})))),
+                              obs_rel=212, entries=192, rows=6, reset=reset_ops(22, 0)),
+}
+
+
+def phys_ops(p: dict) -> tuple[dict, dict]:
+    """(K2's, K3's) operations per env-step of a PHYS scenario."""
+    k3 = _ops((p["all_moves"] + p["comm"], HASH), (p["agents"], DECODE),
+              (p["pairs"][0], PAIR_FORCE), (p["pairs"][1], LANDMARK_PAIR_FORCE),
+              (p["agents"], INTEGRATE_PAIRS if p["clamp"] else INTEGRATE),
+              (p["agents"] if p["clamp"] else 0, CLAMP), *p["reward"],
+              (1, {"fp32": p["obs_rel"]}), (4 if p["comm"] else 3, STEP_INT))
+    k2 = _ops((1, k3), (p["all_moves"] - p["moves"], {k: -v for k, v in HASH.items()}),
+              (1, {"fp32": p["entries"] + p["rows"]}))
+    return k2, k3
+
+
+for _name, _p in PHYS.items():
+    K2_SCN_OPS[_name], TRAJ_OPS[_name] = ({"step": ops, "reset": _p["reset"]}
+                                          for ops in phys_ops(_p))
 OPS.update({f"scenario_rollout_kernel[{k}]": {**v, "env": {}} for k, v in K2_SCN_OPS.items()})
+OPS.update({f"trajectory_kernel[{k}]": {**v, "env": {}} for k, v in TRAJ_OPS.items()
+            if k in PHYS})
 
 
 def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
@@ -410,6 +506,8 @@ def report_actions(label: str, got, ref) -> None:
 def zero_launches(wrappers: dict) -> None:
     for w in wrappers.values():
         w.launches = 0
+        if hasattr(w, "launches_by"):
+            w.launches_by.clear()
 
 
 def read_launches(wrappers: dict, path: list[str], label: str) -> dict:
@@ -417,6 +515,14 @@ def read_launches(wrappers: dict, path: list[str], label: str) -> dict:
     print(f"{label} launches: {launches}")
     assert all(n > 0 for n in launches.values()), f"a kernel of the {label} was never launched"
     return launches
+
+
+def read_instantiations(wrapper, names, label: str) -> dict:
+    """Launches of a template kernel by scenario: each of ``names`` launched."""
+    by = {name: wrapper.launches_by[name] for name in names}
+    print(f"{label} launches by scenario: {by}")
+    assert all(n > 0 for n in by.values()), f"an instantiation of the {label} was never launched"
+    return by
 
 
 def check_update(label: str, update, params, batch, gated: tuple[str, ...]) -> float:
@@ -457,8 +563,8 @@ def library_ppo_grads(step, params, batch):
 
 def generic_engine(name: str, dev):
     """The generic engine (build_rollout over MpeEnv, env-minor, horizon
-    HORIZON) on ``name`` at N_ENVS x GENERIC_STEPS, timed: (mean reward per
-    env-step, its SE over envs)."""
+    HORIZON) on ``name`` at N_ENVS x GENERIC_STEPS, timed: per agent, (mean
+    reward per env-step, its SE over envs)."""
     import torch
 
     from mpe_tpu_torch import scenarios
@@ -483,21 +589,26 @@ def generic_engine(name: str, dev):
     assert rew.shape == (GENERIC_STEPS, a, N_ENVS) and bool(torch.isfinite(rew).all())
     assert traj["obs"].shape == (GENERIC_STEPS, a, ow, N_ENVS)
     assert bool(torch.isfinite(states.pos).all())
-    g_mean, g_se = mean_se(rew[:, 0, :].mean(0))        # the shared reward
+    stats = [mean_se(rew[:, i, :].mean(0)) for i in range(a)]
     print(f"generic engine, {name}: {N_ENVS * GENERIC_STEPS / generic_s:.6g} env-steps/s "
           f"({N_ENVS} envs x {GENERIC_STEPS} steps in {generic_s * 1e3:.1f} ms); "
-          f"mean reward per env-step {g_mean:.5f} +- {g_se:.5f}")
-    return g_mean, g_se
+          f"mean reward per env-step by agent "
+          + ", ".join(f"{m:.5f} +- {se:.5f}" for m, se in stats))
+    return stats
 
 
-def agree_with_generic(label: str, rew_sum, g_mean: float, g_se: float) -> None:
-    """The fused engine's mean reward per env-step within 5 SE of the
-    generic engine's."""
-    f_mean, f_se = mean_se(rew_sum[0] / N_STEPS)
-    z = abs(f_mean - g_mean) / math.hypot(f_se, g_se)
-    print(f"{label}: mean reward per env-step {f_mean:.5f} +- {f_se:.5f}; fused vs generic "
-          f"{z:.2f} standard errors apart")
-    assert z < 5, f"{label}: fused and generic engines disagree in mean reward ({z:.2f} SE)"
+def agree_with_generic(label: str, rew_sum, generic: list) -> None:
+    """Each reward row's mean per env-step of the fused engine within 5 SE of
+    the generic engine's for the same agent: row r is agent r's reward, or
+    with one row the shared reward that every agent gets. Both engines draw
+    the same distributions: uniform moves (the difference of two U[0, 1)
+    entries per axis), U[0, 1) utterances for the speakers, uniform goals."""
+    for r in range(rew_sum.shape[0]):
+        (g_mean, g_se), (f_mean, f_se) = generic[r], mean_se(rew_sum[r] / N_STEPS)
+        z = abs(f_mean - g_mean) / math.hypot(f_se, g_se)
+        print(f"{label}, reward row {r}: mean reward per env-step {f_mean:.5f} +- {f_se:.5f}; "
+              f"fused vs generic {z:.2f} standard errors apart")
+        assert z < 5, f"{label}: fused and generic engines disagree in mean reward ({z:.2f} SE)"
 
 
 def rollout_path(wrappers, spec, dev):
@@ -508,7 +619,7 @@ def rollout_path(wrappers, spec, dev):
     from mpe_tpu_torch.ops.fused_rollout import fused_spread_rollout
 
     zero_launches(wrappers)
-    g_mean, g_se = generic_engine("simple_spread", dev)
+    generic = generic_engine("simple_spread", dev)
 
     k2 = fused_spread_rollout(spec, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
     k2_ms, out = cuda_time(lambda: k2(1), REPEATS)
@@ -518,7 +629,7 @@ def rollout_path(wrappers, spec, dev):
         assert bool(torch.isfinite(x).all())
     print(f"fused engine (K2): {N_ENVS * N_STEPS / (k2_ms * 1e-3):.6g} env-steps/s "
           f"({N_ENVS} envs x {N_STEPS} steps, kernel {k2_ms:.4f} ms, median of {REPEATS})")
-    agree_with_generic("fused engine (K2), simple_spread", rew_sum, g_mean, g_se)
+    agree_with_generic("fused engine (K2), simple_spread", rew_sum, generic)
 
     k2_ms_at = {N_ENVS: k2_ms}
     for n in (MID_ENVS, WIDE_ENVS):
@@ -537,9 +648,11 @@ def rollout_path(wrappers, spec, dev):
     assert bool((out[0] != det_inputs[0]).any())
     print(f"deterministic rollout (K1): {N_ENVS * N_STEPS / (k1_ms * 1e-3):.6g} env-steps/s "
           f"({N_ENVS} envs x {N_STEPS} steps, kernel {k1_ms:.4f} ms, median of {REPEATS})")
-    launches = read_launches(wrappers, ["spread_rollout_kernel", "spread_det_rollout_kernel"],
+    launches = read_launches(wrappers, ["scenario_rollout_kernel", "spread_det_rollout_kernel"],
                              "rollout path")
-    return launches, k2, k2_ms_at, k1_ms, det_inputs
+    by = read_instantiations(wrappers["scenario_rollout_kernel"], ["simple_spread"],
+                             "rollout path's K2")
+    return launches, by, k2, k2_ms_at, k1_ms, det_inputs
 
 
 def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
@@ -655,9 +768,10 @@ def rollout_bytes(name: str, n_envs: int) -> int:
 
 
 def scenarios_path(wrappers, dev):
-    """Main path e: K2 on the three other scenarios against the generic
-    engine, then K3 on the four scenarios at N_ENVS and on TRAJ_WIDE at
-    WIDE_ENVS -> (launches, K2 ms by scenario, {(scenario, envs): K3 ms})."""
+    """Main path e: K2 on the eight other scenarios against the generic
+    engine, then K3 on all nine at N_ENVS and on TRAJ_WIDE at WIDE_ENVS ->
+    (launches, K2 and K3 launches by scenario, K2 ms by scenario,
+    {(scenario, envs): K3 ms})."""
     import torch
 
     from mpe_tpu_torch.ops.fused_rollout import fused_rollout
@@ -666,7 +780,7 @@ def scenarios_path(wrappers, dev):
     zero_launches(wrappers)
     k2_ms = {}
     for name in SCENARIOS:
-        g_mean, g_se = generic_engine(name, dev)
+        generic = generic_engine(name, dev)
         run = fused_rollout(name, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
         k2_ms[name], out = cuda_time(lambda: run(1), REPEATS)
         for x in out:
@@ -674,11 +788,10 @@ def scenarios_path(wrappers, dev):
         print(f"fused engine (K2), {name}: {N_ENVS * N_STEPS / (k2_ms[name] * 1e-3):.6g} "
               f"env-steps/s ({N_ENVS} envs x {N_STEPS} steps, kernel {k2_ms[name]:.4f} ms, "
               f"median of {REPEATS})")
-        agree_with_generic(f"fused engine (K2), {name}", out[2], g_mean, g_se)
+        agree_with_generic(f"fused engine (K2), {name}", out[2], generic)
 
     k3_ms = {}
-    for name, n in [(x, N_ENVS) for x in ("simple_spread",) + SCENARIOS] + \
-            [(x, WIDE_ENVS) for x in TRAJ_WIDE]:
+    for name, n in [(x, N_ENVS) for x in ALL_SCENARIOS] + [(x, WIDE_ENVS) for x in TRAJ_WIDE]:
         run = fused_trajectory(name, n, **TRAJ)
         k3_ms[name, n], out = cuda_time(lambda: run(1), REPEATS)
         obs, act, rew, pos, vel = out
@@ -692,47 +805,67 @@ def scenarios_path(wrappers, dev):
               f"{nbytes / (k3_ms[name, n] * 1e-3) / 1e12:.4f} TB/s "
               f"({nbytes / (k3_ms[name, n] * 1e-3) / HBM_BYTES_PER_S:.3f} of 3.35 TB/s); "
               f"{n * TRAJ['n_steps'] / (k3_ms[name, n] * 1e-3):.6g} env-steps/s; mean reward "
-              f"per env-step {float(rew.double().mean()):.5f}")
+              f"per env-step by row " + ", ".join(f"{float(x):.5f}" for x in
+                                                rew.double().mean((0, 2))))
         del out, obs, act, rew, pos, vel
     launches = read_launches(wrappers, ["scenario_rollout_kernel", "trajectory_kernel"],
                              "scenarios and trajectories path")
-    return launches, k2_ms, k3_ms
+    by = {"scenario_rollout_kernel": read_instantiations(
+              wrappers["scenario_rollout_kernel"], SCENARIOS, "scenarios path's K2"),
+          "trajectory_kernel": read_instantiations(
+              wrappers["trajectory_kernel"], ALL_SCENARIOS, "trajectories path's K3")}
+    return launches, by, k2_ms, k3_ms
 
 
 def check_scenario_kernels():
-    """K2 on the three other scenarios and K3 on all four against their
-    plain versions: K2 over CHECK_STEPS at N_ENVS with horizon CHECK_HORIZON
-    (two block offsets), and on K2_TIMED at path e's N_ENVS x N_STEPS; K3
-    at TRAJ_CHECK (two block offsets), at path e's N_ENVS x 64 and, on
-    TRAJ_WIDE, at WIDE_ENVS x 64. At path e's shapes the seed is not path
-    e's, so no output that path e left in a recycled buffer can pass for the
-    kernel's -> (K2 max abs err, plain K2 ms on K2_TIMED at path e's shape,
-    K3 max abs err, plain K3 ms at path e's simple_spread shape)."""
+    """K2 and K3 on the nine scenarios against their plain versions. K2 over
+    CHECK_STEPS at N_ENVS with horizon CHECK_HORIZON (two block offsets,
+    the first timed for the kernel and the plain version), on K2_LONG at path
+    e's N_ENVS x N_STEPS and on LONG_GATE at N_ENVS x LONG_GATE_STEPS; K3 at
+    TRAJ_CHECK (two block offsets), at path e's N_ENVS x 64 (the plain
+    version timed) and, on TRAJ_WIDE, at WIDE_ENVS x 64. At path e's shapes
+    the seed is not path e's, so no output that path e left in a recycled
+    buffer can pass for the kernel's -> (K2 {scenario: max abs err}, K2
+    {scenario: (kernel ms, plain ms)} at the check shape, plain K2 ms on
+    K2_LONG at path e's shape, K3 {scenario: max abs err}, K3 {scenario:
+    plain ms} at path e's N_ENVS x 64)."""
     from mpe_tpu_torch.ops.fused_rollout import fused_rollout
     from mpe_tpu_torch.ops.fused_trajectory import fused_trajectory
 
-    k2_err = 0.0
-    for name in SCENARIOS:
+    k2_err, k2_check_ms = {}, {}
+    for name in ALL_SCENARIOS:
         run = fused_rollout(name, N_ENVS, CHECK_STEPS, horizon=CHECK_HORIZON,
                             block_envs=BLOCK_ENVS)
         errs = {}
         for offset in (0, 1):
-            got, ref = run(7, offset), run.plain(7, offset)
+            if offset == 0:
+                ms, got = cuda_time(lambda: run(7), REPEATS)
+                plain_ms, ref = cuda_time(lambda: run.plain(7), 1, warm_up=False)
+                k2_check_ms[name] = (ms, plain_ms)
+            else:
+                got, ref = run(7, offset), run.plain(7, offset)
             for k, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), got, ref):
                 errs[k] = max(errs.get(k, 0.0), max_err(a, b))
-        k2_err = max(k2_err, check(f"K2 ({name})", errs))
-    # the whole rollout: the obs sums, summed in another order each step,
-    # drift apart over N_STEPS, so they are held relative to their largest
-    run = fused_rollout(K2_TIMED, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
-    plain_k2_ms, ref = cuda_time(lambda: run.plain(5), 1, warm_up=False)
-    got = run(5)
-    errs = {k: max_err(a, b) for k, a, b in zip(("pos", "vel", "rew_sum"), got, ref)}
-    k2_err = max(k2_err, *errs.values())
-    errs["obs_sum_rel"] = max_err(got[3], ref[3]) / float(ref[3].abs().max())
-    check(f"K2 ({K2_TIMED}, {N_ENVS} envs x {N_STEPS} steps)", errs)
+        k2_err[name] = check(f"K2 ({name}; kernel {k2_check_ms[name][0]:.4f} ms, plain "
+                             f"{k2_check_ms[name][1]:.1f} ms at {N_ENVS} envs x {CHECK_STEPS} "
+                             "steps)", errs)
+    # whole rollouts: the obs sums, summed in another order each step, drift
+    # apart, so they are held relative to their largest; on simple_tag the
+    # collisions magnify any difference in the order of operations
+    plain_k2_long_ms = None
+    for name, steps in ((K2_LONG, N_STEPS), *((n, LONG_GATE_STEPS) for n in LONG_GATE)):
+        run = fused_rollout(name, N_ENVS, steps, horizon=HORIZON, block_envs=BLOCK_ENVS)
+        plain_ms, ref = cuda_time(lambda: run.plain(5), 1, warm_up=False)
+        if name == K2_LONG:
+            plain_k2_long_ms = plain_ms
+        got = run(5)
+        errs = {k: max_err(a, b) for k, a, b in zip(("pos", "vel", "rew_sum"), got, ref)}
+        k2_err[name] = max(k2_err[name], *errs.values())
+        errs["obs_sum_rel"] = max_err(got[3], ref[3]) / float(ref[3].abs().max())
+        check(f"K2 ({name}, {N_ENVS} envs x {steps} steps; plain {plain_ms:.1f} ms)", errs)
 
-    k3_err, plain_k3_ms = 0.0, None
-    for name in ("simple_spread",) + SCENARIOS:
+    k3_err, plain_k3_ms = {}, {}
+    for name in ALL_SCENARIOS:
         small = fused_trajectory(name, **TRAJ_CHECK)
         errs = {}
         for offset in (0, 1):
@@ -744,19 +877,20 @@ def check_scenario_kernels():
         for n in widths:
             full = fused_trajectory(name, n, **TRAJ)
             got = full(5)
-            if (name, n) == ("simple_spread", N_ENVS):
-                plain_k3_ms, ref = cuda_time(lambda: full.plain(5), 1)
+            if n == N_ENVS:
+                plain_k3_ms[name], ref = cuda_time(lambda: full.plain(5), 1,
+                                                   warm_up=name == "simple_spread")
             else:
                 ref = full.plain(5)
             report_actions(f"K3 ({name}, {n} envs x {TRAJ['n_steps']} steps)", got[1], ref[1])
             for k, a, b in zip(("obs", "act", "rew", "pos", "vel"), got, ref):
                 errs[k] = max(errs[k], max_err(a, b))
             del got, ref
-        k3_err = max(k3_err, check(f"K3 ({name}; {TRAJ_CHECK['n_envs']} envs x "
-                                   f"{TRAJ_CHECK['n_steps']} steps, two block offsets, and "
-                                   + " and ".join(f"{n} x {TRAJ['n_steps']}" for n in widths)
-                                   + ")", errs))
-    return k2_err, plain_k2_ms, k3_err, plain_k3_ms
+        k3_err[name] = check(f"K3 ({name}; {TRAJ_CHECK['n_envs']} envs x "
+                             f"{TRAJ_CHECK['n_steps']} steps, two block offsets, and "
+                             + " and ".join(f"{n} x {TRAJ['n_steps']}" for n in widths)
+                             + f"; plain {plain_k3_ms[name]:.1f} ms at {N_ENVS} envs)", errs)
+    return k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms
 
 
 def evaluation_path(wrappers, kscn, params):
@@ -1025,6 +1159,48 @@ def profile_maddpg_update(run, params, info):
         f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms in {e.count}" for e in top))
 
 
+def template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms) -> dict:
+    """K2's bound at each shape it ran (simple_spread from path a at 4096,
+    16384 and 65536 envs, the eight others from path e), printed beside its
+    time -> {scenario: the kernels line's by_scenario entry at N_ENVS}."""
+    k2_rows = {}
+    for name, n, ms in ([("simple_spread", n, ms) for n, ms in k2_ms_at.items()]
+                        + [(name, N_ENVS, ms) for name, ms in k2_scn_ms.items()]):
+        ops = OPS[f"scenario_rollout_kernel[{name}]"]
+        b, by, issue = bound_ms(ops, n * N_STEPS, n * (N_STEPS // HORIZON + 1), n,  # resets, draws
+                                rollout_bytes(name, n))
+        print(f"K2 bound, {name} at {n} envs: {b:.4f} ms by {by} ({ms / b:.2f}x); issue floor "
+              f"{issue:.4f} ms ({ms / issue:.2f}x); {ops['step'].get('sfu', 0)} SFU operations "
+              "per env-step")
+        if n == N_ENVS:
+            k2_rows[name] = {"launches": k2_by[name], "ms": ms, "bound_ms": b, "bound_by": by,
+                             "max_abs_err": k2_err[name], "check_ms": k2_check_ms[name][0],
+                             "check_plain_ms": k2_check_ms[name][1]}
+    return k2_rows
+
+
+def template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms) -> dict:
+    """K3's bound at each shape of path e, printed beside its time by CUDA
+    events and in device time -> {scenario: the kernels line's by_scenario
+    entry (the wide shape's numbers suffixed with its env count)}."""
+    k3_rows = {}
+    for (name, n), ms in k3_ms.items():
+        ops = OPS[f"trajectory_kernel[{name}]"]
+        b, by, issue = bound_ms(ops, n * TRAJ["n_steps"],
+                                n * (TRAJ["n_steps"] // TRAJ["horizon"] + 1), n,  # resets, draws
+                                traj_bytes(name, n, TRAJ["n_steps"]))
+        dev = k3_device_ms.get((name, n))
+        print(f"K3 bound, {name} at {n} envs: {b:.4f} ms by {by} ({ms / b:.2f}x by CUDA events"
+              + (f", {dev / b:.2f}x in device time" if dev else "") + f"); issue floor "
+              f"{issue:.4f} ms; {ops['step'].get('sfu', 0)} SFU operations per env-step")
+        row = k3_rows.setdefault(name, {"launches": k3_by[name], "max_abs_err": k3_err[name],
+                                        "plain_ms": plain_k3_ms[name]})
+        suffix = "" if n == N_ENVS else f"_{n}"
+        row.update({f"ms{suffix}": ms, f"device_ms{suffix}": dev, f"bound_ms{suffix}": b,
+                    f"bound_by{suffix}": by})
+    return k3_rows
+
+
 def main() -> int:
     import torch
 
@@ -1047,8 +1223,7 @@ def main() -> int:
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
                                                 spread_policy_rollout_cuda,
                                                 spread_policy_traj_cuda)
-    from mpe_tpu_torch.ops.fused_rollout import (fused_spread_rollout, scenario_rollout_cuda,
-                                                 spread_rollout_cuda)
+    from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
     from mpe_tpu_torch.ops.fused_trajectory import trajectory_cuda
     from mpe_tpu_torch.ops.fused_update import (clip_binding_inputs, mappo_update_cuda,
                                                 ppo_update_cuda)
@@ -1071,8 +1246,7 @@ def main() -> int:
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
-    wrappers = {"spread_rollout_kernel": spread_rollout_cuda,
-                "scenario_rollout_kernel": scenario_rollout_cuda,
+    wrappers = {"scenario_rollout_kernel": rollout_cuda,
                 "trajectory_kernel": trajectory_cuda,
                 "spread_det_rollout_kernel": spread_det_rollout_cuda,
                 "spread_policy_traj_kernel": spread_policy_traj_cuda,
@@ -1083,7 +1257,8 @@ def main() -> int:
                 "maddpg_update_kernel": maddpg_update_cuda}
 
     # ---- main paths ----------------------------------------------------------
-    launches, k2, k2_ms_at, k1_ms, det_inputs = rollout_path(wrappers, spec, torch.device("cuda"))
+    launches, k2_by, k2, k2_ms_at, k1_ms, det_inputs = rollout_path(wrappers, spec,
+                                                                     torch.device("cuda"))
     train_launches, step, state0, state = training_path(
         wrappers, kscn, build_fused_ppo_step, "train", ["spread_policy_traj_kernel",
                                                         "ppo_update_kernel"])
@@ -1096,8 +1271,12 @@ def main() -> int:
     launches.update(eval_launches)
     maddpg_launches, run, mparams, minfo = maddpg_path(wrappers)
     launches.update(maddpg_launches)
-    scn_launches, k2_scn_ms, k3_ms = scenarios_path(wrappers, torch.device("cuda"))
-    launches.update(scn_launches)
+    scn_launches, scn_by, k2_scn_ms, k3_ms = scenarios_path(wrappers, torch.device("cuda"))
+    # K2 ran in path a (simple_spread) and path e (the eight others)
+    launches["scenario_rollout_kernel"] += scn_launches["scenario_rollout_kernel"]
+    launches["trajectory_kernel"] = scn_launches["trajectory_kernel"]
+    k2_by.update(scn_by["scenario_rollout_kernel"])
+    k3_by = scn_by["trajectory_kernel"]
     zero_launches(wrappers)
 
     # ---- kernels against their plain versions -------------------------------
@@ -1107,16 +1286,6 @@ def main() -> int:
     torch.cuda.synchronize()
     k1_err = check("K1", {k: max_err(a, b) for k, a, b in
                           zip(("pos", "vel", "rew_sum", "rew", "obs"), got, ref)})
-
-    k2s = fused_spread_rollout(spec, N_ENVS, CHECK_STEPS, horizon=CHECK_HORIZON,
-                               block_envs=BLOCK_ENVS)
-    errs = {}
-    for offset in (0, 1):
-        got, ref = k2s(7, offset), k2s.plain(7, offset)
-        torch.cuda.synchronize()
-        for k, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), got, ref):
-            errs[k] = max(errs.get(k, 0.0), max_err(a, b))
-    k2_err = check("K2", errs)
 
     k5s = fused_policy_trajectory(kscn, actor, N_ENVS, POLICY_CHECK_STEPS,
                                   horizon=POLICY_CHECK_HORIZON, block_envs=BLOCK_ENVS,
@@ -1199,11 +1368,11 @@ def main() -> int:
     k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9 = check_maddpg_update(run, mparams, minfo)
     profile_maddpg_update(run, mparams, minfo)
     k3_device_ms = profile_trajectories(k3_ms)
-    k2s_err, plain_k2s_ms, k3_err, plain_k3_ms = check_scenario_kernels()
+    k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
 
     # ---- bounds ---------------------------------------------------------------
-    # bytes: K2 writes pos, vel (2 x 6 x 2 floats), rew_sum and obs_sum per
-    # env; K1 reads pos0, vel0 and writes pos, vel, rew_sum, rew and obs [3,18];
+    # bytes: K2 writes pos and vel (2 E P floats), the R reward sums and the
+    # obs sum per env (rollout_bytes); K3 its trajectory (traj_bytes); K1 reads pos0, vel0 and writes pos, vel, rew_sum, rew and obs [3,18];
     # K5 writes obs [T,3,18], act [T,3] and rew [T,1] per env and last_obs;
     # K4 writes ret, pos [6,2] and episodes per env; K6 reads obs [18], the
     # one-hot move [5], logp_old, adv, ret and value per sample and writes the
@@ -1212,14 +1381,8 @@ def main() -> int:
     for name, ops in OPS.items():
         print(f"{name}: operations needed per env-step {ops['step']}, per reset {ops['reset']}, "
               f"per env {ops['env']}")
-    bounds = {}
-    for n in k2_ms_at:
-        bounds[n] = bound_ms(OPS["spread_rollout_kernel"], n * N_STEPS,     # resets and
-                             n * (N_STEPS // HORIZON + 1), n, 104 * n)      # initial draws
-        b, by, issue = bounds[n]
-        print(f"K2 bound at {n} envs: {b:.4f} ms by {by} ({k2_ms_at[n] / b:.2f}x); "
-              f"issue floor {issue:.4f} ms ({k2_ms_at[n] / issue:.2f}x)")
-    b2, by2, _ = bounds[N_ENVS]
+    k2_rows = template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms)
+    b2 = (k2_rows["simple_spread"]["bound_ms"], k2_rows["simple_spread"]["bound_by"])
     b1, by1, issue1 = bound_ms(OPS["spread_det_rollout_kernel"], N_ENVS * N_STEPS, 0, N_ENVS,
                                (96 + 320) * N_ENVS)
     print(f"K1 bound at {N_ENVS} envs: {b1:.4f} ms by {by1} ({k1_ms / b1:.2f}x); "
@@ -1232,28 +1395,11 @@ def main() -> int:
                                N_ENVS * 14 * 4 + 5701 * 4)
     b6, by6, issue6 = bound_ms(OPS["ppo_update_kernel"], samples, 0, 0,
                                samples * 27 * 4 + 2 * 5766 * 4)
-    for (name, n), ms in k3_ms.items():
-        ops = OPS[f"trajectory_kernel[{name}]"]
-        b, by, issue = bound_ms(ops, n * TRAJ["n_steps"],                # resets and
-                                n * (TRAJ["n_steps"] // TRAJ["horizon"] + 1), n,  # initial draws
-                                traj_bytes(name, n, TRAJ["n_steps"]))
-        dev = k3_device_ms.get((name, n))
-        print(f"K3 bound, {name} at {n} envs: {b:.4f} ms by {by} ({ms / b:.2f}x by CUDA events"
-              + (f", {dev / b:.2f}x in device time" if dev else "") + f"); issue floor "
-              f"{issue:.4f} ms")
-        if (name, n) == ("simple_spread", N_ENVS):
-            b3 = (b, by)
-    for name, ms in k2_scn_ms.items():
-        b, by, issue = bound_ms(OPS[f"scenario_rollout_kernel[{name}]"], N_ENVS * N_STEPS,
-                                N_ENVS * (N_STEPS // HORIZON + 1), N_ENVS,
-                                rollout_bytes(name, N_ENVS))
-        print(f"K2 bound, {name} at {N_ENVS} envs: {b:.4f} ms by {by} ({ms / b:.2f}x); issue "
-              f"floor {issue:.4f} ms ({ms / issue:.2f}x)")
-        if name == K2_TIMED:
-            b2s = (b, by)
-    print(f"plain versions on the card: K2 on {K2_TIMED} ({N_ENVS} envs x {N_STEPS} steps) "
-          f"{plain_k2s_ms:.1f} ms; K3 on simple_spread ({N_ENVS} envs x {TRAJ['n_steps']} "
-          f"steps) {plain_k3_ms:.1f} ms")
+    k3_rows = template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms)
+    b3 = (k3_rows["simple_spread"]["bound_ms"], k3_rows["simple_spread"]["bound_by"])
+    print(f"plain versions on the card: K2 on {K2_LONG} ({N_ENVS} envs x {N_STEPS} steps) "
+          f"{plain_k2_long_ms:.1f} ms; K3 at {N_ENVS} envs x {TRAJ['n_steps']} steps "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_k3_ms.items()))
     for label, ms, (b, by, issue) in (("K5", k5_ms, (b5, by5, issue5)),
                                       ("K4", k4_ms, (b4, by4, issue4)),
                                       ("K6", k6_ms, (b6, by6, issue6))):
@@ -1266,18 +1412,23 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms, **extra}
 
+    pair_physics = {"replaces": "mpe_tpu/ops/mxu_physics.py:152",
+                    "source": "mpe_tpu_torch/csrc/scenario_blocks.cuh",
+                    "scenarios": ["simple_tag", "simple_world_comm"]}
     kernels = [
-        # K2 is two kernels: simple_spread's at 4096 envs x 10000 steps (path
-        # a), and the other scenarios' with K2_TIMED's numbers (path e)
-        record("spread_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_rollout.py:359",
-               k2_err, k2_ms_at[N_ENVS], plain_k2_ms, (b2, by2), scenarios=["simple_spread"]),
+        # K2, one template: its top-level numbers are simple_spread's at 4096
+        # envs x 10000 steps (path a); by_scenario holds every instantiation
+        # at 4096 envs x 10000 steps, with kernel and plain version also at
+        # the check shape (4096 envs x 20 steps)
         record("scenario_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_rollout.py:359",
-               k2s_err, k2_scn_ms[K2_TIMED], plain_k2s_ms, b2s, scenarios=list(SCENARIOS),
-               timed_on=K2_TIMED),
-        # K3's numbers are simple_spread's at 4096 envs x 64 steps
+               max(k2_err.values()), k2_ms_at[N_ENVS], plain_k2_ms, b2,
+               scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k2_rows,
+               pair_physics=pair_physics),
+        # K3's top-level numbers are simple_spread's at 4096 envs x 64 steps
         record("trajectory_kernel", "mpe_trajectory.cu", "mpe_tpu/ops/fused_trajectory.py:40",
-               k3_err, k3_ms["simple_spread", N_ENVS], plain_k3_ms, b3,
-               scenarios=["simple_spread", *SCENARIOS], timed_on="simple_spread"),
+               max(k3_err.values()), k3_ms["simple_spread", N_ENVS], plain_k3_ms["simple_spread"],
+               b3, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k3_rows,
+               pair_physics=pair_physics),
         record("spread_det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
                k1_err, k1_ms, plain_k1_ms, (b1, by1)),
         record("spread_policy_traj_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:245",

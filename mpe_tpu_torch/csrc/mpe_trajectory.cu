@@ -1,16 +1,16 @@
-// Hopper (sm_90a) kernel of the fused trajectory, for simple_spread, simple,
-// simple_reference and simple_speaker_listener.
+// Hopper (sm_90a) kernel of the fused trajectory, for the nine scenarios of
+// scenario_blocks.cuh.
 //
 // K3  trajectory_kernel<S>  replaces  mpe_tpu/ops/fused_trajectory.py::_traj_kernel
 //     (fused_trajectory): uniform moves and comm from the murmur hash, one
 //     physics step, reward and obs, per-lane reset at the horizon, streaming
-//     the learner batch. Out: obs [T,A,OW,N] and rew [T,1,N] after the physics
+//     the learner batch. Out: obs [T,A,OW,N] and rew [T,R,N] after the physics
 //     of step t and before its reset; act [T,A,5+C,N], the raw uniform move
 //     draw and the silent-masked comm draw; the final pos, vel [E,P,N].
 //
-// What bounds it: bytes, at width. Per env-step it writes (A*OW + A*(5+C) + 1)
-// floats: 280 B on simple_spread, 292 B on simple_reference, and reads
-// nothing. Its operations are K2's step less the reward and obs sums, a few
+// What bounds it: bytes, at width. Per env-step it writes (A*OW + A*(5+C) + R)
+// floats: 280 B on simple_spread, 292 B on simple_reference, 1,056 B on
+// simple_world_comm, and reads nothing. Its operations are K2's step less the reward and obs sums, a few
 // hundred per env-step (chip_smoke.py::OPS), so at 3.35 TB/s against 67
 // TFLOP/s the stores take several times longer than the arithmetic. At a few
 // thousand envs, though, each lane's steps are one dependent chain, as in K2,
@@ -62,12 +62,17 @@ trajectory_kernel(const typename S::Params c, float* __restrict__ obs, float* __
       S::physics(c, mv, w);
       float cm[A][S::CW];
       draw_comm<S>(c, rollout_salt(mixed, step, 16), n, lane, cm);
-      __stcs(rew + ts * N + g, S::reward(c, w));
+      const typename S::Derived d = S::derive(c, w, cm);
+      float r_t[S::R];
+      S::reward(c, w, cm, d, r_t);
+#pragma unroll
+      for (int k = 0; k < S::R; ++k) __stcs(rew + (ts * S::R + k) * N + g, r_t[k]);
       float* obs_t = obs + ts * A * OW * N + g;
 #pragma unroll
       for (int i = 0; i < A; ++i)
 #pragma unroll
-        for (int r = 0; r < OW; ++r) __stcs(obs_t + (size_t)(i * OW + r) * N, S::obs(i, r, w, cm));
+        for (int r = 0; r < OW; ++r)
+          __stcs(obs_t + (size_t)(i * OW + r) * N, S::obs(i, r, w, cm, d));
       float* act_t = act + ts * A * AW * N + g;
 #pragma unroll
       for (int i = 0; i < A; ++i) {
@@ -101,27 +106,26 @@ int launch(const void* params, float* obs, float* act, float* rew, float* pos, f
 
 extern "C" {
 
-// scenario: 0 simple_spread, 1 simple, 2 simple_reference, 3
-// simple_speaker_listener (ops/_build.py::SCENARIO_IDS)
+// scenario: ops/_build.py::SCENARIO_IDS
 int mpe_trajectory(int scenario, const void* params, float* obs, float* act, float* rew,
                    float* pos, float* vel, int n_envs, int block_envs, int n_chunks, int t_chunk,
                    int horizon, uint32_t seed, uint32_t block_offset, cudaStream_t stream) {
+#define MPE_TRAJECTORY(S)                                                                 \
+  return launch<S>(params, obs, act, rew, pos, vel, n_envs, block_envs, n_chunks, t_chunk, \
+                   horizon, seed, block_offset, stream)
   switch (scenario) {
-    case 0:
-      return launch<SpreadScn>(params, obs, act, rew, pos, vel, n_envs, block_envs, n_chunks,
-                               t_chunk, horizon, seed, block_offset, stream);
-    case 1:
-      return launch<SimpleScn>(params, obs, act, rew, pos, vel, n_envs, block_envs, n_chunks,
-                               t_chunk, horizon, seed, block_offset, stream);
-    case 2:
-      return launch<ReferenceScn>(params, obs, act, rew, pos, vel, n_envs, block_envs, n_chunks,
-                                  t_chunk, horizon, seed, block_offset, stream);
-    case 3:
-      return launch<SpeakerListenerScn>(params, obs, act, rew, pos, vel, n_envs, block_envs,
-                                        n_chunks, t_chunk, horizon, seed, block_offset, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: MPE_TRAJECTORY(SpreadScn);
+    case 1: MPE_TRAJECTORY(SimpleScn);
+    case 2: MPE_TRAJECTORY(ReferenceScn);
+    case 3: MPE_TRAJECTORY(SpeakerListenerScn);
+    case 4: MPE_TRAJECTORY(AdversaryScn);
+    case 5: MPE_TRAJECTORY(PushScn);
+    case 6: MPE_TRAJECTORY(CryptoScn);
+    case 7: MPE_TRAJECTORY(TagScn);
+    case 8: MPE_TRAJECTORY(WorldCommScn);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef MPE_TRAJECTORY
 }
 
 }  // extern "C"

@@ -6,21 +6,37 @@
 //   S::C, S::CW          comm width drawn and emitted (0 without comm), its
 //                        array width (at least 1)
 //   S::GOAL_K            choices of each goal (floor(u * GOAL_K))
-//   S::OW                obs row width
+//   S::OW, S::R          obs row width, reward rows
 //   S::Params            the constants, mirrored by ops/_build.py
 //   S::sample(...)       reset draw of the positions, zero velocity
 //   S::physics(...)      decode + one physics step
-//   S::reward(...)       the shared reward after the collaborative sum (R = 1)
-//   S::obs(i, r, ...)    entry r of agent i's obs row
+//   S::derive(c, w, cm)  per-step values that reward and obs share (world_comm's
+//                        forest flags, visibility and squared distances; empty
+//                        for the others), computed once per step
+//   S::reward(c, w, cm, d, r)  fills the R reward rows (R = 1: the shared
+//                        reward after the collaborative sum)
+//   S::obs(i, r, w, cm, d)     entry r of agent i's obs row
 //   S::silent(c, i)      whether agent i's comm draw is zeroed
 //
-// SpreadScn wraps spread_common.cuh unchanged. SimpleScn, ReferenceScn and
-// SpeakerListenerScn mirror KernelSimple, KernelReference and
-// KernelSpeakerListener of ops/kernel_scenarios.py: no collide pair, so the
-// physics is the decode, damping and integration of the movable agents
-// (free_physics; an immovable agent's position and velocity are never
-// touched), and a goal picks its landmark and color by an unrolled select, so
-// the state stays in registers.
+// SpreadScn wraps spread_common.cuh unchanged. The others mirror the Kernel*
+// blocks of ops/kernel_scenarios.py literally (a distance squares its sqrt
+// where the block does, a min of squares takes one sqrt where the block does),
+// and a goal picks its landmark and color by an unrolled select, so the state
+// stays in registers. The physics takes the order of the scenario's JAX kernel:
+//   - fewer than MIN_MXU_PAIRS = 4 pairs (simple_push's one; simple,
+//     simple_reference, simple_speaker_listener, simple_adversary and
+//     simple_crypto have none): generic_physics, generic_physics_block's
+//     order, the pair forces added onto the action force;
+//   - 4 pairs or more (simple_tag's 14, simple_world_comm's 21): pair_physics,
+//     mxu_physics_block's order (ops/mxu_physics.py): the pair forces summed
+//     from zero in pair order, then the action force, then (force + u) dt/m,
+//     and the speed clamp v (1 + (factor - 1)). The pair list is a constexpr
+//     table in the struct, unrolled by template recursion, so each pair's
+//     entities are compile-time indices and the force accumulators stay in
+//     registers; with one lane per thread there is nothing to gather across
+//     threads, so neither a matmul nor shared memory. An immovable entity (an
+//     obstacle, an immobile agent) is never integrated, as the prep's damp = 1,
+//     dt = 0 rows leave it.
 
 #pragma once
 
@@ -28,16 +44,28 @@
 
 namespace {
 
-template <int A>
-struct BlockParams {             // mirrored by ops/_build.py::_block_params_type
+// the constants of the eight scenarios other than simple_spread. K collide
+// pairs, T squared thresholds of the reward and obs (each (size_i + size_j)^2
+// in double, rounded once).
+template <int A, int K, int T>
+struct PhysParams {              // mirrored by ops/_build.py::_phys_params_type
   float accel[A];                // decode sensitivity
   int movable[A];
   int silent[A];
   float keep_vel;                // 1 - damping
-  float dt;                      // dt / mass with unit masses
+  float dt;
   float agent_range;
   float landmark_range;
+  float inv_mass_dt[A];          // dt / mass in double, rounded once
+  float max_speed[A];            // +inf without a limit
+  float max_speed2[A];           // max_speed^2 squared in float32
+  float dmin[K > 0 ? K : 1];     // size_i + size_j of each collide pair
+  float contact_force;
+  float contact_margin;
+  float thresh2[T > 0 ? T : 1];
 };
+
+struct NoDerived {};
 
 template <int A, int L, int G>
 struct World {                   // one lane's state; landmarks never move
@@ -54,10 +82,10 @@ __device__ __forceinline__ float pick(const float (&v)[L], int g) {
   return out;
 }
 
-// make_samplers' sample_state for BlockParams: agents on call id `call`,
+// make_samplers' sample_state for PhysParams: agents on call id `call`,
 // landmarks on `call + 1`, zero velocity
-template <int A, int L, int G>
-__device__ __forceinline__ void sample_block(const BlockParams<A>& c, uint32_t mixed, uint32_t n,
+template <int A, int L, int G, class Pr>
+__device__ __forceinline__ void sample_block(const Pr& c, uint32_t mixed, uint32_t n,
                                              uint32_t lane, int step, int call,
                                              World<A, L, G>& w) {
   const uint32_t sa = rollout_salt(mixed, step, call);
@@ -77,18 +105,68 @@ __device__ __forceinline__ void sample_block(const BlockParams<A>& c, uint32_t m
   }
 }
 
-// generic_physics_block without collide pairs: damping before force, then
-// position; unit masses and no speed limit (ops/_build.py refuses others)
-template <int A, int L, int G>
-__device__ __forceinline__ void free_physics(const BlockParams<A>& c, const float (&mv)[A][MW],
-                                             World<A, L, G>& w) {
+// ---- collide pairs ----------------------------------------------------------------
+
+// entity e's coordinates: agents first, then landmarks
+template <class S, int e>
+__device__ __forceinline__ float ent_x(const typename S::W& w) {
+  if constexpr (e < S::A) return w.ax[e]; else return w.lx[e - S::A];
+}
+template <class S, int e>
+__device__ __forceinline__ float ent_y(const typename S::W& w) {
+  if constexpr (e < S::A) return w.ay[e]; else return w.ly[e - S::A];
+}
+
+// the contact forces of pairs k.. in pair order, +f to i and -f to j where
+// they are agents (landmarks never move): the pair math of
+// generic_physics_block and mxu_physics_block, which agree per pair
+template <class S, int k>
+__device__ __forceinline__ void pair_forces(const typename S::Params& c, const typename S::W& w,
+                                            float (&fx)[S::A], float (&fy)[S::A]) {
+  if constexpr (k < S::K) {
+    constexpr int i = S::pair(k, 0), j = S::pair(k, 1);
+    const float dx = ent_x<S, i>(w) - ent_x<S, j>(w);
+    const float dy = ent_y<S, i>(w) - ent_y<S, j>(w);
+    const float d2 = dx * dx + dy * dy;
+    // rsqrt of max(d2, tiny): an exact overlap gives dist 0 and a zero force
+    const float inv = rsqrtf(fmaxf(d2, FLT_MIN));
+    const float dist = d2 * inv;
+    const float x = -(dist - c.dmin[k]) / c.contact_margin;
+    const float pen = (fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)))) * c.contact_margin;
+    const float s = (c.contact_force * pen) * inv;
+    const float gx = s * dx;
+    const float gy = s * dy;
+    if constexpr (i < S::A) {
+      fx[i] = fx[i] + gx;
+      fy[i] = fy[i] + gy;
+    }
+    if constexpr (j < S::A) {
+      fx[j] = fx[j] - gx;
+      fy[j] = fy[j] - gy;
+    }
+    pair_forces<S, k + 1>(c, w, fx, fy);
+  }
+}
+
+// generic_physics_block: each movable agent's force is its action force with
+// the pair forces added on in pair order; damping before force, then
+// position; no speed limit (ops/_build.py refuses one here)
+template <class S>
+__device__ __forceinline__ void generic_physics(const typename S::Params& c,
+                                                const float (&mv)[S::A][MW], typename S::W& w) {
+  constexpr int A = S::A;
+  float fx[A], fy[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    fx[i] = (mv[i][1] - mv[i][2]) * c.accel[i];
+    fy[i] = (mv[i][3] - mv[i][4]) * c.accel[i];
+  }
+  pair_forces<S, 0>(c, w, fx, fy);
 #pragma unroll
   for (int i = 0; i < A; ++i) {
     if (!c.movable[i]) continue;
-    const float fx = (mv[i][1] - mv[i][2]) * c.accel[i];
-    const float fy = (mv[i][3] - mv[i][4]) * c.accel[i];
-    const float nvx = w.vx[i] * c.keep_vel + fx * c.dt;
-    const float nvy = w.vy[i] * c.keep_vel + fy * c.dt;
+    const float nvx = w.vx[i] * c.keep_vel + fx[i] * c.inv_mass_dt[i];
+    const float nvy = w.vy[i] * c.keep_vel + fy[i] * c.inv_mass_dt[i];
     w.vx[i] = nvx;
     w.vy[i] = nvy;
     w.ax[i] = w.ax[i] + nvx * c.dt;
@@ -96,13 +174,61 @@ __device__ __forceinline__ void free_physics(const BlockParams<A>& c, const floa
   }
 }
 
+// mxu_physics_block: the pair forces summed from zero in pair order, then the
+// action force; v = vel keep + (force + u) dt/m; the speed clamp multiplies by
+// 1 + (factor - 1), factor = max_speed rsqrt(s2) where s2 > max_speed^2 (the
+// square in float32); then position. 3 special functions per pair (rsqrt,
+// exp, log1p) and 1 per agent (the clamp's rsqrt).
+template <class S>
+__device__ __forceinline__ void pair_physics(const typename S::Params& c,
+                                             const float (&mv)[S::A][MW], typename S::W& w) {
+  constexpr int A = S::A;
+  float fx[A], fy[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    fx[i] = 0.0f;
+    fy[i] = 0.0f;
+  }
+  pair_forces<S, 0>(c, w, fx, fy);
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    if (!c.movable[i]) continue;
+    const float ux = (mv[i][1] - mv[i][2]) * c.accel[i];
+    const float uy = (mv[i][3] - mv[i][4]) * c.accel[i];
+    float nvx = w.vx[i] * c.keep_vel + (fx[i] + ux) * c.inv_mass_dt[i];
+    float nvy = w.vy[i] * c.keep_vel + (fy[i] + uy) * c.inv_mass_dt[i];
+    const float s2 = nvx * nvx + nvy * nvy;
+    const float inv_s = rsqrtf(fmaxf(s2, FLT_MIN));
+    const float factor = s2 > c.max_speed2[i] ? c.max_speed[i] * inv_s : 1.0f;
+    const float scale = 1.0f + (factor - 1.0f);
+    nvx = nvx * scale;
+    nvy = nvy * scale;
+    w.vx[i] = nvx;
+    w.vy[i] = nvy;
+    w.ax[i] = w.ax[i] + nvx * c.dt;
+    w.ay[i] = w.ay[i] + nvy * c.dt;
+  }
+}
+
+// the screen-exit penalty of simple_tag.py:103-108 (scenarios/_base.py::bound_penalty)
+__device__ __forceinline__ float bound_penalty(float x) {
+  if (x < 0.9f) return 0.0f;
+  if (x < 1.0f) return (x - 0.9f) * 10.0f;
+  return fminf(expf(2.0f * x - 2.0f), 10.0f);
+}
+
 // ---- simple_spread: spread_common.cuh ------------------------------------------
 
 struct SpreadScn {
-  static constexpr int A = 3, L = 3, G = 0, C = 0, CW = 1, GOAL_K = 1;
+  static constexpr int A = 3, L = 3, G = 0, C = 0, CW = 1, GOAL_K = 1, R = 1;
   static constexpr int OW = Obs<3, 3, 2>::W;
   using Params = SpreadParams<A, L>;
   using W = World<A, L, G>;
+  using Derived = NoDerived;
+  template <class Cm>
+  static __device__ __forceinline__ Derived derive(const Params&, const W&, const Cm&) {
+    return {};
+  }
   static __device__ __forceinline__ void sample(const Params& c, uint32_t mixed, uint32_t n,
                                                 uint32_t lane, int step, int call, W& w) {
     sample_state<A, L>(c, mixed, n, lane, step, call, w.ax, w.ay, w.vx, w.vy, w.lx, w.ly);
@@ -110,34 +236,52 @@ struct SpreadScn {
   static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
     ::physics<A, L>(c, mv, w.ax, w.ay, w.vx, w.vy);
   }
-  static __device__ __forceinline__ float reward(const Params& c, const W& w) {
-    return spread_reward<A, L>(c, w.ax, w.ay, w.lx, w.ly);
+  static __device__ __forceinline__ void reward(const Params& c, const W& w, const float (&)[A][CW],
+                                                const Derived&, float (&r)[R]) {
+    r[0] = spread_reward<A, L>(c, w.ax, w.ay, w.lx, w.ly);
   }
-  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&)[A][CW]) {
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&)[A][CW],
+                                              const Derived&) {
     return obs_entry<A, L>(i, r, w.ax, w.ay, w.vx, w.vy, w.lx, w.ly);
   }
   static __device__ __forceinline__ bool silent(const Params&, int) { return true; }
 };
 
-// ---- simple (simple.py:41-50): reward -|l - a|^2, obs [vel, l - a] ------------
+// ---- the other eight scenarios (PhysParams) --------------------------------------
 
-struct SimpleScn {
-  static constexpr int A = 1, L = 1, G = 0, C = 0, CW = 1, GOAL_K = 1, OW = 4;
-  using Params = BlockParams<A>;
+// sampling, the silent mask and nothing derived, shared by the eight below
+template <int A_, int L_, int G_, int K_, int T_>
+struct PhysScn {
+  static constexpr int A = A_, L = L_, G = G_, K = K_;
+  using Params = PhysParams<A, K, T_>;
   using W = World<A, L, G>;
+  using Derived = NoDerived;
   static __device__ __forceinline__ void sample(const Params& c, uint32_t mixed, uint32_t n,
                                                 uint32_t lane, int step, int call, W& w) {
     sample_block<A, L, G>(c, mixed, n, lane, step, call, w);
   }
-  static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
-    free_physics<A, L, G>(c, mv, w);
+  template <class Cm>
+  static __device__ __forceinline__ Derived derive(const Params&, const W&, const Cm&) {
+    return {};
   }
-  static __device__ __forceinline__ float reward(const Params&, const W& w) {
+  static __device__ __forceinline__ bool silent(const Params& c, int i) { return c.silent[i]; }
+};
+
+// ---- simple (simple.py:41-50): reward -|l - a|^2, obs [vel, l - a] ------------
+
+struct SimpleScn : PhysScn<1, 1, 0, 0, 0> {
+  static constexpr int C = 0, CW = 1, GOAL_K = 1, OW = 4, R = 1;
+  static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
+    generic_physics<SimpleScn>(c, mv, w);
+  }
+  static __device__ __forceinline__ void reward(const Params&, const W& w, const float (&)[A][CW],
+                                                const Derived&, float (&r)[R]) {
     const float rx = w.lx[0] - w.ax[0];
     const float ry = w.ly[0] - w.ay[0];
-    return -(rx * rx + ry * ry);
+    r[0] = -(rx * rx + ry * ry);
   }
-  static __device__ __forceinline__ float obs(int, int r, const W& w, const float (&)[A][CW]) {
+  static __device__ __forceinline__ float obs(int, int r, const W& w, const float (&)[A][CW],
+                                              const Derived&) {
     switch (r) {
       case 0: return w.vx[0];
       case 1: return w.vy[0];
@@ -145,7 +289,6 @@ struct SimpleScn {
       default: return w.ly[0] - w.ay[0];
     }
   }
-  static __device__ __forceinline__ bool silent(const Params& c, int i) { return c.silent[i]; }
 };
 
 // ---- simple_reference (simple_reference.py:55-80) ------------------------------
@@ -158,18 +301,13 @@ __device__ __forceinline__ float reference_color(int g, int ch) {
   return g == ch ? hi : lo;
 }
 
-struct ReferenceScn {
-  static constexpr int A = 2, L = 3, G = 2, C = 10, CW = 10, GOAL_K = 3, OW = 21;
-  using Params = BlockParams<A>;
-  using W = World<A, L, G>;
-  static __device__ __forceinline__ void sample(const Params& c, uint32_t mixed, uint32_t n,
-                                                uint32_t lane, int step, int call, W& w) {
-    sample_block<A, L, G>(c, mixed, n, lane, step, call, w);
-  }
+struct ReferenceScn : PhysScn<2, 3, 2, 0, 0> {
+  static constexpr int C = 10, CW = 10, GOAL_K = 3, OW = 21, R = 1;
   static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
-    free_physics<A, L, G>(c, mv, w);
+    generic_physics<ReferenceScn>(c, mv, w);
   }
-  static __device__ __forceinline__ float reward(const Params&, const W& w) {
+  static __device__ __forceinline__ void reward(const Params&, const W& w, const float (&)[A][CW],
+                                                const Derived&, float (&r)[R]) {
     float shared = 0.0f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -178,9 +316,10 @@ struct ReferenceScn {
       const float dy = w.ay[other] - pick<L>(w.ly, w.goal[i]);
       shared = shared - (dx * dx + dy * dy);
     }
-    return shared;
+    r[0] = shared;
   }
-  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&cm)[A][CW]) {
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&cm)[A][CW],
+                                              const Derived&) {
     if (r < 2) return r == 0 ? w.vx[i] : w.vy[i];
     r -= 2;
     if (r < 2 * L) return (r & 1) ? w.ly[r >> 1] - w.ay[i] : w.lx[r >> 1] - w.ax[i];
@@ -188,7 +327,6 @@ struct ReferenceScn {
     if (r < 3) return reference_color(w.goal[i], r);
     return cm[1 - i][r - 3];
   }
-  static __device__ __forceinline__ bool silent(const Params& c, int i) { return c.silent[i]; }
 };
 
 // ---- simple_speaker_listener (simple_speaker_listener.py:63-92) ---------------
@@ -201,30 +339,338 @@ __device__ __forceinline__ float speaker_listener_color(int g, int ch) {
   return g == ch ? hi : lo;
 }
 
-struct SpeakerListenerScn {
-  static constexpr int A = 2, L = 3, G = 1, C = 3, CW = 3, GOAL_K = 3, OW = 11;
-  using Params = BlockParams<A>;
-  using W = World<A, L, G>;
-  static __device__ __forceinline__ void sample(const Params& c, uint32_t mixed, uint32_t n,
-                                                uint32_t lane, int step, int call, W& w) {
-    sample_block<A, L, G>(c, mixed, n, lane, step, call, w);
-  }
+struct SpeakerListenerScn : PhysScn<2, 3, 1, 0, 0> {
+  static constexpr int C = 3, CW = 3, GOAL_K = 3, OW = 11, R = 1;
   static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
-    free_physics<A, L, G>(c, mv, w);
+    generic_physics<SpeakerListenerScn>(c, mv, w);
   }
-  static __device__ __forceinline__ float reward(const Params&, const W& w) {
+  static __device__ __forceinline__ void reward(const Params&, const W& w, const float (&)[A][CW],
+                                                const Derived&, float (&r)[R]) {
     const float dx = w.ax[1] - pick<L>(w.lx, w.goal[0]);
     const float dy = w.ay[1] - pick<L>(w.ly, w.goal[0]);
-    return -2.0f * (dx * dx + dy * dy);
+    r[0] = -2.0f * (dx * dx + dy * dy);
   }
-  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&cm)[A][CW]) {
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&cm)[A][CW],
+                                              const Derived&) {
     if (i == 0) return r < 3 ? speaker_listener_color(w.goal[0], r) : 0.0f;
     if (r < 2) return r == 0 ? w.vx[1] : w.vy[1];
     r -= 2;
     if (r < 2 * L) return (r & 1) ? w.ly[r >> 1] - w.ay[1] : w.lx[r >> 1] - w.ax[1];
     return cm[0][r - 2 * L];
   }
-  static __device__ __forceinline__ bool silent(const Params& c, int i) { return c.silent[i]; }
+};
+
+// ---- the scenarios with per-agent rewards ----------------------------------------
+
+// agent i's position relative to entity e (a landmark if e >= A), coordinate r & 1
+template <int A, int L, int G>
+__device__ __forceinline__ float rel_to(const World<A, L, G>& w, int i, int e, int r) {
+  if (e < A) return (r & 1) ? w.ay[e] - w.ay[i] : w.ax[e] - w.ax[i];
+  return (r & 1) ? w.ly[e - A] - w.ay[i] : w.lx[e - A] - w.ax[i];
+}
+
+// ---- simple_adversary (simple_adversary.py:82-139) ----------------------------
+// agent 0 the adversary; goal 0 picks 1 of 2 landmarks. Rewards: adversary
+// -d0^2 with d0 = sqrt(d0^2) as the block computes it, good -min(d1, d2) + d0.
+// Obs: good [goal rel(2), landmark rel(4), other rel(4)], the adversary the
+// same without the goal, padded 8 -> 10.
+
+struct AdversaryScn : PhysScn<3, 2, 1, 0, 0> {
+  static constexpr int C = 0, CW = 1, GOAL_K = 2, OW = 10, R = 3;
+  static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
+    generic_physics<AdversaryScn>(c, mv, w);
+  }
+  static __device__ __forceinline__ void reward(const Params&, const W& w, const float (&)[A][CW],
+                                                const Derived&, float (&r)[R]) {
+    const float gx = pick<L>(w.lx, w.goal[0]), gy = pick<L>(w.ly, w.goal[0]);
+    float d[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float dx = w.ax[i] - gx;
+      const float dy = w.ay[i] - gy;
+      d[i] = sqrtf(dx * dx + dy * dy);
+    }
+    r[0] = -(d[0] * d[0]);
+    r[1] = -fminf(d[1], d[2]) + d[0];
+    r[2] = r[1];
+  }
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&)[A][CW],
+                                              const Derived&) {
+    if (i != 0) {
+      if (r < 2) return r == 0 ? pick<L>(w.lx, w.goal[0]) - w.ax[i]
+                               : pick<L>(w.ly, w.goal[0]) - w.ay[i];
+      r -= 2;
+    } else if (r >= 8) {
+      return 0.0f;
+    }
+    if (r < 4) return rel_to(w, i, A + (r >> 1), r);
+    r -= 4;
+    int j = r >> 1;
+    j += (j >= i);                                   // other agents in world order
+    return rel_to(w, i, j, r);
+  }
+};
+
+// ---- simple_push (simple_push.py:62-96) ----------------------------------------
+// agent 0 the adversary, 1 the good agent; one collide pair; goal 0 picks 1 of
+// 2 landmarks. Rewards [d1 - d0, -d1]. Obs: adversary [vel, landmark rel(4),
+// other rel(2)] padded 8 -> 19; good [vel, goal rel, own color(3), landmark
+// rel(4), landmark colors(6), other rel(2)].
+
+__device__ __forceinline__ float push_landmark_color(int k) {   // KernelPush.PUSH_LANDMARK_COLORS
+  return (k == 1 || k == 5) ? 0.9f : 0.1f;
+}
+
+struct PushScn : PhysScn<2, 2, 1, 1, 0> {
+  static constexpr int C = 0, CW = 1, GOAL_K = 2, OW = 19, R = 2;
+  __host__ __device__ static constexpr int pair(int k, int side) {
+    constexpr int t[1][2] = {{0, 1}};                // ops/_build.py::_BLOCK_SHAPES
+    return t[k][side];
+  }
+  static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
+    generic_physics<PushScn>(c, mv, w);
+  }
+  static __device__ __forceinline__ void reward(const Params&, const W& w, const float (&)[A][CW],
+                                                const Derived&, float (&r)[R]) {
+    const float gx = pick<L>(w.lx, w.goal[0]), gy = pick<L>(w.ly, w.goal[0]);
+    const float dx0 = w.ax[0] - gx, dy0 = w.ay[0] - gy;
+    const float dx1 = w.ax[1] - gx, dy1 = w.ay[1] - gy;
+    const float d0 = sqrtf(dx0 * dx0 + dy0 * dy0);
+    const float d1 = sqrtf(dx1 * dx1 + dy1 * dy1);
+    r[0] = d1 - d0;
+    r[1] = -d1;
+  }
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&)[A][CW],
+                                              const Derived&) {
+    if (r < 2) return r == 0 ? w.vx[i] : w.vy[i];
+    r -= 2;
+    if (i == 0) {
+      if (r < 4) return rel_to(w, 0, A + (r >> 1), r);
+      r -= 4;
+      return r < 2 ? rel_to(w, 0, 1, r) : 0.0f;
+    }
+    const int g = w.goal[0];
+    if (r < 2) return r == 0 ? pick<L>(w.lx, g) - w.ax[1] : pick<L>(w.ly, g) - w.ay[1];
+    r -= 2;
+    if (r < 3) return r == 0 ? 0.25f : (g == r - 1 ? 0.75f : 0.25f);   // 0.25 + 0.5 on goal+1
+    r -= 3;
+    if (r < 4) return rel_to(w, 1, A + (r >> 1), r);
+    r -= 4;
+    if (r < 6) return push_landmark_color(r);
+    return rel_to(w, 1, 0, r - 6);
+  }
+};
+
+// ---- simple_crypto (simple_crypto.py:97-169) -----------------------------------
+// eve 0, bob 1, alice 2, all immobile, no pair: the physics moves nothing.
+// goal 0 is the goal landmark, goal 1 the key landmark, each color a one-hot
+// of width 4. The reward reads this step's utterances: guarded(c) = [c != 0]
+// |c - goal color|^2, summed over the 4 channels in order; eve -guarded(eve),
+// alice and bob -guarded(bob) + guarded(eve). Obs: eve [alice's comm, 0(4)],
+// bob [key, alice's comm], alice [goal color, key].
+
+struct CryptoScn : PhysScn<3, 2, 2, 0, 0> {
+  static constexpr int C = 4, CW = 4, GOAL_K = 2, OW = 8, R = 3;
+  static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
+    generic_physics<CryptoScn>(c, mv, w);
+  }
+  static __device__ __forceinline__ float guarded(const float (&c)[CW], int goal) {
+    float nz = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) nz = fmaxf(nz, c[k] != 0.0f ? 1.0f : 0.0f);
+    float err = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const float e = c[k] - (goal == k ? 1.0f : 0.0f);
+      err = k == 0 ? e * e : err + e * e;
+    }
+    return nz * err;
+  }
+  static __device__ __forceinline__ void reward(const Params&, const W& w, const float (&cm)[A][CW],
+                                                const Derived&, float (&r)[R]) {
+    const float eve = guarded(cm[0], w.goal[0]);
+    r[0] = -eve;
+    r[1] = -guarded(cm[1], w.goal[0]) + eve;
+    r[2] = r[1];
+  }
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&cm)[A][CW],
+                                              const Derived&) {
+    if (i == 0) return r < 4 ? cm[2][r] : 0.0f;
+    if (i == 1) return r < 4 ? (w.goal[1] == r ? 1.0f : 0.0f) : cm[2][r - 4];
+    return r < 4 ? (w.goal[0] == r ? 1.0f : 0.0f) : (w.goal[1] == r - 4 ? 1.0f : 0.0f);
+  }
+};
+
+// ---- simple_tag (simple_tag.py:89-147) -----------------------------------------
+// agents 0-2 predators, 3 the prey; 2 colliding immovable obstacles; 14 collide
+// pairs. thresh2[i] = (size_i + size_prey)^2. Rewards: predators 10 hits, the
+// prey -10 hits - bound penalty. Obs [vel, pos, landmark rel(4), other rel(6),
+// the prey's velocity or 0 for the prey].
+
+struct TagScn : PhysScn<4, 2, 0, 14, 3> {
+  static constexpr int C = 0, CW = 1, GOAL_K = 1, OW = 16, R = 4;
+  __host__ __device__ static constexpr int pair(int k, int side) {
+    constexpr int t[14][2] = {{0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {1, 2}, {1, 3},
+                              {1, 4}, {1, 5}, {2, 3}, {2, 4}, {2, 5}, {3, 4}, {3, 5}};
+    return t[k][side];                               // ops/_build.py::_BLOCK_SHAPES
+  }
+  static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
+    pair_physics<TagScn>(c, mv, w);
+  }
+  static __device__ __forceinline__ void reward(const Params& c, const W& w, const float (&)[A][CW],
+                                                const Derived&, float (&r)[R]) {
+    float hits = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float dx = w.ax[i] - w.ax[3];
+      const float dy = w.ay[i] - w.ay[3];
+      hits = hits + (dx * dx + dy * dy < c.thresh2[i] ? 1.0f : 0.0f);
+    }
+    const float bound = (0.0f + bound_penalty(fabsf(w.ax[3]))) + bound_penalty(fabsf(w.ay[3]));
+    r[0] = r[1] = r[2] = 10.0f * hits;
+    r[3] = -10.0f * hits - bound;
+  }
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&)[A][CW],
+                                              const Derived&) {
+    if (r < 2) return r == 0 ? w.vx[i] : w.vy[i];
+    if (r < 4) return r == 2 ? w.ax[i] : w.ay[i];
+    r -= 4;
+    if (r < 4) return rel_to(w, i, A + (r >> 1), r);
+    r -= 4;
+    if (r < 6) {
+      int j = r >> 1;
+      j += (j >= i);
+      return rel_to(w, i, j, r);
+    }
+    r -= 6;
+    return i == 3 ? 0.0f : (r == 0 ? w.vx[3] : w.vy[3]);
+  }
+};
+
+// ---- simple_world_comm (simple_world_comm.py:155-287) --------------------------
+// agents 0-3 adversaries (0 the leader, the only speaker), 4-5 good;
+// landmarks [obstacle, food0, food1, forest0, forest1]; 21 collide pairs (the
+// agents and the obstacle). thresh2: [0, 8) (good g, adversary v) collisions,
+// [8, 12) (good g, food f) touches, [12, 24) (agent i, forest f) membership,
+// each row-major. Derived once per step: the squared good x adversary
+// distances, the forest flags and the visibility. Rewards: adversary
+// -0.1 sqrt(min over good of d^2) + 5 pair hits; good -5 hits - 2 bound + 2
+// food touched + 0.05 sqrt(min food d^2) (the reference's positive sign).
+// Obs: [vel, pos, landmark rel(10), other rel(10) masked by visibility], then
+// adversary [good others' vel(4) masked, forest +-1(2), the leader's comm(4)],
+// good [forest +-1(2), the other good's vel(2) masked, 0(6)].
+
+struct WorldCommDerived {
+  float d2ga[2][4];                // |good g - adversary v|^2
+  bool in_f[6][2];                 // agent i inside forest f
+  bool vis[6][6];                  // agent i sees agent j
+};
+
+struct WorldCommScn : PhysScn<6, 5, 0, 21, 24> {
+  static constexpr int C = 4, CW = 4, GOAL_K = 1, OW = 34, R = 6;
+  static constexpr int NA = 4, NG = 2;
+  using Derived = WorldCommDerived;
+  __host__ __device__ static constexpr int pair(int k, int side) {
+    constexpr int t[21][2] = {{0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {0, 6}, {1, 2},
+                              {1, 3}, {1, 4}, {1, 5}, {1, 6}, {2, 3}, {2, 4}, {2, 5},
+                              {2, 6}, {3, 4}, {3, 5}, {3, 6}, {4, 5}, {4, 6}, {5, 6}};
+    return t[k][side];                               // ops/_build.py::_BLOCK_SHAPES
+  }
+  static __device__ __forceinline__ void physics(const Params& c, const float (&mv)[A][MW], W& w) {
+    pair_physics<WorldCommScn>(c, mv, w);
+  }
+  template <class Cm>
+  static __device__ __forceinline__ Derived derive(const Params& c, const W& w, const Cm&) {
+    Derived d;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int v = 0; v < NA; ++v) {
+        const float dx = w.ax[NA + g] - w.ax[v];
+        const float dy = w.ay[NA + g] - w.ay[v];
+        d.d2ga[g][v] = dx * dx + dy * dy;
+      }
+    bool out[A];
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const float dx = w.ax[i] - w.lx[3 + f];
+        const float dy = w.ay[i] - w.ly[3 + f];
+        d.in_f[i][f] = dx * dx + dy * dy < c.thresh2[12 + 2 * i + f];
+      }
+      out[i] = !(d.in_f[i][0] || d.in_f[i][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < A; ++i)
+#pragma unroll
+      for (int j = 0; j < A; ++j)
+        d.vis[i][j] = i == 0 || (d.in_f[i][0] && d.in_f[j][0]) || (d.in_f[i][1] && d.in_f[j][1]) ||
+                      (out[i] && out[j]);
+    return d;
+  }
+  static __device__ __forceinline__ void reward(const Params& c, const W& w, const float (&)[A][CW],
+                                                const Derived& d, float (&r)[R]) {
+    float pair_hits = 0.0f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int v = 0; v < NA; ++v)
+        pair_hits = pair_hits + (d.d2ga[g][v] < c.thresh2[4 * g + v] ? 1.0f : 0.0f);
+#pragma unroll
+    for (int v = 0; v < NA; ++v) {
+      const float dmin2 = fminf(d.d2ga[0][v], d.d2ga[1][v]);
+      r[v] = -0.1f * sqrtf(dmin2) + 5.0f * pair_hits;
+    }
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int i = NA + g;
+      float hits = 0.0f;
+#pragma unroll
+      for (int v = 0; v < NA; ++v) hits = hits + (d.d2ga[g][v] < c.thresh2[4 * g + v] ? 1.0f : 0.0f);
+      const float bound = (0.0f + bound_penalty(fabsf(w.ax[i]))) + bound_penalty(fabsf(w.ay[i]));
+      float touch = 0.0f, food_dmin2 = 0.0f;
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const float dx = w.ax[i] - w.lx[1 + f];
+        const float dy = w.ay[i] - w.ly[1 + f];
+        const float df2 = dx * dx + dy * dy;
+        touch = touch + (df2 < c.thresh2[8 + 2 * g + f] ? 1.0f : 0.0f);
+        food_dmin2 = f == 0 ? df2 : fminf(food_dmin2, df2);
+      }
+      r[i] = -5.0f * hits - 2.0f * bound + 2.0f * touch + 0.05f * sqrtf(food_dmin2);
+    }
+  }
+  static __device__ __forceinline__ float obs(int i, int r, const W& w, const float (&cm)[A][CW],
+                                              const Derived& d) {
+    if (r < 2) return r == 0 ? w.vx[i] : w.vy[i];
+    if (r < 4) return r == 2 ? w.ax[i] : w.ay[i];
+    r -= 4;
+    if (r < 2 * L) return rel_to(w, i, A + (r >> 1), r);
+    r -= 2 * L;
+    if (r < 2 * (A - 1)) {
+      int j = r >> 1;
+      j += (j >= i);
+      return d.vis[i][j] ? rel_to(w, i, j, r) : 0.0f;
+    }
+    r -= 2 * (A - 1);
+    if (i < NA) {
+      if (r < 4) {                                   // the good agents' velocities
+        const int j = NA + (r >> 1);
+        return d.vis[i][j] ? ((r & 1) ? w.vy[j] : w.vx[j]) : 0.0f;
+      }
+      r -= 4;
+      if (r < 2) return d.in_f[i][r] ? 1.0f : -1.0f;
+      return cm[0][r - 2];                           // the leader's comm
+    }
+    if (r < 2) return d.in_f[i][r] ? 1.0f : -1.0f;
+    r -= 2;
+    if (r < 2) {                                     // the other good agent's velocity
+      const int j = 2 * NA + 1 - i;
+      return d.vis[i][j] ? (r == 0 ? w.vx[j] : w.vy[j]) : 0.0f;
+    }
+    return 0.0f;
+  }
 };
 
 // ---- draws and state shared by the kernels ------------------------------------

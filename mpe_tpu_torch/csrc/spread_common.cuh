@@ -1,6 +1,7 @@
 // Device functions of simple_spread shared by the fused kernels (mpe_kernels.cu:
-// K1, K2; mpe_policy.cu: K4, K5): hashes, decode + pair physics, the shared
-// reward, obs rows and the reset draw. Each function mirrors a plain PyTorch
+// K1, K2 through scenario_blocks.cuh's SpreadScn; mpe_policy.cu: K4, K5;
+// mpe_maddpg.cu: K8): hashes, decode + pair physics, the shared reward, obs
+// rows and the reset draw. Each function mirrors a plain PyTorch
 // block in ops/fused_rollout.py or ops/kernel_scenarios.py.
 
 #pragma once
@@ -160,22 +161,6 @@ __device__ __forceinline__ float obs_entry(int i, int r, const float (&ax)[A], c
     return (r & 1) ? ay[j] - ay[i] : ax[j] - ax[i];
   }
   return 0.0f;                                       // silent agents' comm
-}
-
-// sum of the [A, OW] obs: per row over agents, then over rows
-template <int A, int L, int C>
-__device__ __forceinline__ float obs_checksum(const float (&ax)[A], const float (&ay)[A],
-                                              const float (&vx)[A], const float (&vy)[A],
-                                              const float (&lx)[L], const float (&ly)[L]) {
-  float total = 0.0f;
-#pragma unroll
-  for (int r = 0; r < Obs<A, L, C>::W; ++r) {
-    float col = 0.0f;
-#pragma unroll
-    for (int i = 0; i < A; ++i) col = col + obs_entry<A, L>(i, r, ax, ay, vx, vy, lx, ly);
-    total = total + col;
-  }
-  return total;
 }
 
 // ---- reset draw (K2, K4, K5) ---------------------------------------------------

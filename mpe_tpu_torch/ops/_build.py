@@ -85,7 +85,6 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # argtypes of each library's C functions (all return a cudaError_t as int)
 SIGNATURES = {
     "mpe_kernels.cu": {
-        "mpe_spread_rollout_a3l3c2": [_P] * 5 + [_I] * 4 + [_U, _U, _P],
         "mpe_spread_det_rollout_a3l3c2": [_P] * 8 + [_I] * 3 + [_P],
         "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _P],
     },
@@ -112,11 +111,18 @@ SIGNATURES = {
 # the scenario argument of mpe_scenario_rollout and mpe_trajectory
 # (csrc/scenario_blocks.cuh): kernel-scenario class -> id
 SCENARIO_IDS = {"KernelSpread": 0, "KernelSimple": 1, "KernelReference": 2,
-                "KernelSpeakerListener": 3}
+                "KernelSpeakerListener": 3, "KernelAdversary": 4, "KernelPush": 5,
+                "KernelCrypto": 6, "KernelTag": 7, "KernelWorldComm": 8}
 # what each block instantiation is compiled for: (agents, landmarks, dim_c,
-# goal choices)
-_BLOCK_SHAPES = {"KernelSimple": (1, 1, 0, ()), "KernelReference": (2, 3, 10, (3, 3)),
-                 "KernelSpeakerListener": (2, 3, 3, (3,))}
+# goal choices, collide pairs); the pairs are the constexpr tables of the
+# structs in csrc/scenario_blocks.cuh
+_TAG_PAIRS = tuple((i, j) for i in range(6) for j in range(i + 1, 6) if i < 4)
+_WORLD_COMM_PAIRS = tuple((i, j) for i in range(7) for j in range(i + 1, 7))
+_BLOCK_SHAPES = {"KernelSimple": (1, 1, 0, (), ()), "KernelReference": (2, 3, 10, (3, 3), ()),
+                 "KernelSpeakerListener": (2, 3, 3, (3,), ()),
+                 "KernelAdversary": (3, 2, 2, (2,), ()), "KernelPush": (2, 2, 2, (2,), ((0, 1),)),
+                 "KernelCrypto": (3, 2, 4, (2, 2), ()), "KernelTag": (4, 2, 2, (), _TAG_PAIRS),
+                 "KernelWorldComm": (6, 5, 4, (), _WORLD_COMM_PAIRS)}
 
 
 @functools.cache
@@ -194,55 +200,90 @@ def spread_params(kscn):
 
 
 @functools.cache
-def _block_params_type(a: int) -> type:
-    """ctypes mirror of ``BlockParams<A>`` in ``scenario_blocks.cuh``."""
+def _phys_params_type(a: int, k: int, t: int) -> type:
+    """ctypes mirror of ``PhysParams<A, K, T>`` in ``scenario_blocks.cuh``."""
     f, i = ctypes.c_float, ctypes.c_int
 
-    class BlockParams(ctypes.Structure):
+    class PhysParams(ctypes.Structure):
         _fields_ = [
             ("accel", f * a), ("movable", i * a), ("silent", i * a), ("keep_vel", f), ("dt", f),
-            ("agent_range", f), ("landmark_range", f),
+            ("agent_range", f), ("landmark_range", f), ("inv_mass_dt", f * a),
+            ("max_speed", f * a), ("max_speed2", f * a), ("dmin", f * max(k, 1)),
+            ("contact_force", f), ("contact_margin", f), ("thresh2", f * max(t, 1)),
         ]
 
-    return BlockParams
+    return PhysParams
+
+
+def _thresholds(kind: str, spec) -> list[float]:
+    """The squared thresholds ``(size_i + size_j)^2`` that an instantiation's
+    reward and obs compare with, in double, in its ``thresh2`` layout:
+    simple_tag predator i vs the prey; simple_world_comm (good g,
+    adversary v), (good g, food f) and (agent i, forest f), each row-major."""
+    size = [float(x) for x in spec.size]
+    a = spec.n_agents
+    if kind == "KernelTag":
+        return [(size[i] + size[a - 1]) ** 2 for i in range(a - 1)]
+    if kind == "KernelWorldComm":
+        return ([(size[4 + g] + size[v]) ** 2 for g in range(2) for v in range(4)]
+                + [(size[4 + g] + size[a + f]) ** 2 for g in range(2) for f in (1, 2)]
+                + [(size[i] + size[a + f]) ** 2 for i in range(a) for f in (3, 4)])
+    return []
+
+
+# simple_world_comm's roles, which its device functions hard-code
+_WORLD_COMM_ROLES = ((True,) * 4 + (False,) * 2, (True,) + (False,) * 5)
 
 
 def scenario_params(kscn):
-    """The constants of simple, simple_reference or simple_speaker_listener's
-    kernels (``BlockParams`` in ``csrc/scenario_blocks.cuh``), each computed
-    in double and rounded once to float32, as ``spread_params``'s.
+    """The constants of a scenario's block instantiation (``PhysParams`` in
+    ``csrc/scenario_blocks.cuh``), each computed in double and rounded once
+    to float32, as ``spread_params``'s: ``dt / mass``, ``max_speed`` and its
+    square (taken in float32, as ``mxu_physics_block`` squares it), the pair
+    distances ``size_i + size_j`` and the thresholds.
 
-    Raises ``NotImplementedError`` for a spec outside what those kernels
-    compute: another scenario or shape than the instantiation's, any collide
-    pair, a finite ``max_speed``, an agent mass other than 1, a movable
-    landmark or a ``dim_p`` other than 2."""
+    Raises ``NotImplementedError`` for a spec outside what the kernels
+    compute: a shape or a collide-pair list other than the instantiation's, a
+    movable landmark, a ``dim_p`` other than 2; a finite ``max_speed`` below
+    ``MIN_MXU_PAIRS`` pairs (``generic_physics`` has no clamp); and other
+    roles than simple_world_comm's."""
     from mpe_tpu_torch.ops.kernel_scenarios import collide_pairs
 
     spec = kscn.spec
     a, l = spec.n_agents, spec.n_landmarks
     kind = type(kscn).__name__
-    shape = (a, l, spec.dim_c, tuple(kscn.goal_choices))
+    pairs = tuple(collide_pairs(spec))
+    shape = (a, l, spec.dim_c, tuple(kscn.goal_choices), pairs)
     problems = []
     if _BLOCK_SHAPES.get(kind) != shape:
-        problems.append(f"{kind} with (agents, landmarks, dim_c, goals) {shape}")
-    if collide_pairs(spec):
-        problems.append(f"collide pairs {collide_pairs(spec)}")
-    if np.isfinite(spec.max_speed).any():
-        problems.append(f"max_speed {spec.max_speed.tolist()}")
-    if (spec.initial_mass[:a] != 1.0).any():
-        problems.append(f"agent masses {spec.initial_mass[:a].tolist()}")
+        problems.append(f"{kind} with (agents, landmarks, dim_c, goals, collide pairs) {shape}")
     if spec.movable[a:].any() or spec.dim_p != 2:
         problems.append(f"movable landmarks or dim_p={spec.dim_p}")
+    if np.isfinite(spec.max_speed).any() and len(pairs) < kscn.MIN_MXU_PAIRS:
+        problems.append(f"max_speed {spec.max_speed.tolist()} without the pair physics")
+    if kind == "KernelWorldComm" and (tuple(spec.adversary), tuple(spec.leader)) != _WORLD_COMM_ROLES:
+        problems.append(f"adversaries {spec.adversary.tolist()}, leaders {spec.leader.tolist()}")
     if problems:
         raise NotImplementedError(
-            f"the CUDA kernels compute simple, simple_reference and simple_speaker_listener "
-            f"as published only (no collide pair, unit masses, no speed limit, fixed "
-            f"landmarks, dim_p=2); got {spec.name!r} with " + "; ".join(problems))
-    params = _block_params_type(a)()
+            f"the CUDA kernels compute the nine scenarios as published only (their shapes "
+            f"and collide pairs, fixed landmarks, dim_p=2; no speed limit below "
+            f"{kscn.MIN_MXU_PAIRS} collide pairs); got {spec.name!r} with " + "; ".join(problems))
+    thresh2 = _thresholds(kind, spec)
+    params = _phys_params_type(a, len(pairs), len(thresh2))()
     for i in range(a):
+        ms = float(spec.max_speed[i])
         params.accel[i] = float(spec.accel[i])
         params.movable[i] = int(spec.movable[i])
         params.silent[i] = int(spec.silent[i])
+        params.inv_mass_dt[i] = float(spec.dt) / float(spec.initial_mass[i])
+        params.max_speed[i] = ms
+        params.max_speed2[i] = float(np.float32(ms) * np.float32(ms))
+    for k, (i, j) in enumerate(pairs):
+        params.dmin[k] = float(spec.size[i] + spec.size[j])
+    params.contact_force = float(spec.contact_force)
+    params.contact_margin = float(spec.contact_margin)
+    for k, x in enumerate(thresh2):
+        params.thresh2[k] = x
     params.keep_vel = 1.0 - float(spec.damping)
     params.dt = float(spec.dt)
     params.agent_range, params.landmark_range = (float(r) for r in kscn.reset_ranges())
@@ -250,8 +291,8 @@ def scenario_params(kscn):
 
 
 def kernel_params(kscn):
-    """``(scenario id, constants)`` of a kernel scenario for the kernels
-    that take every scenario (K2's ``mpe_scenario_rollout``, K3)."""
+    """``(scenario id, constants)`` of a kernel scenario for K2
+    (``mpe_scenario_rollout``) and K3 (``mpe_trajectory``)."""
     kind = type(kscn).__name__
     if kind not in SCENARIO_IDS:
         raise NotImplementedError(f"no CUDA instantiation for {kind} ({kscn.spec.name!r}); "

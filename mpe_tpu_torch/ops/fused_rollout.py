@@ -2,9 +2,8 @@
 (counterpart of ``mpe_tpu/ops/fused_rollout.py``).
 
 On a CUDA device ``fused_rollout``/``fused_spread_rollout`` launch K2
-(``csrc/mpe_kernels.cu``: ``spread_rollout_kernel`` for simple_spread,
-``scenario_rollout_kernel`` for simple, simple_reference and
-simple_speaker_listener): one thread per env lane runs the whole rollout
+(``csrc/mpe_kernels.cu``: ``scenario_rollout_kernel<S>``, instantiated for
+each of the nine scenarios): one thread per env lane runs the whole rollout
 with its state in registers. On the CPU they
 run ``plain_rollout``, the body of the JAX kernel ``_generic_rollout_kernel``
 written as a torch loop over steps.
@@ -19,6 +18,7 @@ JAX interpret run, the plain version and the kernel draw the same bits.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -306,52 +306,15 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
 
 def rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None, block_envs: int,
                  seed: int, block_offset: int = 0, device=None):
-    """Launch kernel K2 on ``device``, a CUDA device: ``spread_rollout_cuda``
-    for simple_spread, ``scenario_rollout_cuda`` for simple,
-    simple_reference and simple_speaker_listener. Same outputs as
-    ``plain_rollout``."""
-    from mpe_tpu_torch.ops import _build
-
-    spread = _build.SCENARIO_IDS.get(type(kscn).__name__) == 0
-    launch = spread_rollout_cuda if spread else scenario_rollout_cuda
-    return launch(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device)
-
-
-def spread_rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None, block_envs: int,
-                        seed: int, block_offset: int = 0, device=None):
-    """Launch ``spread_rollout_kernel`` (K2 on simple_spread). Counts its
-    launches in ``spread_rollout_cuda.launches``."""
-    out = _launch_rollout(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device,
-                          spread=True)
-    spread_rollout_cuda.launches += 1
-    return out
-
-
-def scenario_rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None,
-                          block_envs: int, seed: int, block_offset: int = 0, device=None):
-    """Launch ``scenario_rollout_kernel<S>`` (K2 on simple, simple_reference
-    or simple_speaker_listener). Counts its launches in
-    ``scenario_rollout_cuda.launches``."""
-    out = _launch_rollout(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device,
-                          spread=False)
-    scenario_rollout_cuda.launches += 1
-    return out
-
-
-spread_rollout_cuda.launches = 0
-scenario_rollout_cuda.launches = 0
-
-
-def _launch_rollout(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offset, device,
-                    spread: bool):
-    """K2's launch: ``mpe_spread_rollout_a3l3c2`` if ``spread``, else
-    ``mpe_scenario_rollout``; raises on a bad argument or a failed launch."""
+    """Launch kernel K2 (``scenario_rollout_kernel<S>``, the instantiation of
+    the kernel scenario) on ``device``, a CUDA device: the outputs of
+    ``plain_rollout``. Raises on a spec outside what the instantiations
+    compute (``_build.kernel_params``), a bad argument or a failed launch.
+    Counts its launches in ``rollout_cuda.launches`` and, by scenario name,
+    in ``rollout_cuda.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     scenario, params = _build.kernel_params(kscn)
-    if (scenario == 0) != spread:
-        raise ValueError(f"{type(kscn).__name__} does not run on "
-                         f"{'spread' if spread else 'scenario'}_rollout_kernel")
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"rollout_cuda needs a CUDA device, got {device}")
@@ -366,17 +329,21 @@ def _launch_rollout(kscn, n_envs, n_steps, horizon, block_envs, seed, block_offs
     vel = torch.empty((e, p, n_envs), dtype=f32, device=device)
     rew = torch.empty((kscn.reward_rows, n_envs), dtype=f32, device=device)
     obs_sum = torch.empty((1, n_envs), dtype=f32, device=device)
-    args = (ctypes.byref(params), pos.data_ptr(), vel.data_ptr(), rew.data_ptr(),
-            obs_sum.data_ptr(), n_envs, block_envs, n_steps, 0 if horizon is None else horizon,
-            int(seed) & _MASK, int(block_offset) & _MASK)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        lib = _build.library()
-        rc = (lib.mpe_spread_rollout_a3l3c2(*args, stream) if spread
-              else lib.mpe_scenario_rollout(scenario, *args, stream))
+        rc = _build.library().mpe_scenario_rollout(
+            scenario, ctypes.byref(params), pos.data_ptr(), vel.data_ptr(), rew.data_ptr(),
+            obs_sum.data_ptr(), n_envs, block_envs, n_steps, 0 if horizon is None else horizon,
+            int(seed) & _MASK, int(block_offset) & _MASK, stream)
     if rc != 0:
         raise RuntimeError(f"rollout kernel K2 launch failed: {_build.error_string(rc)}")
+    rollout_cuda.launches += 1
+    rollout_cuda.launches_by[spec.name] += 1
     return pos, vel, rew, obs_sum
+
+
+rollout_cuda.launches = 0
+rollout_cuda.launches_by = collections.Counter()
 
 
 def fused_rollout(scenario, n_envs: int, n_steps: int, horizon: int | None = 100,

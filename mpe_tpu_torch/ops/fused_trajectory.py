@@ -3,10 +3,10 @@
 
 The rollout of ``fused_rollout`` that streams the learner's batch: per step
 the obs ``[A, OW, N]``, the actions ``[A, 5 + C, N]`` (the raw uniform move
-draw, then the silent-masked comm draw) and the shared reward ``[R, N]``,
+draw, then the silent-masked comm draw) and the reward rows ``[R, N]``,
 the obs and reward taken after the step's physics and before its reset.
-On a CUDA device ``fused_trajectory`` launches ``trajectory_kernel``
-(``csrc/mpe_trajectory.cu``); on the CPU it runs ``plain_trajectory``, the
+On a CUDA device ``fused_trajectory`` launches ``trajectory_kernel<S>``
+(``csrc/mpe_trajectory.cu``, instantiated for each of the nine scenarios); on the CPU it runs ``plain_trajectory``, the
 body of the JAX kernel ``_traj_kernel`` as a torch loop over steps.
 
 The RNG is the JAX kernel's interpret-mode stream. Its grid is (env blocks,
@@ -17,6 +17,7 @@ part of the stream's definition, as ``block_envs`` is.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -83,9 +84,10 @@ def _check_sizes(n_envs: int, n_steps: int, horizon, block_envs: int, t_chunk: i
 
 def trajectory_cuda(kscn, n_envs: int, n_steps: int, horizon: int, block_envs: int,
                     t_chunk: int, seed: int, block_offset: int = 0, device=None):
-    """Launch kernel K3 (``trajectory_kernel``) on ``device``, a CUDA device:
-    the outputs of ``plain_trajectory``. Counts its launches in
-    ``trajectory_cuda.launches``."""
+    """Launch kernel K3 (``trajectory_kernel<S>``) on ``device``, a CUDA
+    device: the outputs of ``plain_trajectory``. Counts its launches in
+    ``trajectory_cuda.launches`` and, by scenario name, in
+    ``trajectory_cuda.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     device = torch.device(device)
@@ -111,10 +113,12 @@ def trajectory_cuda(kscn, n_envs: int, n_steps: int, horizon: int, block_envs: i
     if rc != 0:
         raise RuntimeError(f"trajectory_kernel launch failed: {_build.error_string(rc)}")
     trajectory_cuda.launches += 1
+    trajectory_cuda.launches_by[spec.name] += 1
     return obs, act, rew, pos, vel
 
 
 trajectory_cuda.launches = 0
+trajectory_cuda.launches_by = collections.Counter()
 
 
 def fused_trajectory(scenario, n_envs: int, n_steps: int, horizon: int = 100,

@@ -1,8 +1,8 @@
-"""Scenario registry of the port: the scenarios ported so far.
+"""Scenario registry of the port: the nine published MPE scenarios.
 
 ``load`` accepts names with or without the legacy ``.py`` suffix
-(reference make_env.py:36). An unported name raises ``KeyError`` listing
-what is available; the JAX package holds all nine.
+(reference make_env.py:36). An unknown name raises ``KeyError`` listing
+what is available.
 """
 
 from __future__ import annotations
@@ -14,10 +14,16 @@ from mpe_tpu_torch.scenarios._base import Scenario
 # name -> (module, class); modules imported lazily
 _REGISTRY: dict[str, tuple[str, str]] = {
     "simple": ("mpe_tpu_torch.scenarios.simple", "SimpleScenario"),
+    "simple_adversary": ("mpe_tpu_torch.scenarios.simple_adversary", "SimpleAdversaryScenario"),
+    "simple_crypto": ("mpe_tpu_torch.scenarios.simple_crypto", "SimpleCryptoScenario"),
+    "simple_push": ("mpe_tpu_torch.scenarios.simple_push", "SimplePushScenario"),
     "simple_reference": ("mpe_tpu_torch.scenarios.simple_reference", "SimpleReferenceScenario"),
     "simple_speaker_listener": ("mpe_tpu_torch.scenarios.simple_speaker_listener",
                                 "SimpleSpeakerListenerScenario"),
     "simple_spread": ("mpe_tpu_torch.scenarios.simple_spread", "SimpleSpreadScenario"),
+    "simple_tag": ("mpe_tpu_torch.scenarios.simple_tag", "SimpleTagScenario"),
+    "simple_world_comm": ("mpe_tpu_torch.scenarios.simple_world_comm",
+                          "SimpleWorldCommScenario"),
 }
 
 

@@ -184,6 +184,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_kernel_scenario_rejects_mxu_noise_and_scripted_specs():
+    from mpe_tpu_torch.ops._build import kernel_params
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
     from mpe_tpu_torch.scenarios._base import Scenario
 
@@ -194,10 +195,12 @@ def test_kernel_scenario_rejects_mxu_noise_and_scripted_specs():
         scn.spec = spec
         return scn
 
+    # four agents of simple_spread have 6 collide pairs: the blocks take the
+    # pair physics, and the CUDA kernels, compiled for 3 agents, refuse it
     crowded = t_state.make_spec("simple_spread", 4, 4, agent_size=0.15, dim_c=2,
                                 collaborative=True)
-    with pytest.raises(NotImplementedError, match="B4"):
-        kernel_scenario(scenario(crowded))
+    with pytest.raises(NotImplementedError, match="simple_spread's physics only"):
+        kernel_params(kernel_scenario(scenario(crowded)))
     noisy = t_state.make_spec("simple_spread", 3, 3, agent_u_noise=0.1, dim_c=2)
     with pytest.raises(NotImplementedError, match="u_noise"):
         kernel_scenario(scenario(noisy))
@@ -205,5 +208,6 @@ def test_kernel_scenario_rejects_mxu_noise_and_scripted_specs():
     with pytest.raises(NotImplementedError, match="scripted_action"):
         kernel_scenario(scenario(plain, scripted=True))
     with pytest.raises(KeyError, match="simple_spread"):
-        kernel_scenario("simple_tag")
+        kernel_scenario("simple_nonexistent")
     assert type(kernel_scenario("simple_spread")).__name__ == "KernelSpread"
+    assert type(kernel_scenario("simple_tag")).__name__ == "KernelTag"

@@ -19,8 +19,9 @@ version's actions exactly (values within 1e-5) in both output forms; the
 MADDPG update kernel K9 takes the plain version's target actions and its
 gradient leaves lie within 1e-4 of each leaf's largest entry. The trajectory
 kernel K3 emits the plain version's actions exactly (raw hash draws) and its
-obs, rewards, positions and velocities within 1e-5; K2 on simple,
-simple_reference and simple_speaker_listener is held as on simple_spread.
+obs, rewards, positions and velocities within 1e-5, on all nine scenarios;
+K2 on the eight others is held as on simple_spread (simple_tag and
+simple_world_comm through the pair physics).
 """
 
 import dataclasses
@@ -48,9 +49,9 @@ def card():
 def test_spread_rollout_kernel_matches_plain(card, block_offset):
     spec = scenarios.load("simple_spread").spec
     run = fused_rollout.fused_spread_rollout(spec, 2048, 20, horizon=10, block_envs=1024)
-    before = fused_rollout.spread_rollout_cuda.launches
+    before = fused_rollout.rollout_cuda.launches_by["simple_spread"]
     got = run(5, block_offset)
-    assert fused_rollout.spread_rollout_cuda.launches == before + 1
+    assert fused_rollout.rollout_cuda.launches_by["simple_spread"] == before + 1
     for name, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), got, run.plain(5, block_offset)):
         assert a.is_cuda and a.dtype == torch.float32
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3 if name == "obs_sum" else 0,
@@ -78,17 +79,21 @@ def test_kernel_wrappers_refuse_bad_inputs(card):
     with pytest.raises(ValueError, match="shape"):
         fused_parity.spread_det_rollout_cuda(kscn, 4, 128, pos0[..., :128], vel0, comm0, goal0)
     with pytest.raises(ValueError, match="multiple"):
-        fused_rollout.spread_rollout_cuda(kscn, 256, 4, 10, 100, 0, device=card)
+        fused_rollout.rollout_cuda(kscn, 256, 4, 10, 100, 0, device=card)
+
+
+OTHER_EIGHT = ["simple", "simple_reference", "simple_speaker_listener", "simple_adversary",
+               "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["simple", "simple_reference", "simple_speaker_listener"])
+@pytest.mark.parametrize("name", OTHER_EIGHT)
 def test_scenario_rollout_kernel_matches_plain(card, name):
     run = fused_rollout.fused_rollout(name, 2048, 20, horizon=10, block_envs=1024)
     for block_offset in (0, 1):
-        before = fused_rollout.scenario_rollout_cuda.launches
+        before = fused_rollout.rollout_cuda.launches_by[name]
         got = run(5, block_offset)
-        assert fused_rollout.scenario_rollout_cuda.launches == before + 1
+        assert fused_rollout.rollout_cuda.launches_by[name] == before + 1
         for label, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), got,
                                run.plain(5, block_offset)):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-3 if label == "obs_sum" else 0,
@@ -96,8 +101,7 @@ def test_scenario_rollout_kernel_matches_plain(card, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["simple_spread", "simple", "simple_reference",
-                                  "simple_speaker_listener"])
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
 def test_trajectory_kernel_matches_plain(card, name):
     run = fused_trajectory.fused_trajectory(name, 512, 24, horizon=10, block_envs=256,
                                             t_chunk=4)
@@ -120,11 +124,11 @@ def test_trajectory_wrappers_refuse_bad_inputs(card):
     with pytest.raises(ValueError, match="multiple of t_chunk"):
         fused_trajectory.trajectory_cuda(kscn, 64, 6, 5, 32, 4, 0, device=card)
     spec = kscn.spec
-    heavy = type(kscn)(dataclasses.replace(spec, initial_mass=spec.initial_mass * 2))
+    limited = type(kscn)(dataclasses.replace(spec, max_speed=spec.max_speed.clip(max=1.0)))
     with pytest.raises(NotImplementedError, match="as published only"):
-        fused_trajectory.trajectory_cuda(heavy, 64, 8, 5, 32, 4, 0, device=card)
+        fused_trajectory.trajectory_cuda(limited, 64, 8, 5, 32, 4, 0, device=card)
     with pytest.raises(NotImplementedError, match="as published only"):
-        fused_rollout.rollout_cuda(heavy, 64, 8, 5, 32, 0, device=card)
+        fused_rollout.rollout_cuda(limited, 64, 8, 5, 32, 0, device=card)
 
 
 def _policy(card):

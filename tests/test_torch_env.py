@@ -154,11 +154,12 @@ def test_convert_round_trip_env_minor():
 
 
 def test_scenario_registry():
-    names = ["simple", "simple_reference", "simple_speaker_listener", "simple_spread"]
-    assert t_scenarios.names() == names
+    names = ["simple", "simple_adversary", "simple_crypto", "simple_push", "simple_reference",
+             "simple_speaker_listener", "simple_spread", "simple_tag", "simple_world_comm"]
+    assert t_scenarios.names() == names == sorted(j_scenarios.names())
     assert t_scenarios.load("simple_spread.py").spec.name == "simple_spread"
     with pytest.raises(KeyError, match="available: " + re.escape(str(names))):
-        t_scenarios.load("simple_tag")
+        t_scenarios.load("simple_nonexistent")
 
 
 def test_bound_penalty_matches_jax():

@@ -189,7 +189,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         t_parity.spread_det_rollout_cuda(kscn, 4, 32, *inputs)
     with pytest.raises(ValueError, match="CUDA"):
-        t_fused.spread_rollout_cuda(kscn, 64, 4, 10, 32, 0, device="cpu")
+        t_fused.rollout_cuda(kscn, 64, 4, 10, 32, 0, device="cpu")
 
 
 def test_spread_params_takes_simple_spread():

@@ -1,13 +1,14 @@
-"""The port's simple, simple_reference and simple_speaker_listener against
-the JAX package on the CPU in float64 (atol 1e-12): the scenario callbacks,
-``MpeEnv`` steps with comm-width actions, ``build_rollout`` and the kernel
-blocks of ``ops/kernel_scenarios.py``.
+"""The port's scenarios other than simple_spread against the JAX package on
+the CPU in float64 (atol 1e-12): the scenario callbacks, ``MpeEnv`` steps
+with comm-width actions, ``build_rollout``, the kernel blocks of
+``ops/kernel_scenarios.py`` and the pair physics of ``ops/mxu_physics.py``.
 
 States are drawn by JAX and carried across with ``mpe_tpu_torch.convert``;
 velocities, comm and actions are made with numpy. The two packages' random
 streams differ, so auto-reset is checked by its semantics.
 """
 
+import functools
 import importlib
 
 import jax
@@ -27,7 +28,8 @@ from mpe_tpu_torch.parallel.mesh import build_rollout
 j_kscn = importlib.import_module("mpe_tpu.ops.kernel_scenarios")
 t_kscn = importlib.import_module("mpe_tpu_torch.ops.kernel_scenarios")
 
-NAMES = ["simple", "simple_reference", "simple_speaker_listener"]
+NAMES = ["simple", "simple_reference", "simple_speaker_listener", "simple_adversary",
+         "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
 N = 16
 ATOL = 1e-12
 LEAVES = ("pos", "vel", "comm", "goal", "t")
@@ -42,12 +44,17 @@ def _jax_states(name, seed=0):
     """JAX-reset states with random velocities (movable agents only) and
     random utterances (non-silent agents only)."""
     env = JMpeEnv(j_scenarios.load(name), max_steps=100, auto_reset=True, dtype=jnp.float64)
-    states, _ = jax.vmap(env.reset)(jax.random.split(jax.random.PRNGKey(seed), N))
+    states, _ = jax.jit(jax.vmap(env.reset))(jax.random.split(jax.random.PRNGKey(seed), N))
     spec = env.spec
     rng = np.random.default_rng(seed)
     vel = rng.uniform(-1, 1, states.vel.shape) * spec.movable[:, None]
     comm = rng.uniform(size=states.comm.shape) * ~spec.silent[:, None]
     return env, states.replace(vel=jnp.asarray(vel), comm=jnp.asarray(comm))
+
+
+def _goal_choices(name):
+    """The number of values a goal index takes (0 without goals)."""
+    return max(t_kscn.kernel_scenario(name).goal_choices, default=0)
 
 
 def _to_port(states):
@@ -60,23 +67,28 @@ def test_scenario_callbacks_match_jax(name):
     j_scn, t_scn = j_scenarios.load(name), t_scenarios.load(name)
     t_state = _to_port(states)
     assert t_scn.obs_dims == j_scn.obs_dims and t_scn.per_agent_info == j_scn.per_agent_info
-    assert len(set(np.asarray(states.goal).ravel().tolist())) == (3 if j_scn.spec.n_goals else 0)
-    _close(t_scn.reward(t_state), jax.vmap(j_scn.reward)(states), "reward")
-    _close(t_scn.observation(t_state), jax.vmap(j_scn.observation)(states), "obs")
-    _close(t_scn.entity_colors(t_state), jax.vmap(j_scn.entity_colors)(states), "colors")
+    assert len(set(np.asarray(states.goal).ravel().tolist())) == _goal_choices(name)
+    _close(t_scn.reward(t_state), jax.jit(jax.vmap(j_scn.reward))(states), "reward")
+    _close(t_scn.observation(t_state), jax.jit(jax.vmap(j_scn.observation))(states), "obs")
+    _close(t_scn.entity_colors(t_state), jax.jit(jax.vmap(j_scn.entity_colors))(states), "colors")
     j_info = j_scn.benchmark_data(jax.tree.map(lambda x: x[0], states))
     t_info = t_scn.benchmark_data(t_state)
     assert (j_info is None) == (t_info is None)
     if j_info is not None:
-        j_info = jax.vmap(j_scn.benchmark_data)(states)
+        j_info = jax.jit(jax.vmap(j_scn.benchmark_data))(states)
         assert j_info.keys() == t_info.keys()
         for k in j_info:
             _close(t_info[k], j_info[k], k)
 
 
+@functools.cache
+def _jax_step(j_env):
+    return jax.jit(jax.vmap(j_env.step))
+
+
 def _step_both(name, j_env, j_states, t_env, t_states, acts, key_seed):
     keys = jax.random.split(jax.random.PRNGKey(key_seed), N)
-    j_out = jax.vmap(j_env.step)(j_states, jnp.asarray(acts), keys)
+    j_out = _jax_step(j_env)(j_states, jnp.asarray(acts), keys)
     t_out = t_env.step(t_states, torch.as_tensor(acts), make_generator(key_seed, "cpu"))
     return j_out, t_out
 
@@ -124,7 +136,7 @@ def test_mpe_env_auto_reset_at_horizon(name):
     # reset envs: fresh state with zero velocity and comm, obs of that state
     assert (ts.t[:half] == 0).all() and (ts.vel[:half] == 0).all() and (ts.comm[:half] == 0).all()
     assert (ts.pos[:half].abs() <= 1).all()
-    assert ((ts.goal[:half] >= 0) & (ts.goal[:half] < 3)).all()
+    assert ((ts.goal[:half] >= 0) & (ts.goal[:half] < _goal_choices(name))).all()
     _close(to[:half], t_env.scenario.observation(ts)[:half], "fresh obs")
     # the other envs stepped on, as in JAX
     for leaf in LEAVES:
@@ -151,7 +163,8 @@ def test_build_rollout_layouts(name):
         torch.testing.assert_close(getattr(s1, leaf), getattr(s0, leaf).movedim(0, -1))
     torch.testing.assert_close(traj["reward"].sum(), total)
     assert traj["done"][3].all() and not traj["done"][2].any()      # horizon 4
-    assert (traj["reward"] == traj["reward"][:, :1]).all()          # one shared reward
+    if spec.collaborative:
+        assert (traj["reward"] == traj["reward"][:, :1]).all()      # one shared reward
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -175,12 +188,65 @@ def test_kernel_blocks_match_jax(name):
     def tx(x):
         return None if x is None else torch.as_tensor(x)
 
-    j_rew, j_obs = j_k.reward_obs(jx(pos), jx(vel), jx(comm), jx(goal))
+    j_rew, j_obs = jax.jit(j_k.reward_obs)(jx(pos), jx(vel), jx(comm), jx(goal))
     t_rew, t_obs = t_k.reward_obs(tx(pos), tx(vel), tx(comm), tx(goal))
     _close(t_rew, j_rew, "reward")
     _close(t_obs, j_obs, "obs")
-    t_pos, t_vel = t_k.physics(tx(pos), tx(vel), tx(rng.uniform(size=(a, 5, n))))
+    move = rng.uniform(size=(a, 5, n))
+    t_pos, t_vel = t_k.physics(tx(pos), tx(vel), tx(move))
+    j_pos, j_vel = jax.jit(j_k.physics)(jx(pos), jx(vel), jx(move))
+    _close(t_pos, j_pos, "physics pos")
+    _close(t_vel, j_vel, "physics vel")
     assert (t_pos[a:] == tx(pos)[a:]).all()                             # landmarks stay
+
+
+def _crowded_states(spec, n, rng):
+    """pos, vel [E, 2, N] and move [A, 5, N] where the pair physics meets
+    every case: lanes 0-63 have the agents and the obstacles within 0.05 of
+    one point (deep overlaps), lanes 64-127 an exact overlap of agents 0 and
+    1 (a zero force), lanes 128-191 speeds of 3.5 x max_speed (after damping
+    above twice the limit, where ``factor - 1`` is not exact) and the rest
+    random states with speeds up to 2 x max_speed."""
+    e, a = spec.n_entities, spec.n_agents
+    pos = rng.uniform(-1, 1, (e, 2, n))
+    pos[:, :, :64] = rng.uniform(-0.5, 0.5, (1, 2, 64)) + rng.uniform(-0.05, 0.05, (e, 2, 64))
+    pos[1, :, 64:128] = pos[0, :, 64:128]
+    angle = rng.uniform(0, 2 * np.pi, (e, 1, n))
+    speed = rng.uniform(0, 2, (e, 1, n))
+    speed[:, :, 128:192] = 3.5
+    ms = np.where(np.isfinite(spec.max_speed), spec.max_speed, 1.0)[:, None, None]
+    vel = np.concatenate([np.cos(angle), np.sin(angle)], axis=1) * speed * ms
+    vel *= spec.movable[:, None, None]
+    return pos, vel, rng.uniform(size=(a, 5, n))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["simple_tag", "simple_world_comm"])
+def test_mxu_physics_matches_jax(name, dtype):
+    """The pair physics against the JAX block called on CPU arrays: float64
+    within 1e-12, float32 within 4 ulps of 1 (the JAX block sums an entity's
+    pair forces in a matmul, whose order XLA picks)."""
+    from mpe_tpu.ops import mxu_physics as j_mxu
+    from mpe_tpu_torch.ops import mxu_physics as t_mxu
+
+    t_spec, j_spec = t_scenarios.load(name).spec, j_scenarios.load(name).spec
+    assert t_mxu.collide_pairs(t_spec) == j_mxu.collide_pairs(j_spec)
+    assert len(t_mxu.collide_pairs(t_spec)) == {"simple_tag": 14, "simple_world_comm": 21}[name]
+    pos, vel, move = _crowded_states(t_spec, 256, np.random.default_rng(8))
+    j_out = jax.jit(lambda *x: j_mxu.mxu_physics_block(j_spec, *x))(
+        *(jnp.asarray(x, dtype) for x in (pos, vel, move)))
+    t_out = t_mxu.mxu_physics_block(t_spec, *(torch.as_tensor(x).to(getattr(torch, dtype))
+                                               for x in (pos, vel, move)))
+    atol = ATOL if dtype == "float64" else 4 * np.finfo(np.float32).eps
+    for label, t, j in zip(("pos", "vel"), t_out, j_out):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=atol, err_msg=label)
+    a = t_spec.n_agents
+    speed = t_out[1][:a].double().square().sum(1).sqrt()                 # [A, N]
+    limit = torch.tensor(t_spec.max_speed[:a])[:, None]
+    assert (speed <= limit * (1 + 1e-6)).all()
+    # from above twice the limit most agents land on it (a contact can slow one)
+    assert ((speed[:, 128:192] - limit).abs() < 1e-5).double().mean() > 0.9
+    assert (t_out[0][a:] == torch.as_tensor(pos[a:]).to(t_out[0].dtype)).all()   # obstacles stay
 
 
 def test_goal_helpers_match_jax():
@@ -192,6 +258,10 @@ def test_goal_helpers_match_jax():
            j_kscn.select_by_goal(jnp.asarray(goal), [jnp.asarray(r) for r in rows]))
     _close(t_kscn.color_rows_by_goal(tg, colors, 32, torch.float64),
            j_kscn.color_rows_by_goal(jnp.asarray(goal), colors, 32, jnp.float64))
+    _close(t_kscn.onehot_rows(tg, 4, torch.float64),
+           j_kscn.onehot_rows(jnp.asarray(goal), 4, jnp.float64))
+    _close(t_kscn.const_rows(colors[2], 32, torch.float64),
+           j_kscn.const_rows(colors[2], 32, jnp.float64))
 
 
 def test_base_helpers_match_jax():
