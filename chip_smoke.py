@@ -8,7 +8,7 @@ failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time and the compiler's register report;
-  2. six main paths, each with every kernel's launch count set to 0 just
+  2. eight main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -26,8 +26,18 @@ failure ends the run with a non-zero exit code:
           iterations 1-19; every metric must be finite;
        b2. MAPPO training: build_fused_mappo_step at the same width for 20
           iterations (kernels K5 and K7), timed and checked the same way;
-       c. evaluation: fused_policy_rollout of the trained actor (kernel K4),
-          4096 envs x 1000 steps, horizon 25; mean return per episode;
+       b3. PPO on a scenario where agents speak: build_fused_ppo_step on
+          simple_reference (two speakers, dim_c 10, 16 outputs with the
+          value head) at the same width, 20 iterations (K5, K6 with the comm
+          factor), timed and checked the same way;
+       b4. MAPPO on simple_speaker_listener (a silent listener, a speaker of
+          dim_c 3, joint obs 22) at the same width, 20 iterations (K5, K7);
+       c. evaluation (kernel K4), 4096 envs x 1000 steps, horizon 25: the
+          trained simple_spread actor of path b, path b3's actor on
+          simple_reference and the committed MAPPO actor of
+          checkpoints/mappo_speaker_listener_fused.npz on
+          simple_speaker_listener; mean return per episode, beside the
+          uniform-random return of K2 on the same scenario and shape;
        d. MADDPG: build_fused_maddpg_runner("simple_spread", n_envs=1024,
           horizon=25, batch=1024) (tools/train_bench.py's fused_maddpg row)
           with the runner's defaults (tau 0.01, lr 1e-3, ent 0.01, eps 0.1,
@@ -51,10 +61,19 @@ failure ends the run with a non-zero exit code:
           bandwidth they reach; the launches of each instantiation;
   3. every kernel held against its plain PyTorch version on the card: K1
      and K2 over 20 steps (K2 with horizon 10, so resets happen); K5 and K4
-     over 16 steps with horizon 8, two block offsets, and at the main paths'
-     shapes; K6 and K7 on a batch of their trainer and on the same batch
-     with both clips binding; one whole trainer iteration of each (params
-     and metrics) against the same iteration with the plain versions; K8 at
+     on simple_spread over 16 steps with horizon 8, two block offsets; K5 on
+     all nine scenarios at 4096 envs x 64 steps (horizon 25, t_chunk 8;
+     moves and comm indices equal) and at the training shape (horizon 32)
+     with path b's, b3's and b4's actors, K4 at path c's evaluation shape on
+     each of the three actors path c evaluates (the committed speaker-
+     listener actor among them, on path c's own outputs) and on the eight
+     scenarios other than simple_spread at 4096 envs x 200 steps (horizon
+     25), with path b's, b3's and b4's actors where they exist and an
+     init_policy actor of O(1) logits elsewhere; K6 and K7 on each
+     scenario's K5 batch of its trainer at 4096 envs x 64 steps and on the
+     same batch with both clips binding (K7 with simple_world_comm's
+     204-wide critic); one whole trainer iteration of each (params and
+     metrics) against the same iteration with the plain versions; K8 at
      1024 envs x 25 steps, two block offsets, with the actor of
      checkpoints/maddpg_spread_fused.npz and with the runner's actor, in
      both output forms; K9 on 1024 rows of the runner's ring (with the
@@ -75,13 +94,15 @@ failure ends the run with a non-zero exit code:
      so that no stale output can pass);
   4. the plain versions timed at the main paths' shapes, each kernel's bound
      from the operations its function needs (OPS below), and for K6, K7 and
-     K9 the same gradient by autograd (the library yardstick); one MADDPG
+     K9 the same gradient by autograd (the library yardstick), K4-K7 on
+     every scenario at the gate's shape; one MADDPG
      update chunk under torch.profiler (K9's device time, the device's busy
      share), and each K3 call of path e (its device time);
-  5. a ``{"kernels": [...]}`` line (the K2 and K3 rows name their scenarios
+  5. a ``{"kernels": [...]}`` line (the K2-K7 rows name their scenarios
      and the one their top-level numbers were timed on, and carry per
      scenario the launches, time, bound, plain time and error of each
-     instantiation), the ``nvidia-smi`` name/power-limit line, and ``{"ok":
+     instantiation, K4-K7 also its registers and spills, K6 and K7 the
+     library time), the ``nvidia-smi`` name/power-limit line, and ``{"ok":
      true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the ``mpe_tpu_torch`` package beside it, and
@@ -113,6 +134,13 @@ TRAIN = dict(n_envs=4096, n_steps=64, horizon=32, hidden=64, lr=3e-4, gamma=0.95
 TRAIN_ITERS = 20
 EVAL_STEPS, EVAL_HORIZON = 1000, 25
 POLICY_CHECK_STEPS, POLICY_CHECK_HORIZON = 16, 8
+# the comm paths b3 and b4, and the committed MAPPO actor that path c evaluates
+COMM_PPO, COMM_MAPPO = "simple_reference", "simple_speaker_listener"
+MAPPO_CKPT = "checkpoints/mappo_speaker_listener_fused.npz"
+# K5 and K4 on every scenario: the learner batch with the evaluation's
+# horizon, and 200 evaluation steps
+POLICY_GATE = dict(n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
+EVAL_GATE_STEPS = 200
 # MADDPG (tools/train_bench.py:123-126, the runner's defaults otherwise)
 MADDPG = dict(n_envs=1024, horizon=25, batch=1024)
 MADDPG_CHUNKS, MADDPG_ACTOR_START = 40, 250
@@ -136,7 +164,7 @@ TRAJ_CHECK = dict(n_envs=512, n_steps=24, horizon=10, block_envs=256, t_chunk=4)
 # elementwise ops do; what is left is the order of the obs-checksum sum
 # (over a whole rollout: relative to the largest sum).
 TOL = {"pos": 1e-5, "vel": 1e-5, "rew_sum": 1e-4, "rew": 1e-5, "obs": 1e-5, "obs_sum": 1e-3,
-       "ret": 1e-5, "last_obs": 1e-5, "act": 0.0, "episodes": 0.0, "params": 1e-5,
+       "ret": 1e-5, "last_obs": 1e-5, "act": 0.0, "cact": 0.0, "episodes": 0.0, "params": 1e-5,
        "obs2": 1e-5, "rows": 0.0, "chunk params": 1e-4, "obs_sum_rel": 1e-4}
 # K6 sums the batch in its own order: each leaf within 1e-4 of its largest
 # entry, the metric means within 1e-4 relative. Where the ratio is 1 (an
@@ -216,11 +244,10 @@ OPS = {
     },
 }
 
-# The policy and update kernels (csrc/mpe_policy.cu, csrc/mpe_update.cu; the
-# 18-64-64-5 MLP, +1 value output in K6). A dense layer of n_in inputs needs
-# per output n_in multiply-adds (the first product takes the bias); tanh is
-# 1 - 2 / (exp(2x) + 1): 2 SFU (exp, reciprocal) and 4 fp32 (2x, x log2e,
-# + 1, 1 - 2 r as one fma).
+# The MLPs of the policy, update and MADDPG kernels. A dense layer of n_in
+# inputs needs per output n_in multiply-adds (the first product takes the
+# bias); tanh is 1 - 2 / (exp(2x) + 1): 2 SFU (exp, reciprocal) and 4 fp32
+# (2x, x log2e, + 1, 1 - 2 r as one fma).
 TANH = {"fp32": 4, "sfu": 2}
 
 
@@ -228,51 +255,49 @@ def dense(n_in: int, n_out: int) -> tuple[int, dict]:
     return n_out, {"fp32": n_in}
 
 
-MLP = (dense(18, 64), (64, TANH), dense(64, 64), (64, TANH))
+def torso(n_in: int) -> tuple:
+    """The two tanh layers of an n_in-64-64 MLP."""
+    return dense(n_in, 64), (64, TANH), dense(64, 64), (64, TANH)
+
+
+MLP = torso(18)                                     # simple_spread's actor torso (K8, K9)
 GUMBEL = {"int": 10, "cvt": 1, "fp32": 6, "sfu": 2}  # the hash (10 int, cvt, x 2^-24); + 1e-12,
 #                                                      log, its x ln2 fused with + 1e-12; log,
 #                                                      its x ln2 fused with the logit's -;
 #                                                      argmax: compare, select
 POLICY_AGENT = _ops((1, {"fp32": 10}), *MLP, dense(64, 5), (5, GUMBEL), (5, {"int": 1}))
 #                    obs: 10 relative coordinates; one-hot move: 5 compares
-POLICY_STEP = ((3, POLICY_AGENT), (3, DECODE), (3, PAIR_FORCE), (3, INTEGRATE), (9, LANDMARK_DIST),
-               (3, PAIR_COLLISION), (1, REWARD_REST), (3, {"int": 1}))   # salt, counter, test
-# K6 per sample, besides the forward (MLP, dense(64, 6)): softmax of the 5
-# logits (4 max; 5 x (-, x log2e, exp); 4 sums; log, its x ln2 fused into the
-# 5 ls = (z - m) - lse; 1 reciprocal and 5 products), the entropy and logp
-# sums (5 + 5), the ratio (-, x log2e, exp), clamp (2), s1, s2, the
-# indicator, -(a r) / B and select (3), g3 of the logits (5 x 5), the value
-# clip, both squares, the indicator and the value gradient (13), the metric
-# terms (5): 94 fp32, 8 SFU. Backward: 64 x (6 multiply-adds, 1 - h^2 as
-# one fma, the product) for gh2, 64 x 64 multiply-adds + 64 x 2 for gh1.
-# Weight gradients: 64 x 18 + 64 x 64 + 6 x 64 multiply-adds, 64 + 64 + 6
-# bias sums.
-UPDATE_SAMPLE = _ops(*MLP, dense(64, 6), (1, {"fp32": 94, "sfu": 8}),
-                     (1, {"fp32": 64 * 8 + 64 * 64 + 64 * 2}),
-                     (1, {"fp32": 64 * 18 + 64 * 64 + 6 * 64 + 134}))
-OPS["spread_policy_traj_kernel"] = {"step": _ops(*POLICY_STEP), "reset": RESET,
-                                    "env": {"fp32": 30}}             # last_obs
-OPS["spread_policy_rollout_kernel"] = {"step": _ops(*POLICY_STEP, (1, ACCUMULATE)),  # return
-                                       "reset": _ops((1, RESET), (1, {"fp32": 1})),   # episodes
-                                       "env": {}}
-OPS["ppo_update_kernel"] = {"step": UPDATE_SAMPLE, "reset": {}, "env": {}}   # a "step" is a sample
 
-# K7 (csrc/mpe_update.cu): an actor sample is K6's without the value output:
-# the MLP, dense(64, 5), the softmax and surrogate gradient (K6's 94 fp32 and
-# 8 SFU less the value clip's 13 fp32), the backward pass (64 x (5
-# multiply-adds, 1 - h^2, the product) for gh2, 64 x 64 + 64 x 2 for gh1) and
-# the weight gradients (64 x 18 + 64 x 64 + 5 x 64 multiply-adds, 133 bias
-# sums). A critic sample: the 54-64-64-1 MLP, the value clip (13), the
-# backward pass (64 x 3 for gh2, 64 x 64 + 64 x 2) and the weight gradients
-# (64 x 54 + 64 x 64 + 64 multiply-adds, 129 bias sums).
-MAPPO_ACTOR_SAMPLE = _ops(*MLP, dense(64, 5), (1, {"fp32": 81, "sfu": 8}),
-                          (1, {"fp32": 64 * 7 + 64 * 64 + 64 * 2}),
-                          (1, {"fp32": 64 * 18 + 64 * 64 + 5 * 64 + 133}))
-MAPPO_CRITIC_SAMPLE = _ops(dense(54, 64), (64, TANH), dense(64, 64), (64, TANH), dense(64, 1),
-                           (1, {"fp32": 13}), (1, {"fp32": 64 * 3 + 64 * 64 + 64 * 2}),
-                           (1, {"fp32": 64 * 54 + 64 * 64 + 64 + 129}))
-# a "step" is an actor sample (t, agent, env), a "reset" a critic sample (t, env)
-OPS["mappo_update_kernel"] = {"step": MAPPO_ACTOR_SAMPLE, "reset": MAPPO_CRITIC_SAMPLE, "env": {}}
+
+def update_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
+    """K6 (value) or K7's actor pass per sample (csrc/mpe_update.cu), an
+    n_in-64-64-n_out MLP: besides the forward, the softmax of the 5 move
+    logits (4 max; 5 x (-, x log2e, exp); 4 sums; log, its x ln2 fused into
+    the 5 ls = (z - m) - lse; 1 reciprocal and 5 products), the entropy and
+    logp sums (5 + 5), the ratio (-, x log2e, exp), clamp (2), s1, s2, the
+    indicator, -(a r) / B and select (3), g3 of the logits (5 x 5), the
+    metric terms (5): 81 fp32, 8 SFU; with a value output its clip, both
+    squares, the indicator and the value gradient (13 more). A comm head of
+    C logits adds its softmax (6C - 2 fp32, C + 2 SFU), its logp and entropy
+    sums (2C), the speak products (2) and g3 of its logits (6C): 14C fp32.
+    Backward: 64 x (n_out multiply-adds, 1 - h^2 as one fma, the product)
+    for gh2, 64 x 64 multiply-adds + 64 x 2 for gh1. Weight gradients:
+    64 x n_in + 64 x 64 + n_out x 64 multiply-adds, 128 + n_out bias sums."""
+    return _ops(*torso(n_in), dense(64, n_out), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
+                (1 if comm else 0, {"fp32": 14 * comm, "sfu": comm + 2}),
+                (1, {"fp32": 64 * (n_out + 2) + 64 * 64 + 64 * 2}),
+                (1, {"fp32": 64 * n_in + 64 * 64 + n_out * 64 + 128 + n_out}))
+
+
+def critic_sample(n_in: int) -> dict:
+    """K7's critic pass per (t, env) sample: the n_in-64-64-1 MLP, the value
+    clip (13), the backward pass (64 x 3 for gh2, 64 x 64 + 64 x 2) and the
+    weight gradients (64 x n_in + 64 x 64 + 64 multiply-adds, 129 bias
+    sums)."""
+    return _ops(*torso(n_in), dense(64, 1), (1, {"fp32": 13}),
+                (1, {"fp32": 64 * 3 + 64 * 64 + 64 * 2}),
+                (1, {"fp32": 64 * n_in + 64 * 64 + 64 + 129}))
+
 
 # K8 (csrc/mpe_maddpg.cu) per env-step: per agent K5's MLP and Gumbel-max,
 # the eps one-hot's Gumbel-max (5 more draws), the eps coin (a hash, compare,
@@ -441,6 +466,46 @@ for _name, _p in PHYS.items():
 OPS.update({f"scenario_rollout_kernel[{k}]": {**v, "env": {}} for k, v in K2_SCN_OPS.items()})
 OPS.update({f"trajectory_kernel[{k}]": {**v, "env": {}} for k, v in TRAJ_OPS.items()
             if k in PHYS})
+
+def widths(name: str) -> tuple[int, int, int, int, int]:
+    """(agents, obs width, comm logits C, speakers, reward rows) of a
+    scenario's kernel blocks (mpe_tpu_torch.ops.kernel_scenarios)."""
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    k = kernel_scenario(name)
+    return k.spec.n_agents, k.obs_w, k.n_comm, sum(k.speak or ()), k.reward_rows
+
+
+def policy_ops(name: str) -> tuple[dict, dict]:
+    """(K5's, K4's) operations (csrc/mpe_policy.cu) from K3's step on the
+    same scenario, which draws as many uniforms (5 moves per agent, C comm
+    logits per speaker): each draw becomes a Gumbel-max draw (GUMBEL in
+    place of HASH), every agent runs the MLP OW-64-64-(5+C), the one-hot move
+    takes 5 compares per agent; K5 writes the last obs (A OW); K4 adds the
+    running return of each reward row and counts episodes."""
+    a, ow, c, speakers, r = widths(name)
+    draws = 5 * a + c * speakers
+    step = _ops((1, TRAJ_OPS[name]["step"]), (-draws, HASH), (draws, GUMBEL),
+                (a, _ops(*torso(ow), dense(64, 5 + c))), (a, {"int": 5}))
+    reset = TRAJ_OPS[name]["reset"]
+    return ({"step": step, "reset": reset, "env": {"fp32": a * ow}},
+            {"step": _ops((1, step), (r, ACCUMULATE)), "reset": _ops((1, reset), (1, {"fp32": 1})),
+             "env": {}})
+
+
+def add_policy_ops() -> None:
+    """OPS of K4-K7 on every scenario, from its widths (which need the
+    package, so main adds them after importing it)."""
+    for name in ALL_SCENARIOS:
+        a, ow, c, _, _ = widths(name)
+        OPS[f"policy_traj_kernel[{name}]"], OPS[f"policy_rollout_kernel[{name}]"] = \
+            policy_ops(name)
+        # a "step" is a sample: K6's (t, agent, env); K7's actor sample, and
+        # as its "reset" a critic sample (t, env)
+        OPS[f"ppo_update_kernel[{name}]"] = {"step": update_sample(ow, 6 + c, c, True),
+                                             "reset": {}, "env": {}}
+        OPS[f"mappo_update_kernel[{name}]"] = {"step": update_sample(ow, 5 + c, c, False),
+                                               "reset": critic_sample(a * ow), "env": {}}
 
 
 def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
@@ -752,7 +817,7 @@ def traj_bytes(name: str, n_envs: int, n_steps: int) -> int:
     kscn = kernel_scenario(name)
     spec = kscn.spec
     a = spec.n_agents
-    act_w = 2 * spec.dim_p + 1 + (spec.dim_c if kscn.uses_comm else 0)
+    act_w = kscn.n_logits
     per_step = a * kscn.obs_w + a * act_w + kscn.reward_rows
     return 4 * n_envs * (n_steps * per_step + 2 * spec.n_entities * spec.dim_p)
 
@@ -893,67 +958,262 @@ def check_scenario_kernels():
     return k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms
 
 
-def evaluation_path(wrappers, kscn, params):
-    """Main path c: the trained actor evaluated by K4."""
+def evaluation_path(wrappers, evals: dict):
+    """Main path c: each actor of ``evals`` ({scenario: init_policy-layout
+    actor}) evaluated by K4 at N_ENVS x EVAL_STEPS, beside K2's
+    uniform-random return on the same scenario and shape -> (launches,
+    launches by scenario, {scenario: (K4's builder, kernel ms, outputs)})."""
     import torch
 
     from mpe_tpu_torch.ops.fused_policy import fused_policy_rollout
+    from mpe_tpu_torch.ops.fused_rollout import fused_rollout
 
-    actor = {"l1": params["l1"], "l2": params["l2"], "out": params["pi"]}
     zero_launches(wrappers)
-    k4 = fused_policy_rollout(kscn, actor, N_ENVS, EVAL_STEPS, horizon=EVAL_HORIZON,
-                              block_envs=BLOCK_ENVS)
-    k4_ms, (ret, pos, eps) = cuda_time(lambda: k4(0, actor), REPEATS)
-    for x in (ret, pos, eps):
-        assert bool(torch.isfinite(x).all())
-    assert bool((eps == EVAL_STEPS // EVAL_HORIZON).all())
-    per_ep_mean, per_ep_se = mean_se(ret[0] / eps[0])
-    print(f"evaluation (K4): mean return per episode {per_ep_mean:.5f} +- {per_ep_se:.5f} over "
-          f"{int(eps.sum())} episodes ({N_ENVS} envs x {EVAL_STEPS} steps, horizon "
-          f"{EVAL_HORIZON}); kernel {k4_ms:.4f} ms, median of {REPEATS}")
-    launches = read_launches(wrappers, ["spread_policy_rollout_kernel"], "evaluation path")
-    return launches, k4, actor, k4_ms, (ret, pos, eps)
+    runs = {}
+    for name, actor in evals.items():
+        k4 = fused_policy_rollout(name, actor, N_ENVS, EVAL_STEPS, horizon=EVAL_HORIZON,
+                                  block_envs=BLOCK_ENVS)
+        k4_ms, (ret, pos, eps) = cuda_time(lambda: k4(0, actor), REPEATS)
+        for x in (ret, pos, eps):
+            assert bool(torch.isfinite(x).all())
+        assert bool((eps == EVAL_STEPS // EVAL_HORIZON).all())
+        per_ep_mean, per_ep_se = mean_se(ret.mean(0) / eps[0])
+        uniform = fused_rollout(name, N_ENVS, EVAL_STEPS, horizon=EVAL_HORIZON,
+                                block_envs=BLOCK_ENVS)(0)[2]
+        u_mean, u_se = mean_se(uniform.mean(0) / (EVAL_STEPS // EVAL_HORIZON))
+        print(f"evaluation (K4), {name}: mean return per episode {per_ep_mean:.5f} +- "
+              f"{per_ep_se:.5f} over {int(eps.sum())} episodes ({N_ENVS} envs x {EVAL_STEPS} "
+              f"steps, horizon {EVAL_HORIZON}); uniform-random moves and utterances (K2) "
+              f"{u_mean:.5f} +- {u_se:.5f}; kernel {k4_ms:.4f} ms, median of {REPEATS}")
+        runs[name] = (k4, k4_ms, (ret, pos, eps))
+    launches = read_launches(wrappers, ["policy_rollout_kernel"], "evaluation path")
+    by = read_instantiations(wrappers["policy_rollout_kernel"], list(evals),
+                             "evaluation path's K4")
+    return launches, by, runs
 
 
-def check_mappo(mstep, mstate0, mstate):
-    """K7 against its plain version on the MAPPO trainer's batch, on the same
-    batch with both clips binding, and over one whole iteration; then K7, its
-    plain version and autograd of the trainer's loss timed on the trainer's
-    batch -> (max abs err, ms, plain ms, library ms, bound)."""
+def update_batches(step, params, label: str):
+    """The trainer's epoch-0 batch of ``params`` and the same batch with both
+    clips binding (``clip_binding_inputs``) -> (batch, clip batch, the
+    library yardstick's batch)."""
     import torch
 
     from mpe_tpu_torch.ops.fused_update import clip_binding_inputs
 
-    params = mstate[0]
-    obs, mv_oh, logp_old, value, adv_n, ret = mstep.collect(params, 3)
-    batch = (obs, mv_oh, None, logp_old, adv_n, ret, value)
+    obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
     lpo_c, v_c, shares = clip_binding_inputs(logp_old, value, clip=TRAIN["clip"],
                                              generator=torch.Generator("cuda").manual_seed(11))
-    print(f"K7 clip-binding batch: the ratio clip binds for {shares[0]:.4f} of the actor samples, "
-          f"the value clip for {shares[1]:.4f} of the critic samples")
+    print(f"{label} clip-binding batch: the ratio clip binds for {shares[0]:.4f} of the policy "
+          f"samples, the value clip for {shares[1]:.4f} of the value samples")
     assert all(0.2 < s < 0.8 for s in shares), f"the clips bind for too few or too many: {shares}"
-    err = max(check_update("K7 (trainer batch)", mstep.update, params, batch, ("vloss", "entropy")),
-              check_update("K7 (clip-binding batch)", mstep.update, params,
-                           (obs, mv_oh, None, lpo_c, adv_n, ret, v_c), ("pg", "vloss", "entropy")))
-    (p_kernel, _), m_kernel = mstep(mstate0, 7)
-    (p_plain, _), m_plain = mstep.plain(mstate0, 7)
-    it_err = max(max_err(p_kernel[k][q], p_plain[k][q]) for k in p_kernel for q in p_kernel[k])
-    check("one MAPPO iteration (kernels vs plain)", {"params": it_err})
-    print("one MAPPO iteration, metrics kernels vs plain: "
-          + ", ".join(f"{k} {float(m_kernel[k]):.8g} vs {float(m_plain[k]):.8g}" for k in m_plain))
-    assert all(abs(float(m_kernel[k]) - float(m_plain[k])) <= METRIC_RTOL * abs(float(m_plain[k]))
-               for k in m_plain), "the MAPPO metrics disagree with the plain trainer's"
-    ms, _ = cuda_time(lambda: mstep.update(params, *batch), REPEATS)
-    plain_ms, _ = cuda_time(lambda: mstep.update.plain(params, *batch), REPEATS)
-    lib_ms, _ = cuda_time(lambda: library_ppo_grads(mstep, params, (obs, mv_oh, logp_old, value,
-                                                                     adv_n, ret)), REPEATS)
-    t, a, _, n = obs.shape
-    bound = bound_ms(OPS["mappo_update_kernel"], t * a * n, t * n, 0,
-                     t * a * n * (18 + 5 + 1) * 4 + t * n * 3 * 4 + 2 * (5701 + 7745) * 4)
-    print(f"K7 {ms:.4f} ms (one epoch, {t * a * n} actor and {t * n} critic samples), plain "
-          f"{plain_ms:.3f} ms, autograd of the trainer's loss {lib_ms:.3f} ms; bound "
-          f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor {bound[2]:.4f} ms")
-    return err, ms, plain_ms, lib_ms, bound
+    return ((obs, mv_oh, cm_oh, logp_old, adv_n, ret, value),
+            (obs, mv_oh, cm_oh, lpo_c, adv_n, ret, v_c),
+            (obs, mv_oh, cm_oh, logp_old, value, adv_n, ret))
+
+
+def check_update_kernels(kind: str, trained: dict) -> dict:
+    """K6 (``kind`` "ppo") or K7 ("mappo") on every scenario: the trainer's
+    batch at TRAIN's width from the params of ``trained`` ({scenario:
+    (step, params)}, the main paths' trainers) or of a fresh trainer's
+    init, gated against the plain version there and on the clip-binding
+    batch; kernel, plain version and autograd of the trainer's loss timed
+    -> {scenario: (max abs err, ms, plain ms, library ms, bound)}."""
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+
+    build = build_fused_ppo_step if kind == "ppo" else build_fused_mappo_step
+    label = "K6" if kind == "ppo" else "K7"
+    rows = {}
+    for i, name in enumerate(ALL_SCENARIOS):
+        if name in trained:
+            step, params = trained[name]
+        else:
+            step = build(name, **TRAIN)
+            params = step.init_params(torch.Generator().manual_seed(20 + i))
+        batch, clipped, lib_batch = update_batches(step, params, f"{label} ({name})")
+        gated = ("vloss", "entropy")            # epoch 0: the pg mean is 0 up to rounding
+        err = max(check_update(f"{label} ({name}, trainer batch)", step.update, params, batch,
+                               gated),
+                  check_update(f"{label} ({name}, clip-binding batch)", step.update, params,
+                               clipped, ("pg",) + gated))
+        ms, _ = cuda_time(lambda: step.update(params, *batch), REPEATS)
+        plain_ms, _ = cuda_time(lambda: step.update.plain(params, *batch), REPEATS)
+        lib_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
+        a, ow, c, _, _ = widths(name)
+        t, n = batch[0].shape[0], batch[0].shape[3]
+        per_sample = ow + 5 + c + 1                   # obs, one-hots, logp_old
+        if kind == "ppo":
+            n_w = 64 * (ow + 64 + 6 + c) + 128 + 6 + c
+            bound = bound_ms(OPS[f"ppo_update_kernel[{name}]"], t * a * n, 0, 0,
+                             t * a * n * (per_sample + 3) * 4 + 2 * n_w * 4)
+        else:
+            n_w = 64 * (ow + 64 + 5 + c) + 133 + c + 64 * (a * ow + 64 + 1) + 129
+            bound = bound_ms(OPS[f"mappo_update_kernel[{name}]"], t * a * n, t * n, 0,
+                             t * a * n * per_sample * 4 + t * n * 3 * 4 + 2 * n_w * 4)
+        print(f"{label} ({name}) {ms:.4f} ms (one epoch, {t * a * n} policy samples), plain "
+              f"{plain_ms:.3f} ms, autograd of the trainer's loss {lib_ms:.3f} ms; bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor "
+              f"{bound[2]:.4f} ms")
+        rows[name] = (err, ms, plain_ms, lib_ms, bound)
+        del batch, clipped, lib_batch
+    return rows
+
+
+def policy_bounds(name: str, n_envs: int, n_steps: int, horizon: int) -> tuple[tuple, tuple]:
+    """(K5's, K4's) bound on ``name`` at n_envs x n_steps: K5 writes obs
+    [T,A,OW], act (and cact) [T,A] and rew [T,R] per env and last_obs; K4
+    writes ret [R], pos [E,2] and episodes per env; both read the weights
+    once."""
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    a, ow, c, _, r = widths(name)
+    e = kernel_scenario(name).spec.n_entities
+    w_bytes = (64 * (ow + 64 + 5 + c) + 128 + 5 + c) * 4
+    env_steps, resets = n_envs * n_steps, n_envs * (n_steps // horizon + 1)
+    out_floats = n_steps * (a * ow + a * (2 if c else 1) + r) + a * ow
+    return (bound_ms(OPS[f"policy_traj_kernel[{name}]"], env_steps, resets, n_envs,
+                     n_envs * out_floats * 4 + w_bytes),
+            bound_ms(OPS[f"policy_rollout_kernel[{name}]"], env_steps, resets, n_envs,
+                     n_envs * (r + 2 * e + 1) * 4 + w_bytes))
+
+
+def check_main_policy_shapes(k4_runs: dict, evals: dict, trainer_actors: dict):
+    """K4 at path c's shape on each actor it evaluated (``k4_runs`` and
+    ``evals`` of evaluation_path), its outputs held against the plain
+    version on the same actor and seed; K5 at the training shape (TRAIN,
+    horizon 32) with the actor of each trainer of ``trainer_actors``
+    ({scenario: actor}); kernels and plain versions timed -> ({scenario:
+    (K4 err, ms, plain ms, bound)}, {scenario: (K5 err, ms, plain ms,
+    bound)})."""
+    from mpe_tpu_torch.ops.fused_policy import fused_policy_trajectory
+
+    k4, k5 = {}, {}
+    for name, (run, ms, got) in k4_runs.items():
+        # one plain run: about 7 s at this shape
+        plain_ms, ref = cuda_time(lambda: run.plain(0, evals[name]), 1, warm_up=False)
+        print(f"K4 ({name}) at the evaluation shape: lanes with a return equal to plain "
+              f"{float((got[0] == ref[0]).double().mean()):.6f}")
+        err = check(f"K4 ({name}) at the evaluation shape ({N_ENVS} envs x {EVAL_STEPS} steps; "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms)",
+                    {k: max_err(x, y) for k, x, y in zip(("ret", "pos", "episodes"), got, ref)})
+        k4[name] = (err, ms, plain_ms, policy_bounds(name, N_ENVS, EVAL_STEPS, EVAL_HORIZON)[1])
+        del ref
+    for name, actor in trainer_actors.items():
+        traj = fused_policy_trajectory(name, actor, TRAIN["n_envs"], TRAIN["n_steps"],
+                                       horizon=TRAIN["horizon"], block_envs=TRAIN["block_envs"],
+                                       t_chunk=TRAIN["t_chunk"])
+        ms, got = cuda_time(lambda: traj(1, actor), REPEATS)
+        plain_ms, ref = cuda_time(lambda: traj.plain(1, actor), 1)
+        labels = ("obs", "act", "cact", "rew", "last_obs") if traj.has_comm else (
+            "obs", "act", "rew", "last_obs")
+        report_actions(f"K5 ({name}) at the training shape, moves", got[1], ref[1])
+        if traj.has_comm:
+            report_actions(f"K5 ({name}) at the training shape, comm", got[2], ref[2])
+        err = check(f"K5 ({name}) at the training shape ({TRAIN['n_envs']} envs x "
+                    f"{TRAIN['n_steps']} steps, horizon {TRAIN['horizon']}; kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.1f} ms)",
+                    {k: max_err(x, y) for k, x, y in zip(labels, got, ref)})
+        k5[name] = (err, ms, plain_ms, policy_bounds(name, TRAIN["n_envs"], TRAIN["n_steps"],
+                                                      TRAIN["horizon"])[0])
+        del got, ref
+    return k4, k5
+
+
+def check_policy_kernels(actors: dict) -> tuple[dict, dict]:
+    """K5 on every scenario at N_ENVS x POLICY_GATE and K4 on the eight other
+    than simple_spread at N_ENVS x EVAL_GATE_STEPS (horizon EVAL_HORIZON),
+    each with the actor of ``actors`` (the main paths' where they exist)
+    or an init_policy actor (He-scaled head, O(1) logits): moves and comm
+    indices equal, values within 1e-5; kernel and plain version timed ->
+    ({scenario: (K5 err, ms, plain ms, bound)}, {scenario: (K4 err, ms,
+    plain ms, bound)} without simple_spread, whose K4 is gated at path c's
+    shape)."""
+    import torch
+
+    from mpe_tpu_torch.learner import init_policy
+    from mpe_tpu_torch.ops.fused_policy import fused_policy_rollout, fused_policy_trajectory
+
+    k5, k4 = {}, {}
+    for i, name in enumerate(ALL_SCENARIOS):
+        _, ow, c, _, _ = widths(name)
+        actor = actors.get(name)
+        if actor is None:
+            actor = {k: {q: x.cuda() for q, x in layer.items()} for k, layer in
+                     init_policy(torch.Generator().manual_seed(30 + i), ow, 5 + c).items()}
+        traj = fused_policy_trajectory(name, actor, N_ENVS, **POLICY_GATE)
+        ms, got = cuda_time(lambda: traj(4, actor), REPEATS)
+        plain_ms, ref = cuda_time(lambda: traj.plain(4, actor), 1, warm_up=False)
+        labels = ("obs", "act", "cact", "rew", "last_obs") if c else ("obs", "act", "rew",
+                                                                      "last_obs")
+        report_actions(f"K5 ({name}, moves)", got[1], ref[1])
+        if c:
+            report_actions(f"K5 ({name}, comm)", got[2], ref[2])
+        steps = POLICY_GATE["n_steps"]
+        err = check(f"K5 ({name}, {N_ENVS} envs x {steps} steps, horizon "
+                    f"{POLICY_GATE['horizon']}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms)",
+                    {k: max_err(x, y) for k, x, y in zip(labels, got, ref)})
+        k5[name] = (err, ms, plain_ms,
+                    policy_bounds(name, N_ENVS, steps, POLICY_GATE["horizon"])[0])
+        del got, ref
+        if name == "simple_spread":
+            continue
+        run = fused_policy_rollout(name, actor, N_ENVS, EVAL_GATE_STEPS, horizon=EVAL_HORIZON,
+                                   block_envs=BLOCK_ENVS)
+        ms, got = cuda_time(lambda: run(6, actor), REPEATS)
+        plain_ms, ref = cuda_time(lambda: run.plain(6, actor), 1, warm_up=False)
+        err = check(f"K4 ({name}, {N_ENVS} envs x {EVAL_GATE_STEPS} steps; kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.1f} ms)",
+                    {k: max_err(x, y) for k, x, y in zip(("ret", "pos", "episodes"), got, ref)})
+        k4[name] = (err, ms, plain_ms,
+                    policy_bounds(name, N_ENVS, EVAL_GATE_STEPS, EVAL_HORIZON)[1])
+    return k5, k4
+
+
+def ptxas_registers(logs: dict) -> dict:
+    """{mangled kernel name: [registers, spill store bytes]} from the
+    compiler's -Xptxas -v report; the spills are the largest of the kernel's
+    and of the functions it calls (a __noinline__ sampler has its own
+    frame)."""
+    import re
+
+    out, current = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                current = m.group(1)
+                out[current] = [None, 0]
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and current is not None:
+                out[current][1] = max(out[current][1], int(m.group(1)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and current is not None:
+                out[current][0] = int(m.group(1))
+    return out
+
+
+def registers_of(regs: dict, kernel: str, name: str) -> list:
+    """[registers, spill bytes] of each entry of ``kernel`` instantiated for
+    scenario ``name`` (K4, K5: its struct, KernelX's XScn in
+    csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 128, 5, C>, K7
+    also the two critic instantiations <0, 128 or 64, 0, 0>), or []."""
+    import re
+
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    if kernel.startswith("policy"):
+        key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnE"
+    else:
+        _, ow, c, _, _ = widths(name)
+        flags = {"ppo": "ELb1ELb0E", "mappo": "ELb0ELb1E"}[kernel]
+        key = f"ppo_update_kernelILi{ow}ELi128ELi5ELi{c}{flags}"
+    hits = [v for k, v in regs.items()
+            if (kernel if kernel.startswith("policy") else "ppo_update_kernel") in k and key in k]
+    if kernel == "mappo":
+        hits += [v for k, v in regs.items()
+                 if re.search(r"ppo_update_kernelILi0ELi(128|64)ELi0ELi0ELb1ELb0E", k)]
+    return hits
 
 
 def replay_rows(obs, act, rew, obs2):
@@ -1214,6 +1474,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from mpe_tpu_torch import scenarios
+    from mpe_tpu_torch.convert import params_from_numpy, read_checkpoint_params
     from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
     from mpe_tpu_torch.ops import _build
     from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
@@ -1221,20 +1482,19 @@ def main() -> int:
     from mpe_tpu_torch.ops.fused_parity import (fused_det_rollout, plain_det_rollout_blocked,
                                                 spread_det_rollout_cuda)
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
-                                                spread_policy_rollout_cuda,
-                                                spread_policy_traj_cuda)
+                                                policy_rollout_cuda, policy_traj_cuda)
     from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
     from mpe_tpu_torch.ops.fused_trajectory import trajectory_cuda
-    from mpe_tpu_torch.ops.fused_update import (clip_binding_inputs, mappo_update_cuda,
-                                                ppo_update_cuda)
+    from mpe_tpu_torch.ops.fused_update import mappo_update_cuda, ppo_update_cuda
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
+    add_policy_ops()
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off (plain versions)"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build_all()
     for source in _build.SOURCES:
         _build.library(source)
@@ -1243,14 +1503,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {src}: {line.strip()}")
+    regs = ptxas_registers(logs)
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
     wrappers = {"scenario_rollout_kernel": rollout_cuda,
                 "trajectory_kernel": trajectory_cuda,
                 "spread_det_rollout_kernel": spread_det_rollout_cuda,
-                "spread_policy_traj_kernel": spread_policy_traj_cuda,
-                "spread_policy_rollout_kernel": spread_policy_rollout_cuda,
+                "policy_traj_kernel": policy_traj_cuda,
+                "policy_rollout_kernel": policy_rollout_cuda,
                 "ppo_update_kernel": ppo_update_cuda,
                 "mappo_update_kernel": mappo_update_cuda,
                 "spread_maddpg_traj_kernel": maddpg_traj_cuda,
@@ -1259,16 +1520,41 @@ def main() -> int:
     # ---- main paths ----------------------------------------------------------
     launches, k2_by, k2, k2_ms_at, k1_ms, det_inputs = rollout_path(wrappers, spec,
                                                                      torch.device("cuda"))
-    train_launches, step, state0, state = training_path(
-        wrappers, kscn, build_fused_ppo_step, "train", ["spread_policy_traj_kernel",
-                                                        "ppo_update_kernel"])
-    launches.update(train_launches)
-    mappo_launches, mstep, mstate0, mstate = training_path(
-        wrappers, kscn, build_fused_mappo_step, "MAPPO", ["spread_policy_traj_kernel",
-                                                          "mappo_update_kernel"])
-    launches["mappo_update_kernel"] = mappo_launches["mappo_update_kernel"]   # K5: path b's
-    eval_launches, k4, actor, k4_ms, k4_out = evaluation_path(wrappers, kscn, state[0])
+    # K5 runs in paths b, b2, b3 and b4; K6 in b and b3; K7 in b2 and b4. Each
+    # path's launches are read just after it, by instantiation where the
+    # kernel is a template over the scenarios
+    k5_by, k6_by, k7_by = {}, {}, {}
+    trainers = {}
+    for label, name, build, update in (("train", "simple_spread", build_fused_ppo_step, "ppo"),
+                                       ("MAPPO", "simple_spread", build_fused_mappo_step, "mappo"),
+                                       ("comm PPO", COMM_PPO, build_fused_ppo_step, "ppo"),
+                                       ("comm MAPPO", COMM_MAPPO, build_fused_mappo_step, "mappo")):
+        path_launches, step_, state0_, state_ = training_path(
+            wrappers, kernel_scenario(name), build, f"{label} ({name})",
+            ["policy_traj_kernel", f"{update}_update_kernel"])
+        by = read_instantiations(policy_traj_cuda, [name], f"{label} path's K5")
+        k5_by[name] = k5_by.get(name, 0) + by[name]
+        kb = k6_by if update == "ppo" else k7_by
+        kb[name] = kb.get(name, 0) + path_launches[f"{update}_update_kernel"]
+        for k, v in path_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        trainers[label] = (step_, state0_, state_)
+    step, state0, state = trainers["train"]
+    mstep, mstate0, mstate = trainers["MAPPO"]
+    cstep, _, cstate = trainers["comm PPO"]
+    lstep, _, lstate = trainers["comm MAPPO"]
+
+    def actor_of(params, torso=("l1", "l2")):
+        return {"l1": params[torso[0]], "l2": params[torso[1]], "out": params["pi"]}
+
+    ckpt = read_checkpoint_params(MAPPO_CKPT)
+    ckpt_actor = params_from_numpy({"l1": ckpt["a1"], "l2": ckpt["a2"], "out": ckpt["pi"]},
+                                   device="cuda")
+    evals = {"simple_spread": actor_of(state[0]), COMM_PPO: actor_of(cstate[0]),
+             COMM_MAPPO: ckpt_actor}
+    eval_launches, k4_by, k4_runs = evaluation_path(wrappers, evals)
     launches.update(eval_launches)
+    actor = evals["simple_spread"]
     maddpg_launches, run, mparams, minfo = maddpg_path(wrappers)
     launches.update(maddpg_launches)
     scn_launches, scn_by, k2_scn_ms, k3_ms = scenarios_path(wrappers, torch.device("cuda"))
@@ -1304,66 +1590,45 @@ def main() -> int:
     k5_err = check(f"K5 ({POLICY_CHECK_STEPS} steps, two block offsets)", errs5)
     k4_err = check(f"K4 ({POLICY_CHECK_STEPS} steps, two block offsets)", errs4)
 
-    # K6 on the trainer's batch (epoch 0: the ratio is 1 and the value clip
-    # idle, so the pg mean is 0 up to rounding and is not gated there), then
-    # on the same batch with logp_old and value moved so that both clips bind
-    params = state[0]
-    obs, mv_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
-    batch = (obs, mv_oh, None, logp_old, adv_n, ret, value)
-    lpo_c, v_c, shares = clip_binding_inputs(logp_old, value, clip=TRAIN["clip"],
-                                             generator=torch.Generator("cuda").manual_seed(11))
-    print(f"K6 clip-binding batch: the ratio clip binds for {shares[0]:.4f} of the samples, "
-          f"the value clip for {shares[1]:.4f}")
-    assert all(0.2 < s < 0.8 for s in shares), f"the clips bind for too few or too many: {shares}"
-    k6_err = max(check_update("K6 (trainer batch)", step.update, params, batch,
-                              ("vloss", "entropy")),
-                 check_update("K6 (clip-binding batch)", step.update, params,
-                              (obs, mv_oh, None, lpo_c, adv_n, ret, v_c),
-                              ("pg", "vloss", "entropy")))
+    for label, stp, st0 in (("trainer", step, state0), ("MAPPO", mstep, mstate0)):
+        (p_kernel, _), m_kernel = stp(st0, 7)
+        (p_plain, _), m_plain = stp.plain(st0, 7)
+        it_err = max(max_err(p_kernel[k][q], p_plain[k][q]) for k in p_kernel for q in p_kernel[k])
+        check(f"one {label} iteration (kernels vs plain)", {"params": it_err})
+        print(f"one {label} iteration, metrics kernels vs plain: "
+              + ", ".join(f"{k} {float(m_kernel[k]):.8g} vs {float(m_plain[k]):.8g}"
+                          for k in m_plain))
+        assert all(abs(float(m_kernel[k]) - float(m_plain[k]))
+                   <= METRIC_RTOL * abs(float(m_plain[k])) for k in m_plain), \
+            f"the {label} metrics disagree with the plain trainer's"
 
-    (p_kernel, _), m_kernel = step(state0, 7)
-    (p_plain, _), m_plain = step.plain(state0, 7)
-    it_err = max(max_err(p_kernel[k][q], p_plain[k][q]) for k in p_kernel for q in p_kernel[k])
-    check("one trainer iteration (kernels vs plain)", {"params": it_err})
-    print("one trainer iteration, metrics kernels vs plain: "
-          + ", ".join(f"{k} {float(m_kernel[k]):.8g} vs {float(m_plain[k]):.8g}" for k in m_plain))
-    assert all(abs(float(m_kernel[k]) - float(m_plain[k])) <= METRIC_RTOL * abs(float(m_plain[k]))
-               for k in m_plain), "the trainer's metrics disagree with the plain trainer's"
+    # K6 and K7 on every scenario (epoch 0: the ratio is 1 and the value clip
+    # idle, so the pg mean is 0 up to rounding and is not gated there; then
+    # with both clips binding), the main paths' trainers where they ran
+    k6_rows = check_update_kernels("ppo", {"simple_spread": (step, state[0]),
+                                           COMM_PPO: (cstep, cstate[0])})
+    k7_rows = check_update_kernels("mappo", {"simple_spread": (mstep, mstate[0]),
+                                             COMM_MAPPO: (lstep, lstate[0])})
+    # K5 and K4 on every scenario, the main paths' actors where they ran
+    trainer_actors = {"simple_spread": actor, COMM_PPO: evals[COMM_PPO],
+                      COMM_MAPPO: actor_of(lstate[0], ("a1", "a2"))}
+    k5_rows, k4_rows = check_policy_kernels(trainer_actors)
 
-    # ---- timing at the main paths' shapes, K5 and K4 checked there too ------
-    traj = fused_policy_trajectory(kscn, actor, TRAIN["n_envs"], TRAIN["n_steps"],
-                                   horizon=TRAIN["horizon"], block_envs=TRAIN["block_envs"],
-                                   t_chunk=TRAIN["t_chunk"])
-    k5_ms, got = cuda_time(lambda: traj(1, actor), REPEATS)
-    plain_k5_ms, ref = cuda_time(lambda: traj.plain(1, actor), 1)
-    report_actions("K5 at the training shape", got[1], ref[1])
-    k5_err = max(k5_err, check("K5 at the training shape",
-                               {k: max_err(a, b) for k, a, b in
-                                zip(("obs", "act", "rew", "last_obs"), got, ref)}))
-    plain_k4_ms, ref = cuda_time(lambda: k4.plain(0, actor), 1)
-    print(f"K4 at the evaluation shape: lanes with a return equal to plain "
-          f"{float((k4_out[0] == ref[0]).double().mean()):.6f}")
-    k4_err = max(k4_err, check("K4 at the evaluation shape",
-                               {k: max_err(a, b) for k, a, b in
-                                zip(("ret", "pos", "episodes"), k4_out, ref)}))
-    k6_ms, _ = cuda_time(lambda: step.update(params, *batch), REPEATS)
-    plain_k6_ms, _ = cuda_time(lambda: step.update.plain(params, *batch), REPEATS)
-    lib_batch = (obs, mv_oh, logp_old, value, adv_n, ret)
-    lib_k6_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
+    # ---- the main paths' shapes: K4 on every actor path c evaluated, K5 with
+    # every trainer's actor at the training shape; checked and timed there
+    k4_main, k5_main = check_main_policy_shapes(k4_runs, evals, trainer_actors)
+    k4_ms, plain_k4_ms = k4_main["simple_spread"][1:3]
+    k5_ms, plain_k5_ms = k5_main["simple_spread"][1:3]
     # the 10,000-step plain loops run once: one call is tens of seconds
     plain_k2_ms, _ = cuda_time(lambda: k2.plain(1), 1, warm_up=False)
     plain_k1 = plain_det_rollout_blocked("simple_spread", N_STEPS, BLOCK_ENVS)
     plain_k1_ms, _ = cuda_time(lambda: plain_k1(*det_inputs), 1, warm_up=False)
-    samples = obs.shape[0] * obs.shape[1] * obs.shape[3]
     print(f"kernels at the main paths' shapes: K5 {k5_ms:.4f} ms ({TRAIN['n_envs']} envs x "
-          f"{TRAIN['n_steps']} steps), K6 {k6_ms:.4f} ms (one epoch, {samples} samples), "
-          f"K4 {k4_ms:.4f} ms; medians of {REPEATS}")
+          f"{TRAIN['n_steps']} steps), K4 {k4_ms:.4f} ms; medians of {REPEATS}")
     print(f"plain versions on the card: K2 {plain_k2_ms:.1f} ms, K1 {plain_k1_ms:.1f} ms "
-          f"({N_ENVS} envs x {N_STEPS} steps); K5 {plain_k5_ms:.1f} ms, K6 {plain_k6_ms:.3f} ms, "
-          f"K4 {plain_k4_ms:.1f} ms; K6 by autograd of the trainer's loss {lib_k6_ms:.3f} ms")
+          f"({N_ENVS} envs x {N_STEPS} steps); K5 {plain_k5_ms:.1f} ms, K4 {plain_k4_ms:.1f} ms")
 
-    # ---- this slice's kernels: K7 (MAPPO), K8 and K9 (MADDPG) ---------------
-    k7_err, k7_ms, plain_k7_ms, lib_k7_ms, b7 = check_mappo(mstep, mstate0, mstate)
+    # ---- the MADDPG kernels (K8, K9) and the scenario kernels (K2, K3) ------
     k8_err, k8_ms, plain_k8_ms, b8 = check_maddpg_collect(run, mparams["actor"])
     k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9 = check_maddpg_update(run, mparams, minfo)
     profile_maddpg_update(run, mparams, minfo)
@@ -1372,12 +1637,12 @@ def main() -> int:
 
     # ---- bounds ---------------------------------------------------------------
     # bytes: K2 writes pos and vel (2 E P floats), the R reward sums and the
-    # obs sum per env (rollout_bytes); K3 its trajectory (traj_bytes); K1 reads pos0, vel0 and writes pos, vel, rew_sum, rew and obs [3,18];
-    # K5 writes obs [T,3,18], act [T,3] and rew [T,1] per env and last_obs;
-    # K4 writes ret, pos [6,2] and episodes per env; K6 reads obs [18], the
-    # one-hot move [5], logp_old, adv, ret and value per sample and writes the
-    # gradient; the policy kernels read their weights once (5,701 floats, K6
-    # 5,766)
+    # obs sum per env (rollout_bytes); K3 its trajectory (traj_bytes); K1 reads
+    # pos0, vel0 and writes pos, vel, rew_sum, rew and obs [3,18]; K5 writes
+    # obs [T,A,OW], act (and cact) [T,A] and rew [T,R] per env and last_obs;
+    # K4 writes ret [R], pos [E,2] and episodes per env; K6 and K7 read obs,
+    # the one-hots, logp_old, adv, ret and value per sample and write the
+    # gradient; every policy and update kernel reads its weights once
     for name, ops in OPS.items():
         print(f"{name}: operations needed per env-step {ops['step']}, per reset {ops['reset']}, "
               f"per env {ops['env']}")
@@ -1387,24 +1652,48 @@ def main() -> int:
                                (96 + 320) * N_ENVS)
     print(f"K1 bound at {N_ENVS} envs: {b1:.4f} ms by {by1} ({k1_ms / b1:.2f}x); "
           f"issue floor {issue1:.4f} ms ({k1_ms / issue1:.2f}x)")
-    ne, ns, nh = TRAIN["n_envs"], TRAIN["n_steps"], TRAIN["horizon"]
-    b5, by5, issue5 = bound_ms(OPS["spread_policy_traj_kernel"], ne * ns, ne * (ns // nh + 1), ne,
-                               ne * (ns * (3 * 18 + 3 + 1) + 3 * 18) * 4 + 5701 * 4)
-    b4, by4, issue4 = bound_ms(OPS["spread_policy_rollout_kernel"], N_ENVS * EVAL_STEPS,
-                               N_ENVS * (EVAL_STEPS // EVAL_HORIZON + 1), N_ENVS,
-                               N_ENVS * 14 * 4 + 5701 * 4)
-    b6, by6, issue6 = bound_ms(OPS["ppo_update_kernel"], samples, 0, 0,
-                               samples * 27 * 4 + 2 * 5766 * 4)
+    b5, by5, issue5 = k5_main["simple_spread"][3]
+    b4, by4, issue4 = k4_main["simple_spread"][3]
     k3_rows = template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms)
     b3 = (k3_rows["simple_spread"]["bound_ms"], k3_rows["simple_spread"]["bound_by"])
     print(f"plain versions on the card: K2 on {K2_LONG} ({N_ENVS} envs x {N_STEPS} steps) "
           f"{plain_k2_long_ms:.1f} ms; K3 at {N_ENVS} envs x {TRAJ['n_steps']} steps "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_k3_ms.items()))
     for label, ms, (b, by, issue) in (("K5", k5_ms, (b5, by5, issue5)),
-                                      ("K4", k4_ms, (b4, by4, issue4)),
-                                      ("K6", k6_ms, (b6, by6, issue6))):
-        print(f"{label} bound: {b:.4f} ms by {by} ({ms / b:.2f}x); issue floor {issue:.4f} ms "
-              f"({ms / issue:.2f}x)")
+                                      ("K4", k4_ms, (b4, by4, issue4))):
+        print(f"{label} bound, simple_spread at the main path's shape: {b:.4f} ms by {by} "
+              f"({ms / b:.2f}x); issue floor {issue:.4f} ms ({ms / issue:.2f}x)")
+
+    # K4-K7 by instantiation: the gates' shapes (K4 on simple_spread at path
+    # c's), the main paths' launches, the registers of each instantiation
+    def policy_row(name, kernel, err, ms, plain_ms, bound, launches_by, **extra):
+        return {"launches": launches_by.get(name, 0), "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "registers_spill_bytes": registers_of(regs, kernel, name), **extra}
+
+    def main_shape(err, ms, plain_ms, bound):
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+
+    # K5 rows at the gate's shape, with the training shape's numbers beside
+    # them where a trainer ran (its error folded into the row's); K4 rows at
+    # 4096 x 200, simple_spread's at path c's shape, with path c's numbers
+    # beside them where path c evaluated an actor
+    k5_scn = {n: policy_row(n, "policy_traj_kernel", *k5_rows[n], k5_by) for n in ALL_SCENARIOS}
+    k4_scn = {n: policy_row(n, "policy_rollout_kernel", *k4_rows[n], k4_by) for n in SCENARIOS}
+    k4_scn["simple_spread"] = policy_row("simple_spread", "policy_rollout_kernel", k4_err,
+                                         *k4_main["simple_spread"][1:], k4_by)
+    for rows, main_rows, key in ((k5_scn, k5_main, "training_shape"),
+                                 (k4_scn, k4_main, "evaluation_shape")):
+        for n, r in main_rows.items():
+            rows[n][key] = main_shape(*r)
+            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], r[0])
+    k6_scn = {n: policy_row(n, "ppo", e, ms, pms, b, k6_by, library_ms=lms)
+              for n, (e, ms, pms, lms, b) in k6_rows.items()}
+    k7_scn = {n: policy_row(n, "mappo", e, ms, pms, b, k7_by, library_ms=lms)
+              for n, (e, ms, pms, lms, b) in k7_rows.items()}
+    k5_err = max([k5_err] + [r["max_abs_err"] for r in k5_scn.values()])
+    k4_err = max(r["max_abs_err"] for r in k4_scn.values())
 
     def record(name, source, replaces, err, ms, plain_ms, bound, library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": f"mpe_tpu_torch/csrc/{source}",
@@ -1415,6 +1704,7 @@ def main() -> int:
     pair_physics = {"replaces": "mpe_tpu/ops/mxu_physics.py:152",
                     "source": "mpe_tpu_torch/csrc/scenario_blocks.cuh",
                     "scenarios": ["simple_tag", "simple_world_comm"]}
+    spread6, spread7 = k6_scn["simple_spread"], k7_scn["simple_spread"]
     kernels = [
         # K2, one template: its top-level numbers are simple_spread's at 4096
         # envs x 10000 steps (path a); by_scenario holds every instantiation
@@ -1431,20 +1721,33 @@ def main() -> int:
                pair_physics=pair_physics),
         record("spread_det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
                k1_err, k1_ms, plain_k1_ms, (b1, by1)),
-        record("spread_policy_traj_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:245",
-               k5_err, k5_ms, plain_k5_ms, (b5, by5)),
-        record("spread_policy_rollout_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:90",
-               k4_err, k4_ms, plain_k4_ms, (b4, by4)),
+        # K5's top-level numbers are simple_spread's at the training shape
+        # (horizon 32); by_scenario at the gate's (horizon 25)
+        record("policy_traj_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:245",
+               k5_err, k5_ms, plain_k5_ms, (b5, by5), scenarios=list(ALL_SCENARIOS),
+               timed_on="simple_spread", by_scenario=k5_scn),
+        # K4's top-level numbers are simple_spread's at the evaluation shape
+        record("policy_rollout_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:90",
+               k4_err, k4_ms, plain_k4_ms, (b4, by4), scenarios=list(ALL_SCENARIOS),
+               timed_on="simple_spread", by_scenario=k4_scn),
+        # K6 and K7: one epoch of the trainer's batch, simple_spread's at the top
         record("ppo_update_kernel", "mpe_update.cu", "mpe_tpu/ops/fused_update.py:188",
-               k6_err, k6_ms, plain_k6_ms, (b6, by6), lib_k6_ms),
+               max(r["max_abs_err"] for r in k6_scn.values()), spread6["ms"],
+               spread6["plain_ms"], (spread6["bound_ms"], spread6["bound_by"]),
+               spread6["library_ms"], scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
+               by_scenario=k6_scn),
         record("mappo_update_kernel", "mpe_update.cu", "mpe_tpu/ops/fused_update.py:245",
-               k7_err, k7_ms, plain_k7_ms, b7, lib_k7_ms),
+               max(r["max_abs_err"] for r in k7_scn.values()), spread7["ms"],
+               spread7["plain_ms"], (spread7["bound_ms"], spread7["bound_by"]),
+               spread7["library_ms"], scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
+               by_scenario=k7_scn),
         record("spread_maddpg_traj_kernel", "mpe_maddpg.cu", "mpe_tpu/ops/fused_maddpg.py:105",
                k8_err, k8_ms, plain_k8_ms, b8),
         record("maddpg_update_kernel", "mpe_maddpg.cu",
                "mpe_tpu/ops/fused_maddpg_update.py:142", k9_err, k9_ms, plain_k9_ms, b9,
                lib_k9_ms),
     ]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,6 +53,11 @@
 
 namespace {
 
+constexpr int OW = 18;                   // simple_spread obs width
+constexpr int K = MW;                    // move logits (spread has no comm head)
+using Actor = MlpLayout<OW, K>;          // one actor's packed weights
+constexpr int W1 = Actor::W1, B1 = Actor::B1, W2 = Actor::W2, B2 = Actor::B2, W3 = Actor::W3,
+              B3 = Actor::B3, NW = Actor::NW;
 constexpr int NWP = (NW + 3) / 4 * 4;    // an actor's padded stride (16-byte aligned rows)
 
 // ---- K8 ---------------------------------------------------------------------

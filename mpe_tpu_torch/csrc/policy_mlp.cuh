@@ -1,10 +1,11 @@
-// The actor MLP 18-64-64-5 shared by the policy kernels (mpe_policy.cu: K4, K5;
-// mpe_maddpg.cu: K8): one thread evaluates one agent's logits for one env lane.
-// Every layer sums over its inputs in order, starting from the first product,
-// then adds the bias, as the plain versions (ops/fused_policy.py::_seq_dense)
-// do; with -fmad=false each multiply and add rounds on its own, and tanhf is
-// the function PyTorch's CUDA tanh calls, so kernels and plain versions take
-// the same actions.
+// The actor MLP OW-64-64-KP shared by the policy kernels (mpe_policy.cu: K4, K5,
+// OW = the scenario's obs width, KP = 5 + dim_c logits when it speaks, else 5;
+// mpe_maddpg.cu: K8, 18-64-64-5): one thread evaluates one agent's logits for
+// one env lane. Every layer sums over its inputs in order, starting from the
+// first product, then adds the bias, as the plain versions
+// (ops/fused_policy.py::_seq_dense) do; with -fmad=false each multiply and add
+// rounds on its own, and tanhf is the function PyTorch's CUDA tanh calls, so
+// kernels and plain versions take the same actions.
 
 #pragma once
 
@@ -12,14 +13,16 @@
 
 namespace {
 
-constexpr int OW = 18;           // simple_spread obs width
 constexpr int H = 64;            // hidden width
-constexpr int K = MW;            // move logits (spread has no comm head)
+
 // packed weights of one actor, kernel layout (ops/fused_policy.py::_pack_weights):
-// w1 [H,OW], b1 [H], w2 [H,H], b2 [H], w3 [K,H], b3 [K]
-constexpr int W1 = 0, B1 = W1 + H * OW, W2 = B1 + H, B2 = W2 + H * H, W3 = B2 + H,
-              B3 = W3 + K * H, NW = B3 + K;
-static_assert(W2 % 4 == 0 && H % 4 == 0, "w2 rows are read as float4, four rows at a time");
+// w1 [H,OW], b1 [H], w2 [H,H], b2 [H], w3 [KP,H], b3 [KP]
+template <int OW, int KP>
+struct MlpLayout {
+  static constexpr int W1 = 0, B1 = W1 + H * OW, W2 = B1 + H, B2 = W2 + H * H, W3 = B2 + H,
+                       B3 = W3 + KP * H, NW = B3 + KP;
+  static_assert(W2 % 4 == 0 && H % 4 == 0, "w2 rows are read as float4, four rows at a time");
+};
 
 // four rows g..g+3 of w2 against h, each summed over its 64 inputs in order
 // from the first product; the rows are independent chains, interleaved for
@@ -43,35 +46,37 @@ __device__ __forceinline__ void dot64x4(const float* __restrict__ rows, const fl
 // the logits z = w3 tanh(w2 tanh(w1 x + b1) + b2) + b3 of the actor at `w`
 // (16-byte aligned); h1 stays in registers, the second layer is streamed four
 // units at a time into the logit sums, which run over the units in order
+template <int OW, int KP>
 __device__ __forceinline__ void policy_logits(const float* __restrict__ w, const float (&x)[OW],
-                                              float (&z)[K]) {
+                                              float (&z)[KP]) {
+  using M = MlpLayout<OW, KP>;
   float h1[H];
 #pragma unroll
   for (int g = 0; g < H; ++g) {
-    const float* row = w + W1 + g * OW;
+    const float* row = w + M::W1 + g * OW;
     float acc = row[0] * x[0];
 #pragma unroll
     for (int k = 1; k < OW; ++k) acc = acc + row[k] * x[k];
-    h1[g] = tanhf(acc + w[B1 + g]);
+    h1[g] = tanhf(acc + w[M::B1 + g]);
   }
 #pragma unroll
-  for (int c = 0; c < K; ++c) z[c] = 0.0f;
+  for (int c = 0; c < KP; ++c) z[c] = 0.0f;
 #pragma unroll 1
   for (int g = 0; g < H; g += 4) {
     float acc[4];
-    dot64x4(w + W2 + g * H, h1, acc);
+    dot64x4(w + M::W2 + g * H, h1, acc);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float h2 = tanhf(acc[j] + w[B2 + g + j]);
+      const float h2 = tanhf(acc[j] + w[M::B2 + g + j]);
 #pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const float p = w[W3 + c * H + g + j] * h2;
+      for (int c = 0; c < KP; ++c) {
+        const float p = w[M::W3 + c * H + g + j] * h2;
         z[c] = (g + j == 0) ? p : z[c] + p;
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < K; ++c) z[c] = z[c] + w[B3 + c];
+  for (int c = 0; c < KP; ++c) z[c] = z[c] + w[M::B3 + c];
 }
 
 // the Gumbel score of logit z at U[0, 1) draw u: z - log(-log(u + 1e-12) + 1e-12)

@@ -8,15 +8,21 @@ same with a centralized critic on the joint obs, GAE over the team reward
 1. collection: kernel K5 (``ops/fused_policy.fused_policy_trajectory``)
    runs the actor inside the env loop and emits the on-policy batch
    env-minor: obs the policy acted on ``[T, A, OW, N]``, move indices
-   ``[T, A, N]``, rewards ``[T, R, N]`` and the bootstrap obs;
-2. prep: one batched forward of the actor-critic over the batch recomputes
-   the rollout-time log-probs and values (a matmul, as the JAX package
-   leaves it to an XLA einsum), then GAE runs as a reverse loop over T;
-   done flags are the deterministic ``(t + 1) % horizon == 0``;
+   ``[T, A, N]``, comm indices ``[T, A, N]`` where the scenario speaks,
+   rewards ``[T, R, N]`` and the bootstrap obs;
+2. prep: the move and comm one-hots, then one batched forward of the
+   actor-critic over the batch recomputes the rollout-time log-probs and
+   values (a matmul, as the JAX package leaves it to an XLA einsum), then
+   GAE runs as a reverse loop over T; done flags are the deterministic
+   ``(t + 1) % horizon == 0``;
 3. ``ppo_epochs`` epochs, each the gradient of kernel K6
    (``ops/fused_update.fused_ppo_update``; with ``fused_update=False``,
    autograd of the same loss) followed by the clip + Adam step of
    ``learner/optim.py``.
+
+The policy is a factored categorical (move x comm): the surrogate treats
+the two heads as independent, with a silent agent's comm factor masked out
+(its utterance is forced to zero, so no gradient flows through it).
 
 Everything computes in float32 on the card. The JAX package picks bf16 on
 a TPU for its matrix unit; the port does not. TF32 stays off on this path,
@@ -35,7 +41,7 @@ from mpe_tpu_torch._device import resolve_device
 from mpe_tpu_torch.learner.optim import apply_updates, clip_adam, linear_schedule, tree_map
 from mpe_tpu_torch.learner.ppo import init_ac, init_mappo
 from mpe_tpu_torch.ops.fused_policy import _resolve, fused_policy_trajectory
-from mpe_tpu_torch.ops.fused_update import fused_mappo_update, fused_ppo_update
+from mpe_tpu_torch.ops.fused_update import fused_mappo_update, fused_ppo_update, speak_mask
 
 
 @contextlib.contextmanager
@@ -60,19 +66,34 @@ def _head_minor(head, h):
     return torch.einsum("...gn,gk->...kn", h, head["w"]) + head["b"][:, None]
 
 
-def _factored_onehots(kscn, act):
-    """Move indices [..., A, N] -> one-hots [..., A, 5, N]; the comm factor
-    waits for the comm scenarios."""
-    mw = 2 * kscn.spec.dim_p + 1
-    return torch.nn.functional.one_hot(act.long(), mw).movedim(-1, -2).to(torch.float32)
+def _factored_onehots(kscn, act, cact, dtype=torch.float32):
+    """Index tensors [..., A, N] -> (move one-hots [..., A, 5, N], comm
+    one-hots [..., A, C, N] or None without a comm head), contiguous, in
+    ``dtype``."""
+    mw, dim_c = kscn.n_moves, kscn.n_comm
+
+    def onehot(idx, k):
+        return torch.nn.functional.one_hot(idx.long(), k).movedim(-1, -2).to(dtype).contiguous()
+
+    return onehot(act, mw), onehot(cact, dim_c) if dim_c else None
 
 
-def _factored_logp_ent(kscn, logits, mv_oh):
-    """Logits [..., A, 5, N] and one-hot moves -> (logp, entropy) [..., A, N]."""
-    mw = 2 * kscn.spec.dim_p + 1
-    ls = torch.log_softmax(logits[..., :mw, :], dim=-2)
-    lp = (ls * mv_oh).sum(-2)
-    ent = -(torch.softmax(logits[..., :mw, :], dim=-2) * ls).sum(-2)
+def _factored_logp_ent(kscn, logits, mv_oh, cm_oh):
+    """Logits [..., A, 5 + C, N] and the one-hot actions -> (logp, entropy)
+    [..., A, N] of the factored categorical, the comm factor masked for
+    silent agents."""
+    mw, dim_c = kscn.n_moves, kscn.n_comm
+
+    def one(lg, oh):
+        ls = torch.log_softmax(lg, dim=-2)
+        return (ls * oh).sum(-2), -(torch.softmax(lg, dim=-2) * ls).sum(-2)
+
+    lp, ent = one(logits[..., :mw, :], mv_oh)
+    if dim_c:
+        clp, cent = one(logits[..., mw:, :], cm_oh)
+        speak = speak_mask(kscn.speak, logits)[..., 0]       # [A, 1]
+        lp = lp + clp * speak
+        ent = ent + cent * speak
     return lp, ent
 
 
@@ -117,36 +138,40 @@ def _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update, *, ppo_
     ``events`` to get a CUDA event after each phase ("collect", "prep",
     then "update" and "optimizer" per epoch), recorded on the current
     stream. ``step.collect(params, seed)`` returns the epoch inputs
-    ``(obs, mv_oh, logp_old, value, adv_n, ret)``, ``step.update`` is the
-    epoch gradient (K6's builder) and ``step.loss_fn(params, (obs, mv_oh,
-    logp_old, value, adv, ret)) -> (loss, (pg, vloss, ent))`` the loss it
-    differentiates."""
+    ``(obs, mv_oh, cm_oh, logp_old, value, adv_n, ret)`` (``cm_oh`` None
+    without a comm head), ``step.update`` is the epoch gradient (K6's
+    builder) and ``step.loss_fn(params, (obs, mv_oh, cm_oh, logp_old, value,
+    adv, ret)) -> (loss, (pg, vloss, ent))`` the loss it differentiates."""
 
     def collect(params, seed, events=None):
-        obs, act, rew, last_obs = traj(int(seed), actor(params), 0)
+        outs = traj(int(seed), actor(params), 0)
+        if kscn.uses_comm:
+            obs, act, cact, rew, last_obs = outs
+        else:
+            (obs, act, rew, last_obs), cact = outs, None
         _mark(events, "collect")
-        obs, mv_oh, logp_old, value, adv, ret = prep(params, obs, act, rew, last_obs)
+        obs, mv_oh, cm_oh, logp_old, value, adv, ret = prep(params, obs, act, cact, rew, last_obs)
         # population std, as jnp.std: adv is constant across epochs
         adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-        return (obs, mv_oh, logp_old, value, adv_n, ret), (adv, rew)
+        return (obs, mv_oh, cm_oh, logp_old, value, adv_n, ret), (adv, rew)
 
     def step(state, seed, events=None):
         params, opt_state = state
         with _full_f32_matmul(), torch.no_grad():
             _mark(events, "start")
             batch, (adv, rew) = collect(params, seed, events)
-            obs, mv_oh, logp_old, value, adv_n, ret = batch
+            obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = batch
             _mark(events, "prep")
             for _ in range(ppo_epochs):
                 if fused_update:
-                    grads, (pg, vl, ent) = kernel_update(params, obs, mv_oh, None, logp_old,
+                    grads, (pg, vl, ent) = kernel_update(params, obs, mv_oh, cm_oh, logp_old,
                                                          adv_n, ret, value)
                     loss = pg + vf_coef * vl - ent_coef * ent
                 else:
                     with torch.enable_grad():
                         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-                        loss, (pg, vl, ent) = loss_fn(leaves, (obs, mv_oh, logp_old, value, adv,
-                                                               ret))
+                        loss, (pg, vl, ent) = loss_fn(leaves, (obs, mv_oh, cm_oh, logp_old, value,
+                                                               adv, ret))
                         flat = [leaves[k][q] for k in leaves for q in leaves[k]]
                         g = iter(torch.autograd.grad(loss, flat))
                         grads = tree_map(lambda _: next(g), leaves)
@@ -195,18 +220,18 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
     against them)."""
     kscn = _resolve(scenario)
     device = resolve_device(device)
-    mw = 2 * kscn.spec.dim_p + 1
+    n_logits = kscn.n_logits
     sched = linear_schedule(lr, 0.0, anneal_iters * ppo_epochs) if anneal_iters else lr
     opt = clip_adam(sched, max_norm=0.5)
 
     def init_params(generator):
-        params = init_ac(generator, kscn.obs_w, mw, hidden=hidden, dtype=dtype)
+        params = init_ac(generator, kscn.obs_w, n_logits, hidden=hidden, dtype=dtype)
         return tree_map(lambda x: x.to(device), params)
 
     def actor(p):
         return {"l1": p["l1"], "l2": p["l2"], "out": p["pi"]}
 
-    tmpl = init_ac(torch.Generator().manual_seed(0), kscn.obs_w, mw, hidden=hidden)
+    tmpl = init_ac(torch.Generator().manual_seed(0), kscn.obs_w, n_logits, hidden=hidden)
     traj = fused_policy_trajectory(kscn, actor(tmpl), n_envs, n_steps, horizon=horizon,
                                    block_envs=block_envs, t_chunk=t_chunk, device=device)
     kernel_update = fused_ppo_update(kscn, n_envs, n_steps, hidden, clip=clip, vf_coef=vf_coef,
@@ -220,9 +245,9 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
         return _head_minor(params["pi"], h), _head_minor(params["v"], h)[..., 0, :]
 
     def loss_fn(params, batch):
-        obs, mv_oh, logp_old, value_old, adv, ret = batch
+        obs, mv_oh, cm_oh, logp_old, value_old, adv, ret = batch
         logits, value = forward(params, obs)
-        logp, ent = _factored_logp_ent(kscn, logits, mv_oh)
+        logp, ent = _factored_logp_ent(kscn, logits, mv_oh, cm_oh)
         ratio = torch.exp(logp - logp_old)
         adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
         pg = -torch.minimum(ratio * adv_n, torch.clamp(ratio, 1 - clip, 1 + clip) * adv_n).mean()
@@ -230,16 +255,16 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
         vloss = torch.maximum((value - ret).square(), (v_clip - ret).square()).mean()
         return pg + vf_coef * vloss - ent_coef * ent.mean(), (pg, vloss, ent.mean())
 
-    def prep(params, obs, act, rew, last_obs):
+    def prep(params, obs, act, cact, rew, last_obs):
         """Per-agent values from the shared torso; GAE over per-agent rewards."""
-        mv_oh = _factored_onehots(kscn, act).to(dtype).contiguous()
+        mv_oh, cm_oh = _factored_onehots(kscn, act, cact, dtype)
         logits, value = forward(params, obs)
         value = value.contiguous()
-        logp_old, _ = _factored_logp_ent(kscn, logits, mv_oh)
+        logp_old, _ = _factored_logp_ent(kscn, logits, mv_oh, cm_oh)
         _, last_value = forward(params, last_obs)
         adv, ret = _gae_minor(value, _agent_rewards(kscn, rew).to(dtype), nonterm_t, last_value,
                               gamma, lam)
-        return obs.to(dtype), mv_oh, logp_old, value, adv, ret
+        return obs.to(dtype), mv_oh, cm_oh, logp_old, value, adv, ret
 
     def trainer(traj, kernel_update):
         return _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update,
@@ -271,18 +296,18 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
     kscn = _resolve(scenario)
     device = resolve_device(device)
     a, ow = kscn.spec.n_agents, kscn.obs_w
-    mw = 2 * kscn.spec.dim_p + 1
+    n_logits = kscn.n_logits
     sched = linear_schedule(lr, 0.0, anneal_iters * ppo_epochs) if anneal_iters else lr
     opt = clip_adam(sched, max_norm=0.5)
 
     def init_params(generator):
-        params = init_mappo(generator, ow, mw, a, hidden=hidden, dtype=dtype)
+        params = init_mappo(generator, ow, n_logits, a, hidden=hidden, dtype=dtype)
         return tree_map(lambda x: x.to(device), params)
 
     def actor(p):
         return {"l1": p["a1"], "l2": p["a2"], "out": p["pi"]}
 
-    tmpl = init_mappo(torch.Generator().manual_seed(0), ow, mw, a, hidden=hidden)
+    tmpl = init_mappo(torch.Generator().manual_seed(0), ow, n_logits, a, hidden=hidden)
     traj = fused_policy_trajectory(kscn, actor(tmpl), n_envs, n_steps, horizon=horizon,
                                    block_envs=block_envs, t_chunk=t_chunk, device=device)
     kernel_update = fused_mappo_update(kscn, n_envs, n_steps, hidden, clip=clip,
@@ -301,8 +326,8 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
         return _head_minor(params["v"], h)[..., 0, :]
 
     def loss_fn(params, batch):
-        obs, mv_oh, logp_old, value_old, adv, ret = batch
-        logp, ent = _factored_logp_ent(kscn, actor_logits(params, obs), mv_oh)
+        obs, mv_oh, cm_oh, logp_old, value_old, adv, ret = batch
+        logp, ent = _factored_logp_ent(kscn, actor_logits(params, obs), mv_oh, cm_oh)
         value = central_value(params, obs)
         ratio = torch.exp(logp - logp_old)
         adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
@@ -312,16 +337,16 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
         vloss = torch.maximum((value - ret).square(), (v_clip - ret).square()).mean()
         return pg + vf_coef * vloss - ent_coef * ent.mean(), (pg, vloss, ent.mean())
 
-    def prep(params, obs, act, rew, last_obs):
+    def prep(params, obs, act, cact, rew, last_obs):
         """Centralized value on the joint obs [T, N]; GAE over the team
         reward (the mean across agents)."""
-        mv_oh = _factored_onehots(kscn, act).to(dtype).contiguous()
-        logp_old, _ = _factored_logp_ent(kscn, actor_logits(params, obs), mv_oh)
+        mv_oh, cm_oh = _factored_onehots(kscn, act, cact, dtype)
+        logp_old, _ = _factored_logp_ent(kscn, actor_logits(params, obs), mv_oh, cm_oh)
         value = central_value(params, obs).contiguous()
         last_value = central_value(params, last_obs)
         team_rew = _agent_rewards(kscn, rew).to(dtype).mean(-2)
         adv, ret = _gae_minor(value, team_rew, nonterm_t, last_value, gamma, lam)
-        return obs.to(dtype), mv_oh, logp_old, value, adv, ret
+        return obs.to(dtype), mv_oh, cm_oh, logp_old, value, adv, ret
 
     def trainer(traj, kernel_update):
         return _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update,

@@ -89,14 +89,13 @@ SIGNATURES = {
         "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _P],
     },
     "mpe_policy.cu": {
-        "mpe_spread_policy_traj_a3l3": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
-        "mpe_spread_policy_rollout_a3l3": [_P] * 5 + [_I] * 4 + [_U, _U, _P],
+        "mpe_policy_traj": [_I] + [_P] * 7 + [_I] * 5 + [_U, _U, _P],
+        "mpe_policy_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _P],
     },
     "mpe_update.cu": {
-        "mpe_ppo_update_h64": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_P],
-        "mpe_ppo_update_packed_size": [],
-        "mpe_mappo_update_h64": [_P] * 10 + [_I] * 4 + [_F] * 7 + [_P],
-        "mpe_mappo_update_packed_size": [_I],
+        "mpe_ppo_update": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P],
+        "mpe_mappo_update": [_I] * 2 + [_P] * 11 + [_I] * 5 + [_F] * 7 + [_P],
+        "mpe_update_packed_size": [_I] * 2,
     },
     "mpe_maddpg.cu": {
         "mpe_spread_maddpg_traj_a3l3": [_P] * 7 + [_I] * 5 + [_F, _U, _U, _P],
@@ -108,8 +107,8 @@ SIGNATURES = {
     },
 }
 
-# the scenario argument of mpe_scenario_rollout and mpe_trajectory
-# (csrc/scenario_blocks.cuh): kernel-scenario class -> id
+# the scenario argument of mpe_scenario_rollout, mpe_trajectory, mpe_policy_traj
+# and mpe_policy_rollout (csrc/scenario_blocks.cuh): kernel-scenario class -> id
 SCENARIO_IDS = {"KernelSpread": 0, "KernelSimple": 1, "KernelReference": 2,
                 "KernelSpeakerListener": 3, "KernelAdversary": 4, "KernelPush": 5,
                 "KernelCrypto": 6, "KernelTag": 7, "KernelWorldComm": 8}
@@ -292,7 +291,8 @@ def scenario_params(kscn):
 
 def kernel_params(kscn):
     """``(scenario id, constants)`` of a kernel scenario for K2
-    (``mpe_scenario_rollout``) and K3 (``mpe_trajectory``)."""
+    (``mpe_scenario_rollout``), K3 (``mpe_trajectory``), K4
+    (``mpe_policy_rollout``) and K5 (``mpe_policy_traj``)."""
     kind = type(kscn).__name__
     if kind not in SCENARIO_IDS:
         raise NotImplementedError(f"no CUDA instantiation for {kind} ({kscn.spec.name!r}); "

@@ -25,7 +25,7 @@ salt, as in K5: agent i draws on call ids ``28 + 6i`` (the Gumbel draw of
 plain version and JAX interpret mode draw the same bits. Each layer of the
 plain MLP sums in the kernel's order (``_seq_dense_agents``), so the
 two take the same actions on the card. Only move-only scenarios are ported:
-the comm head waits for ROADMAP B3.
+the comm head waits for ROADMAP B10.
 """
 
 from __future__ import annotations
@@ -35,8 +35,19 @@ import ctypes
 import torch
 
 from mpe_tpu_torch._device import resolve_device
-from mpe_tpu_torch.ops.fused_policy import HIDDEN, MOVES, OBS_W, _gumbel_onehot, _resolve
+from mpe_tpu_torch.ops import fused_policy
+from mpe_tpu_torch.ops.fused_policy import HIDDEN, _gumbel_onehot
 from mpe_tpu_torch.ops.fused_rollout import _MASK, make_lane_reset, make_uniform, pick_block_envs
+
+OBS_W, MOVES = 18, 5                 # the widths the CUDA kernel is built for
+
+
+def _resolve(scenario):
+    kscn = fused_policy._resolve(scenario)
+    if kscn.uses_comm:
+        raise NotImplementedError(f"{kscn.spec.name!r} has a comm head; the MADDPG collection is "
+                                  "ported for move-only scenarios")
+    return kscn
 
 
 def _kernel_weights(actor_params, device=None):

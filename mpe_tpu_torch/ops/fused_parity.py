@@ -83,7 +83,7 @@ def det_input_shapes(kscn, n_envs: int):
     """Input shapes (width-1 dummies where a scenario has no comm/goals)."""
     spec = kscn.spec
     a, e, p = spec.n_agents, spec.n_entities, spec.dim_p
-    dim_c = spec.dim_c if kscn.uses_comm else 0
+    dim_c = kscn.n_comm
     n_goals = len(tuple(kscn.goal_choices or ()))
     return ((e, p, n_envs), (e, p, n_envs), (a, max(dim_c, 1), n_envs), (max(n_goals, 1), n_envs))
 

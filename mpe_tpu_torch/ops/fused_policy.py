@@ -1,34 +1,38 @@
 """Policy-in-the-loop fused rollouts: kernels K4 and K5 and their plain
-PyTorch versions (counterpart of ``mpe_tpu/ops/fused_policy.py``).
+PyTorch versions (counterpart of ``mpe_tpu/ops/fused_policy.py``), for the
+nine kernel scenarios.
 
 The shared 2-hidden-layer tanh MLP (``learner.pg.init_policy`` layout, or
-the actor of ``init_ac``) runs on every agent's observation, a move is
-sampled by Gumbel-max over its logits, and the env steps with per-lane
-auto-reset at the horizon:
+the actor of ``init_ac``) runs on every agent's observation; a move is
+sampled by Gumbel-max over its 5 move logits and, where the scenario has a
+comm head (``5 + dim_c`` outputs), an utterance by Gumbel-max over the
+``dim_c`` comm logits, zeroed for a silent agent. The env steps with the
+utterances and resets each lane at the horizon:
 
-- ``fused_policy_trajectory`` (K5, ``spread_policy_traj_kernel``) streams
-  the on-policy batch: the obs each agent acted on ``[T, A, OW, N]``, the
-  move indices ``[T, A, N]`` int32, the rewards ``[T, R, N]`` and the
+- ``fused_policy_trajectory`` (K5, ``policy_traj_kernel<S>``) streams the
+  on-policy batch: the obs each agent acted on ``[T, A, OW, N]``, the move
+  indices ``[T, A, N]`` int32, the comm indices ``[T, A, N]`` int32 (comm
+  scenarios only; 0 for a silent agent), the rewards ``[T, R, N]`` and the
   bootstrap obs ``[A, OW, N]``;
-- ``fused_policy_rollout`` (K4, ``spread_policy_rollout_kernel``) evaluates
-  a policy: per-lane returns ``[R, N]``, final positions ``[E, P, N]`` and
-  completed episodes ``[1, N]``.
+- ``fused_policy_rollout`` (K4, ``policy_rollout_kernel<S>``) evaluates a
+  policy: per-lane returns of every reward row ``[R, N]``, final positions
+  ``[E, P, N]`` and completed episodes ``[1, N]``.
 
-On a CUDA device the builders launch the kernels in
-``csrc/mpe_policy.cu``; on the CPU they run the plain versions. The RNG is
-the JAX kernels' interpret-mode hash stream (``fused_rollout.make_uniform``);
-K5 salts it with the time-chunk index, so ``t_chunk`` is part of its
+On a CUDA device the builders launch the kernels in ``csrc/mpe_policy.cu``
+(one template over ``csrc/scenario_blocks.cuh``, one C entry each); on the
+CPU they run the plain versions. The RNG is the JAX kernels' interpret-mode
+hash stream (``fused_rollout.make_uniform``): moves on call id 7, comm on
+id 9; K5 salts it with the time-chunk index, so ``t_chunk`` is part of its
 definition. Each layer of the plain MLP sums over its inputs in order and
 then adds the bias (``_seq_dense``), the order the kernels use: Gumbel-max
 turns a one-ulp change in a logit into another action, so the kernel and its
-plain version are held to equal actions on the card.
-
-Only scenarios without a comm head are ported (simple_spread); the comm
-draws on call id 9 wait for the comm scenarios (ROADMAP B3).
+plain version are held to equal actions on the card. The kernels take
+hidden width 64 only.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -37,7 +41,7 @@ from mpe_tpu_torch._device import resolve_device
 from mpe_tpu_torch.ops.fused_rollout import (_MASK, make_lane_reset, make_uniform,
                                              pick_block_envs)
 
-HIDDEN, OBS_W, MOVES = 64, 18, 5     # the widths the CUDA kernels are built for
+HIDDEN = 64                          # the hidden width the CUDA kernels are built for
 
 
 def _argmax_onehot(z, dim: int = 0):
@@ -69,16 +73,25 @@ def _seq_dense(w, b, x):
 
 
 def _policy_sample(kscn, weights, obs, uniform, step: int):
-    """obs [A, OW, N] -> move one-hots [A, 5, N]: MLP, then Gumbel-max with
-    ``uniform((5, A*nb), step, 7)`` of the JAX kernel, whose element (row r,
-    agent i, lane l) has hash index ``r*A*nb + i*nb + l``."""
+    """obs [A, OW, N] -> (move one-hots [A, 5, N], comm one-hots [A, C, N]
+    or None): MLP, then Gumbel-max with ``uniform((5, A*nb), step, 7)`` of the
+    JAX kernel, whose element (row r, agent i, lane l) has hash index
+    ``r*A*nb + i*nb + l``, and with a comm head over the comm logits with
+    ``uniform((C, A*nb), step, 9)``, silent agents' rows zeroed."""
     w1, b1, w2, b2, w3, b3 = weights
-    mw = 2 * kscn.spec.dim_p + 1
+    spec = kscn.spec
+    a, mw, dim_c = spec.n_agents, kscn.n_moves, kscn.n_comm
     h = torch.tanh(_seq_dense(w1, b1, obs))
     h = torch.tanh(_seq_dense(w2, b2, h))
-    logits = _seq_dense(w3, b3, h)                                   # [A, 5, N]
-    u = uniform((mw, kscn.spec.n_agents), step, 7).transpose(0, 1)   # [A, 5, N]
-    return _gumbel_onehot(logits[:, :mw], u, dim=1)
+    logits = _seq_dense(w3, b3, h)                                   # [A, 5 + C, N]
+    u = uniform((mw, a), step, 7).transpose(0, 1)                    # [A, 5, N]
+    move = _gumbel_onehot(logits[:, :mw], u, dim=1)
+    if not dim_c:
+        return move, None
+    uc = uniform((dim_c, a), step, 9).transpose(0, 1)                # [A, C, N]
+    comm = _gumbel_onehot(logits[:, mw:], uc, dim=1)
+    return move, torch.stack([comm[i] if speaks else torch.zeros_like(comm[i])
+                              for i, speaks in enumerate(kscn.speak)])
 
 
 def _onehot_index(onehot):
@@ -110,23 +123,17 @@ def _resolve(scenario):
     from mpe_tpu_torch.ops.kernel_scenarios import KernelScenario, KernelSpread, kernel_scenario
 
     if isinstance(scenario, KernelScenario):
-        kscn = scenario
-    elif isinstance(scenario, ScenarioSpec):
-        kscn = KernelSpread(scenario)
-    else:
-        kscn = kernel_scenario(scenario)
-    if kscn.uses_comm:
-        raise NotImplementedError(f"{kscn.spec.name!r} has a comm head; the policy kernels are "
-                                  "ported for move-only scenarios (ROADMAP B3)")
-    return kscn
+        return scenario
+    if isinstance(scenario, ScenarioSpec):
+        return KernelSpread(scenario)
+    return kernel_scenario(scenario)
 
 
 def _check_widths(kscn, params):
     w_in, w_out = params["l1"]["w"].shape[0], params["out"]["w"].shape[1]
-    mw = 2 * kscn.spec.dim_p + 1
-    if (w_in, w_out) != (kscn.obs_w, mw):
+    if (w_in, w_out) != (kscn.obs_w, kscn.n_logits):
         raise ValueError(f"policy maps {w_in} -> {w_out}; {kscn.spec.name!r} needs "
-                         f"{kscn.obs_w} -> {mw}")
+                         f"{kscn.obs_w} -> {kscn.n_logits}")
 
 
 # ---------------------------------------------------------------------------
@@ -136,15 +143,16 @@ def _check_widths(kscn, params):
 def plain_policy_trajectory(kscn, weights, n_envs: int, n_steps: int, horizon: int,
                             block_envs: int, t_chunk: int, seed: int, block_offset: int = 0,
                             device=None):
-    """The JAX ``_policy_traj_kernel`` over all RNG blocks at once ->
-    (obs [T, A, OW, N], act [T, A, N] int32, rew [T, R, N], last_obs
-    [A, OW, N]). Every lane starts at t = 0 and resets on the shared
-    horizon, so one step counter serves all lanes."""
+    """The JAX ``_policy_traj_kernel`` over all RNG blocks at once -> (obs
+    [T, A, OW, N], act [T, A, N] int32, [cact [T, A, N] int32 with a comm
+    head,] rew [T, R, N], last_obs [A, OW, N]). Every lane starts at t = 0
+    and resets on the shared horizon, so one step counter serves all lanes."""
     spec = kscn.spec
     a, n_blocks = spec.n_agents, n_envs // block_envs
     f32 = torch.float32
     obs_out = torch.empty((n_steps, a, kscn.obs_w, n_envs), dtype=f32, device=device)
     act_out = torch.empty((n_steps, a, n_envs), dtype=torch.int32, device=device)
+    cact_out = torch.empty_like(act_out) if kscn.uses_comm else None
     rew_out = torch.empty((n_steps, kscn.reward_rows, n_envs), dtype=f32, device=device)
     t = 0
     for chunk in range(n_steps // t_chunk):
@@ -154,17 +162,21 @@ def plain_policy_trajectory(kscn, weights, n_envs: int, n_steps: int, horizon: i
             pos, vel, obs, goal, _ = init()
         for step in range(t_chunk):
             ts = chunk * t_chunk + step
-            move = _policy_sample(kscn, weights, obs, uniform, step)
+            move, comm = _policy_sample(kscn, weights, obs, uniform, step)
             pos, vel = kscn.physics(pos, vel, move)
-            rew, obs_next = kscn.reward_obs(pos, vel, None, goal)
+            rew, obs_next = kscn.reward_obs(pos, vel, comm, goal)
             obs_out[ts], act_out[ts], rew_out[ts] = obs, _onehot_index(move), rew
+            if comm is not None:
+                cact_out[ts] = _onehot_index(comm)
             t += 1
             if t >= horizon:
                 pos, obs, goal = fresh(step, vel)
                 vel, t = torch.zeros_like(vel), 0
             else:
                 obs = obs_next
-    return obs_out, act_out, rew_out, obs
+    if cact_out is None:
+        return obs_out, act_out, rew_out, obs
+    return obs_out, act_out, cact_out, rew_out, obs
 
 
 def plain_policy_rollout(kscn, weights, n_envs: int, n_steps: int, horizon: int,
@@ -178,9 +190,9 @@ def plain_policy_rollout(kscn, weights, n_envs: int, n_steps: int, horizon: int,
     eps = torch.zeros((1, n_envs), dtype=torch.float32, device=device)
     t = 0
     for step in range(n_steps):
-        move = _policy_sample(kscn, weights, obs, uniform, step)
+        move, comm = _policy_sample(kscn, weights, obs, uniform, step)
         pos, vel = kscn.physics(pos, vel, move)
-        rew, obs = kscn.reward_obs(pos, vel, None, goal)
+        rew, obs = kscn.reward_obs(pos, vel, comm, goal)
         ret = ret + rew
         t += 1
         if t >= horizon:
@@ -195,7 +207,8 @@ def plain_policy_rollout(kscn, weights, n_envs: int, n_steps: int, horizon: int,
 # ---------------------------------------------------------------------------
 
 def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device):
-    """Checks shared by both wrappers -> (spread params, weight buffer)."""
+    """Checks shared by both wrappers -> (scenario id, constants, weight
+    buffer). Raises before any launch on what the kernels do not compute."""
     from mpe_tpu_torch.ops import _build
 
     if device.type != "cuda":
@@ -205,71 +218,87 @@ def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device):
     if n_steps < 0 or horizon < 1:
         raise ValueError(f"need n_steps >= 0 and horizon >= 1, got {n_steps}, {horizon}")
     shapes = [tuple(w.shape) for w in weights]
-    want = [(HIDDEN, OBS_W), (HIDDEN, 1), (HIDDEN, HIDDEN), (HIDDEN, 1), (MOVES, HIDDEN),
-            (MOVES, 1)]
+    ow, k = kscn.obs_w, kscn.n_logits
+    hidden = shapes[0][0]
+    if hidden != HIDDEN:
+        raise NotImplementedError(f"the policy kernels are built for hidden width {HIDDEN}; got "
+                                  f"weight shapes {shapes}")
+    want = [(HIDDEN, ow), (HIDDEN, 1), (HIDDEN, HIDDEN), (HIDDEN, 1), (k, HIDDEN), (k, 1)]
     if shapes != want:
-        raise NotImplementedError(f"the policy kernels are built for an {OBS_W}-{HIDDEN}-"
-                                  f"{HIDDEN}-{MOVES} MLP; got weight shapes {shapes}")
-    params = _build.spread_params(kscn)
-    return params, _pack_weights([w.to(device=device, dtype=torch.float32) for w in weights])
+        raise ValueError(f"{kscn.spec.name!r} takes an {ow}-{HIDDEN}-{HIDDEN}-{k} MLP; got "
+                         f"weight shapes {shapes}")
+    scenario, params = _build.kernel_params(kscn)
+    return scenario, params, _pack_weights([w.to(device=device, dtype=torch.float32)
+                                            for w in weights])
 
 
-def spread_policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int,
-                            block_envs: int, t_chunk: int, seed: int, block_offset: int = 0,
-                            device=None):
-    """Launch kernel K5 on ``device``: the outputs of
-    ``plain_policy_trajectory``. Counts launches in ``.launches``."""
+def policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, block_envs: int,
+                     t_chunk: int, seed: int, block_offset: int = 0, device=None):
+    """Launch kernel K5 (``policy_traj_kernel<S>``) on ``device``: the outputs
+    of ``plain_policy_trajectory``. Counts launches in ``.launches`` and, by
+    scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     device = torch.device(device)
     if t_chunk < 1 or n_steps % t_chunk:
         raise ValueError(f"n_steps={n_steps} must be a multiple of t_chunk={t_chunk}")
-    params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device)
+    scenario, params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs,
+                                          device)
     a, ow = kscn.spec.n_agents, kscn.obs_w
     obs = torch.empty((n_steps, a, ow, n_envs), dtype=torch.float32, device=device)
     act = torch.empty((n_steps, a, n_envs), dtype=torch.int32, device=device)
-    rew = torch.empty((n_steps, 1, n_envs), dtype=torch.float32, device=device)
+    cact = torch.empty_like(act) if kscn.uses_comm else None
+    rew = torch.empty((n_steps, kscn.reward_rows, n_envs), dtype=torch.float32, device=device)
     last_obs = torch.empty((a, ow, n_envs), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.library("mpe_policy.cu").mpe_spread_policy_traj_a3l3(
-            ctypes.byref(params), wbuf.data_ptr(), obs.data_ptr(), act.data_ptr(), rew.data_ptr(),
-            last_obs.data_ptr(), n_envs, block_envs, n_steps // t_chunk, t_chunk, horizon,
-            int(seed) & _MASK, int(block_offset) & _MASK, stream)
+        rc = _build.library("mpe_policy.cu").mpe_policy_traj(
+            scenario, ctypes.byref(params), wbuf.data_ptr(), obs.data_ptr(), act.data_ptr(),
+            None if cact is None else cact.data_ptr(), rew.data_ptr(), last_obs.data_ptr(),
+            n_envs, block_envs, n_steps // t_chunk, t_chunk, horizon, int(seed) & _MASK,
+            int(block_offset) & _MASK, stream)
     if rc != 0:
-        raise RuntimeError(f"spread_policy_traj_kernel launch failed: {_build.error_string(rc)}")
-    spread_policy_traj_cuda.launches += 1
-    return obs, act, rew, last_obs
+        raise RuntimeError(f"policy_traj_kernel launch failed: {_build.error_string(rc)}")
+    policy_traj_cuda.launches += 1
+    policy_traj_cuda.launches_by[kscn.spec.name] += 1
+    if cact is None:
+        return obs, act, rew, last_obs
+    return obs, act, cact, rew, last_obs
 
 
-spread_policy_traj_cuda.launches = 0
+policy_traj_cuda.launches = 0
+policy_traj_cuda.launches_by = collections.Counter()
 
 
-def spread_policy_rollout_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int,
-                               block_envs: int, seed: int, block_offset: int = 0, device=None):
-    """Launch kernel K4 on ``device``: the outputs of
-    ``plain_policy_rollout``. Counts launches in ``.launches``."""
+def policy_rollout_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, block_envs: int,
+                        seed: int, block_offset: int = 0, device=None):
+    """Launch kernel K4 (``policy_rollout_kernel<S>``) on ``device``: the
+    outputs of ``plain_policy_rollout``. Counts launches in ``.launches``
+    and, by scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     device = torch.device(device)
-    params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device)
+    scenario, params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs,
+                                          device)
     spec = kscn.spec
-    ret = torch.empty((1, n_envs), dtype=torch.float32, device=device)
+    ret = torch.empty((kscn.reward_rows, n_envs), dtype=torch.float32, device=device)
     pos = torch.empty((spec.n_entities, spec.dim_p, n_envs), dtype=torch.float32, device=device)
     eps = torch.empty((1, n_envs), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.library("mpe_policy.cu").mpe_spread_policy_rollout_a3l3(
-            ctypes.byref(params), wbuf.data_ptr(), ret.data_ptr(), pos.data_ptr(), eps.data_ptr(),
-            n_envs, block_envs, n_steps, horizon, int(seed) & _MASK, int(block_offset) & _MASK,
-            stream)
+        rc = _build.library("mpe_policy.cu").mpe_policy_rollout(
+            scenario, ctypes.byref(params), wbuf.data_ptr(), ret.data_ptr(), pos.data_ptr(),
+            eps.data_ptr(), n_envs, block_envs, n_steps, horizon, int(seed) & _MASK,
+            int(block_offset) & _MASK, stream)
     if rc != 0:
-        raise RuntimeError(f"spread_policy_rollout_kernel launch failed: {_build.error_string(rc)}")
-    spread_policy_rollout_cuda.launches += 1
+        raise RuntimeError(f"policy_rollout_kernel launch failed: {_build.error_string(rc)}")
+    policy_rollout_cuda.launches += 1
+    policy_rollout_cuda.launches_by[spec.name] += 1
     return ret, pos, eps
 
 
-spread_policy_rollout_cuda.launches = 0
+policy_rollout_cuda.launches = 0
+policy_rollout_cuda.launches_by = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -279,12 +308,14 @@ spread_policy_rollout_cuda.launches = 0
 def fused_policy_trajectory(scenario, params, n_envs: int, n_steps: int, horizon: int = 100,
                             block_envs: int = 1024, t_chunk: int = 8, device=None):
     """Build ``run(seed, params, block_offset=0) -> (obs [T, A, OW, N], act
-    [T, A, N] int32, rew [T, R, N], last_obs [A, OW, N])``: the on-policy
-    batch, collected by kernel K5 on CUDA and by ``plain_policy_trajectory``
-    on the CPU; ``run.plain`` is the plain version on the same device.
-    ``obs[t]`` is the obs the policy acted on at step t; done flags are
-    ``(t + 1) % horizon == 0`` for every lane. ``params`` (init_policy
-    layout) fixes the widths; pass the current params at each call."""
+    [T, A, N] int32, [cact [T, A, N] int32 if the scenario has a comm head,]
+    rew [T, R, N], last_obs [A, OW, N])``: the on-policy batch, collected by
+    kernel K5 on CUDA and by ``plain_policy_trajectory`` on the CPU;
+    ``run.plain`` is the plain version on the same device, ``run.has_comm``
+    whether ``cact`` is there. ``obs[t]`` is the obs the policy acted on at
+    step t; done flags are ``(t + 1) % horizon == 0`` for every lane.
+    ``params`` (init_policy layout) fixes the widths; pass the current params
+    at each call."""
     kscn = _resolve(scenario)
     _check_widths(kscn, params)
     device = resolve_device(device)
@@ -299,11 +330,12 @@ def fused_policy_trajectory(scenario, params, n_envs: int, n_steps: int, horizon
 
     def run(seed, params, block_offset=0):
         if device.type == "cuda":
-            return spread_policy_traj_cuda(kscn, _kernel_weights(params, device), *args, seed,
-                                           block_offset, device)
+            return policy_traj_cuda(kscn, _kernel_weights(params, device), *args, seed,
+                                    block_offset, device)
         return plain(seed, params, block_offset)
 
     run.plain = plain
+    run.has_comm = bool(kscn.uses_comm)
     return run
 
 
@@ -325,8 +357,8 @@ def fused_policy_rollout(scenario_or_spec, params, n_envs: int, n_steps: int,
 
     def run(seed, params, block_offset=0):
         if device.type == "cuda":
-            return spread_policy_rollout_cuda(kscn, _kernel_weights(params, device), *args, seed,
-                                              block_offset, device)
+            return policy_rollout_cuda(kscn, _kernel_weights(params, device), *args, seed,
+                                       block_offset, device)
         return plain(seed, params, block_offset)
 
     run.plain = plain

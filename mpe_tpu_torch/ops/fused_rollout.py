@@ -196,7 +196,7 @@ def make_samplers(kscn, uniform):
     spec = kscn.spec
     a, l, p = spec.n_agents, spec.n_landmarks, spec.dim_p
     goal_choices = tuple(kscn.goal_choices or ())
-    dim_c = spec.dim_c if kscn.uses_comm else 0
+    dim_c = kscn.n_comm
     ar, lr = kscn.reset_ranges()
 
     def sample_state(step, call_id):
@@ -233,7 +233,7 @@ def make_lane_reset(kscn, uniform):
     spec = kscn.spec
     sample_state, sample_goal, _ = make_samplers(kscn, uniform)
     a = spec.n_agents
-    dim_c = spec.dim_c if kscn.uses_comm else 0
+    dim_c = kscn.n_comm
 
     def zero_comm(like):
         return like.new_zeros((a, dim_c, like.shape[-1])) if dim_c else None

@@ -35,7 +35,7 @@ def plain_trajectory(kscn, n_envs: int, n_steps: int, horizon: int, block_envs: 
     id 16, reset candidates ids 3/4 (goals 24 + 2 + g)."""
     spec = kscn.spec
     a, e, p = spec.n_agents, spec.n_entities, spec.dim_p
-    dim_c = spec.dim_c if kscn.uses_comm else 0
+    dim_c = kscn.n_comm
     n_blocks = n_envs // block_envs
     f32 = torch.float32
     obs_out = torch.empty((n_steps, a, kscn.obs_w, n_envs), dtype=f32, device=device)
@@ -97,7 +97,7 @@ def trajectory_cuda(kscn, n_envs: int, n_steps: int, horizon: int, block_envs: i
     scenario, params = _build.kernel_params(kscn)
     spec = kscn.spec
     a, e, p = spec.n_agents, spec.n_entities, spec.dim_p
-    dim_c = spec.dim_c if kscn.uses_comm else 0
+    dim_c = kscn.n_comm
     f32 = torch.float32
     obs = torch.empty((n_steps, a, kscn.obs_w, n_envs), dtype=f32, device=device)
     act = torch.empty((n_steps, a, 2 * p + 1 + dim_c, n_envs), dtype=f32, device=device)

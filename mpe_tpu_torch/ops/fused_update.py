@@ -1,41 +1,46 @@
 """Fused PPO and MAPPO epoch gradients: kernels K6 and K7 and their plain
-PyTorch versions (counterpart of ``mpe_tpu/ops/fused_update.py``).
+PyTorch versions (counterpart of ``mpe_tpu/ops/fused_update.py``), for the
+nine kernel scenarios, comm heads included.
 
 ``fused_ppo_update`` builds ``update(params, obs, mv_oh, cm_oh, logp_old,
 adv_n, ret, v_old) -> (grads, (pg, vloss, ent))`` for the shared-torso
 actor-critic of ``learner.ppo.init_ac``; ``fused_mappo_update`` the same
 for ``learner.ppo.init_mappo`` (decentralized actor, centralized critic on
 the joint obs), whose ``adv_n``, ``ret`` and ``v_old`` are the team streams
-``[T, N]``. The gradient is the hand-derived one of the JAX kernels, pinned
-to autodiff of the same loss by the tests:
+``[T, N]``. The policy is a factored categorical: a softmax over the 5 move
+logits and, where the scenario speaks, one over the ``dim_c`` comm logits
+(``cm_oh`` the comm one-hots ``[T, A, C, N]``, None without a comm head),
+whose log-prob and entropy count only for agents that are not silent. The
+gradient is the hand-derived one of the JAX kernels, pinned to autodiff of
+the same loss by the tests:
 
   d pg / d logits   = -(adv * ratio) * [r*adv <= clip(r)*adv] * (oh - p) / B
-  d (-ent_coef H)   =  ent_coef * p * (ls + H) / B
+  d (-ent_coef H)   =  ent_coef * p * (ls + H) / B   (per factor, its own H)
   d vf vloss / d v  =  vf_coef * 2 (v - ret) * [(v-ret)^2 >= (vc-ret)^2] / B_v
 
-with B = T * A * N, and B_v = B for PPO and T * N for MAPPO's critic; the
-value indicator also holds wherever the clip does not bind (see
-``_value_clip_grad``). ``grads`` comes back in the params' layout, the
-metrics are means, and ``adv_n`` is already normalized. Tensors are
-env-minor as ``fused_policy_trajectory`` emits them.
+the comm factor's rows multiplied by the agent's speak flag, with B = T * A
+* N, and B_v = B for PPO and T * N for MAPPO's critic; the value indicator
+also holds wherever the clip does not bind (see ``_value_clip_grad``).
+``grads`` comes back in the params' layout, the metrics are means, and
+``adv_n`` is already normalized. Tensors are env-minor as
+``fused_policy_trajectory`` emits them.
 
 On a CUDA device ``update`` launches ``ppo_update_kernel`` (K6: one pass;
 K7: an actor pass and a critic pass) and ``update_reduce_kernel``
-(``csrc/mpe_update.cu``, float32, hidden 64); on the CPU it runs the plain
-version in ``dtype`` (float32 or float64). Only move-only scenarios are
-ported: the comm factor of the JAX kernels waits for the comm scenarios
-(ROADMAP B3), and ``cm_oh`` must be None.
+(``csrc/mpe_update.cu``, float32, hidden 64, obs widths of 1 to 204 rows);
+on the CPU it runs the plain version in ``dtype`` (float32 or float64).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from mpe_tpu_torch._device import resolve_device
+from mpe_tpu_torch._device import device_table, resolve_device
 
-HIDDEN, OBS_W, MOVES, AGENTS = 64, 18, 5, 3   # the widths the CUDA kernels are built for
+HIDDEN = 64                                  # the hidden width the CUDA kernels are built for
 
 
 def _packed(n_in: int, n_out: int) -> tuple:
@@ -44,9 +49,6 @@ def _packed(n_in: int, n_out: int) -> tuple:
     return ((HIDDEN, n_in), (HIDDEN,), (HIDDEN, HIDDEN), (HIDDEN,), (n_out, HIDDEN), (n_out,),
             (3,))
 
-
-_PACKED = _packed(OBS_W, MOVES + 1)                          # K6
-_PACKED_ACTOR, _PACKED_CRITIC = _packed(OBS_W, MOVES), _packed(AGENTS * OBS_W, 1)   # K7
 
 
 def _numel(layout) -> int:
@@ -70,20 +72,56 @@ def _softmax_rows(z, dim: int = -2):
     return p, ls, ent
 
 
-def _policy_logit_grad(z, mvoh, lpo, adv, *, clip, ent_coef, inv_b):
-    """Clipped-surrogate + entropy gradient at the move logits ``z``
-    [..., K, N] -> (g [..., K, N], ent, s1, s2 [..., 1, N]); s1, s2 are the
-    surrogate terms of the metric sums."""
-    p, ls, ent = _softmax_rows(z)
+def _policy_logit_grad(z, mvoh, cmoh, lpo, adv, speak, *, clip, ent_coef, inv_b):
+    """Clipped-surrogate + entropy gradient at the policy logits ``z``
+    [..., 5 + C, N] of the factored move x comm categorical (``cmoh`` and
+    ``speak``, the per-agent speak flags broadcast over [..., 1, N], None
+    without a comm head) -> (g [..., 5 + C, N], ent, s1, s2 [..., 1, N]);
+    s1, s2 are the surrogate terms of the metric sums."""
+    mw = mvoh.shape[-2]
+    p, ls, ent_m = _softmax_rows(z[..., :mw, :])
     lp = (ls * mvoh).sum(-2, keepdim=True)
+    ent = ent_m
+    if cmoh is not None:
+        pc, lsc, ent_c = _softmax_rows(z[..., mw:, :])
+        lp = lp + (lsc * cmoh).sum(-2, keepdim=True) * speak
+        ent = ent_m + ent_c * speak
     ratio = torch.exp(lp - lpo)
     rc = torch.clamp(ratio, 1.0 - clip, 1.0 + clip)
     s1 = ratio * adv
     s2 = rc * adv
     unclipped = (s1 <= s2).to(z.dtype)
     cpg = -(adv * ratio) * unclipped * inv_b
-    g = cpg * (mvoh - p) + (ent_coef * inv_b) * p * (ls + ent)
+    g = cpg * (mvoh - p) + (ent_coef * inv_b) * p * (ls + ent_m)
+    if cmoh is not None:
+        gc = (cpg * (cmoh - pc) + (ent_coef * inv_b) * pc * (lsc + ent_c)) * speak
+        g = torch.cat([g, gc], dim=-2)
     return g, ent, s1, s2
+
+
+def speak_mask(speak, like):
+    """Per-agent speak flags (``KernelScenario.speak``, or None) -> [A, 1, 1]
+    of 1.0 and 0.0 in ``like``'s dtype and on its device, made once per
+    (flags, dtype, device) and shared (never write to it), or None."""
+    if speak is None:
+        return None
+    return device_table([[[float(s)]] for s in speak], like.dtype, like.device)
+
+
+def speak_bits(speak) -> int:
+    """Per-agent speak flags (or None) -> the kernels' bit mask: bit i set
+    where agent i speaks."""
+    return sum(1 << i for i, s in enumerate(speak or ()) if s)
+
+
+@functools.cache
+def actor_heads() -> frozenset:
+    """The (obs width, comm logits) actor heads of the nine scenarios: the
+    heads the update kernels are compiled for (``csrc/mpe_update.cu::
+    by_actor_head``)."""
+    from mpe_tpu_torch.ops.kernel_scenarios import _KERNEL_SCENARIOS, kernel_scenario
+
+    return frozenset((k.obs_w, k.n_comm) for k in map(kernel_scenario, _KERNEL_SCENARIOS))
 
 
 def _value_clip_grad(v, vold, ret, *, clip, vf_coef, inv):
@@ -158,10 +196,11 @@ def _grads_tree(dw1, db1, dw2, db2, dw3, db3):
             "pi": {"w": dw3[:-1].T, "b": db3[:-1]}, "v": {"w": dw3[-1:].T, "b": db3[-1:]}}
 
 
-def plain_ppo_update(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: float,
-                     vf_coef: float, ent_coef: float, dtype=torch.float32):
-    """The JAX ``_update_kernel`` over the whole batch at once, in
-    ``dtype`` -> (grads in init_ac layout, (pg, vloss, ent) means)."""
+def plain_ppo_update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
+                     clip: float, vf_coef: float, ent_coef: float, dtype=torch.float32):
+    """The JAX ``_update_kernel`` over the whole batch at once, in ``dtype``
+    -> (grads in init_ac layout, (pg, vloss, ent) means). ``speak``: each
+    agent's speak flag where the scenario has a comm head (``cm_oh``)."""
     w1, b1, w2, b2, w3, b3 = _update_weights(params, dtype, obs.device)
     x = obs.to(dtype)
     t, a, _, n = x.shape
@@ -170,8 +209,9 @@ def plain_ppo_update(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: f
     h2 = torch.tanh(torch.einsum("gh,...hn->...gn", w2, h1) + b2[:, None])
     z = torch.einsum("kg,...gn->...kn", w3, h2) + b3[:, None]          # [T, A, K+1, N]
     gp, ent, s1, s2 = _policy_logit_grad(
-        z[..., :-1, :], mv_oh.to(dtype), logp_old.to(dtype)[..., None, :],
-        adv_n.to(dtype)[..., None, :], clip=clip, ent_coef=ent_coef, inv_b=inv_b)
+        z[..., :-1, :], mv_oh.to(dtype), None if cm_oh is None else cm_oh.to(dtype),
+        logp_old.to(dtype)[..., None, :], adv_n.to(dtype)[..., None, :], speak_mask(speak, x),
+        clip=clip, ent_coef=ent_coef, inv_b=inv_b)
     gv, vl_terms = _value_clip_grad(z[..., -1:, :], v_old.to(dtype)[..., None, :],
                                     ret.to(dtype)[..., None, :], clip=clip, vf_coef=vf_coef,
                                     inv=inv_b)
@@ -181,8 +221,8 @@ def plain_ppo_update(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: f
     return grads, (pg, vl, en)
 
 
-def plain_mappo_update(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: float,
-                       vf_coef: float, ent_coef: float, dtype=torch.float32):
+def plain_mappo_update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
+                       clip: float, vf_coef: float, ent_coef: float, dtype=torch.float32):
     """The JAX ``_mappo_update_kernel`` over the whole batch at once, in
     ``dtype``: the actor on every (t, agent, env) sample with the team
     advantage ``adv_n`` [T, N] broadcast to the agents, the critic on the
@@ -198,10 +238,11 @@ def plain_mappo_update(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip:
         return h1, h2, torch.einsum("kg,...gn->...kn", w3, h2) + b3[:, None]
 
     aw = _mlp_weights(params, ("a1", "a2", "pi"), dtype, obs.device)
-    h1, h2, z = forward(*aw, x)                                   # z [T, A, 5, N]
+    h1, h2, z = forward(*aw, x)                                   # z [T, A, 5 + C, N]
     gp, ent, s1, s2 = _policy_logit_grad(
-        z, mv_oh.to(dtype), logp_old.to(dtype)[..., None, :], adv_n.to(dtype)[:, None, None, :],
-        clip=clip, ent_coef=ent_coef, inv_b=inv_b)
+        z, mv_oh.to(dtype), None if cm_oh is None else cm_oh.to(dtype),
+        logp_old.to(dtype)[..., None, :], adv_n.to(dtype)[:, None, None, :],
+        speak_mask(speak, x), clip=clip, ent_coef=ent_coef, inv_b=inv_b)
     grads = _layer_grads(("a1", "a2", "pi"), *_mlp_backprop(x, h1, h2, gp, aw[2], aw[4]))
 
     xj = x.reshape(t, a * ow, n)                                  # joint obs
@@ -251,29 +292,54 @@ def _check_batch(device, **batch):
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
 
 
-def ppo_update_cuda(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: float,
-                    vf_coef: float, ent_coef: float):
-    """Launch kernel K6 (``ppo_update_kernel`` over a persistent grid of one
-    CTA per SM, then ``ppo_update_reduce_kernel``) on the inputs' CUDA
-    device: the outputs of ``plain_ppo_update`` in float32. Counts launches
-    in ``.launches``."""
-    from mpe_tpu_torch.ops import _build
-
+def _kernel_inputs(obs, mv_oh, cm_oh, speak):
+    """Shape checks shared by both wrappers -> (T, A, OW, N, comm width,
+    speak bit mask). Raises before a launch on an actor head the kernels are
+    not compiled for."""
     device = obs.device
     if device.type != "cuda":
-        raise ValueError(f"ppo_update_cuda needs CUDA tensors, got {device}")
+        raise ValueError(f"the update kernels need CUDA tensors, got {device}")
     t, a, ow, n = obs.shape
-    _check_batch(device, obs=(obs, (t, a, ow, n)), mv_oh=(mv_oh, (t, a, MOVES, n)),
-                 logp_old=(logp_old, (t, a, n)), adv_n=(adv_n, (t, a, n)), ret=(ret, (t, a, n)),
-                 v_old=(v_old, (t, a, n)))
+    kc = 0 if cm_oh is None else cm_oh.shape[2]
+    if (speak is None) != (cm_oh is None) or (speak is not None and len(speak) != a):
+        raise ValueError(f"speak must give each of the {a} agents' flags exactly where cm_oh is "
+                         f"given; got {speak}")
+    _check_batch(device, obs=(obs, (t, a, ow, n)), mv_oh=(mv_oh, (t, a, 5, n)))
+    if cm_oh is not None:
+        _check_batch(device, cm_oh=(cm_oh, (t, a, kc, n)))
+    if (ow, kc) not in actor_heads():
+        raise NotImplementedError(f"the update kernels are compiled for the actor heads (obs "
+                                  f"width, comm logits) {sorted(actor_heads())}; got {(ow, kc)}")
+    return t, a, ow, n, kc, speak_bits(speak)
+
+
+def _check_weights(weights, want, what: str):
+    shapes = [tuple(x.shape) for x in weights]
+    if shapes[0][0] != HIDDEN:
+        raise NotImplementedError(f"the update kernels are built for hidden width {HIDDEN}; "
+                                  f"got {what} weight shapes {shapes}")
+    if shapes != want:
+        raise ValueError(f"the {what} weight shapes {shapes} do not match the batch: {want}")
+
+
+def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
+                    clip: float, vf_coef: float, ent_coef: float):
+    """Launch kernel K6 (``ppo_update_kernel`` over a persistent grid of one
+    CTA per SM, then ``update_reduce_kernel``) on the inputs' CUDA device:
+    the outputs of ``plain_ppo_update`` in float32. Counts launches in
+    ``.launches``."""
+    from mpe_tpu_torch.ops import _build
+
+    t, a, ow, n, kc, mask = _kernel_inputs(obs, mv_oh, cm_oh, speak)
+    device = obs.device
+    _check_batch(device, logp_old=(logp_old, (t, a, n)), adv_n=(adv_n, (t, a, n)),
+                 ret=(ret, (t, a, n)), v_old=(v_old, (t, a, n)))
     weights = _update_weights(params, torch.float32, device)
-    if tuple(weights[0].shape) != (HIDDEN, OBS_W) or tuple(weights[4].shape) != (MOVES + 1, HIDDEN):
-        raise NotImplementedError(f"the update kernel is built for an {OBS_W}-{HIDDEN}-{HIDDEN}-"
-                                  f"({MOVES}+1) actor-critic; got w1 {tuple(weights[0].shape)}, "
-                                  f"w3 {tuple(weights[4].shape)}")
+    layout = _packed(ow, 5 + kc + 1)
+    _check_weights(weights, list(layout[:-1]), "actor-critic")
     lib = _build.library("mpe_update.cu")
-    n_packed = _numel(_PACKED)
-    if lib.mpe_ppo_update_packed_size() != n_packed:
+    n_packed = _numel(layout)
+    if lib.mpe_update_packed_size(ow, 5 + kc + 1) != n_packed:
         raise RuntimeError("csrc/mpe_update.cu and ops/fused_update.py disagree on the layout")
     wbuf = torch.cat([w.reshape(-1) for w in weights]).contiguous()
     n_parts = torch.cuda.get_device_properties(device).multi_processor_count
@@ -282,23 +348,24 @@ def ppo_update_cuda(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: fl
     inv_b = 1.0 / float(t * a * n)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mpe_ppo_update_h64(
-            wbuf.data_ptr(), obs.data_ptr(), mv_oh.data_ptr(), logp_old.data_ptr(),
-            adv_n.data_ptr(), ret.data_ptr(), v_old.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), t * a, n, n_parts, 1.0 - clip, 1.0 + clip, clip,
-            vf_coef * 2.0 * inv_b, ent_coef * inv_b, inv_b, stream)
+        rc = lib.mpe_ppo_update(
+            ow, kc, wbuf.data_ptr(), obs.data_ptr(), mv_oh.data_ptr(),
+            None if cm_oh is None else cm_oh.data_ptr(), logp_old.data_ptr(), adv_n.data_ptr(),
+            ret.data_ptr(), v_old.data_ptr(), partials.data_ptr(), out.data_ptr(), t * a, n, a,
+            mask, n_parts, 1.0 - clip, 1.0 + clip, clip, vf_coef * 2.0 * inv_b, ent_coef * inv_b,
+            inv_b, stream)
     if rc != 0:
         raise RuntimeError(f"ppo_update_kernel launch failed: {_build.error_string(rc)}")
     ppo_update_cuda.launches += 1
-    dw1, db1, dw2, db2, dw3, db3, ms = _unpack(out, _PACKED)
+    dw1, db1, dw2, db2, dw3, db3, ms = _unpack(out, layout)
     return _grads_tree(dw1, db1, dw2, db2, dw3, db3), (ms[0], ms[1], ms[2])
 
 
 ppo_update_cuda.launches = 0
 
 
-def mappo_update_cuda(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: float,
-                      vf_coef: float, ent_coef: float):
+def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
+                      clip: float, vf_coef: float, ent_coef: float):
     """Launch kernel K7 (``ppo_update_kernel``'s actor pass over the
     (t, agent, env) samples and critic pass over the (t, env) samples on the
     joint obs, each a persistent grid of one CTA per SM followed by
@@ -306,26 +373,19 @@ def mappo_update_cuda(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: 
     ``plain_mappo_update`` in float32. Counts launches in ``.launches``."""
     from mpe_tpu_torch.ops import _build
 
+    t, a, ow, n, kc, mask = _kernel_inputs(obs, mv_oh, cm_oh, speak)
     device = obs.device
-    if device.type != "cuda":
-        raise ValueError(f"mappo_update_cuda needs CUDA tensors, got {device}")
-    t, a, ow, n = obs.shape
-    _check_batch(device, obs=(obs, (t, a, ow, n)), mv_oh=(mv_oh, (t, a, MOVES, n)),
-                 logp_old=(logp_old, (t, a, n)), adv_n=(adv_n, (t, n)), ret=(ret, (t, n)),
-                 v_old=(v_old, (t, n)))
+    _check_batch(device, logp_old=(logp_old, (t, a, n)), adv_n=(adv_n, (t, n)),
+                 ret=(ret, (t, n)), v_old=(v_old, (t, n)))
     aw = _mlp_weights(params, ("a1", "a2", "pi"), torch.float32, device)
     cw = _mlp_weights(params, ("c1", "c2", "v"), torch.float32, device)
-    shapes = [tuple(x.shape) for x in aw + cw]
-    want = list(_PACKED_ACTOR[:-1] + _PACKED_CRITIC[:-1])
-    if (a, ow) != (AGENTS, OBS_W) or shapes != want:
-        raise NotImplementedError(f"the MAPPO update kernel is built for {AGENTS} agents, an "
-                                  f"{OBS_W}-{HIDDEN}-{HIDDEN}-{MOVES} actor and a "
-                                  f"{AGENTS * OBS_W}-{HIDDEN}-{HIDDEN}-1 critic; got obs "
-                                  f"{tuple(obs.shape)}, weight shapes {shapes}")
+    actor, critic = _packed(ow, 5 + kc), _packed(a * ow, 1)
+    _check_weights(aw, list(actor[:-1]), "actor")
+    _check_weights(cw, list(critic[:-1]), "critic")
     lib = _build.library("mpe_update.cu")
-    n_act, n_crit = _numel(_PACKED_ACTOR), _numel(_PACKED_CRITIC)
-    if (lib.mpe_mappo_update_packed_size(0), lib.mpe_mappo_update_packed_size(1)) != (n_act,
-                                                                                      n_crit):
+    n_act, n_crit = _numel(actor), _numel(critic)
+    if (lib.mpe_update_packed_size(ow, 5 + kc), lib.mpe_update_packed_size(a * ow, 1)) != (
+            n_act, n_crit):
         raise RuntimeError("csrc/mpe_update.cu and ops/fused_update.py disagree on the layout")
     abuf = torch.cat([w.reshape(-1) for w in aw]).contiguous()
     cbuf = torch.cat([w.reshape(-1) for w in cw]).contiguous()
@@ -335,16 +395,17 @@ def mappo_update_cuda(params, obs, mv_oh, logp_old, adv_n, ret, v_old, *, clip: 
     inv_b, inv_bv = 1.0 / float(t * a * n), 1.0 / float(t * n)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mpe_mappo_update_h64(
-            abuf.data_ptr(), cbuf.data_ptr(), obs.data_ptr(), mv_oh.data_ptr(),
-            logp_old.data_ptr(), adv_n.data_ptr(), ret.data_ptr(), v_old.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), t, a, n, n_parts, 1.0 - clip, 1.0 + clip, clip,
-            vf_coef * 2.0 * inv_bv, ent_coef * inv_b, inv_b, inv_bv, stream)
+        rc = lib.mpe_mappo_update(
+            ow, kc, abuf.data_ptr(), cbuf.data_ptr(), obs.data_ptr(), mv_oh.data_ptr(),
+            None if cm_oh is None else cm_oh.data_ptr(), logp_old.data_ptr(), adv_n.data_ptr(),
+            ret.data_ptr(), v_old.data_ptr(), partials.data_ptr(), out.data_ptr(), t, a, n, mask,
+            n_parts, 1.0 - clip, 1.0 + clip, clip, vf_coef * 2.0 * inv_bv, ent_coef * inv_b,
+            inv_b, inv_bv, stream)
     if rc != 0:
         raise RuntimeError(f"mappo_update_kernel launch failed: {_build.error_string(rc)}")
     mappo_update_cuda.launches += 1
-    *ga, ms_a = _unpack(out[:n_act], _PACKED_ACTOR)
-    *gc, ms_c = _unpack(out[n_act:], _PACKED_CRITIC)
+    *ga, ms_a = _unpack(out[:n_act], actor)
+    *gc, ms_c = _unpack(out[n_act:], critic)
     grads = _layer_grads(("a1", "a2", "pi"), *ga)
     grads.update(_layer_grads(("c1", "c2", "v"), *gc))
     return grads, (ms_a[0], ms_c[1], ms_a[2])
@@ -358,34 +419,38 @@ def _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, l1, plain_
     from mpe_tpu_torch.ops.kernel_scenarios import KernelScenario, kernel_scenario
 
     kscn = kscn if isinstance(kscn, KernelScenario) else kernel_scenario(kscn)
-    if kscn.uses_comm:
-        raise NotImplementedError(f"{kscn.spec.name!r} has a comm head; the update kernels are "
-                                  "ported for move-only scenarios (ROADMAP B3)")
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the update kernels compute in float32; use dtype=torch.float32 on CUDA")
-    a, ow = kscn.spec.n_agents, kscn.obs_w
+    spec = kscn.spec
+    a, ow, dim_c = spec.n_agents, kscn.obs_w, kscn.n_comm
+    hp = dict(hp, speak=kscn.speak)
 
     def check(params, obs, cm_oh):
         if params[l1]["w"].shape != (ow, hidden):
             raise ValueError(f"{l1}.w has shape {tuple(params[l1]['w'].shape)}, expected "
                              f"{(ow, hidden)}")
-        if cm_oh is not None:
-            raise ValueError("cm_oh must be None: the scenario has no comm head")
         if tuple(obs.shape) != (n_steps, a, ow, n_envs):
             raise ValueError(f"obs has shape {tuple(obs.shape)}, expected "
                              f"{(n_steps, a, ow, n_envs)}")
+        if not dim_c and cm_oh is not None:
+            raise ValueError(f"cm_oh must be None: {spec.name!r} has no comm head")
+        if dim_c and (cm_oh is None or tuple(cm_oh.shape) != (n_steps, a, dim_c, n_envs)):
+            raise ValueError(f"{spec.name!r} has a comm head: cm_oh must have shape "
+                             f"{(n_steps, a, dim_c, n_envs)}, got "
+                             f"{None if cm_oh is None else tuple(cm_oh.shape)}")
 
     def plain(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old):
         check(params, obs, cm_oh)
-        return plain_fn(params, obs, mv_oh, logp_old, adv_n, ret, v_old, dtype=dtype, **hp)
+        return plain_fn(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, dtype=dtype,
+                        **hp)
 
     def update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old):
         if device.type == "cuda":
             check(params, obs, cm_oh)
-            return cuda_fn(params, obs, mv_oh, logp_old, adv_n, ret, v_old, **hp)
+            return cuda_fn(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, **hp)
         return plain(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old)
 
     update.plain = plain
@@ -398,8 +463,9 @@ def fused_ppo_update(kscn, n_envs: int, n_steps: int, hidden: int, clip: float =
     """Build ``update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old)
     -> (grads, (pg, vloss, ent))``: kernel K6 on CUDA (float32 only), the
     plain version in ``dtype`` on the CPU; ``update.plain`` is the plain
-    version. The JAX builder's ``block_envs`` and ``t_chunk`` (its tiling)
-    have no counterpart: the CUDA kernel tiles the batch itself."""
+    version. ``cm_oh`` is the comm one-hots where the scenario speaks, else
+    None. The JAX builder's ``block_envs`` and ``t_chunk`` (its tiling) have
+    no counterpart: the CUDA kernel tiles the batch itself."""
     hp = dict(clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
     return _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, "l1",
                            plain_ppo_update, ppo_update_cuda)

@@ -101,6 +101,30 @@ class KernelScenario:
     uses_comm: bool = False
     MIN_MXU_PAIRS = MIN_MXU_PAIRS
 
+    @property
+    def n_moves(self) -> int:
+        """Move logits of an agent's policy: no-op and +/- per axis."""
+        return 2 * self.spec.dim_p + 1
+
+    @property
+    def n_comm(self) -> int:
+        """Comm logits of an agent's policy: dim_c where the scenario
+        speaks, else 0."""
+        return self.spec.dim_c if self.uses_comm else 0
+
+    @property
+    def n_logits(self) -> int:
+        """The policy head's width: moves, then comm."""
+        return self.n_moves + self.n_comm
+
+    @property
+    def speak(self) -> tuple[bool, ...] | None:
+        """Each agent's speak flag (not silent) where the scenario has a comm
+        head, else None: a silent agent's comm factor is masked out."""
+        if not self.n_comm:
+            return None
+        return tuple(not bool(s) for s in self.spec.silent[:self.spec.n_agents])
+
     def reset_ranges(self) -> tuple[float, float]:
         """(agent_range, landmark_range) for uniform position sampling."""
         return 1.0, 1.0

@@ -1,17 +1,23 @@
-"""The CUDA sources of K2 and K3 (``csrc/mpe_kernels.cu``,
-``csrc/mpe_trajectory.cu``) compiled for the host by a C++ compiler and held
-against their plain versions on the CPU, for every scenario instantiation.
+"""The CUDA sources of K2-K7 (``csrc/mpe_kernels.cu``, ``csrc/mpe_trajectory.cu``,
+``csrc/mpe_policy.cu``, ``csrc/mpe_update.cu``) compiled for the host by a
+C++ compiler and held against their plain versions on the CPU, for every
+scenario instantiation.
 
 A stand-in ``cuda_runtime.h`` defines the few CUDA names the sources use
-(the execution-space keywords as nothing, ``rsqrtf`` as ``1 / sqrtf``,
-``__stcs`` as a plain store), and each ``kernel<<<blocks, threads, 0,
-stream>>>(...)`` launch becomes a loop over (block, thread). This checks the
-device functions' indexing, order of operations and RNG streams without a
-card. The arithmetic is the host's (its libm and an exact reciprocal square
-root), not the card's, so actions (raw hash draws) are held equal and the
-rest within float32 tolerances; on the card ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` hold the kernels to the bit. Without a C++ compiler the
-tests skip.
+(the execution-space keywords as nothing, ``__shared__`` as a static,
+``rsqrtf`` as ``1 / sqrtf``, ``__stcs`` as a plain store, ``float4``), and
+each ``kernel<<<blocks, threads, smem, stream>>>(...)`` launch runs its
+blocks one after another, each block's threads as host threads that meet at
+``__syncthreads()`` (a barrier), so a CTA's phases run in order as on the
+card; the update kernel's dynamic shared memory becomes one static buffer.
+This checks the device functions' indexing, order of operations and RNG
+streams without a card. The arithmetic is the host's (its libm and an exact
+reciprocal square root), not the card's: trajectories' actions (raw hash
+draws) and the policy kernels' sampled actions are held equal, the rest
+within float32 tolerances, the update kernels' gradients within 1e-4 of
+each leaf's largest entry as on the card; on the card
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernels there.
+Without a C++ compiler the tests skip.
 """
 
 import ctypes
@@ -23,7 +29,10 @@ import subprocess
 import pytest
 import torch
 
-from mpe_tpu_torch.ops import _build
+from mpe_tpu_torch.learner.ppo import init_ac, init_mappo
+from mpe_tpu_torch.ops import _build, fused_update
+from mpe_tpu_torch.ops.fused_policy import (_kernel_weights, _pack_weights, plain_policy_rollout,
+                                            plain_policy_trajectory)
 from mpe_tpu_torch.ops.fused_rollout import plain_rollout
 from mpe_tpu_torch.ops.fused_trajectory import plain_trajectory
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
@@ -32,37 +41,83 @@ NAMES = ["simple_spread", "simple", "simple_reference", "simple_speaker_listener
          "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
 N_ENVS, BLOCK_ENVS, HORIZON = 256, 128, 10
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
+MAX_SMEM_FLOATS = 232448 // 4          # a CTA's dynamic shared memory on the card
+# the policy kernels' plain versions run hidden 64: at 64 envs each [A, 64, N]
+# op stays below PyTorch's parallel grain, which keeps them quick on a loaded host
+POLICY_ENVS, POLICY_BLOCK_ENVS = 64, 32
 
 CUDA_RUNTIME = """\
 #pragma once
 #include <cfloat>
 #include <cmath>
+#include <condition_variable>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
+#include <thread>
+#include <vector>
 #include <math.h>
 #define __device__
 #define __host__
 #define __global__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __noinline__
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize };
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
+template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+struct alignas(16) float4 { float x, y, z, w; };
 struct host_dim3 { unsigned x = 0, y = 0, z = 0; };
-inline host_dim3 blockIdx, threadIdx, blockDim;
+inline thread_local host_dim3 blockIdx, threadIdx, blockDim, gridDim;
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
+// the block's threads meet here; blocks run one after another
+struct HostBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  unsigned count = 0, waiting = 0, generation = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lock(m);
+    const unsigned gen = generation;
+    if (++waiting == count) {
+      waiting = 0;
+      ++generation;
+      cv.notify_all();
+    } else {
+      cv.wait(lock, [&] { return gen != generation; });
+    }
+  }
+};
+inline HostBarrier host_barrier;
+inline void __syncthreads() { host_barrier.wait(); }
+template <class F> void host_launch(unsigned blocks, unsigned threads, F body) {
+  host_barrier.count = threads;
+  for (unsigned b = 0; b < blocks; ++b) {
+    std::vector<std::thread> pool;
+    for (unsigned t = 0; t < threads; ++t)
+      pool.emplace_back([=] {
+        blockIdx.x = b;
+        threadIdx.x = t;
+        blockDim.x = threads;
+        gridDim.x = blocks;
+        body();
+      });
+    for (auto& th : pool) th.join();
+  }
+}
 """
-LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(\w+), (\w+), 0, stream>>>\((.*?)\);", re.S)
+LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?), (\w+), (.*?), stream>>>\((.*?)\);", re.S)
+DYNAMIC_SMEM = "extern __shared__ __align__(16) float smem[];"
 
 
-def _loop(match) -> str:
-    kernel, blocks, threads, args = match.groups()
-    return (f"for (unsigned b_ = 0; b_ < (unsigned)({blocks}); ++b_) "
-            f"for (unsigned t_ = 0; t_ < (unsigned)({threads}); ++t_) {{ blockIdx.x = b_; "
-            f"threadIdx.x = t_; blockDim.x = {threads}; {kernel}({args}); }}")
+def _launch(match) -> str:
+    kernel, blocks, threads, _, args = match.groups()
+    return f"host_launch((unsigned)({blocks}), (unsigned)({threads}), [&] {{ {kernel}({args}); }});"
 
 
 @pytest.fixture(scope="module")
@@ -75,12 +130,15 @@ def host_libs(tmp_path_factory):
     for header in _build.HEADERS:
         shutil.copy(_build.CSRC / header, out / header)
     libs = {}
-    for source in ("mpe_kernels.cu", "mpe_trajectory.cu"):
+    for source in ("mpe_kernels.cu", "mpe_trajectory.cu", "mpe_policy.cu", "mpe_update.cu"):
         cpp = out / f"{source}.cpp"
-        cpp.write_text(LAUNCH.sub(_loop, (_build.CSRC / source).read_text()))
+        text = (_build.CSRC / source).read_text()
+        text = text.replace(DYNAMIC_SMEM, f"alignas(16) static float smem[{MAX_SMEM_FLOATS}];")
+        cpp.write_text(LAUNCH.sub(_launch, text))
         lib = out / f"lib{source}.so"
         subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w",
-                        "-shared", "-fPIC", "-I", str(out), "-o", str(lib), str(cpp)], check=True)
+                        "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
+                        str(cpp)], check=True)
         libs[source] = ctypes.CDLL(str(lib))
         for name, argtypes in _build.SIGNATURES[source].items():
             getattr(libs[source], name).argtypes = argtypes
@@ -133,8 +191,7 @@ def test_host_built_trajectory_kernel_matches_plain(host_libs, name):
     scenario, params = _build.kernel_params(kscn)
     spec = kscn.spec
     a, n_steps, t_chunk = spec.n_agents, 24, 4
-    dim_c = spec.dim_c if kscn.uses_comm else 0
-    shapes = ((n_steps, a, kscn.obs_w, N_ENVS), (n_steps, a, 5 + dim_c, N_ENVS),
+    shapes = ((n_steps, a, kscn.obs_w, N_ENVS), (n_steps, a, kscn.n_logits, N_ENVS),
               (n_steps, kscn.reward_rows, N_ENVS)) + ((spec.n_entities, 2, N_ENVS),) * 2
     got = [torch.empty(s) for s in shapes]
     rc = host_libs["mpe_trajectory.cu"].mpe_trajectory(
@@ -143,3 +200,159 @@ def test_host_built_trajectory_kernel_matches_plain(host_libs, name):
     assert rc == 0
     ref = plain_trajectory(kscn, N_ENVS, n_steps, HORIZON, BLOCK_ENVS, t_chunk, 3, 1, "cpu")
     _close(got, ref, ("obs", "act", "rew", "pos", "vel"))
+
+
+def _policy_weights(kscn, seed=0):
+    """An init_policy actor of the scenario's widths (He-scaled head, so the
+    logits are O(1) and the actions follow the MLP), hidden 64, in the
+    kernels' layout."""
+    from mpe_tpu_torch.learner import init_policy
+
+    return _kernel_weights(init_policy(torch.Generator().manual_seed(seed), kscn.obs_w,
+                                       kscn.n_logits))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_host_built_policy_traj_kernel_matches_plain(host_libs, name):
+    """K5 (``mpe_policy_traj``) over 24 steps in chunks of 4 with resets, two
+    RNG blocks at block offset 1: moves and comm indices equal."""
+    kscn = kernel_scenario(name)
+    scenario, params = _build.kernel_params(kscn)
+    weights = _policy_weights(kscn)
+    wbuf = _pack_weights(weights)                      # held until the call returns
+    a, n, n_steps, t_chunk = kscn.spec.n_agents, POLICY_ENVS, 24, 4
+    obs, last_obs = torch.empty((n_steps, a, kscn.obs_w, n)), torch.empty((a, kscn.obs_w, n))
+    act = torch.empty((n_steps, a, n), dtype=torch.int32)
+    cact = torch.empty_like(act) if kscn.uses_comm else None
+    rew = torch.empty((n_steps, kscn.reward_rows, n))
+    rc = host_libs["mpe_policy.cu"].mpe_policy_traj(
+        scenario, ctypes.byref(params), wbuf.data_ptr(), obs.data_ptr(), act.data_ptr(),
+        None if cact is None else cact.data_ptr(), rew.data_ptr(), last_obs.data_ptr(), n,
+        POLICY_BLOCK_ENVS, n_steps // t_chunk, t_chunk, HORIZON, 3, 1, None)
+    assert rc == 0
+    ref = plain_policy_trajectory(kscn, weights, n, n_steps, HORIZON, POLICY_BLOCK_ENVS, t_chunk,
+                                  3, 1, "cpu")
+    got = (obs, act, rew, last_obs) if cact is None else (obs, act, cact, rew, last_obs)
+    labels = ("obs", "act", "rew", "last_obs") if cact is None else ("obs", "act", "cact", "rew",
+                                                                    "last_obs")
+    for k, x, y in zip(labels, got, ref):
+        tol = dict(rtol=0, atol=0) if k in ("act", "cact") else F32_TOL
+        torch.testing.assert_close(x, y, msg=k, **tol)
+    if cact is not None:                    # the speakers' utterances vary
+        assert len(torch.unique(cact)) == kscn.spec.dim_c
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_host_built_policy_rollout_kernel_matches_plain(host_libs, name):
+    """K4 (``mpe_policy_rollout``) over 30 steps with resets, two RNG blocks
+    at block offset 1: every reward row's return, final positions, episodes."""
+    kscn = kernel_scenario(name)
+    scenario, params = _build.kernel_params(kscn)
+    weights = _policy_weights(kscn, 1)
+    wbuf = _pack_weights(weights)                      # held until the call returns
+    n = POLICY_ENVS
+    got = (torch.empty((kscn.reward_rows, n)), torch.empty((kscn.spec.n_entities, 2, n)),
+           torch.empty((1, n)))
+    rc = host_libs["mpe_policy.cu"].mpe_policy_rollout(
+        scenario, ctypes.byref(params), wbuf.data_ptr(), *(x.data_ptr() for x in got), n,
+        POLICY_BLOCK_ENVS, 30, HORIZON, 8, 1, None)
+    assert rc == 0
+    ref = plain_policy_rollout(kscn, weights, n, 30, HORIZON, POLICY_BLOCK_ENVS, 8, 1, "cpu")
+    _close(got, ref, ("ret", "pos", "episodes"))
+
+
+# K6 and K7 on a random epoch batch of each head shape: no comm, 3, 4 and 10
+# comm logits (a silent agent on simple_speaker_listener and
+# simple_world_comm), the 64- and 204-wide critics; the value clip binds
+UPDATE_NAMES = ["simple_spread", "simple_speaker_listener", "simple_crypto", "simple_reference",
+                "simple_tag", "simple_world_comm"]
+
+
+def _epoch_batch(kscn, t: int, n: int, team: bool, seed: int = 0):
+    """A random float32 epoch batch: obs ~ N(0, 1), one-hot moves and
+    utterances, log-probs ~ N(-1.5, 0.3^2), old values ~ N(0, 0.3^2),
+    normalized advantages, returns ~ N(-2, 1) (MPE's rewards are negative;
+    returns centred on the values would make the value-bias gradient a sum
+    that cancels to its float32 rounding); the team streams [T, N] for
+    MAPPO."""
+    spec = kscn.spec
+    a, dim_c = spec.n_agents, kscn.n_comm
+    gen = torch.Generator().manual_seed(seed)
+
+    def onehot(k):
+        idx = torch.randint(0, k, (t, a, n), generator=gen)
+        return torch.nn.functional.one_hot(idx, k).movedim(-1, -2).float().contiguous()
+
+    stream = (t, n) if team else (t, a, n)
+    adv = torch.randn(stream, generator=gen)
+    return (torch.randn((t, a, kscn.obs_w, n), generator=gen), onehot(5),
+            onehot(dim_c) if dim_c else None, (-1.5 + 0.3 * torch.randn((t, a, n), generator=gen)),
+            (adv - adv.mean()) / adv.std(correction=0), torch.randn(stream, generator=gen) - 2.0,
+            0.3 * torch.randn(stream, generator=gen))
+
+
+def _host_update(lib, fn, *args):
+    """Call one of the update entries with float32 CPU tensors (None stays a
+    null pointer)."""
+    ptrs = [None if x is None else x.data_ptr() if torch.is_tensor(x) else x for x in args]
+    assert getattr(lib, fn)(*ptrs) == 0
+
+
+@pytest.mark.parametrize("name", UPDATE_NAMES)
+@pytest.mark.parametrize("kind", ["ppo", "mappo"])
+def test_host_built_update_kernels_match_plain(host_libs, name, kind):
+    """K6 (``mpe_ppo_update``) and K7 (``mpe_mappo_update``) over 3 CTAs and
+    a ragged last tile: every gradient leaf within 1e-4 of its largest entry,
+    the metric means within 1e-4 relative."""
+    kscn = kernel_scenario(name)
+    spec = kscn.spec
+    a, ow, t, n = spec.n_agents, kscn.obs_w, 2, 96
+    dim_c = kscn.n_comm
+    team = kind == "mappo"
+    init = init_mappo if team else init_ac
+    params = init(torch.Generator().manual_seed(1), ow, 5 + dim_c, *((a,) if team else ()))
+    params["pi"]["w"] = params["pi"]["w"] * 100.0           # O(1) logits
+    obs, mv_oh, cm_oh, lpo, adv, ret, vold = _epoch_batch(kscn, t, n, team)
+    speak = kscn.speak
+    hp = dict(clip=0.2, vf_coef=0.5, ent_coef=0.01)
+    plain = fused_update.plain_mappo_update if team else fused_update.plain_ppo_update
+    ref, ref_m = plain(params, obs, mv_oh, cm_oh, lpo, adv, ret, vold, speak=speak, **hp)
+    mask = fused_update.speak_bits(speak)
+    lib, n_parts = host_libs["mpe_update.cu"], 3
+    inv_b = 1.0 / (t * a * n)
+    consts = (1.0 - hp["clip"], 1.0 + hp["clip"], hp["clip"])
+    if team:
+        aw = fused_update._mlp_weights(params, ("a1", "a2", "pi"), torch.float32)
+        cw = fused_update._mlp_weights(params, ("c1", "c2", "v"), torch.float32)
+        actor, critic = fused_update._packed(ow, 5 + dim_c), fused_update._packed(a * ow, 1)
+        n_act, n_crit = fused_update._numel(actor), fused_update._numel(critic)
+        assert (lib.mpe_update_packed_size(ow, 5 + dim_c), lib.mpe_update_packed_size(a * ow, 1)
+                ) == (n_act, n_crit)
+        out = torch.empty(n_act + n_crit)
+        inv_bv = 1.0 / (t * n)
+        _host_update(lib, "mpe_mappo_update", ow, dim_c, torch.cat([w.reshape(-1) for w in aw]),
+                     torch.cat([w.reshape(-1) for w in cw]), obs, mv_oh, cm_oh, lpo, adv, ret,
+                     vold, torch.empty((n_parts, max(n_act, n_crit))), out, t, a, n, mask, n_parts,
+                     *consts, hp["vf_coef"] * 2.0 * inv_bv, hp["ent_coef"] * inv_b, inv_b, inv_bv,
+                     None)
+        *ga, ms_a = fused_update._unpack(out[:n_act], actor)
+        *gc, ms_c = fused_update._unpack(out[n_act:], critic)
+        got = fused_update._layer_grads(("a1", "a2", "pi"), *ga)
+        got.update(fused_update._layer_grads(("c1", "c2", "v"), *gc))
+        got_m = (ms_a[0], ms_c[1], ms_a[2])
+    else:
+        layout = fused_update._packed(ow, 5 + dim_c + 1)
+        assert lib.mpe_update_packed_size(ow, 5 + dim_c + 1) == fused_update._numel(layout)
+        out = torch.empty(fused_update._numel(layout))
+        weights = fused_update._update_weights(params, torch.float32)
+        _host_update(lib, "mpe_ppo_update", ow, dim_c, torch.cat([w.reshape(-1) for w in weights]),
+                     obs, mv_oh, cm_oh, lpo, adv, ret, vold,
+                     torch.empty((n_parts, out.numel())), out, t * a, n, a, mask, n_parts, *consts,
+                     hp["vf_coef"] * 2.0 * inv_b, hp["ent_coef"] * inv_b, inv_b, None)
+        *g, ms = fused_update._unpack(out, layout)
+        got, got_m = fused_update._grads_tree(*g), (ms[0], ms[1], ms[2])
+    for k in ref:
+        for q in ref[k]:
+            torch.testing.assert_close(got[k][q], ref[k][q], rtol=0,
+                                       atol=1e-4 * float(ref[k][q].abs().max()), msg=lambda m, k=k, q=q: f"{k}.{q}: {m}")
+    torch.testing.assert_close(torch.stack(got_m), torch.stack(ref_m), rtol=1e-4, atol=0)

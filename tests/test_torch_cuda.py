@@ -10,11 +10,12 @@ Tolerances: the kernels are built with ``-fmad=false`` and round each
 multiply and add as PyTorch's elementwise ops do, so positions,
 velocities and rewards agree exactly; the obs checksum is summed in
 another order (atol 1e-3 over 20 steps). The policy kernels K4/K5 sum each
-layer in the plain version's order: actions and episode counts equal,
-values within 1e-5. The update kernel K6 sums the batch in its own order:
-each gradient leaf within 1e-4 of the largest entry of the leaf, the
-metrics within 1e-4 relative, on a batch where both clips bind too; so does
-the MAPPO update kernel K7. The MADDPG collection kernel K8 takes the plain
+layer in the plain version's order: moves, comm indices and episode counts
+equal, values within 1e-5, on all nine scenarios. The update kernel K6 sums
+the batch in its own order: each gradient leaf within 1e-4 of the largest
+entry of the leaf, the metrics within 1e-4 relative, on a batch where both
+clips bind too; so does the MAPPO update kernel K7 (both also with comm
+heads, and K7 with simple_world_comm's 204-wide critic). The MADDPG collection kernel K8 takes the plain
 version's actions exactly (values within 1e-5) in both output forms; the
 MADDPG update kernel K9 takes the plain version's target actions and its
 gradient leaves lie within 1e-4 of each leaf's largest entry. The trajectory
@@ -131,35 +132,39 @@ def test_trajectory_wrappers_refuse_bad_inputs(card):
         fused_rollout.rollout_cuda(limited, 64, 8, 5, 32, 0, device=card)
 
 
-def _policy(card):
-    params = init_policy(torch.Generator().manual_seed(0), 18, 5)
+def _policy(card, name="simple_spread"):
+    kscn = kernel_scenario(name)
+    params = init_policy(torch.Generator().manual_seed(0), kscn.obs_w, kscn.n_logits)
     return {k: {q: x.to(card) for q, x in layer.items()} for k, layer in params.items()}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
 @pytest.mark.parametrize("block_offset", [0, 1])
-def test_policy_traj_kernel_matches_plain(card, block_offset):
-    params = _policy(card)
-    run = fused_policy.fused_policy_trajectory("simple_spread", params, 2048, 16, horizon=6,
+def test_policy_traj_kernel_matches_plain(card, block_offset, name):
+    params = _policy(card, name)
+    run = fused_policy.fused_policy_trajectory(name, params, 2048, 16, horizon=6,
                                                block_envs=1024, t_chunk=4, device=card)
-    before = fused_policy.spread_policy_traj_cuda.launches
+    before = fused_policy.policy_traj_cuda.launches
     got = run(3, params, block_offset)
-    assert fused_policy.spread_policy_traj_cuda.launches == before + 1
+    assert fused_policy.policy_traj_cuda.launches == before + 1
     ref = run.plain(3, params, block_offset)
-    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0, msg="act")
-    for name, a, b in zip(("obs", "rew", "last_obs"), (got[0], got[2], got[3]),
-                          (ref[0], ref[2], ref[3])):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5, msg=name)
+    labels = ("obs", "act", "cact", "rew", "last_obs") if run.has_comm else ("obs", "act", "rew",
+                                                                            "last_obs")
+    for label, a, b in zip(labels, got, ref):
+        exact = label in ("act", "cact")
+        torch.testing.assert_close(a, b, rtol=0, atol=0 if exact else 1e-5, msg=label)
 
 
 @pytest.mark.cuda
-def test_policy_rollout_kernel_matches_plain(card):
-    params = _policy(card)
-    run = fused_policy.fused_policy_rollout("simple_spread", params, 2048, 20, horizon=6,
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_policy_rollout_kernel_matches_plain(card, name):
+    params = _policy(card, name)
+    run = fused_policy.fused_policy_rollout(name, params, 2048, 20, horizon=6,
                                             block_envs=1024, device=card)
-    before = fused_policy.spread_policy_rollout_cuda.launches
+    before = fused_policy.policy_rollout_cuda.launches
     ret, pos, eps = run(8, params, 1)
-    assert fused_policy.spread_policy_rollout_cuda.launches == before + 1
+    assert fused_policy.policy_rollout_cuda.launches == before + 1
     ref = run.plain(8, params, 1)
     torch.testing.assert_close(eps, ref[2], rtol=0, atol=0, msg="episodes")
     torch.testing.assert_close(ret, ref[0], rtol=0, atol=1e-5, msg="ret")
@@ -167,13 +172,13 @@ def test_policy_rollout_kernel_matches_plain(card):
 
 
 @pytest.mark.cuda
-def test_ppo_update_kernel_matches_plain(card):
+@pytest.mark.parametrize("name", ["simple_spread", "simple_reference", "simple_world_comm"])
+def test_ppo_update_kernel_matches_plain(card, name):
     """On the trainer's epoch-0 batch and on the same batch with both clips
     binding for about half of the samples."""
-    step = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
-                                device=card)
+    step = build_fused_ppo_step(name, 1024, n_steps=16, horizon=8, block_envs=1024, device=card)
     params = step.init_params(torch.Generator().manual_seed(1))
-    obs, mv_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
+    obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
     lpo_c, v_c, shares = fused_update.clip_binding_inputs(
         logp_old, value, clip=0.2, generator=torch.Generator(card).manual_seed(3))
     assert all(0.2 < s < 0.8 for s in shares), shares
@@ -181,9 +186,9 @@ def test_ppo_update_kernel_matches_plain(card):
     # is 0 up to rounding: it is held where the clips bind
     for lpo, v_old, first_metric in ((logp_old, value, 1), (lpo_c, v_c, 0)):
         before = fused_update.ppo_update_cuda.launches
-        got, got_m = step.update(params, obs, mv_oh, None, lpo, adv_n, ret, v_old)
+        got, got_m = step.update(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
         assert fused_update.ppo_update_cuda.launches == before + 1
-        ref, ref_m = step.update.plain(params, obs, mv_oh, None, lpo, adv_n, ret, v_old)
+        ref, ref_m = step.update.plain(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
         for k in ref:
             for q in ref[k]:
                 scale = float(ref[k][q].abs().max())
@@ -191,6 +196,23 @@ def test_ppo_update_kernel_matches_plain(card):
                                            msg=f"{k}.{q}")
         for a, b in zip(got_m[first_metric:], ref_m[first_metric:]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_update_kernels_refuse_other_actor_heads(card):
+    """The actor passes are compiled for the nine scenarios' (obs width,
+    comm logits) heads: another head is refused before a launch."""
+    step = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
+                                device=card)
+    params = step.init_params(torch.Generator().manual_seed(1))
+    obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
+    narrow = {k: dict(v) for k, v in params.items()}
+    narrow["l1"]["w"] = params["l1"]["w"][:17].contiguous()
+    before = fused_update.ppo_update_cuda.launches
+    with pytest.raises(NotImplementedError, match="actor heads"):
+        fused_update.ppo_update_cuda(narrow, obs[:, :, :17].contiguous(), mv_oh, None, logp_old,
+                                     adv_n, ret, value, clip=0.2, vf_coef=0.5, ent_coef=0.01)
+    assert fused_update.ppo_update_cuda.launches == before
 
 
 @pytest.mark.cuda
@@ -202,9 +224,9 @@ def test_policy_kernels_refuse_other_specs(card, change):
     kscn = KernelSpread(dataclasses.replace(spec, **{change: value}))
     weights = fused_policy._kernel_weights(_policy(card))
     with pytest.raises(NotImplementedError, match="simple_spread's physics only"):
-        fused_policy.spread_policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device=card)
+        fused_policy.policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device=card)
     with pytest.raises(NotImplementedError, match="simple_spread's physics only"):
-        fused_policy.spread_policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device=card)
+        fused_policy.policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device=card)
 
 
 def _leaf_close(got, ref, rel: float, name: str):
@@ -217,22 +239,24 @@ def _leaf_close(got, ref, rel: float, name: str):
 
 
 @pytest.mark.cuda
-def test_mappo_update_kernel_matches_plain(card):
+@pytest.mark.parametrize("name", ["simple_spread", "simple_speaker_listener",
+                                  "simple_world_comm"])
+def test_mappo_update_kernel_matches_plain(card, name):
     """K7 on the MAPPO trainer's epoch-0 batch and on the same batch with
     both clips binding for about half of the samples (team value streams)."""
-    step = build_fused_mappo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
+    step = build_fused_mappo_step(name, 1024, n_steps=16, horizon=8, block_envs=1024,
                                   device=card)
     params = step.init_params(torch.Generator().manual_seed(1))
-    obs, mv_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
+    obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
     assert value.shape == (16, 1024) and adv_n.shape == (16, 1024)
     lpo_c, v_c, shares = fused_update.clip_binding_inputs(
         logp_old, value, clip=0.2, generator=torch.Generator(card).manual_seed(3))
     assert all(0.2 < s < 0.8 for s in shares), shares
     for lpo, v_old, first_metric in ((logp_old, value, 1), (lpo_c, v_c, 0)):
         before = fused_update.mappo_update_cuda.launches
-        got, got_m = step.update(params, obs, mv_oh, None, lpo, adv_n, ret, v_old)
+        got, got_m = step.update(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
         assert fused_update.mappo_update_cuda.launches == before + 1
-        ref, ref_m = step.update.plain(params, obs, mv_oh, None, lpo, adv_n, ret, v_old)
+        ref, ref_m = step.update.plain(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
         _leaf_close(got, ref, 1e-4, "grads")
         for a, b in zip(got_m[first_metric:], ref_m[first_metric:]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=0)

@@ -3,14 +3,18 @@ MAPPO trainer against the JAX package on the CPU.
 
 - float64: ``plain_mappo_update`` against ``fused_mappo_update(...,
   interpret=True, compute_dtype=float64)`` and against ``jax.grad`` of the
-  trainer's loss at 1e-10 (epoch 0, value_old = value); with value_old
+  trainer's loss at 1e-10 (epoch 0, value_old = value), on simple_spread and
+  on the comm and wide scenarios (simple_speaker_listener, simple_reference,
+  simple_crypto, simple_tag, simple_world_comm: joint obs of 22 to 204
+  rows, silent agents' comm factor masked); with value_old
   moved by 0.3 N(0, 1), so that the value clip binds for about half of the
   (t, env) samples, against ``jax.grad`` (the JAX kernel drops the value
   gradient where the clip does not bind and rounding puts vc's branch
   above, ROADMAP C);
 - two iterations of ``build_fused_mappo_step(device="cpu")`` against the
   JAX ``build_fused_mappo_step`` on a one-device CPU mesh (kernels in
-  Pallas interpret mode, float32) from the same params: metrics and params
+  Pallas interpret mode, float32) from the same params, on simple_spread and
+  on simple_speaker_listener (the README's comm result): metrics and params
   at atol and rtol 1e-5.
 
 The batch is made with numpy from a seed and handed to both packages.
@@ -34,6 +38,8 @@ from mpe_tpu_torch.ops import fused_update as t_update
 
 CLIP, VF, ENTC = 0.2, 0.5, 0.01
 T, N, HIDDEN, A, OW = 4, 128, 16, 3, 18
+COMM_NAMES = ["simple_speaker_listener", "simple_reference", "simple_crypto", "simple_tag",
+              "simple_world_comm"]
 
 
 def _leaves(tree):
@@ -44,7 +50,7 @@ def _forward(params, obs, dt):
     """The JAX trainer's actor logits and central value (fused_ppo.py:423-432)."""
     h = j_ppo._torso_minor(params["a1"], params["a2"], obs, dt)
     logits = j_ppo._head_minor(params["pi"], h, dt)
-    joint = obs.reshape(obs.shape[:-3] + (A * OW,) + obs.shape[-1:])
+    joint = obs.reshape(obs.shape[:-3] + (obs.shape[-3] * obs.shape[-2],) + obs.shape[-1:])
     g = j_ppo._torso_minor(params["c1"], params["c2"], joint, dt)
     return logits, j_ppo._head_minor(params["v"], g, dt)[..., 0, :]
 
@@ -52,9 +58,9 @@ def _forward(params, obs, dt):
 def _xla_loss(kscn, params, batch, dt):
     """build_fused_mappo_step's loss_fn with the team advantage already
     normalized."""
-    obs, mv_oh, logp_old, value_old, adv_n, ret = batch
+    obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = batch
     logits, value = _forward(params, obs, dt)
-    logp, ent = j_ppo._factored_logp_ent(kscn, logits, mv_oh, None)
+    logp, ent = j_ppo._factored_logp_ent(kscn, logits, mv_oh, cm_oh)
     ratio = jnp.exp(logp - logp_old)
     adv_b = adv_n[..., None, :]
     pg = -jnp.minimum(ratio * adv_b, jnp.clip(ratio, 1 - CLIP, 1 + CLIP) * adv_b).mean()
@@ -63,41 +69,61 @@ def _xla_loss(kscn, params, batch, dt):
     return pg + VF * vloss - ENTC * ent.mean(), (pg, vloss, ent.mean())
 
 
-def _batch(value_noise=0.0):
-    """Params and an epoch-shaped float64 batch: obs ~ N(0, 1), random moves,
-    logp_old from the same forward plus noise (ratios off 1, some clipped),
-    value_old the central values plus ``value_noise`` normals, a normalized
-    team advantage and random team returns [T, N]."""
-    kscn = j_kernel_scenario("simple_spread")
+def _logp_value(kscn, params, obs, mv_oh, cm_oh):
+    """The JAX trainer's float64 log-probs and central values of a batch,
+    jitted once (eager JAX compiles every op on its own)."""
+    def forward(p, o, m, c):
+        logits, value = _forward(p, o, jnp.float64)
+        return j_ppo._factored_logp_ent(kscn, logits, m, c)[0], value
+
+    asj = (lambda x: None if x is None else jnp.asarray(x))
+    logp, value = jax.jit(forward)(jax.tree.map(jnp.asarray, params), asj(obs), asj(mv_oh),
+                                   asj(cm_oh))
+    return np.asarray(logp), np.asarray(value)
+
+
+def _batch(value_noise=0.0, name="simple_spread"):
+    """Params and an epoch-shaped float64 batch: obs ~ N(0, 1), random moves
+    (and utterances with a comm head, one-hot 0 for a silent agent as K5
+    emits them), logp_old from the same forward plus noise (ratios off 1,
+    some clipped), value_old the central values plus ``value_noise``
+    normals, a normalized team advantage and random team returns [T, N]."""
+    kscn = j_kernel_scenario(name)
+    a, ow = kscn.spec.n_agents, kscn.obs_w
+    dim_c = kscn.spec.dim_c if kscn.uses_comm else 0
     f64 = jnp.float64
-    params = jax.tree.map(np.asarray, j_init_mappo(jax.random.PRNGKey(2), OW, 5, A,
+    params = jax.tree.map(np.asarray, j_init_mappo(jax.random.PRNGKey(2), ow, 5 + dim_c, a,
                                                    hidden=HIDDEN, dtype=f64))
     rng = np.random.default_rng(7)
-    obs = rng.normal(size=(T, A, OW, N))
-    mv_oh = np.moveaxis(np.eye(5)[rng.integers(0, 5, size=(T, A, N))], -1, -2)
-    logits, value = _forward(params, jnp.asarray(obs), f64)
-    logp, _ = j_ppo._factored_logp_ent(kscn, logits, jnp.asarray(mv_oh), None)
-    logp_old = np.asarray(logp) + 0.3 * rng.normal(size=(T, A, N))
+    obs = rng.normal(size=(T, a, ow, N))
+    mv_oh = np.moveaxis(np.eye(5)[rng.integers(0, 5, size=(T, a, N))], -1, -2)
+    cm_oh = None
+    if dim_c:
+        cm_oh = np.moveaxis(np.eye(dim_c)[rng.integers(0, dim_c, size=(T, a, N))], -1, -2)
+        cm_oh[:, kscn.spec.silent[:a]] = np.eye(dim_c)[:, :1]
+    logp, value = _logp_value(kscn, params, obs, mv_oh, cm_oh)
+    logp_old = logp + 0.3 * rng.normal(size=(T, a, N))
     value_old = np.asarray(value) + value_noise * rng.normal(size=(T, N))
     adv = rng.normal(size=(T, N))
     adv_n = (adv - adv.mean()) / (adv.std() + 1e-8)
     ret = rng.normal(size=(T, N))
-    return kscn, params, (obs, mv_oh, logp_old, value_old, adv_n, ret)
+    return kscn, params, (obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret)
 
 
-def _port(params, batch):
-    obs, mv_oh, logp_old, value_old, adv_n, ret = (torch.tensor(x) for x in batch)
-    update = t_update.fused_mappo_update("simple_spread", N, T, HIDDEN, clip=CLIP, vf_coef=VF,
+def _port(kscn, params, batch):
+    obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else torch.tensor(x)
+                                                           for x in batch)
+    update = t_update.fused_mappo_update(kscn.spec.name, N, T, HIDDEN, clip=CLIP, vf_coef=VF,
                                          ent_coef=ENTC, device="cpu", dtype=torch.float64)
     return update(params_from_numpy(params, device="cpu", dtype=torch.float64), obs, mv_oh,
-                  None, logp_old, adv_n, ret, value_old)
+                  cm_oh, logp_old, adv_n, ret, value_old)
 
 
 def _jax_grad(kscn, params, batch):
-    jbatch = tuple(map(jnp.asarray, batch))
-    (_, metrics), grads = jax.value_and_grad(
-        lambda p: _xla_loss(kscn, p, jbatch, jnp.float64), has_aux=True)(
-            jax.tree.map(jnp.asarray, params))
+    jbatch = tuple(None if x is None else jnp.asarray(x) for x in batch)
+    (_, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: _xla_loss(kscn, p, b, jnp.float64), has_aux=True))(
+            jax.tree.map(jnp.asarray, params), jbatch)
     return grads, metrics
 
 
@@ -111,14 +137,16 @@ def _assert_f64_equal(got, got_m, want, want_m):
                                rtol=1e-10, atol=1e-12)
 
 
-def test_plain_mappo_update_f64_matches_jax_kernel_and_jax_grad():
-    kscn, params, batch = _batch()
-    got, got_m = _port(params, batch)
-    obs, mv_oh, logp_old, value_old, adv_n, ret = map(jnp.asarray, batch)
+@pytest.mark.parametrize("name", ["simple_spread"] + COMM_NAMES)
+def test_plain_mappo_update_f64_matches_jax_kernel_and_jax_grad(name):
+    kscn, params, batch = _batch(name=name)
+    got, got_m = _port(kscn, params, batch)
+    obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else jnp.asarray(x)
+                                                           for x in batch)
     j_update = j_fused_mappo_update(kscn, n_envs=N, n_steps=T, hidden=HIDDEN, clip=CLIP,
                                     vf_coef=VF, ent_coef=ENTC, block_envs=64, t_chunk=4,
                                     interpret=True, compute_dtype=jnp.float64)
-    want_k = j_update(jax.tree.map(jnp.asarray, params), obs, mv_oh, None, logp_old, adv_n, ret,
+    want_k = j_update(jax.tree.map(jnp.asarray, params), obs, mv_oh, cm_oh, logp_old, adv_n, ret,
                       value_old)
     _assert_f64_equal(got, got_m, *want_k)
     _assert_f64_equal(got, got_m, *_jax_grad(kscn, params, batch))
@@ -126,10 +154,10 @@ def test_plain_mappo_update_f64_matches_jax_kernel_and_jax_grad():
 
 def test_plain_mappo_update_f64_with_value_clip_matches_jax_grad():
     kscn, params, batch = _batch(value_noise=0.3)
-    value = np.asarray(_forward(params, jnp.asarray(batch[0]), jnp.float64)[1])
-    share = float((np.abs(value - batch[3]) > CLIP).mean())
+    value = _logp_value(kscn, params, *batch[:3])[1]
+    share = float((np.abs(value - batch[4]) > CLIP).mean())
     assert 0.3 < share < 0.7, share
-    got, got_m = _port(params, batch)
+    got, got_m = _port(kscn, params, batch)
     _assert_f64_equal(got, got_m, *_jax_grad(kscn, params, batch))
 
 
@@ -140,12 +168,12 @@ def test_init_mappo_layout():
     assert float(params["pi"]["w"].abs().max()) < 0.1 < float(params["c1"]["w"].abs().max())
 
 
-def test_fused_mappo_step_matches_jax_two_iterations():
+@pytest.mark.parametrize("name", ["simple_spread", "simple_speaker_listener"])
+def test_fused_mappo_step_matches_jax_two_iterations(name):
     kw = dict(n_envs=64, n_steps=8, horizon=4, hidden=16, block_envs=32, t_chunk=4)
-    j_step = j_ppo.build_fused_mappo_step("simple_spread",
-                                          Mesh(np.array(jax.devices()[:1]), ("env",)),
+    j_step = j_ppo.build_fused_mappo_step(name, Mesh(np.array(jax.devices()[:1]), ("env",)),
                                           interpret=True, compute_dtype=jnp.float32, **kw)
-    t_step = t_ppo.build_fused_mappo_step("simple_spread", device="cpu", **kw)
+    t_step = t_ppo.build_fused_mappo_step(name, device="cpu", **kw)
     params = jax.tree.map(np.asarray, j_step.init_params(jax.random.PRNGKey(0)))
     j_state = j_step.init_state(jax.tree.map(jnp.asarray, params))
     t_state = t_step.init_state(params_from_numpy(params, device="cpu"))
@@ -184,7 +212,8 @@ def test_fused_mappo_step_autograd_epochs_match_kernel_epochs():
 def test_mappo_update_refuses_what_it_does_not_compute():
     _, params, batch = _batch()
     tp = params_from_numpy(params, device="cpu")
-    obs, mv_oh, lpo, vold, adv, ret = (torch.tensor(x, dtype=torch.float32) for x in batch)
+    obs, mv_oh, _, lpo, vold, adv, ret = (None if x is None else torch.tensor(x, dtype=torch.float32)
+                                          for x in batch)
     update = t_update.fused_mappo_update("simple_spread", N, T, HIDDEN, device="cpu")
     with pytest.raises(ValueError, match="cm_oh must be None"):
         update(tp, obs, mv_oh, mv_oh, lpo, adv, ret, vold)
@@ -192,8 +221,14 @@ def test_mappo_update_refuses_what_it_does_not_compute():
         t_update.fused_mappo_update("simple_spread", N, T, 32, device="cpu")(
             tp, obs, mv_oh, None, lpo, adv, ret, vold)
     with pytest.raises(ValueError, match="CUDA"):
-        t_update.mappo_update_cuda(tp, obs, mv_oh, lpo, adv, ret, vold, clip=CLIP, vf_coef=VF,
-                                   ent_coef=ENTC)
+        t_update.mappo_update_cuda(tp, obs, mv_oh, None, lpo, adv, ret, vold, clip=CLIP,
+                                   vf_coef=VF, ent_coef=ENTC)
+    # the comm scenarios take their comm one-hots
+    _, params, batch = _batch(name="simple_speaker_listener")
+    obs, mv_oh, cm_oh, lpo, vold, adv, ret = (torch.tensor(x, dtype=torch.float32) for x in batch)
+    update = t_update.fused_mappo_update("simple_speaker_listener", N, T, HIDDEN, device="cpu")
+    with pytest.raises(ValueError, match="has a comm head"):
+        update(params_from_numpy(params, device="cpu"), obs, mv_oh, None, lpo, adv, ret, vold)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_ppo.build_fused_mappo_step("simple_spread", 64, n_steps=8, t_chunk=4)

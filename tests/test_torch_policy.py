@@ -1,14 +1,17 @@
 """The port's policy-in-the-loop rollouts (plain versions of kernels K4 and
-K5) against the JAX package on the CPU.
+K5) against the JAX package on the CPU, on all nine scenarios.
 
 - ``make_uniform`` with the chunk salt: bit for bit against the JAX
   kernels' interpret-mode stream, drawn inside a Pallas interpret call;
 - ``_argmax_onehot``: equal to JAX's on tie cases;
 - the plain trajectory and evaluation rollouts against
   ``fused_policy_trajectory`` / ``fused_policy_rollout`` in Pallas interpret
-  mode, from the same weights: actions and episode counts equal, float32
-  values at atol and rtol 1e-5 (XLA's dot sums in its own order and CPU
-  libm differs from XLA's tanh/log by ulps).
+  mode, from the same weights (an init_policy MLP of the scenario's obs
+  width and 5 + dim_c outputs): moves, comm indices and episode counts
+  equal, float32 values at atol and rtol 1e-5 (XLA's dot sums in its own
+  order and CPU libm differs from XLA's tanh/log by ulps);
+- the committed fused-MAPPO actor of simple_speaker_listener
+  (``checkpoints/mappo_speaker_listener_fused.npz``) evaluated by both.
 
 The CUDA kernels run only on a card: ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold them against these plain versions there.
@@ -25,7 +28,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from mpe_tpu.learner import init_policy as j_init_policy
-from mpe_tpu_torch.convert import params_from_numpy
+from mpe_tpu.ops.kernel_scenarios import kernel_scenario as j_kernel_scenario
+from mpe_tpu_torch.convert import params_from_numpy, read_checkpoint_params
 
 j_fused = importlib.import_module("mpe_tpu.ops.fused_rollout")
 j_policy = importlib.import_module("mpe_tpu.ops.fused_policy")
@@ -34,15 +38,22 @@ t_policy = importlib.import_module("mpe_tpu_torch.ops.fused_policy")
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 SMALL = dict(n_envs=128, n_steps=16, horizon=6, block_envs=64)
+NAMES = ["simple_spread", "simple", "simple_reference", "simple_speaker_listener",
+         "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
+CKPT = "checkpoints/mappo_speaker_listener_fused.npz"
 
 
 def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _params(hidden=16, seed=0):
-    """JAX init_policy params as numpy, and the same weights in the port."""
-    tree = jax.tree.map(np.asarray, j_init_policy(jax.random.PRNGKey(seed), 18, 5, hidden=hidden))
+def _params(hidden=16, seed=0, name="simple_spread"):
+    """JAX init_policy params of the scenario's widths (obs width -> 5 +
+    dim_c) as numpy, and the same weights in the port."""
+    kscn = j_kernel_scenario(name)
+    k = 5 + (kscn.spec.dim_c if kscn.uses_comm else 0)
+    tree = jax.tree.map(np.asarray, j_init_policy(jax.random.PRNGKey(seed), kscn.obs_w, k,
+                                                  hidden=hidden))
     return tree, params_from_numpy(tree, device="cpu")
 
 
@@ -90,37 +101,66 @@ def test_argmax_onehot_first_max_tie_break(z):
     assert (got.sum(0) == 1).all()
 
 
-def test_plain_policy_trajectory_matches_jax_interpret():
-    tree, params = _params()
-    j_run = j_policy.fused_policy_trajectory("simple_spread", tree, t_chunk=4, interpret=True,
-                                             **SMALL)
-    t_run = t_policy.fused_policy_trajectory("simple_spread", params, t_chunk=4, device="cpu",
-                                             **SMALL)
+@pytest.mark.parametrize("scenario", NAMES)
+def test_plain_policy_trajectory_matches_jax_interpret(scenario):
+    tree, params = _params(name=scenario)
+    kscn = j_kernel_scenario(scenario)
+    a, ow = kscn.spec.n_agents, kscn.obs_w
+    j_run = j_policy.fused_policy_trajectory(scenario, tree, t_chunk=4, interpret=True, **SMALL)
+    t_run = t_policy.fused_policy_trajectory(scenario, params, t_chunk=4, device="cpu", **SMALL)
+    assert t_run.has_comm == j_run.has_comm == kscn.uses_comm
     for block_offset in (0, 3):
         want = j_run(11, tree, block_offset)
         got = t_run(11, params, block_offset)
-        obs, act, rew, last_obs = got
-        assert obs.shape == (16, 3, 18, 128) and act.dtype == torch.int32
-        np.testing.assert_array_equal(_np(act), _np(want[1]))
-        for name, a, b in zip(("obs", "rew", "last_obs"), (obs, rew, last_obs),
-                              (want[0], want[2], want[3])):
-            assert a.dtype == torch.float32 and tuple(a.shape) == b.shape, name
-            np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
-    # horizon 6 over 16 steps: the obs after each reset has zero velocity
-    assert np.abs(_np(obs)[6, :, 0:2]).max() == 0.0 and np.abs(_np(obs)[5, :, 0:2]).max() > 0
+        assert len(got) == len(want) == (5 if kscn.uses_comm else 4)
+        obs, act, *cact, rew, last_obs = got
+        assert obs.shape == (16, a, ow, 128) and act.dtype == torch.int32
+        for k, x, y in zip(("act", "cact"), [act] + cact, [want[1]] + list(want[2:-2])):
+            assert x.dtype == torch.int32, k
+            np.testing.assert_array_equal(_np(x), _np(y), err_msg=k)
+        for k, x, y in zip(("obs", "rew", "last_obs"), (obs, rew, last_obs),
+                           (want[0], want[-2], want[-1])):
+            assert x.dtype == torch.float32 and tuple(x.shape) == y.shape, k
+            np.testing.assert_allclose(_np(x), _np(y), err_msg=k, **F32_TOL)
+    if cact:                   # the speakers' utterances vary; silent agents' are 0
+        speak = ~kscn.spec.silent[:a]
+        assert len(np.unique(_np(cact[0])[:, speak])) == kscn.spec.dim_c
+        assert (_np(cact[0])[:, ~speak] == 0).all()
+    if scenario == "simple_spread":
+        # horizon 6 over 16 steps: the obs after each reset has zero velocity
+        assert np.abs(_np(obs)[6, :, 0:2]).max() == 0.0 and np.abs(_np(obs)[5, :, 0:2]).max() > 0
 
 
-def test_plain_policy_rollout_matches_jax_interpret():
-    tree, params = _params(seed=1)
-    j_run = j_policy.fused_policy_rollout("simple_spread", tree, interpret=True, **SMALL)
-    t_run = t_policy.fused_policy_rollout("simple_spread", params, device="cpu", **SMALL)
+@pytest.mark.parametrize("scenario", NAMES)
+def test_plain_policy_rollout_matches_jax_interpret(scenario):
+    tree, params = _params(seed=1, name=scenario)
+    j_run = j_policy.fused_policy_rollout(scenario, tree, interpret=True, **SMALL)
+    t_run = t_policy.fused_policy_rollout(scenario, params, device="cpu", **SMALL)
     for block_offset in (0, 1):
         want = j_run(4, tree, block_offset)
         ret, pos, eps = t_run(4, params, block_offset)
         np.testing.assert_array_equal(_np(eps), _np(want[2]))
         assert float(eps[0, 0]) == 16 // 6
+        assert ret.shape == (j_kernel_scenario(scenario).reward_rows, 128)
         for name, a, b in zip(("ret", "pos"), (ret, pos), want[:2]):
             np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
+
+
+def test_committed_speaker_listener_actor_matches_jax():
+    """The fused-MAPPO actor of the README's comm result (a1, a2, pi of
+    checkpoints/mappo_speaker_listener_fused.npz, 11-64-64-8), evaluated by
+    the plain K4 and by JAX's in interpret mode: returns and positions."""
+    tree = read_checkpoint_params(CKPT)
+    actor = {"l1": tree["a1"], "l2": tree["a2"], "out": tree["pi"]}
+    kw = dict(n_envs=64, n_steps=50, horizon=25, block_envs=32)
+    want = j_policy.fused_policy_rollout("simple_speaker_listener", actor, interpret=True,
+                                         **kw)(2, actor)
+    t_actor = params_from_numpy(actor, device="cpu")
+    ret, pos, eps = t_policy.fused_policy_rollout("simple_speaker_listener", t_actor, device="cpu",
+                                                  **kw)(2, t_actor)
+    np.testing.assert_array_equal(_np(eps), _np(want[2]))
+    for name, a, b in zip(("ret", "pos"), (ret, pos), want[:2]):
+        np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
 
 
 def test_policy_trajectory_samples_from_a_hard_biased_head():
@@ -145,10 +185,18 @@ def test_policy_builders_refuse_what_they_do_not_compute():
                                             "b": np.zeros(7, np.float32)}}, device="cpu")
     with pytest.raises(ValueError, match="needs 18 -> 5"):
         t_policy.fused_policy_rollout("simple_spread", bad, 64, 10, device="cpu")
-    # the kernels take the 18-64-64-5 MLP only
+    # a comm scenario needs its comm logits: simple_reference takes 21 -> 15
+    with pytest.raises(ValueError, match="needs 21 -> 15"):
+        t_policy.fused_policy_trajectory("simple_reference", _params(name="simple_spread")[1], 64,
+                                         8, t_chunk=4, device="cpu")
+    # the kernels take hidden width 64 only, and the scenario's widths
     weights = t_policy._kernel_weights(params)
-    with pytest.raises(NotImplementedError, match="18-64-64-5"):
+    with pytest.raises(NotImplementedError, match="hidden width 64"):
         t_policy._kernel_args(t_policy._resolve("simple_spread"), weights, 64, 8, 4, 64,
+                              torch.device("cuda"))
+    wide = t_policy._kernel_weights(_params(hidden=64, name="simple_reference")[1])
+    with pytest.raises(ValueError, match="takes an 18-64-64-5 MLP"):
+        t_policy._kernel_args(t_policy._resolve("simple_spread"), wide, 64, 8, 4, 64,
                               torch.device("cuda"))
 
 

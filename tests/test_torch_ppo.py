@@ -4,11 +4,14 @@ the CPU.
 - the clip + Adam optimizer against optax, 5 steps in float64, the clip
   active on some steps and not on others, with a fixed and an annealed
   learning rate: params and moments at 1e-12;
-- ``_gae_minor`` and ``_factored_logp_ent`` in float64 at 1e-12;
+- ``_gae_minor`` in float64 at 1e-12; ``_factored_onehots`` and
+  ``_factored_logp_ent`` in float64 at 1e-12, move-only and with a comm
+  factor and silent agents (simple_speaker_listener, simple_world_comm);
 - two iterations of ``build_fused_ppo_step(device="cpu")`` against the JAX
   ``build_fused_ppo_step`` on a one-device CPU mesh (kernels in Pallas
-  interpret mode, float32) from the same initial params: metrics and params
-  at atol and rtol 1e-5.
+  interpret mode, float32) from the same initial params, on simple_spread
+  and simple_reference (two speakers): metrics and params at atol and rtol
+  1e-5.
 """
 
 import jax
@@ -80,26 +83,43 @@ def test_gae_minor_matches_jax_f64():
     np.testing.assert_allclose(ret.numpy(), np.asarray(j_ret), rtol=1e-12, atol=1e-12)
 
 
-def test_factored_logp_ent_matches_jax_f64():
+@pytest.mark.parametrize("name", ["simple_spread", "simple_speaker_listener",
+                                  "simple_world_comm"])
+def test_factored_logp_ent_matches_jax_f64(name):
+    j_k, t_k = j_kernel_scenario(name), t_kernel_scenario(name)
+    a, dim_c = j_k.spec.n_agents, j_k.spec.dim_c if j_k.uses_comm else 0
     rng = np.random.default_rng(2)
-    logits = 3.0 * rng.normal(size=(4, 3, 5, 16))
-    act = rng.integers(0, 5, size=(4, 3, 16)).astype(np.int32)
-    j_k, t_k = j_kernel_scenario("simple_spread"), t_kernel_scenario("simple_spread")
-    j_mv, _ = j_ppo._factored_onehots(j_k, jnp.asarray(act), None)
-    t_mv = t_ppo._factored_onehots(t_k, torch.tensor(act))
+    logits = 3.0 * rng.normal(size=(4, a, 5 + dim_c, 16))
+    act = rng.integers(0, 5, size=(4, a, 16)).astype(np.int32)
+    cact = rng.integers(0, max(dim_c, 1), size=(4, a, 16)).astype(np.int32)
+    j_mv, j_cm = j_ppo._factored_onehots(j_k, jnp.asarray(act), jnp.asarray(cact))
+    t_mv, t_cm = t_ppo._factored_onehots(t_k, torch.tensor(act), torch.tensor(cact))
     np.testing.assert_array_equal(t_mv.numpy(), np.asarray(j_mv))
-    j_lp, j_ent = j_ppo._factored_logp_ent(j_k, jnp.asarray(logits), j_mv.astype(jnp.float64),
-                                           None)
-    lp, ent = t_ppo._factored_logp_ent(t_k, torch.tensor(logits), t_mv.double())
+    assert (t_cm is None) == (j_cm is None) == (not dim_c)
+    if dim_c:
+        np.testing.assert_array_equal(t_cm.numpy(), np.asarray(j_cm))
+    j_lp, j_ent = j_ppo._factored_logp_ent(
+        j_k, jnp.asarray(logits), j_mv.astype(jnp.float64),
+        None if j_cm is None else j_cm.astype(jnp.float64))
+    lp, ent = t_ppo._factored_logp_ent(t_k, torch.tensor(logits), t_mv.double(),
+                                       None if t_cm is None else t_cm.double())
     np.testing.assert_allclose(lp.numpy(), np.asarray(j_lp), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(ent.numpy(), np.asarray(j_ent), rtol=1e-12, atol=1e-12)
+    if dim_c:                 # a silent agent's comm factor is masked, a speaker's is not
+        lp_move, _ = t_ppo._factored_logp_ent(t_kernel_scenario("simple_spread"),
+                                              torch.tensor(logits[..., :5, :]), t_mv.double(),
+                                              None)
+        silent = j_k.spec.silent[:a]
+        np.testing.assert_array_equal(lp.numpy()[:, silent], lp_move.numpy()[:, silent])
+        assert (lp.numpy()[:, ~silent] < lp_move.numpy()[:, ~silent]).all()
 
 
-def test_fused_ppo_step_matches_jax_two_iterations():
+@pytest.mark.parametrize("name", ["simple_spread", "simple_reference"])
+def test_fused_ppo_step_matches_jax_two_iterations(name):
     kw = dict(n_envs=64, n_steps=8, horizon=4, hidden=16, block_envs=32, t_chunk=4)
-    j_step = j_ppo.build_fused_ppo_step("simple_spread", Mesh(np.array(jax.devices()[:1]), ("env",)),
+    j_step = j_ppo.build_fused_ppo_step(name, Mesh(np.array(jax.devices()[:1]), ("env",)),
                                         interpret=True, compute_dtype=jnp.float32, **kw)
-    t_step = t_ppo.build_fused_ppo_step("simple_spread", device="cpu", **kw)
+    t_step = t_ppo.build_fused_ppo_step(name, device="cpu", **kw)
     params = jax.tree.map(np.asarray, j_step.init_params(jax.random.PRNGKey(0)))
     j_state = j_step.init_state(jax.tree.map(jnp.asarray, params))
     t_state = t_step.init_state(params_from_numpy(params, device="cpu"))
