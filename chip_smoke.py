@@ -8,17 +8,19 @@ failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time and the compiler's register report;
-  2. eight main paths, each with every kernel's launch count set to 0 just
+  2. ten main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
           the fused engine (kernel K2) at 4096 envs x 10000 steps, horizon
           100, block_envs 1024 (the bench's headline config), and at 16384
           and 65536 envs; the deterministic rollout (kernel K1) on
-          make_det_inputs, 4096 envs x 10000 steps; the fused mean reward
-          per env-step must agree with the generic engine's within 5
-          standard errors; K2 is one kernel template with one C entry,
-          scenario_rollout_kernel<S>, here its simple_spread instantiation;
+          make_det_inputs, 4096 envs x 10000 steps, printed beside the time
+          of the spread-only kernel it replaced; the fused mean reward per
+          env-step must agree with the generic engine's within 5 standard
+          errors; K1 and K2 are kernel templates with one C entry each,
+          det_rollout_kernel<S> and scenario_rollout_kernel<S>, here their
+          simple_spread instantiations;
        b. training: build_fused_ppo_step at tools/train_bench.py's width
           (4096 envs x 64 steps, horizon 32, hidden 64, 4 PPO epochs,
           block_envs 1024, t_chunk 8) for 20 iterations (kernels K5 and K6),
@@ -45,9 +47,15 @@ failure ends the run with a non-zero exit code:
           updates (kernels K8 and K9), CUDA-event times split into collect
           and update, transitions/s over chunks 1-39, critic loss and mean
           reward of the first and last chunk, which must be finite;
+       d2. the same runner with comm heads on simple_speaker_listener (a
+          speaker, a silent listener; rows of 62 floats), 40 chunks, timed
+          and checked the same way (tools/tpu_smoke.py's comm row);
+       d3. the same runner on simple_world_comm (6 agents, a 258-wide joint,
+          rows of 468 floats, a 3.07 GB ring), 8 chunks;
        e. the other scenarios and trajectories, as tools/tpu_smoke.py runs
-          every scenario: the fused engine (K2) on the eight scenarios other
-          than simple_spread (simple, simple_reference,
+          every scenario: the deterministic rollout (K1) on the eight
+          scenarios other than simple_spread at 4096 envs x 10000 steps; the
+          fused engine (K2) on them (simple, simple_reference,
           simple_speaker_listener, simple_adversary, simple_push,
           simple_crypto, simple_tag and simple_world_comm; the last two
           through the pair physics) at 4096 envs x 10000 steps, horizon
@@ -60,7 +68,8 @@ failure ends the run with a non-zero exit code:
           median CUDA-event time of 3 runs, bytes written and the write
           bandwidth they reach; the launches of each instantiation;
   3. every kernel held against its plain PyTorch version on the card: K1
-     and K2 over 20 steps (K2 with horizon 10, so resets happen); K5 and K4
+     on all nine scenarios and K2 over 20 steps (K2 with horizon 10, so
+     resets happen); K5 and K4
      on simple_spread over 16 steps with horizon 8, two block offsets; K5 on
      all nine scenarios at 4096 envs x 64 steps (horizon 25, t_chunk 8;
      moves and comm indices equal) and at the training shape (horizon 32)
@@ -73,12 +82,15 @@ failure ends the run with a non-zero exit code:
      scenario's K5 batch of its trainer at 4096 envs x 64 steps and on the
      same batch with both clips binding (K7 with simple_world_comm's
      204-wide critic); one whole trainer iteration of each (params and
-     metrics) against the same iteration with the plain versions; K8 at
-     1024 envs x 25 steps, two block offsets, with the actor of
-     checkpoints/maddpg_spread_fused.npz and with the runner's actor, in
-     both output forms; K9 on 1024 rows of the runner's ring (with the
-     target actions' agreement and their smallest logit gap) and one update
-     chunk of 25 updates with the same indices; K2 on all nine scenarios
+     metrics) against the same iteration with the plain versions; K8 on
+     all nine scenarios at 1024 envs x 25 steps, two block offsets, with
+     the actor of the scenario's committed checkpoints/maddpg_*.npz (and
+     the trained actor of path d, d2 or d3), in both output forms; K9 on
+     all nine at batch 1024 on rows K8 collected with the checkpoint's
+     actor, with its trained critic, and on 1024 rows of path d's ring
+     (target actions equal per head, their smallest logit gap printed); one
+     update chunk of 25 updates of paths d, d2 and d3 with the same
+     indices; K2 on all nine scenarios
      over 20 steps (two block offsets, kernel and plain version timed there),
      on simple_reference at path e's 4096 envs x 10000 steps (the obs sums
      within 1e-4 of the largest) and on each of the five scenarios ported
@@ -92,17 +104,18 @@ failure ends the run with a non-zero exit code:
      TRAJ_WIDE, at path e's 65536 envs x 64 steps, actions equal and the
      rest within 1e-5 (at path e's shapes with another seed than path e's,
      so that no stale output can pass);
-  4. the plain versions timed at the main paths' shapes, each kernel's bound
-     from the operations its function needs (OPS below), and for K6, K7 and
-     K9 the same gradient by autograd (the library yardstick), K4-K7 on
-     every scenario at the gate's shape; one MADDPG
+  4. the plain versions timed at the main paths' shapes (K1's of the eight
+     others at 4096 envs x 200 steps), each kernel's bound from the
+     operations its function needs (OPS below), and for K6, K7 and K9 the
+     same gradient by autograd (the library yardstick), K4-K9 on every
+     scenario at the gate's shape; one MADDPG
      update chunk under torch.profiler (K9's device time, the device's busy
      share), and each K3 call of path e (its device time);
-  5. a ``{"kernels": [...]}`` line (the K2-K7 rows name their scenarios
-     and the one their top-level numbers were timed on, and carry per
-     scenario the launches, time, bound, plain time and error of each
-     instantiation, K4-K7 also its registers and spills, K6 and K7 the
-     library time), the ``nvidia-smi`` name/power-limit line, and ``{"ok":
+  5. a ``{"kernels": [...]}`` line (the K1-K9 rows name their scenarios
+     and the one their top-level numbers were timed on, and carry
+     per scenario the launches, time, bound, plain time and error of each
+     instantiation, K1 and K4-K9 also its registers and spills, K6, K7 and
+     K9 the library time), the ``nvidia-smi`` name/power-limit line, and ``{"ok":
      true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the ``mpe_tpu_torch`` package beside it, and
@@ -141,15 +154,28 @@ MAPPO_CKPT = "checkpoints/mappo_speaker_listener_fused.npz"
 # horizon, and 200 evaluation steps
 POLICY_GATE = dict(n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
 EVAL_GATE_STEPS = 200
-# MADDPG (tools/train_bench.py:123-126, the runner's defaults otherwise)
+# MADDPG (tools/train_bench.py:123-126, the runner's defaults otherwise): path
+# d on simple_spread, and with comm heads d2 on simple_speaker_listener
+# (tools/tpu_smoke.py's comm row, the README's MADDPG comm result) and d3 on
+# simple_world_comm (the widest: 6 agents, a 258-wide joint)
 MADDPG = dict(n_envs=1024, horizon=25, batch=1024)
 MADDPG_CHUNKS, MADDPG_ACTOR_START = 40, 250
+MADDPG_COMM = (("simple_speaker_listener", 40), ("simple_world_comm", 8))
 MADDPG_CKPT = "checkpoints/maddpg_spread_fused.npz"
+# K1: the spread-only kernel that det_rollout_kernel<S> replaced took 7.318 ms
+# at 4096 envs x 10,000 steps on an H100 80GB HBM3 at 700 W (PERF.md),
+# printed beside <SpreadScn>; the plain K1 of the eight others is timed over
+# K1_PLAIN_STEPS steps (simple_spread's takes 23 s at 10,000)
+K1_SPREAD_ONLY_MS = 7.318
+K1_PLAIN_STEPS = 200
 # the other scenarios (K2) and the trajectories (K3): the learner batch of
 # tools/train_bench.py and tools/tpu_smoke.py's t_chunk; the gate's shape
 SCENARIOS = ("simple", "simple_reference", "simple_speaker_listener", "simple_adversary",
              "simple_push", "simple_crypto", "simple_tag", "simple_world_comm")
 ALL_SCENARIOS = ("simple_spread",) + SCENARIOS
+# each scenario's committed MADDPG checkpoint (actor and trained critic)
+MADDPG_CKPTS = {"simple_spread": MADDPG_CKPT,
+                **{n: f"checkpoints/maddpg_{n.removeprefix('simple_')}.npz" for n in SCENARIOS}}
 K2_LONG = "simple_reference"            # K2 against plain at path e's whole shape
 # the long K2 gates of the scenarios ported last, at path e's envs
 LONG_GATE = ("simple_adversary", "simple_push", "simple_crypto", "simple_tag",
@@ -235,13 +261,6 @@ OPS = {
         "reset": RESET,
         "env": {},
     },
-    # step: + the per-step salt (1 int) and one add per agent (3 int); once per
-    # env: the final obs, 30 relative coordinates
-    "spread_det_rollout_kernel": {
-        "step": _ops(*SPREAD_STEP, (1, ACCUMULATE), (4, {"int": 1})),
-        "reset": {},
-        "env": {"fp32": 30},
-    },
 }
 
 # The MLPs of the policy, update and MADDPG kernels. A dense layer of n_in
@@ -260,13 +279,10 @@ def torso(n_in: int) -> tuple:
     return dense(n_in, 64), (64, TANH), dense(64, 64), (64, TANH)
 
 
-MLP = torso(18)                                     # simple_spread's actor torso (K8, K9)
 GUMBEL = {"int": 10, "cvt": 1, "fp32": 6, "sfu": 2}  # the hash (10 int, cvt, x 2^-24); + 1e-12,
 #                                                      log, its x ln2 fused with + 1e-12; log,
 #                                                      its x ln2 fused with the logit's -;
 #                                                      argmax: compare, select
-POLICY_AGENT = _ops((1, {"fp32": 10}), *MLP, dense(64, 5), (5, GUMBEL), (5, {"int": 1}))
-#                    obs: 10 relative coordinates; one-hot move: 5 compares
 
 
 def update_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
@@ -298,33 +314,6 @@ def critic_sample(n_in: int) -> dict:
                 (1, {"fp32": 64 * 3 + 64 * 64 + 64 * 2}),
                 (1, {"fp32": 64 * n_in + 64 * 64 + 64 + 129}))
 
-
-# K8 (csrc/mpe_maddpg.cu) per env-step: per agent K5's MLP and Gumbel-max,
-# the eps one-hot's Gumbel-max (5 more draws), the eps coin (a hash, compare,
-# select) and 3 salts; the spread step; the obs2 rows (30 relative
-# coordinates).
-MADDPG_AGENT = _ops((1, POLICY_AGENT), (5, GUMBEL), (1, {"int": 13, "cvt": 1, "fp32": 3}))
-MADDPG_STEP = ((3, MADDPG_AGENT), (3, DECODE), (3, PAIR_FORCE), (3, INTEGRATE), (9, LANDMARK_DIST),
-               (3, PAIR_COLLISION), (1, REWARD_REST), (3, {"int": 1}), (1, {"fp32": 30}))
-OPS["spread_maddpg_traj_kernel"] = {"step": _ops(*MADDPG_STEP), "reset": RESET, "env": {}}
-
-# K9 per sample, for each of the 3 agents: the target actor and its
-# first-argmax (4 compares, 4 selects); the target critic (69-64-64-1) and y
-# (1 fma); the critic forward with the candidates' base (64 x (5 fma + 1)); 5
-# candidates (64 adds, layers 2-3); d, g3 and the backward pass (64 x 3,
-# 64 x 64 + 64 x 2); the critic's weight gradients (64 x 69 + 64 x 64 + 64
-# multiply-adds, 129 bias sums); the actor forward; the entropy softmax,
-# expected Q and logit gradient (88 fp32, 16 SFU: 5 exp, 1 + 5 reciprocals,
-# 5 logs); the actor backward and weight gradients as in K7.
-MADDPG_AGENT_UPDATE = _ops(
-    *MLP, dense(64, 5), (1, {"fp32": 8}),
-    dense(69, 64), (64, TANH), dense(64, 64), (64, TANH), dense(64, 1), (1, {"fp32": 1}),
-    dense(69, 64), (64, {"fp32": 6}), (64, TANH), dense(64, 64), (64, TANH), dense(64, 1),
-    (5 * 64, {"fp32": 1}), (5 * 64, TANH), (5, _ops(dense(64, 64), (64, TANH), dense(64, 1))),
-    (1, {"fp32": 2 + 64 * 3 + 64 * 64 + 64 * 2}), (1, {"fp32": 64 * 69 + 64 * 64 + 64 + 129}),
-    *MLP, dense(64, 5), (1, {"fp32": 88, "sfu": 16}),
-    (1, {"fp32": 64 * 7 + 64 * 64 + 64 * 2}), (1, {"fp32": 64 * 18 + 64 * 64 + 5 * 64 + 133}))
-OPS["maddpg_update_kernel"] = {"step": _ops((3, MADDPG_AGENT_UPDATE)), "reset": {}, "env": {}}
 
 # K3 (csrc/mpe_trajectory.cu) per env-step. It emits every move draw, so all 5
 # columns are hashed, and the comm draws of non-silent agents; then the step,
@@ -407,31 +396,31 @@ STEP_INT = {"int": 1}                       # a salt, the horizon counter or its
 # (agent, landmark) pairs, the integration (and the clamp), the reward terms,
 # the obs coordinates and selects; K2 adds the obs sum (one add per nonzero
 # entry) and the running sums of the reward rows; the salts, the counter and
-# its test.
+# its test; K1 (below) one salt per agent and the step counter (salts).
 PHYS = {
     # 3 movable agents, no pair; reward: the goal pick, 3 distances, -d0^2, the
     # min, + d0; obs: 28 relative coordinates, 28 nonzero entries; 3 rows
     "simple_adversary": dict(agents=3, moves=12, all_moves=15, comm=0, pairs=(0, 0), clamp=False,
                              reward=((1, GOAL_PICK), (3, DIST), (1, {"fp32": 3})), obs_rel=28,
-                             entries=28, rows=3, reset=reset_ops(10, 1)),
+                             entries=28, rows=3, salts=4, reset=reset_ops(10, 1)),
     # 2 agents, 1 pair (generic order); reward: the pick, 2 distances, d1 - d0;
     # obs: 14 coordinates, the own color (2 compares, 2 selects), 27 entries
     "simple_push": dict(agents=2, moves=8, all_moves=10, comm=0, pairs=(1, 0), clamp=False,
                         reward=((1, GOAL_PICK), (2, DIST), (1, {"fp32": 1}),
                                 (1, {"int": 2, "fp32": 2})), obs_rel=14, entries=27, rows=2,
-                        reset=reset_ops(8, 1)),
+                        salts=3, reset=reset_ops(8, 1)),
     # immobile agents, 12 comm hashes; reward: 2 guarded errors (4 x (!= 0,
     # select, max) + 4 x (goal compare, select, -, square or fma) + x nz) and
     # -gb + ge; obs: 12 one-hot entries (compare, select), 20 nonzero entries
     "simple_crypto": dict(agents=0, moves=0, all_moves=15, comm=12, pairs=(0, 0), clamp=False,
                           reward=((2, {"fp32": 25, "int": 4}), (1, {"fp32": 1}),
                                   (1, {"int": 12, "fp32": 12})), obs_rel=0, entries=20, rows=3,
-                          reset=reset_ops(10, 2)),
+                          salts=4, reset=reset_ops(10, 2)),
     # 4 agents, 6 + 8 pairs, clamped; reward: 3 prey tests, 2 bound terms,
     # 10 hits, -10 hits - bound; obs: 40 coordinates, 62 entries
     "simple_tag": dict(agents=4, moves=16, all_moves=20, comm=0, pairs=(6, 8), clamp=True,
                        reward=((3, D2_TEST), (2, BOUND), (1, {"fp32": 3})), obs_rel=40,
-                       entries=62, rows=4, reset=reset_ops(12, 0)),
+                       entries=62, rows=4, salts=5, reset=reset_ops(12, 0)),
     # 6 agents, 15 + 6 pairs, clamped; 4 leader comm hashes. Derived: 8 good x
     # adversary d2 (4 each), 12 forest tests (5 each), the visibility (6
     # boolean operations for each of 30 ordered pairs). Reward: 8 pair hits
@@ -444,7 +433,7 @@ PHYS = {
                                       (8, {"fp32": 3}), (4, {"fp32": 4}), (4, {"sfu": 1}),
                                       (2, _ops((4, {"fp32": 2}), (2, BOUND), (2, D2_TEST),
                                                (1, {"fp32": 6, "sfu": 1})))),
-                              obs_rel=212, entries=192, rows=6, reset=reset_ops(22, 0)),
+                              obs_rel=212, entries=192, rows=6, salts=7, reset=reset_ops(22, 0)),
 }
 
 
@@ -466,6 +455,34 @@ for _name, _p in PHYS.items():
 OPS.update({f"scenario_rollout_kernel[{k}]": {**v, "env": {}} for k, v in K2_SCN_OPS.items()})
 OPS.update({f"trajectory_kernel[{k}]": {**v, "env": {}} for k, v in TRAJ_OPS.items()
             if k in PHYS})
+
+# K1 (csrc/mpe_kernels.cu::det_rollout_kernel<S>) per env-step: the move
+# hashes that the decode reads (4 per movable agent; the no-op column and an
+# immovable agent's draws are unread), the physics and the reward as in K2,
+# the running sum of each reward row, one salt per agent and the step counter
+# (int); once per env the final obs (its relative coordinates).
+K1_OPS = {
+    "simple_spread": {"step": _ops(*SPREAD_STEP, (1, ACCUMULATE), (4, STEP_INT)),
+                      "env": {"fp32": 30}},
+    "simple": {"step": _ops((4, HASH), (1, DECODE), (1, INTEGRATE), (1, {"fp32": 4}),
+                            (1, ACCUMULATE), (2, STEP_INT)), "env": {"fp32": 2}},
+    "simple_reference": {"step": _ops((8, HASH), (2, DECODE), (2, INTEGRATE), (2, GOAL_PICK),
+                                      (2, {"fp32": 5}), (1, ACCUMULATE), (3, STEP_INT)),
+                         "env": {"fp32": 12}},
+    "simple_speaker_listener": {"step": _ops((4, HASH), (1, DECODE), (1, INTEGRATE),
+                                             (1, GOAL_PICK), (1, {"fp32": 5}), (1, ACCUMULATE),
+                                             (3, STEP_INT)), "env": {"fp32": 6}},
+}
+for _name, _p in PHYS.items():
+    K1_OPS[_name] = {"step": _ops((_p["moves"], HASH), (_p["agents"], DECODE),
+                                  (_p["pairs"][0], PAIR_FORCE),
+                                  (_p["pairs"][1], LANDMARK_PAIR_FORCE),
+                                  (_p["agents"], INTEGRATE_PAIRS if _p["clamp"] else INTEGRATE),
+                                  (_p["agents"] if _p["clamp"] else 0, CLAMP), *_p["reward"],
+                                  (_p["rows"], ACCUMULATE), (_p["salts"], STEP_INT)),
+                     "env": {"fp32": _p["obs_rel"]}}
+OPS.update({f"det_rollout_kernel[{k}]": {**v, "reset": {}} for k, v in K1_OPS.items()})
+
 
 def widths(name: str) -> tuple[int, int, int, int, int]:
     """(agents, obs width, comm logits C, speakers, reward rows) of a
@@ -493,8 +510,54 @@ def policy_ops(name: str) -> tuple[dict, dict]:
              "env": {}})
 
 
+def maddpg_ops(name: str) -> dict:
+    """K8's operations (csrc/mpe_maddpg.cu::maddpg_traj_kernel<S>) from K3's
+    step on the same scenario, which hashes the move columns of every agent
+    and the comm of the speakers: K8 instead draws per agent and head a
+    Gumbel-max of the logits and one of zeros (2 (5 + C) GUMBEL draws), an
+    eps coin per head (a hash, compare, select) with 3 salts, runs the MLP
+    OW-64-64-(5+C), sets the one-hots (5 + C compares), and computes the obs
+    twice (the s' rows: A OW more)."""
+    a, ow, c, speakers, _ = widths(name)
+    heads = 2 if c else 1
+    agent = _ops(*torso(ow), dense(64, 5 + c), (2 * (5 + c), GUMBEL),
+                 (heads, {"int": 13, "cvt": 1, "fp32": 3}), (5 + c, {"int": 1}))
+    step = _ops((1, TRAJ_OPS[name]["step"]), (-(5 * a + c * speakers), HASH), (a, agent),
+                (1, {"fp32": a * ow}))
+    return {"step": step, "reset": TRAJ_OPS[name]["reset"], "env": {}}
+
+
+def maddpg_update_ops(name: str) -> dict:
+    """K9's operations per (sample, agent) pair (csrc/mpe_maddpg.cu), a
+    "step" being a sample of one agent: the target actor and its first
+    argmax per head (a compare and a select per logit); the target critic
+    (J-64-64-1) and y (1 fma); the critic forward with the candidates' base
+    (64 x (K fma + 1)); each of the 5 max(C, 1) candidates: + base (64),
+    tanh, layers 2-3; d, g3 and the backward pass (64 x 3, 64 x 64 + 64 x
+    2); the critic's weight gradients (64 J + 64 x 64 + 64 multiply-adds,
+    129 bias sums); the actor forward; per head the softmax, entropy and
+    logit gradient (18 fp32 and 3 SFU per logit: exp, reciprocal, log), and
+    with comm the two qbar sums (2 per candidate); the actor backward and
+    weight gradients as in K7."""
+    a, ow, c, _, _ = widths(name)
+    k, n_cand = 5 + c, 5 * max(c, 1)
+    j = a * (ow + k)
+    critic_tail = _ops(dense(64, 64), (64, TANH), dense(64, 1))
+    sample = _ops(
+        *torso(ow), dense(64, k), (1, {"fp32": 2 * k}),
+        dense(j, 64), (64, TANH), (1, critic_tail), (1, {"fp32": 1}),
+        dense(j, 64), (64, {"fp32": k + 1}), (64, TANH), (1, critic_tail),
+        (n_cand * 64, {"fp32": 1}), (n_cand * 64, TANH), (n_cand, critic_tail),
+        (1, {"fp32": 2 + 64 * 3 + 64 * 64 + 64 * 2}), (1, {"fp32": 64 * j + 64 * 64 + 64 + 129}),
+        *torso(ow), dense(64, k), (k, {"fp32": 18, "sfu": 3}),
+        (1 if c else 0, {"fp32": 2 * n_cand}),
+        (1, {"fp32": 64 * (k + 2) + 64 * 64 + 64 * 2}),
+        (1, {"fp32": 64 * ow + 64 * 64 + k * 64 + 128 + k}))
+    return {"step": sample, "reset": {}, "env": {}}
+
+
 def add_policy_ops() -> None:
-    """OPS of K4-K7 on every scenario, from its widths (which need the
+    """OPS of K4-K9 on every scenario, from its widths (which need the
     package, so main adds them after importing it)."""
     for name in ALL_SCENARIOS:
         a, ow, c, _, _ = widths(name)
@@ -506,6 +569,8 @@ def add_policy_ops() -> None:
                                              "reset": {}, "env": {}}
         OPS[f"mappo_update_kernel[{name}]"] = {"step": update_sample(ow, 5 + c, c, False),
                                                "reset": critic_sample(a * ow), "env": {}}
+        OPS[f"maddpg_traj_kernel[{name}]"] = maddpg_ops(name)
+        OPS[f"maddpg_update_kernel[{name}]"] = maddpg_update_ops(name)
 
 
 def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
@@ -711,13 +776,16 @@ def rollout_path(wrappers, spec, dev):
     for x in out:
         assert bool(torch.isfinite(x).all())
     assert bool((out[0] != det_inputs[0]).any())
-    print(f"deterministic rollout (K1): {N_ENVS * N_STEPS / (k1_ms * 1e-3):.6g} env-steps/s "
-          f"({N_ENVS} envs x {N_STEPS} steps, kernel {k1_ms:.4f} ms, median of {REPEATS})")
-    launches = read_launches(wrappers, ["scenario_rollout_kernel", "spread_det_rollout_kernel"],
+    print(f"deterministic rollout (K1 <SpreadScn>): {N_ENVS * N_STEPS / (k1_ms * 1e-3):.6g} "
+          f"env-steps/s ({N_ENVS} envs x {N_STEPS} steps, kernel {k1_ms:.4f} ms, median of "
+          f"{REPEATS}; the spread-only kernel it replaced took {K1_SPREAD_ONLY_MS} ms)")
+    launches = read_launches(wrappers, ["scenario_rollout_kernel", "det_rollout_kernel"],
                              "rollout path")
     by = read_instantiations(wrappers["scenario_rollout_kernel"], ["simple_spread"],
                              "rollout path's K2")
-    return launches, by, k2, k2_ms_at, k1_ms, det_inputs
+    k1_by = read_instantiations(wrappers["det_rollout_kernel"], ["simple_spread"],
+                                "rollout path's K1")
+    return launches, by, k1_by, k2, k2_ms_at, k1_ms, det_inputs
 
 
 def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
@@ -764,49 +832,54 @@ def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
     return launches, step, state0, state
 
 
-def maddpg_path(wrappers):
-    """Main path d: the fused MADDPG loop (K8 collection, K9 updates) for
-    MADDPG_CHUNKS chunks, timed by phase with CUDA events."""
+def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CHUNKS):
+    """Main path d (simple_spread), d2 or d3 (the comm scenarios of
+    MADDPG_COMM): the fused MADDPG loop (K8 collection, K9 updates) on
+    ``name`` for ``n_chunks`` chunks, timed by phase with CUDA events ->
+    (launches, launches by scenario, runner, params, info, transitions/s)."""
     import torch
 
     from mpe_tpu_torch.learner import build_fused_maddpg_runner
 
-    run = build_fused_maddpg_runner("simple_spread", **MADDPG)
+    label = f"MADDPG ({name})"
+    run = build_fused_maddpg_runner(name, **MADDPG)
     horizon = MADDPG["horizon"]
     zero_launches(wrappers)
     events = []
     t0 = time.perf_counter()
-    params, info = run(MADDPG_CHUNKS * horizon, seed=0, actor_start=MADDPG_ACTOR_START,
+    params, info = run(n_chunks * horizon, seed=0, actor_start=MADDPG_ACTOR_START,
                        events=events)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = read_launches(wrappers, ["spread_maddpg_traj_kernel", "maddpg_update_kernel"],
-                             "MADDPG path")
+    kernels = ["maddpg_traj_kernel", "maddpg_update_kernel"]
+    launches = read_launches(wrappers, kernels, f"{label} path")
+    by = {k: read_instantiations(wrappers[k], [name], f"{label} path's {k}") for k in kernels}
     chunks = []                 # (collect ms, update ms) per chunk
-    for c in range(MADDPG_CHUNKS):
+    for c in range(n_chunks):
         start, col, upd = events[2 * c][1], events[2 * c + 1][1], events[2 * c + 2][1]
         chunks.append((start.elapsed_time(col), col.elapsed_time(upd)))
     steady = chunks[1:]         # chunk 0 sets up the update's first allocations
     collect_ms, update_ms = (sum(x[q] for x in steady) for q in (0, 1))
     total_ms = collect_ms + update_ms
     n = run.transitions_per_chunk
+    rate = n * len(steady) / (total_ms * 1e-3)
     mr, cl = info["mean_reward"].double(), info["critic_loss"].double()
     assert bool(torch.isfinite(mr).all()) and bool(torch.isfinite(cl).all()), (mr, cl)
     for net in params.values():
         for layer in net.values():
             assert all(bool(torch.isfinite(x).all()) for x in layer.values())
-    print(f"MADDPG, chunks 1-{MADDPG_CHUNKS - 1}: {n * len(steady) / (total_ms * 1e-3):.6g} "
-          f"transitions/s ({len(steady)} x {n} transitions, {len(steady) * horizon} updates of "
-          f"batch {MADDPG['batch']}, in {total_ms:.3f} ms); mean per chunk "
-          f"{total_ms / len(steady):.3f} ms: collect {collect_ms / len(steady):.3f} ms (K8 + "
-          f"insert), update {update_ms / len(steady):.3f} ms ({horizon} x gather + K9 + Adam + "
-          f"polyak); median chunk {statistics.median(a + b for a, b in steady):.3f} ms; the "
-          f"whole run with the warm-up {wall_s:.2f} s (host clock)")
-    print(f"MADDPG chunk 0: mean reward {float(mr[0]):.6f}, critic loss {float(cl[0]):.6f}; "
-          f"chunk {MADDPG_CHUNKS - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
+    print(f"{label}, chunks 1-{n_chunks - 1}: {rate:.6g} transitions/s ({len(steady)} x {n} "
+          f"transitions, {len(steady) * horizon} updates of batch {MADDPG['batch']}, in "
+          f"{total_ms:.3f} ms); mean per chunk {total_ms / len(steady):.3f} ms: collect "
+          f"{collect_ms / len(steady):.3f} ms (K8 + insert), update {update_ms / len(steady):.3f} "
+          f"ms ({horizon} x gather + K9 + Adam + polyak); median chunk "
+          f"{statistics.median(a + b for a, b in steady):.3f} ms; the whole run with the warm-up "
+          f"{wall_s:.2f} s (host clock)")
+    print(f"{label} chunk 0: mean reward {float(mr[0]):.6f}, critic loss {float(cl[0]):.6f}; "
+          f"chunk {n_chunks - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
           f"{float(cl[-1]):.6f}; ring {info['buffer'].size} of {run.capacity} rows "
           f"({info['buffer'].data.numel() * 4 / 1e6:.0f} MB)")
-    return launches, run, params, info
+    return launches, by, run, params, info, rate
 
 
 def traj_bytes(name: str, n_envs: int, n_steps: int) -> int:
@@ -832,18 +905,54 @@ def rollout_bytes(name: str, n_envs: int) -> int:
     return 4 * n_envs * (2 * spec.n_entities * spec.dim_p + kscn.reward_rows + 1)
 
 
+def det_bytes(name: str, n_envs: int) -> int:
+    """Bytes K1 moves on scenario ``name``: it reads pos0 and vel0, the comm
+    and the goals per env and writes pos, vel, the reward sum, the last
+    reward and the last obs."""
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    kscn = kernel_scenario(name)
+    spec = kscn.spec
+    ep = 2 * spec.n_entities * spec.dim_p
+    reads = ep + spec.n_agents * kscn.n_comm + len(tuple(kscn.goal_choices or ()))
+    return 4 * n_envs * (reads + ep + 2 * kscn.reward_rows + spec.n_agents * kscn.obs_w)
+
+
+def maddpg_widths(name: str) -> tuple[int, int, int, int, int, int]:
+    """(agents, obs width, actor head 5 + C, replay row width, floats of one
+    actor, floats of one critic) of a scenario's MADDPG nets, hidden 64."""
+    a, ow, c, _, _ = widths(name)
+    k = 5 + c
+    j = a * (ow + k)
+    nw = 64 * ow + 64 + 64 * 64 + 64 + k * 64 + k
+    nc = 64 * j + 64 + 64 * 64 + 64 + 64 + 1
+    return a, ow, k, a * (2 * ow + k + 1), nw, nc
+
+
 def scenarios_path(wrappers, dev):
-    """Main path e: K2 on the eight other scenarios against the generic
-    engine, then K3 on all nine at N_ENVS and on TRAJ_WIDE at WIDE_ENVS ->
-    (launches, K2 and K3 launches by scenario, K2 ms by scenario,
-    {(scenario, envs): K3 ms})."""
+    """Main path e: K1 on the eight other scenarios at N_ENVS x N_STEPS, K2
+    on them against the generic engine, then K3 on all nine at N_ENVS and on
+    TRAJ_WIDE at WIDE_ENVS -> (launches, K1, K2 and K3 launches by scenario,
+    K1 and K2 ms by scenario, {(scenario, envs): K3 ms})."""
     import torch
 
+    from mpe_tpu_torch.ops.fused_parity import fused_det_rollout, make_det_inputs
     from mpe_tpu_torch.ops.fused_rollout import fused_rollout
     from mpe_tpu_torch.ops.fused_trajectory import fused_trajectory
 
     zero_launches(wrappers)
-    k2_ms = {}
+    k1_ms, k2_ms = {}, {}
+    for name in SCENARIOS:
+        inputs = make_det_inputs(name, N_ENVS, seed=0)
+        k1 = fused_det_rollout(name, N_ENVS, N_STEPS, block_envs=BLOCK_ENVS)
+        k1_ms[name], out = cuda_time(lambda: k1(*inputs), REPEATS)
+        for x in out:
+            assert bool(torch.isfinite(x).all())
+        print(f"deterministic rollout (K1), {name}: {N_ENVS * N_STEPS / (k1_ms[name] * 1e-3):.6g} "
+              f"env-steps/s ({N_ENVS} envs x {N_STEPS} steps, kernel {k1_ms[name]:.4f} ms, "
+              f"median of {REPEATS}); mean reward per env-step by row "
+              + ", ".join(f"{float(x):.5f}" for x in out[2].double().mean(1) / N_STEPS))
+        del out
     for name in SCENARIOS:
         generic = generic_engine(name, dev)
         run = fused_rollout(name, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
@@ -873,13 +982,15 @@ def scenarios_path(wrappers, dev):
               f"per env-step by row " + ", ".join(f"{float(x):.5f}" for x in
                                                 rew.double().mean((0, 2))))
         del out, obs, act, rew, pos, vel
-    launches = read_launches(wrappers, ["scenario_rollout_kernel", "trajectory_kernel"],
-                             "scenarios and trajectories path")
-    by = {"scenario_rollout_kernel": read_instantiations(
+    launches = read_launches(wrappers, ["det_rollout_kernel", "scenario_rollout_kernel",
+                                        "trajectory_kernel"], "scenarios and trajectories path")
+    by = {"det_rollout_kernel": read_instantiations(
+              wrappers["det_rollout_kernel"], SCENARIOS, "scenarios path's K1"),
+          "scenario_rollout_kernel": read_instantiations(
               wrappers["scenario_rollout_kernel"], SCENARIOS, "scenarios path's K2"),
           "trajectory_kernel": read_instantiations(
               wrappers["trajectory_kernel"], ALL_SCENARIOS, "trajectories path's K3")}
-    return launches, by, k2_ms, k3_ms
+    return launches, by, k1_ms, k2_ms, k3_ms
 
 
 def check_scenario_kernels():
@@ -1195,101 +1306,151 @@ def ptxas_registers(logs: dict) -> dict:
 
 def registers_of(regs: dict, kernel: str, name: str) -> list:
     """[registers, spill bytes] of each entry of ``kernel`` instantiated for
-    scenario ``name`` (K4, K5: its struct, KernelX's XScn in
+    scenario ``name`` (K1, K4, K5, K8: its struct, KernelX's XScn in
     csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 128, 5, C>, K7
-    also the two critic instantiations <0, 128 or 64, 0, 0>), or []."""
+    also the two critic instantiations <0, 128 or 64, 0, 0>; K9: its four
+    kernels on MaddpgDims<A, OW, C>, in the compiler's order), or []."""
     import re
 
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
-    if kernel.startswith("policy"):
-        key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnE"
-    else:
+    if kernel == "maddpg_update":
+        a, ow, c, _, _ = widths(name)
+        key = f"MaddpgDimsILi{a}ELi{ow}ELi{c}EE"
+        return [v for k, v in regs.items() if key in k]
+    if kernel in ("ppo", "mappo"):
         _, ow, c, _, _ = widths(name)
         flags = {"ppo": "ELb1ELb0E", "mappo": "ELb0ELb1E"}[kernel]
         key = f"ppo_update_kernelILi{ow}ELi128ELi5ELi{c}{flags}"
-    hits = [v for k, v in regs.items()
-            if (kernel if kernel.startswith("policy") else "ppo_update_kernel") in k and key in k]
-    if kernel == "mappo":
-        hits += [v for k, v in regs.items()
-                 if re.search(r"ppo_update_kernelILi0ELi(128|64)ELi0ELi0ELb1ELb0E", k)]
-    return hits
+        hits = [v for k, v in regs.items() if key in k]
+        if kernel == "mappo":
+            hits += [v for k, v in regs.items()
+                     if re.search(r"ppo_update_kernelILi0ELi(128|64)ELi0ELi0ELb1ELb0E", k)]
+        return hits
+    key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnE"
+    return [v for k, v in regs.items() if kernel in k and key in k]
 
 
 def replay_rows(obs, act, rew, obs2):
-    """K8's tensor form [T, A, X, N] / [T, 1, N] -> its rows form [T, N, W]."""
+    """K8's tensor form [T, A, X, N] / [T, R, N] -> its rows form [T, N, W]
+    (a shared reward, R = 1, broadcast to every agent)."""
     import torch
 
     a = obs.shape[1]
+    rew_a = rew.expand(-1, a, -1) if rew.shape[1] == 1 else rew
     return torch.cat([obs.movedim(-1, 1).flatten(2), act.movedim(-1, 1).flatten(2),
-                      rew.expand(-1, a, -1).movedim(-1, 1), obs2.movedim(-1, 1).flatten(2)],
-                     dim=-1)
+                      rew_a.movedim(-1, 1), obs2.movedim(-1, 1).flatten(2)], dim=-1)
 
 
-def check_maddpg_collect(run, actor):
-    """K8 against its plain version at the runner's shape (1024 envs x 25
-    steps, two block offsets) with the checkpoint's actor and the runner's,
-    both output forms; then K8 and its plain version timed -> (max abs err,
-    ms, plain ms, bound)."""
+def checkpoint_params(name: str) -> dict:
+    """The actor and trained critic of ``name``'s committed MADDPG checkpoint
+    on the card."""
+    from mpe_tpu_torch.convert import params_from_numpy, read_checkpoint_params
+
+    return params_from_numpy(read_checkpoint_params(MADDPG_CKPTS[name]), device="cuda")
+
+
+def check_det_kernels(det_inputs) -> tuple[dict, dict]:
+    """K1 on the nine scenarios against its plain version over CHECK_STEPS
+    at N_ENVS (simple_spread on path a's inputs, the others on
+    make_det_inputs with another seed than path e's); the plain version of
+    the eight others timed at N_ENVS x K1_PLAIN_STEPS -> ({scenario: max abs
+    err}, {scenario: plain ms})."""
+    from mpe_tpu_torch.ops.fused_parity import (fused_det_rollout, make_det_inputs,
+                                                plain_det_rollout_blocked)
+
+    k1_err, plain_ms = {}, {}
+    for name in ALL_SCENARIOS:
+        inputs = det_inputs if name == "simple_spread" else make_det_inputs(name, N_ENVS, seed=1)
+        got = fused_det_rollout(name, N_ENVS, CHECK_STEPS, block_envs=BLOCK_ENVS)(*inputs)
+        ref = plain_det_rollout_blocked(name, CHECK_STEPS, BLOCK_ENVS)(*inputs)
+        k1_err[name] = check(f"K1 ({name}, {N_ENVS} envs x {CHECK_STEPS} steps)",
+                             {k: max_err(a, b) for k, a, b in
+                              zip(("pos", "vel", "rew_sum", "rew", "obs"), got, ref)})
+        if name != "simple_spread":
+            plain = plain_det_rollout_blocked(name, K1_PLAIN_STEPS, BLOCK_ENVS)
+            plain_ms[name], _ = cuda_time(lambda: plain(*inputs), 1, warm_up=False)
+            print(f"K1 plain version, {name}: {plain_ms[name]:.1f} ms at {N_ENVS} envs x "
+                  f"{K1_PLAIN_STEPS} steps")
+    return k1_err, plain_ms
+
+
+def check_maddpg_collect(name: str, actors: dict):
+    """K8 on ``name`` against its plain version at the MADDPG paths' shape
+    (1024 envs x 25 steps, horizon 25, eps 0.1, two block offsets) with each
+    actor of ``actors`` ({label: actor}), both output forms; the eps coins'
+    share; then K8 in the rows form and its plain version timed with the
+    first actor -> (max abs err, ms, plain ms, bound, the rows of the first
+    actor at block offset 0)."""
     import torch
 
-    from mpe_tpu_torch.convert import params_from_numpy, read_checkpoint_params
+    from mpe_tpu_torch.learner.maddpg import collect_t_chunk
     from mpe_tpu_torch.ops.fused_maddpg import fused_maddpg_trajectory
     from mpe_tpu_torch.ops.fused_rollout import make_uniform
 
     n, hor = MADDPG["n_envs"], MADDPG["horizon"]
-    traj = run.collect.traj                                  # the runner's rows form
-    t_chunk = traj.t_chunk
-    ckpt = params_from_numpy(read_checkpoint_params(MADDPG_CKPT), device="cuda")
-    tens = fused_maddpg_trajectory("simple_spread", actor, n, hor, horizon=hor, eps_greedy=0.1,
-                                   block_envs=BLOCK_ENVS, t_chunk=t_chunk)
+    t_chunk = collect_t_chunk(hor)
+    a, _, k, width, nw, _ = maddpg_widths(name)
+    heads = 2 if k > 5 else 1
+    first = next(iter(actors.values()))
+    kw = dict(horizon=hor, eps_greedy=0.1, block_envs=BLOCK_ENVS, t_chunk=t_chunk)
+    tens = fused_maddpg_trajectory(name, first, n, hor, **kw)
+    rows = fused_maddpg_trajectory(name, first, n, hor, emit_rows=True, **kw)
     errs, coins = {}, []
-    for label, a_params in (("checkpoint", ckpt["actor"]), ("runner", actor)):
+    for label, actor in actors.items():
         for offset in (0, 1):
-            got, ref = tens(3, a_params, offset), tens.plain(3, a_params, offset)
-            report_actions(f"K8 ({label} actor, block offset {offset})", got[1], ref[1])
-            for k, a, b in zip(("obs", "act", "rew", "obs2"), got, ref):
-                errs[k] = max(errs.get(k, 0.0), max_err(a, b))
+            got, ref = tens(3, actor, offset), tens.plain(3, actor, offset)
+            report_actions(f"K8 ({name}, {label} actor, block offset {offset})", got[1], ref[1])
+            for key, x, y in zip(("obs", "act", "rew", "obs2"), got, ref):
+                errs[key] = max(errs.get(key, 0.0), max_err(x, y))
             errs["rows"] = max(errs.get("rows", 0.0),
-                               max_err(traj(3, a_params, offset), replay_rows(*got)))
+                               max_err(rows(3, actor, offset), replay_rows(*got)))
             for chunk in range(hor // t_chunk):
                 u = make_uniform(3, offset, n // BLOCK_ENVS, BLOCK_ENVS, chunk, device="cuda")
-                coins += [float((u((1,), step, 30 + 6 * i) < 0.1).double().mean())
-                          for step in range(t_chunk) for i in range(3)]
+                coins += [float((u((1,), step, 30 + 6 * i + 3 * h) < 0.1).double().mean())
+                          for step in range(t_chunk) for i in range(a) for h in range(heads)]
     share = sum(coins) / len(coins)
-    print(f"K8 eps coin: binds for {share:.4f} of the draws (eps 0.1)")
+    print(f"K8 ({name}) eps coin: binds for {share:.4f} of the draws (eps 0.1, {heads} "
+          f"head(s) per agent)")
     assert 0.08 < share < 0.12, share
-    err = check(f"K8 ({n} envs x {hor} steps, two actors, two block offsets, both forms)", errs)
-    ms, _ = cuda_time(lambda: traj(1, actor), REPEATS)
-    plain_ms, _ = cuda_time(lambda: traj.plain(1, actor), 1)
-    bound = bound_ms(OPS["spread_maddpg_traj_kernel"], n * hor, n * 2, n,
-                     n * hor * 126 * 4 + 3 * 5701 * 4)
-    print(f"K8 {ms:.4f} ms ({n} envs x {hor} steps, rows form), plain {plain_ms:.1f} ms; bound "
-          f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor {bound[2]:.4f} ms")
-    return err, ms, plain_ms, bound
+    err = check(f"K8 ({name}, {n} envs x {hor} steps, {len(actors)} actor(s), two block "
+                "offsets, both forms)", errs)
+    ms, _ = cuda_time(lambda: rows(1, first), REPEATS)
+    plain_ms, _ = cuda_time(lambda: rows.plain(1, first), 1)
+    bound = bound_ms(OPS[f"maddpg_traj_kernel[{name}]"], n * hor, n * 2, n,
+                     4 * (n * hor * width + a * nw))
+    print(f"K8 ({name}) {ms:.4f} ms ({n} envs x {hor} steps, rows form), plain {plain_ms:.1f} "
+          f"ms; bound {bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor "
+          f"{bound[2]:.4f} ms")
+    return err, ms, plain_ms, bound, rows(3, first).reshape(n * hor, width)
 
 
-def check_maddpg_update(run, params, info):
-    """K9 against its plain version on 1024 rows of the runner's ring, with
-    the runner's params and targets = params + 0.1 N(0, 1), then one update
-    chunk of 25 updates with the same indices (kernels vs plain); then K9,
-    its plain version and autograd of the losses timed -> (max abs err, ms,
-    plain ms, library ms, bound)."""
+def check_maddpg_update(name: str, params: dict, rows_all, label: str):
+    """K9 on ``name`` against its plain version on MADDPG["batch"] rows drawn
+    from ``rows_all``, with ``params`` and targets = params + 0.1 N(0, 1):
+    target actions per head equal (the smallest gap between a head's best
+    and second target logit printed), each gradient leaf within GRAD_TOL of
+    its largest entry, the metrics within METRIC_RTOL; then K9, its plain
+    version and autograd of the losses timed -> (max abs err, ms, plain ms,
+    library ms, bound)."""
     import torch
 
-    from mpe_tpu_torch.learner.fused_loop import actor_gates
     from mpe_tpu_torch.learner.maddpg import maddpg_xla_grads
-    from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda, target_logits
+    from mpe_tpu_torch.ops.fused_maddpg_update import (_split_rows, fused_maddpg_update,
+                                                       maddpg_update_cuda, target_indices,
+                                                       target_logits)
 
-    buf, b = info["buffer"], MADDPG["batch"]
+    a, ow, k, width, nw, nc = maddpg_widths(name)
+    b, cw = MADDPG["batch"], k - 5
     gen = torch.Generator("cuda").manual_seed(5)
-    rows = buf.data[torch.randint(0, buf.size, (b,), generator=gen, device="cuda")].contiguous()
+    rows = rows_all[torch.randint(0, rows_all.shape[0], (b,), generator=gen,
+                                  device="cuda")].contiguous()
     targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda")
                        for w, x in layer.items()} for q, layer in net.items()}
                for n, net in params.items()}
-    grads_fn = run.update_chunk.grads_fn
-    act2 = torch.empty((3, b), dtype=torch.int32, device="cuda")
-    got, got_m = maddpg_update_cuda(params, targets, rows, gamma=0.95, ent_coef=0.01,
+    grads_fn = fused_maddpg_update(a, ow, k, 5, 64, b)
+    act2 = torch.empty((a, 2 if cw else 1, b), dtype=torch.int32, device="cuda")
+    got, got_m = maddpg_update_cuda(params, targets, rows, mw=5, gamma=0.95, ent_coef=0.01,
                                     target_actions=act2)
     ref, ref_m = grads_fn.plain.from_rows(params, targets, rows)
     errs, worst = {}, 0.0
@@ -1299,21 +1460,48 @@ def check_maddpg_update(run, params, info):
                 e = max_err(got[n][q][w], ref[n][q][w])
                 errs[f"{n}.{q}.{w}"] = e / float(ref[n][q][w].abs().max())
                 worst = max(worst, e)
-    logits = target_logits(targets["actor"], rows[:, -54:].reshape(b, 3, 18))
-    top2 = logits.topk(2, dim=-1).values
-    agree = float((act2.long() == logits.argmax(-1).T).double().mean())
-    print(f"K9 target actions equal to plain: {agree:.6f}; smallest gap between the best and "
-          f"the second target logit {float((top2[..., 0] - top2[..., 1]).min()):.3g}")
+    logits = target_logits(targets["actor"], rows[:, a * (ow + k + 1):].reshape(b, a, ow))
+    agree = float((act2.long() == target_indices(logits, 5).permute(1, 2, 0)).double().mean())
+    gaps = []
+    for lo, hi in ((0, 5), (5, k)) if cw else ((0, 5),):
+        top2 = logits[..., lo:hi].topk(2, dim=-1).values
+        gaps.append(float((top2[..., 0] - top2[..., 1]).min()))
+    print(f"K9 ({name}, {label}) target actions equal to plain per head: {agree:.6f}; smallest "
+          f"gap between a head's best and second target logit " + ", ".join(f"{g:.3g}" for g in
+                                                                           gaps))
     names = ("critic_loss", "actor_loss", "q_mean")
-    print("K9 max abs err vs plain over each leaf's largest entry: "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + "; metrics kernel vs plain: "
-          + ", ".join(f"{k} {float(x):.8g} vs {float(y):.8g}"
-                      for k, x, y in zip(names, got_m, ref_m)))
-    assert max(errs.values()) <= GRAD_TOL, "K9: the gradient disagrees with its plain version"
+    print(f"K9 ({name}, {label}) max abs err vs plain over each leaf's largest entry: "
+          + ", ".join(f"{k_} {v:.3g}" for k_, v in errs.items()) + "; metrics kernel vs plain: "
+          + ", ".join(f"{k_} {float(x):.8g} vs {float(y):.8g}"
+                      for k_, x, y in zip(names, got_m, ref_m)))
+    assert agree == 1.0, f"K9 ({name}): the target actions disagree with the plain version's"
+    assert max(errs.values()) <= GRAD_TOL, f"K9 ({name}): the gradient disagrees with plain"
     assert all(abs(float(x) - float(y)) <= METRIC_RTOL * abs(float(y))
-               for x, y in zip(got_m, ref_m)), "K9: the metrics disagree with their plain version"
+               for x, y in zip(got_m, ref_m)), f"K9 ({name}): the metrics disagree with plain"
 
-    h = MADDPG["horizon"]
+    ms, _ = cuda_time(lambda: grads_fn.from_rows(params, targets, rows), REPEATS)
+    plain_ms, _ = cuda_time(lambda: grads_fn.plain.from_rows(params, targets, rows), REPEATS)
+    split = _split_rows(rows, a, ow, k)
+    lib_ms, _ = cuda_time(lambda: maddpg_xla_grads(params, targets, *split, mw=5, cw=cw,
+                                                   gamma=0.95, ent_coef=0.01), REPEATS)
+    bound = bound_ms(OPS[f"maddpg_update_kernel[{name}]"], b * a, 0, 0,
+                     4 * (b * width + 2 * a * (nw + nc) + a * (nw + nc + 3)))
+    print(f"K9 ({name}, {label}) {ms:.4f} ms (batch {b}), plain {plain_ms:.3f} ms, autograd of "
+          f"the losses {lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({ms / bound[0]:.2f}x); issue floor {bound[2]:.4f} ms")
+    return worst, ms, plain_ms, lib_ms, bound
+
+
+def check_update_chunk(name: str, run, params, info) -> float:
+    """One update chunk (25 updates) of the runner of path d, d2 or d3
+    (``name``) with the kernels against the same chunk with the plain
+    versions, the same indices -> the largest abs error of a param."""
+    import torch
+
+    from mpe_tpu_torch.learner.fused_loop import actor_gates
+
+    buf, b, h = info["buffer"], MADDPG["batch"], MADDPG["horizon"]
+    gen = torch.Generator("cuda").manual_seed(6)
     idx = torch.randint(0, buf.size, (h, b), generator=gen, device="cuda")
     gates = actor_gates(MADDPG_CHUNKS, h, MADDPG_ACTOR_START)
     state = (params, info["targets"], info["opt_states"])
@@ -1321,21 +1509,11 @@ def check_maddpg_update(run, params, info):
     pp, tp, _, mp = run.update_chunk.plain(*state, buf, 0, gates, indices=idx)
     chunk_err = max(max_err(x[n][q][w], y[n][q][w]) for x, y in ((pk, pp), (tk, tp))
                     for n in x for q in x[n] for w in x[n][q])
-    check(f"one MADDPG update chunk ({h} updates, kernels vs plain)", {"chunk params": chunk_err})
-    print("one MADDPG update chunk, last metrics kernels vs plain: "
+    check(f"one MADDPG update chunk on {name} ({h} updates, kernels vs plain)",
+          {"chunk params": chunk_err})
+    print(f"one MADDPG update chunk on {name}, last metrics kernels vs plain: "
           + ", ".join(f"{k} {float(mk[k]):.8g} vs {float(mp[k]):.8g}" for k in mk))
-
-    ms, _ = cuda_time(lambda: grads_fn.from_rows(params, targets, rows), REPEATS)
-    plain_ms, _ = cuda_time(lambda: grads_fn.plain.from_rows(params, targets, rows), REPEATS)
-    split = buf._split(rows)
-    lib_ms, _ = cuda_time(lambda: maddpg_xla_grads(params, targets, *split, mw=5, cw=0,
-                                                   gamma=0.95, ent_coef=0.01), REPEATS)
-    bound = bound_ms(OPS["maddpg_update_kernel"], b, 0, 0,
-                     b * 126 * 4 + 2 * 3 * (5701 + 8705) * 4 + 3 * 14409 * 4)
-    print(f"K9 {ms:.4f} ms (batch {b}), plain {plain_ms:.3f} ms, autograd of the losses "
-          f"{lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue "
-          f"floor {bound[2]:.4f} ms")
-    return worst, ms, plain_ms, lib_ms, bound
+    return chunk_err
 
 
 def device_us(e) -> float:
@@ -1376,11 +1554,12 @@ def profile_trajectories(k3_ms: dict) -> dict:
     return device_ms
 
 
-def profile_maddpg_update(run, params, info):
-    """One MADDPG update chunk (25 updates) under torch.profiler: K9's device
-    time per update (its three kernels), the device's busy share of the
-    chunk's CUDA-event time, and the kernels that take the most device time.
-    It reports and gates nothing; without device events it says so."""
+def profile_maddpg_update(name: str, run, params, info):
+    """One MADDPG update chunk (25 updates) of path d, d2 or d3 (``name``)
+    under torch.profiler: K9's device time per update (its four kernels),
+    the device's busy share of the chunk's CUDA-event time, and the kernels
+    that take the most device time. It reports and gates nothing; without
+    device events it says so. -> K9's device ms per update, or None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1402,21 +1581,22 @@ def profile_maddpg_update(run, params, info):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     if not kernels:
-        print("MADDPG update chunk under torch.profiler: device time not measured (no device "
-              "events)")
-        return
+        print(f"MADDPG update chunk on {name} under torch.profiler: device time not measured "
+              "(no device events)")
+        return None
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     k9_ms = {n: sum(device_us(e) for e in kernels if n in e.key) / 1e3 / h
-             for n in ("maddpg_target_actions_kernel", "maddpg_update_kernel",
+             for n in ("maddpg_target_actions_kernel", "maddpg_td_kernel", "maddpg_update_kernel",
                        "maddpg_reduce_kernel")}
-    print(f"MADDPG update chunk under torch.profiler ({h} updates, {wall_ms:.3f} ms by CUDA "
-          f"events): device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f} of the time, idle "
+    print(f"MADDPG update chunk on {name} under torch.profiler ({h} updates, {wall_ms:.3f} ms by "
+          f"CUDA events): device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f} of the time, idle "
           f"{1 - busy_ms / wall_ms:.4f}); K9 device time per update "
           f"{sum(k9_ms.values()):.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in k9_ms.items())
           + f"); {sum(e.count for e in kernels) / h:.1f} kernel launches per update")
     top = sorted(kernels, key=device_us, reverse=True)[:6]
     print("  most device time: " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms in {e.count}" for e in top))
+    return sum(k9_ms.values())
 
 
 def template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms) -> dict:
@@ -1479,8 +1659,7 @@ def main() -> int:
     from mpe_tpu_torch.ops import _build
     from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
     from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda
-    from mpe_tpu_torch.ops.fused_parity import (fused_det_rollout, plain_det_rollout_blocked,
-                                                spread_det_rollout_cuda)
+    from mpe_tpu_torch.ops.fused_parity import det_rollout_cuda, plain_det_rollout_blocked
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
                                                 policy_rollout_cuda, policy_traj_cuda)
     from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
@@ -1509,17 +1688,17 @@ def main() -> int:
     kscn = kernel_scenario("simple_spread")
     wrappers = {"scenario_rollout_kernel": rollout_cuda,
                 "trajectory_kernel": trajectory_cuda,
-                "spread_det_rollout_kernel": spread_det_rollout_cuda,
+                "det_rollout_kernel": det_rollout_cuda,
                 "policy_traj_kernel": policy_traj_cuda,
                 "policy_rollout_kernel": policy_rollout_cuda,
                 "ppo_update_kernel": ppo_update_cuda,
                 "mappo_update_kernel": mappo_update_cuda,
-                "spread_maddpg_traj_kernel": maddpg_traj_cuda,
+                "maddpg_traj_kernel": maddpg_traj_cuda,
                 "maddpg_update_kernel": maddpg_update_cuda}
 
     # ---- main paths ----------------------------------------------------------
-    launches, k2_by, k2, k2_ms_at, k1_ms, det_inputs = rollout_path(wrappers, spec,
-                                                                     torch.device("cuda"))
+    launches, k2_by, k1_by, k2, k2_ms_at, k1_ms, det_inputs = rollout_path(
+        wrappers, spec, torch.device("cuda"))
     # K5 runs in paths b, b2, b3 and b4; K6 in b and b3; K7 in b2 and b4. Each
     # path's launches are read just after it, by instantiation where the
     # kernel is a template over the scenarios
@@ -1555,23 +1734,29 @@ def main() -> int:
     eval_launches, k4_by, k4_runs = evaluation_path(wrappers, evals)
     launches.update(eval_launches)
     actor = evals["simple_spread"]
-    maddpg_launches, run, mparams, minfo = maddpg_path(wrappers)
-    launches.update(maddpg_launches)
-    scn_launches, scn_by, k2_scn_ms, k3_ms = scenarios_path(wrappers, torch.device("cuda"))
-    # K2 ran in path a (simple_spread) and path e (the eight others)
+    # MADDPG: path d (simple_spread), then d2 and d3 with comm heads; K8 and K9
+    # launches summed over the three paths, by scenario
+    maddpg_runs, k8_by, k9_by = {}, {}, {}
+    for name, n_chunks in (("simple_spread", MADDPG_CHUNKS),) + MADDPG_COMM:
+        path_launches, by, *maddpg_runs[name] = maddpg_path(wrappers, name, n_chunks)
+        for k, v in path_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        k8_by.update(by["maddpg_traj_kernel"])
+        k9_by.update(by["maddpg_update_kernel"])
+    run, mparams, minfo, _ = maddpg_runs["simple_spread"]
+    scn_launches, scn_by, k1_scn_ms, k2_scn_ms, k3_ms = scenarios_path(wrappers,
+                                                                       torch.device("cuda"))
+    # K1 and K2 ran in path a (simple_spread) and path e (the eight others)
+    launches["det_rollout_kernel"] += scn_launches["det_rollout_kernel"]
     launches["scenario_rollout_kernel"] += scn_launches["scenario_rollout_kernel"]
     launches["trajectory_kernel"] = scn_launches["trajectory_kernel"]
+    k1_by.update(scn_by["det_rollout_kernel"])
     k2_by.update(scn_by["scenario_rollout_kernel"])
     k3_by = scn_by["trajectory_kernel"]
     zero_launches(wrappers)
 
     # ---- kernels against their plain versions -------------------------------
-    k1s = fused_det_rollout("simple_spread", N_ENVS, CHECK_STEPS, block_envs=BLOCK_ENVS)
-    plain1 = plain_det_rollout_blocked("simple_spread", CHECK_STEPS, BLOCK_ENVS)
-    got, ref = k1s(*det_inputs), plain1(*det_inputs)
-    torch.cuda.synchronize()
-    k1_err = check("K1", {k: max_err(a, b) for k, a, b in
-                          zip(("pos", "vel", "rew_sum", "rew", "obs"), got, ref)})
+    k1_err, plain_k1_scn_ms = check_det_kernels(det_inputs)
 
     k5s = fused_policy_trajectory(kscn, actor, N_ENVS, POLICY_CHECK_STEPS,
                                   horizon=POLICY_CHECK_HORIZON, block_envs=BLOCK_ENVS,
@@ -1629,16 +1814,42 @@ def main() -> int:
           f"({N_ENVS} envs x {N_STEPS} steps); K5 {plain_k5_ms:.1f} ms, K4 {plain_k4_ms:.1f} ms")
 
     # ---- the MADDPG kernels (K8, K9) and the scenario kernels (K2, K3) ------
-    k8_err, k8_ms, plain_k8_ms, b8 = check_maddpg_collect(run, mparams["actor"])
-    k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9 = check_maddpg_update(run, mparams, minfo)
-    profile_maddpg_update(run, mparams, minfo)
+    # K8 and K9 on every scenario with its committed checkpoint (K8 also with
+    # the trained actor of path d, d2 or d3 where one ran; K9 on rows K8
+    # collected with the checkpoint's actor); K9 also on path d's ring with
+    # its params (the top-level numbers); one update chunk of each MADDPG path
+    def scenario_row(by, kernel, name, err, ms, plain_ms, bound, **extra):
+        return {"launches": by.get(name, 0), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "registers_spill_bytes": registers_of(regs, kernel, name), **extra}
+
+    k8_rows, k9_rows = {}, {}
+    for name in ALL_SCENARIOS:
+        ckpt = checkpoint_params(name)
+        actors = {"checkpoint": ckpt["actor"]}
+        if name in maddpg_runs:
+            actors["trained"] = maddpg_runs[name][1]["actor"]
+        err, ms, plain_ms, bound, rows8 = check_maddpg_collect(name, actors)
+        k8_rows[name] = scenario_row(k8_by, "maddpg_traj_kernel", name, err, ms, plain_ms, bound)
+        err, ms, plain_ms, lib_ms, bound = check_maddpg_update(name, ckpt, rows8, "checkpoint")
+        k9_rows[name] = scenario_row(k9_by, "maddpg_update", name, err, ms, plain_ms, bound,
+                                     library_ms=lib_ms)
+        del rows8
+    ring = minfo["buffer"]
+    k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9 = check_maddpg_update(
+        "simple_spread", mparams, ring.data[:ring.size], "path d's ring and params")
+    k9_err = max([k9_err] + [r["max_abs_err"] for r in k9_rows.values()])
+    chunk_err = {name: check_update_chunk(name, *r[:3]) for name, r in maddpg_runs.items()}
+    for name, r in maddpg_runs.items():
+        k9_rows[name]["device_ms_per_update"] = profile_maddpg_update(name, *r[:3])
     k3_device_ms = profile_trajectories(k3_ms)
     k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
 
     # ---- bounds ---------------------------------------------------------------
     # bytes: K2 writes pos and vel (2 E P floats), the R reward sums and the
     # obs sum per env (rollout_bytes); K3 its trajectory (traj_bytes); K1 reads
-    # pos0, vel0 and writes pos, vel, rew_sum, rew and obs [3,18]; K5 writes
+    # its inputs and writes pos, vel, rew_sum, rew and obs (det_bytes); K8 writes
+    # its replay rows, K9 reads them (maddpg_widths); K5 writes
     # obs [T,A,OW], act (and cact) [T,A] and rew [T,R] per env and last_obs;
     # K4 writes ret [R], pos [E,2] and episodes per env; K6 and K7 read obs,
     # the one-hots, logp_old, adv, ret and value per sample and write the
@@ -1648,10 +1859,20 @@ def main() -> int:
               f"per env {ops['env']}")
     k2_rows = template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms)
     b2 = (k2_rows["simple_spread"]["bound_ms"], k2_rows["simple_spread"]["bound_by"])
-    b1, by1, issue1 = bound_ms(OPS["spread_det_rollout_kernel"], N_ENVS * N_STEPS, 0, N_ENVS,
-                               (96 + 320) * N_ENVS)
-    print(f"K1 bound at {N_ENVS} envs: {b1:.4f} ms by {by1} ({k1_ms / b1:.2f}x); "
-          f"issue floor {issue1:.4f} ms ({k1_ms / issue1:.2f}x)")
+    # K1 by instantiation at N_ENVS x N_STEPS (path a, path e); the plain
+    # version of the eight others timed at K1_PLAIN_STEPS
+    k1_rows = {}
+    for name in ALL_SCENARIOS:
+        ms = k1_ms if name == "simple_spread" else k1_scn_ms[name]
+        b, by, issue = bound_ms(OPS[f"det_rollout_kernel[{name}]"], N_ENVS * N_STEPS, 0, N_ENVS,
+                                det_bytes(name, N_ENVS))
+        print(f"K1 bound, {name} at {N_ENVS} envs x {N_STEPS} steps: {b:.4f} ms by {by} "
+              f"({ms / b:.2f}x); issue floor {issue:.4f} ms ({ms / issue:.2f}x)")
+        k1_rows[name] = scenario_row(
+            k1_by, "det_rollout_kernel", name, k1_err[name], ms,
+            plain_k1_ms if name == "simple_spread" else plain_k1_scn_ms[name], (b, by),
+            plain_steps=N_STEPS if name == "simple_spread" else K1_PLAIN_STEPS)
+    b1 = (k1_rows["simple_spread"]["bound_ms"], k1_rows["simple_spread"]["bound_by"])
     b5, by5, issue5 = k5_main["simple_spread"][3]
     b4, by4, issue4 = k4_main["simple_spread"][3]
     k3_rows = template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms)
@@ -1719,8 +1940,10 @@ def main() -> int:
                max(k3_err.values()), k3_ms["simple_spread", N_ENVS], plain_k3_ms["simple_spread"],
                b3, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k3_rows,
                pair_physics=pair_physics),
-        record("spread_det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
-               k1_err, k1_ms, plain_k1_ms, (b1, by1)),
+        # K1's top-level numbers are simple_spread's at 4096 envs x 10000 steps
+        record("det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
+               max(k1_err.values()), k1_ms, plain_k1_ms, b1, scenarios=list(ALL_SCENARIOS),
+               timed_on="simple_spread", by_scenario=k1_rows, pair_physics=pair_physics),
         # K5's top-level numbers are simple_spread's at the training shape
         # (horizon 32); by_scenario at the gate's (horizon 25)
         record("policy_traj_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:245",
@@ -1741,11 +1964,20 @@ def main() -> int:
                spread7["plain_ms"], (spread7["bound_ms"], spread7["bound_by"]),
                spread7["library_ms"], scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
                by_scenario=k7_scn),
-        record("spread_maddpg_traj_kernel", "mpe_maddpg.cu", "mpe_tpu/ops/fused_maddpg.py:105",
-               k8_err, k8_ms, plain_k8_ms, b8),
+        # K8's top-level numbers are simple_spread's with its checkpoint's
+        # actor at 1024 envs x 25 steps; K9's on path d's ring with its params;
+        # by_scenario holds every instantiation with the scenario's checkpoint
+        record("maddpg_traj_kernel", "mpe_maddpg.cu", "mpe_tpu/ops/fused_maddpg.py:105",
+               max(r["max_abs_err"] for r in k8_rows.values()), k8_rows["simple_spread"]["ms"],
+               k8_rows["simple_spread"]["plain_ms"],
+               (k8_rows["simple_spread"]["bound_ms"], k8_rows["simple_spread"]["bound_by"]),
+               scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k8_rows,
+               pair_physics=pair_physics),
         record("maddpg_update_kernel", "mpe_maddpg.cu",
                "mpe_tpu/ops/fused_maddpg_update.py:142", k9_err, k9_ms, plain_k9_ms, b9,
-               lib_k9_ms),
+               lib_k9_ms, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
+               by_scenario=k9_rows, update_chunk_max_abs_err=chunk_err,
+               transitions_per_s={n: r[3] for n, r in maddpg_runs.items()}),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -87,15 +87,6 @@ __device__ __noinline__ int sample_action(const float* __restrict__ w, const flo
   return move + 8 * (comm + 1);
 }
 
-// the comm one-hot rows of the carried indices (a zero row where cidx < 0)
-template <class S>
-__device__ __forceinline__ void comm_rows(const int (&cidx)[S::A], float (&cm)[S::A][S::CW]) {
-#pragma unroll
-  for (int i = 0; i < S::A; ++i)
-#pragma unroll
-    for (int k = 0; k < S::CW; ++k) cm[i][k] = (k < S::C && cidx[i] == k) ? 1.0f : 0.0f;
-}
-
 // agent i's obs row r of the lane's state, the utterances of the last step
 template <class S>
 __device__ __forceinline__ void obs_rows(const typename S::Params& c, const typename S::W& w,
@@ -159,13 +150,6 @@ template <class S>
 __device__ __forceinline__ void load_weights(float* __restrict__ s, const float* __restrict__ g) {
   for (int i = threadIdx.x; i < MlpLayout<S::OW, MW + S::C>::NW; i += blockDim.x) s[i] = g[i];
   __syncthreads();
-}
-
-// no utterance: the lane's start and every reset
-template <class S>
-__device__ __forceinline__ void reset_comm(int (&cidx)[S::A]) {
-#pragma unroll
-  for (int i = 0; i < S::A; ++i) cidx[i] = -1;
 }
 
 // ---- K5 ---------------------------------------------------------------------
@@ -295,21 +279,6 @@ int launch_rollout(const void* params, const float* weights, float* ret, float* 
 }
 
 }  // namespace
-
-// the scenario argument: ops/_build.py::SCENARIO_IDS
-#define MPE_SCENARIO_SWITCH(CALL)     \
-  switch (scenario) {                 \
-    case 0: CALL(SpreadScn);          \
-    case 1: CALL(SimpleScn);          \
-    case 2: CALL(ReferenceScn);       \
-    case 3: CALL(SpeakerListenerScn); \
-    case 4: CALL(AdversaryScn);       \
-    case 5: CALL(PushScn);            \
-    case 6: CALL(CryptoScn);          \
-    case 7: CALL(TagScn);             \
-    case 8: CALL(WorldCommScn);       \
-    default: return (int)cudaErrorInvalidValue; \
-  }
 
 extern "C" {
 

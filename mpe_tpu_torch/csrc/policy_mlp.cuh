@@ -1,7 +1,7 @@
-// The actor MLP OW-64-64-KP shared by the policy kernels (mpe_policy.cu: K4, K5,
-// OW = the scenario's obs width, KP = 5 + dim_c logits when it speaks, else 5;
-// mpe_maddpg.cu: K8, 18-64-64-5): one thread evaluates one agent's logits for
-// one env lane. Every layer sums over its inputs in order, starting from the
+// The actor MLP OW-64-64-KP shared by the policy kernels (mpe_policy.cu: K4, K5;
+// mpe_maddpg.cu: K8 and K9's target actions), OW = the scenario's obs width,
+// KP = 5 + dim_c logits when it speaks, else 5: one thread evaluates one
+// agent's logits for one env lane. Every layer sums over its inputs in order, starting from the
 // first product, then adds the bias, as the plain versions
 // (ops/fused_policy.py::_seq_dense) do; with -fmad=false each multiply and add
 // rounds on its own, and tanhf is the function PyTorch's CUDA tanh calls, so

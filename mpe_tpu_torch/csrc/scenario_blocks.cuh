@@ -1,6 +1,6 @@
 // Device functions of the scenarios that the fused kernels run (mpe_kernels.cu:
-// K2; mpe_trajectory.cu: K3), behind one interface so that a kernel is a
-// template over the scenario:
+// K1, K2; mpe_trajectory.cu: K3; mpe_policy.cu: K4, K5; mpe_maddpg.cu: K8),
+// behind one interface so that a kernel is a template over the scenario:
 //
 //   S::A, S::L, S::G     agents, landmarks, goal indices per lane
 //   S::C, S::CW          comm width drawn and emitted (0 without comm), its
@@ -709,6 +709,22 @@ __device__ __forceinline__ void draw_comm(const typename S::Params& c, uint32_t 
       cm[i][k] = S::silent(c, i) ? 0.0f : hash_uniform(salt, (uint32_t)(i * S::C + k) * n + lane);
 }
 
+// the comm one-hot rows of the carried indices (a zero row where cidx < 0)
+template <class S>
+__device__ __forceinline__ void comm_rows(const int (&cidx)[S::A], float (&cm)[S::A][S::CW]) {
+#pragma unroll
+  for (int i = 0; i < S::A; ++i)
+#pragma unroll
+    for (int k = 0; k < S::CW; ++k) cm[i][k] = (k < S::C && cidx[i] == k) ? 1.0f : 0.0f;
+}
+
+// no utterance: the lane's start and every reset
+template <class S>
+__device__ __forceinline__ void reset_comm(int (&cidx)[S::A]) {
+#pragma unroll
+  for (int i = 0; i < S::A; ++i) cidx[i] = -1;
+}
+
 // pos and vel [E, P, N] of one lane (landmarks at rest)
 template <class S>
 __device__ __forceinline__ void store_world(const typename S::W& w, float* __restrict__ pos,
@@ -730,3 +746,18 @@ __device__ __forceinline__ void store_world(const typename S::W& w, float* __res
 }
 
 }  // namespace
+
+// the scenario argument: ops/_build.py::SCENARIO_IDS
+#define MPE_SCENARIO_SWITCH(CALL)     \
+  switch (scenario) {                 \
+    case 0: CALL(SpreadScn);          \
+    case 1: CALL(SimpleScn);          \
+    case 2: CALL(ReferenceScn);       \
+    case 3: CALL(SpeakerListenerScn); \
+    case 4: CALL(AdversaryScn);       \
+    case 5: CALL(PushScn);            \
+    case 6: CALL(CryptoScn);          \
+    case 7: CALL(TagScn);             \
+    case 8: CALL(WorldCommScn);       \
+    default: return (int)cudaErrorInvalidValue; \
+  }

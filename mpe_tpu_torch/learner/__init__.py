@@ -1,8 +1,8 @@
 """Learners (counterpart of ``mpe_tpu/learner/``). Ported so far: the
 initializers ``init_policy``, ``init_ac``, ``init_mappo`` and
 ``init_maddpg``, the optimizers of the fused trainers, the fused PPO and
-MAPPO trainers and the fused MADDPG loop (centralized critic) on
-simple_spread."""
+MAPPO trainers and the fused MADDPG loop (centralized critic) on the nine
+scenarios."""
 
 from mpe_tpu_torch.learner.fused_loop import build_fused_maddpg_runner, run_fused_maddpg
 from mpe_tpu_torch.learner.fused_ppo import build_fused_mappo_step, build_fused_ppo_step

@@ -6,7 +6,8 @@ chunked update (kernel K9, Adam, Polyak) once and returns ``run(updates,
 seed, ...)``. One chunk collects ``n_envs * horizon`` transitions into the
 replay ring and then runs ``horizon`` updates, so the loop keeps one update
 per ``n_envs`` transitions, with the actors gated to every second update
-after ``actor_start`` updates of critic warm-up.
+after ``actor_start`` updates of critic warm-up. It runs on the nine
+scenarios, comm heads included.
 """
 
 from __future__ import annotations

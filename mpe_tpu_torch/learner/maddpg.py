@@ -1,9 +1,10 @@
 """MADDPG with a centralized critic on the fused engine, one device
 (counterpart of ``mpe_tpu/learner/maddpg.py``).
 
-Per-agent actors ``mu_i(o_i)`` -> move logits and per-agent critics
-``Q_i(o_1..A, a_1..A)`` (Lowe et al. 2017), every leaf stacked on a leading
-agent axis ``[A, ...]``. Replay lives on the device in one 2-D row table
+Per-agent actors ``mu_i(o_i)`` -> move logits (and comm logits where the
+scenario speaks, ``maddpg_act_dim``) and per-agent critics ``Q_i(o_1..A,
+a_1..A)`` (Lowe et al. 2017), every leaf stacked on a leading agent axis
+``[A, ...]``. Replay lives on the device in one 2-D row table
 (``Buffer``: row = ``[obs | act | rew | obs2]``), filled by kernel K8
 (``build_fused_collect``) and read by ``build_fused_update_chunk``, whose
 gradient is kernel K9 (``grad_engine="kernel"``) or autograd of the same
@@ -11,15 +12,16 @@ losses (``grad_engine="autograd"``, ``maddpg_xla_grads``). Episodes end only
 by time limit, so TD targets bootstrap through the horizon on the stored
 true pre-reset next obs.
 
-Ported: the centralized critic on simple_spread (move-only heads). Waiting:
-``local_critic`` (independent DDPG), the per-step XLA learner
-``build_maddpg`` with ``gumbel_softmax_st``, ``build_fused_maddpg_dp``, the
-ensemble and approximate-policy variants, and the comm heads (ROADMAP
-A10, B3).
+Ported: the centralized critic on the nine scenarios, comm heads included
+(the factored move x comm policy). Waiting: ``local_critic`` (independent
+DDPG), the per-step XLA learner ``build_maddpg`` with ``gumbel_softmax_st``,
+``build_fused_maddpg_dp``, the ensemble and approximate-policy variants
+(ROADMAP A10, A12).
 
 The ring is updated in place (``build_fused_collect`` writes the chunk into
 ``buffer.data``; the returned ``Buffer`` shares it): at 1,638,400 rows of
-126 floats a functional copy per insert would move 826 MB. ``ptr`` and
+126 floats (simple_spread; 468 on simple_world_comm) a functional copy per
+insert would move 826 MB (3.07 GB). ``ptr`` and
 ``size`` are host integers: they advance by a fixed count per insert, so
 nothing waits for the device to know them.
 """
@@ -34,7 +36,7 @@ import torch
 from mpe_tpu_torch._device import resolve_device
 from mpe_tpu_torch.learner._nets import dense_init
 from mpe_tpu_torch.learner.optim import adam, apply_updates, tree_map
-from mpe_tpu_torch.ops.fused_maddpg_update import _split_rows
+from mpe_tpu_torch.ops.fused_maddpg_update import _split_rows, head_onehots, target_indices
 
 
 def _tree3(fn, *trees):
@@ -243,11 +245,7 @@ def _candidate_table(mw: int, cw: int, aw: int, dtype=torch.float32, device=None
 def _target_actions(target_actor, obs2_b, mw: int, cw: int):
     """Target actors' first-argmax one-hots per head: [B, A, O] -> [B, A, K]."""
     logits = actor_logits(target_actor, obs2_b)
-    onehot = torch.nn.functional.one_hot(logits[..., :mw].argmax(-1), mw).to(obs2_b.dtype)
-    if cw:
-        onehot = torch.cat([onehot, torch.nn.functional.one_hot(
-            logits[..., mw:].argmax(-1), cw).to(obs2_b.dtype)], dim=-1)
-    return onehot
+    return head_onehots(target_indices(logits, mw), mw, mw + cw, obs2_b.dtype)
 
 
 def expected_q_actor_loss(actor_params, critic_params, obs_b, act_b, *, mw: int, cw: int,
@@ -432,6 +430,12 @@ def build_fused_update(env, batch: int = 256, gamma: float = 0.95, tau_polyak: f
     return update_fn
 
 
+def collect_t_chunk(n_steps: int) -> int:
+    """The collection's steps per chunk when the caller names none: the
+    largest of 8, 5, 4, 2, 1 that divides ``n_steps``."""
+    return next(c for c in (8, 5, 4, 2, 1) if n_steps % c == 0)
+
+
 def build_fused_collect(env, n_envs: int, n_steps: int, eps_greedy: float = 0.1,
                         block_envs: int = 1024, t_chunk: int | None = None, device=None):
     """Fused replay collection: ``collect_chunk(actor_params, buffer, seed)
@@ -454,7 +458,7 @@ def build_fused_collect(env, n_envs: int, n_steps: int, eps_greedy: float = 0.1,
                          "so every stored episode is complete")
     kscn, obs_dim, aw, _, _ = _dims(env)
     if t_chunk is None:
-        t_chunk = next(c for c in (8, 5, 4, 2, 1) if n_steps % c == 0)
+        t_chunk = collect_t_chunk(n_steps)
     device = resolve_device(device)
     a = env.n_agents
     tmpl = init_maddpg(torch.Generator().manual_seed(0), obs_dim, aw, a, hidden=1)["actor"]

@@ -85,7 +85,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # argtypes of each library's C functions (all return a cudaError_t as int)
 SIGNATURES = {
     "mpe_kernels.cu": {
-        "mpe_spread_det_rollout_a3l3c2": [_P] * 8 + [_I] * 3 + [_P],
+        "mpe_det_rollout": [_I] + [_P] * 10 + [_I] * 3 + [_P],
         "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _P],
     },
     "mpe_policy.cu": {
@@ -98,17 +98,17 @@ SIGNATURES = {
         "mpe_update_packed_size": [_I] * 2,
     },
     "mpe_maddpg.cu": {
-        "mpe_spread_maddpg_traj_a3l3": [_P] * 7 + [_I] * 5 + [_F, _U, _U, _P],
-        "mpe_maddpg_update_a3h64": [_P] * 5 + [_I] + [_F] * 3 + [_P],
-        "mpe_maddpg_update_layout": [_I],
+        "mpe_maddpg_traj": [_I] + [_P] * 7 + [_I] * 5 + [_F, _U, _U, _P],
+        "mpe_maddpg_update": [_I] + [_P] * 6 + [_I] + [_F] * 3 + [_P],
+        "mpe_maddpg_update_layout": [_I, _I],
     },
     "mpe_trajectory.cu": {
         "mpe_trajectory": [_I] + [_P] * 6 + [_I] * 5 + [_U, _U, _P],
     },
 }
 
-# the scenario argument of mpe_scenario_rollout, mpe_trajectory, mpe_policy_traj
-# and mpe_policy_rollout (csrc/scenario_blocks.cuh): kernel-scenario class -> id
+# the scenario argument of every C entry but mpe_update.cu's
+# (csrc/scenario_blocks.cuh::MPE_SCENARIO_SWITCH): kernel-scenario class -> id
 SCENARIO_IDS = {"KernelSpread": 0, "KernelSimple": 1, "KernelReference": 2,
                 "KernelSpeakerListener": 3, "KernelAdversary": 4, "KernelPush": 5,
                 "KernelCrypto": 6, "KernelTag": 7, "KernelWorldComm": 8}
@@ -290,9 +290,11 @@ def scenario_params(kscn):
 
 
 def kernel_params(kscn):
-    """``(scenario id, constants)`` of a kernel scenario for K2
-    (``mpe_scenario_rollout``), K3 (``mpe_trajectory``), K4
-    (``mpe_policy_rollout``) and K5 (``mpe_policy_traj``)."""
+    """``(scenario id, constants)`` of a kernel scenario for K1
+    (``mpe_det_rollout``), K2 (``mpe_scenario_rollout``), K3
+    (``mpe_trajectory``), K4 (``mpe_policy_rollout``), K5
+    (``mpe_policy_traj``) and K8 (``mpe_maddpg_traj``); K9
+    (``mpe_maddpg_update``) takes the id alone."""
     kind = type(kscn).__name__
     if kind not in SCENARIO_IDS:
         raise NotImplementedError(f"no CUDA instantiation for {kind} ({kscn.spec.name!r}); "

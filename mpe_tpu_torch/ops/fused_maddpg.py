@@ -1,53 +1,49 @@
 """Fused MADDPG replay collection: kernel K8 and its plain PyTorch version
-(counterpart of ``mpe_tpu/ops/fused_maddpg.py``).
+(counterpart of ``mpe_tpu/ops/fused_maddpg.py``), on the nine scenarios.
 
 Every agent has its own actor (``learner.maddpg.init_maddpg``'s ``actor``,
-each leaf stacked on a leading agent axis). Per step, each agent's MLP runs
-on its obs, a move is drawn by Gumbel-max over its logits and, with
-probability ``eps_greedy``, replaced by a uniform one-hot; the env steps and
-lanes reset at the horizon. The stored transition is (obs, action one-hots,
-reward, the TRUE next obs before any reset), so TD targets bootstrap through
-the time limit.
+each leaf stacked on a leading agent axis), with a head of 5 move logits and,
+where the scenario speaks, ``dim_c`` comm logits (``KernelScenario.n_logits``,
+``learner.maddpg.maddpg_act_dim``). Per step, each agent's MLP runs on its
+obs, and each head draws by Gumbel-max over its logits and, with probability
+``eps_greedy``, takes a uniform one-hot instead; the env steps with the
+silent agents' comm zeroed (the decoder's semantics) and lanes reset at the
+horizon. The stored transition is (obs, action one-hots ``[move | comm]``
+with the RAW comm sample, a silent agent's included, reward, the TRUE next
+obs before any reset), so TD targets bootstrap through the time limit. The
+obs an agent acts on reads the utterances of the step before (zero at the
+start and after a reset).
 
-- tensor form: ``(obs [T, A, OW, N], act [T, A, 5, N] one-hot float32, rew
-  [T, R, N], obs2 [T, A, OW, N])``;
+- tensor form: ``(obs [T, A, OW, N], act [T, A, 5 + C, N] one-hot float32,
+  rew [T, R, N], obs2 [T, A, OW, N])``;
 - rows form (``emit_rows=True``): the finished replay rows ``[T, N, W]``,
-  ``W = A*(2*OW + 5 + 1)``, row ``[obs | act | rew per agent | obs2]``
-  flattened agent-major (``learner.maddpg.Buffer``'s layout), the shared
+  ``W = A*(2*OW + 5 + C + 1)``, row ``[obs | act | rew per agent | obs2]``
+  flattened agent-major (``learner.maddpg.Buffer``'s layout), a shared
   reward broadcast to every agent.
 
-On a CUDA device the builder launches ``spread_maddpg_traj_kernel``
-(``csrc/mpe_maddpg.cu``); on the CPU it runs ``plain_maddpg_trajectory``.
+On a CUDA device the builder launches ``maddpg_traj_kernel<S>``
+(``csrc/mpe_maddpg.cu``, one instantiation per scenario struct of
+``csrc/scenario_blocks.cuh``); on the CPU it runs ``plain_maddpg_trajectory``.
 The RNG is the JAX kernels' interpret-mode hash stream with the time-chunk
-salt, as in K5: agent i draws on call ids ``28 + 6i`` (the Gumbel draw of
-``uniform((5, n))``), ``29 + 6i`` (the eps one-hot's Gumbel draw) and
-``30 + 6i`` (the eps coin ``uniform((1, n)) < eps``), so the kernel, its
-plain version and JAX interpret mode draw the same bits. Each layer of the
-plain MLP sums in the kernel's order (``_seq_dense_agents``), so the
-two take the same actions on the card. Only move-only scenarios are ported:
-the comm head waits for ROADMAP B10.
+salt, as in K5: agent i draws on call ids ``28 + 6i`` (the move head's
+Gumbel draw of ``uniform((5, n))``), ``29 + 6i`` (the eps one-hot's Gumbel
+draw) and ``30 + 6i`` (the eps coin ``uniform((1, n)) < eps``), and its comm
+head on ``31 + 6i`` to ``33 + 6i`` likewise, so the kernel, its plain
+version and JAX interpret mode draw the same bits. Each layer of the plain
+MLP sums in the kernel's order (``_seq_dense_agents``), so the two take the
+same actions on the card.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from mpe_tpu_torch._device import resolve_device
-from mpe_tpu_torch.ops import fused_policy
-from mpe_tpu_torch.ops.fused_policy import HIDDEN, _gumbel_onehot
+from mpe_tpu_torch.ops.fused_policy import HIDDEN, _gumbel_onehot, _resolve
 from mpe_tpu_torch.ops.fused_rollout import _MASK, make_lane_reset, make_uniform, pick_block_envs
-
-OBS_W, MOVES = 18, 5                 # the widths the CUDA kernel is built for
-
-
-def _resolve(scenario):
-    kscn = fused_policy._resolve(scenario)
-    if kscn.uses_comm:
-        raise NotImplementedError(f"{kscn.spec.name!r} has a comm head; the MADDPG collection is "
-                                  "ported for move-only scenarios")
-    return kscn
 
 
 def _kernel_weights(actor_params, device=None):
@@ -72,29 +68,41 @@ def _seq_dense_agents(w, b, x):
 
 
 def _peragent_sample(kscn, weights, obs, uniform, step: int, eps_greedy: float):
-    """obs [A, OW, N] -> action one-hots [A, 5, N]: per-agent MLPs, Gumbel-max
-    over the move logits on call id ``28 + 6i``, eps-mixed with a uniform
-    one-hot (ids ``29 + 6i`` and ``30 + 6i``)."""
+    """obs [A, OW, N] -> (raw action one-hots [A, 5 + C, N], the dynamics'
+    comm [A, C, N] or None): per-agent MLPs, then per head a Gumbel-max draw
+    (move: call id ``28 + 6i``, comm: ``31 + 6i``) eps-mixed with a uniform
+    one-hot (the next two ids); the dynamics' comm has silent agents'
+    rows zeroed."""
     w1, b1, w2, b2, w3, b3 = weights
-    mw = 2 * kscn.spec.dim_p + 1
+    mw, dim_c = kscn.n_moves, kscn.n_comm
     h = torch.tanh(_seq_dense_agents(w1, b1, obs))
     h = torch.tanh(_seq_dense_agents(w2, b2, h))
-    logits = _seq_dense_agents(w3, b3, h)[:, :mw]                       # [A, 5, N]
-    rows = []
+    logits = _seq_dense_agents(w3, b3, h)                               # [A, 5 + C, N]
+
+    def head(z, width: int, call: int):
+        samp = _gumbel_onehot(z, uniform((width,), step, call))
+        if eps_greedy > 0.0:
+            rand = _gumbel_onehot(torch.zeros_like(z), uniform((width,), step, call + 1))
+            take = (uniform((1,), step, call + 2) < eps_greedy).to(z.dtype)
+            samp = take * rand + (1.0 - take) * samp
+        return samp
+
+    rows, comm_rows = [], []
     for i in range(kscn.spec.n_agents):
         base = 28 + 6 * i
-        samp = _gumbel_onehot(logits[i], uniform((mw,), step, base))
-        if eps_greedy > 0.0:
-            rand = _gumbel_onehot(torch.zeros_like(logits[i]), uniform((mw,), step, base + 1))
-            take = (uniform((1,), step, base + 2) < eps_greedy).to(logits.dtype)
-            samp = take * rand + (1.0 - take) * samp
-        rows.append(samp)
-    return torch.stack(rows)
+        move = head(logits[i, :mw], mw, base)
+        if not dim_c:
+            rows.append(move)
+            continue
+        comm = head(logits[i, mw:], dim_c, base + 3)
+        rows.append(torch.cat([move, comm]))
+        comm_rows.append(comm if kscn.speak[i] else torch.zeros_like(comm))
+    return torch.stack(rows), (torch.stack(comm_rows) if dim_c else None)
 
 
 def _rows(kscn, obs, act, rew, obs2):
-    """One step's (obs [A, OW, N], act [A, 5, N], rew [R, N], obs2) -> replay
-    rows [N, W]."""
+    """One step's (obs [A, OW, N], act [A, 5 + C, N], rew [R, N], obs2) ->
+    replay rows [N, W]."""
     a, n = kscn.spec.n_agents, obs.shape[-1]
     rew_a = rew.expand(a, n) if rew.shape[0] == 1 else rew
     return torch.cat([obs.reshape(-1, n), act.reshape(-1, n), rew_a, obs2.reshape(-1, n)]).T
@@ -108,14 +116,14 @@ def plain_maddpg_trajectory(kscn, weights, n_envs: int, n_steps: int, horizon: i
     t = 0 and resets on the shared horizon."""
     spec = kscn.spec
     a, n_blocks = spec.n_agents, n_envs // block_envs
-    mw = 2 * spec.dim_p + 1
+    mw, aw = kscn.n_moves, kscn.n_logits
     f32 = torch.float32
     if emit_rows:
-        rows_out = torch.empty((n_steps, n_envs, a * (2 * kscn.obs_w + mw + 1)), dtype=f32,
+        rows_out = torch.empty((n_steps, n_envs, a * (2 * kscn.obs_w + aw + 1)), dtype=f32,
                                device=device)
     else:
         obs_out = torch.empty((n_steps, a, kscn.obs_w, n_envs), dtype=f32, device=device)
-        act_out = torch.empty((n_steps, a, mw, n_envs), dtype=f32, device=device)
+        act_out = torch.empty((n_steps, a, aw, n_envs), dtype=f32, device=device)
         rew_out = torch.empty((n_steps, kscn.reward_rows, n_envs), dtype=f32, device=device)
         obs2_out = torch.empty_like(obs_out)
     t = 0
@@ -126,9 +134,9 @@ def plain_maddpg_trajectory(kscn, weights, n_envs: int, n_steps: int, horizon: i
             pos, vel, obs, goal, _ = init()
         for step in range(t_chunk):
             ts = chunk * t_chunk + step
-            act = _peragent_sample(kscn, weights, obs, uniform, step, eps_greedy)
-            pos, vel = kscn.physics(pos, vel, act)
-            rew, obs_next = kscn.reward_obs(pos, vel, None, goal)
+            act, comm = _peragent_sample(kscn, weights, obs, uniform, step, eps_greedy)
+            pos, vel = kscn.physics(pos, vel, act[:, :mw])
+            rew, obs_next = kscn.reward_obs(pos, vel, comm, goal)
             if emit_rows:
                 rows_out[ts] = _rows(kscn, obs, act, rew, obs_next)
             else:
@@ -145,9 +153,9 @@ def plain_maddpg_trajectory(kscn, weights, n_envs: int, n_steps: int, horizon: i
 def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, block_envs: int,
                      t_chunk: int, eps_greedy: float, seed: int, block_offset: int = 0,
                      emit_rows: bool = False, device=None):
-    """Launch kernel K8 (``spread_maddpg_traj_kernel``) on ``device``: the
-    outputs of ``plain_maddpg_trajectory``. Counts launches in
-    ``.launches``."""
+    """Launch kernel K8 (``maddpg_traj_kernel<S>``) on ``device``: the outputs
+    of ``plain_maddpg_trajectory``. Counts launches in ``.launches`` and, by
+    scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     device = torch.device(device)
@@ -158,41 +166,43 @@ def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
     if n_steps < 0 or horizon < 1 or t_chunk < 1 or n_steps % t_chunk:
         raise ValueError(f"need n_steps >= 0 a multiple of t_chunk >= 1 and horizon >= 1, got "
                          f"{n_steps}, {t_chunk}, {horizon}")
-    a = kscn.spec.n_agents
+    spec = kscn.spec
+    a, ow, aw = spec.n_agents, kscn.obs_w, kscn.n_logits
     shapes = [tuple(w.shape) for w in weights]
-    want = [(a, HIDDEN, OBS_W), (a, HIDDEN, 1), (a, HIDDEN, HIDDEN), (a, HIDDEN, 1),
-            (a, MOVES, HIDDEN), (a, MOVES, 1)]
+    want = [(a, HIDDEN, ow), (a, HIDDEN, 1), (a, HIDDEN, HIDDEN), (a, HIDDEN, 1),
+            (a, aw, HIDDEN), (a, aw, 1)]
     if shapes != want:
         raise NotImplementedError(f"the MADDPG collection kernel is built for {a} agents' "
-                                  f"{OBS_W}-{HIDDEN}-{HIDDEN}-{MOVES} actors; got weight shapes "
-                                  f"{shapes}")
-    params = _build.spread_params(kscn)
+                                  f"{ow}-{HIDDEN}-{HIDDEN}-{aw} actors on {spec.name!r}; got "
+                                  f"weight shapes {shapes}")
+    scenario, params = _build.kernel_params(kscn)
     wbuf = torch.cat([torch.cat([w[i].reshape(-1) for w in weights]) for i in range(a)])
     wbuf = wbuf.to(device=device, dtype=torch.float32).contiguous()
-    ow, f32 = kscn.obs_w, torch.float32
+    f32 = torch.float32
     if emit_rows:
-        outs = (torch.empty((n_steps, n_envs, a * (2 * ow + MOVES + 1)), dtype=f32,
-                            device=device),)
+        outs = (torch.empty((n_steps, n_envs, a * (2 * ow + aw + 1)), dtype=f32, device=device),)
         ptrs = (None, None, None, None, outs[0].data_ptr())
     else:
         outs = (torch.empty((n_steps, a, ow, n_envs), dtype=f32, device=device),
-                torch.empty((n_steps, a, MOVES, n_envs), dtype=f32, device=device),
-                torch.empty((n_steps, 1, n_envs), dtype=f32, device=device),
+                torch.empty((n_steps, a, aw, n_envs), dtype=f32, device=device),
+                torch.empty((n_steps, kscn.reward_rows, n_envs), dtype=f32, device=device),
                 torch.empty((n_steps, a, ow, n_envs), dtype=f32, device=device))
         ptrs = tuple(x.data_ptr() for x in outs) + (None,)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.library("mpe_maddpg.cu").mpe_spread_maddpg_traj_a3l3(
-            ctypes.byref(params), wbuf.data_ptr(), *ptrs, n_envs, block_envs,
+        rc = _build.library("mpe_maddpg.cu").mpe_maddpg_traj(
+            scenario, ctypes.byref(params), wbuf.data_ptr(), *ptrs, n_envs, block_envs,
             n_steps // t_chunk, t_chunk, horizon, float(eps_greedy), int(seed) & _MASK,
             int(block_offset) & _MASK, stream)
     if rc != 0:
-        raise RuntimeError(f"spread_maddpg_traj_kernel launch failed: {_build.error_string(rc)}")
+        raise RuntimeError(f"maddpg_traj_kernel launch failed: {_build.error_string(rc)}")
     maddpg_traj_cuda.launches += 1
+    maddpg_traj_cuda.launches_by[spec.name] += 1
     return outs[0] if emit_rows else outs
 
 
 maddpg_traj_cuda.launches = 0
+maddpg_traj_cuda.launches_by = collections.Counter()
 
 
 def fused_maddpg_trajectory(scenario, actor_params, n_envs: int, n_steps: int,
@@ -202,15 +212,15 @@ def fused_maddpg_trajectory(scenario, actor_params, n_envs: int, n_steps: int,
     replay transitions in the tensor or the rows form (module docstring), by
     kernel K8 on CUDA and by ``plain_maddpg_trajectory`` on the CPU;
     ``run.plain`` is the plain version on the same device. ``actor_params``
-    fixes the widths (its output width must be 5 on simple_spread); pass the
-    current actor at each call. Lanes start at t = 0 and reset every
-    ``horizon`` steps."""
+    fixes the widths (its output width must be ``5 + C``,
+    ``learner.maddpg.maddpg_act_dim``); pass the current actor at each call.
+    Lanes start at t = 0 and reset every ``horizon`` steps."""
     kscn = _resolve(scenario)
-    mw = 2 * kscn.spec.dim_p + 1
+    aw = kscn.n_logits
     got = tuple(actor_params["out"]["b"].shape)
-    if got[-1] != mw or actor_params["l1"]["w"].shape[-2] != kscn.obs_w:
+    if got[-1] != aw or actor_params["l1"]["w"].shape[-2] != kscn.obs_w:
         raise ValueError(f"actor maps {actor_params['l1']['w'].shape[-2]} -> {got[-1]}; "
-                         f"{kscn.spec.name!r} needs {kscn.obs_w} -> {mw}")
+                         f"{kscn.spec.name!r} needs {kscn.obs_w} -> {aw}")
     device = resolve_device(device)
     block_envs = pick_block_envs(n_envs, block_envs)
     if t_chunk < 1 or n_steps % t_chunk:
@@ -231,6 +241,6 @@ def fused_maddpg_trajectory(scenario, actor_params, n_envs: int, n_steps: int,
     run.n_blocks = n_envs // block_envs
     run.block_envs = block_envs
     run.t_chunk = t_chunk
-    run.act_width = mw
+    run.act_width = aw
     return run
 

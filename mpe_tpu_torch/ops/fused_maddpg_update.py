@@ -1,45 +1,56 @@
 """Fused MADDPG gradient: kernel K9 and its plain PyTorch version
-(counterpart of ``mpe_tpu/ops/fused_maddpg_update.py``).
+(counterpart of ``mpe_tpu/ops/fused_maddpg_update.py``), on the nine
+scenarios, comm heads included.
 
 ``fused_maddpg_update`` builds ``grads_fn(params, targets, obs_b, act_b,
 rew_b, obs2_b) -> (grads, (critic_loss, actor_loss, q_mean))`` and
 ``grads_fn.from_rows(params, targets, rows_b)`` for the stacked per-agent
 trees of ``learner.maddpg.init_maddpg`` (centralized critics), on a batch
 of replay rows ``[B, W]`` (``learner.maddpg.Buffer``'s layout ``[obs | act
-| rew | obs2]``). The gradient is the hand-derived one of the JAX kernel,
-pinned to autograd of the same losses (``learner.maddpg.maddpg_xla_grads``)
-by the tests:
+| rew | obs2]``). An actor's head is ``mw`` move logits, then ``cw`` comm
+logits where the scenario speaks (``cw = 0`` otherwise). The gradient is the
+hand-derived one of the JAX kernel, pinned to autograd of the same losses
+(``learner.maddpg.maddpg_xla_grads``) by the tests:
 
-1. target actions: each agent's target actor on s', first-argmax one-hot;
+1. target actions: each agent's target actor on s', a first-argmax one-hot
+   per head;
 2. TD targets ``y = r + gamma Q'(s', a')`` (bootstrapping through the
    horizon: episodes only truncate);
 3. the critics' gradient of ``mean_{A,B} (Q(s, a) - y)^2``;
-4. the actors' gradient of the exact expected-Q objective: at the logits
-   ``dE/dz = p (qbar - E)``, where ``qbar[c]`` is the critic's value with
-   the agent's own action replaced by candidate c, built from the critic's
-   layer-1 pre-activation minus the agent's own-action columns plus the
-   candidate's column;
-5. the adjoint of the entropy bonus ``-sum p log(p + 1e-10)``, the
-   ``p / (p + eps)`` term included (``s = log(p + eps) + p / (p + eps)``).
+4. the actors' gradient of the exact expected-Q objective under the
+   factored policy ``pm x pc``: every candidate ``m * cw + j`` of the full
+   (move x comm) grid has its critic value ``q`` with the agent's own action
+   replaced by (move m, comm j), built from the critic's layer-1
+   pre-activation minus the agent's own-action columns plus the candidate's
+   column sum ``w[:, m] + w[:, mw + j]``; then ``qbar_m[m] = sum_j pc[j]
+   q[m, j]``, ``qbar_c[j] = sum_m pm[m] q[m, j]``, ``E = sum_m pm qbar_m``,
+   and at the logits ``dE/dz = p (qbar - E)`` per head;
+5. the adjoint of the entropy bonus ``-sum p log(p + 1e-10)`` of both heads,
+   the ``p / (p + eps)`` term included (``s = log(p + eps) + p / (p +
+   eps)``).
 
 The TPU kernel's packed block-diagonal weights (``_tile_groups``,
-``pack_params``, the grad masks, ``_cpad``) are a layout of the TPU's matrix
-unit and have no counterpart: the port keeps the params' own layout. On a
-CUDA device ``from_rows`` launches ``maddpg_target_actions_kernel``,
-``maddpg_update_kernel`` and ``maddpg_reduce_kernel`` (``csrc/mpe_maddpg.cu``,
-float32, 3 agents, hidden 64); on the CPU it runs ``plain_maddpg_update`` in
+``pack_params``, the grad masks, ``_cpad``) and its lane-concatenated
+candidate groups are layouts of the TPU's matrix unit and have no
+counterpart: the port keeps the params' own layout. On a CUDA device
+``from_rows`` launches ``maddpg_target_actions_kernel``,
+``maddpg_td_kernel``, ``maddpg_update_kernel`` and ``maddpg_reduce_kernel``
+(``csrc/mpe_maddpg.cu``, float32, hidden 64), instantiated for the scenario
+whose widths the params have; on the CPU it runs ``plain_maddpg_update`` in
 ``dtype``. The target actors sum each layer in the kernel's order, so the
-kernel and its plain version take the same target actions on the card. Only
-move-only heads are ported (the comm head waits for ROADMAP B3).
+kernel and its plain version take the same target actions on the card.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
 
 import torch
 
 from mpe_tpu_torch._device import resolve_device
 
-AGENTS, OBS_W, MOVES, HIDDEN = 3, 18, 5, 64     # the widths the CUDA kernel is built for
+HIDDEN = 64                                     # the hidden width the CUDA kernel is built for
 
 
 def _seq_dense_agents(w, b, x):
@@ -58,6 +69,23 @@ def target_logits(target_actor, obs2_b):
     h = torch.tanh(_seq_dense_agents(target_actor["l1"]["w"], target_actor["l1"]["b"], obs2_b))
     h = torch.tanh(_seq_dense_agents(target_actor["l2"]["w"], target_actor["l2"]["b"], h))
     return _seq_dense_agents(target_actor["out"]["w"], target_actor["out"]["b"], h)
+
+
+def target_indices(logits, mw: int):
+    """First-argmax per head of logits [..., K]: [..., 1] (move) or [..., 2]
+    (move, comm) where K > mw."""
+    idx = [logits[..., :mw].argmax(-1)]
+    if logits.shape[-1] > mw:
+        idx.append(logits[..., mw:].argmax(-1))
+    return torch.stack(idx, dim=-1)
+
+
+def head_onehots(idx, mw: int, k: int, dtype):
+    """Per-head indices [..., heads] -> [move | comm] one-hots [..., K]."""
+    parts = [torch.nn.functional.one_hot(idx[..., 0], mw)]
+    if k > mw:
+        parts.append(torch.nn.functional.one_hot(idx[..., 1], k - mw))
+    return torch.cat(parts, dim=-1).to(dtype)
 
 
 def _split_rows(rows, a: int, o: int, k: int):
@@ -92,32 +120,50 @@ def _seq_sum(terms):
     return acc
 
 
-def plain_maddpg_update(params, targets, rows_b, *, gamma: float, ent_coef: float,
+def _softmax_eps(z):
+    """``_softmax_eps`` of one head, logits [..., K] -> (p, s, entropy), each
+    sum over K in index order: ``s = log(p + 1e-10) + p / (p + 1e-10)``,
+    entropy ``-sum p log(p + 1e-10)``."""
+    e = torch.exp(z - z.amax(-1, keepdim=True))
+    p = e / _seq_sum(e)[..., None]
+    lse = torch.log(p + 1e-10)
+    return p, lse + p / (p + 1e-10), -_seq_sum(p * lse)
+
+
+def _head_grad(p, s, qbar, exp_q, ent_coef: float, inv: float):
+    """The logit gradient of one head: ``(-(p (qbar - E)) + ent_coef p (s -
+    sum p s)) / (A B)``."""
+    return (-(p * (qbar - exp_q[..., None]))
+            + (ent_coef * p) * (s - _seq_sum(p * s)[..., None])) * inv
+
+
+def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_coef: float,
                         dtype=torch.float32):
     """The JAX ``_maddpg_update_kernel`` on the whole batch at once, in
     ``dtype`` -> (grads in init_maddpg layout, (critic_loss, actor_loss,
-    q_mean)).
+    q_mean)); ``mw`` move logits, the rest of the head is comm.
 
-    The forward passes and the sums over candidates sum in the CUDA kernel's
-    order. The expected-Q gradient ``p (qbar - E)`` is ill-conditioned in
-    float32 once the critic is trained: Q near -70 while ``qbar - E`` is
-    near 1e-3, so another summation order alone moves the actor's gradient
-    by parts in a thousand (PERF.md); in this order the two agree to the
-    rounding of the weight-gradient sums."""
+    The forward passes and the sums over candidates and heads sum in the
+    CUDA kernel's order. The expected-Q gradient ``p (qbar - E)`` is
+    ill-conditioned in float32 once the critic is trained: Q near -70 while
+    ``qbar - E`` is near 1e-3, so another summation order alone moves the
+    actor's gradient by parts in a thousand (PERF.md); in this order the two
+    agree to the rounding of the weight-gradient sums."""
     p = {n: {q: {w: x.detach().to(dtype) for w, x in layer.items()} for q, layer in net.items()}
          for n, net in params.items()}
     t = {n: {q: {w: x.detach().to(dtype) for w, x in layer.items()} for q, layer in net.items()}
          for n, net in targets.items()}
     a, o, h = p["actor"]["l1"]["w"].shape
     k = p["actor"]["out"]["w"].shape[-1]
+    cw = k - mw
     rows = rows_b.to(dtype)
     batch = rows.shape[0]
     obs, act, rew, obs2 = _split_rows(rows, a, o, k)
     joint = rows[:, :a * (o + k)]
     inv = 1.0 / float(a * batch)
 
-    # 1-2. target actions and TD targets
-    act2 = torch.nn.functional.one_hot(target_logits(t["actor"], obs2).argmax(-1), k).to(dtype)
+    # 1-2. target actions (first argmax per head) and TD targets
+    act2 = head_onehots(target_indices(target_logits(t["actor"], obs2), mw), mw, k, dtype)
     joint2 = torch.cat([obs2.reshape(batch, -1), act2.reshape(batch, -1)], dim=-1)
     y = rew + gamma * _critic_layers(t["critic"], joint2)[3]                 # [B, A]
 
@@ -132,25 +178,33 @@ def plain_maddpg_update(params, targets, rows_b, *, gamma: float, ent_coef: floa
               "l2": {"w": torch.einsum("bah,bag->ahg", h1, gh2), "b": gh2.sum(0)},
               "out": {"w": torch.einsum("bag,ba->ag", h2, g3)[..., None], "b": g3.sum(0)[:, None]}}
 
-    # 4. candidate Q: layer-1 reuse without each agent's own-action columns
+    # 4. candidate Q on the (move x comm) grid: layer-1 reuse without each
+    # agent's own-action columns, plus the candidate's column sum
     w_act = torch.stack([c["l1"]["w"][i, a * o + i * k:a * o + (i + 1) * k] for i in range(a)])
     base = pre - _seq_sum(act[..., None, :] * w_act.transpose(1, 2))        # [B, A, H]
-    qbar = torch.stack([_critic_tail(c, torch.tanh(base + w_act[:, m]))[1] for m in range(k)],
-                       dim=-1)                                              # [B, A, K]
+    dcand = [w_act[:, m] + w_act[:, mw + j] if cw else w_act[:, m]
+             for m in range(mw) for j in range(max(cw, 1))]                 # [A, H] each
+    qc = torch.stack([_critic_tail(c, torch.tanh(base + dc))[1] for dc in dcand],
+                     dim=-1)                                                # [B, A, mw cx]
 
     # actors: forward, expected-Q and entropy gradient at the logits, backward
     ac = p["actor"]
     ha1 = torch.tanh(_seq_dense_agents(ac["l1"]["w"], ac["l1"]["b"], obs))
     ha2 = torch.tanh(_seq_dense_agents(ac["l2"]["w"], ac["l2"]["b"], ha1))
     z = _seq_dense_agents(ac["out"]["w"], ac["out"]["b"], ha2)              # [B, A, K]
-    e = torch.exp(z - z.amax(-1, keepdim=True))
-    pz = e / _seq_sum(e)[..., None]
-    lse = torch.log(pz + 1e-10)
-    s = lse + pz / (pz + 1e-10)
-    ent = -_seq_sum(pz * lse)
-    exp_q = _seq_sum(pz * qbar)                                             # [B, A]
-    gz = (-(pz * (qbar - exp_q[..., None]))
-          + (ent_coef * pz) * (s - _seq_sum(pz * s)[..., None])) * inv
+    pm, sm, ent = _softmax_eps(z[..., :mw])
+    if cw:
+        pc, sc, ent_c = _softmax_eps(z[..., mw:])
+        qg = qc.reshape(batch, a, mw, cw)
+        qbar_m = _seq_sum(pc[..., None, :] * qg)                             # over comm j
+        qbar_c = _seq_sum((pm[..., :, None] * qg).transpose(-1, -2))         # over move m
+        ent = ent + ent_c
+    else:
+        qbar_m = qc
+    exp_q = _seq_sum(pm * qbar_m)                                           # [B, A]
+    gz = _head_grad(pm, sm, qbar_m, exp_q, ent_coef, inv)
+    if cw:
+        gz = torch.cat([gz, _head_grad(pc, sc, qbar_c, exp_q, ent_coef, inv)], dim=-1)
     gha2 = torch.einsum("bak,ahk->bah", gz, ac["out"]["w"]) * (1.0 - ha2.square())
     gha1 = torch.einsum("bag,ahg->bah", gha2, ac["l2"]["w"]) * (1.0 - ha1.square())
     actor = {"l1": {"w": torch.einsum("bah,bao->aoh", gha1, obs), "b": gha1.sum(0)},
@@ -181,19 +235,52 @@ def _net_grads(buf, n_in: int, n_out: int):
             "out": {"w": w3.reshape(a, n_out, HIDDEN).transpose(1, 2), "b": b3}}
 
 
-def maddpg_update_cuda(params, targets, rows_b, *, gamma: float, ent_coef: float,
+@functools.cache
+def kernel_scenario_of(n_agents: int, obs_dim: int, cw: int):
+    """The scenario whose K9 instantiation has these widths (agents, obs
+    rows, comm logits), or None."""
+    from mpe_tpu_torch.ops._build import SCENARIO_IDS
+    from mpe_tpu_torch.ops.kernel_scenarios import _KERNEL_SCENARIOS, kernel_scenario
+
+    for name in _KERNEL_SCENARIOS:
+        kscn = kernel_scenario(name)
+        if (type(kscn).__name__ in SCENARIO_IDS
+                and (kscn.spec.n_agents, kscn.obs_w, kscn.n_comm) == (n_agents, obs_dim, cw)):
+            return kscn
+    return None
+
+
+@functools.cache
+def _update_layout(scenario: int):
+    """K9's layout constants for a scenario id: (actor stride, critic stride,
+    weights, gradient per agent, samples per tile)."""
+    from mpe_tpu_torch.ops import _build
+
+    lib = _build.library("mpe_maddpg.cu")
+    return tuple(lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
+
+
+def maddpg_update_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_coef: float,
                        target_actions=None):
     """Launch kernel K9 on the rows' CUDA device: the outputs of
     ``plain_maddpg_update`` in float32. ``target_actions``, an int32 ``[A,
-    B]`` tensor on the device, receives the target actions the kernel took.
-    Counts launches in ``.launches``."""
+    heads, B]`` tensor on the device (heads 2 with a comm head, else 1),
+    receives the target actions the kernel took. Counts launches in
+    ``.launches`` and, by scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     device = rows_b.device
     if device.type != "cuda":
         raise ValueError(f"maddpg_update_cuda needs CUDA tensors, got {device}")
-    a, o, k, h = AGENTS, OBS_W, MOVES, HIDDEN
+    a, o, h = params["actor"]["l1"]["w"].shape
+    k = params["actor"]["out"]["w"].shape[-1]
+    kscn = kernel_scenario_of(a, o, k - mw)
+    if kscn is None or h != HIDDEN or k < mw:
+        raise NotImplementedError(f"no MADDPG update kernel for {a} agents' {o}-{h}-{h}-{k} "
+                                  f"actors with {mw} moves: the kernel is built for the nine "
+                                  f"scenarios' widths, hidden {HIDDEN}")
     j = a * (o + k)
+    nh = 2 if k > mw else 1
     batch = rows_b.shape[0]
     width = a * (2 * o + k + 1)
     if rows_b.dtype != torch.float32 or not rows_b.is_contiguous() or rows_b.dim() != 2:
@@ -205,11 +292,11 @@ def maddpg_update_cuda(params, targets, rows_b, *, gamma: float, ent_coef: float
     for tree in (params, targets):
         got = {n: {q: tuple(tree[n][q]["w"].shape) for q in want[n]} for n in want}
         if got != want:
-            raise NotImplementedError(f"the MADDPG update kernel is built for {a} agents' "
-                                      f"{o}-{h}-{h}-{k} actors and {j}-{h}-{h}-1 critics; got "
-                                      f"weight shapes {got}")
+            raise ValueError(f"the MADDPG update kernel takes {a} agents' {o}-{h}-{h}-{k} "
+                             f"actors and {j}-{h}-{h}-1 critics; got weight shapes {got}")
+    scenario = _build.SCENARIO_IDS[type(kscn).__name__]
     lib = _build.library("mpe_maddpg.cu")
-    nwp, ncp, n_weights, ng, ts = (lib.mpe_maddpg_update_layout(q) for q in range(5))
+    nwp, ncp, n_weights, ng, ts = _update_layout(scenario)
     nw, nc = h * o + h + h * h + h + k * h + k, h * j + h + h * h + h + h + 1
     if ng != nw + nc + 3:
         raise RuntimeError("csrc/mpe_maddpg.cu and ops/fused_maddpg_update.py disagree on the "
@@ -221,30 +308,33 @@ def maddpg_update_cuda(params, targets, rows_b, *, gamma: float, ent_coef: float
     if wbuf.numel() != n_weights:
         raise RuntimeError(f"weight buffer of {wbuf.numel()} floats, the kernel reads {n_weights}")
     if target_actions is None:
-        target_actions = torch.empty((a, batch), dtype=torch.int32, device=device)
-    elif (target_actions.dtype != torch.int32 or tuple(target_actions.shape) != (a, batch)
+        target_actions = torch.empty((a, nh, batch), dtype=torch.int32, device=device)
+    elif (target_actions.dtype != torch.int32 or tuple(target_actions.shape) != (a, nh, batch)
           or target_actions.device != device or not target_actions.is_contiguous()):
-        raise ValueError(f"target_actions must be a contiguous int32 ({a}, {batch}) tensor "
+        raise ValueError(f"target_actions must be a contiguous int32 ({a}, {nh}, {batch}) tensor "
                          f"on {device}")
     n_tiles = -(-batch // ts)
+    y = torch.empty((a, batch), dtype=torch.float32, device=device)
     partials = torch.empty(a * n_tiles * ng, dtype=torch.float32, device=device)
     out = torch.empty((a, ng), dtype=torch.float32, device=device)
     inv = 1.0 / float(a * batch)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mpe_maddpg_update_a3h64(wbuf.data_ptr(), rows_b.data_ptr(),
-                                         target_actions.data_ptr(), partials.data_ptr(),
-                                         out.data_ptr(), batch, float(gamma), float(ent_coef),
-                                         inv, stream)
+        rc = lib.mpe_maddpg_update(scenario, wbuf.data_ptr(), rows_b.data_ptr(),
+                                   target_actions.data_ptr(), y.data_ptr(), partials.data_ptr(),
+                                   out.data_ptr(), batch, float(gamma), float(ent_coef), inv,
+                                   stream)
     if rc != 0:
         raise RuntimeError(f"maddpg_update_kernel launch failed: {_build.error_string(rc)}")
     maddpg_update_cuda.launches += 1
+    maddpg_update_cuda.launches_by[kscn.spec.name] += 1
     grads = {"actor": _net_grads(out[:, :nw], o, k), "critic": _net_grads(out[:, nw:nw + nc], j, 1)}
     sums = out[:, nw + nc:].sum(0)
     return grads, (sums[0] * inv, -sums[2] * inv, sums[1] * inv)
 
 
 maddpg_update_cuda.launches = 0
+maddpg_update_cuda.launches_by = collections.Counter()
 
 
 def fused_maddpg_update(n_agents: int, obs_dim: int, act_dim: int, mw: int, hidden: int,
@@ -254,11 +344,11 @@ def fused_maddpg_update(n_agents: int, obs_dim: int, act_dim: int, mw: int, hidd
     (grads, (critic_loss, actor_loss, q_mean))`` with ``grads_fn.from_rows(
     params, targets, rows_b)``: kernel K9 on CUDA (float32 only), the plain
     version in ``dtype`` on the CPU; ``grads_fn.plain`` is the plain version
-    (with its own ``from_rows``). The JAX builder's ``block_b`` and
-    ``cand_group`` (its tiling) have no counterpart."""
-    if act_dim != mw:
-        raise NotImplementedError(f"act_dim {act_dim} has a comm head of {act_dim - mw}; the "
-                                  "MADDPG update is ported for move-only heads (ROADMAP B3)")
+    (with its own ``from_rows``). ``act_dim - mw`` is the comm head's width
+    (0 without one). The JAX builder's ``block_b`` and ``cand_group`` (its
+    tiling) have no counterpart."""
+    if act_dim < mw:
+        raise ValueError(f"act_dim {act_dim} is narrower than the {mw} move logits")
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
@@ -266,7 +356,7 @@ def fused_maddpg_update(n_agents: int, obs_dim: int, act_dim: int, mw: int, hidd
         raise ValueError("the MADDPG update kernel computes in float32; use dtype=torch.float32 "
                          "on CUDA")
     width = n_agents * (2 * obs_dim + act_dim + 1)
-    hp = dict(gamma=gamma, ent_coef=ent_coef)
+    hp = dict(mw=mw, gamma=gamma, ent_coef=ent_coef)
 
     def check(params, rows_b):
         got = tuple(params["actor"]["l1"]["w"].shape)

@@ -8,13 +8,15 @@ Without an RNG stream to reproduce, the kernel can be held against the
 plain version value for value on the card, and the plain version against
 the JAX kernel's interpret run on the CPU.
 
-On a CUDA tensor ``fused_det_rollout`` launches ``spread_det_rollout_kernel``
-(``csrc/mpe_kernels.cu``); on a CPU tensor it runs
+On CUDA tensors ``fused_det_rollout`` launches ``det_rollout_kernel<S>``
+(``csrc/mpe_kernels.cu``, one instantiation per scenario struct of
+``csrc/scenario_blocks.cuh``); on CPU tensors it runs
 ``plain_det_rollout_blocked``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -127,10 +129,10 @@ def plain_det_rollout_blocked(scenario, n_steps: int, block_envs: int):
     return make_det_rollout(_resolve(scenario), n_steps, block_envs)
 
 
-def spread_det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, comm0, goal0):
-    """Launch kernel K1 (``spread_det_rollout_kernel``) on CUDA inputs;
-    same outputs as ``plain_det_rollout_blocked``. Counts its launches in
-    ``spread_det_rollout_cuda.launches``."""
+def det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, comm0, goal0):
+    """Launch kernel K1 (``det_rollout_kernel<S>``) on CUDA inputs; same
+    outputs as ``plain_det_rollout_blocked``. Counts its launches in
+    ``det_rollout_cuda.launches`` and, by scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     n = pos0.shape[-1]
@@ -145,7 +147,7 @@ def spread_det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, com
                              f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     if n_steps < 0 or n % block_envs:
         raise ValueError(f"need n_steps >= 0 and n={n} a multiple of block_envs={block_envs}")
-    params = _build.spread_params(kscn)
+    scenario, params = _build.kernel_params(kscn)
     spec = kscn.spec
     out = dict(dtype=torch.float32, device=pos0.device)
     pos = torch.empty_like(pos0)
@@ -155,17 +157,19 @@ def spread_det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, com
     obs = torch.empty((spec.n_agents, kscn.obs_w, n), **out)
     with torch.cuda.device(pos0.device):
         stream = torch.cuda.current_stream(pos0.device).cuda_stream
-        rc = _build.library().mpe_spread_det_rollout_a3l3c2(
-            ctypes.byref(params), pos0.data_ptr(), vel0.data_ptr(), pos.data_ptr(),
-            vel.data_ptr(), rew_sum.data_ptr(), rew.data_ptr(), obs.data_ptr(),
+        rc = _build.library().mpe_det_rollout(
+            scenario, ctypes.byref(params), *(x.data_ptr() for x in (
+                pos0, vel0, comm0, goal0, pos, vel, rew_sum, rew, obs)),
             n, block_envs, n_steps, stream)
     if rc != 0:
-        raise RuntimeError(f"spread_det_rollout_kernel launch failed: {_build.error_string(rc)}")
-    spread_det_rollout_cuda.launches += 1
+        raise RuntimeError(f"det_rollout_kernel launch failed: {_build.error_string(rc)}")
+    det_rollout_cuda.launches += 1
+    det_rollout_cuda.launches_by[spec.name] += 1
     return pos, vel, rew_sum, rew, obs
 
 
-spread_det_rollout_cuda.launches = 0
+det_rollout_cuda.launches = 0
+det_rollout_cuda.launches_by = collections.Counter()
 
 
 def fused_det_rollout(scenario, n_envs: int, n_steps: int, block_envs: int = 1024, device=None):
@@ -183,7 +187,7 @@ def fused_det_rollout(scenario, n_envs: int, n_steps: int, block_envs: int = 102
             raise ValueError(f"expected {n_envs} lanes on {device}, got {tuple(pos0.shape)} "
                              f"on {pos0.device}")
         if pos0.is_cuda:
-            return spread_det_rollout_cuda(kscn, n_steps, block_envs, pos0, vel0, comm0, goal0)
+            return det_rollout_cuda(kscn, n_steps, block_envs, pos0, vel0, comm0, goal0)
         return plain(pos0, vel0, comm0, goal0)
 
     run.block_envs = block_envs

@@ -1,21 +1,21 @@
-"""The CUDA sources of K2-K7 (``csrc/mpe_kernels.cu``, ``csrc/mpe_trajectory.cu``,
-``csrc/mpe_policy.cu``, ``csrc/mpe_update.cu``) compiled for the host by a
-C++ compiler and held against their plain versions on the CPU, for every
-scenario instantiation.
+"""The CUDA sources of K1-K9 (``csrc/mpe_kernels.cu``, ``csrc/mpe_trajectory.cu``,
+``csrc/mpe_policy.cu``, ``csrc/mpe_update.cu``, ``csrc/mpe_maddpg.cu``)
+compiled for the host by a C++ compiler and held against their plain
+versions on the CPU, for every scenario instantiation.
 
 A stand-in ``cuda_runtime.h`` defines the few CUDA names the sources use
 (the execution-space keywords as nothing, ``__shared__`` as a static,
-``rsqrtf`` as ``1 / sqrtf``, ``__stcs`` as a plain store, ``float4``), and
+``rsqrtf`` as ``1 / sqrtf``, ``__stcs`` as a plain store, ``float4``, ``dim3``), and
 each ``kernel<<<blocks, threads, smem, stream>>>(...)`` launch runs its
 blocks one after another, each block's threads as host threads that meet at
 ``__syncthreads()`` (a barrier), so a CTA's phases run in order as on the
-card; the update kernel's dynamic shared memory becomes one static buffer.
+card; a kernel's dynamic shared memory becomes one static buffer.
 This checks the device functions' indexing, order of operations and RNG
 streams without a card. The arithmetic is the host's (its libm and an exact
 reciprocal square root), not the card's: trajectories' actions (raw hash
-draws) and the policy kernels' sampled actions are held equal, the rest
-within float32 tolerances, the update kernels' gradients within 1e-4 of
-each leaf's largest entry as on the card; on the card
+draws), the policy and MADDPG kernels' sampled actions and K9's target
+actions are held equal, the rest within float32 tolerances, the update
+kernels' gradients within 1e-4 of each leaf's largest entry as on the card; on the card
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernels there.
 Without a C++ compiler the tests skip.
 """
@@ -29,8 +29,10 @@ import subprocess
 import pytest
 import torch
 
+from mpe_tpu_torch.learner.maddpg import init_maddpg
 from mpe_tpu_torch.learner.ppo import init_ac, init_mappo
-from mpe_tpu_torch.ops import _build, fused_update
+from mpe_tpu_torch.ops import _build, fused_maddpg, fused_maddpg_update, fused_update
+from mpe_tpu_torch.ops.fused_parity import make_det_inputs, plain_det_rollout_blocked
 from mpe_tpu_torch.ops.fused_policy import (_kernel_weights, _pack_weights, plain_policy_rollout,
                                             plain_policy_trajectory)
 from mpe_tpu_torch.ops.fused_rollout import plain_rollout
@@ -73,6 +75,10 @@ inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 struct alignas(16) float4 { float x, y, z, w; };
 struct host_dim3 { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
 inline thread_local host_dim3 blockIdx, threadIdx, blockDim, gridDim;
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
@@ -95,20 +101,23 @@ struct HostBarrier {
 };
 inline HostBarrier host_barrier;
 inline void __syncthreads() { host_barrier.wait(); }
-template <class F> void host_launch(unsigned blocks, unsigned threads, F body) {
+template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
   host_barrier.count = threads;
-  for (unsigned b = 0; b < blocks; ++b) {
-    std::vector<std::thread> pool;
-    for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([=] {
-        blockIdx.x = b;
-        threadIdx.x = t;
-        blockDim.x = threads;
-        gridDim.x = blocks;
-        body();
-      });
-    for (auto& th : pool) th.join();
-  }
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::vector<std::thread> pool;
+      for (unsigned t = 0; t < threads; ++t)
+        pool.emplace_back([=] {
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          threadIdx.x = t;
+          blockDim.x = threads;
+          gridDim.x = grid.x;
+          gridDim.y = grid.y;
+          body();
+        });
+      for (auto& th : pool) th.join();
+    }
 }
 """
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?), (\w+), (.*?), stream>>>\((.*?)\);", re.S)
@@ -117,7 +126,7 @@ DYNAMIC_SMEM = "extern __shared__ __align__(16) float smem[];"
 
 def _launch(match) -> str:
     kernel, blocks, threads, _, args = match.groups()
-    return f"host_launch((unsigned)({blocks}), (unsigned)({threads}), [&] {{ {kernel}({args}); }});"
+    return f"host_launch(dim3({blocks}), (unsigned)({threads}), [&] {{ {kernel}({args}); }});"
 
 
 @pytest.fixture(scope="module")
@@ -129,16 +138,19 @@ def host_libs(tmp_path_factory):
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME)
     for header in _build.HEADERS:
         shutil.copy(_build.CSRC / header, out / header)
-    libs = {}
-    for source in ("mpe_kernels.cu", "mpe_trajectory.cu", "mpe_policy.cu", "mpe_update.cu"):
+    procs = {}
+    for source in _build.SOURCES:                # one compiler per source, all started together
         cpp = out / f"{source}.cpp"
         text = (_build.CSRC / source).read_text()
         text = text.replace(DYNAMIC_SMEM, f"alignas(16) static float smem[{MAX_SMEM_FLOATS}];")
         cpp.write_text(LAUNCH.sub(_launch, text))
         lib = out / f"lib{source}.so"
-        subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w",
-                        "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
-                        str(cpp)], check=True)
+        procs[source] = (lib, subprocess.Popen(
+            [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w", "-shared",
+             "-fPIC", "-pthread", "-I", str(out), "-o", str(lib), str(cpp)]))
+    libs = {}
+    for source, (lib, proc) in procs.items():
+        assert proc.wait() == 0, f"the host build of {source} failed"
         libs[source] = ctypes.CDLL(str(lib))
         for name, argtypes in _build.SIGNATURES[source].items():
             getattr(libs[source], name).argtypes = argtypes
@@ -355,4 +367,122 @@ def test_host_built_update_kernels_match_plain(host_libs, name, kind):
         for q in ref[k]:
             torch.testing.assert_close(got[k][q], ref[k][q], rtol=0,
                                        atol=1e-4 * float(ref[k][q].abs().max()), msg=lambda m, k=k, q=q: f"{k}.{q}: {m}")
+    torch.testing.assert_close(torch.stack(got_m), torch.stack(ref_m), rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_host_built_det_rollout_kernel_matches_plain(host_libs, name):
+    """K1 (``mpe_det_rollout``) over 20 steps from make_det_inputs, two RNG
+    blocks drawing the same moves."""
+    kscn = kernel_scenario(name)
+    scenario, params = _build.kernel_params(kscn)
+    spec = kscn.spec
+    inputs = make_det_inputs(name, N_ENVS, seed=5, device="cpu")
+    shapes = ((spec.n_entities, 2, N_ENVS),) * 2 + ((kscn.reward_rows, N_ENVS),) * 2 + (
+        (spec.n_agents, kscn.obs_w, N_ENVS),)
+    got = [torch.empty(s) for s in shapes]
+    rc = host_libs["mpe_kernels.cu"].mpe_det_rollout(
+        scenario, ctypes.byref(params), *(x.data_ptr() for x in (*inputs, *got)), N_ENVS,
+        BLOCK_ENVS, 20, None)
+    assert rc == 0
+    ref = plain_det_rollout_blocked(name, 20, BLOCK_ENVS)(*inputs)
+    _close(got, ref, ("pos", "vel", "rew_sum", "rew", "obs"))
+
+
+def _maddpg_params(kscn, seed=0):
+    """init_maddpg actors and critics of the scenario's widths, hidden 64,
+    the actors' head scaled to O(1) logits."""
+    params = init_maddpg(torch.Generator().manual_seed(seed), kscn.obs_w, kscn.n_logits,
+                         kscn.spec.n_agents)
+    params["actor"]["out"]["w"] = params["actor"]["out"]["w"] * 100.0
+    return params
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_host_built_maddpg_traj_kernel_matches_plain(host_libs, name):
+    """K8 (``mpe_maddpg_traj``) over 12 steps in chunks of 4 with resets,
+    eps 0.1, two RNG blocks at block offset 1, both output forms: the action
+    one-hots equal, the rest within float32 tolerances."""
+    kscn = kernel_scenario(name)
+    scenario, params = _build.kernel_params(kscn)
+    spec = kscn.spec
+    a, ow, aw, n = spec.n_agents, kscn.obs_w, kscn.n_logits, POLICY_ENVS
+    n_steps, t_chunk, eps = 12, 4, 0.1
+    weights = fused_maddpg._kernel_weights(_maddpg_params(kscn)["actor"])
+    wbuf = torch.cat([torch.cat([w[i].reshape(-1) for w in weights]) for i in range(a)])
+    tens = [torch.empty(s) for s in ((n_steps, a, ow, n), (n_steps, a, aw, n),
+                                     (n_steps, kscn.reward_rows, n), (n_steps, a, ow, n))]
+    rows = torch.empty((n_steps, n, a * (2 * ow + aw + 1)))
+    lib = host_libs["mpe_maddpg.cu"]
+    for ptrs in ([x.data_ptr() for x in tens] + [None], [None] * 4 + [rows.data_ptr()]):
+        rc = lib.mpe_maddpg_traj(scenario, ctypes.byref(params), wbuf.data_ptr(), *ptrs, n,
+                                 POLICY_BLOCK_ENVS, n_steps // t_chunk, t_chunk, 5, eps, 3, 1, None)
+        assert rc == 0
+    args = (n, n_steps, 5, POLICY_BLOCK_ENVS, t_chunk, eps, 3, 1)
+    ref = fused_maddpg.plain_maddpg_trajectory(kscn, weights, *args, device="cpu")
+    _close(tens, ref, ("obs", "act", "rew", "obs2"))
+    ref_rows = fused_maddpg.plain_maddpg_trajectory(kscn, weights, *args, emit_rows=True,
+                                                    device="cpu")
+    cols = torch.zeros(rows.shape[-1], dtype=torch.bool)
+    cols[a * ow:a * (ow + aw)] = True
+    torch.testing.assert_close(rows[..., cols], ref_rows[..., cols], rtol=0, atol=0)
+    torch.testing.assert_close(rows[..., ~cols], ref_rows[..., ~cols], **F32_TOL)
+    moves = tens[1][:, :, :5].argmax(2)
+    assert len(torch.unique(moves)) == 5            # the actions vary
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
+    """K9 (``mpe_maddpg_update``) on 40 random replay rows (a full and a
+    ragged tile): target actions per head equal, every gradient leaf within
+    1e-4 of its largest entry, the metrics within 1e-4 relative."""
+    kscn = kernel_scenario(name)
+    scenario = _build.SCENARIO_IDS[type(kscn).__name__]
+    a, o, k, mw = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits, 5
+    cw, nh, batch = k - mw, 2 if k > mw else 1, 40
+    params = _maddpg_params(kscn, 1)
+    gen = torch.Generator().manual_seed(2)
+    targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen) for w, x in layer.items()}
+                   for q, layer in net.items()} for n, net in params.items()}
+    idx = torch.randint(0, mw, (batch, a), generator=gen)
+    act = torch.nn.functional.one_hot(idx, mw).float()
+    if cw:
+        act = torch.cat([act, torch.nn.functional.one_hot(
+            torch.randint(0, cw, (batch, a), generator=gen), cw).float()], -1)
+    rows = torch.cat([torch.randn((batch, a * o), generator=gen), act.reshape(batch, -1),
+                      torch.randn((batch, a), generator=gen) - 2.0,
+                      torch.randn((batch, a * o), generator=gen)], 1).contiguous()
+    lib = host_libs["mpe_maddpg.cu"]
+    nwp, ncp, n_weights, ng, ts = (lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
+    j = a * (o + k)
+    nw = 64 * o + 64 + 64 * 64 + 64 + k * 64 + k
+    nc = 64 * j + 64 + 64 * 64 + 64 + 64 + 1
+    assert ng == nw + nc + 3
+    buf = fused_maddpg_update._net_buffer
+    wbuf = torch.cat([buf(params["actor"], nwp).reshape(-1), buf(params["critic"], ncp).reshape(-1),
+                      buf(targets["actor"], nwp).reshape(-1),
+                      buf(targets["critic"], ncp).reshape(-1)]).contiguous()
+    assert wbuf.numel() == n_weights
+    n_tiles = -(-batch // ts)
+    act2 = torch.empty((a, nh, batch), dtype=torch.int32)
+    y, partials, out = torch.empty((a, batch)), torch.empty(a * n_tiles * ng), torch.empty((a, ng))
+    inv = 1.0 / (a * batch)
+    _host_update(lib, "mpe_maddpg_update", scenario, wbuf, rows, act2, y, partials, out, batch,
+                 0.95, 0.01, inv, None)
+    ref, ref_m = fused_maddpg_update.plain_maddpg_update(params, targets, rows, mw=mw, gamma=0.95,
+                                                         ent_coef=0.01)
+    obs2 = rows[:, a * (o + k + 1):].reshape(batch, a, o)
+    want_act2 = fused_maddpg_update.target_indices(
+        fused_maddpg_update.target_logits(targets["actor"], obs2), mw)
+    torch.testing.assert_close(act2.long(), want_act2.permute(1, 2, 0), rtol=0, atol=0)
+    got = {"actor": fused_maddpg_update._net_grads(out[:, :nw], o, k),
+           "critic": fused_maddpg_update._net_grads(out[:, nw:nw + nc], j, 1)}
+    for n in ref:
+        for q in ref[n]:
+            for w in ref[n][q]:
+                torch.testing.assert_close(got[n][q][w], ref[n][q][w], rtol=0,
+                                           atol=1e-4 * float(ref[n][q][w].abs().max()),
+                                           msg=lambda m, n=n, q=q, w=w: f"{n}.{q}.{w}: {m}")
+    sums = out[:, nw + nc:].sum(0)
+    got_m = (sums[0] * inv, -sums[2] * inv, sums[1] * inv)
     torch.testing.assert_close(torch.stack(got_m), torch.stack(ref_m), rtol=1e-4, atol=0)

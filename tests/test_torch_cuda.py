@@ -63,9 +63,9 @@ def test_spread_rollout_kernel_matches_plain(card, block_offset):
 @pytest.mark.parametrize("n_steps", [20, 0])
 def test_spread_det_rollout_kernel_matches_plain(card, n_steps):
     inputs = fused_parity.make_det_inputs("simple_spread", 2048)
-    before = fused_parity.spread_det_rollout_cuda.launches
+    before = fused_parity.det_rollout_cuda.launches_by["simple_spread"]
     got = fused_parity.fused_det_rollout("simple_spread", 2048, n_steps, block_envs=1024)(*inputs)
-    assert fused_parity.spread_det_rollout_cuda.launches == before + 1
+    assert fused_parity.det_rollout_cuda.launches_by["simple_spread"] == before + 1
     ref = fused_parity.plain_det_rollout_blocked("simple_spread", n_steps, 1024)(*inputs)
     for name, a, b in zip(("pos", "vel", "rew_sum", "rew", "obs"), got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
@@ -76,9 +76,9 @@ def test_kernel_wrappers_refuse_bad_inputs(card):
     kscn = kernel_scenario("simple_spread")
     pos0, vel0, comm0, goal0 = fused_parity.make_det_inputs("simple_spread", 256)
     with pytest.raises(ValueError, match="contiguous"):
-        fused_parity.spread_det_rollout_cuda(kscn, 4, 128, pos0.double(), vel0, comm0, goal0)
+        fused_parity.det_rollout_cuda(kscn, 4, 128, pos0.double(), vel0, comm0, goal0)
     with pytest.raises(ValueError, match="shape"):
-        fused_parity.spread_det_rollout_cuda(kscn, 4, 128, pos0[..., :128], vel0, comm0, goal0)
+        fused_parity.det_rollout_cuda(kscn, 4, 128, pos0[..., :128], vel0, comm0, goal0)
     with pytest.raises(ValueError, match="multiple"):
         fused_rollout.rollout_cuda(kscn, 256, 4, 10, 100, 0, device=card)
 
@@ -99,6 +99,19 @@ def test_scenario_rollout_kernel_matches_plain(card, name):
                                run.plain(5, block_offset)):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-3 if label == "obs_sum" else 0,
                                        msg=f"{label} (block offset {block_offset})")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OTHER_EIGHT)
+def test_det_rollout_kernel_matches_plain(card, name):
+    """K1 on the other eight scenarios over 20 steps: values within 1e-5."""
+    inputs = fused_parity.make_det_inputs(name, 2048, seed=3)
+    before = fused_parity.det_rollout_cuda.launches_by[name]
+    got = fused_parity.fused_det_rollout(name, 2048, 20, block_envs=1024)(*inputs)
+    assert fused_parity.det_rollout_cuda.launches_by[name] == before + 1
+    ref = fused_parity.plain_det_rollout_blocked(name, 20, 1024)(*inputs)
+    for label, a, b in zip(("pos", "vel", "rew_sum", "rew", "obs"), got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5, msg=label)
 
 
 @pytest.mark.cuda
@@ -262,58 +275,87 @@ def test_mappo_update_kernel_matches_plain(card, name):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
 
 
-def _maddpg_actor(card, seed=0):
+def _maddpg_params(card, name, seed=0):
     from mpe_tpu_torch.learner.maddpg import init_maddpg
 
-    params = init_maddpg(torch.Generator().manual_seed(seed), 18, 5, 3)
+    kscn = kernel_scenario(name)
+    params = init_maddpg(torch.Generator().manual_seed(seed), kscn.obs_w, kscn.n_logits,
+                         kscn.spec.n_agents)
     return {n: {q: {w: x.to(card) for w, x in layer.items()} for q, layer in net.items()}
             for n, net in params.items()}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("eps", [0.1, 0.0])
-def test_maddpg_traj_kernel_matches_plain(card, eps):
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_maddpg_traj_kernel_matches_plain(card, name, eps):
     from mpe_tpu_torch.ops import fused_maddpg
 
-    actor = _maddpg_actor(card)["actor"]
+    actor = _maddpg_params(card, name)["actor"]
     for rows in (False, True):
-        run = fused_maddpg.fused_maddpg_trajectory("simple_spread", actor, 2048, 20, horizon=10,
+        run = fused_maddpg.fused_maddpg_trajectory(name, actor, 2048, 20, horizon=10,
                                                    eps_greedy=eps, block_envs=1024, t_chunk=5,
                                                    emit_rows=rows, device=card)
-        before = fused_maddpg.maddpg_traj_cuda.launches
+        before = fused_maddpg.maddpg_traj_cuda.launches_by[name]
         got = run(4, actor, 1)
-        assert fused_maddpg.maddpg_traj_cuda.launches == before + 1
+        assert fused_maddpg.maddpg_traj_cuda.launches_by[name] == before + 1
         ref = run.plain(4, actor, 1)
         got, ref = ((got,), (ref,)) if rows else (got, ref)
-        for name, a, b in zip(("obs", "act", "rew", "obs2"), got, ref):
-            atol = 0 if name == "act" else 1e-5
-            torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=f"{name} (rows={rows})")
+        for label, a, b in zip(("obs", "act", "rew", "obs2"), got, ref):
+            atol = 0 if label == "act" else 1e-5
+            torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=f"{label} (rows={rows})")
 
 
 @pytest.mark.cuda
-def test_maddpg_update_kernel_matches_plain(card):
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_maddpg_update_kernel_matches_plain(card, name):
     from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update
 
-    params = _maddpg_actor(card, 1)
+    kscn = kernel_scenario(name)
+    a, o, k = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits
+    params = _maddpg_params(card, name, 1)
     gen = torch.Generator(card).manual_seed(2)
     targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device=card)
                        for w, x in layer.items()} for q, layer in net.items()}
                for n, net in params.items()}
-    rows = fused_maddpg.fused_maddpg_trajectory("simple_spread", params["actor"], 1024, 10,
+    rows = fused_maddpg.fused_maddpg_trajectory(name, params["actor"], 1024, 10,
                                                 horizon=5, block_envs=1024, t_chunk=5,
                                                 emit_rows=True, device=card)(0, params["actor"])
     rows = rows.reshape(-1, rows.shape[-1])[torch.randperm(10240, generator=gen, device=card)[:512]]
-    grads_fn = fused_maddpg_update.fused_maddpg_update(3, 18, 5, 5, 64, 512, device=card)
-    act2 = torch.empty((3, 512), dtype=torch.int32, device=card)
-    before = fused_maddpg_update.maddpg_update_cuda.launches
-    got, got_m = fused_maddpg_update.maddpg_update_cuda(params, targets, rows.contiguous(),
+    grads_fn = fused_maddpg_update.fused_maddpg_update(a, o, k, 5, 64, 512, device=card)
+    act2 = torch.empty((a, 2 if k > 5 else 1, 512), dtype=torch.int32, device=card)
+    before = fused_maddpg_update.maddpg_update_cuda.launches_by[name]
+    got, got_m = fused_maddpg_update.maddpg_update_cuda(params, targets, rows.contiguous(), mw=5,
                                                         gamma=0.95, ent_coef=0.01,
                                                         target_actions=act2)
-    assert fused_maddpg_update.maddpg_update_cuda.launches == before + 1
+    assert fused_maddpg_update.maddpg_update_cuda.launches_by[name] == before + 1
     ref, ref_m = grads_fn.plain.from_rows(params, targets, rows)
-    obs2 = rows[:, -54:].reshape(512, 3, 18)
-    want_act2 = fused_maddpg_update.target_logits(targets["actor"], obs2).argmax(-1).T
-    assert torch.equal(act2.long(), want_act2)
+    obs2 = rows[:, a * (o + k + 1):].reshape(512, a, o)
+    want_act2 = fused_maddpg_update.target_indices(
+        fused_maddpg_update.target_logits(targets["actor"], obs2), 5)
+    assert torch.equal(act2.long(), want_act2.permute(1, 2, 0))
     _leaf_close(got, ref, 1e-4, "grads")
-    for a, b in zip(got_m, ref_m):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+    for a_, b_ in zip(got_m, ref_m):
+        torch.testing.assert_close(a_, b_, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_maddpg_runner_runs_every_scenario(card, name):
+    """Two chunks of the runner on the card, through K8 and K9 of the
+    scenario: finite losses and rewards, the ring's rows of its width."""
+    from mpe_tpu_torch.learner import fused_loop
+    from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update
+
+    kscn = kernel_scenario(name)
+    a, ow, k = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits
+    run = fused_loop.build_fused_maddpg_runner(name, n_envs=64, horizon=5, batch=64)
+    before = (fused_maddpg.maddpg_traj_cuda.launches_by[name],
+              fused_maddpg_update.maddpg_update_cuda.launches_by[name])
+    params, info = run(10, seed=1, actor_start=0)
+    assert fused_maddpg.maddpg_traj_cuda.launches_by[name] == before[0] + 40 + 2
+    assert fused_maddpg_update.maddpg_update_cuda.launches_by[name] == before[1] + 10
+    assert info["buffer"].data.shape[1] == a * (2 * ow + k + 1)
+    assert bool(torch.isfinite(info["critic_loss"]).all())
+    assert bool(torch.isfinite(info["mean_reward"]).all())
+

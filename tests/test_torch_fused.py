@@ -153,18 +153,26 @@ def test_plain_fused_rollout_horizon_none_never_resets():
     assert (vel[:3] != 0).any()
 
 
-@pytest.mark.parametrize("n_steps", [6, 0])
-def test_plain_det_rollout_blocked_matches_jax_interpret(n_steps):
-    inputs = j_parity.make_det_inputs("simple_spread", n_envs=64, seed=11)
-    j_out = j_parity.fused_det_rollout("simple_spread", 64, n_steps=n_steps, block_envs=32,
+DET_NAMES = ["simple_spread", "simple", "simple_reference", "simple_speaker_listener",
+             "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
+# simple_spread's cases keep their ids
+DET_CASES = ([pytest.param("simple_spread", n, id=str(n)) for n in (6, 0)]
+             + [pytest.param(name, 6, id=f"6-{name}") for name in DET_NAMES[1:]])
+
+
+@pytest.mark.parametrize("name, n_steps", DET_CASES)
+def test_plain_det_rollout_blocked_matches_jax_interpret(name, n_steps):
+    inputs = j_parity.make_det_inputs(name, n_envs=64, seed=11)
+    j_out = j_parity.fused_det_rollout(name, 64, n_steps=n_steps, block_envs=32,
                                        interpret=True)(*inputs)
     t_inputs = [torch.tensor(np.asarray(x)) for x in inputs]
-    plain = t_parity.plain_det_rollout_blocked("simple_spread", n_steps, 32)(*t_inputs)
-    wrapped = t_parity.fused_det_rollout("simple_spread", 64, n_steps, block_envs=32,
+    plain = t_parity.plain_det_rollout_blocked(name, n_steps, 32)(*t_inputs)
+    wrapped = t_parity.fused_det_rollout(name, 64, n_steps, block_envs=32,
                                          device="cpu")(*t_inputs)
-    for name, a, w, b in zip(("pos", "vel", "rew_sum", "rew", "obs"), plain, wrapped, j_out):
-        np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
+    for label, a, w, b in zip(("pos", "vel", "rew_sum", "rew", "obs"), plain, wrapped, j_out):
+        np.testing.assert_allclose(_np(a), _np(b), err_msg=label, **F32_TOL)
         torch.testing.assert_close(w, a, rtol=0, atol=0)
+    assert (_np(plain[0]) != _np(t_inputs[0])).any() == (n_steps > 0 and name != "simple_crypto")
 
 
 def test_make_det_inputs_shapes_and_ranges():
@@ -187,7 +195,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     kscn = t_kscn.kernel_scenario("simple_spread")
     inputs = t_parity.make_det_inputs("simple_spread", 64, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        t_parity.spread_det_rollout_cuda(kscn, 4, 32, *inputs)
+        t_parity.det_rollout_cuda(kscn, 4, 32, *inputs)
     with pytest.raises(ValueError, match="CUDA"):
         t_fused.rollout_cuda(kscn, 64, 4, 10, 32, 0, device="cpu")
 

@@ -347,8 +347,6 @@ def test_runner_refuses_what_is_not_ported():
         fused_loop.build_fused_maddpg_runner("simple_spread", local_critic=True, device="cpu")
     with pytest.raises(ValueError, match="actor_period"):
         fused_loop.build_fused_maddpg_runner("simple_spread", actor_period=(1, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="comm head"):
-        t_update(2, 10, 8, 5, 16, 32, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fused_loop.build_fused_maddpg_runner("simple_spread")
