@@ -19,8 +19,9 @@ failure ends the run with a non-zero exit code:
           of the spread-only kernel it replaced; the fused mean reward per
           env-step must agree with the generic engine's within 5 standard
           errors; K1 and K2 are kernel templates with one C entry each,
-          det_rollout_kernel<S> and scenario_rollout_kernel<S>, here their
-          simple_spread instantiations;
+          det_rollout_kernel<S> and scenario_rollout_kernel<S, G>, here their
+          simple_spread instantiations (K2 with the G threads per env lane
+          that ops/fused_rollout.py::rollout_group picks at each width);
        b. training: build_fused_ppo_step at tools/train_bench.py's width
           (4096 envs x 64 steps, horizon 32, hidden 64, 4 PPO epochs,
           block_envs 1024, t_chunk 8) for 20 iterations (kernels K5 and K6),
@@ -108,14 +109,19 @@ failure ends the run with a non-zero exit code:
      others at 4096 envs x 200 steps), each kernel's bound from the
      operations its function needs (OPS below), and for K6, K7 and K9 the
      same gradient by autograd (the library yardstick), K4-K9 on every
-     scenario at the gate's shape; one MADDPG
-     update chunk under torch.profiler (K9's device time, the device's busy
-     share), and each K3 call of path e (its device time);
+     scenario at the gate's shape; K9 as the trainer calls it (its launcher
+     on the packed weight buffer) and from trees; one MADDPG update chunk of
+     each of paths d, d2, d3 as the runner runs it (packed_step) under
+     torch.profiler (K9's device time split by its four kernels, the
+     device's busy share, kernel launches per update), and each K3 call of
+     path e (its device time);
   5. a ``{"kernels": [...]}`` line (the K1-K9 rows name their scenarios
      and the one their top-level numbers were timed on, and carry
      per scenario the launches, time, bound, plain time and error of each
-     instantiation, K1 and K4-K9 also its registers and spills, K6, K7 and
-     K9 the library time), the ``nvidia-smi`` name/power-limit line, and ``{"ok":
+     instantiation, K1, K2 (by group) and K4-K9 also its registers and
+     spills, K6, K7 and K9 the library time; K2 its group and the rule that
+     picks it, K9 its tiling and launches per update), the ``nvidia-smi``
+     name/power-limit line, and ``{"ok":
      true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the ``mpe_tpu_torch`` package beside it, and
@@ -167,6 +173,12 @@ MADDPG_CKPT = "checkpoints/maddpg_spread_fused.npz"
 # printed beside <SpreadScn>; the plain K1 of the eight others is timed over
 # K1_PLAIN_STEPS steps (simple_spread's takes 23 s at 10,000)
 K1_SPREAD_ONLY_MS = 7.318
+# the kernels line names K2's group rule and K9's tiling
+GROUP_RULE = ("ops/fused_rollout.py::rollout_group: G threads per env lane; below 16384 envs "
+              "the collide pairs rounded up to a power of two, at most 8, where there are 2 or "
+              "more; else 1")
+K9_TILE = {"samples_per_cta": 16, "threads": 128, "micro_tile": "2 samples x 4 units",
+           "grid": "batch / 16 x agents", "weight_grad_micro_tile": "4 x 4"}
 K1_PLAIN_STEPS = 200
 # the other scenarios (K2) and the trajectories (K3): the learner batch of
 # tools/train_bench.py and tools/tpu_smoke.py's t_chunk; the gate's shape
@@ -1309,11 +1321,17 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
     scenario ``name`` (K1, K4, K5, K8: its struct, KernelX's XScn in
     csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 128, 5, C>, K7
     also the two critic instantiations <0, 128 or 64, 0, 0>; K9: its four
-    kernels on MaddpgDims<A, OW, C>, in the compiler's order), or []."""
+    kernels on MaddpgDims<A, OW, C>, in the compiler's order), or []; K2
+    (``scenario_rollout_kernel``): {group G: [registers, spill bytes]} of
+    its <XScn, G> instantiations."""
     import re
 
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
+    if kernel == "scenario_rollout_kernel":        # {group: [registers, spill bytes]}
+        key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnELi"
+        return {int(re.search(key + r"(\d+)E", k).group(1)): v for k, v in regs.items()
+                if kernel in k and key in k}
     if kernel == "maddpg_update":
         a, ow, c, _, _ = widths(name)
         key = f"MaddpgDimsILi{a}ELi{ow}ELi{c}EE"
@@ -1432,13 +1450,14 @@ def check_maddpg_update(name: str, params: dict, rows_all, label: str):
     and second target logit printed), each gradient leaf within GRAD_TOL of
     its largest entry, the metrics within METRIC_RTOL; then K9, its plain
     version and autograd of the losses timed -> (max abs err, ms, plain ms,
-    library ms, bound)."""
+    library ms, bound, ms from trees): ms is the trainer's call, K9's
+    launcher on the packed weight buffer."""
     import torch
 
     from mpe_tpu_torch.learner.maddpg import maddpg_xla_grads
-    from mpe_tpu_torch.ops.fused_maddpg_update import (_split_rows, fused_maddpg_update,
-                                                       maddpg_update_cuda, target_indices,
-                                                       target_logits)
+    from mpe_tpu_torch.ops.fused_maddpg_update import (MaddpgUpdateLauncher, _split_rows,
+                                                       fused_maddpg_update, maddpg_update_cuda,
+                                                       target_indices, target_logits)
 
     a, ow, k, width, nw, nc = maddpg_widths(name)
     b, cw = MADDPG["batch"], k - 5
@@ -1479,17 +1498,26 @@ def check_maddpg_update(name: str, params: dict, rows_all, label: str):
     assert all(abs(float(x) - float(y)) <= METRIC_RTOL * abs(float(y))
                for x, y in zip(got_m, ref_m)), f"K9 ({name}): the metrics disagree with plain"
 
-    ms, _ = cuda_time(lambda: grads_fn.from_rows(params, targets, rows), REPEATS)
+    # the trainer's call: K9's launcher on the packed buffers; from_rows packs
+    # the trees on every call
+    k9 = MaddpgUpdateLauncher(a, ow, k, 5, 64, b, "cuda", gamma=0.95, ent_coef=0.01)
+    lay = k9.layout
+    weights = lay.pack(params, targets).cuda()
+    flat_grads = torch.empty(lay.off_ta, device="cuda")
+    metrics = torch.empty(3, device="cuda")
+    ms, _ = cuda_time(lambda: k9.launch(weights, rows, flat_grads, metrics), REPEATS)
+    tree_ms, _ = cuda_time(lambda: grads_fn.from_rows(params, targets, rows), REPEATS)
     plain_ms, _ = cuda_time(lambda: grads_fn.plain.from_rows(params, targets, rows), REPEATS)
     split = _split_rows(rows, a, ow, k)
     lib_ms, _ = cuda_time(lambda: maddpg_xla_grads(params, targets, *split, mw=5, cw=cw,
                                                    gamma=0.95, ent_coef=0.01), REPEATS)
     bound = bound_ms(OPS[f"maddpg_update_kernel[{name}]"], b * a, 0, 0,
                      4 * (b * width + 2 * a * (nw + nc) + a * (nw + nc + 3)))
-    print(f"K9 ({name}, {label}) {ms:.4f} ms (batch {b}), plain {plain_ms:.3f} ms, autograd of "
-          f"the losses {lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
-          f"({ms / bound[0]:.2f}x); issue floor {bound[2]:.4f} ms")
-    return worst, ms, plain_ms, lib_ms, bound
+    print(f"K9 ({name}, {label}) {ms:.4f} ms per call on the packed buffers (batch {b}; "
+          f"{tree_ms:.4f} ms from trees), plain {plain_ms:.3f} ms, autograd of the losses "
+          f"{lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue "
+          f"floor {bound[2]:.4f} ms")
+    return worst, ms, plain_ms, lib_ms, bound, tree_ms
 
 
 def check_update_chunk(name: str, run, params, info) -> float:
@@ -1556,24 +1584,27 @@ def profile_trajectories(k3_ms: dict) -> dict:
 
 def profile_maddpg_update(name: str, run, params, info):
     """One MADDPG update chunk (25 updates) of path d, d2 or d3 (``name``)
-    under torch.profiler: K9's device time per update (its four kernels),
-    the device's busy share of the chunk's CUDA-event time, and the kernels
-    that take the most device time. It reports and gates nothing; without
-    device events it says so. -> K9's device ms per update, or None."""
+    as the runner runs it (``packed_step`` on the packed state) under
+    torch.profiler: K9's device time per update (its four kernels), the
+    device's busy share of the chunk's CUDA-event time, the kernel launches
+    per update and the kernels that take the most device time. It gates
+    nothing; without device events it says so. -> {device_ms_per_update,
+    device_split_ms, launches_per_update, idle_share}, or {} unmeasured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mpe_tpu_torch.learner.fused_loop import actor_gates
 
     h = MADDPG["horizon"]
-    state = (params, info["targets"], info["opt_states"])
+    chunk = run.update_chunk
     gates = actor_gates(MADDPG_CHUNKS, h, MADDPG_ACTOR_START)
-    run.update_chunk(*state, info["buffer"], 1, gates)          # warm-up
+    state = chunk.pack_state(params, info["targets"], info["opt_states"])
+    state, _ = chunk.packed_step(state, info["buffer"], 1, gates)          # warm-up
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        run.update_chunk(*state, info["buffer"], 2, gates)
+        chunk.packed_step(state, info["buffer"], 2, gates)
         end.record()
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
@@ -1583,39 +1614,54 @@ def profile_maddpg_update(name: str, run, params, info):
     if not kernels:
         print(f"MADDPG update chunk on {name} under torch.profiler: device time not measured "
               "(no device events)")
-        return None
+        return {}
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     k9_ms = {n: sum(device_us(e) for e in kernels if n in e.key) / 1e3 / h
              for n in ("maddpg_target_actions_kernel", "maddpg_td_kernel", "maddpg_update_kernel",
                        "maddpg_reduce_kernel")}
-    print(f"MADDPG update chunk on {name} under torch.profiler ({h} updates, {wall_ms:.3f} ms by "
-          f"CUDA events): device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f} of the time, idle "
-          f"{1 - busy_ms / wall_ms:.4f}); K9 device time per update "
-          f"{sum(k9_ms.values()):.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in k9_ms.items())
-          + f"); {sum(e.count for e in kernels) / h:.1f} kernel launches per update")
+    per_update = sum(e.count for e in kernels) / h
+    print(f"MADDPG update chunk on {name} under torch.profiler ({h} updates of the packed "
+          f"state, {wall_ms:.3f} ms by CUDA events): device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.4f} of the time, idle {1 - busy_ms / wall_ms:.4f}); K9 device "
+          f"time per update {sum(k9_ms.values()):.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in k9_ms.items())
+          + f"); {per_update:.1f} kernel launches per update")
     top = sorted(kernels, key=device_us, reverse=True)[:6]
     print("  most device time: " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms in {e.count}" for e in top))
-    return sum(k9_ms.values())
+    return {"device_ms_per_update": sum(k9_ms.values()), "device_split_ms": k9_ms,
+            "launches_per_update": per_update, "idle_share": 1 - busy_ms / wall_ms}
 
 
-def template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms) -> dict:
+def template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms, regs) -> dict:
     """K2's bound at each shape it ran (simple_spread from path a at 4096,
     16384 and 65536 envs, the eight others from path e), printed beside its
-    time -> {scenario: the kernels line's by_scenario entry at N_ENVS}."""
+    time and the group rollout_group chose -> {scenario: the kernels line's
+    by_scenario entry at N_ENVS; simple_spread's also holds the wider
+    shapes' numbers, suffixed with their env count}."""
+    from mpe_tpu_torch.ops.fused_rollout import rollout_group
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
     k2_rows = {}
     for name, n, ms in ([("simple_spread", n, ms) for n, ms in k2_ms_at.items()]
                         + [(name, N_ENVS, ms) for name, ms in k2_scn_ms.items()]):
         ops = OPS[f"scenario_rollout_kernel[{name}]"]
         b, by, issue = bound_ms(ops, n * N_STEPS, n * (N_STEPS // HORIZON + 1), n,  # resets, draws
                                 rollout_bytes(name, n))
-        print(f"K2 bound, {name} at {n} envs: {b:.4f} ms by {by} ({ms / b:.2f}x); issue floor "
-              f"{issue:.4f} ms ({ms / issue:.2f}x); {ops['step'].get('sfu', 0)} SFU operations "
-              "per env-step")
+        group = rollout_group(kernel_scenario(name), n)
+        print(f"K2 bound, {name} at {n} envs (group {group}): {b:.4f} ms by {by} ({ms / b:.2f}x); "
+              f"issue floor {issue:.4f} ms ({ms / issue:.2f}x); {ops['step'].get('sfu', 0)} SFU "
+              "operations per env-step")
         if n == N_ENVS:
             k2_rows[name] = {"launches": k2_by[name], "ms": ms, "bound_ms": b, "bound_by": by,
-                             "max_abs_err": k2_err[name], "check_ms": k2_check_ms[name][0],
-                             "check_plain_ms": k2_check_ms[name][1]}
+                             "group": group, "max_abs_err": k2_err[name],
+                             "check_ms": k2_check_ms[name][0],
+                             "check_plain_ms": k2_check_ms[name][1],
+                             "registers_spill_bytes": registers_of(
+                                 regs, "scenario_rollout_kernel", name)}
+        else:
+            k2_rows["simple_spread"].update({f"ms_{n}": ms, f"bound_ms_{n}": b,
+                                             f"bound_by_{n}": by, f"group_{n}": group})
     return k2_rows
 
 
@@ -1831,17 +1877,18 @@ def main() -> int:
             actors["trained"] = maddpg_runs[name][1]["actor"]
         err, ms, plain_ms, bound, rows8 = check_maddpg_collect(name, actors)
         k8_rows[name] = scenario_row(k8_by, "maddpg_traj_kernel", name, err, ms, plain_ms, bound)
-        err, ms, plain_ms, lib_ms, bound = check_maddpg_update(name, ckpt, rows8, "checkpoint")
+        err, ms, plain_ms, lib_ms, bound, tree_ms = check_maddpg_update(name, ckpt, rows8,
+                                                                        "checkpoint")
         k9_rows[name] = scenario_row(k9_by, "maddpg_update", name, err, ms, plain_ms, bound,
-                                     library_ms=lib_ms)
+                                     library_ms=lib_ms, from_trees_ms=tree_ms)
         del rows8
     ring = minfo["buffer"]
-    k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9 = check_maddpg_update(
+    k9_err, k9_ms, plain_k9_ms, lib_k9_ms, b9, k9_tree_ms = check_maddpg_update(
         "simple_spread", mparams, ring.data[:ring.size], "path d's ring and params")
     k9_err = max([k9_err] + [r["max_abs_err"] for r in k9_rows.values()])
     chunk_err = {name: check_update_chunk(name, *r[:3]) for name, r in maddpg_runs.items()}
     for name, r in maddpg_runs.items():
-        k9_rows[name]["device_ms_per_update"] = profile_maddpg_update(name, *r[:3])
+        k9_rows[name].update(profile_maddpg_update(name, *r[:3]))
     k3_device_ms = profile_trajectories(k3_ms)
     k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
 
@@ -1857,7 +1904,7 @@ def main() -> int:
     for name, ops in OPS.items():
         print(f"{name}: operations needed per env-step {ops['step']}, per reset {ops['reset']}, "
               f"per env {ops['env']}")
-    k2_rows = template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms)
+    k2_rows = template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms, regs)
     b2 = (k2_rows["simple_spread"]["bound_ms"], k2_rows["simple_spread"]["bound_by"])
     # K1 by instantiation at N_ENVS x N_STEPS (path a, path e); the plain
     # version of the eight others timed at K1_PLAIN_STEPS
@@ -1934,7 +1981,8 @@ def main() -> int:
         record("scenario_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_rollout.py:359",
                max(k2_err.values()), k2_ms_at[N_ENVS], plain_k2_ms, b2,
                scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k2_rows,
-               pair_physics=pair_physics),
+               pair_physics=pair_physics, group=k2_rows["simple_spread"]["group"],
+               group_rule=GROUP_RULE),
         # K3's top-level numbers are simple_spread's at 4096 envs x 64 steps
         record("trajectory_kernel", "mpe_trajectory.cu", "mpe_tpu/ops/fused_trajectory.py:40",
                max(k3_err.values()), k3_ms["simple_spread", N_ENVS], plain_k3_ms["simple_spread"],
@@ -1977,7 +2025,10 @@ def main() -> int:
                "mpe_tpu/ops/fused_maddpg_update.py:142", k9_err, k9_ms, plain_k9_ms, b9,
                lib_k9_ms, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
                by_scenario=k9_rows, update_chunk_max_abs_err=chunk_err,
-               transitions_per_s={n: r[3] for n, r in maddpg_runs.items()}),
+               transitions_per_s={n: r[3] for n, r in maddpg_runs.items()},
+               from_trees_ms=k9_tree_ms, tile=K9_TILE,
+               launches_per_update={n: k9_rows[n].get("launches_per_update")
+                                    for n in maddpg_runs}),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

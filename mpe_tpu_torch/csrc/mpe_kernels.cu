@@ -7,7 +7,7 @@
 //     constant, goal0 [G,N] int32), moves from hash_uniform_2d with no block
 //     salt (every RNG block draws the same moves), no reset. Out: pos, vel
 //     [E,P,N], rew_sum, rew_last [R,N], obs_last [A,OW,N].
-// K2  scenario_rollout_kernel<S> replaces  mpe_tpu/ops/fused_rollout.py::_generic_rollout_kernel
+// K2  scenario_rollout_kernel<S, G> replaces  mpe_tpu/ops/fused_rollout.py::_generic_rollout_kernel
 //     (fused_rollout) on all nine scenarios (scenario_blocks.cuh): uniform
 //     moves from the murmur hash _hash_uniform (call id 2), physics, the
 //     silent-masked comm draw (call id 16), reward and obs-checksum
@@ -25,15 +25,25 @@
 // conversion operations in K2 (183 fp32 and 124 integer in K1); simple_tag's
 // 14 and simple_world_comm's 21 pairs take 42 and 63 special-function
 // operations per env-step. Each lane's steps are one dependent chain, so at a
-// few thousand envs (one warp per scheduler or less) the time is the chain's
-// latency, not the issue rate.
+// few thousand envs with one thread per lane (one warp per SM) the time is
+// the chain's latency, not the issue rate.
 //
-// What the design does about it: one thread owns one env lane for the whole
-// rollout. Its positions, velocities and accumulators live in registers, the
-// step loop runs inside the thread, and device memory is touched only at the
-// start (K1's inputs) and the end (the outputs), as the TPU kernels keep
-// their state in VMEM. With one thread per lane the env-minor [.., N] layout
-// gives coalesced loads and stores. The entity loops are unrolled over the template
+// What the designs do about it. K1: one thread owns one env lane for the
+// whole rollout; its positions, velocities and accumulators live in
+// registers, the step loop runs inside the thread, and device memory is
+// touched only at the start (K1's inputs) and the end (the outputs), as the
+// TPU kernels keep their state in VMEM. K2: a group of G threads of one warp
+// (G = 1, 2, 4 or 8, ops/fused_rollout.py::rollout_group) owns one env lane,
+// which gives the card G times the warps to hide the chain's latency and
+// shortens the chain: each rank draws its agents' moves and comm, computes
+// its pairs' contact forces (simple_tag's 14 over 4 ranks, world_comm's 21
+// over 8) and sums its agents' obs rows; __shfl_sync brings the results back
+// to every rank, which adds them in the per-lane order (scenario_blocks.cuh,
+// the group functions), so pos, vel, rew_sum and obs_sum are the same for
+// every G. What stays on every rank: the integration, derive, the reward rows
+// and resets (the same inputs, the same values), and the shuffles
+// themselves, about 2 (A + K) + A C + A per step: the next bound once the
+// pairs are split. Rank 0 of a group stores. The entity loops are unrolled over the template
 // sizes; reset candidates are stateless hash draws, so a thread computes them
 // only for a lane that resets and still gets the values the Pallas kernel drew.
 // The library is built with -fmad=false: every multiply and add is rounded
@@ -50,70 +60,108 @@
 
 namespace {
 
-constexpr int THREADS = 32;      // see the note on the launch below
+constexpr int THREADS = 32;      // one warp per CTA: see the note on the launch below
 
-template <class S>
+// K2: G threads per env lane (the group functions of scenario_blocks.cuh);
+// rank 0 of each group stores. Threads past n_envs run the last lane and
+// store nothing, so that every lane of a warp takes part in the shuffles.
+template <class S, int G>
 __global__ void __launch_bounds__(THREADS)
 scenario_rollout_kernel(const typename S::Params c, float* __restrict__ pos,
                         float* __restrict__ vel, float* __restrict__ rew_sum,
                         float* __restrict__ obs_sum, int n_envs, int block_envs, int n_steps,
                         int horizon, uint32_t seed, uint32_t block_offset) {
-  constexpr int A = S::A, R = S::R;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_envs) return;
+  constexpr int R = S::R;
+  static_assert(THREADS % G == 0, "a group lies inside one warp");
+  __shared__ GroupCopy<S> copies[THREADS / G];
+  const int rank = G == 1 ? 0 : (int)threadIdx.x % G;
+  const int grp = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const bool live = grp < n_envs;
+  const int g = live ? grp : n_envs - 1;
   const uint32_t n = (uint32_t)block_envs;
   const uint32_t lane = (uint32_t)g % n;
   const uint32_t rng_block = (uint32_t)g / n + block_offset;
   const uint32_t mixed = seed * 7919u + rng_block * 104729u;
+  GroupCopy<S>& cp = copies[threadIdx.x / G];
 
+  GroupSlots<S, G> sl;
+  init_slots<S, G>(c, rank, sl);
   typename S::W w;
   draw_world<S>(c, mixed, n, lane, 0, 0, 8, w);
+  if constexpr (G > 1) cp.w = w;
+  // the slots read the copy; with G = 1 their indices are compile-time and
+  // they read the registers
+  const typename S::W& wv = G > 1 ? cp.w : w;
   float racc[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) racc[k] = 0.0f;
   float oacc = 0.0f;
   int t = 0;
   for (int step = 0; step < n_steps; ++step) {
-    float mv[A][MW];
-    draw_moves<A>(rollout_salt(mixed, step, 2), n, lane, mv);
-    S::physics(c, mv, w);
-    float cm[A][S::CW];
-    draw_comm<S>(c, rollout_salt(mixed, step, 16), n, lane, cm);
+    group_sync<G>();                                // the copy holds this step's start
+    group_physics<S, G>(c, sl, rollout_salt(mixed, step, 2), n, lane, wv, w);
+    float cm[S::A][S::CW];
+    group_comm<S, G>(c, sl, rollout_salt(mixed, step, 16), n, lane, cm);
     const typename S::Derived d = S::derive(c, w, cm);
     float rew[R];
-    S::reward(c, w, cm, d, rew);
+    group_reward<S, G>(c, rank, w, cm, d, rew);
 #pragma unroll
     for (int k = 0; k < R; ++k) racc[k] = racc[k] + rew[k];
-    float total = 0.0f;                             // the obs sum: per row over agents
+    if constexpr (G > 1) {
+      cp.w = w;
 #pragma unroll
-    for (int r = 0; r < S::OW; ++r) {
-      float col = 0.0f;
+      for (int i = 0; i < S::A; ++i)
 #pragma unroll
-      for (int i = 0; i < A; ++i) col = col + S::obs(i, r, w, cm, d);
-      total = total + col;
+        for (int k = 0; k < S::CW; ++k) cp.cm[i][k] = cm[i][k];
+      cp.d = d;
     }
-    oacc = oacc + total;
+    group_sync<G>();
+    oacc = oacc + group_obs_total<S, G>(sl, wv, G > 1 ? cp.cm : cm, G > 1 ? cp.d : d);
     t += 1;
-    if (horizon > 0 && t >= horizon) {              // per-lane reset, call ids 3/4, goals 26+
-      draw_world<S>(c, mixed, n, lane, step, 3, 24, w);
+    if (horizon > 0 && t >= horizon) {              // reset, call ids 3/4, goals 26+: t is
+      draw_world<S>(c, mixed, n, lane, step, 3, 24, w);   // the same on every lane
       t = 0;
+      if constexpr (G > 1) {
+        group_sync<G>();                            // the obs reads are done
+        cp.w = w;
+      }
     }
   }
-  store_world<S>(w, pos, vel, (size_t)n_envs, g);
+  if (live && rank == 0) {
+    store_world<S>(w, pos, vel, (size_t)n_envs, g);
 #pragma unroll
-  for (int k = 0; k < R; ++k) rew_sum[(size_t)k * n_envs + g] = racc[k];
-  obs_sum[g] = oacc;
+    for (int k = 0; k < R; ++k) rew_sum[(size_t)k * n_envs + g] = racc[k];
+    obs_sum[g] = oacc;
+  }
+}
+
+template <class S, int G>
+int launch_rollout_group(const void* params, float* pos, float* vel, float* rew_sum,
+                         float* obs_sum, int n_envs, int block_envs, int n_steps, int horizon,
+                         uint32_t seed, uint32_t block_offset, cudaStream_t stream) {
+  const int blocks = (int)(((long long)n_envs * G + THREADS - 1) / THREADS);
+  scenario_rollout_kernel<S, G><<<blocks, THREADS, 0, stream>>>(
+      *static_cast<const typename S::Params*>(params), pos, vel, rew_sum, obs_sum, n_envs,
+      block_envs, n_steps, horizon, seed, block_offset);
+  return (int)cudaGetLastError();
 }
 
 template <class S>
 int launch_rollout(const void* params, float* pos, float* vel, float* rew_sum, float* obs_sum,
                    int n_envs, int block_envs, int n_steps, int horizon, uint32_t seed,
-                   uint32_t block_offset, cudaStream_t stream) {
-  const int blocks = (n_envs + THREADS - 1) / THREADS;
-  scenario_rollout_kernel<S><<<blocks, THREADS, 0, stream>>>(
-      *static_cast<const typename S::Params*>(params), pos, vel, rew_sum, obs_sum, n_envs,
-      block_envs, n_steps, horizon, seed, block_offset);
-  return (int)cudaGetLastError();
+                   uint32_t block_offset, int group, cudaStream_t stream) {
+#define MPE_GROUP(G)                                                                         \
+  case G:                                                                                    \
+    return launch_rollout_group<S, G>(params, pos, vel, rew_sum, obs_sum, n_envs, block_envs, \
+                                      n_steps, horizon, seed, block_offset, stream)
+  switch (group) {
+    MPE_GROUP(1);
+    MPE_GROUP(2);
+    MPE_GROUP(4);
+    MPE_GROUP(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MPE_GROUP
 }
 
 // ---- K1 ---------------------------------------------------------------------
@@ -222,17 +270,19 @@ int launch_det(const void* params, const float* pos0, const float* vel0, const f
 
 }  // namespace
 
-// Launch: one thread per env in 32-thread blocks, so that 4096 envs spread
-// over 128 SMs instead of 32.
+// Launch: one warp per CTA. K1 runs one thread per env, so that 4096 envs
+// spread over 128 SMs instead of 32; K2 runs G threads per env (group 1, 2,
+// 4 or 8, chosen by ops/fused_rollout.py::rollout_group), n_envs G / 32
+// warps, so that 4096 envs give the card 4-8 warps per SM instead of one.
 extern "C" {
 
-// scenario: ops/_build.py::SCENARIO_IDS
+// scenario: ops/_build.py::SCENARIO_IDS; group: threads per env lane
 int mpe_scenario_rollout(int scenario, const void* params, float* pos, float* vel, float* rew_sum,
                          float* obs_sum, int n_envs, int block_envs, int n_steps, int horizon,
-                         uint32_t seed, uint32_t block_offset, cudaStream_t stream) {
+                         uint32_t seed, uint32_t block_offset, int group, cudaStream_t stream) {
 #define MPE_ROLLOUT(S)                                                                      \
   return launch_rollout<S>(params, pos, vel, rew_sum, obs_sum, n_envs, block_envs, n_steps, \
-                           horizon, seed, block_offset, stream)
+                           horizon, seed, block_offset, group, stream)
   MPE_SCENARIO_SWITCH(MPE_ROLLOUT)
 #undef MPE_ROLLOUT
 }

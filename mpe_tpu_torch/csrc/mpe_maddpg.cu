@@ -21,14 +21,16 @@
 //     (move x comm) candidate grid, each candidate's Q built from the critic's
 //     layer-1 pre-activation (minus the agent's own-action columns, plus the
 //     candidate's two columns), and the entropy adjoint of both heads with its
-//     1e-10 eps. Out: every agent's actor and critic gradient and the metric
-//     sums.
+//     1e-10 eps. Out: every agent's actor and critic gradient in the live
+//     nets' layout of the weight buffer, and the three metrics.
 //
 // What bounds them: fp32 operations. K8 runs A actors per env-step (64 (OW +
 // 64 + 5 + C) multiply-adds each) and writes 4 W bytes of replay row; K9
 // needs per (sample, agent) pair the target and live critics on the J = A (OW
 // + 5 + C) joint inputs, 5 max(C, 1) candidates' layers 2-3 and the backward
-// passes (chip_smoke.py::OPS counts them) against 4 W bytes read per sample.
+// passes (chip_smoke.py::OPS counts them) against 4 W bytes read per sample;
+// on the card a CTA also waits on its shared-memory reads and, at path d's
+// 192 CTAs, on the one wave it fills.
 //
 // What the designs do about it.
 // K8 is K5 (mpe_policy.cu) with a weight block per agent: one thread owns one
@@ -42,29 +44,36 @@
 // one per SM on 32 SMs: the collection is one lane's serial chain, not the
 // card's throughput (PERF.md).
 // K9: the agents' networks are independent until the loss, so a CTA takes one
-// agent and a tile of TS9 = 32 samples (grid: batch tiles x agents). Lane =
-// sample; each of the 8 warps owns 8 of the 64 hidden units of every layer, so
-// a thread carries 8 independent sums (its instruction-level parallelism) over
-// the layer's inputs, which it reads from [row][TS9+1] tiles of activations in
-// shared memory, the agent's weights being broadcast from shared memory too.
-// Each sum still runs over its inputs in order from the first product, the
-// plain version's order: the expected-Q gradient p (qbar - E) is
-// ill-conditioned in float32 on a trained critic (PERF.md), and in this order
-// qbar, p and E agree with the plain version's to the bit. Three kernels run
-// before the gradient so that its CTA holds only the live critic and the actor
-// (simple_world_comm's J = 258 critic alone is 83 KB): the target actions,
-// one thread per (sample, agent), in the plain version's order (the argmax
-// agrees); the TD targets y, a CTA per (tile, agent) holding the target
-// critic. The gradient kernel then runs the critic's forward and backward and
-// its weight gradient, and only then the candidates: their layer-1 inputs are
-// recomputed by each warp from the stored base, their h2 rows take the place
-// of the joint input's rows (no longer needed) CG candidates at a time (8,
-// one per warp), and only each
-// candidate's Q is kept, [cand][sample]; then the actor. For the
-// weight gradients, the CTA's threads share out the entries, each summed over
-// the tile's samples in order; each CTA writes its partial gradient, and the
-// reduce kernel sums the partials of an agent over the tiles in a fixed
-// order. No float atomics: the result is the same from run to run.
+// agent and a tile of TS9 = 16 samples (grid: batch tiles x agents: 64 x A
+// CTAs at path d's batch of 1024, 192 on simple_spread). Four kernels, each
+// with its nets in shared memory, w1 and w2 transposed so that a hidden unit's
+// weights of one input are contiguous (SNet), loaded as float4s, eight in
+// flight per thread: the target actions (the agent's target actor, at most
+// 28 KB), the TD targets y (the target critic, simple_world_comm's J = 258
+// critic 86 KB), the gradient, the reduce. Every dense layer runs as register
+// tiles: each of the 128 threads owns 2 samples x 4 hidden units, and one
+// float4 of weights and two activations from shared memory feed 8
+// multiply-adds (one shared read per multiply-add and one weight per unit
+// before); the backward pass through w2 reads w2's transpose by rows (four
+// inputs of a unit per float4). Each (sample, unit) sum still runs over its
+// inputs in order from the first product, the plain version's order: the
+// expected-Q gradient p (qbar - E) is ill-conditioned in float32 on a trained
+// critic (PERF.md), and in this order qbar, p and E agree with the plain
+// version's to the bit, and so do the target logits (the argmax agrees). The
+// gradient kernel holds the live critic and the actor (173 KB on
+// simple_world_comm; 99 KB on simple_spread, two CTAs per SM). It runs the
+// critic's forward and backward and its weight gradient, then the candidates:
+// CG at a time (2 where two CTAs then share an SM, else 4), their layer-1 rows
+// tanh(base + (w1[:, m] + w1[:, C + j])) and their h2 rows in the joint's
+// place (no longer needed); only each candidate's Q is kept, [cand][sample];
+// then the actor. A weight gradient is the tile's samples summed in order per
+// entry, each thread a 4 x 4 micro-tile of entries (8 shared reads per 16
+// multiply-adds); each CTA writes its partial gradient, and the reduce kernel
+// sums the partials of an agent over the tiles in a fixed order, into the
+// live nets' padded layout (the gradient buffer the trainer's Adam reads), and
+// scales the metric sums. No float atomics: the result is the same from run
+// to run. Tensor cores (TF32 or 3xTF32) would sum in another order and are
+// left out.
 
 #include "scenario_blocks.cuh"
 #include "policy_mlp.cuh"
@@ -268,40 +277,270 @@ maddpg_traj_kernel(const typename S::Params c, const float* __restrict__ weights
 
 // ---- K9 ---------------------------------------------------------------------
 
-constexpr int TS9 = 32;                     // samples per CTA: lane = sample
-constexpr int LD9 = TS9 + 1;                // tile row stride (rows read across lanes and down
-                                            // columns without bank conflicts)
-constexpr int THREADS9 = 256;               // 8 warps, each owning 8 of the 64 hidden units
+constexpr int TS9 = 16;                     // samples per CTA
+constexpr int LD9 = TS9 + 1;                // tile row stride (rows read down columns without
+                                            // bank conflicts)
+constexpr int THREADS9 = 128;
 constexpr int WARPS9 = THREADS9 / 32;
-constexpr int GW = H / WARPS9;              // hidden units per warp
+constexpr int SO9 = TS9 / 2;                // a thread's two samples: s and s + SO9
 constexpr size_t SMEM_MAX = 232448;         // a CTA's dynamic shared memory on sm_90
-static_assert(GW == 8 && TS9 == 32, "a warp owns 8 hidden units of 32 samples");
+static_assert(THREADS9 == (TS9 / 2) * (H / 4), "the 2 x 4 micro-tiles cover TS9 samples x H units");
 
-// The gradient kernel's shared memory (floats): the agent's critic and actor,
-// per-sample scalars (y, q, the candidates' Q [NCAND], logits [K], metric
-// terms [3]), then the tiles. Tile rows: the inputs (the joint, later the
-// agent's obs; in between the h2 rows of CG candidates, one per warp), the
-// candidates' base pre-activation, h1, h2, gh1, gh2, output gradients (1
-// critic, K actor). launch_update's static_assert holds every scenario's
-// layout to an SM's shared memory.
+// a thread's micro-tile of a dense layer on a tile: samples s, s + SO9 and units
+// g0 .. g0 + 3. Threads 16 apart share the units; a warp's 16 unit groups read
+// 256 contiguous bytes of a weight row as float4.
+struct Tile9 {
+  int s, g0;
+};
+__device__ __forceinline__ Tile9 tile9() {
+  return {(int)threadIdx.x >> 4, ((int)threadIdx.x & 15) * 4};
+}
+
+// a net NIN-64-64-NOUT in shared memory: w1 and w2 transposed (input major,
+// the units of an input contiguous, rows WS9 = H + 4 floats apart so that a
+// warp storing an input's units of consecutive inputs hits 8 banks, not 1),
+// w3 [NOUT, H] and the biases as in the kernel layout
+constexpr int WS9 = H + 4;
+template <int NIN, int NOUT>
+struct SNet {
+  static constexpr int W1T = 0, B1 = W1T + NIN * WS9, W2T = B1 + H, B2 = W2T + H * WS9,
+                       W3 = B2 + H, B3 = W3 + NOUT * H, N = B3 + (NOUT + 3) / 4 * 4;
+};
+
+// entry e of a net's kernel-layout block (w1 [H, NIN], b1, w2 [H, H], b2, w3
+// [NOUT, H], b3) to its place in the SNet
+template <int NIN, int NOUT>
+__device__ __forceinline__ void place_weight(int e, float v, float* dst) {
+  using N = SNet<NIN, NOUT>;
+  constexpr int E_B1 = H * NIN, E_W2 = E_B1 + H, E_B2 = E_W2 + H * H, E_W3 = E_B2 + H,
+                NE = E_W3 + NOUT * H + NOUT;
+  if (e < E_B1) {
+    dst[N::W1T + (e % NIN) * WS9 + e / NIN] = v;
+  } else if (e < E_W2) {
+    dst[N::B1 + e - E_B1] = v;
+  } else if (e < E_B2) {
+    const int f = e - E_W2;
+    dst[N::W2T + (f % H) * WS9 + f / H] = v;
+  } else if (e < E_W3) {
+    dst[N::B2 + e - E_B2] = v;
+  } else if (e < NE) {
+    dst[N::W3 + e - E_W3] = v;               // w3, then b3 right after it
+  }
+}
+
+// a net's kernel-layout block (16-byte aligned, padded to a multiple of 4
+// floats) into its SNet, the CTA's threads sharing it as float4s, LOADS9 of
+// them in flight per thread before any is placed
+constexpr int LOADS9 = 8;
+template <int NIN, int NOUT>
+__device__ __forceinline__ void load_net(const float* __restrict__ src, float* dst) {
+  constexpr int NQ = (H * NIN + H + H * H + H + NOUT * H + NOUT + 3) / 4;
+  const float4* __restrict__ src4 = reinterpret_cast<const float4*>(src);
+  for (int q0 = threadIdx.x; q0 < NQ; q0 += LOADS9 * blockDim.x) {
+    float4 v[LOADS9];
+#pragma unroll
+    for (int p = 0; p < LOADS9; ++p) {
+      const int q = q0 + p * blockDim.x;
+      if (q < NQ) v[p] = src4[q];
+    }
+#pragma unroll
+    for (int p = 0; p < LOADS9; ++p) {
+      const int q = q0 + p * blockDim.x;
+      if (q < NQ) {
+        place_weight<NIN, NOUT>(4 * q + 0, v[p].x, dst);
+        place_weight<NIN, NOUT>(4 * q + 1, v[p].y, dst);
+        place_weight<NIN, NOUT>(4 * q + 2, v[p].z, dst);
+        place_weight<NIN, NOUT>(4 * q + 3, v[p].w, dst);
+      }
+    }
+  }
+}
+
+// acc[q][u] = sum over the NIN inputs h, in order from the first product, of
+// w[h WS + g0 + u] x[h LD9 + s + q SO9]: 2 x 4 sums per thread, each input's
+// four weights read as one float4 and its two samples as two scalars
+template <int NIN, int WS>
+__device__ __forceinline__ void dense_tile(const float* __restrict__ w, const float* x, Tile9 t,
+                                           float (&acc)[2][4]) {
+  {
+    const float4 wv = *reinterpret_cast<const float4*>(w + t.g0);
+    const float x0 = x[t.s], x1 = x[t.s + SO9];
+    acc[0][0] = wv.x * x0;
+    acc[0][1] = wv.y * x0;
+    acc[0][2] = wv.z * x0;
+    acc[0][3] = wv.w * x0;
+    acc[1][0] = wv.x * x1;
+    acc[1][1] = wv.y * x1;
+    acc[1][2] = wv.z * x1;
+    acc[1][3] = wv.w * x1;
+  }
+#pragma unroll 4
+  for (int h = 1; h < NIN; ++h) {
+    const float4 wv = *reinterpret_cast<const float4*>(w + h * WS + t.g0);
+    const float x0 = x[h * LD9 + t.s], x1 = x[h * LD9 + t.s + SO9];
+    acc[0][0] = acc[0][0] + wv.x * x0;
+    acc[0][1] = acc[0][1] + wv.y * x0;
+    acc[0][2] = acc[0][2] + wv.z * x0;
+    acc[0][3] = acc[0][3] + wv.w * x0;
+    acc[1][0] = acc[1][0] + wv.x * x1;
+    acc[1][1] = acc[1][1] + wv.y * x1;
+    acc[1][2] = acc[1][2] + wv.z * x1;
+    acc[1][3] = acc[1][3] + wv.w * x1;
+  }
+}
+
+// The backward pass through w2 on its transpose (rows of units, each unit's
+// inputs contiguous, rows WS9 apart): acc[q][u] = sum over the H inputs g, in
+// order from the first product, of wt[(ug + 16 u) WS9 + g] x[g LD9 + s + q
+// SO9], units ug, ug + 16, ug + 32, ug + 48 (ug = g0 / 4); four inputs of a
+// unit read as one float4
+__device__ __forceinline__ void dense_rows(const float* __restrict__ wt, const float* x, Tile9 t,
+                                           float (&acc)[2][4]) {
+  const int ug = t.g0 >> 2;
+#pragma unroll 2
+  for (int g = 0; g < H; g += 4) {
+    float4 wv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      wv[u] = *reinterpret_cast<const float4*>(wt + (ug + 16 * u) * WS9 + g);
+    float x0[4], x1[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      x0[c] = x[(g + c) * LD9 + t.s];
+      x1[c] = x[(g + c) * LD9 + t.s + SO9];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float w4[4] = {wv[u].x, wv[u].y, wv[u].z, wv[u].w};
+      if (g == 0) {
+        acc[0][u] = w4[0] * x0[0];
+        acc[1][u] = w4[0] * x1[0];
+      } else {
+        acc[0][u] = acc[0][u] + w4[0] * x0[0];
+        acc[1][u] = acc[1][u] + w4[0] * x1[0];
+      }
+#pragma unroll
+      for (int c = 1; c < 4; ++c) {
+        acc[0][u] = acc[0][u] + w4[c] * x0[c];
+        acc[1][u] = acc[1][u] + w4[c] * x1[c];
+      }
+    }
+  }
+}
+
+// tanh(acc + b) of a micro-tile into the rows at out
+__device__ __forceinline__ void store_tanh(const float (&acc)[2][4], const float* __restrict__ b,
+                                           float* out, Tile9 t) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      out[(t.g0 + u) * LD9 + t.s + q * SO9] = tanhf(acc[q][u] + b[t.g0 + u]);
+}
+
+// a net's single output on the h2 rows at x (one sample's column): the sum
+// over the 64 units in order, then b3 (right after w3)
+__device__ __forceinline__ float net_out(const float* __restrict__ w3, const float* x) {
+  float q = w3[0] * x[0];
+#pragma unroll 16
+  for (int g = 1; g < H; ++g) q = q + w3[g] * x[g * LD9];
+  return q + w3[H];
+}
+
+// The weight and bias gradients of a layer NIN -> NOUT on a tile: part[o NIN +
+// i] = sum over the tile's samples, in order from 0, of tile[ro + o][s]
+// tile[ri + i][s], then part[NOUT NIN + o] = the sum of row ro + o. A warp
+// takes 16 x 32 entries at a time, a thread a 4 x 4 micro-tile: 8 shared
+// reads feed 16 multiply-adds.
+template <int NOUT, int NIN>
+__device__ __forceinline__ void weight_grads(const float* tile, int ro, int ri,
+                                             float* __restrict__ part) {
+  constexpr int SBO = (NOUT + 15) / 16, SBI = (NIN + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  for (int sb = threadIdx.x >> 5; sb < SBO * SBI; sb += WARPS9) {
+    const int o0 = (sb / SBI) * 16 + (lane >> 3) * 4, i0 = (sb % SBI) * 32 + (lane & 7) * 4;
+    int ra[4], rb[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {           // rows past the end read the last and store nothing
+      ra[u] = (ro + (o0 + u < NOUT ? o0 + u : NOUT - 1)) * LD9;
+      rb[u] = (ri + (i0 + u < NIN ? i0 + u : NIN - 1)) * LD9;
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+#pragma unroll 4
+    for (int s = 0; s < TS9; ++s) {
+      float a[4], b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = tile[ra[u] + s];
+        b[u] = tile[rb[u] + s];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = acc[u][v] + a[u] * b[v];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        if (o0 + u < NOUT && i0 + v < NIN) part[(o0 + u) * NIN + i0 + v] = acc[u][v];
+  }
+  for (int o = threadIdx.x; o < NOUT; o += blockDim.x) {
+    const float* a = tile + (ro + o) * LD9;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < TS9; ++s) acc = acc + a[s];
+    part[NOUT * NIN + o] = acc;
+  }
+}
+
+// the tiles of the target-action kernel: s' of the agent, h1, h2; then the
+// logits [K][TS9]
 template <class D>
-struct Layout9 {
-  static constexpr int CG = D::NCAND < WARPS9 ? D::NCAND : WARPS9;
-  static constexpr int RXN = D::J > CG * H ? D::J : CG * H;
-  static constexpr int R_X = 0, R_CAND = 0, R_BASE = RXN, R_H1 = R_BASE + H, R_H2 = R_H1 + H,
-                       R_GH1 = R_H2 + H, R_GH2 = R_GH1 + H, R_G3 = R_GH2 + H, R_N = R_G3 + D::K;
-  static constexpr int S_C = 0, S_A = S_C + D::NCP, S_Y = S_A + D::NWP, S_Q = S_Y + TS9,
+struct TaLayout {
+  using Net = SNet<D::OW, D::K>;
+  static constexpr int R_X = 0, R_H1 = D::OW, R_H2 = R_H1 + H, R_N = R_H2 + H;
+  static constexpr int S_Z = Net::N, S_TILE = (S_Z + D::K * TS9 + 3) / 4 * 4;
+  static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LD9) * sizeof(float);
+};
+
+// the TD kernel's tiles: the joint (s', a'), h1, h2
+template <class D>
+struct TdLayout {
+  using Net = SNet<D::J, 1>;
+  static constexpr int R_X = 0, R_H1 = D::J, R_H2 = R_H1 + H, R_N = R_H2 + H;
+  static constexpr size_t SMEM = (size_t)(Net::N + R_N * LD9) * sizeof(float);
+};
+
+// The gradient kernel's shared memory (floats): the agent's critic and actor
+// (SNet), per-sample scalars (y, q, the candidates' Q [NCAND], logits [K],
+// metric terms [3]), then the tiles. Tile rows: the inputs (the joint, later
+// the agent's obs; in between the h1 and h2 rows of CG candidates), the
+// candidates' base pre-activation, h1, h2, gh1, gh2, output gradients (1
+// critic, K actor). CG is 2 where that lets two CTAs share an SM (the small
+// scenarios; path d's simple_spread), else 4. launch_update's static_assert
+// holds every scenario's layout to an SM's shared memory.
+constexpr size_t SMEM_HALF = 115712;       // two CTAs per SM, 1 KB reserved each
+template <class D, int CG_>
+struct Layout9Of {
+  using CNet = SNet<D::J, 1>;
+  using ANet = SNet<D::OW, D::K>;
+  static constexpr int CG = D::NCAND < CG_ ? D::NCAND : CG_;
+  static constexpr int RXN = D::J > 2 * CG * H ? D::J : 2 * CG * H;
+  static constexpr int R_X = 0, R_C1 = 0, R_C2 = CG * H, R_BASE = RXN, R_H1 = R_BASE + H,
+                       R_H2 = R_H1 + H, R_GH1 = R_H2 + H, R_GH2 = R_GH1 + H, R_G3 = R_GH2 + H,
+                       R_N = R_G3 + D::K;
+  static constexpr int S_C = 0, S_A = S_C + CNet::N, S_Y = S_A + ANet::N, S_Q = S_Y + TS9,
                        S_QC = S_Q + TS9, S_Z = S_QC + D::NCAND * TS9, S_MS = S_Z + D::K * TS9,
                        S_TILE = (S_MS + 3 * TS9 + 3) / 4 * 4;
   static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LD9) * sizeof(float);
 };
-
-// the TD kernel's tiles: the joint (s', a'), h1, h2, then y
 template <class D>
-struct TdLayout {
-  static constexpr int R_X = 0, R_H1 = D::J, R_H2 = R_H1 + H, R_N = R_H2 + H;
-  static constexpr size_t SMEM = (size_t)(D::NCP + R_N * LD9) * sizeof(float);
-};
+using Layout9 = Layout9Of<D, Layout9Of<D, 2>::SMEM <= SMEM_HALF ? 2 : 4>;
 
 struct MaddpgConsts {
   float gamma;
@@ -319,97 +558,67 @@ __device__ __forceinline__ int first_argmax(const float (&z)[KP]) {
   return best;
 }
 
-// one thread per (sample, agent): the target actor's first-argmax move and
-// comm on s' -> act2 [A, NH, B]
-template <class D>
-__global__ void __launch_bounds__(128)
-maddpg_target_actions_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
-                             int* __restrict__ act2, int batch) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= D::A * batch) return;
-  const int i = idx / batch, b = idx - i * batch;
-  float x[D::OW];
+// rows r0.. of width NR of the replay rows [b][RW] into tile rows, one column per
+// sample (row b0 + s, or b0 past the batch); consecutive threads read
+// consecutive floats of a replay row
+template <int NR>
+__device__ __forceinline__ void load_rows(const float* __restrict__ rows, int rw, int r0, int b0,
+                                          int batch, float* dst) {
+  for (int e0 = threadIdx.x; e0 < NR * TS9; e0 += LOADS9 * blockDim.x) {
+    float v[LOADS9];
 #pragma unroll
-  for (int r = 0; r < D::OW; ++r) x[r] = rows[(size_t)b * D::RW + D::R_OBS2 + i * D::OW + r];
-  float z[D::K];
-  policy_logits(weights + D::OFF_TA + i * D::NWP, x, z);
-  act2[(i * D::NH) * batch + b] = first_argmax<0, MW>(z);
-  if constexpr (D::C > 0) act2[(i * D::NH + 1) * batch + b] = first_argmax<MW, D::C>(z);
-}
-
-// The warp's GW units g0.. of a dense layer on the tile rows at x (this lane's
-// column, stride LD9): acc[j] = sum over the NIN inputs, in order from the
-// first product, of w[(g0 + j) * NIN + h] x[h]. The units are independent
-// sums (the lane's instruction-level parallelism); the weights are broadcast.
-template <int NIN>
-__device__ __forceinline__ void dense_units(const float* __restrict__ w, const float* x, int g0,
-                                            float (&acc)[GW]) {
-  const float x0 = x[0];
+    for (int p = 0; p < LOADS9; ++p) {
+      const int e = e0 + p * blockDim.x, s = e / NR;
+      const int b = b0 + s < batch ? b0 + s : b0;
+      if (e < NR * TS9) v[p] = rows[(size_t)b * rw + r0 + e - s * NR];
+    }
 #pragma unroll
-  for (int j = 0; j < GW; ++j) acc[j] = w[(g0 + j) * NIN] * x0;
-#pragma unroll 4
-  for (int h = 1; h < NIN; ++h) {
-    const float xh = x[h * LD9];
-#pragma unroll
-    for (int j = 0; j < GW; ++j) acc[j] = acc[j] + w[(g0 + j) * NIN + h] * xh;
+    for (int p = 0; p < LOADS9; ++p) {
+      const int e = e0 + p * blockDim.x, s = e / NR;
+      if (e < NR * TS9) dst[(e - s * NR) * LD9 + s] = v[p];
+    }
   }
 }
 
-// layer 2 of a critic on the h1 rows at x: h2 = tanh(w2 h1 + b2) into rows out
+// grid (batch tiles of TS9 samples, agents): agent i's target actor on s'
+// from shared memory, the first-argmax move and comm -> act2 [A, NH, B]
 template <class D>
-__device__ __forceinline__ void critic_layer2(const float* __restrict__ wc, const float* x,
-                                              float* out, int g0) {
-  float acc[GW];
-  dense_units<H>(wc + D::CW2, x, g0, acc);
+__global__ void __launch_bounds__(THREADS9)
+maddpg_target_actions_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
+                             int* __restrict__ act2, int batch) {
+  using L = TaLayout<D>;
+  using N = typename L::Net;
+  extern __shared__ __align__(16) float smem[];
+  const Tile9 t = tile9();
+  const int i = blockIdx.y, b0 = blockIdx.x * TS9;
+  float* tile = smem + L::S_TILE;
+  load_net<D::OW, D::K>(weights + D::OFF_TA + i * D::NWP, smem);
+  load_rows<D::OW>(rows, D::RW, D::R_OBS2 + i * D::OW, b0, batch, tile + L::R_X * LD9);
+  __syncthreads();
+  float acc[2][4];
+  dense_tile<D::OW, WS9>(smem + N::W1T, tile + L::R_X * LD9, t, acc);
+  store_tanh(acc, smem + N::B1, tile + L::R_H1 * LD9, t);
+  __syncthreads();
+  dense_tile<H, WS9>(smem + N::W2T, tile + L::R_H1 * LD9, t, acc);
+  store_tanh(acc, smem + N::B2, tile + L::R_H2 * LD9, t);
+  __syncthreads();
+  for (int e = threadIdx.x; e < D::K * TS9; e += THREADS9) {   // logit c, over the units in order
+    const int c = e / TS9, s = e - c * TS9;
+    const float* w3 = smem + N::W3 + c * H;
+    const float* x = tile + L::R_H2 * LD9 + s;
+    float z = w3[0] * x[0];
+#pragma unroll 16
+    for (int g = 1; g < H; ++g) z = z + w3[g] * x[g * LD9];
+    smem[L::S_Z + e] = z + smem[N::B3 + c];
+  }
+  __syncthreads();
+  const int s = threadIdx.x;
+  if (s < TS9 && b0 + s < batch) {
+    float z[D::K];
 #pragma unroll
-  for (int j = 0; j < GW; ++j) out[(g0 + j) * LD9] = tanhf(acc[j] + wc[D::CB2 + g0 + j]);
-}
-
-// a critic's output on the h2 rows at x: sum over the 64 units in order, then b3
-template <class D>
-__device__ __forceinline__ float critic_out(const float* __restrict__ wc, const float* x) {
-  float q = wc[D::CW3] * x[0];
-  for (int g = 1; g < H; ++g) q = q + wc[D::CW3 + g] * x[g * LD9];
-  return q + wc[D::CB3];
-}
-
-// the weight gradient of an NIN-64-64-NOUT net summed over the tile's samples
-// in order: entry e of the NW/NC layout, the CTA's threads taking every
-// blockDim-th entry; x at tile row `rx`
-template <class L, int NIN, int NOUT>
-__device__ __forceinline__ void weight_grads(const float* __restrict__ tile, int rx,
-                                             float* __restrict__ part) {
-  constexpr int E_B1 = H * NIN, E_W2 = E_B1 + H, E_B2 = E_W2 + H * H, E_W3 = E_B2 + H,
-                E_B3 = E_W3 + NOUT * H, NE = E_B3 + NOUT;
-  for (int e = threadIdx.x; e < NE; e += blockDim.x) {
-    int ra, rb = -1;                         // the sum of row ra (times row rb)
-    if (e < E_B1) {
-      ra = L::R_GH1 + e / NIN;
-      rb = rx + e % NIN;
-    } else if (e < E_W2) {
-      ra = L::R_GH1 + e - E_B1;
-    } else if (e < E_B2) {
-      ra = L::R_GH2 + (e - E_W2) / H;
-      rb = L::R_H1 + (e - E_W2) % H;
-    } else if (e < E_W3) {
-      ra = L::R_GH2 + e - E_B2;
-    } else if (e < E_B3) {
-      ra = L::R_G3 + (e - E_W3) / H;
-      rb = L::R_H2 + (e - E_W3) % H;
-    } else {
-      ra = L::R_G3 + e - E_B3;
-    }
-    const float* pa = tile + ra * LD9;
-    float acc = 0.0f;
-    if (rb >= 0) {
-      const float* pb = tile + rb * LD9;
-#pragma unroll 8
-      for (int s = 0; s < TS9; ++s) acc = acc + pa[s] * pb[s];
-    } else {
-#pragma unroll 8
-      for (int s = 0; s < TS9; ++s) acc = acc + pa[s];
-    }
-    part[e] = acc;
+    for (int c = 0; c < D::K; ++c) z[c] = smem[L::S_Z + c * TS9 + s];
+    act2[(i * D::NH) * batch + b0 + s] = first_argmax<0, MW>(z);
+    if constexpr (D::C > 0) act2[(i * D::NH + 1) * batch + b0 + s] = first_argmax<MW, D::C>(z);
   }
 }
 
@@ -443,180 +652,183 @@ __global__ void __launch_bounds__(THREADS9)
 maddpg_td_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
                  const int* __restrict__ act2, float* __restrict__ y, int batch, float gamma) {
   using L = TdLayout<D>;
+  using N = typename L::Net;
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, s = tid & 31, g0 = (tid >> 5) * GW;
-  const int i = blockIdx.y;
-  const int b0 = blockIdx.x * TS9;
-  const bool valid = b0 + s < batch;
-  const int b = valid ? b0 + s : b0;        // invalid lanes read sample b0 and write nothing
-  const float* rb = rows + (size_t)b * D::RW;
-  float* wt = smem;
-  float* col = smem + D::NCP + s;           // this lane's sample column
-  for (int e = tid; e < D::NC; e += THREADS9) wt[e] = weights[D::OFF_TC + i * D::NCP + e];
-  for (int r = tid >> 5; r < D::AO; r += WARPS9) col[(L::R_X + r) * LD9] = rb[D::R_OBS2 + r];
-  for (int r = tid >> 5; r < D::AK; r += WARPS9) {
+  const Tile9 t = tile9();
+  const int i = blockIdx.y, b0 = blockIdx.x * TS9;
+  float* tile = smem + N::N;
+  load_net<D::J, 1>(weights + D::OFF_TC + i * D::NCP, smem);
+  load_rows<D::AO>(rows, D::RW, D::R_OBS2, b0, batch, tile + L::R_X * LD9);
+  for (int e = threadIdx.x; e < D::AK * TS9; e += THREADS9) {  // a': the one-hots of act2
+    const int s = e / D::AK, r = e - s * D::AK;
+    const int b = b0 + s < batch ? b0 + s : b0;
     const int q = r / D::K, k = r % D::K;
-    const int move = act2[(q * D::NH) * batch + b];
-    const bool hot = k < MW ? k == move : k - MW == act2[(q * D::NH + 1) * batch + b];
-    col[(L::R_X + D::AO + r) * LD9] = hot ? 1.0f : 0.0f;
+    const bool hot = k < MW ? k == act2[(q * D::NH) * batch + b]
+                            : k - MW == act2[(q * D::NH + 1) * batch + b];
+    tile[(L::R_X + D::AO + r) * LD9 + s] = hot ? 1.0f : 0.0f;
   }
   __syncthreads();
-  {
-    float acc[GW];
-    dense_units<D::J>(wt + D::CW1, col + L::R_X * LD9, g0, acc);
-#pragma unroll
-    for (int j = 0; j < GW; ++j)
-      col[(L::R_H1 + g0 + j) * LD9] = tanhf(acc[j] + wt[D::CB1 + g0 + j]);
+  float acc[2][4];
+  dense_tile<D::J, WS9>(smem + N::W1T, tile + L::R_X * LD9, t, acc);
+  store_tanh(acc, smem + N::B1, tile + L::R_H1 * LD9, t);
+  __syncthreads();
+  dense_tile<H, WS9>(smem + N::W2T, tile + L::R_H1 * LD9, t, acc);
+  store_tanh(acc, smem + N::B2, tile + L::R_H2 * LD9, t);
+  __syncthreads();
+  const int s = threadIdx.x;
+  if (s < TS9 && b0 + s < batch) {
+    const float* rb = rows + (size_t)(b0 + s) * D::RW;
+    y[(size_t)i * batch + b0 + s] =
+        rb[D::R_REW + i] + gamma * net_out(smem + N::W3, tile + L::R_H2 * LD9 + s);
   }
-  __syncthreads();
-  critic_layer2<D>(wt, col + L::R_H1 * LD9, col + L::R_H2 * LD9, g0);
-  __syncthreads();
-  if (tid < TS9 && valid)
-    y[(size_t)i * batch + b] = rb[D::R_REW + i] + gamma * critic_out<D>(wt, col + L::R_H2 * LD9);
 }
 
-// grid (batch tiles of TS9 samples, agents), THREADS9 threads: lane = sample,
-// warp w owns hidden units 8w .. 8w + 7 of every layer; partials [A][tiles][NG]
+// grid (batch tiles of TS9 samples, agents), THREADS9 threads, each a 2 x 4
+// micro-tile of every dense layer; partials [A][tiles][NG]
 template <class D>
 __global__ void __launch_bounds__(THREADS9, 1)
 maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
                      const float* __restrict__ y, float* __restrict__ partials, int batch,
                      MaddpgConsts k) {
   using L = Layout9<D>;
+  using CN = typename L::CNet;
+  using AN = typename L::ANet;
   constexpr int K = D::K, C = D::C, CX = D::CX, J = D::J;
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, s = tid & 31, warp = tid >> 5, g0 = warp * GW;
+  const int tid = threadIdx.x;
+  const Tile9 t = tile9();
   const int i = blockIdx.y;
   const int b0 = blockIdx.x * TS9;
   float* wc = smem + L::S_C;
   float* wa = smem + L::S_A;
   float* tile = smem + L::S_TILE;
-  float* col = tile + s;                    // this lane's sample column
   float* part = partials + ((size_t)i * gridDim.x + blockIdx.x) * D::NG;
-  const bool valid = b0 + s < batch;
-  const float* rb = rows + (size_t)(valid ? b0 + s : b0) * D::RW;
 
-  for (int e = tid; e < D::NC; e += THREADS9) wc[e] = weights[D::OFF_C + i * D::NCP + e];
-  for (int e = tid; e < D::NW; e += THREADS9) wa[e] = weights[D::OFF_A + i * D::NWP + e];
-  if (tid < TS9) smem[L::S_Y + s] = valid ? y[(size_t)i * batch + b0 + s] : 0.0f;
-  for (int r = warp; r < J; r += WARPS9) col[(L::R_X + r) * LD9] = rb[r];        // (s, a)
+  load_net<J, 1>(weights + D::OFF_C + i * D::NCP, wc);
+  load_net<D::OW, K>(weights + D::OFF_A + i * D::NWP, wa);
+  if (tid < TS9) smem[L::S_Y + tid] = b0 + tid < batch ? y[(size_t)i * batch + b0 + tid] : 0.0f;
+  load_rows<J>(rows, D::RW, 0, b0, batch, tile + L::R_X * LD9);                   // (s, a)
   __syncthreads();
 
-  // ---- critic forward and the candidates' base ----
+  // ---- critic forward and the candidates' base: pre - agent i's own-action terms ----
   {
-    float acc[GW];
-    dense_units<J>(wc + D::CW1, col + L::R_X * LD9, g0, acc);
+    float acc[2][4], own[2][4];
+    dense_tile<J, WS9>(wc + CN::W1T, tile + L::R_X * LD9, t, acc);
+    dense_tile<K, WS9>(wc + CN::W1T + (D::AO + i * K) * WS9,
+                       tile + (L::R_X + D::AO + i * K) * LD9, t, own);
 #pragma unroll
-    for (int j = 0; j < GW; ++j) {
-      const float* row = wc + D::CW1 + (g0 + j) * J + D::AO + i * K;
-      float own = row[0] * col[(L::R_X + D::AO + i * K) * LD9];   // agent i's own-action columns
+    for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int c = 1; c < K; ++c) own = own + row[c] * col[(L::R_X + D::AO + i * K + c) * LD9];
-      const float pre = acc[j] + wc[D::CB1 + g0 + j];
-      col[(L::R_H1 + g0 + j) * LD9] = tanhf(pre);
-      col[(L::R_BASE + g0 + j) * LD9] = pre - own;
-    }
+      for (int u = 0; u < 4; ++u) {
+        const int g = t.g0 + u, s = t.s + q * SO9;
+        const float pre = acc[q][u] + wc[CN::B1 + g];
+        tile[(L::R_H1 + g) * LD9 + s] = tanhf(pre);
+        tile[(L::R_BASE + g) * LD9 + s] = pre - own[q][u];
+      }
   }
   __syncthreads();
-  critic_layer2<D>(wc, col + L::R_H1 * LD9, col + L::R_H2 * LD9, g0);
+  {
+    float acc[2][4];
+    dense_tile<H, WS9>(wc + CN::W2T, tile + L::R_H1 * LD9, t, acc);
+    store_tanh(acc, wc + CN::B2, tile + L::R_H2 * LD9, t);
+  }
   __syncthreads();
-  if (tid < TS9) {                          // warp 0: q and the TD gradient
-    const float q = critic_out<D>(wc, col + L::R_H2 * LD9);
+  if (tid < TS9) {                          // q and the TD gradient
+    const int s = tid;
+    const bool valid = b0 + s < batch;
+    const float q = net_out(wc + CN::W3, tile + L::R_H2 * LD9 + s);
     const float d = valid ? q - smem[L::S_Y + s] : 0.0f;
     smem[L::S_Q + s] = q;
-    col[L::R_G3 * LD9] = (2.0f * k.inv) * d;
+    tile[L::R_G3 * LD9 + s] = (2.0f * k.inv) * d;
     smem[L::S_MS + s] = d * d;
     smem[L::S_MS + TS9 + s] = valid ? q : 0.0f;
   }
   __syncthreads();
 
   // ---- critic backward: gh2 = w3 g3 (1 - h2^2), gh1 = (w2^T gh2) (1 - h1^2) ----
-  {
-    const float g3 = col[L::R_G3 * LD9];
 #pragma unroll
-    for (int j = 0; j < GW; ++j) {
-      const float h2 = col[(L::R_H2 + g0 + j) * LD9];
-      col[(L::R_GH2 + g0 + j) * LD9] = (wc[D::CW3 + g0 + j] * g3) * (1.0f - h2 * h2);
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int g = t.g0 + u, s = t.s + q * SO9;
+      const float h2 = tile[(L::R_H2 + g) * LD9 + s];
+      tile[(L::R_GH2 + g) * LD9 + s] = (wc[CN::W3 + g] * tile[L::R_G3 * LD9 + s]) * (1.0f - h2 * h2);
     }
-  }
   __syncthreads();
   {
-    float acc[GW];                            // units h = g0 + j, summed over g in order
-    const float gh2 = col[L::R_GH2 * LD9];
+    float acc[2][4];                          // units h, summed over g in order
+    dense_rows(wc + CN::W2T, tile + L::R_GH2 * LD9, t, acc);
 #pragma unroll
-    for (int j = 0; j < GW; ++j) acc[j] = wc[D::CW2 + g0 + j] * gh2;
-    for (int g = 1; g < H; ++g) {
-      const float x = col[(L::R_GH2 + g) * LD9];
+    for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int j = 0; j < GW; ++j) acc[j] = acc[j] + wc[D::CW2 + g * H + g0 + j] * x;
-    }
-#pragma unroll
-    for (int j = 0; j < GW; ++j) {
-      const float h1 = col[(L::R_H1 + g0 + j) * LD9];
-      col[(L::R_GH1 + g0 + j) * LD9] = acc[j] * (1.0f - h1 * h1);
-    }
+      for (int u = 0; u < 4; ++u) {
+        const int h = (t.g0 >> 2) + 16 * u, s = t.s + q * SO9;
+        const float h1 = tile[(L::R_H1 + h) * LD9 + s];
+        tile[(L::R_GH1 + h) * LD9 + s] = acc[q][u] * (1.0f - h1 * h1);
+      }
   }
   __syncthreads();
-  weight_grads<L, J, 1>(tile, L::R_X, part + D::G_CRITIC);
+  weight_grads<H, J>(tile, L::R_GH1, L::R_X, part + D::G_CRITIC + D::CW1);
+  weight_grads<H, H>(tile, L::R_GH2, L::R_H1, part + D::G_CRITIC + D::CW2);
+  weight_grads<1, H>(tile, L::R_G3, L::R_H2, part + D::G_CRITIC + D::CW3);
   __syncthreads();
 
   // ---- the candidates' Q, CG at a time in the joint's rows ----
   // candidate c = m CX + j: h1 = tanh(base + (w1[:, own move m] + w1[:, own
-  // comm j])), recomputed by each warp for the 64 inputs of its units' sums
+  // comm j])) into rows R_C1, then h2 into rows R_C2, then Q
   for (int c0 = 0; c0 < D::NCAND; c0 += L::CG) {
     const int ng = D::NCAND - c0 < L::CG ? D::NCAND - c0 : L::CG;
-#pragma unroll 1
-    for (int cc = 0; cc < ng; ++cc) {
-      const int m = (c0 + cc) / CX, jc = (c0 + cc) % CX;
-      const float* wm = wc + D::CW1 + D::AO + i * K + m;
-      const float* wj = wc + D::CW1 + D::AO + i * K + MW + jc;
-      float acc[GW];
-      float x = tanhf(col[L::R_BASE * LD9] + (C > 0 ? wm[0] + wj[0] : wm[0]));
-#pragma unroll
-      for (int j = 0; j < GW; ++j) acc[j] = wc[D::CW2 + (g0 + j) * H] * x;
-#pragma unroll 4
-      for (int h = 1; h < H; ++h) {
-        x = tanhf(col[(L::R_BASE + h) * LD9] + (C > 0 ? wm[h * J] + wj[h * J] : wm[h * J]));
-#pragma unroll
-        for (int j = 0; j < GW; ++j) acc[j] = acc[j] + wc[D::CW2 + (g0 + j) * H + h] * x;
-      }
-#pragma unroll
-      for (int j = 0; j < GW; ++j)
-        col[(L::R_CAND + cc * H + g0 + j) * LD9] = tanhf(acc[j] + wc[D::CB2 + g0 + j]);
+    for (int e = tid; e < ng * H * TS9; e += THREADS9) {
+      const int cc = e / (H * TS9), h = (e / TS9) % H, s = e % TS9;
+      const int cand = c0 + cc, m = cand / CX, jc = cand % CX;
+      const float wm = wc[CN::W1T + (D::AO + i * K + m) * WS9 + h];
+      const float dc = C > 0 ? wm + wc[CN::W1T + (D::AO + i * K + MW + jc) * WS9 + h] : wm;
+      tile[(L::R_C1 + cc * H + h) * LD9 + s] = tanhf(tile[(L::R_BASE + h) * LD9 + s] + dc);
     }
     __syncthreads();
-    if (warp < ng)
-      smem[L::S_QC + (c0 + warp) * TS9 + s] = critic_out<D>(wc, col + (L::R_CAND + warp * H) * LD9);
+#pragma unroll 1
+    for (int cc = 0; cc < ng; ++cc) {
+      float acc[2][4];
+      dense_tile<H, WS9>(wc + CN::W2T, tile + (L::R_C1 + cc * H) * LD9, t, acc);
+      store_tanh(acc, wc + CN::B2, tile + (L::R_C2 + cc * H) * LD9, t);
+    }
+    __syncthreads();
+    for (int e = tid; e < ng * TS9; e += THREADS9) {
+      const int cc = e / TS9, s = e - cc * TS9;
+      smem[L::S_QC + (c0 + cc) * TS9 + s] =
+          net_out(wc + CN::W3, tile + (L::R_C2 + cc * H) * LD9 + s);
+    }
     __syncthreads();
   }
 
   // ---- actor: forward, expected-Q and entropy gradient, backward ----
-  for (int r = warp; r < D::OW; r += WARPS9) col[(L::R_X + r) * LD9] = rb[i * D::OW + r];
+  load_rows<D::OW>(rows, D::RW, i * D::OW, b0, batch, tile + L::R_X * LD9);
   __syncthreads();
   {
-    float acc[GW];
-    dense_units<D::OW>(wa + D::Actor::W1, col + L::R_X * LD9, g0, acc);
-#pragma unroll
-    for (int j = 0; j < GW; ++j)
-      col[(L::R_H1 + g0 + j) * LD9] = tanhf(acc[j] + wa[D::Actor::B1 + g0 + j]);
+    float acc[2][4];
+    dense_tile<D::OW, WS9>(wa + AN::W1T, tile + L::R_X * LD9, t, acc);
+    store_tanh(acc, wa + AN::B1, tile + L::R_H1 * LD9, t);
   }
   __syncthreads();
   {
-    float acc[GW];
-    dense_units<H>(wa + D::Actor::W2, col + L::R_H1 * LD9, g0, acc);
-#pragma unroll
-    for (int j = 0; j < GW; ++j)
-      col[(L::R_H2 + g0 + j) * LD9] = tanhf(acc[j] + wa[D::Actor::B2 + g0 + j]);
+    float acc[2][4];
+    dense_tile<H, WS9>(wa + AN::W2T, tile + L::R_H1 * LD9, t, acc);
+    store_tanh(acc, wa + AN::B2, tile + L::R_H2 * LD9, t);
   }
   __syncthreads();
-  for (int c = warp; c < K; c += WARPS9) {  // logit c, summed over the units in order
-    const float* w3 = wa + D::Actor::W3 + c * H;
-    float z = w3[0] * col[L::R_H2 * LD9];
-    for (int g = 1; g < H; ++g) z = z + w3[g] * col[(L::R_H2 + g) * LD9];
-    smem[L::S_Z + c * TS9 + s] = z + wa[D::Actor::B3 + c];
+  for (int e = tid; e < K * TS9; e += THREADS9) {   // logit c, summed over the units in order
+    const int c = e / TS9, s = e - c * TS9;
+    const float* w3 = wa + AN::W3 + c * H;
+    const float* x = tile + L::R_H2 * LD9 + s;
+    float z = w3[0] * x[0];
+#pragma unroll 16
+    for (int g = 1; g < H; ++g) z = z + w3[g] * x[g * LD9];
+    smem[L::S_Z + e] = z + wa[AN::B3 + c];
   }
   __syncthreads();
-  if (tid < TS9) {                          // warp 0: _softmax_eps per head, E, the gradients
+  if (tid < TS9) {                          // _softmax_eps per head, E, the gradients
+    const int s = tid;
+    const bool valid = b0 + s < batch;
     float p[K], sv[K];
     const float ent = softmax_eps<0, MW, K>(smem + L::S_Z + s, p, sv) +
                       (C > 0 ? softmax_eps<MW, C, K>(smem + L::S_Z + s, p, sv) : 0.0f);
@@ -648,41 +860,42 @@ maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict_
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       const float sps = c < MW ? sps_m : sps_c;
-      col[(L::R_G3 + c) * LD9] =
+      tile[(L::R_G3 + c) * LD9 + s] =
           valid ? (-(p[c] * (qbar[c] - eq)) + (k.ent_coef * p[c]) * (sv[c] - sps)) * k.inv
                 : 0.0f;
     }
     smem[L::S_MS + 2 * TS9 + s] = valid ? eq + k.ent_coef * ent : 0.0f;
   }
   __syncthreads();
+  {
+    float acc[2][4];                          // gh2 = (w3^T gz) (1 - h2^2), over c in order
+    dense_tile<K, H>(wa + AN::W3, tile + L::R_G3 * LD9, t, acc);
 #pragma unroll
-  for (int j = 0; j < GW; ++j) {            // gh2 = (w3^T gz) (1 - h2^2)
-    const int g = g0 + j;
-    float sg = wa[D::Actor::W3 + g] * col[L::R_G3 * LD9];
+    for (int q = 0; q < 2; ++q)
 #pragma unroll
-    for (int c = 1; c < K; ++c) sg = sg + wa[D::Actor::W3 + c * H + g] * col[(L::R_G3 + c) * LD9];
-    const float h2 = col[(L::R_H2 + g) * LD9];
-    col[(L::R_GH2 + g) * LD9] = sg * (1.0f - h2 * h2);
+      for (int u = 0; u < 4; ++u) {
+        const int g = t.g0 + u, s = t.s + q * SO9;
+        const float h2 = tile[(L::R_H2 + g) * LD9 + s];
+        tile[(L::R_GH2 + g) * LD9 + s] = acc[q][u] * (1.0f - h2 * h2);
+      }
   }
   __syncthreads();
   {
-    float acc[GW];
-    const float gh2 = col[L::R_GH2 * LD9];
+    float acc[2][4];
+    dense_rows(wa + AN::W2T, tile + L::R_GH2 * LD9, t, acc);
 #pragma unroll
-    for (int j = 0; j < GW; ++j) acc[j] = wa[D::Actor::W2 + g0 + j] * gh2;
-    for (int g = 1; g < H; ++g) {
-      const float x = col[(L::R_GH2 + g) * LD9];
+    for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int j = 0; j < GW; ++j) acc[j] = acc[j] + wa[D::Actor::W2 + g * H + g0 + j] * x;
-    }
-#pragma unroll
-    for (int j = 0; j < GW; ++j) {
-      const float h1 = col[(L::R_H1 + g0 + j) * LD9];
-      col[(L::R_GH1 + g0 + j) * LD9] = acc[j] * (1.0f - h1 * h1);
-    }
+      for (int u = 0; u < 4; ++u) {
+        const int h = (t.g0 >> 2) + 16 * u, s = t.s + q * SO9;
+        const float h1 = tile[(L::R_H1 + h) * LD9 + s];
+        tile[(L::R_GH1 + h) * LD9 + s] = acc[q][u] * (1.0f - h1 * h1);
+      }
   }
   __syncthreads();
-  weight_grads<L, D::OW, K>(tile, L::R_X, part + D::G_ACTOR);
+  weight_grads<H, D::OW>(tile, L::R_GH1, L::R_X, part + D::G_ACTOR + D::Actor::W1);
+  weight_grads<H, H>(tile, L::R_GH2, L::R_H1, part + D::G_ACTOR + D::Actor::W2);
+  weight_grads<K, H>(tile, L::R_G3, L::R_H2, part + D::G_ACTOR + D::Actor::W3);
 
   // metric sums over the tile's samples, in order
   if (tid < 3) {
@@ -692,16 +905,46 @@ maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict_
   }
 }
 
-// out[a][e] = sum over tiles t = 0, 1, ... of partials[a][t][e]
+// The gradient in the parameters' layout, grads [A NWP + A NCP]: the actors
+// [A][NWP], then the critics [A][NCP], each entry summed over the tiles in order,
+// the padding 0; metrics [3] = (critic loss, actor loss, Q mean): each term
+// summed over an agent's tiles, the agents in order, times inv, the actor
+// objective negated
 template <class D>
-__global__ void maddpg_reduce_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                     int n_tiles) {
+__global__ void maddpg_reduce_kernel(const float* __restrict__ partials, float* __restrict__ grads,
+                                     float* __restrict__ metrics, int n_tiles, float inv) {
+  constexpr int NA = D::A * D::NWP, NT = NA + D::A * D::NCP;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= D::A * D::NG) return;
-  const int a = idx / D::NG, e = idx - a * D::NG;
-  float total = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) total = total + partials[((size_t)a * n_tiles + t) * D::NG + e];
-  out[idx] = total;
+  if (idx < NT) {
+    int a, e;
+    if (idx < NA) {
+      a = idx / D::NWP;
+      e = idx - a * D::NWP;
+      e = e < D::NW ? D::G_ACTOR + e : -1;
+    } else {
+      a = (idx - NA) / D::NCP;
+      e = idx - NA - a * D::NCP;
+      e = e < D::NC ? D::G_CRITIC + e : -1;
+    }
+    float total = 0.0f;
+    if (e >= 0) {
+      const float* p = partials + (size_t)a * n_tiles * D::NG + e;
+#pragma unroll 8
+      for (int t = 0; t < n_tiles; ++t) total = total + p[(size_t)t * D::NG];
+    }
+    grads[idx] = total;
+  } else if (idx < NT + 3) {
+    const int m = idx - NT, term = m == 0 ? 0 : m == 1 ? 2 : 1;
+    float sum = 0.0f;
+    for (int a = 0; a < D::A; ++a) {
+      float ta = 0.0f;
+      const float* p = partials + (size_t)a * n_tiles * D::NG + D::G_MS + term;
+#pragma unroll 8
+      for (int t = 0; t < n_tiles; ++t) ta = ta + p[(size_t)t * D::NG];
+      sum = a == 0 ? ta : sum + ta;
+    }
+    metrics[m] = m == 1 ? -sum * inv : sum * inv;
+  }
 }
 
 template <class S>
@@ -723,26 +966,32 @@ int launch_traj(const void* params, const float* weights, float* obs, float* act
 
 template <class D>
 int launch_update(const float* weights, const float* rows, int* act2, float* y, float* partials,
-                  float* out, int batch, float gamma, float ent_coef, float inv,
+                  float* grads, float* metrics, int batch, float gamma, float ent_coef, float inv,
                   cudaStream_t stream) {
-  static_assert(Layout9<D>::SMEM <= SMEM_MAX && TdLayout<D>::SMEM <= SMEM_MAX,
+  static_assert(Layout9<D>::SMEM <= SMEM_MAX && TdLayout<D>::SMEM <= SMEM_MAX &&
+                    TaLayout<D>::SMEM <= SMEM_MAX,
                 "a K9 CTA exceeds the shared memory of an SM");
+  static_assert(D::OFF_C % 4 == 0 && D::NWP % 4 == 0, "the nets' blocks stay 16-byte aligned");
   // once per instantiation: the attributes hold for the process
   static const cudaError_t attr = [] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        maddpg_td_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TdLayout<D>::SMEM);
+    cudaError_t e = cudaFuncSetAttribute(maddpg_target_actions_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)TaLayout<D>::SMEM);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(maddpg_td_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TdLayout<D>::SMEM);
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(maddpg_update_kernel<D>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)Layout9<D>::SMEM);
   }();
   if (attr != cudaSuccess) return (int)attr;
-  maddpg_target_actions_kernel<D><<<(D::A * batch + 127) / 128, 128, 0, stream>>>(
-      weights, rows, act2, batch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   const int n_tiles = (batch + TS9 - 1) / TS9;
   const dim3 grid(n_tiles, D::A);
+  maddpg_target_actions_kernel<D><<<grid, THREADS9, TaLayout<D>::SMEM, stream>>>(weights, rows,
+                                                                                 act2, batch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   maddpg_td_kernel<D><<<grid, THREADS9, TdLayout<D>::SMEM, stream>>>(weights, rows, act2, y,
                                                                       batch, gamma);
   err = cudaGetLastError();
@@ -752,8 +1001,9 @@ int launch_update(const float* weights, const float* rows, int* act2, float* y, 
                                                                          partials, batch, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  maddpg_reduce_kernel<D><<<(D::A * D::NG + 255) / 256, 256, 0, stream>>>(partials, out,
-                                                                          n_tiles);
+  constexpr int n_out = D::A * (D::NWP + D::NCP) + 3;
+  maddpg_reduce_kernel<D><<<(n_out + 255) / 256, 256, 0, stream>>>(partials, grads, metrics,
+                                                                   n_tiles, inv);
   return (int)cudaGetLastError();
 }
 
@@ -783,13 +1033,14 @@ int mpe_maddpg_traj(int scenario, const void* params, const float* weights, floa
 
 // K9. weights [N_WEIGHTS] (see OFF_*); rows [batch, RW]; act2 [A, NH, batch]
 // (the target actions, kept for inspection) and y [A, batch] scratch;
-// partials [A, tiles, NG] scratch; out [A, NG]
+// partials [A, tiles, NG] scratch; grads [A NWP + A NCP] (the layout of
+// weights' live nets, OFF_A..OFF_TA) and metrics [3] out
 int mpe_maddpg_update(int scenario, const float* weights, const float* rows, int* act2, float* y,
-                      float* partials, float* out, int batch, float gamma, float ent_coef,
-                      float inv, cudaStream_t stream) {
+                      float* partials, float* grads, float* metrics, int batch, float gamma,
+                      float ent_coef, float inv, cudaStream_t stream) {
 #define MPE_MADDPG_UPDATE(S)                                                                  \
-  return launch_update<DimsOf<S>>(weights, rows, act2, y, partials, out, batch, gamma, ent_coef, \
-                                  inv, stream)
+  return launch_update<DimsOf<S>>(weights, rows, act2, y, partials, grads, metrics, batch, gamma, \
+                                  ent_coef, inv, stream)
   MPE_SCENARIO_SWITCH(MPE_MADDPG_UPDATE)
 #undef MPE_MADDPG_UPDATE
 }

@@ -1,6 +1,7 @@
 // Device functions of the scenarios that the fused kernels run (mpe_kernels.cu:
 // K1, K2; mpe_trajectory.cu: K3; mpe_policy.cu: K4, K5; mpe_maddpg.cu: K8),
-// behind one interface so that a kernel is a template over the scenario:
+// behind one interface so that a kernel is a template over the scenario (K2
+// runs them through the group functions at the end of this file):
 //
 //   S::A, S::L, S::G     agents, landmarks, goal indices per lane
 //   S::C, S::CW          comm width drawn and emitted (0 without comm), its
@@ -33,8 +34,9 @@
 //     and the speed clamp v (1 + (factor - 1)). The pair list is a constexpr
 //     table in the struct, unrolled by template recursion, so each pair's
 //     entities are compile-time indices and the force accumulators stay in
-//     registers; with one lane per thread there is nothing to gather across
-//     threads, so neither a matmul nor shared memory. An immovable entity (an
+//     registers; with one lane per thread (K1, K3-K5, K8) there is nothing to
+//     gather across threads, so neither a matmul nor shared memory (K2's group
+//     functions at the end split the pairs over a warp). An immovable entity (an
 //     obstacle, an immobile agent) is never integrated, as the prep's damp = 1,
 //     dt = 0 rows leave it.
 
@@ -66,6 +68,10 @@ struct PhysParams {              // mirrored by ops/_build.py::_phys_params_type
 };
 
 struct NoDerived {};
+
+// which physics a scenario's S::physics runs (the group functions below
+// mirror each): spread_common.cuh's physics, generic_physics, pair_physics
+enum { PHYS_SPREAD = 0, PHYS_GENERIC = 1, PHYS_PAIR = 2 };
 
 template <int A, int L, int G>
 struct World {                   // one lane's state; landmarks never move
@@ -222,6 +228,11 @@ __device__ __forceinline__ float bound_penalty(float x) {
 struct SpreadScn {
   static constexpr int A = 3, L = 3, G = 0, C = 0, CW = 1, GOAL_K = 1, R = 1;
   static constexpr int OW = Obs<3, 3, 2>::W;
+  static constexpr int K = 3, PHYS = PHYS_SPREAD;   // the agent pairs of physics<A, L>
+  __host__ __device__ static constexpr int pair(int k, int side) {
+    constexpr int t[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+    return t[k][side];
+  }
   using Params = SpreadParams<A, L>;
   using W = World<A, L, G>;
   using Derived = NoDerived;
@@ -252,7 +263,7 @@ struct SpreadScn {
 // sampling, the silent mask and nothing derived, shared by the eight below
 template <int A_, int L_, int G_, int K_, int T_>
 struct PhysScn {
-  static constexpr int A = A_, L = L_, G = G_, K = K_;
+  static constexpr int A = A_, L = L_, G = G_, K = K_, PHYS = PHYS_GENERIC;
   using Params = PhysParams<A, K, T_>;
   using W = World<A, L, G>;
   using Derived = NoDerived;
@@ -508,7 +519,7 @@ struct CryptoScn : PhysScn<3, 2, 2, 0, 0> {
 // the prey's velocity or 0 for the prey].
 
 struct TagScn : PhysScn<4, 2, 0, 14, 3> {
-  static constexpr int C = 0, CW = 1, GOAL_K = 1, OW = 16, R = 4;
+  static constexpr int C = 0, CW = 1, GOAL_K = 1, OW = 16, R = 4, PHYS = PHYS_PAIR;
   __host__ __device__ static constexpr int pair(int k, int side) {
     constexpr int t[14][2] = {{0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {1, 2}, {1, 3},
                               {1, 4}, {1, 5}, {2, 3}, {2, 4}, {2, 5}, {3, 4}, {3, 5}};
@@ -567,7 +578,7 @@ struct WorldCommDerived {
 };
 
 struct WorldCommScn : PhysScn<6, 5, 0, 21, 24> {
-  static constexpr int C = 4, CW = 4, GOAL_K = 1, OW = 34, R = 6;
+  static constexpr int C = 4, CW = 4, GOAL_K = 1, OW = 34, R = 6, PHYS = PHYS_PAIR;
   static constexpr int NA = 4, NG = 2;
   using Derived = WorldCommDerived;
   __host__ __device__ static constexpr int pair(int k, int side) {
@@ -743,6 +754,324 @@ __device__ __forceinline__ void store_world(const typename S::W& w, float* __res
     vel[((S::A + j) * P + 0) * N + g] = 0.0f;
     vel[((S::A + j) * P + 1) * N + g] = 0.0f;
   }
+}
+
+// ---- group-cooperative device functions (K2) ------------------------------------
+//
+// G threads of one warp share an env lane (G = 1, 2, 4 or 8; a thread's rank
+// is its place in the group). Every thread of the group keeps the lane's world
+// (S::W), comm and derived values in registers, the same on each; what splits
+// without changing an operation's inputs or order is divided by rank:
+//   - agent i's action force (its move draws and the decode) on rank i mod G,
+//   - pair k's contact force on rank k mod G,
+//   - agent i's comm draw on rank i mod G,
+//   - the sum of agent i's obs row on rank i mod G.
+// Each result reaches the group by __shfl_sync and is added in the per-lane
+// functions' order: the forces in pair order, from the action force
+// (generic_physics, spread's physics) or from zero (pair_physics); the obs
+// total over the agents in order. So pos, vel, rew_sum and obs_sum do not
+// depend on G. Integration, derive, reward and resets run on every thread
+// of the group. The pair and obs slots read the state from a per-group copy
+// in shared memory: their entity indices differ by rank, and a run-time index
+// into the registers would move the world to local memory.
+
+// a thread's agents and pairs, fixed for the rollout (rank r owns agents r,
+// r + G, ... and pairs r, r + G, ...; a slot past the end repeats the last)
+template <class S, int G>
+struct GroupSlots {
+  static constexpr int QA = (S::A + G - 1) / G, QK = (S::K + G - 1) / G;
+  int agent[QA];
+  float accel[QA];
+  bool silent[QA];
+  int pi[QK > 0 ? QK : 1], pj[QK > 0 ? QK : 1];
+  float dmin[QK > 0 ? QK : 1];
+};
+
+// the state the group's slots read: a copy of the registers
+template <class S>
+struct GroupCopy {
+  typename S::W w;
+  float cm[S::A][S::CW];
+  typename S::Derived d;
+};
+
+// v from rank src of this thread's group (every lane of the warp takes part)
+template <int G>
+__device__ __forceinline__ float group_get(float v, int src) {
+  if constexpr (G == 1) {
+    return v;
+  } else {
+    return __shfl_sync(0xffffffffu, v, src, G);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (G > 1) __syncwarp();
+}
+
+// size_i + size_j of pair k
+template <class S, int k>
+__device__ __forceinline__ float pair_dmin(const typename S::Params& c) {
+  if constexpr (S::PHYS == PHYS_SPREAD) {
+    return c.dmin[S::pair(k, 0) * S::A + S::pair(k, 1)];
+  } else {
+    return c.dmin[k];
+  }
+}
+
+template <class S, int k>
+__device__ __forceinline__ void pair_slot(const typename S::Params& c, int kq, int& pi, int& pj,
+                                          float& dmin) {
+  if constexpr (k < S::K) {
+    if (kq == k) {
+      pi = S::pair(k, 0);
+      pj = S::pair(k, 1);
+      dmin = pair_dmin<S, k>(c);
+    }
+    pair_slot<S, k + 1>(c, kq, pi, pj, dmin);
+  }
+}
+
+template <class S>
+__device__ __forceinline__ bool silent_of(const typename S::Params& c, int i) {
+  bool s = S::silent(c, 0);
+#pragma unroll
+  for (int j = 1; j < S::A; ++j) s = (i == j) ? S::silent(c, j) : s;
+  return s;
+}
+
+template <class S, int G>
+__device__ __forceinline__ void init_slots(const typename S::Params& c, int rank,
+                                           GroupSlots<S, G>& sl) {
+  using Sl = GroupSlots<S, G>;
+#pragma unroll
+  for (int q = 0; q < Sl::QA; ++q) {
+    const int i = rank + q * G < S::A ? rank + q * G : S::A - 1;
+    sl.agent[q] = i;
+    sl.accel[q] = pick<S::A>(c.accel, i);
+    sl.silent[q] = silent_of<S>(c, i);
+  }
+#pragma unroll
+  for (int q = 0; q < Sl::QK; ++q) {
+    const int k = rank + q * G < S::K ? rank + q * G : S::K - 1;
+    pair_slot<S, 0>(c, k, sl.pi[q], sl.pj[q], sl.dmin[q]);
+  }
+}
+
+// entity e's coordinates, e at run time
+template <class S>
+__device__ __forceinline__ float ent_x_at(const typename S::W& w, int e) {
+  if (e < S::A) return w.ax[e];
+  return w.lx[e - S::A];
+}
+template <class S>
+__device__ __forceinline__ float ent_y_at(const typename S::W& w, int e) {
+  if (e < S::A) return w.ay[e];
+  return w.ly[e - S::A];
+}
+
+// the contact force of one pair on its separation: pair_forces' arithmetic
+template <class Pr>
+__device__ __forceinline__ void contact_force(const Pr& c, float dx, float dy, float dmin,
+                                              float& gx, float& gy) {
+  const float d2 = dx * dx + dy * dy;
+  const float inv = rsqrtf(fmaxf(d2, FLT_MIN));
+  const float dist = d2 * inv;
+  const float x = -(dist - dmin) / c.contact_margin;
+  const float pen = (fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)))) * c.contact_margin;
+  const float s = (c.contact_force * pen) * inv;
+  gx = s * dx;
+  gy = s * dy;
+}
+
+// pairs k.. from their ranks, added in pair order: +f to i, -f to j (agents)
+template <class S, int G, int k, int Q>
+__device__ __forceinline__ void gather_pairs(const float (&gxq)[Q], const float (&gyq)[Q],
+                                             float (&fx)[S::A], float (&fy)[S::A]) {
+  if constexpr (k < S::K) {
+    constexpr int i = S::pair(k, 0), j = S::pair(k, 1);
+    const float gx = group_get<G>(gxq[k / G], k % G);
+    const float gy = group_get<G>(gyq[k / G], k % G);
+    if constexpr (i < S::A) {
+      fx[i] = fx[i] + gx;
+      fy[i] = fy[i] + gy;
+    }
+    if constexpr (j < S::A) {
+      fx[j] = fx[j] - gx;
+      fy[j] = fy[j] - gy;
+    }
+    gather_pairs<S, G, k + 1>(gxq, gyq, fx, fy);
+  }
+}
+
+// S::physics split over the group: the action forces and the pair forces by
+// rank (the pairs read the copy wv, which holds w), then every thread
+// integrates as the scenario's physics does. Ends with the group's reads of
+// wv done.
+template <class S, int G>
+__device__ __forceinline__ void group_physics(const typename S::Params& c,
+                                              const GroupSlots<S, G>& sl, uint32_t salt,
+                                              uint32_t n, uint32_t lane,
+                                              const typename S::W& wv, typename S::W& w) {
+  using Sl = GroupSlots<S, G>;
+  constexpr int A = S::A;
+  float ux[A], uy[A];
+  {
+    float uxq[Sl::QA], uyq[Sl::QA];
+#pragma unroll
+    for (int q = 0; q < Sl::QA; ++q) {            // draw_moves' entries 1-4 of agent i
+      const int i = sl.agent[q];
+      const float m1 = hash_uniform(salt, (uint32_t)(i * MW + 1) * n + lane);
+      const float m2 = hash_uniform(salt, (uint32_t)(i * MW + 2) * n + lane);
+      const float m3 = hash_uniform(salt, (uint32_t)(i * MW + 3) * n + lane);
+      const float m4 = hash_uniform(salt, (uint32_t)(i * MW + 4) * n + lane);
+      uxq[q] = (m1 - m2) * sl.accel[q];
+      uyq[q] = (m3 - m4) * sl.accel[q];
+    }
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      ux[i] = group_get<G>(uxq[i / G], i % G);
+      uy[i] = group_get<G>(uyq[i / G], i % G);
+    }
+  }
+  float fx[A], fy[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    fx[i] = S::PHYS == PHYS_PAIR ? 0.0f : ux[i];
+    fy[i] = S::PHYS == PHYS_PAIR ? 0.0f : uy[i];
+  }
+  if constexpr (S::K > 0) {
+    float gxq[Sl::QK], gyq[Sl::QK];
+#pragma unroll
+    for (int q = 0; q < Sl::QK; ++q) {
+      const float dx = ent_x_at<S>(wv, sl.pi[q]) - ent_x_at<S>(wv, sl.pj[q]);
+      const float dy = ent_y_at<S>(wv, sl.pi[q]) - ent_y_at<S>(wv, sl.pj[q]);
+      contact_force(c, dx, dy, sl.dmin[q], gxq[q], gyq[q]);
+    }
+    gather_pairs<S, G, 0>(gxq, gyq, fx, fy);
+  }
+  group_sync<G>();
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    float nvx, nvy;
+    if constexpr (S::PHYS == PHYS_SPREAD) {       // unit mass, no clamp
+      nvx = w.vx[i] * c.keep_vel + fx[i] * c.dt;
+      nvy = w.vy[i] * c.keep_vel + fy[i] * c.dt;
+    } else if constexpr (S::PHYS == PHYS_GENERIC) {
+      if (!c.movable[i]) continue;
+      nvx = w.vx[i] * c.keep_vel + fx[i] * c.inv_mass_dt[i];
+      nvy = w.vy[i] * c.keep_vel + fy[i] * c.inv_mass_dt[i];
+    } else {                                      // pair_physics: + u, then the clamp
+      if (!c.movable[i]) continue;
+      nvx = w.vx[i] * c.keep_vel + (fx[i] + ux[i]) * c.inv_mass_dt[i];
+      nvy = w.vy[i] * c.keep_vel + (fy[i] + uy[i]) * c.inv_mass_dt[i];
+      const float s2 = nvx * nvx + nvy * nvy;
+      const float inv_s = rsqrtf(fmaxf(s2, FLT_MIN));
+      const float factor = s2 > c.max_speed2[i] ? c.max_speed[i] * inv_s : 1.0f;
+      const float scale = 1.0f + (factor - 1.0f);
+      nvx = nvx * scale;
+      nvy = nvy * scale;
+    }
+    w.vx[i] = nvx;
+    w.vy[i] = nvy;
+    w.ax[i] = w.ax[i] + nvx * c.dt;
+    w.ay[i] = w.ay[i] + nvy * c.dt;
+  }
+}
+
+// draw_comm split over the group: agent i's row drawn on its rank
+template <class S, int G>
+__device__ __forceinline__ void group_comm(const typename S::Params& c, const GroupSlots<S, G>& sl,
+                                           uint32_t salt, uint32_t n, uint32_t lane,
+                                           float (&cm)[S::A][S::CW]) {
+  using Sl = GroupSlots<S, G>;
+#pragma unroll
+  for (int i = 0; i < S::A; ++i)
+#pragma unroll
+    for (int k = 0; k < S::CW; ++k) cm[i][k] = 0.0f;
+  if constexpr (S::C > 0) {
+    float cq[Sl::QA][S::C];
+#pragma unroll
+    for (int q = 0; q < Sl::QA; ++q)
+#pragma unroll
+      for (int k = 0; k < S::C; ++k)
+        cq[q][k] = sl.silent[q] ? 0.0f
+                                : hash_uniform(salt, (uint32_t)(sl.agent[q] * S::C + k) * n + lane);
+#pragma unroll
+    for (int i = 0; i < S::A; ++i) {
+      if (S::silent(c, i)) continue;                // a zero row: nothing to bring
+#pragma unroll
+      for (int k = 0; k < S::C; ++k) cm[i][k] = group_get<G>(cq[i / G][k], i % G);
+    }
+  }
+}
+
+// S::reward on the group: simple_spread's nearest-agent distance to landmark
+// j (three square roots) on rank j mod G, the landmarks added in order as
+// spread_reward adds them; the other scenarios' rows on every rank
+template <class S, int G>
+__device__ __forceinline__ void group_reward(const typename S::Params& c, int rank,
+                                             const typename S::W& w,
+                                             const float (&cm)[S::A][S::CW],
+                                             const typename S::Derived& d, float (&r)[S::R]) {
+  if constexpr (S::PHYS == PHYS_SPREAD && G > 1) {
+    constexpr int A = S::A, L = S::L, QL = (L + G - 1) / G;
+    float djq[QL];
+#pragma unroll
+    for (int q = 0; q < QL; ++q) {
+      const int j = rank + q * G < L ? rank + q * G : L - 1;
+      const float lx = pick<L>(w.lx, j), ly = pick<L>(w.ly, j);
+      float dj = 0.0f;
+#pragma unroll
+      for (int i = 0; i < A; ++i) {
+        const float dx = w.ax[i] - lx;
+        const float dy = w.ay[i] - ly;
+        const float dist = sqrtf(dx * dx + dy * dy);
+        dj = (i == 0) ? dist : fminf(dj, dist);
+      }
+      djq[q] = dj;
+    }
+    float base = 0.0f;
+#pragma unroll
+    for (int j = 0; j < L; ++j) base = base - group_get<G>(djq[j / G], j % G);
+    float coll = 0.0f;
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+#pragma unroll
+      for (int j = i + 1; j < A; ++j) {
+        const float dx = w.ax[i] - w.ax[j];
+        const float dy = w.ay[i] - w.ay[j];
+        coll = coll + 2.0f * ((dx * dx + dy * dy < c.coll_thresh2[i * A + j]) ? 1.0f : 0.0f);
+      }
+    }
+    r[0] = (float)A * base - coll - (float)A;
+  } else {
+    S::reward(c, w, cm, d, r);
+  }
+}
+
+// the obs checksum of one step: each agent's row summed in order on its rank,
+// then the agents' sums in order
+template <class S, int G>
+__device__ __forceinline__ float group_obs_total(const GroupSlots<S, G>& sl,
+                                                 const typename S::W& wv,
+                                                 const float (&cmv)[S::A][S::CW],
+                                                 const typename S::Derived& dv) {
+  using Sl = GroupSlots<S, G>;
+  float sq[Sl::QA];
+#pragma unroll
+  for (int q = 0; q < Sl::QA; ++q) {
+    const int i = sl.agent[q];
+    float s = S::obs(i, 0, wv, cmv, dv);
+#pragma unroll
+    for (int r = 1; r < S::OW; ++r) s = s + S::obs(i, r, wv, cmv, dv);
+    sq[q] = s;
+  }
+  float total = group_get<G>(sq[0], 0);
+#pragma unroll
+  for (int i = 1; i < S::A; ++i) total = total + group_get<G>(sq[i / G], i % G);
+  return total;
 }
 
 }  // namespace

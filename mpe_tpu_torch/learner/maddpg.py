@@ -29,13 +29,14 @@ nothing waits for the device to know them.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mpe_tpu_torch._device import resolve_device
 from mpe_tpu_torch.learner._nets import dense_init
-from mpe_tpu_torch.learner.optim import adam, apply_updates, tree_map
+from mpe_tpu_torch.learner.optim import AdamState, adam, apply_updates, tree_map
 from mpe_tpu_torch.ops.fused_maddpg_update import _split_rows, head_onehots, target_indices
 
 
@@ -338,6 +339,20 @@ def _make_grads_fn(env, grad_engine: str, *, batch: int, gamma: float, ent_coef:
     return grads_fn
 
 
+class PackedState(NamedTuple):
+    """The update chunk's state in K9's layout (``ops.fused_maddpg_update.
+    PackedLayout``): ``weights`` holds params and targets, one flat buffer
+    that the chunk updates in place; each Adam state's ``mu`` and ``nu`` are
+    one-leaf trees ``{"flat": {"x": [A, stride]}}`` of the same layout."""
+    weights: torch.Tensor
+    actor_opt: AdamState
+    critic_opt: AdamState
+
+
+def _flat(x):
+    return {"flat": {"x": x}}
+
+
 def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float = 0.95,
                              tau_polyak: float = 0.05, actor_lr: float = 1e-3,
                              critic_lr: float = 1e-3, ent_coef: float = 0.01, hidden: int = 64,
@@ -353,36 +368,55 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
     ``[n_updates, batch]`` replaces the draw (the tests inject JAX's).
     ``gates`` is ``[n_updates]`` (each update's actor gate) or ``[n_updates,
     A]`` (per agent), host booleans. ``metrics`` holds the last update's
-    ``critic_loss``, ``actor_loss`` and ``q``. The JAX package's packed
-    block-diagonal state is a layout of the TPU's matrix unit: here
-    ``pack_state`` and ``unpack_state`` are identities, ``actor_of`` takes
-    the actor, and ``packed_step(state, buffer, key, gates)`` is the same
-    chunk on a ``(params, targets, opt_states)`` state. ``update_chunk.plain``
-    is the same chunk with kernel K9's plain version."""
+    ``critic_loss``, ``actor_loss`` and ``q``.
+
+    As JAX's chunk steps Adam in its packed space, this one packs params,
+    targets and both Adam states once (``pack_state``) into K9's weight
+    buffer and moments of its layout (``PackedState``), runs every update
+    there, and unpacks once at the end (``unpack_state``): kernel K9 reads
+    the buffer and writes the gradient into one flat buffer, Adam
+    (``optim.adam``'s arithmetic on the flat moments, the shared ``count``,
+    per-agent actor gating as a row select) and Polyak update the buffer in
+    place, elementwise, so the chunk equals the tree form element for
+    element (the padding keeps a zero gradient and stays 0).
+    ``packed_step(state, buffer, key, gates, indices=None) -> (state,
+    metrics)`` is the chunk on a packed state, ``actor_of(state)`` its
+    actors as a tree; ``update_chunk.plain`` is the chunk in tree form with
+    kernel K9's plain version."""
+    from mpe_tpu_torch.ops.fused_maddpg_update import (MaddpgUpdateLauncher, PackedLayout,
+                                                       _net_buffer)
+
     device = resolve_device(device)
     actor_opt, critic_opt = adam(actor_lr), adam(critic_lr)
     grads_fn = _make_grads_fn(env, grad_engine, batch=batch, gamma=gamma, ent_coef=ent_coef,
                               hidden=hidden, device=device, dtype=dtype)
+    _, obs_dim, aw, mw, _ = _dims(env)
+    a = env.n_agents
+    layout = PackedLayout(a, obs_dim, aw, hidden)
+    launcher = {}                                  # K9, built at the first packed update
+
+    def chunk_rows(buffer, key, gates, indices):
+        """-> (rows [n_updates, batch, W], gates as a bool array)."""
+        gates = np.asarray(gates.cpu() if isinstance(gates, torch.Tensor) else gates, dtype=bool)
+        if gates.shape[:1] != (n_updates,):
+            raise ValueError(f"gates has shape {gates.shape}, expected ({n_updates},) or "
+                             f"({n_updates}, A)")
+        dev = buffer.data.device
+        if indices is None:
+            gen = torch.Generator(device=dev).manual_seed(int(key))
+            indices = torch.randint(0, max(buffer.size, 1), (n_updates, batch), generator=gen,
+                                    device=dev)
+        elif not isinstance(indices, torch.Tensor):
+            indices = torch.tensor(np.asarray(indices), dtype=torch.int64)
+        indices = indices.to(dev)
+        if tuple(indices.shape) != (n_updates, batch):
+            raise ValueError(f"indices has shape {tuple(indices.shape)}, expected "
+                             f"{(n_updates, batch)}")
+        return buffer.data[indices.reshape(-1)].reshape(n_updates, batch, -1), gates
 
     def chunk_with(grads):
         def update_chunk(params, targets, opt_states, buffer: Buffer, key, gates, indices=None):
-            gates = np.asarray(gates.cpu() if isinstance(gates, torch.Tensor) else gates,
-                               dtype=bool)
-            if gates.shape[:1] != (n_updates,):
-                raise ValueError(f"gates has shape {gates.shape}, expected ({n_updates},) or "
-                                 f"({n_updates}, A)")
-            dev = buffer.data.device
-            if indices is None:
-                gen = torch.Generator(device=dev).manual_seed(int(key))
-                indices = torch.randint(0, max(buffer.size, 1), (n_updates, batch), generator=gen,
-                                        device=dev)
-            elif not isinstance(indices, torch.Tensor):
-                indices = torch.tensor(np.asarray(indices), dtype=torch.int64)
-            indices = indices.to(dev)
-            if tuple(indices.shape) != (n_updates, batch):
-                raise ValueError(f"indices has shape {tuple(indices.shape)}, expected "
-                                 f"{(n_updates, batch)}")
-            rows = buffer.data[indices.reshape(-1)].reshape(n_updates, batch, -1)
+            rows, gates = chunk_rows(buffer, key, gates, indices)
             metrics = None
             for u in range(n_updates):
                 g, (closs, aloss, qmean) = grads.from_rows(params, targets, rows[u].to(dtype))
@@ -394,17 +428,90 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
 
         return update_chunk
 
-    update_chunk = chunk_with(grads_fn)
-    update_chunk.plain = chunk_with(grads_fn.plain) if hasattr(grads_fn, "plain") else update_chunk
+    def pack_state(params, targets, opt_states) -> PackedState:
+        def moments(st, stride):
+            return st._replace(mu=_flat(_net_buffer(st.mu, stride, dtype).to(device)),
+                               nu=_flat(_net_buffer(st.nu, stride, dtype).to(device)))
 
-    def packed_step(pstate, buffer, key, gates, indices=None):
-        p, t, o, metrics = update_chunk(*pstate, buffer, key, gates, indices)
-        return (p, t, o), metrics
+        return PackedState(layout.pack(params, targets, dtype).to(device),
+                           moments(opt_states["actor"], layout.nwp),
+                           moments(opt_states["critic"], layout.ncp))
 
-    update_chunk.pack_state = lambda params, targets, opt_states: (params, targets, opt_states)
-    update_chunk.unpack_state = lambda pstate: pstate
-    update_chunk.actor_of = lambda pstate: pstate[0]["actor"]
+    def unpack_state(state: PackedState):
+        def moments(st, net):
+            return st._replace(mu=layout.tree(st.mu["flat"]["x"], net),
+                               nu=layout.tree(st.nu["flat"]["x"], net))
+
+        return (layout.unpack_nets(state.weights[:layout.off_ta]),
+                layout.unpack_nets(state.weights[layout.off_ta:]),
+                {"actor": moments(state.actor_opt, "actor"),
+                 "critic": moments(state.critic_opt, "critic")})
+
+    def k9_launcher():
+        """K9 and its gradient buffer on CUDA with the engine "kernel" (built
+        once), else None: the tree gradient of the unpacked nets, packed."""
+        if device.type != "cuda" or grad_engine != "kernel" or dtype != torch.float32:
+            return None
+        if not launcher:
+            launcher["k9"] = MaddpgUpdateLauncher(a, obs_dim, aw, mw, hidden, batch, device,
+                                                  gamma=gamma, ent_coef=ent_coef)
+            launcher["grads"] = torch.empty(layout.off_ta, dtype=torch.float32, device=device)
+        return launcher["k9"]
+
+    def packed_grads(k9, weights, rows_u):
+        if k9 is not None:
+            metrics = torch.empty(3, dtype=torch.float32, device=device)
+            k9.launch(weights, rows_u, launcher["grads"], metrics)
+            return launcher["grads"], (metrics[0], metrics[1], metrics[2])
+        g, m = grads_fn.from_rows(layout.unpack_nets(weights[:layout.off_ta]),
+                                  layout.unpack_nets(weights[layout.off_ta:]), rows_u)
+        return layout.pack_nets(g, dtype), m
+
+    def packed_step(state: PackedState, buffer: Buffer, key, gates, indices=None):
+        rows, gates = chunk_rows(buffer, key, gates, indices)
+        rows = rows.to(dtype)
+        w = state.weights
+        live, tgt = w[:layout.off_ta], w[layout.off_ta:]
+        actor, critic = layout.nets(live)
+        k9 = k9_launcher()
+        if k9 is not None:                                      # once per chunk
+            k9.check(w, rows[0], launcher["grads"])
+        sa, sc = state.actor_opt, state.critic_opt
+        metrics = None
+        for u in range(n_updates):
+            g, (closs, aloss, qmean) = packed_grads(k9, w, rows[u])
+            g_actor, g_critic = layout.nets(g)
+            cupd, sc = critic_opt.update(_flat(g_critic), sc)
+            critic.add_(cupd["flat"]["x"])                     # apply_updates: p + u
+            keep = _gate_agents(gates[u], a)
+            if any(keep):
+                aupd, new = actor_opt.update(_flat(g_actor), sa)
+                step = aupd["flat"]["x"]
+                if all(keep):
+                    actor.add_(step)
+                else:                                           # gated agents keep their rows
+                    rows_on = torch.tensor(keep, device=w.device)[:, None]
+                    actor.copy_(torch.where(rows_on, actor + step, actor))
+                    sel = lambda n_, o_: _flat(torch.where(rows_on, n_["flat"]["x"],
+                                                           o_["flat"]["x"]))
+                    new = new._replace(mu=sel(new.mu, sa.mu), nu=sel(new.nu, sa.nu))
+                sa = new
+            tgt.mul_(1 - tau_polyak).add_(live * tau_polyak)   # (1 - tau) t + tau p
+            metrics = {"critic_loss": closs, "actor_loss": aloss, "q": qmean}
+        return PackedState(w, sa, sc), metrics
+
+    def update_chunk(params, targets, opt_states, buffer: Buffer, key, gates, indices=None):
+        state, metrics = packed_step(pack_state(params, targets, opt_states), buffer, key, gates,
+                                     indices)
+        return (*unpack_state(state), metrics)
+
+    update_chunk.plain = chunk_with(getattr(grads_fn, "plain", grads_fn))
+    update_chunk.pack_state = pack_state
+    update_chunk.unpack_state = unpack_state
+    update_chunk.actor_of = lambda state: layout.unpack_nets(
+        state.weights[:layout.off_ta])["actor"]
     update_chunk.packed_step = packed_step
+    update_chunk.layout = layout
     update_chunk.n_updates = n_updates
     update_chunk.grads_fn = grads_fn
     update_chunk.init_opt = lambda params: {"actor": actor_opt.init(params["actor"]),

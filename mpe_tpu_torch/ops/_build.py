@@ -86,7 +86,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 SIGNATURES = {
     "mpe_kernels.cu": {
         "mpe_det_rollout": [_I] + [_P] * 10 + [_I] * 3 + [_P],
-        "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _P],
+        "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _I, _P],
     },
     "mpe_policy.cu": {
         "mpe_policy_traj": [_I] + [_P] * 7 + [_I] * 5 + [_U, _U, _P],
@@ -99,7 +99,7 @@ SIGNATURES = {
     },
     "mpe_maddpg.cu": {
         "mpe_maddpg_traj": [_I] + [_P] * 7 + [_I] * 5 + [_F, _U, _U, _P],
-        "mpe_maddpg_update": [_I] + [_P] * 6 + [_I] + [_F] * 3 + [_P],
+        "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],
         "mpe_maddpg_update_layout": [_I, _I],
     },
     "mpe_trajectory.cu": {

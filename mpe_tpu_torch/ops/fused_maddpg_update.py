@@ -32,12 +32,14 @@ hand-derived one of the JAX kernel, pinned to autograd of the same losses
 The TPU kernel's packed block-diagonal weights (``_tile_groups``,
 ``pack_params``, the grad masks, ``_cpad``) and its lane-concatenated
 candidate groups are layouts of the TPU's matrix unit and have no
-counterpart: the port keeps the params' own layout. On a CUDA device
-``from_rows`` launches ``maddpg_target_actions_kernel``,
-``maddpg_td_kernel``, ``maddpg_update_kernel`` and ``maddpg_reduce_kernel``
-(``csrc/mpe_maddpg.cu``, float32, hidden 64), instantiated for the scenario
-whose widths the params have; on the CPU it runs ``plain_maddpg_update`` in
-``dtype``. The target actors sum each layer in the kernel's order, so the
+counterpart: the port keeps each net's own layout, flattened agent-major
+into one buffer (``PackedLayout``). On a CUDA device ``from_rows`` launches
+``maddpg_target_actions_kernel``, ``maddpg_td_kernel``,
+``maddpg_update_kernel`` and ``maddpg_reduce_kernel`` (``csrc/mpe_maddpg.cu``,
+float32, hidden 64), instantiated for the scenario whose widths the params
+have; on the CPU it runs ``plain_maddpg_update`` in ``dtype``. The
+trainer's chunk (``learner.maddpg.build_fused_update_chunk``) keeps its
+state in that buffer and launches K9 through ``MaddpgUpdateLauncher``. The target actors sum each layer in the kernel's order, so the
 kernel and its plain version take the same target actions on the card.
 """
 
@@ -214,25 +216,78 @@ def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_c
     return {"actor": actor, "critic": critic}, metrics
 
 
-def _net_buffer(net, stride: int):
+def _net_buffer(net, stride: int, dtype=torch.float32):
     """Stacked net params -> [A, stride] kernel blocks: w1 [out, in], b1, w2,
-    b2, w3, b3 per agent, zero-padded to ``stride``."""
+    b2, w3, b3 per agent, zero-padded to ``stride``, in ``dtype``."""
     a = net["l1"]["w"].shape[0]
     parts = [x for q in ("l1", "l2", "out")
              for x in (net[q]["w"].detach().transpose(1, 2).reshape(a, -1), net[q]["b"].detach())]
     n = sum(x.shape[1] for x in parts)
     parts.append(parts[0].new_zeros((a, stride - n)))
-    return torch.cat(parts, dim=1).to(torch.float32)
+    return torch.cat(parts, dim=1).to(dtype)
 
 
-def _net_grads(buf, n_in: int, n_out: int):
-    """[A, n] kernel-layout gradient blocks -> {l1, l2, out: {w [A, in, out], b}}."""
+def _net_grads(buf, n_in: int, n_out: int, hidden: int = HIDDEN):
+    """[A, >= n] kernel-layout blocks -> {l1, l2, out: {w [A, in, out], b}}
+    (views of ``buf``)."""
     a = buf.shape[0]
-    sizes = [HIDDEN * n_in, HIDDEN, HIDDEN * HIDDEN, HIDDEN, n_out * HIDDEN, n_out]
-    w1, b1, w2, b2, w3, b3 = torch.split(buf, sizes, dim=1)
-    return {"l1": {"w": w1.reshape(a, HIDDEN, n_in).transpose(1, 2), "b": b1},
-            "l2": {"w": w2.reshape(a, HIDDEN, HIDDEN).transpose(1, 2), "b": b2},
-            "out": {"w": w3.reshape(a, n_out, HIDDEN).transpose(1, 2), "b": b3}}
+    sizes = [hidden * n_in, hidden, hidden * hidden, hidden, n_out * hidden, n_out]
+    w1, b1, w2, b2, w3, b3 = torch.split(buf[:, :sum(sizes)], sizes, dim=1)
+    return {"l1": {"w": w1.reshape(a, hidden, n_in).transpose(1, 2), "b": b1},
+            "l2": {"w": w2.reshape(a, hidden, hidden).transpose(1, 2), "b": b2},
+            "out": {"w": w3.reshape(a, n_out, hidden).transpose(1, 2), "b": b3}}
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+class PackedLayout:
+    """K9's weight buffer (``MaddpgDims`` in ``csrc/mpe_maddpg.cu``): the
+    actors ``[A, NWP]``, the critics ``[A, NCP]``, then the target actors
+    and target critics, agent-major, each net in the kernel layout (w1 [out,
+    in], b1, w2, b2, w3, b3) zero-padded to a 16-byte stride. The live nets
+    (``[:off_ta]``) are also the layout of K9's gradient and of the packed
+    Adam moments, so that Adam and Polyak run on whole flat buffers."""
+
+    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN):
+        a, h = n_agents, hidden
+        self.a, self.o, self.k, self.hidden = a, obs_dim, act_dim, h
+        self.j = a * (obs_dim + act_dim)
+        self.nw = h * obs_dim + h + h * h + h + act_dim * h + act_dim
+        self.nc = h * self.j + h + h * h + h + h + 1
+        self.nwp, self.ncp = _round4(self.nw), _round4(self.nc)
+        self.off_c = a * self.nwp
+        self.off_ta = self.off_c + a * self.ncp
+        self.n_weights = 2 * self.off_ta
+
+    def nets(self, flat):
+        """A flat live block [off_ta] (params, gradient or moments) ->
+        (actors [A, NWP], critics [A, NCP]), views."""
+        return (flat[:self.off_c].view(self.a, self.nwp),
+                flat[self.off_c:self.off_ta].view(self.a, self.ncp))
+
+    def pack_nets(self, tree, dtype):
+        """``{"actor", "critic"}`` trees -> a new flat live block [off_ta]."""
+        return torch.cat([_net_buffer(tree["actor"], self.nwp, dtype).reshape(-1),
+                          _net_buffer(tree["critic"], self.ncp, dtype).reshape(-1)])
+
+    def tree(self, block, net: str):
+        """An ``[A, stride]`` block of the actors or the critics -> its
+        ``{l1, l2, out: {w, b}}`` tree of new contiguous tensors."""
+        n_in, n_out = (self.o, self.k) if net == "actor" else (self.j, 1)
+        return {q: {w: x.contiguous().clone() for w, x in layer.items()}
+                for q, layer in _net_grads(block, n_in, n_out, self.hidden).items()}
+
+    def unpack_nets(self, flat):
+        """A flat live block -> ``{"actor", "critic"}`` trees of new
+        contiguous tensors."""
+        actor, critic = self.nets(flat)
+        return {"actor": self.tree(actor, "actor"), "critic": self.tree(critic, "critic")}
+
+    def pack(self, params, targets, dtype=torch.float32):
+        """params and targets -> K9's weight buffer [n_weights]."""
+        return torch.cat([self.pack_nets(params, dtype), self.pack_nets(targets, dtype)])
 
 
 @functools.cache
@@ -260,77 +315,116 @@ def _update_layout(scenario: int):
     return tuple(lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
 
 
+class MaddpgUpdateLauncher:
+    """Kernel K9 on one device for one scenario's widths and one batch size,
+    its arguments checked once: ``launch(weights, rows_b, grads, metrics,
+    target_actions=None)`` takes K9's weight buffer (``PackedLayout``),
+    replay rows ``[B, W]`` and writes the gradient ``[off_ta]`` (the live
+    nets' layout, the padding 0) and ``metrics [3]`` (critic loss, actor
+    loss, Q mean), all float32 on the device, with nothing checked or
+    computed per call. Counts launches in ``maddpg_update_cuda.launches``
+    and ``.launches_by``."""
+
+    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, mw: int, hidden: int,
+                 batch: int, device, *, gamma: float, ent_coef: float):
+        from mpe_tpu_torch.ops import _build
+
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"the MADDPG update kernel needs a CUDA device, got {device}")
+        if device.index is None:                   # as tensors made on it report it
+            device = torch.device("cuda", torch.cuda.current_device())
+        kscn = kernel_scenario_of(n_agents, obs_dim, act_dim - mw)
+        if kscn is None or hidden != HIDDEN or act_dim < mw or batch < 1:
+            raise NotImplementedError(
+                f"no MADDPG update kernel for {n_agents} agents' {obs_dim}-{hidden}-{hidden}-"
+                f"{act_dim} actors with {mw} moves at batch {batch}: the kernel is built for the "
+                f"nine scenarios' widths, hidden {HIDDEN}")
+        self.layout = PackedLayout(n_agents, obs_dim, act_dim, hidden)
+        self.scenario = _build.SCENARIO_IDS[type(kscn).__name__]
+        self.name = kscn.spec.name
+        lay = self.layout
+        nwp, ncp, n_weights, ng, ts = _update_layout(self.scenario)
+        if (nwp, ncp, n_weights, ng) != (lay.nwp, lay.ncp, lay.n_weights, lay.nw + lay.nc + 3):
+            raise RuntimeError("csrc/mpe_maddpg.cu and ops/fused_maddpg_update.py disagree on "
+                               "K9's layout")
+        self.device, self.batch = device, batch
+        self.nh = 2 if act_dim > mw else 1
+        self.width = n_agents * (2 * obs_dim + act_dim + 1)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.act2 = torch.empty((n_agents, self.nh, batch), dtype=torch.int32, device=device)
+        self.y = torch.empty((n_agents, batch), **f32)
+        self.partials = torch.empty(n_agents * (-(-batch // ts)) * ng, **f32)
+        self.consts = (float(gamma), float(ent_coef), 1.0 / float(n_agents * batch))
+        self.fn = _build.library("mpe_maddpg.cu").mpe_maddpg_update
+
+    def check(self, weights, rows, grads=None, metrics=None):
+        """Raise unless the buffers are what ``launch`` takes."""
+        want = ((weights, (self.layout.n_weights,)), (rows, (self.batch, self.width)),
+                (grads, (self.layout.off_ta,)), (metrics, (3,)))
+        for x, shape in want:
+            if x is None:
+                continue
+            if (x.dtype != torch.float32 or x.device != self.device or not x.is_contiguous()
+                    or tuple(x.shape) != shape):
+                raise ValueError(f"K9 takes contiguous float32 {shape} buffers on "
+                                 f"{self.device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+    def launch(self, weights, rows, grads, metrics, target_actions=None):
+        act2 = self.act2 if target_actions is None else target_actions
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = self.fn(self.scenario, weights.data_ptr(), rows.data_ptr(), act2.data_ptr(),
+                         self.y.data_ptr(), self.partials.data_ptr(), grads.data_ptr(),
+                         metrics.data_ptr(), self.batch, *self.consts, stream)
+        if rc != 0:
+            from mpe_tpu_torch.ops import _build
+
+            raise RuntimeError(f"maddpg_update_kernel launch failed: {_build.error_string(rc)}")
+        maddpg_update_cuda.launches += 1
+        maddpg_update_cuda.launches_by[self.name] += 1
+
+
 def maddpg_update_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_coef: float,
                        target_actions=None):
     """Launch kernel K9 on the rows' CUDA device: the outputs of
-    ``plain_maddpg_update`` in float32. ``target_actions``, an int32 ``[A,
+    ``plain_maddpg_update`` in float32, from trees (packed here, each call;
+    the trainer's chunk keeps its state packed and calls
+    ``MaddpgUpdateLauncher`` itself). ``target_actions``, an int32 ``[A,
     heads, B]`` tensor on the device (heads 2 with a comm head, else 1),
     receives the target actions the kernel took. Counts launches in
     ``.launches`` and, by scenario name, in ``.launches_by``."""
-    from mpe_tpu_torch.ops import _build
-
     device = rows_b.device
     if device.type != "cuda":
         raise ValueError(f"maddpg_update_cuda needs CUDA tensors, got {device}")
     a, o, h = params["actor"]["l1"]["w"].shape
     k = params["actor"]["out"]["w"].shape[-1]
-    kscn = kernel_scenario_of(a, o, k - mw)
-    if kscn is None or h != HIDDEN or k < mw:
-        raise NotImplementedError(f"no MADDPG update kernel for {a} agents' {o}-{h}-{h}-{k} "
-                                  f"actors with {mw} moves: the kernel is built for the nine "
-                                  f"scenarios' widths, hidden {HIDDEN}")
-    j = a * (o + k)
-    nh = 2 if k > mw else 1
-    batch = rows_b.shape[0]
-    width = a * (2 * o + k + 1)
-    if rows_b.dtype != torch.float32 or not rows_b.is_contiguous() or rows_b.dim() != 2:
+    if rows_b.dim() != 2:
         raise ValueError(f"rows_b must be a contiguous 2-D float32 tensor on {device}")
-    if rows_b.shape[1] != width or batch < 1:
-        raise ValueError(f"rows_b has shape {tuple(rows_b.shape)}, expected (B, {width})")
+    launcher = MaddpgUpdateLauncher(a, o, k, mw, h, rows_b.shape[0], device, gamma=gamma,
+                                    ent_coef=ent_coef)
+    lay = launcher.layout
     want = {"actor": {"l1": (a, o, h), "l2": (a, h, h), "out": (a, h, k)},
-            "critic": {"l1": (a, j, h), "l2": (a, h, h), "out": (a, h, 1)}}
+            "critic": {"l1": (a, lay.j, h), "l2": (a, h, h), "out": (a, h, 1)}}
     for tree in (params, targets):
         got = {n: {q: tuple(tree[n][q]["w"].shape) for q in want[n]} for n in want}
         if got != want:
             raise ValueError(f"the MADDPG update kernel takes {a} agents' {o}-{h}-{h}-{k} "
-                             f"actors and {j}-{h}-{h}-1 critics; got weight shapes {got}")
-    scenario = _build.SCENARIO_IDS[type(kscn).__name__]
-    lib = _build.library("mpe_maddpg.cu")
-    nwp, ncp, n_weights, ng, ts = _update_layout(scenario)
-    nw, nc = h * o + h + h * h + h + k * h + k, h * j + h + h * h + h + h + 1
-    if ng != nw + nc + 3:
-        raise RuntimeError("csrc/mpe_maddpg.cu and ops/fused_maddpg_update.py disagree on the "
-                           "layout")
-    wbuf = torch.cat([_net_buffer(params["actor"], nwp).reshape(-1),
-                      _net_buffer(params["critic"], ncp).reshape(-1),
-                      _net_buffer(targets["actor"], nwp).reshape(-1),
-                      _net_buffer(targets["critic"], ncp).reshape(-1)]).to(device).contiguous()
-    if wbuf.numel() != n_weights:
-        raise RuntimeError(f"weight buffer of {wbuf.numel()} floats, the kernel reads {n_weights}")
-    if target_actions is None:
-        target_actions = torch.empty((a, nh, batch), dtype=torch.int32, device=device)
-    elif (target_actions.dtype != torch.int32 or tuple(target_actions.shape) != (a, nh, batch)
-          or target_actions.device != device or not target_actions.is_contiguous()):
-        raise ValueError(f"target_actions must be a contiguous int32 ({a}, {nh}, {batch}) tensor "
-                         f"on {device}")
-    n_tiles = -(-batch // ts)
-    y = torch.empty((a, batch), dtype=torch.float32, device=device)
-    partials = torch.empty(a * n_tiles * ng, dtype=torch.float32, device=device)
-    out = torch.empty((a, ng), dtype=torch.float32, device=device)
-    inv = 1.0 / float(a * batch)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mpe_maddpg_update(scenario, wbuf.data_ptr(), rows_b.data_ptr(),
-                                   target_actions.data_ptr(), y.data_ptr(), partials.data_ptr(),
-                                   out.data_ptr(), batch, float(gamma), float(ent_coef), inv,
-                                   stream)
-    if rc != 0:
-        raise RuntimeError(f"maddpg_update_kernel launch failed: {_build.error_string(rc)}")
-    maddpg_update_cuda.launches += 1
-    maddpg_update_cuda.launches_by[kscn.spec.name] += 1
-    grads = {"actor": _net_grads(out[:, :nw], o, k), "critic": _net_grads(out[:, nw:nw + nc], j, 1)}
-    sums = out[:, nw + nc:].sum(0)
-    return grads, (sums[0] * inv, -sums[2] * inv, sums[1] * inv)
+                             f"actors and {lay.j}-{h}-{h}-1 critics; got weight shapes {got}")
+    weights = lay.pack(params, targets).to(device)
+    grads = torch.empty(lay.off_ta, dtype=torch.float32, device=device)
+    metrics = torch.empty(3, dtype=torch.float32, device=device)
+    if target_actions is not None and (
+            target_actions.dtype != torch.int32 or not target_actions.is_contiguous()
+            or tuple(target_actions.shape) != (a, launcher.nh, rows_b.shape[0])
+            or target_actions.device != device):
+        raise ValueError(f"target_actions must be a contiguous int32 ({a}, {launcher.nh}, "
+                         f"{rows_b.shape[0]}) tensor on {device}")
+    launcher.check(weights, rows_b, grads, metrics)
+    launcher.launch(weights, rows_b, grads, metrics, target_actions)
+    actor, critic = lay.nets(grads)
+    grads = {"actor": _net_grads(actor, o, k), "critic": _net_grads(critic, lay.j, 1)}
+    return grads, (metrics[0], metrics[1], metrics[2])
 
 
 maddpg_update_cuda.launches = 0

@@ -2,9 +2,10 @@
 (counterpart of ``mpe_tpu/ops/fused_rollout.py``).
 
 On a CUDA device ``fused_rollout``/``fused_spread_rollout`` launch K2
-(``csrc/mpe_kernels.cu``: ``scenario_rollout_kernel<S>``, instantiated for
-each of the nine scenarios): one thread per env lane runs the whole rollout
-with its state in registers. On the CPU they
+(``csrc/mpe_kernels.cu``: ``scenario_rollout_kernel<S, G>``, instantiated
+for each of the nine scenarios and G = 1, 2, 4, 8): a group of G threads of
+one warp runs one env lane's whole rollout with its state in registers
+(``rollout_group`` picks G). On the CPU they
 run ``plain_rollout``, the body of the JAX kernel ``_generic_rollout_kernel``
 written as a torch loop over steps.
 
@@ -271,7 +272,8 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
                   seed: int, block_offset: int = 0, device=None):
     """The JAX ``_generic_rollout_kernel`` body as a torch loop over all RNG
     blocks at once: -> (pos [E, P, N], vel, rew_sum [R, N], obs_checksum
-    [1, N]), float32, on ``device``."""
+    [1, N]), float32, on ``device``. The checksum adds each agent's obs row,
+    then the agents (K2's order; JAX adds the agents first)."""
     spec = kscn.spec
     a, e, p = spec.n_agents, spec.n_entities, spec.dim_p
     if n_envs % block_envs:
@@ -292,7 +294,7 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
         comm = sample_comm(step, 16)
         rew, obs = kscn.reward_obs(pos, vel, comm, goal)
         rew_acc = rew_acc + rew
-        obs_acc = obs_acc + obs.sum(0).sum(0, keepdim=True)
+        obs_acc = obs_acc + obs.sum(1).sum(0, keepdim=True)     # per agent, then over agents
         t = t + 1
         if horizon is not None:
             done = t >= horizon
@@ -304,11 +306,34 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
     return pos, vel, rew_acc, obs_acc
 
 
+# from this many envs up, one thread per lane gives the H100 about 4 warps per
+# SM (132 SMs x 4 warps x 32 lanes = 16,896) and K2 runs one thread per lane
+GROUP_MAX_ENVS = 16_384
+GROUPS = (1, 2, 4, 8)
+
+
+def rollout_group(kscn, n_envs: int) -> int:
+    """K2's threads per env lane, G. Below ``GROUP_MAX_ENVS`` envs, a
+    scenario with 2 collide pairs or more splits its lanes: its pairs
+    rounded up to a power of two, at most 8 (rank k owns pair k and agent
+    k): simple_spread 4, simple_tag and simple_world_comm 8. Otherwise 1:
+    where the lanes fill the card already, or where there are no pairs to
+    split, the shuffles cost more than the split saves (PERF.md §6:
+    G = 1 is the fastest there on the H100)."""
+    from mpe_tpu_torch.ops.kernel_scenarios import collide_pairs
+
+    pairs = len(tuple(collide_pairs(kscn.spec)))
+    if n_envs >= GROUP_MAX_ENVS or pairs < 2:
+        return 1
+    return min(8, 1 << (pairs - 1).bit_length())
+
+
 def rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None, block_envs: int,
-                 seed: int, block_offset: int = 0, device=None):
-    """Launch kernel K2 (``scenario_rollout_kernel<S>``, the instantiation of
-    the kernel scenario) on ``device``, a CUDA device: the outputs of
-    ``plain_rollout``. Raises on a spec outside what the instantiations
+                 seed: int, block_offset: int = 0, device=None, group: int | None = None):
+    """Launch kernel K2 (``scenario_rollout_kernel<S, G>``, the instantiation
+    of the kernel scenario) on ``device``, a CUDA device: the outputs of
+    ``plain_rollout``, which do not depend on ``group`` (G; ``None`` takes
+    ``rollout_group``). Raises on a spec outside what the instantiations
     compute (``_build.kernel_params``), a bad argument or a failed launch.
     Counts its launches in ``rollout_cuda.launches`` and, by scenario name,
     in ``rollout_cuda.launches_by``."""
@@ -322,6 +347,9 @@ def rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None, block_env
         raise ValueError(f"n_envs={n_envs} must be a positive multiple of block_envs={block_envs}")
     if n_steps < 0 or (horizon is not None and horizon < 1):
         raise ValueError(f"need n_steps >= 0 and horizon >= 1 or None, got {n_steps}, {horizon}")
+    group = rollout_group(kscn, n_envs) if group is None else group
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group}")
     spec = kscn.spec
     e, p = spec.n_entities, spec.dim_p
     f32 = torch.float32
@@ -334,7 +362,7 @@ def rollout_cuda(kscn, n_envs: int, n_steps: int, horizon: int | None, block_env
         rc = _build.library().mpe_scenario_rollout(
             scenario, ctypes.byref(params), pos.data_ptr(), vel.data_ptr(), rew.data_ptr(),
             obs_sum.data_ptr(), n_envs, block_envs, n_steps, 0 if horizon is None else horizon,
-            int(seed) & _MASK, int(block_offset) & _MASK, stream)
+            int(seed) & _MASK, int(block_offset) & _MASK, group, stream)
     if rc != 0:
         raise RuntimeError(f"rollout kernel K2 launch failed: {_build.error_string(rc)}")
     rollout_cuda.launches += 1

@@ -8,8 +8,10 @@ A stand-in ``cuda_runtime.h`` defines the few CUDA names the sources use
 ``rsqrtf`` as ``1 / sqrtf``, ``__stcs`` as a plain store, ``float4``, ``dim3``), and
 each ``kernel<<<blocks, threads, smem, stream>>>(...)`` launch runs its
 blocks one after another, each block's threads as host threads that meet at
-``__syncthreads()`` (a barrier), so a CTA's phases run in order as on the
-card; a kernel's dynamic shared memory becomes one static buffer.
+``__syncthreads()`` and ``__syncwarp()`` (a barrier of the whole block), so a
+CTA's phases run in order as on the card; ``__shfl_sync`` exchanges values
+through the same barrier; a kernel's dynamic shared memory becomes one
+static buffer.
 This checks the device functions' indexing, order of operations and RNG
 streams without a card. The arithmetic is the host's (its libm and an exact
 reciprocal square root), not the card's: trajectories' actions (raw hash
@@ -35,7 +37,7 @@ from mpe_tpu_torch.ops import _build, fused_maddpg, fused_maddpg_update, fused_u
 from mpe_tpu_torch.ops.fused_parity import make_det_inputs, plain_det_rollout_blocked
 from mpe_tpu_torch.ops.fused_policy import (_kernel_weights, _pack_weights, plain_policy_rollout,
                                             plain_policy_trajectory)
-from mpe_tpu_torch.ops.fused_rollout import plain_rollout
+from mpe_tpu_torch.ops.fused_rollout import plain_rollout, rollout_group
 from mpe_tpu_torch.ops.fused_trajectory import plain_trajectory
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
@@ -55,6 +57,7 @@ CUDA_RUNTIME = """\
 #include <condition_variable>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -101,6 +104,18 @@ struct HostBarrier {
 };
 inline HostBarrier host_barrier;
 inline void __syncthreads() { host_barrier.wait(); }
+// a warp's lanes meet at the CTA's barrier (every thread of the CTA calls it)
+inline void __syncwarp(unsigned = 0xffffffffu) { host_barrier.wait(); }
+inline unsigned long long host_lanes[1024];
+template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long), "a shuffled value fits a slot");
+  std::memcpy(&host_lanes[threadIdx.x], &v, sizeof(T));
+  host_barrier.wait();
+  T out;
+  std::memcpy(&out, &host_lanes[(threadIdx.x & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
+  host_barrier.wait();
+  return out;
+}
 template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
   host_barrier.count = threads;
   for (unsigned by = 0; by < grid.y; ++by)
@@ -171,10 +186,24 @@ ROLLOUT_CASES = ([pytest.param(name, None, id=name) for name in NAMES]
                     for name in ("simple_reference", "simple_push")])
 
 
+def _host_rollout(lib, kscn, n_envs, block_envs, n_steps, group):
+    """K2 (``mpe_scenario_rollout``) with ``group`` threads per env lane, seed
+    7, block offset 1 -> (pos, vel, rew_sum, obs_sum)."""
+    scenario, params = _build.kernel_params(kscn)
+    spec = kscn.spec
+    shapes = ((spec.n_entities, 2, n_envs),) * 2 + ((kscn.reward_rows, n_envs), (1, n_envs))
+    got = [torch.empty(s) for s in shapes]
+    rc = lib.mpe_scenario_rollout(scenario, ctypes.byref(params), *(x.data_ptr() for x in got),
+                                  n_envs, block_envs, n_steps, HORIZON, 7, 1, group, None)
+    assert rc == 0
+    return got
+
+
 @pytest.mark.parametrize("name, masses", ROLLOUT_CASES)
 def test_host_built_rollout_kernel_matches_plain(host_libs, name, masses):
     """K2 (``mpe_scenario_rollout``) over 30 steps with resets, two RNG blocks
-    at block offset 1; the obs checksum within 1e-5 of its largest."""
+    at block offset 1, with the group ``rollout_group`` picks at this size;
+    the obs checksum within 1e-5 of its largest."""
     kscn = kernel_scenario(name)
     spec = kscn.spec
     if masses is not None:
@@ -182,17 +211,30 @@ def test_host_built_rollout_kernel_matches_plain(host_libs, name, masses):
         mass[:spec.n_agents] = masses
         spec = dataclasses.replace(spec, initial_mass=mass)
         kscn = type(kscn)(spec)
-    scenario, params = _build.kernel_params(kscn)
-    shapes = ((spec.n_entities, 2, N_ENVS),) * 2 + ((kscn.reward_rows, N_ENVS), (1, N_ENVS))
-    got = [torch.empty(s) for s in shapes]
-    rc = host_libs["mpe_kernels.cu"].mpe_scenario_rollout(
-        scenario, ctypes.byref(params), *(x.data_ptr() for x in got), N_ENVS, BLOCK_ENVS, 30,
-        HORIZON, 7, 1, None)
-    assert rc == 0
+    group = rollout_group(kscn, N_ENVS)
+    assert group == {"simple_spread": 4, "simple_tag": 8, "simple_world_comm": 8}.get(name, 1)
+    got = _host_rollout(host_libs["mpe_kernels.cu"], kscn, N_ENVS, BLOCK_ENVS, 30, group)
     ref = plain_rollout(kscn, N_ENVS, 30, HORIZON, BLOCK_ENVS, 7, 1, "cpu")
     _close(got[:3], ref[:3], ("pos", "vel", "rew_sum"))
     torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-5 * float(ref[3].abs().max()),
                                msg="obs_sum")
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("name", NAMES)
+def test_host_built_grouped_rollout_equals_one_thread_per_lane(host_libs, name, group):
+    """K2 with an env lane split over ``group`` threads equals K2 with one
+    thread per lane bit for bit (pos, vel, rew_sum and the obs checksum):
+    each agent's moves and comm, each pair's force and each agent's obs sum
+    move to a rank and come back in the per-lane order. 60 envs in two RNG
+    blocks (at groups 1, 2 and 4 the last warp runs padding lanes), 25 steps
+    with resets."""
+    kscn = kernel_scenario(name)
+    lib = host_libs["mpe_kernels.cu"]
+    one = _host_rollout(lib, kscn, 60, 30, 25, 1)
+    split = _host_rollout(lib, kscn, 60, 30, 25, group)
+    for label, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), split, one):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=label)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -433,9 +475,12 @@ def test_host_built_maddpg_traj_kernel_matches_plain(host_libs, name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
-    """K9 (``mpe_maddpg_update``) on 40 random replay rows (a full and a
-    ragged tile): target actions per head equal, every gradient leaf within
-    1e-4 of its largest entry, the metrics within 1e-4 relative."""
+    """K9 (``mpe_maddpg_update``: the target actions from shared memory, the
+    TD targets, the register-tiled gradient, the reduce) on 40 random replay
+    rows (two full tiles of 16 and a ragged one), weights packed by
+    ``PackedLayout``: target actions per head equal, every gradient leaf of
+    the flat gradient within 1e-4 of its largest entry, its padding 0, the
+    metrics within 1e-4 relative."""
     kscn = kernel_scenario(name)
     scenario = _build.SCENARIO_IDS[type(kscn).__name__]
     a, o, k, mw = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits, 5
@@ -453,36 +498,31 @@ def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
                       torch.randn((batch, a), generator=gen) - 2.0,
                       torch.randn((batch, a * o), generator=gen)], 1).contiguous()
     lib = host_libs["mpe_maddpg.cu"]
+    lay = fused_maddpg_update.PackedLayout(a, o, k)
     nwp, ncp, n_weights, ng, ts = (lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
-    j = a * (o + k)
-    nw = 64 * o + 64 + 64 * 64 + 64 + k * 64 + k
-    nc = 64 * j + 64 + 64 * 64 + 64 + 64 + 1
-    assert ng == nw + nc + 3
-    buf = fused_maddpg_update._net_buffer
-    wbuf = torch.cat([buf(params["actor"], nwp).reshape(-1), buf(params["critic"], ncp).reshape(-1),
-                      buf(targets["actor"], nwp).reshape(-1),
-                      buf(targets["critic"], ncp).reshape(-1)]).contiguous()
-    assert wbuf.numel() == n_weights
+    assert (nwp, ncp, n_weights, ng, ts) == (lay.nwp, lay.ncp, lay.n_weights,
+                                             lay.nw + lay.nc + 3, 16)
+    wbuf = lay.pack(params, targets)
     n_tiles = -(-batch // ts)
     act2 = torch.empty((a, nh, batch), dtype=torch.int32)
-    y, partials, out = torch.empty((a, batch)), torch.empty(a * n_tiles * ng), torch.empty((a, ng))
-    inv = 1.0 / (a * batch)
-    _host_update(lib, "mpe_maddpg_update", scenario, wbuf, rows, act2, y, partials, out, batch,
-                 0.95, 0.01, inv, None)
+    y, partials = torch.empty((a, batch)), torch.empty(a * n_tiles * ng)
+    grads, metrics = torch.empty(lay.off_ta), torch.empty(3)
+    _host_update(lib, "mpe_maddpg_update", scenario, wbuf, rows, act2, y, partials, grads, metrics,
+                 batch, 0.95, 0.01, 1.0 / (a * batch), None)
     ref, ref_m = fused_maddpg_update.plain_maddpg_update(params, targets, rows, mw=mw, gamma=0.95,
                                                          ent_coef=0.01)
     obs2 = rows[:, a * (o + k + 1):].reshape(batch, a, o)
     want_act2 = fused_maddpg_update.target_indices(
         fused_maddpg_update.target_logits(targets["actor"], obs2), mw)
     torch.testing.assert_close(act2.long(), want_act2.permute(1, 2, 0), rtol=0, atol=0)
-    got = {"actor": fused_maddpg_update._net_grads(out[:, :nw], o, k),
-           "critic": fused_maddpg_update._net_grads(out[:, nw:nw + nc], j, 1)}
+    actor, critic = lay.nets(grads)
+    assert not actor[:, lay.nw:].any() and not critic[:, lay.nc:].any()
+    got = {"actor": fused_maddpg_update._net_grads(actor, o, k),
+           "critic": fused_maddpg_update._net_grads(critic, lay.j, 1)}
     for n in ref:
         for q in ref[n]:
             for w in ref[n][q]:
                 torch.testing.assert_close(got[n][q][w], ref[n][q][w], rtol=0,
                                            atol=1e-4 * float(ref[n][q][w].abs().max()),
                                            msg=lambda m, n=n, q=q, w=w: f"{n}.{q}.{w}: {m}")
-    sums = out[:, nw + nc:].sum(0)
-    got_m = (sums[0] * inv, -sums[2] * inv, sums[1] * inv)
-    torch.testing.assert_close(torch.stack(got_m), torch.stack(ref_m), rtol=1e-4, atol=0)
+    torch.testing.assert_close(metrics, torch.stack(ref_m), rtol=1e-4, atol=0)

@@ -22,7 +22,10 @@ gradient leaves lie within 1e-4 of each leaf's largest entry. The trajectory
 kernel K3 emits the plain version's actions exactly (raw hash draws) and its
 obs, rewards, positions and velocities within 1e-5, on all nine scenarios;
 K2 on the eight others is held as on simple_spread (simple_tag and
-simple_world_comm through the pair physics).
+simple_world_comm through the pair physics), and K2 with an env lane split
+over 2, 4 or 8 threads equals K2 with one bit for bit. The MADDPG update
+chunk on its packed state holds the tree chunk with the plain K9 within
+1e-4 of each leaf's largest entry.
 """
 
 import dataclasses
@@ -359,3 +362,36 @@ def test_maddpg_runner_runs_every_scenario(card, name):
     assert bool(torch.isfinite(info["critic_loss"]).all())
     assert bool(torch.isfinite(info["mean_reward"]).all())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_grouped_rollout_kernel_equals_one_thread_per_lane(card, name, group):
+    """K2 with an env lane split over ``group`` threads equals K2 with one
+    thread per lane bit for bit (1000 envs: the last warp runs padding lanes
+    at groups 2 and 4)."""
+    kscn = kernel_scenario(name)
+    one = fused_rollout.rollout_cuda(kscn, 1000, 30, 10, 500, 3, 1, card, group=1)
+    split = fused_rollout.rollout_cuda(kscn, 1000, 30, 10, 500, 3, 1, card, group=group)
+    for label, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), split, one):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple_spread", "simple_speaker_listener"])
+def test_packed_update_chunk_matches_tree_chunk(card, name):
+    """Five updates of the runner's chunk on its packed state (K9's launcher,
+    flat Adam and Polyak) against the tree chunk with the plain K9: params
+    within 1e-4 of each leaf's largest entry, the Adam counts equal."""
+    from mpe_tpu_torch.learner import fused_loop
+
+    run = fused_loop.build_fused_maddpg_runner(name, n_envs=64, horizon=5, batch=64)
+    params, info = run(10, seed=1, actor_start=0)
+    state = (params, info["targets"], info["opt_states"])
+    gates = fused_loop.actor_gates(2, 5, 0)
+    got = run.update_chunk(*state, info["buffer"], 3, gates)
+    ref = run.update_chunk.plain(*state, info["buffer"], 3, gates)
+    for tree_g, tree_r in zip(got[:2], ref[:2]):
+        _leaf_close(tree_g, tree_r, 1e-4, "params")
+    assert all(got[2][n].count == ref[2][n].count for n in ("actor", "critic"))

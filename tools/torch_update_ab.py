@@ -2,7 +2,7 @@
 """Time the port's update kernels of one or more checkouts on one NVIDIA
 card, one checkout after another.
 
-    python3 tools/torch_update_ab.py [--maddpg] ROOT [ROOT ...]
+    python3 tools/torch_update_ab.py [--maddpg | --rollout] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -20,13 +20,29 @@ the registers and spill bytes of each ``ppo_update_kernel`` instantiation
 from the compiler's ``-Xptxas -v`` report (empty where the kernels were
 already built).
 
-With ``--maddpg`` (K8, K9): ``build_fused_maddpg_runner("simple_spread",
-n_envs=1024, horizon=25, batch=1024)`` (tools/train_bench.py's fused_maddpg
-row) runs 40 chunks with actor_start 250, each chunk timed by CUDA events
-and split into collect and update; then ``grads_fn.from_rows`` (K9) is
-timed on 1024 rows of the final ring, the median of 20 calls after 3
-warm-ups. It prints transitions/s over chunks 1 to 39, the mean collect
-and update ms per chunk, their medians, and K9's median ms.
+With ``--maddpg`` (K8, K9): ``build_fused_maddpg_runner(name, n_envs=1024,
+horizon=25, batch=1024)`` (tools/train_bench.py's fused_maddpg row) on
+simple_spread (path d, 40 chunks), simple_speaker_listener (d2, 40) and
+simple_world_comm (d3, 8), actor_start 250, each chunk timed by CUDA
+events and split into collect and update; then one more update chunk of
+the runner's own loop (``packed_step`` on a packed state) under
+torch.profiler: K9's device time per update split by its four kernels,
+the device's busy share and the kernel launches per update; then K9 as the
+trainer calls it (``MaddpgUpdateLauncher.launch`` on the packed buffers
+where the checkout has it, else ``grads_fn.from_rows`` on trees) and
+``grads_fn.from_rows`` on 1024 rows of the final ring, each the median of
+20 calls after 3 warm-ups. Per path it prints transitions/s over the
+chunks after the first, the mean and median collect and update ms per
+chunk, and those K9 numbers.
+
+With ``--rollout`` (K2): ``fused_rollout`` on the nine scenarios at 4096
+envs x 10,000 steps (horizon 100, block_envs 1024: bench.py's headline
+shape) and on simple_spread at 16,384 and 65,536 envs, each the median of
+3 CUDA-event timed calls after one warm-up; where the checkout's K2 takes a
+group size (threads per env lane), the group ``rollout_group`` picks and
+the time at every group 1, 2, 4 and 8 too; and the registers and spill
+bytes of each ``scenario_rollout_kernel`` instantiation (empty where the
+kernels were already built).
 """
 
 from __future__ import annotations
@@ -43,13 +59,25 @@ CHUNKS, ACTOR_START = 40, 250
 WARM_UP, CALLS = 3, 20
 
 
-def registers(logs: dict) -> dict:
-    """{mangled ppo_update_kernel name: [registers, spill store bytes]}."""
+ROLLOUT = dict(n_envs=4096, n_steps=10_000, horizon=100, block_envs=1024)
+ROLLOUT_WIDE = (16_384, 65_536)
+ROLLOUT_REPEATS = 3
+SCENARIOS = ("simple_spread", "simple", "simple_reference", "simple_speaker_listener",
+             "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm")
+MADDPG_PATHS = (("simple_spread", 40), ("simple_speaker_listener", 40), ("simple_world_comm", 8))
+K9_KERNELS = ("maddpg_target_actions_kernel", "maddpg_td_kernel", "maddpg_update_kernel",
+              "maddpg_reduce_kernel")
+
+
+def registers(logs: dict, source: str = "mpe_update.cu", kernel: str = "ppo_update_kernel"
+              ) -> dict:
+    """{mangled ``kernel`` name: [registers, spill store bytes]} from the
+    compiler's report on ``source``."""
     out, current = {}, None
-    for line in logs.get("mpe_update.cu", "").splitlines():
+    for line in logs.get(source, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = m.group(1) if "ppo_update_kernel" in m.group(1) else None
+            current = m.group(1) if kernel in m.group(1) else None
             if current:
                 out[current] = [None, 0]
         elif current:
@@ -95,32 +123,130 @@ def time_ppo(result: dict, logs: dict) -> None:
     result["registers_spill_bytes"] = registers(logs)
 
 
+def profile_update_chunk(run, params, info) -> dict:
+    """One more update chunk of the runner's own loop (``packed_step`` on a
+    packed state) under torch.profiler: K9's device ms per update by kernel,
+    the device's busy share of the chunk and its kernel launches per update."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpe_tpu_torch.learner.fused_loop import actor_gates
+
+    h = MADDPG["horizon"]
+    chunk = run.update_chunk
+    gates = actor_gates(CHUNKS, h, ACTOR_START)
+    state = chunk.pack_state(params, info["targets"], info["opt_states"])
+    state, _ = chunk.packed_step(state, info["buffer"], 1, gates)        # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        chunk.packed_step(state, info["buffer"], 2, gates)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    dev = [e for e in dev if us(e) > 0]
+    if not dev:
+        return {"profiled": "not measured (no device events)"}
+    split = {k: sum(us(e) for e in dev if k in e.key) / 1e3 / h for k in K9_KERNELS}
+    busy = sum(us(e) for e in dev) / 1e3
+    return {"k9_device_ms": sum(split.values()), "k9_device_split_ms": split,
+            "chunk_event_ms": wall_ms, "device_busy_share": busy / wall_ms,
+            "launches_per_update": sum(e.count for e in dev) / h}
+
+
+def time_k9_calls(run, params, info) -> dict:
+    """K9 as the trainer calls it and ``grads_fn.from_rows`` on trees, on
+    1024 rows of the final ring, each the median of CALLS calls."""
+    import torch
+
+    buf = info["buffer"]
+    gen = torch.Generator("cuda").manual_seed(5)
+    rows = buf.data[torch.randint(0, buf.size, (MADDPG["batch"],), generator=gen,
+                                  device="cuda")].contiguous()
+    chunk = run.update_chunk
+    out = {"k9_from_rows_ms": median_ms(
+        lambda: chunk.grads_fn.from_rows(params, info["targets"], rows))}
+    if hasattr(chunk, "layout"):          # the packed chunk: K9's launcher on the flat buffers
+        from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher
+
+        lay = chunk.layout
+        k9 = MaddpgUpdateLauncher(lay.a, lay.o, lay.k, 5, lay.hidden, MADDPG["batch"], "cuda",
+                                  gamma=0.95, ent_coef=0.01)
+        weights = lay.pack(params, info["targets"]).cuda()
+        grads = torch.empty(lay.off_ta, device="cuda")
+        metrics = torch.empty(3, device="cuda")
+        out["k9_trainer_call_ms"] = median_ms(lambda: k9.launch(weights, rows, grads, metrics))
+    else:
+        out["k9_trainer_call_ms"] = out["k9_from_rows_ms"]
+    return out
+
+
 def time_maddpg(result: dict) -> None:
     import torch
 
     from mpe_tpu_torch.learner import build_fused_maddpg_runner
 
-    run = build_fused_maddpg_runner("simple_spread", **MADDPG)
-    events = []
-    params, info = run(CHUNKS * MADDPG["horizon"], seed=0, actor_start=ACTOR_START,
-                       events=events)
-    torch.cuda.synchronize()
-    chunks = [(events[2 * c][1].elapsed_time(events[2 * c + 1][1]),
-               events[2 * c + 1][1].elapsed_time(events[2 * c + 2][1])) for c in range(CHUNKS)]
-    steady = chunks[1:]                  # chunk 0 sets up the update's first allocations
-    buf = info["buffer"]
-    gen = torch.Generator("cuda").manual_seed(5)
-    rows = buf.data[torch.randint(0, buf.size, (MADDPG["batch"],), generator=gen,
-                                  device="cuda")].contiguous()
-    grads_fn = run.update_chunk.grads_fn
-    result.update(
-        transitions_per_s=run.transitions_per_chunk * len(steady)
-        / (sum(a + b for a, b in steady) * 1e-3),
-        collect_ms=sum(a for a, _ in steady) / len(steady),
-        update_ms=sum(b for _, b in steady) / len(steady),
-        collect_median_ms=statistics.median(a for a, _ in steady),
-        update_median_ms=statistics.median(b for _, b in steady),
-        k9_ms=median_ms(lambda: grads_fn.from_rows(params, info["targets"], rows)))
+    for name, n_chunks in MADDPG_PATHS:
+        run = build_fused_maddpg_runner(name, **MADDPG)
+        events = []
+        params, info = run(n_chunks * MADDPG["horizon"], seed=0, actor_start=ACTOR_START,
+                           events=events)
+        torch.cuda.synchronize()
+        chunks = [(events[2 * c][1].elapsed_time(events[2 * c + 1][1]),
+                   events[2 * c + 1][1].elapsed_time(events[2 * c + 2][1]))
+                  for c in range(n_chunks)]
+        steady = chunks[1:]              # chunk 0 sets up the update's first allocations
+        row = dict(
+            transitions_per_s=run.transitions_per_chunk * len(steady)
+            / (sum(a + b for a, b in steady) * 1e-3),
+            collect_ms=sum(a for a, _ in steady) / len(steady),
+            update_ms=sum(b for _, b in steady) / len(steady),
+            collect_median_ms=statistics.median(a for a, _ in steady),
+            update_median_ms=statistics.median(b for _, b in steady))
+        row.update(profile_update_chunk(run, params, info))
+        row.update(time_k9_calls(run, params, info))
+        result[name] = row
+        del run, info
+        torch.cuda.empty_cache()
+
+
+def time_rollout(result: dict, logs: dict) -> None:
+    import torch
+
+    from mpe_tpu_torch.ops import fused_rollout as fr
+
+    def median_of(run) -> float:
+        run(0)
+        times = []
+        for r in range(ROLLOUT_REPEATS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(r + 1)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    grouped = hasattr(fr, "rollout_group")
+    shapes = [(name, ROLLOUT["n_envs"]) for name in SCENARIOS]
+    shapes += [("simple_spread", n) for n in ROLLOUT_WIDE]
+    for name, n in shapes:
+        kw = dict(ROLLOUT, n_envs=n)
+        row = {"ms": median_of(fr.fused_rollout(name, **kw))}
+        if grouped:
+            from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+            kscn = kernel_scenario(name)
+            row["group"] = fr.rollout_group(kscn, n)
+            for g in fr.GROUPS:
+                row[f"ms_group_{g}"] = median_of(
+                    lambda seed, g=g: fr.rollout_cuda(kscn, n, kw["n_steps"], kw["horizon"],
+                                                      kw["block_envs"], seed, 0, "cuda", group=g))
+        result[f"{name}@{n}"] = row
+    result["registers_spill_bytes"] = registers(logs, "mpe_kernels.cu", "scenario_rollout_kernel")
 
 
 def child(mode: str, root: str) -> None:
@@ -135,6 +261,8 @@ def child(mode: str, root: str) -> None:
     result = {"root": root, "card": smi.splitlines()[0]}
     if mode == "maddpg":
         time_maddpg(result)
+    elif mode == "rollout":
+        time_rollout(result, logs)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -145,8 +273,8 @@ def main() -> int:
     if len(args) == 3 and args[0] == "--child":
         child(args[1], args[2])
         return 0
-    mode = "maddpg" if args[:1] == ["--maddpg"] else "ppo"
-    roots = args[1:] if mode == "maddpg" else args
+    mode = {"--maddpg": "maddpg", "--rollout": "rollout"}.get(args[0] if args else "", "ppo")
+    roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
         print(__doc__, file=sys.stderr)
         return 2
