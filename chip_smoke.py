@@ -19,9 +19,10 @@ failure ends the run with a non-zero exit code:
           of the spread-only kernel it replaced; the fused mean reward per
           env-step must agree with the generic engine's within 5 standard
           errors; K1 and K2 are kernel templates with one C entry each,
-          det_rollout_kernel<S> and scenario_rollout_kernel<S, G>, here their
-          simple_spread instantiations (K2 with the G threads per env lane
-          that ops/fused_rollout.py::rollout_group picks at each width);
+          det_rollout_kernel<S, G> and scenario_rollout_kernel<S, G>, here
+          their simple_spread instantiations, with the G threads per env lane
+          that ops/fused_parity.py::det_group and
+          ops/fused_rollout.py::rollout_group pick at each width;
        b. training: build_fused_ppo_step at tools/train_bench.py's width
           (4096 envs x 64 steps, horizon 32, hidden 64, 4 PPO epochs,
           block_envs 1024, t_chunk 8) for 20 iterations (kernels K5 and K6),
@@ -70,7 +71,8 @@ failure ends the run with a non-zero exit code:
           bandwidth they reach; the launches of each instantiation;
   3. every kernel held against its plain PyTorch version on the card: K1
      on all nine scenarios and K2 over 20 steps (K2 with horizon 10, so
-     resets happen); K5 and K4
+     resets happen), K1 at every group G equal to G = 1 bit for bit on the
+     three scenarios with collide pairs; K5 and K4
      on simple_spread over 16 steps with horizon 8, two block offsets; K5 on
      all nine scenarios at 4096 envs x 64 steps (horizon 25, t_chunk 8;
      moves and comm indices equal) and at the training shape (horizon 32)
@@ -81,8 +83,8 @@ failure ends the run with a non-zero exit code:
      25), with path b's, b3's and b4's actors where they exist and an
      init_policy actor of O(1) logits elsewhere; K6 and K7 on each
      scenario's K5 batch of its trainer at 4096 envs x 64 steps and on the
-     same batch with both clips binding (K7 with simple_world_comm's
-     204-wide critic); one whole trainer iteration of each (params and
+     same batch with both clips binding (K7's critic compiled for each
+     scenario's joint width, simple_world_comm's 204 among them); one whole trainer iteration of each (params and
      metrics) against the same iteration with the plain versions; K8 on
      all nine scenarios at 1024 envs x 25 steps, two block offsets, with
      the actor of the scenario's committed checkpoints/maddpg_*.npz (and
@@ -118,9 +120,10 @@ failure ends the run with a non-zero exit code:
   5. a ``{"kernels": [...]}`` line (the K1-K9 rows name their scenarios
      and the one their top-level numbers were timed on, and carry
      per scenario the launches, time, bound, plain time and error of each
-     instantiation, K1, K2 (by group) and K4-K9 also its registers and
-     spills, K6, K7 and K9 the library time; K2 its group and the rule that
-     picks it, K9 its tiling and launches per update), the ``nvidia-smi``
+     instantiation, K1, K2 (both by group) and K4-K9 also its registers
+     and spills, K6, K7 and K9 the library time; K1 and K2 their group and
+     the rule that picks it, K6 and K7 their tiling, K9 its tiling and
+     launches per update), the ``nvidia-smi``
      name/power-limit line, and ``{"ok":
      true, "device": {...}}`` as the last line.
 
@@ -177,6 +180,16 @@ K1_SPREAD_ONLY_MS = 7.318
 GROUP_RULE = ("ops/fused_rollout.py::rollout_group: G threads per env lane; below 16384 envs "
               "the collide pairs rounded up to a power of two, at most 8, where there are 2 or "
               "more; else 1")
+DET_GROUP_RULE = ("ops/fused_parity.py::det_group: G threads per env lane; the collide pairs "
+                  "where there are any, else the movable agents, rounded up to a power of two, "
+                  "at most 8 and at most 65536 / n_envs")
+# the scenarios whose K1 splits an env lane (collide pairs), held at every G
+DET_GROUPED = ("simple_spread", "simple_tag", "simple_world_comm")
+UPDATE_TILE = {"threads": 256, "samples_per_tile": 64,
+               "ctas_per_sm": "2 where they fit (not the 204-wide critic)",
+               "micro_tile": "4 units x 4 samples (forward, backward)",
+               "weight_grad_micro_tile": "4 x 4 (dW2), 4 x ceil(IN/16) (dW1)",
+               "staging": "cp.async, two stages where they fit"}
 K9_TILE = {"samples_per_cta": 16, "threads": 128, "micro_tile": "2 samples x 4 units",
            "grid": "batch / 16 x agents", "weight_grad_micro_tile": "4 x 4"}
 K1_PLAIN_STEPS = 200
@@ -1318,17 +1331,17 @@ def ptxas_registers(logs: dict) -> dict:
 
 def registers_of(regs: dict, kernel: str, name: str) -> list:
     """[registers, spill bytes] of each entry of ``kernel`` instantiated for
-    scenario ``name`` (K1, K4, K5, K8: its struct, KernelX's XScn in
-    csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 128, 5, C>, K7
-    also the two critic instantiations <0, 128 or 64, 0, 0>; K9: its four
-    kernels on MaddpgDims<A, OW, C>, in the compiler's order), or []; K2
-    (``scenario_rollout_kernel``): {group G: [registers, spill bytes]} of
-    its <XScn, G> instantiations."""
+    scenario ``name`` (K4, K5, K8: its struct, KernelX's XScn in
+    csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 5, C>, K7 then
+    its critic <A * OW, 0, 0>; K9: its four kernels on MaddpgDims<A, OW,
+    C>, in the compiler's order), or []; K1 and K2 (``det_rollout_kernel``,
+    ``scenario_rollout_kernel``): {group G: [registers, spill bytes]} of
+    their <XScn, G> instantiations."""
     import re
 
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
-    if kernel == "scenario_rollout_kernel":        # {group: [registers, spill bytes]}
+    if kernel in ("scenario_rollout_kernel", "det_rollout_kernel"):   # {group: [regs, spills]}
         key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnELi"
         return {int(re.search(key + r"(\d+)E", k).group(1)): v for k, v in regs.items()
                 if kernel in k and key in k}
@@ -1337,14 +1350,12 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
         key = f"MaddpgDimsILi{a}ELi{ow}ELi{c}EE"
         return [v for k, v in regs.items() if key in k]
     if kernel in ("ppo", "mappo"):
-        _, ow, c, _, _ = widths(name)
+        a, ow, c, _, _ = widths(name)
         flags = {"ppo": "ELb1ELb0E", "mappo": "ELb0ELb1E"}[kernel]
-        key = f"ppo_update_kernelILi{ow}ELi128ELi5ELi{c}{flags}"
-        hits = [v for k, v in regs.items() if key in k]
+        keys = [f"ppo_update_kernelILi{ow}ELi5ELi{c}{flags}"]
         if kernel == "mappo":
-            hits += [v for k, v in regs.items()
-                     if re.search(r"ppo_update_kernelILi0ELi(128|64)ELi0ELi0ELb1ELb0E", k)]
-        return hits
+            keys.append(f"ppo_update_kernelILi{a * ow}ELi0ELi0ELb1ELb0E")
+        return [v for key in keys for k, v in regs.items() if key in k]
     key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnE"
     return [v for k, v in regs.items() if kernel in k and key in k]
 
@@ -1371,11 +1382,14 @@ def checkpoint_params(name: str) -> dict:
 def check_det_kernels(det_inputs) -> tuple[dict, dict]:
     """K1 on the nine scenarios against its plain version over CHECK_STEPS
     at N_ENVS (simple_spread on path a's inputs, the others on
-    make_det_inputs with another seed than path e's); the plain version of
-    the eight others timed at N_ENVS x K1_PLAIN_STEPS -> ({scenario: max abs
-    err}, {scenario: plain ms})."""
-    from mpe_tpu_torch.ops.fused_parity import (fused_det_rollout, make_det_inputs,
-                                                plain_det_rollout_blocked)
+    make_det_inputs with another seed than path e's), and on DET_GROUPED at
+    every group G against G = 1, bit for bit; the plain version of the eight
+    others timed at N_ENVS x K1_PLAIN_STEPS -> ({scenario: max abs err},
+    {scenario: plain ms})."""
+    from mpe_tpu_torch.ops.fused_parity import (det_rollout_cuda, fused_det_rollout,
+                                                make_det_inputs, plain_det_rollout_blocked)
+    from mpe_tpu_torch.ops.fused_rollout import GROUPS
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     k1_err, plain_ms = {}, {}
     for name in ALL_SCENARIOS:
@@ -1385,6 +1399,16 @@ def check_det_kernels(det_inputs) -> tuple[dict, dict]:
         k1_err[name] = check(f"K1 ({name}, {N_ENVS} envs x {CHECK_STEPS} steps)",
                              {k: max_err(a, b) for k, a, b in
                               zip(("pos", "vel", "rew_sum", "rew", "obs"), got, ref)})
+        if name in DET_GROUPED:
+            kscn = kernel_scenario(name)
+            one = det_rollout_cuda(kscn, CHECK_STEPS, BLOCK_ENVS, *inputs, group=1)
+            for g in GROUPS[1:]:
+                split = det_rollout_cuda(kscn, CHECK_STEPS, BLOCK_ENVS, *inputs, group=g)
+                diff = {k: max_err(a, b) for k, a, b in
+                        zip(("pos", "vel", "rew_sum", "rew", "obs"), split, one)}
+                assert max(diff.values()) == 0.0, f"K1 ({name}) at G = {g} differs from G = 1: {diff}"
+            print(f"K1 ({name}) at G = {', '.join(map(str, GROUPS[1:]))}: equal to G = 1 bit for "
+                  f"bit over {CHECK_STEPS} steps")
         if name != "simple_spread":
             plain = plain_det_rollout_blocked(name, K1_PLAIN_STEPS, BLOCK_ENVS)
             plain_ms[name], _ = cuda_time(lambda: plain(*inputs), 1, warm_up=False)
@@ -1705,7 +1729,8 @@ def main() -> int:
     from mpe_tpu_torch.ops import _build
     from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
     from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda
-    from mpe_tpu_torch.ops.fused_parity import det_rollout_cuda, plain_det_rollout_blocked
+    from mpe_tpu_torch.ops.fused_parity import (det_group, det_rollout_cuda,
+                                                plain_det_rollout_blocked)
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
                                                 policy_rollout_cuda, policy_traj_cuda)
     from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
@@ -1918,7 +1943,8 @@ def main() -> int:
         k1_rows[name] = scenario_row(
             k1_by, "det_rollout_kernel", name, k1_err[name], ms,
             plain_k1_ms if name == "simple_spread" else plain_k1_scn_ms[name], (b, by),
-            plain_steps=N_STEPS if name == "simple_spread" else K1_PLAIN_STEPS)
+            plain_steps=N_STEPS if name == "simple_spread" else K1_PLAIN_STEPS,
+            group=det_group(kernel_scenario(name), N_ENVS))
     b1 = (k1_rows["simple_spread"]["bound_ms"], k1_rows["simple_spread"]["bound_by"])
     b5, by5, issue5 = k5_main["simple_spread"][3]
     b4, by4, issue4 = k4_main["simple_spread"][3]
@@ -1991,7 +2017,8 @@ def main() -> int:
         # K1's top-level numbers are simple_spread's at 4096 envs x 10000 steps
         record("det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
                max(k1_err.values()), k1_ms, plain_k1_ms, b1, scenarios=list(ALL_SCENARIOS),
-               timed_on="simple_spread", by_scenario=k1_rows, pair_physics=pair_physics),
+               timed_on="simple_spread", by_scenario=k1_rows, pair_physics=pair_physics,
+               group=k1_rows["simple_spread"]["group"], group_rule=DET_GROUP_RULE),
         # K5's top-level numbers are simple_spread's at the training shape
         # (horizon 32); by_scenario at the gate's (horizon 25)
         record("policy_traj_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:245",
@@ -2006,12 +2033,12 @@ def main() -> int:
                max(r["max_abs_err"] for r in k6_scn.values()), spread6["ms"],
                spread6["plain_ms"], (spread6["bound_ms"], spread6["bound_by"]),
                spread6["library_ms"], scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
-               by_scenario=k6_scn),
+               by_scenario=k6_scn, tile=UPDATE_TILE),
         record("mappo_update_kernel", "mpe_update.cu", "mpe_tpu/ops/fused_update.py:245",
                max(r["max_abs_err"] for r in k7_scn.values()), spread7["ms"],
                spread7["plain_ms"], (spread7["bound_ms"], spread7["bound_by"]),
                spread7["library_ms"], scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
-               by_scenario=k7_scn),
+               by_scenario=k7_scn, tile=UPDATE_TILE),
         # K8's top-level numbers are simple_spread's with its checkpoint's
         # actor at 1024 envs x 25 steps; K9's on path d's ring with its params;
         # by_scenario holds every instantiation with the scenario's checkpoint

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) kernels of the fused rollouts, for the nine scenarios of
 // scenario_blocks.cuh.
 //
-// K1  det_rollout_kernel<S>      replaces  mpe_tpu/ops/fused_parity.py::_det_kernel
+// K1  det_rollout_kernel<S, G>   replaces  mpe_tpu/ops/fused_parity.py::_det_kernel
 //     (fused_det_rollout): n_steps of the scenario's physics, reward and obs
 //     from a given initial state (pos0/vel0 [E,P,N], comm0 [A,max(C,1),N] held
 //     constant, goal0 [G,N] int32), moves from hash_uniform_2d with no block
@@ -28,24 +28,27 @@
 // few thousand envs with one thread per lane (one warp per SM) the time is
 // the chain's latency, not the issue rate.
 //
-// What the designs do about it. K1: one thread owns one env lane for the
-// whole rollout; its positions, velocities and accumulators live in
-// registers, the step loop runs inside the thread, and device memory is
-// touched only at the start (K1's inputs) and the end (the outputs), as the
-// TPU kernels keep their state in VMEM. K2: a group of G threads of one warp
-// (G = 1, 2, 4 or 8, ops/fused_rollout.py::rollout_group) owns one env lane,
-// which gives the card G times the warps to hide the chain's latency and
-// shortens the chain: each rank draws its agents' moves and comm, computes
-// its pairs' contact forces (simple_tag's 14 over 4 ranks, world_comm's 21
-// over 8) and sums its agents' obs rows; __shfl_sync brings the results back
-// to every rank, which adds them in the per-lane order (scenario_blocks.cuh,
-// the group functions), so pos, vel, rew_sum and obs_sum are the same for
-// every G. What stays on every rank: the integration, derive, the reward rows
-// and resets (the same inputs, the same values), and the shuffles
-// themselves, about 2 (A + K) + A C + A per step: the next bound once the
-// pairs are split. Rank 0 of a group stores. The entity loops are unrolled over the template
-// sizes; reset candidates are stateless hash draws, so a thread computes them
-// only for a lane that resets and still gets the values the Pallas kernel drew.
+// What the designs do about it. An env lane's positions, velocities and
+// accumulators live in registers for the whole rollout, the step loop runs
+// inside the thread, and device memory is touched only at the start (K1's
+// inputs) and the end (the outputs), as the TPU kernels keep their state in
+// VMEM. A group of G threads of one warp (G = 1, 2, 4 or 8; K2:
+// ops/fused_rollout.py::rollout_group, K1: ops/fused_parity.py::det_group) owns
+// one env lane, which gives the card G times the warps to hide the chain's
+// latency and shortens the chain: each rank draws its agents' moves and comm,
+// computes its pairs' contact forces (simple_tag's 14 over 4 ranks,
+// world_comm's 21 over 8) and, in K2, sums its agents' obs rows; __shfl_sync
+// brings the results back to every rank, which adds them in the per-lane order
+// (scenario_blocks.cuh, the group functions), so every output is the same for
+// every G. K1 and K2 differ only in the move stream the group functions draw
+// (DetMoves, RolloutMoves), in K2's comm draws, obs sums and resets, and in
+// K1's final obs (once, on rank 0). What stays on every rank: the integration,
+// derive, the reward rows and resets (the same inputs, the same values), and
+// the shuffles themselves, about 2 (A + K) + A C + A per step: the next bound
+// once the pairs are split. Rank 0 of a group stores. The entity loops are
+// unrolled over the template sizes; reset candidates are stateless hash draws,
+// so a thread computes them only for a lane that resets and still gets the
+// values the Pallas kernel drew.
 // The library is built with -fmad=false: every multiply and add is rounded
 // on its own, as PyTorch's elementwise ops round them, so the kernels agree
 // with their plain versions on the card up to the order of the obs sum.
@@ -99,7 +102,7 @@ scenario_rollout_kernel(const typename S::Params c, float* __restrict__ pos,
   int t = 0;
   for (int step = 0; step < n_steps; ++step) {
     group_sync<G>();                                // the copy holds this step's start
-    group_physics<S, G>(c, sl, rollout_salt(mixed, step, 2), n, lane, wv, w);
+    group_physics<S, G>(c, sl, RolloutMoves{rollout_salt(mixed, step, 2), n, lane}, wv, w);
     float cm[S::A][S::CW];
     group_comm<S, G>(c, sl, rollout_salt(mixed, step, 16), n, lane, cm);
     const typename S::Derived d = S::derive(c, w, cm);
@@ -194,7 +197,12 @@ __device__ __forceinline__ void load_world(const float* __restrict__ pos0,
     for (int k = 0; k < S::CW; ++k) cm[i][k] = k < S::C ? comm0[(i * S::C + k) * N + g] : 0.0f;
 }
 
-template <class S>
+// K1: G threads per env lane, as K2 (its launch and storing rules above): the
+// moves are hash_uniform_2d's (DetMoves), comm is held, nothing resets, and
+// the obs is taken once, after the loop, on rank 0, which stores. With one
+// thread per lane the scenario's own physics runs (group_physics gives the same
+// bits; S::physics ran up to 1.6x faster there on the H100, PERF.md §6, PR 9).
+template <class S, int G>
 __global__ void __launch_bounds__(THREADS)
 det_rollout_kernel(const typename S::Params c, const float* __restrict__ pos0,
                    const float* __restrict__ vel0, const float* __restrict__ comm0,
@@ -203,31 +211,46 @@ det_rollout_kernel(const typename S::Params c, const float* __restrict__ pos0,
                    float* __restrict__ rew_last, float* __restrict__ obs_last, int n_envs,
                    int block_envs, int n_steps) {
   constexpr int A = S::A, R = S::R;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_envs) return;
+  static_assert(THREADS % G == 0, "a group lies inside one warp");
+  __shared__ GroupCopy<S> copies[THREADS / G];
+  const int rank = G == 1 ? 0 : (int)threadIdx.x % G;
+  const int grp = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const bool live = grp < n_envs;
+  const int g = live ? grp : n_envs - 1;
   const size_t N = (size_t)n_envs;
   const uint32_t n = (uint32_t)block_envs;
   const uint32_t lane = (uint32_t)g % n;
+  GroupCopy<S>& cp = copies[threadIdx.x / G];
 
+  GroupSlots<S, G> sl;
+  init_slots<S, G>(c, rank, sl);
   typename S::W w;
   float cm[A][S::CW];
   load_world<S>(pos0, vel0, goal0, comm0, N, g, w, cm);
+  if constexpr (G > 1) cp.w = w;
+  const typename S::W& wv = G > 1 ? cp.w : w;       // the slots read the copy
   float racc[R], r[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) racc[k] = r[k] = 0.0f;
   for (int step = 0; step < n_steps; ++step) {
-    float mv[A][MW];
+    const DetMoves move{step, n, lane};
+    if constexpr (G == 1) {                         // the lane's own physics, as the group's
+      float mv[A][MW];
 #pragma unroll
-    for (int i = 0; i < A; ++i) {
-      const uint32_t s = det_salt(step, i);       // hash_uniform_2d: no block salt
+      for (int i = 0; i < A; ++i)
 #pragma unroll
-      for (int k = 0; k < MW; ++k) mv[i][k] = hash_uniform(s, (uint32_t)k * n + lane);
+        for (int k = 0; k < MW; ++k) mv[i][k] = move(i, k);
+      S::physics(c, mv, w);
+    } else {
+      group_sync<G>();                              // the copy holds this step's start
+      group_physics<S, G>(c, sl, move, wv, w);
     }
-    S::physics(c, mv, w);
-    S::reward(c, w, cm, S::derive(c, w, cm), r);
+    group_reward<S, G>(c, rank, w, cm, S::derive(c, w, cm), r);
 #pragma unroll
     for (int k = 0; k < R; ++k) racc[k] = racc[k] + r[k];
+    if constexpr (G > 1) cp.w = w;                  // the group's reads of wv are done
   }
+  if (!live || rank != 0) return;
 
 #pragma unroll
   for (int i = 0; i < A; ++i) {                     // an immovable agent keeps its vel0
@@ -257,23 +280,44 @@ det_rollout_kernel(const typename S::Params c, const float* __restrict__ pos0,
       obs_last[(i * S::OW + row) * N + g] = n_steps > 0 ? S::obs(i, row, w, cm, d) : 0.0f;
 }
 
-template <class S>
-int launch_det(const void* params, const float* pos0, const float* vel0, const float* comm0,
-               const int* goal0, float* pos, float* vel, float* rew_sum, float* rew_last,
-               float* obs_last, int n_envs, int block_envs, int n_steps, cudaStream_t stream) {
-  const int blocks = (n_envs + THREADS - 1) / THREADS;
-  det_rollout_kernel<S><<<blocks, THREADS, 0, stream>>>(
+template <class S, int G>
+int launch_det_group(const void* params, const float* pos0, const float* vel0,
+                     const float* comm0, const int* goal0, float* pos, float* vel, float* rew_sum,
+                     float* rew_last, float* obs_last, int n_envs, int block_envs, int n_steps,
+                     cudaStream_t stream) {
+  const int blocks = (int)(((long long)n_envs * G + THREADS - 1) / THREADS);
+  det_rollout_kernel<S, G><<<blocks, THREADS, 0, stream>>>(
       *static_cast<const typename S::Params*>(params), pos0, vel0, comm0, goal0, pos, vel,
       rew_sum, rew_last, obs_last, n_envs, block_envs, n_steps);
   return (int)cudaGetLastError();
 }
 
+template <class S>
+int launch_det(const void* params, const float* pos0, const float* vel0, const float* comm0,
+               const int* goal0, float* pos, float* vel, float* rew_sum, float* rew_last,
+               float* obs_last, int n_envs, int block_envs, int n_steps, int group,
+               cudaStream_t stream) {
+#define MPE_GROUP(G)                                                                          \
+  case G:                                                                                     \
+    return launch_det_group<S, G>(params, pos0, vel0, comm0, goal0, pos, vel, rew_sum,        \
+                                  rew_last, obs_last, n_envs, block_envs, n_steps, stream)
+  switch (group) {
+    MPE_GROUP(1);
+    MPE_GROUP(2);
+    MPE_GROUP(4);
+    MPE_GROUP(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MPE_GROUP
+}
+
 }  // namespace
 
-// Launch: one warp per CTA. K1 runs one thread per env, so that 4096 envs
-// spread over 128 SMs instead of 32; K2 runs G threads per env (group 1, 2,
-// 4 or 8, chosen by ops/fused_rollout.py::rollout_group), n_envs G / 32
-// warps, so that 4096 envs give the card 4-8 warps per SM instead of one.
+// Launch: one warp per CTA, so that 4096 envs spread over 128 SMs instead of
+// 32. K1 and K2 run G threads per env (group 1, 2, 4 or 8, chosen by
+// ops/fused_parity.py::det_group and ops/fused_rollout.py::rollout_group),
+// n_envs G / 32 warps, so that 4096 envs give the card 4-8 warps per SM
+// instead of one.
 extern "C" {
 
 // scenario: ops/_build.py::SCENARIO_IDS; group: threads per env lane
@@ -288,14 +332,14 @@ int mpe_scenario_rollout(int scenario, const void* params, float* pos, float* ve
 }
 
 // K1; comm0 [A, max(C, 1), N] and goal0 [max(G, 1), N] are read where the
-// scenario has comm and goals
+// scenario has comm and goals; group: threads per env lane
 int mpe_det_rollout(int scenario, const void* params, const float* pos0, const float* vel0,
                     const float* comm0, const int* goal0, float* pos, float* vel, float* rew_sum,
                     float* rew_last, float* obs_last, int n_envs, int block_envs, int n_steps,
-                    cudaStream_t stream) {
+                    int group, cudaStream_t stream) {
 #define MPE_DET(S)                                                                          \
   return launch_det<S>(params, pos0, vel0, comm0, goal0, pos, vel, rew_sum, rew_last, obs_last, \
-                       n_envs, block_envs, n_steps, stream)
+                       n_envs, block_envs, n_steps, group, stream)
   MPE_SCENARIO_SWITCH(MPE_DET)
 #undef MPE_DET
 }

@@ -12,8 +12,8 @@
 //     metric sums.
 // K7  ppo_update_kernel<OW, 5, KC, false, true> (the decentralized actor over the
 //     (t, agent, env) samples, the team advantage of (t, env) broadcast to every
-//     agent) + ppo_update_kernel<0, 0, 0, true, false> (the centralized critic over
-//     the (t, env) samples, on the joint obs of A*OW rows, 4 to 204) +
+//     agent) + ppo_update_kernel<A*OW, 0, 0, true, false> (the centralized
+//     critic over the (t, env) samples, on the joint obs of A*OW rows) +
 //     update_reduce_kernel  replace  mpe_tpu/ops/fused_update.py::
 //     _mappo_update_kernel (fused_mappo_update). pg and entropy are means over
 //     [T, A, N], the value loss over [T, N]. The TPU kernel pads the value head
@@ -22,44 +22,48 @@
 //
 // What bounds them: fp32 operations, 64 (IN + 64 + KO) multiply-adds of the
 // forward, about as many of the backward and of the weight gradients per
-// sample (chip_smoke.py::OPS), against about 4 (IN + 5 + C + 4) bytes read per
-// sample.
+// sample (chip_smoke.py::OPS, a multiply-add counted once), against about 4
+// (IN + 5 + C + 4) bytes read per sample.
 //
 // What the design does about it. The TPU kernels add into one output block
 // because their grid runs in order; here CTAs run in parallel, so each CTA of a
 // persistent grid (one per SM) keeps its own partial gradient and a second
 // kernel sums the partials in a fixed order: the result does not change from
-// run to run, and no float atomics are used. A CTA strides over tiles of TS
-// samples (128, or 64 where the tiles of 128 would not fit in shared memory:
-// the critic on simple_world_comm's 204-wide joint obs). For a tile:
-//   A. each of TS threads takes one sample: stages its obs column x in shared
-//      memory, the forward (h1 in registers, summed over the inputs in order
-//      against w1 stored transposed, so a thread reads 64 consecutive weights
-//      per input; h2 streamed into the output sums), the output gradient g3,
-//      the backward pass, and writes h1, h2, gh1, gh2, g3 as further columns of
-//      [row][TS+1] tiles (the +1 pad makes a warp's column writes and the row
-//      reads of phase B free of bank conflicts);
-//   B. each of the 128 threads owns a fixed slice of dW2 (4 x 8), dW1 (one row,
-//      every other column: IN/2 entries), dW3 (one column, every other row)
-//      and one or two bias entries, and adds the tile's outer products into it
-//      in registers.
-// The actor passes (K6, K7's actor) are compiled for each scenario's head: IN,
-// KP and KC are template arguments, nine (OW, C) pairs (by_actor_head), so the
-// outputs and the dW1 slice (at most 17 entries, simple_world_comm's 34
-// inputs) stay in registers. The critic of K7 takes the joint obs, 4 to 204
-// inputs, with IN a run-time argument (IN_C = 0): its dW1 slice (up to 102
-// entries) goes through the CTA's partial in global memory, 8 columns per pass
-// over the tile, so that no width needs more registers. TS is a template
-// argument everywhere (two critic instantiations, 128 and 64). Both choices
-// were measured on an H100 (tools/torch_update_ab.py, K6 on simple_spread):
-// with a run-time row stride every tile address of phase B took a register of
-// its own, each instantiation reached 255 registers and K6 ran about 19% slower;
-// the actor passes with a run-time IN (the stride compiled in) ran 15-20%
-// slower than with the heads compiled in. The
-// weights and the tiles sit in dynamic shared memory (K6 on simple_spread
-// 168 KB, on simple_reference 178 KB; the world_comm critic with tiles of 64
-// samples 189 KB), so one CTA of four warps runs on each SM. K7's two passes
-// are two launches of the same persistent grid, each with its own partials.
+// run to run, and no float atomics are used. A CTA of 256 threads (eight warps)
+// strides over tiles of TS = 64 samples and runs each tile's work as CTA-wide
+// matrix products on shared-memory operands, every activation stored
+// [unit][sample] (rows of TS + 4 floats, so that the rows a quarter-warp reads
+// as float4s lie in distinct banks):
+//   forward   H1 = tanh(W1 X + b1), H2 = tanh(W2 H1 + b2): each thread a
+//             register tile of 4 units x 4 samples, per input one float4 of
+//             weights (w1, w2 stored transposed) and one of samples;
+//             Z = W3 H2 + b3 with four threads per sample;
+//   head      one thread per sample: the softmaxes, ratio, clips and value
+//             clip at the outputs (the JAX kernel's arithmetic, unfused), G3;
+//   backward  GH2 = (W3^T G3) (1 - H2^2), GH1 = (W2^T GH2) (1 - H1^2), the
+//             forward's tiles, each written over the activation it scales;
+//   gradient  dW3 += G3 H2^T, dW2 += GH2 H1^T, dW1 += GH1 X^T: each thread a
+//             4 x 4 (dW2), 4 x ceil(IN/16) (dW1) or 1 x KOP/4 (dW3) block of
+//             entries, kept in registers over all the CTA's tiles, fed per four
+//             samples by float4s of both operands; the bias sums ride along.
+// Every sum of a product runs over its inputs (or, in a gradient, over the
+// CTA's samples) in order, with fused multiply-adds (fmaf: the library's
+// -fmad=false leaves every other multiply and add, the head's included,
+// rounded on its own). The tile's inputs (obs, one-hots, logp_old, adv, ret,
+// vold: each row's TS samples contiguous in lanes) are staged by cp.async in
+// 16-byte pieces into a second buffer while the current tile computes; a tile
+// that runs past the samples (or whose lanes cross a row of the batch) is
+// staged element by element, zeros past the end, and its samples past the end
+// get G3 = 0, so they add exact zeros. Every head is compiled: the actor passes
+// for the nine scenarios' (obs width, comm logits) heads (by_actor_head), the
+// critic for their nine joint widths (by_joint_width). Weights, stages and
+// tiles sit in dynamic shared memory: two CTAs share an SM (16 warps) where
+// two fit, with two stages where those fit too (simple_spread's actor 101 KB);
+// simple_world_comm's critic (its w1 alone 52 KB) takes 180 KB with one stage
+// and runs one CTA per SM. Tiles of 128 samples and one CTA per SM ran 3-4%
+// slower on the H100 (PERF.md §6, PR 9); a tanh of one exp and one reciprocal
+// in place of tanhf moved nothing (the products, not the activations, take
+// the time).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,63 +74,73 @@
 namespace {
 
 constexpr int H = 64;            // hidden width
-constexpr int THREADS = 128;     // per CTA
-constexpr int DW1_PASS = 8;      // dW1 columns per pass over a tile
-constexpr size_t MAX_SMEM = 232448;
+constexpr int THREADS = 256;     // per CTA
+constexpr int TS = 64;           // samples per tile
+constexpr int LD = TS + 4;       // a tile row's stride
+constexpr size_t SM_SMEM = 233472;   // shared memory of an SM; a CTA takes 1 KB more than it asks
 
-// the layout of an IN-64-64-KO MLP's weights, gradient and tiles
-struct Layout {
-  int in, ko, ts, ld;
-  // packed weights (input) and gradient (output, partials): w1 [H,IN], b1 [H],
-  // w2 [H,H], b2 [H], w3 [KO,H] (policy rows, then v), b3 [KO], then the three
-  // metric sums (pg, vloss, entropy); ops/fused_update.py::_packed mirrors it
+// the packed weights (input) and gradient (output, partials) of an IN-64-64-KO
+// MLP: w1 [H,IN], b1 [H], w2 [H,H], b2 [H], w3 [KO,H] (policy rows, then v),
+// b3 [KO], then the three metric sums (pg, vloss, entropy);
+// ops/fused_update.py::_packed mirrors it
+struct Packed {
   int g_w1, g_b1, g_w2, g_b2, g_w3, g_b3, g_ms, ng;
-  // the weights in shared memory: w2 first so that its rows are 16-byte
-  // aligned, w1 transposed [IN][H]
-  int s_w2, s_w1t, s_w3, s_b1, s_b2, s_b3, s_tile;
-  // tile rows
-  int r_x, r_h1, r_h2, r_gh1, r_gh2, r_g3, r_n;
-  size_t smem_bytes;
 };
 
-__host__ __device__ inline Layout make_layout(int in, int ko, int ts) {
-  Layout L;
-  L.in = in;
-  L.ko = ko;
-  L.ts = ts;
-  L.ld = ts + 1;
-  L.g_w1 = 0;
-  L.g_b1 = L.g_w1 + H * in;
-  L.g_w2 = L.g_b1 + H;
-  L.g_b2 = L.g_w2 + H * H;
-  L.g_w3 = L.g_b2 + H;
-  L.g_b3 = L.g_w3 + ko * H;
-  L.g_ms = L.g_b3 + ko;
-  L.ng = L.g_ms + 3;
-  L.s_w2 = 0;
-  L.s_w1t = L.s_w2 + H * H;
-  L.s_w3 = L.s_w1t + H * in;
-  L.s_b1 = L.s_w3 + ko * H;
-  L.s_b2 = L.s_b1 + H;
-  L.s_b3 = L.s_b2 + H;
-  L.s_tile = (L.s_b3 + ko + 3) / 4 * 4;
-  L.r_x = 0;
-  L.r_h1 = L.r_x + in;
-  L.r_h2 = L.r_h1 + H;
-  L.r_gh1 = L.r_h2 + H;
-  L.r_gh2 = L.r_gh1 + H;
-  L.r_g3 = L.r_gh2 + H;
-  L.r_n = L.r_g3 + ko;
-  L.smem_bytes = (size_t)(L.s_tile + L.r_n * L.ld) * sizeof(float);
-  return L;
+__host__ __device__ constexpr Packed packed(int in, int ko) {
+  return Packed{0,
+                H * in,
+                H * in + H,
+                H * in + H + H * H,
+                H * in + 2 * H + H * H,
+                H * in + 2 * H + H * H + ko * H,
+                H * in + 2 * H + H * H + ko * H + ko,
+                H * in + 2 * H + H * H + ko * H + ko + 3};
 }
 
-// the widest tile that fits: 128 samples, else 64; 0 if neither does
-inline int tile_samples(int in, int ko) {
-  for (int ts = THREADS; ts >= THREADS / 2; ts /= 2)
-    if (make_layout(in, ko, ts).smem_bytes <= MAX_SMEM) return ts;
-  return 0;
+// the dynamic shared memory of weights (s_tile floats) and tiles: `stages`
+// stages of stage_rows rows, H1, H2 and kop output rows
+__host__ __device__ constexpr size_t update_smem(int s_tile, int stage_rows, int kop, int stages) {
+  return sizeof(float) * (s_tile + (size_t)(stages * stage_rows + 2 * H + kop) * LD);
 }
+
+__host__ __device__ constexpr bool smem_fits(size_t bytes, int ctas) {
+  return ctas * (bytes + 1024) <= SM_SMEM;
+}
+
+// One instantiation's widths and shared-memory layout: IN inputs, KP policy
+// logits (0: the critic), KC comm logits, a value output (HAS_V), the team
+// advantage of (t, env) (TEAM)
+template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
+struct UpdateDims {
+  static constexpr int IN = IN_, KP = KP_, KC = KC_;
+  static constexpr bool HAS_V = HAS_V_, TEAM = TEAM_;
+  static constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
+  static constexpr int KOP = (KO + 7) / 8 * 8;        // output rows, zero-padded
+  static constexpr int RQ = (IN + 15) / 16;            // dW1 columns per thread
+  static constexpr int INP = 16 * RQ;                  // x rows, zero-padded
+  // a stage: x rows, then the per-sample inputs of the head
+  static constexpr int A_MV = INP, A_CM = A_MV + KP, A_LPO = A_CM + KC, A_ADV = A_LPO + 1;
+  static constexpr int A_RET = KP > 0 ? A_ADV + 1 : INP, A_VOLD = A_RET + 1;
+  static constexpr int NAUX = (KP > 0 ? KP + KC + 2 : 0) + (HAS_V ? 2 : 0);
+  static constexpr int STAGE_ROWS = INP + NAUX;
+  static constexpr int IN_ROWS = IN + NAUX;            // rows read from the batch
+  // the weights: w2 [H][H], w2t [H][H], w1t [IN][H], w3 [KOP][H], w3t [H][KOP],
+  // b1, b2, b3 [KOP]
+  static constexpr int S_W2 = 0, S_W2T = S_W2 + H * H, S_W1T = S_W2T + H * H,
+                       S_W3 = S_W1T + IN * H, S_W3T = S_W3 + KOP * H, S_B1 = S_W3T + H * KOP,
+                       S_B2 = S_B1 + H, S_B3 = S_B2 + H, S_TILE = (S_B3 + KOP + 3) / 4 * 4;
+  // two CTAs per SM where they fit, then two stages where they fit
+  static constexpr size_t SMEM2 = update_smem(S_TILE, STAGE_ROWS, KOP, 2),
+                          SMEM1 = update_smem(S_TILE, STAGE_ROWS, KOP, 1);
+  static constexpr int CTAS = smem_fits(SMEM1, 2) ? 2 : 1;
+  static constexpr int STAGES = smem_fits(SMEM2, CTAS) ? 2 : 1;
+  static constexpr size_t SMEM = STAGES == 2 ? SMEM2 : SMEM1;
+  // tile rows after the stages: H1 (then GH1), H2 (then GH2), Z (then G3)
+  static constexpr int T_H1 = STAGES * STAGE_ROWS, T_H2 = T_H1 + H, T_G = T_H2 + H;
+  static_assert(smem_fits(SMEM, 1), "the weights and one stage must fit in shared memory");
+  static_assert(KOP % (THREADS / TS) == 0, "the output rows split over a sample's threads");
+};
 
 struct UpdateConsts {
   float ratio_lo, ratio_hi;      // 1 - clip, 1 + clip
@@ -138,116 +152,220 @@ struct UpdateConsts {
   int speak_mask;                // bit i: agent i speaks (its comm factor counts)
 };
 
+// ---- staging: cp.async where the card has it --------------------------------
+
+__device__ __forceinline__ void stage16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+#else
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+#endif
+}
+
+__device__ __forceinline__ void stage4(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void stage_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// wait until at most `pending` of this thread's committed stages are in flight
+template <int pending>
+__device__ __forceinline__ void stage_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+#endif
+}
+
+struct Batch {
+  const float *obs, *mvoh, *cmoh, *lpo, *adv, *ret, *vold;
+};
+
+// row r of the tile's inputs (r < IN: obs row r; then the head's rows in the
+// stage's order) at batch row ta: a pointer to its lane 0
+template <class D>
+__device__ __forceinline__ const float* input_row(const Batch& b, int r, size_t ta, size_t N,
+                                                  int n_agents) {
+  if (r < D::IN) return b.obs + (ta * D::IN + r) * N;
+  r -= D::IN;
+  if constexpr (D::KP > 0) {
+    if (r < D::KP) return b.mvoh + (ta * D::KP + r) * N;
+    r -= D::KP;
+    if (r < D::KC) return b.cmoh + (ta * D::KC + r) * N;
+    r -= D::KC;
+    if (r == 0) return b.lpo + ta * N;
+    if (r == 1) return b.adv + (D::TEAM ? ta / (size_t)n_agents : ta) * N;
+    r -= 2;
+  }
+  return (r == 0 ? b.ret : b.vold) + ta * N;
+}
+
+// the stage row of input row r (x rows first, then the head's after the padding)
+template <class D>
+__device__ __forceinline__ int stage_row(int r) {
+  return r < D::IN ? r : D::INP + (r - D::IN);
+}
+
+// tile ti's inputs into stage st: 16-byte pieces where the tile's samples are
+// one run of lanes in one batch row, else element by element, zeros past the
+// end
+template <class D>
+__device__ __forceinline__ void stage_tile(const Batch& b, float* __restrict__ st, size_t ti,
+                                           size_t n_samples, size_t N, int n_agents, int tid) {
+  const size_t m0 = ti * TS;
+  const size_t ta0 = m0 / N, lane0 = m0 - ta0 * N;
+  if (m0 + TS <= n_samples && lane0 + TS <= N && N % 4 == 0) {
+    constexpr int PIECES = TS / 4;
+    for (int i = tid; i < D::IN_ROWS * PIECES; i += THREADS) {
+      const int r = i / PIECES, q = i - r * PIECES;
+      stage16(st + stage_row<D>(r) * LD + 4 * q,
+              input_row<D>(b, r, ta0, N, n_agents) + lane0 + 4 * q);
+    }
+  } else {
+    for (int i = tid; i < D::IN_ROWS * TS; i += THREADS) {
+      const int r = i / TS, s = i - r * TS;
+      const size_t m = m0 + s;
+      float* dst = st + stage_row<D>(r) * LD + s;
+      if (m < n_samples) {
+        const size_t ta = m / N;
+        stage4(dst, input_row<D>(b, r, ta, N, n_agents) + (m - ta * N));
+      } else {
+        *dst = 0.0f;
+      }
+    }
+  }
+}
+
+// ---- the products ------------------------------------------------------------
+
+// C[m][s] = epi(m, sum_k A[k][m] B[k][s], &C[m][s]) for the 64 units m and the
+// TS samples s: A [K][H] (units contiguous), B and C [.][LD]. Thread t of warp
+// w owns units 4 mi .. 4 mi + 3, mi = 2 w + (lane & 1), and samples 4 si .. 4
+// si + 3, si = lane >> 1: per input one float4 of A (a warp reads two) and one
+// of B for 16 multiply-adds
+template <int K, class Epi>
+__device__ __forceinline__ void unit_product(const float* __restrict__ A,
+                                             const float* __restrict__ B, float* __restrict__ C,
+                                             int tid, Epi epi) {
+  static_assert(TS == 64, "16 threads of four samples span a tile");
+  const int lane = tid & 31, m0 = 4 * (2 * (tid >> 5) + (lane & 1)), s0 = 4 * (lane >> 1);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(A + k * H + m0);
+    const float4 b = *reinterpret_cast<const float4*>(B + k * LD + s0);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(av[i], bv[e], acc[i][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* c = C + (m0 + i) * LD + s0;
+    float4 out;
+    out.x = epi(m0 + i, acc[i][0], c + 0);
+    out.y = epi(m0 + i, acc[i][1], c + 1);
+    out.z = epi(m0 + i, acc[i][2], c + 2);
+    out.w = epi(m0 + i, acc[i][3], c + 3);
+    *reinterpret_cast<float4*>(c) = out;
+  }
+}
+
+// acc[i][j] += sum_s P[rp(i)][s] Q[rq(j)][s] over the tile, s in order, rows
+// rp(i) = pm + 16 i (i < 4) of P and rq(j) = qn + 16 j (j < RN) of Q, both
+// [.][LD]; the bias sum of P's row pm + 16 qn joins in bias for qn < 4. Per
+// four samples: 4 + RN float4s for 16 RN multiply-adds
+template <int RN>
+__device__ __forceinline__ void outer_sum(const float* __restrict__ P, const float* __restrict__ Q,
+                                          int pm, int qn, float (&acc)[4][RN], float& bias) {
+#pragma unroll 2
+  for (int s = 0; s < TS; s += 4) {
+    float pv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 p = *reinterpret_cast<const float4*>(P + (pm + 16 * i) * LD + s);
+      pv[i][0] = p.x;
+      pv[i][1] = p.y;
+      pv[i][2] = p.z;
+      pv[i][3] = p.w;
+    }
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const float4 q = *reinterpret_cast<const float4*>(Q + (qn + 16 * j) * LD + s);
+      const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j] = fmaf(pv[i][e], qv[e], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (qn == i) bias = ((bias + pv[i][0]) + pv[i][1]) + pv[i][2] + pv[i][3];
+  }
+}
+
+// ---- the head: one thread per sample -----------------------------------------
+
 // softmax over z[K0, K0 + K): p, log p, entropy and the log-prob of the one-hot
-// oh (rows (ta * K + c) of an [.., K, N] tensor at lane)
+// rows oh[c * LD + s]
 template <int K0, int K, int KO>
 __device__ __forceinline__ void softmax_head(const float (&z)[KO], const float* __restrict__ oh,
-                                             size_t ta, size_t lane, size_t N, float (&p)[K],
-                                             float (&ls)[K], float (&o)[K], float& ent,
-                                             float& lp) {
+                                             int s, float (&p)[K], float (&ls)[K], float (&o)[K],
+                                             float& ent, float& lp) {
   float zm = z[K0];
 #pragma unroll
   for (int c = 1; c < K; ++c) zm = fmaxf(zm, z[K0 + c]);
-  float e[K], s = 0.0f;
+  float e[K], sum = 0.0f;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
     e[c] = expf(z[K0 + c] - zm);
-    s = s + e[c];
+    sum = sum + e[c];
   }
-  const float lse = logf(s);
+  const float lse = logf(sum);
   ent = 0.0f;
   lp = 0.0f;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
     ls[c] = (z[K0 + c] - zm) - lse;
-    p[c] = e[c] / s;
-    o[c] = oh[(ta * K + c) * N + lane];
+    p[c] = e[c] / sum;
+    o[c] = oh[c * LD + s];
     ent = ent + p[c] * ls[c];
     lp = lp + ls[c] * o[c];
   }
   ent = -ent;
 }
 
-// phase A for one sample m: writes column `col` of the tiles, adds the
-// sample's (pg, vloss, entropy) terms to `ms`
-template <int IN_C, int KP, int KC, bool HAS_V, bool TEAM_ADV>
-__device__ __forceinline__ void sample_pass(
-    const Layout& L, const float* __restrict__ w, float* __restrict__ tile, int col, size_t m,
-    int n_envs, const float* __restrict__ obs, const float* __restrict__ mvoh,
-    const float* __restrict__ cmoh, const float* __restrict__ lpo, const float* __restrict__ adv,
-    const float* __restrict__ ret, const float* __restrict__ vold, const UpdateConsts& k,
-    float (&ms)[3]) {
-  constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
-  const int ld = L.ld, in = IN_C > 0 ? IN_C : L.in;
-  const size_t ta = m / (size_t)n_envs;
-  const size_t lane = m - ta * (size_t)n_envs;
-  const size_t N = (size_t)n_envs;
-
-  float z[KO];
-  {
-    for (int q = 0; q < in; ++q) tile[(L.r_x + q) * ld + col] = obs[(ta * in + q) * N + lane];
-    // h1 = tanh(w1 x + b1), each unit summed over the inputs in order
-    float h1[H];
-    {
-      const float x0 = tile[L.r_x * ld + col];
-      const float4* w4 = reinterpret_cast<const float4*>(w + L.s_w1t);
+// sample s of the tile (batch row ta): the outputs z in rows T_G of the tile
+// -> the output gradient G3 there; adds the sample's (pg, vloss, entropy) terms
+// to ms. A sample past the end gets G3 = 0
+template <class D>
+__device__ __forceinline__ void head(const float* __restrict__ st, float* __restrict__ gt, int s,
+                                     bool valid, size_t ta, const UpdateConsts& k,
+                                     float (&ms)[3]) {
+  constexpr int KO = D::KO, KP = D::KP, KC = D::KC;
+  float z[KO], g3[KO];
 #pragma unroll
-      for (int g = 0; g < H / 4; ++g) {
-        const float4 v = w4[g];
-        h1[4 * g + 0] = v.x * x0;
-        h1[4 * g + 1] = v.y * x0;
-        h1[4 * g + 2] = v.z * x0;
-        h1[4 * g + 3] = v.w * x0;
-      }
-    }
-#pragma unroll 1
-    for (int q = 1; q < in; ++q) {
-      const float xq = tile[(L.r_x + q) * ld + col];
-      const float4* w4 = reinterpret_cast<const float4*>(w + L.s_w1t + q * H);
-#pragma unroll
-      for (int g = 0; g < H / 4; ++g) {
-        const float4 v = w4[g];
-        h1[4 * g + 0] = h1[4 * g + 0] + v.x * xq;
-        h1[4 * g + 1] = h1[4 * g + 1] + v.y * xq;
-        h1[4 * g + 2] = h1[4 * g + 2] + v.z * xq;
-        h1[4 * g + 3] = h1[4 * g + 3] + v.w * xq;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < H; ++g) {
-      h1[g] = tanhf(h1[g] + w[L.s_b1 + g]);
-      tile[(L.r_h1 + g) * ld + col] = h1[g];
-    }
-#pragma unroll
-    for (int c = 0; c < KO; ++c) z[c] = 0.0f;
-#pragma unroll 4
-    for (int g = 0; g < H; ++g) {
-      const float4* r4 = reinterpret_cast<const float4*>(w + L.s_w2 + g * H);
-      float acc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < H / 4; ++q) {
-        const float4 v = r4[q];
-        acc = acc + v.x * h1[4 * q + 0];
-        acc = acc + v.y * h1[4 * q + 1];
-        acc = acc + v.z * h1[4 * q + 2];
-        acc = acc + v.w * h1[4 * q + 3];
-      }
-      const float h2 = tanhf(acc + w[L.s_b2 + g]);
-      tile[(L.r_h2 + g) * ld + col] = h2;
-#pragma unroll
-      for (int c = 0; c < KO; ++c) z[c] = z[c] + w[L.s_w3 + c * H + g] * h2;
-    }
-#pragma unroll
-    for (int c = 0; c < KO; ++c) z[c] = z[c] + w[L.s_b3 + c];
-  }
-
-  float g3[KO];
+  for (int c = 0; c < KO; ++c) z[c] = gt[c * LD + s];
   if constexpr (KP > 0) {
     // _policy_logit_grad: the move factor, the comm factor times the speak
     // flag, the ratio, the clipped surrogate; each factor's entropy gradient
     // uses its own entropy
     float p[KP], ls[KP], oh[KP], ent_m, lp;
-    softmax_head<0, KP>(z, mvoh, ta, lane, N, p, ls, oh, ent_m, lp);
+    softmax_head<0, KP, KO>(z, st + D::A_MV * LD, s, p, ls, oh, ent_m, lp);
     float ent = ent_m;
     [[maybe_unused]] float speak = 0.0f;
     [[maybe_unused]] float pc[KC > 0 ? KC : 1], lsc[KC > 0 ? KC : 1], ohc[KC > 0 ? KC : 1];
@@ -256,12 +374,12 @@ __device__ __forceinline__ void sample_pass(
       const int agent = (int)(ta % (size_t)k.n_agents);
       speak = ((k.speak_mask >> agent) & 1) ? 1.0f : 0.0f;
       float lp_c;
-      softmax_head<KP, KC>(z, cmoh, ta, lane, N, pc, lsc, ohc, ent_c, lp_c);
+      softmax_head<KP, KC, KO>(z, st + D::A_CM * LD, s, pc, lsc, ohc, ent_c, lp_c);
       lp = lp + lp_c * speak;
       ent = ent_m + ent_c * speak;
     }
-    const float a = TEAM_ADV ? adv[(ta / (size_t)k.n_agents) * N + lane] : adv[m];
-    const float ratio = expf(lp - lpo[m]);
+    const float a = st[D::A_ADV * LD + s];
+    const float ratio = expf(lp - st[D::A_LPO * LD + s]);
     const float rc = fminf(fmaxf(ratio, k.ratio_lo), k.ratio_hi);
     const float s1 = ratio * a, s2 = rc * a;
     const float cpg = (s1 <= s2) ? -(a * ratio) * k.inv_b : 0.0f;
@@ -272,174 +390,190 @@ __device__ __forceinline__ void sample_pass(
       for (int c = 0; c < KC; ++c)
         g3[KP + c] = (cpg * (ohc[c] - pc[c]) + (k.ent_scale * pc[c]) * (lsc[c] + ent_c)) * speak;
     }
-    ms[0] = ms[0] - fminf(s1, s2);
-    ms[2] = ms[2] + ent;
+    if (valid) {
+      ms[0] = ms[0] - fminf(s1, s2);
+      ms[2] = ms[2] + ent;
+    }
   }
-  if constexpr (HAS_V) {
+  if constexpr (D::HAS_V) {
     // _value_clip_grad
-    const float v = z[KO - 1], vo = vold[m], r = ret[m];
+    const float v = z[KO - 1], vo = st[D::A_VOLD * LD + s], r = st[D::A_RET * LD + s];
     const float vc = vo + fminf(fmaxf(v - vo, -k.vclip), k.vclip);
     const float d1 = (v - r) * (v - r), d2 = (vc - r) * (vc - r);
     // live where the max's first branch wins or the clip does not bind (then vc
     // is v up to rounding; ops/fused_update.py::_value_clip_grad)
     g3[KO - 1] = (d1 >= d2 || fabsf(v - vo) <= k.vclip) ? k.vf_scale * (v - r) : 0.0f;
-    ms[1] = ms[1] + fmaxf(d1, d2);
+    if (valid) ms[1] = ms[1] + fmaxf(d1, d2);
   }
 #pragma unroll
-  for (int c = 0; c < KO; ++c) tile[(L.r_g3 + c) * ld + col] = g3[c];
-
-  // backward: gh2 = (w3^T g3) (1 - h2^2), gh1 = (w2^T gh2) (1 - h1^2)
-  float gh1[H];
-#pragma unroll
-  for (int q = 0; q < H; ++q) gh1[q] = 0.0f;
-#pragma unroll 2
-  for (int g = 0; g < H; ++g) {
-    float sg = w[L.s_w3 + g] * g3[0];
-#pragma unroll
-    for (int c = 1; c < KO; ++c) sg = sg + w[L.s_w3 + c * H + g] * g3[c];
-    const float h2 = tile[(L.r_h2 + g) * ld + col];
-    const float gh2 = sg * (1.0f - h2 * h2);
-    tile[(L.r_gh2 + g) * ld + col] = gh2;
-    const float4* r4 = reinterpret_cast<const float4*>(w + L.s_w2 + g * H);
-#pragma unroll
-    for (int q = 0; q < H / 4; ++q) {
-      const float4 v4 = r4[q];
-      gh1[4 * q + 0] = gh1[4 * q + 0] + v4.x * gh2;
-      gh1[4 * q + 1] = gh1[4 * q + 1] + v4.y * gh2;
-      gh1[4 * q + 2] = gh1[4 * q + 2] + v4.z * gh2;
-      gh1[4 * q + 3] = gh1[4 * q + 3] + v4.w * gh2;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < H; ++q) {
-    const float h1 = tile[(L.r_h1 + q) * ld + col];
-    tile[(L.r_gh1 + q) * ld + col] = gh1[q] * (1.0f - h1 * h1);
-  }
+  for (int c = 0; c < KO; ++c) gt[c * LD + s] = valid ? g3[c] : 0.0f;
 }
 
+// ---- the kernel --------------------------------------------------------------
+
 // n_rows * n_envs samples: rows are (t, agent) pairs (K6, the K7 actor) or
-// time steps (the K7 critic, whose IN = A * OW joint rows are contiguous).
-// IN_C > 0: the input width, compiled in; 0: the run-time in_arg. TS: the
-// samples per tile, so that the tiles' row stride is constant and their
-// addresses immediates
-template <int IN_C, int TS, int KP, int KC, bool HAS_V, bool TEAM_ADV>
-__global__ void __launch_bounds__(THREADS, 1)
+// time steps (the K7 critic, whose IN = A * OW joint rows are contiguous)
+template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
+__global__ void __launch_bounds__(THREADS, (UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>::CTAS))
 ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ obs,
                   const float* __restrict__ mvoh, const float* __restrict__ cmoh,
                   const float* __restrict__ lpo, const float* __restrict__ adv,
                   const float* __restrict__ ret, const float* __restrict__ vold,
-                  float* __restrict__ partials, int n_rows, int n_envs, int in_arg,
-                  UpdateConsts k) {
-  constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
-  constexpr int J1 = IN_C > 0 ? (IN_C + 1) / 2 : 1;   // dW1 columns per thread in registers
-  constexpr int J3 = (KO + 1) / 2;                     // dW3 rows per thread
-  constexpr int ts = TS;
-  const int in = IN_C > 0 ? IN_C : in_arg;
-  const Layout L = make_layout(in, KO, ts);
-  const int ld = L.ld;
+                  float* __restrict__ partials, int n_rows, int n_envs, UpdateConsts k) {
+  using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+  constexpr int KO = D::KO, KOP = D::KOP, RQ = D::RQ;
+  constexpr Packed L = packed(IN, KO);
   extern __shared__ __align__(16) float smem[];
   float* w = smem;
-  float* tile = smem + L.s_tile;
+  float* tile = smem + D::S_TILE;
+  float* h1t = tile + D::T_H1 * LD;
+  float* h2t = tile + D::T_H2 * LD;
+  float* gt = tile + D::T_G * LD;
   const int tid = threadIdx.x;
-  for (int i = tid; i < H * H; i += THREADS) w[L.s_w2 + i] = weights[L.g_w2 + i];
-  for (int i = tid; i < H * in; i += THREADS)        // w1 [H, IN] -> [IN, H]
-    w[L.s_w1t + (i % in) * H + i / in] = weights[L.g_w1 + i];
-  for (int i = tid; i < KO * H; i += THREADS) w[L.s_w3 + i] = weights[L.g_w3 + i];
+  const size_t N = (size_t)n_envs;
+  const size_t n_samples = (size_t)n_rows * N;
+  const size_t n_tiles = (n_samples + TS - 1) / TS;
+  const Batch b{obs, mvoh, cmoh, lpo, adv, ret, vold};
+
+  if (blockIdx.x < n_tiles) stage_tile<D>(b, tile, blockIdx.x, n_samples, N, k.n_agents, tid);
+  stage_commit();
+  for (int i = tid; i < H * H; i += THREADS) {
+    const float v = weights[L.g_w2 + i];
+    w[D::S_W2 + i] = v;
+    w[D::S_W2T + (i % H) * H + i / H] = v;
+  }
+  for (int i = tid; i < H * IN; i += THREADS)          // w1 [H, IN] -> [IN, H]
+    w[D::S_W1T + (i % IN) * H + i / IN] = weights[L.g_w1 + i];
+  for (int i = tid; i < KOP * H; i += THREADS) {       // w3 [KO, H], rows past KO zero
+    const float v = i < KO * H ? weights[L.g_w3 + i] : 0.0f;
+    w[D::S_W3 + i] = v;
+    w[D::S_W3T + (i % H) * KOP + i / H] = v;
+  }
   if (tid < H) {
-    w[L.s_b1 + tid] = weights[L.g_b1 + tid];
-    w[L.s_b2 + tid] = weights[L.g_b2 + tid];
+    w[D::S_B1 + tid] = weights[L.g_b1 + tid];
+    w[D::S_B2 + tid] = weights[L.g_b2 + tid];
   }
-  if (tid < KO) w[L.s_b3 + tid] = weights[L.g_b3 + tid];
+  if (tid < KOP) w[D::S_B3 + tid] = tid < KO ? weights[L.g_b3 + tid] : 0.0f;
+  for (int st = 0; st < D::STAGES; ++st)               // the x rows' padding stays zero
+    for (int i = tid; i < (D::INP - IN) * LD; i += THREADS)
+      tile[(st * D::STAGE_ROWS + IN) * LD + i] = 0.0f;
 
-  // this thread's slices of the gradient (see the layout note above)
-  const int gb = tid >> 3, kb = tid & 7;     // dW2 rows gb + 16 i, columns kb + 8 j
-  const int g1 = tid >> 1, k1 = tid & 1;     // dW1 row g1, columns k1 + 2 j; dW3 column g1,
-                                             // rows k1 + 2 j
-  const int brow = tid < H ? L.r_gh1 + tid : L.r_gh2 + tid - H;   // db1 or db2 entry
+  // this thread's gradient entries: dW2 rows pm + 16 i, columns qn + 16 j; dW1
+  // rows pm + 16 i, columns qn + 16 j (j < RQ); db1, db2 row pm + 16 qn (qn <
+  // 4); dW3 rows k3 + 4 r, column g3 (db3 row k3 + 4 g3, g3 < KOP / 4)
+  const int lane = tid & 31, warp = tid >> 5;
+  const int pm = (lane & 7) | ((warp & 1) << 3), qn = (lane >> 3) | ((warp >> 1) << 2);
+  const int g3c = tid & (H - 1), k3 = tid >> 6;
+  constexpr int R3 = KOP / 4;
+  float a2[4][4], a1[4][RQ], a3[R3], ab1 = 0.0f, ab2 = 0.0f, ab3 = 0.0f;
+  float ms[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a2[i][j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < RQ; ++j) a1[i][j] = 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < R3; ++r) a3[r] = 0.0f;
+  const float* b1 = w + D::S_B1;
+  const float* b2 = w + D::S_B2;
+  const float* b3 = w + D::S_B3;
+
+  int it = 0;
+  for (size_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x, ++it) {
+    float* st = tile + (D::STAGES == 2 ? (it & 1) : 0) * D::STAGE_ROWS * LD;
+    if constexpr (D::STAGES == 2) {                    // the next tile's inputs in flight
+      if (ti + gridDim.x < n_tiles)
+        stage_tile<D>(b, tile + ((it + 1) & 1) * D::STAGE_ROWS * LD, ti + gridDim.x, n_samples,
+                      N, k.n_agents, tid);
+      stage_commit();
+      stage_wait<1>();
+    } else {
+      stage_wait<0>();
+    }
+    __syncthreads();
+    // forward
+    unit_product<IN>(w + D::S_W1T, st, h1t, tid,
+                             [&](int m, float v, const float*) { return tanhf(v + b1[m]); });
+    __syncthreads();
+    unit_product<H>(w + D::S_W2T, h1t, h2t, tid,
+                            [&](int m, float v, const float*) { return tanhf(v + b2[m]); });
+    __syncthreads();
+    {                                                   // Z = W3 H2 + b3
+      constexpr int PER = THREADS / TS, RZ = KOP / PER;
+      const int s = tid % TS, kz = tid / TS;
+      float z[RZ];
+#pragma unroll
+      for (int r = 0; r < RZ; ++r) z[r] = 0.0f;
+#pragma unroll 4
+      for (int g = 0; g < H; ++g) {
+        const float h = h2t[g * LD + s];
+#pragma unroll
+        for (int r = 0; r < RZ; ++r) z[r] = fmaf(w[D::S_W3T + g * KOP + kz + PER * r], h, z[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < RZ; ++r) gt[(kz + PER * r) * LD + s] = z[r] + b3[kz + PER * r];
+    }
+    __syncthreads();
+    if (tid < TS) {
+      const size_t m = ti * TS + tid;
+      head<D>(st, gt, tid, m < n_samples, m / N, k, ms);
+    }
+    __syncthreads();
+    // dW3 += G3 H2^T (db3 beside it), then GH2 over H2
+#pragma unroll 2
+    for (int s = 0; s < TS; s += 4) {
+      const float4 hq = *reinterpret_cast<const float4*>(h2t + g3c * LD + s);
+#pragma unroll
+      for (int r = 0; r < R3; ++r) {
+        const float4 gq = *reinterpret_cast<const float4*>(gt + (k3 + 4 * r) * LD + s);
+        a3[r] = fmaf(gq.x, hq.x, a3[r]);
+        a3[r] = fmaf(gq.y, hq.y, a3[r]);
+        a3[r] = fmaf(gq.z, hq.z, a3[r]);
+        a3[r] = fmaf(gq.w, hq.w, a3[r]);
+        if (g3c == r) ab3 = ((ab3 + gq.x) + gq.y) + gq.z + gq.w;
+      }
+    }
+    __syncthreads();
+    unit_product<KO>(w + D::S_W3, gt, h2t, tid, [](int, float v, const float* c) {
+      return v * (1.0f - *c * *c);
+    });
+    __syncthreads();
+    // dW2 += GH2 H1^T (db2), then GH1 over H1
+    outer_sum<4>(h2t, h1t, pm, qn, a2, ab2);
+    __syncthreads();
+    unit_product<H>(w + D::S_W2, h2t, h1t, tid, [](int, float v, const float* c) {
+      return v * (1.0f - *c * *c);
+    });
+    __syncthreads();
+    // dW1 += GH1 X^T (db1); the padding rows of X add zeros
+    outer_sum<RQ>(h1t, st, pm, qn, a1, ab1);
+    __syncthreads();                                    // this stage's reads are done
+    if constexpr (D::STAGES == 1) {
+      if (ti + gridDim.x < n_tiles)
+        stage_tile<D>(b, tile, ti + gridDim.x, n_samples, N, k.n_agents, tid);
+      stage_commit();
+    }
+  }
+
   float* part = partials + (size_t)blockIdx.x * L.ng;
-  if constexpr (IN_C == 0)
-    for (int q = k1; q < in; q += 2) part[L.g_w1 + g1 * in + q] = 0.0f;
-  float a2[4][8], a1[J1], a3[J3], ab = 0.0f, ab3 = 0.0f, ms[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) a2[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j) part[L.g_w2 + (pm + 16 * i) * H + qn + 16 * j] = a2[i][j];
 #pragma unroll
-  for (int j = 0; j < J1; ++j) a1[j] = 0.0f;
-#pragma unroll
-  for (int j = 0; j < J3; ++j) a3[j] = 0.0f;
-  __syncthreads();
-
-  const size_t n_samples = (size_t)n_rows * (size_t)n_envs;
-  const size_t n_tiles = (n_samples + ts - 1) / ts;
-  for (size_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
-    const size_t m = ti * ts + tid;
-    if (tid < ts) {
-      if (m < n_samples) {
-        sample_pass<IN_C, KP, KC, HAS_V, TEAM_ADV>(L, w, tile, tid, m, n_envs, obs, mvoh, cmoh, lpo,
-                                                   adv, ret, vold, k, ms);
-      } else {                                // the ragged end adds zeros
-        for (int r = 0; r < L.r_n; ++r) tile[r * ld + tid] = 0.0f;
-      }
-    }
-    __syncthreads();
-    for (int s = 0; s < ts; ++s) {
-      float gh2[4], h1[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gh2[i] = tile[(L.r_gh2 + gb + 16 * i) * ld + s];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) h1[j] = tile[(L.r_h1 + kb + 8 * j) * ld + s];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) a2[i][j] = a2[i][j] + gh2[i] * h1[j];
-      if constexpr (IN_C > 0) {
-        const float gh1 = tile[(L.r_gh1 + g1) * ld + s];
-#pragma unroll
-        for (int j = 0; j < J1; ++j)
-          if (k1 + 2 * j < IN_C) a1[j] = a1[j] + gh1 * tile[(L.r_x + k1 + 2 * j) * ld + s];
-      }
-      const float h2 = tile[(L.r_h2 + g1) * ld + s];
-#pragma unroll
-      for (int j = 0; j < J3; ++j)
-        if (k1 + 2 * j < KO) a3[j] = a3[j] + tile[(L.r_g3 + k1 + 2 * j) * ld + s] * h2;
-      ab = ab + tile[brow * ld + s];
-      if (tid < KO) ab3 = ab3 + tile[(L.r_g3 + tid) * ld + s];
-    }
-    // run-time IN: dW1 row g1, DW1_PASS columns per pass; rows past x are read
-    // and dropped
-    if constexpr (IN_C == 0)
-    for (int q0 = k1; q0 < in; q0 += 2 * DW1_PASS) {
-      float a1[DW1_PASS];
-#pragma unroll
-      for (int j = 0; j < DW1_PASS; ++j) a1[j] = 0.0f;
-      for (int s = 0; s < ts; ++s) {
-        const float gh1 = tile[(L.r_gh1 + g1) * ld + s];
-#pragma unroll
-        for (int j = 0; j < DW1_PASS; ++j)
-          a1[j] = a1[j] + gh1 * tile[(L.r_x + q0 + 2 * j) * ld + s];
-      }
-#pragma unroll
-      for (int j = 0; j < DW1_PASS; ++j)
-        if (q0 + 2 * j < in) part[L.g_w1 + g1 * in + q0 + 2 * j] += a1[j];
-    }
-    __syncthreads();
+    for (int j = 0; j < RQ; ++j)
+      if (qn + 16 * j < IN) part[L.g_w1 + (pm + 16 * i) * IN + qn + 16 * j] = a1[i][j];
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) part[L.g_w2 + (gb + 16 * i) * H + kb + 8 * j] = a2[i][j];
-  if constexpr (IN_C > 0) {
-#pragma unroll
-    for (int j = 0; j < J1; ++j)
-      if (k1 + 2 * j < IN_C) part[L.g_w1 + g1 * IN_C + k1 + 2 * j] = a1[j];
+  if (qn < 4) {
+    part[L.g_b1 + pm + 16 * qn] = ab1;
+    part[L.g_b2 + pm + 16 * qn] = ab2;
   }
 #pragma unroll
-  for (int j = 0; j < J3; ++j)
-    if (k1 + 2 * j < KO) part[L.g_w3 + (k1 + 2 * j) * H + g1] = a3[j];
-  part[tid < H ? L.g_b1 + tid : L.g_b2 + tid - H] = ab;
-  if (tid < KO) part[L.g_b3 + tid] = ab3;
+  for (int r = 0; r < R3; ++r)
+    if (k3 + 4 * r < KO) part[L.g_w3 + (k3 + 4 * r) * H + g3c] = a3[r];
+  if (g3c < R3 && k3 + 4 * g3c < KO) part[L.g_b3 + k3 + 4 * g3c] = ab3;
   // metric sums over the CTA's threads, in thread order
 #pragma unroll
   for (int q = 0; q < 3; ++q) tile[q * THREADS + tid] = ms[q];
@@ -463,32 +597,25 @@ __global__ void update_reduce_kernel(const float* __restrict__ partials, float* 
   out[e] = q < 0 ? total : total * (q == 0 ? ms_pg : q == 1 ? ms_v : ms_ent);
 }
 
-// one pass: the persistent grid of n_parts CTAs, then the reduce into out. A
-// compiled-in head takes tiles of THREADS samples; a run-time IN the widest
-// that fits (tile_samples)
-template <int IN_C, int KP, int KC, bool HAS_V, bool TEAM_ADV>
-cudaError_t update_pass(int in, const float* weights, const float* obs, const float* mvoh,
+// one pass: the persistent grid of n_parts CTAs, then the reduce into out
+template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
+cudaError_t update_pass(const float* weights, const float* obs, const float* mvoh,
                         const float* cmoh, const float* lpo, const float* adv, const float* ret,
                         const float* vold, float* partials, float* out, int n_rows, int n_envs,
                         int n_parts, const UpdateConsts& k, float ms_pg, float ms_v,
                         float ms_ent, cudaStream_t stream) {
-  constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
-  const int ts = tile_samples(in, KO);
-  if (in < 1 || ts == 0 || (IN_C > 0 && (in != IN_C || ts != THREADS)))
-    return cudaErrorInvalidValue;
-  const Layout L = make_layout(in, KO, ts);
-  auto kernel = ppo_update_kernel<IN_C, THREADS, KP, KC, HAS_V, TEAM_ADV>;
-  if constexpr (IN_C == 0)
-    if (ts != THREADS) kernel = ppo_update_kernel<IN_C, THREADS / 2, KP, KC, HAS_V, TEAM_ADV>;
+  using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+  const int ng = packed(IN, D::KO).ng;
+  auto kernel = ppo_update_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.smem_bytes);
+                                         (int)D::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<n_parts, THREADS, L.smem_bytes, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret,
-                                                     vold, partials, n_rows, n_envs, in, k);
+  kernel<<<n_parts, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret, vold,
+                                                partials, n_rows, n_envs, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  update_reduce_kernel<<<(L.ng + 255) / 256, 256, 0, stream>>>(partials, out, n_parts, L.ng,
-                                                               ms_pg, ms_v, ms_ent);
+  update_reduce_kernel<<<(ng + 255) / 256, 256, 0, stream>>>(partials, out, n_parts, ng, ms_pg,
+                                                             ms_v, ms_ent);
   return cudaGetLastError();
 }
 
@@ -513,6 +640,25 @@ cudaError_t by_actor_head(int ow, int kc, F f) {
   return cudaErrorInvalidValue;
 }
 
+// f(integral_constant<J>) for the MAPPO critic's joint width J = A * OW of each
+// of the nine scenarios; ops/fused_update.py::critic_widths lists the same
+template <class F>
+cudaError_t by_joint_width(int j, F f) {
+#define MPE_JOINT_WIDTH(J) \
+  if (j == J) return f(std::integral_constant<int, J>{});
+  MPE_JOINT_WIDTH(54)      // simple_spread: 3 x 18
+  MPE_JOINT_WIDTH(4)       // simple
+  MPE_JOINT_WIDTH(42)      // simple_reference: 2 x 21
+  MPE_JOINT_WIDTH(22)      // simple_speaker_listener: 2 x 11
+  MPE_JOINT_WIDTH(30)      // simple_adversary: 3 x 10
+  MPE_JOINT_WIDTH(38)      // simple_push: 2 x 19
+  MPE_JOINT_WIDTH(24)      // simple_crypto: 3 x 8
+  MPE_JOINT_WIDTH(64)      // simple_tag: 4 x 16
+  MPE_JOINT_WIDTH(204)     // simple_world_comm: 6 x 34
+#undef MPE_JOINT_WIDTH
+  return cudaErrorInvalidValue;
+}
+
 constexpr int MOVES = 5;
 
 }  // namespace
@@ -531,8 +677,8 @@ int mpe_ppo_update(int in, int kc, const float* weights, const float* obs, const
                        speak_mask};
   return (int)by_actor_head(in, kc, [&](auto ow, auto c) {
     return update_pass<decltype(ow)::value, MOVES, decltype(c)::value, true, false>(
-        in, weights, obs, mvoh, cmoh, lpo, adv, ret, vold, partials, out, n_ta, n_envs, n_parts,
-        k, inv_b, inv_b, inv_b, stream);
+        weights, obs, mvoh, cmoh, lpo, adv, ret, vold, partials, out, n_ta, n_envs, n_parts, k,
+        inv_b, inv_b, inv_b, stream);
   });
 }
 
@@ -549,19 +695,23 @@ int mpe_mappo_update(int ow, int kc, const float* actor_w, const float* critic_w
                      float ent_scale, float inv_b, float inv_bv, cudaStream_t stream) {
   const UpdateConsts k{ratio_lo, ratio_hi, vclip, vf_scale, ent_scale, inv_b, n_agents,
                        speak_mask};
+  if (by_joint_width(n_agents * ow, [](auto) { return cudaSuccess; }) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = by_actor_head(ow, kc, [&](auto w, auto c) {
     return update_pass<decltype(w)::value, MOVES, decltype(c)::value, false, true>(
-        ow, actor_w, obs, mvoh, cmoh, lpo, adv, nullptr, nullptr, partials, out,
-        n_steps * n_agents, n_envs, n_parts, k, inv_b, 0.0f, inv_b, stream);
+        actor_w, obs, mvoh, cmoh, lpo, adv, nullptr, nullptr, partials, out, n_steps * n_agents,
+        n_envs, n_parts, k, inv_b, 0.0f, inv_b, stream);
   });
   if (err != cudaSuccess) return (int)err;
-  return (int)update_pass<0, 0, 0, true, false>(
-      n_agents * ow, critic_w, obs, nullptr, nullptr, nullptr, nullptr, ret, vold, partials,
-      out + make_layout(ow, MOVES + kc, THREADS).ng, n_steps, n_envs, n_parts, k, 0.0f, inv_bv,
-      0.0f, stream);
+  return (int)by_joint_width(n_agents * ow, [&](auto j) {
+    return update_pass<decltype(j)::value, 0, 0, true, false>(
+        critic_w, obs, nullptr, nullptr, nullptr, nullptr, ret, vold, partials,
+        out + packed(ow, MOVES + kc).ng, n_steps, n_envs, n_parts, k, 0.0f, inv_bv, 0.0f,
+        stream);
+  });
 }
 
 // the packed gradient's length of an in-64-64-ko MLP (ops/fused_update.py::_packed)
-int mpe_update_packed_size(int in, int ko) { return make_layout(in, ko, THREADS).ng; }
+int mpe_update_packed_size(int in, int ko) { return packed(in, ko).ng; }
 
 }  // extern "C"

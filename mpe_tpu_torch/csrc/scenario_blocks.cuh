@@ -756,7 +756,7 @@ __device__ __forceinline__ void store_world(const typename S::W& w, float* __res
   }
 }
 
-// ---- group-cooperative device functions (K2) ------------------------------------
+// ---- group-cooperative device functions (K1, K2) --------------------------------
 //
 // G threads of one warp share an env lane (G = 1, 2, 4 or 8; a thread's rank
 // is its place in the group). Every thread of the group keeps the lane's world
@@ -905,14 +905,31 @@ __device__ __forceinline__ void gather_pairs(const float (&gxq)[Q], const float 
   }
 }
 
-// S::physics split over the group: the action forces and the pair forces by
-// rank (the pairs read the copy wv, which holds w), then every thread
-// integrates as the scenario's physics does. Ends with the group's reads of
-// wv done.
-template <class S, int G>
+// The move draws of a step, move(i, k) = entry k of agent i's row, for the
+// two streams: K2's draw_moves (one salt per step, entry (i MW + k) n + lane)
+// and K1's hash_uniform_2d (no block salt: salt det_salt(step, i) per agent,
+// entry k n + lane)
+struct RolloutMoves {
+  uint32_t salt, n, lane;
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return hash_uniform(salt, (uint32_t)(i * MW + k) * n + lane);
+  }
+};
+struct DetMoves {
+  int step;
+  uint32_t n, lane;
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return hash_uniform(det_salt(step, i), (uint32_t)k * n + lane);
+  }
+};
+
+// S::physics split over the group: the action forces (from move, a
+// RolloutMoves or DetMoves) and the pair forces by rank (the pairs read the
+// copy wv, which holds w), then every thread integrates as the scenario's
+// physics does. Ends with the group's reads of wv done.
+template <class S, int G, class Moves>
 __device__ __forceinline__ void group_physics(const typename S::Params& c,
-                                              const GroupSlots<S, G>& sl, uint32_t salt,
-                                              uint32_t n, uint32_t lane,
+                                              const GroupSlots<S, G>& sl, const Moves& move,
                                               const typename S::W& wv, typename S::W& w) {
   using Sl = GroupSlots<S, G>;
   constexpr int A = S::A;
@@ -920,12 +937,12 @@ __device__ __forceinline__ void group_physics(const typename S::Params& c,
   {
     float uxq[Sl::QA], uyq[Sl::QA];
 #pragma unroll
-    for (int q = 0; q < Sl::QA; ++q) {            // draw_moves' entries 1-4 of agent i
+    for (int q = 0; q < Sl::QA; ++q) {            // the decode reads entries 1-4 of agent i
       const int i = sl.agent[q];
-      const float m1 = hash_uniform(salt, (uint32_t)(i * MW + 1) * n + lane);
-      const float m2 = hash_uniform(salt, (uint32_t)(i * MW + 2) * n + lane);
-      const float m3 = hash_uniform(salt, (uint32_t)(i * MW + 3) * n + lane);
-      const float m4 = hash_uniform(salt, (uint32_t)(i * MW + 4) * n + lane);
+      const float m1 = move(i, 1);
+      const float m2 = move(i, 2);
+      const float m3 = move(i, 3);
+      const float m4 = move(i, 4);
       uxq[q] = (m1 - m2) * sl.accel[q];
       uyq[q] = (m3 - m4) * sl.accel[q];
     }

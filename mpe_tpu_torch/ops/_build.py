@@ -85,7 +85,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # argtypes of each library's C functions (all return a cudaError_t as int)
 SIGNATURES = {
     "mpe_kernels.cu": {
-        "mpe_det_rollout": [_I] + [_P] * 10 + [_I] * 3 + [_P],
+        "mpe_det_rollout": [_I] + [_P] * 10 + [_I] * 4 + [_P],
         "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _I, _P],
     },
     "mpe_policy.cu": {

@@ -8,10 +8,10 @@ Without an RNG stream to reproduce, the kernel can be held against the
 plain version value for value on the card, and the plain version against
 the JAX kernel's interpret run on the CPU.
 
-On CUDA tensors ``fused_det_rollout`` launches ``det_rollout_kernel<S>``
+On CUDA tensors ``fused_det_rollout`` launches ``det_rollout_kernel<S, G>``
 (``csrc/mpe_kernels.cu``, one instantiation per scenario struct of
-``csrc/scenario_blocks.cuh``); on CPU tensors it runs
-``plain_det_rollout_blocked``.
+``csrc/scenario_blocks.cuh`` and group G of threads per env lane,
+``det_group``); on CPU tensors it runs ``plain_det_rollout_blocked``.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from mpe_tpu_torch._device import resolve_device
-from mpe_tpu_torch.ops.fused_rollout import _MASK, _fmix_unit, _flat_index, pick_block_envs
+from mpe_tpu_torch.ops.fused_rollout import GROUPS, _MASK, _fmix_unit, _flat_index, pick_block_envs
 
 _GOLDEN_DET = 0x9E3779B9     # hash_uniform_2d's salt multiplier (int32 -1640531527)
 
@@ -129,10 +129,42 @@ def plain_det_rollout_blocked(scenario, n_steps: int, block_envs: int):
     return make_det_rollout(_resolve(scenario), n_steps, block_envs)
 
 
-def det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, comm0, goal0):
-    """Launch kernel K1 (``det_rollout_kernel<S>``) on CUDA inputs; same
-    outputs as ``plain_det_rollout_blocked``. Counts its launches in
-    ``det_rollout_cuda.launches`` and, by scenario name, in ``.launches_by``."""
+# K1 splits an env lane while the card holds at most about 16 warps per SM
+# (132 SMs x 16 warps x 32 lanes = 67,584 threads)
+DET_MAX_THREADS = 65_536
+
+
+def det_group(kscn, n_envs: int) -> int:
+    """K1's threads per env lane, G: the collide pairs where there are any
+    (their contact-force chain is the step's longest, and one pair stays on
+    one rank), else the movable agents (their move draws split), rounded up
+    to a power of two, at most 8 and at most ``DET_MAX_THREADS / n_envs``.
+    K1 sums no obs per step, so unlike K2 (``rollout_group``) it gains from
+    splitting the move draws alone. Measured on an H100 at 4096 x 10,000
+    (PERF.md §6, PR 9): simple_spread 4, simple_tag and simple_world_comm 8,
+    simple_adversary 4, simple_reference 2; simple, simple_speaker_listener
+    (one movable agent), simple_push (one pair) and simple_crypto (none
+    movable) 1; simple_spread at 65,536 envs 1 (at 16,384, where the rule
+    gives 4, G = 1, 2 and 4 lie within the run-to-run noise)."""
+    from mpe_tpu_torch.ops.kernel_scenarios import collide_pairs
+
+    spec = kscn.spec
+    pairs = len(tuple(collide_pairs(spec)))
+    split = pairs if pairs else int(spec.movable[:spec.n_agents].sum())
+    cap = max(1, DET_MAX_THREADS // n_envs)
+    group = 1
+    while group < split and group < 8 and 2 * group <= cap:
+        group *= 2
+    return group
+
+
+def det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, comm0, goal0,
+                     group: int | None = None):
+    """Launch kernel K1 (``det_rollout_kernel<S, G>``) on CUDA inputs with
+    ``group`` threads per env lane (``None`` takes ``det_group``); the same
+    outputs as ``plain_det_rollout_blocked`` for every group. Counts its
+    launches in ``det_rollout_cuda.launches`` and, by scenario name, in
+    ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     n = pos0.shape[-1]
@@ -147,6 +179,9 @@ def det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, comm0, goa
                              f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     if n_steps < 0 or n % block_envs:
         raise ValueError(f"need n_steps >= 0 and n={n} a multiple of block_envs={block_envs}")
+    group = det_group(kscn, n) if group is None else group
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group}")
     scenario, params = _build.kernel_params(kscn)
     spec = kscn.spec
     out = dict(dtype=torch.float32, device=pos0.device)
@@ -160,7 +195,7 @@ def det_rollout_cuda(kscn, n_steps: int, block_envs: int, pos0, vel0, comm0, goa
         rc = _build.library().mpe_det_rollout(
             scenario, ctypes.byref(params), *(x.data_ptr() for x in (
                 pos0, vel0, comm0, goal0, pos, vel, rew_sum, rew, obs)),
-            n, block_envs, n_steps, stream)
+            n, block_envs, n_steps, group, stream)
     if rc != 0:
         raise RuntimeError(f"det_rollout_kernel launch failed: {_build.error_string(rc)}")
     det_rollout_cuda.launches += 1
@@ -172,11 +207,13 @@ det_rollout_cuda.launches = 0
 det_rollout_cuda.launches_by = collections.Counter()
 
 
-def fused_det_rollout(scenario, n_envs: int, n_steps: int, block_envs: int = 1024, device=None):
+def fused_det_rollout(scenario, n_envs: int, n_steps: int, block_envs: int = 1024, device=None,
+                      group: int | None = None):
     """``run(pos0, vel0, comm0, goal0) -> (pos, vel, rew_sum, rew_last,
     obs_last)`` over RNG blocks of ``block_envs`` lanes. Inputs must lie on
-    ``device`` (``None`` = the card): CUDA inputs launch kernel K1, CPU
-    inputs run ``plain_det_rollout_blocked``."""
+    ``device`` (``None`` = the card): CUDA inputs launch kernel K1 with
+    ``group`` threads per env lane (``None``: ``det_group``; the outputs do not
+    depend on it), CPU inputs run ``plain_det_rollout_blocked``."""
     kscn = _resolve(scenario)
     device = resolve_device(device)
     block_envs = pick_block_envs(n_envs, block_envs)
@@ -187,7 +224,7 @@ def fused_det_rollout(scenario, n_envs: int, n_steps: int, block_envs: int = 102
             raise ValueError(f"expected {n_envs} lanes on {device}, got {tuple(pos0.shape)} "
                              f"on {pos0.device}")
         if pos0.is_cuda:
-            return det_rollout_cuda(kscn, n_steps, block_envs, pos0, vel0, comm0, goal0)
+            return det_rollout_cuda(kscn, n_steps, block_envs, pos0, vel0, comm0, goal0, group)
         return plain(pos0, vel0, comm0, goal0)
 
     run.block_envs = block_envs

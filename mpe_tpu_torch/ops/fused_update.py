@@ -27,8 +27,9 @@ also holds wherever the clip does not bind (see ``_value_clip_grad``).
 
 On a CUDA device ``update`` launches ``ppo_update_kernel`` (K6: one pass;
 K7: an actor pass and a critic pass) and ``update_reduce_kernel``
-(``csrc/mpe_update.cu``, float32, hidden 64, obs widths of 1 to 204 rows);
-on the CPU it runs the plain version in ``dtype`` (float32 or float64).
+(``csrc/mpe_update.cu``, float32, hidden 64, compiled for the nine
+scenarios' actor heads and critic joint widths); on the CPU it runs the
+plain version in ``dtype`` (float32 or float64).
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ import torch
 from mpe_tpu_torch._device import device_table, resolve_device
 
 HIDDEN = 64                                  # the hidden width the CUDA kernels are built for
+# the update kernels' persistent grid: two CTAs per SM, the most that fit
+# (csrc/mpe_update.cu; an instantiation that fits one runs the grid in two waves)
+CTAS_PER_SM = 2
 
 
 def _packed(n_in: int, n_out: int) -> tuple:
@@ -122,6 +126,16 @@ def actor_heads() -> frozenset:
     from mpe_tpu_torch.ops.kernel_scenarios import _KERNEL_SCENARIOS, kernel_scenario
 
     return frozenset((k.obs_w, k.n_comm) for k in map(kernel_scenario, _KERNEL_SCENARIOS))
+
+
+@functools.cache
+def critic_widths() -> frozenset:
+    """The MAPPO critic's joint obs widths (agents x obs width) of the nine
+    scenarios: the widths the critic pass is compiled for
+    (``csrc/mpe_update.cu::by_joint_width``)."""
+    from mpe_tpu_torch.ops.kernel_scenarios import _KERNEL_SCENARIOS, kernel_scenario
+
+    return frozenset(k.spec.n_agents * k.obs_w for k in map(kernel_scenario, _KERNEL_SCENARIOS))
 
 
 def _value_clip_grad(v, vold, ret, *, clip, vf_coef, inv):
@@ -324,8 +338,8 @@ def _check_weights(weights, want, what: str):
 
 def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
                     clip: float, vf_coef: float, ent_coef: float):
-    """Launch kernel K6 (``ppo_update_kernel`` over a persistent grid of one
-    CTA per SM, then ``update_reduce_kernel``) on the inputs' CUDA device:
+    """Launch kernel K6 (``ppo_update_kernel`` over a persistent grid of two
+    256-thread CTAs per SM, then ``update_reduce_kernel``) on the inputs' CUDA device:
     the outputs of ``plain_ppo_update`` in float32. Counts launches in
     ``.launches``."""
     from mpe_tpu_torch.ops import _build
@@ -342,7 +356,7 @@ def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, s
     if lib.mpe_update_packed_size(ow, 5 + kc + 1) != n_packed:
         raise RuntimeError("csrc/mpe_update.cu and ops/fused_update.py disagree on the layout")
     wbuf = torch.cat([w.reshape(-1) for w in weights]).contiguous()
-    n_parts = torch.cuda.get_device_properties(device).multi_processor_count
+    n_parts = CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
     partials = torch.empty((n_parts, n_packed), dtype=torch.float32, device=device)
     out = torch.empty(n_packed, dtype=torch.float32, device=device)
     inv_b = 1.0 / float(t * a * n)
@@ -368,12 +382,15 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
                       clip: float, vf_coef: float, ent_coef: float):
     """Launch kernel K7 (``ppo_update_kernel``'s actor pass over the
     (t, agent, env) samples and critic pass over the (t, env) samples on the
-    joint obs, each a persistent grid of one CTA per SM followed by
+    joint obs, each a persistent grid of two CTAs per SM followed by
     ``update_reduce_kernel``) on the inputs' CUDA device: the outputs of
     ``plain_mappo_update`` in float32. Counts launches in ``.launches``."""
     from mpe_tpu_torch.ops import _build
 
     t, a, ow, n, kc, mask = _kernel_inputs(obs, mv_oh, cm_oh, speak)
+    if a * ow not in critic_widths():
+        raise NotImplementedError(f"the critic pass is compiled for the joint widths "
+                                  f"{sorted(critic_widths())}; got {a} x {ow}")
     device = obs.device
     _check_batch(device, logp_old=(logp_old, (t, a, n)), adv_n=(adv_n, (t, n)),
                  ret=(ret, (t, n)), v_old=(v_old, (t, n)))
@@ -389,7 +406,7 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
         raise RuntimeError("csrc/mpe_update.cu and ops/fused_update.py disagree on the layout")
     abuf = torch.cat([w.reshape(-1) for w in aw]).contiguous()
     cbuf = torch.cat([w.reshape(-1) for w in cw]).contiguous()
-    n_parts = torch.cuda.get_device_properties(device).multi_processor_count
+    n_parts = CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
     partials = torch.empty((n_parts, max(n_act, n_crit)), dtype=torch.float32, device=device)
     out = torch.empty(n_act + n_crit, dtype=torch.float32, device=device)
     inv_b, inv_bv = 1.0 / float(t * a * n), 1.0 / float(t * n)

@@ -34,7 +34,7 @@ import torch
 from mpe_tpu_torch.learner.maddpg import init_maddpg
 from mpe_tpu_torch.learner.ppo import init_ac, init_mappo
 from mpe_tpu_torch.ops import _build, fused_maddpg, fused_maddpg_update, fused_update
-from mpe_tpu_torch.ops.fused_parity import make_det_inputs, plain_det_rollout_blocked
+from mpe_tpu_torch.ops.fused_parity import det_group, make_det_inputs, plain_det_rollout_blocked
 from mpe_tpu_torch.ops.fused_policy import (_kernel_weights, _pack_weights, plain_policy_rollout,
                                             plain_policy_trajectory)
 from mpe_tpu_torch.ops.fused_rollout import plain_rollout, rollout_group
@@ -315,11 +315,14 @@ def test_host_built_policy_rollout_kernel_matches_plain(host_libs, name):
     _close(got, ref, ("ret", "pos", "episodes"))
 
 
-# K6 and K7 on a random epoch batch of each head shape: no comm, 3, 4 and 10
-# comm logits (a silent agent on simple_speaker_listener and
-# simple_world_comm), the 64- and 204-wide critics; the value clip binds
-UPDATE_NAMES = ["simple_spread", "simple_speaker_listener", "simple_crypto", "simple_reference",
-                "simple_tag", "simple_world_comm"]
+# K6 and K7 on a random epoch batch of every scenario's head and critic width:
+# no comm, 3, 4 and 10 comm logits (a silent agent on simple_speaker_listener and
+# simple_world_comm), the nine joint widths of the critic (4 to 204, the last
+# in tiles of 64); the value clip binds
+UPDATE_NAMES = NAMES
+# ... and on a batch where both clips bind for about half of the samples
+CLIP_NAMES = ["simple_spread", "simple_speaker_listener", "simple_reference",
+              "simple_world_comm"]
 
 
 def _epoch_batch(kscn, t: int, n: int, team: bool, seed: int = 0):
@@ -352,27 +355,62 @@ def _host_update(lib, fn, *args):
     assert getattr(lib, fn)(*ptrs) == 0
 
 
-@pytest.mark.parametrize("name", UPDATE_NAMES)
-@pytest.mark.parametrize("kind", ["ppo", "mappo"])
-def test_host_built_update_kernels_match_plain(host_libs, name, kind):
-    """K6 (``mpe_ppo_update``) and K7 (``mpe_mappo_update``) over 3 CTAs and
-    a ragged last tile: every gradient leaf within 1e-4 of its largest entry,
-    the metric means within 1e-4 relative."""
-    kscn = kernel_scenario(name)
+def _update_params(kscn, team: bool):
+    """init_ac (PPO) or init_mappo params of the scenario's widths, the
+    policy head scaled to O(1) logits."""
+    a, ow = kscn.spec.n_agents, kscn.obs_w
+    init = init_mappo if team else init_ac
+    params = init(torch.Generator().manual_seed(1), ow, 5 + kscn.n_comm, *((a,) if team else ()))
+    params["pi"]["w"] = params["pi"]["w"] * 100.0
+    return params
+
+
+def _logp_value(params, obs, mv_oh, cm_oh, speak, team: bool):
+    """The params' own log-prob of the batch's actions [T, A, N] and value
+    ([T, A, N] for PPO, the critic's [T, N] on the joint obs for MAPPO)."""
+    def mlp(w1, b1, w2, b2, w3, b3, x):
+        h1 = torch.tanh(torch.einsum("ho,...on->...hn", w1, x) + b1[:, None])
+        h2 = torch.tanh(torch.einsum("gh,...hn->...gn", w2, h1) + b2[:, None])
+        return torch.einsum("kg,...gn->...kn", w3, h2) + b3[:, None]
+
+    if team:
+        z = mlp(*fused_update._mlp_weights(params, ("a1", "a2", "pi"), torch.float32), obs)
+        t, a, ow, n = obs.shape
+        value = mlp(*fused_update._mlp_weights(params, ("c1", "c2", "v"), torch.float32),
+                    obs.reshape(t, a * ow, n))[:, 0]
+    else:
+        z = mlp(*fused_update._update_weights(params, torch.float32), obs)
+        value, z = z[..., -1, :], z[..., :-1, :]
+    logp = (torch.log_softmax(z[..., :5, :], -2) * mv_oh).sum(-2)
+    if cm_oh is not None:
+        flags = torch.tensor([float(x) for x in speak])[:, None]
+        logp = logp + (torch.log_softmax(z[..., 5:, :], -2) * cm_oh).sum(-2) * flags
+    return logp.contiguous(), value.contiguous()
+
+
+def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool):
+    """K6 (``mpe_ppo_update``) or K7 (``mpe_mappo_update``) over 3 CTAs on a
+    random [t, A, *, n] epoch batch (``clip_binding``: its logp_old and v_old
+    moved off the params' own by ``clip_binding_inputs``) against the plain
+    version: every gradient leaf within 1e-4 of its largest entry, the metric
+    means within 1e-4 relative."""
     spec = kscn.spec
-    a, ow, t, n = spec.n_agents, kscn.obs_w, 2, 96
+    a, ow = spec.n_agents, kscn.obs_w
     dim_c = kscn.n_comm
     team = kind == "mappo"
-    init = init_mappo if team else init_ac
-    params = init(torch.Generator().manual_seed(1), ow, 5 + dim_c, *((a,) if team else ()))
-    params["pi"]["w"] = params["pi"]["w"] * 100.0           # O(1) logits
+    params = _update_params(kscn, team)
     obs, mv_oh, cm_oh, lpo, adv, ret, vold = _epoch_batch(kscn, t, n, team)
     speak = kscn.speak
     hp = dict(clip=0.2, vf_coef=0.5, ent_coef=0.01)
+    if clip_binding:
+        logp, value = _logp_value(params, obs, mv_oh, cm_oh, speak, team)
+        lpo, vold, shares = fused_update.clip_binding_inputs(
+            logp, value, clip=hp["clip"], generator=torch.Generator().manual_seed(11))
+        assert all(0.2 < x < 0.8 for x in shares), shares
     plain = fused_update.plain_mappo_update if team else fused_update.plain_ppo_update
     ref, ref_m = plain(params, obs, mv_oh, cm_oh, lpo, adv, ret, vold, speak=speak, **hp)
     mask = fused_update.speak_bits(speak)
-    lib, n_parts = host_libs["mpe_update.cu"], 3
+    n_parts = 3
     inv_b = 1.0 / (t * a * n)
     consts = (1.0 - hp["clip"], 1.0 + hp["clip"], hp["clip"])
     if team:
@@ -412,23 +450,69 @@ def test_host_built_update_kernels_match_plain(host_libs, name, kind):
     torch.testing.assert_close(torch.stack(got_m), torch.stack(ref_m), rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("name", UPDATE_NAMES)
+@pytest.mark.parametrize("kind", ["ppo", "mappo"])
+def test_host_built_update_kernels_match_plain(host_libs, name, kind):
+    """K6 (``mpe_ppo_update``) and K7 (``mpe_mappo_update``) over 3 CTAs on a
+    batch of 96 envs (not a multiple of the tile: every tile is staged element
+    by element, the last one ragged): every gradient leaf within 1e-4 of its
+    largest entry, the metric means within 1e-4 relative."""
+    _check_host_update(host_libs["mpe_update.cu"], kernel_scenario(name), kind, 2, 96, False)
+
+
+@pytest.mark.parametrize("name", CLIP_NAMES)
+@pytest.mark.parametrize("kind", ["ppo", "mappo"])
+def test_host_built_update_kernels_match_plain_where_clips_bind(host_libs, name, kind):
+    """K6 and K7 on a batch of 128 envs (whole tiles, staged in 16-byte
+    pieces) whose logp_old and v_old make both clips bind for about half of
+    the samples (``clip_binding_inputs``), held as above."""
+    _check_host_update(host_libs["mpe_update.cu"], kernel_scenario(name), kind, 2, 128, True)
+
+
+def _host_det(lib, kscn, inputs, n_envs, block_envs, n_steps, group):
+    """K1 (``mpe_det_rollout``) with ``group`` threads per env lane ->
+    (pos, vel, rew_sum, rew_last, obs_last)."""
+    scenario, params = _build.kernel_params(kscn)
+    spec = kscn.spec
+    shapes = ((spec.n_entities, 2, n_envs),) * 2 + ((kscn.reward_rows, n_envs),) * 2 + (
+        (spec.n_agents, kscn.obs_w, n_envs),)
+    got = [torch.empty(s) for s in shapes]
+    rc = lib.mpe_det_rollout(scenario, ctypes.byref(params),
+                             *(x.data_ptr() for x in (*inputs, *got)), n_envs, block_envs,
+                             n_steps, group, None)
+    assert rc == 0
+    return got
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_host_built_det_rollout_kernel_matches_plain(host_libs, name):
     """K1 (``mpe_det_rollout``) over 20 steps from make_det_inputs, two RNG
-    blocks drawing the same moves."""
+    blocks drawing the same moves, with the group ``det_group`` picks at this
+    size."""
     kscn = kernel_scenario(name)
-    scenario, params = _build.kernel_params(kscn)
-    spec = kscn.spec
     inputs = make_det_inputs(name, N_ENVS, seed=5, device="cpu")
-    shapes = ((spec.n_entities, 2, N_ENVS),) * 2 + ((kscn.reward_rows, N_ENVS),) * 2 + (
-        (spec.n_agents, kscn.obs_w, N_ENVS),)
-    got = [torch.empty(s) for s in shapes]
-    rc = host_libs["mpe_kernels.cu"].mpe_det_rollout(
-        scenario, ctypes.byref(params), *(x.data_ptr() for x in (*inputs, *got)), N_ENVS,
-        BLOCK_ENVS, 20, None)
-    assert rc == 0
+    got = _host_det(host_libs["mpe_kernels.cu"], kscn, inputs, N_ENVS, BLOCK_ENVS, 20,
+                    det_group(kscn, N_ENVS))
     ref = plain_det_rollout_blocked(name, 20, BLOCK_ENVS)(*inputs)
     _close(got, ref, ("pos", "vel", "rew_sum", "rew", "obs"))
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("name", ["simple_spread", "simple_tag", "simple_world_comm"])
+def test_host_built_grouped_det_rollout_equals_one_thread_per_lane(host_libs, name, group):
+    """K1 with an env lane split over ``group`` threads equals K1 with one
+    thread per lane bit for bit (pos, vel, rew_sum, rew_last, obs_last) on the
+    three scenarios with collide pairs: each agent's moves (hash_uniform_2d's
+    stream) and each pair's force move to a rank and come back in the
+    per-lane order. 60 envs in two RNG blocks (at groups 2 and 4 the last warp
+    runs padding lanes), 20 steps."""
+    kscn = kernel_scenario(name)
+    lib = host_libs["mpe_kernels.cu"]
+    inputs = make_det_inputs(name, 60, seed=4, device="cpu")
+    one = _host_det(lib, kscn, inputs, 60, 30, 20, 1)
+    split = _host_det(lib, kscn, inputs, 60, 30, 20, group)
+    for label, a, b in zip(("pos", "vel", "rew_sum", "rew_last", "obs_last"), split, one):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=label)
 
 
 def _maddpg_params(kscn, seed=0):

@@ -23,7 +23,8 @@ kernel K3 emits the plain version's actions exactly (raw hash draws) and its
 obs, rewards, positions and velocities within 1e-5, on all nine scenarios;
 K2 on the eight others is held as on simple_spread (simple_tag and
 simple_world_comm through the pair physics), and K2 with an env lane split
-over 2, 4 or 8 threads equals K2 with one bit for bit. The MADDPG update
+over 2, 4 or 8 threads equals K2 with one bit for bit, and so does K1 on all
+nine scenarios. The MADDPG update
 chunk on its packed state holds the tree chunk with the plain K9 within
 1e-4 of each leaf's largest entry.
 """
@@ -376,6 +377,21 @@ def test_grouped_rollout_kernel_equals_one_thread_per_lane(card, name, group):
     split = fused_rollout.rollout_cuda(kscn, 1000, 30, 10, 500, 3, 1, card, group=group)
     for label, a, b in zip(("pos", "vel", "rew_sum", "obs_sum"), split, one):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_grouped_det_rollout_kernel_equals_one_thread_per_lane(card, name, group):
+    """K1 with an env lane split over ``group`` threads equals K1 with one
+    thread per lane bit for bit (pos, vel, rew_sum, rew_last, obs_last; 1000
+    envs: the last warp runs padding lanes at groups 2 and 4)."""
+    kscn = kernel_scenario(name)
+    inputs = fused_parity.make_det_inputs(name, 1000, seed=2)
+    one = fused_parity.det_rollout_cuda(kscn, 30, 500, *inputs, group=1)
+    split = fused_parity.det_rollout_cuda(kscn, 30, 500, *inputs, group=group)
+    for label, x, y in zip(("pos", "vel", "rew_sum", "rew_last", "obs_last"), split, one):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=label)
 
 
 @pytest.mark.cuda

@@ -247,6 +247,23 @@ def test_actor_heads_match_the_kernel_instantiations():
     assert {(kernel_scenario(n).obs_w, kernel_scenario(n).n_comm) for n in names} == compiled
 
 
+def test_critic_widths_match_the_kernel_instantiations():
+    """The MAPPO critic pass is compiled for each scenario's joint obs width
+    (``csrc/mpe_update.cu::by_joint_width``): the wrappers' list of widths is
+    that table, agents x obs width of the nine scenarios."""
+    import re
+
+    from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    text = (_build.CSRC / "mpe_update.cu").read_text()
+    compiled = {int(j) for j in re.findall(r"MPE_JOINT_WIDTH\((\d+)\)", text)}
+    assert compiled == set(t_update.critic_widths())
+    names = ["simple", "simple_spread", "simple_adversary", "simple_push", *COMM_NAMES]
+    assert len(set(names)) == 9
+    assert {kernel_scenario(n).spec.n_agents * kernel_scenario(n).obs_w for n in names} == compiled
+
+
 def test_speak_mask_is_made_once_per_dtype_and_device():
     """The silent agents' mask of the comm factor is one shared table per
     (flags, dtype, device): the trainer's loss and the plain update read it

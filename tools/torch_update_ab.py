@@ -2,7 +2,7 @@
 """Time the port's update kernels of one or more checkouts on one NVIDIA
 card, one checkout after another.
 
-    python3 tools/torch_update_ab.py [--maddpg | --rollout] ROOT [ROOT ...]
+    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -11,14 +11,18 @@ versions on one card within one call. Each process prints one JSON line:
 the root, the card's name and power limit as ``nvidia-smi`` gives them, and
 the times below.
 
-Without ``--maddpg`` (K6, K7): the simple_spread PPO and MAPPO trainers at
-tools/train_bench.py's learner batch (4096 envs x 64 steps, horizon 32,
-hidden 64) collect one batch from a seeded init, and ``step.update`` (one
-epoch's gradient: K6, or K7's actor and critic passes) is timed by CUDA
-events, the median of 20 calls after 3 warm-ups; beside both medians in ms,
-the registers and spill bytes of each ``ppo_update_kernel`` instantiation
-from the compiler's ``-Xptxas -v`` report (empty where the kernels were
-already built).
+Without a mode (K6, K7): the trainers of chip_smoke.py's paths b (PPO on
+simple_spread), b2 (MAPPO on simple_spread), b3 (PPO on simple_reference)
+and b4 (MAPPO on simple_speaker_listener) at tools/train_bench.py's learner
+batch (4096 envs x 64 steps, horizon 32, hidden 64) collect one batch from
+a seeded init, and ``step.update`` (one epoch's gradient: K6, or K7's actor
+and critic passes) is timed by CUDA events, the median of 20 calls after 3
+warm-ups; then one more call under torch.profiler gives its device time by
+kernel (each instantiation of ``ppo_update_kernel`` and the reduces, by
+their demangled names) and the device's busy share of the call; beside
+them, the registers and spill bytes of each ``ppo_update_kernel``
+instantiation from the compiler's ``-Xptxas -v`` report (empty where the
+kernels were already built).
 
 With ``--maddpg`` (K8, K9): ``build_fused_maddpg_runner(name, n_envs=1024,
 horizon=25, batch=1024)`` (tools/train_bench.py's fused_maddpg row) on
@@ -43,6 +47,15 @@ group size (threads per env lane), the group ``rollout_group`` picks and
 the time at every group 1, 2, 4 and 8 too; and the registers and spill
 bytes of each ``scenario_rollout_kernel`` instantiation (empty where the
 kernels were already built).
+
+With ``--det`` (K1): ``fused_det_rollout`` on ``make_det_inputs(name,
+n_envs, seed=0)`` for the nine scenarios at 4096 envs x 10,000 steps
+(block_envs 1024, chip_smoke.py's path a and e shape) and on simple_spread
+at 16,384 and 65,536 envs, each the median of 3 CUDA-event timed calls
+after one warm-up; where the checkout's K1 takes a group size
+(``fused_parity.det_group``), that group and the time at every group 1, 2,
+4 and 8 too (``det_rollout_cuda(..., group=g)``); and the registers and
+spill bytes of each ``det_rollout_kernel`` instantiation.
 """
 
 from __future__ import annotations
@@ -107,19 +120,49 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler after a warm-up: device ms by
+    kernel name and launches, and the device's busy share of the call's
+    CUDA-event time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and us(e) > 0]
+    if not dev:
+        return {"profiled": "not measured (no device events)"}
+    split = {e.key: [us(e) / 1e3, e.count] for e in dev}
+    wall = start.elapsed_time(end)
+    return {"device_ms_by_kernel": split, "device_ms": sum(v for v, _ in split.values()),
+            "call_event_ms": wall, "device_busy_share": sum(v for v, _ in split.values()) / wall}
+
+
 def time_ppo(result: dict, logs: dict) -> None:
     from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
     import torch
 
-    for key, build in (("ppo_ms", build_fused_ppo_step), ("mappo_ms", build_fused_mappo_step)):
-        step = build("simple_spread", **TRAIN)
+    for path, name, build in (("b", "simple_spread", build_fused_ppo_step),
+                              ("b2", "simple_spread", build_fused_mappo_step),
+                              ("b3", "simple_reference", build_fused_ppo_step),
+                              ("b4", "simple_speaker_listener", build_fused_mappo_step)):
+        step = build(name, **TRAIN)
         params = step.init_params(torch.Generator().manual_seed(0))
-        batch = step.collect(params, 3)
-        if len(batch) == 6:         # a checkout from before the comm factor: no cm_oh
-            batch = batch[:2] + (None,) + batch[2:]
-        obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = batch
+        obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
         args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
-        result[key] = median_ms(lambda: step.update(*args))
+        row = {"scenario": name, "ms": median_ms(lambda: step.update(*args))}
+        row.update(profile_call(lambda: step.update(*args)))
+        result[path] = row
+        del step, args, obs, mv_oh, cm_oh, logp_old, value, adv_n, ret
+        torch.cuda.empty_cache()
     result["registers_spill_bytes"] = registers(logs)
 
 
@@ -249,6 +292,46 @@ def time_rollout(result: dict, logs: dict) -> None:
     result["registers_spill_bytes"] = registers(logs, "mpe_kernels.cu", "scenario_rollout_kernel")
 
 
+DET = dict(n_envs=4096, n_steps=10_000, block_envs=1024)
+
+
+def time_det(result: dict, logs: dict) -> None:
+    import torch
+
+    from mpe_tpu_torch.ops import fused_parity as fp
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    def median_of(fn) -> float:
+        fn()
+        times = []
+        for _ in range(ROLLOUT_REPEATS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    grouped = hasattr(fp, "det_group")
+    shapes = [(name, DET["n_envs"]) for name in SCENARIOS]
+    shapes += [("simple_spread", n) for n in ROLLOUT_WIDE]
+    for name, n in shapes:
+        inputs = fp.make_det_inputs(name, n, seed=0)
+        run = fp.fused_det_rollout(name, n, DET["n_steps"], block_envs=DET["block_envs"])
+        row = {"ms": median_of(lambda: run(*inputs))}
+        if grouped:
+            kscn = kernel_scenario(name)
+            row["group"] = fp.det_group(kscn, n)
+            for g in (1, 2, 4, 8):
+                row[f"ms_group_{g}"] = median_of(
+                    lambda g=g: fp.det_rollout_cuda(kscn, DET["n_steps"], DET["block_envs"],
+                                                    *inputs, group=g))
+        result[f"{name}@{n}"] = row
+        del inputs
+    result["registers_spill_bytes"] = registers(logs, "mpe_kernels.cu", "det_rollout_kernel")
+
+
 def child(mode: str, root: str) -> None:
     sys.path.insert(0, root)
     import mpe_tpu_torch
@@ -263,6 +346,8 @@ def child(mode: str, root: str) -> None:
         time_maddpg(result)
     elif mode == "rollout":
         time_rollout(result, logs)
+    elif mode == "det":
+        time_det(result, logs)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -273,7 +358,8 @@ def main() -> int:
     if len(args) == 3 and args[0] == "--child":
         child(args[1], args[2])
         return 0
-    mode = {"--maddpg": "maddpg", "--rollout": "rollout"}.get(args[0] if args else "", "ppo")
+    mode = {"--maddpg": "maddpg", "--rollout": "rollout", "--det": "det"}.get(
+        args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
         print(__doc__, file=sys.stderr)
