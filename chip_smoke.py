@@ -81,14 +81,17 @@ failure ends the run with a non-zero exit code:
      listener actor among them, on path c's own outputs) and on the eight
      scenarios other than simple_spread at 4096 envs x 200 steps (horizon
      25), with path b's, b3's and b4's actors where they exist and an
-     init_policy actor of O(1) logits elsewhere; K6 and K7 on each
+     init_policy actor of O(1) logits elsewhere; K4 and K5 at each of these
+     shapes also at another tile (env lanes per CTA) than the one
+     pick_tile's rule takes, every output equal bit for bit; K6 and K7 on each
      scenario's K5 batch of its trainer at 4096 envs x 64 steps and on the
      same batch with both clips binding (K7's critic compiled for each
      scenario's joint width, simple_world_comm's 204 among them); one whole trainer iteration of each (params and
      metrics) against the same iteration with the plain versions; K8 on
      all nine scenarios at 1024 envs x 25 steps, two block offsets, with
      the actor of the scenario's committed checkpoints/maddpg_*.npz (and
-     the trained actor of path d, d2 or d3), in both output forms; K9 on
+     the trained actor of path d, d2 or d3), in both output forms, and at
+     another tile than the rule's, equal bit for bit; K9 on
      all nine at batch 1024 on rows K8 collected with the checkpoint's
      actor, with its trained critic, and on 1024 rows of path d's ring
      (target actions equal per head, their smallest logit gap printed); one
@@ -107,8 +110,10 @@ failure ends the run with a non-zero exit code:
      TRAJ_WIDE, at path e's 65536 envs x 64 steps, actions equal and the
      rest within 1e-5 (at path e's shapes with another seed than path e's,
      so that no stale output can pass);
-  4. the plain versions timed at the main paths' shapes (K1's of the eight
-     others at 4096 envs x 200 steps), each kernel's bound from the
+  4. the collect phases of paths b-b4 and d-d3 printed beside K5's and
+     K8's times at the same shapes; the plain versions timed at the main
+     paths' shapes (K1's of the eight others at 4096 envs x 200 steps),
+     each kernel's bound from the
      operations its function needs (OPS below), and for K6, K7 and K9 the
      same gradient by autograd (the library yardstick), K4-K9 on every
      scenario at the gate's shape; K9 as the trainer calls it (its launcher
@@ -123,9 +128,10 @@ failure ends the run with a non-zero exit code:
      instantiation, K1, K2 (both by group) and K4-K9 also its registers
      and spills, K6, K7 and K9 the library time; K1 and K2 their group and
      the rule that picks it, K6 and K7 their tiling, K9 its tiling and
-     launches per update), the ``nvidia-smi``
-     name/power-limit line, and ``{"ok":
-     true, "device": {...}}`` as the last line.
+     launches per update; K4, K5 and K8 their tile, the rule that picks it
+     and, K5 and K8, the collect phases of the paths that run them), the
+     ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
+     {...}}`` as the last line.
 
 It needs a CUDA device and the ``mpe_tpu_torch`` package beside it, and
 exits non-zero without either.
@@ -190,6 +196,10 @@ UPDATE_TILE = {"threads": 256, "samples_per_tile": 64,
                "micro_tile": "4 units x 4 samples (forward, backward)",
                "weight_grad_micro_tile": "4 x 4 (dW2), 4 x ceil(IN/16) (dW1)",
                "staging": "cp.async, two stages where they fit"}
+POLICY_TILE_RULE = ("ops/fused_policy.py::pick_tile (policy_tile for K4 and K5, "
+                    "fused_maddpg.py::maddpg_tile for K8): env lanes per 128-thread CTA, the "
+                    "smallest tile whose grid runs in one wave (the CTAs an SM holds, as the "
+                    "card reports them) and whose (agent, lane) rows fill a warp's items")
 K9_TILE = {"samples_per_cta": 16, "threads": 128, "micro_tile": "2 samples x 4 units",
            "grid": "batch / 16 x agents", "weight_grad_micro_tile": "4 x 4"}
 K1_PLAIN_STEPS = 200
@@ -680,6 +690,22 @@ def read_instantiations(wrapper, names, label: str) -> dict:
     return by
 
 
+def other_tile(tiles, tile: int) -> int:
+    """The tile after ``tile`` in ``tiles``, or the one before the last."""
+    i = tiles.index(tile)
+    return tiles[i + 1] if i + 1 < len(tiles) else tiles[i - 1]
+
+
+def same_bits(label: str, got, want) -> None:
+    """Every output of ``got`` equal to ``want``'s bit for bit."""
+    import torch
+
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    assert not bad, f"{label}: outputs {bad} differ"
+    print(f"{label}: every output equal bit for bit")
+
+
 def check_update(label: str, update, params, batch, gated: tuple[str, ...]) -> float:
     """K6 against its plain version on ``batch``: each gradient leaf within
     GRAD_TOL of its largest entry and the metric means named in ``gated``
@@ -854,14 +880,15 @@ def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
         print(f"{label} iter {i}: mean_reward {m['mean_reward']:.6f}, entropy "
               f"{m['entropy']:.6f}, loss {m['loss']:.6f}, pg_loss {m['pg_loss']:.6f}, v_loss "
               f"{m['v_loss']:.6f}")
-    return launches, step, state0, state
+    return launches, step, state0, state, {k: v / len(steady) for k, v in phase_ms.items()}
 
 
 def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CHUNKS):
     """Main path d (simple_spread), d2 or d3 (the comm scenarios of
     MADDPG_COMM): the fused MADDPG loop (K8 collection, K9 updates) on
     ``name`` for ``n_chunks`` chunks, timed by phase with CUDA events ->
-    (launches, launches by scenario, runner, params, info, transitions/s)."""
+    (launches, launches by scenario, runner, params, info, transitions/s,
+    mean collect ms per chunk)."""
     import torch
 
     from mpe_tpu_torch.learner import build_fused_maddpg_runner
@@ -904,7 +931,7 @@ def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CH
           f"chunk {n_chunks - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
           f"{float(cl[-1]):.6f}; ring {info['buffer'].size} of {run.capacity} rows "
           f"({info['buffer'].data.numel() * 4 / 1e6:.0f} MB)")
-    return launches, by, run, params, info, rate
+    return launches, by, run, params, info, rate, collect_ms / len(steady)
 
 
 def traj_bytes(name: str, n_envs: int, n_steps: int) -> int:
@@ -1222,10 +1249,20 @@ def check_main_policy_shapes(k4_runs: dict, evals: dict, trainer_actors: dict):
     ({scenario: actor}); kernels and plain versions timed -> ({scenario:
     (K4 err, ms, plain ms, bound)}, {scenario: (K5 err, ms, plain ms,
     bound)})."""
-    from mpe_tpu_torch.ops.fused_policy import fused_policy_trajectory
+    from mpe_tpu_torch.ops.fused_policy import (POLICY_TILES, _kernel_weights,
+                                                fused_policy_trajectory, policy_rollout_cuda,
+                                                policy_tile, policy_traj_cuda)
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     k4, k5 = {}, {}
     for name, (run, ms, got) in k4_runs.items():
+        kscn = kernel_scenario(name)
+        tile = policy_tile(kscn, N_ENVS, "rollout")
+        alt = other_tile(POLICY_TILES, tile)
+        same_bits(f"K4 ({name}) at the evaluation shape, tile {alt} against tile {tile}",
+                  policy_rollout_cuda(kscn, _kernel_weights(evals[name], "cuda"), N_ENVS,
+                                      EVAL_STEPS, EVAL_HORIZON, BLOCK_ENVS, 0, 0, "cuda",
+                                      tile=alt), got)
         # one plain run: about 7 s at this shape
         plain_ms, ref = cuda_time(lambda: run.plain(0, evals[name]), 1, warm_up=False)
         print(f"K4 ({name}) at the evaluation shape: lanes with a return equal to plain "
@@ -1241,6 +1278,13 @@ def check_main_policy_shapes(k4_runs: dict, evals: dict, trainer_actors: dict):
                                        t_chunk=TRAIN["t_chunk"])
         ms, got = cuda_time(lambda: traj(1, actor), REPEATS)
         plain_ms, ref = cuda_time(lambda: traj.plain(1, actor), 1)
+        kscn = kernel_scenario(name)
+        tile = policy_tile(kscn, TRAIN["n_envs"], "traj")
+        alt = other_tile(POLICY_TILES, tile)
+        same_bits(f"K5 ({name}) at the training shape, tile {alt} against tile {tile}",
+                  policy_traj_cuda(kscn, _kernel_weights(actor, "cuda"), TRAIN["n_envs"],
+                                   TRAIN["n_steps"], TRAIN["horizon"], TRAIN["block_envs"],
+                                   TRAIN["t_chunk"], 1, 0, "cuda", tile=alt), got)
         labels = ("obs", "act", "cact", "rew", "last_obs") if traj.has_comm else (
             "obs", "act", "rew", "last_obs")
         report_actions(f"K5 ({name}) at the training shape, moves", got[1], ref[1])
@@ -1256,21 +1300,26 @@ def check_main_policy_shapes(k4_runs: dict, evals: dict, trainer_actors: dict):
     return k4, k5
 
 
-def check_policy_kernels(actors: dict) -> tuple[dict, dict]:
+def check_policy_kernels(actors: dict) -> tuple[dict, dict, dict]:
     """K5 on every scenario at N_ENVS x POLICY_GATE and K4 on the eight other
     than simple_spread at N_ENVS x EVAL_GATE_STEPS (horizon EVAL_HORIZON),
     each with the actor of ``actors`` (the main paths' where they exist)
     or an init_policy actor (He-scaled head, O(1) logits): moves and comm
-    indices equal, values within 1e-5; kernel and plain version timed ->
+    indices equal, values within 1e-5, and at another tile than the rule's
+    every output equal bit for bit; kernel and plain version timed ->
     ({scenario: (K5 err, ms, plain ms, bound)}, {scenario: (K4 err, ms,
     plain ms, bound)} without simple_spread, whose K4 is gated at path c's
-    shape)."""
+    shape, {(kernel, scenario): the rule's tile})."""
     import torch
 
     from mpe_tpu_torch.learner import init_policy
-    from mpe_tpu_torch.ops.fused_policy import fused_policy_rollout, fused_policy_trajectory
+    from mpe_tpu_torch.ops.fused_policy import (POLICY_TILES, _kernel_weights,
+                                                fused_policy_rollout, fused_policy_trajectory,
+                                                policy_rollout_cuda, policy_tile,
+                                                policy_traj_cuda)
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
-    k5, k4 = {}, {}
+    k5, k4, tiles = {}, {}, {}
     for i, name in enumerate(ALL_SCENARIOS):
         _, ow, c, _, _ = widths(name)
         actor = actors.get(name)
@@ -1291,6 +1340,13 @@ def check_policy_kernels(actors: dict) -> tuple[dict, dict]:
                     {k: max_err(x, y) for k, x, y in zip(labels, got, ref)})
         k5[name] = (err, ms, plain_ms,
                     policy_bounds(name, N_ENVS, steps, POLICY_GATE["horizon"])[0])
+        kscn, weights = kernel_scenario(name), _kernel_weights(actor, "cuda")
+        tiles["K5", name] = policy_tile(kscn, N_ENVS, "traj")
+        alt = other_tile(POLICY_TILES, tiles["K5", name])
+        same_bits(f"K5 ({name}) at tile {alt} against tile {tiles['K5', name]}",
+                  policy_traj_cuda(kscn, weights, N_ENVS, steps, POLICY_GATE["horizon"],
+                                   POLICY_GATE["block_envs"], POLICY_GATE["t_chunk"], 4, 0,
+                                   "cuda", tile=alt), got)
         del got, ref
         if name == "simple_spread":
             continue
@@ -1303,14 +1359,19 @@ def check_policy_kernels(actors: dict) -> tuple[dict, dict]:
                     {k: max_err(x, y) for k, x, y in zip(("ret", "pos", "episodes"), got, ref)})
         k4[name] = (err, ms, plain_ms,
                     policy_bounds(name, N_ENVS, EVAL_GATE_STEPS, EVAL_HORIZON)[1])
-    return k5, k4
+        tiles["K4", name] = policy_tile(kscn, N_ENVS, "rollout")
+        alt = other_tile(POLICY_TILES, tiles["K4", name])
+        same_bits(f"K4 ({name}) at tile {alt} against tile {tiles['K4', name]}",
+                  policy_rollout_cuda(kscn, weights, N_ENVS, EVAL_GATE_STEPS, EVAL_HORIZON,
+                                      BLOCK_ENVS, 6, 0, "cuda", tile=alt), got)
+    return k5, k4, tiles
 
 
 def ptxas_registers(logs: dict) -> dict:
     """{mangled kernel name: [registers, spill store bytes]} from the
     compiler's -Xptxas -v report; the spills are the largest of the kernel's
-    and of the functions it calls (a __noinline__ sampler has its own
-    frame)."""
+    and of the functions it calls (a function that is not inlined has its
+    own frame)."""
     import re
 
     out, current = {}, None
@@ -1420,15 +1481,19 @@ def check_det_kernels(det_inputs) -> tuple[dict, dict]:
 def check_maddpg_collect(name: str, actors: dict):
     """K8 on ``name`` against its plain version at the MADDPG paths' shape
     (1024 envs x 25 steps, horizon 25, eps 0.1, two block offsets) with each
-    actor of ``actors`` ({label: actor}), both output forms; the eps coins'
-    share; then K8 in the rows form and its plain version timed with the
-    first actor -> (max abs err, ms, plain ms, bound, the rows of the first
-    actor at block offset 0)."""
+    actor of ``actors`` ({label: actor}), both output forms, and at another
+    tile than the rule's equal bit for bit; the eps coins' share; then K8 in
+    the rows form and its plain version timed with the first actor -> (max
+    abs err, ms, plain ms, bound, the rows of the first actor at block offset
+    0, the rule's tile)."""
     import torch
 
     from mpe_tpu_torch.learner.maddpg import collect_t_chunk
-    from mpe_tpu_torch.ops.fused_maddpg import fused_maddpg_trajectory
+    from mpe_tpu_torch.ops.fused_maddpg import (MADDPG_TILES, _kernel_weights,
+                                                fused_maddpg_trajectory, maddpg_tile,
+                                                maddpg_traj_cuda)
     from mpe_tpu_torch.ops.fused_rollout import make_uniform
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     n, hor = MADDPG["n_envs"], MADDPG["horizon"]
     t_chunk = collect_t_chunk(hor)
@@ -1438,6 +1503,9 @@ def check_maddpg_collect(name: str, actors: dict):
     kw = dict(horizon=hor, eps_greedy=0.1, block_envs=BLOCK_ENVS, t_chunk=t_chunk)
     tens = fused_maddpg_trajectory(name, first, n, hor, **kw)
     rows = fused_maddpg_trajectory(name, first, n, hor, emit_rows=True, **kw)
+    kscn = kernel_scenario(name)
+    tile = maddpg_tile(kscn, n)
+    alt = other_tile(MADDPG_TILES, tile)
     errs, coins = {}, []
     for label, actor in actors.items():
         for offset in (0, 1):
@@ -1445,8 +1513,14 @@ def check_maddpg_collect(name: str, actors: dict):
             report_actions(f"K8 ({name}, {label} actor, block offset {offset})", got[1], ref[1])
             for key, x, y in zip(("obs", "act", "rew", "obs2"), got, ref):
                 errs[key] = max(errs.get(key, 0.0), max_err(x, y))
-            errs["rows"] = max(errs.get("rows", 0.0),
-                               max_err(rows(3, actor, offset), replay_rows(*got)))
+            got_rows = rows(3, actor, offset)
+            errs["rows"] = max(errs.get("rows", 0.0), max_err(got_rows, replay_rows(*got)))
+            weights = _kernel_weights(actor, "cuda")
+            for emit, want in ((False, got), (True, got_rows)):
+                same_bits(f"K8 ({name}, {label} actor, block offset {offset}, rows {emit}) at "
+                          f"tile {alt} against tile {tile}",
+                          maddpg_traj_cuda(kscn, weights, n, hor, hor, BLOCK_ENVS, t_chunk, 0.1,
+                                           3, offset, emit, "cuda", tile=alt), want)
             for chunk in range(hor // t_chunk):
                 u = make_uniform(3, offset, n // BLOCK_ENVS, BLOCK_ENVS, chunk, device="cuda")
                 coins += [float((u((1,), step, 30 + 6 * i + 3 * h) < 0.1).double().mean())
@@ -1464,7 +1538,7 @@ def check_maddpg_collect(name: str, actors: dict):
     print(f"K8 ({name}) {ms:.4f} ms ({n} envs x {hor} steps, rows form), plain {plain_ms:.1f} "
           f"ms; bound {bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor "
           f"{bound[2]:.4f} ms")
-    return err, ms, plain_ms, bound, rows(3, first).reshape(n * hor, width)
+    return err, ms, plain_ms, bound, rows(3, first).reshape(n * hor, width), tile
 
 
 def check_maddpg_update(name: str, params: dict, rows_all, label: str):
@@ -1732,7 +1806,8 @@ def main() -> int:
     from mpe_tpu_torch.ops.fused_parity import (det_group, det_rollout_cuda,
                                                 plain_det_rollout_blocked)
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
-                                                policy_rollout_cuda, policy_traj_cuda)
+                                                policy_rollout_cuda, policy_tile,
+                                                policy_traj_cuda)
     from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
     from mpe_tpu_torch.ops.fused_trajectory import trajectory_cuda
     from mpe_tpu_torch.ops.fused_update import mappo_update_cuda, ppo_update_cuda
@@ -1774,12 +1849,12 @@ def main() -> int:
     # path's launches are read just after it, by instantiation where the
     # kernel is a template over the scenarios
     k5_by, k6_by, k7_by = {}, {}, {}
-    trainers = {}
+    trainers, collect_ms = {}, {}
     for label, name, build, update in (("train", "simple_spread", build_fused_ppo_step, "ppo"),
                                        ("MAPPO", "simple_spread", build_fused_mappo_step, "mappo"),
                                        ("comm PPO", COMM_PPO, build_fused_ppo_step, "ppo"),
                                        ("comm MAPPO", COMM_MAPPO, build_fused_mappo_step, "mappo")):
-        path_launches, step_, state0_, state_ = training_path(
+        path_launches, step_, state0_, state_, phases_ = training_path(
             wrappers, kernel_scenario(name), build, f"{label} ({name})",
             ["policy_traj_kernel", f"{update}_update_kernel"])
         by = read_instantiations(policy_traj_cuda, [name], f"{label} path's K5")
@@ -1789,6 +1864,7 @@ def main() -> int:
         for k, v in path_launches.items():
             launches[k] = launches.get(k, 0) + v
         trainers[label] = (step_, state0_, state_)
+        collect_ms[f"{label} ({name})"] = phases_["collect"]
     step, state0, state = trainers["train"]
     mstep, mstate0, mstate = trainers["MAPPO"]
     cstep, _, cstate = trainers["comm PPO"]
@@ -1810,11 +1886,12 @@ def main() -> int:
     maddpg_runs, k8_by, k9_by = {}, {}, {}
     for name, n_chunks in (("simple_spread", MADDPG_CHUNKS),) + MADDPG_COMM:
         path_launches, by, *maddpg_runs[name] = maddpg_path(wrappers, name, n_chunks)
+        collect_ms[f"MADDPG ({name})"] = maddpg_runs[name][4]
         for k, v in path_launches.items():
             launches[k] = launches.get(k, 0) + v
         k8_by.update(by["maddpg_traj_kernel"])
         k9_by.update(by["maddpg_update_kernel"])
-    run, mparams, minfo, _ = maddpg_runs["simple_spread"]
+    run, mparams, minfo, *_ = maddpg_runs["simple_spread"]
     scn_launches, scn_by, k1_scn_ms, k2_scn_ms, k3_ms = scenarios_path(wrappers,
                                                                        torch.device("cuda"))
     # K1 and K2 ran in path a (simple_spread) and path e (the eight others)
@@ -1868,7 +1945,7 @@ def main() -> int:
     # K5 and K4 on every scenario, the main paths' actors where they ran
     trainer_actors = {"simple_spread": actor, COMM_PPO: evals[COMM_PPO],
                       COMM_MAPPO: actor_of(lstate[0], ("a1", "a2"))}
-    k5_rows, k4_rows = check_policy_kernels(trainer_actors)
+    k5_rows, k4_rows, policy_tiles = check_policy_kernels(trainer_actors)
 
     # ---- the main paths' shapes: K4 on every actor path c evaluated, K5 with
     # every trainer's actor at the training shape; checked and timed there
@@ -1900,8 +1977,9 @@ def main() -> int:
         actors = {"checkpoint": ckpt["actor"]}
         if name in maddpg_runs:
             actors["trained"] = maddpg_runs[name][1]["actor"]
-        err, ms, plain_ms, bound, rows8 = check_maddpg_collect(name, actors)
-        k8_rows[name] = scenario_row(k8_by, "maddpg_traj_kernel", name, err, ms, plain_ms, bound)
+        err, ms, plain_ms, bound, rows8, tile8 = check_maddpg_collect(name, actors)
+        k8_rows[name] = scenario_row(k8_by, "maddpg_traj_kernel", name, err, ms, plain_ms, bound,
+                                     tile=tile8)
         err, ms, plain_ms, lib_ms, bound, tree_ms = check_maddpg_update(name, ckpt, rows8,
                                                                         "checkpoint")
         k9_rows[name] = scenario_row(k9_by, "maddpg_update", name, err, ms, plain_ms, bound,
@@ -1914,6 +1992,13 @@ def main() -> int:
     chunk_err = {name: check_update_chunk(name, *r[:3]) for name, r in maddpg_runs.items()}
     for name, r in maddpg_runs.items():
         k9_rows[name].update(profile_maddpg_update(name, *r[:3]))
+    k5_by_trainer = {"train (simple_spread)": "simple_spread",
+                     "MAPPO (simple_spread)": "simple_spread", f"comm PPO ({COMM_PPO})": COMM_PPO,
+                     f"comm MAPPO ({COMM_MAPPO})": COMM_MAPPO}
+    print("collect phases beside their kernels (mean ms per iteration or chunk; the kernel's "
+          "median at the same shape): " + "; ".join(
+              f"{k} {v:.3f} (K5 {k5_main[k5_by_trainer[k]][1]:.4f})" if k in k5_by_trainer else
+              f"{k} {v:.3f} (K8 {k8_rows[k[8:-1]]['ms']:.4f})" for k, v in collect_ms.items()))
     k3_device_ms = profile_trajectories(k3_ms)
     k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
 
@@ -1973,10 +2058,13 @@ def main() -> int:
     # them where a trainer ran (its error folded into the row's); K4 rows at
     # 4096 x 200, simple_spread's at path c's shape, with path c's numbers
     # beside them where path c evaluated an actor
-    k5_scn = {n: policy_row(n, "policy_traj_kernel", *k5_rows[n], k5_by) for n in ALL_SCENARIOS}
-    k4_scn = {n: policy_row(n, "policy_rollout_kernel", *k4_rows[n], k4_by) for n in SCENARIOS}
+    k5_scn = {n: policy_row(n, "policy_traj_kernel", *k5_rows[n], k5_by,
+                            tile=policy_tiles["K5", n]) for n in ALL_SCENARIOS}
+    k4_scn = {n: policy_row(n, "policy_rollout_kernel", *k4_rows[n], k4_by,
+                            tile=policy_tiles["K4", n]) for n in SCENARIOS}
     k4_scn["simple_spread"] = policy_row("simple_spread", "policy_rollout_kernel", k4_err,
-                                         *k4_main["simple_spread"][1:], k4_by)
+                                         *k4_main["simple_spread"][1:], k4_by,
+                                         tile=policy_tile(kscn, N_ENVS, "rollout"))
     for rows, main_rows, key in ((k5_scn, k5_main, "training_shape"),
                                  (k4_scn, k4_main, "evaluation_shape")):
         for n, r in main_rows.items():
@@ -2023,11 +2111,14 @@ def main() -> int:
         # (horizon 32); by_scenario at the gate's (horizon 25)
         record("policy_traj_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:245",
                k5_err, k5_ms, plain_k5_ms, (b5, by5), scenarios=list(ALL_SCENARIOS),
-               timed_on="simple_spread", by_scenario=k5_scn),
+               timed_on="simple_spread", by_scenario=k5_scn,
+               tile=k5_scn["simple_spread"]["tile"], tile_rule=POLICY_TILE_RULE,
+               collect_phase_ms={k: v for k, v in collect_ms.items() if "MADDPG" not in k}),
         # K4's top-level numbers are simple_spread's at the evaluation shape
         record("policy_rollout_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:90",
                k4_err, k4_ms, plain_k4_ms, (b4, by4), scenarios=list(ALL_SCENARIOS),
-               timed_on="simple_spread", by_scenario=k4_scn),
+               timed_on="simple_spread", by_scenario=k4_scn,
+               tile=k4_scn["simple_spread"]["tile"], tile_rule=POLICY_TILE_RULE),
         # K6 and K7: one epoch of the trainer's batch, simple_spread's at the top
         record("ppo_update_kernel", "mpe_update.cu", "mpe_tpu/ops/fused_update.py:188",
                max(r["max_abs_err"] for r in k6_scn.values()), spread6["ms"],
@@ -2047,7 +2138,9 @@ def main() -> int:
                k8_rows["simple_spread"]["plain_ms"],
                (k8_rows["simple_spread"]["bound_ms"], k8_rows["simple_spread"]["bound_by"]),
                scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k8_rows,
-               pair_physics=pair_physics),
+               pair_physics=pair_physics, tile=k8_rows["simple_spread"]["tile"],
+               tile_rule=POLICY_TILE_RULE,
+               collect_phase_ms={k: v for k, v in collect_ms.items() if "MADDPG" in k}),
         record("maddpg_update_kernel", "mpe_maddpg.cu",
                "mpe_tpu/ops/fused_maddpg_update.py:142", k9_err, k9_ms, plain_k9_ms, b9,
                lib_k9_ms, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",

@@ -33,16 +33,23 @@
 // 192 CTAs, on the one wave it fills.
 //
 // What the designs do about it.
-// K8 is K5 (mpe_policy.cu) with a weight block per agent: one thread owns one
-// env lane, its world state (S::W) and each agent's last utterance index
-// (the comm the obs reads, -1 for a zero row: a silent agent, every agent
-// after a reset) in registers; the A actors' weights (at most 6 x 6,988
-// floats, 168 KB, on simple_world_comm) in dynamic shared memory, each
-// agent's block padded to a 16-byte boundary for the float4 rows of
-// policy_mlp.cuh. The MLP is the one K5 uses, inside a __noinline__ sampler,
-// so it gets its own register allocation. At 1024 envs this fills 32 warps,
-// one per SM on 32 SMs: the collection is one lane's serial chain, not the
-// card's throughput (PERF.md).
+// K8 is K5's lane tile (mpe_policy.cu, policy_mlp.cuh) with a weight block per
+// agent: a CTA of TILE_THREADS threads owns a tile of TL env lanes
+// (ops/fused_maddpg.py::maddpg_tile picks TL, 1 to 8; at path d's 1024 envs
+// 2 to 8, so that the grid of 128-512 CTAs runs in one wave where the old
+// one-warp CTAs filled 32 SMs). The A actors (at most 6 x 6,988 floats,
+// 168 KB, on simple_world_comm) sit in dynamic shared memory in TileActor's
+// layout, NWP floats apart, and the MLP of every (agent, lane) row runs as
+// CTA-wide register-tiled products, each row with its agent's weights. Then
+// one thread per row draws both eps-mixed heads, and one thread per lane
+// steps its world (state and each agent's last utterance index in
+// registers, as in K5) and writes the TRUE s' into the second of two
+// input-row buffers, which is the next step's input unless the lanes reset.
+// The rows form is written by the whole CTA: a step's rows of the tile's
+// lanes are TL contiguous rows of RW floats, which the threads write in
+// order from the two input-row buffers, the rows' action indices and the
+// reward rows in shared memory (the old kernel wrote one row per thread, RW
+// floats apart: a 32-byte sector per 4-byte store).
 // K9: the agents' networks are independent until the loss, so a CTA takes one
 // agent and a tile of TS9 = 16 samples (grid: batch tiles x agents: 64 x A
 // CTAs at path d's batch of 1024, 192 on simple_spread). Four kernels, each
@@ -75,7 +82,6 @@
 // to run. Tensor cores (TF32 or 3xTF32) would sum in another order and are
 // left out.
 
-#include "scenario_blocks.cuh"
 #include "policy_mlp.cuh"
 
 namespace {
@@ -113,8 +119,6 @@ using DimsOf = MaddpgDims<S::A, S::OW, S::C>;
 
 // ---- K8 ---------------------------------------------------------------------
 
-constexpr int MADDPG_THREADS = 32;       // one warp per CTA, as K5
-
 // One head of _peragent_sample: Gumbel-max over logits z[K0, K0 + W) with
 // uniform((W, n)) on salt_g, eps-mixed: a uniform one-hot by Gumbel-max of
 // zeros on salt_e, taken where uniform((1, n)) on salt_c is below eps.
@@ -149,128 +153,180 @@ __device__ __forceinline__ int eps_gumbel_head(const float (&z)[KP], uint32_t sa
   return best;
 }
 
-// agent i's MLP on x, its move head on call ids 28 + 6i (Gumbel), 29 + 6i
-// (eps one-hot), 30 + 6i (eps coin) and, where the scenario speaks, its comm
-// head on 31-33 + 6i, drawn for a silent agent too -> move + 16 comm. Not
-// inlined (see K5).
+// _peragent_sample on the tile's rows: row (agent i, lane l) runs its move
+// head on call ids 28 + 6i (Gumbel), 29 + 6i (eps one-hot), 30 + 6i (eps
+// coin) and, where the scenario speaks, its comm head on 31-33 + 6i, drawn
+// for a silent agent too -> act[row] = move + 16 comm
 template <class S>
-__device__ __noinline__ int sample_action(const float* __restrict__ w, const float (&x)[S::OW],
-                                          uint32_t mixed, int step, int agent, uint32_t n,
-                                          uint32_t lane, float eps) {
-  float z[MW + S::C];
-  policy_logits(w, x, z);
-  const int base = 28 + 6 * agent;
-  const int move = eps_gumbel_head<0, MW>(z, rollout_salt(mixed, step, base),
-                                          rollout_salt(mixed, step, base + 1),
-                                          rollout_salt(mixed, step, base + 2), n, lane, eps);
-  int comm = 0;
-  if constexpr (S::C > 0) {
-    comm = eps_gumbel_head<MW, S::C>(z, rollout_salt(mixed, step, base + 3),
-                                     rollout_salt(mixed, step, base + 4),
-                                     rollout_salt(mixed, step, base + 5), n, lane, eps);
+__device__ __forceinline__ void sample_rows(const float* z, int* act, const TileRows& tr, int tlv,
+                                            int g0, uint32_t n, uint32_t seed,
+                                            uint32_t block_offset, int chunk, int step,
+                                            float eps) {
+  constexpr int KP = MW + S::C;
+  for (int row = threadIdx.x; row < tr.nr; row += blockDim.x) {
+    const int i = row / tr.tlp, l = row - i * tr.tlp;
+    if (l >= tlv) continue;
+    const uint32_t g = (uint32_t)(g0 + l), lane = g % n;
+    const uint32_t mixed = seed * 7919u + (g / n + block_offset) * 104729u +
+                           (uint32_t)chunk * 15485863u;   // make_uniform's extra salt 0
+    float zr[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) zr[k] = z[k * tr.ldx + row];
+    const int base = 28 + 6 * i;
+    const int move = eps_gumbel_head<0, MW>(zr, rollout_salt(mixed, step, base),
+                                            rollout_salt(mixed, step, base + 1),
+                                            rollout_salt(mixed, step, base + 2), n, lane, eps);
+    int comm = 0;
+    if constexpr (S::C > 0) {
+      comm = eps_gumbel_head<MW, S::C>(zr, rollout_salt(mixed, step, base + 3),
+                                       rollout_salt(mixed, step, base + 4),
+                                       rollout_salt(mixed, step, base + 5), n, lane, eps);
+    }
+    act[row] = move + 16 * comm;
   }
-  return move + 16 * comm;
+}
+
+// The rows form of one step: the tile's lanes' rows [obs | act | rew | obs2]
+// are contiguous, TLV RW floats at dst; the CTA's threads write them in order,
+// reading the obs and obs2 from the two input-row buffers, the one-hots from
+// the rows' action indices and the rewards from their rows
+template <class S>
+__device__ __forceinline__ void write_rows(float* __restrict__ dst, const float* x, const float* x2,
+                                           const int* act, const float* rew,
+                                           const TileRows& tr, int tlv) {
+  using D = DimsOf<S>;
+  constexpr int OW = S::OW, K = D::K;
+  for (int e = threadIdx.x; e < tlv * D::RW; e += blockDim.x) {
+    const int l = e / D::RW, col = e - l * D::RW;
+    float v;
+    if (col < D::AO) {
+      const int i = col / OW;
+      v = x[(col - i * OW) * tr.ldx + i * tr.tlp + l];
+    } else if (col < D::R_REW) {
+      const int q = col - D::AO, i = q / K, k = q - i * K;
+      const int a = act[i * tr.tlp + l];
+      v = (k < MW ? k == (a & 15) : k - MW == (a >> 4)) ? 1.0f : 0.0f;
+    } else if (col < D::R_OBS2) {
+      v = rew[(S::R == 1 ? 0 : col - D::R_REW) * tr.tlp + l];
+    } else {
+      const int q = col - D::R_OBS2, i = q / OW;
+      v = x2[(q - i * OW) * tr.ldx + i * tr.tlp + l];
+    }
+    dst[e] = v;
+  }
 }
 
 template <class S>
-__global__ void __launch_bounds__(MADDPG_THREADS)
+__global__ void __launch_bounds__(TILE_THREADS)
 maddpg_traj_kernel(const typename S::Params c, const float* __restrict__ weights,
                    float* __restrict__ obs, float* __restrict__ act, float* __restrict__ rew,
                    float* __restrict__ obs2, float* __restrict__ rows, int n_envs,
                    int block_envs, int n_chunks, int t_chunk, int horizon, float eps,
-                   uint32_t seed, uint32_t block_offset) {
+                   uint32_t seed, uint32_t block_offset, int tile) {
   using D = DimsOf<S>;
+  using M = TileActor<S::OW, D::K>;
   constexpr int A = S::A, OW = S::OW, K = D::K, R = S::R;
   static_assert(R == 1 || R == A, "a replay row holds one reward per agent");
   extern __shared__ __align__(16) float smem[];
-  for (int i = threadIdx.x; i < A * D::NW; i += blockDim.x) {
-    const int ag = i / D::NW;
-    smem[ag * D::NWP + i - ag * D::NW] = weights[i];
-  }
-  __syncthreads();
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_envs) return;
+  const TileRows tr = tile_rows(tile, A);
+  float* const w = smem;
+  float* const xb = w + A * M::NWP;          // two input-row buffers, OW LDX floats each
+  float* const h1 = xb + 2 * OW * tr.ldx;    // then the logits
+  float* const h2 = h1 + H * tr.ldx;
+  int* const acts = reinterpret_cast<int*>(h2 + H * tr.ldx);
+  float* const rews = reinterpret_cast<float*>(acts + tr.nr);
+  load_float4s(w, weights, A * M::NWP / 4);
+
+  const int g0 = blockIdx.x * tile;
+  const int tlv = n_envs - g0 < tile ? n_envs - g0 : tile;      // lanes of a ragged tile
+  const int l = threadIdx.x;
+  const bool owner = l < tlv;
   const size_t N = (size_t)n_envs;
+  const int n_steps = n_chunks * t_chunk;
   const uint32_t n = (uint32_t)block_envs;
+  const int g = g0 + l;
   const uint32_t lane = (uint32_t)g % n;
-  const uint32_t rng_block = (uint32_t)g / n + block_offset;
-  const uint32_t mixed0 = seed * 7919u + rng_block * 104729u;
+  const uint32_t mixed0 = seed * 7919u + ((uint32_t)g / n + block_offset) * 104729u;
+  // the tensor form's obs rows of step s, null past the last step
+  auto obs_at = [&](int s) -> float* {
+    return rows == nullptr && s < n_steps ? obs + (size_t)s * A * OW * N + g : nullptr;
+  };
 
   typename S::W wd;
-  draw_world<S>(c, mixed0, n, lane, 0, 0, 8, wd);
   int cidx[A];
-  reset_comm<S>(cidx);
-  int t = 0;
+  if (owner) {
+    draw_world<S>(c, mixed0, n, lane, 0, 0, 8, wd);
+    reset_comm<S>(cidx);
+    put_fresh_obs<S>(c, wd, cidx, xb, tr, l, obs_at(0), N);
+  }
+  int t = 0, cur = 0;
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     const uint32_t mixed = mixed0 + (uint32_t)chunk * 15485863u;   // make_uniform's extra salt 0
     for (int step = 0; step < t_chunk; ++step) {
-      const size_t ts = (size_t)chunk * t_chunk + step;
-      float* row = rows != nullptr ? rows + (ts * N + g) * D::RW : nullptr;
-      float mv[A][MW];
-      int ncidx[A];
-      {
+      const int ts = chunk * t_chunk + step;
+      float* const x = xb + cur * OW * tr.ldx;
+      float* const x2 = xb + (cur ^ 1) * OW * tr.ldx;
+      __syncthreads();                                 // x holds the tile's obs
+      tile_mlp<OW, K>(w, M::NWP, x, h1, h2, tr);
+      sample_rows<S>(h1, acts, tr, tlv, g0, n, seed, block_offset, chunk, step, eps);
+      __syncthreads();
+      t += 1;
+      const bool reset = t >= horizon;                 // every lane's horizon is shared
+      if (owner) {
+        float mv[A][MW];
+#pragma unroll
+        for (int i = 0; i < A; ++i) {
+          const int a = acts[i * tr.tlp + l], move = a & 15, comm = a >> 4;
+#pragma unroll
+          for (int k = 0; k < MW; ++k) mv[i][k] = (k == move) ? 1.0f : 0.0f;
+          if (rows == nullptr) {
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              act[(((size_t)ts * A + i) * K + k) * N + g] =
+                  (k < MW ? k == move : k - MW == comm) ? 1.0f : 0.0f;
+          }
+          cidx[i] = (S::C > 0 && !S::silent(c, i)) ? comm : -1;   // the dynamics' comm
+        }
+        S::physics(c, mv, wd);
         float cm[A][S::CW];
         comm_rows<S>(cidx, cm);
         const typename S::Derived d = S::derive(c, wd, cm);
+        float r[R];
+        S::reward(c, wd, cm, d, r);
 #pragma unroll
-        for (int i = 0; i < A; ++i) {
-          float x[OW];
-#pragma unroll
-          for (int r = 0; r < OW; ++r) {
-            x[r] = S::obs(i, r, wd, cm, d);
-            if (row != nullptr) {
-              row[i * OW + r] = x[r];
-            } else {
-              obs[((ts * A + i) * OW + r) * N + g] = x[r];
-            }
-          }
-          const int a = sample_action<S>(smem + i * D::NWP, x, mixed, step, i, n, lane, eps);
-          const int move = a & 15, comm = a >> 4;
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const float v = (k < MW ? k == move : k - MW == comm) ? 1.0f : 0.0f;
-            if (k < MW) mv[i][k] = v;
-            if (row != nullptr) {
-              row[D::AO + i * K + k] = v;
-            } else {
-              act[((ts * A + i) * K + k) * N + g] = v;
-            }
-          }
-          ncidx[i] = (S::C > 0 && !S::silent(c, i)) ? comm : -1;   // the dynamics' comm
-        }
-      }
-      S::physics(c, mv, wd);
-#pragma unroll
-      for (int i = 0; i < A; ++i) cidx[i] = ncidx[i];
-      float cm[A][S::CW];
-      comm_rows<S>(cidx, cm);
-      const typename S::Derived d = S::derive(c, wd, cm);
-      float r[R];
-      S::reward(c, wd, cm, d, r);
-      if (row != nullptr) {
-#pragma unroll
-        for (int i = 0; i < A; ++i) row[D::R_REW + i] = r[R == 1 ? 0 : i];
-      } else {
-#pragma unroll
-        for (int k = 0; k < R; ++k) rew[(ts * R + k) * N + g] = r[k];
-      }
-#pragma unroll
-      for (int i = 0; i < A; ++i)
-#pragma unroll
-        for (int q = 0; q < OW; ++q) {
-          const float v = S::obs(i, q, wd, cm, d);                     // the TRUE s'
-          if (row != nullptr) {
-            row[D::R_OBS2 + i * OW + q] = v;
+        for (int k = 0; k < R; ++k) {
+          if (rows == nullptr) {
+            rew[((size_t)ts * R + k) * N + g] = r[k];
           } else {
-            obs2[((ts * A + i) * OW + q) * N + g] = v;
+            rews[k * tr.tlp + l] = r[k];
           }
         }
-      t += 1;
-      if (t >= horizon) {                           // lane_fresh: call ids 3/4, goals 24+2+g
-        draw_world<S>(c, mixed, n, lane, step, 3, 24, wd);
-        reset_comm<S>(cidx);
+        float* const gobs2 = rows == nullptr ? obs2 + (size_t)ts * A * OW * N + g : nullptr;
+        float* const gnext = reset ? nullptr : obs_at(ts + 1);
+#pragma unroll
+        for (int i = 0; i < A; ++i)
+#pragma unroll
+          for (int q = 0; q < OW; ++q) {
+            const float v = S::obs(i, q, wd, cm, d);                 // the TRUE s'
+            x2[q * tr.ldx + i * tr.tlp + l] = v;
+            if (gobs2 != nullptr) gobs2[(size_t)(i * OW + q) * N] = v;
+            if (gnext != nullptr) gnext[(size_t)(i * OW + q) * N] = v;
+          }
+      }
+      if (rows != nullptr) {
+        __syncthreads();                               // every lane's row is in place
+        write_rows<S>(rows + ((size_t)ts * N + g0) * D::RW, x, x2, acts, rews, tr, tlv);
+      }
+      if (reset) {                                     // lane_fresh: call ids 3/4, goals 24+2+g
+        if (rows != nullptr) __syncthreads();          // the rows have read x2
+        if (owner) {
+          draw_world<S>(c, mixed, n, lane, step, 3, 24, wd);
+          reset_comm<S>(cidx);
+          put_fresh_obs<S>(c, wd, cidx, x2, tr, l, obs_at(ts + 1), N);
+        }
         t = 0;
       }
+      cur ^= 1;
     }
   }
 }
@@ -283,7 +339,6 @@ constexpr int LD9 = TS9 + 1;                // tile row stride (rows read down c
 constexpr int THREADS9 = 128;
 constexpr int WARPS9 = THREADS9 / 32;
 constexpr int SO9 = TS9 / 2;                // a thread's two samples: s and s + SO9
-constexpr size_t SMEM_MAX = 232448;         // a CTA's dynamic shared memory on sm_90
 static_assert(THREADS9 == (TS9 / 2) * (H / 4), "the 2 x 4 micro-tiles cover TS9 samples x H units");
 
 // a thread's micro-tile of a dense layer on a tile: samples s, s + SO9 and units
@@ -947,20 +1002,34 @@ __global__ void maddpg_reduce_kernel(const float* __restrict__ partials, float* 
   }
 }
 
+// The tile's shared memory: the A actors (TileActor's layout, NWP floats
+// apart), the input rows of this step and of the next [2][OW][LDX] (the next
+// step's obs are this step's obs2 unless the lanes reset), h1 (then the
+// logits) and h2 [H][LDX], the rows' action indices [NR], the reward rows
+// [R][TLP]; or 0 for a tile size the kernel does not take
+template <class S>
+size_t maddpg_smem(int tile) {
+  if (tile < 1 || tile > TILE_MAX) return 0;
+  const TileRows tr = tile_rows(tile, S::A);
+  const size_t bytes = ((size_t)S::A * TileActor<S::OW, MW + S::C>::NWP +
+                        (size_t)(2 * S::OW + 2 * H) * tr.ldx + tr.nr + (size_t)S::R * tr.tlp) *
+                       sizeof(float);
+  return bytes <= SMEM_MAX ? bytes : 0;
+}
+
 template <class S>
 int launch_traj(const void* params, const float* weights, float* obs, float* act, float* rew,
                 float* obs2, float* rows, int n_envs, int block_envs, int n_chunks, int t_chunk,
-                int horizon, float eps, uint32_t seed, uint32_t block_offset,
+                int horizon, float eps, uint32_t seed, uint32_t block_offset, int tile,
                 cudaStream_t stream) {
-  const size_t smem = (size_t)S::A * DimsOf<S>::NWP * sizeof(float);
-  // once per instantiation: the attribute holds for the process
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      maddpg_traj_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t attr = tile_smem_attr<maddpg_traj_kernel<S>, maddpg_smem<S>>();
+  const size_t smem = maddpg_smem<S>(tile);
   if (attr != cudaSuccess) return (int)attr;
-  const int blocks = (n_envs + MADDPG_THREADS - 1) / MADDPG_THREADS;
-  maddpg_traj_kernel<S><<<blocks, MADDPG_THREADS, smem, stream>>>(
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_envs + tile - 1) / tile;
+  maddpg_traj_kernel<S><<<blocks, TILE_THREADS, smem, stream>>>(
       *static_cast<const typename S::Params*>(params), weights, obs, act, rew, obs2, rows, n_envs,
-      block_envs, n_chunks, t_chunk, horizon, eps, seed, block_offset);
+      block_envs, n_chunks, t_chunk, horizon, eps, seed, block_offset, tile);
   return (int)cudaGetLastError();
 }
 
@@ -1019,16 +1088,26 @@ int layout(int which) {
 
 extern "C" {
 
-// K8: the tensor form (obs, act, rew, obs2) when rows is null, else the rows form
+// K8: the tensor form (obs, act, rew, obs2) when rows is null, else the rows
+// form; weights: the A actors in TileActor's layout, NWP floats apart; tile
+// lanes per CTA, 1 to TILE_MAX where the tile's shared memory fits
 int mpe_maddpg_traj(int scenario, const void* params, const float* weights, float* obs,
                     float* act, float* rew, float* obs2, float* rows, int n_envs, int block_envs,
                     int n_chunks, int t_chunk, int horizon, float eps, uint32_t seed,
-                    uint32_t block_offset, cudaStream_t stream) {
+                    uint32_t block_offset, int tile, cudaStream_t stream) {
 #define MPE_MADDPG_TRAJ(S)                                                                  \
   return launch_traj<S>(params, weights, obs, act, rew, obs2, rows, n_envs, block_envs,    \
-                        n_chunks, t_chunk, horizon, eps, seed, block_offset, stream)
+                        n_chunks, t_chunk, horizon, eps, seed, block_offset, tile, stream)
   MPE_SCENARIO_SWITCH(MPE_MADDPG_TRAJ)
 #undef MPE_MADDPG_TRAJ
+}
+
+// K8's CTAs of `tile` lanes that one SM of the current card holds at once;
+// ops/fused_maddpg.py::maddpg_tile reads it
+int mpe_maddpg_traj_ctas_per_sm(int scenario, int tile) {
+#define MPE_MADDPG_CTAS(S) return tile_ctas_per_sm<maddpg_traj_kernel<S>, maddpg_smem<S>>(tile)
+  MPE_SCENARIO_SWITCH(MPE_MADDPG_CTAS)
+#undef MPE_MADDPG_CTAS
 }
 
 // K9. weights [N_WEIGHTS] (see OFF_*); rows [batch, RW]; act2 [A, NH, batch]

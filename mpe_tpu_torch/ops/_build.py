@@ -89,8 +89,9 @@ SIGNATURES = {
         "mpe_scenario_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _I, _P],
     },
     "mpe_policy.cu": {
-        "mpe_policy_traj": [_I] + [_P] * 7 + [_I] * 5 + [_U, _U, _P],
-        "mpe_policy_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _P],
+        "mpe_policy_traj": [_I] + [_P] * 7 + [_I] * 5 + [_U, _U, _I, _P],
+        "mpe_policy_rollout": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _I, _P],
+        "mpe_policy_ctas_per_sm": [_I] * 3,
     },
     "mpe_update.cu": {
         "mpe_ppo_update": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P],
@@ -98,7 +99,8 @@ SIGNATURES = {
         "mpe_update_packed_size": [_I] * 2,
     },
     "mpe_maddpg.cu": {
-        "mpe_maddpg_traj": [_I] + [_P] * 7 + [_I] * 5 + [_F, _U, _U, _P],
+        "mpe_maddpg_traj": [_I] + [_P] * 7 + [_I] * 5 + [_F, _U, _U, _I, _P],
+        "mpe_maddpg_traj_ctas_per_sm": [_I] * 2,
         "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],
         "mpe_maddpg_update_layout": [_I, _I],
     },

@@ -23,7 +23,10 @@ start and after a reset).
 
 On a CUDA device the builder launches ``maddpg_traj_kernel<S>``
 (``csrc/mpe_maddpg.cu``, one instantiation per scenario struct of
-``csrc/scenario_blocks.cuh``); on the CPU it runs ``plain_maddpg_trajectory``.
+``csrc/scenario_blocks.cuh``; a CTA of 128 threads owns a tile of env lanes,
+``maddpg_tile`` picks how many, runs the agents' actors on the tile's
+(agent, lane) rows as CTA-wide products and writes the rows form as
+contiguous rows); on the CPU it runs ``plain_maddpg_trajectory``.
 The RNG is the JAX kernels' interpret-mode hash stream with the time-chunk
 salt, as in K5: agent i draws on call ids ``28 + 6i`` (the move head's
 Gumbel draw of ``uniform((5, n))``), ``29 + 6i`` (the eps one-hot's Gumbel
@@ -42,19 +45,43 @@ import ctypes
 import torch
 
 from mpe_tpu_torch._device import resolve_device
-from mpe_tpu_torch.ops.fused_policy import HIDDEN, _gumbel_onehot, _resolve
+from mpe_tpu_torch.ops.fused_policy import HIDDEN, _gumbel_onehot, _resolve, tile_rule
 from mpe_tpu_torch.ops.fused_rollout import _MASK, make_lane_reset, make_uniform, pick_block_envs
+
+MADDPG_TILES = (1, 2, 4, 8)          # env lanes per CTA that K8 takes (8: world_comm's 209 KB)
+
+
+def maddpg_tile(kscn, n_envs: int, device=None) -> int:
+    """K8's env lanes per CTA on the CUDA ``device`` (``None``: the current
+    one), by ``fused_policy.pick_tile``. Every tile gives the same bits."""
+    from mpe_tpu_torch.ops import _build
+
+    return tile_rule(MADDPG_TILES, kscn, n_envs, device, "mpe_maddpg.cu",
+                     "mpe_maddpg_traj_ctas_per_sm", _build.SCENARIO_IDS[type(kscn).__name__])
 
 
 def _kernel_weights(actor_params, device=None):
     """Stacked actor params (leaves [A, in, out] and [A, out]) -> per-agent
-    kernel layout: w [A, out, in] and b [A, out, 1], float32."""
+    kernel layout: w [A, out, in] and b [A, out, 1], float32 (views where
+    the params are float32 already; ``_pack_weights`` copies once)."""
     def f32(x):
         return x.detach().to(device=device, dtype=torch.float32)
 
     return tuple(t for q in ("l1", "l2", "out")
-                 for t in (f32(actor_params[q]["w"]).transpose(1, 2).contiguous(),
+                 for t in (f32(actor_params[q]["w"]).transpose(1, 2),
                            f32(actor_params[q]["b"])[..., None]))
+
+
+def _pack_weights(weights) -> torch.Tensor:
+    """K8's weight buffer: each agent's actor in the policy kernels' layout
+    (``fused_policy._pack_weights``: w1, w2, w3 transposed, each followed by
+    its bias, padded to a multiple of 4 floats), one after another."""
+    w1, b1, w2, b2, w3, b3 = weights
+    a = w1.shape[0]
+    flat = [x.reshape(a, -1) for x in (w1.transpose(1, 2), b1, w2.transpose(1, 2), b2,
+                                        w3.transpose(1, 2), b3)]
+    pad = -sum(x.shape[1] for x in flat) % 4
+    return torch.cat(flat + ([w1.new_zeros((a, pad))] if pad else []), 1).reshape(-1)
 
 
 def _seq_dense_agents(w, b, x):
@@ -152,12 +179,16 @@ def plain_maddpg_trajectory(kscn, weights, n_envs: int, n_steps: int, horizon: i
 
 def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, block_envs: int,
                      t_chunk: int, eps_greedy: float, seed: int, block_offset: int = 0,
-                     emit_rows: bool = False, device=None):
-    """Launch kernel K8 (``maddpg_traj_kernel<S>``) on ``device``: the outputs
-    of ``plain_maddpg_trajectory``. Counts launches in ``.launches`` and, by
-    scenario name, in ``.launches_by``."""
+                     emit_rows: bool = False, device=None, tile: int | None = None):
+    """Launch kernel K8 (``maddpg_traj_kernel<S>``) on ``device`` with
+    ``tile`` env lanes per CTA (``None`` takes ``maddpg_tile``): the outputs
+    of ``plain_maddpg_trajectory``, the same for every tile. Counts launches
+    in ``.launches`` and, by scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
+    if tile is not None and tile not in MADDPG_TILES:
+        raise ValueError(f"tile={tile}: the MADDPG collection kernel takes {MADDPG_TILES} env "
+                         "lanes per CTA")
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the MADDPG collection kernel needs a CUDA device, got {device}")
@@ -176,8 +207,9 @@ def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
                                   f"{ow}-{HIDDEN}-{HIDDEN}-{aw} actors on {spec.name!r}; got "
                                   f"weight shapes {shapes}")
     scenario, params = _build.kernel_params(kscn)
-    wbuf = torch.cat([torch.cat([w[i].reshape(-1) for w in weights]) for i in range(a)])
-    wbuf = wbuf.to(device=device, dtype=torch.float32).contiguous()
+    if tile is None:
+        tile = maddpg_tile(kscn, n_envs, device)
+    wbuf = _pack_weights([w.to(device=device, dtype=torch.float32) for w in weights])
     f32 = torch.float32
     if emit_rows:
         outs = (torch.empty((n_steps, n_envs, a * (2 * ow + aw + 1)), dtype=f32, device=device),)
@@ -193,7 +225,7 @@ def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
         rc = _build.library("mpe_maddpg.cu").mpe_maddpg_traj(
             scenario, ctypes.byref(params), wbuf.data_ptr(), *ptrs, n_envs, block_envs,
             n_steps // t_chunk, t_chunk, horizon, float(eps_greedy), int(seed) & _MASK,
-            int(block_offset) & _MASK, stream)
+            int(block_offset) & _MASK, tile, stream)
     if rc != 0:
         raise RuntimeError(f"maddpg_traj_kernel launch failed: {_build.error_string(rc)}")
     maddpg_traj_cuda.launches += 1

@@ -19,8 +19,10 @@ utterances and resets each lane at the horizon:
   ``[E, P, N]`` and completed episodes ``[1, N]``.
 
 On a CUDA device the builders launch the kernels in ``csrc/mpe_policy.cu``
-(one template over ``csrc/scenario_blocks.cuh``, one C entry each); on the
-CPU they run the plain versions. The RNG is the JAX kernels' interpret-mode
+(one body over ``csrc/scenario_blocks.cuh``, one C entry each; a CTA of 128
+threads owns a tile of env lanes, ``policy_tile`` picks how many, and runs
+the MLP of the tile's (agent, lane) rows as CTA-wide products); on the CPU
+they run the plain versions. The RNG is the JAX kernels' interpret-mode
 hash stream (``fused_rollout.make_uniform``): moves on call id 7, comm on
 id 9; K5 salts it with the time-chunk index, so ``t_chunk`` is part of its
 definition. Each layer of the plain MLP sums over its inputs in order and
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -42,6 +45,57 @@ from mpe_tpu_torch.ops.fused_rollout import (_MASK, make_lane_reset, make_unifor
                                              pick_block_envs)
 
 HIDDEN = 64                          # the hidden width the CUDA kernels are built for
+POLICY_TILES = (1, 2, 4, 8, 16, 32)  # env lanes per CTA (a tile) that K4 and K5 take
+WARP = 32
+
+
+def pick_tile(tiles, n_agents: int, n_envs: int, ctas_per_sm, sms: int) -> int:
+    """The tile rule of K4, K5 and K8: the smallest of ``tiles`` whose CTAs
+    all run at once (``ceil(n_envs / tile) <= sms * ctas_per_sm(tile)``, the
+    CTAs one SM holds as the card reports them) and whose (agent, lane) rows
+    give every item of a layer's product a thread of a full warp (4 items
+    per row: ``n_agents * tile rounded up to 4 >= 8``); the largest tile
+    where none runs in one wave. Smaller tiles put more CTAs on an SM, so one
+    tile's world step runs beside another's products (PERF.md §6)."""
+    for tile in tiles:
+        rows = n_agents * (-(-tile // 4) * 4)
+        ctas = ctas_per_sm(tile)
+        if 4 * rows >= WARP and ctas > 0 and -(-n_envs // tile) <= sms * ctas:
+            return tile
+    return max(t for t in tiles if ctas_per_sm(t) > 0)
+
+
+@functools.cache
+def _ctas_per_sm(source: str, entry: str, args: tuple, device_index: int) -> int:
+    from mpe_tpu_torch.ops import _build
+
+    with torch.cuda.device(device_index):
+        n = getattr(_build.library(source), entry)(*args)
+    if n < 0:
+        raise RuntimeError(f"{entry}{args} failed: {_build.error_string(-n)}")
+    return n
+
+
+def tile_rule(tiles, kscn, n_envs: int, device, source: str, entry: str, *args) -> int:
+    """``pick_tile`` on the CUDA ``device`` (``None``: the current one) with
+    the CTAs per SM that the C entry ``entry(*args, tile)`` of ``source``
+    reports (cached per device)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return pick_tile(tiles, kscn.spec.n_agents, n_envs,
+                     lambda t: _ctas_per_sm(source, entry, (*args, t), index), sms)
+
+
+def policy_tile(kscn, n_envs: int, kernel: str = "rollout", device=None) -> int:
+    """K4's (``kernel="rollout"``) or K5's (``"traj"``) env lanes per CTA on
+    the CUDA ``device`` (``None``: the current one), by ``pick_tile``. Every
+    tile gives the same bits."""
+    from mpe_tpu_torch.ops import _build
+
+    return tile_rule(POLICY_TILES, kscn, n_envs, device, "mpe_policy.cu",
+                     "mpe_policy_ctas_per_sm", _build.SCENARIO_IDS[type(kscn).__name__],
+                     {"traj": 0, "rollout": 1}[kernel])
 
 
 def _argmax_onehot(z, dim: int = 0):
@@ -105,17 +159,25 @@ def _onehot_index(onehot):
 
 def _kernel_weights(params, device=None):
     """init_policy-layout params -> the kernels' weights: w [out, in] and
-    b [out, 1], float32."""
+    b [out, 1], float32 (views where the params are float32 already:
+    ``_pack_weights`` transposes w back, so a launch copies each weight
+    once)."""
     def f32(x):
         return x.detach().to(device=device, dtype=torch.float32)
 
     return tuple(t for q in ("l1", "l2", "out")
-                 for t in (f32(params[q]["w"]).T.contiguous(), f32(params[q]["b"])[:, None]))
+                 for t in (f32(params[q]["w"]).T, f32(params[q]["b"])[:, None]))
 
 
 def _pack_weights(weights) -> torch.Tensor:
-    """The kernels' weight buffer: w1, b1, w2, b2, w3, b3 flattened in order."""
-    return torch.cat([w.reshape(-1) for w in weights]).contiguous()
+    """The kernels' weight buffer (``csrc/policy_mlp.cuh::TileActor``): w1,
+    w2 and w3 transposed ([in, out], the units of an input contiguous), each
+    followed by its bias, padded with zeros to a multiple of 4 floats."""
+    w1, b1, w2, b2, w3, b3 = weights
+    flat = [w1.T.reshape(-1), b1.reshape(-1), w2.T.reshape(-1), b2.reshape(-1),
+            w3.T.reshape(-1), b3.reshape(-1)]
+    pad = -sum(x.numel() for x in flat) % 4
+    return torch.cat(flat + ([w1.new_zeros(pad)] if pad else []))
 
 
 def _resolve(scenario):
@@ -206,11 +268,15 @@ def plain_policy_rollout(kscn, weights, n_envs: int, n_steps: int, horizon: int,
 # kernels K5 and K4
 # ---------------------------------------------------------------------------
 
-def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device):
+def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device, tile=None,
+                 kernel="rollout"):
     """Checks shared by both wrappers -> (scenario id, constants, weight
-    buffer). Raises before any launch on what the kernels do not compute."""
+    buffer, tile). Raises before any launch on what the kernels do not
+    compute; ``tile`` None takes ``policy_tile`` of ``kernel``."""
     from mpe_tpu_torch.ops import _build
 
+    if tile is not None and tile not in POLICY_TILES:
+        raise ValueError(f"tile={tile}: the policy kernels take {POLICY_TILES} env lanes per CTA")
     if device.type != "cuda":
         raise ValueError(f"the policy kernels need a CUDA device, got {device}")
     if n_envs <= 0 or n_envs % block_envs:
@@ -228,22 +294,26 @@ def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device):
         raise ValueError(f"{kscn.spec.name!r} takes an {ow}-{HIDDEN}-{HIDDEN}-{k} MLP; got "
                          f"weight shapes {shapes}")
     scenario, params = _build.kernel_params(kscn)
+    if tile is None:
+        tile = policy_tile(kscn, n_envs, kernel, device)
     return scenario, params, _pack_weights([w.to(device=device, dtype=torch.float32)
-                                            for w in weights])
+                                            for w in weights]), tile
 
 
 def policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, block_envs: int,
-                     t_chunk: int, seed: int, block_offset: int = 0, device=None):
-    """Launch kernel K5 (``policy_traj_kernel<S>``) on ``device``: the outputs
-    of ``plain_policy_trajectory``. Counts launches in ``.launches`` and, by
-    scenario name, in ``.launches_by``."""
+                     t_chunk: int, seed: int, block_offset: int = 0, device=None,
+                     tile: int | None = None):
+    """Launch kernel K5 (``policy_traj_kernel<S>``) on ``device`` with
+    ``tile`` env lanes per CTA (``None`` takes ``policy_tile``): the outputs
+    of ``plain_policy_trajectory``, the same for every tile. Counts launches
+    in ``.launches`` and, by scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     device = torch.device(device)
     if t_chunk < 1 or n_steps % t_chunk:
         raise ValueError(f"n_steps={n_steps} must be a multiple of t_chunk={t_chunk}")
-    scenario, params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs,
-                                          device)
+    scenario, params, wbuf, tile = _kernel_args(kscn, weights, n_envs, n_steps, horizon,
+                                                block_envs, device, tile, "traj")
     a, ow = kscn.spec.n_agents, kscn.obs_w
     obs = torch.empty((n_steps, a, ow, n_envs), dtype=torch.float32, device=device)
     act = torch.empty((n_steps, a, n_envs), dtype=torch.int32, device=device)
@@ -256,7 +326,7 @@ def policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
             scenario, ctypes.byref(params), wbuf.data_ptr(), obs.data_ptr(), act.data_ptr(),
             None if cact is None else cact.data_ptr(), rew.data_ptr(), last_obs.data_ptr(),
             n_envs, block_envs, n_steps // t_chunk, t_chunk, horizon, int(seed) & _MASK,
-            int(block_offset) & _MASK, stream)
+            int(block_offset) & _MASK, tile, stream)
     if rc != 0:
         raise RuntimeError(f"policy_traj_kernel launch failed: {_build.error_string(rc)}")
     policy_traj_cuda.launches += 1
@@ -271,15 +341,16 @@ policy_traj_cuda.launches_by = collections.Counter()
 
 
 def policy_rollout_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, block_envs: int,
-                        seed: int, block_offset: int = 0, device=None):
-    """Launch kernel K4 (``policy_rollout_kernel<S>``) on ``device``: the
-    outputs of ``plain_policy_rollout``. Counts launches in ``.launches``
-    and, by scenario name, in ``.launches_by``."""
+                        seed: int, block_offset: int = 0, device=None, tile: int | None = None):
+    """Launch kernel K4 (``policy_rollout_kernel<S>``) on ``device`` with
+    ``tile`` env lanes per CTA (``None`` takes ``policy_tile``): the outputs
+    of ``plain_policy_rollout``, the same for every tile. Counts launches in
+    ``.launches`` and, by scenario name, in ``.launches_by``."""
     from mpe_tpu_torch.ops import _build
 
     device = torch.device(device)
-    scenario, params, wbuf = _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs,
-                                          device)
+    scenario, params, wbuf, tile = _kernel_args(kscn, weights, n_envs, n_steps, horizon,
+                                                block_envs, device, tile)
     spec = kscn.spec
     ret = torch.empty((kscn.reward_rows, n_envs), dtype=torch.float32, device=device)
     pos = torch.empty((spec.n_entities, spec.dim_p, n_envs), dtype=torch.float32, device=device)
@@ -289,7 +360,7 @@ def policy_rollout_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, 
         rc = _build.library("mpe_policy.cu").mpe_policy_rollout(
             scenario, ctypes.byref(params), wbuf.data_ptr(), ret.data_ptr(), pos.data_ptr(),
             eps.data_ptr(), n_envs, block_envs, n_steps, horizon, int(seed) & _MASK,
-            int(block_offset) & _MASK, stream)
+            int(block_offset) & _MASK, tile, stream)
     if rc != 0:
         raise RuntimeError(f"policy_rollout_kernel launch failed: {_build.error_string(rc)}")
     policy_rollout_cuda.launches += 1

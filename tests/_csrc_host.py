@@ -1,0 +1,150 @@
+"""The host build of the port's CUDA sources (``mpe_tpu_torch/csrc/``) that
+``test_torch_csrc_host.py`` and ``test_torch_policy_host.py`` share.
+
+A stand-in ``cuda_runtime.h`` defines the few CUDA names the sources use
+(the execution-space keywords as nothing, ``__shared__`` as a static,
+``rsqrtf`` as ``1 / sqrtf``, ``__stcs`` as a plain store, ``float4``, ``dim3``),
+and each ``kernel<<<blocks, threads, smem, stream>>>(...)`` launch runs its
+blocks one after another, each block's threads as host threads that meet at
+``__syncthreads()`` and ``__syncwarp()`` (a barrier of the whole block);
+``__shfl_sync`` exchanges values through the same barrier; a kernel's dynamic
+shared memory becomes one static buffer.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import pytest
+
+from mpe_tpu_torch.ops import _build
+
+MAX_SMEM_FLOATS = 232448 // 4          # a CTA's dynamic shared memory on the card
+CUDA_RUNTIME = """\
+#pragma once
+#include <cfloat>
+#include <cmath>
+#include <condition_variable>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <thread>
+#include <vector>
+#include <math.h>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __noinline__
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
+template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+template <class F> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;                          // the host runs one block at a time
+  return 0;
+}
+struct alignas(16) float4 { float x, y, z, w; };
+struct host_dim3 { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline thread_local host_dim3 blockIdx, threadIdx, blockDim, gridDim;
+inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+// the block's threads meet here; blocks run one after another
+struct HostBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  unsigned count = 0, waiting = 0, generation = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lock(m);
+    const unsigned gen = generation;
+    if (++waiting == count) {
+      waiting = 0;
+      ++generation;
+      cv.notify_all();
+    } else {
+      cv.wait(lock, [&] { return gen != generation; });
+    }
+  }
+};
+inline HostBarrier host_barrier;
+inline void __syncthreads() { host_barrier.wait(); }
+// a warp's lanes meet at the CTA's barrier (every thread of the CTA calls it)
+inline void __syncwarp(unsigned = 0xffffffffu) { host_barrier.wait(); }
+inline unsigned long long host_lanes[1024];
+template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long), "a shuffled value fits a slot");
+  std::memcpy(&host_lanes[threadIdx.x], &v, sizeof(T));
+  host_barrier.wait();
+  T out;
+  std::memcpy(&out, &host_lanes[(threadIdx.x & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
+  host_barrier.wait();
+  return out;
+}
+template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
+  host_barrier.count = threads;
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::vector<std::thread> pool;
+      for (unsigned t = 0; t < threads; ++t)
+        pool.emplace_back([=] {
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          threadIdx.x = t;
+          blockDim.x = threads;
+          gridDim.x = grid.x;
+          gridDim.y = grid.y;
+          body();
+        });
+      for (auto& th : pool) th.join();
+    }
+}
+"""
+LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?), (\w+), (.*?), stream>>>\((.*?)\);", re.S)
+DYNAMIC_SMEM = "extern __shared__ __align__(16) float smem[];"
+
+
+def _launch(match) -> str:
+    kernel, blocks, threads, _, args = match.groups()
+    return f"host_launch(dim3({blocks}), (unsigned)({threads}), [&] {{ {kernel}({args}); }});"
+
+
+def build_host_libs(out, sources=_build.SOURCES) -> dict:
+    """Compile ``sources`` (of ``_build.SOURCES``) for the host into ``out``,
+    one compiler per source, all started together -> {source: ctypes.CDLL}
+    with the C entries' argtypes set. Skips the calling test without a C++
+    compiler."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler (g++ or c++) to build the CUDA sources for the host")
+    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME)
+    for header in _build.HEADERS:
+        shutil.copy(_build.CSRC / header, out / header)
+    procs = {}
+    for source in sources:
+        cpp = out / f"{source}.cpp"
+        text = (_build.CSRC / source).read_text()
+        text = text.replace(DYNAMIC_SMEM, f"alignas(16) static float smem[{MAX_SMEM_FLOATS}];")
+        cpp.write_text(LAUNCH.sub(_launch, text))
+        lib = out / f"lib{source}.so"
+        procs[source] = (lib, subprocess.Popen(
+            [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w", "-shared",
+             "-fPIC", "-pthread", "-I", str(out), "-o", str(lib), str(cpp)]))
+    libs = {}
+    for source, (lib, proc) in procs.items():
+        assert proc.wait() == 0, f"the host build of {source} failed"
+        libs[source] = ctypes.CDLL(str(lib))
+        for name, argtypes in _build.SIGNATURES[source].items():
+            getattr(libs[source], name).argtypes = argtypes
+            getattr(libs[source], name).restype = ctypes.c_int
+    return libs

@@ -3,16 +3,9 @@
 compiled for the host by a C++ compiler and held against their plain
 versions on the CPU, for every scenario instantiation.
 
-A stand-in ``cuda_runtime.h`` defines the few CUDA names the sources use
-(the execution-space keywords as nothing, ``__shared__`` as a static,
-``rsqrtf`` as ``1 / sqrtf``, ``__stcs`` as a plain store, ``float4``, ``dim3``), and
-each ``kernel<<<blocks, threads, smem, stream>>>(...)`` launch runs its
-blocks one after another, each block's threads as host threads that meet at
-``__syncthreads()`` and ``__syncwarp()`` (a barrier of the whole block), so a
-CTA's phases run in order as on the card; ``__shfl_sync`` exchanges values
-through the same barrier; a kernel's dynamic shared memory becomes one
-static buffer.
-This checks the device functions' indexing, order of operations and RNG
+The host build (``tests/_csrc_host.py``) runs a launch's blocks one after
+another, each block's threads as host threads meeting at a barrier, so a
+CTA's phases run in order as on the card. This checks the device functions' indexing, order of operations and RNG
 streams without a card. The arithmetic is the host's (its libm and an exact
 reciprocal square root), not the card's: trajectories' actions (raw hash
 draws), the policy and MADDPG kernels' sampled actions and K9's target
@@ -24,9 +17,6 @@ Without a C++ compiler the tests skip.
 
 import ctypes
 import dataclasses
-import re
-import shutil
-import subprocess
 
 import pytest
 import torch
@@ -40,137 +30,20 @@ from mpe_tpu_torch.ops.fused_policy import (_kernel_weights, _pack_weights, plai
 from mpe_tpu_torch.ops.fused_rollout import plain_rollout, rollout_group
 from mpe_tpu_torch.ops.fused_trajectory import plain_trajectory
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+from tests._csrc_host import build_host_libs
 
 NAMES = ["simple_spread", "simple", "simple_reference", "simple_speaker_listener",
          "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
 N_ENVS, BLOCK_ENVS, HORIZON = 256, 128, 10
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
-MAX_SMEM_FLOATS = 232448 // 4          # a CTA's dynamic shared memory on the card
 # the policy kernels' plain versions run hidden 64: at 64 envs each [A, 64, N]
 # op stays below PyTorch's parallel grain, which keeps them quick on a loaded host
 POLICY_ENVS, POLICY_BLOCK_ENVS = 64, 32
 
-CUDA_RUNTIME = """\
-#pragma once
-#include <cfloat>
-#include <cmath>
-#include <condition_variable>
-#include <cstddef>
-#include <cstdint>
-#include <cstring>
-#include <mutex>
-#include <thread>
-#include <vector>
-#include <math.h>
-#define __device__
-#define __host__
-#define __global__
-#define __forceinline__ inline
-#define __noinline__
-#define __launch_bounds__(...)
-#define __align__(n) __attribute__((aligned(n)))
-#define __shared__ static
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize };
-inline int cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
-template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
-struct alignas(16) float4 { float x, y, z, w; };
-struct host_dim3 { unsigned x = 0, y = 0, z = 0; };
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
-};
-inline thread_local host_dim3 blockIdx, threadIdx, blockDim, gridDim;
-inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
-template <class T> inline void __stcs(T* p, T v) { *p = v; }
-// the block's threads meet here; blocks run one after another
-struct HostBarrier {
-  std::mutex m;
-  std::condition_variable cv;
-  unsigned count = 0, waiting = 0, generation = 0;
-  void wait() {
-    std::unique_lock<std::mutex> lock(m);
-    const unsigned gen = generation;
-    if (++waiting == count) {
-      waiting = 0;
-      ++generation;
-      cv.notify_all();
-    } else {
-      cv.wait(lock, [&] { return gen != generation; });
-    }
-  }
-};
-inline HostBarrier host_barrier;
-inline void __syncthreads() { host_barrier.wait(); }
-// a warp's lanes meet at the CTA's barrier (every thread of the CTA calls it)
-inline void __syncwarp(unsigned = 0xffffffffu) { host_barrier.wait(); }
-inline unsigned long long host_lanes[1024];
-template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
-  static_assert(sizeof(T) <= sizeof(unsigned long long), "a shuffled value fits a slot");
-  std::memcpy(&host_lanes[threadIdx.x], &v, sizeof(T));
-  host_barrier.wait();
-  T out;
-  std::memcpy(&out, &host_lanes[(threadIdx.x & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
-  host_barrier.wait();
-  return out;
-}
-template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
-  host_barrier.count = threads;
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::vector<std::thread> pool;
-      for (unsigned t = 0; t < threads; ++t)
-        pool.emplace_back([=] {
-          blockIdx.x = bx;
-          blockIdx.y = by;
-          threadIdx.x = t;
-          blockDim.x = threads;
-          gridDim.x = grid.x;
-          gridDim.y = grid.y;
-          body();
-        });
-      for (auto& th : pool) th.join();
-    }
-}
-"""
-LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?), (\w+), (.*?), stream>>>\((.*?)\);", re.S)
-DYNAMIC_SMEM = "extern __shared__ __align__(16) float smem[];"
-
-
-def _launch(match) -> str:
-    kernel, blocks, threads, _, args = match.groups()
-    return f"host_launch(dim3({blocks}), (unsigned)({threads}), [&] {{ {kernel}({args}); }});"
-
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++ compiler (g++ or c++) to build the CUDA sources for the host")
-    out = tmp_path_factory.mktemp("csrc_host")
-    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME)
-    for header in _build.HEADERS:
-        shutil.copy(_build.CSRC / header, out / header)
-    procs = {}
-    for source in _build.SOURCES:                # one compiler per source, all started together
-        cpp = out / f"{source}.cpp"
-        text = (_build.CSRC / source).read_text()
-        text = text.replace(DYNAMIC_SMEM, f"alignas(16) static float smem[{MAX_SMEM_FLOATS}];")
-        cpp.write_text(LAUNCH.sub(_launch, text))
-        lib = out / f"lib{source}.so"
-        procs[source] = (lib, subprocess.Popen(
-            [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w", "-shared",
-             "-fPIC", "-pthread", "-I", str(out), "-o", str(lib), str(cpp)]))
-    libs = {}
-    for source, (lib, proc) in procs.items():
-        assert proc.wait() == 0, f"the host build of {source} failed"
-        libs[source] = ctypes.CDLL(str(lib))
-        for name, argtypes in _build.SIGNATURES[source].items():
-            getattr(libs[source], name).argtypes = argtypes
-            getattr(libs[source], name).restype = ctypes.c_int
-    return libs
+    return build_host_libs(tmp_path_factory.mktemp("csrc_host"))
 
 
 def _close(got, ref, label):
@@ -282,7 +155,7 @@ def test_host_built_policy_traj_kernel_matches_plain(host_libs, name):
     rc = host_libs["mpe_policy.cu"].mpe_policy_traj(
         scenario, ctypes.byref(params), wbuf.data_ptr(), obs.data_ptr(), act.data_ptr(),
         None if cact is None else cact.data_ptr(), rew.data_ptr(), last_obs.data_ptr(), n,
-        POLICY_BLOCK_ENVS, n_steps // t_chunk, t_chunk, HORIZON, 3, 1, None)
+        POLICY_BLOCK_ENVS, n_steps // t_chunk, t_chunk, HORIZON, 3, 1, 8, None)
     assert rc == 0
     ref = plain_policy_trajectory(kscn, weights, n, n_steps, HORIZON, POLICY_BLOCK_ENVS, t_chunk,
                                   3, 1, "cpu")
@@ -309,7 +182,7 @@ def test_host_built_policy_rollout_kernel_matches_plain(host_libs, name):
            torch.empty((1, n)))
     rc = host_libs["mpe_policy.cu"].mpe_policy_rollout(
         scenario, ctypes.byref(params), wbuf.data_ptr(), *(x.data_ptr() for x in got), n,
-        POLICY_BLOCK_ENVS, 30, HORIZON, 8, 1, None)
+        POLICY_BLOCK_ENVS, 30, HORIZON, 8, 1, 8, None)
     assert rc == 0
     ref = plain_policy_rollout(kscn, weights, n, 30, HORIZON, POLICY_BLOCK_ENVS, 8, 1, "cpu")
     _close(got, ref, ("ret", "pos", "episodes"))
@@ -535,14 +408,15 @@ def test_host_built_maddpg_traj_kernel_matches_plain(host_libs, name):
     a, ow, aw, n = spec.n_agents, kscn.obs_w, kscn.n_logits, POLICY_ENVS
     n_steps, t_chunk, eps = 12, 4, 0.1
     weights = fused_maddpg._kernel_weights(_maddpg_params(kscn)["actor"])
-    wbuf = torch.cat([torch.cat([w[i].reshape(-1) for w in weights]) for i in range(a)])
+    wbuf = fused_maddpg._pack_weights(weights)
     tens = [torch.empty(s) for s in ((n_steps, a, ow, n), (n_steps, a, aw, n),
                                      (n_steps, kscn.reward_rows, n), (n_steps, a, ow, n))]
     rows = torch.empty((n_steps, n, a * (2 * ow + aw + 1)))
     lib = host_libs["mpe_maddpg.cu"]
     for ptrs in ([x.data_ptr() for x in tens] + [None], [None] * 4 + [rows.data_ptr()]):
         rc = lib.mpe_maddpg_traj(scenario, ctypes.byref(params), wbuf.data_ptr(), *ptrs, n,
-                                 POLICY_BLOCK_ENVS, n_steps // t_chunk, t_chunk, 5, eps, 3, 1, None)
+                                 POLICY_BLOCK_ENVS, n_steps // t_chunk, t_chunk, 5, eps, 3, 1, 8,
+                                 None)
         assert rc == 0
     args = (n, n_steps, 5, POLICY_BLOCK_ENVS, t_chunk, eps, 3, 1)
     ref = fused_maddpg.plain_maddpg_trajectory(kscn, weights, *args, device="cpu")

@@ -11,12 +11,14 @@ multiply and add as PyTorch's elementwise ops do, so positions,
 velocities and rewards agree exactly; the obs checksum is summed in
 another order (atol 1e-3 over 20 steps). The policy kernels K4/K5 sum each
 layer in the plain version's order: moves, comm indices and episode counts
-equal, values within 1e-5, on all nine scenarios. The update kernel K6 sums
+equal, values within 1e-5, on all nine scenarios, and every tile size (env
+lanes per CTA) gives the same bits. The update kernel K6 sums
 the batch in its own order: each gradient leaf within 1e-4 of the largest
 entry of the leaf, the metrics within 1e-4 relative, on a batch where both
 clips bind too; so does the MAPPO update kernel K7 (both also with comm
 heads, and K7 with simple_world_comm's 204-wide critic). The MADDPG collection kernel K8 takes the plain
-version's actions exactly (values within 1e-5) in both output forms; the
+version's actions exactly (values within 1e-5) in both output forms, at
+every tile size bit for bit; the
 MADDPG update kernel K9 takes the plain version's target actions and its
 gradient leaves lie within 1e-4 of each leaf's largest entry. The trajectory
 kernel K3 emits the plain version's actions exactly (raw hash draws) and its
@@ -230,6 +232,94 @@ def test_update_kernels_refuse_other_actor_heads(card):
         fused_update.ppo_update_cuda(narrow, obs[:, :, :17].contiguous(), mv_oh, None, logp_old,
                                      adv_n, ret, value, clip=0.2, vf_coef=0.5, ent_coef=0.01)
     assert fused_update.ppo_update_cuda.launches == before
+
+
+def _equal(got, want, labels, what):
+    for label, a, b in zip(labels, got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"{label} ({what})")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_policy_kernels_equal_at_every_tile(card, name):
+    """K5 and K4 at every tile of ``POLICY_TILES`` on 1000 envs (the last tile
+    of 16 and 32 ragged): tile 1 against the plain version (actions and
+    episodes exactly, values within 1e-5), every other tile equal to tile 1
+    bit for bit."""
+    kscn = kernel_scenario(name)
+    weights = fused_policy._kernel_weights(_policy(card, name), card)
+    traj = (kscn, weights, 1000, 16, 6, 500, 4, 3, 1, card)
+    roll = (kscn, weights, 1000, 20, 6, 500, 8, 1, card)
+    labels5 = ("obs", "act", "cact", "rew", "last_obs") if kscn.uses_comm else (
+        "obs", "act", "rew", "last_obs")
+    one5 = fused_policy.policy_traj_cuda(*traj, tile=1)
+    one4 = fused_policy.policy_rollout_cuda(*roll, tile=1)
+    for label, a, b in zip(labels5, one5, fused_policy.plain_policy_trajectory(*traj)):
+        exact = label in ("act", "cact")
+        torch.testing.assert_close(a, b, rtol=0, atol=0 if exact else 1e-5, msg=label)
+    for label, a, b in zip(("ret", "pos", "episodes"), one4,
+                           fused_policy.plain_policy_rollout(*roll)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0 if label == "episodes" else 1e-5,
+                                   msg=label)
+    for tile in fused_policy.POLICY_TILES[1:]:
+        _equal(fused_policy.policy_traj_cuda(*traj, tile=tile), one5, labels5, f"K5, tile {tile}")
+        _equal(fused_policy.policy_rollout_cuda(*roll, tile=tile), one4, ("ret", "pos", "eps"),
+               f"K4, tile {tile}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_maddpg_traj_kernel_equal_at_every_tile(card, name):
+    """K8 at every tile of ``MADDPG_TILES`` on 1000 envs, eps 0.5 (the eps
+    one-hot taken for about half of the draws), both forms: tile 1 against
+    the plain version (actions exactly, values within 1e-5), every other tile
+    equal to tile 1 bit for bit."""
+    from mpe_tpu_torch.ops import fused_maddpg
+
+    kscn = kernel_scenario(name)
+    actor = _maddpg_params(card, name, seed=2)["actor"]
+    actor["out"]["w"] = actor["out"]["w"] * 100.0
+    weights = fused_maddpg._kernel_weights(actor, card)
+    for rows in (False, True):
+        args = (kscn, weights, 1000, 20, 10, 500, 5, 0.5, 4, 1, rows, card)
+        one = fused_maddpg.maddpg_traj_cuda(*args, tile=1)
+        ref = fused_maddpg.plain_maddpg_trajectory(*args[:-1], device=card)
+        one, ref = ((one,), (ref,)) if rows else (one, ref)
+        labels = ("rows",) if rows else ("obs", "act", "rew", "obs2")
+        for label, a, b in zip(labels, one, ref):
+            atol = 0 if label == "act" else 1e-5
+            torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=f"{label} (rows={rows})")
+        for tile in fused_maddpg.MADDPG_TILES[1:]:
+            got = fused_maddpg.maddpg_traj_cuda(*args, tile=tile)
+            _equal((got,) if rows else got, one, labels, f"K8, tile {tile}, rows={rows}")
+
+
+@pytest.mark.cuda
+def test_tile_kernels_refuse_bad_tiles(card):
+    """A tile size outside ``POLICY_TILES`` (K4, K5) or ``MADDPG_TILES`` (K8)
+    is refused before any launch."""
+    from mpe_tpu_torch.ops import fused_maddpg
+
+    kscn = kernel_scenario("simple_world_comm")
+    weights = fused_policy._kernel_weights(_policy(card, "simple_world_comm"), card)
+    mweights = fused_maddpg._kernel_weights(_maddpg_params(card, "simple_world_comm")["actor"],
+                                            card)
+    before = (fused_policy.policy_traj_cuda.launches, fused_policy.policy_rollout_cuda.launches,
+              fused_maddpg.maddpg_traj_cuda.launches)
+    for tile in (0, 3, 64):
+        with pytest.raises(ValueError, match=f"tile={tile}"):
+            fused_policy.policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device=card,
+                                          tile=tile)
+        with pytest.raises(ValueError, match=f"tile={tile}"):
+            fused_policy.policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device=card,
+                                             tile=tile)
+    for tile in (0, 16):                 # 16: world_comm's six actors and 16 lanes' rows
+        with pytest.raises(ValueError, match=f"tile={tile}"):
+            fused_maddpg.maddpg_traj_cuda(kscn, mweights, 64, 10, 5, 64, 5, 0.1, 0, device=card,
+                                          tile=tile)
+    assert before == (fused_policy.policy_traj_cuda.launches,
+                      fused_policy.policy_rollout_cuda.launches,
+                      fused_maddpg.maddpg_traj_cuda.launches)
 
 
 @pytest.mark.cuda

@@ -227,3 +227,44 @@ def test_policy_kernel_wrappers_refuse_other_specs(change):
     with pytest.raises(NotImplementedError, match="simple_spread's physics only"):
         t_policy._kernel_args(kscn, t_policy._kernel_weights(params), 64, 8, 4, 64,
                               torch.device("cuda"))
+
+
+def test_pick_tile_rule():
+    """The tile rule of K4, K5 and K8 (``fused_policy.pick_tile``) on given
+    occupancies: the smallest tile whose grid runs in one wave and whose rows
+    fill a warp's items, else the largest tile that fits."""
+    from mpe_tpu_torch.ops.fused_maddpg import MADDPG_TILES
+
+    tiles = t_policy.POLICY_TILES
+    # three agents at 4096 envs, 5 CTAs per SM: 512 CTAs of 8 lanes run at once
+    assert t_policy.pick_tile(tiles, 3, 4096, lambda t: 5, 132) == 8
+    # six agents whose CTAs of 8 lanes fit 3 to an SM, of 16 lanes 2
+    occ = {1: 4, 2: 4, 4: 3, 8: 3, 16: 2, 32: 1}
+    assert t_policy.pick_tile(tiles, 6, 4096, occ.get, 132) == 16
+    # one agent: a tile's rows fill a warp's items from 8 lanes on
+    assert t_policy.pick_tile(tiles, 1, 64, lambda t: 8, 132) == 8
+    # nowhere one wave: the largest tile; a tile that does not fit is skipped
+    assert t_policy.pick_tile(tiles, 3, 10 ** 6, lambda t: 1, 132) == 32
+    assert t_policy.pick_tile(MADDPG_TILES, 6, 10 ** 6, {1: 1, 2: 1, 4: 1, 8: 0}.get, 132) == 4
+
+
+def test_tile_kernel_wrappers_refuse_bad_tiles_before_any_launch():
+    """A tile size outside ``POLICY_TILES`` or ``MADDPG_TILES`` raises before
+    the device is looked at (so here, without a card)."""
+    from mpe_tpu_torch.ops import fused_maddpg
+
+    kscn = t_policy._resolve("simple_spread")
+    weights = t_policy._kernel_weights(_params(hidden=64)[1])
+    before = (t_policy.policy_traj_cuda.launches, t_policy.policy_rollout_cuda.launches,
+              fused_maddpg.maddpg_traj_cuda.launches)
+    for tile in (0, 3, 64):
+        with pytest.raises(ValueError, match=f"tile={tile}"):
+            t_policy.policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device="cpu", tile=tile)
+        with pytest.raises(ValueError, match=f"tile={tile}"):
+            t_policy.policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device="cpu", tile=tile)
+    with pytest.raises(ValueError, match="tile=16"):
+        fused_maddpg.maddpg_traj_cuda(kscn, None, 64, 10, 5, 64, 5, 0.1, 0, device="cpu",
+                                      tile=16)
+    assert before == (t_policy.policy_traj_cuda.launches, t_policy.policy_rollout_cuda.launches,
+                      fused_maddpg.maddpg_traj_cuda.launches)
+

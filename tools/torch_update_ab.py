@@ -2,7 +2,7 @@
 """Time the port's update kernels of one or more checkouts on one NVIDIA
 card, one checkout after another.
 
-    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det] ROOT [ROOT ...]
+    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det | --policy] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -56,10 +56,27 @@ after one warm-up; where the checkout's K1 takes a group size
 (``fused_parity.det_group``), that group and the time at every group 1, 2,
 4 and 8 too (``det_rollout_cuda(..., group=g)``); and the registers and
 spill bytes of each ``det_rollout_kernel`` instantiation.
+
+With ``--policy`` (K4, K5, K8), on the nine scenarios, each with a fixed
+seeded actor (``init_policy``, and ``init_maddpg``'s actors with the head
+scaled by 100 for O(1) logits, from seed 40 + the scenario's index): K4
+(``policy_rollout_cuda``) at path c's shape, 4096 envs x 1000 steps,
+horizon 25; K5 (``policy_traj_cuda``) at the learner batch, 4096 x 64,
+horizon 32, t_chunk 8; K8 (``maddpg_traj_cuda``, the rows form) at the
+MADDPG paths' shape, 1024 envs x 25 steps, horizon 25, eps 0.1, the chunk
+``collect_t_chunk`` gives; all with block_envs 1024, seed 1. Each the
+median of POLICY_CALLS CUDA-event timed calls after one warm-up; where the
+checkout's kernels take a tile size (``policy_tile``, ``maddpg_tile``),
+the tile the rule picks and the time at every tile offered; a SHA-256 of
+each output tensor's bytes, so that two checkouts can be compared bit for
+bit within one call; and the registers and spill bytes of each
+``policy_traj_kernel``, ``policy_rollout_kernel`` and ``maddpg_traj_kernel``
+instantiation (the largest spill of the kernel and the functions it calls).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -82,21 +99,23 @@ K9_KERNELS = ("maddpg_target_actions_kernel", "maddpg_td_kernel", "maddpg_update
               "maddpg_reduce_kernel")
 
 
-def registers(logs: dict, source: str = "mpe_update.cu", kernel: str = "ppo_update_kernel"
-              ) -> dict:
-    """{mangled ``kernel`` name: [registers, spill store bytes]} from the
-    compiler's report on ``source``."""
+def registers(logs: dict, source: str = "mpe_update.cu",
+              kernel: str | tuple[str, ...] = "ppo_update_kernel") -> dict:
+    """{mangled ``kernel`` name (or any of several): [registers, spill store
+    bytes]} from the compiler's report on ``source``; the spills are the
+    largest of the entry's and of the functions reported after it."""
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
     out, current = {}, None
     for line in logs.get(source, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = m.group(1) if kernel in m.group(1) else None
+            current = m.group(1) if any(k in m.group(1) for k in kernels) else None
             if current:
                 out[current] = [None, 0]
         elif current:
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
-                out[current][1] = int(m.group(1))
+                out[current][1] = max(out[current][1], int(m.group(1)))
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 out[current][0] = int(m.group(1))
@@ -332,6 +351,88 @@ def time_det(result: dict, logs: dict) -> None:
     result["registers_spill_bytes"] = registers(logs, "mpe_kernels.cu", "det_rollout_kernel")
 
 
+POLICY_K4 = dict(n_envs=4096, n_steps=1000, horizon=25, block_envs=1024)
+POLICY_K5 = dict(n_envs=4096, n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
+POLICY_K8 = dict(n_envs=1024, n_steps=25, horizon=25, block_envs=1024, eps_greedy=0.1)
+POLICY_CALLS = 5
+
+
+def sha256s(outs) -> list[str]:
+    """The SHA-256 of each output tensor's bytes (the first 16 hex digits)."""
+    return [hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+            for x in outs]
+
+
+def time_policy(result: dict, logs: dict) -> None:
+    import torch
+
+    from mpe_tpu_torch.learner import init_policy
+    from mpe_tpu_torch.learner.maddpg import collect_t_chunk, init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg as fm
+    from mpe_tpu_torch.ops import fused_policy as fp
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    def median_of(fn):
+        out = fn()
+        times = []
+        for _ in range(POLICY_CALLS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), out
+
+    def timed(fn, rule, tiles) -> dict:
+        """fn(tile) at the rule's tile (None: the checkout has no tiles) and at
+        every tile offered; the rule's outputs hashed."""
+        ms, out = median_of(lambda: fn(None))
+        row = {"ms": ms, "sha256": sha256s(out if isinstance(out, tuple) else (out,))}
+        if rule is not None:
+            row["tile"] = rule
+            for t in tiles:
+                row[f"ms_tile_{t}"] = median_of(lambda: fn(t))[0]
+        return row
+
+    tiled = hasattr(fp, "policy_tile")
+    k8_t_chunk = collect_t_chunk(POLICY_K8["n_steps"])
+    for i, name in enumerate(SCENARIOS):
+        kscn = kernel_scenario(name)
+        gen = torch.Generator().manual_seed(40 + i)
+        actor = {k: {q: x.cuda() for q, x in layer.items()}
+                 for k, layer in init_policy(gen, kscn.obs_w, kscn.n_logits).items()}
+        weights = fp._kernel_weights(actor, "cuda")
+        mactor = init_maddpg(torch.Generator().manual_seed(40 + i), kscn.obs_w, kscn.n_logits,
+                             kscn.spec.n_agents)["actor"]
+        mactor["out"]["w"] = mactor["out"]["w"] * 100.0
+        mweights = fm._kernel_weights(mactor, "cuda")
+        kw = lambda t: {} if t is None else {"tile": t}
+        k4, k5, k8 = POLICY_K4, POLICY_K5, POLICY_K8
+        rows = {
+            "K4": timed(lambda t: fp.policy_rollout_cuda(
+                kscn, weights, k4["n_envs"], k4["n_steps"], k4["horizon"], k4["block_envs"], 1,
+                0, "cuda", **kw(t)),
+                fp.policy_tile(kscn, k4["n_envs"], "rollout") if tiled else None,
+                getattr(fp, "POLICY_TILES", ())),
+            "K5": timed(lambda t: fp.policy_traj_cuda(
+                kscn, weights, k5["n_envs"], k5["n_steps"], k5["horizon"], k5["block_envs"],
+                k5["t_chunk"], 1, 0, "cuda", **kw(t)),
+                fp.policy_tile(kscn, k5["n_envs"], "traj") if tiled else None,
+                getattr(fp, "POLICY_TILES", ())),
+            "K8": timed(lambda t: fm.maddpg_traj_cuda(
+                kscn, mweights, k8["n_envs"], k8["n_steps"], k8["horizon"], k8["block_envs"],
+                k8_t_chunk, k8["eps_greedy"], 1, 0, True, "cuda", **kw(t)),
+                fm.maddpg_tile(kscn, k8["n_envs"]) if tiled else None,
+                getattr(fm, "MADDPG_TILES", ())),
+        }
+        result[name] = rows
+        torch.cuda.empty_cache()
+    result["registers_spill_bytes"] = {
+        **registers(logs, "mpe_policy.cu", ("policy_traj_kernel", "policy_rollout_kernel")),
+        **registers(logs, "mpe_maddpg.cu", "maddpg_traj_kernel")}
+
+
 def child(mode: str, root: str) -> None:
     sys.path.insert(0, root)
     import mpe_tpu_torch
@@ -348,6 +449,8 @@ def child(mode: str, root: str) -> None:
         time_rollout(result, logs)
     elif mode == "det":
         time_det(result, logs)
+    elif mode == "policy":
+        time_policy(result, logs)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -358,7 +461,8 @@ def main() -> int:
     if len(args) == 3 and args[0] == "--child":
         child(args[1], args[2])
         return 0
-    mode = {"--maddpg": "maddpg", "--rollout": "rollout", "--det": "det"}.get(
+    mode = {"--maddpg": "maddpg", "--rollout": "rollout", "--det": "det",
+            "--policy": "policy"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
