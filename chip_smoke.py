@@ -7,7 +7,9 @@ Builds the CUDA kernels from the checkout, then runs these phases; any
 failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
-     kernel build time and the compiler's register report;
+     kernel build time (every source at hidden width 64 and the MLP sources
+     of K4-K9 also at 8, 16 and 32, one nvcc each, all at once) and the
+     compiler's register report;
   2. ten main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
@@ -63,7 +65,9 @@ failure ends the run with a non-zero exit code:
           through the pair physics) at 4096 envs x 10000 steps, horizon
           100, the mean reward per env-step of each reward row within 5
           standard errors of the generic engine's (4096 envs x 200 steps);
-          fused_trajectory (kernel K3) on all nine at 4096 envs x 64 steps,
+          fused_trajectory (kernel K3, trajectory_kernel<S, G> with the G
+          threads per env lane that ops/fused_trajectory.py::traj_group
+          picks) on all nine at 4096 envs x 64 steps,
           horizon 32, block_envs 1024, t_chunk 8 (the learner batch of
           tools/train_bench.py), and on simple_spread, simple_reference and
           simple_world_comm (the widest writer) at 65536 envs x 64 steps:
@@ -109,7 +113,23 @@ failure ends the run with a non-zero exit code:
      resets both occur), at path e's 4096 envs x 64 steps and, on
      TRAJ_WIDE, at path e's 65536 envs x 64 steps, actions equal and the
      rest within 1e-5 (at path e's shapes with another seed than path e's,
-     so that no stale output can pass);
+     so that no stale output can pass); K3 at every G (1, 2, 4, 8) equal to
+     G = 1 bit for bit on all nine at 512 envs x 24 steps and at 4096 envs x
+     64 steps, each timed there;
+  3b. the hidden widths: at each of 8, 16 and 32, on simple_spread and on
+     simple_speaker_listener (a comm head) at 1024 envs x 64 steps (horizon
+     25): K5 and K4 (an init_policy actor of that width, O(1) logits) with
+     actions equal, values within 1e-5 and another tile equal bit for bit;
+     K6 and K7 on the batch of a trainer of that width and on it with both
+     clips binding, each leaf within 1e-4 of its largest entry; K8 at 1024
+     envs x 25 steps (eps 0.1) with actions equal, another tile equal bit for
+     bit, and K9 on 1024 of its rows (target actions equal, leaves within
+     1e-4); then, launch counts zeroed before each and read after, one
+     fused PPO iteration on simple_spread at hidden 16 (K5, K6), one MAPPO
+     iteration at 32 (K5, K7), each against the same iteration with the
+     plain versions (params within 1e-5), and the MADDPG runner on
+     simple_spread at hidden 8 for 2 chunks (K8, K9) and one update chunk
+     against the plain chunk (within 1e-4); the phase's seconds printed;
   4. the collect phases of paths b-b4 and d-d3 printed beside K5's and
      K8's times at the same shapes; the plain versions timed at the main
      paths' shapes (K1's of the eight others at 4096 envs x 200 steps),
@@ -129,7 +149,10 @@ failure ends the run with a non-zero exit code:
      and spills, K6, K7 and K9 the library time; K1 and K2 their group and
      the rule that picks it, K6 and K7 their tiling, K9 its tiling and
      launches per update; K4, K5 and K8 their tile, the rule that picks it
-     and, K5 and K8, the collect phases of the paths that run them), the
+     and, K5 and K8, the collect phases of the paths that run them; K3 its
+     group rule and by scenario its G, device time, bound, their ratio, the
+     times at every G and its registers by G; K4-K9 their errors at the
+     hidden widths and their registers at each width), the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -193,15 +216,17 @@ DET_GROUP_RULE = ("ops/fused_parity.py::det_group: G threads per env lane; the c
 DET_GROUPED = ("simple_spread", "simple_tag", "simple_world_comm")
 UPDATE_TILE = {"threads": 256, "samples_per_tile": 64,
                "ctas_per_sm": "2 where they fit (not the 204-wide critic)",
-               "micro_tile": "4 units x 4 samples (forward, backward)",
-               "weight_grad_micro_tile": "4 x 4 (dW2), 4 x ceil(IN/16) (dW1)",
+               "micro_tile": "4 units x 4 samples at hidden 64 (2 x 4 at 32, 1 x 4 at 16, "
+                             "1 x 2 at 8)",
+               "weight_grad_micro_tile": "4 x 4 (dW2), 4 x ceil(IN/16) (dW1) at hidden 64",
                "staging": "cp.async, two stages where they fit"}
 POLICY_TILE_RULE = ("ops/fused_policy.py::pick_tile (policy_tile for K4 and K5, "
                     "fused_maddpg.py::maddpg_tile for K8): env lanes per 128-thread CTA, the "
                     "smallest tile whose grid runs in one wave (the CTAs an SM holds, as the "
                     "card reports them) and whose (agent, lane) rows fill a warp's items")
-K9_TILE = {"samples_per_cta": 16, "threads": 128, "micro_tile": "2 samples x 4 units",
-           "grid": "batch / 16 x agents", "weight_grad_micro_tile": "4 x 4"}
+K9_TILE = {"samples_per_cta": "1024 / hidden (16 at 64)", "threads": 128,
+           "micro_tile": "2 samples x 4 units", "grid": "batch / samples_per_cta x agents",
+           "weight_grad_micro_tile": "4 x 4"}
 K1_PLAIN_STEPS = 200
 # the other scenarios (K2) and the trajectories (K3): the learner batch of
 # tools/train_bench.py and tools/tpu_smoke.py's t_chunk; the gate's shape
@@ -219,6 +244,17 @@ LONG_GATE_STEPS = 1000
 TRAJ = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
 TRAJ_WIDE = ("simple_spread", "simple_reference", "simple_world_comm")
 TRAJ_CHECK = dict(n_envs=512, n_steps=24, horizon=10, block_envs=256, t_chunk=4)
+TRAJ_GROUP_RULE = ("ops/fused_trajectory.py::traj_group: G threads per env lane; below 16384 "
+                   "envs TRAJ_GROUP's entry of the scenario, from the sweep on the H100 "
+                   "(PERF.md), else 1")
+# the hidden widths other than 64 that K4-K9 are compiled for, each held on
+# HIDDEN_NAMES at a small shape; the trainers of the repo's own dry run
+# (__graft_entry__.py: PPO at hidden 16, MADDPG at 8) and MAPPO at 32
+HIDDEN_PHASE = (8, 16, 32)
+HIDDEN_NAMES = ("simple_spread", "simple_speaker_listener")
+HIDDEN_GATE = dict(n_envs=1024, n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
+HIDDEN_TRAINERS = (("PPO", 16), ("MAPPO", 32))
+HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
 
 # Kernel against plain version on the card, 20 steps. The library is built
 # with -fmad=false, so the dynamics round op for op as PyTorch's
@@ -1395,14 +1431,14 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
     scenario ``name`` (K4, K5, K8: its struct, KernelX's XScn in
     csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 5, C>, K7 then
     its critic <A * OW, 0, 0>; K9: its four kernels on MaddpgDims<A, OW,
-    C>, in the compiler's order), or []; K1 and K2 (``det_rollout_kernel``,
-    ``scenario_rollout_kernel``): {group G: [registers, spill bytes]} of
-    their <XScn, G> instantiations."""
+    C>, in the compiler's order), or []; K1, K2 and K3 (``det_rollout_kernel``,
+    ``scenario_rollout_kernel``, ``trajectory_kernel``): {group G: [registers,
+    spill bytes]} of their <XScn, G> instantiations."""
     import re
 
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
-    if kernel in ("scenario_rollout_kernel", "det_rollout_kernel"):   # {group: [regs, spills]}
+    if kernel in ("scenario_rollout_kernel", "det_rollout_kernel", "trajectory_kernel"):
         key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnELi"
         return {int(re.search(key + r"(\d+)E", k).group(1)): v for k, v in regs.items()
                 if kernel in k and key in k}
@@ -1541,31 +1577,28 @@ def check_maddpg_collect(name: str, actors: dict):
     return err, ms, plain_ms, bound, rows(3, first).reshape(n * hor, width), tile
 
 
-def check_maddpg_update(name: str, params: dict, rows_all, label: str):
+def gate_maddpg_update(name: str, params: dict, rows_all, label: str):
     """K9 on ``name`` against its plain version on MADDPG["batch"] rows drawn
-    from ``rows_all``, with ``params`` and targets = params + 0.1 N(0, 1):
-    target actions per head equal (the smallest gap between a head's best
-    and second target logit printed), each gradient leaf within GRAD_TOL of
-    its largest entry, the metrics within METRIC_RTOL; then K9, its plain
-    version and autograd of the losses timed -> (max abs err, ms, plain ms,
-    library ms, bound, ms from trees): ms is the trainer's call, K9's
-    launcher on the packed weight buffer."""
+    from ``rows_all``, with ``params`` (of any compiled hidden width) and
+    targets = params + 0.1 N(0, 1): target actions per head equal (the
+    smallest gap between a head's best and second target logit printed),
+    each gradient leaf within GRAD_TOL of its largest entry, the metrics
+    within METRIC_RTOL -> (max abs err, rows, targets, the builder)."""
     import torch
 
-    from mpe_tpu_torch.learner.maddpg import maddpg_xla_grads
-    from mpe_tpu_torch.ops.fused_maddpg_update import (MaddpgUpdateLauncher, _split_rows,
-                                                       fused_maddpg_update, maddpg_update_cuda,
+    from mpe_tpu_torch.ops.fused_maddpg_update import (fused_maddpg_update, maddpg_update_cuda,
                                                        target_indices, target_logits)
 
-    a, ow, k, width, nw, nc = maddpg_widths(name)
-    b, cw = MADDPG["batch"], k - 5
+    a, ow, c, _, _ = widths(name)
+    k, b, cw = 5 + c, MADDPG["batch"], c
+    hidden = params["actor"]["l1"]["w"].shape[-1]
     gen = torch.Generator("cuda").manual_seed(5)
     rows = rows_all[torch.randint(0, rows_all.shape[0], (b,), generator=gen,
                                   device="cuda")].contiguous()
     targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda")
                        for w, x in layer.items()} for q, layer in net.items()}
                for n, net in params.items()}
-    grads_fn = fused_maddpg_update(a, ow, k, 5, 64, b)
+    grads_fn = fused_maddpg_update(a, ow, k, 5, hidden, b)
     act2 = torch.empty((a, 2 if cw else 1, b), dtype=torch.int32, device="cuda")
     got, got_m = maddpg_update_cuda(params, targets, rows, mw=5, gamma=0.95, ent_coef=0.01,
                                     target_actions=act2)
@@ -1595,6 +1628,26 @@ def check_maddpg_update(name: str, params: dict, rows_all, label: str):
     assert max(errs.values()) <= GRAD_TOL, f"K9 ({name}): the gradient disagrees with plain"
     assert all(abs(float(x) - float(y)) <= METRIC_RTOL * abs(float(y))
                for x, y in zip(got_m, ref_m)), f"K9 ({name}): the metrics disagree with plain"
+    return worst, rows, targets, grads_fn
+
+
+def check_maddpg_update(name: str, params: dict, rows_all, label: str):
+    """K9 on ``name`` against its plain version on MADDPG["batch"] rows drawn
+    from ``rows_all``, with ``params`` and targets = params + 0.1 N(0, 1):
+    target actions per head equal (the smallest gap between a head's best
+    and second target logit printed), each gradient leaf within GRAD_TOL of
+    its largest entry, the metrics within METRIC_RTOL; then K9, its plain
+    version and autograd of the losses timed -> (max abs err, ms, plain ms,
+    library ms, bound, ms from trees): ms is the trainer's call, K9's
+    launcher on the packed weight buffer."""
+    import torch
+
+    from mpe_tpu_torch.learner.maddpg import maddpg_xla_grads
+    from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher, _split_rows
+
+    a, ow, k, width, nw, nc = maddpg_widths(name)
+    b, cw = MADDPG["batch"], k - 5
+    worst, rows, targets, grads_fn = gate_maddpg_update(name, params, rows_all, label)
 
     # the trainer's call: K9's launcher on the packed buffers; from_rows packs
     # the trees on every call
@@ -1763,10 +1816,16 @@ def template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms, regs) -> d
     return k2_rows
 
 
-def template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms) -> dict:
+def template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms, k3_group_ms,
+                     regs) -> dict:
     """K3's bound at each shape of path e, printed beside its time by CUDA
     events and in device time -> {scenario: the kernels line's by_scenario
-    entry (the wide shape's numbers suffixed with its env count)}."""
+    entry (the wide shape's numbers suffixed with its env count; the rule's
+    G, device time over the bound, the times at every G by
+    CUDA events at N_ENVS, the registers and spills of each <S, G>)}."""
+    from mpe_tpu_torch.ops.fused_trajectory import traj_group
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
     k3_rows = {}
     for (name, n), ms in k3_ms.items():
         ops = OPS[f"trajectory_kernel[{name}]"]
@@ -1777,12 +1836,207 @@ def template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms) -> dict:
         print(f"K3 bound, {name} at {n} envs: {b:.4f} ms by {by} ({ms / b:.2f}x by CUDA events"
               + (f", {dev / b:.2f}x in device time" if dev else "") + f"); issue floor "
               f"{issue:.4f} ms; {ops['step'].get('sfu', 0)} SFU operations per env-step")
-        row = k3_rows.setdefault(name, {"launches": k3_by[name], "max_abs_err": k3_err[name],
-                                        "plain_ms": plain_k3_ms[name]})
+        row = k3_rows.setdefault(name, {
+            "launches": k3_by[name], "max_abs_err": k3_err[name], "plain_ms": plain_k3_ms[name],
+            "ms_by_group": k3_group_ms[name],
+            "registers_spill_bytes": registers_of(regs, "trajectory_kernel", name)})
         suffix = "" if n == N_ENVS else f"_{n}"
         row.update({f"ms{suffix}": ms, f"device_ms{suffix}": dev, f"bound_ms{suffix}": b,
-                    f"bound_by{suffix}": by})
+                    f"bound_by{suffix}": by, f"ratio{suffix}": dev / b if dev else None,
+                    f"group{suffix}": traj_group(kernel_scenario(name), n)})
     return k3_rows
+
+
+def check_trajectory_groups() -> dict:
+    """K3 (``trajectory_cuda``) at every G of ``GROUPS`` against G = 1, every
+    output equal bit for bit, on all nine scenarios at TRAJ_CHECK (two block
+    offsets) and at N_ENVS x TRAJ, where each G is also timed by CUDA events
+    around the call (median of REPEATS) -> {scenario: {G: ms}}."""
+    import torch
+
+    from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.ops.fused_trajectory import GROUPS, trajectory_cuda
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    shapes = (((TRAJ_CHECK["n_envs"], TRAJ_CHECK["n_steps"], TRAJ_CHECK["horizon"],
+                TRAJ_CHECK["block_envs"], TRAJ_CHECK["t_chunk"]), (0, 1)),
+              ((N_ENVS, TRAJ["n_steps"], TRAJ["horizon"], TRAJ["block_envs"], TRAJ["t_chunk"]),
+               (0,)))
+    times = {}
+    for name in ALL_SCENARIOS:
+        kscn = kernel_scenario(name)
+        consts = _build.kernel_params(kscn)
+        times[name] = {}
+        for args, offsets in shapes:
+            for offset in offsets:
+                def call(group):
+                    return trajectory_cuda(kscn, *args, 9, offset, "cuda", group=group,
+                                           consts=consts)
+
+                one = call(1)
+                for group in GROUPS:
+                    if group > 1:
+                        got = call(group)
+                        bad = [k for k, a, b in zip(("obs", "act", "rew", "pos", "vel"), got,
+                                                    one) if not torch.equal(a, b)]
+                        assert not bad, (f"K3 ({name}, {args[0]} envs, block offset {offset}) "
+                                         f"at G {group}: {bad} differ from G = 1")
+                        del got
+                    if args[0] == N_ENVS:
+                        times[name][group] = cuda_time(lambda: call(group), REPEATS)[0]
+                del one
+        print(f"K3 ({name}) at every G equal to G = 1 bit for bit at "
+              f"{TRAJ_CHECK['n_envs']} x {TRAJ_CHECK['n_steps']} (two block offsets) and "
+              f"{N_ENVS} x {TRAJ['n_steps']}; ms at {N_ENVS} x {TRAJ['n_steps']} by CUDA events "
+              "around the call, by G: " + ", ".join(f"{k} {v:.4f}"
+                                                   for k, v in times[name].items()))
+    return times
+
+
+def check_iteration(label: str, stp, st0) -> float:
+    """One trainer iteration with the kernels against the same iteration with
+    the plain versions: params within TOL["params"], metrics within
+    METRIC_RTOL -> the largest abs error of a param."""
+    (p_kernel, _), m_kernel = stp(st0, 7)
+    (p_plain, _), m_plain = stp.plain(st0, 7)
+    it_err = max(max_err(p_kernel[k][q], p_plain[k][q]) for k in p_kernel for q in p_kernel[k])
+    check(f"one {label} iteration (kernels vs plain)", {"params": it_err})
+    print(f"one {label} iteration, metrics kernels vs plain: "
+          + ", ".join(f"{k} {float(m_kernel[k]):.8g} vs {float(m_plain[k]):.8g}"
+                      for k in m_plain))
+    assert all(abs(float(m_kernel[k]) - float(m_plain[k]))
+               <= METRIC_RTOL * abs(float(m_plain[k])) for k in m_plain), \
+        f"the {label} metrics disagree with the plain trainer's"
+    return it_err
+
+
+def hidden_widths_phase(wrappers) -> dict:
+    """Phase 3b (the module docstring): K4-K9 at each width of HIDDEN_PHASE
+    on HIDDEN_NAMES against their plain versions, then the trainers of
+    HIDDEN_TRAINERS and the MADDPG runner at HIDDEN_MADDPG, their launches
+    read -> {kernel: {hidden: {scenario: max abs err}}, "launches": {...},
+    "trainer_max_abs_err": {...}, "seconds": s}."""
+    import torch
+
+    from mpe_tpu_torch.learner import (build_fused_maddpg_runner, build_fused_mappo_step,
+                                       build_fused_ppo_step, init_policy)
+    from mpe_tpu_torch.learner.maddpg import collect_t_chunk, init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg
+    from mpe_tpu_torch.ops.fused_policy import (POLICY_TILES, _kernel_weights,
+                                                fused_policy_rollout, fused_policy_trajectory,
+                                                policy_rollout_cuda, policy_tile,
+                                                policy_traj_cuda)
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    t0 = time.perf_counter()
+    g = HIDDEN_GATE
+    n, steps, hor = g["n_envs"], g["n_steps"], g["horizon"]
+    kernels = ("policy_traj_kernel", "policy_rollout_kernel", "ppo_update_kernel",
+               "mappo_update_kernel", "maddpg_traj_kernel", "maddpg_update_kernel")
+    out = {k: {} for k in kernels}
+    for h in HIDDEN_PHASE:
+        errs = {k: out[k].setdefault(h, {}) for k in kernels}
+        for i, name in enumerate(HIDDEN_NAMES):
+            kscn = kernel_scenario(name)
+            a, ow, c, _, _ = widths(name)
+            tag = f"{name}, hidden {h}"
+            # K5 and K4: an init_policy actor of this width (O(1) logits)
+            actor = {k: {q: x.cuda() for q, x in layer.items()} for k, layer in
+                     init_policy(torch.Generator().manual_seed(40 + h + i), ow, 5 + c,
+                                 hidden=h).items()}
+            weights = _kernel_weights(actor, "cuda")
+            traj = fused_policy_trajectory(name, actor, n, steps, horizon=hor,
+                                           block_envs=g["block_envs"], t_chunk=g["t_chunk"])
+            got, ref = traj(4, actor), traj.plain(4, actor)
+            labels = ("obs", "act", "cact", "rew", "last_obs") if c else ("obs", "act", "rew",
+                                                                          "last_obs")
+            report_actions(f"K5 ({tag}, moves)", got[1], ref[1])
+            errs["policy_traj_kernel"][name] = check(
+                f"K5 ({tag}, {n} envs x {steps} steps)",
+                {k: max_err(x, y) for k, x, y in zip(labels, got, ref)})
+            tile = policy_tile(kscn, n, "traj", hidden=h)
+            alt = other_tile(POLICY_TILES, tile)
+            same_bits(f"K5 ({tag}) at tile {alt} against tile {tile}",
+                      policy_traj_cuda(kscn, weights, n, steps, hor, g["block_envs"],
+                                       g["t_chunk"], 4, 0, "cuda", tile=alt), got)
+            run = fused_policy_rollout(name, actor, n, steps, horizon=hor,
+                                       block_envs=g["block_envs"])
+            got, ref = run(6, actor), run.plain(6, actor)
+            errs["policy_rollout_kernel"][name] = check(
+                f"K4 ({tag}, {n} envs x {steps} steps)",
+                {k: max_err(x, y) for k, x, y in zip(("ret", "pos", "episodes"), got, ref)})
+            tile = policy_tile(kscn, n, "rollout", hidden=h)
+            alt = other_tile(POLICY_TILES, tile)
+            same_bits(f"K4 ({tag}) at tile {alt} against tile {tile}",
+                      policy_rollout_cuda(kscn, weights, n, steps, hor, g["block_envs"], 6, 0,
+                                          "cuda", tile=alt), got)
+            del got, ref
+            # K6 and K7 on the batch of a trainer of this width
+            for kernel, label, build in (("ppo_update_kernel", "K6", build_fused_ppo_step),
+                                         ("mappo_update_kernel", "K7", build_fused_mappo_step)):
+                step = build(name, **dict(TRAIN, n_envs=n, horizon=hor, hidden=h))
+                params = step.init_params(torch.Generator().manual_seed(50 + h + i))
+                batch, clipped, _ = update_batches(step, params, f"{label} ({tag})")
+                gated = ("vloss", "entropy")
+                errs[kernel][name] = max(
+                    check_update(f"{label} ({tag}, trainer batch)", step.update, params, batch,
+                                 gated),
+                    check_update(f"{label} ({tag}, clip-binding batch)", step.update, params,
+                                 clipped, ("pg",) + gated))
+                del batch, clipped
+            # K8 and K9: MADDPG nets of this width, the actor's head at O(1)
+            mp = {k: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
+                  for k, net in init_maddpg(torch.Generator().manual_seed(60 + h + i), ow, 5 + c,
+                                            a, hidden=h).items()}
+            mp["actor"]["out"]["w"] = mp["actor"]["out"]["w"] * 100.0
+            mn, mh = MADDPG["n_envs"], MADDPG["horizon"]
+            t_chunk = collect_t_chunk(mh)
+            tens = fused_maddpg.fused_maddpg_trajectory(name, mp["actor"], mn, mh, horizon=mh,
+                                                        eps_greedy=0.1, block_envs=BLOCK_ENVS,
+                                                        t_chunk=t_chunk)
+            got, ref = tens(3, mp["actor"]), tens.plain(3, mp["actor"])
+            report_actions(f"K8 ({tag})", got[1], ref[1])
+            errs["maddpg_traj_kernel"][name] = check(
+                f"K8 ({tag}, {mn} envs x {mh} steps)",
+                {k: max_err(x, y) for k, x, y in zip(("obs", "act", "rew", "obs2"), got, ref)})
+            tile = fused_maddpg.maddpg_tile(kscn, mn, hidden=h)
+            alt = other_tile(fused_maddpg.MADDPG_TILES, tile)
+            same_bits(f"K8 ({tag}) at tile {alt} against tile {tile}",
+                      fused_maddpg.maddpg_traj_cuda(
+                          kscn, fused_maddpg._kernel_weights(mp["actor"], "cuda"), mn, mh, mh,
+                          BLOCK_ENVS, t_chunk, 0.1, 3, 0, False, "cuda", tile=alt), got)
+            rows = replay_rows(*got).reshape(mn * mh, -1)
+            del got, ref
+            errs["maddpg_update_kernel"][name] = gate_maddpg_update(name, mp, rows, tag)[0]
+            del rows
+    # the trainers at the widths the repo runs them, launches read after each
+    out["launches"], out["trainer_max_abs_err"] = {}, {}
+    for label, h in HIDDEN_TRAINERS:
+        build = build_fused_ppo_step if label == "PPO" else build_fused_mappo_step
+        kernel = "ppo_update_kernel" if label == "PPO" else "mappo_update_kernel"
+        tag = f"{label} on simple_spread at hidden {h}"
+        step = build("simple_spread", **dict(TRAIN, hidden=h))
+        st0 = step.init_state(step.init_params(torch.Generator().manual_seed(70 + h)))
+        zero_launches(wrappers)
+        _, metrics = step(st0, 0)
+        torch.cuda.synchronize()
+        out["launches"][tag] = read_launches(wrappers, ["policy_traj_kernel", kernel], tag)
+        assert all(math.isfinite(float(v)) for v in metrics.values()), f"{tag}: {metrics}"
+        out["trainer_max_abs_err"][tag] = check_iteration(tag, step, st0)
+    tag = f"MADDPG on simple_spread at hidden {HIDDEN_MADDPG}"
+    run = build_fused_maddpg_runner("simple_spread", hidden=HIDDEN_MADDPG, **MADDPG)
+    zero_launches(wrappers)
+    params, info = run(HIDDEN_MADDPG_CHUNKS * MADDPG["horizon"], seed=0, actor_start=0)
+    torch.cuda.synchronize()
+    out["launches"][tag] = read_launches(wrappers, ["maddpg_traj_kernel", "maddpg_update_kernel"],
+                                         tag)
+    assert bool(torch.isfinite(info["mean_reward"]).all() and
+                torch.isfinite(info["critic_loss"]).all()), info
+    out["trainer_max_abs_err"][tag] = check_update_chunk("simple_spread", run, params, info)
+    del run, params, info
+    out["seconds"] = time.perf_counter() - t0
+    print(f"hidden widths {HIDDEN_PHASE}: every gate passed in {out['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1820,15 +2074,21 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t_start = t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(HIDDEN_PHASE)
     for source in _build.SOURCES:
         _build.library(source)
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    for h in HIDDEN_PHASE:
+        for source in _build.HIDDEN_SOURCES:
+            _build.library(source, h)
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s ({len(logs)} libraries: every source "
+          f"at hidden 64, {', '.join(_build.HIDDEN_SOURCES)} also at {HIDDEN_PHASE})")
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {src}: {line.strip()}")
-    regs = ptxas_registers(logs)
+    regs = ptxas_registers({k: v for k, v in logs.items() if isinstance(k, str)})
+    regs_at = {h: ptxas_registers({k: v for k, v in logs.items() if k[1:] == (h,)})
+               for h in HIDDEN_PHASE}
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
@@ -1924,16 +2184,7 @@ def main() -> int:
     k4_err = check(f"K4 ({POLICY_CHECK_STEPS} steps, two block offsets)", errs4)
 
     for label, stp, st0 in (("trainer", step, state0), ("MAPPO", mstep, mstate0)):
-        (p_kernel, _), m_kernel = stp(st0, 7)
-        (p_plain, _), m_plain = stp.plain(st0, 7)
-        it_err = max(max_err(p_kernel[k][q], p_plain[k][q]) for k in p_kernel for q in p_kernel[k])
-        check(f"one {label} iteration (kernels vs plain)", {"params": it_err})
-        print(f"one {label} iteration, metrics kernels vs plain: "
-              + ", ".join(f"{k} {float(m_kernel[k]):.8g} vs {float(m_plain[k]):.8g}"
-                          for k in m_plain))
-        assert all(abs(float(m_kernel[k]) - float(m_plain[k]))
-                   <= METRIC_RTOL * abs(float(m_plain[k])) for k in m_plain), \
-            f"the {label} metrics disagree with the plain trainer's"
+        check_iteration(label, stp, st0)
 
     # K6 and K7 on every scenario (epoch 0: the ratio is 1 and the value clip
     # idle, so the pg mean is 0 up to rounding and is not gated there; then
@@ -2001,6 +2252,8 @@ def main() -> int:
               f"{k} {v:.3f} (K8 {k8_rows[k[8:-1]]['ms']:.4f})" for k, v in collect_ms.items()))
     k3_device_ms = profile_trajectories(k3_ms)
     k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
+    k3_group_ms = check_trajectory_groups()
+    hidden = hidden_widths_phase(wrappers)
 
     # ---- bounds ---------------------------------------------------------------
     # bytes: K2 writes pos and vel (2 E P floats), the R reward sums and the
@@ -2033,7 +2286,8 @@ def main() -> int:
     b1 = (k1_rows["simple_spread"]["bound_ms"], k1_rows["simple_spread"]["bound_by"])
     b5, by5, issue5 = k5_main["simple_spread"][3]
     b4, by4, issue4 = k4_main["simple_spread"][3]
-    k3_rows = template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms)
+    k3_rows = template_rows_k3(k3_ms, k3_device_ms, k3_by, k3_err, plain_k3_ms, k3_group_ms,
+                               regs)
     b3 = (k3_rows["simple_spread"]["bound_ms"], k3_rows["simple_spread"]["bound_by"])
     print(f"plain versions on the card: K2 on {K2_LONG} ({N_ENVS} envs x {N_STEPS} steps) "
           f"{plain_k2_long_ms:.1f} ms; K3 at {N_ENVS} envs x {TRAJ['n_steps']} steps "
@@ -2101,7 +2355,8 @@ def main() -> int:
         record("trajectory_kernel", "mpe_trajectory.cu", "mpe_tpu/ops/fused_trajectory.py:40",
                max(k3_err.values()), k3_ms["simple_spread", N_ENVS], plain_k3_ms["simple_spread"],
                b3, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k3_rows,
-               pair_physics=pair_physics),
+               pair_physics=pair_physics, group=k3_rows["simple_spread"]["group"],
+               group_rule=TRAJ_GROUP_RULE),
         # K1's top-level numbers are simple_spread's at 4096 envs x 10000 steps
         record("det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
                max(k1_err.values()), k1_ms, plain_k1_ms, b1, scenarios=list(ALL_SCENARIOS),
@@ -2150,6 +2405,21 @@ def main() -> int:
                launches_per_update={n: k9_rows[n].get("launches_per_update")
                                     for n in maddpg_runs}),
     ]
+    # K4-K9 at the other hidden widths (phase 3b): errors and registers by width
+    reg_keys = {"policy_traj_kernel": "policy_traj_kernel",
+                "policy_rollout_kernel": "policy_rollout_kernel", "ppo_update_kernel": "ppo",
+                "mappo_update_kernel": "mappo", "maddpg_traj_kernel": "maddpg_traj_kernel",
+                "maddpg_update_kernel": "maddpg_update"}
+    for row in kernels:
+        if row["name"] in reg_keys:
+            row["hidden_widths"] = {
+                h: {"max_abs_err": hidden[row["name"]][h],
+                    "registers_spill_bytes": {n: registers_of(regs_at[h], reg_keys[row["name"]], n)
+                                              for n in HIDDEN_NAMES}}
+                for h in HIDDEN_PHASE}
+            row["hidden_widths_phase"] = {"seconds": hidden["seconds"],
+                                          "launches": hidden["launches"],
+                                          "trainer_max_abs_err": hidden["trainer_max_abs_err"]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,7 +3,7 @@
 //
 // K8  maddpg_traj_kernel<S>  replaces  mpe_tpu/ops/fused_maddpg.py::_maddpg_traj_kernel
 //     (fused_maddpg_trajectory): per step, each agent's own actor
-//     OW-64-64-(5+C) on its obs, Gumbel-max over the move logits (and over
+//     OW-H-H-(5+C) on its obs, Gumbel-max over the move logits (and over
 //     the comm logits where the scenario speaks), each head eps-mixed with a
 //     uniform one-hot; the step with the silent agents' comm zeroed, the
 //     reward rows, per-lane reset at the horizon. Out: obs [T,A,OW,N], act
@@ -24,8 +24,8 @@
 //     1e-10 eps. Out: every agent's actor and critic gradient in the live
 //     nets' layout of the weight buffer, and the three metrics.
 //
-// What bounds them: fp32 operations. K8 runs A actors per env-step (64 (OW +
-// 64 + 5 + C) multiply-adds each) and writes 4 W bytes of replay row; K9
+// What bounds them: fp32 operations. K8 runs A actors per env-step (H (OW +
+// H + 5 + C) multiply-adds each, H the hidden width of policy_mlp.cuh) and writes 4 W bytes of replay row; K9
 // needs per (sample, agent) pair the target and live critics on the J = A (OW
 // + 5 + C) joint inputs, 5 max(C, 1) candidates' layers 2-3 and the backward
 // passes (chip_smoke.py::OPS counts them) against 4 W bytes read per sample;
@@ -51,8 +51,9 @@
 // reward rows in shared memory (the old kernel wrote one row per thread, RW
 // floats apart: a 32-byte sector per 4-byte store).
 // K9: the agents' networks are independent until the loss, so a CTA takes one
-// agent and a tile of TS9 = 16 samples (grid: batch tiles x agents: 64 x A
-// CTAs at path d's batch of 1024, 192 on simple_spread). Four kernels, each
+// agent and a tile of TS9 = 1024 / H samples, 16 at hidden 64 (grid: batch
+// tiles x agents: 64 x A CTAs at path d's batch of 1024, 192 on
+// simple_spread). Four kernels, each
 // with its nets in shared memory, w1 and w2 transposed so that a hidden unit's
 // weights of one input are contiguous (SNet), loaded as float4s, eight in
 // flight per thread: the target actions (the agent's target actor, at most
@@ -101,7 +102,7 @@ struct MaddpgDims {
   static constexpr int AO = A * OW, AK = A * K;
   static constexpr int RW = A * (2 * OW + K + 1);           // row [obs | act | rew | obs2]
   static constexpr int R_REW = AO + AK, R_OBS2 = R_REW + A;
-  // one critic J-64-64-1, kernel layout: w1 [H,J], b1 [H], w2 [H,H], b2 [H], w3 [1,H], b3 [1]
+  // one critic J-H-H-1, kernel layout: w1 [H,J], b1 [H], w2 [H,H], b2 [H], w3 [1,H], b3 [1]
   static constexpr int CW1 = 0, CB1 = CW1 + H * J, CW2 = CB1 + H, CB2 = CW2 + H * H,
                        CW3 = CB2 + H, CB3 = CW3 + H, NC = CB3 + 1;
   static constexpr int NCP = (NC + 3) / 4 * 4;
@@ -333,25 +334,26 @@ maddpg_traj_kernel(const typename S::Params c, const float* __restrict__ weights
 
 // ---- K9 ---------------------------------------------------------------------
 
-constexpr int TS9 = 16;                     // samples per CTA
-constexpr int LD9 = TS9 + 1;                // tile row stride (rows read down columns without
-                                            // bank conflicts)
 constexpr int THREADS9 = 128;
 constexpr int WARPS9 = THREADS9 / 32;
+constexpr int UG9 = H / 4;                  // groups of 4 hidden units
+constexpr int TS9 = 2 * THREADS9 / UG9;     // samples per CTA: 16 at hidden 64, 128 at 8
+constexpr int LD9 = TS9 + 1;                // tile row stride (rows read down columns without
+                                            // bank conflicts)
 constexpr int SO9 = TS9 / 2;                // a thread's two samples: s and s + SO9
-static_assert(THREADS9 == (TS9 / 2) * (H / 4), "the 2 x 4 micro-tiles cover TS9 samples x H units");
+static_assert(THREADS9 == (TS9 / 2) * UG9, "the 2 x 4 micro-tiles cover TS9 samples x H units");
 
 // a thread's micro-tile of a dense layer on a tile: samples s, s + SO9 and units
-// g0 .. g0 + 3. Threads 16 apart share the units; a warp's 16 unit groups read
-// 256 contiguous bytes of a weight row as float4.
+// g0 .. g0 + 3. Threads UG9 apart share the units; at hidden 64 a warp's 16
+// unit groups read 256 contiguous bytes of a weight row as float4.
 struct Tile9 {
   int s, g0;
 };
 __device__ __forceinline__ Tile9 tile9() {
-  return {(int)threadIdx.x >> 4, ((int)threadIdx.x & 15) * 4};
+  return {(int)threadIdx.x / UG9, ((int)threadIdx.x % UG9) * 4};
 }
 
-// a net NIN-64-64-NOUT in shared memory: w1 and w2 transposed (input major,
+// a net NIN-H-H-NOUT in shared memory: w1 and w2 transposed (input major,
 // the units of an input contiguous, rows WS9 = H + 4 floats apart so that a
 // warp storing an input's units of consecutive inputs hits 8 banks, not 1),
 // w3 [NOUT, H] and the biases as in the kernel layout
@@ -446,9 +448,9 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ w, const fl
 
 // The backward pass through w2 on its transpose (rows of units, each unit's
 // inputs contiguous, rows WS9 apart): acc[q][u] = sum over the H inputs g, in
-// order from the first product, of wt[(ug + 16 u) WS9 + g] x[g LD9 + s + q
-// SO9], units ug, ug + 16, ug + 32, ug + 48 (ug = g0 / 4); four inputs of a
-// unit read as one float4
+// order from the first product, of wt[(ug + UG9 u) WS9 + g] x[g LD9 + s + q
+// SO9], units ug, ug + UG9, ug + 2 UG9, ug + 3 UG9 (ug = g0 / 4); four inputs
+// of a unit read as one float4
 __device__ __forceinline__ void dense_rows(const float* __restrict__ wt, const float* x, Tile9 t,
                                            float (&acc)[2][4]) {
   const int ug = t.g0 >> 2;
@@ -457,7 +459,7 @@ __device__ __forceinline__ void dense_rows(const float* __restrict__ wt, const f
     float4 wv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      wv[u] = *reinterpret_cast<const float4*>(wt + (ug + 16 * u) * WS9 + g);
+      wv[u] = *reinterpret_cast<const float4*>(wt + (ug + UG9 * u) * WS9 + g);
     float x0[4], x1[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -494,7 +496,7 @@ __device__ __forceinline__ void store_tanh(const float (&acc)[2][4], const float
 }
 
 // a net's single output on the h2 rows at x (one sample's column): the sum
-// over the 64 units in order, then b3 (right after w3)
+// over the H units in order, then b3 (right after w3)
 __device__ __forceinline__ float net_out(const float* __restrict__ w3, const float* x) {
   float q = w3[0] * x[0];
 #pragma unroll 16
@@ -817,7 +819,7 @@ maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict_
     for (int q = 0; q < 2; ++q)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int h = (t.g0 >> 2) + 16 * u, s = t.s + q * SO9;
+        const int h = (t.g0 >> 2) + UG9 * u, s = t.s + q * SO9;
         const float h1 = tile[(L::R_H1 + h) * LD9 + s];
         tile[(L::R_GH1 + h) * LD9 + s] = acc[q][u] * (1.0f - h1 * h1);
       }
@@ -942,7 +944,7 @@ maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict_
     for (int q = 0; q < 2; ++q)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int h = (t.g0 >> 2) + 16 * u, s = t.s + q * SO9;
+        const int h = (t.g0 >> 2) + UG9 * u, s = t.s + q * SO9;
         const float h1 = tile[(L::R_H1 + h) * LD9 + s];
         tile[(L::R_GH1 + h) * LD9 + s] = acc[q][u] * (1.0f - h1 * h1);
       }

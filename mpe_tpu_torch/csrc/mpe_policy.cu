@@ -2,7 +2,7 @@
 // scenarios of scenario_blocks.cuh.
 //
 // K5  policy_traj_kernel<S>    replaces  mpe_tpu/ops/fused_policy.py::_policy_traj_kernel
-//     (fused_policy_trajectory): obs -> MLP OW-64-64-(5+C) -> Gumbel-max move
+//     (fused_policy_trajectory): obs -> MLP OW-H-H-(5+C) -> Gumbel-max move
 //     (and comm, where the agent speaks) -> physics -> reward -> per-lane reset,
 //     streaming the on-policy batch. Out: obs [T,A,OW,N] (the obs each agent
 //     acted on), act [T,A,N] and, with a comm head, cact [T,A,N] int32 (0 for
@@ -13,7 +13,8 @@
 //     episodes [1,N].
 //
 // What bounds them: fp32 operations. One env-step runs the MLP once per agent,
-// 64 (OW + 64 + 5 + C) multiply-adds and 128 tanh each (chip_smoke.py::OPS;
+// H (OW + H + 5 + C) multiply-adds and 2 H tanh each (H the hidden width,
+// policy_mlp.cuh; chip_smoke.py::OPS;
 // with -fmad=false a multiply-add issues as two operations, so the floor is
 // about twice that bound), against a few hundred bytes of obs per env-step that
 // K5 writes and nothing that K4 writes per step.

@@ -5,7 +5,7 @@
 // K6  ppo_update_kernel<OW, 5, KC, true, false> + update_reduce_kernel  replace
 //     mpe_tpu/ops/fused_update.py::_update_kernel (fused_ppo_update): for every
 //     sample (one (t, agent, env) column of the [T, A, *, N] batch) the forward
-//     MLP IN-64-64-(5+KC+1), the analytic clipped-surrogate, entropy and clipped
+//     MLP IN-H-H-(5+KC+1), the analytic clipped-surrogate, entropy and clipped
 //     value-loss gradient at the outputs (fused_update.py:21-23), the comm
 //     factor's softmax, log-prob and entropy masked by the agent's speak flag,
 //     the backward pass through both tanh layers, and the weight-gradient and
@@ -20,7 +20,7 @@
 //     to 8 rows (VPAD) for its matrix unit; here it is one output.
 // Out: the gradient in the packed layout below and the metric sums.
 //
-// What bounds them: fp32 operations, 64 (IN + 64 + KO) multiply-adds of the
+// What bounds them: fp32 operations, H (IN + H + KO) multiply-adds of the
 // forward, about as many of the backward and of the weight gradients per
 // sample (chip_smoke.py::OPS, a multiply-add counted once), against about 4
 // (IN + 5 + C + 4) bytes read per sample.
@@ -35,17 +35,19 @@
 // [unit][sample] (rows of TS + 4 floats, so that the rows a quarter-warp reads
 // as float4s lie in distinct banks):
 //   forward   H1 = tanh(W1 X + b1), H2 = tanh(W2 H1 + b2): each thread a
-//             register tile of 4 units x 4 samples, per input one float4 of
-//             weights (w1, w2 stored transposed) and one of samples;
+//             register tile of UM units x US samples (4 x 4 at hidden 64, so
+//             that every thread has one at every width), per input UM
+//             weights (w1, w2 stored transposed) and US samples;
 //             Z = W3 H2 + b3 with four threads per sample;
 //   head      one thread per sample: the softmaxes, ratio, clips and value
 //             clip at the outputs (the JAX kernel's arithmetic, unfused), G3;
 //   backward  GH2 = (W3^T G3) (1 - H2^2), GH1 = (W2^T GH2) (1 - H1^2), the
 //             forward's tiles, each written over the activation it scales;
 //   gradient  dW3 += G3 H2^T, dW2 += GH2 H1^T, dW1 += GH1 X^T: each thread a
-//             4 x 4 (dW2), 4 x ceil(IN/16) (dW1) or 1 x KOP/4 (dW3) block of
-//             entries, kept in registers over all the CTA's tiles, fed per four
-//             samples by float4s of both operands; the bias sums ride along.
+//             block of entries (at hidden 64 4 x 4 of dW2, 4 x ceil(IN/16) of
+//             dW1, 1 x KOP/4 of dW3), kept in registers over all the CTA's
+//             tiles, fed per four samples by float4s of both operands; the bias
+//             sums ride along.
 // Every sum of a product runs over its inputs (or, in a gradient, over the
 // CTA's samples) in order, with fused multiply-adds (fmaf: the library's
 // -fmad=false leaves every other multiply and add, the head's included,
@@ -73,13 +75,28 @@
 
 namespace {
 
-constexpr int H = 64;            // hidden width
+#ifndef MPE_HIDDEN
+#define MPE_HIDDEN 64
+#endif
+constexpr int H = MPE_HIDDEN;    // hidden width: 8, 16, 32 or 64 (ops/_build.py, one library each)
+static_assert(H == 8 || H == 16 || H == 32 || H == 64, "the kernels take hidden 8, 16, 32 or 64");
 constexpr int THREADS = 256;     // per CTA
 constexpr int TS = 64;           // samples per tile
 constexpr int LD = TS + 4;       // a tile row's stride
+// unit_product's register tile: UM units x US samples per thread, the UG unit
+// groups x SG sample groups covering H x TS with every thread (4 x 4 at hidden
+// 64, 2 x 4 at 32, 1 x 4 at 16, 1 x 2 at 8)
+constexpr int UM = H >= 16 ? H / 16 : 1, US = H >= 16 ? 4 : 2;
+constexpr int UG = H / UM, SG = TS / US;
+static_assert(UG * SG == THREADS, "unit_product's tiles cover H x TS with the CTA's threads");
+// outer_sum's grid of entries: PM rows x QN columns of threads, each thread
+// rows pm + PM i (i < RI) (at hidden 8 the columns past H idle in dW2)
+constexpr int PM = H < 16 ? H : 16, QN = THREADS / PM, RI = H / PM, RN2 = (H + QN - 1) / QN;
+// dW3's threads: unit g3c = tid % H of output rows k3 + KS r (k3 = tid / H < KS)
+constexpr int KS_MAX = THREADS / H;
 constexpr size_t SM_SMEM = 233472;   // shared memory of an SM; a CTA takes 1 KB more than it asks
 
-// the packed weights (input) and gradient (output, partials) of an IN-64-64-KO
+// the packed weights (input) and gradient (output, partials) of an IN-H-H-KO
 // MLP: w1 [H,IN], b1 [H], w2 [H,H], b2 [H], w3 [KO,H] (policy rows, then v),
 // b3 [KO], then the three metric sums (pg, vloss, entropy);
 // ops/fused_update.py::_packed mirrors it
@@ -117,8 +134,9 @@ struct UpdateDims {
   static constexpr bool HAS_V = HAS_V_, TEAM = TEAM_;
   static constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
   static constexpr int KOP = (KO + 7) / 8 * 8;        // output rows, zero-padded
-  static constexpr int RQ = (IN + 15) / 16;            // dW1 columns per thread
-  static constexpr int INP = 16 * RQ;                  // x rows, zero-padded
+  static constexpr int RQ = (IN + QN - 1) / QN;        // dW1 columns per thread
+  static constexpr int INP = QN * RQ;                  // x rows, zero-padded
+  static constexpr int KS = KOP < KS_MAX ? KOP : KS_MAX, R3 = KOP / KS;   // dW3's split
   // a stage: x rows, then the per-sample inputs of the head
   static constexpr int A_MV = INP, A_CM = A_MV + KP, A_LPO = A_CM + KC, A_ADV = A_LPO + 1;
   static constexpr int A_RET = KP > 0 ? A_ADV + 1 : INP, A_VOLD = A_RET + 1;
@@ -247,73 +265,89 @@ __device__ __forceinline__ void stage_tile(const Batch& b, float* __restrict__ s
 
 // ---- the products ------------------------------------------------------------
 
-// C[m][s] = epi(m, sum_k A[k][m] B[k][s], &C[m][s]) for the 64 units m and the
-// TS samples s: A [K][H] (units contiguous), B and C [.][LD]. Thread t of warp
-// w owns units 4 mi .. 4 mi + 3, mi = 2 w + (lane & 1), and samples 4 si .. 4
-// si + 3, si = lane >> 1: per input one float4 of A (a warp reads two) and one
-// of B for 16 multiply-adds
+// n consecutive floats from shared memory (16-, 8- or 4-byte aligned)
+template <int n>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[n]) {
+  if constexpr (n == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (n == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < n; ++i) v[i] = p[i];
+  }
+}
+
+// C[m][s] = epi(m, sum_k A[k][m] B[k][s], &C[m][s]) for the H units m and the
+// TS samples s: A [K][H] (units contiguous), B and C [.][LD]. Thread t owns
+// units UM mi .. UM mi + UM - 1, mi = t / SG, and samples US si .. US si + US
+// - 1, si = t % SG: per input UM floats of A (a warp reads one or two runs)
+// and US of B for UM x US multiply-adds
 template <int K, class Epi>
 __device__ __forceinline__ void unit_product(const float* __restrict__ A,
                                              const float* __restrict__ B, float* __restrict__ C,
                                              int tid, Epi epi) {
-  static_assert(TS == 64, "16 threads of four samples span a tile");
-  const int lane = tid & 31, m0 = 4 * (2 * (tid >> 5) + (lane & 1)), s0 = 4 * (lane >> 1);
-  float acc[4][4];
+  const int m0 = UM * (tid / SG), s0 = US * (tid % SG);
+  float acc[UM][US];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < UM; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    for (int e = 0; e < US; ++e) acc[i][e] = 0.0f;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(A + k * H + m0);
-    const float4 b = *reinterpret_cast<const float4*>(B + k * LD + s0);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    float av[UM], bv[US];
+    load_vec<UM>(A + k * H + m0, av);
+    load_vec<US>(B + k * LD + s0, bv);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < UM; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(av[i], bv[e], acc[i][e]);
+      for (int e = 0; e < US; ++e) acc[i][e] = fmaf(av[i], bv[e], acc[i][e]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < UM; ++i) {
     float* c = C + (m0 + i) * LD + s0;
-    float4 out;
-    out.x = epi(m0 + i, acc[i][0], c + 0);
-    out.y = epi(m0 + i, acc[i][1], c + 1);
-    out.z = epi(m0 + i, acc[i][2], c + 2);
-    out.w = epi(m0 + i, acc[i][3], c + 3);
-    *reinterpret_cast<float4*>(c) = out;
+    float out[US];
+#pragma unroll
+    for (int e = 0; e < US; ++e) out[e] = epi(m0 + i, acc[i][e], c + e);
+#pragma unroll
+    for (int e = 0; e < US; ++e) c[e] = out[e];
   }
 }
 
 // acc[i][j] += sum_s P[rp(i)][s] Q[rq(j)][s] over the tile, s in order, rows
-// rp(i) = pm + 16 i (i < 4) of P and rq(j) = qn + 16 j (j < RN) of Q, both
-// [.][LD]; the bias sum of P's row pm + 16 qn joins in bias for qn < 4. Per
-// four samples: 4 + RN float4s for 16 RN multiply-adds
+// rp(i) = pm + PM i (i < RI) of P and rq(j) = qn + QN j (j < RN) of Q, both
+// [.][LD] (a row of Q at or past nq reads row nq - 1 and is not stored); the
+// bias sum of P's row pm + PM qn joins in bias for qn < RI. Per four samples:
+// RI + RN float4s for 4 RI RN multiply-adds
 template <int RN>
 __device__ __forceinline__ void outer_sum(const float* __restrict__ P, const float* __restrict__ Q,
-                                          int pm, int qn, float (&acc)[4][RN], float& bias) {
+                                          int pm, int qn, int nq, float (&acc)[RI][RN],
+                                          float& bias) {
+  int rq[RN];
+#pragma unroll
+  for (int j = 0; j < RN; ++j) rq[j] = (qn + QN * j < nq ? qn + QN * j : nq - 1) * LD;
 #pragma unroll 2
   for (int s = 0; s < TS; s += 4) {
-    float pv[4][4];
+    float pv[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 p = *reinterpret_cast<const float4*>(P + (pm + 16 * i) * LD + s);
-      pv[i][0] = p.x;
-      pv[i][1] = p.y;
-      pv[i][2] = p.z;
-      pv[i][3] = p.w;
-    }
+    for (int i = 0; i < RI; ++i) load_vec<4>(P + (pm + PM * i) * LD + s, pv[i]);
 #pragma unroll
     for (int j = 0; j < RN; ++j) {
-      const float4 q = *reinterpret_cast<const float4*>(Q + (qn + 16 * j) * LD + s);
-      const float qv[4] = {q.x, q.y, q.z, q.w};
+      float qv[4];
+      load_vec<4>(Q + rq[j] + s, qv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j] = fmaf(pv[i][e], qv[e], acc[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
       if (qn == i) bias = ((bias + pv[i][0]) + pv[i][1]) + pv[i][2] + pv[i][3];
   }
 }
@@ -458,19 +492,21 @@ ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ o
     for (int i = tid; i < (D::INP - IN) * LD; i += THREADS)
       tile[(st * D::STAGE_ROWS + IN) * LD + i] = 0.0f;
 
-  // this thread's gradient entries: dW2 rows pm + 16 i, columns qn + 16 j; dW1
-  // rows pm + 16 i, columns qn + 16 j (j < RQ); db1, db2 row pm + 16 qn (qn <
-  // 4); dW3 rows k3 + 4 r, column g3 (db3 row k3 + 4 g3, g3 < KOP / 4)
+  // this thread's gradient entries: dW2 rows pm + PM i, columns qn + QN j; dW1
+  // rows pm + PM i, columns qn + QN j (j < RQ); db1, db2 row pm + PM qn (qn <
+  // RI); dW3 rows k3 + KS r, column g3c (db3 row k3 + KS g3c, g3c < R3); a
+  // warp's 8 rows pm of P lie LD = 4 mod 32 floats apart: distinct banks
   const int lane = tid & 31, warp = tid >> 5;
-  const int pm = (lane & 7) | ((warp & 1) << 3), qn = (lane >> 3) | ((warp >> 1) << 2);
-  const int g3c = tid & (H - 1), k3 = tid >> 6;
-  constexpr int R3 = KOP / 4;
-  float a2[4][4], a1[4][RQ], a3[R3], ab1 = 0.0f, ab2 = 0.0f, ab3 = 0.0f;
+  constexpr int PW = PM / 8;                           // warps across the rows
+  const int pm = (lane & 7) | ((warp % PW) << 3), qn = (lane >> 3) | ((warp / PW) << 2);
+  const int g3c = tid % H, k3 = tid / H;
+  constexpr int KS = D::KS, R3 = D::R3;
+  float a2[RI][RN2], a1[RI][RQ], a3[R3], ab1 = 0.0f, ab2 = 0.0f, ab3 = 0.0f;
   float ms[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) a2[i][j] = 0.0f;
+    for (int j = 0; j < RN2; ++j) a2[i][j] = 0.0f;
 #pragma unroll
     for (int j = 0; j < RQ; ++j) a1[i][j] = 0.0f;
   }
@@ -522,17 +558,19 @@ ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ o
     }
     __syncthreads();
     // dW3 += G3 H2^T (db3 beside it), then GH2 over H2
+    if (k3 < KS) {
 #pragma unroll 2
-    for (int s = 0; s < TS; s += 4) {
-      const float4 hq = *reinterpret_cast<const float4*>(h2t + g3c * LD + s);
+      for (int s = 0; s < TS; s += 4) {
+        const float4 hq = *reinterpret_cast<const float4*>(h2t + g3c * LD + s);
 #pragma unroll
-      for (int r = 0; r < R3; ++r) {
-        const float4 gq = *reinterpret_cast<const float4*>(gt + (k3 + 4 * r) * LD + s);
-        a3[r] = fmaf(gq.x, hq.x, a3[r]);
-        a3[r] = fmaf(gq.y, hq.y, a3[r]);
-        a3[r] = fmaf(gq.z, hq.z, a3[r]);
-        a3[r] = fmaf(gq.w, hq.w, a3[r]);
-        if (g3c == r) ab3 = ((ab3 + gq.x) + gq.y) + gq.z + gq.w;
+        for (int r = 0; r < R3; ++r) {
+          const float4 gq = *reinterpret_cast<const float4*>(gt + (k3 + KS * r) * LD + s);
+          a3[r] = fmaf(gq.x, hq.x, a3[r]);
+          a3[r] = fmaf(gq.y, hq.y, a3[r]);
+          a3[r] = fmaf(gq.z, hq.z, a3[r]);
+          a3[r] = fmaf(gq.w, hq.w, a3[r]);
+          if (g3c == r) ab3 = ((ab3 + gq.x) + gq.y) + gq.z + gq.w;
+        }
       }
     }
     __syncthreads();
@@ -541,14 +579,14 @@ ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ o
     });
     __syncthreads();
     // dW2 += GH2 H1^T (db2), then GH1 over H1
-    outer_sum<4>(h2t, h1t, pm, qn, a2, ab2);
+    outer_sum<RN2>(h2t, h1t, pm, qn, H, a2, ab2);
     __syncthreads();
     unit_product<H>(w + D::S_W2, h2t, h1t, tid, [](int, float v, const float* c) {
       return v * (1.0f - *c * *c);
     });
     __syncthreads();
     // dW1 += GH1 X^T (db1); the padding rows of X add zeros
-    outer_sum<RQ>(h1t, st, pm, qn, a1, ab1);
+    outer_sum<RQ>(h1t, st, pm, qn, D::INP, a1, ab1);
     __syncthreads();                                    // this stage's reads are done
     if constexpr (D::STAGES == 1) {
       if (ti + gridDim.x < n_tiles)
@@ -559,21 +597,24 @@ ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ o
 
   float* part = partials + (size_t)blockIdx.x * L.ng;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) part[L.g_w2 + (pm + 16 * i) * H + qn + 16 * j] = a2[i][j];
+    for (int j = 0; j < RN2; ++j)
+      if (qn + QN * j < H) part[L.g_w2 + (pm + PM * i) * H + qn + QN * j] = a2[i][j];
 #pragma unroll
     for (int j = 0; j < RQ; ++j)
-      if (qn + 16 * j < IN) part[L.g_w1 + (pm + 16 * i) * IN + qn + 16 * j] = a1[i][j];
+      if (qn + QN * j < IN) part[L.g_w1 + (pm + PM * i) * IN + qn + QN * j] = a1[i][j];
   }
-  if (qn < 4) {
-    part[L.g_b1 + pm + 16 * qn] = ab1;
-    part[L.g_b2 + pm + 16 * qn] = ab2;
+  if (qn < RI) {
+    part[L.g_b1 + pm + PM * qn] = ab1;
+    part[L.g_b2 + pm + PM * qn] = ab2;
   }
+  if (k3 < KS) {
 #pragma unroll
-  for (int r = 0; r < R3; ++r)
-    if (k3 + 4 * r < KO) part[L.g_w3 + (k3 + 4 * r) * H + g3c] = a3[r];
-  if (g3c < R3 && k3 + 4 * g3c < KO) part[L.g_b3 + k3 + 4 * g3c] = ab3;
+    for (int r = 0; r < R3; ++r)
+      if (k3 + KS * r < KO) part[L.g_w3 + (k3 + KS * r) * H + g3c] = a3[r];
+    if (g3c < R3 && k3 + KS * g3c < KO) part[L.g_b3 + k3 + KS * g3c] = ab3;
+  }
   // metric sums over the CTA's threads, in thread order
 #pragma unroll
   for (int q = 0; q < 3; ++q) tile[q * THREADS + tid] = ms[q];
@@ -711,7 +752,7 @@ int mpe_mappo_update(int ow, int kc, const float* actor_w, const float* critic_w
   });
 }
 
-// the packed gradient's length of an in-64-64-ko MLP (ops/fused_update.py::_packed)
+// the packed gradient's length of an in-H-H-ko MLP (ops/fused_update.py::_packed)
 int mpe_update_packed_size(int in, int ko) { return packed(in, ko).ng; }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
-// The actor MLP OW-64-64-KP of the policy kernels (mpe_policy.cu: K4, K5;
+// The actor MLP OW-H-H-KP of the policy kernels (mpe_policy.cu: K4, K5;
 // mpe_maddpg.cu: K8), OW = the scenario's obs width, KP = 5 + dim_c logits
 // when it speaks, else 5, run as CTA-wide products over a tile of env lanes;
 // and MlpLayout, the kernel layout of one actor that K9 (mpe_maddpg.cu) reads
-// its gradients in.
+// its gradients in. The hidden width H is a compile-time constant,
+// -DMPE_HIDDEN=H (8, 16, 32 or 64; 64 by default): ops/_build.py builds one
+// library per width.
 //
 // The lane tile. A CTA of TILE_THREADS threads owns TL env lanes (a tile).
 // Thread l < TL owns lane l: its world state stays in its registers, and it
@@ -14,7 +16,7 @@
 // input contiguous). A layer is split into items of 4 rows x 4 units; each
 // thread takes items in turn and keeps its item's 16 sums in registers: per
 // input, one float4 of weights and one float4 of rows from shared memory feed
-// 16 independent multiply-add chains, so the latency of each 64-long chain
+// 16 independent multiply-add chains, so the latency of each H-long chain
 // hides behind the others and behind the CTA's other warps, where the
 // one-thread-per-lane MLP ran one dependent chain at a time.
 //
@@ -32,7 +34,12 @@
 
 namespace {
 
-constexpr int H = 64;            // hidden width
+#ifndef MPE_HIDDEN
+#define MPE_HIDDEN 64
+#endif
+constexpr int H = MPE_HIDDEN;    // hidden width
+static_assert(H == 8 || H == 16 || H == 32 || H == 64, "the kernels take hidden 8, 16, 32 or 64");
+constexpr int HG = H / 4;        // groups of 4 units
 
 // packed weights of one actor in K9's layout (ops/fused_maddpg_update.py::PackedLayout):
 // w1 [H,OW], b1 [H], w2 [H,H], b2 [H], w3 [KP,H], b3 [KP]
@@ -110,9 +117,9 @@ __device__ __forceinline__ void load_float4s(float* dst, const float* __restrict
 template <int NIN>
 __device__ __forceinline__ void tile_dense_tanh(const float* wt, const float* b, int wstride,
                                                 const float* x, float* out, const TileRows& tr) {
-  const int n_items = (tr.nr / 4) * (H / 4);
+  const int n_items = (tr.nr / 4) * HG;
   for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-    const int r0 = (item >> 4) * 4, g0 = (item & 15) * 4;
+    const int r0 = (item / HG) * 4, g0 = (item % HG) * 4;
     const int agent = r0 / tr.tlp;
     const float* w = wt + agent * wstride + g0;
     const float* xr = x + r0;

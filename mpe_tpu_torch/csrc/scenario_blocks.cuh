@@ -926,11 +926,14 @@ struct DetMoves {
 // S::physics split over the group: the action forces (from move, a
 // RolloutMoves or DetMoves) and the pair forces by rank (the pairs read the
 // copy wv, which holds w), then every thread integrates as the scenario's
-// physics does. Ends with the group's reads of wv done.
+// physics does. Ends with the group's reads of wv done. The move draws of
+// entries 1-4 of each slot agent land in mvq[q][1..4] (K3 stores them; the
+// rollouts call the overload below, whose array nothing reads).
 template <class S, int G, class Moves>
 __device__ __forceinline__ void group_physics(const typename S::Params& c,
                                               const GroupSlots<S, G>& sl, const Moves& move,
-                                              const typename S::W& wv, typename S::W& w) {
+                                              const typename S::W& wv, typename S::W& w,
+                                              float (&mvq)[GroupSlots<S, G>::QA][MW]) {
   using Sl = GroupSlots<S, G>;
   constexpr int A = S::A;
   float ux[A], uy[A];
@@ -943,6 +946,10 @@ __device__ __forceinline__ void group_physics(const typename S::Params& c,
       const float m2 = move(i, 2);
       const float m3 = move(i, 3);
       const float m4 = move(i, 4);
+      mvq[q][1] = m1;
+      mvq[q][2] = m2;
+      mvq[q][3] = m3;
+      mvq[q][4] = m4;
       uxq[q] = (m1 - m2) * sl.accel[q];
       uyq[q] = (m3 - m4) * sl.accel[q];
     }
@@ -997,18 +1004,27 @@ __device__ __forceinline__ void group_physics(const typename S::Params& c,
   }
 }
 
-// draw_comm split over the group: agent i's row drawn on its rank
+template <class S, int G, class Moves>
+__device__ __forceinline__ void group_physics(const typename S::Params& c,
+                                              const GroupSlots<S, G>& sl, const Moves& move,
+                                              const typename S::W& wv, typename S::W& w) {
+  float mvq[GroupSlots<S, G>::QA][MW];
+  group_physics<S, G>(c, sl, move, wv, w, mvq);
+}
+
+// draw_comm split over the group: agent i's row drawn on its rank; each slot
+// agent's silent-masked row also lands in cq[q] (K3 stores it)
 template <class S, int G>
 __device__ __forceinline__ void group_comm(const typename S::Params& c, const GroupSlots<S, G>& sl,
                                            uint32_t salt, uint32_t n, uint32_t lane,
-                                           float (&cm)[S::A][S::CW]) {
+                                           float (&cm)[S::A][S::CW],
+                                           float (&cq)[GroupSlots<S, G>::QA][S::CW]) {
   using Sl = GroupSlots<S, G>;
 #pragma unroll
   for (int i = 0; i < S::A; ++i)
 #pragma unroll
     for (int k = 0; k < S::CW; ++k) cm[i][k] = 0.0f;
   if constexpr (S::C > 0) {
-    float cq[Sl::QA][S::C];
 #pragma unroll
     for (int q = 0; q < Sl::QA; ++q)
 #pragma unroll
@@ -1022,6 +1038,14 @@ __device__ __forceinline__ void group_comm(const typename S::Params& c, const Gr
       for (int k = 0; k < S::C; ++k) cm[i][k] = group_get<G>(cq[i / G][k], i % G);
     }
   }
+}
+
+template <class S, int G>
+__device__ __forceinline__ void group_comm(const typename S::Params& c, const GroupSlots<S, G>& sl,
+                                           uint32_t salt, uint32_t n, uint32_t lane,
+                                           float (&cm)[S::A][S::CW]) {
+  float cq[GroupSlots<S, G>::QA][S::CW];
+  group_comm<S, G>(c, sl, salt, n, lane, cm, cq);
 }
 
 // S::reward on the group: simple_spread's nearest-agent distance to landmark

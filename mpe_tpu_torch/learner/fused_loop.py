@@ -46,7 +46,8 @@ def actor_gates(chunk: int, horizon: int, actor_start: int, actor_period=None) -
 def build_fused_maddpg_runner(scenario: str, n_envs: int = 64, horizon: int = 25,
                               batch: int = 1024, tau: float = 0.01, lr: float = 1e-3,
                               ent_coef: float = 0.01, eps: float = 0.1, block: int = 40,
-                              actor_period=None, local_critic: bool = False, device=None):
+                              actor_period=None, local_critic: bool = False, hidden: int = 64,
+                              device=None):
     """Build the fused MADDPG machinery for ``scenario`` once -> ``run(
     updates, seed=0, init_params=None, actor_start=1000,
     collect_seed0=10_000, progress=None, events=None) -> (params, info)``.
@@ -66,7 +67,10 @@ def build_fused_maddpg_runner(scenario: str, n_envs: int = 64, horizon: int = 25
     ``critic_loss`` (tensors on the device), and the final ``targets``,
     ``opt_states`` and ``buffer``.
 
-    ``local_critic=True`` (independent DDPG) is not ported yet (ROADMAP A10)."""
+    ``hidden`` is the width of the actors and critics drawn when no
+    ``init_params`` are given (the kernels take 8, 16, 32 and 64; the JAX
+    runner fixes 64). ``local_critic=True`` (independent DDPG) is not ported
+    yet (ROADMAP A10)."""
     from mpe_tpu_torch import scenarios
     from mpe_tpu_torch.envs.functional import MpeEnv
 
@@ -89,13 +93,14 @@ def build_fused_maddpg_runner(scenario: str, n_envs: int = 64, horizon: int = 25
                                   block_envs=min(1024, n_envs), device=device)
     update_chunk = build_fused_update_chunk(env, horizon, batch=batch, tau_polyak=tau,
                                             actor_lr=lr, critic_lr=lr, ent_coef=ent_coef,
-                                            device=device)
+                                            hidden=hidden, device=device)
 
     def run(updates: int, seed: int = 0, init_params=None, actor_start: int = 1000,
             collect_seed0: int = 10_000, progress=None, events=None):
         n_chunks = max(1, updates // horizon)
         if init_params is None:
-            init_params = init_maddpg(torch.Generator().manual_seed(int(seed)), obs_dim, aw, a)
+            init_params = init_maddpg(torch.Generator().manual_seed(int(seed)), obs_dim, aw, a,
+                                      hidden=hidden)
         params = _tree3(lambda x: torch.as_tensor(x, dtype=torch.float32).to(device),
                         init_params)
         targets = _tree3(torch.clone, params)

@@ -5,7 +5,11 @@ Each source under ``mpe_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 libraries go into ``build/kernels/`` beside the package at first use; the
 sources build in parallel, and each is rebuilt only when it, the shared
-header or the flags change (the file name carries their hash).
+header or the flags change (the file name carries their hash). The sources
+of K4-K9 (``HIDDEN_SOURCES``) take the MLPs' hidden width at compile time
+(``-DMPE_HIDDEN``): one library per (source, width) of ``HIDDEN_WIDTHS``,
+built at the first use of that width; ``build_all`` builds every source at
+width 64.
 ``spread_params`` and ``scenario_params`` fill the kernels' constant structs.
 ``-fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise ops round them, so a kernel can be held tightly
@@ -34,6 +38,20 @@ SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu",
 HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# the sources whose kernels run an MLP (K4, K5; K6, K7; K8, K9), the hidden
+# widths they are compiled for, and the width a plain build takes
+HIDDEN_SOURCES = ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu")
+HIDDEN_WIDTHS = (8, 16, 32, 64)
+DEFAULT_HIDDEN = 64
+
+
+def check_hidden(hidden: int, what: str) -> int:
+    """``hidden`` if the kernels are compiled for it, else
+    ``NotImplementedError`` naming the widths they take."""
+    if hidden not in HIDDEN_WIDTHS:
+        raise NotImplementedError(f"{what} are compiled for hidden widths "
+                                  f"{set(HIDDEN_WIDTHS)}; got {hidden}")
+    return int(hidden)
 
 
 def nvcc() -> str:
@@ -47,38 +65,66 @@ def nvcc() -> str:
     return found
 
 
-def _target(source: str) -> Path:
+def _flags(source: str, hidden: int) -> tuple:
+    if hidden != DEFAULT_HIDDEN:
+        if source not in HIDDEN_SOURCES:
+            raise ValueError(f"{source} has no hidden width; only {HIDDEN_SOURCES} take one")
+        check_hidden(hidden, "the MLP kernels")
+        return NVCC_FLAGS + (f"-DMPE_HIDDEN={hidden}",)
+    return NVCC_FLAGS
+
+
+def _target(source: str, hidden: int = DEFAULT_HIDDEN) -> Path:
+    """The library of ``source`` at ``hidden``: its name carries a hash of the
+    source, the headers and the flags (the width among them, except at the
+    default 64)."""
     src = CSRC / source
     text = src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in HEADERS)
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    digest = hashlib.sha256(text + " ".join(_flags(source, hidden)).encode()).hexdigest()[:16]
+    width = "" if hidden == DEFAULT_HIDDEN else f"_h{hidden}"
+    return BUILD_DIR / f"lib{src.stem}{width}_{digest}.so"
 
 
-def build_all() -> dict[str, str]:
-    """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together. Returns ``{source: ptxas log}`` (the
-    registers and spills of each kernel; empty for a cached library)."""
+def build(pairs) -> dict:
+    """Compile every ``(source, hidden)`` of ``pairs`` whose library is
+    missing, one ``nvcc`` each, all started together. Returns ``{(source,
+    hidden): ptxas log}`` (the registers and spills of each kernel; empty for
+    a cached library)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pairs = list(dict.fromkeys(pairs))
     procs = {}
-    for source in SOURCES:
-        out = _target(source)
+    for source, hidden in pairs:
+        out = _target(source, hidden)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        procs[source] = (out, tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        procs[source, hidden] = (out, tmp, subprocess.Popen(
+            [nvcc(), *_flags(source, hidden), "-o", str(tmp), str(CSRC / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = {source: "" for source in SOURCES}
+    logs = {pair: "" for pair in pairs}
     failed = []
-    for source, (out, tmp, proc) in procs.items():
-        logs[source], _ = proc.communicate()
+    for pair, (out, tmp, proc) in procs.items():
+        logs[pair], _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{source}:\n{logs[source]}")
+            failed.append(f"{pair[0]} (hidden {pair[1]}):\n{logs[pair]}")
             continue
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def build_all(hidden_widths=()) -> dict:
+    """Compile every source at width 64 and the MLP sources at each of
+    ``hidden_widths`` too, all at once (``build``). Returns ``{source: ptxas
+    log}`` of the width-64 builds, and ``{(source, hidden): log}`` of the
+    others."""
+    pairs = [(source, DEFAULT_HIDDEN) for source in SOURCES]
+    pairs += [(source, h) for h in hidden_widths if h != DEFAULT_HIDDEN
+              for source in HIDDEN_SOURCES]
+    logs = build(pairs)
+    return {(source if hidden == DEFAULT_HIDDEN else (source, hidden)): log
+            for (source, hidden), log in logs.items()}
 
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -105,7 +151,7 @@ SIGNATURES = {
         "mpe_maddpg_update_layout": [_I, _I],
     },
     "mpe_trajectory.cu": {
-        "mpe_trajectory": [_I] + [_P] * 6 + [_I] * 5 + [_U, _U, _P],
+        "mpe_trajectory": [_I] + [_P] * 6 + [_I] * 5 + [_U, _U, _I, _P],
     },
 }
 
@@ -127,11 +173,17 @@ _BLOCK_SHAPES = {"KernelSimple": (1, 1, 0, (), ()), "KernelReference": (2, 3, 10
 
 
 @functools.cache
-def library(source: str = "mpe_kernels.cu") -> ctypes.CDLL:
-    """The loaded library of one source under ``csrc/`` (every source is
-    built first if needed)."""
-    build_all()
-    lib = ctypes.CDLL(str(_target(source)))
+def library(source: str = "mpe_kernels.cu", hidden: int = DEFAULT_HIDDEN) -> ctypes.CDLL:
+    """The loaded library of one source under ``csrc/`` at hidden width
+    ``hidden`` (an MLP source's; the others take 64 only). The first call
+    builds every source at 64 if needed, a call at another width the MLP
+    sources at that width."""
+    _flags(source, hidden)
+    if hidden == DEFAULT_HIDDEN:
+        build_all()
+    else:
+        build([(s, hidden) for s in HIDDEN_SOURCES])
+    lib = ctypes.CDLL(str(_target(source, hidden)))
     for name, argtypes in SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -45,18 +45,20 @@ import ctypes
 import torch
 
 from mpe_tpu_torch._device import resolve_device
-from mpe_tpu_torch.ops.fused_policy import HIDDEN, _gumbel_onehot, _resolve, tile_rule
+from mpe_tpu_torch.ops._build import DEFAULT_HIDDEN, check_hidden
+from mpe_tpu_torch.ops.fused_policy import _gumbel_onehot, _resolve, tile_rule
 from mpe_tpu_torch.ops.fused_rollout import _MASK, make_lane_reset, make_uniform, pick_block_envs
 
 MADDPG_TILES = (1, 2, 4, 8)          # env lanes per CTA that K8 takes (8: world_comm's 209 KB)
 
 
-def maddpg_tile(kscn, n_envs: int, device=None) -> int:
+def maddpg_tile(kscn, n_envs: int, device=None, hidden: int = DEFAULT_HIDDEN) -> int:
     """K8's env lanes per CTA on the CUDA ``device`` (``None``: the current
-    one), by ``fused_policy.pick_tile``. Every tile gives the same bits."""
+    one) for actors of hidden width ``hidden``, by ``fused_policy.pick_tile``.
+    Every tile gives the same bits."""
     from mpe_tpu_torch.ops import _build
 
-    return tile_rule(MADDPG_TILES, kscn, n_envs, device, "mpe_maddpg.cu",
+    return tile_rule(MADDPG_TILES, kscn, n_envs, device, "mpe_maddpg.cu", hidden,
                      "mpe_maddpg_traj_ctas_per_sm", _build.SCENARIO_IDS[type(kscn).__name__])
 
 
@@ -189,6 +191,7 @@ def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
     if tile is not None and tile not in MADDPG_TILES:
         raise ValueError(f"tile={tile}: the MADDPG collection kernel takes {MADDPG_TILES} env "
                          "lanes per CTA")
+    hidden = check_hidden(weights[0].shape[-2], "the MADDPG collection kernels")
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the MADDPG collection kernel needs a CUDA device, got {device}")
@@ -200,15 +203,15 @@ def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
     spec = kscn.spec
     a, ow, aw = spec.n_agents, kscn.obs_w, kscn.n_logits
     shapes = [tuple(w.shape) for w in weights]
-    want = [(a, HIDDEN, ow), (a, HIDDEN, 1), (a, HIDDEN, HIDDEN), (a, HIDDEN, 1),
-            (a, aw, HIDDEN), (a, aw, 1)]
+    want = [(a, hidden, ow), (a, hidden, 1), (a, hidden, hidden), (a, hidden, 1),
+            (a, aw, hidden), (a, aw, 1)]
     if shapes != want:
         raise NotImplementedError(f"the MADDPG collection kernel is built for {a} agents' "
-                                  f"{ow}-{HIDDEN}-{HIDDEN}-{aw} actors on {spec.name!r}; got "
+                                  f"{ow}-{hidden}-{hidden}-{aw} actors on {spec.name!r}; got "
                                   f"weight shapes {shapes}")
     scenario, params = _build.kernel_params(kscn)
     if tile is None:
-        tile = maddpg_tile(kscn, n_envs, device)
+        tile = maddpg_tile(kscn, n_envs, device, hidden)
     wbuf = _pack_weights([w.to(device=device, dtype=torch.float32) for w in weights])
     f32 = torch.float32
     if emit_rows:
@@ -222,7 +225,7 @@ def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
         ptrs = tuple(x.data_ptr() for x in outs) + (None,)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.library("mpe_maddpg.cu").mpe_maddpg_traj(
+        rc = _build.library("mpe_maddpg.cu", hidden).mpe_maddpg_traj(
             scenario, ctypes.byref(params), wbuf.data_ptr(), *ptrs, n_envs, block_envs,
             n_steps // t_chunk, t_chunk, horizon, float(eps_greedy), int(seed) & _MASK,
             int(block_offset) & _MASK, tile, stream)

@@ -36,8 +36,9 @@ counterpart: the port keeps each net's own layout, flattened agent-major
 into one buffer (``PackedLayout``). On a CUDA device ``from_rows`` launches
 ``maddpg_target_actions_kernel``, ``maddpg_td_kernel``,
 ``maddpg_update_kernel`` and ``maddpg_reduce_kernel`` (``csrc/mpe_maddpg.cu``,
-float32, hidden 64), instantiated for the scenario whose widths the params
-have; on the CPU it runs ``plain_maddpg_update`` in ``dtype``. The
+float32, built at the params' hidden width: 8, 16, 32 or 64,
+``_build.HIDDEN_WIDTHS``), instantiated for the scenario whose widths the
+params have; on the CPU it runs ``plain_maddpg_update`` in ``dtype``. The
 trainer's chunk (``learner.maddpg.build_fused_update_chunk``) keeps its
 state in that buffer and launches K9 through ``MaddpgUpdateLauncher``. The target actors sum each layer in the kernel's order, so the
 kernel and its plain version take the same target actions on the card.
@@ -51,8 +52,7 @@ import functools
 import torch
 
 from mpe_tpu_torch._device import resolve_device
-
-HIDDEN = 64                                     # the hidden width the CUDA kernel is built for
+from mpe_tpu_torch.ops._build import DEFAULT_HIDDEN, check_hidden
 
 
 def _seq_dense_agents(w, b, x):
@@ -227,7 +227,7 @@ def _net_buffer(net, stride: int, dtype=torch.float32):
     return torch.cat(parts, dim=1).to(dtype)
 
 
-def _net_grads(buf, n_in: int, n_out: int, hidden: int = HIDDEN):
+def _net_grads(buf, n_in: int, n_out: int, hidden: int = DEFAULT_HIDDEN):
     """[A, >= n] kernel-layout blocks -> {l1, l2, out: {w [A, in, out], b}}
     (views of ``buf``)."""
     a = buf.shape[0]
@@ -250,7 +250,7 @@ class PackedLayout:
     (``[:off_ta]``) are also the layout of K9's gradient and of the packed
     Adam moments, so that Adam and Polyak run on whole flat buffers."""
 
-    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN):
+    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, hidden: int = DEFAULT_HIDDEN):
         a, h = n_agents, hidden
         self.a, self.o, self.k, self.hidden = a, obs_dim, act_dim, h
         self.j = a * (obs_dim + act_dim)
@@ -306,12 +306,12 @@ def kernel_scenario_of(n_agents: int, obs_dim: int, cw: int):
 
 
 @functools.cache
-def _update_layout(scenario: int):
-    """K9's layout constants for a scenario id: (actor stride, critic stride,
-    weights, gradient per agent, samples per tile)."""
+def _update_layout(scenario: int, hidden: int = DEFAULT_HIDDEN):
+    """K9's layout constants for a scenario id at a hidden width: (actor
+    stride, critic stride, weights, gradient per agent, samples per tile)."""
     from mpe_tpu_torch.ops import _build
 
-    lib = _build.library("mpe_maddpg.cu")
+    lib = _build.library("mpe_maddpg.cu", hidden)
     return tuple(lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
 
 
@@ -329,22 +329,24 @@ class MaddpgUpdateLauncher:
                  batch: int, device, *, gamma: float, ent_coef: float):
         from mpe_tpu_torch.ops import _build
 
+        check_hidden(hidden, "the MADDPG update kernels")
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"the MADDPG update kernel needs a CUDA device, got {device}")
         if device.index is None:                   # as tensors made on it report it
             device = torch.device("cuda", torch.cuda.current_device())
         kscn = kernel_scenario_of(n_agents, obs_dim, act_dim - mw)
-        if kscn is None or hidden != HIDDEN or act_dim < mw or batch < 1:
+        if kscn is None or act_dim < mw or batch < 1:
             raise NotImplementedError(
                 f"no MADDPG update kernel for {n_agents} agents' {obs_dim}-{hidden}-{hidden}-"
                 f"{act_dim} actors with {mw} moves at batch {batch}: the kernel is built for the "
-                f"nine scenarios' widths, hidden {HIDDEN}")
+                f"nine scenarios' widths")
         self.layout = PackedLayout(n_agents, obs_dim, act_dim, hidden)
         self.scenario = _build.SCENARIO_IDS[type(kscn).__name__]
         self.name = kscn.spec.name
+        self.hidden = hidden
         lay = self.layout
-        nwp, ncp, n_weights, ng, ts = _update_layout(self.scenario)
+        nwp, ncp, n_weights, ng, ts = _update_layout(self.scenario, hidden)
         if (nwp, ncp, n_weights, ng) != (lay.nwp, lay.ncp, lay.n_weights, lay.nw + lay.nc + 3):
             raise RuntimeError("csrc/mpe_maddpg.cu and ops/fused_maddpg_update.py disagree on "
                                "K9's layout")
@@ -356,7 +358,7 @@ class MaddpgUpdateLauncher:
         self.y = torch.empty((n_agents, batch), **f32)
         self.partials = torch.empty(n_agents * (-(-batch // ts)) * ng, **f32)
         self.consts = (float(gamma), float(ent_coef), 1.0 / float(n_agents * batch))
-        self.fn = _build.library("mpe_maddpg.cu").mpe_maddpg_update
+        self.fn = _build.library("mpe_maddpg.cu", hidden).mpe_maddpg_update
 
     def check(self, weights, rows, grads=None, metrics=None):
         """Raise unless the buffers are what ``launch`` takes."""
@@ -395,9 +397,10 @@ def maddpg_update_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_co
     receives the target actions the kernel took. Counts launches in
     ``.launches`` and, by scenario name, in ``.launches_by``."""
     device = rows_b.device
+    a, o, h = params["actor"]["l1"]["w"].shape
+    check_hidden(h, "the MADDPG update kernels")
     if device.type != "cuda":
         raise ValueError(f"maddpg_update_cuda needs CUDA tensors, got {device}")
-    a, o, h = params["actor"]["l1"]["w"].shape
     k = params["actor"]["out"]["w"].shape[-1]
     if rows_b.dim() != 2:
         raise ValueError(f"rows_b must be a contiguous 2-D float32 tensor on {device}")
@@ -423,7 +426,7 @@ def maddpg_update_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_co
     launcher.check(weights, rows_b, grads, metrics)
     launcher.launch(weights, rows_b, grads, metrics, target_actions)
     actor, critic = lay.nets(grads)
-    grads = {"actor": _net_grads(actor, o, k), "critic": _net_grads(critic, lay.j, 1)}
+    grads = {"actor": _net_grads(actor, o, k, h), "critic": _net_grads(critic, lay.j, 1, h)}
     return grads, (metrics[0], metrics[1], metrics[2])
 
 

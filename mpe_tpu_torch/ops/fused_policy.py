@@ -28,8 +28,10 @@ id 9; K5 salts it with the time-chunk index, so ``t_chunk`` is part of its
 definition. Each layer of the plain MLP sums over its inputs in order and
 then adds the bias (``_seq_dense``), the order the kernels use: Gumbel-max
 turns a one-ulp change in a logit into another action, so the kernel and its
-plain version are held to equal actions on the card. The kernels take
-hidden width 64 only.
+plain version are held to equal actions on the card. The kernels take the
+hidden width from the weights: one library per width of
+``_build.HIDDEN_WIDTHS`` (8, 16, 32, 64), built at its first use; another
+width raises ``NotImplementedError`` before any launch.
 """
 
 from __future__ import annotations
@@ -41,59 +43,65 @@ import functools
 import torch
 
 from mpe_tpu_torch._device import resolve_device
+from mpe_tpu_torch.ops._build import DEFAULT_HIDDEN, check_hidden
 from mpe_tpu_torch.ops.fused_rollout import (_MASK, make_lane_reset, make_uniform,
                                              pick_block_envs)
 
-HIDDEN = 64                          # the hidden width the CUDA kernels are built for
 POLICY_TILES = (1, 2, 4, 8, 16, 32)  # env lanes per CTA (a tile) that K4 and K5 take
 WARP = 32
 
 
-def pick_tile(tiles, n_agents: int, n_envs: int, ctas_per_sm, sms: int) -> int:
+def pick_tile(tiles, n_agents: int, n_envs: int, ctas_per_sm, sms: int,
+              hidden: int = DEFAULT_HIDDEN) -> int:
     """The tile rule of K4, K5 and K8: the smallest of ``tiles`` whose CTAs
     all run at once (``ceil(n_envs / tile) <= sms * ctas_per_sm(tile)``, the
     CTAs one SM holds as the card reports them) and whose (agent, lane) rows
-    give every item of a layer's product a thread of a full warp (4 items
-    per row: ``n_agents * tile rounded up to 4 >= 8``); the largest tile
-    where none runs in one wave. Smaller tiles put more CTAs on an SM, so one
-    tile's world step runs beside another's products (PERF.md §6)."""
+    give every item of a layer's product a thread of a full warp (an item is
+    4 rows x 4 units: ``rows / 4 * hidden / 4 >= 32``, rows ``n_agents *
+    tile`` rounded up to 4; at hidden 64 ``n_agents * tile >= 8``); the
+    largest tile where none runs in one wave. Smaller tiles put more CTAs on
+    an SM, so one tile's world step runs beside another's products (PERF.md
+    §6)."""
     for tile in tiles:
         rows = n_agents * (-(-tile // 4) * 4)
         ctas = ctas_per_sm(tile)
-        if 4 * rows >= WARP and ctas > 0 and -(-n_envs // tile) <= sms * ctas:
+        if rows * hidden >= 16 * WARP and ctas > 0 and -(-n_envs // tile) <= sms * ctas:
             return tile
     return max(t for t in tiles if ctas_per_sm(t) > 0)
 
 
 @functools.cache
-def _ctas_per_sm(source: str, entry: str, args: tuple, device_index: int) -> int:
+def _ctas_per_sm(source: str, hidden: int, entry: str, args: tuple, device_index: int) -> int:
     from mpe_tpu_torch.ops import _build
 
     with torch.cuda.device(device_index):
-        n = getattr(_build.library(source), entry)(*args)
+        n = getattr(_build.library(source, hidden), entry)(*args)
     if n < 0:
         raise RuntimeError(f"{entry}{args} failed: {_build.error_string(-n)}")
     return n
 
 
-def tile_rule(tiles, kscn, n_envs: int, device, source: str, entry: str, *args) -> int:
+def tile_rule(tiles, kscn, n_envs: int, device, source: str, hidden: int, entry: str,
+              *args) -> int:
     """``pick_tile`` on the CUDA ``device`` (``None``: the current one) with
     the CTAs per SM that the C entry ``entry(*args, tile)`` of ``source``
-    reports (cached per device)."""
+    built at ``hidden`` reports (cached per device)."""
     device = torch.device("cuda") if device is None else torch.device(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return pick_tile(tiles, kscn.spec.n_agents, n_envs,
-                     lambda t: _ctas_per_sm(source, entry, (*args, t), index), sms)
+                     lambda t: _ctas_per_sm(source, hidden, entry, (*args, t), index), sms,
+                     hidden)
 
 
-def policy_tile(kscn, n_envs: int, kernel: str = "rollout", device=None) -> int:
+def policy_tile(kscn, n_envs: int, kernel: str = "rollout", device=None,
+                hidden: int = DEFAULT_HIDDEN) -> int:
     """K4's (``kernel="rollout"``) or K5's (``"traj"``) env lanes per CTA on
-    the CUDA ``device`` (``None``: the current one), by ``pick_tile``. Every
-    tile gives the same bits."""
+    the CUDA ``device`` (``None``: the current one) for an actor of hidden
+    width ``hidden``, by ``pick_tile``. Every tile gives the same bits."""
     from mpe_tpu_torch.ops import _build
 
-    return tile_rule(POLICY_TILES, kscn, n_envs, device, "mpe_policy.cu",
+    return tile_rule(POLICY_TILES, kscn, n_envs, device, "mpe_policy.cu", hidden,
                      "mpe_policy_ctas_per_sm", _build.SCENARIO_IDS[type(kscn).__name__],
                      {"traj": 0, "rollout": 1}[kernel])
 
@@ -271,10 +279,13 @@ def plain_policy_rollout(kscn, weights, n_envs: int, n_steps: int, horizon: int,
 def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device, tile=None,
                  kernel="rollout"):
     """Checks shared by both wrappers -> (scenario id, constants, weight
-    buffer, tile). Raises before any launch on what the kernels do not
-    compute; ``tile`` None takes ``policy_tile`` of ``kernel``."""
+    buffer, tile, hidden width). Raises before any launch on what the kernels
+    do not compute (a hidden width outside ``HIDDEN_WIDTHS`` first); ``tile``
+    None takes ``policy_tile`` of ``kernel``."""
     from mpe_tpu_torch.ops import _build
 
+    shapes = [tuple(w.shape) for w in weights]
+    hidden = check_hidden(shapes[0][0], "the policy kernels")
     if tile is not None and tile not in POLICY_TILES:
         raise ValueError(f"tile={tile}: the policy kernels take {POLICY_TILES} env lanes per CTA")
     if device.type != "cuda":
@@ -283,21 +294,16 @@ def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device, ti
         raise ValueError(f"n_envs={n_envs} must be a positive multiple of block_envs={block_envs}")
     if n_steps < 0 or horizon < 1:
         raise ValueError(f"need n_steps >= 0 and horizon >= 1, got {n_steps}, {horizon}")
-    shapes = [tuple(w.shape) for w in weights]
     ow, k = kscn.obs_w, kscn.n_logits
-    hidden = shapes[0][0]
-    if hidden != HIDDEN:
-        raise NotImplementedError(f"the policy kernels are built for hidden width {HIDDEN}; got "
-                                  f"weight shapes {shapes}")
-    want = [(HIDDEN, ow), (HIDDEN, 1), (HIDDEN, HIDDEN), (HIDDEN, 1), (k, HIDDEN), (k, 1)]
+    want = [(hidden, ow), (hidden, 1), (hidden, hidden), (hidden, 1), (k, hidden), (k, 1)]
     if shapes != want:
-        raise ValueError(f"{kscn.spec.name!r} takes an {ow}-{HIDDEN}-{HIDDEN}-{k} MLP; got "
+        raise ValueError(f"{kscn.spec.name!r} takes an {ow}-{hidden}-{hidden}-{k} MLP; got "
                          f"weight shapes {shapes}")
     scenario, params = _build.kernel_params(kscn)
     if tile is None:
-        tile = policy_tile(kscn, n_envs, kernel, device)
+        tile = policy_tile(kscn, n_envs, kernel, device, hidden)
     return scenario, params, _pack_weights([w.to(device=device, dtype=torch.float32)
-                                            for w in weights]), tile
+                                            for w in weights]), tile, hidden
 
 
 def policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, block_envs: int,
@@ -312,8 +318,8 @@ def policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
     device = torch.device(device)
     if t_chunk < 1 or n_steps % t_chunk:
         raise ValueError(f"n_steps={n_steps} must be a multiple of t_chunk={t_chunk}")
-    scenario, params, wbuf, tile = _kernel_args(kscn, weights, n_envs, n_steps, horizon,
-                                                block_envs, device, tile, "traj")
+    scenario, params, wbuf, tile, hidden = _kernel_args(kscn, weights, n_envs, n_steps, horizon,
+                                                        block_envs, device, tile, "traj")
     a, ow = kscn.spec.n_agents, kscn.obs_w
     obs = torch.empty((n_steps, a, ow, n_envs), dtype=torch.float32, device=device)
     act = torch.empty((n_steps, a, n_envs), dtype=torch.int32, device=device)
@@ -322,7 +328,7 @@ def policy_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
     last_obs = torch.empty((a, ow, n_envs), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.library("mpe_policy.cu").mpe_policy_traj(
+        rc = _build.library("mpe_policy.cu", hidden).mpe_policy_traj(
             scenario, ctypes.byref(params), wbuf.data_ptr(), obs.data_ptr(), act.data_ptr(),
             None if cact is None else cact.data_ptr(), rew.data_ptr(), last_obs.data_ptr(),
             n_envs, block_envs, n_steps // t_chunk, t_chunk, horizon, int(seed) & _MASK,
@@ -349,15 +355,15 @@ def policy_rollout_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, 
     from mpe_tpu_torch.ops import _build
 
     device = torch.device(device)
-    scenario, params, wbuf, tile = _kernel_args(kscn, weights, n_envs, n_steps, horizon,
-                                                block_envs, device, tile)
+    scenario, params, wbuf, tile, hidden = _kernel_args(kscn, weights, n_envs, n_steps, horizon,
+                                                        block_envs, device, tile)
     spec = kscn.spec
     ret = torch.empty((kscn.reward_rows, n_envs), dtype=torch.float32, device=device)
     pos = torch.empty((spec.n_entities, spec.dim_p, n_envs), dtype=torch.float32, device=device)
     eps = torch.empty((1, n_envs), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.library("mpe_policy.cu").mpe_policy_rollout(
+        rc = _build.library("mpe_policy.cu", hidden).mpe_policy_rollout(
             scenario, ctypes.byref(params), wbuf.data_ptr(), ret.data_ptr(), pos.data_ptr(),
             eps.data_ptr(), n_envs, block_envs, n_steps, horizon, int(seed) & _MASK,
             int(block_offset) & _MASK, tile, stream)

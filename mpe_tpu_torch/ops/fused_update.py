@@ -27,9 +27,10 @@ also holds wherever the clip does not bind (see ``_value_clip_grad``).
 
 On a CUDA device ``update`` launches ``ppo_update_kernel`` (K6: one pass;
 K7: an actor pass and a critic pass) and ``update_reduce_kernel``
-(``csrc/mpe_update.cu``, float32, hidden 64, compiled for the nine
-scenarios' actor heads and critic joint widths); on the CPU it runs the
-plain version in ``dtype`` (float32 or float64).
+(``csrc/mpe_update.cu``, float32, compiled for the nine scenarios' actor
+heads and critic joint widths, one library per hidden width of
+``_build.HIDDEN_WIDTHS``, the width taken from the params); on the CPU it
+runs the plain version in ``dtype`` (float32 or float64).
 """
 
 from __future__ import annotations
@@ -40,18 +41,18 @@ import math
 import torch
 
 from mpe_tpu_torch._device import device_table, resolve_device
-
-HIDDEN = 64                                  # the hidden width the CUDA kernels are built for
+from mpe_tpu_torch.ops._build import DEFAULT_HIDDEN, check_hidden
 # the update kernels' persistent grid: two CTAs per SM, the most that fit
 # (csrc/mpe_update.cu; an instantiation that fits one runs the grid in two waves)
 CTAS_PER_SM = 2
 
 
-def _packed(n_in: int, n_out: int) -> tuple:
-    """The kernels' packed gradient of an n_in-64-64-n_out MLP: w1 [H, n_in],
-    b1, w2 [H, H], b2, w3 [n_out, H], b3 [n_out], then 3 metric means."""
-    return ((HIDDEN, n_in), (HIDDEN,), (HIDDEN, HIDDEN), (HIDDEN,), (n_out, HIDDEN), (n_out,),
-            (3,))
+def _packed(n_in: int, n_out: int, hidden: int = DEFAULT_HIDDEN) -> tuple:
+    """The kernels' packed gradient of an n_in-H-H-n_out MLP (H = hidden):
+    w1 [H, n_in], b1, w2 [H, H], b2, w3 [n_out, H], b3 [n_out], then 3 metric
+    means."""
+    h = hidden
+    return ((h, n_in), (h,), (h, h), (h,), (n_out, h), (n_out,), (3,))
 
 
 
@@ -327,11 +328,14 @@ def _kernel_inputs(obs, mv_oh, cm_oh, speak):
     return t, a, ow, n, kc, speak_bits(speak)
 
 
+def _hidden_of(params, l1: str) -> int:
+    """The hidden width of the params' first layer (``l1.w`` [in, H]), if the
+    update kernels are compiled for it (else ``NotImplementedError``)."""
+    return check_hidden(params[l1]["w"].shape[-1], "the update kernels")
+
+
 def _check_weights(weights, want, what: str):
     shapes = [tuple(x.shape) for x in weights]
-    if shapes[0][0] != HIDDEN:
-        raise NotImplementedError(f"the update kernels are built for hidden width {HIDDEN}; "
-                                  f"got {what} weight shapes {shapes}")
     if shapes != want:
         raise ValueError(f"the {what} weight shapes {shapes} do not match the batch: {want}")
 
@@ -344,14 +348,15 @@ def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, s
     ``.launches``."""
     from mpe_tpu_torch.ops import _build
 
+    hidden = _hidden_of(params, "l1")
     t, a, ow, n, kc, mask = _kernel_inputs(obs, mv_oh, cm_oh, speak)
     device = obs.device
     _check_batch(device, logp_old=(logp_old, (t, a, n)), adv_n=(adv_n, (t, a, n)),
                  ret=(ret, (t, a, n)), v_old=(v_old, (t, a, n)))
     weights = _update_weights(params, torch.float32, device)
-    layout = _packed(ow, 5 + kc + 1)
+    layout = _packed(ow, 5 + kc + 1, hidden)
     _check_weights(weights, list(layout[:-1]), "actor-critic")
-    lib = _build.library("mpe_update.cu")
+    lib = _build.library("mpe_update.cu", hidden)
     n_packed = _numel(layout)
     if lib.mpe_update_packed_size(ow, 5 + kc + 1) != n_packed:
         raise RuntimeError("csrc/mpe_update.cu and ops/fused_update.py disagree on the layout")
@@ -387,6 +392,7 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
     ``plain_mappo_update`` in float32. Counts launches in ``.launches``."""
     from mpe_tpu_torch.ops import _build
 
+    hidden = _hidden_of(params, "a1")
     t, a, ow, n, kc, mask = _kernel_inputs(obs, mv_oh, cm_oh, speak)
     if a * ow not in critic_widths():
         raise NotImplementedError(f"the critic pass is compiled for the joint widths "
@@ -396,10 +402,10 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
                  ret=(ret, (t, n)), v_old=(v_old, (t, n)))
     aw = _mlp_weights(params, ("a1", "a2", "pi"), torch.float32, device)
     cw = _mlp_weights(params, ("c1", "c2", "v"), torch.float32, device)
-    actor, critic = _packed(ow, 5 + kc), _packed(a * ow, 1)
+    actor, critic = _packed(ow, 5 + kc, hidden), _packed(a * ow, 1, hidden)
     _check_weights(aw, list(actor[:-1]), "actor")
     _check_weights(cw, list(critic[:-1]), "critic")
-    lib = _build.library("mpe_update.cu")
+    lib = _build.library("mpe_update.cu", hidden)
     n_act, n_crit = _numel(actor), _numel(critic)
     if (lib.mpe_update_packed_size(ow, 5 + kc), lib.mpe_update_packed_size(a * ow, 1)) != (
             n_act, n_crit):

@@ -1,14 +1,16 @@
 """The host build of the port's CUDA sources (``mpe_tpu_torch/csrc/``) that
-``test_torch_csrc_host.py`` and ``test_torch_policy_host.py`` share.
+the ``test_torch_*_host.py`` files share, at a hidden width of the MLP
+sources' (``-DMPE_HIDDEN``, as ``ops/_build.py`` builds them for the card).
 
 A stand-in ``cuda_runtime.h`` defines the few CUDA names the sources use
 (the execution-space keywords as nothing, ``__shared__`` as a static,
 ``rsqrtf`` as ``1 / sqrtf``, ``__stcs`` as a plain store, ``float4``, ``dim3``),
 and each ``kernel<<<blocks, threads, smem, stream>>>(...)`` launch runs its
 blocks one after another, each block's threads as host threads that meet at
-``__syncthreads()`` and ``__syncwarp()`` (a barrier of the whole block);
-``__shfl_sync`` exchanges values through the same barrier; a kernel's dynamic
-shared memory becomes one static buffer.
+``__syncthreads()`` (a barrier of the whole block) and ``__syncwarp()`` (a
+barrier of the thread's warp, 32 consecutive threads); ``__shfl_sync``
+exchanges values through the warp's barrier; a kernel's dynamic shared
+memory becomes one static buffer.
 """
 
 import ctypes
@@ -52,6 +54,7 @@ template <class F> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*
   return 0;
 }
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 struct host_dim3 { unsigned x = 0, y = 0, z = 0; };
 struct dim3 {
   unsigned x, y, z;
@@ -79,20 +82,23 @@ struct HostBarrier {
 };
 inline HostBarrier host_barrier;
 inline void __syncthreads() { host_barrier.wait(); }
-// a warp's lanes meet at the CTA's barrier (every thread of the CTA calls it)
-inline void __syncwarp(unsigned = 0xffffffffu) { host_barrier.wait(); }
+// a warp's lanes (32 consecutive threads) meet at their warp's barrier
+inline HostBarrier host_warp_barriers[32];
+inline void __syncwarp(unsigned = 0xffffffffu) { host_warp_barriers[threadIdx.x / 32].wait(); }
 inline unsigned long long host_lanes[1024];
 template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
   static_assert(sizeof(T) <= sizeof(unsigned long long), "a shuffled value fits a slot");
   std::memcpy(&host_lanes[threadIdx.x], &v, sizeof(T));
-  host_barrier.wait();
+  __syncwarp();
   T out;
   std::memcpy(&out, &host_lanes[(threadIdx.x & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
-  host_barrier.wait();
+  __syncwarp();
   return out;
 }
 template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
   host_barrier.count = threads;
+  for (unsigned w = 0; 32 * w < threads; ++w)
+    host_warp_barriers[w].count = threads - 32 * w < 32 ? threads - 32 * w : 32;
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::vector<std::thread> pool;
@@ -120,10 +126,18 @@ def _launch(match) -> str:
 
 
 def build_host_libs(out, sources=_build.SOURCES) -> dict:
-    """Compile ``sources`` (of ``_build.SOURCES``) for the host into ``out``,
-    one compiler per source, all started together -> {source: ctypes.CDLL}
-    with the C entries' argtypes set. Skips the calling test without a C++
-    compiler."""
+    """Compile ``sources`` (of ``_build.SOURCES``) for the host into ``out``
+    at the default hidden width, one compiler per source, all started
+    together -> {source: ctypes.CDLL} with the C entries' argtypes set. Skips
+    the calling test without a C++ compiler."""
+    libs = build_host_libs_at(out, [(source, _build.DEFAULT_HIDDEN) for source in sources])
+    return {source: lib for (source, _), lib in libs.items()}
+
+
+def build_host_libs_at(out, pairs) -> dict:
+    """Compile each ``(source, hidden width)`` of ``pairs`` for the host into
+    ``out`` (``-DMPE_HIDDEN``), all at once -> {(source, hidden):
+    ctypes.CDLL}."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler (g++ or c++) to build the CUDA sources for the host")
@@ -131,20 +145,22 @@ def build_host_libs(out, sources=_build.SOURCES) -> dict:
     for header in _build.HEADERS:
         shutil.copy(_build.CSRC / header, out / header)
     procs = {}
-    for source in sources:
+    for source, hidden in pairs:
         cpp = out / f"{source}.cpp"
-        text = (_build.CSRC / source).read_text()
-        text = text.replace(DYNAMIC_SMEM, f"alignas(16) static float smem[{MAX_SMEM_FLOATS}];")
-        cpp.write_text(LAUNCH.sub(_launch, text))
-        lib = out / f"lib{source}.so"
-        procs[source] = (lib, subprocess.Popen(
+        if not cpp.exists():
+            text = (_build.CSRC / source).read_text()
+            text = text.replace(DYNAMIC_SMEM, f"alignas(16) static float smem[{MAX_SMEM_FLOATS}];")
+            cpp.write_text(LAUNCH.sub(_launch, text))
+        lib = out / f"lib{source}_h{hidden}.so"
+        procs[source, hidden] = (lib, subprocess.Popen(
             [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w", "-shared",
-             "-fPIC", "-pthread", "-I", str(out), "-o", str(lib), str(cpp)]))
+             "-fPIC", "-pthread", f"-DMPE_HIDDEN={hidden}", "-I", str(out), "-o", str(lib),
+             str(cpp)]))
     libs = {}
-    for source, (lib, proc) in procs.items():
-        assert proc.wait() == 0, f"the host build of {source} failed"
-        libs[source] = ctypes.CDLL(str(lib))
+    for (source, hidden), (lib, proc) in procs.items():
+        assert proc.wait() == 0, f"the host build of {source} at hidden {hidden} failed"
+        libs[source, hidden] = ctypes.CDLL(str(lib))
         for name, argtypes in _build.SIGNATURES[source].items():
-            getattr(libs[source], name).argtypes = argtypes
-            getattr(libs[source], name).restype = ctypes.c_int
+            getattr(libs[source, hidden], name).argtypes = argtypes
+            getattr(libs[source, hidden], name).restype = ctypes.c_int
     return libs

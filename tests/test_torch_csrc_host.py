@@ -28,7 +28,7 @@ from mpe_tpu_torch.ops.fused_parity import det_group, make_det_inputs, plain_det
 from mpe_tpu_torch.ops.fused_policy import (_kernel_weights, _pack_weights, plain_policy_rollout,
                                             plain_policy_trajectory)
 from mpe_tpu_torch.ops.fused_rollout import plain_rollout, rollout_group
-from mpe_tpu_torch.ops.fused_trajectory import plain_trajectory
+from mpe_tpu_torch.ops.fused_trajectory import plain_trajectory, traj_group
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 from tests._csrc_host import build_host_libs
 
@@ -113,7 +113,7 @@ def test_host_built_grouped_rollout_equals_one_thread_per_lane(host_libs, name, 
 @pytest.mark.parametrize("name", NAMES)
 def test_host_built_trajectory_kernel_matches_plain(host_libs, name):
     """K3 (``mpe_trajectory``) over 24 steps in chunks of 4 with resets, two
-    RNG blocks at block offset 1."""
+    RNG blocks at block offset 1, at ``traj_group``'s threads per lane."""
     kscn = kernel_scenario(name)
     scenario, params = _build.kernel_params(kscn)
     spec = kscn.spec
@@ -123,7 +123,7 @@ def test_host_built_trajectory_kernel_matches_plain(host_libs, name):
     got = [torch.empty(s) for s in shapes]
     rc = host_libs["mpe_trajectory.cu"].mpe_trajectory(
         scenario, ctypes.byref(params), *(x.data_ptr() for x in got), N_ENVS, BLOCK_ENVS,
-        n_steps // t_chunk, t_chunk, HORIZON, 3, 1, None)
+        n_steps // t_chunk, t_chunk, HORIZON, 3, 1, traj_group(kscn, N_ENVS), None)
     assert rc == 0
     ref = plain_trajectory(kscn, N_ENVS, n_steps, HORIZON, BLOCK_ENVS, t_chunk, 3, 1, "cpu")
     _close(got, ref, ("obs", "act", "rew", "pos", "vel"))
@@ -228,12 +228,13 @@ def _host_update(lib, fn, *args):
     assert getattr(lib, fn)(*ptrs) == 0
 
 
-def _update_params(kscn, team: bool):
+def _update_params(kscn, team: bool, hidden: int = 64):
     """init_ac (PPO) or init_mappo params of the scenario's widths, the
     policy head scaled to O(1) logits."""
     a, ow = kscn.spec.n_agents, kscn.obs_w
     init = init_mappo if team else init_ac
-    params = init(torch.Generator().manual_seed(1), ow, 5 + kscn.n_comm, *((a,) if team else ()))
+    params = init(torch.Generator().manual_seed(1), ow, 5 + kscn.n_comm, *((a,) if team else ()),
+                  hidden=hidden)
     params["pi"]["w"] = params["pi"]["w"] * 100.0
     return params
 
@@ -261,17 +262,19 @@ def _logp_value(params, obs, mv_oh, cm_oh, speak, team: bool):
     return logp.contiguous(), value.contiguous()
 
 
-def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool):
-    """K6 (``mpe_ppo_update``) or K7 (``mpe_mappo_update``) over 3 CTAs on a
-    random [t, A, *, n] epoch batch (``clip_binding``: its logp_old and v_old
-    moved off the params' own by ``clip_binding_inputs``) against the plain
-    version: every gradient leaf within 1e-4 of its largest entry, the metric
-    means within 1e-4 relative."""
+def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool,
+                       hidden: int = 64):
+    """K6 (``mpe_ppo_update``) or K7 (``mpe_mappo_update``) of a library
+    built at ``hidden`` over 3 CTAs on a random [t, A, *, n] epoch batch
+    (``clip_binding``: its logp_old and v_old moved off the params' own by
+    ``clip_binding_inputs``) against the plain version: every gradient leaf
+    within 1e-4 of its largest entry, the metric means within 1e-4
+    relative."""
     spec = kscn.spec
     a, ow = spec.n_agents, kscn.obs_w
     dim_c = kscn.n_comm
     team = kind == "mappo"
-    params = _update_params(kscn, team)
+    params = _update_params(kscn, team, hidden)
     obs, mv_oh, cm_oh, lpo, adv, ret, vold = _epoch_batch(kscn, t, n, team)
     speak = kscn.speak
     hp = dict(clip=0.2, vf_coef=0.5, ent_coef=0.01)
@@ -289,7 +292,8 @@ def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool)
     if team:
         aw = fused_update._mlp_weights(params, ("a1", "a2", "pi"), torch.float32)
         cw = fused_update._mlp_weights(params, ("c1", "c2", "v"), torch.float32)
-        actor, critic = fused_update._packed(ow, 5 + dim_c), fused_update._packed(a * ow, 1)
+        actor = fused_update._packed(ow, 5 + dim_c, hidden)
+        critic = fused_update._packed(a * ow, 1, hidden)
         n_act, n_crit = fused_update._numel(actor), fused_update._numel(critic)
         assert (lib.mpe_update_packed_size(ow, 5 + dim_c), lib.mpe_update_packed_size(a * ow, 1)
                 ) == (n_act, n_crit)
@@ -306,7 +310,7 @@ def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool)
         got.update(fused_update._layer_grads(("c1", "c2", "v"), *gc))
         got_m = (ms_a[0], ms_c[1], ms_a[2])
     else:
-        layout = fused_update._packed(ow, 5 + dim_c + 1)
+        layout = fused_update._packed(ow, 5 + dim_c + 1, hidden)
         assert lib.mpe_update_packed_size(ow, 5 + dim_c + 1) == fused_update._numel(layout)
         out = torch.empty(fused_update._numel(layout))
         weights = fused_update._update_weights(params, torch.float32)
@@ -388,11 +392,11 @@ def test_host_built_grouped_det_rollout_equals_one_thread_per_lane(host_libs, na
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=label)
 
 
-def _maddpg_params(kscn, seed=0):
-    """init_maddpg actors and critics of the scenario's widths, hidden 64,
-    the actors' head scaled to O(1) logits."""
+def _maddpg_params(kscn, seed=0, hidden: int = 64):
+    """init_maddpg actors and critics of the scenario's widths, hidden 64
+    unless given, the actors' head scaled to O(1) logits."""
     params = init_maddpg(torch.Generator().manual_seed(seed), kscn.obs_w, kscn.n_logits,
-                         kscn.spec.n_agents)
+                         kscn.spec.n_agents, hidden=hidden)
     params["actor"]["out"]["w"] = params["actor"]["out"]["w"] * 100.0
     return params
 
@@ -439,11 +443,16 @@ def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
     ``PackedLayout``: target actions per head equal, every gradient leaf of
     the flat gradient within 1e-4 of its largest entry, its padding 0, the
     metrics within 1e-4 relative."""
-    kscn = kernel_scenario(name)
+    _check_host_maddpg_update(host_libs["mpe_maddpg.cu"], kernel_scenario(name), 40)
+
+
+def _check_host_maddpg_update(lib, kscn, batch: int, hidden: int = 64):
+    """K9 of a library built at ``hidden`` on ``batch`` random replay rows
+    (tiles of ``1024 / hidden`` samples), held as above."""
     scenario = _build.SCENARIO_IDS[type(kscn).__name__]
     a, o, k, mw = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits, 5
-    cw, nh, batch = k - mw, 2 if k > mw else 1, 40
-    params = _maddpg_params(kscn, 1)
+    cw, nh = k - mw, 2 if k > mw else 1
+    params = _maddpg_params(kscn, 1, hidden)
     gen = torch.Generator().manual_seed(2)
     targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen) for w, x in layer.items()}
                    for q, layer in net.items()} for n, net in params.items()}
@@ -455,11 +464,10 @@ def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
     rows = torch.cat([torch.randn((batch, a * o), generator=gen), act.reshape(batch, -1),
                       torch.randn((batch, a), generator=gen) - 2.0,
                       torch.randn((batch, a * o), generator=gen)], 1).contiguous()
-    lib = host_libs["mpe_maddpg.cu"]
-    lay = fused_maddpg_update.PackedLayout(a, o, k)
+    lay = fused_maddpg_update.PackedLayout(a, o, k, hidden)
     nwp, ncp, n_weights, ng, ts = (lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
     assert (nwp, ncp, n_weights, ng, ts) == (lay.nwp, lay.ncp, lay.n_weights,
-                                             lay.nw + lay.nc + 3, 16)
+                                             lay.nw + lay.nc + 3, 1024 // hidden)
     wbuf = lay.pack(params, targets)
     n_tiles = -(-batch // ts)
     act2 = torch.empty((a, nh, batch), dtype=torch.int32)
@@ -475,8 +483,8 @@ def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
     torch.testing.assert_close(act2.long(), want_act2.permute(1, 2, 0), rtol=0, atol=0)
     actor, critic = lay.nets(grads)
     assert not actor[:, lay.nw:].any() and not critic[:, lay.nc:].any()
-    got = {"actor": fused_maddpg_update._net_grads(actor, o, k),
-           "critic": fused_maddpg_update._net_grads(critic, lay.j, 1)}
+    got = {"actor": fused_maddpg_update._net_grads(actor, o, k, hidden),
+           "critic": fused_maddpg_update._net_grads(critic, lay.j, 1, hidden)}
     for n in ref:
         for q in ref[n]:
             for w in ref[n][q]:

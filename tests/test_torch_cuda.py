@@ -22,7 +22,9 @@ every tile size bit for bit; the
 MADDPG update kernel K9 takes the plain version's target actions and its
 gradient leaves lie within 1e-4 of each leaf's largest entry. The trajectory
 kernel K3 emits the plain version's actions exactly (raw hash draws) and its
-obs, rewards, positions and velocities within 1e-5, on all nine scenarios;
+obs, rewards, positions and velocities within 1e-5, on all nine scenarios,
+and with an env lane split over 2, 4 or 8 threads equals itself with one bit
+for bit;
 K2 on the eight others is held as on simple_spread (simple_tag and
 simple_world_comm through the pair physics), and K2 with an env lane split
 over 2, 4 or 8 threads equals K2 with one bit for bit, and so does K1 on all
@@ -501,3 +503,58 @@ def test_packed_update_chunk_matches_tree_chunk(card, name):
     for tree_g, tree_r in zip(got[:2], ref[:2]):
         _leaf_close(tree_g, tree_r, 1e-4, "params")
     assert all(got[2][n].count == ref[2][n].count for n in ("actor", "critic"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_grouped_trajectory_kernel_equals_one_thread_per_lane(card, name, group):
+    """K3 with an env lane split over ``group`` threads equals K3 with one
+    thread per lane bit for bit (1000 envs: the last CTA is ragged; 24 steps
+    in chunks of 4 with resets)."""
+    kscn = kernel_scenario(name)
+    args = (kscn, 1000, 24, 10, 500, 4, 3, 1, card)
+    one = fused_trajectory.trajectory_cuda(*args, group=1)
+    split = fused_trajectory.trajectory_cuda(*args, group=group)
+    for label, a, b in zip(("obs", "act", "rew", "pos", "vel"), split, one):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [8, 16, 32])
+def test_mlp_kernels_at_hidden_width_match_plain(card, hidden):
+    """K5 (actions equal, values within 1e-5) and K6 and K7 (each leaf within
+    1e-4 of its largest entry) of the libraries built at ``hidden``, through
+    the trainers of that width on simple_speaker_listener (a comm head); the
+    kernels launched, not the plain versions."""
+    for build, wrapper in ((build_fused_ppo_step, fused_update.ppo_update_cuda),
+                           (build_fused_mappo_step, fused_update.mappo_update_cuda)):
+        step = build("simple_speaker_listener", 1024, n_steps=16, horizon=8, block_envs=1024,
+                     hidden=hidden, device=card)
+        params = step.init_params(torch.Generator().manual_seed(hidden))
+        before = (fused_policy.policy_traj_cuda.launches, wrapper.launches)
+        obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
+        got, _ = step.update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+        assert (fused_policy.policy_traj_cuda.launches, wrapper.launches) == (before[0] + 1,
+                                                                                before[1] + 1)
+        ref, _ = step.update.plain(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+        _leaf_close(got, ref, 1e-4, f"grads at hidden {hidden}")
+    actor = {"l1": params["a1"], "l2": params["a2"], "out": params["pi"]}
+    run = fused_policy.fused_policy_trajectory("simple_speaker_listener", actor, 1024, 16,
+                                               horizon=8, block_envs=1024, t_chunk=8, device=card)
+    got, ref = run(4, actor), run.plain(4, actor)
+    for label, a, b in zip(("obs", "act", "cact", "rew", "last_obs"), got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0 if "act" in label else 1e-5, msg=label)
+
+
+@pytest.mark.cuda
+def test_mlp_kernels_refuse_uncompiled_widths(card):
+    """A hidden width the kernels are not compiled for raises before any
+    launch, on the card too: no wrapper falls back to the plain version."""
+    step = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
+                                hidden=48, device=card)
+    params = step.init_params(torch.Generator().manual_seed(0))
+    before = (fused_policy.policy_traj_cuda.launches, fused_update.ppo_update_cuda.launches)
+    with pytest.raises(NotImplementedError, match="8, 16, 32, 64"):
+        step.collect(params, 2)
+    assert before == (fused_policy.policy_traj_cuda.launches, fused_update.ppo_update_cuda.launches)

@@ -96,10 +96,15 @@ def test_checkpoint_params_and_actor_logits_match_jax():
         np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
 
 
-@pytest.mark.parametrize("eps", [0.0, 0.1])
-def test_plain_maddpg_trajectory_matches_jax_interpret(eps):
+# hidden 16 at both eps, and the other widths the kernels are compiled for
+# (8, 32) at eps 0.1
+@pytest.mark.parametrize("eps, hidden", [pytest.param(0.0, 16, id="0.0"),
+                                         pytest.param(0.1, 16, id="0.1"),
+                                         pytest.param(0.1, 8, id="0.1-hidden8"),
+                                         pytest.param(0.1, 32, id="0.1-hidden32")])
+def test_plain_maddpg_trajectory_matches_jax_interpret(eps, hidden):
     kw = dict(n_envs=32, n_steps=12, horizon=6, eps_greedy=eps, block_envs=16, t_chunk=4)
-    actor = _jax_params()["actor"]
+    actor = _jax_params(hidden)["actor"]
     tactor = params_from_numpy(actor, device="cpu")
     kscn = j_kernel_scenario("simple_spread")
     for rows in (False, True):
@@ -160,7 +165,18 @@ def _targets_of(params, seed=9):
 
 
 def test_plain_maddpg_update_f64_matches_jax_kernel_and_autograd():
-    batch, hidden = 128, 32
+    _check_plain_maddpg_update(32)
+
+
+def test_plain_maddpg_update_f64_matches_jax_kernel_and_autograd_at_hidden_8():
+    """The same at hidden 8, the width of the repo's dry run."""
+    _check_plain_maddpg_update(8)
+
+
+def _check_plain_maddpg_update(hidden):
+    """The plain K9 in float64 against the JAX kernel in interpret mode and
+    against autograd of the loss, at ``hidden``; its rows path equal to it."""
+    batch = 128
     params = _jax_params(hidden, dtype=np.float64)
     targets = _targets_of(params)
     data = _batch(np.random.default_rng(7), batch)

@@ -82,7 +82,7 @@ def _logp_value(kscn, params, obs, mv_oh, cm_oh):
     return np.asarray(logp), np.asarray(value)
 
 
-def _batch(value_noise=0.0, name="simple_spread"):
+def _batch(value_noise=0.0, name="simple_spread", hidden=HIDDEN):
     """Params and an epoch-shaped float64 batch: obs ~ N(0, 1), random moves
     (and utterances with a comm head, one-hot 0 for a silent agent as K5
     emits them), logp_old from the same forward plus noise (ratios off 1,
@@ -93,7 +93,7 @@ def _batch(value_noise=0.0, name="simple_spread"):
     dim_c = kscn.spec.dim_c if kscn.uses_comm else 0
     f64 = jnp.float64
     params = jax.tree.map(np.asarray, j_init_mappo(jax.random.PRNGKey(2), ow, 5 + dim_c, a,
-                                                   hidden=HIDDEN, dtype=f64))
+                                                   hidden=hidden, dtype=f64))
     rng = np.random.default_rng(7)
     obs = rng.normal(size=(T, a, ow, N))
     mv_oh = np.moveaxis(np.eye(5)[rng.integers(0, 5, size=(T, a, N))], -1, -2)
@@ -113,8 +113,9 @@ def _batch(value_noise=0.0, name="simple_spread"):
 def _port(kscn, params, batch):
     obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else torch.tensor(x)
                                                            for x in batch)
-    update = t_update.fused_mappo_update(kscn.spec.name, N, T, HIDDEN, clip=CLIP, vf_coef=VF,
-                                         ent_coef=ENTC, device="cpu", dtype=torch.float64)
+    update = t_update.fused_mappo_update(kscn.spec.name, N, T, params["a1"]["w"].shape[1],
+                                         clip=CLIP, vf_coef=VF, ent_coef=ENTC, device="cpu",
+                                         dtype=torch.float64)
     return update(params_from_numpy(params, device="cpu", dtype=torch.float64), obs, mv_oh,
                   cm_oh, logp_old, adv_n, ret, value_old)
 
@@ -137,13 +138,20 @@ def _assert_f64_equal(got, got_m, want, want_m):
                                rtol=1e-10, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["simple_spread"] + COMM_NAMES)
-def test_plain_mappo_update_f64_matches_jax_kernel_and_jax_grad(name):
-    kscn, params, batch = _batch(name=name)
+# hidden 16 on every head, and the other widths the kernels are compiled for
+# (8, 32) on simple_spread and a comm head
+WIDTH_CASES = ([pytest.param(name, HIDDEN, id=name) for name in ["simple_spread"] + COMM_NAMES]
+               + [pytest.param(name, h, id=f"{name}-hidden{h}") for h in (8, 32)
+                  for name in ("simple_spread", "simple_speaker_listener")])
+
+
+@pytest.mark.parametrize("name, hidden", WIDTH_CASES)
+def test_plain_mappo_update_f64_matches_jax_kernel_and_jax_grad(name, hidden):
+    kscn, params, batch = _batch(name=name, hidden=hidden)
     got, got_m = _port(kscn, params, batch)
     obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else jnp.asarray(x)
                                                            for x in batch)
-    j_update = j_fused_mappo_update(kscn, n_envs=N, n_steps=T, hidden=HIDDEN, clip=CLIP,
+    j_update = j_fused_mappo_update(kscn, n_envs=N, n_steps=T, hidden=hidden, clip=CLIP,
                                     vf_coef=VF, ent_coef=ENTC, block_envs=64, t_chunk=4,
                                     interpret=True, compute_dtype=jnp.float64)
     want_k = j_update(jax.tree.map(jnp.asarray, params), obs, mv_oh, cm_oh, logp_old, adv_n, ret,

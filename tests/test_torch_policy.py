@@ -18,6 +18,7 @@ The CUDA kernels run only on a card: ``tests/test_torch_cuda.py`` and
 """
 
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -101,9 +102,16 @@ def test_argmax_onehot_first_max_tie_break(z):
     assert (got.sum(0) == 1).all()
 
 
-@pytest.mark.parametrize("scenario", NAMES)
-def test_plain_policy_trajectory_matches_jax_interpret(scenario):
-    tree, params = _params(name=scenario)
+# hidden 16 on all nine, and the other widths the kernels are compiled for
+# (8, 32) on simple_spread and a comm head
+WIDTH_CASES = ([pytest.param(name, 16, id=name) for name in NAMES]
+               + [pytest.param(name, h, id=f"{name}-hidden{h}") for h in (8, 32)
+                  for name in ("simple_spread", "simple_speaker_listener")])
+
+
+@pytest.mark.parametrize("scenario, hidden", WIDTH_CASES)
+def test_plain_policy_trajectory_matches_jax_interpret(scenario, hidden):
+    tree, params = _params(hidden=hidden, name=scenario)
     kscn = j_kernel_scenario(scenario)
     a, ow = kscn.spec.n_agents, kscn.obs_w
     j_run = j_policy.fused_policy_trajectory(scenario, tree, t_chunk=4, interpret=True, **SMALL)
@@ -131,9 +139,9 @@ def test_plain_policy_trajectory_matches_jax_interpret(scenario):
         assert np.abs(_np(obs)[6, :, 0:2]).max() == 0.0 and np.abs(_np(obs)[5, :, 0:2]).max() > 0
 
 
-@pytest.mark.parametrize("scenario", NAMES)
-def test_plain_policy_rollout_matches_jax_interpret(scenario):
-    tree, params = _params(seed=1, name=scenario)
+@pytest.mark.parametrize("scenario, hidden", WIDTH_CASES)
+def test_plain_policy_rollout_matches_jax_interpret(scenario, hidden):
+    tree, params = _params(hidden=hidden, seed=1, name=scenario)
     j_run = j_policy.fused_policy_rollout(scenario, tree, interpret=True, **SMALL)
     t_run = t_policy.fused_policy_rollout(scenario, params, device="cpu", **SMALL)
     for block_offset in (0, 1):
@@ -189,9 +197,10 @@ def test_policy_builders_refuse_what_they_do_not_compute():
     with pytest.raises(ValueError, match="needs 21 -> 15"):
         t_policy.fused_policy_trajectory("simple_reference", _params(name="simple_spread")[1], 64,
                                          8, t_chunk=4, device="cpu")
-    # the kernels take hidden width 64 only, and the scenario's widths
-    weights = t_policy._kernel_weights(params)
-    with pytest.raises(NotImplementedError, match="hidden width 64"):
+    # the kernels take the hidden widths they are compiled for, and the
+    # scenario's widths
+    weights = t_policy._kernel_weights(_params(hidden=48)[1])
+    with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}; got 48")):
         t_policy._kernel_args(t_policy._resolve("simple_spread"), weights, 64, 8, 4, 64,
                               torch.device("cuda"))
     wide = t_policy._kernel_weights(_params(hidden=64, name="simple_reference")[1])
@@ -246,6 +255,35 @@ def test_pick_tile_rule():
     # nowhere one wave: the largest tile; a tile that does not fit is skipped
     assert t_policy.pick_tile(tiles, 3, 10 ** 6, lambda t: 1, 132) == 32
     assert t_policy.pick_tile(MADDPG_TILES, 6, 10 ** 6, {1: 1, 2: 1, 4: 1, 8: 0}.get, 132) == 4
+    # narrower MLPs have fewer items per row: at hidden 16 three agents need
+    # 32 rows (tile 16) to fill a warp's items, at hidden 8 64 rows (tile 32)
+    assert t_policy.pick_tile(tiles, 3, 4096, lambda t: 5, 132, hidden=32) == 8
+    assert t_policy.pick_tile(tiles, 3, 4096, lambda t: 5, 132, hidden=16) == 16
+    assert t_policy.pick_tile(tiles, 3, 4096, lambda t: 5, 132, hidden=8) == 32
+
+
+def test_policy_kernel_wrappers_refuse_uncompiled_widths_before_any_launch():
+    """K4's, K5's and K8's wrappers take the hidden width from the weights
+    and raise for a width the kernels are not compiled for (48), naming the
+    compiled ones, before they look at the device (so here, without a card)."""
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg
+
+    kscn = t_policy._resolve("simple_spread")
+    weights = t_policy._kernel_weights(_params(hidden=48)[1])
+    actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=48)["actor"]
+    before = (t_policy.policy_traj_cuda.launches, t_policy.policy_rollout_cuda.launches,
+              fused_maddpg.maddpg_traj_cuda.launches)
+    named = re.escape("{8, 16, 32, 64}; got 48")
+    with pytest.raises(NotImplementedError, match=named):
+        t_policy.policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match=named):
+        t_policy.policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match=named):
+        fused_maddpg.maddpg_traj_cuda(kscn, fused_maddpg._kernel_weights(actor), 64, 10, 5, 64,
+                                      5, 0.1, 0, device="cpu")
+    assert before == (t_policy.policy_traj_cuda.launches, t_policy.policy_rollout_cuda.launches,
+                      fused_maddpg.maddpg_traj_cuda.launches)
 
 
 def test_tile_kernel_wrappers_refuse_bad_tiles_before_any_launch():

@@ -45,30 +45,35 @@ def _hold(label, runs, ref):
                                        msg=f"{k} at tile {tile} against tile {tiles[0]}")
 
 
-def _policy_weights(kscn, seed):
+def _policy_weights(kscn, seed, hidden=64):
     return _kernel_weights(init_policy(torch.Generator().manual_seed(seed), kscn.obs_w,
-                                       kscn.n_logits))
+                                       kscn.n_logits, hidden))
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_host_built_policy_traj_kernel_at_two_tiles(host_libs, name):
     """K5 over 12 steps in chunks of 4, horizon 5, block offset 1, at tiles 2
     and 16 (the last tile of 16 holds 12 lanes)."""
-    kscn = kernel_scenario(name)
+    _check_policy_traj(host_libs["mpe_policy.cu"], kernel_scenario(name), (2, 16))
+
+
+def _check_policy_traj(lib, kscn, tiles, hidden=64):
+    """K5 of a library built at ``hidden`` at each of ``tiles``, held as
+    above."""
     scenario, params = _build.kernel_params(kscn)
-    weights = _policy_weights(kscn, 2)
+    weights = _policy_weights(kscn, 2, hidden)
     wbuf = _pack_weights(weights)                      # held until the calls return
     a, n, n_steps, t_chunk = kscn.spec.n_agents, N_ENVS, 12, 4
     label = ("obs", "act", "cact", "rew", "last_obs") if kscn.uses_comm else (
         "obs", "act", "rew", "last_obs")
     runs = {}
-    for tile in (2, 16):
+    for tile in tiles:
         out = {"obs": torch.empty((n_steps, a, kscn.obs_w, n)),
                "act": torch.empty((n_steps, a, n), dtype=torch.int32),
                "cact": torch.empty((n_steps, a, n), dtype=torch.int32),
                "rew": torch.empty((n_steps, kscn.reward_rows, n)),
                "last_obs": torch.empty((a, kscn.obs_w, n))}
-        rc = host_libs["mpe_policy.cu"].mpe_policy_traj(
+        rc = lib.mpe_policy_traj(
             scenario, ctypes.byref(params), wbuf.data_ptr(), out["obs"].data_ptr(),
             out["act"].data_ptr(), out["cact"].data_ptr() if kscn.uses_comm else None,
             out["rew"].data_ptr(), out["last_obs"].data_ptr(), n, BLOCK_ENVS,
@@ -83,16 +88,21 @@ def test_host_built_policy_traj_kernel_at_two_tiles(host_libs, name):
 def test_host_built_policy_rollout_kernel_at_two_tiles(host_libs, name):
     """K4 over 14 steps, horizon 6, block offset 1, at tiles 4 and 32 (the
     last tile of 32 holds 28 lanes): returns, final positions, episodes."""
-    kscn = kernel_scenario(name)
+    _check_policy_rollout(host_libs["mpe_policy.cu"], kernel_scenario(name), (4, 32))
+
+
+def _check_policy_rollout(lib, kscn, tiles, hidden=64):
+    """K4 of a library built at ``hidden`` at each of ``tiles``, held as
+    above."""
     scenario, params = _build.kernel_params(kscn)
-    weights = _policy_weights(kscn, 3)
+    weights = _policy_weights(kscn, 3, hidden)
     wbuf = _pack_weights(weights)
     n = N_ENVS
     runs = {}
-    for tile in (4, 32):
+    for tile in tiles:
         out = {"ret": torch.empty((kscn.reward_rows, n)),
                "pos": torch.empty((kscn.spec.n_entities, 2, n)), "episodes": torch.empty((1, n))}
-        rc = host_libs["mpe_policy.cu"].mpe_policy_rollout(
+        rc = lib.mpe_policy_rollout(
             scenario, ctypes.byref(params), wbuf.data_ptr(), *(x.data_ptr() for x in out.values()),
             n, BLOCK_ENVS, 14, 6, 8, 1, tile, None)
         assert rc == 0
@@ -106,17 +116,21 @@ def test_host_built_maddpg_traj_kernel_at_two_tiles(host_libs, name):
     """K8 over 10 steps in chunks of 5, horizon 5, eps 0.1, block offset 1,
     at tiles 1 and 8 (the last tile of 8 holds 4 lanes), both output forms;
     the rows form equal to the tensor form's rows bit for bit."""
-    kscn = kernel_scenario(name)
+    _check_maddpg_traj(host_libs["mpe_maddpg.cu"], kernel_scenario(name), (1, 8))
+
+
+def _check_maddpg_traj(lib, kscn, tiles, hidden=64):
+    """K8 of a library built at ``hidden`` at each of ``tiles``, held as
+    above."""
     scenario, params = _build.kernel_params(kscn)
     a, ow, aw, n = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits, N_ENVS
     n_steps, t_chunk, eps = 10, 5, 0.1
-    actor = init_maddpg(torch.Generator().manual_seed(4), ow, aw, a)["actor"]
+    actor = init_maddpg(torch.Generator().manual_seed(4), ow, aw, a, hidden)["actor"]
     actor["out"]["w"] = actor["out"]["w"] * 100.0      # O(1) logits
     weights = fused_maddpg._kernel_weights(actor)
     wbuf = fused_maddpg._pack_weights(weights)
-    lib = host_libs["mpe_maddpg.cu"]
     runs = {}
-    for tile in (1, 8):
+    for tile in tiles:
         out = {"obs": torch.empty((n_steps, a, ow, n)), "act": torch.empty((n_steps, a, aw, n)),
                "rew": torch.empty((n_steps, kscn.reward_rows, n)),
                "obs2": torch.empty((n_steps, a, ow, n)),
@@ -136,7 +150,7 @@ def test_host_built_maddpg_traj_kernel_at_two_tiles(host_libs, name):
                                                                            "obs2")))
                             for t in range(n_steps)])
         torch.testing.assert_close(out["rows"], rows, rtol=0, atol=0, msg=f"rows at tile {tile}")
-    assert len(torch.unique(runs[1]["act"][:, :, :5].argmax(2))) == 5     # the actions vary
+    assert len(torch.unique(runs[tiles[0]]["act"][:, :, :5].argmax(2))) == 5  # the actions vary
 
 
 def test_host_built_tile_kernels_refuse_bad_tiles(host_libs):

@@ -96,6 +96,42 @@ def test_fused_trajectory_refuses_bad_sizes():
                                device="cpu")
 
 
+def test_fused_trajectory_makes_the_kernel_constants_once_per_builder(monkeypatch):
+    """On a CUDA device the builder fills K3's constant struct
+    (``_build.kernel_params``) once and hands the same one to every launch:
+    the launch and the device are stood in for, so this runs without a
+    card."""
+    from mpe_tpu_torch.ops import _build
+
+    made, launched = [], []
+
+    def kernel_params(kscn):
+        made.append(kscn.spec.name)
+        return _build.SCENARIO_IDS[type(kscn).__name__], object()
+
+    monkeypatch.setattr(_build, "kernel_params", kernel_params)
+    monkeypatch.setattr(t_traj, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(t_traj, "trajectory_cuda",
+                        lambda *args, consts=None, **kw: launched.append(consts))
+    run = t_traj.fused_trajectory("simple_world_comm", 64, 8, horizon=5, block_envs=32)
+    for seed in range(3):
+        run(seed)
+    assert made == ["simple_world_comm"]
+    assert len(launched) == 3 and all(c is launched[0] for c in launched)
+    assert launched[0][0] == _build.SCENARIO_IDS["KernelWorldComm"]
+
+
+def test_trajectory_cuda_refuses_bad_groups_before_any_launch():
+    """A group outside ``GROUPS`` raises before the library is touched."""
+    kscn = t_kscn.kernel_scenario("simple_spread")
+    before = t_traj.trajectory_cuda.launches
+    for group in (0, 3, 16):
+        with pytest.raises(ValueError, match="threads per env lane"):
+            t_traj.trajectory_cuda(kscn, 64, 8, 5, 32, 4, 0, device=torch.device("cuda"),
+                                   group=group)
+    assert t_traj.trajectory_cuda.launches == before
+
+
 @pytest.mark.parametrize("case", ["cpu_device", "uninstantiated_spec"])
 def test_rollout_cuda_refuses_what_no_kernel_runs(case):
     """K2 is one kernel template with one C entry: ``rollout_cuda`` launches it

@@ -17,6 +17,8 @@ JAX package on the CPU, move-only and with a comm head.
 The batch is made with numpy from a seed and handed to both packages.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ import torch
 
 from mpe_tpu.learner.fused_ppo import _factored_logp_ent, _head_minor, _torso_minor
 from mpe_tpu.learner.ppo import init_ac
+from mpe_tpu.learner.ppo import init_mappo as j_init_mappo
 from mpe_tpu.ops.fused_update import fused_ppo_update as j_fused_ppo_update
 from mpe_tpu.ops.kernel_scenarios import kernel_scenario as j_kernel_scenario
 from mpe_tpu_torch.convert import params_from_numpy
@@ -68,7 +71,7 @@ def _onehot(rng, k, dtype, shape):
     return np.moveaxis(np.eye(k, dtype=dtype)[rng.integers(0, k, size=shape)], -1, -2)
 
 
-def _batch(dtype, value_noise=0.0, name="simple_spread"):
+def _batch(dtype, value_noise=0.0, name="simple_spread", hidden=HIDDEN):
     """Params and an epoch-shaped batch as numpy: obs ~ N(0, 1), random
     moves (and utterances with a comm head, one-hot 0 for a silent agent as
     K5 emits them), logp_old from the same forward plus noise (so ratios
@@ -79,7 +82,7 @@ def _batch(dtype, value_noise=0.0, name="simple_spread"):
     a, ow = kscn.spec.n_agents, kscn.obs_w
     dim_c = kscn.spec.dim_c if kscn.uses_comm else 0
     jt = jnp.float64 if dtype == np.float64 else jnp.float32
-    params = jax.tree.map(np.asarray, init_ac(jax.random.PRNGKey(2), ow, 5 + dim_c, hidden=HIDDEN,
+    params = jax.tree.map(np.asarray, init_ac(jax.random.PRNGKey(2), ow, 5 + dim_c, hidden=hidden,
                                               dtype=jt))
     rng = np.random.default_rng(7)
     obs = rng.normal(size=(T, a, ow, N)).astype(dtype)
@@ -101,15 +104,17 @@ def _port(kscn, params, batch, dtype):
     tp = params_from_numpy(params, device="cpu", dtype=dtype)
     obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else torch.tensor(x)
                                                            for x in batch)
-    update = t_update.fused_ppo_update(kscn.spec.name, N, T, HIDDEN, clip=CLIP, vf_coef=VF,
-                                       ent_coef=ENTC, device="cpu", dtype=dtype)
+    update = t_update.fused_ppo_update(kscn.spec.name, N, T, params["l1"]["w"].shape[1],
+                                       clip=CLIP, vf_coef=VF, ent_coef=ENTC, device="cpu",
+                                       dtype=dtype)
     return update(tp, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value_old)
 
 
 def _jax_kernel(kscn, params, batch, compute_dtype):
     obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else jnp.asarray(x)
                                                            for x in batch)
-    update = j_fused_ppo_update(kscn, n_envs=N, n_steps=T, hidden=HIDDEN, clip=CLIP,
+    update = j_fused_ppo_update(kscn, n_envs=N, n_steps=T, hidden=params["l1"]["w"].shape[1],
+                                clip=CLIP,
                                 vf_coef=VF, ent_coef=ENTC, block_envs=64, t_chunk=4,
                                 interpret=True, compute_dtype=compute_dtype)
     return update(jax.tree.map(jnp.asarray, params), obs, mv_oh, cm_oh, logp_old, adv_n, ret,
@@ -137,11 +142,18 @@ def _assert_f64_equal(got, got_m, want, want_m):
                                rtol=1e-10, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["simple_spread"] + COMM_NAMES)
-def test_plain_update_f64_matches_jax_kernel_and_jax_grad(name):
+# hidden 16 on every head, and the other widths the kernels are compiled for
+# (8, 32) on simple_spread and a comm head
+WIDTH_CASES = ([pytest.param(name, HIDDEN, id=name) for name in ["simple_spread"] + COMM_NAMES]
+               + [pytest.param(name, h, id=f"{name}-hidden{h}") for h in (8, 32)
+                  for name in ("simple_spread", "simple_speaker_listener")])
+
+
+@pytest.mark.parametrize("name, hidden", WIDTH_CASES)
+def test_plain_update_f64_matches_jax_kernel_and_jax_grad(name, hidden):
     """Epoch 0 (value_old = value): the JAX kernel and jax.grad agree, and
-    the port agrees with both."""
-    kscn, params, batch = _batch(np.float64, name=name)
+    the port agrees with both, at ``hidden``."""
+    kscn, params, batch = _batch(np.float64, name=name, hidden=hidden)
     got, got_m = _port(kscn, params, batch, torch.float64)
     _assert_f64_equal(got, got_m, *_jax_kernel(kscn, params, batch, jnp.float64))
     _assert_f64_equal(got, got_m, *_jax_grad(kscn, params, batch))
@@ -228,6 +240,50 @@ def test_update_builder_refuses_what_it_does_not_compute():
         update(tp, obs, mv_oh, None, lpo, adv, ret, vold)
     with pytest.raises(ValueError, match="has a comm head"):
         update(tp, obs, mv_oh, cm_oh[:, :, :4], lpo, adv, ret, vold)
+
+
+def test_update_wrappers_refuse_uncompiled_widths_before_any_launch():
+    """K6's and K7's wrappers take the hidden width from the params and
+    raise for a width the kernels are not compiled for (48), naming the
+    compiled ones, before they look at the device (so here, without a card)."""
+    before = (t_update.ppo_update_cuda.launches, t_update.mappo_update_cuda.launches)
+    kscn, params, batch = _batch(np.float32, hidden=48)
+    tp = params_from_numpy(params, device="cpu")
+    args = [None if x is None else torch.tensor(x) for x in batch]
+    obs, mv_oh, cm_oh, lpo, vold, adv, ret = args
+    hp = dict(clip=CLIP, vf_coef=VF, ent_coef=ENTC)
+    with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}; got 48")):
+        t_update.ppo_update_cuda(tp, obs, mv_oh, cm_oh, lpo, adv, ret, vold, **hp)
+    team = params_from_numpy(jax.tree.map(np.asarray, j_init_mappo(
+        jax.random.PRNGKey(0), kscn.obs_w, 5, kscn.spec.n_agents, hidden=48)), device="cpu")
+    with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}; got 48")):
+        t_update.mappo_update_cuda(team, obs, mv_oh, cm_oh, lpo, adv[:, 0], ret[:, 0],
+                                   vold[:, 0], **hp)
+    assert before == (t_update.ppo_update_cuda.launches, t_update.mappo_update_cuda.launches)
+
+
+def test_build_targets_name_each_hidden_width():
+    """``_build._target``: one library per (MLP source, hidden width), each
+    name distinct, the width-64 name the one a build without the width had
+    (a hash of the source, the headers and the flags); the sources without
+    an MLP and the widths not compiled are refused."""
+    import hashlib
+
+    from mpe_tpu_torch.ops import _build
+
+    for source in _build.HIDDEN_SOURCES:
+        names = [_build._target(source, h).name for h in _build.HIDDEN_WIDTHS]
+        assert len(set(names)) == len(_build.HIDDEN_WIDTHS)
+        text = (_build.CSRC / source).read_bytes() + b"".join(
+            (_build.CSRC / h).read_bytes() for h in _build.HEADERS)
+        digest = hashlib.sha256(text + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+        assert _build._target(source, 64).name == _build._target(source).name
+        assert _build._target(source).name == f"lib{source[:-3]}_{digest}.so"
+        assert _build._target(source, 8).name.startswith(f"lib{source[:-3]}_h8_")
+        with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}")):
+            _build._target(source, 48)
+    with pytest.raises(ValueError, match="no hidden width"):
+        _build._target("mpe_trajectory.cu", 16)
 
 
 def test_actor_heads_match_the_kernel_instantiations():

@@ -2,7 +2,8 @@
 """Time the port's update kernels of one or more checkouts on one NVIDIA
 card, one checkout after another.
 
-    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det | --policy] ROOT [ROOT ...]
+    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det | --policy | --trajectory] \
+        ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -72,6 +73,19 @@ each output tensor's bytes, so that two checkouts can be compared bit for
 bit within one call; and the registers and spill bytes of each
 ``policy_traj_kernel``, ``policy_rollout_kernel`` and ``maddpg_traj_kernel``
 instantiation (the largest spill of the kernel and the functions it calls).
+
+With ``--trajectory`` (K3): ``fused_trajectory`` on the nine scenarios at
+4096 envs x 64 steps and on simple_spread, simple_reference and
+simple_world_comm (chip_smoke.py's TRAJ_WIDE) at 65,536 envs x 64 steps
+(horizon 32, block_envs 1024, t_chunk 8: chip_smoke.py's path e), seed 1:
+the median of TRAJ_CALLS calls through the builder, host work included, by
+CUDA events around the call and by the host clock to its synchronize; the
+median device time of ``trajectory_kernel`` over TRAJ_CALLS calls under
+torch.profiler; a SHA-256 of each output; where the checkout's K3 takes a
+group (``traj_group``), the rule's G and, at every G of 1, 2, 4, 8
+(``trajectory_cuda(..., group=g)``), the device time and whether every
+output equals the rule's bit for bit; and the registers and spill bytes of each
+``trajectory_kernel`` instantiation.
 """
 
 from __future__ import annotations
@@ -433,6 +447,73 @@ def time_policy(result: dict, logs: dict) -> None:
         **registers(logs, "mpe_maddpg.cu", "maddpg_traj_kernel")}
 
 
+TRAJ_AB = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
+TRAJ_AB_SHAPES = tuple((name, 4096) for name in SCENARIOS) + tuple(
+    (name, 65_536) for name in ("simple_spread", "simple_reference", "simple_world_comm"))
+TRAJ_CALLS = 5
+
+
+def kernel_device_ms(fn, kernel: str) -> float | None:
+    """The median device time of ``kernel``'s launches over TRAJ_CALLS calls
+    of ``fn`` under torch.profiler, after one call; None without device
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAJ_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time if hasattr(e, "device_time") else e.cuda_time for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    us = [x for x in us if x > 0]
+    return statistics.median(us) / 1e3 if us else None
+
+
+def time_trajectory(result: dict, logs: dict) -> None:
+    import time
+
+    import torch
+
+    from mpe_tpu_torch.ops import fused_trajectory as ft
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    grouped = hasattr(ft, "traj_group")
+    for name, n in TRAJ_AB_SHAPES:
+        run = ft.fused_trajectory(name, n, **TRAJ_AB)
+        out = run(1)
+        torch.cuda.synchronize()
+        event_ms, wall_ms = [], []
+        for _ in range(TRAJ_CALLS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            run(1)
+            end.record()
+            end.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t0))
+            event_ms.append(start.elapsed_time(end))
+        row = {"call_event_ms": statistics.median(event_ms),
+               "call_wall_ms": statistics.median(wall_ms),
+               "device_ms": kernel_device_ms(lambda: run(1), "trajectory_kernel"),
+               "sha256": sha256s(out)}
+        if grouped:
+            kscn = kernel_scenario(name)
+            row["group"] = ft.traj_group(kscn, n)
+            for g in ft.GROUPS:
+                call = (lambda g=g: ft.trajectory_cuda(
+                    kscn, n, TRAJ_AB["n_steps"], TRAJ_AB["horizon"], TRAJ_AB["block_envs"],
+                    TRAJ_AB["t_chunk"], 1, 0, "cuda", group=g))
+                row[f"device_ms_group_{g}"] = kernel_device_ms(call, "trajectory_kernel")
+                row[f"same_bits_group_{g}"] = sha256s(call()) == row["sha256"]
+        result[f"{name}@{n}"] = row
+        del out
+        torch.cuda.empty_cache()
+    result["registers_spill_bytes"] = registers(logs, "mpe_trajectory.cu", "trajectory_kernel")
+
+
 def child(mode: str, root: str) -> None:
     sys.path.insert(0, root)
     import mpe_tpu_torch
@@ -451,6 +532,8 @@ def child(mode: str, root: str) -> None:
         time_det(result, logs)
     elif mode == "policy":
         time_policy(result, logs)
+    elif mode == "trajectory":
+        time_trajectory(result, logs)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -462,7 +545,7 @@ def main() -> int:
         child(args[1], args[2])
         return 0
     mode = {"--maddpg": "maddpg", "--rollout": "rollout", "--det": "det",
-            "--policy": "policy"}.get(
+            "--policy": "policy", "--trajectory": "trajectory"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
