@@ -10,7 +10,7 @@ failure ends the run with a non-zero exit code:
      kernel build time (every source at hidden width 64 and the MLP sources
      of K4-K9 also at 8, 16 and 32, one nvcc each, all at once) and the
      compiler's register report;
-  2. ten main paths, each with every kernel's launch count set to 0 just
+  2. eleven main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -73,7 +73,30 @@ failure ends the run with a non-zero exit code:
           simple_world_comm (the widest writer) at 65536 envs x 64 steps:
           median CUDA-event time of 3 runs, bytes written and the write
           bandwidth they reach; the launches of each instantiation;
-  3. every kernel held against its plain PyTorch version on the card: K1
+       f. the env API and the non-fused learners, on the card by default:
+          make_env("simple_spread", benchmark=True, seed=42) for 100 steps
+          of numpy reference-format actions (ms per step, a host round trip;
+          obs rows of 18, equal rewards, per-agent rew and collisions); every
+          registry id made, reset and stepped, and
+          MultiagentSimpleSpeakerListener-v0 done at t = 100;
+          VecMultiAgentEnv(MpeEnv(simple_spread), 4096) for 200 steps of
+          uniform actions (env-steps/s beside path a's generic engine; env
+          7 within 1e-6 of MpeEnv.step on its state alone); parallel_env
+          ("simple_tag", max_cycles=25), every agent truncated at 25, and
+          aec_env("simple_world_comm", max_cycles=25) through agent_iter,
+          with samples drawn on the card; REINFORCE (build_train_step,
+          4096 envs x 25 steps, hidden 64) for 5 steps; build_ppo_step and
+          build_mappo_step on the generic engine at path b's width for 5
+          iterations (ms per iteration and transitions/s beside paths b and
+          b2); greedy_state_rollout with path d's MADDPG actor and with
+          random actions (128 envs x 25 steps); build_es_step on simple at
+          hidden 16, pop 16, 4096 envs x 100 steps, horizon 25, for 30
+          generations (kernel K4, one launch per member: 480) and one
+          generation on simple_spread at hidden 64; every metric finite;
+  3. every kernel held against its plain PyTorch version on the card: ES
+     generation 0's member scores (K4) against the plain K4's within 1e-5,
+     and one ES generation under torch.profiler (K4's device time and the
+     device's busy share of the generation); K1
      on all nine scenarios and K2 over 20 steps (K2 with horizon 10, so
      resets happen), K1 at every group G equal to G = 1 bit for bit on the
      three scenarios with collide pairs; K5 and K4
@@ -169,6 +192,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 N_ENVS = 4096
 N_STEPS = 10_000
 HORIZON = 100
@@ -255,6 +280,18 @@ HIDDEN_NAMES = ("simple_spread", "simple_speaker_listener")
 HIDDEN_GATE = dict(n_envs=1024, n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
 HIDDEN_TRAINERS = (("PPO", 16), ("MAPPO", 32))
 HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
+# path f: the env API at the verify recipe's calls (make_env on simple_spread
+# with benchmark info, VecMultiAgentEnv at 4096 envs), every registry id, the
+# PettingZoo adapters at PettingZoo's default max_cycles, and the non-fused
+# learners: REINFORCE and PPO/MAPPO at the trainers' widths, greedy evaluation
+# at its defaults, ES on K4 at examples/es_train.py's population
+F_STEPS, F_VEC = 100, dict(n_envs=4096, n_steps=200)
+F_CYCLES = 25
+F_PG, F_PG_STEPS = dict(n_envs=4096, n_steps=25, hidden=64), 5
+F_PPO_ITERS = 5
+F_EVAL = dict(n_envs=128, n_steps=25)
+F_ES = dict(n_envs=4096, n_steps=100, horizon=25, pop=16, sigma=0.1, lr=0.1)
+F_ES_NAME, F_ES_HIDDEN, F_ES_GENS = "simple", 16, 30
 
 # Kernel against plain version on the card, 20 steps. The library is built
 # with -fmad=false, so the dynamics round op for op as PyTorch's
@@ -807,11 +844,12 @@ def generic_engine(name: str, dev):
     assert traj["obs"].shape == (GENERIC_STEPS, a, ow, N_ENVS)
     assert bool(torch.isfinite(states.pos).all())
     stats = [mean_se(rew[:, i, :].mean(0)) for i in range(a)]
-    print(f"generic engine, {name}: {N_ENVS * GENERIC_STEPS / generic_s:.6g} env-steps/s "
+    rate = N_ENVS * GENERIC_STEPS / generic_s
+    print(f"generic engine, {name}: {rate:.6g} env-steps/s "
           f"({N_ENVS} envs x {GENERIC_STEPS} steps in {generic_s * 1e3:.1f} ms); "
           f"mean reward per env-step by agent "
           + ", ".join(f"{m:.5f} +- {se:.5f}" for m, se in stats))
-    return stats
+    return stats, rate
 
 
 def agree_with_generic(label: str, rew_sum, generic: list) -> None:
@@ -829,14 +867,15 @@ def agree_with_generic(label: str, rew_sum, generic: list) -> None:
 
 
 def rollout_path(wrappers, spec, dev):
-    """Main path a: generic engine, K2 at three widths, K1."""
+    """Main path a: generic engine (its env-steps/s returned last), K2 at
+    three widths, K1."""
     import torch
 
     from mpe_tpu_torch.ops.fused_parity import fused_det_rollout, make_det_inputs
     from mpe_tpu_torch.ops.fused_rollout import fused_spread_rollout
 
     zero_launches(wrappers)
-    generic = generic_engine("simple_spread", dev)
+    generic, generic_rate = generic_engine("simple_spread", dev)
 
     k2 = fused_spread_rollout(spec, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
     k2_ms, out = cuda_time(lambda: k2(1), REPEATS)
@@ -872,7 +911,7 @@ def rollout_path(wrappers, spec, dev):
                              "rollout path's K2")
     k1_by = read_instantiations(wrappers["det_rollout_kernel"], ["simple_spread"],
                                 "rollout path's K1")
-    return launches, by, k1_by, k2, k2_ms_at, k1_ms, det_inputs
+    return launches, by, k1_by, k2, k2_ms_at, k1_ms, det_inputs, generic_rate
 
 
 def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
@@ -1042,7 +1081,7 @@ def scenarios_path(wrappers, dev):
               + ", ".join(f"{float(x):.5f}" for x in out[2].double().mean(1) / N_STEPS))
         del out
     for name in SCENARIOS:
-        generic = generic_engine(name, dev)
+        generic, _ = generic_engine(name, dev)
         run = fused_rollout(name, N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS)
         k2_ms[name], out = cuda_time(lambda: run(1), REPEATS)
         for x in out:
@@ -2039,6 +2078,259 @@ def hidden_widths_phase(wrappers) -> dict:
     return out
 
 
+def reference_actions(spaces_n, rng):
+    """Reference-format actions made with numpy: a one-hot per Discrete
+    (sub-)space, uniform values in a Box."""
+    from mpe_tpu_torch.envs import spaces
+
+    def one(space):
+        if isinstance(space, spaces.Discrete):
+            return np.eye(space.n)[rng.integers(space.n)]
+        if isinstance(space, spaces.MultiDiscrete):
+            return np.concatenate([np.eye(w)[rng.integers(w)] for w in space.sizes])
+        if isinstance(space, spaces.Tuple):
+            return np.concatenate([one(x) for x in space.spaces])
+        return rng.uniform(space.low, space.high, space.shape)
+
+    return [one(space) for space in spaces_n]
+
+
+def timed_sync(fn):
+    """(seconds, output) of ``fn()`` on the host clock, the device synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def env_api_path(wrappers, maddpg_params, generic_rate: float, fused_iter_ms: dict):
+    """Main path f: the env API and the non-fused learners on the card. Only
+    ES launches a kernel (K4, one launch per member); the rest runs on the
+    generic engine. -> (launches, K4 launches by scenario, ES builder, its
+    first params, its ms per generation)."""
+    import torch
+
+    from mpe_tpu_torch import make_env, registry, scenarios
+    from mpe_tpu_torch.envs import MpeEnv, VecMultiAgentEnv, aec_env, parallel_env
+    from mpe_tpu_torch.learner import (build_es_step, build_mappo_step, build_ppo_step,
+                                       build_train_step, init_ac, init_mappo, init_policy)
+    from mpe_tpu_torch.learner.eval import greedy_state_rollout
+    from mpe_tpu_torch.ops.fused_policy import policy_rollout_cuda
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+    from mpe_tpu_torch.parallel.mesh import _uniform_actions
+
+    zero_launches(wrappers)
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # 1. make_env: the reference's stateful API, one host round trip a step
+    env = make_env("simple_spread", benchmark=True, seed=42)
+    assert env.env.device.type == "cuda"
+    env.reset()
+    env.step(reference_actions(env.action_space, rng))               # warm-up
+    t0 = time.perf_counter()
+    for _ in range(F_STEPS):
+        obs_n, rew_n, done_n, info_n = env.step(reference_actions(env.action_space, rng))
+    make_env_ms = (time.perf_counter() - t0) * 1e3 / F_STEPS
+    assert [o.shape for o in obs_n] == [(18,)] * 3, [o.shape for o in obs_n]
+    assert rew_n[0] == rew_n[1] == rew_n[2] and math.isfinite(rew_n[0]), rew_n
+    assert all(np.shape(info_n["n"][i][k]) == () for i in range(3) for k in ("rew", "collisions"))
+    print(f"path f, make_env(simple_spread, benchmark=True): {make_env_ms:.4f} ms per step "
+          f"(host round trip, mean of {F_STEPS}); reward {rew_n[0]:.5f}, info keys "
+          f"{sorted(info_n['n'][0])}")
+
+    # 2. the registry: one reset and one step of every id; the legacy
+    # speaker-listener id to its horizon
+    for env_id in registry.ids():
+        e = registry.make(env_id, seed=1)
+        e.reset()
+        _, r, _, _ = e.step(reference_actions(e.action_space, rng))
+        assert all(math.isfinite(x) for x in r), (env_id, r)
+    e = registry.make("MultiagentSimpleSpeakerListener-v0", seed=2)
+    e.reset()
+    for t in range(1, 101):
+        _, _, done_n, _ = e.step(reference_actions(e.action_space, rng))
+        assert all(done_n) == (t == 100) and any(done_n) == (t == 100), (t, done_n)
+    print(f"path f, registry: {len(registry.ids())} ids made, reset and stepped; "
+          f"MultiagentSimpleSpeakerListener-v0 done at t = 100")
+
+    # 3. VecMultiAgentEnv: the batched generic engine behind the wrapper
+    mpe = MpeEnv(scenarios.load("simple_spread"))
+    vec = VecMultiAgentEnv(mpe, F_VEC["n_envs"], seed=0)
+    vec.reset()
+    states0 = vec.states
+    acts = _uniform_actions(mpe, gen, F_VEC["n_envs"])
+    obs, rew, done, _ = vec.step(acts)
+    _, obs7, rew7, done7, _ = mpe.step(states0.map(lambda x: x[7:8]), acts[7:8])
+    env7_err = max(max_err(obs[7:8], obs7), max_err(rew[7:8], rew7))
+    assert env7_err <= 1e-6 and torch.equal(done[7:8], done7), env7_err
+
+    def vec_run():
+        for _ in range(F_VEC["n_steps"]):
+            out = vec.step(_uniform_actions(mpe, gen, F_VEC["n_envs"]))
+        return out
+
+    vec_s, out = timed_sync(vec_run)
+    assert bool(torch.isfinite(out[0]).all())
+    vec_rate = F_VEC["n_envs"] * F_VEC["n_steps"] / vec_s
+    print(f"path f, VecMultiAgentEnv(simple_spread, {F_VEC['n_envs']}): {vec_rate:.6g} env-steps/s "
+          f"({F_VEC['n_steps']} steps with uniform actions in {vec_s * 1e3:.1f} ms; path a's "
+          f"generic engine {generic_rate:.6g}); env 7 against its own step: max abs err "
+          f"{env7_err:.3g}, dones equal")
+
+    # 4. the PettingZoo adapters, with samples drawn on the card
+    par = parallel_env("simple_tag", max_cycles=F_CYCLES)
+    par.reset(seed=3)
+    cycles = 0
+
+    def par_run():
+        nonlocal cycles
+        while par.agents:
+            out = par.step({a: par.action_space(a).sample(gen) for a in par.agents})
+            cycles += 1
+        return out
+
+    par_s, (_, rewards, terms, truncs, _) = timed_sync(par_run)
+    assert cycles == F_CYCLES and all(truncs.values()) and not any(terms.values())
+    assert set(truncs) == set(par.possible_agents)
+    aec = aec_env("simple_world_comm", max_cycles=F_CYCLES)
+    aec.reset(seed=4)
+    acted = 0
+    t0 = time.perf_counter()
+    for agent in aec.agent_iter():
+        _, reward, term, trunc, _ = aec.last()
+        assert math.isfinite(reward)
+        if term or trunc:
+            aec.step(None)
+            continue
+        aec.step(aec.action_space(agent).sample(gen))
+        acted += 1
+    aec_s = time.perf_counter() - t0
+    assert acted == F_CYCLES * len(aec.possible_agents) and not aec.agents
+    print(f"path f, parallel_env(simple_tag, max_cycles={F_CYCLES}): every agent truncated at "
+          f"{cycles} ({par_s * 1e3 / cycles:.3f} ms per cycle); aec_env(simple_world_comm): "
+          f"{acted} actions over {F_CYCLES} cycles ({aec_s * 1e3 / F_CYCLES:.3f} ms per cycle)")
+
+    # 5. REINFORCE on the generic engine
+    spread = MpeEnv(scenarios.load("simple_spread"))
+    pg_params = init_policy(gen, 18, spread.action_width, hidden=F_PG["hidden"])
+    train_step = build_train_step(spread, F_PG["n_envs"], F_PG["n_steps"])
+    pg_ms = []
+    for i in range(F_PG_STEPS):
+        s, (pg_params, loss) = timed_sync(lambda: train_step(pg_params, gen))
+        assert math.isfinite(float(loss)), (i, float(loss))
+        pg_ms.append(s * 1e3)
+    print(f"path f, REINFORCE build_train_step(simple_spread, {F_PG['n_envs']} envs x "
+          f"{F_PG['n_steps']} steps, hidden {F_PG['hidden']}): {statistics.mean(pg_ms[1:]):.3f} ms "
+          f"per step (steps 1-{F_PG_STEPS - 1}); loss {float(loss):.5f}")
+
+    # 6. PPO and MAPPO on the generic engine at path b's width
+    horizon_env = MpeEnv(scenarios.load("simple_spread"), max_steps=TRAIN["horizon"],
+                         auto_reset=True)
+    kw = {k: TRAIN[k] for k in ("n_envs", "n_steps", "lr", "gamma", "lam", "clip", "vf_coef",
+                                "ent_coef", "ppo_epochs")}
+    nonfused = {}
+    for label, build, init in (
+            ("PPO", build_ppo_step, lambda: init_ac(gen, 18, 5, TRAIN["hidden"])),
+            ("MAPPO", build_mappo_step, lambda: init_mappo(gen, 18, 5, 3, TRAIN["hidden"]))):
+        step = build(horizon_env, **kw)
+        state, ms = step.init_state(init()), []
+        for i in range(F_PPO_ITERS):
+            s, (state, metrics) = timed_sync(lambda: step(state, gen))
+            m = {k: float(v) for k, v in metrics.items()}
+            assert all(math.isfinite(v) for v in m.values()), (label, i, m)
+            ms.append(s * 1e3)
+        mean_ms = statistics.mean(ms[1:])
+        nonfused[label] = mean_ms
+        fused = fused_iter_ms[label]
+        print(f"path f, {label} on the generic engine (simple_spread, {TRAIN['n_envs']} envs x "
+              f"{TRAIN['n_steps']} steps, hidden {TRAIN['hidden']}, {TRAIN['ppo_epochs']} "
+              f"epochs): {mean_ms:.3f} ms per iteration, "
+              f"{TRAIN['n_envs'] * TRAIN['n_steps'] / (mean_ms * 1e-3):.6g} transitions/s "
+              f"(iterations 1-{F_PPO_ITERS - 1}); the fused trainer (path "
+              f"{'b' if label == 'PPO' else 'b2'}) {fused:.3f} ms, "
+              f"{TRAIN['n_envs'] * TRAIN['n_steps'] / (fused * 1e-3):.6g} transitions/s "
+              f"(generic / fused {mean_ms / fused:.2f}); last metrics "
+              + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+
+    # 7. greedy evaluation with path d's MADDPG actor, and uniform-random
+    scn = scenarios.load("simple_spread")
+    for label, params in (("path d's MADDPG actor", maddpg_params), ("random", None)):
+        states, rew = greedy_state_rollout(scn, params, **F_EVAL)
+        t_, n_ = F_EVAL["n_steps"], F_EVAL["n_envs"]
+        assert states.pos.shape == (t_, n_, 6, 2) and states.comm.shape == (t_, n_, 3, 2)
+        assert states.goal.shape == (t_, n_, 0) and rew.shape == (t_, n_, 3)
+        assert np.isfinite(rew).all()
+        print(f"path f, greedy_state_rollout(simple_spread, {label}, {n_} envs x {t_} steps): "
+              f"mean reward per agent-step {float(rew.mean()):.5f}")
+
+    # 8. ES on K4: one launch per member per generation
+    kscn = kernel_scenario(F_ES_NAME)
+    es_params = init_policy(gen, kscn.obs_w, kscn.n_logits, hidden=F_ES_HIDDEN)
+    es_step = build_es_step(kscn, es_params, **F_ES)
+    params0, params, scores, gen_ms = es_params, es_params, [], []
+    for g in range(F_ES_GENS):
+        s, (params, score) = timed_sync(lambda: es_step(params, g))
+        scores.append(float(score))
+        gen_ms.append(s * 1e3)
+    assert all(math.isfinite(x) for x in scores), scores
+    k4_es = policy_rollout_cuda.launches_by[F_ES_NAME]
+    assert k4_es == F_ES["pop"] * F_ES_GENS, (k4_es, F_ES["pop"] * F_ES_GENS)
+    wide = kernel_scenario("simple_spread")
+    wide_params = init_policy(gen, wide.obs_w, wide.n_logits, hidden=64)
+    wide_step = build_es_step(wide, wide_params, **F_ES)
+    s, (_, wide_score) = timed_sync(lambda: wide_step(wide_params, 0))
+    assert math.isfinite(float(wide_score))
+    es_ms = statistics.mean(gen_ms[1:])
+    print(f"path f, ES on K4 ({F_ES_NAME}, hidden {F_ES_HIDDEN}, pop {F_ES['pop']}, "
+          f"{F_ES['n_envs']} envs x {F_ES['n_steps']} steps, horizon {F_ES['horizon']}): "
+          f"{es_ms:.3f} ms per generation (generations 1-{F_ES_GENS - 1}); mean score of the "
+          f"first five {statistics.mean(scores[:5]):.5f}, of the last five "
+          f"{statistics.mean(scores[-5:]):.5f}; one generation on simple_spread at hidden 64 "
+          f"{s * 1e3:.3f} ms, mean score {float(wide_score):.5f}")
+    launches = read_launches(wrappers, ["policy_rollout_kernel"], "env API path")
+    by = read_instantiations(policy_rollout_cuda, [F_ES_NAME, "simple_spread"],
+                             "env API path's K4")
+    assert launches["policy_rollout_kernel"] == F_ES["pop"] * (F_ES_GENS + 1)
+    print(f"path f: {time.perf_counter() - t_path:.1f} s")
+    return launches, by, es_step, params0, es_ms
+
+
+def check_es_generation(es_step, params0, es_ms: float) -> tuple[float, dict]:
+    """Generation 0 of path f's ES: the kernel's member scores against the
+    plain K4's on the same perturbed weights; then one generation under
+    torch.profiler: K4's device time and the device's busy time beside the
+    generation's host-clock time from path f -> (the largest abs error, the
+    generation's figures)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    got, ref = es_step.scores(params0, 0), es_step.plain.scores(params0, 0)
+    err = check("K4 in ES generation 0 (member scores)", {"ret": max_err(got, ref)})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        es_step(params0, 1)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k4_us = sum(device_us(e) for e in device if "policy_rollout_kernel" in e.key)
+    busy_us = sum(device_us(e) for e in device)
+    if k4_us <= 0:
+        print("ES generation under torch.profiler: device time not measured (no device events)")
+        return err, {"ms": es_ms, "k4_device_ms": "not measured"}
+    figures = {"ms": es_ms, "k4_device_ms": k4_us / 1e3,
+               "k4_device_ms_per_launch": k4_us / 1e3 / F_ES["pop"],
+               "k4_share": k4_us / 1e3 / es_ms, "device_busy_share": busy_us / 1e3 / es_ms}
+    print(f"ES generation: {es_ms:.3f} ms by the host clock; under torch.profiler K4's device "
+          f"time {k4_us / 1e3:.4f} ms over {F_ES['pop']} launches "
+          f"({figures['k4_device_ms_per_launch']:.4f} ms each), {figures['k4_share']:.3f} of the "
+          f"generation; the device busy {figures['device_busy_share']:.3f} of it")
+    return err, figures
+
+
 def main() -> int:
     import torch
 
@@ -2103,13 +2395,13 @@ def main() -> int:
                 "maddpg_update_kernel": maddpg_update_cuda}
 
     # ---- main paths ----------------------------------------------------------
-    launches, k2_by, k1_by, k2, k2_ms_at, k1_ms, det_inputs = rollout_path(
+    launches, k2_by, k1_by, k2, k2_ms_at, k1_ms, det_inputs, generic_rate = rollout_path(
         wrappers, spec, torch.device("cuda"))
     # K5 runs in paths b, b2, b3 and b4; K6 in b and b3; K7 in b2 and b4. Each
     # path's launches are read just after it, by instantiation where the
     # kernel is a template over the scenarios
     k5_by, k6_by, k7_by = {}, {}, {}
-    trainers, collect_ms = {}, {}
+    trainers, collect_ms, iter_ms = {}, {}, {}
     for label, name, build, update in (("train", "simple_spread", build_fused_ppo_step, "ppo"),
                                        ("MAPPO", "simple_spread", build_fused_mappo_step, "mappo"),
                                        ("comm PPO", COMM_PPO, build_fused_ppo_step, "ppo"),
@@ -2125,6 +2417,7 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
         trainers[label] = (step_, state0_, state_)
         collect_ms[f"{label} ({name})"] = phases_["collect"]
+        iter_ms[label] = sum(phases_.values())
     step, state0, state = trainers["train"]
     mstep, mstate0, mstate = trainers["MAPPO"]
     cstep, _, cstate = trainers["comm PPO"]
@@ -2161,6 +2454,13 @@ def main() -> int:
     k1_by.update(scn_by["det_rollout_kernel"])
     k2_by.update(scn_by["scenario_rollout_kernel"])
     k3_by = scn_by["trajectory_kernel"]
+    # path f: the env API and the non-fused learners; K4 runs in paths c and f
+    f_launches, f_by, es_step, es_params0, es_ms = env_api_path(
+        wrappers, mparams, generic_rate, {"PPO": iter_ms["train"], "MAPPO": iter_ms["MAPPO"]})
+    launches["policy_rollout_kernel"] += f_launches["policy_rollout_kernel"]
+    for name, n in f_by.items():
+        k4_by[name] = k4_by.get(name, 0) + n
+    es_err, es_figures = check_es_generation(es_step, es_params0, es_ms)
     zero_launches(wrappers)
 
     # ---- kernels against their plain versions -------------------------------
@@ -2329,7 +2629,7 @@ def main() -> int:
     k7_scn = {n: policy_row(n, "mappo", e, ms, pms, b, k7_by, library_ms=lms)
               for n, (e, ms, pms, lms, b) in k7_rows.items()}
     k5_err = max([k5_err] + [r["max_abs_err"] for r in k5_scn.values()])
-    k4_err = max(r["max_abs_err"] for r in k4_scn.values())
+    k4_err = max([es_err] + [r["max_abs_err"] for r in k4_scn.values()])
 
     def record(name, source, replaces, err, ms, plain_ms, bound, library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": f"mpe_tpu_torch/csrc/{source}",
@@ -2373,7 +2673,10 @@ def main() -> int:
         record("policy_rollout_kernel", "mpe_policy.cu", "mpe_tpu/ops/fused_policy.py:90",
                k4_err, k4_ms, plain_k4_ms, (b4, by4), scenarios=list(ALL_SCENARIOS),
                timed_on="simple_spread", by_scenario=k4_scn,
-               tile=k4_scn["simple_spread"]["tile"], tile_rule=POLICY_TILE_RULE),
+               tile=k4_scn["simple_spread"]["tile"], tile_rule=POLICY_TILE_RULE,
+               path_f_launches=f_by,
+               es_generation={"scenario": F_ES_NAME, "hidden": F_ES_HIDDEN, **F_ES,
+                              **es_figures, "max_abs_err": es_err}),
         # K6 and K7: one epoch of the trainer's batch, simple_spread's at the top
         record("ppo_update_kernel", "mpe_update.cu", "mpe_tpu/ops/fused_update.py:188",
                max(r["max_abs_err"] for r in k6_scn.values()), spread6["ms"],

@@ -2,16 +2,24 @@
 
 The JAX package ``mpe_tpu`` stays the reference; this package imports
 nothing of it (nor JAX). Module names follow the JAX package so each
-counterpart is easy to find. Ported so far: the batched simple_spread path
-(spec, actions, physics, scenario, ``MpeEnv``, ``build_rollout``), the
-fused rollout kernels K1/K2 (``ops/fused_parity``, ``ops/fused_rollout``;
-``csrc/mpe_kernels.cu``), and the fused PPO trainer
-(``learner.build_fused_ppo_step``) with its policy kernels K4/K5
-(``ops/fused_policy``; ``csrc/mpe_policy.cu``) and update kernel K6
-(``ops/fused_update``; ``csrc/mpe_update.cu``), the MAPPO and MADDPG
-trainers (K7-K9), and the fused trajectory K3 (``ops/fused_trajectory``;
-``csrc/mpe_trajectory.cu``), all written in CUDA for Hopper. Scenarios:
-simple_spread, simple, simple_reference and simple_speaker_listener.
+counterpart is easy to find. Ported so far:
+
+- the nine scenarios (``scenarios``), the batched functional env
+  ``MpeEnv`` and ``build_rollout`` on one device;
+- the env API: spaces, ``make_env`` and the stateful ``MultiAgentEnv``,
+  ``VecMultiAgentEnv``, the registry, the PettingZoo adapters
+  (``envs.parallel_api``, ``envs.aec_api``) and the gymnasium shim
+  (``envs.gym_compat``);
+- the learners: REINFORCE, PPO and MAPPO on the generic engine, greedy
+  evaluation, ES, and the fused PPO, MAPPO and MADDPG trainers;
+- all nine TPU kernels, written in CUDA for Hopper: the rollouts K1/K2
+  (``ops/fused_parity``, ``ops/fused_rollout``; ``csrc/mpe_kernels.cu``),
+  the trajectory K3 (``ops/fused_trajectory``; ``csrc/mpe_trajectory.cu``),
+  the policy rollouts K4/K5 (``ops/fused_policy``; ``csrc/mpe_policy.cu``),
+  the PPO and MAPPO updates K6/K7 (``ops/fused_update``;
+  ``csrc/mpe_update.cu``) and MADDPG's collection and update K8/K9
+  (``ops/fused_maddpg``, ``ops/fused_maddpg_update``;
+  ``csrc/mpe_maddpg.cu``).
 
 Entry points take ``device=None``, meaning the CUDA card; they raise when
 no card is visible. Pass ``device="cpu"`` for the plain PyTorch path.
@@ -23,6 +31,7 @@ from mpe_tpu_torch.core.actions import ActionMode
 from mpe_tpu_torch.core.state import ScenarioSpec, WorldState, make_spec
 from mpe_tpu_torch.entry import entry
 from mpe_tpu_torch.envs.functional import MpeEnv
+from mpe_tpu_torch.factory import make_env
 from mpe_tpu_torch.learner import build_fused_ppo_step
 from mpe_tpu_torch.ops.fused_parity import fused_det_rollout
 from mpe_tpu_torch.ops.fused_policy import fused_policy_rollout, fused_policy_trajectory
@@ -34,6 +43,5 @@ __all__ = [
     "ActionMode", "MpeEnv", "ScenarioSpec", "WorldState", "build_fused_ppo_step",
     "build_rollout", "entry", "fused_det_rollout", "fused_policy_rollout",
     "fused_policy_trajectory", "fused_rollout", "fused_spread_rollout", "fused_trajectory",
-    "make_generator",
-    "make_spec", "resolve_device", "scenarios",
+    "make_env", "make_generator", "make_spec", "resolve_device", "scenarios",
 ]

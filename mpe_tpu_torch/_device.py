@@ -40,6 +40,12 @@ def device_table(values, dtype=None, device=None) -> torch.Tensor:
     return table
 
 
+def to_host(x) -> np.ndarray:
+    """``np.asarray(x)``, for a tensor on any device too (numpy refuses a
+    CUDA tensor: it is copied to the host first)."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def make_generator(seed: int, device=None) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``seed`` (the port's
     stand-in for a ``jax.random.PRNGKey``)."""

@@ -11,6 +11,7 @@ package's additions, kept. The batch axis leads every tensor, as
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -19,6 +20,7 @@ from mpe_tpu_torch._device import resolve_device
 from mpe_tpu_torch.core.actions import ActionMode, action_width, decode_actions
 from mpe_tpu_torch.core.physics import step_world
 from mpe_tpu_torch.core.state import WorldState
+from mpe_tpu_torch.envs import spaces
 from mpe_tpu_torch.scenarios._base import Scenario
 
 
@@ -108,3 +110,35 @@ class MpeEnv:
             state = fresh.map(select, state)
             obs = select(fresh_obs, obs)
         return state, obs, reward, done, info
+
+    # space descriptors, assembled exactly like environment.py:38-70
+    def action_spaces(self) -> list[spaces.Space]:
+        out: list[spaces.Space] = []
+        spec = self.spec
+        discrete = self.action_mode is not ActionMode.CONTINUOUS
+        for i in range(spec.n_agents):
+            total: list[spaces.Space] = []
+            if spec.movable[i]:
+                total.append(
+                    spaces.Discrete(spec.dim_p * 2 + 1)
+                    if discrete
+                    else spaces.Box(-float(spec.u_range[i]), float(spec.u_range[i]),
+                                    (spec.dim_p,))
+                )
+            if not spec.silent[i]:
+                total.append(
+                    spaces.Discrete(spec.dim_c)
+                    if discrete
+                    else spaces.Box(0.0, 1.0, (spec.dim_c,))
+                )
+            if len(total) > 1:
+                if all(isinstance(s, spaces.Discrete) for s in total):
+                    out.append(spaces.MultiDiscrete.of([(0, s.n - 1) for s in total]))
+                else:
+                    out.append(spaces.Tuple(tuple(total)))
+            else:
+                out.append(total[0])
+        return out
+
+    def observation_spaces(self) -> list[spaces.Box]:
+        return [spaces.Box(-math.inf, math.inf, (d,)) for d in self.scenario.obs_dims]

@@ -18,3 +18,10 @@ def dense_init(generator: torch.Generator, n_in: int, n_out: int, dtype=torch.fl
     s = math.sqrt(2.0 / n_in) if scale is None else scale
     w = torch.randn((n_in, n_out), generator=generator, dtype=dtype, device=generator.device)
     return {"w": w * s, "b": torch.zeros(n_out, dtype=dtype, device=generator.device)}
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 or wider: the JAX learners cast their logits and
+    values to float32, which under JAX's x64 mode narrows float64 too; the
+    port keeps float64 in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))

@@ -36,6 +36,12 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree[k][q] for k in sorted(tree) for q in sorted(tree[k])]
 
 
+def tree_unflatten(like, leaves):
+    """Leaves in ``tree_leaves`` order -> a two-level dict shaped like ``like``."""
+    it = iter(leaves)
+    return {k: {q: next(it) for q in sorted(like[k])} for k in sorted(like)}
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(tree)))
 

@@ -27,9 +27,10 @@ class Scenario:
 
     spec: ScenarioSpec
     obs_dims: tuple[int, ...]
-    #: ``benchmark_data`` keys whose last axis is the agent axis (the
-    #: reference computes benchmark_data per agent); every other key is
-    #: one value per env
+    #: ``benchmark_data`` keys that hold one entry per agent (the reference
+    #: computes benchmark_data per agent): their agent axis is the one after
+    #: the env axis (``[B, A, ...]``, e.g. simple_crypto's ``comm`` is
+    #: ``[B, A, C]``); every other key is one value per env
     per_agent_info: frozenset[str] = frozenset()
 
     def reset(self, n_envs: int, generator: torch.Generator,

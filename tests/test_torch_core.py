@@ -171,14 +171,33 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
-    from mpe_tpu_torch import MpeEnv, entry, fused_det_rollout, fused_spread_rollout
+    from mpe_tpu_torch import (MpeEnv, entry, fused_det_rollout, fused_spread_rollout, make_env,
+                               registry)
+    from mpe_tpu_torch.envs import MultiAgentEnv, VecMultiAgentEnv, aec_env, parallel_env
+    from mpe_tpu_torch.learner import (build_es_step, build_mappo_step, build_ppo_step,
+                                       build_train_step, init_policy)
+    from mpe_tpu_torch.learner.eval import greedy_state_rollout
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scn = t_scenarios.load("simple_spread")
+    kscn = kernel_scenario("simple")
+    policy = init_policy(torch.Generator().manual_seed(0), kscn.obs_w, 5, hidden=16)
     for call in (lambda: MpeEnv(scn, device=None),
                  lambda: fused_spread_rollout(scn.spec, 256, 4, device=None),
                  lambda: fused_det_rollout("simple_spread", 256, 4, device=None),
-                 lambda: entry()):
+                 lambda: entry(),
+                 lambda: make_env("simple_spread"),
+                 lambda: registry.make("simple_spread-v0"),
+                 lambda: MultiAgentEnv(scn),
+                 lambda: VecMultiAgentEnv(MpeEnv(scn, device=None), 4),
+                 lambda: parallel_env("simple_tag"),
+                 lambda: aec_env("simple_tag"),
+                 lambda: build_train_step(MpeEnv(scn, device=None), 4),
+                 lambda: build_ppo_step(MpeEnv(scn, device=None), 4),
+                 lambda: build_mappo_step(MpeEnv(scn, device=None), 4),
+                 lambda: build_es_step(kscn, policy, 64, 20, 10, 8, 0.1, 0.1, device=None),
+                 lambda: greedy_state_rollout(scn, None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -30,10 +30,14 @@ simple_world_comm through the pair physics), and K2 with an env lane split
 over 2, 4 or 8 threads equals K2 with one bit for bit, and so does K1 on all
 nine scenarios. The MADDPG update
 chunk on its packed state holds the tree chunk with the plain K9 within
-1e-4 of each leaf's largest entry.
+1e-4 of each leaf's largest entry. One ES generation launches K4 once per
+member, and its member scores equal the plain version's within 1e-5; the
+env API (``make_env``, ``VecMultiAgentEnv``, the PettingZoo adapter) runs on
+the card with samples drawn there.
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -558,3 +562,58 @@ def test_mlp_kernels_refuse_uncompiled_widths(card):
     with pytest.raises(NotImplementedError, match="8, 16, 32, 64"):
         step.collect(params, 2)
     assert before == (fused_policy.policy_traj_cuda.launches, fused_update.ppo_update_cuda.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [16, 64])
+def test_es_generation_launches_k4_per_member_and_matches_plain(card, hidden):
+    """One ES generation is ``pop`` launches of K4, whose member scores
+    equal the plain version's on the same perturbed weights (1e-5)."""
+    from mpe_tpu_torch.learner import build_es_step
+
+    kscn = kernel_scenario("simple")
+    params = init_policy(torch.Generator(device=card).manual_seed(0), kscn.obs_w, 5,
+                         hidden=hidden)
+    step = build_es_step(kscn, params, 1024, 50, 25, pop=6, sigma=0.1, lr=0.1, device=card)
+    before = fused_policy.policy_rollout_cuda.launches_by["simple"]
+    new, mean = step(params, 0)
+    assert fused_policy.policy_rollout_cuda.launches_by["simple"] == before + 6
+    assert new["l1"]["w"].is_cuda and torch.isfinite(mean)
+    got, ref = step.scores(params, 0), step.plain.scores(params, 0)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert float(got.mean()) == float(mean)
+
+
+@pytest.mark.cuda
+def test_env_api_on_the_card(card):
+    """make_env, VecMultiAgentEnv and the PettingZoo adapter on the card:
+    samples drawn on the card are taken as actions, and the batched env's
+    env 7 steps as the single env does from its state."""
+    from mpe_tpu_torch import make_env
+    from mpe_tpu_torch.envs import MpeEnv, VecMultiAgentEnv, parallel_env
+
+    env = make_env("simple_spread", benchmark=True, seed=42)
+    assert env.env.device.type == "cuda"
+    obs_n = env.reset()
+    gen = torch.Generator(device=card).manual_seed(0)
+    obs_n, rew_n, _, info_n = env.step([torch.nn.functional.one_hot(s.sample(gen).long(), s.n)
+                                        for s in env.action_space])
+    assert obs_n[0].shape == (18,) and rew_n[0] == rew_n[1] == rew_n[2]
+    assert set(info_n["n"][0]) == {"rew", "collisions", "min_dists", "occupied_landmarks"}
+
+    mpe = MpeEnv(scenarios.load("simple_spread"))
+    vec = VecMultiAgentEnv(mpe, 64, seed=1)
+    vec.reset()
+    states0 = vec.states
+    acts = torch.rand((64, 3, 7), generator=gen, device=card)
+    obs, rew, done, _ = vec.step(acts)
+    _, obs7, rew7, done7, _ = mpe.step(states0.map(lambda x: x[7:8]), acts[7:8])
+    torch.testing.assert_close(obs[7:8], obs7, rtol=0, atol=0)
+    torch.testing.assert_close(rew[7:8], rew7, rtol=0, atol=0)
+
+    par = parallel_env("simple_tag", max_cycles=3)
+    par.reset(seed=0)
+    while par.agents:
+        _, rewards, _, trunc, _ = par.step({a: par.action_space(a).sample(gen)
+                                            for a in par.agents})
+    assert all(trunc.values()) and all(math.isfinite(r) for r in rewards.values())
