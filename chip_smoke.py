@@ -10,7 +10,7 @@ failure ends the run with a non-zero exit code:
      kernel build time (every source at hidden width 64 and the MLP sources
      of K4-K9 also at 8, 16 and 32, one nvcc each, all at once) and the
      compiler's register report;
-  2. eleven main paths, each with every kernel's launch count set to 0 just
+  2. twelve main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -93,6 +93,26 @@ failure ends the run with a non-zero exit code:
           hidden 16, pop 16, 4096 envs x 100 steps, horizon 25, for 30
           generations (kernel K4, one launch per member: 480) and one
           generation on simple_spread at hidden 64; every metric finite;
+       g. the MADDPG variants at their runners' defaults (64 envs, horizon
+          25, batch 1024), 8 chunks each with the actors stepping from update
+          0, CUDA-event times per chunk split into collect and update, launch
+          counts zeroed before and read after each phase: g1
+          build_fused_maddpg_runner("simple_spread", local_critic=True)
+          (independent DDPG: K8, autograd updates on the packed state); g2
+          build_ensemble_runner("simple_tag", 3) (K8 on sub-sliced actors,
+          through the pair physics), then its best-response probe
+          (train_mask (F, F, F, T), k_active (3, 3, 3, 1), 4 chunks; the
+          frozen actors equal bit for bit, the trained one moved) and K8 on
+          g2's first sub-sliced actor stack against the plain K8, every
+          output equal bit for bit; g3 build_approx_runner("simple_spread");
+          K9 launched in none of g1-g3; g4 build_maddpg on simple_spread
+          (32 envs, a ring of 51,200 rows, batch 256; the generic engine, no
+          kernel launched): 100 collect steps and 50 updates by the host
+          clock; g5 examples/maddpg_run.py's recipe (64 envs, batch 1024,
+          tau 0.01, lr 1e-3, actor_start 1000, 24,000 updates; K8 and K9),
+          then greedy_state_rollout (128 envs x 25 steps) of the trained
+          actor, of uniform-random moves and of the committed JAX
+          checkpoint: the trained actor must score above random;
   3. every kernel held against its plain PyTorch version on the card: ES
      generation 0's member scores (K4) against the plain K4's within 1e-5,
      and one ES generation under torch.profiler (K4's device time and the
@@ -175,7 +195,9 @@ failure ends the run with a non-zero exit code:
      and, K5 and K8, the collect phases of the paths that run them; K3 its
      group rule and by scenario its G, device time, bound, their ratio, the
      times at every G and its registers by G; K4-K9 their errors at the
-     hidden widths and their registers at each width), the
+     hidden widths and their registers at each width; K8 path g's figures
+     by phase, its launches there by scenario and the sub-sliced gate's
+     error, K9 its launches in each phase of path g), the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -292,6 +314,23 @@ F_PPO_ITERS = 5
 F_EVAL = dict(n_envs=128, n_steps=25)
 F_ES = dict(n_envs=4096, n_steps=100, horizon=25, pop=16, sigma=0.1, lr=0.1)
 F_ES_NAME, F_ES_HIDDEN, F_ES_GENS = "simple", 16, 30
+# path g, the MADDPG variants at their runners' defaults (64 envs, horizon 25,
+# batch 1024; tools/ddpg_vs_maddpg.py, tools/ensemble_exploit.py --scenario
+# simple_tag, tools/approx_study.py), G_CHUNKS chunks each with the actors
+# stepping from update 0; g2's best-response probe freezes the adversaries;
+# g4 is build_maddpg at the runners' 1,600 rows per env (the JAX default of
+# 50,000 rows is no multiple of 32 envs)
+G_CHUNKS, G_PROBE_CHUNKS = 8, 4
+G_ENSEMBLE, G_K_ENS = "simple_tag", 3
+G_PROBE = dict(train_mask=(False, False, False, True), k_active=(3, 3, 3, 1))
+G4 = dict(n_envs=32, capacity=51_200, batch=256)
+G4_COLLECTS, G4_UPDATES = 100, 50
+# g5: does the port's MADDPG learn? examples/maddpg_run.py's recipe (24,000
+# updates = 960 chunks) and the JAX package's recorded greedy result there
+# (tools/ddpg_vs_maddpg_report.json, mean of three seeds)
+G5 = dict(n_envs=64, horizon=25, batch=1024, tau=0.01, lr=1e-3)
+G5_UPDATES, G5_ACTOR_START = 24_000, 1000
+G5_JAX_GREEDY = -6.138
 
 # Kernel against plain version on the card, 20 steps. The library is built
 # with -fmad=false, so the dynamics round op for op as PyTorch's
@@ -981,11 +1020,7 @@ def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CH
     kernels = ["maddpg_traj_kernel", "maddpg_update_kernel"]
     launches = read_launches(wrappers, kernels, f"{label} path")
     by = {k: read_instantiations(wrappers[k], [name], f"{label} path's {k}") for k in kernels}
-    chunks = []                 # (collect ms, update ms) per chunk
-    for c in range(n_chunks):
-        start, col, upd = events[2 * c][1], events[2 * c + 1][1], events[2 * c + 2][1]
-        chunks.append((start.elapsed_time(col), col.elapsed_time(upd)))
-    steady = chunks[1:]         # chunk 0 sets up the update's first allocations
+    steady = chunk_phase_ms(events, n_chunks)[1:]   # chunk 0 sets up the first allocations
     collect_ms, update_ms = (sum(x[q] for x in steady) for q in (0, 1))
     total_ms = collect_ms + update_ms
     n = run.transitions_per_chunk
@@ -1007,6 +1042,16 @@ def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CH
           f"{float(cl[-1]):.6f}; ring {info['buffer'].size} of {run.capacity} rows "
           f"({info['buffer'].data.numel() * 4 / 1e6:.0f} MB)")
     return launches, by, run, params, info, rate, collect_ms / len(steady)
+
+
+def chunk_phase_ms(events, n_chunks: int) -> list[tuple[float, float]]:
+    """(collect ms, update ms) of each chunk from a runner's CUDA events
+    ("start", then "collect" and "update" per chunk)."""
+    out = []
+    for c in range(n_chunks):
+        start, col, upd = events[2 * c][1], events[2 * c + 1][1], events[2 * c + 2][1]
+        out.append((start.elapsed_time(col), col.elapsed_time(upd)))
+    return out
 
 
 def traj_bytes(name: str, n_envs: int, n_steps: int) -> int:
@@ -2331,6 +2376,246 @@ def check_es_generation(es_step, params0, es_ms: float) -> tuple[float, dict]:
     return err, figures
 
 
+def finite_tree(label: str, tree) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            finite_tree(f"{label}.{k}", v)
+        else:
+            assert bool(v.isfinite().all()), f"{label}.{k} is not finite"
+
+
+def variant_run(wrappers, label: str, run, n_chunks: int, **kw) -> tuple:
+    """One MADDPG-variant runner for ``n_chunks`` chunks, the launches zeroed
+    before and read after: K8 launched, K9 never -> (params, info, figures:
+    K8 launches, mean collect and update ms per chunk over chunks 1..n-1 by
+    CUDA events, the first and last chunk's metrics)."""
+    import torch
+
+    zero_launches(wrappers)
+    events = []
+    seconds, (params, info) = timed_sync(lambda: run(n_chunks * 25, seed=0, actor_start=0,
+                                                     events=events, **kw))
+    k8 = wrappers["maddpg_traj_kernel"].launches
+    k9 = wrappers["maddpg_update_kernel"].launches
+    print(f"{label} launches: K8 {k8}, K9 {k9}")
+    assert k8 > 0 and k9 == 0, f"{label}: K8 must collect and K9 must not run ({k8}, {k9})"
+    steady = chunk_phase_ms(events, n_chunks)[1:]
+    collect_ms, update_ms = (statistics.mean(x[q] for x in steady) for q in (0, 1))
+    mr, cl = info["mean_reward"].double(), info["critic_loss"].double()
+    assert bool(torch.isfinite(mr).all()) and bool(torch.isfinite(cl).all()), (mr, cl)
+    finite_tree(label, params)
+    profiled = profile_variant(label, run, **kw)
+    print(f"{label}, chunks 1-{n_chunks - 1}: {collect_ms + update_ms:.3f} ms per chunk "
+          f"(collect {collect_ms:.3f}, update {update_ms:.3f}: {update_ms / 25:.3f} ms per "
+          f"update); {run.transitions_per_chunk * len(steady) / (sum(map(sum, steady)) * 1e-3):.6g}"
+          f" transitions/s; chunk 0 mean reward {float(mr[0]):.5f}, critic loss "
+          f"{float(cl[0]):.5f}; chunk {n_chunks - 1} {float(mr[-1]):.5f}, {float(cl[-1]):.5f}; "
+          f"{seconds:.2f} s with the warm-up (host clock)")
+    return params, info, {"launches": {"maddpg_traj_kernel": k8, "maddpg_update_kernel": k9},
+                          "chunks": n_chunks, "collect_ms": collect_ms, "update_ms": update_ms,
+                          "chunk_ms": collect_ms + update_ms,
+                          "mean_reward": [float(mr[0]), float(mr[-1])],
+                          "critic_loss": [float(cl[0]), float(cl[-1])], **profiled}
+
+
+def profile_variant(label: str, run, **kw) -> dict:
+    """One more one-chunk run of a variant (the warm-up's collections and 25
+    updates) under torch.profiler, after its launches were read: CUDA
+    kernels per update (all the call's kernels over its 25 updates) and the
+    device's idle share of the call's CUDA-event time. Gates nothing; ->
+    {} without device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run(25, seed=1, actor_start=0, **kw)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    if not kernels:
+        print(f"{label} under torch.profiler: device time not measured (no device events)")
+        return {}
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    per_update = sum(e.count for e in kernels) / 25
+    print(f"{label} under torch.profiler (one chunk with the warm-up, {wall_ms:.3f} ms by CUDA "
+          f"events): {per_update:.1f} CUDA kernels per update, the device idle "
+          f"{1 - busy_ms / wall_ms:.4f} of the time")
+    return {"profiled_kernels_per_update": per_update, "profiled_idle_share": 1 - busy_ms / wall_ms}
+
+
+def variants_path(wrappers) -> tuple[dict, float]:
+    """Path g, the MADDPG variants on the card: g1 independent DDPG, g2 the
+    ensemble and its best-response probe (K8 on sub-sliced actors, the pair
+    physics), g3 the approximate other-agent policies, g4 build_maddpg on
+    the generic engine (no kernel) -> (figures by phase, the K8 gate's
+    largest abs error: K8 on g2's first sub-sliced actor stack against the
+    plain K8, which must be 0)."""
+    import torch
+
+    from mpe_tpu_torch import make_generator, scenarios
+    from mpe_tpu_torch.envs.functional import MpeEnv
+    from mpe_tpu_torch.learner import (build_approx_runner, build_ensemble_runner,
+                                       build_fused_maddpg_runner, build_maddpg, init_buffer,
+                                       init_ensemble, init_maddpg)
+    from mpe_tpu_torch.learner.ensemble import draw_k_vec, sub_slice
+    from mpe_tpu_torch.learner.maddpg import _dims
+
+    t_path = time.perf_counter()
+    figures = {}
+    # g1: independent DDPG (local critics, autograd gradient on the packed state)
+    run = build_fused_maddpg_runner("simple_spread", local_critic=True)
+    _, _, figures["g1"] = variant_run(wrappers, "g1 independent DDPG (simple_spread)", run,
+                                      G_CHUNKS)
+
+    # g2: the ensemble, then the best-response probe against its frozen team
+    run = build_ensemble_runner(G_ENSEMBLE, G_K_ENS)
+    label = f"g2 ensemble ({G_ENSEMBLE}, K = {G_K_ENS})"
+    params, _, figures["g2"] = variant_run(wrappers, label, run, G_CHUNKS)
+    figures["g2"]["launches_by"] = dict(wrappers["maddpg_traj_kernel"].launches_by)
+    frozen = {k: v.clone() for k, v in
+              ((f"{q}.{w}", params["actor"][q][w]) for q in params["actor"]
+               for w in params["actor"][q])}
+    probe = build_ensemble_runner(G_ENSEMBLE, G_K_ENS, **G_PROBE)
+    probe_params, _, figures["g2_probe"] = variant_run(
+        wrappers, f"g2 best-response probe ({G_PROBE})", probe, G_PROBE_CHUNKS,
+        init_params=params)
+    mask = torch.tensor(G_PROBE["train_mask"])
+    for key, x in frozen.items():
+        q, w = key.split(".")
+        got = probe_params["actor"][q][w]
+        assert torch.equal(got[~mask], x[~mask]), f"g2 probe moved a frozen {key}"
+        assert not torch.equal(got[mask], x[mask]), f"g2 probe: the trained {key} did not move"
+    print(f"g2 probe: the frozen agents' actors equal bit for bit, the trained agents' moved "
+          f"(train_mask {G_PROBE['train_mask']})")
+
+    # the K8 gate: the first sub-sliced stack of g2 (its warm-up chunk 0)
+    env = run.env
+    _, obs_w, aw, _, _ = _dims(env)
+    init = init_ensemble(torch.Generator().manual_seed(0), obs_w, aw, env.n_agents, G_K_ENS)
+    stack = sub_slice({q: {w: x.cuda() for w, x in layer.items()}
+                       for q, layer in init["actor"].items()},
+                      draw_k_vec(run.k_active, 13, 0))
+    got, ref = run.collect.traj(0, stack), run.collect.traj.plain(0, stack)
+    gate_err = max_err(got, ref)
+    same_bits(f"K8 on g2's first sub-sliced actor stack ({G_ENSEMBLE}, rows form)", got, ref)
+
+    # g3: approximations of the other agents' policies
+    run = build_approx_runner("simple_spread")
+    _, _, figures["g3"] = variant_run(wrappers, "g3 approx (simple_spread)", run, G_CHUNKS)
+
+    # g4: the per-step learner on the generic engine
+    zero_launches(wrappers)
+    env = MpeEnv(scenarios.load("simple_spread"), max_steps=25, auto_reset=True)
+    reset_fn, collect_fn, update_fn, init_opt = build_maddpg(env, **G4)
+    _, obs_w, aw, _, _ = _dims(env)
+    params = {n: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
+              for n, net in init_maddpg(torch.Generator().manual_seed(0), obs_w, aw,
+                                        env.n_agents).items()}
+    targets = {n: {q: {w: x.clone() for w, x in layer.items()} for q, layer in net.items()}
+               for n, net in params.items()}
+    opt = init_opt(params)
+    buffer = init_buffer(G4["capacity"], env.n_agents, obs_w, aw)
+    gen = make_generator(0)
+    states, obs = reset_fn(gen)
+
+    def collect_all():
+        nonlocal states, obs, buffer
+        rewards = []
+        for _ in range(G4_COLLECTS):
+            states, obs, buffer, r = collect_fn(params, states, obs, buffer, gen)
+            rewards.append(r)
+        return torch.stack(rewards)
+
+    def update_all():
+        nonlocal params, targets, opt
+        losses = []
+        for u in range(G4_UPDATES):
+            params, targets, opt, m = update_fn(params, targets, opt, buffer, gen,
+                                                do_actor=u % 2 == 0)
+            losses.append(m["critic_loss"])
+        return torch.stack(losses)
+
+    s_col, rewards = timed_sync(collect_all)
+    s_upd, losses = timed_sync(update_all)
+    assert bool(rewards.isfinite().all()) and bool(losses.isfinite().all())
+    finite_tree("g4 params", params)
+    assert buffer.size == G4_COLLECTS * G4["n_envs"] and buffer.ptr == buffer.size
+    k8, k9 = (wrappers[k].launches for k in ("maddpg_traj_kernel", "maddpg_update_kernel"))
+    assert k8 == 0 and k9 == 0, f"g4 runs the generic engine: K8 {k8}, K9 {k9} launches"
+    figures["g4"] = {"collect_step_ms": s_col * 1e3 / G4_COLLECTS,
+                     "update_ms": s_upd * 1e3 / G4_UPDATES, **G4,
+                     "collects": G4_COLLECTS, "updates": G4_UPDATES,
+                     "mean_reward": float(rewards.mean()), "critic_loss": float(losses[-1])}
+    print(f"g4 build_maddpg (simple_spread, {G4}): {figures['g4']['collect_step_ms']:.3f} ms per "
+          f"collect step ({G4_COLLECTS} steps of {G4['n_envs']} envs), "
+          f"{figures['g4']['update_ms']:.3f} ms per update ({G4_UPDATES}, batch {G4['batch']}; "
+          f"host clock, the device synchronised); mean reward {figures['g4']['mean_reward']:.5f}, "
+          f"last critic loss {figures['g4']['critic_loss']:.5f}; no kernel launched")
+    print(f"path g: {time.perf_counter() - t_path:.1f} s")
+    return figures, gate_err
+
+
+def maddpg_learns_phase(wrappers) -> dict:
+    """Phase g5: does the port's MADDPG learn? ``run_fused_maddpg`` at
+    examples/maddpg_run.py's recipe (G5; K8 and K9), then greedy evaluation
+    (``greedy_state_rollout``, 128 envs x 25 steps) of the trained actor, of
+    uniform-random moves and, as a control of the evaluation itself, of the
+    committed checkpoint the JAX package trained at that recipe. Gate: the
+    trained actor's reward per agent-step above random's -> the figures."""
+    import torch
+
+    from mpe_tpu_torch import scenarios
+    from mpe_tpu_torch.learner import build_fused_maddpg_runner
+    from mpe_tpu_torch.learner.eval import greedy_state_rollout
+
+    blocks, events = [], []
+
+    def progress(done, total, mr, cl):
+        blocks.append((done, mr, cl))
+
+    run = build_fused_maddpg_runner("simple_spread", **G5)
+    zero_launches(wrappers)
+    seconds, (params, info) = timed_sync(lambda: run(
+        G5_UPDATES, seed=0, actor_start=G5_ACTOR_START, progress=progress, events=events))
+    launches = read_launches(wrappers, ["maddpg_traj_kernel", "maddpg_update_kernel"],
+                             "g5 (MADDPG at examples/maddpg_run.py's recipe)")
+    steady = chunk_phase_ms(events, len(events) // 2)[1:]
+    collect_ms, update_ms = (statistics.mean(x[q] for x in steady) for q in (0, 1))
+    mr = info["mean_reward"].double()
+    assert bool(torch.isfinite(mr).all()) and bool(torch.isfinite(info["critic_loss"]).all())
+    print("g5 collection mean reward per agent-step and critic loss, every 120 chunks: "
+          + "; ".join(f"chunk {d} {r:.4f} {c:.4f}" for d, r, c in blocks[2::3]))
+    scn = scenarios.load("simple_spread")
+    scores = {}
+    for label, p in (("trained", params), ("random", None),
+                     ("JAX checkpoint", checkpoint_params("simple_spread"))):
+        _, rew = greedy_state_rollout(scn, p, **F_EVAL)
+        assert np.isfinite(rew).all()
+        scores[label] = float(rew.mean())
+        per = rew.sum(axis=(0, 1)) / (F_EVAL["n_envs"] * F_EVAL["n_steps"])
+        print(f"g5 greedy_state_rollout(simple_spread, {label}, {F_EVAL['n_envs']} envs x "
+              f"{F_EVAL['n_steps']} steps): mean reward per agent-step {scores[label]:.5f} "
+              f"(per agent {', '.join(f'{x:.4f}' for x in per)})")
+    print(f"g5: {info['updates']} updates in {seconds:.2f} s (host clock, the warm-up "
+          f"collection included); per chunk (CUDA events, chunks 1-{len(steady)}) collect "
+          f"{collect_ms:.3f} ms, update {update_ms:.3f} ms; greedy {scores['trained']:.5f} "
+          f"against random "
+          f"{scores['random']:.5f}; the JAX package records {G5_JAX_GREEDY} at this recipe "
+          f"(tools/ddpg_vs_maddpg_report.json, three seeds on a TPU: a record, not a target)")
+    assert scores["trained"] > scores["random"], \
+        f"g5: the trained MADDPG actor scores {scores['trained']} <= random {scores['random']}"
+    return {"seconds": seconds, "updates": info["updates"], "launches": launches,
+            "collect_ms": collect_ms, "update_ms": update_ms,
+            "greedy": scores["trained"], "random": scores["random"],
+            "jax_checkpoint_greedy": scores["JAX checkpoint"],
+            "first_block_reward": blocks[0][1], "last_block_reward": blocks[-1][1]}
+
+
 def main() -> int:
     import torch
 
@@ -2461,6 +2746,27 @@ def main() -> int:
     for name, n in f_by.items():
         k4_by[name] = k4_by.get(name, 0) + n
     es_err, es_figures = check_es_generation(es_step, es_params0, es_ms)
+    # path g: the MADDPG variants (K8 collects in g1-g3, K9 runs in none, g4
+    # runs no kernel), then g5: does the port's MADDPG learn (K8, K9)
+    g_figures, k8_sub_err = variants_path(wrappers)
+    g_figures["g5"] = maddpg_learns_phase(wrappers)
+    for phase, f in g_figures.items():
+        for k, n in f.get("launches", {}).items():
+            launches[k] += n
+    k8_g = {"simple_spread": sum(g_figures[p]["launches"]["maddpg_traj_kernel"]
+                                 for p in ("g1", "g3", "g5")),
+            G_ENSEMBLE: sum(g_figures[p]["launches"]["maddpg_traj_kernel"]
+                            for p in ("g2", "g2_probe"))}
+    for name, n in k8_g.items():
+        k8_by[name] = k8_by.get(name, 0) + n
+    k9_by["simple_spread"] += g_figures["g5"]["launches"]["maddpg_update_kernel"]
+    d_chunk = MADDPG["n_envs"] * MADDPG["horizon"] / maddpg_runs["simple_spread"][3] * 1e3
+    print("path g beside the vanilla chunk (ms per chunk, collect + update): "
+          + "; ".join(f"{p} {g_figures[p]['chunk_ms']:.3f} ({g_figures[p]['collect_ms']:.3f} + "
+                      f"{g_figures[p]['update_ms']:.3f})" for p in ("g1", "g2", "g2_probe", "g3"))
+          + f"; g5 (vanilla, 64 envs) {g_figures['g5']['collect_ms'] + g_figures['g5']['update_ms']:.3f}"
+          f" ({g_figures['g5']['collect_ms']:.3f} + {g_figures['g5']['update_ms']:.3f}); path d "
+          f"(vanilla, {MADDPG['n_envs']} envs) {d_chunk:.3f}")
     zero_launches(wrappers)
 
     # ---- kernels against their plain versions -------------------------------
@@ -2692,13 +2998,16 @@ def main() -> int:
         # actor at 1024 envs x 25 steps; K9's on path d's ring with its params;
         # by_scenario holds every instantiation with the scenario's checkpoint
         record("maddpg_traj_kernel", "mpe_maddpg.cu", "mpe_tpu/ops/fused_maddpg.py:105",
-               max(r["max_abs_err"] for r in k8_rows.values()), k8_rows["simple_spread"]["ms"],
+               max([k8_sub_err] + [r["max_abs_err"] for r in k8_rows.values()]),
+               k8_rows["simple_spread"]["ms"],
                k8_rows["simple_spread"]["plain_ms"],
                (k8_rows["simple_spread"]["bound_ms"], k8_rows["simple_spread"]["bound_by"]),
                scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k8_rows,
                pair_physics=pair_physics, tile=k8_rows["simple_spread"]["tile"],
                tile_rule=POLICY_TILE_RULE,
-               collect_phase_ms={k: v for k, v in collect_ms.items() if "MADDPG" in k}),
+               collect_phase_ms={k: v for k, v in collect_ms.items() if "MADDPG" in k},
+               path_g=g_figures, path_g_launches_by=k8_g,
+               sub_sliced_gate={"scenario": G_ENSEMBLE, "max_abs_err": k8_sub_err}),
         record("maddpg_update_kernel", "mpe_maddpg.cu",
                "mpe_tpu/ops/fused_maddpg_update.py:142", k9_err, k9_ms, plain_k9_ms, b9,
                lib_k9_ms, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread",
@@ -2706,7 +3015,9 @@ def main() -> int:
                transitions_per_s={n: r[3] for n, r in maddpg_runs.items()},
                from_trees_ms=k9_tree_ms, tile=K9_TILE,
                launches_per_update={n: k9_rows[n].get("launches_per_update")
-                                    for n in maddpg_runs}),
+                                    for n in maddpg_runs},
+               path_g_launches={p: f.get("launches", {}).get("maddpg_update_kernel", 0)
+                                for p, f in g_figures.items()}),
     ]
     # K4-K9 at the other hidden widths (phase 3b): errors and registers by width
     reg_keys = {"policy_traj_kernel": "policy_traj_kernel",

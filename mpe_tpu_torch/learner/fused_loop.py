@@ -7,7 +7,8 @@ seed, ...)``. One chunk collects ``n_envs * horizon`` transitions into the
 replay ring and then runs ``horizon`` updates, so the loop keeps one update
 per ``n_envs`` transitions, with the actors gated to every second update
 after ``actor_start`` updates of critic warm-up. It runs on the nine
-scenarios, comm heads included.
+scenarios, comm heads included, with centralized critics (MADDPG) or local
+ones (``local_critic=True``, independent DDPG).
 """
 
 from __future__ import annotations
@@ -69,14 +70,13 @@ def build_fused_maddpg_runner(scenario: str, n_envs: int = 64, horizon: int = 25
 
     ``hidden`` is the width of the actors and critics drawn when no
     ``init_params`` are given (the kernels take 8, 16, 32 and 64; the JAX
-    runner fixes 64). ``local_critic=True`` (independent DDPG) is not ported
-    yet (ROADMAP A10)."""
+    runner fixes 64). ``local_critic=True`` trains independent DDPG: the
+    same collection (K8) and schedule, but each critic sees only its own
+    ``[obs_i | act_i]`` and the gradient is autograd of the losses (K9 is a
+    centralized-critic kernel), on the same packed state."""
     from mpe_tpu_torch import scenarios
     from mpe_tpu_torch.envs.functional import MpeEnv
 
-    if local_critic:
-        raise NotImplementedError("local_critic=True (independent DDPG critics) is not ported; "
-                                  "the port runs the centralized critic (ROADMAP A10)")
     device = resolve_device(device)
     scn = scenarios.load(scenario)
     env = MpeEnv(scn, max_steps=horizon, auto_reset=True, device=device)
@@ -93,14 +93,16 @@ def build_fused_maddpg_runner(scenario: str, n_envs: int = 64, horizon: int = 25
                                   block_envs=min(1024, n_envs), device=device)
     update_chunk = build_fused_update_chunk(env, horizon, batch=batch, tau_polyak=tau,
                                             actor_lr=lr, critic_lr=lr, ent_coef=ent_coef,
-                                            hidden=hidden, device=device)
+                                            hidden=hidden, device=device,
+                                            grad_engine="autograd" if local_critic else "kernel",
+                                            local_critic=local_critic)
 
     def run(updates: int, seed: int = 0, init_params=None, actor_start: int = 1000,
             collect_seed0: int = 10_000, progress=None, events=None):
         n_chunks = max(1, updates // horizon)
         if init_params is None:
             init_params = init_maddpg(torch.Generator().manual_seed(int(seed)), obs_dim, aw, a,
-                                      hidden=hidden)
+                                      hidden=hidden, local_critic=local_critic)
         params = _tree3(lambda x: torch.as_tensor(x, dtype=torch.float32).to(device),
                         init_params)
         targets = _tree3(torch.clone, params)

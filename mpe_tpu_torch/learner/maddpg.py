@@ -13,10 +13,12 @@ by time limit, so TD targets bootstrap through the horizon on the stored
 true pre-reset next obs.
 
 Ported: the centralized critic on the nine scenarios, comm heads included
-(the factored move x comm policy). Waiting: ``local_critic`` (independent
-DDPG), the per-step XLA learner ``build_maddpg`` with ``gumbel_softmax_st``,
-``build_fused_maddpg_dp``, the ensemble and approximate-policy variants
-(ROADMAP A10, A12).
+(the factored move x comm policy); ``local_critic`` (independent DDPG: each
+critic sees only its own ``[obs_i | act_i]``, on the autograd engine); the
+per-step learner ``build_maddpg`` with ``gumbel_softmax_st`` on the generic
+engine. The ensemble and approximate-policy variants are
+``learner/ensemble.py`` and ``learner/approx_others.py``. Waiting:
+``build_fused_maddpg_dp`` (ROADMAP A12).
 
 The ring is updated in place (``build_fused_collect`` writes the chunk into
 ``buffer.data``; the returned ``Buffer`` shares it): at 1,638,400 rows of
@@ -46,12 +48,14 @@ def _tree3(fn, *trees):
 
 
 def init_maddpg(generator: torch.Generator, obs_dim: int, act_dim: int, n_agents: int,
-                hidden: int = 64, dtype=torch.float32) -> dict:
-    """Stacked per-agent actors and centralized critics: every leaf has a
-    leading [A] axis. Agent by agent, the draws are actor l1, l2, out (scale
-    0.01), then critic l1 (on the joint ``A*(obs_dim+act_dim)`` input), l2,
-    out, all from ``generator``."""
-    cin = n_agents * (obs_dim + act_dim)
+                hidden: int = 64, dtype=torch.float32, local_critic: bool = False) -> dict:
+    """Stacked per-agent actors and critics: every leaf has a leading [A]
+    axis. Agent by agent, the draws are actor l1, l2, out (scale 0.01), then
+    critic l1, l2, out, all from ``generator``. The critic's l1 takes the
+    joint ``A*(obs_dim+act_dim)`` input (centralized), or with
+    ``local_critic=True`` only the agent's own ``obs_dim+act_dim``
+    (independent DDPG, the MADDPG paper's decentralized baseline)."""
+    cin = obs_dim + act_dim if local_critic else n_agents * (obs_dim + act_dim)
     per_agent = []
     for _ in range(n_agents):
         per_agent.append({
@@ -100,12 +104,37 @@ def critic_q(critic_params, joint):
             + critic_params["out"]["b"][:, None])[..., 0]
 
 
+def critic_q_own(critic_params, own):
+    """Every agent's local critic on its own input: [B, A, O+K] -> Q [A, B]."""
+    x = torch.tanh(torch.einsum("bai,aih->abh", own, critic_params["l1"]["w"])
+                   + critic_params["l1"]["b"][:, None])
+    x = torch.tanh(torch.einsum("abh,ahg->abg", x, critic_params["l2"]["w"])
+                   + critic_params["l2"]["b"][:, None])
+    return (torch.einsum("abg,ago->abo", x, critic_params["out"]["w"])
+            + critic_params["out"]["b"][:, None])[..., 0]
+
+
 def maddpg_act_dim(env) -> int:
     """Actor output width for ``env``: the 5-wide move head, plus a
     dim_c-wide comm head when any agent speaks."""
     mw = 2 * env.spec.dim_p + 1
     cw = 0 if all(env.spec.silent) else env.spec.dim_c
     return mw + cw
+
+
+def gumbel_softmax_st(logits, generator: torch.Generator | None = None, tau: float = 1.0,
+                      uniform=None):
+    """Straight-through Gumbel-softmax: the one-hot of ``argmax(softmax((z +
+    g) / tau))`` forward, the soft sample's gradient backward, ``g = -log(-
+    log u)`` for ``u`` uniform in ``[1e-10, 1)`` drawn from ``generator`` (or
+    the given ``uniform``, the shape of ``logits``)."""
+    if uniform is None:
+        uniform = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
+                             device=logits.device)
+        uniform = uniform * (1.0 - 1e-10) + 1e-10
+    soft = torch.softmax((logits - torch.log(-torch.log(uniform))) / tau, dim=-1)
+    hard = torch.nn.functional.one_hot(soft.argmax(-1), logits.shape[-1]).to(soft.dtype)
+    return hard + soft - soft.detach()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +254,113 @@ def _apply_maddpg_update(params, targets, opt_states, grads, gate, *, actor_opt,
     return params, targets, {"actor": aopt, "critic": copt}
 
 
+def build_maddpg(env, n_envs: int = 32, capacity: int = 50_000, batch: int = 256,
+                 gamma: float = 0.95, tau_polyak: float = 0.05, gumbel_tau: float = 1.0,
+                 eps_greedy: float = 0.1, actor_lr: float = 1e-3, critic_lr: float = 1e-3,
+                 ent_coef: float = 0.01):
+    """The per-step MADDPG learner on the generic engine, on ``env.device``
+    (no kernel) -> ``(reset_fn, collect_fn, update_fn, init_opt)``:
+
+    - ``reset_fn(generator) -> (env_states, obs)``;
+    - ``collect_fn(params, env_states, obs, buffer, generator) ->
+      (env_states, obs, buffer, mean_reward)``: one step of every env with
+      exploratory actions (per head, a straight-through Gumbel one-hot, or
+      with probability ``eps_greedy`` a uniform one-hot; the comm head drawn
+      on its own where the scenario speaks), stepped on a twin of ``env``
+      without auto-reset so that the stored ``obs2`` is the true pre-reset
+      next obs; the rows ``[obs | act | rew | obs2]`` go into the ring at
+      ``ptr`` (in place), then the lanes whose episode is done are reset;
+    - ``update_fn(params, targets, opt_states, buffer, generator_or_seed,
+      do_actor=True, indices=None) -> (params, targets, opt_states,
+      metrics)``: ``maddpg_xla_grads`` on ``batch`` rows drawn from the ring
+      (``indices [batch]`` replaces the draw), then ``_apply_maddpg_update``
+      with the actor gate ``do_actor``;
+    - ``init_opt(params)``: both Adam states.
+
+    ``env`` must step discrete one-hots with a horizon and auto-reset, as in
+    JAX. ``capacity % n_envs == 0`` is required (each step writes ``n_envs``
+    rows): the JAX defaults, 32 envs and a capacity of 50,000, fail it, and
+    are kept as JAX's."""
+    from mpe_tpu_torch.core.actions import ActionMode
+    from mpe_tpu_torch.envs.functional import MpeEnv
+
+    if env.action_mode is not ActionMode.DISCRETE or not env.auto_reset:
+        raise ValueError("build_maddpg needs an env of ActionMode.DISCRETE with max_steps and "
+                         "auto_reset=True")
+    if capacity % n_envs:
+        raise ValueError(f"capacity ({capacity}) must be a multiple of n_envs ({n_envs})")
+    env_plain = MpeEnv(env.scenario, action_mode=env.action_mode, max_steps=env.max_steps,
+                       auto_reset=False, dtype=env.dtype, device=env.device)
+    a = env.n_agents
+    mw = 2 * env.spec.dim_p + 1
+    aw = maddpg_act_dim(env)
+    cw = aw - mw
+    pad_c = env.action_width - aw
+    actor_opt, critic_opt = adam(actor_lr), adam(critic_lr)
+
+    def init_opt(params):
+        return {"actor": actor_opt.init(params["actor"]),
+                "critic": critic_opt.init(params["critic"])}
+
+    def head(logits, generator, width):
+        sampled = gumbel_softmax_st(logits, generator, gumbel_tau)
+        rand = torch.nn.functional.one_hot(
+            torch.randint(0, width, logits.shape[:-1], generator=generator,
+                          device=logits.device), width).to(sampled.dtype)
+        take_rand = torch.rand(logits.shape[:-1] + (1,), generator=generator,
+                               dtype=sampled.dtype, device=logits.device) < eps_greedy
+        return torch.where(take_rand, rand, sampled)
+
+    def act(params, obs, generator):
+        """obs [n, A, O] -> exploratory one-hots [n, A, aw]."""
+        logits = actor_logits(params["actor"], obs)
+        parts = [head(logits[..., :mw], generator, mw)]
+        if cw:
+            parts.append(head(logits[..., mw:], generator, cw))
+        return torch.cat(parts, dim=-1)
+
+    def reset_fn(generator):
+        return env.reset(n_envs, generator)
+
+    def collect_fn(params, env_states, obs, buffer: Buffer, generator):
+        with torch.no_grad():
+            moves = act(params, obs, generator)
+            acts = torch.cat([moves, moves.new_zeros((n_envs, a, pad_c))], dim=-1).to(env.dtype)
+            states2, obs2, rew, done, _ = env_plain.step(env_states, acts, generator)
+            f32 = torch.float32                    # the ring is float32 whatever the env's dtype
+            rows = torch.cat([obs.to(f32).reshape(n_envs, -1), moves.to(f32).reshape(n_envs, -1),
+                              rew.to(f32), obs2.to(f32).reshape(n_envs, -1)], dim=1)
+            # JAX's dynamic_update_slice clamps a start past cap - n_envs
+            start = min(buffer.ptr, buffer.data.shape[0] - n_envs)
+            buffer.data[start:start + n_envs] = rows
+            buffer = buffer._replace(ptr=(buffer.ptr + n_envs) % capacity,
+                                     size=min(buffer.size + n_envs, capacity))
+            fresh, fresh_obs = env.reset(n_envs, generator)
+            ep_done = done.all(-1)
+
+            def select(new, old):
+                return torch.where(ep_done.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+            return fresh.map(select, states2), select(fresh_obs, obs2), buffer, rew.mean()
+
+    def update_fn(params, targets, opt_states, buffer: Buffer, generator_or_seed,
+                  do_actor=True, indices=None):
+        if indices is not None:
+            indices = (indices if isinstance(indices, torch.Tensor)
+                       else np.asarray(indices)).reshape(1, -1)
+        rows = sample_rows(buffer, generator_or_seed, 1, batch, indices)[0][0]
+        grads, (closs, aloss, qmean) = maddpg_xla_grads(
+            params, targets, *buffer._split(rows.to(params["actor"]["l1"]["w"].dtype)), mw=mw,
+            cw=cw, gamma=gamma, ent_coef=ent_coef)
+        params, targets, opt_states = _apply_maddpg_update(
+            params, targets, opt_states, grads, do_actor, actor_opt=actor_opt,
+            critic_opt=critic_opt, tau_polyak=tau_polyak)
+        return params, targets, opt_states, {"critic_loss": closs, "actor_loss": aloss,
+                                             "q": qmean}
+
+    return reset_fn, collect_fn, update_fn, init_opt
+
+
 def _joint(obs_b, act_b):
     """[B, A, O], [B, A, K] -> [B, A*(O+K)]."""
     return torch.cat([obs_b.reshape(obs_b.shape[0], -1), act_b.reshape(act_b.shape[0], -1)],
@@ -250,12 +386,14 @@ def _target_actions(target_actor, obs2_b, mw: int, cw: int):
 
 
 def expected_q_actor_loss(actor_params, critic_params, obs_b, act_b, *, mw: int, cw: int,
-                          ent_coef: float):
+                          ent_coef: float, local_critic: bool = False):
     """The exact expected-Q actor objective (the loss kernel K9
     differentiates): each agent maximizes the expectation of its critic
     (held fixed) over its own discrete action set under its softmax policy,
     with the other agents' buffer actions fixed, plus the entropy bonus
-    ``-sum p log(p + 1e-10)``; averaged over the batch and the agents."""
+    ``-sum p log(p + 1e-10)``; averaged over the batch and the agents.
+    ``local_critic`` scores each candidate on the agent's own ``[obs_i |
+    cand]`` (independent DDPG)."""
     batch, a, aw = act_b.shape
     cand = _candidate_table(mw, cw, aw, act_b.dtype, act_b.device)
     n_cand = cand.shape[0]
@@ -266,9 +404,14 @@ def expected_q_actor_loss(actor_params, critic_params, obs_b, act_b, *, mw: int,
     total = 0.0
     for i in range(a):
         cp = tree_map(lambda x: x[i].detach(), critic_params)
-        mixed = act_b.expand((n_cand,) + act_b.shape).clone()        # [C, B, A, aw]
-        mixed[:, :, i, :] = cand[:, None, :]
-        q_all = critic_q_i(cp, torch.cat([obs_flat, mixed.reshape(n_cand, batch, -1)], dim=-1))
+        if local_critic:
+            joint = torch.cat([obs_b[:, i].expand(n_cand, batch, -1),
+                               cand[:, None, :].expand(n_cand, batch, aw)], dim=-1)
+        else:
+            mixed = act_b.expand((n_cand,) + act_b.shape).clone()    # [C, B, A, aw]
+            mixed[:, :, i, :] = cand[:, None, :]
+            joint = torch.cat([obs_flat, mixed.reshape(n_cand, batch, -1)], dim=-1)
+        q_all = critic_q_i(cp, joint)                               # [C, B]
         w = probs_m[:, i]
         if cw:
             w = (w[..., :, None] * probs_c[:, i][..., None, :]).reshape(batch, n_cand)
@@ -280,30 +423,52 @@ def expected_q_actor_loss(actor_params, critic_params, obs_b, act_b, *, mw: int,
     return total / a
 
 
+def _value_and_grad(loss_fn, tree):
+    """``jax.value_and_grad`` over a ``{layer: {w, b}}`` tree: ``loss_fn(
+    tree)`` -> (loss or (loss, aux), the gradient tree), detached."""
+    with torch.enable_grad():
+        leaves = tree_map(lambda x: x.detach().requires_grad_(True), tree)
+        out = loss_fn(leaves)
+        loss = out[0] if isinstance(out, tuple) else out
+        g = iter(torch.autograd.grad(loss, [leaves[k][w] for k in leaves for w in leaves[k]]))
+    grads = tree_map(lambda _: next(g), leaves)
+    if isinstance(out, tuple):
+        return tuple(x.detach() for x in out), grads
+    return out.detach(), grads
+
+
 def maddpg_xla_grads(params, targets, obs_b, act_b, rew_b, obs2_b, *, mw: int, cw: int,
-                     gamma: float, ent_coef: float):
+                     gamma: float, ent_coef: float, local_critic: bool = False):
     """The MADDPG gradient on a sampled batch by autograd (the port's
     counterpart of the JAX package's ``maddpg_xla_grads``, its ``"xla"``
     engine: ``jax.grad`` of the same losses): first-argmax target actions
     -> TD targets ``y = r + gamma Q'`` -> the critic's mean of ``(Q - y)^2``
     over [A, B] -> the exact expected-Q actor objective. Returns ``(grads,
     (critic_loss, actor_loss, q_mean))``; also kernel K9's library
-    yardstick."""
+    yardstick.
+
+    ``local_critic=True`` is independent DDPG: each critic sees only its
+    own ``[obs_i | act_i]`` (``[B, A, O+K]``), for the TD target and the
+    loss alike. With one agent the two are the same function."""
+    def q_of(critic_params, obs, act):
+        if local_critic:
+            return critic_q_own(critic_params, torch.cat([obs, act], dim=-1))
+        return critic_q(critic_params, _joint(obs, act))
+
     with torch.no_grad():
-        joint2 = _joint(obs2_b, _target_actions(targets["actor"], obs2_b, mw, cw))
-        y = rew_b.T + gamma * critic_q(targets["critic"], joint2)   # [A, B]
-    with torch.enable_grad():
-        cp = tree_map(lambda x: x.detach().requires_grad_(True), params["critic"])
-        q = critic_q(cp, _joint(obs_b, act_b))
-        closs = (q - y).square().mean()
-        cleaves = [cp[k][w] for k in cp for w in cp[k]]
-        cg = iter(torch.autograd.grad(closs, cleaves))
-        ap = tree_map(lambda x: x.detach().requires_grad_(True), params["actor"])
-        aloss = expected_q_actor_loss(ap, params["critic"], obs_b, act_b, mw=mw, cw=cw,
-                                      ent_coef=ent_coef)
-        ag = iter(torch.autograd.grad(aloss, [ap[k][w] for k in ap for w in ap[k]]))
-    grads = {"actor": tree_map(lambda _: next(ag), ap), "critic": tree_map(lambda _: next(cg), cp)}
-    return grads, (closs.detach(), aloss.detach(), q.detach().mean())
+        y = rew_b.T + gamma * q_of(targets["critic"], obs2_b,
+                                   _target_actions(targets["actor"], obs2_b, mw, cw))  # [A, B]
+
+    def critic_loss(cp):
+        q = q_of(cp, obs_b, act_b)
+        return (q - y).square().mean(), q.mean()
+
+    (closs, qmean), cgrads = _value_and_grad(critic_loss, params["critic"])
+    aloss, agrads = _value_and_grad(
+        lambda ap: expected_q_actor_loss(ap, params["critic"], obs_b, act_b, mw=mw, cw=cw,
+                                         ent_coef=ent_coef, local_critic=local_critic),
+        params["actor"])
+    return {"actor": agrads, "critic": cgrads}, (closs, aloss, qmean)
 
 
 def _dims(env):
@@ -317,14 +482,20 @@ def _dims(env):
 
 
 def _make_grads_fn(env, grad_engine: str, *, batch: int, gamma: float, ent_coef: float,
-                   hidden: int, device, dtype):
+                   hidden: int, device, dtype, local_critic: bool = False):
     """``grads_fn(params, targets, obs_b, act_b, rew_b, obs2_b)`` with
     ``grads_fn.from_rows(params, targets, rows_b)``: ``"kernel"`` is kernel
     K9 (``ops/fused_maddpg_update``; its plain version on the CPU),
-    ``"autograd"`` is ``maddpg_xla_grads``."""
+    ``"autograd"`` is ``maddpg_xla_grads``. ``local_critic`` (independent
+    DDPG) takes the autograd engine only: K9 is a centralized-critic
+    kernel."""
     from mpe_tpu_torch.ops.fused_maddpg_update import fused_maddpg_update
 
     _, obs_dim, aw, mw, cw = _dims(env)
+    if local_critic and grad_engine == "kernel":
+        raise ValueError("independent-DDPG critics (local_critic=True) need "
+                         "grad_engine='autograd': the MADDPG update kernel K9 is centralized-"
+                         "critic only")
     if grad_engine == "kernel":
         return fused_maddpg_update(env.n_agents, obs_dim, aw, mw, hidden=hidden, batch=batch,
                                    gamma=gamma, ent_coef=ent_coef, device=device, dtype=dtype)
@@ -332,7 +503,7 @@ def _make_grads_fn(env, grad_engine: str, *, batch: int, gamma: float, ent_coef:
         raise ValueError(f"grad_engine must be 'kernel' or 'autograd', got {grad_engine!r}")
     def grads_fn(params, targets, obs_b, act_b, rew_b, obs2_b):
         return maddpg_xla_grads(params, targets, obs_b, act_b, rew_b, obs2_b, mw=mw, cw=cw,
-                                gamma=gamma, ent_coef=ent_coef)
+                                gamma=gamma, ent_coef=ent_coef, local_critic=local_critic)
 
     grads_fn.from_rows = lambda params, targets, rows_b: grads_fn(
         params, targets, *_split_rows(rows_b, env.n_agents, obs_dim, aw))
@@ -353,19 +524,40 @@ def _flat(x):
     return {"flat": {"x": x}}
 
 
+def sample_rows(buffer: Buffer, key, n_updates: int, batch: int, indices=None):
+    """``n_updates`` replay batches gathered in one read -> (rows ``[n_updates,
+    batch, W]``, their indices): ``torch.randint`` rows in ``[0, max(size,
+    1))`` from ``key``, a generator on the ring's device or an int that
+    seeds one (JAX draws them by threefry from its key, which the port
+    cannot reproduce), or the given ``indices [n_updates, batch]`` (the
+    tests inject JAX's)."""
+    dev = buffer.data.device
+    if indices is None:
+        gen = (key if isinstance(key, torch.Generator)
+               else torch.Generator(device=dev).manual_seed(int(key)))
+        indices = torch.randint(0, max(buffer.size, 1), (n_updates, batch), generator=gen,
+                                device=dev)
+    elif not isinstance(indices, torch.Tensor):
+        indices = torch.tensor(np.asarray(indices), dtype=torch.int64)
+    indices = indices.to(dev)
+    if tuple(indices.shape) != (n_updates, batch):
+        raise ValueError(f"indices has shape {tuple(indices.shape)}, expected "
+                         f"{(n_updates, batch)}")
+    return buffer.data[indices.reshape(-1)].reshape(n_updates, batch, -1), indices
+
+
 def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float = 0.95,
                              tau_polyak: float = 0.05, actor_lr: float = 1e-3,
                              critic_lr: float = 1e-3, ent_coef: float = 0.01, hidden: int = 64,
-                             grad_engine: str = "kernel", device=None, dtype=torch.float32):
+                             grad_engine: str = "kernel", device=None, dtype=torch.float32,
+                             local_critic: bool = False):
     """``n_updates`` sequential updates per call, their replay batches
     gathered in one read: ``update_chunk(params, targets, opt_states,
     buffer, key, gates, indices=None) -> (params, targets, opt_states,
     metrics)``.
 
-    The batches are ``torch.randint`` rows in ``[0, max(size, 1))`` from a
-    generator on the device seeded with the int ``key`` (JAX draws them by
-    threefry from its key, which the port cannot reproduce); ``indices``
-    ``[n_updates, batch]`` replaces the draw (the tests inject JAX's).
+    The batches are ``sample_rows``: ``torch.randint`` rows from a generator
+    seeded with the int ``key``, or the given ``indices [n_updates, batch]``.
     ``gates`` is ``[n_updates]`` (each update's actor gate) or ``[n_updates,
     A]`` (per agent), host booleans. ``metrics`` holds the last update's
     ``critic_loss``, ``actor_loss`` and ``q``.
@@ -382,17 +574,23 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
     ``packed_step(state, buffer, key, gates, indices=None) -> (state,
     metrics)`` is the chunk on a packed state, ``actor_of(state)`` its
     actors as a tree; ``update_chunk.plain`` is the chunk in tree form with
-    kernel K9's plain version."""
+    kernel K9's plain version.
+
+    ``local_critic=True`` (independent DDPG; ``grad_engine="autograd"``
+    only, as in JAX) packs critics of the own ``obs+act`` input: the layout
+    takes the critic's input width, and K9 is never launched on it."""
     from mpe_tpu_torch.ops.fused_maddpg_update import (MaddpgUpdateLauncher, PackedLayout,
                                                        _net_buffer)
 
     device = resolve_device(device)
     actor_opt, critic_opt = adam(actor_lr), adam(critic_lr)
     grads_fn = _make_grads_fn(env, grad_engine, batch=batch, gamma=gamma, ent_coef=ent_coef,
-                              hidden=hidden, device=device, dtype=dtype)
+                              hidden=hidden, device=device, dtype=dtype,
+                              local_critic=local_critic)
     _, obs_dim, aw, mw, _ = _dims(env)
     a = env.n_agents
-    layout = PackedLayout(a, obs_dim, aw, hidden)
+    layout = PackedLayout(a, obs_dim, aw, hidden,
+                          critic_in=obs_dim + aw if local_critic else None)
     launcher = {}                                  # K9, built at the first packed update
 
     def chunk_rows(buffer, key, gates, indices):
@@ -401,18 +599,7 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
         if gates.shape[:1] != (n_updates,):
             raise ValueError(f"gates has shape {gates.shape}, expected ({n_updates},) or "
                              f"({n_updates}, A)")
-        dev = buffer.data.device
-        if indices is None:
-            gen = torch.Generator(device=dev).manual_seed(int(key))
-            indices = torch.randint(0, max(buffer.size, 1), (n_updates, batch), generator=gen,
-                                    device=dev)
-        elif not isinstance(indices, torch.Tensor):
-            indices = torch.tensor(np.asarray(indices), dtype=torch.int64)
-        indices = indices.to(dev)
-        if tuple(indices.shape) != (n_updates, batch):
-            raise ValueError(f"indices has shape {tuple(indices.shape)}, expected "
-                             f"{(n_updates, batch)}")
-        return buffer.data[indices.reshape(-1)].reshape(n_updates, batch, -1), gates
+        return sample_rows(buffer, key, n_updates, batch, indices)[0], gates
 
     def chunk_with(grads):
         def update_chunk(params, targets, opt_states, buffer: Buffer, key, gates, indices=None):

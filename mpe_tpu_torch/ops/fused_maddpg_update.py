@@ -248,12 +248,16 @@ class PackedLayout:
     and target critics, agent-major, each net in the kernel layout (w1 [out,
     in], b1, w2, b2, w3, b3) zero-padded to a 16-byte stride. The live nets
     (``[:off_ta]``) are also the layout of K9's gradient and of the packed
-    Adam moments, so that Adam and Polyak run on whole flat buffers."""
+    Adam moments, so that Adam and Polyak run on whole flat buffers.
+    ``critic_in`` is the critics' input width: the joint ``A*(O+K)`` by
+    default (K9's), ``O+K`` for independent-DDPG critics, which the update
+    chunk packs the same way and never hands to K9."""
 
-    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, hidden: int = DEFAULT_HIDDEN):
+    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, hidden: int = DEFAULT_HIDDEN,
+                 critic_in: int | None = None):
         a, h = n_agents, hidden
         self.a, self.o, self.k, self.hidden = a, obs_dim, act_dim, h
-        self.j = a * (obs_dim + act_dim)
+        self.j = a * (obs_dim + act_dim) if critic_in is None else critic_in
         self.nw = h * obs_dim + h + h * h + h + act_dim * h + act_dim
         self.nc = h * self.j + h + h * h + h + h + 1
         self.nwp, self.ncp = _round4(self.nw), _round4(self.nc)

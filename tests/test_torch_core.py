@@ -174,8 +174,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from mpe_tpu_torch import (MpeEnv, entry, fused_det_rollout, fused_spread_rollout, make_env,
                                registry)
     from mpe_tpu_torch.envs import MultiAgentEnv, VecMultiAgentEnv, aec_env, parallel_env
-    from mpe_tpu_torch.learner import (build_es_step, build_mappo_step, build_ppo_step,
-                                       build_train_step, init_policy)
+    from mpe_tpu_torch.learner import (build_approx_runner, build_ensemble_runner, build_es_step,
+                                       build_fused_maddpg_runner, build_maddpg, build_mappo_step,
+                                       build_ppo_step, build_train_step, init_policy)
     from mpe_tpu_torch.learner.eval import greedy_state_rollout
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
@@ -197,7 +198,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: build_ppo_step(MpeEnv(scn, device=None), 4),
                  lambda: build_mappo_step(MpeEnv(scn, device=None), 4),
                  lambda: build_es_step(kscn, policy, 64, 20, 10, 8, 0.1, 0.1, device=None),
-                 lambda: greedy_state_rollout(scn, None)):
+                 lambda: greedy_state_rollout(scn, None),
+                 lambda: build_maddpg(MpeEnv(scn, max_steps=25, auto_reset=True, device=None),
+                                      capacity=64),
+                 lambda: build_fused_maddpg_runner("simple_spread", local_critic=True),
+                 lambda: build_ensemble_runner("simple_tag", 3),
+                 lambda: build_approx_runner("simple_spread")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

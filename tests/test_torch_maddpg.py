@@ -359,8 +359,6 @@ def test_run_fused_maddpg_is_the_runner(one_chunk):
 
 
 def test_runner_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="local_critic"):
-        fused_loop.build_fused_maddpg_runner("simple_spread", local_critic=True, device="cpu")
     with pytest.raises(ValueError, match="actor_period"):
         fused_loop.build_fused_maddpg_runner("simple_spread", actor_period=(1, 2), device="cpu")
     if not torch.cuda.is_available():

@@ -19,15 +19,17 @@ HIDDEN, BATCH, CAP, N_UPDATES = 16, 32, 256, 5
 GATES = np.array([[1, 1, 1], [0, 0, 0], [1, 0, 0], [0, 1, 1], [1, 1, 1]], dtype=bool)
 
 
-def _setup(name: str, dtype):
+def _setup(name: str, dtype, local_critic: bool = False):
     env = MpeEnv(scenarios.load(name), max_steps=25, auto_reset=True, device="cpu")
     _, obs_dim, aw, _, _ = tm._dims(env)
     a = env.n_agents
     chunk = tm.build_fused_update_chunk(env, N_UPDATES, batch=BATCH, tau_polyak=0.03,
                                         actor_lr=1e-3, critic_lr=2e-3, hidden=HIDDEN,
-                                        device="cpu", dtype=dtype)
+                                        device="cpu", dtype=dtype,
+                                        grad_engine="autograd" if local_critic else "kernel",
+                                        local_critic=local_critic)
     params = tm.init_maddpg(torch.Generator().manual_seed(1), obs_dim, aw, a, hidden=HIDDEN,
-                            dtype=dtype)
+                            dtype=dtype, local_critic=local_critic)
     params["actor"]["out"]["w"] = params["actor"]["out"]["w"] * 100.0     # O(1) logits
     gen = torch.Generator().manual_seed(2)
     targets = tm._tree3(lambda x: x + 0.1 * torch.randn(x.shape, generator=gen, dtype=dtype),
@@ -57,7 +59,20 @@ def test_packed_chunk_equals_tree_chunk(name, dtype):
     """Two chunks of five updates with per-agent gates (two agents of
     simple_speaker_listener take the first two columns): the packed chunk
     equals the tree chunk bit for bit."""
-    env, chunk, params, targets, buffer = _setup(name, dtype)
+    _check_packed_chunk(name, dtype, local_critic=False)
+
+
+@pytest.mark.parametrize("name", ["simple_spread", "simple_speaker_listener"])
+def test_local_critic_packed_chunk_equals_tree_chunk(name):
+    """The same on independent-DDPG critics (``[obs_i | act_i]`` inputs,
+    the autograd engine): the layout takes the critics' input width."""
+    _check_packed_chunk(name, torch.float32, local_critic=True)
+
+
+def _check_packed_chunk(name, dtype, local_critic):
+    env, chunk, params, targets, buffer = _setup(name, dtype, local_critic)
+    if local_critic:
+        assert chunk.layout.j == chunk.layout.o + chunk.layout.k
     gates = GATES[:, :env.n_agents]
     state_p = state_t = (params, targets, chunk.init_opt(params))
     for key in (4, 5):
@@ -78,7 +93,16 @@ def test_pack_unpack_round_trip():
     """``unpack_state(pack_state(s))`` returns ``s`` exactly, as new tensors
     (the chunk updates the packed buffer in place); ``actor_of`` is the
     actors; the buffer's padding is zero."""
-    _, chunk, params, targets, _ = _setup("simple_world_comm", torch.float32)
+    _check_round_trip(local_critic=False)
+
+
+def test_local_critic_pack_unpack_round_trip():
+    """The same on independent-DDPG critics."""
+    _check_round_trip(local_critic=True)
+
+
+def _check_round_trip(local_critic):
+    _, chunk, params, targets, _ = _setup("simple_world_comm", torch.float32, local_critic)
     gen = torch.Generator().manual_seed(4)
     opt = chunk.init_opt(params)
     opt = {n: st._replace(count=3, mu=tm.tree_map(lambda x: torch.randn(x.shape, generator=gen),
