@@ -10,7 +10,7 @@ failure ends the run with a non-zero exit code:
      kernel build time (every source at hidden width 64 and the MLP sources
      of K4-K9 also at 8, 16 and 32, one nvcc each, all at once) and the
      compiler's register report;
-  2. twelve main paths, each with every kernel's launch count set to 0 just
+  2. thirteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -113,6 +113,35 @@ failure ends the run with a non-zero exit code:
           then greedy_state_rollout (128 envs x 25 steps) of the trained
           actor, of uniform-random moves and of the committed JAX
           checkpoint: the trained actor must score above random;
+       h. the multi-device path (torch.distributed) and checkpoint/trace, run
+          last, after phase 3b (it starts a process group and launches ranks;
+          the profiler passes of phase 4 run before it), each phase with the
+          counts zeroed before and read after: h1 one rank on
+          nccl in this process: one data-parallel iteration of
+          build_fused_ppo_step(mesh=) at path b's width (K5, K6) and two
+          chunks of build_fused_maddpg_dp at path d's row (1024 envs, batch
+          1024, the 1,638,400-row ring; K8, K9), each equal bit for bit to the
+          non-DP builder on the same inputs, and NCCL's all_reduce of both
+          gradients timed; h2 two ranks launched as processes, over the
+          backend init_multihost picks (gloo on one card: NCCL refuses two
+          ranks on one device, so the times are the mechanism's cost, not
+          scale-out), loading the kernels built
+          here (the build directory must not change): sharded_fused_rollout
+          at path a's 4096 envs x 10000 steps, K5 at path b's width at the
+          ranks' block offsets and sharded_fused_maddpg_trajectory at path d's
+          row, each gathered equal bit for bit to one process; the DP PPO and
+          MAPPO trainers for 5 iterations and DP MADDPG for 8 chunks (each
+          rank a half of the envs and of the ring), params equal across the
+          ranks and to one-process twins (both halves collected, their
+          gradients averaged); per rank the launches by kernel, ms per DP
+          step beside one process at the same total width (paths b, b2, d),
+          the all_reduce ms of each gradient and the backend; h3 a fused
+          MADDPG train state (a ring of 4 chunks) saved mid-run with
+          utils.save_train_state, loaded into a fresh template and continued
+          for two chunks bit for bit, then utils.trace over one K2 call in a
+          step_phase, in a launched rank (a fresh process: in this one the
+          earlier profiler passes leave K2 out of the trace): the mpe/ range
+          and K2's kernel in the written trace, and K2's device time;
   3. every kernel held against its plain PyTorch version on the card: ES
      generation 0's member scores (K4) against the plain K4's within 1e-5,
      and one ES generation under torch.profiler (K4's device time and the
@@ -197,7 +226,9 @@ failure ends the run with a non-zero exit code:
      times at every G and its registers by G; K4-K9 their errors at the
      hidden widths and their registers at each width; K8 path g's figures
      by phase, its launches there by scenario and the sub-sliced gate's
-     error, K9 its launches in each phase of path g), the
+     error, K9 its launches in each phase of path g; every row its launches
+     in path h by phase and rank, K6, K7 and K9 the DP step's ms and their
+     gradient's all_reduce ms there), the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -213,6 +244,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -331,6 +363,22 @@ G4_COLLECTS, G4_UPDATES = 100, 50
 G5 = dict(n_envs=64, horizon=25, batch=1024, tau=0.01, lr=1e-3)
 G5_UPDATES, G5_ACTOR_START = 24_000, 1000
 G5_JAX_GREEDY = -6.138
+# path h: the multi-device path (torch.distributed) and checkpoint/resume with
+# the profiling hooks. h1 one rank on nccl in this process, DP PPO at path b's
+# width (one iteration) and DP MADDPG at path d's row (H1_CHUNKS chunks); h2
+# H_RANKS ranks (over gloo where they share one card, nccl where each has its
+# own, as init_multihost picks): K2, K5 and K8 sharded at paths a, b
+# and d's widths, DP PPO and MAPPO for H_PPO_ITERS iterations, DP MADDPG for
+# H2_CHUNKS chunks on path d's 1,638,400-row ring (1024 envs x 25 steps x 64
+# chunks) split over the ranks; h3 a train state of a ring of H3_RING_CHUNKS
+# chunks saved and resumed, and a trace of one K2 call in a launched rank
+H_RANKS, H_PPO_ITERS, H1_CHUNKS, H2_CHUNKS, H3_RING_CHUNKS = 2, 5, 2, 8, 4
+H_CAP_CHUNKS = 64
+# the RNG block of path h's MADDPG: a rank's share of path d's envs, so that
+# the sharded collection draws the single-device run's streams (a rank's
+# lanes must fill whole blocks of the single run's size)
+H_MADDPG_BLOCK = MADDPG["n_envs"] // H_RANKS
+H2_TIMEOUT, H3_TIMEOUT = 300, 120
 
 # Kernel against plain version on the card, 20 steps. The library is built
 # with -fmad=false, so the dynamics round op for op as PyTorch's
@@ -2616,6 +2664,505 @@ def maddpg_learns_phase(wrappers) -> dict:
             "first_block_reward": blocks[0][1], "last_block_reward": blocks[-1][1]}
 
 
+# ---- path h: multi-device (torch.distributed) and checkpoint/trace ----------
+
+def kernel_wrappers() -> dict:
+    """The nine kernels' wrappers, whose counters the paths read."""
+    from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
+    from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda
+    from mpe_tpu_torch.ops.fused_parity import det_rollout_cuda
+    from mpe_tpu_torch.ops.fused_policy import policy_rollout_cuda, policy_traj_cuda
+    from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
+    from mpe_tpu_torch.ops.fused_trajectory import trajectory_cuda
+    from mpe_tpu_torch.ops.fused_update import mappo_update_cuda, ppo_update_cuda
+
+    return {"scenario_rollout_kernel": rollout_cuda, "trajectory_kernel": trajectory_cuda,
+            "det_rollout_kernel": det_rollout_cuda, "policy_traj_kernel": policy_traj_cuda,
+            "policy_rollout_kernel": policy_rollout_cuda, "ppo_update_kernel": ppo_update_cuda,
+            "mappo_update_kernel": mappo_update_cuda, "maddpg_traj_kernel": maddpg_traj_cuda,
+            "maddpg_update_kernel": maddpg_update_cuda}
+
+
+def h_maddpg_init(seed: int = 0):
+    """(env, params, targets) of path h's MADDPG on simple_spread, hidden 64."""
+    import torch
+
+    from mpe_tpu_torch import scenarios
+    from mpe_tpu_torch.envs.functional import MpeEnv
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+
+    env = MpeEnv(scenarios.load("simple_spread"), max_steps=MADDPG["horizon"], auto_reset=True)
+    params = init_maddpg(torch.Generator().manual_seed(seed), env.scenario.obs_width, 5,
+                         env.n_agents, hidden=TRAIN["hidden"])
+    params = {n: {k: {q: v.cuda() for q, v in l.items()} for k, l in t.items()}
+              for n, t in params.items()}
+    targets = {n: {k: {q: v.clone() for q, v in l.items()} for k, l in t.items()}
+               for n, t in params.items()}
+    return env, params, targets
+
+
+def flat_leaves(tree) -> list:
+    """The tensors of a nested dict in sorted-key order."""
+    return [x for k in sorted(tree) for x in (flat_leaves(tree[k]) if isinstance(tree[k], dict)
+                                              else [tree[k]])]
+
+
+def trees_equal(label: str, got, want) -> float:
+    """Largest abs difference of two trees' leaves; prints whether they are
+    equal bit for bit."""
+    import torch
+
+    a, b = flat_leaves(got), flat_leaves(want)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    err = max(max_err(x, y) for x, y in zip(a, b))
+    print(f"{label}: {'equal bit for bit' if same else f'max abs difference {err:.3g}'}")
+    return 0.0 if same else err
+
+
+def all_reduce_ms(mesh, numel: int, repeats: int = 50) -> float:
+    """Host-clock ms of one ``mesh.mean_`` of ``numel`` floats on the card,
+    the device synchronized before and after the run of ``repeats``."""
+    import torch
+
+    x = torch.ones(numel, device=mesh.device)
+    reduces = mesh.reduces
+    mesh.mean_([x])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        mesh.mean_([x])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / repeats
+    mesh.reduces = reduces                      # the timing is no update
+    return ms
+
+
+def numel(tree) -> int:
+    return sum(x.numel() for x in flat_leaves(tree))
+
+
+def multidevice_h1(wrappers) -> dict:
+    """Path h1: one rank on nccl in this process (the production backend at
+    world size 1): one data-parallel PPO iteration at path b's width and two
+    data-parallel MADDPG chunks at path d's row, each equal to its non-DP
+    builder bit for bit; NCCL's all_reduce timed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mpe_tpu_torch.learner import (build_fused_collect, build_fused_maddpg_dp,
+                                       build_fused_ppo_step, build_fused_update_chunk,
+                                       init_buffer)
+    from mpe_tpu_torch.parallel.mesh import init_multihost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_multihost(init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            assert mesh.backend == "nccl", mesh
+            env, md, targets = h_maddpg_init()
+            kw = dict(horizon=MADDPG["horizon"], batch=MADDPG["batch"], cap_chunks=H_CAP_CHUNKS,
+                      block_envs=H_MADDPG_BLOCK)
+            zero_launches(wrappers)
+            dp = build_fused_ppo_step("simple_spread", mesh=mesh, **TRAIN)
+            params = dp.init_params(torch.Generator().manual_seed(5))
+            (p_dp, _), m_dp = dp(dp.init_state(params), 0)
+            dpm = build_fused_maddpg_dp(env, MADDPG["n_envs"], mesh=mesh, **kw)
+            state = (md, targets, dpm.init_opt(md), dpm.init_buffer())
+            for seed in range(H1_CHUNKS):
+                state, mm_dp = dpm(state, seed)
+            torch.cuda.synchronize()
+            launches = read_launches(wrappers, ["policy_traj_kernel", "ppo_update_kernel",
+                                                "maddpg_traj_kernel", "maddpg_update_kernel"],
+                                     "path h1 (nccl, one rank)")
+            reduces = mesh.reduces
+            # the non-DP builders on the same inputs
+            single = build_fused_ppo_step("simple_spread", **TRAIN)
+            (p1, _), m1 = single(single.init_state(params), 0)
+            errs = {"ppo_params": trees_equal("h1 DP PPO params against the non-DP step", p_dp,
+                                              p1),
+                    "ppo_metrics": trees_equal("h1 DP PPO metrics", m_dp, m1)}
+            collect = build_fused_collect(env, MADDPG["n_envs"], MADDPG["horizon"],
+                                          block_envs=H_MADDPG_BLOCK)
+            chunk = build_fused_update_chunk(env, MADDPG["horizon"], batch=MADDPG["batch"])
+            buffer = init_buffer(H_CAP_CHUNKS * MADDPG["horizon"] * MADDPG["n_envs"],
+                                 env.n_agents, env.scenario.obs_width, 5)
+            p, t, o = md, targets, chunk.init_opt(md)
+            for seed in range(H1_CHUNKS):
+                buffer, _ = collect(p["actor"], buffer, seed)
+                p, t, o, m = chunk(p, t, o, buffer, seed, np.ones(MADDPG["horizon"], bool))
+            errs["maddpg_params"] = trees_equal("h1 DP MADDPG params against the non-DP chunk",
+                                                state[0], p)
+            errs["maddpg_targets"] = trees_equal("h1 DP MADDPG targets", state[1], t)
+            errs["maddpg_critic_loss"] = max_err(mm_dp["critic_loss"], m["critic_loss"])
+            errs["maddpg_ring"] = max_err(state[3].data, buffer.data)
+            del state, buffer
+            ar = {"ppo_gradient": all_reduce_ms(mesh, numel(params)),
+                  "maddpg_gradient": all_reduce_ms(mesh, dpm.update_chunk.layout.off_ta)}
+        finally:
+            dist.destroy_process_group()
+    print(f"h1 all_reduce on nccl, one rank: {ar['ppo_gradient']:.4f} ms for the PPO gradient "
+          f"({numel(params)} floats), {ar['maddpg_gradient']:.4f} ms for the "
+          f"MADDPG packed gradient ({dpm.update_chunk.layout.off_ta} floats); {reduces} reduces "
+          f"in the DP steps")
+    bad = {k: v for k, v in errs.items() if v != 0.0}
+    assert not bad, f"path h1: the DP steps differ from the non-DP builders: {bad}"
+    return {"launches": launches, "all_reduce_ms": ar, "backend": "nccl", "reduces": reduces}
+
+
+def h2_rank(mesh, out_dir: str) -> None:
+    """One of path h2's ranks (launched by ``multidevice_h2``): the sharded
+    kernels and the data-parallel trainers at full width, on the rank's card.
+    Writes ``h2_rank<r>.json``."""
+    import torch
+
+    from mpe_tpu_torch.learner import (build_fused_maddpg_dp, build_fused_mappo_step,
+                                       build_fused_ppo_step, init_policy)
+    from mpe_tpu_torch.learner.maddpg import collect_t_chunk
+    from mpe_tpu_torch.ops.fused_maddpg import (fused_maddpg_trajectory,
+                                                sharded_fused_maddpg_trajectory)
+    from mpe_tpu_torch.ops.fused_policy import fused_policy_trajectory
+    from mpe_tpu_torch.ops.fused_rollout import fused_rollout, sharded_fused_rollout
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    wrappers = kernel_wrappers()
+    kscn = kernel_scenario("simple_spread")
+    to_cuda = lambda tree: {k: {q: v.cuda() for q, v in l.items()} for k, l in tree.items()}
+    actor = to_cuda(init_policy(torch.Generator().manual_seed(2), kscn.obs_w, 5,
+                                hidden=TRAIN["hidden"]))
+    env, md, targets = h_maddpg_init()
+    kw_md = dict(horizon=MADDPG["horizon"], batch=MADDPG["batch"], cap_chunks=H_CAP_CHUNKS,
+                 block_envs=H_MADDPG_BLOCK)
+    t_chunk = collect_t_chunk(MADDPG["horizon"])
+    zero_launches(wrappers)
+    t_path = time.perf_counter()
+    # the main path: the sharded kernels, then the DP trainers
+    k2 = sharded_fused_rollout("simple_spread", N_ENVS, N_STEPS, mesh=mesh, horizon=HORIZON,
+                               block_envs=BLOCK_ENVS)(1)
+    local, block, offset = mesh.shard_envs(TRAIN["n_envs"], TRAIN["block_envs"])
+    k5 = fused_policy_trajectory(kscn, actor, local, TRAIN["n_steps"], horizon=TRAIN["horizon"],
+                                 block_envs=block, t_chunk=TRAIN["t_chunk"])(3, actor, offset)
+    k8 = sharded_fused_maddpg_trajectory(kscn, md["actor"], MADDPG["n_envs"], MADDPG["horizon"],
+                                         mesh=mesh, horizon=MADDPG["horizon"],
+                                         block_envs=H_MADDPG_BLOCK, t_chunk=t_chunk,
+                                         emit_rows=True)(2, md["actor"])
+    step_ms, states = {}, {}
+    for kind, build in (("PPO", build_fused_ppo_step), ("MAPPO", build_fused_mappo_step)):
+        step = build("simple_spread", mesh=mesh, **TRAIN)
+        state = step.init_state(step.init_params(torch.Generator().manual_seed(5)))
+        times = []
+        for it in range(H_PPO_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, it)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        assert all(bool(torch.isfinite(v)) for v in metrics.values()), (kind, metrics)
+        states[kind] = state
+        step_ms[kind] = statistics.mean(times[1:])
+    dp = build_fused_maddpg_dp(env, MADDPG["n_envs"], mesh=mesh, **kw_md)
+    dstate = (md, targets, dp.init_opt(md), dp.init_buffer())
+    times = []
+    for seed in range(H2_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dstate, dmetrics = dp(dstate, seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    assert all(bool(torch.isfinite(v)) for v in dmetrics.values()), dmetrics
+    step_ms["MADDPG"] = statistics.mean(times[1:])
+    path_s = time.perf_counter() - t_path
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    for k in ("scenario_rollout_kernel", "policy_traj_kernel", "ppo_update_kernel",
+              "mappo_update_kernel", "maddpg_traj_kernel", "maddpg_update_kernel"):
+        assert launches.get(k, 0) > 0, f"path h2 rank {mesh.rank}: {k} never launched"
+    reduces = mesh.reduces
+    ar = {"ppo_gradient": all_reduce_ms(mesh, numel(states["PPO"][0])),
+          "mappo_gradient": all_reduce_ms(mesh, numel(states["MAPPO"][0])),
+          "maddpg_gradient": all_reduce_ms(mesh, dp.update_chunk.layout.off_ta)}
+    # the checks: every rank's params the same, the gathered shards equal to
+    # the one-process runs, the DP steps equal to one-process twins
+    errs = {}
+    for kind in ("PPO", "MAPPO"):
+        flat = torch.cat([x.reshape(1, -1) for x in flat_leaves(states[kind][0])], 1)
+        every = mesh.gather(flat, axis=0)
+        errs[f"{kind}_across_ranks"] = max_err(every[0], every[1])
+    flat = torch.cat([x.reshape(1, -1) for x in flat_leaves(dstate[0])], 1)
+    every = mesh.gather(flat, axis=0)
+    errs["MADDPG_across_ranks"] = max_err(every[0], every[1])
+    # the env axis is the last of K2's and K5's outputs, axis 1 of K8's rows
+    gathered = {"K2": tuple(mesh.gather(x, axis=-1) for x in k2),
+                "K5": tuple(mesh.gather(x, axis=-1) for x in k5),
+                "K8": mesh.gather(k8, axis=1)}
+    if mesh.rank == 0:
+        same_bits("h2 K2 gathered over 2 ranks against one process", gathered["K2"],
+                  fused_rollout("simple_spread", N_ENVS, N_STEPS, horizon=HORIZON,
+                                block_envs=BLOCK_ENVS)(1))
+        same_bits("h2 K5 gathered over 2 ranks against one process", gathered["K5"],
+                  fused_policy_trajectory(kscn, actor, TRAIN["n_envs"], TRAIN["n_steps"],
+                                          horizon=TRAIN["horizon"],
+                                          block_envs=TRAIN["block_envs"],
+                                          t_chunk=TRAIN["t_chunk"])(3, actor))
+        same_bits("h2 K8 rows gathered over 2 ranks against one process", gathered["K8"],
+                  fused_maddpg_trajectory(kscn, md["actor"], MADDPG["n_envs"],
+                                          MADDPG["horizon"], horizon=MADDPG["horizon"],
+                                          block_envs=H_MADDPG_BLOCK, t_chunk=t_chunk,
+                                          emit_rows=True)(2, md["actor"]))
+        for kind in ("PPO", "MAPPO"):
+            errs[f"{kind}_vs_twin"] = trees_equal(
+                f"h2 DP {kind} params after {H_PPO_ITERS} iterations against the one-process "
+                "twin", states[kind][0], ppo_twin(kind, mesh.device))
+        errs["MADDPG_vs_twin"] = trees_equal(
+            f"h2 DP MADDPG params after {H2_CHUNKS} chunks against the one-process twin",
+            dstate[0], maddpg_twin(kw_md, mesh.device))
+    with open(f"{out_dir}/h2_rank{mesh.rank}.json", "w") as f:
+        json.dump({"rank": mesh.rank, "backend": mesh.backend, "launches": launches,
+                   "step_ms": step_ms, "all_reduce_ms": ar, "reduces": reduces,
+                   "path_s": path_s, "errors": errs}, f)
+
+
+def ppo_twin(kind: str, device):
+    """Path h2's DP PPO (MAPPO) in one process: both halves collected at
+    their block offsets, each epoch's K6 (K7) gradients averaged into the
+    first half's storage, as the ranks' in-place all_reduce leaves them."""
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.learner.optim import apply_updates, tree_map
+    from mpe_tpu_torch.parallel.mesh import EnvMesh
+
+    build = build_fused_ppo_step if kind == "PPO" else build_fused_mappo_step
+    steps = [build("simple_spread", mesh=EnvMesh(r, 2, device), **TRAIN) for r in (0, 1)]
+    params = steps[0].init_params(torch.Generator().manual_seed(5))
+    opt_state = steps[0].opt.init(params)
+    with torch.no_grad():
+        for it in range(H_PPO_ITERS):
+            batches = [s.collect(params, it) for s in steps]
+            for _ in range(TRAIN["ppo_epochs"]):
+                grads = [s.update(params, obs, mv, cm, lp, adv_n, ret, value)[0]
+                         for s, (obs, mv, cm, lp, value, adv_n, ret) in zip(steps, batches)]
+                g = tree_map(lambda a, b: a.copy_((a + b) / 2), *grads)
+                updates, opt_state = steps[0].opt.update(g, opt_state)
+                params = apply_updates(params, updates)
+    return params
+
+
+def maddpg_twin(kw_md: dict, device):
+    """Path h2's DP MADDPG in one process: both halves' rings filled at
+    their block offsets and drawn with each rank's key, each update's K9
+    gradients (from trees) averaged, then Adam and Polyak on the trees."""
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_maddpg_dp
+    from mpe_tpu_torch.learner.maddpg import _apply_maddpg_update, sample_rows
+    from mpe_tpu_torch.learner.optim import adam, tree_map
+    from mpe_tpu_torch.parallel.mesh import EnvMesh, fold_host_key
+
+    env, params, targets = h_maddpg_init()
+    dps = [build_fused_maddpg_dp(env, MADDPG["n_envs"], mesh=EnvMesh(r, 2, device), **kw_md)
+           for r in (0, 1)]
+    grads_fn = dps[0].update_chunk.grads_fn
+    opt = dps[0].init_opt(params)
+    rings = [d.init_buffer() for d in dps]
+    n_up = dps[0].updates_per_chunk
+    with torch.no_grad():
+        for seed in range(H2_CHUNKS):
+            rows = []
+            for r, d in enumerate(dps):
+                rings[r], _ = d.collect(params["actor"], rings[r], seed)
+                rows.append(sample_rows(rings[r], fold_host_key(seed, r), n_up,
+                                        MADDPG["batch"])[0])
+            for u in range(n_up):
+                gs = [grads_fn.from_rows(params, targets, rows[r][u])[0] for r in (0, 1)]
+                g = {net: tree_map(lambda a, b: (a + b) / 2, gs[0][net], gs[1][net])
+                     for net in gs[0]}
+                params, targets, opt = _apply_maddpg_update(
+                    params, targets, opt, g, True, actor_opt=adam(1e-3), critic_opt=adam(1e-3),
+                    tau_polyak=0.05)
+    return params
+
+
+def multidevice_h2(wrappers, one_process_ms: dict, card: str) -> dict:
+    """Path h2: ``H_RANKS`` ranks on the backend ``init_multihost`` picks for
+    the cards visible (gloo on one card: NCCL refuses two ranks on one
+    device), launched as processes that load the kernels built here (the
+    build directory must not change). Each rank's launches, ms per DP step,
+    all_reduce ms and backend; every check of ``h2_rank`` passes on rank 0."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.parallel.launch import launch
+    from mpe_tpu_torch.parallel.mesh import pick_backend
+
+    backend = pick_backend("cuda", H_RANKS)
+    shared = H_RANKS > torch.cuda.device_count()
+
+    built = sorted(p.name for p in Path(_build.BUILD_DIR).glob("*.so"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = launch(f"{os.path.abspath(__file__)}:h2_rank", H_RANKS, tmp, timeout=H2_TIMEOUT)
+        wall_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(f"{tmp}/h2_rank{r}.json").read_text()) for r in range(H_RANKS)]
+    for out in outs:
+        for line in out.splitlines():
+            print(f"  {line}")
+    assert sorted(p.name for p in Path(_build.BUILD_DIR).glob("*.so")) == built, \
+        "the ranks built kernels of their own"
+    for r in ranks:
+        assert r["backend"] == backend, (r["backend"], backend)
+        print(f"h2 rank {r['rank']} of {H_RANKS} ({backend}"
+              + (", the ranks sharing one card: the mechanism's cost, not scale-out" if shared
+                 else ", a card each") + f"): launches {r['launches']}; ms per DP step "
+              + ", ".join(f"{k} {v:.3f} (one process at the same total width: "
+                          f"{one_process_ms[k]:.3f})" for k, v in r["step_ms"].items())
+              + "; all_reduce ms "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["all_reduce_ms"].items())
+              + f"; {r['reduces']} reduces; the path {r['path_s']:.1f} s; {card}")
+    errs = ranks[0]["errors"]
+    print("h2 errors: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    exact = {k: v for k, v in errs.items() if not k.endswith("_vs_twin")}
+    assert all(v == 0.0 for v in exact.values()), f"path h2: shards or ranks differ: {exact}"
+    twins = {k: v for k, v in errs.items() if k.endswith("_vs_twin")}
+    assert all(v <= 1e-6 for v in twins.values()), f"path h2: DP steps off their twins: {twins}"
+    print(f"path h2: {H_RANKS} ranks in {wall_s:.1f} s with their start-up")
+    return {"ranks": ranks, "seconds": wall_s}
+
+
+def checkpoint_trace_h3(wrappers) -> dict:
+    """Path h3: a fused MADDPG train state (params, targets, Adam states, the
+    ring) saved mid-run, loaded into a fresh template and continued bit for
+    bit; then ``utils.trace`` over one K2 call in a ``step_phase``, in a
+    launched rank (``h3_trace_rank``): the ``mpe/`` range and K2's kernel
+    must be in the written trace."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from mpe_tpu_torch.learner import build_fused_collect, build_fused_update_chunk, init_buffer
+    from mpe_tpu_torch.parallel.launch import launch
+    from mpe_tpu_torch.utils import load_train_state, save_train_state
+
+    gates = np.ones(MADDPG["horizon"], bool)
+    env, md, targets = h_maddpg_init()
+    collect = build_fused_collect(env, MADDPG["n_envs"], MADDPG["horizon"])
+    chunk = build_fused_update_chunk(env, MADDPG["horizon"], batch=MADDPG["batch"])
+    cap = H3_RING_CHUNKS * collect.rows_per_chunk
+
+    def fresh(seed):
+        _, p, t = h_maddpg_init(seed)
+        return {"params": p, "targets": t, "opt_states": chunk.init_opt(p),
+                "buffer": init_buffer(cap, env.n_agents, env.scenario.obs_width, 5)}
+
+    def iterate(s, seed):
+        buffer, _ = collect(s["params"]["actor"], s["buffer"], seed)
+        p, t, o, m = chunk(s["params"], s["targets"], s["opt_states"], buffer, 100 + seed, gates)
+        return {"params": p, "targets": t, "opt_states": o, "buffer": buffer}, m
+
+    zero_launches(wrappers)
+    state = fresh(0)
+    for seed in range(2):
+        state, _ = iterate(state, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_train_state(f"{tmp}/maddpg", state, step=2)
+        save_s = time.perf_counter() - t0
+        run_a, ms_a = state, []
+        for seed in range(2, 4):
+            run_a, m = iterate(run_a, seed)
+            ms_a.append(float(m["critic_loss"]))
+        t0 = time.perf_counter()
+        run_b, step, _ = load_train_state(f"{tmp}/maddpg", fresh(7))
+        load_s = time.perf_counter() - t0
+        size_mb = Path(f"{tmp}/maddpg.npz").stat().st_size / 1e6
+    ms_b = []
+    for seed in range(2, 4):
+        run_b, m = iterate(run_b, seed)
+        ms_b.append(float(m["critic_loss"]))
+    launches = read_launches(wrappers, ["maddpg_traj_kernel", "maddpg_update_kernel"],
+                             "path h3 (checkpoint and resume)")
+    assert step == 2 and ms_a == ms_b, (step, ms_a, ms_b)
+    err = trees_equal("h3 resumed MADDPG params", run_a["params"], run_b["params"])
+    err = max(err, trees_equal("h3 resumed targets", run_a["targets"], run_b["targets"]))
+    err = max(err, max_err(run_a["buffer"].data, run_b["buffer"].data))
+    assert err == 0.0, f"path h3: the resumed run differs ({err})"
+    print(f"h3 checkpoint of {size_mb:.1f} MB ({cap} ring rows): saved in {save_s:.2f} s, "
+          f"loaded in {load_s:.2f} s; two chunks after it equal bit for bit")
+    del run_a, run_b, state
+    with tempfile.TemporaryDirectory() as tmp:
+        launch(f"{os.path.abspath(__file__)}:h3_trace_rank", 1, tmp, timeout=H3_TIMEOUT)
+        tr = json.loads(Path(f"{tmp}/h3_trace.json").read_text())
+    launches["scenario_rollout_kernel"] = tr["launches"]
+    print(f"path h3 (trace, a launched rank) launches: {{'scenario_rollout_kernel': "
+          f"{tr['launches']}}}; the trace ({tr['trace_kb']:.1f} kB): mpe/fused_rollout in the "
+          f"profiler's events {tr['range_in_events']}, in the file {tr['range_in_file']}; "
+          f"K2's kernel in the file {tr['k2_in_file']}, {tr['k2_device_ms']:.4f} ms on the "
+          f"device; the range {tr['range_host_ms']:.3f} ms (host)")
+    assert tr["launches"] > 0, "path h3 (trace): K2 was never launched"
+    assert tr["range_in_events"] and tr["range_in_file"], "path h3: no mpe/ range in the trace"
+    assert tr["k2_in_file"] and tr["k2_device_ms"] > 0, "path h3: K2's kernel is not in the trace"
+    return {"launches": launches, "checkpoint_mb": size_mb, "save_s": save_s, "load_s": load_s,
+            "k2_device_ms": tr["k2_device_ms"]}
+
+
+def h3_trace_rank(mesh, out_dir: str) -> None:
+    """Path h3's trace (launched by ``checkpoint_trace_h3`` as one rank, a
+    fresh process): ``utils.trace`` over one K2 call in a ``step_phase``,
+    after a warm call. In the script's own process, after the earlier
+    paths' profiler passes, torch.profiler kept no device record of K2, and
+    none of most K3 calls; a fresh process keeps them. Writes
+    ``h3_trace.json``."""
+    import tempfile
+
+    import torch
+
+    from mpe_tpu_torch.ops.fused_rollout import fused_rollout
+    from mpe_tpu_torch.utils import step_phase, trace
+
+    wrappers = kernel_wrappers()
+    run = fused_rollout("simple_spread", N_ENVS, N_STEPS, horizon=HORIZON, block_envs=BLOCK_ENVS,
+                        device=mesh.device)
+    run(0)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            with step_phase("fused_rollout"):
+                run(1)
+                torch.cuda.synchronize()
+        files = list(Path(tmp).glob("trace.*.json"))
+        assert len(files) == 1, files
+        text = files[0].read_text()
+    events = prof.key_averages()
+    phase = [e for e in events if e.key == "mpe/fused_rollout"]
+    k2 = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+          and "scenario_rollout_kernel" in e.key]
+    with open(f"{out_dir}/h3_trace.json", "w") as f:
+        json.dump({"launches": wrappers["scenario_rollout_kernel"].launches,
+                   "range_in_events": bool(phase), "range_in_file": "mpe/fused_rollout" in text,
+                   "k2_in_file": "scenario_rollout_kernel" in text,
+                   "k2_device_ms": sum(device_us(e) for e in k2) / 1e3,
+                   "range_host_ms": max((e.cpu_time_total for e in phase), default=0.0) / 1e3,
+                   "trace_kb": len(text) / 1e3}, f)
+
+
+def multidevice_path(wrappers, one_process_ms: dict, card: str) -> dict:
+    """Path h: h1, h2 and h3, the counts zeroed before each and read after;
+    ``card`` is the nvidia-smi name and power limit its times are taken on."""
+    print(f"path h on {card}")
+    t0 = time.perf_counter()
+    h = {"h1": multidevice_h1(wrappers), "h2": multidevice_h2(wrappers, one_process_ms, card),
+         "h3": checkpoint_trace_h3(wrappers)}
+    h["seconds"] = time.perf_counter() - t0
+    print(f"path h: {h['seconds']:.1f} s on {card}")
+    return h
+
+
 def main() -> int:
     import torch
 
@@ -2632,16 +3179,9 @@ def main() -> int:
     from mpe_tpu_torch.convert import params_from_numpy, read_checkpoint_params
     from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
     from mpe_tpu_torch.ops import _build
-    from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
-    from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda
-    from mpe_tpu_torch.ops.fused_parity import (det_group, det_rollout_cuda,
-                                                plain_det_rollout_blocked)
+    from mpe_tpu_torch.ops.fused_parity import det_group, plain_det_rollout_blocked
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
-                                                policy_rollout_cuda, policy_tile,
-                                                policy_traj_cuda)
-    from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
-    from mpe_tpu_torch.ops.fused_trajectory import trajectory_cuda
-    from mpe_tpu_torch.ops.fused_update import mappo_update_cuda, ppo_update_cuda
+                                                policy_tile, policy_traj_cuda)
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     add_policy_ops()
@@ -2669,15 +3209,7 @@ def main() -> int:
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
-    wrappers = {"scenario_rollout_kernel": rollout_cuda,
-                "trajectory_kernel": trajectory_cuda,
-                "det_rollout_kernel": det_rollout_cuda,
-                "policy_traj_kernel": policy_traj_cuda,
-                "policy_rollout_kernel": policy_rollout_cuda,
-                "ppo_update_kernel": ppo_update_cuda,
-                "mappo_update_kernel": mappo_update_cuda,
-                "maddpg_traj_kernel": maddpg_traj_cuda,
-                "maddpg_update_kernel": maddpg_update_cuda}
+    wrappers = kernel_wrappers()
 
     # ---- main paths ----------------------------------------------------------
     launches, k2_by, k1_by, k2, k2_ms_at, k1_ms, det_inputs, generic_rate = rollout_path(
@@ -2860,6 +3392,18 @@ def main() -> int:
     k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
     k3_group_ms = check_trajectory_groups()
     hidden = hidden_widths_phase(wrappers)
+    # path h, the multi-device path and checkpoint/trace, runs after every other
+    # phase: it starts a process group (nccl) and launches ranks, and the
+    # profiler passes above then run in a process that has done neither. Its DP
+    # steps are printed beside one process at the same total width (paths b, b2, d)
+    h = multidevice_path(wrappers, {"PPO": iter_ms["train"], "MAPPO": iter_ms["MAPPO"],
+                                    "MADDPG": d_chunk}, smi)
+    h_launches = {"h1": h["h1"]["launches"], "h3": h["h3"]["launches"],
+                  **{f"h2_rank{r['rank']}": r["launches"] for r in h["h2"]["ranks"]}}
+    for counts in h_launches.values():
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    zero_launches(wrappers)
 
     # ---- bounds ---------------------------------------------------------------
     # bytes: K2 writes pos and vel (2 E P floats), the R reward sums and the
@@ -3034,6 +3578,22 @@ def main() -> int:
             row["hidden_widths_phase"] = {"seconds": hidden["seconds"],
                                           "launches": hidden["launches"],
                                           "trainer_max_abs_err": hidden["trainer_max_abs_err"]}
+    # path h per kernel: its launches by phase and rank, and for the gradient
+    # kernels the DP step's ms and the all_reduce of their gradient
+    for row in kernels:
+        row["path_h_launches"] = {p: c.get(row["name"], 0) for p, c in h_launches.items()}
+    dp_rows = {"ppo_update_kernel": ("PPO", "ppo_gradient"),
+               "mappo_update_kernel": ("MAPPO", "mappo_gradient"),
+               "maddpg_update_kernel": ("MADDPG", "maddpg_gradient")}
+    for row in kernels:
+        if row["name"] in dp_rows:
+            kind, grad = dp_rows[row["name"]]
+            row["path_h"] = {
+                "h1_nccl_all_reduce_ms": h["h1"]["all_reduce_ms"].get(grad),
+                **{f"h2_rank{r['rank']}": {"dp_step_ms": r["step_ms"][kind],
+                                           "all_reduce_ms": r["all_reduce_ms"][grad],
+                                           "backend": r["backend"]}
+                   for r in h["h2"]["ranks"]}}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,7 +5,13 @@ nothing of it (nor JAX). Module names follow the JAX package so each
 counterpart is easy to find. Ported so far:
 
 - the nine scenarios (``scenarios``), the batched functional env
-  ``MpeEnv`` and ``build_rollout`` on one device;
+  ``MpeEnv`` and ``build_rollout``;
+- multi-device over ``torch.distributed``, one process per rank
+  (``parallel``: ``init_multihost``, ``env_mesh``, ``sharded_rollout``,
+  ``parallel.launch``), the sharded fused rollouts and the data-parallel trainers
+  (``mesh=``, ``learner.build_fused_maddpg_dp``);
+- checkpoint and resume in the JAX package's format, profiling hooks
+  (``utils``);
 - the env API: spaces, ``make_env`` and the stateful ``MultiAgentEnv``,
   ``VecMultiAgentEnv``, the registry, the PettingZoo adapters
   (``envs.parallel_api``, ``envs.aec_api``) and the gymnasium shim
@@ -37,11 +43,13 @@ from mpe_tpu_torch.ops.fused_parity import fused_det_rollout
 from mpe_tpu_torch.ops.fused_policy import fused_policy_rollout, fused_policy_trajectory
 from mpe_tpu_torch.ops.fused_rollout import fused_rollout, fused_spread_rollout
 from mpe_tpu_torch.ops.fused_trajectory import fused_trajectory
-from mpe_tpu_torch.parallel.mesh import build_rollout
+from mpe_tpu_torch.parallel.mesh import (build_rollout, env_mesh, init_multihost,
+                                         sharded_rollout)
 
 __all__ = [
     "ActionMode", "MpeEnv", "ScenarioSpec", "WorldState", "build_fused_ppo_step",
-    "build_rollout", "entry", "fused_det_rollout", "fused_policy_rollout",
+    "build_rollout", "entry", "env_mesh", "fused_det_rollout", "fused_policy_rollout",
     "fused_policy_trajectory", "fused_rollout", "fused_spread_rollout", "fused_trajectory",
-    "make_env", "make_generator", "make_spec", "resolve_device", "scenarios",
+    "init_multihost", "make_env", "make_generator", "make_spec", "resolve_device", "scenarios",
+    "sharded_rollout",
 ]

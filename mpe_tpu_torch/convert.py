@@ -8,14 +8,13 @@ and ``params_to_numpy`` carry learner parameters (nested dicts of arrays:
 ``{layer: {"w": [in, out], "b": [out]}}``, or MADDPG's ``{"actor" |
 "critic": {layer: {"w", "b"}}}`` with a leading agent axis; the same layout
 in both packages). ``read_checkpoint_params`` reads the params tree of a
-checkpoint written by ``mpe_tpu/utils/checkpoint.py`` with numpy alone.
+checkpoint of either package (``utils/checkpoint.py``) without a template.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
-import json
 
 import numpy as np
 import torch
@@ -73,18 +72,15 @@ def params_to_numpy(params) -> dict:
 
 
 def read_checkpoint_params(path) -> dict:
-    """The params tree of an ``.npz`` checkpoint of the JAX package
-    (``mpe_tpu/utils/checkpoint.py::save_checkpoint``), as numpy arrays.
+    """The params tree of an ``.npz`` checkpoint of either package
+    (``utils.checkpoint.save_checkpoint``, or the JAX package's), as numpy
+    arrays: the saved ``{"state": params}`` structure, a tree of dicts
+    (``treedef`` printed by JAX), becomes the template of
+    ``utils.checkpoint.load_checkpoint``. Anything else raises
+    ``ValueError``."""
+    from mpe_tpu_torch.utils.checkpoint import load_checkpoint, read_checkpoint
 
-    The file holds ``leaf_0 .. leaf_{n-1}`` and a ``__meta__`` JSON whose
-    ``treedef`` is the printed structure of ``{"state": params}``; JAX
-    flattens dicts in sorted-key order, so the leaves are assigned in that
-    order. Only a tree of dicts of arrays is read (the rest of a training
-    state waits for ROADMAP A11); anything else raises ``ValueError``."""
-    with np.load(path, allow_pickle=False) as z:
-        meta = json.loads(str(z["__meta__"]))
-        leaves = [z[f"leaf_{i}"] for i in range(meta["n_leaves"])]
-    text = meta["treedef"]
+    text = read_checkpoint(path)[0]["treedef"]
     if not (text.startswith("PyTreeDef(") and text.endswith(")")):
         raise ValueError(f"not a printed JAX treedef: {text[:80]!r}")
     try:
@@ -93,16 +89,12 @@ def read_checkpoint_params(path) -> dict:
         raise ValueError(f"the checkpoint's tree is not a tree of dicts: {text[:120]!r}") from e
     if not isinstance(structure, dict) or set(structure) != {"state"}:
         raise ValueError(f"expected a {{'state': params}} payload, got {text[:120]!r}")
-    it = iter(leaves)
 
-    def fill(node):
+    def template(node):
         if node is None:
-            return next(it)
+            return np.zeros(())
         if not isinstance(node, dict):
             raise ValueError(f"the checkpoint's tree is not a tree of dicts: {text[:120]!r}")
-        return {k: fill(node[k]) for k in sorted(node)}
+        return {k: template(v) for k, v in node.items()}
 
-    params = fill(structure["state"])
-    if next(it, None) is not None:
-        raise ValueError(f"{meta['n_leaves']} leaves for a tree with fewer")
-    return params
+    return load_checkpoint(path, {"state": template(structure["state"])})[0]["state"]

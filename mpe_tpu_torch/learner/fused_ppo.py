@@ -27,8 +27,15 @@ the two heads as independent, with a silent agent's comm factor masked out
 Everything computes in float32 on the card. The JAX package picks bf16 on
 a TPU for its matrix unit; the port does not. TF32 stays off on this path,
 so the prep forward and K6's forward agree to float32 rounding and the
-epoch-0 ratio is 1 within 1e-5. The mesh (``pmean`` of the gradients) waits
-for ROADMAP A12; on one device it is the identity.
+epoch-0 ratio is 1 within 1e-5.
+
+Data-parallel (``mesh=``, a ``parallel.EnvMesh``): each rank collects its
+``n_envs / size`` envs by K5 with block offset ``rank * local_n_blocks`` (so
+the ranks' batches are the single-device batch's halves, lane for lane),
+normalizes its own advantages, and each epoch's K6 (K7) gradient is averaged
+over the ranks by one ``all_reduce`` of its leaves concatenated, as JAX's
+``pmean``; the clip and Adam then run alike on every rank, so the params stay
+the same bit for bit. The metrics are averaged the same way.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import contextlib
 import torch
 
 from mpe_tpu_torch._device import resolve_device
-from mpe_tpu_torch.learner.optim import apply_updates, clip_adam, linear_schedule, tree_map
+from mpe_tpu_torch.learner.optim import (apply_updates, clip_adam, linear_schedule, tree_leaves,
+                                         tree_map)
 from mpe_tpu_torch.learner.ppo import init_ac, init_mappo
 from mpe_tpu_torch.ops.fused_policy import _resolve, fused_policy_trajectory
 from mpe_tpu_torch.ops.fused_update import fused_mappo_update, fused_ppo_update, speak_mask
@@ -127,9 +135,19 @@ def _mark(events, name: str):
         events.append((name, ev))
 
 
+def _shard(n_envs: int, block_envs: int, mesh, device):
+    """(local envs, block size, block offset, device) of a trainer: the whole
+    batch at offset 0 without a mesh, else the rank's share
+    (``EnvMesh.shard_envs``) on the mesh's device unless one is named."""
+    if mesh is None:
+        return n_envs, block_envs, 0, resolve_device(device)
+    return (*mesh.shard_envs(n_envs, block_envs),
+            mesh.device if device is None else resolve_device(device))
+
+
 def _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update, *, ppo_epochs: int,
                    vf_coef: float, ent_coef: float, fused_update: bool, init_params,
-                   n_transitions: int):
+                   n_transitions: int, mesh=None, block_offset: int = 0):
     """The trainer scaffold around the fused engine: kernel rollout ->
     ``prep`` -> ``ppo_epochs`` epochs of the K6 gradient (or autograd of
     ``loss_fn``) and the optimizer step.
@@ -141,10 +159,12 @@ def _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update, *, ppo_
     ``(obs, mv_oh, cm_oh, logp_old, value, adv_n, ret)`` (``cm_oh`` None
     without a comm head), ``step.update`` is the epoch gradient (K6's
     builder) and ``step.loss_fn(params, (obs, mv_oh, cm_oh, logp_old, value,
-    adv, ret)) -> (loss, (pg, vloss, ent))`` the loss it differentiates."""
+    adv, ret)) -> (loss, (pg, vloss, ent))`` the loss it differentiates, ``step.opt``
+    the optimizer. With ``mesh`` the batch is the rank's (``block_offset``),
+    each epoch's gradient and the metrics are means over the ranks."""
 
     def collect(params, seed, events=None):
-        outs = traj(int(seed), actor(params), 0)
+        outs = traj(int(seed), actor(params), block_offset)
         if kscn.uses_comm:
             obs, act, cact, rew, last_obs = outs
         else:
@@ -176,12 +196,16 @@ def _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update, *, ppo_
                         g = iter(torch.autograd.grad(loss, flat))
                         grads = tree_map(lambda _: next(g), leaves)
                     loss, pg, vl, ent = (x.detach() for x in (loss, pg, vl, ent))
+                if mesh is not None:
+                    mesh.mean_(tree_leaves(grads))
                 _mark(events, "update")
                 updates, opt_state = opt.update(grads, opt_state)
                 params = apply_updates(params, updates)
                 _mark(events, "optimizer")
-            metrics = {"loss": loss, "pg_loss": pg, "v_loss": vl, "entropy": ent,
-                       "mean_reward": _agent_rewards(kscn, rew).mean()}
+            values = [loss, pg, vl, ent, _agent_rewards(kscn, rew).mean()]
+            if mesh is not None:
+                values = mesh.mean_(values)
+            metrics = dict(zip(("loss", "pg_loss", "v_loss", "entropy", "mean_reward"), values))
         return (params, opt_state), metrics
 
     def collect_batch(params, seed):
@@ -191,6 +215,7 @@ def _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update, *, ppo_
     step.collect = collect_batch
     step.update = kernel_update
     step.loss_fn = loss_fn
+    step.opt = opt
     step.init_params = init_params
     step.init_state = lambda params: (params, opt.init(params))
     step.n_transitions = n_transitions
@@ -203,7 +228,7 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
                          ent_coef: float = 0.01, ppo_epochs: int = 4,
                          anneal_iters: int | None = None, block_envs: int = 1024,
                          t_chunk: int = 8, fused_update: bool = True, device=None,
-                         dtype=torch.float32):
+                         dtype=torch.float32, mesh=None):
     """PPO iteration on the fused engine: ``step(state, seed) -> (state,
     metrics)`` with ``state = (params, opt_state)`` (params in
     ``learner.ppo.init_ac`` layout: ``step.init_params(generator)``,
@@ -217,9 +242,15 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
     update; the collection runs in float32, and on CUDA the update kernel
     computes in float32 only. ``step.plain`` is the same trainer with the
     plain versions of K5 and K6 on the same device (for holding the kernels
-    against them)."""
+    against them).
+
+    With ``mesh`` (a ``parallel.EnvMesh``) the step is data-parallel: the
+    rank collects its share of the ``n_envs`` envs (the same lanes as in the
+    single-device run) and each epoch's gradient and the metrics are means
+    over the ranks, so every rank holds the same params. The device is the
+    mesh's unless ``device`` names one."""
     kscn = _resolve(scenario)
-    device = resolve_device(device)
+    local, block_envs, offset, device = _shard(n_envs, block_envs, mesh, device)
     n_logits = kscn.n_logits
     sched = linear_schedule(lr, 0.0, anneal_iters * ppo_epochs) if anneal_iters else lr
     opt = clip_adam(sched, max_norm=0.5)
@@ -232,9 +263,9 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
         return {"l1": p["l1"], "l2": p["l2"], "out": p["pi"]}
 
     tmpl = init_ac(torch.Generator().manual_seed(0), kscn.obs_w, n_logits, hidden=hidden)
-    traj = fused_policy_trajectory(kscn, actor(tmpl), n_envs, n_steps, horizon=horizon,
+    traj = fused_policy_trajectory(kscn, actor(tmpl), local, n_steps, horizon=horizon,
                                    block_envs=block_envs, t_chunk=t_chunk, device=device)
-    kernel_update = fused_ppo_update(kscn, n_envs, n_steps, hidden, clip=clip, vf_coef=vf_coef,
+    kernel_update = fused_ppo_update(kscn, local, n_steps, hidden, clip=clip, vf_coef=vf_coef,
                                      ent_coef=ent_coef, device=device,
                                      dtype=dtype) if fused_update else None
     nonterm_t = [0.0 if (t + 1) % horizon == 0 else 1.0 for t in range(n_steps)]
@@ -270,7 +301,7 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
         return _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update,
                               ppo_epochs=ppo_epochs, vf_coef=vf_coef, ent_coef=ent_coef,
                               fused_update=fused_update, init_params=init_params,
-                              n_transitions=n_envs * n_steps)
+                              n_transitions=n_envs * n_steps, mesh=mesh, block_offset=offset)
 
     step = trainer(traj, kernel_update)
     step.plain = trainer(traj.plain, kernel_update.plain if fused_update else None)
@@ -283,7 +314,7 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
                            ent_coef: float = 0.01, ppo_epochs: int = 4,
                            anneal_iters: int | None = None, block_envs: int = 1024,
                            t_chunk: int = 8, fused_update: bool = True, device=None,
-                           dtype=torch.float32):
+                           dtype=torch.float32, mesh=None):
     """MAPPO iteration on the fused engine (the contract of
     ``build_fused_ppo_step``; params in ``learner.ppo.init_mappo`` layout).
     The decentralized actor (``a1, a2, pi``) runs inside kernel K5; the
@@ -292,9 +323,10 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
     ``[T, N]``: GAE over the mean reward across agents. Each epoch's gradient
     is kernel K7 (``ops/fused_update.fused_mappo_update``; with
     ``fused_update=False``, autograd of ``step.loss_fn``). ``step.plain`` is
-    the same trainer with the plain versions of K5 and K7."""
+    the same trainer with the plain versions of K5 and K7. ``mesh`` makes it
+    data-parallel as in ``build_fused_ppo_step``."""
     kscn = _resolve(scenario)
-    device = resolve_device(device)
+    local, block_envs, offset, device = _shard(n_envs, block_envs, mesh, device)
     a, ow = kscn.spec.n_agents, kscn.obs_w
     n_logits = kscn.n_logits
     sched = linear_schedule(lr, 0.0, anneal_iters * ppo_epochs) if anneal_iters else lr
@@ -308,9 +340,9 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
         return {"l1": p["a1"], "l2": p["a2"], "out": p["pi"]}
 
     tmpl = init_mappo(torch.Generator().manual_seed(0), ow, n_logits, a, hidden=hidden)
-    traj = fused_policy_trajectory(kscn, actor(tmpl), n_envs, n_steps, horizon=horizon,
+    traj = fused_policy_trajectory(kscn, actor(tmpl), local, n_steps, horizon=horizon,
                                    block_envs=block_envs, t_chunk=t_chunk, device=device)
-    kernel_update = fused_mappo_update(kscn, n_envs, n_steps, hidden, clip=clip,
+    kernel_update = fused_mappo_update(kscn, local, n_steps, hidden, clip=clip,
                                        vf_coef=vf_coef, ent_coef=ent_coef, device=device,
                                        dtype=dtype) if fused_update else None
     nonterm_t = [0.0 if (t + 1) % horizon == 0 else 1.0 for t in range(n_steps)]
@@ -352,7 +384,7 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
         return _fused_trainer(kscn, opt, traj, actor, prep, loss_fn, kernel_update,
                               ppo_epochs=ppo_epochs, vf_coef=vf_coef, ent_coef=ent_coef,
                               fused_update=fused_update, init_params=init_params,
-                              n_transitions=n_envs * n_steps)
+                              n_transitions=n_envs * n_steps, mesh=mesh, block_offset=offset)
 
     step = trainer(traj, kernel_update)
     step.plain = trainer(traj.plain, kernel_update.plain if fused_update else None)

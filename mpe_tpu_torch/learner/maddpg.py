@@ -17,8 +17,10 @@ Ported: the centralized critic on the nine scenarios, comm heads included
 critic sees only its own ``[obs_i | act_i]``, on the autograd engine); the
 per-step learner ``build_maddpg`` with ``gumbel_softmax_st`` on the generic
 engine. The ensemble and approximate-policy variants are
-``learner/ensemble.py`` and ``learner/approx_others.py``. Waiting:
-``build_fused_maddpg_dp`` (ROADMAP A12).
+``learner/ensemble.py`` and ``learner/approx_others.py``.
+``build_fused_maddpg_dp`` is the data-parallel loop over the ranks of a
+``parallel.EnvMesh``: local replay shards, K9's flat gradient averaged by one
+``all_reduce`` per update, Adam and Polyak alike on every rank.
 
 The ring is updated in place (``build_fused_collect`` writes the chunk into
 ``buffer.data``; the returned ``Buffer`` shares it): at 1,638,400 rows of
@@ -550,7 +552,7 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
                              tau_polyak: float = 0.05, actor_lr: float = 1e-3,
                              critic_lr: float = 1e-3, ent_coef: float = 0.01, hidden: int = 64,
                              grad_engine: str = "kernel", device=None, dtype=torch.float32,
-                             local_critic: bool = False):
+                             local_critic: bool = False, mesh=None):
     """``n_updates`` sequential updates per call, their replay batches
     gathered in one read: ``update_chunk(params, targets, opt_states,
     buffer, key, gates, indices=None) -> (params, targets, opt_states,
@@ -578,7 +580,12 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
 
     ``local_critic=True`` (independent DDPG; ``grad_engine="autograd"``
     only, as in JAX) packs critics of the own ``obs+act`` input: the layout
-    takes the critic's input width, and K9 is never launched on it."""
+    takes the critic's input width, and K9 is never launched on it.
+
+    With ``mesh`` (a ``parallel.EnvMesh``) every update's gradient is the
+    mean over the ranks of their own batches' (the packed flat gradient in
+    one ``all_reduce``, as JAX's ``pmean``), so Adam and Polyak step alike
+    on every rank."""
     from mpe_tpu_torch.ops.fused_maddpg_update import (MaddpgUpdateLauncher, PackedLayout,
                                                        _net_buffer)
 
@@ -607,6 +614,9 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
             metrics = None
             for u in range(n_updates):
                 g, (closs, aloss, qmean) = grads.from_rows(params, targets, rows[u].to(dtype))
+                if mesh is not None:
+                    mesh.mean_([x for net in g.values() for layer in net.values()
+                                for x in layer.values()])
                 params, targets, opt_states = _apply_maddpg_update(
                     params, targets, opt_states, g, gates[u], actor_opt=actor_opt,
                     critic_opt=critic_opt, tau_polyak=tau_polyak)
@@ -667,6 +677,8 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
         metrics = None
         for u in range(n_updates):
             g, (closs, aloss, qmean) = packed_grads(k9, w, rows[u])
+            if mesh is not None:
+                mesh.mean_([g])
             g_actor, g_critic = layout.nets(g)
             cupd, sc = critic_opt.update(_flat(g_critic), sc)
             critic.add_(cupd["flat"]["x"])                     # apply_updates: p + u
@@ -704,6 +716,101 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
     update_chunk.init_opt = lambda params: {"actor": actor_opt.init(params["actor"]),
                                             "critic": critic_opt.init(params["critic"])}
     return update_chunk
+
+
+def build_fused_maddpg_dp(env, n_envs: int, mesh=None, horizon: int | None = None,
+                          updates_per_chunk: int | None = None, cap_chunks: int = 10,
+                          batch: int = 1024, gamma: float = 0.95, tau_polyak: float = 0.05,
+                          eps_greedy: float = 0.1, actor_lr: float = 1e-3,
+                          critic_lr: float = 1e-3, ent_coef: float = 0.01, hidden: int = 64,
+                          block_envs: int = 1024, t_chunk: int | None = None,
+                          grad_engine: str = "kernel", device=None):
+    """Data-parallel fused MADDPG over the ranks of ``mesh`` (by default
+    this process's, ``parallel.env_mesh``): per rank, kernel K8 fills a
+    LOCAL replay shard (rank r draws the global RNG blocks of its
+    ``n_envs / size`` lanes, so the collection is the single-device one's
+    share, lane for lane), then each update reads a local batch, computes
+    kernel K9's gradient and averages it over the ranks (one ``all_reduce``
+    of the packed flat gradient): the effective batch is ``size * batch``,
+    and Adam and Polyak step alike on every rank, so params and targets stay
+    the same bit for bit. Only the gradient crosses ranks.
+
+    -> ``step(state, seed, gates=None, indices=None) -> (state, metrics)``
+    with ``state = (params, targets, opt_states, local_buffer)`` (params from
+    ``init_maddpg``, the ring from ``step.init_buffer()``: ``cap_chunks``
+    chunks of this rank's rows). One call collects one chunk (``n_envs *
+    horizon`` transitions over all ranks, kernel seed ``seed``) and runs
+    ``updates_per_chunk`` updates (default ``horizon``) on batches that
+    ``sample_rows`` draws from ``mesh.rank_key(seed)``, or on the rank's
+    ``indices [updates_per_chunk, batch]`` (the tests inject JAX's draw);
+    ``gates`` are the updates' scalar actor gates (default all on). Metrics:
+    ``mean_reward`` of the chunk and the last update's ``critic_loss``, means
+    over the ranks. ``seed`` must differ between calls: the collection and
+    the draws both derive from it. ``step.collect(actor_params, buffer,
+    seed) -> (buffer, mean_reward)`` and ``step.update_chunk`` are its
+    halves, on this rank."""
+    from mpe_tpu_torch.core.actions import ActionMode
+    from mpe_tpu_torch.ops.fused_maddpg import fused_maddpg_trajectory
+    from mpe_tpu_torch.parallel.mesh import env_mesh
+
+    if env.action_mode is not ActionMode.DISCRETE:
+        raise ValueError("fused MADDPG collection needs ActionMode.DISCRETE")
+    horizon = horizon or env.max_steps
+    if not horizon:
+        raise ValueError("the env needs max_steps (the episode horizon)")
+    updates_per_chunk = updates_per_chunk or horizon
+    mesh = mesh if mesh is not None else env_mesh(device)
+    device = mesh.device if device is None else resolve_device(device)
+    local, block, offset = mesh.shard_envs(n_envs, block_envs)
+    if t_chunk is None:
+        t_chunk = collect_t_chunk(horizon)
+    kscn, obs_dim, aw, _, _ = _dims(env)
+    a = env.n_agents
+    rows_per_chunk = horizon * local
+    cap_local = cap_chunks * rows_per_chunk
+    tmpl = init_maddpg(torch.Generator().manual_seed(0), obs_dim, aw, a, hidden=1)["actor"]
+    traj = fused_maddpg_trajectory(kscn, tmpl, local, horizon, horizon=horizon,
+                                   eps_greedy=eps_greedy, block_envs=block, t_chunk=t_chunk,
+                                   emit_rows=True, device=device)
+    chunk = build_fused_update_chunk(env, updates_per_chunk, batch=batch, gamma=gamma,
+                                     tau_polyak=tau_polyak, actor_lr=actor_lr,
+                                     critic_lr=critic_lr, ent_coef=ent_coef, hidden=hidden,
+                                     grad_engine=grad_engine, device=device, mesh=mesh)
+    r0 = a * (obs_dim + aw)
+
+    def collect(actor_params, buffer: Buffer, seed):
+        """Insert this rank's chunk of rows at ``ptr`` (a whole number of
+        chunks fits the ring, so the insert never wraps)."""
+        rows = traj(seed, actor_params, offset).reshape(rows_per_chunk, -1)
+        buffer.data[buffer.ptr:buffer.ptr + rows_per_chunk] = rows
+        buffer = buffer._replace(ptr=(buffer.ptr + rows_per_chunk) % cap_local,
+                                 size=min(buffer.size + rows_per_chunk, cap_local))
+        return buffer, rows[:, r0:r0 + a].mean()
+
+    def step(state, seed, gates=None, indices=None):
+        params, targets, opt_states, buffer = state
+        if buffer.data.shape[0] != cap_local:
+            raise ValueError(f"the ring holds {buffer.data.shape[0]} rows, this rank's shard "
+                             f"{cap_local}: build it with step.init_buffer()")
+        gates = np.ones(updates_per_chunk, bool) if gates is None else np.asarray(gates, bool)
+        if gates.ndim != 1:
+            raise ValueError("the DP trainer takes scalar per-update gates; per-agent [U, A] "
+                             "gates are build_fused_update_chunk's")
+        buffer, mean_reward = collect(params["actor"], buffer, seed)
+        packed, m = chunk.packed_step(chunk.pack_state(params, targets, opt_states), buffer,
+                                      mesh.rank_key(int(seed)), gates, indices)
+        params, targets, opt_states = chunk.unpack_state(packed)
+        mean_reward, critic_loss = mesh.mean_([mean_reward, m["critic_loss"]])
+        return ((params, targets, opt_states, buffer),
+                {"mean_reward": mean_reward, "critic_loss": critic_loss})
+
+    step.collect = collect
+    step.update_chunk = chunk
+    step.init_buffer = lambda: init_buffer(cap_local, a, obs_dim, aw, device=device)
+    step.init_opt = chunk.init_opt
+    step.updates_per_chunk = updates_per_chunk
+    step.transitions_per_chunk = n_envs * horizon
+    return step
 
 
 def build_fused_update(env, batch: int = 256, gamma: float = 0.95, tau_polyak: float = 0.05,

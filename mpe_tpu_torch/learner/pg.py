@@ -3,11 +3,12 @@ parameter-shared MLP policy and its training step on the batched
 generic engine (``MpeEnv``).
 
 The JAX package's step rolls each env out under ``vmap`` inside
-``shard_map`` and ``pmean``-reduces the gradient over the env mesh; on one
-device ``pmean`` is the identity, so the port's step takes no mesh (the
-multi-device form is ROADMAP A12). The rollout runs batched over the envs
-on the env's device with no gradient; the loss then takes the log-probs of
-the actions taken from one batched forward, with autograd.
+``shard_map`` and ``pmean``-reduces the gradient over the env mesh. The
+port's rollout runs batched over the envs on the env's device with no
+gradient; the loss then takes the log-probs of the actions taken from one
+batched forward, with autograd. With ``mesh=`` (a ``parallel.EnvMesh``) each
+rank rolls out its share of the envs with its own generator
+(``mesh.rank_key``) and the gradient and loss are means over the ranks.
 
 The JAX functions cast logits to float32; the port casts to float32 at the
 least (``torch.promote_types``), which is the same for float32 and
@@ -140,17 +141,28 @@ def _episode_loss(env: MpeEnv, params, generator: torch.Generator, n_envs: int,
                           gamma)
 
 
-def build_train_step(env: MpeEnv, n_envs: int, n_steps: int = 25, lr: float = 1e-3):
+def build_train_step(env: MpeEnv, n_envs: int, n_steps: int = 25, lr: float = 1e-3,
+                     mesh=None):
     """REINFORCE step: ``train_step(params, generator) -> (params, loss)``,
     one SGD step of autograd's gradient of ``n_envs`` episodes of
-    ``n_steps`` on ``env.device``."""
+    ``n_steps`` on ``env.device``. With ``mesh`` the rank runs its ``n_envs /
+    size`` episodes with ``mesh.rank_key(generator)``, and the gradient (one
+    ``all_reduce`` of its leaves concatenated) and the loss are means over
+    the ranks, so every rank takes the same step."""
     assert env.action_mode is ActionMode.DISCRETE
+    n_local = n_envs if mesh is None else mesh.local_envs(n_envs)
 
     def train_step(params, generator: torch.Generator):
+        if mesh is not None:
+            generator = mesh.rank_key(generator)
         leaves = optim.tree_map(lambda x: x.detach().requires_grad_(True), params)
-        loss = _episode_loss(env, leaves, generator, n_envs, n_steps)
-        grads = optim.tree_unflatten(leaves, torch.autograd.grad(loss, optim.tree_leaves(leaves)))
+        loss = _episode_loss(env, leaves, generator, n_local, n_steps)
+        grads = list(torch.autograd.grad(loss, optim.tree_leaves(leaves)))
+        loss = loss.detach()
+        if mesh is not None:
+            *grads, loss = mesh.mean_(grads + [loss])
+        grads = optim.tree_unflatten(leaves, grads)
         new = optim.tree_map(lambda x, g: (x - lr * g.to(x.dtype)).detach(), leaves, grads)
-        return new, loss.detach()
+        return new, loss
 
     return train_step

@@ -12,10 +12,12 @@ objective, on the env's device.
 
 Parameter-shared across agents: every agent's transitions train the same
 network (the standard MPE baseline setup). The JAX builders take a mesh and
-``pmean`` the gradient over it; on one device ``pmean`` is the identity, so
-the port's builders take none (the multi-device form is ROADMAP A12). The
-fused trainers are ``learner.fused_ppo``; these are the generic-engine
-learners. Logits and values are float32 at the least (``_nets.at_least_f32``).
+``pmean`` the gradient over it; the port's take ``mesh=None`` (a
+``parallel.EnvMesh``): each rank rolls out its share of the envs with its
+own generator (``mesh.rank_key``), and each epoch's gradient and the metrics
+are means over the ranks. The fused trainers are ``learner.fused_ppo``;
+these are the generic-engine learners. Logits and values are float32 at the
+least (``_nets.at_least_f32``).
 """
 
 from __future__ import annotations
@@ -124,28 +126,38 @@ def _normalized(adv):
     return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
 
 
-def _epoch_metrics_step(loss_fn, batch, opt, ppo_epochs, mean_rew):
+def _epoch_metrics_step(loss_fn, batch, opt, ppo_epochs, mean_rew, mesh=None):
     """-> epochs(params, opt_state) running ``ppo_epochs`` update epochs
-    and returning the standard metrics dict (the last epoch's losses)."""
+    and returning the standard metrics dict (the last epoch's losses); with
+    ``mesh`` each epoch's gradient and the metrics are means over the ranks."""
     def epochs(params, opt_state):
         for _ in range(ppo_epochs):
             leaves = optim.tree_map(lambda x: x.detach().requires_grad_(True), params)
             loss, (pg, vloss, ent) = loss_fn(leaves, batch)
-            grads = optim.tree_unflatten(
-                leaves, torch.autograd.grad(loss, optim.tree_leaves(leaves)))
-            updates, opt_state = opt.update(grads, opt_state)
+            grads = list(torch.autograd.grad(loss, optim.tree_leaves(leaves)))
+            if mesh is not None:
+                grads = mesh.mean_(grads)
+            updates, opt_state = opt.update(optim.tree_unflatten(leaves, grads), opt_state)
             params = optim.apply_updates(optim.tree_map(torch.Tensor.detach, leaves), updates)
-        metrics = {"loss": loss.detach(), "pg_loss": pg.detach(), "v_loss": vloss.detach(),
-                   "entropy": ent.detach(), "mean_reward": mean_rew}
+        values = [loss.detach(), pg.detach(), vloss.detach(), ent.detach(), mean_rew]
+        if mesh is not None:
+            values = mesh.mean_(values)
+        metrics = dict(zip(("loss", "pg_loss", "v_loss", "entropy", "mean_reward"), values))
         return (params, opt_state), metrics
 
     return epochs
 
 
-def _finish(step, rollout, loss_fn, update, opt):
-    """The common outer shell of both builders: the attributes a caller or
-    a test reaches (``init_state``, and the rollout, loss and update on a
-    given batch)."""
+def _finish(rollout, loss_fn, update, opt, mesh):
+    """The common outer shell of both builders: ``step(state, generator)``
+    (the rollout with the rank's generator, then the update) and the
+    attributes a caller or a test reaches (``init_state``, and the rollout,
+    loss and update on a given batch)."""
+    def step(state, generator):
+        if mesh is not None:
+            generator = mesh.rank_key(generator)
+        return update(state, *rollout(state[0], generator))
+
     step.init_state = lambda params: (params, opt.init(params))
     step.rollout, step.loss_fn, step.update, step.opt = rollout, loss_fn, update, opt
     return step
@@ -169,6 +181,7 @@ def build_ppo_step(
     ent_coef: float = 0.01,
     ppo_epochs: int = 4,
     anneal_iters: int | None = None,
+    mesh=None,
 ):
     """PPO iteration on ``env.device``:
     ``ppo_step(train_state, generator) -> (train_state, metrics dict)``
@@ -182,17 +195,20 @@ def build_ppo_step(
     which plain SGD cannot balance. ``ppo_step.rollout(params, generator)
     -> (Transition, last_value)`` and ``ppo_step.update(train_state, traj,
     last_value)`` are its two halves; ``ppo_step.loss_fn(params, batch)``
-    is the loss of one epoch.
+    is the loss of one epoch. With ``mesh`` the rank rolls out its ``n_envs
+    / size`` envs with ``mesh.rank_key(generator)`` and the update averages
+    each epoch's gradient and the metrics over the ranks.
     """
     _check_env(env)
     opt = _make_opt(lr, anneal_iters, ppo_epochs)
+    n_local = n_envs if mesh is None else mesh.local_envs(n_envs)
     mw = 2 * env.spec.dim_p + 1
     pad_c = env.action_width - mw
 
     def rollout(params, generator):
-        """-> Transition with leaves [T, n_envs, A, ...], last value [n_envs, A]."""
+        """-> Transition with leaves [T, n_local, A, ...], last value [n_local, A]."""
         with torch.no_grad():
-            states, obs = env.reset(n_envs, generator)
+            states, obs = env.reset(n_local, generator)
             steps = []
             for _ in range(n_steps):
                 logits, value = policy_value(params, obs)
@@ -213,13 +229,10 @@ def build_ppo_step(
     def update(state, traj: Transition, last_value):
         adv, ret = _gae_scan(traj.value, traj.reward, traj.done, last_value, gamma, lam)
         batch = (traj.obs, traj.act, traj.logp, traj.value, adv, ret)
-        epochs = _epoch_metrics_step(loss_fn, batch, opt, ppo_epochs, traj.reward.mean())
+        epochs = _epoch_metrics_step(loss_fn, batch, opt, ppo_epochs, traj.reward.mean(), mesh)
         return epochs(*state)
 
-    def step(state, generator):
-        return update(state, *rollout(state[0], generator))
-
-    return _finish(step, rollout, loss_fn, update, opt)
+    return _finish(rollout, loss_fn, update, opt, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -267,20 +280,22 @@ def build_mappo_step(
     ent_coef: float = 0.01,
     ppo_epochs: int = 4,
     anneal_iters: int | None = None,
+    mesh=None,
 ):
-    """MAPPO iteration (same train_state contract and attributes as
-    ``build_ppo_step``). Intended for collaborative scenarios (the shared
+    """MAPPO iteration (same train_state contract, attributes and ``mesh``
+    as ``build_ppo_step``). Intended for collaborative scenarios (the shared
     team reward is the critic's target)."""
     _check_env(env)
     opt = _make_opt(lr, anneal_iters, ppo_epochs)
+    n_local = n_envs if mesh is None else mesh.local_envs(n_envs)
     mw = 2 * env.spec.dim_p + 1
     pad_c = env.action_width - mw
 
     def rollout(params, generator):
-        """-> Transition (value, team reward and team done [T, n_envs]),
-        last value [n_envs]."""
+        """-> Transition (value, team reward and team done [T, n_local]),
+        last value [n_local]."""
         with torch.no_grad():
-            states, obs = env.reset(n_envs, generator)
+            states, obs = env.reset(n_local, generator)
             steps = []
             for _ in range(n_steps):
                 acts, idx, logp = _sample_move(actor_logits(params, obs), generator, mw, pad_c,
@@ -306,10 +321,7 @@ def build_mappo_step(
     def update(state, traj: Transition, last_value):
         adv, ret = _gae_scan(traj.value, traj.reward, traj.done, last_value, gamma, lam)
         batch = (traj.obs, traj.act, traj.logp, traj.value, adv, ret)
-        epochs = _epoch_metrics_step(loss_fn, batch, opt, ppo_epochs, traj.reward.mean())
+        epochs = _epoch_metrics_step(loss_fn, batch, opt, ppo_epochs, traj.reward.mean(), mesh)
         return epochs(*state)
 
-    def step(state, generator):
-        return update(state, *rollout(state[0], generator))
-
-    return _finish(step, rollout, loss_fn, update, opt)
+    return _finish(rollout, loss_fn, update, opt, mesh)

@@ -279,3 +279,33 @@ def fused_maddpg_trajectory(scenario, actor_params, n_envs: int, n_steps: int,
     run.act_width = aw
     return run
 
+
+
+def sharded_fused_maddpg_trajectory(scenario, actor_params, n_envs: int, n_steps: int, mesh=None,
+                                    horizon: int = 25, eps_greedy: float = 0.1,
+                                    block_envs: int = 1024, t_chunk: int = 8,
+                                    emit_rows: bool = False, device=None):
+    """MADDPG collection over the ranks of ``mesh`` (by default this
+    process's, ``parallel.env_mesh``), the actor weights the same on every
+    rank: ``run(seed, actor_params)`` returns this rank's ``n_envs / size``
+    lanes. Rank r runs kernel K8 with block offset ``r * local_n_blocks``, so
+    the ranks' outputs gathered on the env axis equal the single-device
+    ``fused_maddpg_trajectory`` of ``n_envs`` (``mesh.shard_envs`` checks
+    that the block size agrees). No collective. ``run.plain`` is the plain
+    version."""
+    from mpe_tpu_torch.parallel.mesh import env_mesh
+
+    mesh = mesh if mesh is not None else env_mesh(device)
+    local, block, offset = mesh.shard_envs(n_envs, block_envs)
+    local_run = fused_maddpg_trajectory(scenario, actor_params, local, n_steps, horizon=horizon,
+                                        eps_greedy=eps_greedy, block_envs=block, t_chunk=t_chunk,
+                                        emit_rows=emit_rows,
+                                        device=mesh.device if device is None else device)
+
+    def run(seed, actor_params):
+        return local_run(seed, actor_params, offset)
+
+    run.plain = lambda seed, actor_params: local_run.plain(seed, actor_params, offset)
+    run.block_envs = block
+    run.act_width = local_run.act_width
+    return run

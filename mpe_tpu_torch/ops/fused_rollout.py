@@ -272,8 +272,8 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
                   seed: int, block_offset: int = 0, device=None):
     """The JAX ``_generic_rollout_kernel`` body as a torch loop over all RNG
     blocks at once: -> (pos [E, P, N], vel, rew_sum [R, N], obs_checksum
-    [1, N]), float32, on ``device``. The checksum adds each agent's obs row,
-    then the agents (K2's order; JAX adds the agents first)."""
+    [1, N]), float32, on ``device``. The checksum adds each agent's obs row in
+    order, then the agents (K2's order; JAX adds the agents first)."""
     spec = kscn.spec
     a, e, p = spec.n_agents, spec.n_entities, spec.dim_p
     if n_envs % block_envs:
@@ -294,7 +294,16 @@ def plain_rollout(kscn, n_envs: int, n_steps: int, horizon: int | None, block_en
         comm = sample_comm(step, 16)
         rew, obs = kscn.reward_obs(pos, vel, comm, goal)
         rew_acc = rew_acc + rew
-        obs_acc = obs_acc + obs.sum(1).sum(0, keepdim=True)     # per agent, then over agents
+        # each agent's row summed in order, then the agents in order: K2's
+        # order, and lane by lane (torch's sum over a middle axis rounds
+        # differently at different lane counts)
+        row = obs[:, 0]
+        for r in range(1, obs.shape[1]):
+            row = row + obs[:, r]
+        total = row[0:1]
+        for i in range(1, a):
+            total = total + row[i:i + 1]
+        obs_acc = obs_acc + total
         t = t + 1
         if horizon is not None:
             done = t >= horizon
@@ -399,6 +408,32 @@ def fused_rollout(scenario, n_envs: int, n_steps: int, horizon: int | None = 100
     run.plain = plain
     run.n_blocks = n_envs // block_envs
     run.block_envs = block_envs
+    return run
+
+
+def sharded_fused_rollout(scenario, n_envs: int, n_steps: int, mesh=None,
+                          horizon: int | None = 100, block_envs: int = 1024, device=None):
+    """The fused rollout over the ranks of ``mesh`` (by default this
+    process's, ``parallel.env_mesh``): ``run(seed) -> (pos, vel, rew_sum,
+    obs_checksum)`` of this rank's ``n_envs / size`` lanes, env-minor. Rank r
+    runs kernel K2 on its lanes with block offset ``r * local_n_blocks``, so
+    every lane draws the stream it draws in the single-device run of
+    ``n_envs`` (``mesh.shard_envs`` checks that the block size agrees):
+    ``mesh.gather(x, axis=-1)`` of the ranks' outputs equals
+    ``fused_rollout(scenario, n_envs, ...)(seed)``. Envs never talk, so the
+    run has no collective. ``run.plain`` is the plain version."""
+    from mpe_tpu_torch.parallel.mesh import env_mesh
+
+    mesh = mesh if mesh is not None else env_mesh(device)
+    local, block, offset = mesh.shard_envs(n_envs, block_envs)
+    local_run = fused_rollout(scenario, local, n_steps, horizon=horizon, block_envs=block,
+                              device=mesh.device if device is None else device)
+
+    def run(seed):
+        return local_run(seed, offset)
+
+    run.plain = lambda seed: local_run.plain(seed, offset)
+    run.block_envs = block
     return run
 
 
