@@ -10,7 +10,7 @@ failure ends the run with a non-zero exit code:
      kernel build time (every source at hidden width 64 and the MLP sources
      of K4-K9 also at 8, 16 and 32, one nvcc each, all at once) and the
      compiler's register report;
-  2. thirteen main paths, each with every kernel's launch count set to 0 just
+  2. fourteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -113,6 +113,29 @@ failure ends the run with a non-zero exit code:
           then greedy_state_rollout (128 envs x 25 steps) of the trained
           actor, of uniform-random moves and of the committed JAX
           checkpoint: the trained actor must score above random;
+       i. the side layers, after path g and before path h, the counts zeroed
+          before and read after each sub-phase: i1 rendering on the card:
+          make_env on each of the nine scenarios (shared viewer), 25 steps of
+          RandomPolicy actions with render("rgb_array") after the reset and
+          each step, every frame (700, 700, 3) uint8 and not blank, the last
+          frame equal bit for bit to the one the same state draws on the CPU,
+          agent 0 of simple_spread at alpha 0.5 (its centre pixel 0.5 colour +
+          0.5 white within 1), ms per frame beside ms per step (host clock);
+          simple_adversary with shared_viewer=False, one frame per agent; the
+          gymnasium adapter's render; no kernel launched; i2
+          InteractivePolicy under a key script stepping simple_spread, and
+          python -m mpe_tpu_torch.interactive_cli --scenario simple.py --steps
+          5 --headless as a subprocess on the card (exit 0, "t=4 rewards=");
+          i3 the examples of mpe_tpu_torch/examples in this process at their
+          defaults: rollout (the generic engine, then --fused: K2; M
+          env-steps/s beside path a's), evaluate_policy (K4), es_train (K4,
+          480 launches), train with each --algo at 10 iterations (fused_ppo
+          K5 and K6, fused_mappo K5 and K7, maddpg --fused-collect K8 and K9,
+          reinforce, ppo, mappo and maddpg no kernel), maddpg_run --updates
+          1000 (K8, K9), render_policy on the committed speaker_listener
+          checkpoint (75 frames) and crypto_demo (its codebook equal to the
+          one computed with --device cpu); each with exactly its kernels
+          launched and finite figures; neither PIL nor matplotlib imported;
        h. the multi-device path (torch.distributed) and checkpoint/trace, run
           last, after phase 3b (it starts a process group and launches ranks;
           the profiler passes of phase 4 run before it), each phase with the
@@ -227,7 +250,7 @@ failure ends the run with a non-zero exit code:
      hidden widths and their registers at each width; K8 path g's figures
      by phase, its launches there by scenario and the sub-sliced gate's
      error, K9 its launches in each phase of path g; every row its launches
-     in path h by phase and rank, K6, K7 and K9 the DP step's ms and their
+     in path h by phase and rank and in path i by example, K6, K7 and K9 the DP step's ms and their
      gradient's all_reduce ms there), the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
@@ -379,6 +402,39 @@ H_CAP_CHUNKS = 64
 # lanes must fill whole blocks of the single run's size)
 H_MADDPG_BLOCK = MADDPG["n_envs"] // H_RANKS
 H2_TIMEOUT, H3_TIMEOUT = 300, 120
+
+# path i: the side layers. i1 renders I_STEPS steps of random actions on each
+# scenario (shared viewer) and one per-agent-viewer env; i2 the keyboard
+# policy under a key script and the interactive CLI as a subprocess; i3 the
+# example scripts in this process at their defaults (train at I_TRAIN_ITERS
+# iterations, maddpg_run at I_MADDPG_UPDATES updates), each with the kernels
+# it must launch and no other (an empty tuple: no kernel at all)
+I_STEPS, I_PER_AGENT, I_TRAIN_ITERS, I_MADDPG_UPDATES = 25, "simple_adversary", 10, 1000
+I_KEYS = (["left"], ["up"], [], ["right", "down"], ["down"])
+I_CLI = ["--scenario", "simple.py", "--steps", "5", "--headless"]
+I_CLI_TIMEOUT = 180
+I_RENDER_CKPT = "checkpoints/maddpg_speaker_listener.npz"
+I_EXAMPLES = (
+    ("rollout", "rollout", [], ()),
+    ("rollout --fused", "rollout", ["--fused"], ("scenario_rollout_kernel",)),
+    ("evaluate_policy", "evaluate_policy", [], ("policy_rollout_kernel",)),
+    ("es_train", "es_train", [], ("policy_rollout_kernel",)),
+    *((f"train --algo {a}", "train", ["--algo", a, "--iters", str(I_TRAIN_ITERS)], ())
+      for a in ("reinforce", "ppo", "mappo", "maddpg")),
+    ("train --algo maddpg --fused-collect", "train",
+     ["--algo", "maddpg", "--fused-collect", "--iters", str(I_TRAIN_ITERS)],
+     ("maddpg_traj_kernel", "maddpg_update_kernel")),
+    ("train --algo fused_ppo", "train", ["--algo", "fused_ppo", "--iters", str(I_TRAIN_ITERS)],
+     ("policy_traj_kernel", "ppo_update_kernel")),
+    ("train --algo fused_mappo", "train",
+     ["--algo", "fused_mappo", "--iters", str(I_TRAIN_ITERS)],
+     ("policy_traj_kernel", "mappo_update_kernel")),
+    (f"maddpg_run --updates {I_MADDPG_UPDATES}", "maddpg_run",
+     ["--updates", str(I_MADDPG_UPDATES)], ("maddpg_traj_kernel", "maddpg_update_kernel")),
+    ("render_policy", "render_policy", ["--checkpoint", I_RENDER_CKPT], ()),
+    ("crypto_demo", "crypto_demo", [], ()),
+)
+I_ES_LAUNCHES = 30 * 16              # es_train's defaults: 30 generations of 16 members
 
 # Kernel against plain version on the card, 20 steps. The library is built
 # with -fmad=false, so the dynamics round op for op as PyTorch's
@@ -2664,6 +2720,252 @@ def maddpg_learns_phase(wrappers) -> dict:
             "first_block_reward": blocks[0][1], "last_block_reward": blocks[-1][1]}
 
 
+# ---- path i: the side layers (renderer, policies, CLI, examples) -----------
+
+def expect_launches(wrappers: dict, label: str, kernels: tuple) -> dict:
+    """The launches of every kernel since the counts were zeroed: exactly
+    ``kernels`` launched, each at least once (none where it is empty)."""
+    counts = {name: w.launches for name, w in wrappers.items()}
+    launched = {k: n for k, n in counts.items() if n}
+    print(f"{label} launches: {launched or 'none'}")
+    assert set(launched) == set(kernels), \
+        f"{label}: launched {sorted(launched)}, expected {sorted(kernels)}"
+    return launched
+
+
+def check_frame(label: str, frame) -> None:
+    assert frame.shape == (700, 700, 3) and frame.dtype == np.uint8, \
+        f"{label}: a frame of {frame.shape} {frame.dtype}"
+    assert bool((frame < 250).any()), f"{label}: a blank frame"
+
+
+def alpha_invariant(frames, positions, color, size) -> float:
+    """Largest |pixel - (0.5 colour + 0.5 white)| at agent 0's centre, over
+    the frames where agent 0 lies inside the shared camera and no other
+    entity reaches its centre (positions [E, 2], sizes [E])."""
+    errs = []
+    expect = 0.5 * np.asarray(color, np.float64) * 255 + 0.5 * 255
+    for frame, pos in zip(frames, positions):
+        others = np.hypot(*(pos[1:] - pos[0]).T) - size[1:]
+        if np.abs(pos[0]).max() >= 0.99 or (others <= 3 / 350).any():
+            continue
+        cx, cy = int((pos[0, 0] + 1.0) / 2.0 * 700), int((1.0 - pos[0, 1]) / 2.0 * 700)
+        errs.append(float(np.abs(frame[cy, cx] - expect).max()))
+    assert errs, "no frame with agent 0 alone inside the camera"
+    return max(errs)
+
+
+def rendering_phase(wrappers) -> dict:
+    """i1: ``render("rgb_array")`` on the card after each of I_STEPS steps
+    of ``RandomPolicy`` actions on the nine scenarios (and after the reset),
+    every frame (700, 700, 3) uint8 and not blank; the last frame equal bit
+    for bit to the frame the same state draws on the CPU; agent 0 at alpha
+    0.5 on simple_spread; one per-agent-viewer env; the gymnasium adapter's
+    ``render`` -> ms per frame and per step by scenario (host clock)."""
+    import torch
+
+    from mpe_tpu_torch import make_env
+    from mpe_tpu_torch.policy import RandomPolicy
+
+    zero_launches(wrappers)
+    figures = {}
+    for name in ALL_SCENARIOS:
+        env = make_env(name, seed=0)
+        pols = [RandomPolicy(env, i, seed=0) for i in range(env.n)]
+        obs_n = env.reset()
+        frames, positions, frame_s, step_s = [], [], [], []
+        for t in range(I_STEPS + 1):
+            if t:
+                acts = [p.action(obs_n[i]) for i, p in enumerate(pols)]
+                t0 = time.perf_counter()
+                obs_n, rew_n, _, _ = env.step(acts)
+                step_s.append(time.perf_counter() - t0)
+                assert np.isfinite(rew_n).all(), f"i1 {name}: a reward is not finite"
+            t0 = time.perf_counter()
+            got = env.render("rgb_array")
+            frame_s.append(time.perf_counter() - t0)
+            assert len(got) == 1, f"i1 {name}: {len(got)} frames from a shared viewer"
+            check_frame(f"i1 {name} step {t}", got[0])
+            frames.append(got[0])
+            if name == "simple_spread":
+                positions.append(env.state.pos[0].cpu().numpy())
+        cpu = make_env(name, seed=0, device="cpu")
+        cpu.state = env.state.map(lambda x: x.cpu())
+        assert np.array_equal(cpu.render("rgb_array")[0], frames[-1]), \
+            f"i1 {name}: the frame of the state on the card differs from the frame on the CPU"
+        figures[name] = {"frame_ms": statistics.median(frame_s) * 1e3,
+                         "step_ms": statistics.median(step_s) * 1e3, "frames": len(frames)}
+        if name == "simple_spread":
+            color = env.scenario.entity_colors(env.state)[0, 0].cpu().numpy()
+            size = np.asarray(env.world_spec.size)
+            figures[name]["alpha_err"] = alpha_invariant(frames, positions, color, size)
+            assert figures[name]["alpha_err"] <= 1.0, \
+                f"i1 simple_spread: agent 0's centre {figures[name]['alpha_err']} off 0.5 alpha"
+        env.close()
+        print(f"i1 {name}: {len(frames)} frames equal on the card and the CPU at the last; "
+              f"{figures[name]['frame_ms']:.2f} ms per frame, {figures[name]['step_ms']:.3f} ms "
+              f"per step (medians, host clock)"
+              + (f"; agent 0 at alpha 0.5 within {figures[name]['alpha_err']:.1f}"
+                 if "alpha_err" in figures[name] else ""))
+
+    env = make_env(I_PER_AGENT, seed=0, shared_viewer=False)
+    env.reset()
+    got = env.render("rgb_array")
+    assert len(got) == env.n, f"i1 {I_PER_AGENT}: {len(got)} frames for {env.n} viewers"
+    for i, f in enumerate(got):
+        check_frame(f"i1 {I_PER_AGENT} viewer {i}", f)
+    assert any((got[0] != f).any() for f in got[1:]), "i1: the per-agent frames are all equal"
+    env.close()
+    print(f"i1 {I_PER_AGENT} (shared_viewer=False): one frame per agent ({len(got)}), "
+          "centred on each")
+
+    from mpe_tpu_torch.envs import gym_compat
+
+    if gym_compat.gymnasium is not None:
+        gym_env = gym_compat.GymnasiumMultiAgentEnv("simple_spread", render_mode="rgb_array")
+        gym_env.reset(seed=0)
+        how = "gymnasium installed"
+    else:
+        # gymnasium is not on this machine: the adapter's own render method
+        # on an instance given the env its constructor would make
+        gym_env = object.__new__(gym_compat.GymnasiumMultiAgentEnv)
+        gym_env._env, gym_env.render_mode = make_env("simple_spread", seed=0), "rgb_array"
+        gym_env._env.reset()
+        how = "gymnasium not installed: the adapter's render on an instance made without it"
+    check_frame("i1 GymnasiumMultiAgentEnv.render", gym_env.render())
+    print(f"i1 GymnasiumMultiAgentEnv(simple_spread, render_mode='rgb_array').render(): a "
+          f"(700, 700, 3) frame ({how})")
+    torch.cuda.synchronize()
+    expect_launches(wrappers, "i1 (rendering)", ())
+    return figures
+
+
+def policies_cli_phase(wrappers) -> dict:
+    """i2: ``InteractivePolicy`` under a key script steps simple_spread on the
+    card; ``python -m mpe_tpu_torch.interactive_cli`` as a subprocess on the
+    card -> its seconds."""
+    import os
+
+    from mpe_tpu_torch import make_env
+    from mpe_tpu_torch.policy import InteractivePolicy, ScriptedKeySource
+
+    zero_launches(wrappers)
+    env = make_env("simple_spread", seed=0)
+    pols = [InteractivePolicy(env, i, ScriptedKeySource(I_KEYS)) for i in range(env.n)]
+    obs_n = env.reset()
+    for keys in I_KEYS:
+        acts = [p.action(obs_n[i]) for i, p in enumerate(pols)]
+        want = np.zeros(5)
+        for k, j in (("left", 1), ("right", 2), ("down", 3), ("up", 4)):
+            want[j] += k in keys
+        want[0] = not want.any()
+        assert all(np.array_equal(a, want) for a in acts), f"i2: keys {keys} gave {acts[0]}"
+        obs_n, rew_n, _, _ = env.step(acts)
+        assert np.isfinite(rew_n).all()
+    print(f"i2 InteractivePolicy (ScriptedKeySource {list(I_KEYS)}) stepped simple_spread on "
+          f"the card: actions as the reference's key map, rewards {[round(r, 3) for r in rew_n]}")
+    cmd = [sys.executable, "-m", "mpe_tpu_torch.interactive_cli", *I_CLI]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                         text=True, timeout=I_CLI_TIMEOUT, env={**os.environ, "MPE_WINDOW": "0"})
+    seconds = time.perf_counter() - t0
+    assert out.returncode == 0, f"i2: the CLI exited {out.returncode}: {out.stderr[-2000:]}"
+    assert "t=4 rewards=" in out.stdout, f"i2: the CLI printed {out.stdout[-500:]!r}"
+    print(f"i2 python -m mpe_tpu_torch.interactive_cli {' '.join(I_CLI)}: exit 0 in "
+          f"{seconds:.2f} s (its start-up included); last line {out.stdout.splitlines()[-1]!r}")
+    expect_launches(wrappers, "i2 (policies, CLI)", ())
+    return {"cli_seconds": seconds}
+
+
+def figure_numbers(x) -> list:
+    """Every number in an example's figures, nested containers included."""
+    if isinstance(x, dict):
+        return [n for v in x.values() for n in figure_numbers(v)]
+    if isinstance(x, (list, tuple)):
+        return [n for v in x for n in figure_numbers(v)]
+    return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
+
+
+def run_example(wrappers, label: str, module: str, argv: list, kernels: tuple):
+    """One example's ``main(argv)`` in this process, its output kept and
+    printed indented (so no line of it starts like a JSON line of this
+    script) -> (figures, seconds, launches)."""
+    import contextlib
+    import importlib
+    import io
+
+    main_ = importlib.import_module(f"mpe_tpu_torch.examples.{module}").main
+    zero_launches(wrappers)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        seconds, figures = timed_sync(lambda: main_(argv))
+    for line in buf.getvalue().splitlines():
+        print(f"    | {line}")
+    numbers = figure_numbers(figures)
+    assert numbers and all(math.isfinite(n) for n in numbers), \
+        f"i3 {label}: figures not finite: {figures}"
+    launched = expect_launches(wrappers, f"i3 {label}", kernels)
+    print(f"i3 {label}: {seconds:.2f} s (host clock)")
+    return figures, seconds, launched
+
+
+def examples_phase(wrappers, generic_rate: float, k2_rate: float) -> dict:
+    """i3: every example of I_EXAMPLES in this process on the card, each
+    with the kernels it must launch; es_train's K4 launches at its defaults;
+    the crypto codebook on the card equal to the one on the CPU -> the
+    figures, seconds and launches by example."""
+    out = {}
+    for label, module, argv, kernels in I_EXAMPLES:
+        figures, seconds, launched = run_example(wrappers, label, module, argv, kernels)
+        out[label] = {"seconds": seconds, "launches": launched}
+        if module == "rollout":
+            rate = figures["env_steps_per_s"]
+            out[label]["env_steps_per_s"] = rate
+            print(f"i3 {label}: {rate / 1e6:.4f} M env-steps/s at {figures['env_steps']} "
+                  f"env-steps (host clock); path a: generic {generic_rate / 1e6:.4f}, K2 "
+                  f"{k2_rate / 1e6:.4f} M env-steps/s ({N_ENVS} envs x {N_STEPS} steps)")
+        elif module == "es_train":
+            n = launched["policy_rollout_kernel"]
+            assert n == I_ES_LAUNCHES, f"i3 es_train: {n} K4 launches, not {I_ES_LAUNCHES}"
+        elif module == "render_policy":
+            assert figures["frames"] == 75, f"i3 render_policy: {figures['frames']} frames"
+            out[label]["ms_per_frame"] = seconds / figures["frames"] * 1e3
+        elif module == "crypto_demo":
+            cpu, cpu_s, _ = run_example(wrappers, "crypto_demo --device cpu", module,
+                                        argv + ["--device", "cpu"], ())
+            assert figures["alice_codebook"] == cpu["alice_codebook"], \
+                f"i3 crypto_demo: codebook {figures['alice_codebook']} on the card, " \
+                f"{cpu['alice_codebook']} on the CPU"
+            out[label].update(codebook=figures["alice_codebook"],
+                              alice_logit_gap=figures["alice_logit_gap"], cpu_seconds=cpu_s)
+            print(f"i3 crypto_demo: Alice's codebook on the card equals the CPU's "
+                  f"({figures['alice_codebook']}); smallest gap between her top two message "
+                  f"logits {figures['alice_logit_gap']:.4g}")
+        if module in ("evaluate_policy", "maddpg_run", "train", "es_train"):
+            keep = {k: figures[k] for k in ("mean_return", "greedy", "greedy_per_agent",
+                                            "random_per_agent", "mean_return_by_generation",
+                                            "last") if k in figures}
+            out[label].update(keep)
+    return out
+
+
+def side_layers_path(wrappers, generic_rate: float, k2_rate: float) -> dict:
+    """Path i: the renderer, the keyboard and random policies, the
+    interactive CLI and the examples, on the card (i1-i3) -> figures by
+    phase, ``launches`` by sub-phase, the path's seconds."""
+    t_path = time.perf_counter()
+    figures = {"i1": rendering_phase(wrappers), "i2": policies_cli_phase(wrappers),
+               "i3": examples_phase(wrappers, generic_rate, k2_rate)}
+    for lib in ("PIL", "matplotlib"):
+        assert lib not in sys.modules, f"path i imported {lib}"
+    figures["seconds"] = time.perf_counter() - t_path
+    figures["launches"] = {f"i3 {k}": v["launches"] for k, v in figures["i3"].items()
+                           if v["launches"]}
+    print(f"path i (side layers): {figures['seconds']:.1f} s; kernel launches by example "
+          f"{figures['launches']}")
+    return figures
+
+
 # ---- path h: multi-device (torch.distributed) and checkpoint/trace ----------
 
 def kernel_wrappers() -> dict:
@@ -3299,6 +3601,13 @@ def main() -> int:
           + f"; g5 (vanilla, 64 envs) {g_figures['g5']['collect_ms'] + g_figures['g5']['update_ms']:.3f}"
           f" ({g_figures['g5']['collect_ms']:.3f} + {g_figures['g5']['update_ms']:.3f}); path d "
           f"(vanilla, {MADDPG['n_envs']} envs) {d_chunk:.3f}")
+    # path i: the side layers (renderer, policies, CLI, examples), before path
+    # h starts a process group; its launches go into the totals by sub-phase
+    i_figures = side_layers_path(wrappers, generic_rate,
+                                 N_ENVS * N_STEPS / (k2_ms_at[N_ENVS] * 1e-3))
+    for counts in i_figures["launches"].values():
+        for k, n in counts.items():
+            launches[k] += n
     zero_launches(wrappers)
 
     # ---- kernels against their plain versions -------------------------------
@@ -3578,10 +3887,13 @@ def main() -> int:
             row["hidden_widths_phase"] = {"seconds": hidden["seconds"],
                                           "launches": hidden["launches"],
                                           "trainer_max_abs_err": hidden["trainer_max_abs_err"]}
-    # path h per kernel: its launches by phase and rank, and for the gradient
-    # kernels the DP step's ms and the all_reduce of their gradient
+    # paths h and i per kernel: its launches by phase and rank (h) and by the
+    # example that launched it (i); for the gradient kernels the DP step's ms
+    # and the all_reduce of their gradient
     for row in kernels:
         row["path_h_launches"] = {p: c.get(row["name"], 0) for p, c in h_launches.items()}
+        row["path_i_launches"] = {p: c[row["name"]] for p, c in i_figures["launches"].items()
+                                  if row["name"] in c}
     dp_rows = {"ppo_update_kernel": ("PPO", "ppo_gradient"),
                "mappo_update_kernel": ("MAPPO", "mappo_gradient"),
                "maddpg_update_kernel": ("MADDPG", "maddpg_gradient")}

@@ -2,7 +2,7 @@
 
 The JAX package ``mpe_tpu`` stays the reference; this package imports
 nothing of it (nor JAX). Module names follow the JAX package so each
-counterpart is easy to find. Ported so far:
+counterpart is easy to find. It does all that the JAX package does:
 
 - the nine scenarios (``scenarios``), the batched functional env
   ``MpeEnv`` and ``build_rollout``;
@@ -18,6 +18,10 @@ counterpart is easy to find. Ported so far:
   (``envs.gym_compat``);
 - the learners: REINFORCE, PPO and MAPPO on the generic engine, greedy
   evaluation, ES, and the fused PPO, MAPPO and MADDPG trainers;
+- the side layers: the headless renderer (``render``; ``MultiAgentEnv.render``),
+  the random and keyboard policies (``policy``), the interactive CLI
+  (``python -m mpe_tpu_torch.interactive_cli``) and the example scripts
+  (``python -m mpe_tpu_torch.examples.<name>``);
 - all nine TPU kernels, written in CUDA for Hopper: the rollouts K1/K2
   (``ops/fused_parity``, ``ops/fused_rollout``; ``csrc/mpe_kernels.cu``),
   the trajectory K3 (``ops/fused_trajectory``; ``csrc/mpe_trajectory.cu``),

@@ -106,6 +106,9 @@ class MultiAgentEnv:
         self.seed(seed)
         self.state = None
         self.time = 0
+        self._viewers = [None] * (1 if shared_viewer else self.n)
+        self._render_geoms = None
+        self._render_xforms = None
 
     def seed(self, seed: int):
         self._generator = make_generator(seed, self.env.device)
@@ -113,6 +116,9 @@ class MultiAgentEnv:
     def reset(self) -> list[np.ndarray]:
         self.state, obs = self.env.reset(1, self._generator)
         self.time = 0
+        # drop cached render geoms (reference _reset_render, env.py:195-197)
+        self._render_geoms = None
+        self._render_xforms = None
         return self._split_obs(obs)
 
     def step(self, action_n: Sequence[Any]):
@@ -151,10 +157,20 @@ class MultiAgentEnv:
         ]
 
     def render(self, mode: str = "human"):
-        raise NotImplementedError("rendering is not ported yet (ROADMAP A13: render/)")
+        """One frame per viewer (``render.render_env``): ``(700, 700, 3)``
+        uint8 arrays for ``mode='rgb_array'``, else whether each viewer is
+        open."""
+        from mpe_tpu_torch.render import render_env
+
+        if self.state is None:
+            self.reset()
+        return render_env(self, mode)
 
     def close(self):
-        """Nothing to release: the port opens no viewer."""
+        for v in self._viewers:
+            if v is not None:
+                v.close()
+        self._viewers = [None] * len(self._viewers)
 
 
 class VecMultiAgentEnv:

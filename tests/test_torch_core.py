@@ -170,15 +170,17 @@ def test_port_imports_no_jax():
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
-    from mpe_tpu_torch import (MpeEnv, entry, fused_det_rollout, fused_spread_rollout, make_env,
-                               registry)
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from mpe_tpu_torch import (MpeEnv, entry, fused_det_rollout, fused_spread_rollout,
+                               interactive_cli, make_env, registry)
     from mpe_tpu_torch.envs import MultiAgentEnv, VecMultiAgentEnv, aec_env, parallel_env
     from mpe_tpu_torch.learner import (build_approx_runner, build_ensemble_runner, build_es_step,
                                        build_fused_maddpg_runner, build_maddpg, build_mappo_step,
                                        build_ppo_step, build_train_step, init_policy)
+    from mpe_tpu_torch.examples import rollout
     from mpe_tpu_torch.learner.eval import greedy_state_rollout
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+    from mpe_tpu_torch.render.video import record_gif
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scn = t_scenarios.load("simple_spread")
@@ -203,7 +205,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                       capacity=64),
                  lambda: build_fused_maddpg_runner("simple_spread", local_critic=True),
                  lambda: build_ensemble_runner("simple_tag", 3),
-                 lambda: build_approx_runner("simple_spread")):
+                 lambda: build_approx_runner("simple_spread"),
+                 lambda: interactive_cli.main(["--steps", "1", "--headless"]),
+                 lambda: record_gif("simple", str(tmp_path / "x.gif"), n_steps=2),
+                 lambda: rollout.main(["--n-envs", "8", "--n-steps", "2"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

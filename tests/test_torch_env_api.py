@@ -226,8 +226,8 @@ def test_make_env_step_contract_and_wrapper_surface():
     assert len(rew_n) == len(done_n) == len(info_n["n"]) == 3
     assert rew_n[0] == rew_n[1] == rew_n[2] and not any(done_n)
     assert info_n["n"] == [{}, {}, {}]            # benchmark off: no info
-    with pytest.raises(NotImplementedError, match="A13"):
-        env.render()
+    frames = env.render("rgb_array")
+    assert len(frames) == 1 and frames[0].shape == (700, 700, 3) and frames[0].dtype == np.uint8
     env.close()
     # step() before reset() initializes; seed() then reset() is deterministic
     fresh = make_env("simple", seed=5, device="cpu")

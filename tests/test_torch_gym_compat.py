@@ -35,8 +35,8 @@ def test_env_api_roundtrip():
     env2.reset(seed=0)
     for a, b in zip(obs_n, env2.step(act)[0]):
         np.testing.assert_allclose(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        GymnasiumMultiAgentEnv("simple", render_mode="rgb_array", device="cpu").render()
+    frame = GymnasiumMultiAgentEnv("simple", render_mode="rgb_array", device="cpu").render()
+    assert frame.shape == (700, 700, 3) and frame.dtype == np.uint8
 
 
 def test_register_and_make_with_time_limit():
