@@ -8,9 +8,10 @@ failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time (every source at hidden width 64 and the MLP sources
-     of K4-K9 also at 8, 16 and 32, one nvcc each, all at once) and the
-     compiler's register report;
-  2. fourteen main paths, each with every kernel's launch count set to 0 just
+     of K4-K9 and K6-bf16/K7-bf16 also at 8, 16 and 32, one nvcc each, all at
+     once), the compiler's register report and the HMMA instructions that
+     cuobjdump -sass finds in each bf16 update library (each must hold some);
+  2. fifteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -38,6 +39,12 @@ failure ends the run with a non-zero exit code:
           factor), timed and checked the same way;
        b4. MAPPO on simple_speaker_listener (a silent listener, a speaker of
           dim_c 3, joint obs 22) at the same width, 20 iterations (K5, K7);
+       b5. the bf16 compute path (compute_dtype=torch.bfloat16, the JAX
+          package's default on a TPU): PPO and MAPPO on simple_spread at path
+          b's width, 20 iterations each, timed by phase as b and b2; each
+          launches exactly K5 once and K6-bf16 (K7-bf16) 4 times an
+          iteration, and no float32 update kernel; the last iteration's mean
+          reward and entropy printed beside paths b's and b2's (not gated);
        c. evaluation (kernel K4), 4096 envs x 1000 steps, horizon 25: the
           trained simple_spread actor of path b, path b3's actor on
           simple_reference and the committed MAPPO actor of
@@ -186,7 +193,16 @@ failure ends the run with a non-zero exit code:
      scenario's K5 batch of its trainer at 4096 envs x 64 steps and on the
      same batch with both clips binding (K7's critic compiled for each
      scenario's joint width, simple_world_comm's 204 among them); one whole trainer iteration of each (params and
-     metrics) against the same iteration with the plain versions; K8 on
+     metrics) against the same iteration with the plain versions; K6-bf16
+     and K7-bf16 on the trainer's batch (path b5's params on simple_spread, a
+     fresh bf16 trainer's on simple_reference and simple_speaker_listener) and
+     on it with both clips binding, each leaf within 1e-3 of its largest
+     entry of the plain bf16 version (BF16_GRAD_TOL), the distance to the
+     plain float32 version printed, the epoch-0 max |ratio - 1| each kernel
+     sees (one sample at a time from its pg metric, beside the float32
+     kernel's), each timed by CUDA events and torch.profiler beside the
+     float32 kernel on the same batch, its plain version and autograd of the
+     plain bf16 loss; K8 on
      all nine scenarios at 1024 envs x 25 steps, two block offsets, with
      the actor of the scenario's committed checkpoints/maddpg_*.npz (and
      the trained actor of path d, d2 or d3), in both output forms, and at
@@ -216,7 +232,8 @@ failure ends the run with a non-zero exit code:
      25): K5 and K4 (an init_policy actor of that width, O(1) logits) with
      actions equal, values within 1e-5 and another tile equal bit for bit;
      K6 and K7 on the batch of a trainer of that width and on it with both
-     clips binding, each leaf within 1e-4 of its largest entry; K8 at 1024
+     clips binding, each leaf within 1e-4 of its largest entry, and K6-bf16
+     and K7-bf16 the same way within 1e-3 of the plain bf16 version; K8 at 1024
      envs x 25 steps (eps 0.1) with actions equal, another tile equal bit for
      bit, and K9 on 1024 of its rows (target actions equal, leaves within
      1e-4); then, launch counts zeroed before each and read after, one
@@ -251,7 +268,9 @@ failure ends the run with a non-zero exit code:
      by phase, its launches there by scenario and the sub-sliced gate's
      error, K9 its launches in each phase of path g; every row its launches
      in path h by phase and rank and in path i by example, K6, K7 and K9 the DP step's ms and their
-     gradient's all_reduce ms there), the
+     gradient's all_reduce ms there; K6-bf16 and K7-bf16 rows with their
+     HMMA counts, path b5's phases and last metrics, and by scenario the
+     float32 kernel's times and epoch-0 ratio beside theirs), the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -322,6 +341,12 @@ UPDATE_TILE = {"threads": 256, "samples_per_tile": 64,
                              "1 x 2 at 8)",
                "weight_grad_micro_tile": "4 x 4 (dW2), 4 x ceil(IN/16) (dW1) at hidden 64",
                "staging": "cp.async, two stages where they fit"}
+BF16_TILE = {"threads": 256, "samples_per_tile": 64,
+             "ctas_per_sm": "2 where they fit (not the 204-wide critic)",
+             "products": "mma.sync m16n8k16 bf16, float32 sums: a warp's 8 samples x every "
+                         "16-unit block (forward, backward); (16 x 8) gradient tiles dealt to the "
+                         "warps",
+             "staging": "cp.async, two stages where they fit"}
 POLICY_TILE_RULE = ("ops/fused_policy.py::pick_tile (policy_tile for K4 and K5, "
                     "fused_maddpg.py::maddpg_tile for K8): env lanes per 128-thread CTA, the "
                     "smallest tile whose grid runs in one wave (the CTAs an SM holds, as the "
@@ -357,6 +382,13 @@ HIDDEN_NAMES = ("simple_spread", "simple_speaker_listener")
 HIDDEN_GATE = dict(n_envs=1024, n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
 HIDDEN_TRAINERS = (("PPO", 16), ("MAPPO", 32))
 HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
+# path b5: the bf16 compute path (compute_dtype=torch.bfloat16, JAX's default
+# on a TPU and so tools/train_bench.py's recipe there): PPO and MAPPO on
+# simple_spread at TRAIN's width (K5, K6-bf16 / K7-bf16), and the bf16 kernels
+# held to their plain bf16 versions on spread and one comm head each
+BF16_TRAINERS = (("PPO-bf16", "ppo"), ("MAPPO-bf16", "mappo"))
+BF16_NAMES = {"ppo": ("simple_spread", COMM_PPO), "mappo": ("simple_spread", COMM_MAPPO)}
+BF16_PROBE_ENVS = 128           # the epoch-0 ratio probe: this many single-env batches
 # path f: the env API at the verify recipe's calls (make_env on simple_spread
 # with benchmark info, VecMultiAgentEnv at 4096 envs), every registry id, the
 # PettingZoo adapters at PettingZoo's default max_cycles, and the non-fused
@@ -448,6 +480,14 @@ TOL = {"pos": 1e-5, "vel": 1e-5, "rew_sum": 1e-4, "rew": 1e-5, "obs": 1e-5, "obs
 # epoch-0 batch) the pg mean is 0 up to rounding, since the advantages are
 # normalized: it is gated on a batch where the clips bind
 GRAD_TOL, METRIC_RTOL = 1e-4, 1e-4
+# K6-bf16 and K7-bf16 round each product's operands to bf16 as their plain
+# versions do, but an operand whose float32 value the two computed in another
+# order (the mma's sums against the plain einsum's) can round a whole bf16 ulp
+# (2^-8) the other way; a leaf's largest entry is a sum with much
+# cancellation. Measured before this gate was set: 4.5e-4 on the host-built
+# kernels (tests/test_torch_bf16_host.py), 4.0e-4 between the plain version
+# and JAX's bf16 kernel (tests/test_torch_bf16.py)
+BF16_GRAD_TOL = 1e-3
 
 # H100 SXM at its 700 W limit: 3.35 TB/s of HBM; 132 SMs at a 1.98 GHz boost
 # clock, each completing per clock 128 fp32 operations, a fused multiply-add
@@ -457,8 +497,11 @@ GRAD_TOL, METRIC_RTOL = 1e-4, 1e-4
 # table, compute capability 9.0).
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCKS_PER_S = 132 * 1.98e9
-PER_CLOCK = {"fp32": 128, "sfu": 16, "int": 64, "cvt": 16}
+PER_CLOCK = {"fp32": 128, "sfu": 16, "int": 64, "cvt": 16, "tc_bf16": 1892}
 DISPATCH_PER_CLOCK = 128        # 4 schedulers x one 32-lane instruction each
+# tc_bf16: bf16 multiply-adds on the tensor cores, the data sheet's 989 TFLOP/s
+# dense over the 132 SMs at the clock above (989e12 / 2 / (132 x 1.98e9)); a
+# packed float32 -> bf16 conversion (two values) is one "cvt"
 
 
 def _ops(*terms: tuple[int, dict]) -> dict:
@@ -554,6 +597,30 @@ def update_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
                 (1 if comm else 0, {"fp32": 14 * comm, "sfu": comm + 2}),
                 (1, {"fp32": 64 * (n_out + 2) + 64 * 64 + 64 * 2}),
                 (1, {"fp32": 64 * n_in + 64 * 64 + n_out * 64 + 128 + n_out}))
+
+
+def update_bf16_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
+    """K6-bf16 or K7-bf16's actor pass per sample (csrc/mpe_update_bf16.cu):
+    ``update_sample``'s function with every product on the tensor cores as
+    bf16 multiply-adds: the forward's 64 (n_in + 64) + n_out 64, the
+    backward's 64 n_out + 64 x 64 and the weight gradients' 64 (n_in + 64) +
+    n_out 64; the forward's bias adds (128 + n_out), both tanh layers, the
+    head, the backward's 1 - h^2 and products (64 x 4) and the bias sums (128
+    + n_out) in fp32; each product's operand rounded once per value (x, h1,
+    h2, g3, gh2, gh1: n_in + 256 + n_out values, two a conversion)."""
+    return _ops((1, {"tc_bf16": 2 * 64 * n_in + 3 * 64 * 64 + 3 * 64 * n_out,
+                     "fp32": 2 * (128 + n_out) + 64 * 4, "cvt": (n_in + 256 + n_out + 1) // 2}),
+                (128, TANH), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
+                (1 if comm else 0, {"fp32": 14 * comm, "sfu": comm + 2}))
+
+
+def critic_bf16_sample(n_in: int) -> dict:
+    """K7-bf16's critic pass per (t, env) sample: ``critic_sample``'s
+    function with the products on the tensor cores, as
+    ``update_bf16_sample`` with one output and the value clip's 13 fp32."""
+    return _ops((1, {"tc_bf16": 2 * 64 * n_in + 3 * 64 * 64 + 3 * 64,
+                     "fp32": 2 * 129 + 64 * 4 + 13, "cvt": (n_in + 257 + 1) // 2}),
+                (128, TANH))
 
 
 def critic_sample(n_in: int) -> dict:
@@ -820,6 +887,11 @@ def add_policy_ops() -> None:
                                              "reset": {}, "env": {}}
         OPS[f"mappo_update_kernel[{name}]"] = {"step": update_sample(ow, 5 + c, c, False),
                                                "reset": critic_sample(a * ow), "env": {}}
+        OPS[f"ppo_update_bf16_kernel[{name}]"] = {"step": update_bf16_sample(ow, 6 + c, c, True),
+                                                  "reset": {}, "env": {}}
+        OPS[f"mappo_update_bf16_kernel[{name}]"] = {
+            "step": update_bf16_sample(ow, 5 + c, c, False), "reset": critic_bf16_sample(a * ow),
+            "env": {}}
         OPS[f"maddpg_traj_kernel[{name}]"] = maddpg_ops(name)
         OPS[f"maddpg_update_kernel[{name}]"] = maddpg_update_ops(name)
 
@@ -834,7 +906,9 @@ def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
     total = _ops((env_steps, ops["step"]), (resets, ops["reset"]), (envs, ops["env"]))
     t_ops = max(total[k] / (PER_CLOCK[k] * SM_CLOCKS_PER_S) for k in PER_CLOCK)
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_issue = sum(total.values()) / (DISPATCH_PER_CLOCK * SM_CLOCKS_PER_S)
+    # (a tensor-core instruction issues thousands of multiply-adds: not counted)
+    t_issue = sum(v for k, v in total.items() if k != "tc_bf16") / (
+        DISPATCH_PER_CLOCK * SM_CLOCKS_PER_S)
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), 1e3 * t_issue
 
 
@@ -922,9 +996,10 @@ def same_bits(label: str, got, want) -> None:
     print(f"{label}: every output equal bit for bit")
 
 
-def check_update(label: str, update, params, batch, gated: tuple[str, ...]) -> float:
+def check_update(label: str, update, params, batch, gated: tuple[str, ...],
+                 tol: float = GRAD_TOL) -> float:
     """K6 against its plain version on ``batch``: each gradient leaf within
-    GRAD_TOL of its largest entry and the metric means named in ``gated``
+    ``tol`` of its largest entry and the metric means named in ``gated``
     within METRIC_RTOL -> the largest abs error of a leaf."""
     got, got_m = update(params, *batch)
     ref, ref_m = update.plain(params, *batch)
@@ -938,7 +1013,7 @@ def check_update(label: str, update, params, batch, gated: tuple[str, ...]) -> f
     print(f"{label} max abs err vs plain over each leaf's largest entry: "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + "; metrics kernel vs plain: "
           + ", ".join(f"{k} {float(a):.8g} vs {float(b):.8g}" for k, (a, b) in metrics.items()))
-    assert max(errs.values()) <= GRAD_TOL, f"{label}: the gradient disagrees with its plain version"
+    assert max(errs.values()) <= tol, f"{label}: the gradient disagrees with its plain version"
     assert all(abs(float(a) - float(b)) <= METRIC_RTOL * abs(float(b))
                for k, (a, b) in metrics.items() if k in gated), \
         f"{label}: the metrics disagree with their plain version"
@@ -1098,7 +1173,40 @@ def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
         print(f"{label} iter {i}: mean_reward {m['mean_reward']:.6f}, entropy "
               f"{m['entropy']:.6f}, loss {m['loss']:.6f}, pg_loss {m['pg_loss']:.6f}, v_loss "
               f"{m['v_loss']:.6f}")
-    return launches, step, state0, state, {k: v / len(steady) for k, v in phase_ms.items()}
+    return (launches, step, state0, state, {k: v / len(steady) for k, v in phase_ms.items()},
+            iters[-1][2])
+
+
+def bf16_path(wrappers, f32_last: dict) -> dict:
+    """Path b5 (the module docstring): TRAIN_ITERS iterations of the PPO and
+    MAPPO trainers with ``compute_dtype=torch.bfloat16`` on simple_spread at
+    TRAIN's width, timed by phase as paths b and b2; each launches K5 once and
+    its bf16 update kernel ``ppo_epochs`` times an iteration, and no other
+    kernel. The last iteration's mean reward is printed beside the float32
+    path's (``f32_last``, not gated) -> {kind: (launches, step, state0, state,
+    phases, last metrics)}."""
+    import functools
+
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    out = {}
+    for label, kind in BF16_TRAINERS:
+        build = functools.partial(build_fused_ppo_step if kind == "ppo" else
+                                  build_fused_mappo_step, compute_dtype=torch.bfloat16)
+        kernel = f"{kind}_update_bf16_kernel"
+        out[kind] = training_path(wrappers, kernel_scenario("simple_spread"), build,
+                                  f"{label} (simple_spread)", ["policy_traj_kernel", kernel])
+        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        want = {"policy_traj_kernel": TRAIN_ITERS, kernel: TRAIN_ITERS * TRAIN["ppo_epochs"]}
+        assert launched == want, f"{label}: launched {launched}, expected exactly {want}"
+        last, ref = out[kind][5], f32_last[kind]
+        print(f"{label} (simple_spread): iteration {TRAIN_ITERS - 1} mean_reward "
+              f"{last['mean_reward']:.6f} beside the float32 path's {ref['mean_reward']:.6f}, "
+              f"entropy {last['entropy']:.6f} beside {ref['entropy']:.6f} (not gated)")
+    return out
 
 
 def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CHUNKS):
@@ -1398,6 +1506,79 @@ def update_batches(step, params, label: str):
             (obs, mv_oh, cm_oh, logp_old, value, adv_n, ret))
 
 
+def update_bound(kernel: str, name: str, batch) -> tuple[float, str, float]:
+    """``bound_ms`` of one epoch gradient of ``kernel`` (K6, K7 or their bf16
+    twins: OPS by sample) on ``batch``: K6 reads obs, the one-hots, logp_old,
+    adv, ret and value per sample, K7 the first four per (t, agent, env) and
+    the team's three per (t, env); both read their weights and write the
+    gradient once."""
+    a, ow, c, _, _ = widths(name)
+    t, n = batch[0].shape[0], batch[0].shape[3]
+    per_sample = ow + 5 + c + 1                       # obs, one-hots, logp_old
+    if kernel.startswith("ppo"):
+        n_w = 64 * (ow + 64 + 6 + c) + 128 + 6 + c
+        return bound_ms(OPS[f"{kernel}[{name}]"], t * a * n, 0, 0,
+                        t * a * n * (per_sample + 3) * 4 + 2 * n_w * 4)
+    n_w = 64 * (ow + 64 + 5 + c) + 133 + c + 64 * (a * ow + 64 + 1) + 129
+    return bound_ms(OPS[f"{kernel}[{name}]"], t * a * n, t * n, 0,
+                    t * a * n * per_sample * 4 + t * n * 3 * 4 + 2 * n_w * 4)
+
+
+def leaf_errors(got, ref) -> dict:
+    """Each gradient leaf's largest abs error over its largest entry."""
+    return {f"{k}.{q}": max_err(got[k][q], ref[k][q]) / float(ref[k][q].abs().max())
+            for k in ref for q in ref[k]}
+
+
+def fmt_ms(x) -> str:
+    return x if isinstance(x, str) else f"{x:.4f} ms"
+
+
+def update_device_ms(fn, launches: int) -> float | str:
+    """One call of ``fn`` under torch.profiler after a warm-up: the device ms
+    of the ``launches`` update kernels it launches (every kernel whose name
+    holds "update": the passes and their reduces), or "not measured" where
+    the profiler kept a record of fewer of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "update" in e.key]
+    if sum(e.count for e in dev) != launches:
+        return "not measured"
+    return sum(device_us(e) for e in dev) / 1e3
+
+
+def epoch0_ratio_dev(update_fn, params, batch, hp: dict) -> float:
+    """max |ratio - 1| that an update kernel's own forward sees against the
+    trainer's logp_old at epoch 0, read one sample at a time from its pg
+    metric: BF16_PROBE_ENVS single-env, single-step batches (t = 0), the
+    advantage 1 and every other agent's logp_old lowered by 10, so that
+    their ratios clip at 1 + clip and pg = -(r_i + (A - 1)(1 + clip)) / A."""
+    import torch
+
+    obs, mv_oh, cm_oh, lpo, adv, ret, vold = batch
+    a = obs.shape[1]
+    worst = 0.0
+    for n in range(BF16_PROBE_ENVS):
+        def one(x):
+            return None if x is None else x[:1, ..., n:n + 1].contiguous()
+
+        for i in range(a):
+            lp = one(lpo).clone()
+            lp[:, [j for j in range(a) if j != i]] -= 10.0
+            _, (pg, _, _) = update_fn(params, one(obs), one(mv_oh), one(cm_oh), lp,
+                                      torch.ones_like(one(adv)), one(ret), one(vold), **hp)
+            r = -a * float(pg) - (a - 1) * (1.0 + hp["clip"])
+            worst = max(worst, abs(r - 1.0))
+    return worst
+
+
 def check_update_kernels(kind: str, trained: dict) -> dict:
     """K6 (``kind`` "ppo") or K7 ("mappo") on every scenario: the trainer's
     batch at TRAIN's width from the params of ``trained`` ({scenario:
@@ -1427,23 +1608,84 @@ def check_update_kernels(kind: str, trained: dict) -> dict:
         ms, _ = cuda_time(lambda: step.update(params, *batch), REPEATS)
         plain_ms, _ = cuda_time(lambda: step.update.plain(params, *batch), REPEATS)
         lib_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
-        a, ow, c, _, _ = widths(name)
-        t, n = batch[0].shape[0], batch[0].shape[3]
-        per_sample = ow + 5 + c + 1                   # obs, one-hots, logp_old
-        if kind == "ppo":
-            n_w = 64 * (ow + 64 + 6 + c) + 128 + 6 + c
-            bound = bound_ms(OPS[f"ppo_update_kernel[{name}]"], t * a * n, 0, 0,
-                             t * a * n * (per_sample + 3) * 4 + 2 * n_w * 4)
-        else:
-            n_w = 64 * (ow + 64 + 5 + c) + 133 + c + 64 * (a * ow + 64 + 1) + 129
-            bound = bound_ms(OPS[f"mappo_update_kernel[{name}]"], t * a * n, t * n, 0,
-                             t * a * n * per_sample * 4 + t * n * 3 * 4 + 2 * n_w * 4)
-        print(f"{label} ({name}) {ms:.4f} ms (one epoch, {t * a * n} policy samples), plain "
-              f"{plain_ms:.3f} ms, autograd of the trainer's loss {lib_ms:.3f} ms; bound "
+        bound = update_bound(f"{kind}_update_kernel", name, batch)
+        print(f"{label} ({name}) {ms:.4f} ms (one epoch, {batch[3].numel()} policy samples), "
+              f"plain {plain_ms:.3f} ms, autograd of the trainer's loss {lib_ms:.3f} ms; bound "
               f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x); issue floor "
               f"{bound[2]:.4f} ms")
         rows[name] = (err, ms, plain_ms, lib_ms, bound)
         del batch, clipped, lib_batch
+    return rows
+
+
+def check_bf16_kernels(trained: dict) -> dict:
+    """K6-bf16 and K7-bf16 on BF16_NAMES (spread and a comm head each), on the
+    trainer's batch at TRAIN's width from the params of ``trained`` ({kind:
+    (step, params)}, path b5's trainers on simple_spread) or of a fresh bf16
+    trainer's init: gated against the plain bf16 version there and on the
+    clip-binding batch (each leaf within BF16_GRAD_TOL of its largest entry),
+    the distance to the plain float32 version printed beside; the epoch-0
+    ratio each kernel sees (``epoch0_ratio_dev``, beside the float32 kernel's
+    on the same batch); kernel, plain version, autograd of the plain bf16
+    loss and the float32 kernel timed by CUDA events and by torch.profiler
+    -> {kind: {scenario: row}}."""
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.ops import fused_update
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    rows = {}
+    for kind, names in BF16_NAMES.items():
+        build = build_fused_ppo_step if kind == "ppo" else build_fused_mappo_step
+        label = "K6-bf16" if kind == "ppo" else "K7-bf16"
+        rows[kind] = {}
+        for i, name in enumerate(names):
+            step, params = trained.get((kind, name)) or (None, None)
+            if step is None:
+                step = build(name, compute_dtype=torch.bfloat16, **TRAIN)
+                params = step.init_params(torch.Generator().manual_seed(30 + i))
+            s32 = build(name, **TRAIN)
+            tag = f"{label} ({name})"
+            batch, clipped, lib_batch = update_batches(step, params, tag)
+            gated = ("vloss", "entropy")
+            err = max(check_update(f"{tag}, trainer batch", step.update, params, batch, gated,
+                                   BF16_GRAD_TOL),
+                      check_update(f"{tag}, clip-binding batch", step.update, params, clipped,
+                                   ("pg",) + gated, BF16_GRAD_TOL))
+            got, _ = step.update(params, *clipped)
+            near = max(leaf_errors(got, step.update.plain(params, *clipped)[0]).values())
+            far = max(leaf_errors(got, s32.update.plain(params, *clipped)[0]).values())
+            print(f"{tag}, clip-binding batch: the largest leaf error against the plain bf16 "
+                  f"version {near:.3g}, against the plain float32 version {far:.3g}")
+            hp = dict(clip=TRAIN["clip"], vf_coef=TRAIN["vf_coef"], ent_coef=TRAIN["ent_coef"],
+                      speak=kernel_scenario(name).speak)
+            bf16_fn, f32_fn = ((fused_update.ppo_update_bf16_cuda, fused_update.ppo_update_cuda)
+                               if kind == "ppo" else (fused_update.mappo_update_bf16_cuda,
+                                                      fused_update.mappo_update_cuda))
+            ratio = epoch0_ratio_dev(bf16_fn, params, batch, hp)
+            ratio32 = epoch0_ratio_dev(f32_fn, params, batch, hp)
+            print(f"{tag}: epoch-0 max |ratio - 1| over {BF16_PROBE_ENVS} envs x every agent "
+                  f"(t = 0): {ratio:.3g}; the float32 kernel's on the same batch {ratio32:.3g}")
+            ms, _ = cuda_time(lambda: step.update(params, *batch), REPEATS)
+            plain_ms, _ = cuda_time(lambda: step.update.plain(params, *batch), REPEATS)
+            lib_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
+            ms32, _ = cuda_time(lambda: s32.update(params, *batch), REPEATS)
+            passes = 2 if kind == "ppo" else 4                # K6: pass, reduce; K7: two of each
+            dev = update_device_ms(lambda: step.update(params, *batch), passes)
+            dev32 = update_device_ms(lambda: s32.update(params, *batch), passes)
+            bound = update_bound(f"{kind}_update_bf16_kernel", name, batch)
+            print(f"{tag} {ms:.4f} ms a call (device {fmt_ms(dev)}), the float32 kernel "
+                  f"{ms32:.4f} ms (device {fmt_ms(dev32)}); plain {plain_ms:.3f} ms, autograd of "
+                  f"the plain bf16 loss {lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+                  f"({ms / bound[0]:.2f}x); issue floor {bound[2]:.4f} ms")
+            rows[kind][name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+                                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound[0],
+                                "bound_by": bound[1], "float32_kernel_ms": ms32,
+                                "float32_kernel_device_ms": dev32, "epoch0_max_ratio_dev": ratio,
+                                "float32_kernel_epoch0_max_ratio_dev": ratio32,
+                                "leaf_err_vs_plain_float32": far}
+            del batch, clipped, lib_batch, s32
     return rows
 
 
@@ -1619,7 +1861,8 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
     scenario ``name`` (K4, K5, K8: its struct, KernelX's XScn in
     csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 5, C>, K7 then
     its critic <A * OW, 0, 0>; K9: its four kernels on MaddpgDims<A, OW,
-    C>, in the compiler's order), or []; K1, K2 and K3 (``det_rollout_kernel``,
+    C>, in the compiler's order; K6-bf16, K7-bf16: ``ppo_bf16``,
+    ``mappo_bf16``, as K6's and K7's), or []; K1, K2 and K3 (``det_rollout_kernel``,
     ``scenario_rollout_kernel``, ``trajectory_kernel``): {group G: [registers,
     spill bytes]} of their <XScn, G> instantiations."""
     import re
@@ -1634,15 +1877,33 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
         a, ow, c, _, _ = widths(name)
         key = f"MaddpgDimsILi{a}ELi{ow}ELi{c}EE"
         return [v for k, v in regs.items() if key in k]
-    if kernel in ("ppo", "mappo"):
+    if kernel in ("ppo", "mappo", "ppo_bf16", "mappo_bf16"):
         a, ow, c, _, _ = widths(name)
-        flags = {"ppo": "ELb1ELb0E", "mappo": "ELb0ELb1E"}[kernel]
-        keys = [f"ppo_update_kernelILi{ow}ELi5ELi{c}{flags}"]
-        if kernel == "mappo":
-            keys.append(f"ppo_update_kernelILi{a * ow}ELi0ELi0ELb1ELb0E")
+        kind, _, dtype = kernel.partition("_")
+        entry = "ppo_update_bf16_kernel" if dtype else "ppo_update_kernel"
+        flags = {"ppo": "ELb1ELb0E", "mappo": "ELb0ELb1E"}[kind]
+        keys = [f"{entry}ILi{ow}ELi5ELi{c}{flags}"]
+        if kind == "mappo":
+            keys.append(f"{entry}ILi{a * ow}ELi0ELi0ELb1ELb0E")
         return [v for key in keys for k, v in regs.items() if key in k]
     key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnE"
     return [v for k, v in regs.items() if kernel in k and key in k]
+
+
+def hmma_counts(widths_: tuple) -> dict:
+    """{hidden: HMMA instructions} in the SASS of the bf16 update library at
+    each width (``cuobjdump -sass``); each must hold some."""
+    from mpe_tpu_torch.ops import _build
+
+    cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
+    out = {}
+    for h in widths_:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._target("mpe_update_bf16.cu", h))],
+                              capture_output=True, text=True, check=True).stdout
+        out[h] = sum("HMMA" in line for line in sass.splitlines())
+    print(f"HMMA instructions in the SASS of mpe_update_bf16.cu by hidden width: {out}")
+    assert all(n > 0 for n in out.values()), f"a bf16 update library has no HMMA: {out}"
+    return out
 
 
 def replay_rows(obs, act, rew, obs2):
@@ -2120,8 +2381,10 @@ def hidden_widths_phase(wrappers) -> dict:
     g = HIDDEN_GATE
     n, steps, hor = g["n_envs"], g["n_steps"], g["horizon"]
     kernels = ("policy_traj_kernel", "policy_rollout_kernel", "ppo_update_kernel",
-               "mappo_update_kernel", "maddpg_traj_kernel", "maddpg_update_kernel")
+               "mappo_update_kernel", "maddpg_traj_kernel", "maddpg_update_kernel",
+               "ppo_update_bf16_kernel", "mappo_update_bf16_kernel")
     out = {k: {} for k in kernels}
+    bf16 = torch.bfloat16
     for h in HIDDEN_PHASE:
         errs = {k: out[k].setdefault(h, {}) for k in kernels}
         for i, name in enumerate(HIDDEN_NAMES):
@@ -2159,18 +2422,24 @@ def hidden_widths_phase(wrappers) -> dict:
                       policy_rollout_cuda(kscn, weights, n, steps, hor, g["block_envs"], 6, 0,
                                           "cuda", tile=alt), got)
             del got, ref
-            # K6 and K7 on the batch of a trainer of this width
-            for kernel, label, build in (("ppo_update_kernel", "K6", build_fused_ppo_step),
-                                         ("mappo_update_kernel", "K7", build_fused_mappo_step)):
-                step = build(name, **dict(TRAIN, n_envs=n, horizon=hor, hidden=h))
+            # K6 and K7, and their bf16 twins, on the batch of a trainer of this width
+            for kernel, label, build, cd, tol in (
+                    ("ppo_update_kernel", "K6", build_fused_ppo_step, None, GRAD_TOL),
+                    ("mappo_update_kernel", "K7", build_fused_mappo_step, None, GRAD_TOL),
+                    ("ppo_update_bf16_kernel", "K6-bf16", build_fused_ppo_step, bf16,
+                     BF16_GRAD_TOL),
+                    ("mappo_update_bf16_kernel", "K7-bf16", build_fused_mappo_step, bf16,
+                     BF16_GRAD_TOL)):
+                step = build(name, compute_dtype=cd, **dict(TRAIN, n_envs=n, horizon=hor,
+                                                             hidden=h))
                 params = step.init_params(torch.Generator().manual_seed(50 + h + i))
                 batch, clipped, _ = update_batches(step, params, f"{label} ({tag})")
                 gated = ("vloss", "entropy")
                 errs[kernel][name] = max(
                     check_update(f"{label} ({tag}, trainer batch)", step.update, params, batch,
-                                 gated),
+                                 gated, tol),
                     check_update(f"{label} ({tag}, clip-binding batch)", step.update, params,
-                                 clipped, ("pg",) + gated))
+                                 clipped, ("pg",) + gated, tol))
                 del batch, clipped
             # K8 and K9: MADDPG nets of this width, the actor's head at O(1)
             mp = {k: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
@@ -2969,20 +3238,24 @@ def side_layers_path(wrappers, generic_rate: float, k2_rate: float) -> dict:
 # ---- path h: multi-device (torch.distributed) and checkpoint/trace ----------
 
 def kernel_wrappers() -> dict:
-    """The nine kernels' wrappers, whose counters the paths read."""
+    """The nine kernels' wrappers and K6-bf16's and K7-bf16's, whose counters
+    the paths read."""
     from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
     from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda
     from mpe_tpu_torch.ops.fused_parity import det_rollout_cuda
     from mpe_tpu_torch.ops.fused_policy import policy_rollout_cuda, policy_traj_cuda
     from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
     from mpe_tpu_torch.ops.fused_trajectory import trajectory_cuda
-    from mpe_tpu_torch.ops.fused_update import mappo_update_cuda, ppo_update_cuda
+    from mpe_tpu_torch.ops.fused_update import (mappo_update_bf16_cuda, mappo_update_cuda,
+                                                ppo_update_bf16_cuda, ppo_update_cuda)
 
     return {"scenario_rollout_kernel": rollout_cuda, "trajectory_kernel": trajectory_cuda,
             "det_rollout_kernel": det_rollout_cuda, "policy_traj_kernel": policy_traj_cuda,
             "policy_rollout_kernel": policy_rollout_cuda, "ppo_update_kernel": ppo_update_cuda,
             "mappo_update_kernel": mappo_update_cuda, "maddpg_traj_kernel": maddpg_traj_cuda,
-            "maddpg_update_kernel": maddpg_update_cuda}
+            "maddpg_update_kernel": maddpg_update_cuda,
+            "ppo_update_bf16_kernel": ppo_update_bf16_cuda,
+            "mappo_update_bf16_kernel": mappo_update_bf16_cuda}
 
 
 def h_maddpg_init(seed: int = 0):
@@ -3508,6 +3781,7 @@ def main() -> int:
     regs = ptxas_registers({k: v for k, v in logs.items() if isinstance(k, str)})
     regs_at = {h: ptxas_registers({k: v for k, v in logs.items() if k[1:] == (h,)})
                for h in HIDDEN_PHASE}
+    hmma = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE)
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
@@ -3520,12 +3794,12 @@ def main() -> int:
     # path's launches are read just after it, by instantiation where the
     # kernel is a template over the scenarios
     k5_by, k6_by, k7_by = {}, {}, {}
-    trainers, collect_ms, iter_ms = {}, {}, {}
+    trainers, collect_ms, iter_ms, last_metrics = {}, {}, {}, {}
     for label, name, build, update in (("train", "simple_spread", build_fused_ppo_step, "ppo"),
                                        ("MAPPO", "simple_spread", build_fused_mappo_step, "mappo"),
                                        ("comm PPO", COMM_PPO, build_fused_ppo_step, "ppo"),
                                        ("comm MAPPO", COMM_MAPPO, build_fused_mappo_step, "mappo")):
-        path_launches, step_, state0_, state_, phases_ = training_path(
+        path_launches, step_, state0_, state_, phases_, last_metrics[label] = training_path(
             wrappers, kernel_scenario(name), build, f"{label} ({name})",
             ["policy_traj_kernel", f"{update}_update_kernel"])
         by = read_instantiations(policy_traj_cuda, [name], f"{label} path's K5")
@@ -3537,6 +3811,13 @@ def main() -> int:
         trainers[label] = (step_, state0_, state_)
         collect_ms[f"{label} ({name})"] = phases_["collect"]
         iter_ms[label] = sum(phases_.values())
+    # path b5: the bf16 trainers on simple_spread (K5, K6-bf16; K5, K7-bf16)
+    bf16 = bf16_path(wrappers, {"ppo": last_metrics["train"], "mappo": last_metrics["MAPPO"]})
+    for kind, (path_launches, _, _, _, phases_, _) in bf16.items():
+        for k, v in path_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        k5_by["simple_spread"] += path_launches["policy_traj_kernel"]
+        iter_ms[f"{kind}-bf16"] = sum(phases_.values())
     step, state0, state = trainers["train"]
     mstep, mstate0, mstate = trainers["MAPPO"]
     cstep, _, cstate = trainers["comm PPO"]
@@ -3640,6 +3921,9 @@ def main() -> int:
                                            COMM_PPO: (cstep, cstate[0])})
     k7_rows = check_update_kernels("mappo", {"simple_spread": (mstep, mstate[0]),
                                              COMM_MAPPO: (lstep, lstate[0])})
+    # K6-bf16 and K7-bf16 on spread (path b5's trainers) and a comm head each
+    bf16_rows = check_bf16_kernels({(kind, "simple_spread"): (r[1], r[3][0])
+                                    for kind, r in bf16.items()})
     # K5 and K4 on every scenario, the main paths' actors where they ran
     trainer_actors = {"simple_spread": actor, COMM_PPO: evals[COMM_PPO],
                       COMM_MAPPO: actor_of(lstate[0], ("a1", "a2"))}
@@ -3872,11 +4156,32 @@ def main() -> int:
                path_g_launches={p: f.get("launches", {}).get("maddpg_update_kernel", 0)
                                 for p, f in g_figures.items()}),
     ]
-    # K4-K9 at the other hidden widths (phase 3b): errors and registers by width
+    # K6-bf16 and K7-bf16 (path b5): their top-level numbers are simple_spread's
+    # at TRAIN's width; by_scenario holds spread's and the comm head's
+    for kind, replaces in (("ppo", "mpe_tpu/ops/fused_update.py:188"),
+                           ("mappo", "mpe_tpu/ops/fused_update.py:245")):
+        name = f"{kind}_update_bf16_kernel"
+        by = {n: dict(r, launches=bf16[kind][0][name] if n == "simple_spread" else 0,
+                      registers_spill_bytes=registers_of(regs, f"{kind}_bf16", n))
+              for n, r in bf16_rows[kind].items()}
+        top = by["simple_spread"]
+        _, _, _, _, phases_, last = bf16[kind]
+        kernels.append(record(
+            name, "mpe_update_bf16.cu", f"{replaces} (compute_dtype=bfloat16)",
+            max(r["max_abs_err"] for r in by.values()), top["ms"], top["plain_ms"],
+            (top["bound_ms"], top["bound_by"]), top["library_ms"], compute_dtype="bfloat16",
+            scenarios=list(BF16_NAMES[kind]), timed_on="simple_spread", by_scenario=by,
+            tile=BF16_TILE, hmma_instructions=hmma, grad_tol=BF16_GRAD_TOL,
+            path_b5={"ms_per_iteration_by_phase": phases_, "last_iteration": last,
+                     "float32_last_iteration": last_metrics["train" if kind == "ppo" else
+                                                            "MAPPO"]}))
+    # K4-K9 and K6-bf16, K7-bf16 at the other hidden widths (phase 3b): errors
+    # and registers by width
     reg_keys = {"policy_traj_kernel": "policy_traj_kernel",
                 "policy_rollout_kernel": "policy_rollout_kernel", "ppo_update_kernel": "ppo",
                 "mappo_update_kernel": "mappo", "maddpg_traj_kernel": "maddpg_traj_kernel",
-                "maddpg_update_kernel": "maddpg_update"}
+                "maddpg_update_kernel": "maddpg_update", "ppo_update_bf16_kernel": "ppo_bf16",
+                "mappo_update_bf16_kernel": "mappo_bf16"}
     for row in kernels:
         if row["name"] in reg_keys:
             row["hidden_widths"] = {

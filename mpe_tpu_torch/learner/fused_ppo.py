@@ -24,10 +24,17 @@ The policy is a factored categorical (move x comm): the surrogate treats
 the two heads as independent, with a silent agent's comm factor masked out
 (its utterance is forced to zero, so no gradient flows through it).
 
-Everything computes in float32 on the card. The JAX package picks bf16 on
-a TPU for its matrix unit; the port does not. TF32 stays off on this path,
-so the prep forward and K6's forward agree to float32 rounding and the
-epoch-0 ratio is 1 within 1e-5.
+``compute_dtype`` is the matrix products' dtype, as in the JAX builders.
+``None`` (the default) resolves to float32 on the card and on the CPU, as
+JAX resolves it everywhere but on a TPU, where it picks bf16 for the matrix
+unit. TF32 stays off on this path, so in float32 the prep forward and K6's
+forward agree to float32 rounding and the epoch-0 ratio is 1 within 1e-5.
+``compute_dtype=torch.bfloat16`` is JAX's TPU default: the prep forward
+rounds both operands of each product to bf16 and sums in float32, as JAX's
+einsum with ``preferred_element_type``, the epochs run kernel K6-bf16
+(K7-bf16) or, with ``fused_update=False``, autograd of the same rounded
+loss; params, logits, the surrogate and the gradients stay float32. K5's
+collection has no compute dtype (nor has JAX's ``fused_policy_trajectory``).
 
 Data-parallel (``mesh=``, a ``parallel.EnvMesh``): each rank collects its
 ``n_envs / size`` envs by K5 with block offset ``rank * local_n_blocks`` (so
@@ -49,7 +56,8 @@ from mpe_tpu_torch.learner.optim import (apply_updates, clip_adam, linear_schedu
                                          tree_map)
 from mpe_tpu_torch.learner.ppo import init_ac, init_mappo
 from mpe_tpu_torch.ops.fused_policy import _resolve, fused_policy_trajectory
-from mpe_tpu_torch.ops.fused_update import fused_mappo_update, fused_ppo_update, speak_mask
+from mpe_tpu_torch.ops.fused_update import (compute_rounding, fused_mappo_update,
+                                            fused_ppo_update, speak_mask)
 
 
 @contextlib.contextmanager
@@ -63,15 +71,16 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _torso_minor(l1, l2, obs):
-    """Env-minor MLP torso: obs [..., OW, N] -> h [..., H, N]."""
-    h = torch.tanh(torch.einsum("...on,oh->...hn", obs, l1["w"]) + l1["b"][:, None])
-    return torch.tanh(torch.einsum("...hn,hg->...gn", h, l2["w"]) + l2["b"][:, None])
+def _torso_minor(l1, l2, obs, rnd):
+    """Env-minor MLP torso: obs [..., OW, N] -> h [..., H, N]; ``rnd`` rounds
+    each product's operands (``compute_rounding``)."""
+    h = torch.tanh(torch.einsum("...on,oh->...hn", rnd(obs), rnd(l1["w"])) + l1["b"][:, None])
+    return torch.tanh(torch.einsum("...hn,hg->...gn", rnd(h), rnd(l2["w"])) + l2["b"][:, None])
 
 
-def _head_minor(head, h):
+def _head_minor(head, h, rnd):
     """h [..., H, N] -> [..., K, N]."""
-    return torch.einsum("...gn,gk->...kn", h, head["w"]) + head["b"][:, None]
+    return torch.einsum("...gn,gk->...kn", rnd(h), rnd(head["w"])) + head["b"][:, None]
 
 
 def _factored_onehots(kscn, act, cact, dtype=torch.float32):
@@ -228,7 +237,7 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
                          ent_coef: float = 0.01, ppo_epochs: int = 4,
                          anneal_iters: int | None = None, block_envs: int = 1024,
                          t_chunk: int = 8, fused_update: bool = True, device=None,
-                         dtype=torch.float32, mesh=None):
+                         dtype=torch.float32, mesh=None, compute_dtype=None):
     """PPO iteration on the fused engine: ``step(state, seed) -> (state,
     metrics)`` with ``state = (params, opt_state)`` (params in
     ``learner.ppo.init_ac`` layout: ``step.init_params(generator)``,
@@ -239,10 +248,12 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
     the same torso outside it. ``anneal_iters`` decays the learning rate
     linearly to 0 over ``anneal_iters * ppo_epochs`` optimizer steps (the
     schedule counts epochs). ``dtype`` is that of the params and the
-    update; the collection runs in float32, and on CUDA the update kernel
-    computes in float32 only. ``step.plain`` is the same trainer with the
-    plain versions of K5 and K6 on the same device (for holding the kernels
-    against them).
+    update; the collection runs in float32, and on CUDA the update kernels
+    take float32 params. ``compute_dtype`` is the products' dtype (the
+    module docstring): None or float32 (K6), or ``torch.bfloat16`` (the prep
+    forward and the loss rounded to bf16 operands, K6-bf16).
+    ``step.plain`` is the same trainer with the plain versions of K5 and K6
+    on the same device (for holding the kernels against them).
 
     With ``mesh`` (a ``parallel.EnvMesh``) the step is data-parallel: the
     rank collects its share of the ``n_envs`` envs (the same lanes as in the
@@ -251,6 +262,7 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
     mesh's unless ``device`` names one."""
     kscn = _resolve(scenario)
     local, block_envs, offset, device = _shard(n_envs, block_envs, mesh, device)
+    _, rnd = compute_rounding(compute_dtype, dtype)      # None: the params' dtype
     n_logits = kscn.n_logits
     sched = linear_schedule(lr, 0.0, anneal_iters * ppo_epochs) if anneal_iters else lr
     opt = clip_adam(sched, max_norm=0.5)
@@ -266,14 +278,14 @@ def build_fused_ppo_step(scenario, n_envs: int, n_steps: int = 64, horizon: int 
     traj = fused_policy_trajectory(kscn, actor(tmpl), local, n_steps, horizon=horizon,
                                    block_envs=block_envs, t_chunk=t_chunk, device=device)
     kernel_update = fused_ppo_update(kscn, local, n_steps, hidden, clip=clip, vf_coef=vf_coef,
-                                     ent_coef=ent_coef, device=device,
-                                     dtype=dtype) if fused_update else None
+                                     ent_coef=ent_coef, device=device, dtype=dtype,
+                                     compute_dtype=compute_dtype) if fused_update else None
     nonterm_t = [0.0 if (t + 1) % horizon == 0 else 1.0 for t in range(n_steps)]
 
     def forward(params, obs):
         """obs [..., A, OW, N] -> (logits [..., A, K, N], value [..., A, N])."""
-        h = _torso_minor(params["l1"], params["l2"], obs.to(dtype))
-        return _head_minor(params["pi"], h), _head_minor(params["v"], h)[..., 0, :]
+        h = _torso_minor(params["l1"], params["l2"], obs.to(dtype), rnd)
+        return _head_minor(params["pi"], h, rnd), _head_minor(params["v"], h, rnd)[..., 0, :]
 
     def loss_fn(params, batch):
         obs, mv_oh, cm_oh, logp_old, value_old, adv, ret = batch
@@ -314,7 +326,7 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
                            ent_coef: float = 0.01, ppo_epochs: int = 4,
                            anneal_iters: int | None = None, block_envs: int = 1024,
                            t_chunk: int = 8, fused_update: bool = True, device=None,
-                           dtype=torch.float32, mesh=None):
+                           dtype=torch.float32, mesh=None, compute_dtype=None):
     """MAPPO iteration on the fused engine (the contract of
     ``build_fused_ppo_step``; params in ``learner.ppo.init_mappo`` layout).
     The decentralized actor (``a1, a2, pi``) runs inside kernel K5; the
@@ -324,9 +336,11 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
     is kernel K7 (``ops/fused_update.fused_mappo_update``; with
     ``fused_update=False``, autograd of ``step.loss_fn``). ``step.plain`` is
     the same trainer with the plain versions of K5 and K7. ``mesh`` makes it
-    data-parallel as in ``build_fused_ppo_step``."""
+    data-parallel and ``compute_dtype=torch.bfloat16`` runs K7-bf16, as in
+    ``build_fused_ppo_step``."""
     kscn = _resolve(scenario)
     local, block_envs, offset, device = _shard(n_envs, block_envs, mesh, device)
+    _, rnd = compute_rounding(compute_dtype, dtype)      # None: the params' dtype
     a, ow = kscn.spec.n_agents, kscn.obs_w
     n_logits = kscn.n_logits
     sched = linear_schedule(lr, 0.0, anneal_iters * ppo_epochs) if anneal_iters else lr
@@ -344,18 +358,20 @@ def build_fused_mappo_step(scenario, n_envs: int, n_steps: int = 64, horizon: in
                                    block_envs=block_envs, t_chunk=t_chunk, device=device)
     kernel_update = fused_mappo_update(kscn, local, n_steps, hidden, clip=clip,
                                        vf_coef=vf_coef, ent_coef=ent_coef, device=device,
-                                       dtype=dtype) if fused_update else None
+                                       dtype=dtype, compute_dtype=compute_dtype
+                                       ) if fused_update else None
     nonterm_t = [0.0 if (t + 1) % horizon == 0 else 1.0 for t in range(n_steps)]
 
     def actor_logits(params, obs):
         """obs [..., A, OW, N] -> logits [..., A, K, N]."""
-        return _head_minor(params["pi"], _torso_minor(params["a1"], params["a2"], obs.to(dtype)))
+        h = _torso_minor(params["a1"], params["a2"], obs.to(dtype), rnd)
+        return _head_minor(params["pi"], h, rnd)
 
     def central_value(params, obs):
         """obs [..., A, OW, N] -> joint-state value [..., N]."""
         joint = obs.to(dtype).reshape(obs.shape[:-3] + (a * ow,) + obs.shape[-1:])
-        h = _torso_minor(params["c1"], params["c2"], joint)
-        return _head_minor(params["v"], h)[..., 0, :]
+        h = _torso_minor(params["c1"], params["c2"], joint, rnd)
+        return _head_minor(params["v"], h, rnd)[..., 0, :]
 
     def loss_fn(params, batch):
         obs, mv_oh, cm_oh, logp_old, value_old, adv, ret = batch

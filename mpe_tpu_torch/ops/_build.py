@@ -6,10 +6,10 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 libraries go into ``build/kernels/`` beside the package at first use; the
 sources build in parallel, and each is rebuilt only when it, the shared
 header or the flags change (the file name carries their hash). The sources
-of K4-K9 (``HIDDEN_SOURCES``) take the MLPs' hidden width at compile time
-(``-DMPE_HIDDEN``): one library per (source, width) of ``HIDDEN_WIDTHS``,
-built at the first use of that width; ``build_all`` builds every source at
-width 64.
+of K4-K9 and of K6-bf16/K7-bf16 (``HIDDEN_SOURCES``) take the MLPs' hidden
+width at compile time (``-DMPE_HIDDEN``): one library per (source, width) of
+``HIDDEN_WIDTHS``, built at the first use of that width; ``build_all`` builds
+every source at width 64.
 ``spread_params`` and ``scenario_params`` fill the kernels' constant structs.
 ``-fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise ops round them, so a kernel can be held tightly
@@ -34,13 +34,14 @@ import numpy as np
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu",
-           "mpe_trajectory.cu")
+           "mpe_trajectory.cu", "mpe_update_bf16.cu")
 HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-# the sources whose kernels run an MLP (K4, K5; K6, K7; K8, K9), the hidden
-# widths they are compiled for, and the width a plain build takes
-HIDDEN_SOURCES = ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu")
+# the sources whose kernels run an MLP (K4, K5; K6, K7; K8, K9; K6-bf16,
+# K7-bf16), the hidden widths they are compiled for, and the width a plain
+# build takes
+HIDDEN_SOURCES = ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu", "mpe_update_bf16.cu")
 HIDDEN_WIDTHS = (8, 16, 32, 64)
 DEFAULT_HIDDEN = 64
 
@@ -140,6 +141,11 @@ SIGNATURES = {
         "mpe_policy_ctas_per_sm": [_I] * 3,
     },
     "mpe_update.cu": {
+        "mpe_ppo_update": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P],
+        "mpe_mappo_update": [_I] * 2 + [_P] * 11 + [_I] * 5 + [_F] * 7 + [_P],
+        "mpe_update_packed_size": [_I] * 2,
+    },
+    "mpe_update_bf16.cu": {                 # the same C entries as mpe_update.cu's
         "mpe_ppo_update": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P],
         "mpe_mappo_update": [_I] * 2 + [_P] * 11 + [_I] * 5 + [_F] * 7 + [_P],
         "mpe_update_packed_size": [_I] * 2,

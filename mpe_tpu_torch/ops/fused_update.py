@@ -31,6 +31,17 @@ K7: an actor pass and a critic pass) and ``update_reduce_kernel``
 heads and critic joint widths, one library per hidden width of
 ``_build.HIDDEN_WIDTHS``, the width taken from the params); on the CPU it
 runs the plain version in ``dtype`` (float32 or float64).
+
+``compute_dtype=torch.bfloat16`` is the JAX builders' ``compute_dtype``
+(their default on a TPU): every matrix product (the forward, the backward
+through both layers and the weight gradients, JAX's ``_dot`` / ``_dot_nt``)
+rounds both operands to bfloat16, round to nearest even, and sums their
+exact products in float32; the tanh derivatives, the bias sums, the
+softmaxes and the head stay float32 on float32 activations, and the grads
+and metrics come back in float32 whatever ``dtype`` is. On a CUDA device it
+launches ``ppo_update_bf16_kernel`` (K6-bf16, K7-bf16:
+``csrc/mpe_update_bf16.cu``, the products on the tensor cores by
+``mma.sync``); on the CPU the plain version rounds as above.
 """
 
 from __future__ import annotations
@@ -156,15 +167,41 @@ def _value_clip_grad(v, vold, ret, *, clip, vf_coef, inv):
     return gv, torch.maximum((v - ret).square(), (vc - ret).square())
 
 
-def _mlp_backprop(x, h1, h2, g3, w2, w3):
+def _keep(x):
+    return x
+
+
+def _bf16(x):
+    """A product's operand rounded to bfloat16 (round to nearest even), in
+    its own dtype again: the product of two such values is exact in float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def compute_rounding(compute_dtype, dtype=torch.float32):
+    """``compute_dtype`` of the update (None or ``dtype``: the products in
+    ``dtype``; ``torch.bfloat16``: the bf16 path) -> (the dtype the update
+    computes and returns in, the rounding of a product's operands). The bf16
+    path accumulates in float32 whatever ``dtype`` is, as JAX's
+    ``_acc_dtype``."""
+    if compute_dtype is None or compute_dtype == dtype:
+        return dtype, _keep
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be None, {dtype} or torch.bfloat16, "
+                         f"got {compute_dtype}")
+    return torch.float32, _bf16
+
+
+def _mlp_backprop(x, h1, h2, g3, w2, w3, rnd):
     """Backprop ``g3`` [..., KO, N] through the two tanh layers and sum the
     six weight/bias gradients over the batch -> (dw1 [H, OW], db1 [H],
-    dw2, db2, dw3 [KO, H], db3 [KO])."""
-    gh2 = torch.einsum("kg,...kn->...gn", w3, g3) * (1.0 - h2.square())
-    gh1 = torch.einsum("gh,...gn->...hn", w2, gh2) * (1.0 - h1.square())
+    dw2, db2, dw3 [KO, H], db3 [KO]). ``rnd`` rounds each product's
+    operands (``compute_rounding``); the tanh derivatives and the bias sums
+    take the unrounded activations."""
+    gh2 = torch.einsum("kg,...kn->...gn", rnd(w3), rnd(g3)) * (1.0 - h2.square())
+    gh1 = torch.einsum("gh,...gn->...hn", rnd(w2), rnd(gh2)) * (1.0 - h1.square())
 
     def outer(g, a):                       # sum over batch and lanes of g a^T
-        return torch.einsum("...in,...jn->ij", g, a)
+        return torch.einsum("...in,...jn->ij", rnd(g), rnd(a))
 
     def total(g):
         return g.sum(-1).reshape(-1, g.shape[-2]).sum(0)
@@ -212,17 +249,21 @@ def _grads_tree(dw1, db1, dw2, db2, dw3, db3):
 
 
 def plain_ppo_update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
-                     clip: float, vf_coef: float, ent_coef: float, dtype=torch.float32):
+                     clip: float, vf_coef: float, ent_coef: float, dtype=torch.float32,
+                     compute_dtype=None):
     """The JAX ``_update_kernel`` over the whole batch at once, in ``dtype``
-    -> (grads in init_ac layout, (pg, vloss, ent) means). ``speak``: each
-    agent's speak flag where the scenario has a comm head (``cm_oh``)."""
+    (float32 with ``compute_dtype=torch.bfloat16``, whose products round
+    their operands to bf16: ``compute_rounding``) -> (grads in init_ac
+    layout, (pg, vloss, ent) means). ``speak``: each agent's speak flag where
+    the scenario has a comm head (``cm_oh``)."""
+    dtype, rnd = compute_rounding(compute_dtype, dtype)
     w1, b1, w2, b2, w3, b3 = _update_weights(params, dtype, obs.device)
     x = obs.to(dtype)
     t, a, _, n = x.shape
     inv_b = 1.0 / float(t * a * n)
-    h1 = torch.tanh(torch.einsum("ho,...on->...hn", w1, x) + b1[:, None])
-    h2 = torch.tanh(torch.einsum("gh,...hn->...gn", w2, h1) + b2[:, None])
-    z = torch.einsum("kg,...gn->...kn", w3, h2) + b3[:, None]          # [T, A, K+1, N]
+    h1 = torch.tanh(torch.einsum("ho,...on->...hn", rnd(w1), rnd(x)) + b1[:, None])
+    h2 = torch.tanh(torch.einsum("gh,...hn->...gn", rnd(w2), rnd(h1)) + b2[:, None])
+    z = torch.einsum("kg,...gn->...kn", rnd(w3), rnd(h2)) + b3[:, None]    # [T, A, K+1, N]
     gp, ent, s1, s2 = _policy_logit_grad(
         z[..., :-1, :], mv_oh.to(dtype), None if cm_oh is None else cm_oh.to(dtype),
         logp_old.to(dtype)[..., None, :], adv_n.to(dtype)[..., None, :], speak_mask(speak, x),
@@ -231,26 +272,29 @@ def plain_ppo_update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, 
                                     ret.to(dtype)[..., None, :], clip=clip, vf_coef=vf_coef,
                                     inv=inv_b)
     g3 = torch.cat([gp, gv], dim=-2)
-    grads = _grads_tree(*_mlp_backprop(x, h1, h2, g3, w2, w3))
+    grads = _grads_tree(*_mlp_backprop(x, h1, h2, g3, w2, w3, rnd))
     pg, vl, en = _metric_sums(s1, s2, vl_terms, ent) * inv_b
     return grads, (pg, vl, en)
 
 
 def plain_mappo_update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
-                       clip: float, vf_coef: float, ent_coef: float, dtype=torch.float32):
+                       clip: float, vf_coef: float, ent_coef: float, dtype=torch.float32,
+                       compute_dtype=None):
     """The JAX ``_mappo_update_kernel`` over the whole batch at once, in
-    ``dtype``: the actor on every (t, agent, env) sample with the team
-    advantage ``adv_n`` [T, N] broadcast to the agents, the critic on the
-    joint obs [T, A*OW, N] of every (t, env) -> (grads in init_mappo
-    layout, (pg, vloss, ent) means; vloss over [T, N])."""
+    ``dtype`` (or bf16 products, as ``plain_ppo_update``): the actor on every
+    (t, agent, env) sample with the team advantage ``adv_n`` [T, N] broadcast
+    to the agents, the critic on the joint obs [T, A*OW, N] of every (t, env)
+    -> (grads in init_mappo layout, (pg, vloss, ent) means; vloss over [T,
+    N])."""
+    dtype, rnd = compute_rounding(compute_dtype, dtype)
     x = obs.to(dtype)
     t, a, ow, n = x.shape
     inv_b, inv_bv = 1.0 / float(t * a * n), 1.0 / float(t * n)
 
     def forward(w1, b1, w2, b2, w3, b3, xin):
-        h1 = torch.tanh(torch.einsum("ho,...on->...hn", w1, xin) + b1[:, None])
-        h2 = torch.tanh(torch.einsum("gh,...hn->...gn", w2, h1) + b2[:, None])
-        return h1, h2, torch.einsum("kg,...gn->...kn", w3, h2) + b3[:, None]
+        h1 = torch.tanh(torch.einsum("ho,...on->...hn", rnd(w1), rnd(xin)) + b1[:, None])
+        h2 = torch.tanh(torch.einsum("gh,...hn->...gn", rnd(w2), rnd(h1)) + b2[:, None])
+        return h1, h2, torch.einsum("kg,...gn->...kn", rnd(w3), rnd(h2)) + b3[:, None]
 
     aw = _mlp_weights(params, ("a1", "a2", "pi"), dtype, obs.device)
     h1, h2, z = forward(*aw, x)                                   # z [T, A, 5 + C, N]
@@ -258,14 +302,15 @@ def plain_mappo_update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *
         z, mv_oh.to(dtype), None if cm_oh is None else cm_oh.to(dtype),
         logp_old.to(dtype)[..., None, :], adv_n.to(dtype)[:, None, None, :],
         speak_mask(speak, x), clip=clip, ent_coef=ent_coef, inv_b=inv_b)
-    grads = _layer_grads(("a1", "a2", "pi"), *_mlp_backprop(x, h1, h2, gp, aw[2], aw[4]))
+    grads = _layer_grads(("a1", "a2", "pi"), *_mlp_backprop(x, h1, h2, gp, aw[2], aw[4], rnd))
 
     xj = x.reshape(t, a * ow, n)                                  # joint obs
     cw = _mlp_weights(params, ("c1", "c2", "v"), dtype, obs.device)
     g1, g2, v = forward(*cw, xj)                                  # v [T, 1, N]
     gv, vl_terms = _value_clip_grad(v, v_old.to(dtype)[:, None, :], ret.to(dtype)[:, None, :],
                                     clip=clip, vf_coef=vf_coef, inv=inv_bv)
-    grads.update(_layer_grads(("c1", "c2", "v"), *_mlp_backprop(xj, g1, g2, gv, cw[2], cw[4])))
+    grads.update(_layer_grads(("c1", "c2", "v"),
+                              *_mlp_backprop(xj, g1, g2, gv, cw[2], cw[4], rnd)))
     pg, vl, en = _metric_sums(s1, s2, vl_terms, ent)
     return grads, (pg * inv_b, vl * inv_bv, en * inv_b)
 
@@ -340,12 +385,10 @@ def _check_weights(weights, want, what: str):
         raise ValueError(f"the {what} weight shapes {shapes} do not match the batch: {want}")
 
 
-def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
-                    clip: float, vf_coef: float, ent_coef: float):
-    """Launch kernel K6 (``ppo_update_kernel`` over a persistent grid of two
-    256-thread CTAs per SM, then ``update_reduce_kernel``) on the inputs' CUDA device:
-    the outputs of ``plain_ppo_update`` in float32. Counts launches in
-    ``.launches``."""
+def _ppo_launch(source, params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak,
+                clip: float, vf_coef: float, ent_coef: float):
+    """One K6 launch of the library of ``source`` (``mpe_update.cu`` or
+    ``mpe_update_bf16.cu``: the same C entries and packed layout)."""
     from mpe_tpu_torch.ops import _build
 
     hidden = _hidden_of(params, "l1")
@@ -356,10 +399,10 @@ def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, s
     weights = _update_weights(params, torch.float32, device)
     layout = _packed(ow, 5 + kc + 1, hidden)
     _check_weights(weights, list(layout[:-1]), "actor-critic")
-    lib = _build.library("mpe_update.cu", hidden)
+    lib = _build.library(source, hidden)
     n_packed = _numel(layout)
     if lib.mpe_update_packed_size(ow, 5 + kc + 1) != n_packed:
-        raise RuntimeError("csrc/mpe_update.cu and ops/fused_update.py disagree on the layout")
+        raise RuntimeError(f"csrc/{source} and ops/fused_update.py disagree on the layout")
     wbuf = torch.cat([w.reshape(-1) for w in weights]).contiguous()
     n_parts = CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
     partials = torch.empty((n_parts, n_packed), dtype=torch.float32, device=device)
@@ -374,22 +417,45 @@ def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, s
             mask, n_parts, 1.0 - clip, 1.0 + clip, clip, vf_coef * 2.0 * inv_b, ent_coef * inv_b,
             inv_b, stream)
     if rc != 0:
-        raise RuntimeError(f"ppo_update_kernel launch failed: {_build.error_string(rc)}")
-    ppo_update_cuda.launches += 1
+        raise RuntimeError(f"the K6 launch of csrc/{source} failed: {_build.error_string(rc)}")
     dw1, db1, dw2, db2, dw3, db3, ms = _unpack(out, layout)
     return _grads_tree(dw1, db1, dw2, db2, dw3, db3), (ms[0], ms[1], ms[2])
+
+
+def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
+                    clip: float, vf_coef: float, ent_coef: float):
+    """Launch kernel K6 (``ppo_update_kernel`` over a persistent grid of two
+    256-thread CTAs per SM, then ``update_reduce_kernel``) on the inputs' CUDA device:
+    the outputs of ``plain_ppo_update`` in float32. Counts launches in
+    ``.launches``."""
+    out = _ppo_launch("mpe_update.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old,
+                      speak=speak, clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
+    ppo_update_cuda.launches += 1
+    return out
 
 
 ppo_update_cuda.launches = 0
 
 
-def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
-                      clip: float, vf_coef: float, ent_coef: float):
-    """Launch kernel K7 (``ppo_update_kernel``'s actor pass over the
-    (t, agent, env) samples and critic pass over the (t, env) samples on the
-    joint obs, each a persistent grid of two CTAs per SM followed by
+def ppo_update_bf16_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
+                         speak=None, clip: float, vf_coef: float, ent_coef: float):
+    """Launch kernel K6-bf16 (``ppo_update_bf16_kernel``: K6's grid and
+    tiles, its products on the tensor cores in bf16 with float32 sums, then
     ``update_reduce_kernel``) on the inputs' CUDA device: the outputs of
-    ``plain_mappo_update`` in float32. Counts launches in ``.launches``."""
+    ``plain_ppo_update(..., compute_dtype=torch.bfloat16)`` in float32.
+    Counts launches in ``.launches``."""
+    out = _ppo_launch("mpe_update_bf16.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret,
+                      v_old, speak=speak, clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
+    ppo_update_bf16_cuda.launches += 1
+    return out
+
+
+ppo_update_bf16_cuda.launches = 0
+
+
+def _mappo_launch(source, params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak,
+                  clip: float, vf_coef: float, ent_coef: float):
+    """One K7 launch of the library of ``source`` (as ``_ppo_launch``)."""
     from mpe_tpu_torch.ops import _build
 
     hidden = _hidden_of(params, "a1")
@@ -405,11 +471,11 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
     actor, critic = _packed(ow, 5 + kc, hidden), _packed(a * ow, 1, hidden)
     _check_weights(aw, list(actor[:-1]), "actor")
     _check_weights(cw, list(critic[:-1]), "critic")
-    lib = _build.library("mpe_update.cu", hidden)
+    lib = _build.library(source, hidden)
     n_act, n_crit = _numel(actor), _numel(critic)
     if (lib.mpe_update_packed_size(ow, 5 + kc), lib.mpe_update_packed_size(a * ow, 1)) != (
             n_act, n_crit):
-        raise RuntimeError("csrc/mpe_update.cu and ops/fused_update.py disagree on the layout")
+        raise RuntimeError(f"csrc/{source} and ops/fused_update.py disagree on the layout")
     abuf = torch.cat([w.reshape(-1) for w in aw]).contiguous()
     cbuf = torch.cat([w.reshape(-1) for w in cw]).contiguous()
     n_parts = CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
@@ -425,8 +491,7 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
             n_parts, 1.0 - clip, 1.0 + clip, clip, vf_coef * 2.0 * inv_bv, ent_coef * inv_b,
             inv_b, inv_bv, stream)
     if rc != 0:
-        raise RuntimeError(f"mappo_update_kernel launch failed: {_build.error_string(rc)}")
-    mappo_update_cuda.launches += 1
+        raise RuntimeError(f"the K7 launch of csrc/{source} failed: {_build.error_string(rc)}")
     *ga, ms_a = _unpack(out[:n_act], actor)
     *gc, ms_c = _unpack(out[n_act:], critic)
     grads = _layer_grads(("a1", "a2", "pi"), *ga)
@@ -434,19 +499,52 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
     return grads, (ms_a[0], ms_c[1], ms_a[2])
 
 
+def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
+                      clip: float, vf_coef: float, ent_coef: float):
+    """Launch kernel K7 (``ppo_update_kernel``'s actor pass over the
+    (t, agent, env) samples and critic pass over the (t, env) samples on the
+    joint obs, each a persistent grid of two CTAs per SM followed by
+    ``update_reduce_kernel``) on the inputs' CUDA device: the outputs of
+    ``plain_mappo_update`` in float32. Counts launches in ``.launches``."""
+    out = _mappo_launch("mpe_update.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old,
+                        speak=speak, clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
+    mappo_update_cuda.launches += 1
+    return out
+
+
 mappo_update_cuda.launches = 0
 
 
-def _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, l1, plain_fn, cuda_fn):
-    """The shared builder of ``fused_ppo_update`` and ``fused_mappo_update``."""
+def mappo_update_bf16_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
+                           speak=None, clip: float, vf_coef: float, ent_coef: float):
+    """Launch kernel K7-bf16 (``ppo_update_bf16_kernel``'s actor and critic
+    passes, as K7's, on the tensor cores) on the inputs' CUDA device: the
+    outputs of ``plain_mappo_update(..., compute_dtype=torch.bfloat16)`` in
+    float32. Counts launches in ``.launches``."""
+    out = _mappo_launch("mpe_update_bf16.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret,
+                        v_old, speak=speak, clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
+    mappo_update_bf16_cuda.launches += 1
+    return out
+
+
+mappo_update_bf16_cuda.launches = 0
+
+
+def _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, compute_dtype, l1,
+                    plain_fn, cuda_fns):
+    """The shared builder of ``fused_ppo_update`` and ``fused_mappo_update``;
+    ``cuda_fns``: the float32 and the bf16 kernel's wrapper."""
     from mpe_tpu_torch.ops.kernel_scenarios import KernelScenario, kernel_scenario
 
     kscn = kscn if isinstance(kscn, KernelScenario) else kernel_scenario(kscn)
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    compute_rounding(compute_dtype, dtype)
     if device.type == "cuda" and dtype != torch.float32:
-        raise ValueError("the update kernels compute in float32; use dtype=torch.float32 on CUDA")
+        raise ValueError("the update kernels take float32 params; use dtype=torch.float32 on "
+                         "CUDA (and compute_dtype=torch.bfloat16 for the bf16 kernels)")
+    cuda_fn = cuda_fns[compute_dtype == torch.bfloat16]
     spec = kscn.spec
     a, ow, dim_c = spec.n_agents, kscn.obs_w, kscn.n_comm
     hp = dict(hp, speak=kscn.speak)
@@ -468,7 +566,7 @@ def _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, l1, plain_
     def plain(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old):
         check(params, obs, cm_oh)
         return plain_fn(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, dtype=dtype,
-                        **hp)
+                        compute_dtype=compute_dtype, **hp)
 
     def update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old):
         if device.type == "cuda":
@@ -482,26 +580,30 @@ def _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, l1, plain_
 
 def fused_ppo_update(kscn, n_envs: int, n_steps: int, hidden: int, clip: float = 0.2,
                      vf_coef: float = 0.5, ent_coef: float = 0.01, device=None,
-                     dtype=torch.float32):
+                     dtype=torch.float32, compute_dtype=None):
     """Build ``update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old)
-    -> (grads, (pg, vloss, ent))``: kernel K6 on CUDA (float32 only), the
-    plain version in ``dtype`` on the CPU; ``update.plain`` is the plain
-    version. ``cm_oh`` is the comm one-hots where the scenario speaks, else
-    None. The JAX builder's ``block_envs`` and ``t_chunk`` (its tiling) have
-    no counterpart: the CUDA kernel tiles the batch itself."""
+    -> (grads, (pg, vloss, ent))``: on CUDA kernel K6 (float32 params;
+    ``compute_dtype`` None or float32) or K6-bf16 (``compute_dtype=
+    torch.bfloat16``), on the CPU the plain version in ``dtype`` (bf16
+    products with float32 sums where ``compute_dtype`` is bfloat16);
+    ``update.plain`` is the plain version. ``cm_oh`` is the comm one-hots
+    where the scenario speaks, else None. The JAX builder's ``block_envs``
+    and ``t_chunk`` (its tiling) have no counterpart: the CUDA kernel tiles
+    the batch itself."""
     hp = dict(clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
-    return _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, "l1",
-                           plain_ppo_update, ppo_update_cuda)
+    return _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, compute_dtype, "l1",
+                           plain_ppo_update, (ppo_update_cuda, ppo_update_bf16_cuda))
 
 
 def fused_mappo_update(kscn, n_envs: int, n_steps: int, hidden: int, clip: float = 0.2,
                        vf_coef: float = 0.5, ent_coef: float = 0.01, device=None,
-                       dtype=torch.float32):
+                       dtype=torch.float32, compute_dtype=None):
     """Build ``update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old)
     -> (grads, (pg, vloss, ent))`` for ``learner.ppo.init_mappo`` params, with
-    ``adv_n``, ``ret`` and ``v_old`` the team streams [T, N]: kernel K7 on
-    CUDA (float32 only), the plain version in ``dtype`` on the CPU;
-    ``update.plain`` is the plain version."""
+    ``adv_n``, ``ret`` and ``v_old`` the team streams [T, N]: on CUDA kernel
+    K7 or, with ``compute_dtype=torch.bfloat16``, K7-bf16, on the CPU the
+    plain version, as ``fused_ppo_update``; ``update.plain`` is the plain
+    version."""
     hp = dict(clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
-    return _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, "a1",
-                           plain_mappo_update, mappo_update_cuda)
+    return _update_builder(kscn, n_envs, n_steps, hidden, hp, device, dtype, compute_dtype, "a1",
+                           plain_mappo_update, (mappo_update_cuda, mappo_update_bf16_cuda))

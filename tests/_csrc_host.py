@@ -10,7 +10,11 @@ blocks one after another, each block's threads as host threads that meet at
 ``__syncthreads()`` (a barrier of the whole block) and ``__syncwarp()`` (a
 barrier of the thread's warp, 32 consecutive threads); ``__shfl_sync``
 exchanges values through the warp's barrier; a kernel's dynamic shared
-memory becomes one static buffer.
+memory becomes one static buffer. For the bf16 kernels it has
+``__nv_bfloat16`` with the device's round-to-nearest-even conversion and
+``host_mma_m16n8k16_bf16``, the m16n8k16 bf16 ``mma.sync`` over the warp's
+fragments as the PTX ISA lays them out (each product exact, the sums in
+double).
 """
 
 import ctypes
@@ -94,6 +98,56 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) 
   std::memcpy(&out, &host_lanes[(threadIdx.x & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
   __syncwarp();
   return out;
+}
+// bf16 as cuda_bf16.h gives it: float -> bf16 rounds to nearest even
+struct __nv_bfloat16 { unsigned short x; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(unsigned short)((u >> 16) | 0x40u)};  // NaN
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(unsigned short)(u >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 over the warp's
+// fragments (PTX ISA, "Matrix Fragments for mma.m16n8k16"): lane 4 g + t
+// holds a[0] = A[g][2t, 2t+1], a[1] = A[g+8][..], a[2] = A[g][2t+8, 2t+9],
+// a[3] = A[g+8][2t+8, 2t+9], b[0] = B[2t, 2t+1][g], b[1] = B[2t+8, 2t+9][g]
+// (the lower k in the lower half) and d = D[g][2t, 2t+1], D[g+8][2t, 2t+1];
+// each lane's fragments go through the warp's slots, and each output is its
+// c plus the 16 exact products, summed in double and rounded once
+#define MPE_HOST_MMA 1
+struct HostMmaSlot { uint32_t a[4], b[2]; };
+inline HostMmaSlot host_mma_slots[1024];
+inline float host_bf16_float(uint32_t bits) {
+  const uint32_t u = (bits & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline void host_mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const unsigned lane = threadIdx.x & 31u, base = threadIdx.x - lane;
+  HostMmaSlot& mine = host_mma_slots[threadIdx.x];
+  for (int i = 0; i < 4; ++i) mine.a[i] = a[i];
+  mine.b[0] = b[0];
+  mine.b[1] = b[1];
+  __syncwarp();
+  const int g = (int)(lane >> 2), t = (int)(lane & 3u);
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    double sum = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const HostMmaSlot& sa = host_mma_slots[base + (row % 8) * 4 + (k % 8) / 2];
+      const uint32_t ar = sa.a[(row >= 8) + 2 * (k >= 8)];
+      const uint32_t br = host_mma_slots[base + col * 4 + (k % 8) / 2].b[k >= 8];
+      sum += (double)host_bf16_float((k & 1) ? ar >> 16 : ar) *
+             (double)host_bf16_float((k & 1) ? br >> 16 : br);
+    }
+    out[i] = (float)sum;
+  }
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
   host_barrier.count = threads;

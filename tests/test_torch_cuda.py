@@ -16,7 +16,11 @@ lanes per CTA) gives the same bits. The update kernel K6 sums
 the batch in its own order: each gradient leaf within 1e-4 of the largest
 entry of the leaf, the metrics within 1e-4 relative, on a batch where both
 clips bind too; so does the MAPPO update kernel K7 (both also with comm
-heads, and K7 with simple_world_comm's 204-wide critic). The MADDPG collection kernel K8 takes the plain
+heads, and K7 with simple_world_comm's 204-wide critic). K6-bf16 and K7-bf16
+(``compute_dtype=torch.bfloat16``) hold their plain bf16 versions within
+1e-3 of each leaf's largest entry: a bf16 operand that two right float32
+sums put on either side of a rounding boundary rounds a whole ulp apart.
+The MADDPG collection kernel K8 takes the plain
 version's actions exactly (values within 1e-5) in both output forms, at
 every tile size bit for bit; the
 MADDPG update kernel K9 takes the plain version's target actions and its
@@ -238,6 +242,34 @@ def test_update_kernels_refuse_other_actor_heads(card):
         fused_update.ppo_update_cuda(narrow, obs[:, :, :17].contiguous(), mv_oh, None, logp_old,
                                      adv_n, ret, value, clip=0.2, vf_coef=0.5, ent_coef=0.01)
     assert fused_update.ppo_update_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, name, hidden", [("ppo", "simple_spread", 64),
+                                                ("ppo", "simple_reference", 16),
+                                                ("mappo", "simple_spread", 64),
+                                                ("mappo", "simple_speaker_listener", 32)])
+def test_bf16_update_kernels_match_plain_bf16(card, kind, name, hidden):
+    """K6-bf16 and K7-bf16 through a trainer with ``compute_dtype=
+    torch.bfloat16``: one epoch gradient on the epoch-0 batch and on it with
+    both clips binding launches the bf16 kernel (not the float32 one), each
+    leaf within 1e-3 of the largest entry of the plain bf16 version's (bf16
+    operands that two right sums round a whole ulp apart)."""
+    build = build_fused_ppo_step if kind == "ppo" else build_fused_mappo_step
+    bf16 = getattr(fused_update, f"{kind}_update_bf16_cuda")
+    f32 = getattr(fused_update, f"{kind}_update_cuda")
+    step = build(name, 1024, n_steps=16, horizon=8, block_envs=1024, hidden=hidden,
+                 compute_dtype=torch.bfloat16, device=card)
+    params = step.init_params(torch.Generator().manual_seed(1))
+    obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
+    lpo_c, v_c, _ = fused_update.clip_binding_inputs(
+        logp_old, value, clip=0.2, generator=torch.Generator(card).manual_seed(3))
+    for lpo, v_old in ((logp_old, value), (lpo_c, v_c)):
+        before = (bf16.launches, f32.launches)
+        got, _ = step.update(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
+        assert (bf16.launches, f32.launches) == (before[0] + 1, before[1])
+        ref, _ = step.update.plain(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
+        _leaf_close(got, ref, 1e-3, f"bf16 grads, {kind} on {name} at hidden {hidden}")
 
 
 def _equal(got, want, labels, what):

@@ -2,8 +2,8 @@
 """Time the port's update kernels of one or more checkouts on one NVIDIA
 card, one checkout after another.
 
-    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det | --policy | --trajectory] \
-        ROOT [ROOT ...]
+    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det | --policy | --trajectory |
+        --bf16] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -24,6 +24,13 @@ their demangled names) and the device's busy share of the call; beside
 them, the registers and spill bytes of each ``ppo_update_kernel``
 instantiation from the compiler's ``-Xptxas -v`` report (empty where the
 kernels were already built).
+
+With ``--bf16`` (K6-bf16, K7-bf16): the same four paths' batches, each
+epoch gradient timed with the float32 trainer's ``step.update`` (K6, K7)
+and with the ``compute_dtype=torch.bfloat16`` trainer's (K6-bf16, K7-bf16)
+on that same batch, each as above (CUDA events, then torch.profiler); the
+registers and spill bytes of each ``ppo_update_bf16_kernel``
+instantiation.
 
 With ``--maddpg`` (K8, K9): ``build_fused_maddpg_runner(name, n_envs=1024,
 horizon=25, batch=1024)`` (tools/train_bench.py's fused_maddpg row) on
@@ -197,6 +204,30 @@ def time_ppo(result: dict, logs: dict) -> None:
         del step, args, obs, mv_oh, cm_oh, logp_old, value, adv_n, ret
         torch.cuda.empty_cache()
     result["registers_spill_bytes"] = registers(logs)
+
+
+def time_bf16(result: dict, logs: dict) -> None:
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    import torch
+
+    for path, name, build in (("b", "simple_spread", build_fused_ppo_step),
+                              ("b2", "simple_spread", build_fused_mappo_step),
+                              ("b3", "simple_reference", build_fused_ppo_step),
+                              ("b4", "simple_speaker_listener", build_fused_mappo_step)):
+        steps = {"float32": build(name, **TRAIN),
+                 "bf16": build(name, compute_dtype=torch.bfloat16, **TRAIN)}
+        params = steps["float32"].init_params(torch.Generator().manual_seed(0))
+        obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = steps["float32"].collect(params, 3)
+        args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+        row = {"scenario": name}
+        for label, step in steps.items():
+            row[label] = {"ms": median_ms(lambda: step.update(*args)),
+                          **profile_call(lambda: step.update(*args))}
+        result[path] = row
+        del steps, args, obs, mv_oh, cm_oh, logp_old, value, adv_n, ret
+        torch.cuda.empty_cache()
+    result["registers_spill_bytes"] = registers(logs, "mpe_update_bf16.cu",
+                                                "ppo_update_bf16_kernel")
 
 
 def profile_update_chunk(run, params, info) -> dict:
@@ -534,6 +565,8 @@ def child(mode: str, root: str) -> None:
         time_policy(result, logs)
     elif mode == "trajectory":
         time_trajectory(result, logs)
+    elif mode == "bf16":
+        time_bf16(result, logs)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -545,7 +578,7 @@ def main() -> int:
         child(args[1], args[2])
         return 0
     mode = {"--maddpg": "maddpg", "--rollout": "rollout", "--det": "det",
-            "--policy": "policy", "--trajectory": "trajectory"}.get(
+            "--policy": "policy", "--trajectory": "trajectory", "--bf16": "bf16"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
