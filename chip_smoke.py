@@ -8,10 +8,11 @@ failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time (every source at hidden width 64 and the MLP sources
-     of K4-K9 and K6-bf16/K7-bf16 also at 8, 16 and 32, one nvcc each, all at
+     of K4-K9, K6-bf16, K7-bf16 and K9-bf16 also at 8, 16 and 32, one nvcc each, all at
      once), the compiler's register report and the HMMA instructions that
-     cuobjdump -sass finds in each bf16 update library (each must hold some);
-  2. fifteen main paths, each with every kernel's launch count set to 0 just
+     cuobjdump -sass finds in each bf16 library, mpe_update_bf16.cu's and
+     mpe_maddpg_bf16.cu's at every width (each must hold some);
+  2. sixteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
           simple_spread, 4096 envs x 200 steps, horizon 100, env-minor);
@@ -63,6 +64,15 @@ failure ends the run with a non-zero exit code:
           and checked the same way (tools/tpu_smoke.py's comm row);
        d3. the same runner on simple_world_comm (6 agents, a 258-wide joint,
           rows of 468 floats, a 3.07 GB ring), 8 chunks;
+       d4. the bf16 MADDPG update: the runner's pieces with its defaults
+          (build_fused_collect: K8; build_fused_update_chunk(...,
+          compute_dtype=torch.bfloat16): K9-bf16; path d's widths, ring,
+          warm-up, actor_start, keys and gates), 40 chunks on simple_spread
+          and on simple_speaker_listener, timed by phase as d and d2
+          (transitions/s over chunks 1-39 beside theirs); exactly 1000
+          K9-bf16 launches and no K9 launch on each, every metric finite,
+          the last chunk's critic loss and mean reward beside d's and d2's
+          (not gated: a bf16 run is another function);
        e. the other scenarios and trajectories, as tools/tpu_smoke.py runs
           every scenario: the deterministic rollout (K1) on the eight
           scenarios other than simple_spread at 4096 envs x 10000 steps; the
@@ -209,7 +219,20 @@ failure ends the run with a non-zero exit code:
      another tile than the rule's, equal bit for bit; K9 on
      all nine at batch 1024 on rows K8 collected with the checkpoint's
      actor, with its trained critic, and on 1024 rows of path d's ring
-     (target actions equal per head, their smallest logit gap printed); one
+     (target actions equal per head, their smallest logit gap printed);
+     K9-bf16 on simple_spread, simple_speaker_listener and
+     simple_world_comm at batch 1024 of the main path's ring (d, d2, d3),
+     with fresh init_maddpg params and with the path's trained params
+     (targets = params + 0.1 N(0, 1)): target actions equal to the plain
+     bf16 version's wherever a head's two best logits lie clear of
+     target_logit_tolerance (the flips below it counted with their gaps),
+     the gradient with the kernel's target actions fed to the plain bf16
+     version within BF16_GRAD_TOL of each leaf's largest entry (beside the
+     trained batch's actor leaves the bound of actor_flip_model), the metrics
+     within BF16_METRIC_RTOL, on the fresh batch at least 10x nearer the
+     plain bf16 version than the plain float32 one; timed per call on the
+     packed buffers beside K9 on the same buffers, the plain bf16 version
+     and autograd of the losses; one
      update chunk of 25 updates of paths d, d2 and d3 with the same
      indices; K2 on all nine scenarios
      over 20 steps (two block offsets, kernel and plain version timed there),
@@ -236,7 +259,8 @@ failure ends the run with a non-zero exit code:
      and K7-bf16 the same way within 1e-3 of the plain bf16 version; K8 at 1024
      envs x 25 steps (eps 0.1) with actions equal, another tile equal bit for
      bit, and K9 on 1024 of its rows (target actions equal, leaves within
-     1e-4); then, launch counts zeroed before each and read after, one
+     1e-4) and K9-bf16 on 1024 of them as in phase 3; then, launch counts
+     zeroed before each and read after, one
      fused PPO iteration on simple_spread at hidden 16 (K5, K6), one MAPPO
      iteration at 32 (K5, K7), each against the same iteration with the
      plain versions (params within 1e-5), and the MADDPG runner on
@@ -252,8 +276,8 @@ failure ends the run with a non-zero exit code:
      on the packed weight buffer) and from trees; one MADDPG update chunk of
      each of paths d, d2, d3 as the runner runs it (packed_step) under
      torch.profiler (K9's device time split by its four kernels, the
-     device's busy share, kernel launches per update), and each K3 call of
-     path e (its device time);
+     device's busy share, kernel launches per update) and of path d4 (K9-bf16's
+     four kernels), and each K3 call of path e (its device time);
   5. a ``{"kernels": [...]}`` line (the K1-K9 rows name their scenarios
      and the one their top-level numbers were timed on, and carry
      per scenario the launches, time, bound, plain time and error of each
@@ -270,7 +294,9 @@ failure ends the run with a non-zero exit code:
      in path h by phase and rank and in path i by example, K6, K7 and K9 the DP step's ms and their
      gradient's all_reduce ms there; K6-bf16 and K7-bf16 rows with their
      HMMA counts, path b5's phases and last metrics, and by scenario the
-     float32 kernel's times and epoch-0 ratio beside theirs), the
+     float32 kernel's times and epoch-0 ratio beside theirs; the K9-bf16
+     row with its HMMA counts and tolerances, by scenario its gates on both
+     batches, K9's time on the same buffers and path d4's figures), the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -286,6 +312,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -389,6 +416,26 @@ HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
 BF16_TRAINERS = (("PPO-bf16", "ppo"), ("MAPPO-bf16", "mappo"))
 BF16_NAMES = {"ppo": ("simple_spread", COMM_PPO), "mappo": ("simple_spread", COMM_MAPPO)}
 BF16_PROBE_ENVS = 128           # the epoch-0 ratio probe: this many single-env batches
+# path d4: the bf16 MADDPG update (compute_dtype=torch.bfloat16) with path d's
+# runner pieces and defaults (build_fused_collect: K8; build_fused_update_chunk:
+# K9-bf16), 40 chunks on simple_spread and on simple_speaker_listener (a comm
+# head, 15 candidates); K9-bf16 held to its plain bf16 version on three
+# scenarios (simple_world_comm: the widest joint, 258), each on a batch with
+# fresh init_maddpg params and one with the main path's trained params
+D4_NAMES = ("simple_spread", "simple_speaker_listener")
+K9_BF16_NAMES = ("simple_spread", "simple_speaker_listener", "simple_world_comm")
+RUNNER_HP = dict(tau=0.01, lr=1e-3, ent_coef=0.01, eps=0.1)   # the runner's defaults
+# K9-bf16's metrics against the plain bf16 version: a flipped bf16 activation
+# (BF16_GRAD_TOL's note) moves one sample's Q by up to 2^-8 of a unit's weight;
+# measured on the host-built kernel before this gate was set: 3.0e-4 relative
+# (tests/test_torch_maddpg_bf16_host.py)
+BF16_METRIC_RTOL = 1e-3
+K9_BF16_TILE = {"samples_per_cta": 32, "threads": 128, "grid": "batch / 32 x agents",
+                "products": "mma.sync m16n8k16 bf16, float32 sums: a warp's 8 samples x every "
+                            "16-unit block (forward, backward, the candidates); (16 x 8) gradient "
+                            "tiles dealt to the warps, the tile's 32 samples the depth",
+                "staging": "the weights rounded to bf16 as each CTA stages them, 8 loads in "
+                           "flight a thread"}
 # path f: the env API at the verify recipe's calls (make_env on simple_spread
 # with benchmark info, VecMultiAgentEnv at 4096 envs), every registry id, the
 # PettingZoo adapters at PettingZoo's default max_cycles, and the non-fused
@@ -486,7 +533,8 @@ GRAD_TOL, METRIC_RTOL = 1e-4, 1e-4
 # (2^-8) the other way; a leaf's largest entry is a sum with much
 # cancellation. Measured before this gate was set: 4.5e-4 on the host-built
 # kernels (tests/test_torch_bf16_host.py), 4.0e-4 between the plain version
-# and JAX's bf16 kernel (tests/test_torch_bf16.py)
+# and JAX's bf16 kernel (tests/test_torch_bf16.py); K9-bf16 (the same rule)
+# 2.6e-4 on the host (tests/test_torch_maddpg_bf16_host.py)
 BF16_GRAD_TOL = 1e-3
 
 # H100 SXM at its 700 W limit: 3.35 TB/s of HBM; 132 SMs at a 1.98 GHz boost
@@ -874,6 +922,40 @@ def maddpg_update_ops(name: str) -> dict:
     return {"step": sample, "reset": {}, "env": {}}
 
 
+def maddpg_update_bf16_sample(name: str) -> dict:
+    """K9-bf16's operations per (sample, agent) pair (csrc/mpe_maddpg_bf16.cu):
+    ``maddpg_update_ops``' function with every product on the tensor cores as
+    bf16 multiply-adds: the target actor (64 (OW + 64) + K 64) and target
+    critic (64 (J + 64) + 64), the critic's forward (the same), its backward
+    (64 for gh2, 64 x 64 for gh1) and weight gradients (64 (J + 64) + 64),
+    each candidate's layers 2-3 (64 x 64 + 64), the actor's forward, backward
+    (64 K + 64 x 64) and weight gradients; in fp32: the bias adds (64 x 2 +
+    K, 129 twice, 129 per candidate), the own-action columns of the base (64
+    x K), each candidate's h1 argument (64 x 2: the column sum and + base),
+    1 - h^2 and its product (3 per unit, 4 layers), y, d and g3 (3), the bias
+    sums (129 and 128 + K), the head (18 fp32 and 3 SFU per logit, the comm
+    qbar sums 2 per candidate) and the first argmax (2 per logit); every tanh
+    (2 x 64 for each of the four MLPs and per candidate); each product's
+    operand rounded once per value (two a conversion). The weights are
+    rounded once per launch (``env``, with ``envs`` 1)."""
+    a, ow, c, _, _ = widths(name)
+    k, n_cand = 5 + c, 5 * max(c, 1)
+    j = a * (ow + k)
+    h = 64
+    actor_fwd = h * (ow + h) + k * h
+    critic_fwd = h * (j + h) + h
+    tc = (2 * actor_fwd + 2 * critic_fwd + (h + h * h) + (h * (j + h) + h)
+          + n_cand * (h * h + h) + (h * k + h * h) + actor_fwd)
+    fp32 = (2 * (2 * h + k) + 2 * (2 * h + 1) + n_cand * (h + 1) + h * k + n_cand * 2 * h
+            + 4 * 3 * h + 3 + (2 * h + 1) + (2 * h + k) + 2 * k + (2 * n_cand if c else 0))
+    rounded = ((ow + 2 * h) + (j + 2 * h) + (j + 2 * h) + (1 + h) + (2 * h + j + 2 * h + 1)
+               + n_cand * 2 * h + (ow + 2 * h) + (k + h) + (3 * h + ow + h + k) + k)
+    weights = 2 * a * ((h * ow + 2 * h + h * h + k * h + k) + (h * j + 3 * h + h * h + 1))
+    return {"step": _ops((1, {"tc_bf16": tc, "fp32": fp32, "cvt": (rounded + 1) // 2}),
+                         ((8 + 2 * n_cand) * h, TANH), (k, {"fp32": 18, "sfu": 3})),
+            "reset": {}, "env": {"cvt": weights // 2}}
+
+
 def add_policy_ops() -> None:
     """OPS of K4-K9 on every scenario, from its widths (which need the
     package, so main adds them after importing it)."""
@@ -894,6 +976,7 @@ def add_policy_ops() -> None:
             "env": {}}
         OPS[f"maddpg_traj_kernel[{name}]"] = maddpg_ops(name)
         OPS[f"maddpg_update_kernel[{name}]"] = maddpg_update_ops(name)
+        OPS[f"maddpg_update_bf16_kernel[{name}]"] = maddpg_update_bf16_sample(name)
 
 
 def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
@@ -1254,6 +1337,96 @@ def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CH
           f"{float(cl[-1]):.6f}; ring {info['buffer'].size} of {run.capacity} rows "
           f"({info['buffer'].data.numel() * 4 / 1e6:.0f} MB)")
     return launches, by, run, params, info, rate, collect_ms / len(steady)
+
+
+def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
+    """Path d4 (the module docstring): on each of D4_NAMES, the runner's pieces
+    with its defaults (RUNNER_HP, MADDPG's widths, a ring of n_envs x 1600 rows,
+    the warm-up collections, actor_start MADDPG_ACTOR_START, chunk keys and
+    gates as ``fused_loop``'s), the update chunk with
+    ``compute_dtype=torch.bfloat16``: MADDPG_CHUNKS chunks timed by CUDA events
+    split into collect and update. K9-bf16 launches exactly once an update and
+    K9 never; every metric finite; the last chunk's critic loss and mean
+    reward printed beside the float32 path's (``f32_runs``: d, d2), not gated
+    -> {name: {launches, transitions_per_s, collect_ms, update_ms, last
+    metrics, params, chunk, buffer}}."""
+    import torch
+
+    from mpe_tpu_torch import scenarios
+    from mpe_tpu_torch.envs.functional import MpeEnv
+    from mpe_tpu_torch.learner.fused_loop import actor_gates, chunk_key
+    from mpe_tpu_torch.learner.fused_ppo import _mark
+    from mpe_tpu_torch.learner.maddpg import (_dims, _tree3, build_fused_collect,
+                                              build_fused_update_chunk, init_buffer, init_maddpg)
+
+    n, horizon, batch = MADDPG["n_envs"], MADDPG["horizon"], MADDPG["batch"]
+    out = {}
+    for name in D4_NAMES:
+        label = f"MADDPG-bf16 ({name})"
+        env = MpeEnv(scenarios.load(name), max_steps=horizon, auto_reset=True, device="cuda")
+        _, obs_dim, aw, _, _ = _dims(env)
+        a = env.n_agents
+        collect = build_fused_collect(env, n, horizon, eps_greedy=RUNNER_HP["eps"],
+                                      block_envs=min(1024, n))
+        chunk = build_fused_update_chunk(env, horizon, batch=batch, tau_polyak=RUNNER_HP["tau"],
+                                         actor_lr=RUNNER_HP["lr"], critic_lr=RUNNER_HP["lr"],
+                                         ent_coef=RUNNER_HP["ent_coef"],
+                                         compute_dtype=torch.bfloat16)
+        zero_launches(wrappers)
+        t0 = time.perf_counter()
+        params = _tree3(lambda x: x.to("cuda"),
+                        init_maddpg(torch.Generator().manual_seed(0), obs_dim, aw, a))
+        targets = _tree3(torch.clone, params)
+        buffer = init_buffer(n * 1600, a, obs_dim, aw, device="cuda")
+        for i in range(max(1, 200 // horizon)):
+            buffer, _ = collect(params["actor"], buffer, i)
+        state = chunk.pack_state(params, targets, chunk.init_opt(params))
+        events, mean_rewards, critic_losses = [], [], []
+        _mark(events, "start")
+        for i in range(MADDPG_CHUNKS):
+            buffer, mr = collect(chunk.actor_of(state), buffer, 10_000 + i)
+            _mark(events, "collect")
+            state, m = chunk.packed_step(state, buffer, chunk_key(0, i),
+                                         actor_gates(i, horizon, MADDPG_ACTOR_START))
+            _mark(events, "update")
+            mean_rewards.append(mr)
+            critic_losses.append(m["critic_loss"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        print(f"{label} path launches: {launches}")
+        want = MADDPG_CHUNKS * horizon
+        assert launches.get("maddpg_update_bf16_kernel") == want, \
+            f"{label}: K9-bf16 launched {launches.get('maddpg_update_bf16_kernel')}, not {want}"
+        assert set(launches) == {"maddpg_traj_kernel", "maddpg_update_bf16_kernel"}, launches
+        read_instantiations(wrappers["maddpg_update_bf16_kernel"], [name],
+                            f"{label} path's K9-bf16")
+        params, targets, opt_states = chunk.unpack_state(state)
+        mr, cl = torch.stack(mean_rewards).double(), torch.stack(critic_losses).double()
+        assert bool(torch.isfinite(mr).all()) and bool(torch.isfinite(cl).all()), (mr, cl)
+        finite_tree(label, params)
+        finite_tree(f"{label} targets", targets)
+        steady = chunk_phase_ms(events, MADDPG_CHUNKS)[1:]
+        collect_ms, update_ms = (sum(x[q] for x in steady) / len(steady) for q in (0, 1))
+        rate = n * horizon / ((collect_ms + update_ms) * 1e-3)
+        f32_info, f32_rate = f32_runs[name][2], f32_runs[name][3]
+        print(f"{label}, chunks 1-{MADDPG_CHUNKS - 1}: {rate:.6g} transitions/s beside the float32 "
+              f"path's {f32_rate:.6g}; mean per chunk {collect_ms + update_ms:.3f} ms: collect "
+              f"{collect_ms:.3f} ms (K8 + insert), update {update_ms:.3f} ms ({horizon} x gather + "
+              f"K9-bf16 + Adam + polyak); the whole run with the warm-up {wall_s:.2f} s (host "
+              f"clock)")
+        print(f"{label} chunk {MADDPG_CHUNKS - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
+              f"{float(cl[-1]):.6f}; the float32 path's {float(f32_info['mean_reward'][-1]):.6f}, "
+              f"{float(f32_info['critic_loss'][-1]):.6f} (not gated: a bf16 run is another "
+              f"function)")
+        out[name] = {"launches": launches, "transitions_per_s": rate, "collect_ms": collect_ms,
+                     "update_ms": update_ms, "last_mean_reward": float(mr[-1]),
+                     "last_critic_loss": float(cl[-1]),
+                     "float32_last_mean_reward": float(f32_info["mean_reward"][-1]),
+                     "float32_last_critic_loss": float(f32_info["critic_loss"][-1]),
+                     "params": params, "chunk": chunk, "buffer": buffer, "targets": targets,
+                     "opt_states": opt_states}
+    return out
 
 
 def chunk_phase_ms(events, n_chunks: int) -> list[tuple[float, float]]:
@@ -1861,7 +2034,8 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
     scenario ``name`` (K4, K5, K8: its struct, KernelX's XScn in
     csrc/scenario_blocks.cuh; K6, K7: its actor head <OW, 5, C>, K7 then
     its critic <A * OW, 0, 0>; K9: its four kernels on MaddpgDims<A, OW,
-    C>, in the compiler's order; K6-bf16, K7-bf16: ``ppo_bf16``,
+    C>, in the compiler's order, K9-bf16 (``maddpg_update_bf16``) on
+    MaddpgBf16Dims; K6-bf16, K7-bf16: ``ppo_bf16``,
     ``mappo_bf16``, as K6's and K7's), or []; K1, K2 and K3 (``det_rollout_kernel``,
     ``scenario_rollout_kernel``, ``trajectory_kernel``): {group G: [registers,
     spill bytes]} of their <XScn, G> instantiations."""
@@ -1873,9 +2047,10 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
         key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnELi"
         return {int(re.search(key + r"(\d+)E", k).group(1)): v for k, v in regs.items()
                 if kernel in k and key in k}
-    if kernel == "maddpg_update":
+    if kernel in ("maddpg_update", "maddpg_update_bf16"):
         a, ow, c, _, _ = widths(name)
-        key = f"MaddpgDimsILi{a}ELi{ow}ELi{c}EE"
+        dims = "MaddpgBf16Dims" if kernel.endswith("bf16") else "MaddpgDims"
+        key = f"{len(dims)}{dims}ILi{a}ELi{ow}ELi{c}EE"
         return [v for k, v in regs.items() if key in k]
     if kernel in ("ppo", "mappo", "ppo_bf16", "mappo_bf16"):
         a, ow, c, _, _ = widths(name)
@@ -1890,19 +2065,20 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
     return [v for k, v in regs.items() if kernel in k and key in k]
 
 
-def hmma_counts(widths_: tuple) -> dict:
-    """{hidden: HMMA instructions} in the SASS of the bf16 update library at
+def hmma_counts(widths_: tuple, source: str = "mpe_update_bf16.cu") -> dict:
+    """{hidden: HMMA instructions} in the SASS of a bf16 library (K6-bf16 and
+    K7-bf16's ``mpe_update_bf16.cu``, K9-bf16's ``mpe_maddpg_bf16.cu``) at
     each width (``cuobjdump -sass``); each must hold some."""
     from mpe_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
     out = {}
     for h in widths_:
-        sass = subprocess.run([cuobjdump, "-sass", str(_build._target("mpe_update_bf16.cu", h))],
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source, h))],
                               capture_output=True, text=True, check=True).stdout
         out[h] = sum("HMMA" in line for line in sass.splitlines())
-    print(f"HMMA instructions in the SASS of mpe_update_bf16.cu by hidden width: {out}")
-    assert all(n > 0 for n in out.values()), f"a bf16 update library has no HMMA: {out}"
+    print(f"HMMA instructions in the SASS of {source} by hidden width: {out}")
+    assert all(n > 0 for n in out.values()), f"a bf16 library of {source} has no HMMA: {out}"
     return out
 
 
@@ -2120,6 +2296,171 @@ def check_maddpg_update(name: str, params: dict, rows_all, label: str):
     return worst, ms, plain_ms, lib_ms, bound, tree_ms
 
 
+def tree_leaf_errors(got, ref) -> dict:
+    """Each leaf of a MADDPG gradient tree: its largest abs error over its
+    largest entry."""
+    return {f"{n}.{q}.{w}": max_err(got[n][q][w], ref[n][q][w]) / float(ref[n][q][w].abs().max())
+            for n in ref for q in ref[n] for w in ref[n][q]}
+
+
+def actor_flip_model(params, rows, name: str, ref) -> dict:
+    """The error model of the expected-Q gradient on a trained batch, printed
+    beside the actor leaves' errors (the gate holds every leaf to
+    BF16_GRAD_TOL, which is tighter: the model adds worst cases): a bf16
+    activation of a candidate's critic that the kernel and the plain version
+    round one ulp apart (BF16_GRAD_TOL's note) moves that candidate's Q by at
+    most dQ = 2^-8 max(max_g |w3c_g|, max_h sum_g |w3c_g| |w2c_gh|) (an h2
+    unit, or an h1 unit through layer 2), so qbar and E by at most dQ and
+    the sample's logit gradient p (qbar - E) / (A B) by at most 2 dQ / (A B);
+    a trained critic makes qbar - E small, so this is no longer small beside
+    the leaf. A float32 value lies within its sum-order discrepancy (2^-24
+    sqrt(H) of it) of a bf16 rounding boundary (2^-8 of it) with odds about
+    2^-15 sqrt(H) each: over the batch's B x 2 H x candidates rounded
+    activations that is N flips, whose moves add with random signs, so a leaf
+    may move by 3 sqrt(N) x 2 dQ / (A B) times its chain to the logits (out:
+    1; l2: max_g sum_c |w3a|; l1: max_h sum_g |w2a| sum_c |w3a|, times max
+    |obs| for l1.w) -> {actor leaf: that over its largest entry}."""
+    import torch
+
+    a, ow, c, _, _ = widths(name)
+    n_cand, b = 5 * max(c, 1), rows.shape[0]
+    cr, ac = params["critic"], params["actor"]
+    h = cr["l2"]["w"].shape[-1]
+    w3c, w2c = cr["out"]["w"][..., 0].abs(), cr["l2"]["w"].abs()          # [A, H], [A, H, H]
+    dq = 2.0 ** -8 * torch.maximum(w3c.amax(1), (w2c * w3c[:, None, :]).sum(2).amax(1))  # [A]
+    n_flips = b * 2 * h * n_cand * 2.0 ** -15 * math.sqrt(h)
+    scale = 3.0 * math.sqrt(n_flips) * 2.0 * dq / (a * b)                   # [A]
+    c2 = ac["out"]["w"].abs().sum(2)                                        # [A, H]
+    c1 = (ac["l2"]["w"].abs() * c2[:, None, :]).sum(2)                      # [A, H(in)]
+    obs_max = rows[:, :a * ow].reshape(b, a, ow).abs().amax((0, 2))
+    chain = {"out": scale, "l2": scale * c2.amax(1), "l1": scale * c1.amax(1)}
+    tol = {}
+    for q, layer in ref["actor"].items():
+        for w, x in layer.items():
+            move = chain[q] * (obs_max if (q, w) == ("l1", "w") else 1.0)
+            tol[f"actor.{q}.{w}"] = float(move.max()) / float(x.abs().max())
+    return tol
+
+
+def gate_maddpg_bf16(name: str, params: dict, targets: dict, rows, label: str,
+                     trained: bool = False) -> dict:
+    """K9-bf16 on ``name`` against its plain bf16 version on ``rows``: the
+    target actions equal wherever a head's two best target logits lie further
+    apart than ``target_logit_tolerance`` (the flips below it counted and
+    printed with their gaps); the gradient, with the kernel's own target
+    actions fed to the plain version, each leaf within BF16_GRAD_TOL of its
+    largest entry (on a ``trained`` batch ``actor_flip_model``'s bound printed
+    beside the actor leaves); the metrics within BF16_METRIC_RTOL; the
+    distance to the plain float32 version (the same target actions) printed
+    -> {max_abs_err, leaf errors, float32 distance, flips, ...}."""
+    import torch
+
+    from mpe_tpu_torch.ops.fused_maddpg_update import (maddpg_update_bf16_cuda, plain_maddpg_update,
+                                                       target_indices, target_logit_tolerance,
+                                                       target_logits)
+
+    a, ow, c, _, _ = widths(name)
+    k, b = 5 + c, rows.shape[0]
+    hp = dict(mw=5, gamma=0.95, ent_coef=0.01)
+    act2 = torch.empty((a, 2 if c else 1, b), dtype=torch.int32, device="cuda")
+    got, got_m = maddpg_update_bf16_cuda(params, targets, rows, target_actions=act2, **hp)
+    logits = target_logits(targets["actor"], rows[:, a * (ow + k + 1):].reshape(b, a, ow),
+                           torch.bfloat16)
+    want = target_indices(logits, 5).permute(1, 2, 0)                      # [A, heads, B]
+    bound = target_logit_tolerance(targets["actor"])                       # [A]
+    heads = ((0, 5), (5, k)) if c else ((0, 5),)
+    gaps = torch.stack([logits[..., lo:hi].topk(2, dim=-1).values.diff(dim=-1)[..., 0].neg()
+                        for lo, hi in heads], -1).permute(1, 2, 0)
+    clear = gaps > bound[:, None, None]
+    flips = act2.long() != want
+    below = sorted(float(g) for g in gaps[flips])
+    print(f"K9-bf16 ({name}, {label}) target actions: {float(clear.double().mean()):.4f} of the "
+          f"heads clear of the bound (per agent {[f'{float(x):.3g}' for x in bound]}), "
+          f"{int(flips.sum())} flips, at gaps {[f'{g:.3g}' for g in below[:8]]}")
+    assert not bool((flips & clear).any()), f"K9-bf16 ({name}, {label}): a clear head flipped"
+    ref, ref_m = plain_maddpg_update(params, targets, rows, compute_dtype=torch.bfloat16,
+                                     target_actions=act2, **hp)
+    f32, _ = plain_maddpg_update(params, targets, rows, target_actions=act2, **hp)
+    errs = tree_leaf_errors(got, ref)
+    model = actor_flip_model(params, rows, name, ref) if trained else {}
+    far = max(tree_leaf_errors(got, f32).values())
+    m_err = [abs(float(x) - float(y)) / abs(float(y)) for x, y in zip(got_m, ref_m)]
+    print(f"K9-bf16 ({name}, {label}) leaf errors against the plain bf16 version: "
+          + ", ".join(f"{key} {v:.3g}" + (f" (error model {model[key]:.3g})" if key in model
+                                          else "") for key, v in errs.items())
+          + f"; against the plain float32 version {far:.3g}; metrics relative "
+          + ", ".join(f"{v:.3g}" for v in m_err))
+    bad = {key: v for key, v in errs.items() if not v <= BF16_GRAD_TOL}
+    assert not bad, f"K9-bf16 ({name}, {label}): the gradient disagrees with plain bf16: {bad}"
+    assert max(m_err) <= BF16_METRIC_RTOL, f"K9-bf16 ({name}, {label}): the metrics disagree"
+    worst = max(max_err(got[n][q][w], ref[n][q][w]) for n in ref for q in ref[n] for w in ref[n][q])
+    return {"max_abs_err": worst, "leaf_err": max(errs.values()), "leaf_errors": errs,
+            "leaf_err_vs_plain_float32": far, "target_flips": int(flips.sum()),
+            "target_flip_gaps": below[:8], "clear_share": float(clear.double().mean()),
+            "actor_error_model": model}
+
+
+def check_maddpg_bf16(name: str, trained: dict, rows_all) -> dict:
+    """K9-bf16 on ``name`` on two batches of MADDPG["batch"] rows of
+    ``rows_all`` (the main path's ring): fresh init_maddpg params and the main
+    path's ``trained`` params, targets = params + 0.1 N(0, 1) in both
+    (``gate_maddpg_bf16``; on the fresh batch K9-bf16 lies at least 10x
+    nearer the plain bf16 version than the plain float32 version); then on
+    the trained batch K9-bf16 per call on the packed buffers beside K9 on the
+    same buffers, the plain bf16 version and autograd of the losses in
+    float32 (no bf16 library computation exists), and the bound -> the
+    kernels line's by_scenario row."""
+    import torch
+
+    from mpe_tpu_torch.learner.maddpg import init_maddpg, maddpg_xla_grads
+    from mpe_tpu_torch.ops.fused_maddpg_update import (MaddpgUpdateLauncher, _split_rows,
+                                                       plain_maddpg_update)
+
+    a, ow, k, width, nw, nc = maddpg_widths(name)
+    b = MADDPG["batch"]
+    gen = torch.Generator("cuda").manual_seed(8)
+    rows = rows_all[torch.randint(0, rows_all.shape[0], (b,), generator=gen,
+                                  device="cuda")].contiguous()
+
+    def perturbed(p):
+        return {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda")
+                        for w, x in layer.items()} for q, layer in net.items()}
+                for n, net in p.items()}
+
+    fresh = {n: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
+             for n, net in init_maddpg(torch.Generator().manual_seed(80), ow, k, a).items()}
+    row = {"fresh": gate_maddpg_bf16(name, fresh, perturbed(fresh), rows, "fresh params")}
+    near, far = row["fresh"]["leaf_err"], row["fresh"]["leaf_err_vs_plain_float32"]
+    assert 10 * near <= far, f"K9-bf16 ({name}): {near:.3g} from plain bf16, {far:.3g} from float32"
+    targets = perturbed(trained)
+    row["trained"] = gate_maddpg_bf16(name, trained, targets, rows, "trained params",
+                                      trained=True)
+
+    hp = dict(gamma=0.95, ent_coef=0.01)
+    lay_bf16 = MaddpgUpdateLauncher(a, ow, k, 5, 64, b, "cuda", compute_dtype=torch.bfloat16, **hp)
+    lay_f32 = MaddpgUpdateLauncher(a, ow, k, 5, 64, b, "cuda", **hp)
+    weights = lay_bf16.layout.pack(trained, targets).cuda()
+    grads = torch.empty(lay_bf16.layout.off_ta, device="cuda")
+    metrics = torch.empty(3, device="cuda")
+    ms, _ = cuda_time(lambda: lay_bf16.launch(weights, rows, grads, metrics), REPEATS)
+    ms32, _ = cuda_time(lambda: lay_f32.launch(weights, rows, grads, metrics), REPEATS)
+    plain_ms, _ = cuda_time(lambda: plain_maddpg_update(trained, targets, rows, mw=5,
+                                                        compute_dtype=torch.bfloat16, **hp),
+                            REPEATS)
+    split = _split_rows(rows, a, ow, k)
+    lib_ms, _ = cuda_time(lambda: maddpg_xla_grads(trained, targets, *split, mw=5, cw=k - 5, **hp),
+                          REPEATS)
+    bound = bound_ms(OPS[f"maddpg_update_bf16_kernel[{name}]"], b * a, 0, 1,
+                     4 * (b * width + 2 * a * (nw + nc) + a * (nw + nc + 3)))
+    print(f"K9-bf16 ({name}, trained params) {ms:.4f} ms per call on the packed buffers (batch "
+          f"{b}), K9 {ms32:.4f} ms on the same buffers; plain bf16 {plain_ms:.3f} ms, autograd of "
+          f"the losses in float32 {lib_ms:.3f} ms; bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({ms / bound[0]:.2f}x); issue floor {bound[2]:.5f} ms")
+    return {"max_abs_err": max(r["max_abs_err"] for r in row.values()), "ms": ms,
+            "float32_kernel_ms": ms32, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "gates": row}
+
+
 def check_update_chunk(name: str, run, params, info) -> float:
     """One update chunk (25 updates) of the runner of path d, d2 or d3
     (``name``) with the kernels against the same chunk with the plain
@@ -2182,10 +2523,16 @@ def profile_trajectories(k3_ms: dict) -> dict:
     return device_ms
 
 
-def profile_maddpg_update(name: str, run, params, info):
-    """One MADDPG update chunk (25 updates) of path d, d2 or d3 (``name``)
-    as the runner runs it (``packed_step`` on the packed state) under
-    torch.profiler: K9's device time per update (its four kernels), the
+K9_KERNELS = ("maddpg_target_actions_kernel", "maddpg_td_kernel", "maddpg_update_kernel",
+              "maddpg_reduce_kernel")
+K9_BF16_KERNELS = tuple(k.replace("_kernel", "_bf16_kernel") for k in K9_KERNELS)
+
+
+def profile_maddpg_update(name: str, run, params, info, kernels=K9_KERNELS):
+    """One MADDPG update chunk (25 updates) of path d, d2 or d3 (``name``),
+    or of path d4 with ``kernels`` K9_BF16_KERNELS, as the runner runs it
+    (``packed_step`` on the packed state) under torch.profiler: the device
+    time per update of the four ``kernels`` (K9's by default), the
     device's busy share of the chunk's CUDA-event time, the kernel launches
     per update and the kernels that take the most device time. It gates
     nothing; without device events it says so. -> {device_ms_per_update,
@@ -2209,24 +2556,22 @@ def profile_maddpg_update(name: str, run, params, info):
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
-    if not kernels:
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    if not device:
         print(f"MADDPG update chunk on {name} under torch.profiler: device time not measured "
               "(no device events)")
         return {}
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3
-    k9_ms = {n: sum(device_us(e) for e in kernels if n in e.key) / 1e3 / h
-             for n in ("maddpg_target_actions_kernel", "maddpg_td_kernel", "maddpg_update_kernel",
-                       "maddpg_reduce_kernel")}
-    per_update = sum(e.count for e in kernels) / h
+    busy_ms = sum(device_us(e) for e in device) / 1e3
+    k9_ms = {n: sum(device_us(e) for e in device if n in e.key) / 1e3 / h for n in kernels}
+    per_update = sum(e.count for e in device) / h
     print(f"MADDPG update chunk on {name} under torch.profiler ({h} updates of the packed "
           f"state, {wall_ms:.3f} ms by CUDA events): device busy {busy_ms:.3f} ms "
-          f"({busy_ms / wall_ms:.4f} of the time, idle {1 - busy_ms / wall_ms:.4f}); K9 device "
-          f"time per update {sum(k9_ms.values()):.4f} ms ("
+          f"({busy_ms / wall_ms:.4f} of the time, idle {1 - busy_ms / wall_ms:.4f}); the update "
+          f"kernels' device time per update {sum(k9_ms.values()):.4f} ms ("
           + ", ".join(f"{k} {v:.4f}" for k, v in k9_ms.items())
           + f"); {per_update:.1f} kernel launches per update")
-    top = sorted(kernels, key=device_us, reverse=True)[:6]
+    top = sorted(device, key=device_us, reverse=True)[:6]
     print("  most device time: " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms in {e.count}" for e in top))
     return {"device_ms_per_update": sum(k9_ms.values()), "device_split_ms": k9_ms,
@@ -2360,8 +2705,9 @@ def check_iteration(label: str, stp, st0) -> float:
 
 
 def hidden_widths_phase(wrappers) -> dict:
-    """Phase 3b (the module docstring): K4-K9 at each width of HIDDEN_PHASE
-    on HIDDEN_NAMES against their plain versions, then the trainers of
+    """Phase 3b (the module docstring): K4-K9, K6-bf16, K7-bf16 and K9-bf16 at
+    each width of HIDDEN_PHASE on HIDDEN_NAMES against their plain versions,
+    then the trainers of
     HIDDEN_TRAINERS and the MADDPG runner at HIDDEN_MADDPG, their launches
     read -> {kernel: {hidden: {scenario: max abs err}}, "launches": {...},
     "trainer_max_abs_err": {...}, "seconds": s}."""
@@ -2382,7 +2728,7 @@ def hidden_widths_phase(wrappers) -> dict:
     n, steps, hor = g["n_envs"], g["n_steps"], g["horizon"]
     kernels = ("policy_traj_kernel", "policy_rollout_kernel", "ppo_update_kernel",
                "mappo_update_kernel", "maddpg_traj_kernel", "maddpg_update_kernel",
-               "ppo_update_bf16_kernel", "mappo_update_bf16_kernel")
+               "ppo_update_bf16_kernel", "mappo_update_bf16_kernel", "maddpg_update_bf16_kernel")
     out = {k: {} for k in kernels}
     bf16 = torch.bfloat16
     for h in HIDDEN_PHASE:
@@ -2465,7 +2811,16 @@ def hidden_widths_phase(wrappers) -> dict:
             rows = replay_rows(*got).reshape(mn * mh, -1)
             del got, ref
             errs["maddpg_update_kernel"][name] = gate_maddpg_update(name, mp, rows, tag)[0]
-            del rows
+            # K9-bf16 on MADDPG["batch"] of the same rows, targets = params + 0.1 N(0, 1)
+            gen = torch.Generator("cuda").manual_seed(9)
+            sel = rows[torch.randint(0, rows.shape[0], (MADDPG["batch"],), generator=gen,
+                                     device="cuda")].contiguous()
+            tgt = {k: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda")
+                           for w, x in layer.items()} for q, layer in net.items()}
+                   for k, net in mp.items()}
+            errs["maddpg_update_bf16_kernel"][name] = gate_maddpg_bf16(name, mp, tgt, sel,
+                                                                       tag)["max_abs_err"]
+            del rows, sel
     # the trainers at the widths the repo runs them, launches read after each
     out["launches"], out["trainer_max_abs_err"] = {}, {}
     for label, h in HIDDEN_TRAINERS:
@@ -3238,10 +3593,10 @@ def side_layers_path(wrappers, generic_rate: float, k2_rate: float) -> dict:
 # ---- path h: multi-device (torch.distributed) and checkpoint/trace ----------
 
 def kernel_wrappers() -> dict:
-    """The nine kernels' wrappers and K6-bf16's and K7-bf16's, whose counters
-    the paths read."""
+    """The nine kernels' wrappers and K6-bf16's, K7-bf16's and K9-bf16's,
+    whose counters the paths read."""
     from mpe_tpu_torch.ops.fused_maddpg import maddpg_traj_cuda
-    from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_cuda
+    from mpe_tpu_torch.ops.fused_maddpg_update import maddpg_update_bf16_cuda, maddpg_update_cuda
     from mpe_tpu_torch.ops.fused_parity import det_rollout_cuda
     from mpe_tpu_torch.ops.fused_policy import policy_rollout_cuda, policy_traj_cuda
     from mpe_tpu_torch.ops.fused_rollout import rollout_cuda
@@ -3255,7 +3610,8 @@ def kernel_wrappers() -> dict:
             "mappo_update_kernel": mappo_update_cuda, "maddpg_traj_kernel": maddpg_traj_cuda,
             "maddpg_update_kernel": maddpg_update_cuda,
             "ppo_update_bf16_kernel": ppo_update_bf16_cuda,
-            "mappo_update_bf16_kernel": mappo_update_bf16_cuda}
+            "mappo_update_bf16_kernel": mappo_update_bf16_cuda,
+            "maddpg_update_bf16_kernel": maddpg_update_bf16_cuda}
 
 
 def h_maddpg_init(seed: int = 0):
@@ -3782,6 +4138,7 @@ def main() -> int:
     regs_at = {h: ptxas_registers({k: v for k, v in logs.items() if k[1:] == (h,)})
                for h in HIDDEN_PHASE}
     hmma = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE)
+    hmma9 = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE, "mpe_maddpg_bf16.cu")
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
@@ -3845,6 +4202,15 @@ def main() -> int:
         k8_by.update(by["maddpg_traj_kernel"])
         k9_by.update(by["maddpg_update_kernel"])
     run, mparams, minfo, *_ = maddpg_runs["simple_spread"]
+    # path d4: the bf16 MADDPG update (K8, K9-bf16) on D4_NAMES
+    d4 = bf16_maddpg_path(wrappers, maddpg_runs)
+    launches["maddpg_update_bf16_kernel"] = 0
+    k9b_by = {}
+    for name, r in d4.items():
+        for k, v in r["launches"].items():
+            launches[k] += v
+        k8_by[name] += r["launches"]["maddpg_traj_kernel"]
+        k9b_by[name] = r["launches"]["maddpg_update_bf16_kernel"]
     scn_launches, scn_by, k1_scn_ms, k2_scn_ms, k3_ms = scenarios_path(wrappers,
                                                                        torch.device("cuda"))
     # K1 and K2 ran in path a (simple_spread) and path e (the eight others)
@@ -3974,6 +4340,23 @@ def main() -> int:
     chunk_err = {name: check_update_chunk(name, *r[:3]) for name, r in maddpg_runs.items()}
     for name, r in maddpg_runs.items():
         k9_rows[name].update(profile_maddpg_update(name, *r[:3]))
+    # K9-bf16 on three scenarios (fresh and the main path's trained params on
+    # its ring), then one d4 update chunk under torch.profiler
+    k9b_rows = {}
+    for name in K9_BF16_NAMES:
+        ring_b = maddpg_runs[name][2]["buffer"]
+        k9b_rows[name] = check_maddpg_bf16(name, maddpg_runs[name][1],
+                                           ring_b.data[:ring_b.size])
+        k9b_rows[name]["launches"] = k9b_by.get(name, 0)
+        k9b_rows[name]["registers_spill_bytes"] = registers_of(regs, "maddpg_update_bf16", name)
+    for name, r in d4.items():
+        k9b_rows[name]["path_d4"] = {k: v for k, v in r.items()
+                                     if k not in ("params", "chunk", "buffer", "targets",
+                                                  "opt_states")}
+        k9b_rows[name].update(profile_maddpg_update(
+            name, types.SimpleNamespace(update_chunk=r["chunk"]), r["params"],
+            {k: r[k] for k in ("targets", "opt_states", "buffer")}, K9_BF16_KERNELS))
+    del d4
     k5_by_trainer = {"train (simple_spread)": "simple_spread",
                      "MAPPO (simple_spread)": "simple_spread", f"comm PPO ({COMM_PPO})": COMM_PPO,
                      f"comm MAPPO ({COMM_MAPPO})": COMM_MAPPO}
@@ -4175,13 +4558,27 @@ def main() -> int:
             path_b5={"ms_per_iteration_by_phase": phases_, "last_iteration": last,
                      "float32_last_iteration": last_metrics["train" if kind == "ppo" else
                                                             "MAPPO"]}))
-    # K4-K9 and K6-bf16, K7-bf16 at the other hidden widths (phase 3b): errors
+    # K9-bf16 (path d4): its top-level numbers are simple_spread's on path d's
+    # ring with path d's params; by_scenario holds the three gated scenarios
+    top9 = k9b_rows["simple_spread"]
+    kernels.append(record(
+        "maddpg_update_bf16_kernel", "mpe_maddpg_bf16.cu",
+        "mpe_tpu/ops/fused_maddpg_update.py:142 (compute_dtype=bfloat16)",
+        max(r["max_abs_err"] for r in k9b_rows.values()), top9["ms"], top9["plain_ms"],
+        (top9["bound_ms"], top9["bound_by"]), top9["library_ms"], compute_dtype="bfloat16",
+        library="autograd of the losses in float32 (maddpg_xla_grads); no bf16 library "
+                "computation exists",
+        scenarios=list(K9_BF16_NAMES), timed_on="simple_spread", by_scenario=k9b_rows,
+        tile=K9_BF16_TILE, hmma_instructions=hmma9, grad_tol=BF16_GRAD_TOL,
+        metric_rtol=BF16_METRIC_RTOL))
+    # K4-K9 and K6-bf16, K7-bf16, K9-bf16 at the other hidden widths (phase 3b): errors
     # and registers by width
     reg_keys = {"policy_traj_kernel": "policy_traj_kernel",
                 "policy_rollout_kernel": "policy_rollout_kernel", "ppo_update_kernel": "ppo",
                 "mappo_update_kernel": "mappo", "maddpg_traj_kernel": "maddpg_traj_kernel",
                 "maddpg_update_kernel": "maddpg_update", "ppo_update_bf16_kernel": "ppo_bf16",
-                "mappo_update_bf16_kernel": "mappo_bf16"}
+                "mappo_update_bf16_kernel": "mappo_bf16",
+                "maddpg_update_bf16_kernel": "maddpg_update_bf16"}
     for row in kernels:
         if row["name"] in reg_keys:
             row["hidden_widths"] = {

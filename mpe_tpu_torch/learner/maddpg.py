@@ -484,15 +484,18 @@ def _dims(env):
 
 
 def _make_grads_fn(env, grad_engine: str, *, batch: int, gamma: float, ent_coef: float,
-                   hidden: int, device, dtype, local_critic: bool = False):
+                   hidden: int, device, dtype, local_critic: bool = False,
+                   compute_dtype=torch.float32):
     """``grads_fn(params, targets, obs_b, act_b, rew_b, obs2_b)`` with
     ``grads_fn.from_rows(params, targets, rows_b)``: ``"kernel"`` is kernel
-    K9 (``ops/fused_maddpg_update``; its plain version on the CPU),
-    ``"autograd"`` is ``maddpg_xla_grads``. ``local_critic`` (independent
-    DDPG) takes the autograd engine only: K9 is a centralized-critic
-    kernel."""
-    from mpe_tpu_torch.ops.fused_maddpg_update import fused_maddpg_update
+    K9, or K9-bf16 with ``compute_dtype=torch.bfloat16``
+    (``ops/fused_maddpg_update``; its plain version on the CPU),
+    ``"autograd"`` is ``maddpg_xla_grads``, which ignores ``compute_dtype``
+    as JAX's ``"xla"`` engine does. ``local_critic`` (independent DDPG) takes
+    the autograd engine only: K9 is a centralized-critic kernel."""
+    from mpe_tpu_torch.ops.fused_maddpg_update import fused_maddpg_update, maddpg_rounding
 
+    maddpg_rounding(compute_dtype)
     _, obs_dim, aw, mw, cw = _dims(env)
     if local_critic and grad_engine == "kernel":
         raise ValueError("independent-DDPG critics (local_critic=True) need "
@@ -500,7 +503,8 @@ def _make_grads_fn(env, grad_engine: str, *, batch: int, gamma: float, ent_coef:
                          "critic only")
     if grad_engine == "kernel":
         return fused_maddpg_update(env.n_agents, obs_dim, aw, mw, hidden=hidden, batch=batch,
-                                   gamma=gamma, ent_coef=ent_coef, device=device, dtype=dtype)
+                                   gamma=gamma, ent_coef=ent_coef, device=device, dtype=dtype,
+                                   compute_dtype=compute_dtype)
     if grad_engine != "autograd":
         raise ValueError(f"grad_engine must be 'kernel' or 'autograd', got {grad_engine!r}")
     def grads_fn(params, targets, obs_b, act_b, rew_b, obs2_b):
@@ -552,7 +556,7 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
                              tau_polyak: float = 0.05, actor_lr: float = 1e-3,
                              critic_lr: float = 1e-3, ent_coef: float = 0.01, hidden: int = 64,
                              grad_engine: str = "kernel", device=None, dtype=torch.float32,
-                             local_critic: bool = False, mesh=None):
+                             local_critic: bool = False, mesh=None, compute_dtype=torch.float32):
     """``n_updates`` sequential updates per call, their replay batches
     gathered in one read: ``update_chunk(params, targets, opt_states,
     buffer, key, gates, indices=None) -> (params, targets, opt_states,
@@ -578,6 +582,13 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
     actors as a tree; ``update_chunk.plain`` is the chunk in tree form with
     kernel K9's plain version.
 
+    ``compute_dtype=torch.bfloat16`` is JAX's ``compute_dtype=bfloat16`` of
+    the kernel engine: on CUDA kernel K9-bf16 in place of K9 (every product
+    on the tensor cores in bf16, float32 sums), on the CPU the plain version's
+    bf16 path; the params, the Adam moments and the Polyak targets stay in
+    ``dtype``. The default float32 (or None) is K9. The ``"autograd"`` engine
+    ignores it, as JAX's ``"xla"`` engine does.
+
     ``local_critic=True`` (independent DDPG; ``grad_engine="autograd"``
     only, as in JAX) packs critics of the own ``obs+act`` input: the layout
     takes the critic's input width, and K9 is never launched on it.
@@ -593,7 +604,7 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
     actor_opt, critic_opt = adam(actor_lr), adam(critic_lr)
     grads_fn = _make_grads_fn(env, grad_engine, batch=batch, gamma=gamma, ent_coef=ent_coef,
                               hidden=hidden, device=device, dtype=dtype,
-                              local_critic=local_critic)
+                              local_critic=local_critic, compute_dtype=compute_dtype)
     _, obs_dim, aw, mw, _ = _dims(env)
     a = env.n_agents
     layout = PackedLayout(a, obs_dim, aw, hidden,
@@ -645,13 +656,15 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
                  "critic": moments(state.critic_opt, "critic")})
 
     def k9_launcher():
-        """K9 and its gradient buffer on CUDA with the engine "kernel" (built
-        once), else None: the tree gradient of the unpacked nets, packed."""
+        """K9 (K9-bf16) and its gradient buffer on CUDA with the engine
+        "kernel" (built once), else None: the tree gradient of the unpacked
+        nets, packed."""
         if device.type != "cuda" or grad_engine != "kernel" or dtype != torch.float32:
             return None
         if not launcher:
             launcher["k9"] = MaddpgUpdateLauncher(a, obs_dim, aw, mw, hidden, batch, device,
-                                                  gamma=gamma, ent_coef=ent_coef)
+                                                  gamma=gamma, ent_coef=ent_coef,
+                                                  compute_dtype=compute_dtype)
             launcher["grads"] = torch.empty(layout.off_ta, dtype=torch.float32, device=device)
         return launcher["k9"]
 
@@ -815,13 +828,16 @@ def build_fused_maddpg_dp(env, n_envs: int, mesh=None, horizon: int | None = Non
 
 def build_fused_update(env, batch: int = 256, gamma: float = 0.95, tau_polyak: float = 0.05,
                        actor_lr: float = 1e-3, critic_lr: float = 1e-3, ent_coef: float = 0.01,
-                       hidden: int = 64, device=None, dtype=torch.float32):
+                       hidden: int = 64, device=None, dtype=torch.float32,
+                       compute_dtype=torch.float32):
     """One update per call: ``update_fn(params, targets, opt_states, buffer,
     key, do_actor=True, indices=None) -> (params, targets, opt_states,
-    metrics)``, a chunk of one (``build_fused_update_chunk``)."""
+    metrics)``, a chunk of one (``build_fused_update_chunk``, K9-bf16 with
+    ``compute_dtype=torch.bfloat16``)."""
     chunk = build_fused_update_chunk(env, 1, batch=batch, gamma=gamma, tau_polyak=tau_polyak,
                                      actor_lr=actor_lr, critic_lr=critic_lr, ent_coef=ent_coef,
-                                     hidden=hidden, device=device, dtype=dtype)
+                                     hidden=hidden, device=device, dtype=dtype,
+                                     compute_dtype=compute_dtype)
 
     def update_fn(params, targets, opt_states, buffer, key, do_actor=True, indices=None):
         idx = None if indices is None else indices.reshape(1, -1)     # numpy or a tensor

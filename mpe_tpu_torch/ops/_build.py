@@ -6,7 +6,7 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 libraries go into ``build/kernels/`` beside the package at first use; the
 sources build in parallel, and each is rebuilt only when it, the shared
 header or the flags change (the file name carries their hash). The sources
-of K4-K9 and of K6-bf16/K7-bf16 (``HIDDEN_SOURCES``) take the MLPs' hidden
+of K4-K9 and of K6-bf16, K7-bf16 and K9-bf16 (``HIDDEN_SOURCES``) take the MLPs' hidden
 width at compile time (``-DMPE_HIDDEN``): one library per (source, width) of
 ``HIDDEN_WIDTHS``, built at the first use of that width; ``build_all`` builds
 every source at width 64.
@@ -34,14 +34,15 @@ import numpy as np
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu",
-           "mpe_trajectory.cu", "mpe_update_bf16.cu")
-HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh")
+           "mpe_trajectory.cu", "mpe_update_bf16.cu", "mpe_maddpg_bf16.cu")
+HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh", "bf16_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # the sources whose kernels run an MLP (K4, K5; K6, K7; K8, K9; K6-bf16,
-# K7-bf16), the hidden widths they are compiled for, and the width a plain
-# build takes
-HIDDEN_SOURCES = ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu", "mpe_update_bf16.cu")
+# K7-bf16; K9-bf16), the hidden widths they are compiled for, and the width a
+# plain build takes
+HIDDEN_SOURCES = ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu", "mpe_update_bf16.cu",
+                  "mpe_maddpg_bf16.cu")
 HIDDEN_WIDTHS = (8, 16, 32, 64)
 DEFAULT_HIDDEN = 64
 
@@ -153,6 +154,10 @@ SIGNATURES = {
     "mpe_maddpg.cu": {
         "mpe_maddpg_traj": [_I] + [_P] * 7 + [_I] * 5 + [_F, _U, _U, _I, _P],
         "mpe_maddpg_traj_ctas_per_sm": [_I] * 2,
+        "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],
+        "mpe_maddpg_update_layout": [_I, _I],
+    },
+    "mpe_maddpg_bf16.cu": {                 # mpe_maddpg.cu's K9 entries
         "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],
         "mpe_maddpg_update_layout": [_I, _I],
     },

@@ -42,6 +42,16 @@ params have; on the CPU it runs ``plain_maddpg_update`` in ``dtype``. The
 trainer's chunk (``learner.maddpg.build_fused_update_chunk``) keeps its
 state in that buffer and launches K9 through ``MaddpgUpdateLauncher``. The target actors sum each layer in the kernel's order, so the
 kernel and its plain version take the same target actions on the card.
+
+``compute_dtype=torch.bfloat16`` is the JAX kernel's ``cd = bfloat16``
+(``maddpg_rounding``): every product rounds both operands to bf16 and sums
+in float32, the rest stays float32 (``plain_maddpg_update``). On a CUDA
+device it launches K9-bf16 (``csrc/mpe_maddpg_bf16.cu``: K9's four stages
+and layout with the products on the tensor cores by ``mma.sync``; counted in
+``maddpg_update_bf16_cuda.launches``), on the same float32 weight buffer.
+The two paths round an activation whose float32 sum they took in another
+order a whole bf16 ulp apart now and then, so a target action may differ
+where a head's two best logits lie within ``target_logit_tolerance``.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ import torch
 
 from mpe_tpu_torch._device import resolve_device
 from mpe_tpu_torch.ops._build import DEFAULT_HIDDEN, check_hidden
+from mpe_tpu_torch.ops.fused_update import _keep, compute_rounding
 
 
 def _seq_dense_agents(w, b, x):
@@ -65,12 +76,15 @@ def _seq_dense_agents(w, b, x):
     return acc + b
 
 
-def target_logits(target_actor, obs2_b):
+def target_logits(target_actor, obs2_b, compute_dtype=None):
     """The target actors' logits on s' [B, A, O] -> [B, A, K], in the order
-    of ``maddpg_target_actions_kernel``."""
-    h = torch.tanh(_seq_dense_agents(target_actor["l1"]["w"], target_actor["l1"]["b"], obs2_b))
-    h = torch.tanh(_seq_dense_agents(target_actor["l2"]["w"], target_actor["l2"]["b"], h))
-    return _seq_dense_agents(target_actor["out"]["w"], target_actor["out"]["b"], h)
+    of ``maddpg_target_actions_kernel``; with ``compute_dtype=torch.bfloat16``
+    each product's operands rounded to bf16 (``maddpg_rounding``)."""
+    rnd = maddpg_rounding(compute_dtype)[1]
+    ta = target_actor
+    h = torch.tanh(_seq_dense_agents(rnd(ta["l1"]["w"]), ta["l1"]["b"], rnd(obs2_b)))
+    h = torch.tanh(_seq_dense_agents(rnd(ta["l2"]["w"]), ta["l2"]["b"], rnd(h)))
+    return _seq_dense_agents(rnd(ta["out"]["w"]), ta["out"]["b"], rnd(h))
 
 
 def target_indices(logits, mw: int):
@@ -80,6 +94,27 @@ def target_indices(logits, mw: int):
     if logits.shape[-1] > mw:
         idx.append(logits[..., mw:].argmax(-1))
     return torch.stack(idx, dim=-1)
+
+
+def target_logit_tolerance(target_actor, flips: int = 2):
+    """How far two right implementations of the bf16 path may put one target
+    logit apart, per agent ``[A]``: both round the same float32 values to
+    bf16, but a float32 sum that the two take in another order (the mma's
+    against an einsum's) differs in its last bits, and where it lies next to a
+    bf16 rounding boundary the rounded activation differs by one ulp, at most
+    2^-8 for a tanh output. One such flip of an h2 unit moves logit c by at
+    most ``|w3[c, g]| 2^-8``, one of an h1 unit by about ``sum_g |w3[c, g]|
+    |w2[g, h]| 2^-8`` (through layer 2, tanh' <= 1). The tolerance allows
+    ``flips`` flips of the larger kind per sample, on both logits of a pair
+    (a factor 2), plus the float32 rounding of the logit's own sum of H
+    products (``2 H 2^-24 sum_g |w3[c, g]|``): a head whose best and second
+    logits lie further apart takes the same action in both."""
+    w2 = target_actor["l2"]["w"].detach().abs().float()             # [A, H(in), H(out)]
+    w3 = target_actor["out"]["w"].detach().abs().float()            # [A, H, K]
+    one = torch.maximum(w3.amax(1), torch.einsum("agc,ahg->ahc", w3, w2).amax(1))  # [A, K]
+    h = w3.shape[1]
+    per_logit = 2.0 * flips * 2.0 ** -8 * one + 2.0 * h * 2.0 ** -24 * w3.sum(1)
+    return per_logit.amax(-1)
 
 
 def head_onehots(idx, mw: int, k: int, dtype):
@@ -98,20 +133,20 @@ def _split_rows(rows, a: int, o: int, k: int):
             rows[:, ao + ak:ao + ak + a], rows[:, ao + ak + a:].reshape(b, a, o))
 
 
-def _critic_layers(c, joint):
+def _critic_layers(c, joint, rnd=_keep):
     """Every agent's critic on the shared joint [B, J], each layer summed in
     the kernel's order -> (pre [B, A, H], h1, h2, q [B, A])."""
-    x = joint[:, None, :].expand(-1, c["l1"]["w"].shape[0], -1)
-    pre = _seq_dense_agents(c["l1"]["w"], c["l1"]["b"], x)
+    x = rnd(joint)[:, None, :].expand(-1, c["l1"]["w"].shape[0], -1)
+    pre = _seq_dense_agents(rnd(c["l1"]["w"]), c["l1"]["b"], x)
     h1 = torch.tanh(pre)
-    h2, q = _critic_tail(c, h1)
+    h2, q = _critic_tail(c, h1, rnd)
     return pre, h1, h2, q
 
 
-def _critic_tail(c, h1):
+def _critic_tail(c, h1, rnd=_keep):
     """Layers 2 and 3 of every agent's critic: h1 [B, A, H] -> (h2, q [B, A])."""
-    h2 = torch.tanh(_seq_dense_agents(c["l2"]["w"], c["l2"]["b"], h1))
-    return h2, _seq_dense_agents(c["out"]["w"], c["out"]["b"], h2)[..., 0]
+    h2 = torch.tanh(_seq_dense_agents(rnd(c["l2"]["w"]), c["l2"]["b"], rnd(h1)))
+    return h2, _seq_dense_agents(rnd(c["out"]["w"]), c["out"]["b"], rnd(h2))[..., 0]
 
 
 def _seq_sum(terms):
@@ -140,10 +175,24 @@ def _head_grad(p, s, qbar, exp_q, ent_coef: float, inv: float):
 
 
 def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_coef: float,
-                        dtype=torch.float32):
+                        dtype=torch.float32, compute_dtype=None, target_actions=None):
     """The JAX ``_maddpg_update_kernel`` on the whole batch at once, in
     ``dtype`` -> (grads in init_maddpg layout, (critic_loss, actor_loss,
     q_mean)); ``mw`` move logits, the rest of the head is comm.
+
+    ``compute_dtype=torch.bfloat16`` is the JAX kernel's ``cd = bfloat16``:
+    every product (the four forward MLPs, the critic's and the actors'
+    backward and weight gradients, the candidates' layers 2-3) rounds both
+    operands to bf16 (``maddpg_rounding``), the s' rows and the
+    joints among them, and sums in float32; the tanh, ``1 - h^2``, the
+    softmaxes, argmaxes, bias and metric sums stay float32, and the update
+    computes and returns float32. The candidates' base subtracts the
+    bf16-rounded own-action columns (a product) and adds the float32
+    candidate columns (JAX's ``dcand``, an einsum outside the kernel), so at
+    bf16 the candidate of the action taken does not give back the
+    pre-activation. ``target_actions``, int ``[A, heads, B]`` as the kernels
+    write them, replaces the target actors' first argmax (to hold a kernel's
+    gradient on the actions it took).
 
     The forward passes and the sums over candidates and heads sum in the
     CUDA kernel's order. The expected-Q gradient ``p (qbar - E)`` is
@@ -151,6 +200,7 @@ def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_c
     ``qbar - E`` is near 1e-3, so another summation order alone moves the
     actor's gradient by parts in a thousand (PERF.md); in this order the two
     agree to the rounding of the weight-gradient sums."""
+    dtype, rnd = maddpg_rounding(compute_dtype, dtype)
     p = {n: {q: {w: x.detach().to(dtype) for w, x in layer.items()} for q, layer in net.items()}
          for n, net in params.items()}
     t = {n: {q: {w: x.detach().to(dtype) for w, x in layer.items()} for q, layer in net.items()}
@@ -165,35 +215,41 @@ def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_c
     inv = 1.0 / float(a * batch)
 
     # 1-2. target actions (first argmax per head) and TD targets
-    act2 = head_onehots(target_indices(target_logits(t["actor"], obs2), mw), mw, k, dtype)
+    if target_actions is None:
+        idx = target_indices(target_logits(t["actor"], obs2, compute_dtype), mw)
+    else:
+        idx = target_actions.to(rows.device).long().permute(2, 0, 1)       # [B, A, heads]
+    act2 = head_onehots(idx, mw, k, dtype)
     joint2 = torch.cat([obs2.reshape(batch, -1), act2.reshape(batch, -1)], dim=-1)
-    y = rew + gamma * _critic_layers(t["critic"], joint2)[3]                 # [B, A]
+    y = rew + gamma * _critic_layers(t["critic"], joint2, rnd)[3]            # [B, A]
 
     # 3. critics: forward, TD gradient, backward
     c = p["critic"]
-    pre, h1, h2, q = _critic_layers(c, joint)
+    pre, h1, h2, q = _critic_layers(c, joint, rnd)
     d = q - y
     g3 = (2.0 * inv) * d                                                     # [B, A]
-    gh2 = g3[..., None] * c["out"]["w"][..., 0] * (1.0 - h2.square())
-    gh1 = torch.einsum("bag,ahg->bah", gh2, c["l2"]["w"]) * (1.0 - h1.square())
-    critic = {"l1": {"w": torch.einsum("bah,bj->ajh", gh1, joint), "b": gh1.sum(0)},
-              "l2": {"w": torch.einsum("bah,bag->ahg", h1, gh2), "b": gh2.sum(0)},
-              "out": {"w": torch.einsum("bag,ba->ag", h2, g3)[..., None], "b": g3.sum(0)[:, None]}}
+    gh2 = rnd(g3)[..., None] * rnd(c["out"]["w"][..., 0]) * (1.0 - h2.square())
+    gh1 = torch.einsum("bag,ahg->bah", rnd(gh2), rnd(c["l2"]["w"])) * (1.0 - h1.square())
+    critic = {"l1": {"w": torch.einsum("bah,bj->ajh", rnd(gh1), rnd(joint)), "b": gh1.sum(0)},
+              "l2": {"w": torch.einsum("bah,bag->ahg", rnd(h1), rnd(gh2)), "b": gh2.sum(0)},
+              "out": {"w": torch.einsum("bag,ba->ag", rnd(h2), rnd(g3))[..., None],
+                      "b": g3.sum(0)[:, None]}}
 
     # 4. candidate Q on the (move x comm) grid: layer-1 reuse without each
-    # agent's own-action columns, plus the candidate's column sum
+    # agent's own-action columns (a product), plus the candidate's column sum
+    # (float32, as JAX's dcand)
     w_act = torch.stack([c["l1"]["w"][i, a * o + i * k:a * o + (i + 1) * k] for i in range(a)])
-    base = pre - _seq_sum(act[..., None, :] * w_act.transpose(1, 2))        # [B, A, H]
+    base = pre - _seq_sum(rnd(act)[..., None, :] * rnd(w_act).transpose(1, 2))  # [B, A, H]
     dcand = [w_act[:, m] + w_act[:, mw + j] if cw else w_act[:, m]
              for m in range(mw) for j in range(max(cw, 1))]                 # [A, H] each
-    qc = torch.stack([_critic_tail(c, torch.tanh(base + dc))[1] for dc in dcand],
+    qc = torch.stack([_critic_tail(c, torch.tanh(base + dc), rnd)[1] for dc in dcand],
                      dim=-1)                                                # [B, A, mw cx]
 
     # actors: forward, expected-Q and entropy gradient at the logits, backward
     ac = p["actor"]
-    ha1 = torch.tanh(_seq_dense_agents(ac["l1"]["w"], ac["l1"]["b"], obs))
-    ha2 = torch.tanh(_seq_dense_agents(ac["l2"]["w"], ac["l2"]["b"], ha1))
-    z = _seq_dense_agents(ac["out"]["w"], ac["out"]["b"], ha2)              # [B, A, K]
+    ha1 = torch.tanh(_seq_dense_agents(rnd(ac["l1"]["w"]), ac["l1"]["b"], rnd(obs)))
+    ha2 = torch.tanh(_seq_dense_agents(rnd(ac["l2"]["w"]), ac["l2"]["b"], rnd(ha1)))
+    z = _seq_dense_agents(rnd(ac["out"]["w"]), ac["out"]["b"], rnd(ha2))    # [B, A, K]
     pm, sm, ent = _softmax_eps(z[..., :mw])
     if cw:
         pc, sc, ent_c = _softmax_eps(z[..., mw:])
@@ -207,13 +263,24 @@ def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_c
     gz = _head_grad(pm, sm, qbar_m, exp_q, ent_coef, inv)
     if cw:
         gz = torch.cat([gz, _head_grad(pc, sc, qbar_c, exp_q, ent_coef, inv)], dim=-1)
-    gha2 = torch.einsum("bak,ahk->bah", gz, ac["out"]["w"]) * (1.0 - ha2.square())
-    gha1 = torch.einsum("bag,ahg->bah", gha2, ac["l2"]["w"]) * (1.0 - ha1.square())
-    actor = {"l1": {"w": torch.einsum("bah,bao->aoh", gha1, obs), "b": gha1.sum(0)},
-             "l2": {"w": torch.einsum("bah,bag->ahg", ha1, gha2), "b": gha2.sum(0)},
-             "out": {"w": torch.einsum("bah,bak->ahk", ha2, gz), "b": gz.sum(0)}}
+    gha2 = torch.einsum("bak,ahk->bah", rnd(gz), rnd(ac["out"]["w"])) * (1.0 - ha2.square())
+    gha1 = torch.einsum("bag,ahg->bah", rnd(gha2), rnd(ac["l2"]["w"])) * (1.0 - ha1.square())
+    actor = {"l1": {"w": torch.einsum("bah,bao->aoh", rnd(gha1), rnd(obs)), "b": gha1.sum(0)},
+             "l2": {"w": torch.einsum("bah,bag->ahg", rnd(ha1), rnd(gha2)), "b": gha2.sum(0)},
+             "out": {"w": torch.einsum("bah,bak->ahk", rnd(ha2), rnd(gz)), "b": gz.sum(0)}}
     metrics = ((d * d).sum() * inv, -(exp_q + ent_coef * ent).sum() * inv, q.sum() * inv)
     return {"actor": actor, "critic": critic}, metrics
+
+
+def maddpg_rounding(compute_dtype, dtype=torch.float32):
+    """``compute_dtype`` of the MADDPG update -> (the dtype it computes and
+    returns in, the rounding of a product's operands): float32 (JAX's
+    default) or None computes in ``dtype``; ``torch.bfloat16`` is the bf16
+    path in float32 (``fused_update.compute_rounding``); any other dtype
+    raises."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return dtype, _keep
+    return compute_rounding(compute_dtype, dtype)
 
 
 def _net_buffer(net, stride: int, dtype=torch.float32):
@@ -309,31 +376,45 @@ def kernel_scenario_of(n_agents: int, obs_dim: int, cw: int):
     return None
 
 
+def _k9_source(compute_dtype) -> str:
+    """The source of K9 (float32) or K9-bf16 for ``compute_dtype``."""
+    if maddpg_rounding(compute_dtype)[1] is _keep:
+        return "mpe_maddpg.cu"
+    return "mpe_maddpg_bf16.cu"
+
+
 @functools.cache
-def _update_layout(scenario: int, hidden: int = DEFAULT_HIDDEN):
-    """K9's layout constants for a scenario id at a hidden width: (actor
-    stride, critic stride, weights, gradient per agent, samples per tile)."""
+def _update_layout(scenario: int, hidden: int = DEFAULT_HIDDEN, source: str = "mpe_maddpg.cu"):
+    """K9's (or K9-bf16's) layout constants for a scenario id at a hidden
+    width: (actor stride, critic stride, weights, gradient per agent, samples
+    per tile)."""
     from mpe_tpu_torch.ops import _build
 
-    lib = _build.library("mpe_maddpg.cu", hidden)
+    lib = _build.library(source, hidden)
     return tuple(lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
 
 
 class MaddpgUpdateLauncher:
-    """Kernel K9 on one device for one scenario's widths and one batch size,
-    its arguments checked once: ``launch(weights, rows_b, grads, metrics,
-    target_actions=None)`` takes K9's weight buffer (``PackedLayout``),
-    replay rows ``[B, W]`` and writes the gradient ``[off_ta]`` (the live
-    nets' layout, the padding 0) and ``metrics [3]`` (critic loss, actor
-    loss, Q mean), all float32 on the device, with nothing checked or
-    computed per call. Counts launches in ``maddpg_update_cuda.launches``
-    and ``.launches_by``."""
+    """Kernel K9 (or, with ``compute_dtype=torch.bfloat16``, K9-bf16) on one
+    device for one scenario's widths and one batch size, its arguments
+    checked once: ``launch(weights, rows_b, grads, metrics,
+    target_actions=None)`` takes the weight buffer (``PackedLayout``, float32
+    for both kernels), replay rows ``[B, W]`` and writes the gradient
+    ``[off_ta]`` (the live nets' layout, the padding 0) and ``metrics [3]``
+    (critic loss, actor loss, Q mean), all float32 on the device, with
+    nothing checked or computed per call. Counts launches in
+    ``maddpg_update_cuda.launches`` and ``.launches_by`` (K9-bf16:
+    ``maddpg_update_bf16_cuda``'s)."""
 
     def __init__(self, n_agents: int, obs_dim: int, act_dim: int, mw: int, hidden: int,
-                 batch: int, device, *, gamma: float, ent_coef: float):
+                 batch: int, device, *, gamma: float, ent_coef: float,
+                 compute_dtype=torch.float32):
         from mpe_tpu_torch.ops import _build
 
         check_hidden(hidden, "the MADDPG update kernels")
+        self.source = _k9_source(compute_dtype)
+        self.counter = (maddpg_update_cuda if self.source == "mpe_maddpg.cu"
+                        else maddpg_update_bf16_cuda)
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"the MADDPG update kernel needs a CUDA device, got {device}")
@@ -350,9 +431,9 @@ class MaddpgUpdateLauncher:
         self.name = kscn.spec.name
         self.hidden = hidden
         lay = self.layout
-        nwp, ncp, n_weights, ng, ts = _update_layout(self.scenario, hidden)
+        nwp, ncp, n_weights, ng, ts = _update_layout(self.scenario, hidden, self.source)
         if (nwp, ncp, n_weights, ng) != (lay.nwp, lay.ncp, lay.n_weights, lay.nw + lay.nc + 3):
-            raise RuntimeError("csrc/mpe_maddpg.cu and ops/fused_maddpg_update.py disagree on "
+            raise RuntimeError(f"csrc/{self.source} and ops/fused_maddpg_update.py disagree on "
                                "K9's layout")
         self.device, self.batch = device, batch
         self.nh = 2 if act_dim > mw else 1
@@ -362,7 +443,7 @@ class MaddpgUpdateLauncher:
         self.y = torch.empty((n_agents, batch), **f32)
         self.partials = torch.empty(n_agents * (-(-batch // ts)) * ng, **f32)
         self.consts = (float(gamma), float(ent_coef), 1.0 / float(n_agents * batch))
-        self.fn = _build.library("mpe_maddpg.cu", hidden).mpe_maddpg_update
+        self.fn = _build.library(self.source, hidden).mpe_maddpg_update
 
     def check(self, weights, rows, grads=None, metrics=None):
         """Raise unless the buffers are what ``launch`` takes."""
@@ -386,20 +467,23 @@ class MaddpgUpdateLauncher:
         if rc != 0:
             from mpe_tpu_torch.ops import _build
 
-            raise RuntimeError(f"maddpg_update_kernel launch failed: {_build.error_string(rc)}")
-        maddpg_update_cuda.launches += 1
-        maddpg_update_cuda.launches_by[self.name] += 1
+            raise RuntimeError(f"the K9 launch of csrc/{self.source} failed: "
+                               f"{_build.error_string(rc)}")
+        self.counter.launches += 1
+        self.counter.launches_by[self.name] += 1
 
 
 def maddpg_update_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_coef: float,
-                       target_actions=None):
-    """Launch kernel K9 on the rows' CUDA device: the outputs of
-    ``plain_maddpg_update`` in float32, from trees (packed here, each call;
-    the trainer's chunk keeps its state packed and calls
-    ``MaddpgUpdateLauncher`` itself). ``target_actions``, an int32 ``[A,
-    heads, B]`` tensor on the device (heads 2 with a comm head, else 1),
-    receives the target actions the kernel took. Counts launches in
-    ``.launches`` and, by scenario name, in ``.launches_by``."""
+                       target_actions=None, compute_dtype=torch.float32):
+    """Launch kernel K9 (``compute_dtype`` float32 or None) or K9-bf16
+    (``torch.bfloat16``) on the rows' CUDA device: the outputs of
+    ``plain_maddpg_update(..., compute_dtype=compute_dtype)`` in float32,
+    from trees (packed here, each call; the trainer's chunk keeps its state
+    packed and calls ``MaddpgUpdateLauncher`` itself). ``target_actions``, an
+    int32 ``[A, heads, B]`` tensor on the device (heads 2 with a comm head,
+    else 1), receives the target actions the kernel took. Counts K9's
+    launches in ``.launches`` and, by scenario name, in ``.launches_by``;
+    K9-bf16's in ``maddpg_update_bf16_cuda``'s."""
     device = rows_b.device
     a, o, h = params["actor"]["l1"]["w"].shape
     check_hidden(h, "the MADDPG update kernels")
@@ -409,7 +493,7 @@ def maddpg_update_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_co
     if rows_b.dim() != 2:
         raise ValueError(f"rows_b must be a contiguous 2-D float32 tensor on {device}")
     launcher = MaddpgUpdateLauncher(a, o, k, mw, h, rows_b.shape[0], device, gamma=gamma,
-                                    ent_coef=ent_coef)
+                                    ent_coef=ent_coef, compute_dtype=compute_dtype)
     lay = launcher.layout
     want = {"actor": {"l1": (a, o, h), "l2": (a, h, h), "out": (a, h, k)},
             "critic": {"l1": (a, lay.j, h), "l2": (a, h, h), "out": (a, h, 1)}}
@@ -438,13 +522,30 @@ maddpg_update_cuda.launches = 0
 maddpg_update_cuda.launches_by = collections.Counter()
 
 
+def maddpg_update_bf16_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_coef: float,
+                            target_actions=None):
+    """Launch kernel K9-bf16 (``csrc/mpe_maddpg_bf16.cu``: K9's four stages
+    with every product on the tensor cores in bf16, float32 sums):
+    ``maddpg_update_cuda(..., compute_dtype=torch.bfloat16)``. Counts
+    launches in ``.launches`` and, by scenario name, in ``.launches_by``."""
+    return maddpg_update_cuda(params, targets, rows_b, mw=mw, gamma=gamma, ent_coef=ent_coef,
+                              target_actions=target_actions, compute_dtype=torch.bfloat16)
+
+
+maddpg_update_bf16_cuda.launches = 0
+maddpg_update_bf16_cuda.launches_by = collections.Counter()
+
+
 def fused_maddpg_update(n_agents: int, obs_dim: int, act_dim: int, mw: int, hidden: int,
                         batch: int, gamma: float = 0.95, ent_coef: float = 0.01, device=None,
-                        dtype=torch.float32):
+                        dtype=torch.float32, compute_dtype=torch.float32):
     """Build ``grads_fn(params, targets, obs_b, act_b, rew_b, obs2_b) ->
     (grads, (critic_loss, actor_loss, q_mean))`` with ``grads_fn.from_rows(
-    params, targets, rows_b)``: kernel K9 on CUDA (float32 only), the plain
-    version in ``dtype`` on the CPU; ``grads_fn.plain`` is the plain version
+    params, targets, rows_b)``: on CUDA kernel K9 (float32 params;
+    ``compute_dtype`` float32, JAX's default, or None) or K9-bf16
+    (``compute_dtype=torch.bfloat16``), on the CPU the plain version in
+    ``dtype`` (bf16 products with float32 sums where ``compute_dtype`` is
+    bfloat16; ``maddpg_rounding``); ``grads_fn.plain`` is the plain version
     (with its own ``from_rows``). ``act_dim - mw`` is the comm head's width
     (0 without one). The JAX builder's ``block_b`` and ``cand_group`` (its
     tiling) have no counterpart."""
@@ -453,9 +554,10 @@ def fused_maddpg_update(n_agents: int, obs_dim: int, act_dim: int, mw: int, hidd
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    maddpg_rounding(compute_dtype, dtype)
     if device.type == "cuda" and dtype != torch.float32:
-        raise ValueError("the MADDPG update kernel computes in float32; use dtype=torch.float32 "
-                         "on CUDA")
+        raise ValueError("the MADDPG update kernels take float32 params; use dtype=torch.float32 "
+                         "on CUDA (and compute_dtype=torch.bfloat16 for K9-bf16)")
     width = n_agents * (2 * obs_dim + act_dim + 1)
     hp = dict(mw=mw, gamma=gamma, ent_coef=ent_coef)
 
@@ -473,12 +575,14 @@ def fused_maddpg_update(n_agents: int, obs_dim: int, act_dim: int, mw: int, hidd
 
     def plain_rows(params, targets, rows_b):
         check(params, rows_b)
-        return plain_maddpg_update(params, targets, rows_b, dtype=dtype, **hp)
+        return plain_maddpg_update(params, targets, rows_b, dtype=dtype,
+                                   compute_dtype=compute_dtype, **hp)
 
     def from_rows(params, targets, rows_b):
         if device.type == "cuda":
             check(params, rows_b)
-            return maddpg_update_cuda(params, targets, rows_b.to(torch.float32).contiguous(), **hp)
+            return maddpg_update_cuda(params, targets, rows_b.to(torch.float32).contiguous(),
+                                      compute_dtype=compute_dtype, **hp)
         return plain_rows(params, targets, rows_b)
 
     def grads_fn(params, targets, obs_b, act_b, rew_b, obs2_b):

@@ -3,11 +3,11 @@ fused PPO and MAPPO updates and trainers against the JAX package's bf16
 path on the CPU.
 
 XLA's CPU backend has no bf16 x bf16 -> f32 dot, so every test here runs
-JAX under ``bf16_dots``: ``lax.dot_general`` (and ``jnp.einsum``, which
-binds it at import) upcast a bf16 operand to float32 and multiply at
-``Precision.HIGHEST``. A product of two bf16 values is exact in float32, so
-this computes what a bf16 dot with float32 accumulation computes, up to the
-order of the sum. ``mpe_tpu`` itself is not changed.
+JAX under ``bf16_dots`` (``tests/_bf16.py``): ``lax.dot_general`` (and
+``jnp.einsum``, which binds it at import) upcast a bf16 operand to float32
+and multiply at ``Precision.HIGHEST``. A product of two bf16 values is exact
+in float32, so this computes what a bf16 dot with float32 accumulation
+computes, up to the order of the sum. ``mpe_tpu`` itself is not changed.
 
 - ``plain_ppo_update`` / ``plain_mappo_update`` with bf16 products against
   JAX's ``fused_ppo_update`` / ``fused_mappo_update(..., interpret=True,
@@ -45,7 +45,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax._src.lax import lax as lax_internal
 from jax.sharding import Mesh
 
 import mpe_tpu.learner.fused_ppo as j_ppo
@@ -57,39 +56,13 @@ from mpe_tpu.ops.kernel_scenarios import kernel_scenario as j_kernel_scenario
 from mpe_tpu_torch.convert import params_from_numpy, params_to_numpy
 from mpe_tpu_torch.learner import fused_ppo as t_ppo
 from mpe_tpu_torch.ops import fused_update as t_update
+from tests._bf16 import bf16_dots  # noqa: F401 (the fixture)
 
 CLIP, VF, ENTC = 0.2, 0.5, 0.01
 T, N, HIDDEN = 4, 128, 16
 PLAIN_TOL, METRIC_RTOL = 1e-3, 1e-5
 TRAINER_TOL = 1e-5
 BF16 = torch.bfloat16
-
-
-def patch_bf16_dots(monkeypatch):
-    """JAX's bf16 products on the CPU: a dot_general with a bf16 operand
-    multiplies the operands' float32 values at HIGHEST precision and returns
-    its preferred (else its promoted) dtype."""
-    orig = lax_internal.dot_general
-
-    def dot_general(lhs, rhs, dimension_numbers, precision=None, preferred_element_type=None,
-                    **kw):
-        types = (jnp.result_type(lhs), jnp.result_type(rhs))
-        if jnp.bfloat16 not in types:
-            return orig(lhs, rhs, dimension_numbers, precision=precision,
-                        preferred_element_type=preferred_element_type, **kw)
-        out = orig(jnp.asarray(lhs, jnp.float32), jnp.asarray(rhs, jnp.float32),
-                   dimension_numbers, precision=jax.lax.Precision.HIGHEST,
-                   preferred_element_type=jnp.float32, **kw)
-        return out.astype(preferred_element_type or jnp.result_type(*types))
-
-    monkeypatch.setattr(lax_internal, "dot_general", dot_general)
-    monkeypatch.setattr(jax.lax, "dot_general", dot_general)
-    monkeypatch.setattr(jnp, "einsum", functools.partial(jnp.einsum, _dot_general=dot_general))
-
-
-@pytest.fixture
-def bf16_dots(monkeypatch):
-    patch_bf16_dots(monkeypatch)
 
 
 def _leaves(tree):

@@ -20,7 +20,9 @@ heads, and K7 with simple_world_comm's 204-wide critic). K6-bf16 and K7-bf16
 (``compute_dtype=torch.bfloat16``) hold their plain bf16 versions within
 1e-3 of each leaf's largest entry: a bf16 operand that two right float32
 sums put on either side of a rounding boundary rounds a whole ulp apart.
-The MADDPG collection kernel K8 takes the plain
+K9-bf16 holds its plain bf16 version the same way, its target actions
+equal wherever a head's two best logits lie clear of
+``target_logit_tolerance``. The MADDPG collection kernel K8 takes the plain
 version's actions exactly (values within 1e-5) in both output forms, at
 every tile size bit for bit; the
 MADDPG update kernel K9 takes the plain version's target actions and its
@@ -469,6 +471,81 @@ def test_maddpg_update_kernel_matches_plain(card, name):
     _leaf_close(got, ref, 1e-4, "grads")
     for a_, b_ in zip(got_m, ref_m):
         torch.testing.assert_close(a_, b_, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 16])
+@pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
+def test_maddpg_bf16_update_kernel_matches_plain_bf16(card, name, hidden):
+    """K9-bf16 (``compute_dtype=torch.bfloat16``) on 1024 rows K8 collected,
+    params of O(1) logits and targets = params + 0.1 N(0, 1): the target
+    actions equal the plain bf16 version's wherever a head's two best logits
+    lie further apart than ``target_logit_tolerance``; with the kernel's
+    target actions fed to the plain bf16 version, each gradient leaf within
+    1e-3 of its largest entry and the metrics within 1e-3 relative (a bf16
+    activation that two right float32 sums put on either side of a rounding
+    boundary rounds a whole ulp apart); K9-bf16 counted, K9 not."""
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update as fmu
+
+    kscn = kernel_scenario(name)
+    a, o, k = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits
+    params = {n: {q: {w: x.to(card) for w, x in layer.items()} for q, layer in net.items()}
+              for n, net in init_maddpg(torch.Generator().manual_seed(1), o, k, a,
+                                        hidden=hidden).items()}
+    params["actor"]["out"]["w"] = params["actor"]["out"]["w"] * 100.0
+    gen = torch.Generator(card).manual_seed(2)
+    targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device=card)
+                       for w, x in layer.items()} for q, layer in net.items()}
+               for n, net in params.items()}
+    rows = fused_maddpg.fused_maddpg_trajectory(name, params["actor"], 1024, 10, horizon=5,
+                                                block_envs=1024, t_chunk=5, emit_rows=True,
+                                                device=card)(0, params["actor"])
+    rows = rows.reshape(-1, rows.shape[-1])[torch.randperm(10240, generator=gen,
+                                                           device=card)[:1024]].contiguous()
+    act2 = torch.empty((a, 2 if k > 5 else 1, 1024), dtype=torch.int32, device=card)
+    before = (fmu.maddpg_update_bf16_cuda.launches_by[name], fmu.maddpg_update_cuda.launches)
+    got, got_m = fmu.maddpg_update_cuda(params, targets, rows, mw=5, gamma=0.95, ent_coef=0.01,
+                                        target_actions=act2, compute_dtype=torch.bfloat16)
+    assert fmu.maddpg_update_bf16_cuda.launches_by[name] == before[0] + 1
+    assert fmu.maddpg_update_cuda.launches == before[1]
+    obs2 = rows[:, a * (o + k + 1):].reshape(1024, a, o)
+    logits = fmu.target_logits(targets["actor"], obs2, torch.bfloat16)
+    want = fmu.target_indices(logits, 5).permute(1, 2, 0)
+    heads = [(0, 5)] + ([(5, k)] if k > 5 else [])
+    gaps = torch.stack([logits[..., lo:hi].topk(2, -1).values.diff(dim=-1)[..., 0].neg()
+                        for lo, hi in heads], -1).permute(1, 2, 0)
+    clear = gaps > fmu.target_logit_tolerance(targets["actor"])[:, None, None]
+    assert torch.equal(act2.long()[clear], want[clear])
+    ref, ref_m = fmu.plain_maddpg_update(params, targets, rows, mw=5, gamma=0.95, ent_coef=0.01,
+                                         compute_dtype=torch.bfloat16, target_actions=act2)
+    _leaf_close(got, ref, 1e-3, "grads")
+    for a_, b_ in zip(got_m, ref_m):
+        torch.testing.assert_close(a_, b_, rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple_spread", "simple_speaker_listener"])
+def test_bf16_update_chunk_launches_k9_bf16(card, name):
+    """``build_fused_update_chunk(..., compute_dtype=torch.bfloat16)`` on a
+    runner's ring: five updates launch K9-bf16 five times and K9 never, the
+    params finite and moved."""
+    from mpe_tpu_torch.learner import fused_loop
+    from mpe_tpu_torch.learner.maddpg import build_fused_update_chunk
+    from mpe_tpu_torch.ops import fused_maddpg_update as fmu
+
+    run = fused_loop.build_fused_maddpg_runner(name, n_envs=64, horizon=5, batch=64)
+    params, info = run(10, seed=1, actor_start=0)
+    chunk = build_fused_update_chunk(run.env, 5, batch=64, compute_dtype=torch.bfloat16)
+    before = (fmu.maddpg_update_bf16_cuda.launches_by[name], fmu.maddpg_update_cuda.launches)
+    got = chunk(params, info["targets"], chunk.init_opt(params), info["buffer"], 3,
+                fused_loop.actor_gates(2, 5, 0))
+    assert fmu.maddpg_update_bf16_cuda.launches_by[name] == before[0] + 5
+    assert fmu.maddpg_update_cuda.launches == before[1]
+    for net in got[0].values():
+        for layer in net.values():
+            assert all(bool(torch.isfinite(x).all()) for x in layer.values())
+    assert not torch.equal(got[0]["critic"]["l1"]["w"], params["critic"]["l1"]["w"])
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 """Time the port's update kernels of one or more checkouts on one NVIDIA
 card, one checkout after another.
 
-    python3 tools/torch_update_ab.py [--maddpg | --rollout | --det | --policy | --trajectory |
-        --bf16] ROOT [ROOT ...]
+    python3 tools/torch_update_ab.py [--maddpg | --maddpg-bf16 | --rollout | --det | --policy |
+        --trajectory | --bf16] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -46,6 +46,16 @@ where the checkout has it, else ``grads_fn.from_rows`` on trees) and
 20 calls after 3 warm-ups. Per path it prints transitions/s over the
 chunks after the first, the mean and median collect and update ms per
 chunk, and those K9 numbers.
+
+With ``--maddpg-bf16`` (K9, K9-bf16): the runner of each of paths d, d2
+and d3 as with ``--maddpg`` (its chunks not timed), then on 1024 rows of its
+final ring with its final params and targets, K9 and K9-bf16 as the trainer
+calls them (``MaddpgUpdateLauncher.launch`` on the packed buffers, float32
+and ``compute_dtype=torch.bfloat16``), each the median of CALLS CUDA-event
+timed calls after WARM_UP, then one call each under torch.profiler: its
+device time whole (the four kernels, each with its one record) or "not
+measured", and the device's busy share of the call; the registers and
+spill bytes of each K9-bf16 kernel instantiation.
 
 With ``--rollout`` (K2): ``fused_rollout`` on the nine scenarios at 4096
 envs x 10,000 steps (horizon 100, block_envs 1024: bench.py's headline
@@ -320,6 +330,52 @@ def time_maddpg(result: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def k9_device_ms(fn, kernels: tuple) -> dict:
+    """One call of ``fn`` under torch.profiler (``profile_call``): the device
+    ms of the four ``kernels``, whole only where each has its one record, else
+    "not measured", and the device's busy share of the call."""
+    prof = profile_call(fn)
+    split = prof.get("device_ms_by_kernel", {})
+    found = {k: [v for key, v in split.items() if k in key] for k in kernels}
+    whole = all(len(v) == 1 and v[0][1] == 1 for v in found.values())
+    return {"device_ms": sum(v[0][0] for v in found.values()) if whole else "not measured",
+            "device_busy_share": prof.get("device_busy_share", "not measured")}
+
+
+def time_maddpg_bf16(result: dict, logs: dict) -> None:
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_maddpg_runner
+    from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher
+
+    bf16_kernels = tuple(k.replace("_kernel", "_bf16_kernel") for k in K9_KERNELS)
+    for path, (name, n_chunks) in zip(("d", "d2", "d3"), MADDPG_PATHS):
+        run = build_fused_maddpg_runner(name, **MADDPG)
+        params, info = run(n_chunks * MADDPG["horizon"], seed=0, actor_start=ACTOR_START)
+        buf = info["buffer"]
+        gen = torch.Generator("cuda").manual_seed(5)
+        rows = buf.data[torch.randint(0, buf.size, (MADDPG["batch"],), generator=gen,
+                                      device="cuda")].contiguous()
+        lay = run.update_chunk.layout
+        weights = lay.pack(params, info["targets"]).cuda()
+        grads = torch.empty(lay.off_ta, device="cuda")
+        metrics = torch.empty(3, device="cuda")
+        row = {"scenario": name}
+        for label, cd, kernels in (("K9", torch.float32, K9_KERNELS),
+                                   ("K9-bf16", torch.bfloat16, bf16_kernels)):
+            k9 = MaddpgUpdateLauncher(lay.a, lay.o, lay.k, 5, lay.hidden, MADDPG["batch"], "cuda",
+                                      gamma=0.95, ent_coef=0.01, compute_dtype=cd)
+
+            def call(k9=k9):
+                k9.launch(weights, rows, grads, metrics)
+
+            row[label] = {"ms": median_ms(call), **k9_device_ms(call, kernels)}
+        result[path] = row
+        del run, info, buf
+        torch.cuda.empty_cache()
+    result["registers_spill_bytes"] = registers(logs, "mpe_maddpg_bf16.cu", bf16_kernels)
+
+
 def time_rollout(result: dict, logs: dict) -> None:
     import torch
 
@@ -567,6 +623,8 @@ def child(mode: str, root: str) -> None:
         time_trajectory(result, logs)
     elif mode == "bf16":
         time_bf16(result, logs)
+    elif mode == "maddpg-bf16":
+        time_maddpg_bf16(result, logs)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -577,8 +635,9 @@ def main() -> int:
     if len(args) == 3 and args[0] == "--child":
         child(args[1], args[2])
         return 0
-    mode = {"--maddpg": "maddpg", "--rollout": "rollout", "--det": "det",
-            "--policy": "policy", "--trajectory": "trajectory", "--bf16": "bf16"}.get(
+    mode = {"--maddpg": "maddpg", "--maddpg-bf16": "maddpg-bf16", "--rollout": "rollout",
+            "--det": "det", "--policy": "policy", "--trajectory": "trajectory",
+            "--bf16": "bf16"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
