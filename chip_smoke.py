@@ -9,9 +9,10 @@ failure ends the run with a non-zero exit code:
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time (every source at hidden width 64 and the MLP sources
      of K4-K9, K6-bf16, K7-bf16 and K9-bf16 also at 8, 16 and 32, one nvcc each, all at
-     once), the compiler's register report and the HMMA instructions that
-     cuobjdump -sass finds in each bf16 library, mpe_update_bf16.cu's and
-     mpe_maddpg_bf16.cu's at every width (each must hold some);
+     once), the compiler's register report and the HMMA and LDSM
+     (ldmatrix) instructions that cuobjdump -sass finds in each bf16
+     library, mpe_update_bf16.cu's and mpe_maddpg_bf16.cu's at every width
+     (each must hold some of both);
   2. sixteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
@@ -293,10 +294,11 @@ failure ends the run with a non-zero exit code:
      error, K9 its launches in each phase of path g; every row its launches
      in path h by phase and rank and in path i by example, K6, K7 and K9 the DP step's ms and their
      gradient's all_reduce ms there; K6-bf16 and K7-bf16 rows with their
-     HMMA counts, path b5's phases and last metrics, and by scenario the
-     float32 kernel's times and epoch-0 ratio beside theirs; the K9-bf16
-     row with its HMMA counts and tolerances, by scenario its gates on both
-     batches, K9's time on the same buffers and path d4's figures), the
+     HMMA and LDSM counts, path b5's phases and last metrics, and by
+     scenario the float32 kernel's times and epoch-0 ratio beside theirs; the
+     K9-bf16 row with its HMMA and LDSM counts and tolerances, by scenario
+     its gates on both batches, K9's time on the same buffers and path d4's
+     figures, its four kernels' launches a call among them), the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -368,12 +370,14 @@ UPDATE_TILE = {"threads": 256, "samples_per_tile": 64,
                              "1 x 2 at 8)",
                "weight_grad_micro_tile": "4 x 4 (dW2), 4 x ceil(IN/16) (dW1) at hidden 64",
                "staging": "cp.async, two stages where they fit"}
-BF16_TILE = {"threads": 256, "samples_per_tile": 64,
+BF16_TILE = {"threads": 128, "samples_per_tile": 64,
              "ctas_per_sm": "2 where they fit (not the 204-wide critic)",
-             "products": "mma.sync m16n8k16 bf16, float32 sums: a warp's 8 samples x every "
-                         "16-unit block (forward, backward); (16 x 8) gradient tiles dealt to the "
-                         "warps",
-             "staging": "cp.async, two stages where they fit"}
+             "products": "mma.sync m16n8k16 bf16, float32 sums, sample-major: a warp's 16 "
+                         "samples the M side of every product, chained in registers forward and "
+                         "backward; the weights' B fragments by ldmatrix (.trans backward); "
+                         "(16 x 8) gradient tiles dealt to the warps, both operands by "
+                         "ldmatrix from bf16 tiles",
+             "staging": "cp.async, two stages where they fit; two __syncthreads a tile"}
 POLICY_TILE_RULE = ("ops/fused_policy.py::pick_tile (policy_tile for K4 and K5, "
                     "fused_maddpg.py::maddpg_tile for K8): env lanes per 128-thread CTA, the "
                     "smallest tile whose grid runs in one wave (the CTAs an SM holds, as the "
@@ -430,12 +434,16 @@ RUNNER_HP = dict(tau=0.01, lr=1e-3, ent_coef=0.01, eps=0.1)   # the runner's def
 # measured on the host-built kernel before this gate was set: 3.0e-4 relative
 # (tests/test_torch_maddpg_bf16_host.py)
 BF16_METRIC_RTOL = 1e-3
-K9_BF16_TILE = {"samples_per_cta": 32, "threads": 128, "grid": "batch / 32 x agents",
-                "products": "mma.sync m16n8k16 bf16, float32 sums: a warp's 8 samples x every "
-                            "16-unit block (forward, backward, the candidates); (16 x 8) gradient "
-                            "tiles dealt to the warps, the tile's 32 samples the depth",
-                "staging": "the weights rounded to bf16 as each CTA stages them, 8 loads in "
-                           "flight a thread"}
+K9_BF16_TILE = {"samples_per_cta": 16, "threads": "256 (gradient), 128 (target and TD)",
+                "grid": "batch / 16 x agents",
+                "products": "mma.sync m16n8k16 bf16, float32 sums, sample-major: a warp's 16 "
+                            "samples the M side, chained in registers; the weights by ldmatrix "
+                            "(.trans backward); the candidates dealt to warps 1-7; (16 x 8) "
+                            "gradient tiles dealt to the warps, operands by ldmatrix.trans",
+                "staging": "the weights rounded to bf16 once a call (maddpg_round_bf16_kernel), "
+                           "each CTA's nets by 16-byte cp.async",
+                "kernels": ["maddpg_round_bf16_kernel", "maddpg_target_td_bf16_kernel",
+                            "maddpg_grad_bf16_kernel", "maddpg_reduce_bf16_kernel"]}
 # path f: the env API at the verify recipe's calls (make_env on simple_spread
 # with benchmark info, VecMultiAgentEnv at 4096 envs), every registry id, the
 # PettingZoo adapters at PettingZoo's default max_cycles, and the non-fused
@@ -2066,19 +2074,21 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
 
 
 def hmma_counts(widths_: tuple, source: str = "mpe_update_bf16.cu") -> dict:
-    """{hidden: HMMA instructions} in the SASS of a bf16 library (K6-bf16 and
-    K7-bf16's ``mpe_update_bf16.cu``, K9-bf16's ``mpe_maddpg_bf16.cu``) at
-    each width (``cuobjdump -sass``); each must hold some."""
+    """{hidden: {"HMMA": n, "LDSM": n}}: the tensor-core mma and ldmatrix
+    instructions in the SASS of a bf16 library (K6-bf16 and K7-bf16's
+    ``mpe_update_bf16.cu``, K9-bf16's ``mpe_maddpg_bf16.cu``) at each width
+    (``cuobjdump -sass``); each must hold some of both."""
     from mpe_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
     out = {}
     for h in widths_:
         sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source, h))],
-                              capture_output=True, text=True, check=True).stdout
-        out[h] = sum("HMMA" in line for line in sass.splitlines())
-    print(f"HMMA instructions in the SASS of {source} by hidden width: {out}")
-    assert all(n > 0 for n in out.values()), f"a bf16 library of {source} has no HMMA: {out}"
+                              capture_output=True, text=True, check=True).stdout.splitlines()
+        out[h] = {op: sum(op in line for line in sass) for op in ("HMMA", "LDSM")}
+    print(f"HMMA and LDSM instructions in the SASS of {source} by hidden width: {out}")
+    assert all(n["HMMA"] > 0 and n["LDSM"] > 0 for n in out.values()), \
+        f"a bf16 library of {source} lacks HMMA or LDSM: {out}"
     return out
 
 
@@ -2525,7 +2535,8 @@ def profile_trajectories(k3_ms: dict) -> dict:
 
 K9_KERNELS = ("maddpg_target_actions_kernel", "maddpg_td_kernel", "maddpg_update_kernel",
               "maddpg_reduce_kernel")
-K9_BF16_KERNELS = tuple(k.replace("_kernel", "_bf16_kernel") for k in K9_KERNELS)
+K9_BF16_KERNELS = ("maddpg_round_bf16_kernel", "maddpg_target_td_bf16_kernel",
+                   "maddpg_grad_bf16_kernel", "maddpg_reduce_bf16_kernel")
 
 
 def profile_maddpg_update(name: str, run, params, info, kernels=K9_KERNELS):
@@ -2534,9 +2545,12 @@ def profile_maddpg_update(name: str, run, params, info, kernels=K9_KERNELS):
     (``packed_step`` on the packed state) under torch.profiler: the device
     time per update of the four ``kernels`` (K9's by default), the
     device's busy share of the chunk's CUDA-event time, the kernel launches
-    per update and the kernels that take the most device time. It gates
-    nothing; without device events it says so. -> {device_ms_per_update,
-    device_split_ms, launches_per_update, idle_share}, or {} unmeasured."""
+    per update, each of the four ``kernels``' device records per update (a
+    call launches each once; a record the profiler dropped shows below 1)
+    and the kernels that take the most device time. It gates nothing;
+    without device events it says so. -> {device_ms_per_update,
+    device_split_ms, launches_per_update, launches_per_call_by_kernel,
+    idle_share}, or {} unmeasured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2565,17 +2579,21 @@ def profile_maddpg_update(name: str, run, params, info, kernels=K9_KERNELS):
     busy_ms = sum(device_us(e) for e in device) / 1e3
     k9_ms = {n: sum(device_us(e) for e in device if n in e.key) / 1e3 / h for n in kernels}
     per_update = sum(e.count for e in device) / h
+    k9_launches = {n: sum(e.count for e in device if n in e.key) / h for n in kernels}
     print(f"MADDPG update chunk on {name} under torch.profiler ({h} updates of the packed "
           f"state, {wall_ms:.3f} ms by CUDA events): device busy {busy_ms:.3f} ms "
           f"({busy_ms / wall_ms:.4f} of the time, idle {1 - busy_ms / wall_ms:.4f}); the update "
           f"kernels' device time per update {sum(k9_ms.values()):.4f} ms ("
           + ", ".join(f"{k} {v:.4f}" for k, v in k9_ms.items())
-          + f"); {per_update:.1f} kernel launches per update")
+          + f"); {per_update:.1f} kernel launches per update; the update kernels' device records "
+            "per update (a call launches each once): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in k9_launches.items()))
     top = sorted(device, key=device_us, reverse=True)[:6]
     print("  most device time: " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms in {e.count}" for e in top))
     return {"device_ms_per_update": sum(k9_ms.values()), "device_split_ms": k9_ms,
-            "launches_per_update": per_update, "idle_share": 1 - busy_ms / wall_ms}
+            "launches_per_update": per_update, "launches_per_call_by_kernel": k9_launches,
+            "idle_share": 1 - busy_ms / wall_ms}
 
 
 def template_rows_k2(k2_ms_at, k2_scn_ms, k2_by, k2_err, k2_check_ms, regs) -> dict:
@@ -4554,7 +4572,7 @@ def main() -> int:
             max(r["max_abs_err"] for r in by.values()), top["ms"], top["plain_ms"],
             (top["bound_ms"], top["bound_by"]), top["library_ms"], compute_dtype="bfloat16",
             scenarios=list(BF16_NAMES[kind]), timed_on="simple_spread", by_scenario=by,
-            tile=BF16_TILE, hmma_instructions=hmma, grad_tol=BF16_GRAD_TOL,
+            tile=BF16_TILE, sass_instructions=hmma, grad_tol=BF16_GRAD_TOL,
             path_b5={"ms_per_iteration_by_phase": phases_, "last_iteration": last,
                      "float32_last_iteration": last_metrics["train" if kind == "ppo" else
                                                             "MAPPO"]}))
@@ -4569,7 +4587,7 @@ def main() -> int:
         library="autograd of the losses in float32 (maddpg_xla_grads); no bf16 library "
                 "computation exists",
         scenarios=list(K9_BF16_NAMES), timed_on="simple_spread", by_scenario=k9b_rows,
-        tile=K9_BF16_TILE, hmma_instructions=hmma9, grad_tol=BF16_GRAD_TOL,
+        tile=K9_BF16_TILE, sass_instructions=hmma9, grad_tol=BF16_GRAD_TOL,
         metric_rtol=BF16_METRIC_RTOL))
     # K4-K9 and K6-bf16, K7-bf16, K9-bf16 at the other hidden widths (phase 3b): errors
     # and registers by width

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) kernels of the MADDPG gradient with bf16 products on the
 // tensor cores, for the nine scenarios.
 //
-// K9-bf16  maddpg_target_actions_bf16_kernel<D> + maddpg_td_bf16_kernel<D> +
-//          maddpg_update_bf16_kernel<D> + maddpg_reduce_bf16_kernel<D>, D =
+// K9-bf16  maddpg_round_bf16_kernel<D> + maddpg_target_td_bf16_kernel<D> +
+//          maddpg_grad_bf16_kernel<D> + maddpg_reduce_bf16_kernel<D>, D =
 //          MaddpgBf16Dims<A, OW, C>, replace
 //          mpe_tpu/ops/fused_maddpg_update.py::_maddpg_update_kernel at
 //          cd=bfloat16 (fused_maddpg_update(..., compute_dtype=bfloat16)): the
@@ -13,7 +13,7 @@
 //          nearest even, and summed in float32 (JAX's _dot, _dot_tn, _dot_nt):
 //          the target actor on s' (the s' rows rounded too), the target critic
 //          on (s', a'), the critic's forward, its backward (g3 = 2 inv d
-//          rounded as an operand of W3^T g3), its weight gradients, the
+//          rounded as an operand of g3 W3), its weight gradients, the
 //          own-action columns the candidates' base subtracts, the candidates'
 //          layers 2-3, the actor's forward, backward and weight gradients. The
 //          tanh, 1 - h^2, the candidates' float32 column sums (JAX's dcand), the
@@ -28,32 +28,54 @@
 // multiply-adds of products, a few microseconds at the tensor cores' rate) but
 // the tanh of the four MLPs and of every candidate's two layers on the
 // special-function units, and the head's and the epilogues' float32 work
-// (chip_smoke.py::maddpg_update_bf16_sample counts them).
+// (chip_smoke.py::maddpg_update_bf16_sample counts them). A first design was
+// latency-bound far above that: 96 CTAs of 4 warps at path d's batch, one an
+// SM by their ~135 KB of shared memory; each CTA rounded and staged its nets
+// (W2^T and W3^T as copies of their own) one scalar at a time before its first
+// product; every layer's float32 activations made a round trip through shared
+// memory into the next product's fragments; the candidates ran as a dependent
+// chain on each warp's 8 samples.
 //
-// What the design does about it. K9's four stages, grid and fixed-order
-// reduce are kept: a CTA takes one agent and a tile of TS = 32 samples (grid:
-// batch tiles x agents, 96 CTAs at path d's batch on simple_spread), each CTA
-// writes its partial gradient and maddpg_reduce_bf16_kernel sums an agent's
-// partials over the tiles in order (no float atomics: the same result every
-// run). The weights come from the float32 buffer (the master weights and Adam
-// stay float32) and are rounded to bf16 as a CTA stages them into shared
-// memory, every launch (they change every update), in row-major rows padded so
-// that an A fragment's 32 words fall in 32 banks (bf16_mma.cuh): W1, W2, W3,
-// and the transposes W2^T, W3^T that the backward passes take. The activations
-// stay float32 in the tiles ([unit][sample], LD floats apart) and are rounded
-// on the way into each B fragment, so that 1 - h^2 and the head read the
-// float32 values JAX reads. Every forward and backward product is
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with warp w owning the
-// tile's samples 8w .. 8w + 7 (one n8 column block) and every 16-unit row
-// block, so the forward passes, the backward passes and the candidates' loop
-// run with __syncwarp only. A weight gradient dW = G X^T takes the tile's 32
-// samples as the mma's depth (two k16 steps), its (16 x 8) output tiles dealt
-// to the warps in turn. Each dimension below the instruction's tile is padded
-// with exact zeros in both operands: the obs widths 4-34 and joint widths
-// 9-258 to 16, the 5 + C logits and the critic's one output to 16 rows, hidden
-// 8 to 16 units (a padded unit computes tanh(0) = 0). A bias sum runs over the
-// tile's samples in order, one thread per unit. A simple kernel that is right:
-// ldmatrix, wgmma and TMA are later work.
+// What the design does about it.
+//   round     maddpg_round_bf16_kernel rounds the four nets' blocks of the
+//             float32 weight buffer (master weights and Adam stay float32) into
+//             a bf16 scratch once an update, as row-major rows padded against
+//             bank conflicts (BNet, Scratch); the other kernels' CTAs copy their
+//             nets in by 16-byte cp.async. No transposed copies: a backward
+//             product reads W by ldmatrix.trans.
+//   products  sample-major (bf16_mma.cuh): a CTA's 16 samples are the M side
+//             of every mma.sync m16n8k16, the weights the B side by ldmatrix,
+//             the activations chained in registers from one layer's
+//             accumulators to the next layer's A fragments; x's fragments by
+//             ldmatrix from the tile's bf16 rows. A weight gradient takes both
+//             operands from bf16 sample-major rows written once, by
+//             ldmatrix.trans, its (16 x 8) tiles dealt to the warps.
+//   target    maddpg_target_td_bf16_kernel: grid (batch / 16, agents), 4 warps;
+//             the warps deal the agents' target actors, write the first-argmax
+//             actions (the agent-0 CTAs to act2) as one-hots into the tile's
+//             (s', a') rows, then warp 0 runs agent i's target critic: y.
+//   gradient  maddpg_grad_bf16_kernel: grid (batch / 16, agents), 8 warps, two
+//             CTAs an SM (path d: 192 CTAs on the 132 SMs). Phase 1: warp 0 the
+//             critic's first layer, warp 1 the actor's forward, warps 2-7 the
+//             own-action product (the candidates' base is the first layer's
+//             pre-activation minus it). Phase 2: warp 0 the critic's second
+//             and third layers and backward; warps 1-7 deal the candidates
+//             (each an independent chain of its own). Phase 3: warp 1 the
+//             actor's head and backward, warps 0, 2-7 the critic's
+//             weight-gradient tiles. Phase 4: the actor's weight-gradient
+//             tiles on all 8 warps. Each CTA writes its partial gradient, and
+//             maddpg_reduce_bf16_kernel sums an agent's partials over the tiles
+//             in order (no float atomics: the same result every run).
+//   staging   each kernel's inputs in one pass, 16 global loads in flight a
+//             thread (stage_parts).
+// What still bounds it: each gradient phase issues the tanh's instructions of
+// 3-4 warps on each scheduler, so the phases, not the products, set a CTA's
+// span; the reduce sums 64 partials an agent at path d's batch.
+// Each dimension below the instruction's tile is padded with exact zeros in
+// both operands: the obs widths 4-34 and joint widths 9-258 to 16, the 5 + C
+// logits and the critic's one output to 8 or 16, hidden 8 to 16 units (a
+// padded unit computes tanh(0) = 0). A bias sum runs over the tile's samples
+// in order, one lane per unit.
 
 #include <cuda_runtime.h>
 #ifdef __CUDACC__
@@ -70,26 +92,25 @@ namespace {
 #endif
 constexpr int H = MPE_HIDDEN;    // hidden width: 8, 16, 32 or 64 (ops/_build.py, one library each)
 static_assert(H == 8 || H == 16 || H == 32 || H == 64, "the kernels take hidden 8, 16, 32 or 64");
-constexpr int HP = H < 16 ? 16 : H;   // hidden units padded to the mma's 16 rows
-constexpr int MT = HP / 16;           // unit row blocks
-constexpr int THREADS = 128;          // per CTA
-constexpr int WARPS = THREADS / 32;
-constexpr int TS = 32;                // samples per CTA: 8 per warp
-constexpr int LD = TS + 4;            // a float32 tile row's stride
-constexpr int MW = 5;                 // move logits
-constexpr size_t SMEM_MAX = 232448;   // a CTA's dynamic shared memory on sm_90
-static_assert(TS == 8 * WARPS, "each warp owns one n8 block of the tile's samples");
-static_assert(TS % 16 == 0, "the weight gradients take the samples as k16 steps");
+constexpr int HP = H < 16 ? 16 : H;          // hidden units padded to the mma's 16
+constexpr int NBH = HP / 8, KTH = HP / 16;   // their n8 blocks and k16 steps
+constexpr int MT = HP / 16;                  // their row blocks in a weight gradient
+constexpr int TS = 16;                       // samples per CTA: the mma's M
+constexpr int GRAD_THREADS = 256;            // the gradient kernel's CTA
+constexpr int GRAD_WARPS = GRAD_THREADS / 32;
+constexpr int TD_THREADS = 128;              // the target-and-TD kernel's CTA
+constexpr int TD_WARPS = TD_THREADS / 32;
+constexpr int ROUND_THREADS = 256;           // the rounding pass's CTA
+constexpr int ROUND_PAIRS = 4;               // its pairs a thread, their loads in flight together
+constexpr int REDUCE_CTAS = 264;             // the reduce's grid at most (two an SM), grid-stride
+constexpr int MW = 5;                        // move logits
+constexpr int ZLD = 17;                      // a row of a float32 logit tile
+constexpr int FLD = HP + 4;                  // a row of a float32 activation tile
+constexpr size_t SMEM_MAX = 232448;          // a CTA's dynamic shared memory on sm_90
+constexpr size_t SM_SMEM = 233472;           // an SM's; a CTA takes 1 KB more than it asks
 
-// the row stride (in bf16) of a weight matrix of k columns: the words of a
-// row a multiple of 4 but not of 8 (as mpe_update_bf16.cu's)
-constexpr int lda(int k) {
-  int w = k / 2;
-  while (w % 8 != 4) ++w;
-  return 2 * w;
-}
-
-constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ constexpr int pad8(int n) { return (n + 7) / 8 * 8; }
 
 }  // namespace
 
@@ -121,7 +142,6 @@ struct MaddpgBf16Dims {
   // an agent's gradient: its actor, its critic, the (critic loss, Q, actor objective) sums
   static constexpr int G_ACTOR = 0, G_CRITIC = NW, G_MS = G_CRITIC + NC, NG = G_MS + 3;
   static constexpr int OWP = pad16(OW), JP = pad16(J);     // inputs padded to the mma's depth
-  static constexpr int XP = JP > OWP ? JP : OWP;
 };
 
 // the nine scenarios' dims by the scenario id of csrc/scenario_blocks.cuh's
@@ -150,22 +170,29 @@ using WorldCommDims = MaddpgBf16Dims<6, 34, 4>;
     default: return (int)cudaErrorInvalidValue; \
   }
 
-// A net NIN-H-H-NOUT (NOUT <= 16) rounded to bf16 in shared memory, in bf16
-// elements: W1 [HP][L1] (the inputs padded to NINP), W2 [HP][LH], W3 [16][LH],
-// and for a net whose gradient the CTA takes (BWD) W2^T [HP][LH] and W3^T
-// [HP][L3]; zeros in every padding row and column
-template <int NIN, bool BWD>
+// A net NIN-H-H-NOUT (NOUT <= 16) as bf16 rows, in elements: W1 [HP][L1] (the
+// inputs padded to NINP), W2 [HP][LH], W3 [16][LH]; zeros in every padding row
+// and column; N a multiple of 8 elements (whole 16-byte pieces)
+template <int NIN>
 struct BNet {
-  static constexpr int NINP = pad16(NIN), L1 = lda(NINP), LH = lda(HP), L3 = lda(16);
-  static constexpr int W1 = 0, W2 = W1 + HP * L1, W3 = W2 + HP * LH, W2T = W3 + 16 * LH,
-                       W3T = W2T + (BWD ? HP * LH : 0), N = W3T + (BWD ? HP * L3 : 0);
+  static constexpr int NINP = pad16(NIN), L1 = lda(NINP), LH = lda(HP);
+  static constexpr int W1 = 0, W2 = W1 + HP * L1, W3 = W2 + HP * LH, N = W3 + 16 * LH;
+  static_assert(N % 8 == 0, "a net is whole 16-byte pieces");
 };
 
-// its float32 biases: b1 [HP], b2 [HP], b3 [16], zero-padded
-constexpr int FB1 = 0, FB2 = HP, FB3 = 2 * HP, FBN = 2 * HP + 16;
+// The bf16 scratch of one update, in elements: every net of the weight buffer
+// in BNet rows, actors, critics, target actors, target critics, agent-major
+template <class D>
+struct Scratch {
+  using AN = BNet<D::OW>;
+  using CN = BNet<D::J>;
+  static constexpr int A16 = 0, C16 = A16 + D::A * AN::N, TA16 = C16 + D::A * CN::N,
+                       TC16 = TA16 + D::A * AN::N, N16 = TC16 + D::A * CN::N;
+  static constexpr int PAIRS = N16 / 2;
+};
 
-// the float32 offset after n bf16 elements, 16-byte aligned
-constexpr int after_bf16(int n) { return (n / 2 + 4) / 4 * 4; }
+// a net's float32 biases: b1 [HP], b2 [HP], b3 [16], zero-padded
+constexpr int FB1 = 0, FB2 = HP, FB3 = 2 * HP, FBN = 2 * HP + 16;
 
 __device__ __forceinline__ float bf16_value(uint32_t bits) {
   const uint32_t u = bits << 16;
@@ -174,198 +201,292 @@ __device__ __forceinline__ float bf16_value(uint32_t bits) {
   return f;
 }
 
-// x rounded to bf16 (round to nearest even), as a float32
-__device__ __forceinline__ float round_bf16(float x) { return bf16_value(bf16_bits(x)); }
+// entry e of a net's BNet rows from its kernel-layout block src of the weight
+// buffer (w1 [H, NIN], b1, w2 [H, H], b2, w3 [NOUT, H], b3)
+template <int NIN, int NOUT>
+__device__ __forceinline__ float net_entry(const float* __restrict__ src, int e) {
+  using N = BNet<NIN>;
+  constexpr int E_W2 = H * NIN + H, E_W3 = E_W2 + H * H + H;
+  if (e < N::W2) {
+    const int m = e / N::L1, c = e - m * N::L1;
+    return m < H && c < NIN ? src[m * NIN + c] : 0.0f;
+  }
+  if (e < N::W3) {
+    e -= N::W2;
+    const int m = e / N::LH, c = e - m * N::LH;
+    return m < H && c < H ? src[E_W2 + m * H + c] : 0.0f;
+  }
+  e -= N::W3;
+  const int m = e / N::LH, c = e - m * N::LH;
+  return m < NOUT && c < H ? src[E_W3 + m * H + c] : 0.0f;
+}
 
-// dst[e] = value(e) for e < n, the CTA's threads taking e in turn, STAGE
-// values read (their global loads in flight) before any is stored
-constexpr int STAGE = 8;
-template <class T, class F>
-__device__ __forceinline__ void stage(T* __restrict__ dst, int n, F value) {
+// the pair of scratch entries e, e + 1 (one net, one row), rounded
+template <class D>
+__device__ __forceinline__ uint32_t scratch_pair(const float* __restrict__ weights, int e) {
+  using S = Scratch<D>;
+  using AN = typename S::AN;
+  using CN = typename S::CN;
+  if (e < S::C16 || (e >= S::TA16 && e < S::TC16)) {         // an actor or a target actor
+    const int base = e < S::C16 ? S::A16 : S::TA16, off = e < S::C16 ? D::OFF_A : D::OFF_TA;
+    const int q = (e - base) / AN::N, o = e - base - q * AN::N;
+    const float* src = weights + off + q * D::NWP;
+    return pack_bf16(net_entry<D::OW, D::K>(src, o), net_entry<D::OW, D::K>(src, o + 1));
+  }
+  const int base = e < S::TA16 ? S::C16 : S::TC16, off = e < S::TA16 ? D::OFF_C : D::OFF_TC;
+  const int q = (e - base) / CN::N, o = e - base - q * CN::N;
+  const float* src = weights + off + q * D::NCP;
+  return pack_bf16(net_entry<D::J, 1>(src, o), net_entry<D::J, 1>(src, o + 1));
+}
+
+// The rounding pass: every net of the weight buffer into the bf16 scratch, a
+// pair of entries at a time (ROUND_PAIRS a thread, their loads in flight
+// together)
+template <class D>
+__global__ void __launch_bounds__(ROUND_THREADS)
+maddpg_round_bf16_kernel(const float* __restrict__ weights, uint16_t* __restrict__ scratch) {
+  using S = Scratch<D>;
+  const int p0 = blockIdx.x * ROUND_PAIRS * ROUND_THREADS + threadIdx.x;
+  uint32_t v[ROUND_PAIRS];
+#pragma unroll
+  for (int r = 0; r < ROUND_PAIRS; ++r) {
+    const int p = p0 + r * ROUND_THREADS;
+    v[r] = p < S::PAIRS ? scratch_pair<D>(weights, 2 * p) : 0u;
+  }
+#pragma unroll
+  for (int r = 0; r < ROUND_PAIRS; ++r) {
+    const int p = p0 + r * ROUND_THREADS;
+    if (p < S::PAIRS) *reinterpret_cast<uint32_t*>(scratch + 2 * p) = v[r];
+  }
+}
+
+// ---- staging -------------------------------------------------------------------
+
+// n bf16 elements (whole 16-byte pieces) from the scratch into shared memory by
+// cp.async, the CTA's threads taking the pieces in turn
+__device__ __forceinline__ void copy_async(uint16_t* dst, const uint16_t* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n / 8; i += blockDim.x) {
+#ifdef __CUDA_ARCH__
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + 8 * i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + 8 * i));
+#else
+    memcpy(dst + 8 * i, src + 8 * i, 16);
+#endif
+  }
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::);
+#endif
+}
+
+// One part of a CTA's staging: n entries, entry e read by value(e) (a
+// global load) and put(e, v) into shared memory
+template <class V, class P>
+struct Part {
+  int n;
+  V value;
+  P put;
+};
+
+template <class V, class P>
+__device__ __forceinline__ Part<V, P> stage_part(int n, V value, P put) {
+  return Part<V, P>{n, value, put};
+}
+
+__device__ __forceinline__ float part_value(int) { return 0.0f; }
+
+template <class Q, class... Qs>
+__device__ __forceinline__ float part_value(int e, const Q& q, const Qs&... qs) {
+  if (e < q.n) return q.value(e);
+  return part_value(e - q.n, qs...);
+}
+
+__device__ __forceinline__ void part_put(int, float) {}
+
+template <class Q, class... Qs>
+__device__ __forceinline__ void part_put(int e, float v, const Q& q, const Qs&... qs) {
+  if (e < q.n) {
+    q.put(e, v);
+    return;
+  }
+  part_put(e - q.n, v, qs...);
+}
+
+// every entry of the parts, the CTA's threads taking the entries in turn,
+// STAGE values read (their global loads in flight together) before any is
+// put: the whole staging in one or two round trips to memory
+constexpr int STAGE = 16;
+template <class... Qs>
+__device__ __forceinline__ void stage_parts(const Qs&... qs) {
+  const int n = (qs.n + ...);
   for (int e0 = threadIdx.x; e0 < n; e0 += STAGE * blockDim.x) {
     float v[STAGE];
 #pragma unroll
     for (int p = 0; p < STAGE; ++p) {
       const int e = e0 + p * blockDim.x;
-      v[p] = e < n ? value(e) : 0.0f;
+      v[p] = e < n ? part_value(e, qs...) : 0.0f;
     }
 #pragma unroll
     for (int p = 0; p < STAGE; ++p) {
       const int e = e0 + p * blockDim.x;
-      if (e < n) {
-        if constexpr (sizeof(T) == 2) {
-          dst[e] = (T)bf16_bits(v[p]);
-        } else {
-          dst[e] = v[p];
-        }
-      }
+      if (e < n) part_put(e, v[p], qs...);
     }
   }
 }
 
-// a net's kernel-layout block of the weight buffer (w1 [H, NIN], b1, w2 [H, H],
-// b2, w3 [NOUT, H], b3) into its BNet (rounded) and its biases (float32)
-template <int NIN, int NOUT, bool BWD>
-__device__ __forceinline__ void stage_net(const float* __restrict__ src, uint16_t* w16,
-                                          float* bias) {
-  using N = BNet<NIN, BWD>;
-  constexpr int E_B1 = H * NIN, E_W2 = E_B1 + H, E_B2 = E_W2 + H * H, E_W3 = E_B2 + H,
-                E_B3 = E_W3 + NOUT * H;
-  stage(w16 + N::W1, HP * N::L1, [&](int e) {
-    const int m = e / N::L1, c = e - m * N::L1;
-    return m < H && c < NIN ? src[m * NIN + c] : 0.0f;
-  });
-  stage(w16 + N::W2, HP * N::LH, [&](int e) {
-    const int m = e / N::LH, c = e - m * N::LH;
-    return m < H && c < H ? src[E_W2 + m * H + c] : 0.0f;
-  });
-  stage(w16 + N::W3, 16 * N::LH, [&](int e) {
-    const int m = e / N::LH, c = e - m * N::LH;
-    return m < NOUT && c < H ? src[E_W3 + m * H + c] : 0.0f;
-  });
-  if constexpr (BWD) {
-    stage(w16 + N::W2T, HP * N::LH, [&](int e) {
-      const int m = e / N::LH, c = e - m * N::LH;
-      return m < H && c < H ? src[E_W2 + c * H + m] : 0.0f;
-    });
-    stage(w16 + N::W3T, HP * N::L3, [&](int e) {
-      const int m = e / N::L3, c = e - m * N::L3;
-      return m < H && c < NOUT ? src[E_W3 + c * H + m] : 0.0f;
-    });
-  }
-  stage(bias, FBN, [&](int e) {
-    if (e < FB2) return e < H ? src[E_B1 + e] : 0.0f;
-    if (e < FB3) return e - FB2 < H ? src[E_B2 + e - FB2] : 0.0f;
-    return e - FB3 < NOUT ? src[E_B3 + e - FB3] : 0.0f;
-  });
+// the float32 biases of the NETS nets NIN-H-H-NOUT whose blocks of the weight
+// buffer start stride apart from src, into bias [NETS][FBN]
+template <int NIN, int NOUT, int NETS = 1>
+__device__ __forceinline__ auto bias_part(const float* __restrict__ src, int stride, float* bias) {
+  constexpr int E_B1 = H * NIN, E_B2 = E_B1 + H + H * H, E_B3 = E_B2 + H + NOUT * H;
+  return stage_part(NETS * FBN, [=](int e) {
+    const int q = e / FBN;
+    const float* b = src + q * stride;
+    e -= q * FBN;
+    if (e < FB2) return e < H ? b[E_B1 + e] : 0.0f;
+    if (e < FB3) return e - FB2 < H ? b[E_B2 + e - FB2] : 0.0f;
+    return e - FB3 < NOUT ? b[E_B3 + e - FB3] : 0.0f;
+  }, [=](int e, float v) { bias[e] = v; });
 }
 
-// NR rows of the replay rows [b][rw] from column r0 into tile rows, one
-// column per sample (row b0 + s, or b0 past the batch)
+// columns r0 .. r0 + NR of the replay rows [b][rw] of samples b0 .. b0 + TS
+// (row b0 past the batch), rounded to bf16, into columns 0 .. NR of the
+// sample-major tile T (ld a row)
 template <int NR>
-__device__ __forceinline__ void load_rows(const float* __restrict__ rows, int rw, int r0, int b0,
-                                          int batch, float* dst) {
-  for (int e0 = threadIdx.x; e0 < NR * TS; e0 += STAGE * blockDim.x) {
-    float v[STAGE];
-#pragma unroll
-    for (int p = 0; p < STAGE; ++p) {
-      const int e = e0 + p * blockDim.x, s = e / NR;
-      const int b = b0 + s < batch ? b0 + s : b0;
-      v[p] = e < NR * TS ? rows[(size_t)b * rw + r0 + e - s * NR] : 0.0f;
-    }
-#pragma unroll
-    for (int p = 0; p < STAGE; ++p) {
-      const int e = e0 + p * blockDim.x, s = e / NR;
-      if (e < NR * TS) dst[(e - s * NR) * LD + s] = v[p];
-    }
+__device__ __forceinline__ auto cols_part(const float* __restrict__ rows, int rw, int r0, int b0,
+                                          int batch, uint16_t* T, int ld) {
+  return stage_part(NR * TS, [=](int e) {
+    const int s = e / NR;
+    const int b = b0 + s < batch ? b0 + s : b0;
+    return rows[(size_t)b * rw + r0 + e - s * NR];
+  }, [=](int e, float v) {
+    const int s = e / NR;
+    T[s * ld + e - s * NR] = (uint16_t)bf16_bits(v);
+  });
+}
+
+// zeros in columns c0 .. c1 of the TS rows of the sample-major tile T
+__device__ __forceinline__ void zero_cols(uint16_t* T, int ld, int c0, int c1) {
+  for (int e = threadIdx.x; e < TS * (c1 - c0); e += blockDim.x) {
+    const int s = e / (c1 - c0);
+    T[s * ld + c0 + e - s * (c1 - c0)] = 0;
   }
 }
 
-__device__ __forceinline__ void zero_rows(float* dst, int n_rows) {
-  for (int e = threadIdx.x; e < n_rows * LD; e += blockDim.x) dst[e] = 0.0f;
-}
-
-// dst[m NIN + n] = sum over the tile's TS samples of P[m][s] Q[n][s] on bf16
-// operands (m < NOUT, n < NIN): the (16 x 8) output tiles dealt to the warps
-// in turn, the samples the mma's depth
-template <int NOUT, int NIN>
-__device__ __forceinline__ void outer_store(const float* __restrict__ P, const float* __restrict__ Q,
-                                            float* __restrict__ dst, int warp, int lane) {
-  constexpr int NC = (NIN + 7) / 8, NTILES = (NOUT + 15) / 16 * NC;
-  for (int t = warp; t < NTILES; t += WARPS) {
-    const int m0 = 16 * (t / NC), n0 = 8 * (t % NC);
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int s0 = 0; s0 < TS; s0 += 16) {
-      uint32_t a[4], b[2];
-      frag_a_cols(P, m0, s0, lane, a);
-      frag_b_cols(Q, s0, n0, lane, b);
-      mma_bf16(acc, a, b);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + (lane >> 2) + 8 * (i >> 1), n = n0 + 2 * (lane & 3) + (i & 1);
-      if (m < NOUT && n < NIN) dst[m * NIN + n] = acc[i];
-    }
+// the warp's copy of columns c0 .. c0 + NR of the sample-major tile X into
+// columns 0 .. NR of T, zeros in T's columns NR .. NRP
+template <int NR, int NRP>
+__device__ __forceinline__ void copy_cols(const uint16_t* X, int ldx, int c0, uint16_t* T, int ld,
+                                          int lane) {
+  for (int e = lane; e < TS * NRP; e += 32) {
+    const int s = e / NRP, c = e - s * NRP;
+    T[s * ld + c] = c < NR ? X[s * ldx + c0 + c] : (uint16_t)0;
   }
+  __syncwarp();
 }
 
-// dst[m] = the sum of tile row m over the samples, in order (bias gradients)
-template <int NR>
-__device__ __forceinline__ void row_sums(const float* __restrict__ T, float* __restrict__ dst) {
-  for (int m = threadIdx.x; m < NR; m += blockDim.x) {
-    float acc = T[m * LD];
-#pragma unroll 8
-    for (int s = 1; s < TS; ++s) acc = acc + T[m * LD + s];
-    dst[m] = acc;
+// ---- the warps' products ----------------------------------------------------
+
+// v = tanh(v + b[column]), in place
+template <int NB>
+__device__ __forceinline__ void bias_tanh(float (&v)[NB][4], const float* b, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[nb][i] = tanhf(v[nb][i] + b[8 * nb + 2 * (lane & 3) + (i & 1)]);
+}
+
+// the lane's entries of v into / from the float32 tile T [TS][FLD]
+template <int NB>
+__device__ __forceinline__ void put_f32(const float (&v)[NB][4], float* T, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(T + ((lane >> 2) + 8 * h) * FLD + 8 * nb + 2 * (lane & 3)) =
+          float2{v[nb][2 * h], v[nb][2 * h + 1]};
+}
+
+template <int NB>
+__device__ __forceinline__ void get_f32(float (&v)[NB][4], const float* T, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* p = T + ((lane >> 2) + 8 * h) * FLD + 8 * nb + 2 * (lane & 3);
+      const float2 x = *reinterpret_cast<const float2*>(p);
+      v[nb][2 * h] = x.x;
+      v[nb][2 * h + 1] = x.y;
+    }
+}
+
+// dst[u] = the sum of column u (u < n) of the tile T (ld a row) over its TS
+// rows, in order, a lane a column; the warp's writes to T are in first
+__device__ __forceinline__ void col_sums(const float* T, int ld, int n, float* dst, int lane) {
+  __syncwarp();
+  for (int u = lane; u < n; u += 32) {
+    float acc = T[u];
+#pragma unroll
+    for (int r = 1; r < TS; ++r) acc = acc + T[r * ld + u];
+    dst[u] = acc;
   }
+  __syncwarp();
 }
 
-// The warp's 8 samples through a net's first two layers: H1 = tanh(W1 X + b1),
-// H2 = tanh(W2 H1 + b2)
+// the forward of a net's first two layers over the sample-major bf16 x tile
+// X: h = tanh(tanh(x W1^T + b1) W2^T + b2), its fragments ah; with H1, the
+// first layer's h1 also into H1 (bf16) and H1F (float32)
 template <class N>
-__device__ __forceinline__ void torso(const uint16_t* w16, const float* bias, const float* X,
-                                      float* H1, float* H2, int n0, int lane) {
-  warp_product<MT, N::NINP / 16, N::L1>(w16 + N::W1, X, n0, lane,
-                                        [&](int m, int n, float v, int, int) {
-    H1[m * LD + n] = tanhf(v + bias[FB1 + m]);
-  });
-  __syncwarp();
-  warp_product<MT, MT, N::LH>(w16 + N::W2, H1, n0, lane, [&](int m, int n, float v, int, int) {
-    H2[m * LD + n] = tanhf(v + bias[FB2 + m]);
-  });
-  __syncwarp();
+__device__ __forceinline__ void torso(const uint16_t* net, const float* bias, const uint16_t* X,
+                                      int ldx, uint16_t* H1, float* H1F, int lane,
+                                      float (&h)[NBH][4], uint32_t (&ah)[KTH][4]) {
+  warp_dense_f<NBH, N::NINP / 16, false>(
+      [&](int kt, uint32_t (&a)[4]) { frag_a_mk(X, ldx, 0, 16 * kt, lane, a); }, net + N::W1,
+      N::L1, lane, h);
+  bias_tanh(h, bias + FB1, lane);
+  pack_a(h, ah);
+  if (H1 != nullptr) {
+    put_f32(h, H1F, lane);
+    store_a(ah, H1, N::LH, 0, lane);
+  }
+  warp_dense<NBH, KTH, false>(ah, net + N::W2, N::LH, lane, h);
+  bias_tanh(h, bias + FB2, lane);
+  pack_a(h, ah);
+}
+
+// the (16 x 8) tile at (m0, n0) of dst [n_rows][n_cols] (transposed: dst
+// [n_cols][n_rows]) = G[s][m0 ..]^T X[s][n0 ..] over the CTA's 16 samples,
+// both fragments by ldmatrix.trans; the part outside the matrix not stored
+template <bool TRANSPOSED = false>
+__device__ __forceinline__ void outer_tile(const uint16_t* G, int ldg, int m0, const uint16_t* X,
+                                           int ldx, int n0, int lane, float* __restrict__ dst,
+                                           int n_rows, int n_cols) {
+  uint32_t a[4], b[2];
+  frag_a_km(G, ldg, 0, m0, lane, a);
+  frag_b_kn(X, ldx, 0, n0, lane, b);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_bf16(acc, a, b);
+  store_tile<TRANSPOSED>(dst, n_rows, n_cols, m0, n0, lane, acc);
 }
 
 // first max of z[K0, K0 + W)
 template <int K0, int W, int KP>
 __device__ __forceinline__ int first_argmax(const float (&z)[KP]) {
   int best = 0;
+  float top = z[K0];
 #pragma unroll
   for (int c = 1; c < W; ++c)
-    if (z[K0 + c] > z[K0 + best]) best = c;
+    if (z[K0 + c] > top) {
+      best = c;
+      top = z[K0 + c];
+    }
   return best;
 }
-
-// The target-action kernel's shared memory: the target actor (bf16, then its
-// biases), then the tiles s' [OWP], h1, h2 [HP], the logits [16]
-template <class D>
-struct TaLayout {
-  using Net = BNet<D::OW, false>;
-  static constexpr int F_B = after_bf16(Net::N), F_TILE = F_B + FBN;
-  static constexpr int T_X = 0, T_H1 = D::OWP, T_H2 = T_H1 + HP, T_Z = T_H2 + HP, T_N = T_Z + 16;
-  static constexpr size_t SMEM = (size_t)(F_TILE + T_N * LD) * sizeof(float);
-};
-
-// the TD kernel's: the target critic, then the tiles (s', a') [JP], h1, h2
-template <class D>
-struct TdLayout {
-  using Net = BNet<D::J, false>;
-  static constexpr int F_B = after_bf16(Net::N), F_TILE = F_B + FBN;
-  static constexpr int T_X = 0, T_H1 = D::JP, T_H2 = T_H1 + HP, T_N = T_H2 + HP;
-  static constexpr size_t SMEM = (size_t)(F_TILE + T_N * LD) * sizeof(float);
-};
-
-// The gradient kernel's: the agent's critic and actor (bf16, with the
-// transposes of their backward passes), their biases, the critic's own-action
-// columns of W1 in float32 [K][HP], per-sample y, the candidates' Q [NCAND][TS]
-// and the metric terms [3][TS]; then the tiles: the inputs (the joint, later
-// the agent's obs) [XP], the candidates' base pre-activation, h1, h2, gh1 (the
-// candidates' layer-1 rows), gh2 (their layer-2 rows) [HP] each, the output
-// rows [16] (the critic's g3 in row 0; the actor's logits, then its logit
-// gradient)
-template <class D>
-struct GradLayout {
-  using CNet = BNet<D::J, true>;
-  using ANet = BNet<D::OW, true>;
-  static constexpr int S_WC = 0, S_WA = CNet::N, S_END = S_WA + ANet::N;
-  static constexpr int F_BC = after_bf16(S_END), F_BA = F_BC + FBN, F_OWN = F_BA + FBN,
-                       F_Y = F_OWN + D::K * HP, F_QC = F_Y + TS, F_MS = F_QC + D::NCAND * TS,
-                       F_TILE = (F_MS + 3 * TS + 3) / 4 * 4;
-  static constexpr int T_X = 0, T_BASE = D::XP, T_H1 = T_BASE + HP, T_H2 = T_H1 + HP,
-                       T_GH1 = T_H2 + HP, T_GH2 = T_GH1 + HP, T_G = T_GH2 + HP, T_N = T_G + 16;
-  static constexpr size_t SMEM = (size_t)(F_TILE + T_N * LD) * sizeof(float);
-};
 
 struct Bf16Consts {
   float gamma;
@@ -373,94 +494,129 @@ struct Bf16Consts {
   float inv;                                // 1 / (A * B)
 };
 
-// grid (batch tiles of TS samples, agents): agent i's target actor on s' (its
-// rows rounded as the product's operand), the first-argmax move and comm ->
-// act2 [A, NH, B]
-template <class D>
-__global__ void __launch_bounds__(THREADS)
-maddpg_target_actions_bf16_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
-                                  int* __restrict__ act2, int batch) {
-  using L = TaLayout<D>;
-  using N = typename L::Net;
-  extern __shared__ __align__(16) float smem[];
-  uint16_t* w16 = reinterpret_cast<uint16_t*>(smem);
-  float* bias = smem + L::F_B;
-  float* tile = smem + L::F_TILE;
-  float* X = tile + L::T_X * LD;
-  float* H1 = tile + L::T_H1 * LD;
-  float* H2 = tile + L::T_H2 * LD;
-  float* Z = tile + L::T_Z * LD;
-  const int lane = threadIdx.x & 31, n0 = 8 * (threadIdx.x >> 5);
-  const int i = blockIdx.y, b0 = blockIdx.x * TS;
-  stage_net<D::OW, D::K, false>(weights + D::OFF_TA + i * D::NWP, w16, bias);
-  load_rows<D::OW>(rows, D::RW, D::R_OBS2 + i * D::OW, b0, batch, X);
-  zero_rows(X + D::OW * LD, D::OWP - D::OW);
-  __syncthreads();
-  torso<N>(w16, bias, X, H1, H2, n0, lane);
-  warp_product<1, MT, N::LH>(w16 + N::W3, H2, n0, lane, [&](int m, int n, float v, int, int) {
-    Z[m * LD + n] = v + bias[FB3 + m];
-  });
-  __syncwarp();
-  if (lane < 8) {
-    const int s = n0 + lane;
-    if (b0 + s < batch) {
-      float z[D::K];
-#pragma unroll
-      for (int c = 0; c < D::K; ++c) z[c] = Z[c * LD + s];
-      act2[(i * D::NH) * batch + b0 + s] = first_argmax<0, MW>(z);
-      if constexpr (D::C > 0) act2[(i * D::NH + 1) * batch + b0 + s] = first_argmax<MW, D::C>(z);
-    }
-  }
-}
+// ---- target actions and TD targets ------------------------------------------
 
-// grid (batch tiles of TS samples, agents): y [A, B] = r_i + gamma Q'_i(s', a')
+// Its shared memory: bf16 the agents' target actors [A][AN::N], agent i's
+// target critic, the agents' s' tiles [A][TS][LXA], the joint (s', a') tile
+// [TS][LXJ]; float32 the biases (actors [A][FBN], the critic [FBN]), the
+// warps' logit tiles [TD_WARPS][TS][ZLD]
 template <class D>
-__global__ void __launch_bounds__(THREADS)
-maddpg_td_bf16_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
-                      const int* __restrict__ act2, float* __restrict__ y, int batch, float gamma) {
+struct TdLayout {
+  using AN = BNet<D::OW>;
+  using CN = BNet<D::J>;
+  static constexpr int LXA = lda(D::OWP), LXJ = lda(D::JP);
+  static constexpr int S_TA = 0, S_TC = S_TA + D::A * AN::N, S_XA = S_TC + CN::N,
+                       S_XJ = S_XA + D::A * TS * LXA, S_END = S_XJ + TS * LXJ;
+  static constexpr int F_BA = (S_END / 2 + 3) / 4 * 4, F_BC = F_BA + D::A * FBN, F_Z = F_BC + FBN,
+                       F_END = F_Z + TD_WARPS * TS * ZLD;
+  static constexpr size_t SMEM = (size_t)F_END * sizeof(float);
+};
+
+// grid (batch / TS, agents): every agent's target actor on s' (the warps take
+// the agents in turn), the first-argmax move and comm -> act2 [A, NH, B] (the
+// agent-0 CTAs) and the one-hots of the tile's a'; then agent i's target
+// critic on (s', a') -> y [A, B] = r_i + gamma Q'_i(s', a')
+template <class D>
+__global__ void __launch_bounds__(TD_THREADS)
+maddpg_target_td_bf16_kernel(const float* __restrict__ weights,
+                             const uint16_t* __restrict__ scratch, const float* __restrict__ rows,
+                             int* __restrict__ act2, float* __restrict__ y, int batch,
+                             float gamma) {
   using L = TdLayout<D>;
-  using N = typename L::Net;
+  using S = Scratch<D>;
+  using AN = typename L::AN;
+  using CN = typename L::CN;
+  constexpr int K = D::K, NBO = (K + 7) / 8;
   extern __shared__ __align__(16) float smem[];
   uint16_t* w16 = reinterpret_cast<uint16_t*>(smem);
-  float* bias = smem + L::F_B;
-  float* tile = smem + L::F_TILE;
-  float* X = tile + L::T_X * LD;
-  float* H1 = tile + L::T_H1 * LD;
-  float* H2 = tile + L::T_H2 * LD;
-  const int lane = threadIdx.x & 31, n0 = 8 * (threadIdx.x >> 5);
+  uint16_t* XJ = w16 + L::S_XJ;
+  float* ba = smem + L::F_BA;
+  float* bc = smem + L::F_BC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int i = blockIdx.y, b0 = blockIdx.x * TS;
-  stage_net<D::J, 1, false>(weights + D::OFF_TC + i * D::NCP, w16, bias);
-  load_rows<D::AO>(rows, D::RW, D::R_OBS2, b0, batch, X);
-  for (int e = threadIdx.x; e < D::AK * TS; e += THREADS) {   // a': the one-hots of act2
-    const int s = e / D::AK, r = e - s * D::AK;
-    const int b = b0 + s < batch ? b0 + s : b0;
-    const int q = r / D::K, kk = r % D::K;
-    const bool hot = kk < MW ? kk == act2[(q * D::NH) * batch + b]
-                             : kk - MW == act2[(q * D::NH + 1) * batch + b];
-    X[(D::AO + r) * LD + s] = hot ? 1.0f : 0.0f;
-  }
-  zero_rows(X + D::J * LD, D::JP - D::J);
+  copy_async(w16 + L::S_TA, scratch + S::TA16, D::A * AN::N);
+  copy_async(w16 + L::S_TC, scratch + S::TC16 + i * CN::N, CN::N);
+  stage_parts(bias_part<D::OW, K, D::A>(weights + D::OFF_TA, D::NWP, ba),
+              bias_part<D::J, 1>(weights + D::OFF_TC + i * D::NCP, 0, bc),
+              cols_part<D::AO>(rows, D::RW, D::R_OBS2, b0, batch, XJ, L::LXJ));   // s'
+  zero_cols(XJ, L::LXJ, D::J, D::JP);              // a' fills the columns between
+  for (int e = tid; e < TD_WARPS * TS * ZLD; e += TD_THREADS) smem[L::F_Z + e] = 0.0f;
+  copy_wait();
   __syncthreads();
-  torso<N>(w16, bias, X, H1, H2, n0, lane);
-  warp_product<1, MT, N::LH>(w16 + N::W3, H2, n0, lane, [&](int m, int n, float v, int, int) {
-    if (m == 0 && b0 + n < batch) {
-      const float r = rows[(size_t)(b0 + n) * D::RW + D::R_REW + i];
-      y[(size_t)i * batch + b0 + n] = r + gamma * (v + bias[FB3]);
+
+  float* zt = smem + L::F_Z + warp * TS * ZLD;
+  auto target_actor = [&](int q) {
+    const uint16_t* net = w16 + L::S_TA + q * AN::N;
+    const float* bq = ba + q * FBN;
+    float h[NBH][4], z[NBO][4];
+    uint32_t ah[KTH][4];
+    uint16_t* xq = w16 + L::S_XA + q * TS * L::LXA;        // agent q's s', from the joint
+    copy_cols<D::OW, D::OWP>(XJ, L::LXJ, q * D::OW, xq, L::LXA, lane);
+    torso<AN>(net, bq, xq, L::LXA, nullptr, nullptr, lane, h, ah);
+    warp_dense<NBO, KTH, false>(ah, net + AN::W3, AN::LH, lane, z);
+#pragma unroll
+    for (int nb = 0; nb < NBO; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * nb + 2 * (lane & 3) + (e & 1);
+        zt[((lane >> 2) + 8 * (e >> 1)) * ZLD + c] = z[nb][e] + bq[FB3 + c];
+      }
+    __syncwarp();
+    if (lane < TS) {                                // a sample a lane
+      float zz[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) zz[c] = zt[lane * ZLD + c];
+      const int mv = first_argmax<0, MW>(zz);
+      int cm = -1;
+      if constexpr (D::C > 0) cm = first_argmax<MW, D::C>(zz);
+      if (i == 0 && b0 + lane < batch) {
+        act2[(q * D::NH) * batch + b0 + lane] = mv;
+        if constexpr (D::C > 0) act2[(q * D::NH + 1) * batch + b0 + lane] = cm;
+      }
+      uint16_t* xa = XJ + lane * L::LXJ + D::AO + q * K;
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        xa[kk] = (kk < MW ? kk == mv : kk - MW == cm) ? (uint16_t)0x3f80 : (uint16_t)0;  // 1, 0
     }
-  });
+    __syncwarp();
+  };
+  if constexpr (D::A <= TD_WARPS) {                 // an agent a warp
+    if (warp < D::A) target_actor(warp);
+  } else {
+    for (int q = warp; q < D::A; q += TD_WARPS) target_actor(q);
+  }
+  __syncthreads();
+  if (warp == 0) {                                  // agent i's target critic
+    float h[NBH][4], z[1][4];
+    uint32_t ah[KTH][4];
+    torso<CN>(w16 + L::S_TC, bc, XJ, L::LXJ, nullptr, nullptr, lane, h, ah);
+    warp_dense<1, KTH, false>(ah, w16 + L::S_TC + CN::W3, CN::LH, lane, z);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int b = b0 + (lane >> 2) + 8 * half;
+        if (b < batch) {
+          const float r = rows[(size_t)b * D::RW + D::R_REW + i];
+          y[(size_t)i * batch + b] = r + gamma * (z[0][2 * half] + bc[FB3]);
+        }
+      }
+    }
+  }
 }
 
-// _softmax_eps of one head, logits z[K0, K0 + W) (rows LD apart): p, s =
-// log(p + 1e-10) + p / (p + 1e-10) -> the entropy -sum p log(p + 1e-10), each
-// sum in index order (mpe_maddpg.cu's)
+// ---- the gradient -------------------------------------------------------------
+
+// _softmax_eps of one head, logits zr[K0, K0 + W): p, s = log(p + 1e-10) + p
+// / (p + 1e-10) -> the entropy -sum p log(p + 1e-10), each sum in index order
+// (mpe_maddpg.cu's)
 template <int K0, int W, int K>
-__device__ __forceinline__ float softmax_eps(const float* z, float (&p)[K], float (&sv)[K]) {
+__device__ __forceinline__ float softmax_eps(const float* zr, float (&p)[K], float (&sv)[K]) {
   float zm = 0.0f, sum = 0.0f, ent = 0.0f;
 #pragma unroll
-  for (int c = 0; c < W; ++c) zm = c == 0 ? z[K0 * LD] : fmaxf(zm, z[(K0 + c) * LD]);
+  for (int c = 0; c < W; ++c) zm = c == 0 ? zr[K0] : fmaxf(zm, zr[K0 + c]);
 #pragma unroll
   for (int c = 0; c < W; ++c) {
-    p[K0 + c] = expf(z[(K0 + c) * LD] - zm);
+    p[K0 + c] = expf(zr[K0 + c] - zm);
     sum = c == 0 ? p[K0] : sum + p[K0 + c];
   }
 #pragma unroll
@@ -474,187 +630,351 @@ __device__ __forceinline__ float softmax_eps(const float* z, float (&p)[K], floa
   return ent;
 }
 
-// grid (batch tiles of TS samples, agents), THREADS threads; partials
-// [A][tiles][NG]
+// Its shared memory. bf16: the agent's critic and actor (BNet), the joint
+// (s, a) [TS][LXJ], the agent's obs [TS][LXA], the weight gradients' operands:
+// the critic's H1, H2, GH1, GH2 [TS][LH] and G3 [TS][L3], then the actor's.
+// float32: the biases (critic, actor) [FBN], the critic's own-action columns
+// of W1 [K][HP], y [TS], the critic's g3 [TS], the candidates' Q [NCAND][TS],
+// the metric terms [3][TS]; the tiles [TS][FLD]: the critic's first-layer
+// pre-activation and its own-action product (the candidates' base is their
+// difference), the critic's h1, the actor's h1 and h2, a tile for the bias
+// sums; the actor's
+// logits (then their gradient) [TS][ZLD]
 template <class D>
-__global__ void __launch_bounds__(THREADS, 1)
-maddpg_update_bf16_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
-                          const float* __restrict__ y, float* __restrict__ partials, int batch,
-                          Bf16Consts k) {
+struct GradLayout {
+  using AN = BNet<D::OW>;
+  using CN = BNet<D::J>;
+  static constexpr int LXA = lda(D::OWP), LXJ = lda(D::JP), LH = lda(HP), L3 = lda(16);
+  static constexpr int S_C = 0, S_A = S_C + CN::N, S_XJ = S_A + AN::N, S_XA = S_XJ + TS * LXJ,
+                       S_H1C = S_XA + TS * LXA, S_H2C = S_H1C + TS * LH, S_GH1C = S_H2C + TS * LH,
+                       S_GH2C = S_GH1C + TS * LH, S_G3C = S_GH2C + TS * LH,
+                       S_H1A = S_G3C + TS * L3, S_H2A = S_H1A + TS * LH, S_GH1A = S_H2A + TS * LH,
+                       S_GH2A = S_GH1A + TS * LH, S_G3A = S_GH2A + TS * LH,
+                       S_END = S_G3A + TS * L3;
+  static constexpr int F_BC = (S_END / 2 + 3) / 4 * 4, F_BA = F_BC + FBN, F_OWN = F_BA + FBN,
+                       F_Y = F_OWN + D::K * HP, F_G3 = F_Y + TS, F_QC = F_G3 + TS,
+                       F_MS = F_QC + D::NCAND * TS, F_BASE = (F_MS + 3 * TS + 3) / 4 * 4,
+                       F_PROD = F_BASE + TS * FLD, F_H1C = F_PROD + TS * FLD,
+                       F_H1A = F_H1C + TS * FLD,
+                       F_H2A = F_H1A + TS * FLD, F_SUM = F_H2A + TS * FLD,
+                       F_Z = F_SUM + TS * FLD, F_END = F_Z + TS * ZLD;
+  static constexpr size_t SMEM = (size_t)F_END * sizeof(float);
+  static constexpr int CTAS = 2 * (SMEM + 1024) <= SM_SMEM ? 2 : 1;
+};
+
+// grid (batch / TS, agents), GRAD_THREADS threads; partials [A][tiles][NG]
+template <class D>
+__global__ void __launch_bounds__(GRAD_THREADS, GradLayout<D>::CTAS)
+maddpg_grad_bf16_kernel(const float* __restrict__ weights, const uint16_t* __restrict__ scratch,
+                        const float* __restrict__ rows, const float* __restrict__ y,
+                        float* __restrict__ partials, int batch, Bf16Consts k) {
   using L = GradLayout<D>;
-  using CN = typename L::CNet;
-  using AN = typename L::ANet;
-  constexpr int K = D::K, C = D::C, CX = D::CX;
+  using S = Scratch<D>;
+  using CN = typename L::CN;
+  using AN = typename L::AN;
+  constexpr int K = D::K, C = D::C, CX = D::CX, NBO = (K + 7) / 8, LH = L::LH, L3 = L::L3;
   extern __shared__ __align__(16) float smem[];
-  uint16_t* wc = reinterpret_cast<uint16_t*>(smem) + L::S_WC;
-  uint16_t* wa = reinterpret_cast<uint16_t*>(smem) + L::S_WA;
+  uint16_t* w16 = reinterpret_cast<uint16_t*>(smem);
+  const uint16_t* cn = w16 + L::S_C;
+  const uint16_t* an = w16 + L::S_A;
+  uint16_t* XJ = w16 + L::S_XJ;
+  uint16_t* XA = w16 + L::S_XA;
+  uint16_t* H1C = w16 + L::S_H1C;
+  uint16_t* H2C = w16 + L::S_H2C;
+  uint16_t* GH1C = w16 + L::S_GH1C;
+  uint16_t* GH2C = w16 + L::S_GH2C;
+  uint16_t* G3C = w16 + L::S_G3C;
+  uint16_t* H1A = w16 + L::S_H1A;
+  uint16_t* H2A = w16 + L::S_H2A;
+  uint16_t* GH1A = w16 + L::S_GH1A;
+  uint16_t* GH2A = w16 + L::S_GH2A;
+  uint16_t* G3A = w16 + L::S_G3A;
   float* bc = smem + L::F_BC;
   float* ba = smem + L::F_BA;
   float* own = smem + L::F_OWN;
   float* ys = smem + L::F_Y;
+  float* g3c = smem + L::F_G3;
   float* qc = smem + L::F_QC;
   float* ms = smem + L::F_MS;
-  float* tile = smem + L::F_TILE;
-  float* X = tile + L::T_X * LD;
-  float* BASE = tile + L::T_BASE * LD;
-  float* H1 = tile + L::T_H1 * LD;
-  float* H2 = tile + L::T_H2 * LD;
-  float* GH1 = tile + L::T_GH1 * LD;
-  float* GH2 = tile + L::T_GH2 * LD;
-  float* G = tile + L::T_G * LD;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n0 = 8 * warp;
+  float* base = smem + L::F_BASE;
+  float* own_prod = smem + L::F_PROD;
+  float* h1cf = smem + L::F_H1C;
+  float* h1af = smem + L::F_H1A;
+  float* h2af = smem + L::F_H2A;
+  float* sumt = smem + L::F_SUM;
+  float* zt = smem + L::F_Z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int i = blockIdx.y, b0 = blockIdx.x * TS;
   float* part = partials + ((size_t)i * gridDim.x + blockIdx.x) * D::NG;
+  float* pc = part + D::G_CRITIC;
+  float* pa = part + D::G_ACTOR;
   const float* cw = weights + D::OFF_C + i * D::NCP;
 
-  stage_net<D::J, 1, true>(cw, wc, bc);
-  stage_net<D::OW, K, true>(weights + D::OFF_A + i * D::NWP, wa, ba);
-  stage(own, K * HP, [&](int e) {                   // W1's own-action columns, float32
-    const int kk = e / HP, m = e - kk * HP;
-    return m < H ? cw[D::CW1 + m * D::J + D::AO + i * K + kk] : 0.0f;
-  });
-  if (tid < TS) ys[tid] = b0 + tid < batch ? y[(size_t)i * batch + b0 + tid] : 0.0f;
-  load_rows<D::J>(rows, D::RW, 0, b0, batch, X);                  // (s, a)
-  zero_rows(X + D::J * LD, D::XP - D::J);
-  zero_rows(G, 16);
+  copy_async(w16 + L::S_C, scratch + S::C16 + i * CN::N, CN::N);
+  copy_async(w16 + L::S_A, scratch + S::A16 + i * AN::N, AN::N);
+  const auto own_cols = stage_part(                 // W1's own-action columns, float32
+      K * HP,
+      [=](int e) {
+        const int kk = e / HP, m = e - kk * HP;
+        return m < H ? cw[D::CW1 + m * D::J + D::AO + i * K + kk] : 0.0f;
+      },
+      [=](int e, float v) { own[e] = v; });
+  const auto y_tile = stage_part(
+      TS, [=](int e) { return b0 + e < batch ? y[(size_t)i * batch + b0 + e] : 0.0f; },
+      [=](int e, float v) { ys[e] = v; });
+  stage_parts(bias_part<D::J, 1>(cw, 0, bc),
+              bias_part<D::OW, K>(weights + D::OFF_A + i * D::NWP, 0, ba), own_cols, y_tile,
+              cols_part<D::J>(rows, D::RW, 0, b0, batch, XJ, L::LXJ),             // (s, a)
+              cols_part<D::OW>(rows, D::RW, i * D::OW, b0, batch, XA, L::LXA));  // its obs
+  zero_cols(XJ, L::LXJ, D::J, D::JP);
+  zero_cols(XA, L::LXA, D::OW, D::OWP);
+  for (int e = tid; e < TS * ZLD; e += GRAD_THREADS) zt[e] = 0.0f;
+  copy_wait();
   __syncthreads();
 
-  // ---- critic forward; the candidates' base: pre - the own-action product ----
-  warp_product<MT, CN::NINP / 16, CN::L1>(wc + CN::W1, X, n0, lane,
-                                          [&](int m, int n, float v, int, int) {
-    const float pre = v + bc[FB1 + m];
-    H1[m * LD + n] = tanhf(pre);
-    const uint16_t* w1 = wc + CN::W1 + m * CN::L1 + D::AO + i * K;
-    const float* xa = X + (D::AO + i * K) * LD + n;
-    float prod = bf16_value(w1[0]) * round_bf16(xa[0]);
+  // ---- phase 1: the critic's first layer (warp 0), the actor's forward (warp
+  // 1), the own-action product the candidates' base subtracts (warps 2-7)
+  if (warp == 0) {
+    float h[NBH][4];
+    warp_dense_f<NBH, CN::NINP / 16, false>(
+        [&](int kt, uint32_t (&a)[4]) { frag_a_mk(XJ, L::LXJ, 0, 16 * kt, lane, a); },
+        cn + CN::W1, CN::L1, lane, h);
 #pragma unroll
-    for (int kk = 1; kk < K; ++kk) prod = prod + bf16_value(w1[kk]) * round_bf16(xa[kk * LD]);
-    BASE[m * LD + n] = pre - prod;
-  });
-  __syncwarp();
-  warp_product<MT, MT, CN::LH>(wc + CN::W2, H1, n0, lane, [&](int m, int n, float v, int, int) {
-    H2[m * LD + n] = tanhf(v + bc[FB2 + m]);
-  });
-  __syncwarp();
-  warp_product<1, MT, CN::LH>(wc + CN::W3, H2, n0, lane, [&](int m, int n, float v, int, int) {
-    if (m == 0) {                                   // q and the TD gradient
-      const float q = v + bc[FB3];
-      const bool valid = b0 + n < batch;
-      const float d = valid ? q - ys[n] : 0.0f;
-      G[n] = (2.0f * k.inv) * d;
-      ms[n] = d * d;
-      ms[TS + n] = valid ? q : 0.0f;
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[nb][e] = h[nb][e] + bc[FB1 + 8 * nb + 2 * t + (e & 1)];
+    put_f32(h, base, lane);                          // pre
+#pragma unroll
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[nb][e] = tanhf(h[nb][e]);
+    put_f32(h, h1cf, lane);
+    uint32_t ah[KTH][4];
+    pack_a(h, ah);
+    store_a(ah, H1C, LH, 0, lane);
+  } else if (warp >= 2) {
+    // the own-action product on its bf16 operands, which the candidates'
+    // base subtracts from pre (warps 2-7, an entry a thread at a time)
+    for (int e = tid - 64; e < TS * HP; e += GRAD_THREADS - 64) {
+      const int row = e / HP, u = e - row * HP;
+      const uint16_t* w1 = cn + CN::W1 + u * CN::L1 + D::AO + i * K;
+      const uint16_t* xa = XJ + row * L::LXJ + D::AO + i * K;
+      float prod = bf16_value(w1[0]) * bf16_value(xa[0]);
+#pragma unroll
+      for (int kk = 1; kk < K; ++kk) prod = prod + bf16_value(w1[kk]) * bf16_value(xa[kk]);
+      own_prod[row * FLD + u] = prod;
     }
-  });
-  __syncwarp();
-
-  // ---- critic backward: gh2 = (W3^T g3) (1 - h2^2), gh1 = (W2^T gh2) (1 - h1^2) ----
-  warp_product<MT, 1, CN::L3>(wc + CN::W3T, G, n0, lane, [&](int m, int n, float v, int, int) {
-    const float h = H2[m * LD + n];
-    GH2[m * LD + n] = v * (1.0f - h * h);
-  });
-  __syncwarp();
-  warp_product<MT, MT, CN::LH>(wc + CN::W2T, GH2, n0, lane, [&](int m, int n, float v, int, int) {
-    const float h = H1[m * LD + n];
-    GH1[m * LD + n] = v * (1.0f - h * h);
-  });
-  __syncthreads();
-  float* pc = part + D::G_CRITIC;
-  outer_store<H, D::J>(GH1, X, pc + D::CW1, warp, lane);
-  outer_store<H, H>(GH2, H1, pc + D::CW2, warp, lane);
-  outer_store<1, H>(G, H2, pc + D::CW3, warp, lane);
-  row_sums<H>(GH1, pc + D::CB1);
-  row_sums<H>(GH2, pc + D::CB2);
-  row_sums<1>(G, pc + D::CB3);
-  __syncthreads();
-
-  // ---- the candidates' Q, the warp's samples: candidate c = m CX + j, h1 =
-  // tanh(base + (w1[:, own move m] + w1[:, own comm j])) in rows GH1, h2 in GH2 ----
-  for (int c = 0; c < D::NCAND; ++c) {
-    const int mv = c / CX, jc = c - mv * CX;
-    for (int e = lane; e < HP * 8; e += 32) {
-      const int u = e >> 3, n = n0 + (e & 7);
-      const float dc = C > 0 ? own[mv * HP + u] + own[(MW + jc) * HP + u] : own[mv * HP + u];
-      GH1[u * LD + n] = tanhf(BASE[u * LD + n] + dc);
-    }
-    __syncwarp();
-    warp_product<MT, MT, CN::LH>(wc + CN::W2, GH1, n0, lane, [&](int m, int n, float v, int, int) {
-      GH2[m * LD + n] = tanhf(v + bc[FB2 + m]);
-    });
-    __syncwarp();
-    warp_product<1, MT, CN::LH>(wc + CN::W3, GH2, n0, lane, [&](int m, int n, float v, int, int) {
-      if (m == 0) qc[c * TS + n] = v + bc[FB3];
-    });
-    __syncwarp();
-  }
-
-  // ---- actor: forward, expected-Q and entropy gradient, backward ----
-  __syncthreads();                                  // the joint's rows are free
-  load_rows<D::OW>(rows, D::RW, i * D::OW, b0, batch, X);
-  zero_rows(X + D::OW * LD, D::OWP - D::OW);
-  __syncthreads();
-  torso<AN>(wa, ba, X, H1, H2, n0, lane);
-  warp_product<1, MT, AN::LH>(wa + AN::W3, H2, n0, lane, [&](int m, int n, float v, int, int) {
-    G[m * LD + n] = v + ba[FB3 + m];
-  });
-  __syncwarp();
-  if (lane < 8) {                                   // _softmax_eps per head, E, the gradients
-    const int s = n0 + lane;
-    const bool valid = b0 + s < batch;
-    float p[K], sv[K];
-    const float ent = softmax_eps<0, MW, K>(G + s, p, sv) +
-                      (C > 0 ? softmax_eps<MW, C, K>(G + s, p, sv) : 0.0f);
-    // qbar_m[m] = sum_j pc[j] Q[m CX + j], qbar_c[j] = sum_m pm[m] Q[m CX + j],
-    // each from the first term in index order; without comm qbar_m[m] = Q[m]
-    const float* q = qc + s;
-    float qbar[K], eq = 0.0f, sps_m = 0.0f;
+  } else {
+    float h[NBH][4], z[NBO][4];
+    uint32_t ah[KTH][4];
+    torso<AN>(an, ba, XA, L::LXA, H1A, h1af, lane, h, ah);
+    put_f32(h, h2af, lane);
+    store_a(ah, H2A, LH, 0, lane);
+    warp_dense<NBO, KTH, false>(ah, an + AN::W3, LH, lane, z);
 #pragma unroll
-    for (int m = 0; m < MW; ++m) {
-      float qm = q[(m * CX) * TS];
-      if constexpr (C > 0) {
-        qm = p[MW] * qm;
+    for (int nb = 0; nb < NBO; ++nb)
 #pragma unroll
-        for (int j = 1; j < C; ++j) qm = qm + p[MW + j] * q[(m * CX + j) * TS];
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * nb + 2 * t + (e & 1);
+        zt[(g + 8 * (e >> 1)) * ZLD + c] = z[nb][e] + ba[FB3 + c];
       }
-      qbar[m] = qm;
-      eq = m == 0 ? p[0] * qm : eq + p[m] * qm;
-      sps_m = m == 0 ? p[0] * sv[0] : sps_m + p[m] * sv[m];
-    }
-    float sps_c = 0.0f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      float qj = p[0] * q[j * TS];
-#pragma unroll
-      for (int m = 1; m < MW; ++m) qj = qj + p[m] * q[(m * CX + j) * TS];
-      qbar[MW + j] = qj;
-      sps_c = j == 0 ? p[MW] * sv[MW] : sps_c + p[MW + j] * sv[MW + j];
-    }
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      const float sps = c < MW ? sps_m : sps_c;
-      G[c * LD + s] =
-          valid ? (-(p[c] * (qbar[c] - eq)) + (k.ent_coef * p[c]) * (sv[c] - sps)) * k.inv : 0.0f;
-    }
-    ms[2 * TS + s] = valid ? eq + k.ent_coef * ent : 0.0f;
   }
-  __syncwarp();
-  warp_product<MT, 1, AN::L3>(wa + AN::W3T, G, n0, lane, [&](int m, int n, float v, int, int) {
-    const float h = H2[m * LD + n];
-    GH2[m * LD + n] = v * (1.0f - h * h);
-  });
-  __syncwarp();
-  warp_product<MT, MT, AN::LH>(wa + AN::W2T, GH2, n0, lane, [&](int m, int n, float v, int, int) {
-    const float h = H1[m * LD + n];
-    GH1[m * LD + n] = v * (1.0f - h * h);
-  });
   __syncthreads();
-  float* pa = part + D::G_ACTOR;
-  outer_store<H, D::OW>(GH1, X, pa + D::AW1, warp, lane);
-  outer_store<H, H>(GH2, H1, pa + D::AW2, warp, lane);
-  outer_store<K, H>(G, H2, pa + D::AW3, warp, lane);
-  row_sums<H>(GH1, pa + D::AB1);
-  row_sums<H>(GH2, pa + D::AB2);
-  row_sums<K>(G, pa + D::AB3);
+
+  // ---- phase 2: the critic's rest and backward (warp 0); the candidates (warps 1-7)
+  if (warp == 0) {
+    float h2[NBH][4], gh[NBH][4], z[1][4];
+    uint32_t ah[KTH][4];
+    warp_dense_f<NBH, KTH, false>(
+        [&](int kt, uint32_t (&a)[4]) { frag_a_mk(H1C, LH, 0, 16 * kt, lane, a); }, cn + CN::W2,
+        LH, lane, h2);
+    bias_tanh(h2, bc + FB2, lane);
+    pack_a(h2, ah);
+    store_a(ah, H2C, LH, 0, lane);
+    warp_dense<1, KTH, false>(ah, cn + CN::W3, LH, lane, z);
+    // q and the TD gradient g3 = 2 inv (q - y) in column 0 (lanes t = 0)
+    uint32_t a3[1][4] = {{0u, 0u, 0u, 0u}};
+    if (t == 0) {
+      float gv[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = g + 8 * half;
+        const float q = z[0][2 * half] + bc[FB3];
+        const bool valid = b0 + row < batch;
+        const float d = valid ? q - ys[row] : 0.0f;
+        gv[half] = (2.0f * k.inv) * d;
+        g3c[row] = gv[half];
+        ms[row] = d * d;
+        ms[TS + row] = valid ? q : 0.0f;
+      }
+      a3[0][0] = pack_bf16(gv[0], 0.0f);
+      a3[0][1] = pack_bf16(gv[1], 0.0f);
+    }
+    store_a(a3, G3C, L3, 0, lane);
+    // gh2 = (g3 W3) (1 - h2^2), gh1 = (gh2 W2) (1 - h1^2)
+    warp_dense<NBH, 1, true>(a3, cn + CN::W3, LH, lane, gh);
+#pragma unroll
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gh[nb][e] = gh[nb][e] * (1.0f - h2[nb][e] * h2[nb][e]);
+    put_f32(gh, sumt, lane);
+    col_sums(sumt, FLD, H, pc + D::CB2, lane);
+    pack_a(gh, ah);
+    store_a(ah, GH2C, LH, 0, lane);
+    warp_dense<NBH, KTH, true>(ah, cn + CN::W2, LH, lane, gh);
+    get_f32(h2, h1cf, lane);                         // h1, float32
+#pragma unroll
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gh[nb][e] = gh[nb][e] * (1.0f - h2[nb][e] * h2[nb][e]);
+    put_f32(gh, sumt, lane);
+    col_sums(sumt, FLD, H, pc + D::CB1, lane);
+    col_sums(g3c, 1, 1, pc + D::CB3, lane);
+    pack_a(gh, ah);
+    store_a(ah, GH1C, LH, 0, lane);
+  } else {
+    // candidate c = m CX + j: h1 = tanh(base + (w1[:, own move m] + w1[:, own
+    // comm j])), h2 = tanh(h1 W2^T + b2), Q = h2 W3^T + b3
+    for (int c = warp - 1; c < D::NCAND; c += GRAD_WARPS - 1) {
+      const int mv = c / CX, jc = c - mv * CX;
+      float h[NBH][4], z[1][4];
+      uint32_t ah[KTH][4];
+      float prod[NBH][4];
+      get_f32(h, base, lane);
+      get_f32(prod, own_prod, lane);
+#pragma unroll
+      for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = 8 * nb + 2 * t + (e & 1);
+          const float dc = C > 0 ? own[mv * HP + u] + own[(MW + jc) * HP + u] : own[mv * HP + u];
+          h[nb][e] = tanhf((h[nb][e] - prod[nb][e]) + dc);
+        }
+      pack_a(h, ah);
+      warp_dense<NBH, KTH, false>(ah, cn + CN::W2, LH, lane, h);
+      bias_tanh(h, bc + FB2, lane);
+      pack_a(h, ah);
+      warp_dense<1, KTH, false>(ah, cn + CN::W3, LH, lane, z);
+      if (t == 0) {
+        qc[c * TS + g] = z[0][0] + bc[FB3];
+        qc[c * TS + g + 8] = z[0][2] + bc[FB3];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 3: the actor's head and backward (warp 1); the critic's weight
+  // gradients (warps 0, 2-7)
+  if (warp == 1) {
+    if (lane < TS) {                                // _softmax_eps per head, E, the gradients
+      const int s = lane;
+      const bool valid = b0 + s < batch;
+      float* zr = zt + s * ZLD;
+      float p[K], sv[K];
+      const float ent = softmax_eps<0, MW, K>(zr, p, sv) +
+                        (C > 0 ? softmax_eps<MW, C, K>(zr, p, sv) : 0.0f);
+      // qbar_m[m] = sum_j pc[j] Q[m CX + j], qbar_c[j] = sum_m pm[m] Q[m CX + j],
+      // each from the first term in index order; without comm qbar_m[m] = Q[m]
+      const float* q = qc + s;
+      float qbar[K], eq = 0.0f, sps_m = 0.0f;
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+        float qm = q[(m * CX) * TS];
+        if constexpr (C > 0) {
+          qm = p[MW] * qm;
+#pragma unroll
+          for (int j = 1; j < C; ++j) qm = qm + p[MW + j] * q[(m * CX + j) * TS];
+        }
+        qbar[m] = qm;
+        eq = m == 0 ? p[0] * qm : eq + p[m] * qm;
+        sps_m = m == 0 ? p[0] * sv[0] : sps_m + p[m] * sv[m];
+      }
+      float sps_c = 0.0f;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        float qj = p[0] * q[j * TS];
+#pragma unroll
+        for (int m = 1; m < MW; ++m) qj = qj + p[m] * q[(m * CX + j) * TS];
+        qbar[MW + j] = qj;
+        sps_c = j == 0 ? p[MW] * sv[MW] : sps_c + p[MW + j] * sv[MW + j];
+      }
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const float sps = c < MW ? sps_m : sps_c;
+        zr[c] = valid ? (-(p[c] * (qbar[c] - eq)) + (k.ent_coef * p[c]) * (sv[c] - sps)) * k.inv
+                      : 0.0f;
+      }
+      ms[2 * TS + s] = valid ? eq + k.ent_coef * ent : 0.0f;
+    }
+    col_sums(zt, ZLD, K, pa + D::AB3, lane);
+    // the logit gradient g3 from the tile (zeros past K), rounded
+    uint32_t a3[1][4];
+    {
+      const float* r0 = zt + g * ZLD + 2 * t;
+      const float* r1 = r0 + 8 * ZLD;
+      a3[0][0] = pack_bf16(r0[0], r0[1]);
+      a3[0][1] = pack_bf16(r1[0], r1[1]);
+      a3[0][2] = pack_bf16(r0[8], r0[9]);
+      a3[0][3] = pack_bf16(r1[8], r1[9]);
+    }
+    store_a(a3, G3A, L3, 0, lane);
+    float gh[NBH][4], hf[NBH][4];
+    uint32_t ah[KTH][4];
+    warp_dense<NBH, 1, true>(a3, an + AN::W3, LH, lane, gh);
+    get_f32(hf, h2af, lane);
+#pragma unroll
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gh[nb][e] = gh[nb][e] * (1.0f - hf[nb][e] * hf[nb][e]);
+    put_f32(gh, sumt, lane);
+    col_sums(sumt, FLD, H, pa + D::AB2, lane);
+    pack_a(gh, ah);
+    store_a(ah, GH2A, LH, 0, lane);
+    warp_dense<NBH, KTH, true>(ah, an + AN::W2, LH, lane, gh);
+    get_f32(hf, h1af, lane);
+#pragma unroll
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gh[nb][e] = gh[nb][e] * (1.0f - hf[nb][e] * hf[nb][e]);
+    put_f32(gh, sumt, lane);
+    col_sums(sumt, FLD, H, pa + D::AB1, lane);
+    pack_a(gh, ah);
+    store_a(ah, GH1A, LH, 0, lane);
+  } else {
+    // dW1 = GH1^T (s, a), dW2 = GH2^T H1, dW3^T = H2^T G3 over the 16
+    // samples, a (16 x 8) tile a turn
+    constexpr int NC1 = pad8(D::J) / 8, T1 = MT * NC1, T2 = T1 + MT * (H / 8), T3 = T2 + MT;
+    for (int tt = warp == 0 ? 0 : warp - 1; tt < T3; tt += GRAD_WARPS - 1) {
+      if (tt < T1) {
+        outer_tile(GH1C, LH, 16 * (tt / NC1), XJ, L::LXJ, 8 * (tt % NC1), lane, pc + D::CW1, H,
+                   D::J);
+      } else if (tt < T2) {
+        outer_tile(GH2C, LH, 16 * ((tt - T1) / (H / 8)), H1C, LH, 8 * ((tt - T1) % (H / 8)), lane,
+                   pc + D::CW2, H, H);
+      } else {
+        outer_tile<true>(H2C, LH, 16 * (tt - T2), G3C, L3, 0, lane, pc + D::CW3, H, 1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 4: the actor's weight gradients on every warp; the metric sums
+  {
+    constexpr int NC1 = pad8(D::OW) / 8, T1 = MT * NC1, T2 = T1 + MT * (H / 8),
+                  T3 = T2 + MT * NBO;
+    for (int tt = warp; tt < T3; tt += GRAD_WARPS) {
+      if (tt < T1) {
+        outer_tile(GH1A, LH, 16 * (tt / NC1), XA, L::LXA, 8 * (tt % NC1), lane, pa + D::AW1, H,
+                   D::OW);
+      } else if (tt < T2) {
+        outer_tile(GH2A, LH, 16 * ((tt - T1) / (H / 8)), H1A, LH, 8 * ((tt - T1) % (H / 8)), lane,
+                   pa + D::AW2, H, H);
+      } else {
+        outer_tile<true>(H2A, LH, 16 * ((tt - T2) / NBO), G3A, L3, 8 * ((tt - T2) % NBO), lane,
+                         pa + D::AW3, H, K);
+      }
+    }
+  }
   if (tid < 3) {                                    // metric sums over the tile's samples, in order
     float total = 0.0f;
     for (int q = 0; q < TS; ++q) total = total + ms[tid * TS + q];
@@ -663,16 +983,40 @@ maddpg_update_bf16_kernel(const float* __restrict__ weights, const float* __rest
 }
 
 // The gradient in the parameters' layout, grads [A NWP + A NCP], each entry
-// summed over the tiles in order, the padding 0; metrics [3] = (critic loss,
-// actor loss, Q mean): each term summed over an agent's tiles, the agents in
-// order, times inv, the actor objective negated (mpe_maddpg.cu's reduce)
+// summed over the tiles in order (16 loads in flight), the padding 0; metrics
+// [3] = (critic loss, actor loss, Q mean): each term summed over an agent's
+// tiles, the agents in order, times inv, the actor objective negated
+// (mpe_maddpg.cu's reduce)
 template <class D>
 __global__ void maddpg_reduce_bf16_kernel(const float* __restrict__ partials,
                                           float* __restrict__ grads, float* __restrict__ metrics,
                                           int n_tiles, float inv) {
   constexpr int NA = D::A * D::NWP, NT = NA + D::A * D::NCP;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < NT) {
+  auto tile_sum = [&](const float* p) {
+    float total = 0.0f;
+    int t = 0;
+    for (; t + 16 <= n_tiles; t += 16) {
+      float v[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) v[r] = p[(size_t)(t + r) * D::NG];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) total = total + v[r];
+    }
+    for (; t < n_tiles; ++t) total = total + p[(size_t)t * D::NG];
+    return total;
+  };
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < NT + 3;
+       idx += gridDim.x * blockDim.x) {
+    if (idx >= NT) {
+      const int m = idx - NT, term = m == 0 ? 0 : m == 1 ? 2 : 1;
+      float sum = 0.0f;
+      for (int a = 0; a < D::A; ++a) {
+        const float ta = tile_sum(partials + (size_t)a * n_tiles * D::NG + D::G_MS + term);
+        sum = a == 0 ? ta : sum + ta;
+      }
+      metrics[m] = m == 1 ? -sum * inv : sum * inv;
+      continue;
+    }
     int a, e;
     if (idx < NA) {
       a = idx / D::NWP;
@@ -683,76 +1027,72 @@ __global__ void maddpg_reduce_bf16_kernel(const float* __restrict__ partials,
       e = idx - NA - a * D::NCP;
       e = e < D::NC ? D::G_CRITIC + e : -1;
     }
-    float total = 0.0f;
-    if (e >= 0) {
-      const float* p = partials + (size_t)a * n_tiles * D::NG + e;
-      for (int t = 0; t < n_tiles; ++t) total = total + p[(size_t)t * D::NG];
-    }
-    grads[idx] = total;
-  } else if (idx < NT + 3) {
-    const int m = idx - NT, term = m == 0 ? 0 : m == 1 ? 2 : 1;
-    float sum = 0.0f;
-    for (int a = 0; a < D::A; ++a) {
-      float ta = 0.0f;
-      const float* p = partials + (size_t)a * n_tiles * D::NG + D::G_MS + term;
-      for (int t = 0; t < n_tiles; ++t) ta = ta + p[(size_t)t * D::NG];
-      sum = a == 0 ? ta : sum + ta;
-    }
-    metrics[m] = m == 1 ? -sum * inv : sum * inv;
+    grads[idx] = e >= 0 ? tile_sum(partials + (size_t)a * n_tiles * D::NG + e) : 0.0f;
   }
+}
+
+// the scratch's offset in the partials buffer (floats, 16-byte aligned):
+// after the A x tiles partial gradients
+template <class D>
+size_t scratch_offset(int batch) {
+  return ((size_t)D::A * ((batch + TS - 1) / TS) * D::NG + 3) / 4 * 4;
 }
 
 template <class D>
 int launch_update(const float* weights, const float* rows, int* act2, float* y, float* partials,
                   float* grads, float* metrics, int batch, float gamma, float ent_coef, float inv,
                   cudaStream_t stream) {
-  static_assert(GradLayout<D>::SMEM <= SMEM_MAX && TdLayout<D>::SMEM <= SMEM_MAX &&
-                    TaLayout<D>::SMEM <= SMEM_MAX,
+  static_assert(GradLayout<D>::SMEM <= SMEM_MAX && TdLayout<D>::SMEM <= SMEM_MAX,
                 "a K9-bf16 CTA exceeds the shared memory of an SM");
   static_assert(D::OFF_C % 4 == 0 && D::NWP % 4 == 0 && D::NCP % 4 == 0,
                 "the nets' blocks stay 16-byte aligned");
   if (batch < 1) return (int)cudaErrorInvalidValue;
   // once per instantiation: the attributes hold for the process
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(maddpg_target_actions_bf16_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(maddpg_target_td_bf16_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)TaLayout<D>::SMEM);
+                                         (int)TdLayout<D>::SMEM);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(maddpg_td_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)TdLayout<D>::SMEM);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(maddpg_update_bf16_kernel<D>,
+    return cudaFuncSetAttribute(maddpg_grad_bf16_kernel<D>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)GradLayout<D>::SMEM);
   }();
   if (attr != cudaSuccess) return (int)attr;
   const int n_tiles = (batch + TS - 1) / TS;
-  const dim3 grid(n_tiles, D::A);
-  maddpg_target_actions_bf16_kernel<D><<<grid, THREADS, TaLayout<D>::SMEM, stream>>>(
-      weights, rows, act2, batch);
+  uint16_t* scratch = reinterpret_cast<uint16_t*>(partials + scratch_offset<D>(batch));
+  constexpr int round_ctas =
+      (Scratch<D>::PAIRS + ROUND_PAIRS * ROUND_THREADS - 1) / (ROUND_PAIRS * ROUND_THREADS);
+  maddpg_round_bf16_kernel<D><<<round_ctas, ROUND_THREADS, 0, stream>>>(weights, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  maddpg_td_bf16_kernel<D><<<grid, THREADS, TdLayout<D>::SMEM, stream>>>(weights, rows, act2, y,
-                                                                          batch, gamma);
+  const dim3 grid(n_tiles, D::A);
+  maddpg_target_td_bf16_kernel<D><<<grid, TD_THREADS, TdLayout<D>::SMEM, stream>>>(
+      weights, scratch, rows, act2, y, batch, gamma);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Bf16Consts k{gamma, ent_coef, inv};
-  maddpg_update_bf16_kernel<D><<<grid, THREADS, GradLayout<D>::SMEM, stream>>>(
-      weights, rows, y, partials, batch, k);
+  maddpg_grad_bf16_kernel<D><<<grid, GRAD_THREADS, GradLayout<D>::SMEM, stream>>>(
+      weights, scratch, rows, y, partials, batch, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr int n_out = D::A * (D::NWP + D::NCP) + 3;
-  maddpg_reduce_bf16_kernel<D><<<(n_out + 255) / 256, 256, 0, stream>>>(partials, grads, metrics,
-                                                                        n_tiles, inv);
+  constexpr int reduce_ctas = (n_out + 255) / 256 < REDUCE_CTAS ? (n_out + 255) / 256 : REDUCE_CTAS;
+  maddpg_reduce_bf16_kernel<D><<<reduce_ctas, 256, 0, stream>>>(partials, grads, metrics, n_tiles,
+                                                               inv);
   return (int)cudaGetLastError();
 }
 
 // the layout constants the wrapper mirrors: 0 actor stride, 1 critic stride,
-// 2 weights, 3 gradient per agent, 4 samples per tile
+// 2 weights, 3 gradient per agent, 4 samples per tile; and the bf16 scratch
+// the launch keeps after its partials (scratch_offset): 5 its floats, 6 an
+// actor's and 7 a critic's bf16 elements, 8 an actor's and 9 a critic's W1
+// row stride, 10 the W2 and W3 row stride (BNet)
 template <class D>
 int layout(int which) {
-  const int v[5] = {D::NWP, D::NCP, D::N_WEIGHTS, D::NG, TS};
-  return (which >= 0 && which < 5) ? v[which] : -1;
+  using S = Scratch<D>;
+  const int v[11] = {D::NWP, D::NCP, D::N_WEIGHTS, D::NG, TS, S::N16 / 2, S::AN::N, S::CN::N,
+                     S::AN::L1, S::CN::L1, S::AN::LH};
+  return (which >= 0 && which < 11) ? v[which] : -1;
 }
 
 }  // namespace
@@ -761,8 +1101,9 @@ extern "C" {
 
 // K9-bf16: mpe_maddpg.cu's mpe_maddpg_update, the same arguments and layout
 // (weights [N_WEIGHTS] float32; rows [batch, RW]; act2 [A, NH, batch] and y
-// [A, batch] scratch; partials [A, tiles, NG] scratch, tiles of TS samples;
-// grads [A NWP + A NCP] and metrics [3] out)
+// [A, batch] scratch; partials [A, tiles, NG] scratch, tiles of TS samples,
+// then (16-byte aligned) the bf16 nets, layout 5 floats; grads [A NWP + A NCP]
+// and metrics [3] out)
 int mpe_maddpg_update(int scenario, const float* weights, const float* rows, int* act2, float* y,
                       float* partials, float* grads, float* metrics, int batch, float gamma,
                       float ent_coef, float inv, cudaStream_t stream) {

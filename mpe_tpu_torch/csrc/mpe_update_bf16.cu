@@ -18,44 +18,55 @@
 // Out: the gradient in mpe_update.cu's packed layout and the metric sums, in
 // float32, as JAX's acc_t.
 //
-// What bounds them on the H100: no longer the products (989 TFLOP/s of bf16
-// on the tensor cores against 67 of fp32 FMA: K6's 2 x 15.7 k flops a sample
-// take about 0.025 ms over path b's 786,432 samples), but the tanh on the
+// What bounds them on the H100: not the products (989 TFLOP/s of bf16 on the
+// tensor cores against 67 of fp32 FMA: K6's 2 x 15.7 k flops a sample take
+// about 0.025 ms over path b's 786,432 samples) but the tanh on the
 // special-function units, the head's float32 work and the bytes of the batch
-// (chip_smoke.py::update_bf16_sample counts them). The kernel as written is
-// held back by its shared-memory traffic: every mma fragment is loaded by
-// 32- or 64-bit shared loads, the activations' fragments converted by cvt.
+// (chip_smoke.py::update_bf16_sample counts them). A first design, a warp's 8
+// samples on the N side of each product, was held back by shared memory:
+// every layer's float32 activations went out to a tile and came back through
+// scalar loads and cvts into the next product's fragments, the weight
+// gradients rebuilt both operands from float32 tiles the same way, the weights
+// were staged twice (W2^T, W3^T), and each 64-sample tile passed seven
+// __syncthreads.
 //
 // What the design does about it. mpe_update.cu's shape is kept: a persistent
 // grid (two CTAs per SM where they fit) whose CTAs keep per-CTA partials,
 // summed by update_reduce_kernel in a fixed order (no float atomics, the same
 // result every run); tiles of TS = 64 samples staged by cp.async into a
-// second buffer while the current one computes; one thread per sample for the
-// head. The products become mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16
-// .f32 (HMMA) over warp fragments:
-//   forward, backward  D[unit][sample] = W . B: warp w owns the tile's samples
-//             8w .. 8w + 7 (one n8 column block) and every 16-unit row block;
-//             A is the weight (W1, W2, W3, and W2^T, W3^T for the backward),
-//             rounded to bf16 once per launch and kept in shared memory in
-//             row-major rows padded so that a fragment's 32 words lie in 32
-//             banks; B is the float32 activation tile ([unit][sample], rows
-//             LD floats apart, as in mpe_update.cu), rounded on the way into
-//             the fragment (two loads, one cvt pair). The epilogue adds the
-//             bias and takes tanh, or multiplies by 1 - h^2 with h the float32
-//             activation under the same entry, and writes float32 over the
-//             tile, so that every activation the next product rounds is the
-//             float32 value JAX rounds. Only __syncwarp between these.
-//   gradient  dW[m][n] += sum over the tile's 64 samples of P[m][s] Q[n][s]:
-//             the (16 x 8) output tiles are dealt to the warps, each keeping
-//             its tiles' accumulators in registers over all the CTA's tiles;
-//             both fragments come from the float32 tiles (float2 loads, cvt).
-//   bias sums ride along in float32: db1, db2 in the backward epilogues (per
-//             thread, then over the 4 lanes of a row and the 8 warps in order),
-//             db3 in the head.
+// second buffer while the current one computes. The products are
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (HMMA), sample-major
+// (bf16_mma.cuh): warp w owns the tile's samples 16w .. 16w + 15 as the M side
+// of every product.
+//   forward   h1 = tanh(x W1^T + b1), h2, z = h2 W3^T + b3: x's fragments by
+//             ldmatrix.trans from the tile's bf16 x rows, each later layer's
+//             from the previous layer's accumulators, packed in registers;
+//             the weights, rounded to bf16 once a launch into shared memory as
+//             row-major rows (padded against bank conflicts), give the B
+//             fragments by ldmatrix. h1 and h2 stay float32 in the registers
+//             for 1 - h^2; the value rounded is the one JAX rounds.
+//   head      one lane a sample (16 of the warp's 32) on the logits through a
+//             small float32 tile per warp, mpe_update.cu's arithmetic and order.
+//   backward  gh2 = (g3 W3) (1 - h2^2), gh1 = (gh2 W2) (1 - h1^2): W by
+//             ldmatrix.trans (no transposed copies), g3 and gh2 packed in
+//             registers; db1, db2 from the float32 values in the registers,
+//             summed over the warp's rows by a shuffle reduce-scatter.
+//   gradient  each product's operands go once to shared memory as bf16
+//             sample-major rows (x as the tile's bf16 x rows); dW[m][n] +=
+//             sum over the tile's 64 samples by ldmatrix fragments, a row
+//             block a warp at hidden 64 (else the (16 x 8) output tiles dealt
+//             in turn), each warp keeping its tiles' accumulators in registers
+//             over the CTA's tiles (dW1 of more than 24 inputs, the critics'
+//             joints and simple_world_comm's actor, adds each tile's sums into
+//             the CTA's partial instead).
+// Two __syncthreads a tile: the staging handoff and the gradient pass. What
+// still bounds them: no single stage (the tanh, the head and the gradient
+// pass each 5-20% of the time), but the per-tile work of 8 warps an SM, two
+// CTAs being all their shared memory allows.
 // Padding: the x rows to 16 (the mma's depth; obs widths 4-34, joint widths
-// up to 204), the hidden units to 16 (hidden 8), the outputs to 16 (5 + C + 1
-// of 6-16 logits, the critic's 1): zeros in both operands, which add exact
-// zeros; padded units compute tanh(0) = 0 and are never stored.
+// up to 204), the hidden units to 16 (hidden 8), the outputs to 8 or 16
+// (5 + C + 1 of 6-16 logits, the critic's 1): zeros in both operands, which
+// add exact zeros; padded units compute tanh(0) = 0 and are never stored.
 
 #include <cuda_runtime.h>
 #ifdef __CUDACC__
@@ -73,23 +84,22 @@ namespace {
 #endif
 constexpr int H = MPE_HIDDEN;    // hidden width: 8, 16, 32 or 64 (ops/_build.py, one library each)
 static_assert(H == 8 || H == 16 || H == 32 || H == 64, "the kernels take hidden 8, 16, 32 or 64");
-constexpr int HP = H < 16 ? 16 : H;   // hidden units padded to the mma's 16 rows
-constexpr int THREADS = 256;     // per CTA
+constexpr int HP = H < 16 ? 16 : H;   // hidden units padded to the mma's 16
+constexpr int NBH = HP / 8, KTH = HP / 16;   // the hidden units' n8 blocks and k16 steps
+constexpr int THREADS = 128;     // per CTA
 constexpr int WARPS = THREADS / 32;
-constexpr int TS = 64;           // samples per tile: 8 per warp
-constexpr int LD = TS + 4;       // a float32 tile row's stride
-constexpr int KO_MAX = 16;       // outputs: one mma row block
-static_assert(TS == 8 * WARPS, "each warp owns one n8 block of the tile's samples");
+constexpr int WS = 16;           // samples per warp: the mma's M
+constexpr int TS = WS * WARPS;   // samples per tile
+constexpr int LD = TS + 4;       // a float32 stage row's stride
+constexpr int KO_MAX = 16;       // outputs: at most two n8 blocks
+constexpr int ZLD = KO_MAX + 1;  // a row of a warp's logit tile
 constexpr size_t SM_SMEM = 233472;   // shared memory of an SM; a CTA takes 1 KB more than it asks
 
-// the row stride (in bf16) of a weight matrix of k columns: the words of a
-// row a multiple of 4 but not of 8, so that the 8 rows x 4 words of an A
-// fragment fall in 32 distinct banks
-constexpr int lda(int k) {
-  int w = k / 2;
-  while (w % 8 != 4) ++w;
-  return 2 * w;
-}
+}  // namespace
+
+#include "bf16_mma.cuh"
+
+namespace {
 
 // the packed weights (input) and gradient (output, partials) of an IN-H-H-KO
 // MLP, as mpe_update.cu's: w1 [H,IN], b1 [H], w2 [H,H], b2 [H], w3 [KO,H]
@@ -110,10 +120,6 @@ __host__ __device__ constexpr Packed packed(int in, int ko) {
                 H * in + 2 * H + H * H + ko * H + ko + 3};
 }
 
-__host__ __device__ constexpr size_t update_smem(int f_tile, int stage_rows, int stages) {
-  return sizeof(float) * (f_tile + (size_t)(stages * stage_rows + 2 * HP + KO_MAX) * LD);
-}
-
 __host__ __device__ constexpr bool smem_fits(size_t bytes, int ctas) {
   return ctas * (bytes + 1024) <= SM_SMEM;
 }
@@ -126,38 +132,49 @@ struct UpdateDims {
   static constexpr int IN = IN_, KP = KP_, KC = KC_;
   static constexpr bool HAS_V = HAS_V_, TEAM = TEAM_;
   static constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
-  static_assert(KO <= KO_MAX, "the outputs fit one mma row block");
+  static_assert(KO <= KO_MAX, "the outputs fit two n8 blocks");
+  static constexpr int NBO = (KO + 7) / 8;             // the outputs' n8 blocks
   static constexpr int INP = (IN + 15) / 16 * 16;      // x rows, zero-padded to the mma's depth
   static constexpr int IN8 = (IN + 7) / 8 * 8;         // dW1's columns in n8 blocks
-  // a stage: x rows, then the per-sample inputs of the head
-  static constexpr int A_MV = INP, A_CM = A_MV + KP, A_LPO = A_CM + KC, A_ADV = A_LPO + 1;
-  static constexpr int A_RET = KP > 0 ? A_ADV + 1 : INP, A_VOLD = A_RET + 1;
+  // a stage (float32 [row][LD]): the x rows, then the per-sample inputs of the head
+  static constexpr int A_MV = IN, A_CM = A_MV + KP, A_LPO = A_CM + KC, A_ADV = A_LPO + 1;
+  static constexpr int A_RET = KP > 0 ? A_ADV + 1 : IN, A_VOLD = A_RET + 1;
   static constexpr int NAUX = (KP > 0 ? KP + KC + 2 : 0) + (HAS_V ? 2 : 0);
-  static constexpr int STAGE_ROWS = INP + NAUX;
-  static constexpr int IN_ROWS = IN + NAUX;            // rows read from the batch
-  // the bf16 weights (in bf16 elements): W1 [HP][L1], W2 [HP][LH], W2T
-  // [HP][LH], W3 [16][LH], W3T [HP][L3]
-  static constexpr int L1 = lda(INP), LH = lda(HP), L3 = lda(KO_MAX);
-  static constexpr int S_W1 = 0, S_W2 = S_W1 + HP * L1, S_W2T = S_W2 + HP * LH,
-                       S_W3 = S_W2T + HP * LH, S_W3T = S_W3 + KO_MAX * LH,
-                       S_WEND = S_W3T + HP * L3;
-  // then in floats: b1 [HP], b2 [HP], b3 [16], the tiles
-  static constexpr int F_B1 = (S_WEND / 2 + 3) / 4 * 4, F_B2 = F_B1 + HP, F_B3 = F_B2 + HP,
-                       F_TILE = (F_B3 + KO_MAX + 3) / 4 * 4;
+  static constexpr int STAGE_ROWS = IN + NAUX;         // rows read from the batch
+  // bf16 (in elements): the weights W1 [HP][L1], W2 [HP][LH], W3 [16][LH];
+  // the tile's x [INP][LX] (feature-major, as the batch lays it out); the
+  // sample-major operands of the weight gradients H1, H2, GH1, GH2 [TS][LH]
+  // and G3 [TS][L3]
+  static constexpr int L1 = lda(INP), LH = lda(HP), L3 = lda(KO_MAX), LX = lda(TS);
+  static constexpr int S_W1 = 0, S_W2 = S_W1 + HP * L1, S_W3 = S_W2 + HP * LH,
+                       S_X = S_W3 + KO_MAX * LH, S_H1 = S_X + INP * LX, S_H2 = S_H1 + TS * LH,
+                       S_GH1 = S_H2 + TS * LH, S_GH2 = S_GH1 + TS * LH, S_G3 = S_GH2 + TS * LH,
+                       S_END = S_G3 + TS * L3;
+  // then in floats: b1 [HP], b2 [HP], b3 [16], the warps' logit tiles
+  // [WARPS][WS][ZLD], the stages
+  static constexpr int F_B1 = (S_END / 2 + 3) / 4 * 4, F_B2 = F_B1 + HP, F_B3 = F_B2 + HP,
+                       F_Z = F_B3 + KO_MAX, F_TILE = (F_Z + WARPS * WS * ZLD + 3) / 4 * 4;
   // two CTAs per SM where they fit, then two stages where they fit
-  static constexpr size_t SMEM2 = update_smem(F_TILE, STAGE_ROWS, 2),
-                          SMEM1 = update_smem(F_TILE, STAGE_ROWS, 1);
+  static constexpr size_t SMEM2 = sizeof(float) * ((size_t)F_TILE + 2 * STAGE_ROWS * LD),
+                          SMEM1 = sizeof(float) * ((size_t)F_TILE + STAGE_ROWS * LD);
   static constexpr int CTAS = smem_fits(SMEM1, 2) ? 2 : 1;
   static constexpr int STAGES = smem_fits(SMEM2, CTAS) ? 2 : 1;
   static constexpr size_t SMEM = STAGES == 2 ? SMEM2 : SMEM1;
-  // tile rows after the stages: H1 (then GH1), H2 (then GH2), Z (then G3)
-  static constexpr int T_H1 = STAGES * STAGE_ROWS, T_H2 = T_H1 + HP, T_G = T_H2 + HP;
-  static_assert(smem_fits(SMEM, 1), "the weights and one stage must fit in shared memory");
-  // the gradient's (16 x 8) output tiles and how many each warp keeps
+  static_assert(smem_fits(SMEM, 1), "the weights, the tiles and one stage must fit an SM");
+  // the closing reduce ([2][HP][WARPS], [KO][TS], [3][THREADS] floats) reuses the tiles from H1
+  static_assert((2 * HP * WARPS + KO_MAX * TS + 3 * THREADS) * 4 <= (S_END - S_H1) * 2,
+                "the closing reduce fits the tiles");
+  // the gradient's (16 x 8) output tiles and how many each warp keeps: at
+  // hidden 64 (ROWS) warp w takes row block w of dW1 and dW2 whole and the
+  // n8 blocks 2w, 2w + 1 of dW3, else the tiles are dealt in turn
   static constexpr int MT = HP / 16;                   // unit row blocks
-  static constexpr int NT1 = MT * (IN8 / 8), NT2 = MT * (H / 8), NT3 = H / 8;
+  static constexpr bool ROWS = MT == WARPS;
+  static constexpr int NC1 = IN8 / 8, NT1 = MT * NC1, NT2 = MT * (H / 8), NT3 = H / 8;
   static constexpr int J1 = (NT1 + WARPS - 1) / WARPS, J2 = (NT2 + WARPS - 1) / WARPS,
                        J3 = (NT3 + WARPS - 1) / WARPS;
+  // dW1 of more than 24 inputs (the critics' joints, simple_world_comm's
+  // actor) is added into the partial tile by tile, not kept in registers
+  static constexpr bool W1_REGS = J1 <= 3;
 };
 
 struct UpdateConsts {
@@ -225,11 +242,6 @@ __device__ __forceinline__ const float* input_row(const Batch& b, int r, size_t 
   return (r == 0 ? b.ret : b.vold) + ta * N;
 }
 
-template <class D>
-__device__ __forceinline__ int stage_row(int r) {
-  return r < D::IN ? r : D::INP + (r - D::IN);
-}
-
 // tile ti's inputs into stage st: 16-byte pieces where the tile's samples are
 // one run of lanes in one batch row, else element by element, zeros past the
 // end
@@ -240,16 +252,16 @@ __device__ __forceinline__ void stage_tile(const Batch& b, float* __restrict__ s
   const size_t ta0 = m0 / N, lane0 = m0 - ta0 * N;
   if (m0 + TS <= n_samples && lane0 + TS <= N && N % 4 == 0) {
     constexpr int PIECES = TS / 4;
-    for (int i = tid; i < D::IN_ROWS * PIECES; i += THREADS) {
+    for (int i = tid; i < D::STAGE_ROWS * PIECES; i += THREADS) {
       const int r = i / PIECES, q = i - r * PIECES;
-      stage16(st + stage_row<D>(r) * LD + 4 * q,
+      stage16(st + r * LD + 4 * q,
               input_row<D>(b, r, ta0, N, n_agents) + lane0 + 4 * q);
     }
   } else {
-    for (int i = tid; i < D::IN_ROWS * TS; i += THREADS) {
+    for (int i = tid; i < D::STAGE_ROWS * TS; i += THREADS) {
       const int r = i / TS, s = i - r * TS;
       const size_t m = m0 + s;
-      float* dst = st + stage_row<D>(r) * LD + s;
+      float* dst = st + r * LD + s;
       if (m < n_samples) {
         const size_t ta = m / N;
         stage4(dst, input_row<D>(b, r, ta, N, n_agents) + (m - ta * N));
@@ -260,64 +272,68 @@ __device__ __forceinline__ void stage_tile(const Batch& b, float* __restrict__ s
   }
 }
 
-}  // namespace
-
-#include "bf16_mma.cuh"
-
-namespace {
-
 // ---- the head: one thread per sample (mpe_update.cu's arithmetic) ----------
 
-template <int K0, int K, int KO>
-__device__ __forceinline__ void softmax_head(const float (&z)[KO], const float* __restrict__ oh,
-                                             int s, float (&p)[K], float (&ls)[K], float (&o)[K],
-                                             float& ent, float& lp) {
-  float zm = z[K0];
+// the softmax of logits zr[K0, K0 + K) against the one-hots oh (rows LD
+// apart, sample s): p, the entropy -sum p log p and the log-probability of
+// the one-hot action (mpe_update.cu's arithmetic and order); the log-softmax
+// is recomputed where it is needed, z - zm - lse
+template <int K0, int K>
+__device__ __forceinline__ void softmax_head(const float* __restrict__ zr,
+                                             const float* __restrict__ oh, int s, float (&p)[K],
+                                             float& zm, float& lse, float& ent, float& lp) {
+  zm = zr[K0];
 #pragma unroll
-  for (int c = 1; c < K; ++c) zm = fmaxf(zm, z[K0 + c]);
-  float e[K], sum = 0.0f;
+  for (int c = 1; c < K; ++c) zm = fmaxf(zm, zr[K0 + c]);
+  float sum = 0.0f;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    e[c] = expf(z[K0 + c] - zm);
-    sum = sum + e[c];
+    p[c] = expf(zr[K0 + c] - zm);
+    sum = sum + p[c];
   }
-  const float lse = logf(sum);
+  lse = logf(sum);
   ent = 0.0f;
   lp = 0.0f;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    ls[c] = (z[K0 + c] - zm) - lse;
-    p[c] = e[c] / sum;
-    o[c] = oh[c * LD + s];
-    ent = ent + p[c] * ls[c];
-    lp = lp + ls[c] * o[c];
+    const float ls = (zr[K0 + c] - zm) - lse;
+    p[c] = p[c] / sum;
+    ent = ent + p[c] * ls;
+    lp = lp + ls * oh[c * LD + s];
   }
   ent = -ent;
 }
 
-// sample s of the tile (batch row ta): the outputs z in rows T_G of the tile
-// -> the output gradient G3 there; adds the sample's (pg, vloss, entropy)
+// sample s of the stage st (batch row ta): its outputs z in the logit row zr
+// -> its output gradient G3 there; adds the sample's (pg, vloss, entropy)
 // terms to ms and its G3 to ab3. A sample past the end gets G3 = 0
 template <class D>
-__device__ __forceinline__ void head(const float* __restrict__ st, float* __restrict__ gt, int s,
+__device__ __forceinline__ void head(const float* __restrict__ st, float* __restrict__ zr, int s,
                                      bool valid, size_t ta, const UpdateConsts& k,
                                      float (&ms)[3], float (&ab3)[D::KO]) {
   constexpr int KO = D::KO, KP = D::KP, KC = D::KC;
-  float z[KO], g3[KO];
-#pragma unroll
-  for (int c = 0; c < KO; ++c) z[c] = gt[c * LD + s];
+  [[maybe_unused]] float gv = 0.0f;
+  if constexpr (D::HAS_V) {                           // the value gradient, before zr changes
+    const float v = zr[KO - 1], vo = st[D::A_VOLD * LD + s], r = st[D::A_RET * LD + s];
+    const float vc = vo + fminf(fmaxf(v - vo, -k.vclip), k.vclip);
+    const float d1 = (v - r) * (v - r), d2 = (vc - r) * (vc - r);
+    // live where the max's first branch wins or the clip does not bind
+    // (ops/fused_update.py::_value_clip_grad)
+    gv = (d1 >= d2 || fabsf(v - vo) <= k.vclip) ? k.vf_scale * (v - r) : 0.0f;
+    if (valid) ms[1] = ms[1] + fmaxf(d1, d2);
+  }
   if constexpr (KP > 0) {
-    float p[KP], ls[KP], oh[KP], ent_m, lp;
-    softmax_head<0, KP, KO>(z, st + D::A_MV * LD, s, p, ls, oh, ent_m, lp);
+    float p[KP], zm, lse, ent_m, lp;
+    softmax_head<0, KP>(zr, st + D::A_MV * LD, s, p, zm, lse, ent_m, lp);
     float ent = ent_m;
     [[maybe_unused]] float speak = 0.0f;
-    [[maybe_unused]] float pc[KC > 0 ? KC : 1], lsc[KC > 0 ? KC : 1], ohc[KC > 0 ? KC : 1];
-    [[maybe_unused]] float ent_c = 0.0f;
+    [[maybe_unused]] float pc[KC > 0 ? KC : 1];
+    [[maybe_unused]] float zmc = 0.0f, lsec = 0.0f, ent_c = 0.0f;
     if constexpr (KC > 0) {
       const int agent = (int)(ta % (size_t)k.n_agents);
       speak = ((k.speak_mask >> agent) & 1) ? 1.0f : 0.0f;
       float lp_c;
-      softmax_head<KP, KC, KO>(z, st + D::A_CM * LD, s, pc, lsc, ohc, ent_c, lp_c);
+      softmax_head<KP, KC>(zr, st + D::A_CM * LD, s, pc, zmc, lsec, ent_c, lp_c);
       lp = lp + lp_c * speak;
       ent = ent_m + ent_c * speak;
     }
@@ -326,12 +342,22 @@ __device__ __forceinline__ void head(const float* __restrict__ st, float* __rest
     const float rc = fminf(fmaxf(ratio, k.ratio_lo), k.ratio_hi);
     const float s1 = ratio * a, s2 = rc * a;
     const float cpg = (s1 <= s2) ? -(a * ratio) * k.inv_b : 0.0f;
-#pragma unroll
-    for (int c = 0; c < KP; ++c) g3[c] = cpg * (oh[c] - p[c]) + (k.ent_scale * p[c]) * (ls[c] + ent_m);
     if constexpr (KC > 0) {
 #pragma unroll
-      for (int c = 0; c < KC; ++c)
-        g3[KP + c] = (cpg * (ohc[c] - pc[c]) + (k.ent_scale * pc[c]) * (lsc[c] + ent_c)) * speak;
+      for (int c = 0; c < KC; ++c) {
+        const float ls = (zr[KP + c] - zmc) - lsec, oh = st[(D::A_CM + c) * LD + s];
+        const float g = valid ? (cpg * (oh - pc[c]) + (k.ent_scale * pc[c]) * (ls + ent_c)) * speak
+                              : 0.0f;
+        zr[KP + c] = g;
+        ab3[KP + c] = ab3[KP + c] + g;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KP; ++c) {
+      const float ls = (zr[c] - zm) - lse, oh = st[(D::A_MV + c) * LD + s];
+      const float g = valid ? cpg * (oh - p[c]) + (k.ent_scale * p[c]) * (ls + ent_m) : 0.0f;
+      zr[c] = g;
+      ab3[c] = ab3[c] + g;
     }
     if (valid) {
       ms[0] = ms[0] - fminf(s1, s2);
@@ -339,23 +365,138 @@ __device__ __forceinline__ void head(const float* __restrict__ st, float* __rest
     }
   }
   if constexpr (D::HAS_V) {
-    const float v = z[KO - 1], vo = st[D::A_VOLD * LD + s], r = st[D::A_RET * LD + s];
-    const float vc = vo + fminf(fmaxf(v - vo, -k.vclip), k.vclip);
-    const float d1 = (v - r) * (v - r), d2 = (vc - r) * (vc - r);
-    // live where the max's first branch wins or the clip does not bind
-    // (ops/fused_update.py::_value_clip_grad)
-    g3[KO - 1] = (d1 >= d2 || fabsf(v - vo) <= k.vclip) ? k.vf_scale * (v - r) : 0.0f;
-    if (valid) ms[1] = ms[1] + fmaxf(d1, d2);
+    const float g = valid ? gv : 0.0f;
+    zr[KO - 1] = g;
+    ab3[KO - 1] = ab3[KO - 1] + g;
   }
+}
+
+// the bias sums of one tile: v[NB][2] (a lane's two columns of each n8 block,
+// its two rows summed) summed over the warp's 16 rows by a reduce-scatter
+// over the row lanes (xor 16, 8, 4), in the same order every run, and added
+// to acc[2], the columns of the n8 block the lane owns (own_block): g >> (3 -
+// log2 NB), where the lane's low row bits are 0
+template <int NB>
+__device__ __forceinline__ void tile_bias_sums(float (&v)[NB][2], float (&acc)[2], int lane) {
+  static_assert(NB == 2 || NB == 4 || NB == 8, "hidden units in 2, 4 or 8 n8 blocks");
+  const int g = lane >> 2;
 #pragma unroll
-  for (int c = 0; c < KO; ++c) {
-    const float g = valid ? g3[c] : 0.0f;
-    gt[c * LD + s] = g;
-    ab3[c] = ab3[c] + g;
+  for (int level = 0; level < 3; ++level) {
+    const int mask = 16 >> level, half = (NB >> level) / 2;
+    const bool hi = (g >> (2 - level)) & 1;
+    if (half >= 1) {                                     // keep one half, pass the other on
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) {
+        if (i < half) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float keep = hi ? v[i + half][q] : v[i][q];
+            const float send = hi ? v[i][q] : v[i + half][q];
+            v[i][q] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+          }
+        }
+      }
+    } else {                                             // one block left: plain butterfly
+#pragma unroll
+      for (int q = 0; q < 2; ++q) v[0][q] = v[0][q] + __shfl_xor_sync(0xffffffffu, v[0][q], mask);
+    }
+  }
+  constexpr int SHIFT = NB == 8 ? 0 : NB == 4 ? 1 : 2;
+  if ((g & ((1 << SHIFT) - 1)) == 0) {
+    acc[0] = acc[0] + v[0][0];
+    acc[1] = acc[1] + v[0][1];
   }
 }
 
 // ---- the kernel --------------------------------------------------------------
+
+// the dW tiles j WARPS + warp (j < J) of an (MT row blocks) x (NC column blocks)
+// gradient, summed over the tile's samples: G sample-major [TS][ldg]; X
+// sample-major [TS][ldx] or, XF, feature-major [n][ldx] (the tile's x)
+template <int NT, int NC, int J, bool XF>
+__device__ __forceinline__ void outer_tiles(const uint16_t* G, int ldg, const uint16_t* X, int ldx,
+                                            int warp, int lane, float (&acc)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int tile = j * WARPS + warp;
+    if (tile < NT) {                                    // the same in the whole warp
+      const int m0 = 16 * (tile / NC), n0 = 8 * (tile % NC);
+#pragma unroll
+      for (int s0 = 0; s0 < TS; s0 += 16) {
+        uint32_t a[4], b[2];
+        frag_a_km(G, ldg, s0, m0, lane, a);
+        if constexpr (XF) {
+          frag_b_nk(X, ldx, n0, s0, lane, b);
+        } else {
+          frag_b_kn(X, ldx, s0, n0, lane, b);
+        }
+        mma_bf16(acc[j], a, b);
+      }
+    }
+  }
+}
+
+// the tiles' accumulators acc[j] into dst [n_rows][n_cols], as outer_tiles
+// deals them (ADD: added to what dst holds)
+template <int NT, int NC, int J, bool ADD = false>
+__device__ __forceinline__ void store_tiles(float* __restrict__ dst, int n_rows, int n_cols,
+                                            int warp, int lane, const float (&acc)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int tile = j * WARPS + warp;
+    if (tile >= NT) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 16 * (tile / NC) + (lane >> 2) + 8 * (i >> 1);
+      const int n = 8 * (tile % NC) + 2 * (lane & 3) + (i & 1);
+      if (m < n_rows && n < n_cols) {
+        float* p = dst + m * n_cols + n;
+        *p = ADD ? *p + acc[j][i] : acc[j][i];
+      }
+    }
+  }
+}
+
+// acc[nb] += G[s][m0 ..]^T X[s][n0 + 8 nb ..] over the tile's samples: one
+// row block of a weight gradient, its A fragment loaded once a k16 step; X
+// sample-major or, XF, feature-major (the tile's x)
+template <int NB, bool XF>
+__device__ __forceinline__ void outer_row(const uint16_t* G, int ldg, int m0, const uint16_t* X,
+                                          int ldx, int n0, int lane, float (&acc)[NB][4]) {
+#pragma unroll
+  for (int s0 = 0; s0 < TS; s0 += 16) {
+    uint32_t a[4];
+    frag_a_km(G, ldg, s0, m0, lane, a);
+#pragma unroll
+    for (int nb = 0; nb + 1 < NB; nb += 2) {
+      uint32_t b[2][2];
+      if constexpr (XF) {
+        frag_b2_nk(X, ldx, n0 + 8 * nb, s0, lane, b);
+      } else {
+        frag_b2_kn(X, ldx, s0, n0 + 8 * nb, lane, b);
+      }
+      mma_bf16(acc[nb], a, b[0]);
+      mma_bf16(acc[nb + 1], a, b[1]);
+    }
+    if constexpr (NB % 2 == 1) {
+      uint32_t b[2];
+      if constexpr (XF) {
+        frag_b_nk(X, ldx, n0 + 8 * (NB - 1), s0, lane, b);
+      } else {
+        frag_b_kn(X, ldx, s0, n0 + 8 * (NB - 1), lane, b);
+      }
+      mma_bf16(acc[NB - 1], a, b);
+    }
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void zero(float (&acc)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+}
 
 // n_rows * n_envs samples: rows are (t, agent) pairs (K6, the K7 actor) or
 // time steps (the K7 critic, whose IN = A * OW joint rows are contiguous)
@@ -367,163 +508,235 @@ ppo_update_bf16_kernel(const float* __restrict__ weights, const float* __restric
                        const float* __restrict__ ret, const float* __restrict__ vold,
                        float* __restrict__ partials, int n_rows, int n_envs, UpdateConsts k) {
   using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
-  constexpr int KO = D::KO, MT = D::MT;
+  constexpr int KO = D::KO, NBO = D::NBO, KTX = D::INP / 16;
   constexpr Packed L = packed(IN, KO);
   extern __shared__ __align__(16) float smem[];
   uint16_t* w16 = reinterpret_cast<uint16_t*>(smem);
+  const uint16_t* W1 = w16 + D::S_W1;
+  const uint16_t* W2 = w16 + D::S_W2;
+  const uint16_t* W3 = w16 + D::S_W3;
+  uint16_t* Xf = w16 + D::S_X;
+  uint16_t* H1s = w16 + D::S_H1;
+  uint16_t* H2s = w16 + D::S_H2;
+  uint16_t* GH1s = w16 + D::S_GH1;
+  uint16_t* GH2s = w16 + D::S_GH2;
+  uint16_t* G3s = w16 + D::S_G3;
   float* b1 = smem + D::F_B1;
   float* b2 = smem + D::F_B2;
   float* b3 = smem + D::F_B3;
-  float* tile = smem + D::F_TILE;
-  float* h1t = tile + D::T_H1 * LD;
-  float* h2t = tile + D::T_H2 * LD;
-  float* gt = tile + D::T_G * LD;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = 8 * warp;                             // the warp's samples in a tile
+  float* stages = smem + D::F_TILE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int s0 = WS * warp;                            // the warp's samples in a tile
+  float* zt = smem + D::F_Z + warp * WS * ZLD;         // the warp's logit tile [WS][ZLD]
   const size_t N = (size_t)n_envs;
   const size_t n_samples = (size_t)n_rows * N;
   const size_t n_tiles = (n_samples + TS - 1) / TS;
   const Batch b{obs, mvoh, cmoh, lpo, adv, ret, vold};
+  float* part = partials + (size_t)blockIdx.x * L.ng;
 
-  if (blockIdx.x < n_tiles) stage_tile<D>(b, tile, blockIdx.x, n_samples, N, k.n_agents, tid);
+  if (blockIdx.x < n_tiles) stage_tile<D>(b, stages, blockIdx.x, n_samples, N, k.n_agents, tid);
   stage_commit();
-  // the weights rounded to bf16, zeros in every padding row and column
-  for (int i = tid; i < HP * D::L1; i += THREADS) {
-    const int m = i / D::L1, c = i - m * D::L1;
-    w16[D::S_W1 + i] = (uint16_t)bf16_bits(m < H && c < IN ? weights[L.g_w1 + m * IN + c] : 0.0f);
-  }
-  for (int i = tid; i < HP * D::LH; i += THREADS) {
-    const int m = i / D::LH, c = i - m * D::LH;
-    const bool in = m < H && c < H;
-    w16[D::S_W2 + i] = (uint16_t)bf16_bits(in ? weights[L.g_w2 + m * H + c] : 0.0f);
-    w16[D::S_W2T + i] = (uint16_t)bf16_bits(in ? weights[L.g_w2 + c * H + m] : 0.0f);
-  }
-  for (int i = tid; i < KO_MAX * D::LH; i += THREADS) {  // W3 [KO, H]
-    const int m = i / D::LH, c = i - m * D::LH;
-    w16[D::S_W3 + i] = (uint16_t)bf16_bits(m < KO && c < H ? weights[L.g_w3 + m * H + c] : 0.0f);
-  }
-  for (int i = tid; i < HP * D::L3; i += THREADS) {    // W3^T [H, KO]
-    const int m = i / D::L3, c = i - m * D::L3;
-    w16[D::S_W3T + i] = (uint16_t)bf16_bits(m < H && c < KO ? weights[L.g_w3 + c * H + m] : 0.0f);
-  }
+  // the weights rounded to bf16, a pair a thread at a time, zeros in every
+  // padding row and column
+  auto round_rows = [&](int s_off, int rows, int ld, int n_rows_in, int n_cols_in, int g_off) {
+    for (int i = tid; i < rows * ld / 2; i += THREADS) {
+      const int m = 2 * i / ld, c = 2 * i - m * ld;
+      const bool in = m < n_rows_in;
+      const float lo = in && c < n_cols_in ? weights[g_off + m * n_cols_in + c] : 0.0f;
+      const float hi = in && c + 1 < n_cols_in ? weights[g_off + m * n_cols_in + c + 1] : 0.0f;
+      *reinterpret_cast<uint32_t*>(w16 + s_off + 2 * i) = pack_bf16(lo, hi);
+    }
+  };
+  round_rows(D::S_W1, HP, D::L1, H, IN, L.g_w1);
+  round_rows(D::S_W2, HP, D::LH, H, H, L.g_w2);
+  round_rows(D::S_W3, KO_MAX, D::LH, KO, H, L.g_w3);
+  for (int i = tid; i < (D::INP - IN) * D::LX; i += THREADS) Xf[IN * D::LX + i] = 0;
+  for (int i = tid; i < WARPS * WS * ZLD; i += THREADS) smem[D::F_Z + i] = 0.0f;
   if (tid < HP) {
     b1[tid] = tid < H ? weights[L.g_b1 + tid] : 0.0f;
     b2[tid] = tid < H ? weights[L.g_b2 + tid] : 0.0f;
   }
   if (tid < KO_MAX) b3[tid] = tid < KO ? weights[L.g_b3 + tid] : 0.0f;
-  for (int st = 0; st < D::STAGES; ++st)               // the x rows' padding stays zero
-    for (int i = tid; i < (D::INP - IN) * LD; i += THREADS)
-      tile[(st * D::STAGE_ROWS + IN) * LD + i] = 0.0f;
-
-  float a1[D::J1][4], a2[D::J2][4], a3[D::J3][4];
-  float ab1[MT][2], ab2[MT][2], ab3[KO], ms[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < D::J1; ++j) a1[j][i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < D::J2; ++j) a2[j][i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < D::J3; ++j) a3[j][i] = 0.0f;
+  if constexpr (!D::W1_REGS) {                          // dW1 is added into the partial
+    for (int i = tid; i < H * IN; i += THREADS) part[L.g_w1 + i] = 0.0f;
   }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) ab1[mt][0] = ab1[mt][1] = ab2[mt][0] = ab2[mt][1] = 0.0f;
+
+  float a1[D::W1_REGS ? D::J1 : 1][4], a2[D::J2][4], a3[D::J3][4];
+  // db1, db2 of the lane's own n8 block's two columns (tile_bias_sums); db3
+  // and the metrics of the head's lanes
+  float ab1[2] = {0.0f, 0.0f}, ab2[2] = {0.0f, 0.0f}, ab3[KO], ms[3] = {0.0f, 0.0f, 0.0f};
+  zero(a1);
+  zero(a2);
+  zero(a3);
 #pragma unroll
   for (int c = 0; c < KO; ++c) ab3[c] = 0.0f;
 
-  const uint16_t* W1 = w16 + D::S_W1;
-  const uint16_t* W2 = w16 + D::S_W2;
-  const uint16_t* W2T = w16 + D::S_W2T;
-  const uint16_t* W3 = w16 + D::S_W3;
-  const uint16_t* W3T = w16 + D::S_W3T;
-
   int it = 0;
   for (size_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x, ++it) {
-    float* st = tile + (D::STAGES == 2 ? (it & 1) : 0) * D::STAGE_ROWS * LD;
-    if constexpr (D::STAGES == 2) {                    // the next tile's inputs in flight
-      if (ti + gridDim.x < n_tiles)
-        stage_tile<D>(b, tile + ((it + 1) & 1) * D::STAGE_ROWS * LD, ti + gridDim.x, n_samples,
+    float* st = stages + (D::STAGES == 2 ? (it & 1) : 0) * D::STAGE_ROWS * LD;
+    stage_wait<0>();
+    __syncthreads();                                   // the tile's inputs in, the last pass done
+    if (ti + gridDim.x < n_tiles) {                    // the next tile's inputs in flight
+      if constexpr (D::STAGES == 2)
+        stage_tile<D>(b, stages + ((it + 1) & 1) * D::STAGE_ROWS * LD, ti + gridDim.x, n_samples,
                       N, k.n_agents, tid);
-      stage_commit();
-      stage_wait<1>();
-    } else {
-      stage_wait<0>();
     }
-    __syncthreads();
-    // forward, the warp's 8 samples: H1 = tanh(W1 X + b1), H2, Z = W3 H2 + b3
-    warp_product<MT, D::INP / 16, D::L1>(W1, st, n0, lane, [&](int m, int n, float v, int, int) {
-      h1t[m * LD + n] = tanhf(v + b1[m]);
-    });
-    __syncwarp();
-    warp_product<MT, HP / 16, D::LH>(W2, h1t, n0, lane, [&](int m, int n, float v, int, int) {
-      h2t[m * LD + n] = tanhf(v + b2[m]);
-    });
-    __syncwarp();
-    warp_product<1, HP / 16, D::LH>(W3, h2t, n0, lane, [&](int m, int n, float v, int, int) {
-      gt[m * LD + n] = v + b3[m];
-    });
-    __syncwarp();
-    if (lane < 8) {
-      const int s = n0 + lane;
-      const size_t m = ti * TS + s;
-      head<D>(st, gt, s, m < n_samples, m / N, k, ms, ab3);
+    if constexpr (D::STAGES == 2) stage_commit();
+    // the warp's x columns rounded to bf16, a pair of samples a lane at a time
+    for (int e = lane; e < IN * (WS / 2); e += 32) {
+      const int r = e / (WS / 2), c = s0 + 2 * (e - r * (WS / 2));
+      *reinterpret_cast<uint32_t*>(Xf + r * D::LX + c) =
+          pack_bf16(st[r * LD + c], st[r * LD + c + 1]);
     }
-    __syncthreads();
-    // dW3 += G3 H2^T
-    warp_outer<D::NT3, 1>(gt, h2t, warp, lane, a3);
-    __syncthreads();
-    // GH2 = (W3^T G3) (1 - H2^2) over H2, db2 beside it
-    warp_product<MT, 1, D::L3>(W3T, gt, n0, lane, [&](int m, int n, float v, int mt, int half) {
-      const float h = h2t[m * LD + n];
-      const float g = v * (1.0f - h * h);
-      h2t[m * LD + n] = g;
-      ab2[mt][half] = ab2[mt][half] + g;
-    });
-    __syncthreads();
-    // dW2 += GH2 H1^T
-    warp_outer<D::NT2, MT>(h2t, h1t, warp, lane, a2);
-    __syncthreads();
-    // GH1 = (W2^T GH2) (1 - H1^2) over H1, db1 beside it
-    warp_product<MT, HP / 16, D::LH>(W2T, h2t, n0, lane,
-                                     [&](int m, int n, float v, int mt, int half) {
-      const float h = h1t[m * LD + n];
-      const float g = v * (1.0f - h * h);
-      h1t[m * LD + n] = g;
-      ab1[mt][half] = ab1[mt][half] + g;
-    });
-    __syncthreads();
-    // dW1 += GH1 X^T; the padding rows of X add zeros
-    warp_outer<D::NT1, MT>(h1t, st, warp, lane, a1);
-    __syncthreads();                                    // this stage's reads are done
-    if constexpr (D::STAGES == 1) {
+    __syncwarp();
+    // forward: h1 = tanh(x W1^T + b1), h2 = tanh(h1 W2^T + b2), z = h2 W3^T + b3
+    float h1[NBH][4], h2[NBH][4];
+    uint32_t ah[KTH][4];
+    warp_dense_f<NBH, KTX, false>(
+        [&](int kt, uint32_t (&a)[4]) { frag_a_km(Xf, D::LX, 16 * kt, s0, lane, a); }, W1, D::L1,
+        lane, h1);
+#pragma unroll
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h1[nb][i] = tanhf(h1[nb][i] + b1[8 * nb + 2 * t + (i & 1)]);
+    pack_a(h1, ah);
+    store_a(ah, H1s, D::LH, s0, lane);
+    warp_dense<NBH, KTH, false>(ah, W2, D::LH, lane, h2);
+#pragma unroll
+    for (int nb = 0; nb < NBH; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h2[nb][i] = tanhf(h2[nb][i] + b2[8 * nb + 2 * t + (i & 1)]);
+    pack_a(h2, ah);
+    store_a(ah, H2s, D::LH, s0, lane);
+    {
+      float z[NBO][4];
+      warp_dense<NBO, KTH, false>(ah, W3, D::LH, lane, z);
+#pragma unroll
+      for (int nb = 0; nb < NBO; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * nb + 2 * t + (i & 1);
+          zt[(g + 8 * (i >> 1)) * ZLD + c] = z[nb][i] + b3[c];
+        }
+    }
+    __syncwarp();
+    if (lane < WS) {                                   // the head, a sample a lane
+      const size_t m = ti * TS + s0 + lane;
+      head<D>(st, zt + lane * ZLD, s0 + lane, m < n_samples, m / N, k, ms, ab3);
+    }
+    __syncwarp();
+    // backward: gh2 = (g3 W3) (1 - h2^2), gh1 = (gh2 W2) (1 - h1^2); g3 rounded
+    // from the logit tile (zeros past KO)
+    uint32_t a3g[1][4];
+    {
+      const float* r0 = zt + g * ZLD + 2 * t;
+      const float* r1 = r0 + 8 * ZLD;
+      a3g[0][0] = pack_bf16(r0[0], r0[1]);
+      a3g[0][1] = pack_bf16(r1[0], r1[1]);
+      a3g[0][2] = pack_bf16(r0[8], r0[9]);
+      a3g[0][3] = pack_bf16(r1[8], r1[9]);
+    }
+    store_a(a3g, G3s, D::L3, s0, lane);
+    {
+      float gh[NBH][4], cols[NBH][2];
+      warp_dense<NBH, 1, true>(a3g, W3, D::LH, lane, gh);
+#pragma unroll
+      for (int nb = 0; nb < NBH; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gh[nb][i] = gh[nb][i] * (1.0f - h2[nb][i] * h2[nb][i]);
+        cols[nb][0] = gh[nb][0] + gh[nb][2];
+        cols[nb][1] = gh[nb][1] + gh[nb][3];
+      }
+      tile_bias_sums(cols, ab2, lane);
+      pack_a(gh, ah);
+      store_a(ah, GH2s, D::LH, s0, lane);
+      warp_dense<NBH, KTH, true>(ah, W2, D::LH, lane, gh);
+#pragma unroll
+      for (int nb = 0; nb < NBH; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gh[nb][i] = gh[nb][i] * (1.0f - h1[nb][i] * h1[nb][i]);
+        cols[nb][0] = gh[nb][0] + gh[nb][2];
+        cols[nb][1] = gh[nb][1] + gh[nb][3];
+      }
+      tile_bias_sums(cols, ab1, lane);
+      pack_a(gh, ah);
+      store_a(ah, GH1s, D::LH, s0, lane);
+    }
+    __syncthreads();                                   // the tile's operands are in
+    if constexpr (D::STAGES == 1) {                    // the stage is free: the next tile's inputs
       if (ti + gridDim.x < n_tiles)
-        stage_tile<D>(b, tile, ti + gridDim.x, n_samples, N, k.n_agents, tid);
+        stage_tile<D>(b, stages, ti + gridDim.x, n_samples, N, k.n_agents, tid);
       stage_commit();
+    }
+    // the weight gradients over the tile's samples: dW3 += G3^T H2, dW2 +=
+    // GH2^T H1, dW1 += GH1^T X (the padding rows of X add zeros)
+    if constexpr (D::ROWS) {
+      outer_row<2, false>(G3s, D::L3, 0, H2s, D::LH, 16 * warp, lane, a3);
+      outer_row<H / 8, false>(GH2s, D::LH, 16 * warp, H1s, D::LH, 0, lane, a2);
+      if constexpr (D::W1_REGS) {
+        outer_row<D::NC1, true>(GH1s, D::LH, 16 * warp, Xf, D::LX, 0, lane, a1);
+      } else {                                         // a tile at a time, added into the partial
+#pragma unroll 1
+        for (int nb = 0; nb < D::NC1; ++nb) {
+          float a1t[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+          outer_row<1, true>(GH1s, D::LH, 16 * warp, Xf, D::LX, 8 * nb, lane, a1t);
+          store_tile<false, true>(part + L.g_w1, H, IN, 16 * warp, 8 * nb, lane, a1t[0]);
+        }
+      }
+    } else {
+      outer_tiles<D::NT3, D::NT3, D::J3, false>(G3s, D::L3, H2s, D::LH, warp, lane, a3);
+      outer_tiles<D::NT2, H / 8, D::J2, false>(GH2s, D::LH, H1s, D::LH, warp, lane, a2);
+      if constexpr (D::W1_REGS) {
+        outer_tiles<D::NT1, D::NC1, D::J1, true>(GH1s, D::LH, Xf, D::LX, warp, lane, a1);
+      } else {                                         // a tile at a time, added into the partial
+#pragma unroll 1
+        for (int j = 0; j < D::J1; ++j) {
+          float a1t[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+          outer_tiles<D::NT1, D::NC1, 1, true>(GH1s, D::LH, Xf, D::LX, j * WARPS + warp, lane,
+                                               a1t);
+          store_tiles<D::NT1, D::NC1, 1, true>(part + L.g_w1, H, IN, j * WARPS + warp, lane, a1t);
+        }
+      }
     }
   }
   stage_wait<0>();
 
-  float* part = partials + (size_t)blockIdx.x * L.ng;
-  store_outer<D::NT1, MT>(part + L.g_w1, H, IN, warp, lane, a1);
-  store_outer<D::NT2, MT>(part + L.g_w2, H, H, warp, lane, a2);
-  store_outer<D::NT3, 1>(part + L.g_w3, KO, H, warp, lane, a3);
+  if constexpr (D::ROWS) {
+#pragma unroll
+    for (int nb = 0; nb < D::J1; ++nb)
+      if constexpr (D::W1_REGS) store_tile(part + L.g_w1, H, IN, 16 * warp, 8 * nb, lane, a1[nb]);
+#pragma unroll
+    for (int nb = 0; nb < H / 8; ++nb)
+      store_tile(part + L.g_w2, H, H, 16 * warp, 8 * nb, lane, a2[nb]);
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+      store_tile(part + L.g_w3, KO, H, 0, 16 * warp + 8 * nb, lane, a3[nb]);
+  } else {
+    if constexpr (D::W1_REGS)
+      store_tiles<D::NT1, D::NC1, D::J1>(part + L.g_w1, H, IN, warp, lane, a1);
+    store_tiles<D::NT2, H / 8, D::J2>(part + L.g_w2, H, H, warp, lane, a2);
+    store_tiles<D::NT3, D::NT3, D::J3>(part + L.g_w3, KO, H, warp, lane, a3);
+  }
   // the bias and metric sums over the CTA's threads, in a fixed order: db1 and
-  // db2 of unit m from the 4 lanes of its row in each warp (warp-major), db3
-  // over the head's 64 threads, the metrics over all 256
+  // db2 of unit u from its owning lane in each warp, the warps in order, db3
+  // over the head's 64 lanes, the metrics over all 128 threads
   __syncthreads();
-  float* red = tile;                                   // [2][HP][32], [KO][TS], [3][THREADS]
+  float* red = reinterpret_cast<float*>(H1s);          // [2][HP][WARPS], [KO][TS], [3][THREADS]
+  {
+    constexpr int SHIFT = NBH == 8 ? 0 : NBH == 4 ? 1 : 2;   // tile_bias_sums' owners
+    if ((g & ((1 << SHIFT) - 1)) == 0) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = 16 * mt + (lane >> 2) + 8 * half, q = 4 * warp + (lane & 3);
-      red[m * 32 + q] = ab1[mt][half];
-      red[(HP + m) * 32 + q] = ab2[mt][half];
+      for (int p = 0; p < 2; ++p) {
+        const int u = 8 * (g >> SHIFT) + 2 * t + p;
+        red[u * WARPS + warp] = ab1[p];
+        red[(HP + u) * WARPS + warp] = ab2[p];
+      }
     }
-  float* red3 = red + 2 * HP * 32;
-  if (lane < 8) {
+  }
+  float* red3 = red + 2 * HP * WARPS;
+  if (lane < WS) {
 #pragma unroll
-    for (int c = 0; c < KO; ++c) red3[c * TS + n0 + lane] = ab3[c];
+    for (int c = 0; c < KO; ++c) red3[c * TS + s0 + lane] = ab3[c];
   }
   float* redm = red3 + KO * TS;
 #pragma unroll
@@ -531,9 +744,9 @@ ppo_update_bf16_kernel(const float* __restrict__ weights, const float* __restric
   __syncthreads();
   if (tid < H) {
     float s1 = 0.0f, s2 = 0.0f;
-    for (int q = 0; q < 32; ++q) {
-      s1 = s1 + red[tid * 32 + q];
-      s2 = s2 + red[(HP + tid) * 32 + q];
+    for (int q = 0; q < WARPS; ++q) {
+      s1 = s1 + red[tid * WARPS + q];
+      s2 = s2 + red[(HP + tid) * WARPS + q];
     }
     part[L.g_b1 + tid] = s1;
     part[L.g_b2 + tid] = s2;

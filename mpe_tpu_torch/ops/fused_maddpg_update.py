@@ -394,6 +394,16 @@ def _update_layout(scenario: int, hidden: int = DEFAULT_HIDDEN, source: str = "m
     return tuple(lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
 
 
+def partials_floats(lib, scenario: int, n_agents: int, batch: int) -> int:
+    """The floats of K9's (or K9-bf16's) ``partials`` buffer at ``batch``:
+    the per-tile partial gradients and, for K9-bf16, its bf16 scratch of the
+    rounded nets after them (16-byte aligned; layout constant 5)."""
+    ng, ts = (lib.mpe_maddpg_update_layout(scenario, q) for q in (3, 4))
+    scratch = lib.mpe_maddpg_update_layout(scenario, 5)
+    n = n_agents * (-(-batch // ts)) * ng
+    return n if scratch < 0 else -(-n // 4) * 4 + scratch
+
+
 class MaddpgUpdateLauncher:
     """Kernel K9 (or, with ``compute_dtype=torch.bfloat16``, K9-bf16) on one
     device for one scenario's widths and one batch size, its arguments
@@ -431,7 +441,7 @@ class MaddpgUpdateLauncher:
         self.name = kscn.spec.name
         self.hidden = hidden
         lay = self.layout
-        nwp, ncp, n_weights, ng, ts = _update_layout(self.scenario, hidden, self.source)
+        nwp, ncp, n_weights, ng, _ = _update_layout(self.scenario, hidden, self.source)
         if (nwp, ncp, n_weights, ng) != (lay.nwp, lay.ncp, lay.n_weights, lay.nw + lay.nc + 3):
             raise RuntimeError(f"csrc/{self.source} and ops/fused_maddpg_update.py disagree on "
                                "K9's layout")
@@ -441,7 +451,9 @@ class MaddpgUpdateLauncher:
         f32 = dict(dtype=torch.float32, device=device)
         self.act2 = torch.empty((n_agents, self.nh, batch), dtype=torch.int32, device=device)
         self.y = torch.empty((n_agents, batch), **f32)
-        self.partials = torch.empty(n_agents * (-(-batch // ts)) * ng, **f32)
+        self.partials = torch.empty(
+            partials_floats(_build.library(self.source, hidden), self.scenario, n_agents, batch),
+            **f32)
         self.consts = (float(gamma), float(ent_coef), 1.0 / float(n_agents * batch))
         self.fn = _build.library(self.source, hidden).mpe_maddpg_update
 

@@ -8,8 +8,8 @@ A stand-in ``cuda_runtime.h`` defines the few CUDA names the sources use
 and each ``kernel<<<blocks, threads, smem, stream>>>(...)`` launch runs its
 blocks one after another, each block's threads as host threads that meet at
 ``__syncthreads()`` (a barrier of the whole block) and ``__syncwarp()`` (a
-barrier of the thread's warp, 32 consecutive threads); ``__shfl_sync``
-exchanges values through the warp's barrier; a kernel's dynamic shared
+barrier of the thread's warp, 32 consecutive threads); ``__shfl_sync`` and
+``__shfl_xor_sync`` exchange values through the warp's barrier; a kernel's dynamic shared
 memory becomes one static buffer. For the bf16 kernels it has
 ``__nv_bfloat16`` with the device's round-to-nearest-even conversion and
 ``host_mma_m16n8k16_bf16``, the m16n8k16 bf16 ``mma.sync`` over the warp's
@@ -21,6 +21,7 @@ import ctypes
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import pytest
 
@@ -98,6 +99,10 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) 
   std::memcpy(&out, &host_lanes[(threadIdx.x & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
   __syncwarp();
   return out;
+}
+template <class T> inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask, int width = 32) {
+  return __shfl_sync(mask, v, (int)((threadIdx.x & (unsigned)(width - 1)) ^ (unsigned)lane_mask),
+                     width);
 }
 // bf16 as cuda_bf16.h gives it: float -> bf16 rounds to nearest even
 struct __nv_bfloat16 { unsigned short x; };
@@ -188,10 +193,12 @@ def build_host_libs(out, sources=_build.SOURCES) -> dict:
     return {source: lib for (source, _), lib in libs.items()}
 
 
-def build_host_libs_at(out, pairs) -> dict:
+def build_host_libs_at(out, pairs, signatures=None) -> dict:
     """Compile each ``(source, hidden width)`` of ``pairs`` for the host into
     ``out`` (``-DMPE_HIDDEN``), all at once -> {(source, hidden):
-    ctypes.CDLL}."""
+    ctypes.CDLL}. A source is a file of ``_build.CSRC`` by name, or a path
+    (a test's own source beside the headers) whose C entries' argtypes
+    ``signatures`` gives by file name."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler (g++ or c++) to build the CUDA sources for the host")
@@ -200,12 +207,12 @@ def build_host_libs_at(out, pairs) -> dict:
         shutil.copy(_build.CSRC / header, out / header)
     procs = {}
     for source, hidden in pairs:
-        cpp = out / f"{source}.cpp"
+        cpp = out / f"{Path(source).name}.cpp"
         if not cpp.exists():
             text = (_build.CSRC / source).read_text()
             text = text.replace(DYNAMIC_SMEM, f"alignas(16) static float smem[{MAX_SMEM_FLOATS}];")
             cpp.write_text(LAUNCH.sub(_launch, text))
-        lib = out / f"lib{source}_h{hidden}.so"
+        lib = out / f"lib{Path(source).name}_h{hidden}.so"
         procs[source, hidden] = (lib, subprocess.Popen(
             [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w", "-shared",
              "-fPIC", "-pthread", f"-DMPE_HIDDEN={hidden}", "-I", str(out), "-o", str(lib),
@@ -214,7 +221,8 @@ def build_host_libs_at(out, pairs) -> dict:
     for (source, hidden), (lib, proc) in procs.items():
         assert proc.wait() == 0, f"the host build of {source} at hidden {hidden} failed"
         libs[source, hidden] = ctypes.CDLL(str(lib))
-        for name, argtypes in _build.SIGNATURES[source].items():
+        sigs = (signatures or {}).get(Path(source).name) or _build.SIGNATURES[source]
+        for name, argtypes in sigs.items():
             getattr(libs[source, hidden], name).argtypes = argtypes
             getattr(libs[source, hidden], name).restype = ctypes.c_int
     return libs

@@ -13,10 +13,10 @@ one bf16 operand that two right implementations round an ulp apart (below)
 moves one term of it by 2^-8 of itself, so the batch has to hold enough
 samples for that sum: on 40 rows (the float32 host test's) one such flip
 moved a leaf by 2.35e-3 of its largest entry (simple_world_comm, hidden 64),
-so the batch is 264 rows (eight full tiles of 32 samples and a ragged one of
-8).
+so the batch is 264 rows (sixteen full tiles of 16 samples and a ragged one
+of 8).
 
-- The layout constants equal ``PackedLayout``'s, the tile 32 samples.
+- The layout constants equal ``PackedLayout``'s, the tile 16 samples.
 - Target actions: equal to the plain version's first argmax per head
   wherever the head's two best logits lie further apart than
   ``target_logit_tolerance`` (two one-ulp flips of a bf16 activation);
@@ -97,10 +97,11 @@ def test_host_built_maddpg_bf16_kernel_matches_plain_bf16(host_libs, one_thread,
     lay = fused_maddpg_update.PackedLayout(a, o, k, hidden)
     nwp, ncp, n_weights, ng, ts = (lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
     assert (nwp, ncp, n_weights, ng, ts) == (lay.nwp, lay.ncp, lay.n_weights,
-                                             lay.nw + lay.nc + 3, 32)
+                                             lay.nw + lay.nc + 3, 16)
     wbuf = lay.pack(params, targets)
     act2 = torch.empty((a, nh, b), dtype=torch.int32)
-    y, partials = torch.empty((a, b)), torch.empty(a * -(-b // ts) * ng)
+    y = torch.empty((a, b))
+    partials = torch.empty(fused_maddpg_update.partials_floats(lib, scenario, a, b))
     grads, metrics = torch.empty(lay.off_ta), torch.empty(3)
     assert lib.mpe_maddpg_update(scenario, wbuf.data_ptr(), rows.data_ptr(), act2.data_ptr(),
                                  y.data_ptr(), partials.data_ptr(), grads.data_ptr(),

@@ -3,7 +3,7 @@
 card, one checkout after another.
 
     python3 tools/torch_update_ab.py [--maddpg | --maddpg-bf16 | --rollout | --det | --policy |
-        --trajectory | --bf16] ROOT [ROOT ...]
+        --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -52,10 +52,29 @@ and d3 as with ``--maddpg`` (its chunks not timed), then on 1024 rows of its
 final ring with its final params and targets, K9 and K9-bf16 as the trainer
 calls them (``MaddpgUpdateLauncher.launch`` on the packed buffers, float32
 and ``compute_dtype=torch.bfloat16``), each the median of CALLS CUDA-event
-timed calls after WARM_UP, then one call each under torch.profiler: its
-device time whole (the four kernels, each with its one record) or "not
-measured", and the device's busy share of the call; the registers and
-spill bytes of each K9-bf16 kernel instantiation.
+timed calls after WARM_UP, then one call each under torch.profiler: the
+device time of every kernel the call launched, summed, their launches a
+call and each kernel's share by name (whatever kernels the checkout's
+K9-bf16 launches), or "not measured", and the device's busy share of the
+call; the registers and spill bytes of each K9-bf16 kernel instantiation
+(every kernel on ``MaddpgBf16Dims``).
+
+With ``--bf16-stages`` (K6-bf16, K7-bf16, where their time goes): copies
+of the checkout's ``csrc/mpe_update_bf16.cu`` with one stage cut at a time
+(the tanh of the forward, the head, the weight-gradient pass, the backward
+products; the cut copies compute a wrong gradient and are only timed), each
+built with the library's flags at hidden 64 into ``build/variants/``, and
+the bf16 trainer's ``step.update`` on paths b's and b2's batches with each:
+the device time of its ``ppo_update_bf16_kernel`` records by torch.profiler.
+
+With ``--maddpg-bf16-phases`` (K9-bf16's phases): a copy of the checkout's
+``csrc/mpe_maddpg_bf16.cu`` whose gradient and target/TD kernels stamp
+``clock64`` at each phase boundary and ``%globaltimer`` at each CTA's start
+and end, built as above, and launched on 1024 random rows of paths d, d2,
+d3's widths (init_maddpg params from seed 1, targets + 0.1 N(0, 1)): the
+median cycles of each phase over the CTAs and the largest, each warp's
+cycles in phase 2, the CTAs' start and end spread in ns, and the SM clock by
+``nvidia-smi``.
 
 With ``--rollout`` (K2): ``fused_rollout`` on the nine scenarios at 4096
 envs x 10,000 steps (horizon 100, block_envs 1024: bench.py's headline
@@ -330,15 +349,24 @@ def time_maddpg(result: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def k9_device_ms(fn, kernels: tuple) -> dict:
+def call_device_ms(fn) -> dict:
     """One call of ``fn`` under torch.profiler (``profile_call``): the device
-    ms of the four ``kernels``, whole only where each has its one record, else
-    "not measured", and the device's busy share of the call."""
+    ms of every kernel the call launched, summed, their launches (the
+    records), each kernel's ms and launches by its name, and the device's
+    busy share of the call; "not measured" without device records."""
     prof = profile_call(fn)
-    split = prof.get("device_ms_by_kernel", {})
-    found = {k: [v for key, v in split.items() if k in key] for k in kernels}
-    whole = all(len(v) == 1 and v[0][1] == 1 for v in found.values())
-    return {"device_ms": sum(v[0][0] for v in found.values()) if whole else "not measured",
+    split = prof.get("device_ms_by_kernel")
+    if not split:
+        return {"device_ms": "not measured", "launches_per_call": "not measured"}
+    by_name = {}
+    for key, (ms, count) in split.items():
+        m = re.search(r"(\w+_kernel)", key)
+        name = m.group(1) if m else key[:60]
+        old_ms, old_count = by_name.get(name, (0.0, 0))
+        by_name[name] = (old_ms + ms, old_count + count)
+    return {"device_ms": sum(v for v, _ in split.values()),
+            "launches_per_call": sum(c for _, c in split.values()),
+            "device_ms_by_kernel": {k: list(v) for k, v in by_name.items()},
             "device_busy_share": prof.get("device_busy_share", "not measured")}
 
 
@@ -348,7 +376,6 @@ def time_maddpg_bf16(result: dict, logs: dict) -> None:
     from mpe_tpu_torch.learner import build_fused_maddpg_runner
     from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher
 
-    bf16_kernels = tuple(k.replace("_kernel", "_bf16_kernel") for k in K9_KERNELS)
     for path, (name, n_chunks) in zip(("d", "d2", "d3"), MADDPG_PATHS):
         run = build_fused_maddpg_runner(name, **MADDPG)
         params, info = run(n_chunks * MADDPG["horizon"], seed=0, actor_start=ACTOR_START)
@@ -361,19 +388,18 @@ def time_maddpg_bf16(result: dict, logs: dict) -> None:
         grads = torch.empty(lay.off_ta, device="cuda")
         metrics = torch.empty(3, device="cuda")
         row = {"scenario": name}
-        for label, cd, kernels in (("K9", torch.float32, K9_KERNELS),
-                                   ("K9-bf16", torch.bfloat16, bf16_kernels)):
+        for label, cd in (("K9", torch.float32), ("K9-bf16", torch.bfloat16)):
             k9 = MaddpgUpdateLauncher(lay.a, lay.o, lay.k, 5, lay.hidden, MADDPG["batch"], "cuda",
                                       gamma=0.95, ent_coef=0.01, compute_dtype=cd)
 
             def call(k9=k9):
                 k9.launch(weights, rows, grads, metrics)
 
-            row[label] = {"ms": median_ms(call), **k9_device_ms(call, kernels)}
+            row[label] = {"ms": median_ms(call), **call_device_ms(call)}
         result[path] = row
         del run, info, buf
         torch.cuda.empty_cache()
-    result["registers_spill_bytes"] = registers(logs, "mpe_maddpg_bf16.cu", bf16_kernels)
+    result["registers_spill_bytes"] = registers(logs, "mpe_maddpg_bf16.cu", "MaddpgBf16Dims")
 
 
 def time_rollout(result: dict, logs: dict) -> None:
@@ -601,6 +627,213 @@ def time_trajectory(result: dict, logs: dict) -> None:
     result["registers_spill_bytes"] = registers(logs, "mpe_trajectory.cu", "trajectory_kernel")
 
 
+# ---- where the bf16 kernels' time goes (--bf16-stages, --maddpg-bf16-phases) ---
+
+STAGE_CUTS = {
+    "tanh": [("tanhf(", "(")],
+    "head": [("head<D>(st, zt + lane * ZLD, s0 + lane, m < n_samples, m / N, k, ms, ab3);", "")],
+    "weight_gradients": [
+        ("outer_row<2, false>(G3s, D::L3, 0, H2s, D::LH, 16 * warp, lane, a3);", ""),
+        ("outer_row<H / 8, false>(GH2s, D::LH, 16 * warp, H1s, D::LH, 0, lane, a2);", ""),
+        ("outer_row<D::NC1, true>(GH1s, D::LH, 16 * warp, Xf, D::LX, 0, lane, a1);", "")],
+    "backward": [("warp_dense<NBH, 1, true>(a3g, W3, D::LH, lane, gh);", "zero(gh);"),
+                 ("warp_dense<NBH, KTH, true>(ah, W2, D::LH, lane, gh);", "zero(gh);")],
+}
+
+
+def variant_libs(source: str, texts: dict) -> dict:
+    """{name: ctypes library} of each source text of ``texts``, built beside
+    the checkout's headers with the library's flags at hidden 64."""
+    import ctypes
+    from pathlib import Path
+
+    from mpe_tpu_torch.ops import _build
+
+    out = Path(_build.BUILD_DIR).parent / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    for h in _build.HEADERS:
+        (out / h).write_text((_build.CSRC / h).read_text())
+    procs = {}
+    for name, text in texts.items():
+        (out / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
+             str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {name} copy of {source} did not build:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        for fn, argtypes in _build.SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def cut(text: str, subs) -> str:
+    """``text`` with every occurrence of each ``old`` of ``subs`` replaced;
+    raises where one is missing."""
+    for old, new in subs:
+        if old not in text:
+            raise RuntimeError(f"the checkout's source has no {old!r} to cut")
+        text = text.replace(old, new)
+    return text
+
+
+def time_bf16_stages(result: dict) -> None:
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.ops import _build
+    import torch
+
+    src = (_build.CSRC / "mpe_update_bf16.cu").read_text()
+    texts = {"whole": src}
+    texts.update({f"no_{k}": cut(src, subs) for k, subs in STAGE_CUTS.items()})
+    libs = variant_libs("mpe_update_bf16.cu", texts)
+    library = _build.library
+    try:
+        for path, build in (("b", build_fused_ppo_step), ("b2", build_fused_mappo_step)):
+            step = build("simple_spread", compute_dtype=torch.bfloat16, **TRAIN)
+            params = step.init_params(torch.Generator().manual_seed(0))
+            obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
+            args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+            row = {}
+            for name, lib in libs.items():
+                _build.library = (lambda source, hidden=64, lib=lib: lib
+                                  if source == "mpe_update_bf16.cu" else library(source, hidden))
+                step.update(*args)
+                prof = call_device_ms(lambda: step.update(*args))
+                row[name] = prof.get("device_ms_by_kernel", {}).get(
+                    "ppo_update_bf16_kernel", ["not measured"])[0]
+            _build.library = library
+            result[path] = row
+            del step, args
+            torch.cuda.empty_cache()
+    finally:
+        _build.library = library
+
+
+PHASE_STAMPS = r"""
+__device__ unsigned long long mpe_stamps[16384];
+__device__ __forceinline__ unsigned long long stamp_clock() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned long long stamp_time() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define STAMP_CTA (blockIdx.y * gridDim.x + blockIdx.x)
+#define STAMP(k) \
+  if (threadIdx.x == 0) mpe_stamps[STAMP_CTA * 8 + (k)] = stamp_clock();
+#define STAMP_TD(k) \
+  if (threadIdx.x == 0) mpe_stamps[8192 + STAMP_CTA * 4 + (k)] = stamp_clock();
+#define STAMP_WARP() \
+  if ((threadIdx.x & 31) == 0) \
+    mpe_stamps[4096 + STAMP_CTA * 8 + (threadIdx.x >> 5)] = stamp_clock();
+"""
+TD_CRITIC = "  if (warp == 0) {                                  // agent i's target critic"
+Y_STORE = ("          y[(size_t)i * batch + b] = r + gamma * (z[0][2 * half] + bc[FB3]);\n"
+           "        }\n      }\n    }\n  }\n")
+PHASE_SUBS = [
+    ('#include "bf16_mma.cuh"\n', '#include "bf16_mma.cuh"\n' + PHASE_STAMPS),
+    ("  const float* cw = weights + D::OFF_C + i * D::NCP;\n",
+     "  const float* cw = weights + D::OFF_C + i * D::NCP;\n"
+     "  if (threadIdx.x == 0) mpe_stamps[STAMP_CTA * 8 + 7] = stamp_time();\n  STAMP(0)\n"),
+    ("  copy_wait();\n  __syncthreads();\n\n  // ---- phase 1",
+     "  copy_wait();\n  __syncthreads();\n  STAMP(1)\n\n  // ---- phase 1"),
+    ("  __syncthreads();\n\n  // ---- phase 2",
+     "  __syncthreads();\n  STAMP(2)\n\n  // ---- phase 2"),
+    ("  __syncthreads();\n\n  // ---- phase 3",
+     "  STAMP_WARP()\n  __syncthreads();\n  STAMP(3)\n\n  // ---- phase 3"),
+    ("  __syncthreads();\n\n  // ---- phase 4",
+     "  __syncthreads();\n  STAMP(4)\n\n  // ---- phase 4"),
+    ("    part[D::G_MS + tid] = total;\n  }\n}\n",
+     "    part[D::G_MS + tid] = total;\n  }\n  STAMP(5)\n"
+     "  if (threadIdx.x == 0) mpe_stamps[STAMP_CTA * 8 + 6] = stamp_time();\n}\n"),
+    ("  const int i = blockIdx.y, b0 = blockIdx.x * TS;\n  copy_async(w16 + L::S_TA",
+     "  const int i = blockIdx.y, b0 = blockIdx.x * TS;\n  STAMP_TD(0)\n"
+     "  copy_async(w16 + L::S_TA"),
+    ("  copy_wait();\n  __syncthreads();\n\n  float* zt = smem + L::F_Z + warp * TS * ZLD;",
+     "  copy_wait();\n  __syncthreads();\n  STAMP_TD(1)\n\n"
+     "  float* zt = smem + L::F_Z + warp * TS * ZLD;"),
+    ("  __syncthreads();\n" + TD_CRITIC, "  __syncthreads();\n  STAMP_TD(2)\n" + TD_CRITIC),
+    (Y_STORE + "}\n", Y_STORE + "  STAMP_TD(3)\n}\n"),
+]
+
+
+def time_maddpg_bf16_phases(result: dict) -> None:
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+    from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.ops import fused_maddpg_update as fmu
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    text = cut((_build.CSRC / "mpe_maddpg_bf16.cu").read_text(), PHASE_SUBS)
+    text += ('\nextern "C" int mpe_read_stamps(unsigned long long* out) {\n  return (int)cudaMemcpy'
+             'FromSymbol(out, mpe_stamps, sizeof(unsigned long long) * 16384);\n}\n')
+    lib = variant_libs("mpe_maddpg_bf16.cu", {"k9_bf16_stamped": text})["k9_bf16_stamped"]
+    lib.mpe_read_stamps.argtypes = [ctypes.c_void_p]
+    result["clocks_sm_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    library = _build.library
+    _build.library = (lambda source, hidden=64:
+                      lib if source == "mpe_maddpg_bf16.cu" else library(source, hidden))
+    try:
+        for path, (name, _) in zip(("d", "d2", "d3"), MADDPG_PATHS):
+            kscn = kernel_scenario(name)
+            a, ow, k = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits
+            b = MADDPG["batch"]
+            params = init_maddpg(torch.Generator().manual_seed(1), ow, k, a)
+            gen = torch.Generator().manual_seed(2)
+            targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen)
+                               for w, x in layer.items()} for q, layer in net.items()}
+                       for n, net in params.items()}
+            rows = torch.randn((b, a * (2 * ow + k + 1)), generator=gen).cuda()
+            lay = fmu.PackedLayout(a, ow, k, 64)
+            launcher = fmu.MaddpgUpdateLauncher(a, ow, k, 5, 64, b, "cuda",
+                                                compute_dtype=torch.bfloat16, gamma=0.95,
+                                                ent_coef=0.01)
+            weights = lay.pack(params, targets).cuda()
+            grads = torch.empty(lay.off_ta, device="cuda")
+            metrics = torch.empty(3, device="cuda")
+            for _ in range(WARM_UP + 1):
+                launcher.launch(weights, rows, grads, metrics)
+            torch.cuda.synchronize()
+            st = np.zeros(16384, dtype=np.uint64)
+            if lib.mpe_read_stamps(st.ctypes.data) != 0:
+                raise RuntimeError("reading the stamps failed")
+            n = a * (-(-b // 16))
+            grad = st[:n * 8].reshape(n, 8).astype(np.int64)
+            phases = np.diff(grad[:, :6], axis=1)
+            start, end = grad[:, 7], grad[:, 6]
+            warps = st[4096:4096 + n * 8].reshape(n, 8).astype(np.int64) - grad[:, 2:3]
+            td = np.diff(st[8192:8192 + n * 4].reshape(n, 4).astype(np.int64), axis=1)
+            result[path] = {
+                "scenario": name, "grad_ctas": n,
+                "grad_phase_cycles_median": dict(zip(
+                    ("staging", "phase1", "phase2", "phase3", "phase4"),
+                    np.median(phases, axis=0).tolist())),
+                "grad_phase_cycles_max": np.max(phases, axis=0).tolist(),
+                "grad_phase2_cycles_by_warp": np.median(warps, axis=0).tolist(),
+                "grad_cta_start_spread_ns": int(start.max() - start.min()),
+                "grad_cta_span_median_ns": int(np.median(end - start)),
+                "grad_kernel_span_ns": int(end.max() - start.min()),
+                "td_phase_cycles_median": dict(zip(("staging", "actors", "critic"),
+                                                   np.median(td, axis=0).tolist()))}
+    finally:
+        _build.library = library
+
+
 def child(mode: str, root: str) -> None:
     sys.path.insert(0, root)
     import mpe_tpu_torch
@@ -625,6 +858,10 @@ def child(mode: str, root: str) -> None:
         time_bf16(result, logs)
     elif mode == "maddpg-bf16":
         time_maddpg_bf16(result, logs)
+    elif mode == "bf16-stages":
+        time_bf16_stages(result)
+    elif mode == "maddpg-bf16-phases":
+        time_maddpg_bf16_phases(result)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -637,7 +874,8 @@ def main() -> int:
         return 0
     mode = {"--maddpg": "maddpg", "--maddpg-bf16": "maddpg-bf16", "--rollout": "rollout",
             "--det": "det", "--policy": "policy", "--trajectory": "trajectory",
-            "--bf16": "bf16"}.get(
+            "--bf16": "bf16", "--bf16-stages": "bf16-stages",
+            "--maddpg-bf16-phases": "maddpg-bf16-phases"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
