@@ -7,9 +7,9 @@ Builds the CUDA kernels from the checkout, then runs these phases; any
 failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
-     kernel build time (every source at hidden width 64 and the MLP sources
-     of K4-K9, K6-bf16, K7-bf16 and K9-bf16 also at 8, 16 and 32, one nvcc each, all at
-     once), the compiler's register report and the HMMA and LDSM
+     kernel build time (every source at hidden width 64, the MLP sources
+     of K4-K9, K6-bf16, K7-bf16 and K9-bf16 also at 8, 16 and 32, and those of
+     K4-K7 at 128 and 256, one nvcc each, all at once), the compiler's register report and the HMMA and LDSM
      (ldmatrix) instructions that cuobjdump -sass finds in each bf16
      library, mpe_update_bf16.cu's and mpe_maddpg_bf16.cu's at every width
      (each must hold some of both);
@@ -267,6 +267,18 @@ failure ends the run with a non-zero exit code:
      plain versions (params within 1e-5), and the MADDPG runner on
      simple_spread at hidden 8 for 2 chunks (K8, K9) and one update chunk
      against the plain chunk (within 1e-4); the phase's seconds printed;
+  3c. the wide widths, 128 and 256, which K4-K7 take (K8, K9 and the bf16
+     kernels refuse them): at each, on simple_spread and simple_world_comm
+     (K7's widest critic) at 1024 envs x 64 steps, K5 and K4 held as in 3b
+     and K6 and K7 on a trainer's batch and with both clips binding; then
+     paths b and b2 at TRAIN's shape with that width, 5 iterations each,
+     timed by phase, their launches read; K6 and K7 on the last iteration's
+     batch gated and timed beside their plain versions, autograd of the
+     trainer's loss and their bound (device time by the profiler); K5 on
+     path b's actor at the training shape and K4's evaluation of it at 4096
+     envs x 1000 steps (horizon 25, launches read), K5 against its plain
+     version there, K4 at 4096 envs x 200 steps; `evaluate_policy` and `es_train` (2 generations) with
+     `--hidden` at that width, K4 alone launched; the phase's seconds;
   4. the collect phases of paths b-b4 and d-d3 printed beside K5's and
      K8's times at the same shapes; the plain versions timed at the main
      paths' shapes (K1's of the eight others at 4096 envs x 200 steps),
@@ -289,7 +301,10 @@ failure ends the run with a non-zero exit code:
      and, K5 and K8, the collect phases of the paths that run them; K3 its
      group rule and by scenario its G, device time, bound, their ratio, the
      times at every G and its registers by G; K4-K9 their errors at the
-     hidden widths and their registers at each width; K8 path g's figures
+     hidden widths and their registers at each width, the widths their
+     source is compiled for, K4-K7 by wide width the row's own figures
+     (launches, time, plain, bound, library, registers, tile) and the wide
+     paths' transitions/s by phase; K8 path g's figures
      by phase, its launches there by scenario and the sub-sliced gate's
      error, K9 its launches in each phase of path g; every row its launches
      in path h by phase and rank and in path i by example, K6, K7 and K9 the DP step's ms and their
@@ -413,6 +428,18 @@ HIDDEN_NAMES = ("simple_spread", "simple_speaker_listener")
 HIDDEN_GATE = dict(n_envs=1024, n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
 HIDDEN_TRAINERS = (("PPO", 16), ("MAPPO", 32))
 HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
+# phase 3c: hidden 128 and 256, which K4-K7 take (mpe_policy.cu and
+# mpe_update.cu; K8, K9 and the bf16 kernels refuse them): the kernels against
+# their plain versions on WIDE_NAMES at HIDDEN_GATE's shape (simple_world_comm:
+# K7's widest critic, 204 inputs), then paths b and b2 at TRAIN's shape with
+# each width for WIDE_ITERS iterations, K5, K6 and K7 timed on their shapes
+# there, and K4's evaluation of path b's actor at path c's shape
+WIDE_PHASE = (128, 256)
+WIDE_NAMES = ("simple_spread", "simple_world_comm")
+WIDE_ITERS = 5
+# the examples that take --hidden, run in phase 3c at each wide width (es_train
+# for 2 generations of its 16 members)
+WIDE_EXAMPLES = (("evaluate_policy", []), ("es_train", ["--gens", "2"]))
 # path b5: the bf16 compute path (compute_dtype=torch.bfloat16, JAX's default
 # on a TPU and so tools/train_bench.py's recipe there): PPO and MAPPO on
 # simple_spread at TRAIN's width (K5, K6-bf16 / K7-bf16), and the bf16 kernels
@@ -624,9 +651,9 @@ def dense(n_in: int, n_out: int) -> tuple[int, dict]:
     return n_out, {"fp32": n_in}
 
 
-def torso(n_in: int) -> tuple:
-    """The two tanh layers of an n_in-64-64 MLP."""
-    return dense(n_in, 64), (64, TANH), dense(64, 64), (64, TANH)
+def torso(n_in: int, h: int = 64) -> tuple:
+    """The two tanh layers of an n_in-h-h MLP."""
+    return dense(n_in, h), (h, TANH), dense(h, h), (h, TANH)
 
 
 GUMBEL = {"int": 10, "cvt": 1, "fp32": 6, "sfu": 2}  # the hash (10 int, cvt, x 2^-24); + 1e-12,
@@ -635,9 +662,9 @@ GUMBEL = {"int": 10, "cvt": 1, "fp32": 6, "sfu": 2}  # the hash (10 int, cvt, x 
 #                                                      argmax: compare, select
 
 
-def update_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
+def update_sample(n_in: int, n_out: int, comm: int, value: bool, h: int = 64) -> dict:
     """K6 (value) or K7's actor pass per sample (csrc/mpe_update.cu), an
-    n_in-64-64-n_out MLP: besides the forward, the softmax of the 5 move
+    n_in-h-h-n_out MLP (h = 64 below): besides the forward, the softmax of the 5 move
     logits (4 max; 5 x (-, x log2e, exp); 4 sums; log, its x ln2 fused into
     the 5 ls = (z - m) - lse; 1 reciprocal and 5 products), the entropy and
     logp sums (5 + 5), the ratio (-, x log2e, exp), clamp (2), s1, s2, the
@@ -649,10 +676,10 @@ def update_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
     Backward: 64 x (n_out multiply-adds, 1 - h^2 as one fma, the product)
     for gh2, 64 x 64 multiply-adds + 64 x 2 for gh1. Weight gradients:
     64 x n_in + 64 x 64 + n_out x 64 multiply-adds, 128 + n_out bias sums."""
-    return _ops(*torso(n_in), dense(64, n_out), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
+    return _ops(*torso(n_in, h), dense(h, n_out), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
                 (1 if comm else 0, {"fp32": 14 * comm, "sfu": comm + 2}),
-                (1, {"fp32": 64 * (n_out + 2) + 64 * 64 + 64 * 2}),
-                (1, {"fp32": 64 * n_in + 64 * 64 + n_out * 64 + 128 + n_out}))
+                (1, {"fp32": h * (n_out + 2) + h * h + h * 2}),
+                (1, {"fp32": h * n_in + h * h + n_out * h + 2 * h + n_out}))
 
 
 def update_bf16_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
@@ -679,14 +706,14 @@ def critic_bf16_sample(n_in: int) -> dict:
                 (128, TANH))
 
 
-def critic_sample(n_in: int) -> dict:
-    """K7's critic pass per (t, env) sample: the n_in-64-64-1 MLP, the value
-    clip (13), the backward pass (64 x 3 for gh2, 64 x 64 + 64 x 2) and the
-    weight gradients (64 x n_in + 64 x 64 + 64 multiply-adds, 129 bias
-    sums)."""
-    return _ops(*torso(n_in), dense(64, 1), (1, {"fp32": 13}),
-                (1, {"fp32": 64 * 3 + 64 * 64 + 64 * 2}),
-                (1, {"fp32": 64 * n_in + 64 * 64 + 64 + 129}))
+def critic_sample(n_in: int, h: int = 64) -> dict:
+    """K7's critic pass per (t, env) sample: the n_in-h-h-1 MLP (h = 64
+    below), the value clip (13), the backward pass (64 x 3 for gh2, 64 x 64
+    + 64 x 2) and the weight gradients (64 x n_in + 64 x 64 + 64
+    multiply-adds, 129 bias sums)."""
+    return _ops(*torso(n_in, h), dense(h, 1), (1, {"fp32": 13}),
+                (1, {"fp32": h * 3 + h * h + h * 2}),
+                (1, {"fp32": h * n_in + h * h + h + 2 * h + 1}))
 
 
 # K3 (csrc/mpe_trajectory.cu) per env-step. It emits every move draw, so all 5
@@ -867,17 +894,17 @@ def widths(name: str) -> tuple[int, int, int, int, int]:
     return k.spec.n_agents, k.obs_w, k.n_comm, sum(k.speak or ()), k.reward_rows
 
 
-def policy_ops(name: str) -> tuple[dict, dict]:
+def policy_ops(name: str, h: int = 64) -> tuple[dict, dict]:
     """(K5's, K4's) operations (csrc/mpe_policy.cu) from K3's step on the
     same scenario, which draws as many uniforms (5 moves per agent, C comm
     logits per speaker): each draw becomes a Gumbel-max draw (GUMBEL in
-    place of HASH), every agent runs the MLP OW-64-64-(5+C), the one-hot move
+    place of HASH), every agent runs the MLP OW-h-h-(5+C), the one-hot move
     takes 5 compares per agent; K5 writes the last obs (A OW); K4 adds the
     running return of each reward row and counts episodes."""
     a, ow, c, speakers, r = widths(name)
     draws = 5 * a + c * speakers
     step = _ops((1, TRAJ_OPS[name]["step"]), (-draws, HASH), (draws, GUMBEL),
-                (a, _ops(*torso(ow), dense(64, 5 + c))), (a, {"int": 5}))
+                (a, _ops(*torso(ow, h), dense(h, 5 + c))), (a, {"int": 5}))
     reset = TRAJ_OPS[name]["reset"]
     return ({"step": step, "reset": reset, "env": {"fp32": a * ow}},
             {"step": _ops((1, step), (r, ACCUMULATE)), "reset": _ops((1, reset), (1, {"fp32": 1})),
@@ -964,6 +991,17 @@ def maddpg_update_bf16_sample(name: str) -> dict:
             "reset": {}, "env": {"cvt": weights // 2}}
 
 
+def update_ops(kind: str, name: str, h: int = 64) -> dict:
+    """OPS of K6 (``kind`` "ppo") or K7 ("mappo") on ``name`` at hidden
+    ``h``: a "step" is a sample, K6's (t, agent, env); K7's actor sample,
+    and as its "reset" a critic sample (t, env)."""
+    a, ow, c, _, _ = widths(name)
+    if kind == "ppo":
+        return {"step": update_sample(ow, 6 + c, c, True, h), "reset": {}, "env": {}}
+    return {"step": update_sample(ow, 5 + c, c, False, h), "reset": critic_sample(a * ow, h),
+            "env": {}}
+
+
 def add_policy_ops() -> None:
     """OPS of K4-K9 on every scenario, from its widths (which need the
     package, so main adds them after importing it)."""
@@ -971,12 +1009,8 @@ def add_policy_ops() -> None:
         a, ow, c, _, _ = widths(name)
         OPS[f"policy_traj_kernel[{name}]"], OPS[f"policy_rollout_kernel[{name}]"] = \
             policy_ops(name)
-        # a "step" is a sample: K6's (t, agent, env); K7's actor sample, and
-        # as its "reset" a critic sample (t, env)
-        OPS[f"ppo_update_kernel[{name}]"] = {"step": update_sample(ow, 6 + c, c, True),
-                                             "reset": {}, "env": {}}
-        OPS[f"mappo_update_kernel[{name}]"] = {"step": update_sample(ow, 5 + c, c, False),
-                                               "reset": critic_sample(a * ow), "env": {}}
+        OPS[f"ppo_update_kernel[{name}]"] = update_ops("ppo", name)
+        OPS[f"mappo_update_kernel[{name}]"] = update_ops("mappo", name)
         OPS[f"ppo_update_bf16_kernel[{name}]"] = {"step": update_bf16_sample(ow, 6 + c, c, True),
                                                   "reset": {}, "env": {}}
         OPS[f"mappo_update_bf16_kernel[{name}]"] = {
@@ -1223,18 +1257,19 @@ def rollout_path(wrappers, spec, dev):
     return launches, by, k1_by, k2, k2_ms_at, k1_ms, det_inputs, generic_rate
 
 
-def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
-    """Main path b (PPO: K5, K6) or b2 (MAPPO: K5, K7): TRAIN_ITERS
-    iterations of the fused trainer ``build``, timed by phase with CUDA
-    events."""
+def training_path(wrappers, kscn, build, label: str, kernels: list[str],
+                  n_iters: int = TRAIN_ITERS, hidden: int = TRAIN["hidden"]):
+    """Main path b (PPO: K5, K6) or b2 (MAPPO: K5, K7): ``n_iters``
+    iterations of the fused trainer ``build`` at TRAIN's shape and hidden
+    width ``hidden``, timed by phase with CUDA events."""
     import torch
 
-    step = build(kscn, **TRAIN)
+    step = build(kscn, **dict(TRAIN, hidden=hidden))
     params = step.init_params(torch.Generator().manual_seed(0))
     state0 = step.init_state(params)
     zero_launches(wrappers)
     state, iters = state0, []
-    for i in range(TRAIN_ITERS):
+    for i in range(n_iters):
         events = []
         state, metrics = step(state, i, events=events)
         torch.cuda.synchronize()
@@ -1253,13 +1288,13 @@ def training_path(wrappers, kscn, build, label: str, kernels: list[str]):
     steady = iters[1:]          # iteration 0 sets up the batched forward
     total_ms = sum(t for t, _, _ in steady)
     phase_ms = {k: sum(p[k] for _, p, _ in steady) for k in steady[0][1]}
-    print(f"{label}, iterations 1-{TRAIN_ITERS - 1}: "
+    print(f"{label}, iterations 1-{n_iters - 1}: "
           f"{step.n_transitions * len(steady) / (total_ms * 1e-3):.6g} transitions/s "
           f"({len(steady)} x {step.n_transitions} transitions in {total_ms:.3f} ms); mean per "
           f"iteration {total_ms / len(steady):.3f} ms: "
           + ", ".join(f"{k} {v / len(steady):.3f} ms" for k, v in phase_ms.items())
           + f"; median per iteration {statistics.median(t for t, _, _ in steady):.3f} ms")
-    for i in (0, 9, 19):
+    for i in sorted({0, n_iters // 2 - 1, n_iters - 1}):
         m = iters[i][2]
         print(f"{label} iter {i}: mean_reward {m['mean_reward']:.6f}, entropy "
               f"{m['entropy']:.6f}, loss {m['loss']:.6f}, pg_loss {m['pg_loss']:.6f}, v_loss "
@@ -1687,21 +1722,22 @@ def update_batches(step, params, label: str):
             (obs, mv_oh, cm_oh, logp_old, value, adv_n, ret))
 
 
-def update_bound(kernel: str, name: str, batch) -> tuple[float, str, float]:
+def update_bound(kernel: str, name: str, batch, h: int = 64) -> tuple[float, str, float]:
     """``bound_ms`` of one epoch gradient of ``kernel`` (K6, K7 or their bf16
-    twins: OPS by sample) on ``batch``: K6 reads obs, the one-hots, logp_old,
+    twins: OPS by sample; at another hidden width ``h`` than 64 K6's and
+    K7's ``update_ops``) on ``batch``: K6 reads obs, the one-hots, logp_old,
     adv, ret and value per sample, K7 the first four per (t, agent, env) and
     the team's three per (t, env); both read their weights and write the
     gradient once."""
     a, ow, c, _, _ = widths(name)
     t, n = batch[0].shape[0], batch[0].shape[3]
     per_sample = ow + 5 + c + 1                       # obs, one-hots, logp_old
+    ops = OPS[f"{kernel}[{name}]"] if h == 64 else update_ops(kernel.split("_")[0], name, h)
     if kernel.startswith("ppo"):
-        n_w = 64 * (ow + 64 + 6 + c) + 128 + 6 + c
-        return bound_ms(OPS[f"{kernel}[{name}]"], t * a * n, 0, 0,
-                        t * a * n * (per_sample + 3) * 4 + 2 * n_w * 4)
-    n_w = 64 * (ow + 64 + 5 + c) + 133 + c + 64 * (a * ow + 64 + 1) + 129
-    return bound_ms(OPS[f"{kernel}[{name}]"], t * a * n, t * n, 0,
+        n_w = h * (ow + h + 6 + c) + 2 * h + 6 + c
+        return bound_ms(ops, t * a * n, 0, 0, t * a * n * (per_sample + 3) * 4 + 2 * n_w * 4)
+    n_w = h * (ow + h + 5 + c) + 2 * h + 5 + c + h * (a * ow + h + 1) + 2 * h + 1
+    return bound_ms(ops, t * a * n, t * n, 0,
                     t * a * n * per_sample * 4 + t * n * 3 * 4 + 2 * n_w * 4)
 
 
@@ -1870,22 +1906,23 @@ def check_bf16_kernels(trained: dict) -> dict:
     return rows
 
 
-def policy_bounds(name: str, n_envs: int, n_steps: int, horizon: int) -> tuple[tuple, tuple]:
-    """(K5's, K4's) bound on ``name`` at n_envs x n_steps: K5 writes obs
-    [T,A,OW], act (and cact) [T,A] and rew [T,R] per env and last_obs; K4
-    writes ret [R], pos [E,2] and episodes per env; both read the weights
-    once."""
+def policy_bounds(name: str, n_envs: int, n_steps: int, horizon: int,
+                  h: int = 64) -> tuple[tuple, tuple]:
+    """(K5's, K4's) bound on ``name`` at n_envs x n_steps with an actor of
+    hidden width ``h``: K5 writes obs [T,A,OW], act (and cact) [T,A] and rew
+    [T,R] per env and last_obs; K4 writes ret [R], pos [E,2] and episodes
+    per env; both read the weights once."""
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     a, ow, c, _, r = widths(name)
     e = kernel_scenario(name).spec.n_entities
-    w_bytes = (64 * (ow + 64 + 5 + c) + 128 + 5 + c) * 4
+    w_bytes = (h * (ow + h + 5 + c) + 2 * h + 5 + c) * 4
     env_steps, resets = n_envs * n_steps, n_envs * (n_steps // horizon + 1)
     out_floats = n_steps * (a * ow + a * (2 if c else 1) + r) + a * ow
-    return (bound_ms(OPS[f"policy_traj_kernel[{name}]"], env_steps, resets, n_envs,
-                     n_envs * out_floats * 4 + w_bytes),
-            bound_ms(OPS[f"policy_rollout_kernel[{name}]"], env_steps, resets, n_envs,
-                     n_envs * (r + 2 * e + 1) * 4 + w_bytes))
+    k5, k4 = ((OPS[f"policy_traj_kernel[{name}]"], OPS[f"policy_rollout_kernel[{name}]"])
+              if h == 64 else policy_ops(name, h))
+    return (bound_ms(k5, env_steps, resets, n_envs, n_envs * out_floats * 4 + w_bytes),
+            bound_ms(k4, env_steps, resets, n_envs, n_envs * (r + 2 * e + 1) * 4 + w_bytes))
 
 
 def check_main_policy_shapes(k4_runs: dict, evals: dict, trainer_actors: dict):
@@ -2063,12 +2100,15 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
     if kernel in ("ppo", "mappo", "ppo_bf16", "mappo_bf16"):
         a, ow, c, _, _ = widths(name)
         kind, _, dtype = kernel.partition("_")
-        entry = "ppo_update_bf16_kernel" if dtype else "ppo_update_kernel"
+        # hidden 128 and 256 compile ppo_update_wide_kernel in place of ppo_update_kernel
+        entries = ("ppo_update_bf16_kernel",) if dtype else ("ppo_update_kernel",
+                                                             "ppo_update_wide_kernel")
         flags = {"ppo": "ELb1ELb0E", "mappo": "ELb0ELb1E"}[kind]
-        keys = [f"{entry}ILi{ow}ELi5ELi{c}{flags}"]
+        heads = [f"ILi{ow}ELi5ELi{c}{flags}"]
         if kind == "mappo":
-            keys.append(f"{entry}ILi{a * ow}ELi0ELi0ELb1ELb0E")
-        return [v for key in keys for k, v in regs.items() if key in k]
+            heads.append(f"ILi{a * ow}ELi0ELi0ELb1ELb0E")
+        return [v for head in heads for entry in entries for k, v in regs.items()
+                if entry + head in k]
     key = type(kernel_scenario(name)).__name__.removeprefix("Kernel") + "ScnE"
     return [v for k, v in regs.items() if kernel in k and key in k]
 
@@ -2722,6 +2762,73 @@ def check_iteration(label: str, stp, st0) -> float:
     return it_err
 
 
+def gate_policy_at(name: str, h: int, seed: int) -> tuple[float, float]:
+    """K5 and K4 at HIDDEN_GATE's shape on ``name`` with an init_policy actor
+    of hidden width ``h`` (O(1) logits): actions equal and values within
+    TOL of the plain versions, another tile equal bit for bit -> (K5's,
+    K4's max abs err)."""
+    import torch
+
+    from mpe_tpu_torch.learner import init_policy
+    from mpe_tpu_torch.ops.fused_policy import (POLICY_TILES, _kernel_weights,
+                                                fused_policy_rollout, fused_policy_trajectory,
+                                                policy_rollout_cuda, policy_tile,
+                                                policy_traj_cuda)
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    g = HIDDEN_GATE
+    n, steps, hor = g["n_envs"], g["n_steps"], g["horizon"]
+    kscn = kernel_scenario(name)
+    _, ow, c, _, _ = widths(name)
+    tag = f"{name}, hidden {h}"
+    actor = {k: {q: x.cuda() for q, x in layer.items()} for k, layer in
+             init_policy(torch.Generator().manual_seed(seed), ow, 5 + c, hidden=h).items()}
+    weights = _kernel_weights(actor, "cuda")
+    traj = fused_policy_trajectory(name, actor, n, steps, horizon=hor,
+                                   block_envs=g["block_envs"], t_chunk=g["t_chunk"])
+    got, ref = traj(4, actor), traj.plain(4, actor)
+    labels = ("obs", "act", "cact", "rew", "last_obs") if c else ("obs", "act", "rew", "last_obs")
+    report_actions(f"K5 ({tag}, moves)", got[1], ref[1])
+    k5 = check(f"K5 ({tag}, {n} envs x {steps} steps)",
+               {k: max_err(x, y) for k, x, y in zip(labels, got, ref)})
+    tile = policy_tile(kscn, n, "traj", hidden=h)
+    alt = other_tile(POLICY_TILES, tile)
+    same_bits(f"K5 ({tag}) at tile {alt} against tile {tile}",
+              policy_traj_cuda(kscn, weights, n, steps, hor, g["block_envs"], g["t_chunk"], 4, 0,
+                               "cuda", tile=alt), got)
+    run = fused_policy_rollout(name, actor, n, steps, horizon=hor, block_envs=g["block_envs"])
+    got, ref = run(6, actor), run.plain(6, actor)
+    k4 = check(f"K4 ({tag}, {n} envs x {steps} steps)",
+               {k: max_err(x, y) for k, x, y in zip(("ret", "pos", "episodes"), got, ref)})
+    tile = policy_tile(kscn, n, "rollout", hidden=h)
+    alt = other_tile(POLICY_TILES, tile)
+    same_bits(f"K4 ({tag}) at tile {alt} against tile {tile}",
+              policy_rollout_cuda(kscn, weights, n, steps, hor, g["block_envs"], 6, 0, "cuda",
+                                  tile=alt), got)
+    return k5, k4
+
+
+def gate_update_at(label: str, build, name: str, h: int, seed: int, compute_dtype=None,
+                   tol: float = GRAD_TOL) -> float:
+    """K6 or K7 (or a bf16 twin: ``build`` and ``compute_dtype``) on the
+    epoch-0 batch of a trainer of hidden width ``h`` at HIDDEN_GATE's envs
+    and on it with both clips binding, each leaf within ``tol`` of its
+    largest entry -> the max abs err."""
+    import torch
+
+    g = HIDDEN_GATE
+    tag = f"{name}, hidden {h}"
+    step = build(name, compute_dtype=compute_dtype,
+                 **dict(TRAIN, n_envs=g["n_envs"], horizon=g["horizon"], hidden=h))
+    params = step.init_params(torch.Generator().manual_seed(seed))
+    batch, clipped, _ = update_batches(step, params, f"{label} ({tag})")
+    gated = ("vloss", "entropy")
+    return max(check_update(f"{label} ({tag}, trainer batch)", step.update, params, batch, gated,
+                            tol),
+               check_update(f"{label} ({tag}, clip-binding batch)", step.update, params, clipped,
+                            ("pg",) + gated, tol))
+
+
 def hidden_widths_phase(wrappers) -> dict:
     """Phase 3b (the module docstring): K4-K9, K6-bf16, K7-bf16 and K9-bf16 at
     each width of HIDDEN_PHASE on HIDDEN_NAMES against their plain versions,
@@ -2732,18 +2839,12 @@ def hidden_widths_phase(wrappers) -> dict:
     import torch
 
     from mpe_tpu_torch.learner import (build_fused_maddpg_runner, build_fused_mappo_step,
-                                       build_fused_ppo_step, init_policy)
+                                       build_fused_ppo_step)
     from mpe_tpu_torch.learner.maddpg import collect_t_chunk, init_maddpg
     from mpe_tpu_torch.ops import fused_maddpg
-    from mpe_tpu_torch.ops.fused_policy import (POLICY_TILES, _kernel_weights,
-                                                fused_policy_rollout, fused_policy_trajectory,
-                                                policy_rollout_cuda, policy_tile,
-                                                policy_traj_cuda)
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     t0 = time.perf_counter()
-    g = HIDDEN_GATE
-    n, steps, hor = g["n_envs"], g["n_steps"], g["horizon"]
     kernels = ("policy_traj_kernel", "policy_rollout_kernel", "ppo_update_kernel",
                "mappo_update_kernel", "maddpg_traj_kernel", "maddpg_update_kernel",
                "ppo_update_bf16_kernel", "mappo_update_bf16_kernel", "maddpg_update_bf16_kernel")
@@ -2756,36 +2857,8 @@ def hidden_widths_phase(wrappers) -> dict:
             a, ow, c, _, _ = widths(name)
             tag = f"{name}, hidden {h}"
             # K5 and K4: an init_policy actor of this width (O(1) logits)
-            actor = {k: {q: x.cuda() for q, x in layer.items()} for k, layer in
-                     init_policy(torch.Generator().manual_seed(40 + h + i), ow, 5 + c,
-                                 hidden=h).items()}
-            weights = _kernel_weights(actor, "cuda")
-            traj = fused_policy_trajectory(name, actor, n, steps, horizon=hor,
-                                           block_envs=g["block_envs"], t_chunk=g["t_chunk"])
-            got, ref = traj(4, actor), traj.plain(4, actor)
-            labels = ("obs", "act", "cact", "rew", "last_obs") if c else ("obs", "act", "rew",
-                                                                          "last_obs")
-            report_actions(f"K5 ({tag}, moves)", got[1], ref[1])
-            errs["policy_traj_kernel"][name] = check(
-                f"K5 ({tag}, {n} envs x {steps} steps)",
-                {k: max_err(x, y) for k, x, y in zip(labels, got, ref)})
-            tile = policy_tile(kscn, n, "traj", hidden=h)
-            alt = other_tile(POLICY_TILES, tile)
-            same_bits(f"K5 ({tag}) at tile {alt} against tile {tile}",
-                      policy_traj_cuda(kscn, weights, n, steps, hor, g["block_envs"],
-                                       g["t_chunk"], 4, 0, "cuda", tile=alt), got)
-            run = fused_policy_rollout(name, actor, n, steps, horizon=hor,
-                                       block_envs=g["block_envs"])
-            got, ref = run(6, actor), run.plain(6, actor)
-            errs["policy_rollout_kernel"][name] = check(
-                f"K4 ({tag}, {n} envs x {steps} steps)",
-                {k: max_err(x, y) for k, x, y in zip(("ret", "pos", "episodes"), got, ref)})
-            tile = policy_tile(kscn, n, "rollout", hidden=h)
-            alt = other_tile(POLICY_TILES, tile)
-            same_bits(f"K4 ({tag}) at tile {alt} against tile {tile}",
-                      policy_rollout_cuda(kscn, weights, n, steps, hor, g["block_envs"], 6, 0,
-                                          "cuda", tile=alt), got)
-            del got, ref
+            errs["policy_traj_kernel"][name], errs["policy_rollout_kernel"][name] = \
+                gate_policy_at(name, h, 40 + h + i)
             # K6 and K7, and their bf16 twins, on the batch of a trainer of this width
             for kernel, label, build, cd, tol in (
                     ("ppo_update_kernel", "K6", build_fused_ppo_step, None, GRAD_TOL),
@@ -2794,17 +2867,7 @@ def hidden_widths_phase(wrappers) -> dict:
                      BF16_GRAD_TOL),
                     ("mappo_update_bf16_kernel", "K7-bf16", build_fused_mappo_step, bf16,
                      BF16_GRAD_TOL)):
-                step = build(name, compute_dtype=cd, **dict(TRAIN, n_envs=n, horizon=hor,
-                                                             hidden=h))
-                params = step.init_params(torch.Generator().manual_seed(50 + h + i))
-                batch, clipped, _ = update_batches(step, params, f"{label} ({tag})")
-                gated = ("vloss", "entropy")
-                errs[kernel][name] = max(
-                    check_update(f"{label} ({tag}, trainer batch)", step.update, params, batch,
-                                 gated, tol),
-                    check_update(f"{label} ({tag}, clip-binding batch)", step.update, params,
-                                 clipped, ("pg",) + gated, tol))
-                del batch, clipped
+                errs[kernel][name] = gate_update_at(label, build, name, h, 50 + h + i, cd, tol)
             # K8 and K9: MADDPG nets of this width, the actor's head at O(1)
             mp = {k: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
                   for k, net in init_maddpg(torch.Generator().manual_seed(60 + h + i), ow, 5 + c,
@@ -2866,6 +2929,137 @@ def hidden_widths_phase(wrappers) -> dict:
     del run, params, info
     out["seconds"] = time.perf_counter() - t0
     print(f"hidden widths {HIDDEN_PHASE}: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
+def wide_widths_phase(wrappers, regs_at: dict) -> dict:
+    """Phase 3c (the module docstring): K4-K7 at each width of WIDE_PHASE ->
+    {kernel: {hidden: row}} (each row as the kernels line's: launches on the
+    wide paths, max abs err over the gates, ms, plain ms, bound, library ms,
+    registers by scenario of WIDE_NAMES; K4 and K5 their tile), "paths":
+    {path: transitions/s and ms by phase}, "seconds": s."""
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
+                                                policy_tile)
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    t0 = time.perf_counter()
+    name = "simple_spread"
+    kscn = kernel_scenario(name)
+    kernels = {"policy_traj_kernel": "policy_traj_kernel",
+               "policy_rollout_kernel": "policy_rollout_kernel", "ppo_update_kernel": "ppo",
+               "mappo_update_kernel": "mappo"}
+    out = {k: {} for k in kernels}
+    out["paths"] = {}
+    for h in WIDE_PHASE:
+        errs = {k: {} for k in kernels}
+        for i, gname in enumerate(WIDE_NAMES):
+            errs["policy_traj_kernel"][gname], errs["policy_rollout_kernel"][gname] = \
+                gate_policy_at(gname, h, 80 + h + i)
+            errs["ppo_update_kernel"][gname] = gate_update_at("K6", build_fused_ppo_step, gname,
+                                                              h, 90 + h + i)
+            errs["mappo_update_kernel"][gname] = gate_update_at("K7", build_fused_mappo_step,
+                                                                gname, h, 90 + h + i)
+        rows = {k: {"max_abs_err": max(e.values()), "registers_spill_bytes": {
+            n: registers_of(regs_at[h], kernels[k], n) for n in WIDE_NAMES}}
+            for k, e in errs.items()}
+        # paths b and b2 at this width; K6 and K7 timed and gated on the last
+        # iteration's params at the path's shape
+        for label, build, kind in (("PPO", build_fused_ppo_step, "ppo"),
+                                   ("MAPPO", build_fused_mappo_step, "mappo")):
+            kernel, key = f"{kind}_update_kernel", f"{label} on {name} at hidden {h}"
+            launches, step, _, state, phases, last = training_path(
+                wrappers, kscn, build, key, ["policy_traj_kernel", kernel], WIDE_ITERS, h)
+            total = sum(phases.values())
+            out["paths"][key] = {"transitions_per_s": step.n_transitions / (total * 1e-3),
+                                 "ms_per_iteration_by_phase": phases, "iterations": WIDE_ITERS,
+                                 "launches": launches, "last_iteration": last}
+            rows["policy_traj_kernel"]["launches"] = (
+                rows["policy_traj_kernel"].get("launches", 0) + launches["policy_traj_kernel"])
+            params = state[0]
+            batch, clipped, lib_batch = update_batches(step, params, key)
+            gated = ("vloss", "entropy")
+            err = max(check_update(f"K{6 if kind == 'ppo' else 7} ({key}, trainer batch)",
+                                   step.update, params, batch, gated),
+                      check_update(f"K{6 if kind == 'ppo' else 7} ({key}, clip-binding batch)",
+                                   step.update, params, clipped, ("pg",) + gated))
+            ms, _ = cuda_time(lambda: step.update(params, *batch), REPEATS)
+            plain_ms, _ = cuda_time(lambda: step.update.plain(params, *batch), REPEATS)
+            lib_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
+            device = update_device_ms(lambda: step.update(params, *batch),
+                                      2 if kind == "ppo" else 4)
+            bound = update_bound(kernel, name, batch, h)
+            print(f"{key}: K{6 if kind == 'ppo' else 7} {ms:.4f} ms a call (device "
+                  f"{fmt_ms(device)}), plain {plain_ms:.3f} ms, autograd of the trainer's loss "
+                  f"{lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+                  f"({ms / bound[0]:.2f}x)")
+            rows[kernel].update(launches=launches[kernel],
+                                max_abs_err=max(rows[kernel]["max_abs_err"], err), ms=ms,
+                                device_ms=device, plain_ms=plain_ms, bound_ms=bound[0],
+                                bound_by=bound[1], library_ms=lib_ms,
+                                timed_on=f"{name}, path {'b' if kind == 'ppo' else 'b2'}'s "
+                                         f"last batch at hidden {h}")
+            del batch, clipped, lib_batch
+            if kind == "ppo":
+                actor = {"l1": params["l1"], "l2": params["l2"], "out": params["pi"]}
+        # K5 at the training shape and K4 at path c's on path b's actor
+        n, t = TRAIN["n_envs"], TRAIN["n_steps"]
+        traj = fused_policy_trajectory(name, actor, n, t, horizon=TRAIN["horizon"],
+                                       block_envs=TRAIN["block_envs"], t_chunk=TRAIN["t_chunk"])
+        k5_ms, got = cuda_time(lambda: traj(5, actor), REPEATS)
+        plain_ms, ref = cuda_time(lambda: traj.plain(5, actor), 1, warm_up=False)
+        report_actions(f"K5 (path b's actor at hidden {h}, {n} x {t})", got[1], ref[1])
+        err = check(f"K5 (path b's actor at hidden {h}, {n} x {t})",
+                    {k: max_err(x, y) for k, x, y in zip(("obs", "act", "rew", "last_obs"), got,
+                                                         ref)})
+        b5, b4 = policy_bounds(name, n, t, TRAIN["horizon"], h)
+        rows["policy_traj_kernel"].update(
+            max_abs_err=max(rows["policy_traj_kernel"]["max_abs_err"], err), ms=k5_ms,
+            plain_ms=plain_ms, bound_ms=b5[0], bound_by=b5[1], library_ms=None,
+            tile=policy_tile(kscn, n, "traj", hidden=h),
+            timed_on=f"{name}, path b's actor at {n} envs x {t} steps")
+        zero_launches(wrappers)
+        k4 = fused_policy_rollout(name, actor, N_ENVS, EVAL_STEPS, horizon=EVAL_HORIZON,
+                                  block_envs=BLOCK_ENVS)
+        k4_ms, got = cuda_time(lambda: k4(0, actor), REPEATS)
+        k4_launches = read_launches(wrappers, ["policy_rollout_kernel"],
+                                    f"evaluation at hidden {h}")["policy_rollout_kernel"]
+        per_ep_mean, per_ep_se = mean_se(got[0].mean(0) / got[2][0])
+        # held to the plain version at EVAL_GATE_STEPS (its 1000-step loop
+        # alone took 16-20 s at these widths)
+        gate = fused_policy_rollout(name, actor, N_ENVS, EVAL_GATE_STEPS, horizon=EVAL_HORIZON,
+                                    block_envs=BLOCK_ENVS)
+        got = gate(0, actor)
+        plain_ms, ref = cuda_time(lambda: gate.plain(0, actor), 1, warm_up=False)
+        err = check(f"K4 (path b's actor at hidden {h}, {N_ENVS} x {EVAL_GATE_STEPS})",
+                    {k: max_err(x, y) for k, x, y in zip(("ret", "pos", "episodes"), got, ref)})
+        b4 = policy_bounds(name, N_ENVS, EVAL_STEPS, EVAL_HORIZON, h)[1]
+        rows["policy_rollout_kernel"].update(
+            launches=k4_launches, max_abs_err=max(rows["policy_rollout_kernel"]["max_abs_err"],
+                                                  err),
+            ms=k4_ms, plain_ms=plain_ms, bound_ms=b4[0], bound_by=b4[1], library_ms=None,
+            tile=policy_tile(kscn, N_ENVS, "rollout", hidden=h),
+            timed_on=f"{name}, path b's actor at {N_ENVS} envs x {EVAL_STEPS} steps",
+            plain_and_gate_on=f"{N_ENVS} envs x {EVAL_GATE_STEPS} steps",
+            mean_return_per_episode=[per_ep_mean, per_ep_se])
+        print(f"hidden {h}: K5 {k5_ms:.4f} ms ({n} x {t}, bound {b5[0]:.4f} ms by {b5[1]}), K4 "
+              f"{k4_ms:.4f} ms ({N_ENVS} x {EVAL_STEPS}, bound {b4[0]:.4f} ms by {b4[1]}; mean "
+              f"return per episode {per_ep_mean:.5f} +- {per_ep_se:.5f})")
+        del got, ref
+        # the examples that take --hidden, at this width (K4 only)
+        out["examples"] = out.get("examples", {})
+        for module, argv in WIDE_EXAMPLES:
+            label = f"{module} --hidden {h}"
+            _, seconds, launched = run_example(wrappers, label, module,
+                                               argv + ["--hidden", str(h)],
+                                               ("policy_rollout_kernel",))
+            out["examples"][label] = {"seconds": seconds, "launches": launched}
+        for k, row in rows.items():
+            out[k][h] = row
+    out["seconds"] = time.perf_counter() - t0
+    print(f"hidden widths {WIDE_PHASE}: every gate passed in {out['seconds']:.1f} s")
     return out
 
 
@@ -4140,21 +4334,24 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t_start = t0 = time.perf_counter()
-    logs = _build.build_all(HIDDEN_PHASE)
+    logs = _build.build_all(HIDDEN_PHASE + WIDE_PHASE)
     for source in _build.SOURCES:
         _build.library(source)
-    for h in HIDDEN_PHASE:
+    for h in HIDDEN_PHASE + WIDE_PHASE:
         for source in _build.HIDDEN_SOURCES:
-            _build.library(source, h)
+            if h in _build.HIDDEN_WIDTHS[source]:
+                _build.library(source, h)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({len(logs)} libraries: every source "
-          f"at hidden 64, {', '.join(_build.HIDDEN_SOURCES)} also at {HIDDEN_PHASE})")
+          f"at hidden 64, {', '.join(_build.HIDDEN_SOURCES)} also at {HIDDEN_PHASE}, "
+          + ", ".join(s for s in _build.HIDDEN_SOURCES if WIDE_PHASE[0] in _build.HIDDEN_WIDTHS[s])
+          + f" also at {WIDE_PHASE})")
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {src}: {line.strip()}")
     regs = ptxas_registers({k: v for k, v in logs.items() if isinstance(k, str)})
     regs_at = {h: ptxas_registers({k: v for k, v in logs.items() if k[1:] == (h,)})
-               for h in HIDDEN_PHASE}
+               for h in HIDDEN_PHASE + WIDE_PHASE}
     hmma = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE)
     hmma9 = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE, "mpe_maddpg_bf16.cu")
 
@@ -4386,6 +4583,7 @@ def main() -> int:
     k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
     k3_group_ms = check_trajectory_groups()
     hidden = hidden_widths_phase(wrappers)
+    wide = wide_widths_phase(wrappers, regs_at)
     # path h, the multi-device path and checkpoint/trace, runs after every other
     # phase: it starts a process group (nccl) and launches ranks, and the
     # profiler passes above then run in a process that has done neither. Its DP
@@ -4607,6 +4805,13 @@ def main() -> int:
             row["hidden_widths_phase"] = {"seconds": hidden["seconds"],
                                           "launches": hidden["launches"],
                                           "trainer_max_abs_err": hidden["trainer_max_abs_err"]}
+            row["hidden_widths_compiled"] = list(
+                _build.HIDDEN_WIDTHS[row["source"].rsplit("/", 1)[1]])
+        # K4-K7 at 128 and 256 (phase 3c): by width the row's own figures
+        if row["name"] in wide:
+            row["wide_widths"] = wide[row["name"]]
+            row["wide_widths_phase"] = {"seconds": wide["seconds"], "paths": wide["paths"],
+                                        "examples": wide["examples"]}
     # paths h and i per kernel: its launches by phase and rank (h) and by the
     # example that launched it (i); for the gradient kernels the DP step's ms
     # and the all_reduce of their gradient

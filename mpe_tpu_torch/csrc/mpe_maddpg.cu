@@ -85,6 +85,9 @@
 
 #include "policy_mlp.cuh"
 
+static_assert(H == 8 || H == 16 || H == 32 || H == 64,
+              "K8 and K9 take hidden 8, 16, 32 or 64 (ops/_build.py::HIDDEN_WIDTHS)");
+
 namespace {
 
 // The widths of one scenario's MADDPG nets and replay rows: A agents, OW obs

@@ -25,8 +25,9 @@
 // ran one warp per CTA and each lane's MLP as one thread's serial chain. Both
 // kernels are thin wrappers over one body, policy_tile_body<S, TRAJ>. Per step:
 //   1. the MLP of every (agent, lane) row of the tile as CTA-wide register-tiled
-//      products (policy_mlp.cuh::tile_mlp), the actor's weights (at most 6,884
-//      floats, 27 KB, on simple_reference) loaded into shared memory once per CTA;
+//      products (policy_mlp.cuh::tile_mlp), the actor's weights (at hidden 64 at
+//      most 6,884 floats, 27 KB, on simple_reference) loaded into shared memory
+//      once per CTA, at hidden 128 and 256 read from device memory (W_SMEM);
 //   2. the Gumbel-max draws, one (agent, lane) row per thread, the logits read
 //      from shared memory, each row's action index written back;
 //   3. the world step, one thread per lane as before: thread l < TL owns lane l,
@@ -56,7 +57,21 @@
 
 #include "policy_mlp.cuh"
 
+static_assert(H == 8 || H == 16 || H == 32 || H == 64 || H == 128 || H == 256,
+              "K4 and K5 take hidden 8, 16, 32, 64, 128 or 256 (ops/_build.py::HIDDEN_WIDTHS)");
+
 namespace {
+
+// Where the actor's weights sit. Up to hidden 64 (27 KB at most, on
+// simple_reference) each CTA copies them into its shared memory. From 128 they
+// stay in device memory and the products read them through the caches: at 256
+// w2 alone is 256 KB, over a CTA's 227 KB; at 128 (89 KB on simple_world_comm)
+// a resident copy would leave room for one CTA of 4 warps per SM, where the
+// tile's rows alone fit several (at 128 the actor fits the L1 cache the small
+// CTAs leave free, at 256 the L2 serves it). There the hidden layers run on
+// items of 8 rows (tile_dense_tanh_x2), two row blocks to each weight load.
+// The loads change no sum's order.
+constexpr bool W_SMEM = H <= 64;
 
 // Gumbel-max over logits z[K0, K0 + K) with uniforms uniform((K, A*n), ...) of
 // salt `salt`, first-max tie-break
@@ -130,12 +145,12 @@ __device__ __forceinline__ void policy_tile_body(const typename S::Params& c,
   using M = TileActor<OW, KP>;
   extern __shared__ __align__(16) float smem[];
   const TileRows tr = tile_rows(tile, A);
-  float* const w = smem;
-  float* const xt = w + M::NWP;
+  const float* const w = W_SMEM ? smem : weights;
+  float* const xt = smem + (W_SMEM ? M::NWP : 0);
   float* const h1 = xt + OW * tr.ldx;        // then the logits
   float* const h2 = h1 + H * tr.ldx;
   int* const act = reinterpret_cast<int*>(h2 + H * tr.ldx);
-  load_float4s(w, weights, M::NWP / 4);
+  if constexpr (W_SMEM) load_float4s(smem, weights, M::NWP / 4);
 
   const int g0 = blockIdx.x * tile;
   const int tlv = n_envs - g0 < tile ? n_envs - g0 : tile;      // lanes of a ragged tile
@@ -170,7 +185,7 @@ __device__ __forceinline__ void policy_tile_body(const typename S::Params& c,
     for (int step = 0; step < t_chunk; ++step) {
       const int ts = chunk * t_chunk + step;
       __syncthreads();                                 // the input rows are the tile's obs
-      tile_mlp<OW, KP>(w, 0, xt, h1, h2, tr);
+      tile_mlp<OW, KP, !W_SMEM>(w, 0, xt, h1, h2, tr);
       sample_rows<S>(c, h1, act, tr, tlv, g0, n, seed, block_offset, chunk, step);
       __syncthreads();
       t += 1;
@@ -254,14 +269,14 @@ policy_rollout_kernel(const typename S::Params c, const float* __restrict__ weig
                              seed, block_offset, tile);
 }
 
-// the tile's shared memory (the actor, the input rows [OW][LDX], h1 (then the
-// logits) and h2 [H][LDX], the rows' action indices [NR]), or 0 for a tile
-// size the kernels do not take
+// the tile's shared memory (the actor where W_SMEM, the input rows [OW][LDX],
+// h1 (then the logits) and h2 [H][LDX], the rows' action indices [NR]), or 0
+// for a tile size the kernels do not take
 template <class S>
 size_t policy_smem(int tile) {
   if (tile < 1 || tile > TILE_MAX) return 0;
   const TileRows tr = tile_rows(tile, S::A);
-  const size_t bytes = ((size_t)TileActor<S::OW, MW + S::C>::NWP +
+  const size_t bytes = ((W_SMEM ? (size_t)TileActor<S::OW, MW + S::C>::NWP : 0) +
                         (size_t)(S::OW + 2 * H) * tr.ldx + tr.nr) * sizeof(float);
   return bytes <= SMEM_MAX ? bytes : 0;
 }

@@ -66,6 +66,32 @@
 // slower on the H100 (PERF.md §6, PR 9); a tanh of one exp and one reciprocal
 // in place of tanhf moved nothing (the products, not the activations, take
 // the time).
+//
+// Hidden 128 and 256 (ppo_update_wide_kernel, WideDims). There the resident
+// weights would not fit (w2 and w2t alone 512 KB at 256; simple_world_comm's
+// critic about 235 KB at 128), nor would the weight-gradient sums fit the
+// registers across tiles (dW2 alone 256 a thread at 256). So the wide kernel
+// keeps the same grid, tiles, staging and head, and changes three things:
+//   weights   w1 and w2 stay in device memory (the L2 cache holds them for
+//             every CTA); each product streams them in slices of KB (16 at
+//             128, 32 at 256) inputs x UB = 64 units through two shared
+//             buffers, the next slice loaded into registers while the CTA
+//             computes on the last one (streamed_product); no transposed
+//             copies; w3 and the biases (at most 16 x 256 floats) stay
+//             resident;
+//   products  the register tile of hidden 64, 4 units x 4 samples a thread,
+//             looped over the H / 64 unit blocks;
+//   gradient  each tile's dW1, dW2 (wide_outer: 4 rows x up to 4 columns a
+//             thread, over blocks of 64 rows) and dW3 sums are added into the
+//             CTA's partial in device memory, which the CTA zeroes first and
+//             in which one thread owns each entry, read before the pass's
+//             sums (at 128, two CTAs an SM under the 128-register cap, this
+//             spills some registers and still ran faster than reading them
+//             late); update_reduce_kernel sums the partials as at the other
+//             widths.
+// At 256 the tiles (H1, H2: 2 x 256 x 68 floats) take most of the shared
+// memory: one CTA per SM, two stages where they fit (simple_world_comm's
+// critic one). Widths 8-64 keep ppo_update_kernel unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,8 +104,10 @@ namespace {
 #ifndef MPE_HIDDEN
 #define MPE_HIDDEN 64
 #endif
-constexpr int H = MPE_HIDDEN;    // hidden width: 8, 16, 32 or 64 (ops/_build.py, one library each)
-static_assert(H == 8 || H == 16 || H == 32 || H == 64, "the kernels take hidden 8, 16, 32 or 64");
+constexpr int H = MPE_HIDDEN;    // hidden width (ops/_build.py::HIDDEN_WIDTHS, one library each)
+static_assert(H == 8 || H == 16 || H == 32 || H == 64 || H == 128 || H == 256,
+              "K6 and K7 take hidden 8, 16, 32, 64, 128 or 256");
+constexpr bool WIDE = H > 64;    // hidden 128 and 256: ppo_update_wide_kernel
 constexpr int THREADS = 256;     // per CTA
 constexpr int TS = 64;           // samples per tile
 constexpr int LD = TS + 4;       // a tile row's stride
@@ -125,17 +153,15 @@ __host__ __device__ constexpr bool smem_fits(size_t bytes, int ctas) {
   return ctas * (bytes + 1024) <= SM_SMEM;
 }
 
-// One instantiation's widths and shared-memory layout: IN inputs, KP policy
-// logits (0: the critic), KC comm logits, a value output (HAS_V), the team
-// advantage of (t, env) (TEAM)
-template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
-struct UpdateDims {
-  static constexpr int IN = IN_, KP = KP_, KC = KC_;
+// One instantiation's widths and stage layout: IN inputs (x rows zero-padded
+// to INP), KP policy logits (0: the critic), KC comm logits, a value output
+// (HAS_V), the team advantage of (t, env) (TEAM)
+template <int IN_, int INP_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
+struct StageDims {
+  static constexpr int IN = IN_, INP = INP_, KP = KP_, KC = KC_;
   static constexpr bool HAS_V = HAS_V_, TEAM = TEAM_;
   static constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
   static constexpr int KOP = (KO + 7) / 8 * 8;        // output rows, zero-padded
-  static constexpr int RQ = (IN + QN - 1) / QN;        // dW1 columns per thread
-  static constexpr int INP = QN * RQ;                  // x rows, zero-padded
   static constexpr int KS = KOP < KS_MAX ? KOP : KS_MAX, R3 = KOP / KS;   // dW3's split
   // a stage: x rows, then the per-sample inputs of the head
   static constexpr int A_MV = INP, A_CM = A_MV + KP, A_LPO = A_CM + KC, A_ADV = A_LPO + 1;
@@ -143,6 +169,15 @@ struct UpdateDims {
   static constexpr int NAUX = (KP > 0 ? KP + KC + 2 : 0) + (HAS_V ? 2 : 0);
   static constexpr int STAGE_ROWS = INP + NAUX;
   static constexpr int IN_ROWS = IN + NAUX;            // rows read from the batch
+};
+
+// ... and the shared-memory layout of ppo_update_kernel (hidden 8-64)
+template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
+struct UpdateDims
+    : StageDims<IN_, QN * ((IN_ + QN - 1) / QN), KP_, KC_, HAS_V_, TEAM_> {
+  using S = StageDims<IN_, QN * ((IN_ + QN - 1) / QN), KP_, KC_, HAS_V_, TEAM_>;
+  using S::IN, S::INP, S::KO, S::KOP, S::STAGE_ROWS;
+  static constexpr int RQ = INP / QN;                  // dW1 columns per thread
   // the weights: w2 [H][H], w2t [H][H], w1t [IN][H], w3 [KOP][H], w3t [H][KOP],
   // b1, b2, b3 [KOP]
   static constexpr int S_W2 = 0, S_W2T = S_W2 + H * H, S_W1T = S_W2T + H * H,
@@ -159,6 +194,32 @@ struct UpdateDims {
   static_assert(smem_fits(SMEM, 1), "the weights and one stage must fit in shared memory");
   static_assert(KOP % (THREADS / TS) == 0, "the output rows split over a sample's threads");
 };
+
+// ... and that of ppo_update_wide_kernel (hidden 128 and 256): the products
+// take their weights from device memory in slices of KB inputs x UB units,
+// through two slice buffers; w3 [KOP][H] and the biases stay resident
+constexpr int UB = 64;           // units of a wide product's unit block
+// inputs of a weight slice: at 256 (one CTA an SM) 32, so that a slice's
+// work hides the next slice's load from L2; at 128 16, so that two CTAs fit
+constexpr int KB = H >= 256 ? 32 : 16;
+constexpr int SLD = UB + 4;      // a slice row's stride
+template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
+struct WideDims : StageDims<IN_, (IN_ + KB - 1) / KB * KB, KP_, KC_, HAS_V_, TEAM_> {
+  using S = StageDims<IN_, (IN_ + KB - 1) / KB * KB, KP_, KC_, HAS_V_, TEAM_>;
+  using S::KOP, S::STAGE_ROWS;
+  static constexpr int S_W3 = 0, S_B1 = KOP * H, S_B2 = S_B1 + H, S_B3 = S_B2 + H,
+                       S_SLICE = (S_B3 + KOP + 3) / 4 * 4, S_TILE = S_SLICE + 2 * KB * SLD;
+  static constexpr size_t SMEM2 = update_smem(S_TILE, STAGE_ROWS, KOP, 2),
+                          SMEM1 = update_smem(S_TILE, STAGE_ROWS, KOP, 1);
+  static constexpr int CTAS = smem_fits(SMEM1, 2) ? 2 : 1;
+  static constexpr int STAGES = smem_fits(SMEM2, CTAS) ? 2 : 1;
+  static constexpr size_t SMEM = STAGES == 2 ? SMEM2 : SMEM1;
+  static constexpr int T_H1 = STAGES * STAGE_ROWS, T_H2 = T_H1 + H, T_G = T_H2 + H;
+  static_assert(smem_fits(SMEM, 1), "the tiles and one stage must fit in shared memory");
+  static_assert(KOP % (THREADS / TS) == 0, "the output rows split over a sample's threads");
+};
+static_assert(!WIDE || (H % UB == 0 && UB * TS == 16 * THREADS && KB * UB % THREADS == 0),
+              "a unit block's 4 x 4 register tiles and a slice's loads cover the CTA");
 
 struct UpdateConsts {
   float ratio_lo, ratio_hi;      // 1 - clip, 1 + clip
@@ -349,6 +410,185 @@ __device__ __forceinline__ void outer_sum(const float* __restrict__ P, const flo
 #pragma unroll
     for (int i = 0; i < RI; ++i)
       if (qn == i) bias = ((bias + pv[i][0]) + pv[i][1]) + pv[i][2] + pv[i][3];
+  }
+}
+
+// ---- the wide products (hidden 128 and 256) --------------------------------------
+
+// acc[i][e] += sum over the K inputs k, in order, of A[k][m0 + i] B[k][s0 + e]:
+// A [.][lda] and B [.][LD] in shared memory
+template <int K>
+__device__ __forceinline__ void block_acc(const float* __restrict__ A, int lda,
+                                          const float* __restrict__ B, int m0, int s0,
+                                          float (&acc)[4][4]) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[4], bv[4];
+    load_vec<4>(A + k * lda + m0, av);
+    load_vec<4>(B + k * LD + s0, bv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(av[i], bv[e], acc[i][e]);
+  }
+}
+
+// C[u0 + m0 + i][s0 + e] = epi(unit, acc[i][e], &C[unit][s0 + e])
+template <class Epi>
+__device__ __forceinline__ void block_store(float* __restrict__ C, int u0, int m0, int s0,
+                                            const float (&acc)[4][4], Epi epi) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* c = C + (u0 + m0 + i) * LD + s0;
+    float out[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = epi(u0 + m0 + i, acc[i][e], c + e);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = out[e];
+  }
+}
+
+// C[m][s] = epi(m, sum_k A(k, m) B[k][s], &C[m][s]) for the H units m and the
+// TS samples s, A in device memory: A(k, m) = a[m K + k] (TRANS: w1 and w2 in
+// the forward) or a[k H + m] (w2 in the backward), 0 for k >= K. Unit blocks of
+// UB units, each over slices of KB inputs that the CTA fetches into registers
+// while it computes on the slice before, then stores into the other of the two
+// slice buffers: one barrier a slice. Thread t owns units 4 (t / 16) .. + 3 of
+// the block and samples 4 (t % 16) .. + 3 (unit_product's tiles at hidden 64).
+// B's rows up to the last slice's end must be finite. Ends at a barrier.
+template <int K, bool TRANS, class Epi>
+__device__ __forceinline__ void streamed_product(const float* __restrict__ a,
+                                                 const float* __restrict__ B,
+                                                 float* __restrict__ C, float* __restrict__ slices,
+                                                 int tid, Epi epi) {
+  constexpr int NS = (K + KB - 1) / KB, NQ = (H / UB) * NS, PER = KB * UB / THREADS;
+  const int m0 = 4 * (tid / 16), s0 = 4 * (tid % 16);
+  float pre[PER];
+  // the slice element of piece p: TRANS walks the inputs of a unit first, so a
+  // warp reads runs of KB floats; otherwise the units of an input
+  auto piece = [&](int p, int& kk, int& mm) {
+    const int i = tid + THREADS * p;
+    kk = TRANS ? i % KB : i / UB;
+    mm = TRANS ? i / KB : i % UB;
+  };
+  auto fetch = [&](int q) {
+    const int u0 = (q / NS) * UB, k0 = (q % NS) * KB;
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      int kk, mm;
+      piece(p, kk, mm);
+      const int k = k0 + kk;
+      pre[p] = k >= K ? 0.0f : TRANS ? a[(size_t)(u0 + mm) * K + k] : a[(size_t)k * H + u0 + mm];
+    }
+  };
+  auto put = [&](float* buf) {
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      int kk, mm;
+      piece(p, kk, mm);
+      buf[kk * SLD + mm] = pre[p];
+    }
+  };
+  fetch(0);
+  put(slices);
+  __syncthreads();
+  float acc[4][4];
+  for (int q = 0; q < NQ; ++q) {
+    const int j = q % NS;
+    if (q + 1 < NQ) fetch(q + 1);
+    if (j == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    }
+    block_acc<KB>(slices + (q & 1) * KB * SLD, SLD, B + j * KB * LD, m0, s0, acc);
+    if (j == NS - 1) block_store(C, (q / NS) * UB, m0, s0, acc, epi);
+    if (q + 1 < NQ) put(slices + ((q + 1) & 1) * KB * SLD);
+    __syncthreads();
+  }
+}
+
+// the same with A [K][H] resident in shared memory (w3 in the backward)
+template <int K, class Epi>
+__device__ __forceinline__ void resident_product(const float* __restrict__ A,
+                                                 const float* __restrict__ B,
+                                                 float* __restrict__ C, int tid, Epi epi) {
+  const int m0 = 4 * (tid / 16), s0 = 4 * (tid % 16);
+  for (int u0 = 0; u0 < H; u0 += UB) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    block_acc<K>(A + u0, H, B, m0, s0, acc);
+    block_store(C, u0, m0, s0, acc, epi);
+  }
+}
+
+// part[m ldp + n] += sum over the tile's samples s, in order, of P[m][s] Q[n][s]
+// for the H rows m of P and the NQ rows n of Q, both [.][LD] in shared memory,
+// and db[m] += sum_s P[m][s]; part and db in device memory (the CTA's partial,
+// each entry added to by one thread only). Passes over blocks of 64 rows x 16
+// RN columns: a warp's 8 column lanes take consecutive columns (one 32-byte
+// run of part per row) and its 4 row lanes consecutive rows, each thread 4
+// rows x RN columns in registers, per four samples 4 + RN float4s for 16 RN
+// multiply-adds. A column past NQ reads row NQ - 1 and is not added. The
+// partial's entries are read before the pass's sums, so their latency hides
+// behind them.
+template <int NQ>
+__device__ __forceinline__ void wide_outer(const float* __restrict__ P,
+                                           const float* __restrict__ Q, float* part, int ldp,
+                                           float* db, int tid) {
+  constexpr int RN = NQ >= 64 ? 4 : (NQ + 15) / 16, CB = 16 * RN;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int r0 = 16 * (warp >> 1) + (lane >> 3), c0 = CB / 2 * (warp & 1) + (lane & 7);
+  for (int mb = 0; mb < H; mb += 64) {
+    for (int nb = 0; nb < NQ; nb += CB) {
+      float acc[4][RN], old[4][RN];
+      int rq[RN];
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        const int n = nb + c0 + 8 * j;
+        rq[j] = (n < NQ ? n : NQ - 1) * LD;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j] = 0.0f;
+          old[i][j] = n < NQ ? part[(size_t)(mb + r0 + 4 * i) * ldp + n] : 0.0f;
+        }
+      }
+#pragma unroll 2
+      for (int s = 0; s < TS; s += 4) {
+        float pv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_vec<4>(P + (mb + r0 + 4 * i) * LD + s, pv[i]);
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          float qv[4];
+          load_vec<4>(Q + rq[j] + s, qv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j] = fmaf(pv[i][e], qv[e], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          const int n = nb + c0 + 8 * j;
+          if (n < NQ) part[(size_t)(mb + r0 + 4 * i) * ldp + n] = old[i][j] + acc[i][j];
+        }
+    }
+  }
+  if (tid < H) {
+    float b = 0.0f;
+    for (int s = 0; s < TS; s += 4) {
+      float pv[4];
+      load_vec<4>(P + tid * LD + s, pv);
+      b = (((b + pv[0]) + pv[1]) + pv[2]) + pv[3];
+    }
+    db[tid] += b;
   }
 }
 
@@ -626,6 +866,152 @@ ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ o
   }
 }
 
+// The same gradient at hidden 128 and 256, where neither the weights nor the
+// weight gradients fit on the chip's SM: the tile loop of ppo_update_kernel,
+// with w1 and w2 streamed from device memory through two slice buffers
+// (streamed_product; w3 and the biases resident), the products' register tiles
+// 4 units x 4 samples over unit blocks of UB units, and the weight gradients
+// summed over each tile in registers and added into the CTA's partial in
+// device memory, which the CTA zeroes first (wide_outer; dW3 and db3 as at
+// hidden 64, per tile). update_reduce_kernel then sums the partials as at the
+// other widths: no float atomics, the same result from run to run.
+template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
+__global__ void __launch_bounds__(THREADS, (WideDims<IN, KP, KC, HAS_V, TEAM_ADV>::CTAS))
+ppo_update_wide_kernel(const float* __restrict__ weights, const float* __restrict__ obs,
+                       const float* __restrict__ mvoh, const float* __restrict__ cmoh,
+                       const float* __restrict__ lpo, const float* __restrict__ adv,
+                       const float* __restrict__ ret, const float* __restrict__ vold,
+                       float* __restrict__ partials, int n_rows, int n_envs, UpdateConsts k) {
+  using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+  constexpr int KO = D::KO, KOP = D::KOP;
+  constexpr Packed L = packed(IN, KO);
+  extern __shared__ __align__(16) float smem[];
+  float* w3 = smem + D::S_W3;
+  float* b1 = smem + D::S_B1;
+  float* b2 = smem + D::S_B2;
+  float* b3 = smem + D::S_B3;
+  float* slices = smem + D::S_SLICE;
+  float* tile = smem + D::S_TILE;
+  float* h1t = tile + D::T_H1 * LD;
+  float* h2t = tile + D::T_H2 * LD;
+  float* gt = tile + D::T_G * LD;
+  const int tid = threadIdx.x;
+  const size_t N = (size_t)n_envs;
+  const size_t n_samples = (size_t)n_rows * N;
+  const size_t n_tiles = (n_samples + TS - 1) / TS;
+  const Batch b{obs, mvoh, cmoh, lpo, adv, ret, vold};
+  float* part = partials + (size_t)blockIdx.x * L.ng;
+
+  if (blockIdx.x < n_tiles) stage_tile<D>(b, tile, blockIdx.x, n_samples, N, k.n_agents, tid);
+  stage_commit();
+  for (int i = tid; i < KOP * H; i += THREADS) w3[i] = i < KO * H ? weights[L.g_w3 + i] : 0.0f;
+  for (int i = tid; i < H; i += THREADS) {
+    b1[i] = weights[L.g_b1 + i];
+    b2[i] = weights[L.g_b2 + i];
+  }
+  if (tid < KOP) b3[tid] = tid < KO ? weights[L.g_b3 + tid] : 0.0f;
+  for (int st = 0; st < D::STAGES; ++st)               // the x rows' padding stays zero
+    for (int i = tid; i < (D::INP - IN) * LD; i += THREADS)
+      tile[(st * D::STAGE_ROWS + IN) * LD + i] = 0.0f;
+  for (int i = tid; i < L.ng; i += THREADS) part[i] = 0.0f;
+
+  // dW3's threads: unit g3c of output rows k3 + KS r (db3 row k3 + KS g3c, g3c < R3)
+  const int g3c = tid % H, k3 = tid / H;
+  constexpr int KS = D::KS, R3 = D::R3;
+  float ms[3] = {0.0f, 0.0f, 0.0f};
+  int it = 0;
+  for (size_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x, ++it) {
+    float* st = tile + (D::STAGES == 2 ? (it & 1) : 0) * D::STAGE_ROWS * LD;
+    if constexpr (D::STAGES == 2) {                    // the next tile's inputs in flight
+      if (ti + gridDim.x < n_tiles)
+        stage_tile<D>(b, tile + ((it + 1) & 1) * D::STAGE_ROWS * LD, ti + gridDim.x, n_samples,
+                      N, k.n_agents, tid);
+      stage_commit();
+      stage_wait<1>();
+    } else {
+      stage_wait<0>();
+    }
+    __syncthreads();
+    // forward
+    streamed_product<IN, true>(weights + L.g_w1, st, h1t, slices, tid,
+                               [&](int m, float v, const float*) { return tanhf(v + b1[m]); });
+    streamed_product<H, true>(weights + L.g_w2, h1t, h2t, slices, tid,
+                              [&](int m, float v, const float*) { return tanhf(v + b2[m]); });
+    {                                                   // Z = W3 H2 + b3
+      constexpr int PER = THREADS / TS, RZ = KOP / PER;
+      const int s = tid % TS, kz = tid / TS;
+      float z[RZ];
+#pragma unroll
+      for (int r = 0; r < RZ; ++r) z[r] = 0.0f;
+#pragma unroll 4
+      for (int g = 0; g < H; ++g) {
+        const float h = h2t[g * LD + s];
+#pragma unroll
+        for (int r = 0; r < RZ; ++r) z[r] = fmaf(w3[(kz + PER * r) * H + g], h, z[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < RZ; ++r) gt[(kz + PER * r) * LD + s] = z[r] + b3[kz + PER * r];
+    }
+    __syncthreads();
+    if (tid < TS) {
+      const size_t m = ti * TS + tid;
+      head<D>(st, gt, tid, m < n_samples, m / N, k, ms);
+    }
+    __syncthreads();
+    // dW3 += G3 H2^T (db3 beside it) over the tile, then GH2 over H2
+    if (k3 < KS) {
+      float a3[R3], ab3 = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R3; ++r) a3[r] = 0.0f;
+#pragma unroll 2
+      for (int s = 0; s < TS; s += 4) {
+        const float4 hq = *reinterpret_cast<const float4*>(h2t + g3c * LD + s);
+#pragma unroll
+        for (int r = 0; r < R3; ++r) {
+          const float4 gq = *reinterpret_cast<const float4*>(gt + (k3 + KS * r) * LD + s);
+          a3[r] = fmaf(gq.x, hq.x, a3[r]);
+          a3[r] = fmaf(gq.y, hq.y, a3[r]);
+          a3[r] = fmaf(gq.z, hq.z, a3[r]);
+          a3[r] = fmaf(gq.w, hq.w, a3[r]);
+          if (g3c == r) ab3 = ((ab3 + gq.x) + gq.y) + gq.z + gq.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R3; ++r)
+        if (k3 + KS * r < KO) part[L.g_w3 + (k3 + KS * r) * H + g3c] += a3[r];
+      if (g3c < R3 && k3 + KS * g3c < KO) part[L.g_b3 + k3 + KS * g3c] += ab3;
+    }
+    __syncthreads();
+    resident_product<KO>(w3, gt, h2t, tid, [](int, float v, const float* c) {
+      return v * (1.0f - *c * *c);
+    });
+    __syncthreads();
+    // dW2 += GH2 H1^T (db2), then GH1 over H1
+    wide_outer<H>(h2t, h1t, part + L.g_w2, H, part + L.g_b2, tid);
+    __syncthreads();
+    streamed_product<H, false>(weights + L.g_w2, h2t, h1t, slices, tid,
+                               [](int, float v, const float* c) { return v * (1.0f - *c * *c); });
+    // dW1 += GH1 X^T (db1)
+    wide_outer<IN>(h1t, st, part + L.g_w1, IN, part + L.g_b1, tid);
+    __syncthreads();                                    // this stage's reads are done
+    if constexpr (D::STAGES == 1) {
+      if (ti + gridDim.x < n_tiles)
+        stage_tile<D>(b, tile, ti + gridDim.x, n_samples, N, k.n_agents, tid);
+      stage_commit();
+    }
+  }
+
+  // metric sums over the CTA's threads, in thread order
+#pragma unroll
+  for (int q = 0; q < 3; ++q) tile[q * THREADS + tid] = ms[q];
+  __syncthreads();
+  if (tid < 3) {
+    float total = 0.0f;
+    for (int i = 0; i < THREADS; ++i) total = total + tile[tid * THREADS + i];
+    part[L.g_ms + tid] = total;
+  }
+}
+
 // out[e] = sum over CTAs b = 0, 1, ... of partials[b][e]; the three metric
 // sums at the end are scaled to means by ms_scale
 __global__ void update_reduce_kernel(const float* __restrict__ partials, float* __restrict__ out,
@@ -645,14 +1031,23 @@ cudaError_t update_pass(const float* weights, const float* obs, const float* mvo
                         const float* vold, float* partials, float* out, int n_rows, int n_envs,
                         int n_parts, const UpdateConsts& k, float ms_pg, float ms_v,
                         float ms_ent, cudaStream_t stream) {
-  using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
-  const int ng = packed(IN, D::KO).ng;
-  auto kernel = ppo_update_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)D::SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<n_parts, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret, vold,
-                                                partials, n_rows, n_envs, k);
+  cudaError_t err;
+  if constexpr (WIDE) {
+    using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+    auto kernel = ppo_update_wide_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<n_parts, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret, vold,
+                                                  partials, n_rows, n_envs, k);
+  } else {
+    using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+    auto kernel = ppo_update_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<n_parts, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret, vold,
+                                                  partials, n_rows, n_envs, k);
+  }
+  const int ng = packed(IN, KP + KC + (HAS_V ? 1 : 0)).ng;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   update_reduce_kernel<<<(ng + 255) / 256, 256, 0, stream>>>(partials, out, n_parts, ng, ms_pg,
@@ -701,6 +1096,16 @@ cudaError_t by_joint_width(int j, F f) {
 }
 
 constexpr int MOVES = 5;
+
+// the dynamic shared memory of one pass's kernel
+template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
+constexpr size_t pass_smem() {
+  if constexpr (WIDE) {
+    return WideDims<IN, KP, KC, HAS_V, TEAM_ADV>::SMEM;
+  } else {
+    return UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>::SMEM;
+  }
+}
 
 }  // namespace
 
@@ -754,5 +1159,23 @@ int mpe_mappo_update(int ow, int kc, const float* actor_w, const float* critic_w
 
 // the packed gradient's length of an in-H-H-ko MLP (ops/fused_update.py::_packed)
 int mpe_update_packed_size(int in, int ko) { return packed(in, ko).ng; }
+
+// the dynamic shared memory in bytes of K6's pass (pass 0) or K7's actor pass
+// (1) on the head (in, kc), or of K7's critic pass (2) on the joint width in;
+// -1 for a head or width the kernels are not compiled for
+int mpe_update_smem(int in, int kc, int pass) {
+  size_t bytes = 0;
+  const cudaError_t err =
+      pass == 2 ? by_joint_width(in, [&](auto j) {
+        bytes = pass_smem<decltype(j)::value, 0, 0, true, false>();
+        return cudaSuccess;
+      })
+      : by_actor_head(in, kc, [&](auto ow, auto c) {
+          bytes = pass == 0 ? pass_smem<decltype(ow)::value, MOVES, decltype(c)::value, true, false>()
+                            : pass_smem<decltype(ow)::value, MOVES, decltype(c)::value, false, true>();
+          return cudaSuccess;
+        });
+  return err == cudaSuccess ? (int)bytes : -1;
+}
 
 }  // extern "C"

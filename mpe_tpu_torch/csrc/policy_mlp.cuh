@@ -3,8 +3,9 @@
 // when it speaks, else 5, run as CTA-wide products over a tile of env lanes;
 // and MlpLayout, the kernel layout of one actor that K9 (mpe_maddpg.cu) reads
 // its gradients in. The hidden width H is a compile-time constant,
-// -DMPE_HIDDEN=H (8, 16, 32 or 64; 64 by default): ops/_build.py builds one
-// library per width.
+// -DMPE_HIDDEN=H (64 by default): ops/_build.py builds one library per
+// width, and each source that includes this header asserts the widths it
+// takes (mpe_policy.cu: 8-256; mpe_maddpg.cu: 8-64).
 //
 // The lane tile. A CTA of TILE_THREADS threads owns TL env lanes (a tile).
 // Thread l < TL owns lane l: its world state stays in its registers, and it
@@ -38,7 +39,6 @@ namespace {
 #define MPE_HIDDEN 64
 #endif
 constexpr int H = MPE_HIDDEN;    // hidden width
-static_assert(H == 8 || H == 16 || H == 32 || H == 64, "the kernels take hidden 8, 16, 32 or 64");
 constexpr int HG = H / 4;        // groups of 4 units
 
 // packed weights of one actor in K9's layout (ops/fused_maddpg_update.py::PackedLayout):
@@ -113,7 +113,8 @@ __device__ __forceinline__ void load_float4s(float* dst, const float* __restrict
 
 // out[u][r] = tanh(sum over the NIN inputs k, in order from the first product,
 // of wt[k][u] x[k][r], then + b[u]) for the tile's rows; row r takes the actor
-// of its agent, wstride floats further per agent (0: one actor for all)
+// of its agent, wstride floats further per agent (0: one actor for all). The
+// weights may lie in shared or in device memory (generic loads)
 template <int NIN>
 __device__ __forceinline__ void tile_dense_tanh(const float* wt, const float* b, int wstride,
                                                 const float* x, float* out, const TileRows& tr) {
@@ -153,6 +154,66 @@ __device__ __forceinline__ void tile_dense_tanh(const float* wt, const float* b,
       o.z = tanhf(acc[2][u] + bu[u]);
       o.w = tanhf(acc[3][u] + bu[u]);
       *reinterpret_cast<float4*>(out + (g0 + u) * tr.ldx + r0) = o;
+    }
+  }
+}
+
+// tile_dense_tanh over items of 8 rows x 4 units: two row blocks of 4 share
+// each float4 of weights (32 sums a thread), for an actor read from device
+// memory (mpe_policy.cu at hidden 128 and 256), where the weight loads set
+// the pace. One actor for all rows (no agent stride). A last row block past
+// the rows recomputes the block before it and is not stored. Every sum runs
+// as in tile_dense_tanh, so the outputs are the same bits.
+template <int NIN>
+__device__ __forceinline__ void tile_dense_tanh_x2(const float* wt, const float* b,
+                                                   const float* x, float* out,
+                                                   const TileRows& tr) {
+  const int n_pairs = (tr.nr / 4 + 1) / 2;
+  const int n_items = n_pairs * HG;
+  for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
+    const int ra = (item / HG) * 8, g0 = (item % HG) * 4;
+    const bool second = ra + 4 < tr.nr;
+    const int rb = second ? ra + 4 : ra;
+    const float* w = wt + g0;
+    float acc[8][4];
+    {
+      const float4 wv = *reinterpret_cast<const float4*>(w);
+      const float4 xa = *reinterpret_cast<const float4*>(x + ra);
+      const float4 xb = *reinterpret_cast<const float4*>(x + rb);
+      const float wu[4] = {wv.x, wv.y, wv.z, wv.w};
+      const float xq[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[q][u] = wu[u] * xq[q];
+    }
+#pragma unroll 4
+    for (int k = 1; k < NIN; ++k) {
+      const float4 wv = *reinterpret_cast<const float4*>(w + k * H);
+      const float4 xa = *reinterpret_cast<const float4*>(x + ra + k * tr.ldx);
+      const float4 xb = *reinterpret_cast<const float4*>(x + rb + k * tr.ldx);
+      const float wu[4] = {wv.x, wv.y, wv.z, wv.w};
+      const float xq[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[q][u] = acc[q][u] + wu[u] * xq[q];
+    }
+    const float4 bv = *reinterpret_cast<const float4*>(b + g0);
+    const float bu[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !second) break;
+      const int r0 = h == 0 ? ra : rb;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 o;
+        o.x = tanhf(acc[4 * h + 0][u] + bu[u]);
+        o.y = tanhf(acc[4 * h + 1][u] + bu[u]);
+        o.z = tanhf(acc[4 * h + 2][u] + bu[u]);
+        o.w = tanhf(acc[4 * h + 3][u] + bu[u]);
+        *reinterpret_cast<float4*>(out + (g0 + u) * tr.ldx + r0) = o;
+      }
     }
   }
 }
@@ -198,13 +259,20 @@ __device__ __forceinline__ void tile_logits(const float* w3t, const float* b3, i
 // the logits [KP][row] of the tile's rows: the actor (or, wstride apart, one
 // per agent) at w in TileActor's layout on the input rows x; h1 and h2 are
 // the hidden rows, and the logits overwrite h1. Each phase ends at a barrier.
-template <int OW, int KP>
+// PAIRS: the hidden layers by tile_dense_tanh_x2 (one actor, wstride 0)
+template <int OW, int KP, bool PAIRS = false>
 __device__ __forceinline__ void tile_mlp(const float* w, int wstride, const float* x, float* h1,
                                          float* h2, const TileRows& tr) {
   using M = TileActor<OW, KP>;
-  tile_dense_tanh<OW>(w + M::W1T, w + M::B1, wstride, x, h1, tr);
-  __syncthreads();
-  tile_dense_tanh<H>(w + M::W2T, w + M::B2, wstride, h1, h2, tr);
+  if constexpr (PAIRS) {
+    tile_dense_tanh_x2<OW>(w + M::W1T, w + M::B1, x, h1, tr);
+    __syncthreads();
+    tile_dense_tanh_x2<H>(w + M::W2T, w + M::B2, h1, h2, tr);
+  } else {
+    tile_dense_tanh<OW>(w + M::W1T, w + M::B1, wstride, x, h1, tr);
+    __syncthreads();
+    tile_dense_tanh<H>(w + M::W2T, w + M::B2, wstride, h1, h2, tr);
+  }
   __syncthreads();
   tile_logits<KP>(w + M::W3T, w + M::B3, wstride, h2, h1, tr);
   __syncthreads();

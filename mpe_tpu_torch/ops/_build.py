@@ -8,8 +8,8 @@ sources build in parallel, and each is rebuilt only when it, the shared
 header or the flags change (the file name carries their hash). The sources
 of K4-K9 and of K6-bf16, K7-bf16 and K9-bf16 (``HIDDEN_SOURCES``) take the MLPs' hidden
 width at compile time (``-DMPE_HIDDEN``): one library per (source, width) of
-``HIDDEN_WIDTHS``, built at the first use of that width; ``build_all`` builds
-every source at width 64.
+that source's row of ``HIDDEN_WIDTHS``, built at the first use of that width;
+``build_all`` builds every source at width 64.
 ``spread_params`` and ``scenario_params`` fill the kernels' constant structs.
 ``-fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise ops round them, so a kernel can be held tightly
@@ -39,20 +39,25 @@ HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh", "bf16_m
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # the sources whose kernels run an MLP (K4, K5; K6, K7; K8, K9; K6-bf16,
-# K7-bf16; K9-bf16), the hidden widths they are compiled for, and the width a
-# plain build takes
-HIDDEN_SOURCES = ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu", "mpe_update_bf16.cu",
-                  "mpe_maddpg_bf16.cu")
-HIDDEN_WIDTHS = (8, 16, 32, 64)
+# K7-bf16; K9-bf16) and the hidden widths each is compiled for (each source's
+# static_assert on MPE_HIDDEN lists the same), and the width a plain build takes
+HIDDEN_WIDTHS = {
+    "mpe_policy.cu": (8, 16, 32, 64, 128, 256),
+    "mpe_update.cu": (8, 16, 32, 64, 128, 256),
+    "mpe_maddpg.cu": (8, 16, 32, 64),
+    "mpe_update_bf16.cu": (8, 16, 32, 64),
+    "mpe_maddpg_bf16.cu": (8, 16, 32, 64),
+}
+HIDDEN_SOURCES = tuple(HIDDEN_WIDTHS)
 DEFAULT_HIDDEN = 64
 
 
-def check_hidden(hidden: int, what: str) -> int:
-    """``hidden`` if the kernels are compiled for it, else
-    ``NotImplementedError`` naming the widths they take."""
-    if hidden not in HIDDEN_WIDTHS:
-        raise NotImplementedError(f"{what} are compiled for hidden widths "
-                                  f"{set(HIDDEN_WIDTHS)}; got {hidden}")
+def check_hidden(hidden: int, what: str, source: str) -> int:
+    """``hidden`` if ``source``'s kernels are compiled for it, else
+    ``NotImplementedError`` naming the widths that source takes."""
+    if hidden not in HIDDEN_WIDTHS[source]:
+        raise NotImplementedError(f"{what} (csrc/{source}) are compiled for hidden widths "
+                                  f"{', '.join(map(str, HIDDEN_WIDTHS[source]))}; got {hidden}")
     return int(hidden)
 
 
@@ -71,7 +76,7 @@ def _flags(source: str, hidden: int) -> tuple:
     if hidden != DEFAULT_HIDDEN:
         if source not in HIDDEN_SOURCES:
             raise ValueError(f"{source} has no hidden width; only {HIDDEN_SOURCES} take one")
-        check_hidden(hidden, "the MLP kernels")
+        check_hidden(hidden, "the MLP kernels", source)
         return NVCC_FLAGS + (f"-DMPE_HIDDEN={hidden}",)
     return NVCC_FLAGS
 
@@ -117,13 +122,13 @@ def build(pairs) -> dict:
 
 
 def build_all(hidden_widths=()) -> dict:
-    """Compile every source at width 64 and the MLP sources at each of
-    ``hidden_widths`` too, all at once (``build``). Returns ``{source: ptxas
-    log}`` of the width-64 builds, and ``{(source, hidden): log}`` of the
-    others."""
+    """Compile every source at width 64 and each MLP source at each of
+    ``hidden_widths`` that it takes too, all at once (``build``). Returns
+    ``{source: ptxas log}`` of the width-64 builds, and ``{(source, hidden):
+    log}`` of the others."""
     pairs = [(source, DEFAULT_HIDDEN) for source in SOURCES]
     pairs += [(source, h) for h in hidden_widths if h != DEFAULT_HIDDEN
-              for source in HIDDEN_SOURCES]
+              for source in HIDDEN_SOURCES if h in HIDDEN_WIDTHS[source]]
     logs = build(pairs)
     return {(source if hidden == DEFAULT_HIDDEN else (source, hidden)): log
             for (source, hidden), log in logs.items()}
@@ -145,6 +150,7 @@ SIGNATURES = {
         "mpe_ppo_update": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P],
         "mpe_mappo_update": [_I] * 2 + [_P] * 11 + [_I] * 5 + [_F] * 7 + [_P],
         "mpe_update_packed_size": [_I] * 2,
+        "mpe_update_smem": [_I] * 3,
     },
     "mpe_update_bf16.cu": {                 # the same C entries as mpe_update.cu's
         "mpe_ppo_update": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P],
@@ -188,12 +194,12 @@ def library(source: str = "mpe_kernels.cu", hidden: int = DEFAULT_HIDDEN) -> cty
     """The loaded library of one source under ``csrc/`` at hidden width
     ``hidden`` (an MLP source's; the others take 64 only). The first call
     builds every source at 64 if needed, a call at another width the MLP
-    sources at that width."""
+    sources that take that width."""
     _flags(source, hidden)
     if hidden == DEFAULT_HIDDEN:
         build_all()
     else:
-        build([(s, hidden) for s in HIDDEN_SOURCES])
+        build([(s, hidden) for s in HIDDEN_SOURCES if hidden in HIDDEN_WIDTHS[s]])
     lib = ctypes.CDLL(str(_target(source, hidden)))
     for name, argtypes in SIGNATURES[source].items():
         fn = getattr(lib, name)

@@ -191,7 +191,8 @@ def maddpg_traj_cuda(kscn, weights, n_envs: int, n_steps: int, horizon: int, blo
     if tile is not None and tile not in MADDPG_TILES:
         raise ValueError(f"tile={tile}: the MADDPG collection kernel takes {MADDPG_TILES} env "
                          "lanes per CTA")
-    hidden = check_hidden(weights[0].shape[-2], "the MADDPG collection kernels")
+    hidden = check_hidden(weights[0].shape[-2], "the MADDPG collection kernels",
+                          "mpe_maddpg.cu")
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the MADDPG collection kernel needs a CUDA device, got {device}")

@@ -37,7 +37,7 @@ into one buffer (``PackedLayout``). On a CUDA device ``from_rows`` launches
 ``maddpg_target_actions_kernel``, ``maddpg_td_kernel``,
 ``maddpg_update_kernel`` and ``maddpg_reduce_kernel`` (``csrc/mpe_maddpg.cu``,
 float32, built at the params' hidden width: 8, 16, 32 or 64,
-``_build.HIDDEN_WIDTHS``), instantiated for the scenario whose widths the
+``_build.HIDDEN_WIDTHS["mpe_maddpg.cu"]``), instantiated for the scenario whose widths the
 params have; on the CPU it runs ``plain_maddpg_update`` in ``dtype``. The
 trainer's chunk (``learner.maddpg.build_fused_update_chunk``) keeps its
 state in that buffer and launches K9 through ``MaddpgUpdateLauncher``. The target actors sum each layer in the kernel's order, so the
@@ -421,8 +421,8 @@ class MaddpgUpdateLauncher:
                  compute_dtype=torch.float32):
         from mpe_tpu_torch.ops import _build
 
-        check_hidden(hidden, "the MADDPG update kernels")
         self.source = _k9_source(compute_dtype)
+        check_hidden(hidden, "the MADDPG update kernels", self.source)
         self.counter = (maddpg_update_cuda if self.source == "mpe_maddpg.cu"
                         else maddpg_update_bf16_cuda)
         device = torch.device(device)
@@ -498,7 +498,7 @@ def maddpg_update_cuda(params, targets, rows_b, *, mw: int, gamma: float, ent_co
     K9-bf16's in ``maddpg_update_bf16_cuda``'s."""
     device = rows_b.device
     a, o, h = params["actor"]["l1"]["w"].shape
-    check_hidden(h, "the MADDPG update kernels")
+    check_hidden(h, "the MADDPG update kernels", _k9_source(compute_dtype))
     if device.type != "cuda":
         raise ValueError(f"maddpg_update_cuda needs CUDA tensors, got {device}")
     k = params["actor"]["out"]["w"].shape[-1]

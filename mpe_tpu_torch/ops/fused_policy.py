@@ -30,8 +30,11 @@ then adds the bias (``_seq_dense``), the order the kernels use: Gumbel-max
 turns a one-ulp change in a logit into another action, so the kernel and its
 plain version are held to equal actions on the card. The kernels take the
 hidden width from the weights: one library per width of
-``_build.HIDDEN_WIDTHS`` (8, 16, 32, 64), built at its first use; another
-width raises ``NotImplementedError`` before any launch.
+``_build.HIDDEN_WIDTHS["mpe_policy.cu"]`` (8, 16, 32, 64, 128, 256), built
+at its first use; another width raises ``NotImplementedError`` before any
+launch. Up to 64 a CTA keeps the actor in shared memory; at 128 and 256 the
+products read it from device memory through the caches (``W_SMEM`` in
+``csrc/mpe_policy.cu``), so the tile's rows alone size the shared memory.
 """
 
 from __future__ import annotations
@@ -280,12 +283,13 @@ def _kernel_args(kscn, weights, n_envs, n_steps, horizon, block_envs, device, ti
                  kernel="rollout"):
     """Checks shared by both wrappers -> (scenario id, constants, weight
     buffer, tile, hidden width). Raises before any launch on what the kernels
-    do not compute (a hidden width outside ``HIDDEN_WIDTHS`` first); ``tile``
+    do not compute (a hidden width ``mpe_policy.cu`` is not compiled for
+    first); ``tile``
     None takes ``policy_tile`` of ``kernel``."""
     from mpe_tpu_torch.ops import _build
 
     shapes = [tuple(w.shape) for w in weights]
-    hidden = check_hidden(shapes[0][0], "the policy kernels")
+    hidden = check_hidden(shapes[0][0], "the policy kernels", "mpe_policy.cu")
     if tile is not None and tile not in POLICY_TILES:
         raise ValueError(f"tile={tile}: the policy kernels take {POLICY_TILES} env lanes per CTA")
     if device.type != "cuda":

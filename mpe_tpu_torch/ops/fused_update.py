@@ -26,11 +26,13 @@ also holds wherever the clip does not bind (see ``_value_clip_grad``).
 ``fused_policy_trajectory`` emits them.
 
 On a CUDA device ``update`` launches ``ppo_update_kernel`` (K6: one pass;
-K7: an actor pass and a critic pass) and ``update_reduce_kernel``
-(``csrc/mpe_update.cu``, float32, compiled for the nine scenarios' actor
-heads and critic joint widths, one library per hidden width of
-``_build.HIDDEN_WIDTHS``, the width taken from the params); on the CPU it
-runs the plain version in ``dtype`` (float32 or float64).
+K7: an actor pass and a critic pass; ``ppo_update_wide_kernel`` at hidden
+128 and 256) and ``update_reduce_kernel`` (``csrc/mpe_update.cu``, float32,
+compiled for the nine scenarios' actor heads and critic joint widths, one
+library per hidden width of ``_build.HIDDEN_WIDTHS["mpe_update.cu"]``: 8,
+16, 32, 64, 128, 256, the width taken from the params; another raises
+``NotImplementedError`` before any launch); on the CPU it runs the plain
+version in ``dtype`` (float32 or float64).
 
 ``compute_dtype=torch.bfloat16`` is the JAX builders' ``compute_dtype``
 (their default on a TPU): every matrix product (the forward, the backward
@@ -41,7 +43,8 @@ softmaxes and the head stay float32 on float32 activations, and the grads
 and metrics come back in float32 whatever ``dtype`` is. On a CUDA device it
 launches ``ppo_update_bf16_kernel`` (K6-bf16, K7-bf16:
 ``csrc/mpe_update_bf16.cu``, the products on the tensor cores by
-``mma.sync``); on the CPU the plain version rounds as above.
+``mma.sync``; hidden 8, 16, 32 and 64 only); on the CPU the plain version
+rounds as above.
 """
 
 from __future__ import annotations
@@ -373,10 +376,11 @@ def _kernel_inputs(obs, mv_oh, cm_oh, speak):
     return t, a, ow, n, kc, speak_bits(speak)
 
 
-def _hidden_of(params, l1: str) -> int:
+def _hidden_of(params, l1: str, source: str) -> int:
     """The hidden width of the params' first layer (``l1.w`` [in, H]), if the
-    update kernels are compiled for it (else ``NotImplementedError``)."""
-    return check_hidden(params[l1]["w"].shape[-1], "the update kernels")
+    update kernels of ``source`` are compiled for it (else
+    ``NotImplementedError`` naming that source's widths)."""
+    return check_hidden(params[l1]["w"].shape[-1], "the update kernels", source)
 
 
 def _check_weights(weights, want, what: str):
@@ -391,7 +395,7 @@ def _ppo_launch(source, params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, 
     ``mpe_update_bf16.cu``: the same C entries and packed layout)."""
     from mpe_tpu_torch.ops import _build
 
-    hidden = _hidden_of(params, "l1")
+    hidden = _hidden_of(params, "l1", source)
     t, a, ow, n, kc, mask = _kernel_inputs(obs, mv_oh, cm_oh, speak)
     device = obs.device
     _check_batch(device, logp_old=(logp_old, (t, a, n)), adv_n=(adv_n, (t, a, n)),
@@ -458,7 +462,7 @@ def _mappo_launch(source, params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old
     """One K7 launch of the library of ``source`` (as ``_ppo_launch``)."""
     from mpe_tpu_torch.ops import _build
 
-    hidden = _hidden_of(params, "a1")
+    hidden = _hidden_of(params, "a1", source)
     t, a, ow, n, kc, mask = _kernel_inputs(obs, mv_oh, cm_oh, speak)
     if a * ow not in critic_widths():
         raise NotImplementedError(f"the critic pass is compiled for the joint widths "

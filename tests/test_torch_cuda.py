@@ -634,7 +634,7 @@ def test_grouped_trajectory_kernel_equals_one_thread_per_lane(card, name, group)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [8, 16, 32])
+@pytest.mark.parametrize("hidden", [8, 16, 32, 128, 256])
 def test_mlp_kernels_at_hidden_width_match_plain(card, hidden):
     """K5 (actions equal, values within 1e-5) and K6 and K7 (each leaf within
     1e-4 of its largest entry) of the libraries built at ``hidden``, through
@@ -662,19 +662,45 @@ def test_mlp_kernels_at_hidden_width_match_plain(card, hidden):
 
 @pytest.mark.cuda
 def test_mlp_kernels_refuse_uncompiled_widths(card):
-    """A hidden width the kernels are not compiled for raises before any
-    launch, on the card too: no wrapper falls back to the plain version."""
+    """A hidden width a kernel's source is not compiled for raises before
+    any launch, on the card too, naming that source's widths: no wrapper
+    falls back to the plain version. 48 for K5; 128 for K8 (which K5 takes)
+    and for K6-bf16."""
+    import re
+
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg
+
     step = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
                                 hidden=48, device=card)
     params = step.init_params(torch.Generator().manual_seed(0))
-    before = (fused_policy.policy_traj_cuda.launches, fused_update.ppo_update_cuda.launches)
-    with pytest.raises(NotImplementedError, match="8, 16, 32, 64"):
+    counters = (fused_policy.policy_traj_cuda, fused_update.ppo_update_cuda,
+                fused_update.ppo_update_bf16_cuda, fused_maddpg.maddpg_traj_cuda)
+    before = [c.launches for c in counters]
+    with pytest.raises(NotImplementedError, match=re.escape(
+            "(csrc/mpe_policy.cu) are compiled for hidden widths 8, 16, 32, 64, 128, 256; "
+            "got 48")):
         step.collect(params, 2)
-    assert before == (fused_policy.policy_traj_cuda.launches, fused_update.ppo_update_cuda.launches)
+    actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=128)["actor"]
+    with pytest.raises(NotImplementedError, match=re.escape(
+            "(csrc/mpe_maddpg.cu) are compiled for hidden widths 8, 16, 32, 64; got 128")):
+        fused_maddpg.maddpg_traj_cuda(kernel_scenario("simple_spread"),
+                                      fused_maddpg._kernel_weights(actor, card), 1024, 10, 5,
+                                      1024, 5, 0.1, 0, device=card)
+    wide = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
+                                hidden=128, device=card, compute_dtype=torch.bfloat16)
+    wparams = wide.init_params(torch.Generator().manual_seed(0))
+    batch = wide.collect(wparams, 2)
+    before[0] += 1                                       # K5 takes 128
+    obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = batch
+    with pytest.raises(NotImplementedError, match=re.escape(
+            "(csrc/mpe_update_bf16.cu) are compiled for hidden widths 8, 16, 32, 64; got 128")):
+        wide.update(wparams, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+    assert before == [c.launches for c in counters]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [16, 64])
+@pytest.mark.parametrize("hidden", [16, 64, 256])
 def test_es_generation_launches_k4_per_member_and_matches_plain(card, hidden):
     """One ES generation is ``pop`` launches of K4, whose member scores
     equal the plain version's on the same perturbed weights (1e-5)."""

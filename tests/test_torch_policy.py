@@ -200,7 +200,9 @@ def test_policy_builders_refuse_what_they_do_not_compute():
     # the kernels take the hidden widths they are compiled for, and the
     # scenario's widths
     weights = t_policy._kernel_weights(_params(hidden=48)[1])
-    with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}; got 48")):
+    with pytest.raises(NotImplementedError, match=re.escape(
+            "(csrc/mpe_policy.cu) are compiled for hidden widths 8, 16, 32, 64, 128, 256; "
+            "got 48")):
         t_policy._kernel_args(t_policy._resolve("simple_spread"), weights, 64, 8, 4, 64,
                               torch.device("cuda"))
     wide = t_policy._kernel_weights(_params(hidden=64, name="simple_reference")[1])
@@ -264,24 +266,28 @@ def test_pick_tile_rule():
 
 def test_policy_kernel_wrappers_refuse_uncompiled_widths_before_any_launch():
     """K4's, K5's and K8's wrappers take the hidden width from the weights
-    and raise for a width the kernels are not compiled for (48), naming the
-    compiled ones, before they look at the device (so here, without a card)."""
+    and raise for a width their source is not compiled for (48; K8 also at
+    128, which K4 and K5 take), naming that source's widths, before they look
+    at the device (so here, without a card)."""
     from mpe_tpu_torch.learner.maddpg import init_maddpg
     from mpe_tpu_torch.ops import fused_maddpg
 
     kscn = t_policy._resolve("simple_spread")
     weights = t_policy._kernel_weights(_params(hidden=48)[1])
-    actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=48)["actor"]
     before = (t_policy.policy_traj_cuda.launches, t_policy.policy_rollout_cuda.launches,
               fused_maddpg.maddpg_traj_cuda.launches)
-    named = re.escape("{8, 16, 32, 64}; got 48")
+    named = re.escape("(csrc/mpe_policy.cu) are compiled for hidden widths "
+                      "8, 16, 32, 64, 128, 256; got 48")
     with pytest.raises(NotImplementedError, match=named):
         t_policy.policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=named):
         t_policy.policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=named):
-        fused_maddpg.maddpg_traj_cuda(kscn, fused_maddpg._kernel_weights(actor), 64, 10, 5, 64,
-                                      5, 0.1, 0, device="cpu")
+    for h in (48, 128):
+        actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=h)["actor"]
+        with pytest.raises(NotImplementedError, match=re.escape(
+                f"(csrc/mpe_maddpg.cu) are compiled for hidden widths 8, 16, 32, 64; got {h}")):
+            fused_maddpg.maddpg_traj_cuda(kscn, fused_maddpg._kernel_weights(actor), 64, 10, 5,
+                                          64, 5, 0.1, 0, device="cpu")
     assert before == (t_policy.policy_traj_cuda.launches, t_policy.policy_rollout_cuda.launches,
                       fused_maddpg.maddpg_traj_cuda.launches)
 

@@ -244,44 +244,67 @@ def test_update_builder_refuses_what_it_does_not_compute():
 
 def test_update_wrappers_refuse_uncompiled_widths_before_any_launch():
     """K6's and K7's wrappers take the hidden width from the params and
-    raise for a width the kernels are not compiled for (48), naming the
-    compiled ones, before they look at the device (so here, without a card)."""
-    before = (t_update.ppo_update_cuda.launches, t_update.mappo_update_cuda.launches)
-    kscn, params, batch = _batch(np.float32, hidden=48)
-    tp = params_from_numpy(params, device="cpu")
-    args = [None if x is None else torch.tensor(x) for x in batch]
-    obs, mv_oh, cm_oh, lpo, vold, adv, ret = args
+    raise for a width their source is not compiled for (48; the bf16 kernels
+    also at 128 and 256, which K6 and K7 take), naming that source's widths,
+    before they look at the device (so here, without a card)."""
+    wrappers = (t_update.ppo_update_cuda, t_update.mappo_update_cuda,
+                t_update.ppo_update_bf16_cuda, t_update.mappo_update_bf16_cuda)
+    before = [w.launches for w in wrappers]
     hp = dict(clip=CLIP, vf_coef=VF, ent_coef=ENTC)
-    with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}; got 48")):
-        t_update.ppo_update_cuda(tp, obs, mv_oh, cm_oh, lpo, adv, ret, vold, **hp)
-    team = params_from_numpy(jax.tree.map(np.asarray, j_init_mappo(
-        jax.random.PRNGKey(0), kscn.obs_w, 5, kscn.spec.n_agents, hidden=48)), device="cpu")
-    with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}; got 48")):
-        t_update.mappo_update_cuda(team, obs, mv_oh, cm_oh, lpo, adv[:, 0], ret[:, 0],
-                                   vold[:, 0], **hp)
-    assert before == (t_update.ppo_update_cuda.launches, t_update.mappo_update_cuda.launches)
+    f32 = re.escape("(csrc/mpe_update.cu) are compiled for hidden widths "
+                    "8, 16, 32, 64, 128, 256; got 48")
+    kscn, _, batch = _batch(np.float32, hidden=48)
+    obs, mv_oh, cm_oh, lpo, vold, adv, ret = [None if x is None else torch.tensor(x)
+                                              for x in batch]
+    for h in (48, 128, 256):
+        tp = params_from_numpy(jax.tree.map(np.asarray, init_ac(
+            jax.random.PRNGKey(2), kscn.obs_w, 5, hidden=h, dtype=jnp.float32)), device="cpu")
+        team = params_from_numpy(jax.tree.map(np.asarray, j_init_mappo(
+            jax.random.PRNGKey(0), kscn.obs_w, 5, kscn.spec.n_agents, hidden=h)), device="cpu")
+        bf16 = re.escape(f"(csrc/mpe_update_bf16.cu) are compiled for hidden widths "
+                         f"8, 16, 32, 64; got {h}")
+        for ppo, mappo, named in ((t_update.ppo_update_cuda, t_update.mappo_update_cuda, f32),
+                                  (t_update.ppo_update_bf16_cuda,
+                                   t_update.mappo_update_bf16_cuda, bf16)):
+            if h != 48 and ppo is t_update.ppo_update_cuda:
+                continue                              # K6 and K7 take 128 and 256
+            with pytest.raises(NotImplementedError, match=named):
+                ppo(tp, obs, mv_oh, cm_oh, lpo, adv, ret, vold, **hp)
+            with pytest.raises(NotImplementedError, match=named):
+                mappo(team, obs, mv_oh, cm_oh, lpo, adv[:, 0], ret[:, 0], vold[:, 0], **hp)
+    assert before == [w.launches for w in wrappers]
 
 
 def test_build_targets_name_each_hidden_width():
-    """``_build._target``: one library per (MLP source, hidden width), each
-    name distinct, the width-64 name the one a build without the width had
-    (a hash of the source, the headers and the flags); the sources without
-    an MLP and the widths not compiled are refused."""
+    """``_build._target``: one library per (MLP source, hidden width of
+    that source's table), each name distinct, the width-64 name the one a
+    build without the width had (a hash of the source, the headers and the
+    flags); the sources without an MLP and the widths a source is not
+    compiled for (48 for every one, 128 and 256 for K8/K9's and the bf16
+    sources) are refused, naming that source's widths."""
     import hashlib
 
     from mpe_tpu_torch.ops import _build
 
+    assert _build.HIDDEN_WIDTHS["mpe_policy.cu"] == _build.HIDDEN_WIDTHS["mpe_update.cu"] == (
+        8, 16, 32, 64, 128, 256)
     for source in _build.HIDDEN_SOURCES:
-        names = [_build._target(source, h).name for h in _build.HIDDEN_WIDTHS]
-        assert len(set(names)) == len(_build.HIDDEN_WIDTHS)
+        widths = _build.HIDDEN_WIDTHS[source]
+        names = [_build._target(source, h).name for h in widths]
+        assert len(set(names)) == len(widths)
         text = (_build.CSRC / source).read_bytes() + b"".join(
             (_build.CSRC / h).read_bytes() for h in _build.HEADERS)
         digest = hashlib.sha256(text + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
         assert _build._target(source, 64).name == _build._target(source).name
         assert _build._target(source).name == f"lib{source[:-3]}_{digest}.so"
         assert _build._target(source, 8).name.startswith(f"lib{source[:-3]}_h8_")
-        with pytest.raises(NotImplementedError, match=re.escape("{8, 16, 32, 64}")):
-            _build._target(source, 48)
+        refused = [48] + [h for h in (128, 256) if h not in widths]
+        assert (source in ("mpe_policy.cu", "mpe_update.cu")) == (refused == [48])
+        for h in refused:
+            with pytest.raises(NotImplementedError, match=re.escape(
+                    f"(csrc/{source}) are compiled for hidden widths "
+                    f"{', '.join(map(str, widths))}; got {h}")):
+                _build._target(source, h)
     with pytest.raises(ValueError, match="no hidden width"):
         _build._target("mpe_trajectory.cu", 16)
 

@@ -3,7 +3,7 @@
 card, one checkout after another.
 
     python3 tools/torch_update_ab.py [--maddpg | --maddpg-bf16 | --rollout | --det | --policy |
-        --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases] ROOT [ROOT ...]
+        --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases | --wide] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -109,6 +109,16 @@ each output tensor's bytes, so that two checkouts can be compared bit for
 bit within one call; and the registers and spill bytes of each
 ``policy_traj_kernel``, ``policy_rollout_kernel`` and ``maddpg_traj_kernel``
 instantiation (the largest spill of the kernel and the functions it calls).
+
+With ``--wide`` (K4-K7 at hidden 128 and 256): at each width, K6 and K7 on
+paths b's and b2's batches (simple_spread at the learner batch, a trainer of
+that width from a seeded init) as without a mode (CUDA events, then
+torch.profiler), and K5 (4096 x 64) and K4 (4096 x 1000) with a seeded
+``init_policy`` actor of that width as with ``--policy`` (the rule's tile, a
+SHA-256 of each output); the registers and spill bytes of each
+``ppo_update_wide_kernel``, ``policy_traj_kernel`` and
+``policy_rollout_kernel`` instantiation at that width. A checkout whose
+kernels refuse the width records the refusal.
 
 With ``--trajectory`` (K3): ``fused_trajectory`` on the nine scenarios at
 4096 envs x 64 steps and on simple_spread, simple_reference and
@@ -560,6 +570,56 @@ def time_policy(result: dict, logs: dict) -> None:
         **registers(logs, "mpe_maddpg.cu", "maddpg_traj_kernel")}
 
 
+WIDE = (128, 256)
+
+
+def time_wide(result: dict) -> None:
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step, init_policy
+    from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.ops import fused_policy as fp
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    kscn = kernel_scenario("simple_spread")
+    for h in WIDE:
+        row = result[f"hidden_{h}"] = {}
+        try:
+            logs = _build.build([(s, h) for s in ("mpe_policy.cu", "mpe_update.cu")])
+        except (NotImplementedError, ValueError) as e:
+            row["refused"] = str(e)
+            continue
+        for path, build in (("b", build_fused_ppo_step), ("b2", build_fused_mappo_step)):
+            step = build("simple_spread", **dict(TRAIN, hidden=h))
+            params = step.init_params(torch.Generator().manual_seed(0))
+            obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
+            args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+            row[path] = {"ms": median_ms(lambda: step.update(*args)),
+                         **profile_call(lambda: step.update(*args))}
+            del step, args, obs, mv_oh, cm_oh, logp_old, value, adv_n, ret
+            torch.cuda.empty_cache()
+        actor = {k: {q: x.cuda() for q, x in layer.items()} for k, layer in
+                 init_policy(torch.Generator().manual_seed(40), kscn.obs_w, kscn.n_logits,
+                             hidden=h).items()}
+        weights = fp._kernel_weights(actor, "cuda")
+        k4, k5 = POLICY_K4, POLICY_K5
+        for kernel, fn, tile in (
+                ("K4", lambda: fp.policy_rollout_cuda(
+                    kscn, weights, k4["n_envs"], k4["n_steps"], k4["horizon"], k4["block_envs"],
+                    1, 0, "cuda"), fp.policy_tile(kscn, k4["n_envs"], "rollout", hidden=h)),
+                ("K5", lambda: fp.policy_traj_cuda(
+                    kscn, weights, k5["n_envs"], k5["n_steps"], k5["horizon"],
+                    k5["block_envs"], k5["t_chunk"], 1, 0, "cuda"),
+                 fp.policy_tile(kscn, k5["n_envs"], "traj", hidden=h))):
+            out = fn()
+            row[kernel] = {"ms": median_ms(fn), "tile": tile, "sha256": sha256s(out)}
+        row["registers_spill_bytes"] = {
+            **registers({s: logs[s, h] for s in ("mpe_update.cu",)}, "mpe_update.cu",
+                        "ppo_update_wide_kernel"),
+            **registers({s: logs[s, h] for s in ("mpe_policy.cu",)}, "mpe_policy.cu",
+                        ("policy_traj_kernel", "policy_rollout_kernel"))}
+
+
 TRAJ_AB = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
 TRAJ_AB_SHAPES = tuple((name, 4096) for name in SCENARIOS) + tuple(
     (name, 65_536) for name in ("simple_spread", "simple_reference", "simple_world_comm"))
@@ -862,6 +922,8 @@ def child(mode: str, root: str) -> None:
         time_bf16_stages(result)
     elif mode == "maddpg-bf16-phases":
         time_maddpg_bf16_phases(result)
+    elif mode == "wide":
+        time_wide(result)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -875,7 +937,7 @@ def main() -> int:
     mode = {"--maddpg": "maddpg", "--maddpg-bf16": "maddpg-bf16", "--rollout": "rollout",
             "--det": "det", "--policy": "policy", "--trajectory": "trajectory",
             "--bf16": "bf16", "--bf16-stages": "bf16-stages",
-            "--maddpg-bf16-phases": "maddpg-bf16-phases"}.get(
+            "--maddpg-bf16-phases": "maddpg-bf16-phases", "--wide": "wide"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
