@@ -267,8 +267,8 @@ failure ends the run with a non-zero exit code:
      plain versions (params within 1e-5), and the MADDPG runner on
      simple_spread at hidden 8 for 2 chunks (K8, K9) and one update chunk
      against the plain chunk (within 1e-4); the phase's seconds printed;
-  3c. the wide widths, 128 and 256, which K4-K7 take (K8, K9 and the bf16
-     kernels refuse them): at each, on simple_spread and simple_world_comm
+  3c. the wide widths, 128 and 256, which K4-K9 take (the bf16 kernels
+     refuse them): K4-K7 at each, on simple_spread and simple_world_comm
      (K7's widest critic) at 1024 envs x 64 steps, K5 and K4 held as in 3b
      and K6 and K7 on a trainer's batch and with both clips binding; then
      paths b and b2 at TRAIN's shape with that width, 5 iterations each,
@@ -279,6 +279,17 @@ failure ends the run with a non-zero exit code:
      envs x 1000 steps (horizon 25, launches read), K5 against its plain
      version there, K4 at 4096 envs x 200 steps; `evaluate_policy` and `es_train` (2 generations) with
      `--hidden` at that width, K4 alone launched; the phase's seconds;
+  3d. K8 and K9 at 128 and 256: at each, on simple_spread and
+     simple_world_comm (the widest joint, 258) at path d's shape, K8 at
+     1024 envs x 25 steps (an init_maddpg actor of that width, O(1) logits,
+     eps 0.1) with actions equal to the plain version's and another tile
+     equal bit for bit in both forms, K9 on 1024 of its rows (target actions
+     equal, each leaf within 1e-4 of its largest entry), each timed beside
+     its plain version, K9 also beside autograd of the losses and against
+     its bound; then the runner at that width for 12
+     chunks (actor_start 0; 11 timed), by phase, its launches read, K9 gated again on
+     its ring with the trained params and one update chunk under
+     torch.profiler; the phase's seconds;
   4. the collect phases of paths b-b4 and d-d3 printed beside K5's and
      K8's times at the same shapes; the plain versions timed at the main
      paths' shapes (K1's of the eight others at 4096 envs x 200 steps),
@@ -399,7 +410,10 @@ POLICY_TILE_RULE = ("ops/fused_policy.py::pick_tile (policy_tile for K4 and K5, 
                     "card reports them) and whose (agent, lane) rows fill a warp's items")
 K9_TILE = {"samples_per_cta": "1024 / hidden (16 at 64)", "threads": 128,
            "micro_tile": "2 samples x 4 units", "grid": "batch / samples_per_cta x agents",
-           "weight_grad_micro_tile": "4 x 4"}
+           "weight_grad_micro_tile": "4 x 4",
+           "at_128_and_256": "tiles of 32 samples, 256 threads, 4 units x 4 samples a thread; "
+                             "the gradient on a persistent grid of the CTAs the card holds, "
+                             "shared among the agents, each adding its tiles into its partial"}
 K1_PLAIN_STEPS = 200
 # the other scenarios (K2) and the trajectories (K3): the learner batch of
 # tools/train_bench.py and tools/tpu_smoke.py's t_chunk; the gate's shape
@@ -428,8 +442,8 @@ HIDDEN_NAMES = ("simple_spread", "simple_speaker_listener")
 HIDDEN_GATE = dict(n_envs=1024, n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
 HIDDEN_TRAINERS = (("PPO", 16), ("MAPPO", 32))
 HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
-# phase 3c: hidden 128 and 256, which K4-K7 take (mpe_policy.cu and
-# mpe_update.cu; K8, K9 and the bf16 kernels refuse them): the kernels against
+# phase 3c: hidden 128 and 256, which K4-K9 take (mpe_policy.cu, mpe_update.cu
+# and mpe_maddpg.cu; the bf16 kernels refuse them): K4-K7 against
 # their plain versions on WIDE_NAMES at HIDDEN_GATE's shape (simple_world_comm:
 # K7's widest critic, 204 inputs), then paths b and b2 at TRAIN's shape with
 # each width for WIDE_ITERS iterations, K5, K6 and K7 timed on their shapes
@@ -437,6 +451,15 @@ HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
 WIDE_PHASE = (128, 256)
 WIDE_NAMES = ("simple_spread", "simple_world_comm")
 WIDE_ITERS = 5
+# phase 3d: K8 and K9 (mpe_maddpg.cu) at WIDE_PHASE's widths: the kernels
+# against their plain versions at path d's shape on WIDE_MADDPG_NAMES
+# (simple_world_comm: the widest joint, 258), then the runner at each width for
+# WIDE_MADDPG_CHUNKS chunks (chunk 0 is the warm-up) with actor_start 0: 11
+# timed chunks, where 2 let one slow chunk (the host's, at 128) set the rate
+WIDE_MADDPG_NAMES = ("simple_spread", "simple_world_comm")
+WIDE_MADDPG_CHUNKS = 12
+K9_WIDE_KERNELS = ("maddpg_target_actions_wide_kernel", "maddpg_td_wide_kernel",
+                   "maddpg_update_wide_kernel", "maddpg_reduce_kernel")
 # the examples that take --hidden, run in phase 3c at each wide width (es_train
 # for 2 generations of its 16 members)
 WIDE_EXAMPLES = (("evaluate_policy", []), ("es_train", ["--gens", "2"]))
@@ -911,49 +934,49 @@ def policy_ops(name: str, h: int = 64) -> tuple[dict, dict]:
              "env": {}})
 
 
-def maddpg_ops(name: str) -> dict:
+def maddpg_ops(name: str, h: int = 64) -> dict:
     """K8's operations (csrc/mpe_maddpg.cu::maddpg_traj_kernel<S>) from K3's
     step on the same scenario, which hashes the move columns of every agent
     and the comm of the speakers: K8 instead draws per agent and head a
     Gumbel-max of the logits and one of zeros (2 (5 + C) GUMBEL draws), an
     eps coin per head (a hash, compare, select) with 3 salts, runs the MLP
-    OW-64-64-(5+C), sets the one-hots (5 + C compares), and computes the obs
-    twice (the s' rows: A OW more)."""
+    OW-h-h-(5+C) (h the hidden width), sets the one-hots (5 + C compares), and
+    computes the obs twice (the s' rows: A OW more)."""
     a, ow, c, speakers, _ = widths(name)
     heads = 2 if c else 1
-    agent = _ops(*torso(ow), dense(64, 5 + c), (2 * (5 + c), GUMBEL),
+    agent = _ops(*torso(ow, h), dense(h, 5 + c), (2 * (5 + c), GUMBEL),
                  (heads, {"int": 13, "cvt": 1, "fp32": 3}), (5 + c, {"int": 1}))
     step = _ops((1, TRAJ_OPS[name]["step"]), (-(5 * a + c * speakers), HASH), (a, agent),
                 (1, {"fp32": a * ow}))
     return {"step": step, "reset": TRAJ_OPS[name]["reset"], "env": {}}
 
 
-def maddpg_update_ops(name: str) -> dict:
-    """K9's operations per (sample, agent) pair (csrc/mpe_maddpg.cu), a
-    "step" being a sample of one agent: the target actor and its first
-    argmax per head (a compare and a select per logit); the target critic
-    (J-64-64-1) and y (1 fma); the critic forward with the candidates' base
-    (64 x (K fma + 1)); each of the 5 max(C, 1) candidates: + base (64),
-    tanh, layers 2-3; d, g3 and the backward pass (64 x 3, 64 x 64 + 64 x
-    2); the critic's weight gradients (64 J + 64 x 64 + 64 multiply-adds,
-    129 bias sums); the actor forward; per head the softmax, entropy and
-    logit gradient (18 fp32 and 3 SFU per logit: exp, reciprocal, log), and
-    with comm the two qbar sums (2 per candidate); the actor backward and
-    weight gradients as in K7."""
+def maddpg_update_ops(name: str, h: int = 64) -> dict:
+    """K9's operations per (sample, agent) pair (csrc/mpe_maddpg.cu) at hidden
+    width h, a "step" being a sample of one agent: the target actor and its
+    first argmax per head (a compare and a select per logit); the target
+    critic (J-h-h-1) and y (1 fma); the critic forward with the candidates'
+    base (h x (K fma + 1)); each of the 5 max(C, 1) candidates: + base (h),
+    tanh, layers 2-3; d, g3 and the backward pass (h x 3, h x h + h x 2); the
+    critic's weight gradients (h J + h x h + h multiply-adds, 2 h + 1 bias
+    sums); the actor forward; per head the softmax, entropy and logit gradient
+    (18 fp32 and 3 SFU per logit: exp, reciprocal, log), and with comm the two
+    qbar sums (2 per candidate); the actor backward and weight gradients as
+    in K7."""
     a, ow, c, _, _ = widths(name)
     k, n_cand = 5 + c, 5 * max(c, 1)
     j = a * (ow + k)
-    critic_tail = _ops(dense(64, 64), (64, TANH), dense(64, 1))
+    critic_tail = _ops(dense(h, h), (h, TANH), dense(h, 1))
     sample = _ops(
-        *torso(ow), dense(64, k), (1, {"fp32": 2 * k}),
-        dense(j, 64), (64, TANH), (1, critic_tail), (1, {"fp32": 1}),
-        dense(j, 64), (64, {"fp32": k + 1}), (64, TANH), (1, critic_tail),
-        (n_cand * 64, {"fp32": 1}), (n_cand * 64, TANH), (n_cand, critic_tail),
-        (1, {"fp32": 2 + 64 * 3 + 64 * 64 + 64 * 2}), (1, {"fp32": 64 * j + 64 * 64 + 64 + 129}),
-        *torso(ow), dense(64, k), (k, {"fp32": 18, "sfu": 3}),
+        *torso(ow, h), dense(h, k), (1, {"fp32": 2 * k}),
+        dense(j, h), (h, TANH), (1, critic_tail), (1, {"fp32": 1}),
+        dense(j, h), (h, {"fp32": k + 1}), (h, TANH), (1, critic_tail),
+        (n_cand * h, {"fp32": 1}), (n_cand * h, TANH), (n_cand, critic_tail),
+        (1, {"fp32": 2 + h * 3 + h * h + h * 2}), (1, {"fp32": h * j + h * h + h + 2 * h + 1}),
+        *torso(ow, h), dense(h, k), (k, {"fp32": 18, "sfu": 3}),
         (1 if c else 0, {"fp32": 2 * n_cand}),
-        (1, {"fp32": 64 * (k + 2) + 64 * 64 + 64 * 2}),
-        (1, {"fp32": 64 * ow + 64 * 64 + k * 64 + 128 + k}))
+        (1, {"fp32": h * (k + 2) + h * h + h * 2}),
+        (1, {"fp32": h * ow + h * h + k * h + 2 * h + k}))
     return {"step": sample, "reset": {}, "env": {}}
 
 
@@ -1335,24 +1358,25 @@ def bf16_path(wrappers, f32_last: dict) -> dict:
     return out
 
 
-def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CHUNKS):
+def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CHUNKS,
+                hidden: int = 64, actor_start: int = MADDPG_ACTOR_START):
     """Main path d (simple_spread), d2 or d3 (the comm scenarios of
     MADDPG_COMM): the fused MADDPG loop (K8 collection, K9 updates) on
     ``name`` for ``n_chunks`` chunks, timed by phase with CUDA events ->
     (launches, launches by scenario, runner, params, info, transitions/s,
-    mean collect ms per chunk)."""
+    mean collect ms per chunk, mean update ms per chunk). Phase 3d runs it at
+    the wide ``hidden`` widths with ``actor_start`` 0."""
     import torch
 
     from mpe_tpu_torch.learner import build_fused_maddpg_runner
 
-    label = f"MADDPG ({name})"
-    run = build_fused_maddpg_runner(name, **MADDPG)
+    label = f"MADDPG ({name})" if hidden == 64 else f"MADDPG ({name}, hidden {hidden})"
+    run = build_fused_maddpg_runner(name, hidden=hidden, **MADDPG)
     horizon = MADDPG["horizon"]
     zero_launches(wrappers)
     events = []
     t0 = time.perf_counter()
-    params, info = run(n_chunks * horizon, seed=0, actor_start=MADDPG_ACTOR_START,
-                       events=events)
+    params, info = run(n_chunks * horizon, seed=0, actor_start=actor_start, events=events)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     kernels = ["maddpg_traj_kernel", "maddpg_update_kernel"]
@@ -1373,13 +1397,16 @@ def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CH
           f"{total_ms:.3f} ms); mean per chunk {total_ms / len(steady):.3f} ms: collect "
           f"{collect_ms / len(steady):.3f} ms (K8 + insert), update {update_ms / len(steady):.3f} "
           f"ms ({horizon} x gather + K9 + Adam + polyak); median chunk "
-          f"{statistics.median(a + b for a, b in steady):.3f} ms; the whole run with the warm-up "
-          f"{wall_s:.2f} s (host clock)")
+          f"{statistics.median(a + b for a, b in steady):.3f} ms; collect per chunk min, median, "
+          f"max {min(a for a, _ in steady):.3f}, {statistics.median(a for a, _ in steady):.3f}, "
+          f"{max(a for a, _ in steady):.3f} ms; the whole run with the warm-up {wall_s:.2f} s "
+          "(host clock)")
     print(f"{label} chunk 0: mean reward {float(mr[0]):.6f}, critic loss {float(cl[0]):.6f}; "
           f"chunk {n_chunks - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
           f"{float(cl[-1]):.6f}; ring {info['buffer'].size} of {run.capacity} rows "
           f"({info['buffer'].data.numel() * 4 / 1e6:.0f} MB)")
-    return launches, by, run, params, info, rate, collect_ms / len(steady)
+    return (launches, by, run, params, info, rate, collect_ms / len(steady),
+            update_ms / len(steady))
 
 
 def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
@@ -1518,14 +1545,14 @@ def det_bytes(name: str, n_envs: int) -> int:
     return 4 * n_envs * (reads + ep + 2 * kscn.reward_rows + spec.n_agents * kscn.obs_w)
 
 
-def maddpg_widths(name: str) -> tuple[int, int, int, int, int, int]:
+def maddpg_widths(name: str, h: int = 64) -> tuple[int, int, int, int, int, int]:
     """(agents, obs width, actor head 5 + C, replay row width, floats of one
-    actor, floats of one critic) of a scenario's MADDPG nets, hidden 64."""
+    actor, floats of one critic) of a scenario's MADDPG nets, hidden h."""
     a, ow, c, _, _ = widths(name)
     k = 5 + c
     j = a * (ow + k)
-    nw = 64 * ow + 64 + 64 * 64 + 64 + k * 64 + k
-    nc = 64 * j + 64 + 64 * 64 + 64 + 64 + 1
+    nw = h * ow + h + h * h + h + k * h + k
+    nc = h * j + h + h * h + h + h + 1
     return a, ow, k, a * (2 * ow + k + 1), nw, nc
 
 
@@ -2308,25 +2335,26 @@ def gate_maddpg_update(name: str, params: dict, rows_all, label: str):
 
 def check_maddpg_update(name: str, params: dict, rows_all, label: str):
     """K9 on ``name`` against its plain version on MADDPG["batch"] rows drawn
-    from ``rows_all``, with ``params`` and targets = params + 0.1 N(0, 1):
-    target actions per head equal (the smallest gap between a head's best
-    and second target logit printed), each gradient leaf within GRAD_TOL of
-    its largest entry, the metrics within METRIC_RTOL; then K9, its plain
-    version and autograd of the losses timed -> (max abs err, ms, plain ms,
-    library ms, bound, ms from trees): ms is the trainer's call, K9's
-    launcher on the packed weight buffer."""
+    from ``rows_all``, with ``params`` (of any compiled hidden width) and
+    targets = params + 0.1 N(0, 1): target actions per head equal (the
+    smallest gap between a head's best and second target logit printed),
+    each gradient leaf within GRAD_TOL of its largest entry, the metrics
+    within METRIC_RTOL; then K9, its plain version and autograd of the losses
+    timed -> (max abs err, ms, plain ms, library ms, bound, ms from trees): ms
+    is the trainer's call, K9's launcher on the packed weight buffer."""
     import torch
 
     from mpe_tpu_torch.learner.maddpg import maddpg_xla_grads
     from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher, _split_rows
 
-    a, ow, k, width, nw, nc = maddpg_widths(name)
+    hidden = params["actor"]["l1"]["w"].shape[-1]
+    a, ow, k, width, nw, nc = maddpg_widths(name, hidden)
     b, cw = MADDPG["batch"], k - 5
     worst, rows, targets, grads_fn = gate_maddpg_update(name, params, rows_all, label)
 
     # the trainer's call: K9's launcher on the packed buffers; from_rows packs
     # the trees on every call
-    k9 = MaddpgUpdateLauncher(a, ow, k, 5, 64, b, "cuda", gamma=0.95, ent_coef=0.01)
+    k9 = MaddpgUpdateLauncher(a, ow, k, 5, hidden, b, "cuda", gamma=0.95, ent_coef=0.01)
     lay = k9.layout
     weights = lay.pack(params, targets).cuda()
     flat_grads = torch.empty(lay.off_ta, device="cuda")
@@ -2337,7 +2365,7 @@ def check_maddpg_update(name: str, params: dict, rows_all, label: str):
     split = _split_rows(rows, a, ow, k)
     lib_ms, _ = cuda_time(lambda: maddpg_xla_grads(params, targets, *split, mw=5, cw=cw,
                                                    gamma=0.95, ent_coef=0.01), REPEATS)
-    bound = bound_ms(OPS[f"maddpg_update_kernel[{name}]"], b * a, 0, 0,
+    bound = bound_ms(maddpg_update_ops(name, hidden), b * a, 0, 0,
                      4 * (b * width + 2 * a * (nw + nc) + a * (nw + nc + 3)))
     print(f"K9 ({name}, {label}) {ms:.4f} ms per call on the packed buffers (batch {b}; "
           f"{tree_ms:.4f} ms from trees), plain {plain_ms:.3f} ms, autograd of the losses "
@@ -3060,6 +3088,115 @@ def wide_widths_phase(wrappers, regs_at: dict) -> dict:
             out[k][h] = row
     out["seconds"] = time.perf_counter() - t0
     print(f"hidden widths {WIDE_PHASE}: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
+def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
+    """Phase 3d (the module docstring): K8 and K9 at each width of WIDE_PHASE
+    on WIDE_MADDPG_NAMES at path d's shape against their plain versions and
+    timed, then the MADDPG runner at that width on each for
+    WIDE_MADDPG_CHUNKS chunks (K8, K9; actor_start 0), K9 gated again on its
+    ring with the trained params -> {kernel: {hidden: row}} (each row as the
+    kernels line's: launches on the runs, max abs err over the gates, ms,
+    plain ms, bound, library ms (K9: autograd of the losses), registers by
+    scenario; K8 its tile, K9 its device ms an update in the runner's
+    profiled chunk), "paths": {path:
+    transitions/s and ms by phase}, "seconds": s."""
+    import torch
+
+    from mpe_tpu_torch.learner.maddpg import collect_t_chunk, init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    t0 = time.perf_counter()
+    kernels = ("maddpg_traj_kernel", "maddpg_update_kernel")
+    regs_key = {"maddpg_traj_kernel": "maddpg_traj_kernel",
+                "maddpg_update_kernel": "maddpg_update"}
+    out = {k: {} for k in kernels}
+    out["paths"] = {}
+    mn, mh, mb = MADDPG["n_envs"], MADDPG["horizon"], MADDPG["batch"]
+    t_chunk = collect_t_chunk(mh)
+    for h in WIDE_PHASE:
+        rows = {k: {"launches": 0, "max_abs_err": 0.0, "by_scenario": {},
+                    "registers_spill_bytes": {n: registers_of(regs_at[h], regs_key[k], n)
+                                              for n in WIDE_MADDPG_NAMES}} for k in kernels}
+        for i, name in enumerate(WIDE_MADDPG_NAMES):
+            kscn = kernel_scenario(name)
+            a, ow, k, width, nw, _ = maddpg_widths(name, h)
+            tag = f"{name}, hidden {h}"
+            # K8: MADDPG nets of this width, the actor's head at O(1), both
+            # forms against the plain version, another tile bit for bit
+            mp = {n: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
+                  for n, net in init_maddpg(torch.Generator().manual_seed(110 + h + i), ow, k,
+                                            a, hidden=h).items()}
+            mp["actor"]["out"]["w"] = mp["actor"]["out"]["w"] * 100.0
+            kw = dict(horizon=mh, eps_greedy=0.1, block_envs=BLOCK_ENVS, t_chunk=t_chunk)
+            tens = fused_maddpg.fused_maddpg_trajectory(name, mp["actor"], mn, mh, **kw)
+            emit = fused_maddpg.fused_maddpg_trajectory(name, mp["actor"], mn, mh,
+                                                        emit_rows=True, **kw)
+            got, ref = tens(3, mp["actor"]), tens.plain(3, mp["actor"])
+            report_actions(f"K8 ({tag})", got[1], ref[1])
+            errs = {key: max_err(x, y) for key, x, y in zip(("obs", "act", "rew", "obs2"), got,
+                                                            ref)}
+            got_rows = emit(3, mp["actor"])
+            errs["rows"] = max_err(got_rows, replay_rows(*got))
+            err8 = check(f"K8 ({tag}, {mn} envs x {mh} steps, both forms)", errs)
+            tile = fused_maddpg.maddpg_tile(kscn, mn, hidden=h)
+            alt = other_tile(fused_maddpg.MADDPG_TILES, tile)
+            weights = fused_maddpg._kernel_weights(mp["actor"], "cuda")
+            for rows_form, want in ((False, got), (True, got_rows)):
+                same_bits(f"K8 ({tag}, rows {rows_form}) at tile {alt} against tile {tile}",
+                          fused_maddpg.maddpg_traj_cuda(kscn, weights, mn, mh, mh, BLOCK_ENVS,
+                                                        t_chunk, 0.1, 3, 0, rows_form, "cuda",
+                                                        tile=alt), want)
+            ms8, _ = cuda_time(lambda: emit(1, mp["actor"]), REPEATS)
+            plain8, _ = cuda_time(lambda: emit.plain(1, mp["actor"]), 1)
+            b8 = bound_ms(maddpg_ops(name, h), mn * mh, mn * 2, mn,
+                          4 * (mn * mh * width + a * nw))
+            print(f"K8 ({tag}) {ms8:.4f} ms ({mn} envs x {mh} steps, rows form, tile {tile}), "
+                  f"plain {plain8:.1f} ms; bound {b8[0]:.4f} ms by {b8[1]} "
+                  f"({ms8 / b8[0]:.2f}x); issue floor {b8[2]:.4f} ms")
+            # K9 on MADDPG["batch"] of the rows K8 collected, then timed beside its
+            # plain version and autograd of the losses, its device time a call
+            flat = got_rows.reshape(mn * mh, width)
+            err9, ms9, plain9, lib9, b9, tree9 = check_maddpg_update(name, mp, flat, tag)
+            del got, ref, got_rows, tens, emit
+            # the runner at this width: WIDE_MADDPG_CHUNKS chunks by phase, its
+            # launches read; K9 gated on its ring with the trained params
+            (launches, by, run, params, info, rate, collect_ms,
+             update_ms) = maddpg_path(wrappers, name, WIDE_MADDPG_CHUNKS, hidden=h, actor_start=0)
+            ring = info["buffer"]
+            err_ring = check_maddpg_update(name, params, ring.data[:ring.size],
+                                           f"{tag}, the runner's ring and params")[0]
+            prof = profile_maddpg_update(name, run, params, info, K9_WIDE_KERNELS)
+            key = f"MADDPG on {name} at hidden {h}"
+            out["paths"][key] = {"transitions_per_s": rate, "chunks": WIDE_MADDPG_CHUNKS,
+                                 "ms_per_chunk_by_phase": {"collect": collect_ms,
+                                                           "update": update_ms},
+                                 "launches": launches, **prof}
+            del run, params, info, ring
+            scn = {"maddpg_traj_kernel": dict(
+                       launches=by["maddpg_traj_kernel"][name], max_abs_err=err8, ms=ms8,
+                       plain_ms=plain8, bound_ms=b8[0], bound_by=b8[1], library_ms=None,
+                       tile=tile, timed_on=f"{mn} envs x {mh} steps, rows form"),
+                   "maddpg_update_kernel": dict(
+                       launches=by["maddpg_update_kernel"][name],
+                       max_abs_err=max(err9, err_ring), ms=ms9,
+                       device_ms_per_update=prof.get("device_ms_per_update", "not measured"),
+                       plain_ms=plain9, bound_ms=b9[0], bound_by=b9[1], library_ms=lib9,
+                       from_trees_ms=tree9, timed_on=f"batch {mb} of K8's rows")}
+            for kname, r in scn.items():
+                rows[kname]["by_scenario"][name] = r
+                rows[kname]["launches"] += r["launches"]
+                rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], r["max_abs_err"])
+        for kname in kernels:             # the top-level numbers: simple_spread's
+            top = rows[kname]["by_scenario"][WIDE_MADDPG_NAMES[0]]
+            rows[kname].update({q: top[q] for q in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")},
+                               timed_on=f"{WIDE_MADDPG_NAMES[0]}, {top['timed_on']}")
+            out[kname][h] = rows[kname]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"MADDPG at hidden widths {WIDE_PHASE}: every gate passed in {out['seconds']:.1f} s")
     return out
 
 
@@ -4584,6 +4721,7 @@ def main() -> int:
     k3_group_ms = check_trajectory_groups()
     hidden = hidden_widths_phase(wrappers)
     wide = wide_widths_phase(wrappers, regs_at)
+    wide_m = wide_maddpg_phase(wrappers, regs_at)
     # path h, the multi-device path and checkpoint/trace, runs after every other
     # phase: it starts a process group (nccl) and launches ranks, and the
     # profiler passes above then run in a process that has done neither. Its DP
@@ -4812,6 +4950,10 @@ def main() -> int:
             row["wide_widths"] = wide[row["name"]]
             row["wide_widths_phase"] = {"seconds": wide["seconds"], "paths": wide["paths"],
                                         "examples": wide["examples"]}
+        # K8 and K9 at 128 and 256 (phase 3d)
+        if row["name"] in wide_m:
+            row["wide_widths"] = wide_m[row["name"]]
+            row["wide_widths_phase"] = {"seconds": wide_m["seconds"], "paths": wide_m["paths"]}
     # paths h and i per kernel: its launches by phase and rank (h) and by the
     # example that launched it (i); for the gradient kernels the DP step's ms
     # and the all_reduce of their gradient

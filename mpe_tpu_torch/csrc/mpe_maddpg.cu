@@ -82,13 +82,30 @@
 // scales the metric sums. No float atomics: the result is the same from run
 // to run. Tensor cores (TF32 or 3xTF32) would sum in another order and are
 // left out.
+//
+// Hidden 128 and 256. The A actors no longer fit a CTA (235 KB at 128 on
+// simple_spread), so K8 reads them from device memory (ACTORS_SMEM), its
+// hidden layers on 8-row items that share each weight load within an agent's
+// rows, as K4 and K5 do there. K9's nets and its per-tile partials would not
+// fit either (about 480 MB of partials an update on simple_spread at 256):
+// it runs three wide kernels on tiles of 32 samples that stream the nets from
+// device memory in slices, its gradient on a persistent grid whose CTAs add
+// each tile into their own partial ("K9 at hidden 128 and 256" below). Widths
+// 8-64 keep the kernels above unchanged.
 
 #include "policy_mlp.cuh"
+#include "wide_stream.cuh"
 
-static_assert(H == 8 || H == 16 || H == 32 || H == 64,
-              "K8 and K9 take hidden 8, 16, 32 or 64 (ops/_build.py::HIDDEN_WIDTHS)");
+static_assert(H == 8 || H == 16 || H == 32 || H == 64 || H == 128 || H == 256,
+              "K8 and K9 take hidden 8, 16, 32, 64, 128 or 256 (ops/_build.py::HIDDEN_WIDTHS)");
 
 namespace {
+
+// Where K8's actors sit: up to hidden 64 in the CTA's shared memory; from 128
+// in device memory (A actors of 19,589 floats at 128 on simple_spread are
+// already 235 KB), read through the caches by 8-row items
+// (tile_dense_tanh_x2), as K4 and K5 read theirs there
+constexpr bool ACTORS_SMEM = H <= 64;
 
 // The widths of one scenario's MADDPG nets and replay rows: A agents, OW obs
 // rows, a head of MW moves and C comm logits (0 without comm), hidden H
@@ -233,13 +250,13 @@ maddpg_traj_kernel(const typename S::Params c, const float* __restrict__ weights
   static_assert(R == 1 || R == A, "a replay row holds one reward per agent");
   extern __shared__ __align__(16) float smem[];
   const TileRows tr = tile_rows(tile, A);
-  float* const w = smem;
-  float* const xb = w + A * M::NWP;          // two input-row buffers, OW LDX floats each
-  float* const h1 = xb + 2 * OW * tr.ldx;    // then the logits
+  const float* const w = ACTORS_SMEM ? smem : weights;
+  float* const xb = smem + (ACTORS_SMEM ? A * M::NWP : 0);   // two input-row buffers,
+  float* const h1 = xb + 2 * OW * tr.ldx;    // then the logits     // OW LDX floats each
   float* const h2 = h1 + H * tr.ldx;
   int* const acts = reinterpret_cast<int*>(h2 + H * tr.ldx);
   float* const rews = reinterpret_cast<float*>(acts + tr.nr);
-  load_float4s(w, weights, A * M::NWP / 4);
+  if constexpr (ACTORS_SMEM) load_float4s(smem, weights, A * M::NWP / 4);
 
   const int g0 = blockIdx.x * tile;
   const int tlv = n_envs - g0 < tile ? n_envs - g0 : tile;      // lanes of a ragged tile
@@ -271,7 +288,7 @@ maddpg_traj_kernel(const typename S::Params c, const float* __restrict__ weights
       float* const x = xb + cur * OW * tr.ldx;
       float* const x2 = xb + (cur ^ 1) * OW * tr.ldx;
       __syncthreads();                                 // x holds the tile's obs
-      tile_mlp<OW, K>(w, M::NWP, x, h1, h2, tr);
+      tile_mlp<OW, K, !ACTORS_SMEM>(w, M::NWP, x, h1, h2, tr);
       sample_rows<S>(h1, acts, tr, tlv, g0, n, seed, block_offset, chunk, step, eps);
       __syncthreads();
       t += 1;
@@ -618,24 +635,24 @@ __device__ __forceinline__ int first_argmax(const float (&z)[KP]) {
   return best;
 }
 
-// rows r0.. of width NR of the replay rows [b][RW] into tile rows, one column per
-// sample (row b0 + s, or b0 past the batch); consecutive threads read
-// consecutive floats of a replay row
-template <int NR>
+// rows r0.. of width NR of the replay rows [b][RW] into tile rows (TS samples,
+// rows LD floats apart), one column per sample (row b0 + s, or b0 past the
+// batch); consecutive threads read consecutive floats of a replay row
+template <int NR, int TS = TS9, int LD = LD9>
 __device__ __forceinline__ void load_rows(const float* __restrict__ rows, int rw, int r0, int b0,
                                           int batch, float* dst) {
-  for (int e0 = threadIdx.x; e0 < NR * TS9; e0 += LOADS9 * blockDim.x) {
+  for (int e0 = threadIdx.x; e0 < NR * TS; e0 += LOADS9 * blockDim.x) {
     float v[LOADS9];
 #pragma unroll
     for (int p = 0; p < LOADS9; ++p) {
       const int e = e0 + p * blockDim.x, s = e / NR;
       const int b = b0 + s < batch ? b0 + s : b0;
-      if (e < NR * TS9) v[p] = rows[(size_t)b * rw + r0 + e - s * NR];
+      if (e < NR * TS) v[p] = rows[(size_t)b * rw + r0 + e - s * NR];
     }
 #pragma unroll
     for (int p = 0; p < LOADS9; ++p) {
       const int e = e0 + p * blockDim.x, s = e / NR;
-      if (e < NR * TS9) dst[(e - s * NR) * LD9 + s] = v[p];
+      if (e < NR * TS) dst[(e - s * NR) * LD + s] = v[p];
     }
   }
 }
@@ -682,17 +699,17 @@ maddpg_target_actions_kernel(const float* __restrict__ weights, const float* __r
   }
 }
 
-// _softmax_eps of one head, logits z[K0, K0 + W) (stride TS9): p, s = log(p +
+// _softmax_eps of one head, logits z[K0, K0 + W) (stride ZS): p, s = log(p +
 // 1e-10) + p / (p + 1e-10) -> the entropy -sum p log(p + 1e-10), each sum in
 // index order
-template <int K0, int W, int K>
+template <int K0, int W, int K, int ZS>
 __device__ __forceinline__ float softmax_eps(const float* z, float (&p)[K], float (&sv)[K]) {
   float zm = 0.0f, sum = 0.0f, ent = 0.0f;
 #pragma unroll
-  for (int c = 0; c < W; ++c) zm = c == 0 ? z[K0 * TS9] : fmaxf(zm, z[(K0 + c) * TS9]);
+  for (int c = 0; c < W; ++c) zm = c == 0 ? z[K0 * ZS] : fmaxf(zm, z[(K0 + c) * ZS]);
 #pragma unroll
   for (int c = 0; c < W; ++c) {
-    p[K0 + c] = expf(z[(K0 + c) * TS9] - zm);
+    p[K0 + c] = expf(z[(K0 + c) * ZS] - zm);
     sum = c == 0 ? p[K0] : sum + p[K0 + c];
   }
 #pragma unroll
@@ -704,6 +721,51 @@ __device__ __forceinline__ float softmax_eps(const float* z, float (&p)[K], floa
     ent = ent - pc * lg;
   }
   return ent;
+}
+
+// One sample's actor head: _softmax_eps per head on its logits z (stride ZS),
+// the expected Q E over its candidates' Q (qc, stride ZS) and the logit
+// gradient -(p (qbar - E)) + ent_coef p (s - sum p s), times inv, into g[c
+// ldg] (0 for a sample past the batch) -> its objective term E + ent_coef
+// entropy (0 past the batch)
+template <class D, int ZS>
+__device__ __forceinline__ float actor_head(const float* z, const float* qc, float* g, int ldg,
+                                            bool valid, const MaddpgConsts& k) {
+  constexpr int K = D::K, C = D::C, CX = D::CX;
+  float p[K], sv[K];
+  const float ent = softmax_eps<0, MW, K, ZS>(z, p, sv) +
+                    (C > 0 ? softmax_eps<MW, C, K, ZS>(z, p, sv) : 0.0f);
+  // qbar_m[m] = sum_j pc[j] Q[m CX + j], qbar_c[j] = sum_m pm[m] Q[m CX + j],
+  // each from the first term in index order; without comm qbar_m[m] = Q[m]
+  float qbar[K], eq = 0.0f, sps_m = 0.0f;
+#pragma unroll
+  for (int m = 0; m < MW; ++m) {
+    float qm = qc[(m * CX) * ZS];
+    if constexpr (C > 0) {
+      qm = p[MW] * qm;
+#pragma unroll
+      for (int j = 1; j < C; ++j) qm = qm + p[MW + j] * qc[(m * CX + j) * ZS];
+    }
+    qbar[m] = qm;
+    eq = m == 0 ? p[0] * qm : eq + p[m] * qm;
+    sps_m = m == 0 ? p[0] * sv[0] : sps_m + p[m] * sv[m];
+  }
+  float sps_c = 0.0f;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    float qj = p[0] * qc[j * ZS];
+#pragma unroll
+    for (int m = 1; m < MW; ++m) qj = qj + p[m] * qc[(m * CX + j) * ZS];
+    qbar[MW + j] = qj;
+    sps_c = j == 0 ? p[MW] * sv[MW] : sps_c + p[MW + j] * sv[MW + j];
+  }
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const float sps = c < MW ? sps_m : sps_c;
+    g[c * ldg] = valid ? (-(p[c] * (qbar[c] - eq)) + (k.ent_coef * p[c]) * (sv[c] - sps)) * k.inv
+                       : 0.0f;
+  }
+  return valid ? eq + k.ent_coef * ent : 0.0f;
 }
 
 // grid (batch tiles of TS9 samples, agents): y [A, B] = r_i + gamma Q'_i(s', a')
@@ -888,43 +950,9 @@ maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict_
   __syncthreads();
   if (tid < TS9) {                          // _softmax_eps per head, E, the gradients
     const int s = tid;
-    const bool valid = b0 + s < batch;
-    float p[K], sv[K];
-    const float ent = softmax_eps<0, MW, K>(smem + L::S_Z + s, p, sv) +
-                      (C > 0 ? softmax_eps<MW, C, K>(smem + L::S_Z + s, p, sv) : 0.0f);
-    // qbar_m[m] = sum_j pc[j] Q[m CX + j], qbar_c[j] = sum_m pm[m] Q[m CX + j],
-    // each from the first term in index order; without comm qbar_m[m] = Q[m]
-    const float* qc = smem + L::S_QC + s;
-    float qbar[K], eq = 0.0f, sps_m = 0.0f;
-#pragma unroll
-    for (int m = 0; m < MW; ++m) {
-      float qm = qc[(m * CX) * TS9];
-      if constexpr (C > 0) {
-        qm = p[MW] * qm;
-#pragma unroll
-        for (int j = 1; j < C; ++j) qm = qm + p[MW + j] * qc[(m * CX + j) * TS9];
-      }
-      qbar[m] = qm;
-      eq = m == 0 ? p[0] * qm : eq + p[m] * qm;
-      sps_m = m == 0 ? p[0] * sv[0] : sps_m + p[m] * sv[m];
-    }
-    float sps_c = 0.0f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      float qj = p[0] * qc[j * TS9];
-#pragma unroll
-      for (int m = 1; m < MW; ++m) qj = qj + p[m] * qc[(m * CX + j) * TS9];
-      qbar[MW + j] = qj;
-      sps_c = j == 0 ? p[MW] * sv[MW] : sps_c + p[MW + j] * sv[MW + j];
-    }
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      const float sps = c < MW ? sps_m : sps_c;
-      tile[(L::R_G3 + c) * LD9 + s] =
-          valid ? (-(p[c] * (qbar[c] - eq)) + (k.ent_coef * p[c]) * (sv[c] - sps)) * k.inv
-                : 0.0f;
-    }
-    smem[L::S_MS + 2 * TS9 + s] = valid ? eq + k.ent_coef * ent : 0.0f;
+    smem[L::S_MS + 2 * TS9 + s] =
+        actor_head<D, TS9>(smem + L::S_Z + s, smem + L::S_QC + s, tile + L::R_G3 * LD9 + s, LD9,
+                           b0 + s < batch, k);
   }
   __syncthreads();
   {
@@ -963,6 +991,349 @@ maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict_
     for (int q = 0; q < TS9; ++q) total = total + smem[L::S_MS + tid * TS9 + q];
     part[D::G_MS + tid] = total;
   }
+}
+
+// ---- K9 at hidden 128 and 256 -------------------------------------------------
+
+// There the nets do not fit a CTA (simple_world_comm's critic alone 517 KB at
+// 256), nor would one partial gradient per tile of 1024 / H samples (about
+// 480 MB an update on simple_spread at 256). So the wide kernels keep K9's
+// four stages, its sums' order and its reduce, and change three things:
+//   tiles    TSW = 32 samples, 256 threads; every dense layer a product of
+//            unit blocks of UBW = 128 units, each thread 4 units x 4 samples;
+//   weights  every net stays in device memory (the L2 cache holds them for
+//            every CTA); a product streams its weights in slices of KBW
+//            inputs x UBW units through two shared buffers, the next slice
+//            loaded into registers while the CTA computes on the last one
+//            (WS::product), read in place: no transposed copies; w3, the
+//            biases and the candidates' own-action columns are read where
+//            they lie;
+//   gradient a persistent grid of wide_parts CTAs an agent (the card's
+//            occupancy), each striding over its agent's tiles; each tile's
+//            weight gradients are summed over its samples in registers and
+//            added into the CTA's partial in device memory (WS::outer; the
+//            CTA's first tile writes it), and maddpg_reduce_kernel sums the
+//            partials in a fixed order: no float atomics.
+// Each (sample, unit) sum of a forward product still runs over its inputs in
+// order from the first product, each product rounded before it is added, so
+// the target logits, the Q of every candidate, qbar, p and E are the plain
+// version's, as at the other widths. The candidates run one at a time: the
+// candidate's layer-1 rows tanh(base + (w1[:, m] + w1[:, C + j])) over the
+// critic's h1 rows, its layer 2 streamed into the h2 rows, its Q kept.
+constexpr int THREADSW = 256;                 // a wide CTA's threads
+constexpr int TSW = 32;                       // samples per wide tile
+constexpr int LDW = TSW + 4;                  // a wide tile row's stride
+constexpr int UBW = 128;                      // units of a unit block
+constexpr int KBW = 16;                       // inputs of a weight slice
+constexpr int SLDW = UBW + 4;                 // a slice row's stride
+// the streamed products and weight-gradient sums (wide_stream.cuh, which
+// ppo_update_wide_kernel shares): each product rounded before its add, from
+// the first, and the warps one column group in a gradient pass
+using WS = WideStream<THREADSW, TSW, LDW, H, UBW, KBW, SLDW, false, 1>;
+constexpr int SLICESW = WS::SLICES;           // the two slice buffers
+
+// a net's single output on the h2 rows at x (one sample's column, rows LDW
+// apart): the sum over the H units in order, then b3 (right after w3)
+__device__ __forceinline__ float net_out_w(const float* __restrict__ w3, const float* x) {
+  float q = w3[0] * x[0];
+#pragma unroll 16
+  for (int g = 1; g < H; ++g) q = q + w3[g] * x[g * LDW];
+  return q + w3[H];
+}
+
+// the logits z[c][s] (stride TSW) of a net's w3 [K, H] and b3 on the h2 rows,
+// each over the units in order, then the bias
+template <int K>
+__device__ __forceinline__ void wide_logits(const float* __restrict__ w3,
+                                            const float* __restrict__ b3, const float* h2,
+                                            float* z) {
+  for (int e = threadIdx.x; e < K * TSW; e += THREADSW) {
+    const int c = e / TSW, s = e - c * TSW;
+    const float* w = w3 + c * H;
+    const float* x = h2 + s;
+    float v = w[0] * x[0];
+#pragma unroll 16
+    for (int g = 1; g < H; ++g) v = v + w[g] * x[g * LDW];
+    z[e] = v + b3[c];
+  }
+}
+
+// dW3 [NOUT, H] (+)= G H2^T and db3 (+)= the sums of G's NOUT rows over the
+// tile, G and H2 [.][LDW]; as WS::outer
+template <int NOUT>
+__device__ __forceinline__ void wide_out_grads(const float* G, const float* H2, float* w3,
+                                               float* b3, bool first) {
+  for (int e = threadIdx.x; e < NOUT * H; e += THREADSW) {
+    const int c = e / H, g = e - c * H;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < TSW; ++s) acc = fmaf(G[c * LDW + s], H2[g * LDW + s], acc);
+    w3[e] = first ? acc : w3[e] + acc;
+  }
+  for (int c = threadIdx.x; c < NOUT; c += THREADSW) {
+    float acc = 0.0f;
+    for (int s = 0; s < TSW; ++s) acc = acc + G[c * LDW + s];
+    b3[c] = first ? acc : b3[c] + acc;
+  }
+}
+
+// the wide kernels' shared memory (floats): the slice buffers, the
+// per-sample scalars (the gradient kernel's y, q, the candidates' Q [NCAND],
+// logits [K], metric terms [3]; the target kernel's logits [K]), then tile
+// rows [.][LDW]: the inputs (the joint; the agent's obs or s'), h1, h2, and in
+// the gradient kernel the candidates' base and the output gradients (1
+// critic, K actor). The candidates' layer-1 and layer-2 rows take h1 and h2.
+template <class D>
+struct WideTaLayout {
+  static constexpr int S_Z = SLICESW, S_TILE = (S_Z + D::K * TSW + 3) / 4 * 4;
+  static constexpr int R_X = 0, R_H1 = D::OW, R_H2 = R_H1 + H, R_N = R_H2 + H;
+  static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LDW) * sizeof(float);
+};
+template <class D>
+struct WideTdLayout {
+  static constexpr int S_TILE = SLICESW;
+  static constexpr int R_X = 0, R_H1 = D::J, R_H2 = R_H1 + H, R_N = R_H2 + H;
+  static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LDW) * sizeof(float);
+};
+template <class D>
+struct WideLayout9 {
+  static constexpr int S_Y = SLICESW, S_Q = S_Y + TSW, S_QC = S_Q + TSW,
+                       S_Z = S_QC + D::NCAND * TSW, S_MS = S_Z + D::K * TSW,
+                       S_TILE = (S_MS + 3 * TSW + 3) / 4 * 4;
+  static constexpr int R_X = 0, R_H1 = D::J, R_H2 = R_H1 + H, R_BASE = R_H2 + H,
+                       R_G = R_BASE + H, R_N = R_G + D::K;
+  static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LDW) * sizeof(float);
+};
+
+// grid (batch tiles of TSW samples, agents): agent i's target actor on s',
+// streamed; the first-argmax move and comm -> act2 [A, NH, B]
+template <class D>
+__global__ void __launch_bounds__(THREADSW)
+maddpg_target_actions_wide_kernel(const float* __restrict__ weights,
+                                  const float* __restrict__ rows, int* __restrict__ act2,
+                                  int batch) {
+  using L = WideTaLayout<D>;
+  using M = typename D::Actor;
+  extern __shared__ __align__(16) float smem[];
+  const int i = blockIdx.y, b0 = blockIdx.x * TSW;
+  const float* wt = weights + D::OFF_TA + i * D::NWP;
+  float* tile = smem + L::S_TILE;
+  float* h1 = tile + L::R_H1 * LDW;
+  float* h2 = tile + L::R_H2 * LDW;
+  load_rows<D::OW, TSW, LDW>(rows, D::RW, D::R_OBS2 + i * D::OW, b0, batch, tile);
+  __syncthreads();
+  WS::product<D::OW, true>(wt + M::W1, tile, smem, [&](int u, int s, float v) {
+    h1[u * LDW + s] = tanhf(v + wt[M::B1 + u]);
+  });
+  WS::product<H, true>(wt + M::W2, h1, smem, [&](int u, int s, float v) {
+    h2[u * LDW + s] = tanhf(v + wt[M::B2 + u]);
+  });
+  wide_logits<D::K>(wt + M::W3, wt + M::B3, h2, smem + L::S_Z);
+  __syncthreads();
+  const int s = threadIdx.x;
+  if (s < TSW && b0 + s < batch) {
+    float z[D::K];
+#pragma unroll
+    for (int c = 0; c < D::K; ++c) z[c] = smem[L::S_Z + c * TSW + s];
+    act2[(i * D::NH) * batch + b0 + s] = first_argmax<0, MW>(z);
+    if constexpr (D::C > 0) act2[(i * D::NH + 1) * batch + b0 + s] = first_argmax<MW, D::C>(z);
+  }
+}
+
+// grid (batch tiles of TSW samples, agents): y [A, B] = r_i + gamma Q'_i(s', a'),
+// the target critic streamed
+template <class D>
+__global__ void __launch_bounds__(THREADSW)
+maddpg_td_wide_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
+                      const int* __restrict__ act2, float* __restrict__ y, int batch,
+                      float gamma) {
+  using L = WideTdLayout<D>;
+  extern __shared__ __align__(16) float smem[];
+  const int i = blockIdx.y, b0 = blockIdx.x * TSW;
+  const float* wt = weights + D::OFF_TC + i * D::NCP;
+  float* tile = smem + L::S_TILE;
+  float* h1 = tile + L::R_H1 * LDW;
+  float* h2 = tile + L::R_H2 * LDW;
+  load_rows<D::AO, TSW, LDW>(rows, D::RW, D::R_OBS2, b0, batch, tile);
+  for (int e = threadIdx.x; e < D::AK * TSW; e += THREADSW) {  // a': the one-hots of act2
+    const int s = e / D::AK, r = e - s * D::AK;
+    const int b = b0 + s < batch ? b0 + s : b0;
+    const int q = r / D::K, k = r % D::K;
+    const bool hot = k < MW ? k == act2[(q * D::NH) * batch + b]
+                            : k - MW == act2[(q * D::NH + 1) * batch + b];
+    tile[(D::AO + r) * LDW + s] = hot ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  WS::product<D::J, true>(wt + D::CW1, tile, smem, [&](int u, int s, float v) {
+    h1[u * LDW + s] = tanhf(v + wt[D::CB1 + u]);
+  });
+  WS::product<H, true>(wt + D::CW2, h1, smem, [&](int u, int s, float v) {
+    h2[u * LDW + s] = tanhf(v + wt[D::CB2 + u]);
+  });
+  const int s = threadIdx.x;
+  if (s < TSW && b0 + s < batch) {
+    const float* rb = rows + (size_t)(b0 + s) * D::RW;
+    y[(size_t)i * batch + b0 + s] = rb[D::R_REW + i] + gamma * net_out_w(wt + D::CW3, h2 + s);
+  }
+}
+
+// grid (wide_parts CTAs, agents), THREADSW threads: CTA p of agent i takes the
+// tiles p, p + P, ... of TSW samples (P = gridDim.x) and adds each tile's
+// gradient into its partial, partials [A][P][NG]
+template <class D>
+__global__ void __launch_bounds__(THREADSW, 1)
+maddpg_update_wide_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
+                          const float* __restrict__ y, float* __restrict__ partials, int batch,
+                          MaddpgConsts k) {
+  using L = WideLayout9<D>;
+  using M = typename D::Actor;
+  constexpr int K = D::K, C = D::C, CX = D::CX, J = D::J, OWN = D::AO;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, i = blockIdx.y;
+  const int n_tiles = (batch + TSW - 1) / TSW;
+  const float* wc = weights + D::OFF_C + i * D::NCP;
+  const float* wa = weights + D::OFF_A + i * D::NWP;
+  float* tile = smem + L::S_TILE;
+  float* xr = tile + L::R_X * LDW;
+  float* h1 = tile + L::R_H1 * LDW;
+  float* h2 = tile + L::R_H2 * LDW;
+  float* base = tile + L::R_BASE * LDW;
+  float* g = tile + L::R_G * LDW;
+  float* ms = smem + L::S_MS;
+  float* part = partials + ((size_t)i * gridDim.x + blockIdx.x) * D::NG;
+  float* pc = part + D::G_CRITIC;
+  float* pa = part + D::G_ACTOR;
+  const int own = OWN + i * K;               // the agent's own-action inputs of the joint
+
+  for (int ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
+    const bool first = ti == (int)blockIdx.x;
+    const int b0 = ti * TSW;
+    if (tid < TSW) smem[L::S_Y + tid] = b0 + tid < batch ? y[(size_t)i * batch + b0 + tid] : 0.0f;
+    load_rows<J, TSW, LDW>(rows, D::RW, 0, b0, batch, xr);                    // (s, a)
+    __syncthreads();
+
+    // ---- critic forward and the candidates' base: pre - the own-action terms ----
+    WS::product<J, true>(wc + D::CW1, xr, smem, [&](int u, int s, float v) {
+      const float pre = v + wc[D::CB1 + u];
+      const float* w = wc + D::CW1 + (size_t)u * J + own;
+      float o = w[0] * xr[own * LDW + s];
+#pragma unroll
+      for (int c = 1; c < K; ++c) o = o + w[c] * xr[(own + c) * LDW + s];
+      h1[u * LDW + s] = tanhf(pre);
+      base[u * LDW + s] = pre - o;
+    });
+    WS::product<H, true>(wc + D::CW2, h1, smem, [&](int u, int s, float v) {
+      h2[u * LDW + s] = tanhf(v + wc[D::CB2 + u]);
+    });
+    if (tid < TSW) {                          // q and the TD gradient
+      const int s = tid;
+      const bool valid = b0 + s < batch;
+      const float q = net_out_w(wc + D::CW3, h2 + s);
+      const float d = valid ? q - smem[L::S_Y + s] : 0.0f;
+      smem[L::S_Q + s] = q;
+      g[s] = (2.0f * k.inv) * d;
+      ms[s] = d * d;
+      ms[TSW + s] = valid ? q : 0.0f;
+    }
+    __syncthreads();
+
+    // ---- critic backward: dW3, gh2 = w3 g3 (1 - h2^2), dW2, gh1 = (w2^T gh2) (1 - h1^2), dW1 ----
+    wide_out_grads<1>(g, h2, pc + D::CW3, pc + D::CB3, first);
+    __syncthreads();
+    for (int e = tid; e < H * TSW; e += THREADSW) {
+      const int u = e / TSW, s = e - u * TSW;
+      const float hv = h2[u * LDW + s];
+      h2[u * LDW + s] = (wc[D::CW3 + u] * g[s]) * (1.0f - hv * hv);
+    }
+    __syncthreads();
+    WS::outer<H>(h2, h1, pc + D::CW2, H, pc + D::CB2, first);
+    __syncthreads();
+    WS::product<H, false>(wc + D::CW2, h2, smem, [&](int u, int s, float v) {
+      const float hv = h1[u * LDW + s];
+      h1[u * LDW + s] = v * (1.0f - hv * hv);
+    });
+    WS::outer<J>(h1, xr, pc + D::CW1, J, pc + D::CB1, first);
+    __syncthreads();
+
+    // ---- the candidates' Q, one at a time: candidate m CX + j's h1 =
+    // tanh(base + (w1[:, own move m] + w1[:, own comm j])) into the h1 rows,
+    // its h2 into the h2 rows, then its Q ----
+    for (int cand = 0; cand < D::NCAND; ++cand) {
+      const int m = cand / CX, jc = cand % CX;
+      for (int e = tid; e < H * TSW; e += THREADSW) {
+        const int u = e / TSW, s = e - u * TSW;
+        const float* w = wc + D::CW1 + (size_t)u * J + own;
+        const float dc = C > 0 ? w[m] + w[MW + jc] : w[m];
+        h1[u * LDW + s] = tanhf(base[u * LDW + s] + dc);
+      }
+      __syncthreads();
+      WS::product<H, true>(wc + D::CW2, h1, smem, [&](int u, int s, float v) {
+        h2[u * LDW + s] = tanhf(v + wc[D::CB2 + u]);
+      });
+      if (tid < TSW) smem[L::S_QC + cand * TSW + tid] = net_out_w(wc + D::CW3, h2 + tid);
+    }
+
+    // ---- actor: forward, expected-Q and entropy gradient, backward ----
+    load_rows<D::OW, TSW, LDW>(rows, D::RW, i * D::OW, b0, batch, xr);
+    __syncthreads();
+    WS::product<D::OW, true>(wa + M::W1, xr, smem, [&](int u, int s, float v) {
+      h1[u * LDW + s] = tanhf(v + wa[M::B1 + u]);
+    });
+    WS::product<H, true>(wa + M::W2, h1, smem, [&](int u, int s, float v) {
+      h2[u * LDW + s] = tanhf(v + wa[M::B2 + u]);
+    });
+    wide_logits<K>(wa + M::W3, wa + M::B3, h2, smem + L::S_Z);
+    __syncthreads();
+    if (tid < TSW)
+      ms[2 * TSW + tid] = actor_head<D, TSW>(smem + L::S_Z + tid, smem + L::S_QC + tid, g + tid,
+                                             LDW, b0 + tid < batch, k);
+    __syncthreads();
+    wide_out_grads<K>(g, h2, pa + M::W3, pa + M::B3, first);
+    __syncthreads();
+    for (int e = tid; e < H * TSW; e += THREADSW) {   // gh2 = (w3^T gz) (1 - h2^2), over c in order
+      const int u = e / TSW, s = e - u * TSW;
+      float v = wa[M::W3 + u] * g[s];
+#pragma unroll
+      for (int c = 1; c < K; ++c) v = v + wa[M::W3 + c * H + u] * g[c * LDW + s];
+      const float hv = h2[u * LDW + s];
+      h2[u * LDW + s] = v * (1.0f - hv * hv);
+    }
+    __syncthreads();
+    WS::outer<H>(h2, h1, pa + M::W2, H, pa + M::B2, first);
+    __syncthreads();
+    WS::product<H, false>(wa + M::W2, h2, smem, [&](int u, int s, float v) {
+      const float hv = h1[u * LDW + s];
+      h1[u * LDW + s] = v * (1.0f - hv * hv);
+    });
+    WS::outer<D::OW>(h1, xr, pa + M::W1, D::OW, pa + M::B1, first);
+    if (tid < 3) {                            // the tile's metric sums, in order
+      float total = 0.0f;
+      for (int s = 0; s < TSW; ++s) total = total + ms[tid * TSW + s];
+      part[D::G_MS + tid] = first ? total : part[D::G_MS + tid] + total;
+    }
+    __syncthreads();                          // the tile's reads are done
+  }
+}
+
+// the wide gradient kernel's CTAs an agent: all that the card holds at once,
+// shared among the agents (at least one each)
+template <class D>
+int wide_parts() {
+  static const int parts = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaFuncSetAttribute(maddpg_update_wide_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)WideLayout9<D>::SMEM) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, maddpg_update_wide_kernel<D>,
+                                                      THREADSW, WideLayout9<D>::SMEM) !=
+            cudaSuccess)
+      return -1;
+    const int n = sms * per_sm / D::A;
+    return n > 0 ? n : 1;
+  }();
+  return parts;
 }
 
 // The gradient in the parameters' layout, grads [A NWP + A NCP]: the actors
@@ -1008,15 +1379,16 @@ __global__ void maddpg_reduce_kernel(const float* __restrict__ partials, float* 
 }
 
 // The tile's shared memory: the A actors (TileActor's layout, NWP floats
-// apart), the input rows of this step and of the next [2][OW][LDX] (the next
-// step's obs are this step's obs2 unless the lanes reset), h1 (then the
+// apart; none from hidden 128, ACTORS_SMEM), the input rows of this step and
+// of the next [2][OW][LDX] (the next step's obs are this step's obs2 unless
+// the lanes reset), h1 (then the
 // logits) and h2 [H][LDX], the rows' action indices [NR], the reward rows
 // [R][TLP]; or 0 for a tile size the kernel does not take
 template <class S>
 size_t maddpg_smem(int tile) {
   if (tile < 1 || tile > TILE_MAX) return 0;
   const TileRows tr = tile_rows(tile, S::A);
-  const size_t bytes = ((size_t)S::A * TileActor<S::OW, MW + S::C>::NWP +
+  const size_t bytes = ((ACTORS_SMEM ? (size_t)S::A * TileActor<S::OW, MW + S::C>::NWP : 0) +
                         (size_t)(2 * S::OW + 2 * H) * tr.ldx + tr.nr + (size_t)S::R * tr.tlp) *
                        sizeof(float);
   return bytes <= SMEM_MAX ? bytes : 0;
@@ -1038,14 +1410,14 @@ int launch_traj(const void* params, const float* weights, float* obs, float* act
   return (int)cudaGetLastError();
 }
 
+// hidden 8-64: grid (batch tiles of TS9, agents), a partial per tile
 template <class D>
-int launch_update(const float* weights, const float* rows, int* act2, float* y, float* partials,
-                  float* grads, float* metrics, int batch, float gamma, float ent_coef, float inv,
-                  cudaStream_t stream) {
+int launch_update_narrow(const float* weights, const float* rows, int* act2, float* y,
+                         float* partials, float* grads, float* metrics, int batch, float gamma,
+                         float ent_coef, float inv, cudaStream_t stream) {
   static_assert(Layout9<D>::SMEM <= SMEM_MAX && TdLayout<D>::SMEM <= SMEM_MAX &&
                     TaLayout<D>::SMEM <= SMEM_MAX,
                 "a K9 CTA exceeds the shared memory of an SM");
-  static_assert(D::OFF_C % 4 == 0 && D::NWP % 4 == 0, "the nets' blocks stay 16-byte aligned");
   // once per instantiation: the attributes hold for the process
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(maddpg_target_actions_kernel<D>,
@@ -1081,12 +1453,85 @@ int launch_update(const float* weights, const float* rows, int* act2, float* y, 
   return (int)cudaGetLastError();
 }
 
+// hidden 128 and 256: the wide kernels, the gradient on a persistent grid of
+// min(tiles, wide_parts) CTAs an agent, a partial per CTA
+template <class D>
+int launch_update_wide(const float* weights, const float* rows, int* act2, float* y,
+                       float* partials, float* grads, float* metrics, int batch, float gamma,
+                       float ent_coef, float inv, cudaStream_t stream) {
+  static_assert(WideLayout9<D>::SMEM <= SMEM_MAX && WideTdLayout<D>::SMEM <= SMEM_MAX &&
+                    WideTaLayout<D>::SMEM <= SMEM_MAX,
+                "a wide K9 CTA exceeds the shared memory of an SM");
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(maddpg_target_actions_wide_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)WideTaLayout<D>::SMEM);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(maddpg_td_wide_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)WideTdLayout<D>::SMEM);
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  const int parts = wide_parts<D>();
+  if (parts < 1) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (batch + TSW - 1) / TSW;
+  const int n_parts = n_tiles < parts ? n_tiles : parts;
+  const dim3 grid(n_tiles, D::A);
+  maddpg_target_actions_wide_kernel<D><<<grid, THREADSW, WideTaLayout<D>::SMEM, stream>>>(
+      weights, rows, act2, batch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  maddpg_td_wide_kernel<D><<<grid, THREADSW, WideTdLayout<D>::SMEM, stream>>>(
+      weights, rows, act2, y, batch, gamma);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const MaddpgConsts k{gamma, ent_coef, inv};
+  maddpg_update_wide_kernel<D><<<dim3(n_parts, D::A), THREADSW, WideLayout9<D>::SMEM, stream>>>(
+      weights, rows, y, partials, batch, k);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int n_out = D::A * (D::NWP + D::NCP) + 3;
+  maddpg_reduce_kernel<D><<<(n_out + 255) / 256, 256, 0, stream>>>(partials, grads, metrics,
+                                                                   n_parts, inv);
+  return (int)cudaGetLastError();
+}
+
+template <class D>
+int launch_update(const float* weights, const float* rows, int* act2, float* y, float* partials,
+                  float* grads, float* metrics, int batch, float gamma, float ent_coef, float inv,
+                  cudaStream_t stream) {
+  static_assert(D::OFF_C % 4 == 0 && D::NWP % 4 == 0, "the nets' blocks stay 16-byte aligned");
+  if constexpr (H > 64)
+    return launch_update_wide<D>(weights, rows, act2, y, partials, grads, metrics, batch, gamma,
+                                 ent_coef, inv, stream);
+  else
+    return launch_update_narrow<D>(weights, rows, act2, y, partials, grads, metrics, batch,
+                                   gamma, ent_coef, inv, stream);
+}
+
 // the layout constants the wrapper mirrors: 0 actor stride, 1 critic stride,
-// 2 weights, 3 gradient per agent, 4 samples per tile
+// 2 weights, 3 gradient per agent, 4 samples per tile, 5 no bf16 scratch (-1;
+// mpe_maddpg_bf16.cu's), 6 the partial gradients an agent at most (from
+// hidden 128 the wide grid's CTAs an agent, wide_parts; else -1: one a tile)
 template <class D>
 int layout(int which) {
-  const int v[5] = {D::NWP, D::NCP, D::N_WEIGHTS, D::NG, TS9};
+  if (which == 6) {
+    if constexpr (H > 64) return wide_parts<D>();
+    return -1;
+  }
+  const int v[5] = {D::NWP, D::NCP, D::N_WEIGHTS, D::NG, H > 64 ? TSW : TS9};
   return (which >= 0 && which < 5) ? v[which] : -1;
+}
+
+template <class D>
+int update_smem(int which) {
+  size_t v[3];
+  if constexpr (H > 64) {
+    v[0] = WideTaLayout<D>::SMEM, v[1] = WideTdLayout<D>::SMEM, v[2] = WideLayout9<D>::SMEM;
+  } else {
+    v[0] = TaLayout<D>::SMEM, v[1] = TdLayout<D>::SMEM, v[2] = Layout9<D>::SMEM;
+  }
+  return (which >= 0 && which < 3) ? (int)v[which] : -1;
 }
 
 }  // namespace
@@ -1133,6 +1578,14 @@ int mpe_maddpg_update_layout(int scenario, int which) {
 #define MPE_MADDPG_LAYOUT(S) return layout<DimsOf<S>>(which)
   MPE_SCENARIO_SWITCH(MPE_MADDPG_LAYOUT)
 #undef MPE_MADDPG_LAYOUT
+}
+
+// the dynamic shared memory of K9's target-action (which 0), TD (1) and
+// gradient (2) kernels for a scenario id at this library's width, in bytes
+int mpe_maddpg_update_smem(int scenario, int which) {
+#define MPE_MADDPG_SMEM(S) return update_smem<DimsOf<S>>(which)
+  MPE_SCENARIO_SWITCH(MPE_MADDPG_SMEM)
+#undef MPE_MADDPG_SMEM
 }
 
 }  // extern "C"

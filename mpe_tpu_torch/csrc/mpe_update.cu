@@ -76,12 +76,13 @@
 //             every CTA); each product streams them in slices of KB (16 at
 //             128, 32 at 256) inputs x UB = 64 units through two shared
 //             buffers, the next slice loaded into registers while the CTA
-//             computes on the last one (streamed_product); no transposed
+//             computes on the last one (WS::product, wide_stream.cuh, which
+//             K9's wide kernels share); no transposed
 //             copies; w3 and the biases (at most 16 x 256 floats) stay
 //             resident;
 //   products  the register tile of hidden 64, 4 units x 4 samples a thread,
 //             looped over the H / 64 unit blocks;
-//   gradient  each tile's dW1, dW2 (wide_outer: 4 rows x up to 4 columns a
+//   gradient  each tile's dW1, dW2 (WS::outer: 4 rows x up to 4 columns a
 //             thread, over blocks of 64 rows) and dW3 sums are added into the
 //             CTA's partial in device memory, which the CTA zeroes first and
 //             in which one thread owns each entry, read before the pass's
@@ -98,6 +99,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wide_stream.cuh"
 
 namespace {
 
@@ -203,6 +206,8 @@ constexpr int UB = 64;           // units of a wide product's unit block
 // work hides the next slice's load from L2; at 128 16, so that two CTAs fit
 constexpr int KB = H >= 256 ? 32 : 16;
 constexpr int SLD = UB + 4;      // a slice row's stride
+// the streamed products and weight-gradient sums (wide_stream.cuh)
+using WS = WideStream<THREADS, TS, LD, H, UB, KB, SLD, true, 2>;
 template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
 struct WideDims : StageDims<IN_, (IN_ + KB - 1) / KB * KB, KP_, KC_, HAS_V_, TEAM_> {
   using S = StageDims<IN_, (IN_ + KB - 1) / KB * KB, KP_, KC_, HAS_V_, TEAM_>;
@@ -448,67 +453,6 @@ __device__ __forceinline__ void block_store(float* __restrict__ C, int u0, int m
   }
 }
 
-// C[m][s] = epi(m, sum_k A(k, m) B[k][s], &C[m][s]) for the H units m and the
-// TS samples s, A in device memory: A(k, m) = a[m K + k] (TRANS: w1 and w2 in
-// the forward) or a[k H + m] (w2 in the backward), 0 for k >= K. Unit blocks of
-// UB units, each over slices of KB inputs that the CTA fetches into registers
-// while it computes on the slice before, then stores into the other of the two
-// slice buffers: one barrier a slice. Thread t owns units 4 (t / 16) .. + 3 of
-// the block and samples 4 (t % 16) .. + 3 (unit_product's tiles at hidden 64).
-// B's rows up to the last slice's end must be finite. Ends at a barrier.
-template <int K, bool TRANS, class Epi>
-__device__ __forceinline__ void streamed_product(const float* __restrict__ a,
-                                                 const float* __restrict__ B,
-                                                 float* __restrict__ C, float* __restrict__ slices,
-                                                 int tid, Epi epi) {
-  constexpr int NS = (K + KB - 1) / KB, NQ = (H / UB) * NS, PER = KB * UB / THREADS;
-  const int m0 = 4 * (tid / 16), s0 = 4 * (tid % 16);
-  float pre[PER];
-  // the slice element of piece p: TRANS walks the inputs of a unit first, so a
-  // warp reads runs of KB floats; otherwise the units of an input
-  auto piece = [&](int p, int& kk, int& mm) {
-    const int i = tid + THREADS * p;
-    kk = TRANS ? i % KB : i / UB;
-    mm = TRANS ? i / KB : i % UB;
-  };
-  auto fetch = [&](int q) {
-    const int u0 = (q / NS) * UB, k0 = (q % NS) * KB;
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      int kk, mm;
-      piece(p, kk, mm);
-      const int k = k0 + kk;
-      pre[p] = k >= K ? 0.0f : TRANS ? a[(size_t)(u0 + mm) * K + k] : a[(size_t)k * H + u0 + mm];
-    }
-  };
-  auto put = [&](float* buf) {
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      int kk, mm;
-      piece(p, kk, mm);
-      buf[kk * SLD + mm] = pre[p];
-    }
-  };
-  fetch(0);
-  put(slices);
-  __syncthreads();
-  float acc[4][4];
-  for (int q = 0; q < NQ; ++q) {
-    const int j = q % NS;
-    if (q + 1 < NQ) fetch(q + 1);
-    if (j == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-    }
-    block_acc<KB>(slices + (q & 1) * KB * SLD, SLD, B + j * KB * LD, m0, s0, acc);
-    if (j == NS - 1) block_store(C, (q / NS) * UB, m0, s0, acc, epi);
-    if (q + 1 < NQ) put(slices + ((q + 1) & 1) * KB * SLD);
-    __syncthreads();
-  }
-}
-
 // the same with A [K][H] resident in shared memory (w3 in the backward)
 template <int K, class Epi>
 __device__ __forceinline__ void resident_product(const float* __restrict__ A,
@@ -523,72 +467,6 @@ __device__ __forceinline__ void resident_product(const float* __restrict__ A,
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
     block_acc<K>(A + u0, H, B, m0, s0, acc);
     block_store(C, u0, m0, s0, acc, epi);
-  }
-}
-
-// part[m ldp + n] += sum over the tile's samples s, in order, of P[m][s] Q[n][s]
-// for the H rows m of P and the NQ rows n of Q, both [.][LD] in shared memory,
-// and db[m] += sum_s P[m][s]; part and db in device memory (the CTA's partial,
-// each entry added to by one thread only). Passes over blocks of 64 rows x 16
-// RN columns: a warp's 8 column lanes take consecutive columns (one 32-byte
-// run of part per row) and its 4 row lanes consecutive rows, each thread 4
-// rows x RN columns in registers, per four samples 4 + RN float4s for 16 RN
-// multiply-adds. A column past NQ reads row NQ - 1 and is not added. The
-// partial's entries are read before the pass's sums, so their latency hides
-// behind them.
-template <int NQ>
-__device__ __forceinline__ void wide_outer(const float* __restrict__ P,
-                                           const float* __restrict__ Q, float* part, int ldp,
-                                           float* db, int tid) {
-  constexpr int RN = NQ >= 64 ? 4 : (NQ + 15) / 16, CB = 16 * RN;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int r0 = 16 * (warp >> 1) + (lane >> 3), c0 = CB / 2 * (warp & 1) + (lane & 7);
-  for (int mb = 0; mb < H; mb += 64) {
-    for (int nb = 0; nb < NQ; nb += CB) {
-      float acc[4][RN], old[4][RN];
-      int rq[RN];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int n = nb + c0 + 8 * j;
-        rq[j] = (n < NQ ? n : NQ - 1) * LD;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = 0.0f;
-          old[i][j] = n < NQ ? part[(size_t)(mb + r0 + 4 * i) * ldp + n] : 0.0f;
-        }
-      }
-#pragma unroll 2
-      for (int s = 0; s < TS; s += 4) {
-        float pv[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) load_vec<4>(P + (mb + r0 + 4 * i) * LD + s, pv[i]);
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          float qv[4];
-          load_vec<4>(Q + rq[j] + s, qv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j] = fmaf(pv[i][e], qv[e], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const int n = nb + c0 + 8 * j;
-          if (n < NQ) part[(size_t)(mb + r0 + 4 * i) * ldp + n] = old[i][j] + acc[i][j];
-        }
-    }
-  }
-  if (tid < H) {
-    float b = 0.0f;
-    for (int s = 0; s < TS; s += 4) {
-      float pv[4];
-      load_vec<4>(P + tid * LD + s, pv);
-      b = (((b + pv[0]) + pv[1]) + pv[2]) + pv[3];
-    }
-    db[tid] += b;
   }
 }
 
@@ -869,10 +747,10 @@ ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ o
 // The same gradient at hidden 128 and 256, where neither the weights nor the
 // weight gradients fit on the chip's SM: the tile loop of ppo_update_kernel,
 // with w1 and w2 streamed from device memory through two slice buffers
-// (streamed_product; w3 and the biases resident), the products' register tiles
+// (WS::product; w3 and the biases resident), the products' register tiles
 // 4 units x 4 samples over unit blocks of UB units, and the weight gradients
 // summed over each tile in registers and added into the CTA's partial in
-// device memory, which the CTA zeroes first (wide_outer; dW3 and db3 as at
+// device memory, which the CTA zeroes first (WS::outer; dW3 and db3 as at
 // hidden 64, per tile). update_reduce_kernel then sums the partials as at the
 // other widths: no float atomics, the same result from run to run.
 template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
@@ -933,10 +811,12 @@ ppo_update_wide_kernel(const float* __restrict__ weights, const float* __restric
     }
     __syncthreads();
     // forward
-    streamed_product<IN, true>(weights + L.g_w1, st, h1t, slices, tid,
-                               [&](int m, float v, const float*) { return tanhf(v + b1[m]); });
-    streamed_product<H, true>(weights + L.g_w2, h1t, h2t, slices, tid,
-                              [&](int m, float v, const float*) { return tanhf(v + b2[m]); });
+    WS::product<IN, true>(weights + L.g_w1, st, slices, [&](int m, int s, float v) {
+      h1t[m * LD + s] = tanhf(v + b1[m]);
+    });
+    WS::product<H, true>(weights + L.g_w2, h1t, slices, [&](int m, int s, float v) {
+      h2t[m * LD + s] = tanhf(v + b2[m]);
+    });
     {                                                   // Z = W3 H2 + b3
       constexpr int PER = THREADS / TS, RZ = KOP / PER;
       const int s = tid % TS, kz = tid / TS;
@@ -987,12 +867,14 @@ ppo_update_wide_kernel(const float* __restrict__ weights, const float* __restric
     });
     __syncthreads();
     // dW2 += GH2 H1^T (db2), then GH1 over H1
-    wide_outer<H>(h2t, h1t, part + L.g_w2, H, part + L.g_b2, tid);
+    WS::outer<H>(h2t, h1t, part + L.g_w2, H, part + L.g_b2, false);
     __syncthreads();
-    streamed_product<H, false>(weights + L.g_w2, h2t, h1t, slices, tid,
-                               [](int, float v, const float* c) { return v * (1.0f - *c * *c); });
+    WS::product<H, false>(weights + L.g_w2, h2t, slices, [&](int m, int s, float v) {
+      float* c = h1t + m * LD + s;
+      *c = v * (1.0f - *c * *c);
+    });
     // dW1 += GH1 X^T (db1)
-    wide_outer<IN>(h1t, st, part + L.g_w1, IN, part + L.g_b1, tid);
+    WS::outer<IN>(h1t, st, part + L.g_w1, IN, part + L.g_b1, false);
     __syncthreads();                                    // this stage's reads are done
     if constexpr (D::STAGES == 1) {
       if (ti + gridDim.x < n_tiles)

@@ -5,7 +5,7 @@
 // its gradients in. The hidden width H is a compile-time constant,
 // -DMPE_HIDDEN=H (64 by default): ops/_build.py builds one library per
 // width, and each source that includes this header asserts the widths it
-// takes (mpe_policy.cu: 8-256; mpe_maddpg.cu: 8-64).
+// takes (8-256).
 //
 // The lane tile. A CTA of TILE_THREADS threads owns TL env lanes (a tile).
 // Thread l < TL owns lane l: its world state stays in its registers, and it
@@ -158,23 +158,28 @@ __device__ __forceinline__ void tile_dense_tanh(const float* wt, const float* b,
   }
 }
 
-// tile_dense_tanh over items of 8 rows x 4 units: two row blocks of 4 share
-// each float4 of weights (32 sums a thread), for an actor read from device
-// memory (mpe_policy.cu at hidden 128 and 256), where the weight loads set
-// the pace. One actor for all rows (no agent stride). A last row block past
-// the rows recomputes the block before it and is not stored. Every sum runs
-// as in tile_dense_tanh, so the outputs are the same bits.
+// tile_dense_tanh over items of 8 rows x 4 units: two row blocks of 4 of one
+// actor's rows share each float4 of weights (32 sums a thread), for actors
+// read from device memory (mpe_policy.cu and mpe_maddpg.cu at hidden 128 and
+// 256), where the weight loads set the pace. With wstride 0 one actor serves
+// every row; else each agent's TLP rows take its actor, wstride floats further
+// per agent, and a pair never spans two agents. A last row block past an
+// actor's rows recomputes the block before it and is not stored. Every sum
+// runs as in tile_dense_tanh, so the outputs are the same bits.
 template <int NIN>
-__device__ __forceinline__ void tile_dense_tanh_x2(const float* wt, const float* b,
+__device__ __forceinline__ void tile_dense_tanh_x2(const float* wt, const float* b, int wstride,
                                                    const float* x, float* out,
                                                    const TileRows& tr) {
-  const int n_pairs = (tr.nr / 4 + 1) / 2;
-  const int n_items = n_pairs * HG;
+  const int group = wstride == 0 ? tr.nr : tr.tlp;           // the rows of one actor
+  const int pairs = (group / 4 + 1) / 2;
+  const int n_items = (tr.nr / group) * pairs * HG;
   for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-    const int ra = (item / HG) * 8, g0 = (item % HG) * 4;
-    const bool second = ra + 4 < tr.nr;
+    const int p = item / HG, g0 = (item % HG) * 4;
+    const int agent = p / pairs;
+    const int ra = agent * group + (p - agent * pairs) * 8;
+    const bool second = ra + 4 < (agent + 1) * group;
     const int rb = second ? ra + 4 : ra;
-    const float* w = wt + g0;
+    const float* w = wt + agent * wstride + g0;
     float acc[8][4];
     {
       const float4 wv = *reinterpret_cast<const float4*>(w);
@@ -199,7 +204,7 @@ __device__ __forceinline__ void tile_dense_tanh_x2(const float* wt, const float*
 #pragma unroll
         for (int u = 0; u < 4; ++u) acc[q][u] = acc[q][u] + wu[u] * xq[q];
     }
-    const float4 bv = *reinterpret_cast<const float4*>(b + g0);
+    const float4 bv = *reinterpret_cast<const float4*>(b + agent * wstride + g0);
     const float bu[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -259,15 +264,15 @@ __device__ __forceinline__ void tile_logits(const float* w3t, const float* b3, i
 // the logits [KP][row] of the tile's rows: the actor (or, wstride apart, one
 // per agent) at w in TileActor's layout on the input rows x; h1 and h2 are
 // the hidden rows, and the logits overwrite h1. Each phase ends at a barrier.
-// PAIRS: the hidden layers by tile_dense_tanh_x2 (one actor, wstride 0)
+// PAIRS: the hidden layers by tile_dense_tanh_x2
 template <int OW, int KP, bool PAIRS = false>
 __device__ __forceinline__ void tile_mlp(const float* w, int wstride, const float* x, float* h1,
                                          float* h2, const TileRows& tr) {
   using M = TileActor<OW, KP>;
   if constexpr (PAIRS) {
-    tile_dense_tanh_x2<OW>(w + M::W1T, w + M::B1, x, h1, tr);
+    tile_dense_tanh_x2<OW>(w + M::W1T, w + M::B1, wstride, x, h1, tr);
     __syncthreads();
-    tile_dense_tanh_x2<H>(w + M::W2T, w + M::B2, h1, h2, tr);
+    tile_dense_tanh_x2<H>(w + M::W2T, w + M::B2, wstride, h1, h2, tr);
   } else {
     tile_dense_tanh<OW>(w + M::W1T, w + M::B1, wstride, x, h1, tr);
     __syncthreads();

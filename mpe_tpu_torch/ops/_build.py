@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu",
            "mpe_trajectory.cu", "mpe_update_bf16.cu", "mpe_maddpg_bf16.cu")
-HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh", "bf16_mma.cuh")
+HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh", "bf16_mma.cuh",
+           "wide_stream.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # the sources whose kernels run an MLP (K4, K5; K6, K7; K8, K9; K6-bf16,
@@ -44,7 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 HIDDEN_WIDTHS = {
     "mpe_policy.cu": (8, 16, 32, 64, 128, 256),
     "mpe_update.cu": (8, 16, 32, 64, 128, 256),
-    "mpe_maddpg.cu": (8, 16, 32, 64),
+    "mpe_maddpg.cu": (8, 16, 32, 64, 128, 256),
     "mpe_update_bf16.cu": (8, 16, 32, 64),
     "mpe_maddpg_bf16.cu": (8, 16, 32, 64),
 }
@@ -162,6 +163,7 @@ SIGNATURES = {
         "mpe_maddpg_traj_ctas_per_sm": [_I] * 2,
         "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],
         "mpe_maddpg_update_layout": [_I, _I],
+        "mpe_maddpg_update_smem": [_I, _I],
     },
     "mpe_maddpg_bf16.cu": {                 # mpe_maddpg.cu's K9 entries
         "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],

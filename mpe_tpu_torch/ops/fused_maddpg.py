@@ -26,7 +26,9 @@ On a CUDA device the builder launches ``maddpg_traj_kernel<S>``
 ``csrc/scenario_blocks.cuh``; a CTA of 128 threads owns a tile of env lanes,
 ``maddpg_tile`` picks how many, runs the agents' actors on the tile's
 (agent, lane) rows as CTA-wide products and writes the rows form as
-contiguous rows); on the CPU it runs ``plain_maddpg_trajectory``.
+contiguous rows; the actors sit in its shared memory up to hidden 64 and are
+read from device memory at 128 and 256); on the CPU it runs
+``plain_maddpg_trajectory``.
 The RNG is the JAX kernels' interpret-mode hash stream with the time-chunk
 salt, as in K5: agent i draws on call ids ``28 + 6i`` (the move head's
 Gumbel draw of ``uniform((5, n))``), ``29 + 6i`` (the eps one-hot's Gumbel

@@ -36,8 +36,11 @@ counterpart: the port keeps each net's own layout, flattened agent-major
 into one buffer (``PackedLayout``). On a CUDA device ``from_rows`` launches
 ``maddpg_target_actions_kernel``, ``maddpg_td_kernel``,
 ``maddpg_update_kernel`` and ``maddpg_reduce_kernel`` (``csrc/mpe_maddpg.cu``,
-float32, built at the params' hidden width: 8, 16, 32 or 64,
-``_build.HIDDEN_WIDTHS["mpe_maddpg.cu"]``), instantiated for the scenario whose widths the
+float32, built at the params' hidden width: 8, 16, 32, 64, 128 or 256,
+``_build.HIDDEN_WIDTHS["mpe_maddpg.cu"]``; at 128 and 256 the wide kernels
+``maddpg_target_actions_wide_kernel``, ``maddpg_td_wide_kernel`` and
+``maddpg_update_wide_kernel``, the last on a persistent grid that
+``partials_floats`` sizes), instantiated for the scenario whose widths the
 params have; on the CPU it runs ``plain_maddpg_update`` in ``dtype``. The
 trainer's chunk (``learner.maddpg.build_fused_update_chunk``) keeps its
 state in that buffer and launches K9 through ``MaddpgUpdateLauncher``. The target actors sum each layer in the kernel's order, so the
@@ -396,12 +399,16 @@ def _update_layout(scenario: int, hidden: int = DEFAULT_HIDDEN, source: str = "m
 
 def partials_floats(lib, scenario: int, n_agents: int, batch: int) -> int:
     """The floats of K9's (or K9-bf16's) ``partials`` buffer at ``batch``:
-    the per-tile partial gradients and, for K9-bf16, its bf16 scratch of the
-    rounded nets after them (16-byte aligned; layout constant 5)."""
-    ng, ts = (lib.mpe_maddpg_update_layout(scenario, q) for q in (3, 4))
-    scratch = lib.mpe_maddpg_update_layout(scenario, 5)
-    n = n_agents * (-(-batch // ts)) * ng
-    return n if scratch < 0 else -(-n // 4) * 4 + scratch
+    the partial gradients, one per tile (at hidden 128 and 256 one per CTA of
+    K9's persistent grid, at most layout constant 6 an agent) and, for
+    K9-bf16, its bf16 scratch of the rounded nets after them (16-byte aligned;
+    layout constant 5)."""
+    ng, ts, scratch = (lib.mpe_maddpg_update_layout(scenario, q) for q in (3, 4, 5))
+    tiles = -(-batch // ts)
+    if scratch >= 0:
+        return -(-(n_agents * tiles * ng) // 4) * 4 + scratch
+    parts = lib.mpe_maddpg_update_layout(scenario, 6)
+    return n_agents * (tiles if parts < 0 else min(tiles, parts)) * ng
 
 
 class MaddpgUpdateLauncher:

@@ -25,6 +25,7 @@ from mpe_tpu_torch.learner.maddpg import init_maddpg
 from mpe_tpu_torch.ops import _build, fused_maddpg_update
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 from tests._csrc_host import build_host_libs_at
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SOURCE = "mpe_maddpg_bf16.cu"
 WIDTHS = (64, 16)
@@ -98,11 +99,9 @@ FRAG_CASES = [(24, 0, 0), (40, 16, 8), (72, 8, 24), (72, 48, 56), (280, 0, 256)]
 def host_libs(tmp_path_factory):
     """The probe source and the K9-bf16 source at widths 64 and 16, built at
     once."""
-    out = tmp_path_factory.mktemp("bf16_frag_host")
-    probe = out / "frag_probe.cu"
+    probe = tmp_path_factory.mktemp("bf16_frag_host") / "frag_probe.cu"
     probe.write_text(PROBE)
-    libs = build_host_libs_at(out, [(probe, 64)] + [(SOURCE, h) for h in WIDTHS],
-                              PROBE_SIGNATURES)
+    libs = build_host_libs_at([(probe, 64)] + [(SOURCE, h) for h in WIDTHS], PROBE_SIGNATURES)
     libs["frag_probe.cu", 64] = libs.pop((probe, 64))
     return libs
 

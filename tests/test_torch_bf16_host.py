@@ -26,6 +26,7 @@ import torch
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 from tests._csrc_host import build_host_libs_at
 from tests.test_torch_csrc_host import _check_host_update
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WIDTHS = (64, 16)
 SOURCE = "mpe_update_bf16.cu"
@@ -35,10 +36,9 @@ CASES = [("ppo", "simple_spread"), ("ppo", "simple_reference"), ("mappo", "simpl
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def host_libs():
     """The bf16 source at widths 64 and 16, built at once."""
-    return build_host_libs_at(tmp_path_factory.mktemp("bf16_host"),
-                              [(SOURCE, h) for h in WIDTHS])
+    return build_host_libs_at([(SOURCE, h) for h in WIDTHS])
 
 
 @pytest.fixture

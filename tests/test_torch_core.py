@@ -24,6 +24,7 @@ from mpe_tpu_torch.convert import spec_fields, state_from_numpy, state_to_numpy
 from mpe_tpu_torch.core import actions as t_actions
 from mpe_tpu_torch.core import physics as t_physics
 from mpe_tpu_torch.core import state as t_state
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 B = 8

@@ -4,8 +4,8 @@ compiled for the host by a C++ compiler and held against their plain
 versions on the CPU, for every scenario instantiation.
 
 The host build (``tests/_csrc_host.py``) runs a launch's blocks one after
-another, each block's threads as host threads meeting at a barrier, so a
-CTA's phases run in order as on the card. This checks the device functions' indexing, order of operations and RNG
+another, each block's threads as cooperative fibers that meet at its
+barriers, so a CTA's phases run in order as on the card. This checks the device functions' indexing, order of operations and RNG
 streams without a card. The arithmetic is the host's (its libm and an exact
 reciprocal square root), not the card's: trajectories' actions (raw hash
 draws), the policy and MADDPG kernels' sampled actions and K9's target
@@ -31,6 +31,7 @@ from mpe_tpu_torch.ops.fused_rollout import plain_rollout, rollout_group
 from mpe_tpu_torch.ops.fused_trajectory import plain_trajectory, traj_group
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 from tests._csrc_host import build_host_libs
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ["simple_spread", "simple", "simple_reference", "simple_speaker_listener",
          "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
@@ -42,8 +43,8 @@ POLICY_ENVS, POLICY_BLOCK_ENVS = 64, 32
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    return build_host_libs(tmp_path_factory.mktemp("csrc_host"))
+def host_libs():
+    return build_host_libs()
 
 
 def _close(got, ref, label):
@@ -452,7 +453,8 @@ def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
 
 def _check_host_maddpg_update(lib, kscn, batch: int, hidden: int = 64):
     """K9 of a library built at ``hidden`` on ``batch`` random replay rows
-    (tiles of ``1024 / hidden`` samples), held as above."""
+    (tiles of ``1024 / hidden`` samples; from hidden 128 of 32, on the
+    persistent grid's CTAs), held as above."""
     scenario = _build.SCENARIO_IDS[type(kscn).__name__]
     a, o, k, mw = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits, 5
     cw, nh = k - mw, 2 if k > mw else 1
@@ -471,11 +473,12 @@ def _check_host_maddpg_update(lib, kscn, batch: int, hidden: int = 64):
     lay = fused_maddpg_update.PackedLayout(a, o, k, hidden)
     nwp, ncp, n_weights, ng, ts = (lib.mpe_maddpg_update_layout(scenario, q) for q in range(5))
     assert (nwp, ncp, n_weights, ng, ts) == (lay.nwp, lay.ncp, lay.n_weights,
-                                             lay.nw + lay.nc + 3, 1024 // hidden)
+                                             lay.nw + lay.nc + 3,
+                                             1024 // hidden if hidden <= 64 else 32)
     wbuf = lay.pack(params, targets)
-    n_tiles = -(-batch // ts)
     act2 = torch.empty((a, nh, batch), dtype=torch.int32)
-    y, partials = torch.empty((a, batch)), torch.empty(a * n_tiles * ng)
+    y = torch.empty((a, batch))
+    partials = torch.empty(fused_maddpg_update.partials_floats(lib, scenario, a, batch))
     grads, metrics = torch.empty(lay.off_ta), torch.empty(3)
     _host_update(lib, "mpe_maddpg_update", scenario, wbuf, rows, act2, y, partials, grads, metrics,
                  batch, 0.95, 0.01, 1.0 / (a * batch), None)

@@ -661,32 +661,100 @@ def test_mlp_kernels_at_hidden_width_match_plain(card, hidden):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("name", ["simple_spread", "simple_world_comm"])
+def test_maddpg_kernels_at_wide_width_match_plain(card, name, hidden):
+    """K8 and K9 of the library built at ``hidden`` (the actors read from
+    device memory; K9's wide kernels): K8 at two tiles, actions equal to the
+    plain version's and the tiles bit for bit; K9 on 512 of its rows, target
+    actions equal, each leaf within 1e-4 of its largest entry; both kernels
+    counted."""
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update as fmu
+
+    kscn = kernel_scenario(name)
+    a, o, k = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits
+    params = {n: {q: {w: x.to(card) for w, x in layer.items()} for q, layer in net.items()}
+              for n, net in init_maddpg(torch.Generator().manual_seed(hidden), o, k, a,
+                                        hidden=hidden).items()}
+    params["actor"]["out"]["w"] = params["actor"]["out"]["w"] * 100.0
+    run = fused_maddpg.fused_maddpg_trajectory(name, params["actor"], 1024, 10, horizon=5,
+                                               block_envs=1024, t_chunk=5, device=card)
+    before = fused_maddpg.maddpg_traj_cuda.launches_by[name]
+    got = run(0, params["actor"])
+    assert fused_maddpg.maddpg_traj_cuda.launches_by[name] == before + 1
+    ref = run.plain(0, params["actor"])
+    for label, x, y in zip(("obs", "act", "rew", "obs2"), got, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=0 if label == "act" else 1e-5, msg=label)
+    weights = fused_maddpg._kernel_weights(params["actor"], card)
+    for tile in (1, 2):
+        other = fused_maddpg.maddpg_traj_cuda(kscn, weights, 1024, 10, 5, 1024, 5, 0.1, 0,
+                                              device=card, tile=tile)
+        for label, x, y in zip(("obs", "act", "rew", "obs2"), other, got):
+            assert torch.equal(x, y), f"{label} at tile {tile}"
+    gen = torch.Generator(card).manual_seed(2)
+    targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen, device=card)
+                       for w, x in layer.items()} for q, layer in net.items()}
+               for n, net in params.items()}
+    rows = fused_maddpg.fused_maddpg_trajectory(name, params["actor"], 1024, 10, horizon=5,
+                                                block_envs=1024, t_chunk=5, emit_rows=True,
+                                                device=card)(0, params["actor"])
+    rows = rows.reshape(-1, rows.shape[-1])[torch.randperm(10240, generator=gen,
+                                                           device=card)[:512]].contiguous()
+    act2 = torch.empty((a, 2 if k > 5 else 1, 512), dtype=torch.int32, device=card)
+    before = fmu.maddpg_update_cuda.launches_by[name]
+    got, got_m = fmu.maddpg_update_cuda(params, targets, rows, mw=5, gamma=0.95, ent_coef=0.01,
+                                        target_actions=act2)
+    assert fmu.maddpg_update_cuda.launches_by[name] == before + 1
+    ref, ref_m = fmu.fused_maddpg_update(a, o, k, 5, hidden, 512, device=card).plain.from_rows(
+        params, targets, rows)
+    want = fmu.target_indices(fmu.target_logits(targets["actor"],
+                                                rows[:, a * (o + k + 1):].reshape(512, a, o)), 5)
+    assert torch.equal(act2.long(), want.permute(1, 2, 0))
+    _leaf_close(got, ref, 1e-4, "grads")
+    for x, y in zip(got_m, ref_m):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
 def test_mlp_kernels_refuse_uncompiled_widths(card):
     """A hidden width a kernel's source is not compiled for raises before
     any launch, on the card too, naming that source's widths: no wrapper
-    falls back to the plain version. 48 for K5; 128 for K8 (which K5 takes)
-    and for K6-bf16."""
+    falls back to the plain version. 48 for K5 and K8; 128 for K6-bf16 and,
+    through ``build_fused_update(compute_dtype=torch.bfloat16)``, K9-bf16
+    (K5 and K9 take 128)."""
     import re
 
-    from mpe_tpu_torch.learner.maddpg import init_maddpg
-    from mpe_tpu_torch.ops import fused_maddpg
+    from mpe_tpu_torch.learner import fused_loop
+    from mpe_tpu_torch.learner.maddpg import build_fused_update, init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update as fmu
 
     step = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
                                 hidden=48, device=card)
     params = step.init_params(torch.Generator().manual_seed(0))
+    run = fused_loop.build_fused_maddpg_runner("simple_spread", n_envs=64, horizon=5, batch=64,
+                                               hidden=128)
+    mparams, info = run(10, seed=1, actor_start=0)
     counters = (fused_policy.policy_traj_cuda, fused_update.ppo_update_cuda,
-                fused_update.ppo_update_bf16_cuda, fused_maddpg.maddpg_traj_cuda)
+                fused_update.ppo_update_bf16_cuda, fused_maddpg.maddpg_traj_cuda,
+                fmu.maddpg_update_cuda, fmu.maddpg_update_bf16_cuda)
     before = [c.launches for c in counters]
     with pytest.raises(NotImplementedError, match=re.escape(
             "(csrc/mpe_policy.cu) are compiled for hidden widths 8, 16, 32, 64, 128, 256; "
             "got 48")):
         step.collect(params, 2)
-    actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=128)["actor"]
+    actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=48)["actor"]
     with pytest.raises(NotImplementedError, match=re.escape(
-            "(csrc/mpe_maddpg.cu) are compiled for hidden widths 8, 16, 32, 64; got 128")):
+            "(csrc/mpe_maddpg.cu) are compiled for hidden widths 8, 16, 32, 64, 128, 256; "
+            "got 48")):
         fused_maddpg.maddpg_traj_cuda(kernel_scenario("simple_spread"),
                                       fused_maddpg._kernel_weights(actor, card), 1024, 10, 5,
                                       1024, 5, 0.1, 0, device=card)
+    update = build_fused_update(run.env, batch=64, hidden=128, device=card,
+                                compute_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=re.escape(
+            "(csrc/mpe_maddpg_bf16.cu) are compiled for hidden widths 8, 16, 32, 64; got 128")):
+        update(mparams, info["targets"], update.init_opt(mparams), info["buffer"], 3)
     wide = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
                                 hidden=128, device=card, compute_dtype=torch.bfloat16)
     wparams = wide.init_params(torch.Generator().manual_seed(0))

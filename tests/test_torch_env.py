@@ -22,6 +22,7 @@ from mpe_tpu_torch.convert import state_from_numpy, state_to_numpy
 from mpe_tpu_torch.core.actions import ActionMode
 from mpe_tpu_torch.envs.functional import MpeEnv as TMpeEnv
 from mpe_tpu_torch.parallel.mesh import build_rollout
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 16
 ATOL = 1e-12

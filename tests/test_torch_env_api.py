@@ -34,6 +34,7 @@ from mpe_tpu_torch.convert import state_from_numpy, state_to_numpy
 from mpe_tpu_torch.core.actions import ActionMode
 from mpe_tpu_torch.envs import (MpeEnv, MultiAgentEnv, VecMultiAgentEnv, aec_api, pack_actions,
                                 parallel_api, spaces)
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ["simple", "simple_adversary", "simple_crypto", "simple_push", "simple_reference",
          "simple_speaker_listener", "simple_spread", "simple_tag", "simple_world_comm"]

@@ -30,6 +30,7 @@ from mpe_tpu_torch.learner import es
 from mpe_tpu_torch.learner.optim import tree_leaves
 from mpe_tpu_torch.ops.fused_policy import fused_policy_rollout
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPE = dict(n_envs=64, n_steps=20, horizon=10)
 POP, SIGMA, LR = 8, 0.1, 0.1

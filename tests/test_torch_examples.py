@@ -34,6 +34,7 @@ from mpe_tpu_torch.examples import (_crypto, crypto_demo, es_train, evaluate_pol
                                     render_policy, rollout, train)
 from mpe_tpu_torch.learner import init_maddpg, maddpg_act_dim
 from mpe_tpu_torch.utils.checkpoint import load_checkpoint
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SL_CKPT = str(REPO / "checkpoints" / "maddpg_speaker_listener.npz")
@@ -57,18 +58,6 @@ CASES = {
                                       "--steps", "3"]),
     "crypto_demo": (crypto_demo, ["--episodes", "3"]),
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread per test process: on the CPU the examples run the
-    kernels' plain versions, thousands of small elementwise ops (the plain K9
-    sums in the kernel's order), which several threads a process only slow
-    down when the test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _numbers(x):

@@ -25,6 +25,7 @@ from mpe_tpu.core.state import make_spec as j_make_spec
 from mpe_tpu.envs.functional import MpeEnv as JMpeEnv
 from mpe_tpu_torch import scenarios as t_scenarios
 from mpe_tpu_torch.core.state import make_spec as t_make_spec
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 j_batched = importlib.import_module("mpe_tpu.ops.batched")
 j_fused = importlib.import_module("mpe_tpu.ops.fused_rollout")

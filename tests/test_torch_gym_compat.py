@@ -10,6 +10,7 @@ with ``device="cpu"``.
 import numpy as np
 import pytest
 import torch
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 gymnasium = pytest.importorskip("gymnasium")
 

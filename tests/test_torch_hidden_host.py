@@ -17,6 +17,7 @@ from tests._csrc_host import build_host_libs_at
 from tests.test_torch_csrc_host import _check_host_maddpg_update, _check_host_update
 from tests.test_torch_policy_host import (_check_maddpg_traj, _check_policy_rollout,
                                           _check_policy_traj)
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WIDTHS = (8, 16)
 NAMES = ["simple_spread", "simple_speaker_listener"]
@@ -24,11 +25,10 @@ SOURCES = ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu")
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def host_libs():
     """The three MLP sources at widths 8 and 16: six libraries, built at
     once."""
-    return build_host_libs_at(tmp_path_factory.mktemp("hidden_host"),
-                              [(source, h) for h in WIDTHS for source in SOURCES])
+    return build_host_libs_at([(source, h) for h in WIDTHS for source in SOURCES])
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -43,6 +43,7 @@ from mpe_tpu_torch.learner import eval as t_eval
 from mpe_tpu_torch.learner import init_maddpg, optim
 from mpe_tpu_torch.learner import pg as t_pg
 from mpe_tpu_torch.learner import ppo as t_ppo
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 HIDDEN = 16

@@ -42,6 +42,7 @@ from mpe_tpu_torch.learner import maddpg as tm
 from mpe_tpu_torch.learner.optim import adam
 from mpe_tpu_torch.ops.fused_maddpg import fused_maddpg_trajectory as t_traj
 from mpe_tpu_torch.ops.fused_maddpg_update import fused_maddpg_update as t_update
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 A, OW, K = 3, 18, 5
 CKPT = "checkpoints/maddpg_spread_fused.npz"

@@ -57,6 +57,7 @@ from mpe_tpu_torch.learner import maddpg as tm
 from mpe_tpu_torch.learner import pg as t_pg
 from mpe_tpu_torch.ops import fused_maddpg_update as tu
 from tests._bf16 import bf16_dots  # noqa: F401 (the fixture)
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HIDDEN, BATCH, MW = 16, 64, 5
 GAMMA, ENTC = 0.95, 0.01

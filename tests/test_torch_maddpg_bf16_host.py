@@ -43,6 +43,7 @@ from mpe_tpu_torch.learner.maddpg import init_maddpg
 from mpe_tpu_torch.ops import _build, fused_maddpg_update
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 from tests._csrc_host import build_host_libs_at
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WIDTHS = (64, 16)
 SOURCE = "mpe_maddpg_bf16.cu"
@@ -52,10 +53,9 @@ MW = 5
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def host_libs():
     """The K9-bf16 source at widths 64 and 16, built at once."""
-    return build_host_libs_at(tmp_path_factory.mktemp("maddpg_bf16_host"),
-                              [(SOURCE, h) for h in WIDTHS])
+    return build_host_libs_at([(SOURCE, h) for h in WIDTHS])
 
 
 @pytest.fixture

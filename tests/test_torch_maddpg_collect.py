@@ -18,6 +18,7 @@ from mpe_tpu.ops.kernel_scenarios import kernel_scenario as j_kernel_scenario
 from mpe_tpu_torch.convert import params_from_numpy
 from mpe_tpu_torch.ops.fused_maddpg import fused_maddpg_trajectory as t_traj
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OTHERS = ["simple", "simple_reference", "simple_speaker_listener", "simple_adversary",
           "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]

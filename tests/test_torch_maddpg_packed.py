@@ -13,6 +13,7 @@ import torch
 from mpe_tpu_torch import scenarios
 from mpe_tpu_torch.envs.functional import MpeEnv
 from mpe_tpu_torch.learner import maddpg as tm
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HIDDEN, BATCH, CAP, N_UPDATES = 16, 32, 256, 5
 # per-agent gates: a step of all, none, one agent and two agents, and a scalar gate

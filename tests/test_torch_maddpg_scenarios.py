@@ -35,6 +35,7 @@ from mpe_tpu_torch.learner import maddpg as tm
 from mpe_tpu_torch.ops.fused_maddpg import fused_maddpg_trajectory as t_traj
 from mpe_tpu_torch.ops.fused_maddpg_update import fused_maddpg_update as t_update
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OTHERS = ["simple", "simple_reference", "simple_speaker_listener", "simple_adversary",
           "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]

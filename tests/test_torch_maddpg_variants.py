@@ -48,6 +48,7 @@ from mpe_tpu_torch.learner import ensemble as t_ens
 from mpe_tpu_torch.learner import fused_loop
 from mpe_tpu_torch.learner import maddpg as tm
 from mpe_tpu_torch.learner.optim import tree_map
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 HIDDEN, BATCH = 16, 32

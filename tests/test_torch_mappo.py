@@ -35,6 +35,7 @@ from mpe_tpu_torch.convert import params_from_numpy, params_to_numpy
 from mpe_tpu_torch.learner import fused_ppo as t_ppo
 from mpe_tpu_torch.learner.ppo import init_mappo
 from mpe_tpu_torch.ops import fused_update as t_update
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CLIP, VF, ENTC = 0.2, 0.5, 0.01
 T, N, HIDDEN, A, OW = 4, 128, 16, 3, 18

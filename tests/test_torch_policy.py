@@ -31,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 from mpe_tpu.learner import init_policy as j_init_policy
 from mpe_tpu.ops.kernel_scenarios import kernel_scenario as j_kernel_scenario
 from mpe_tpu_torch.convert import params_from_numpy, read_checkpoint_params
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 j_fused = importlib.import_module("mpe_tpu.ops.fused_rollout")
 j_policy = importlib.import_module("mpe_tpu.ops.fused_policy")
@@ -266,9 +267,9 @@ def test_pick_tile_rule():
 
 def test_policy_kernel_wrappers_refuse_uncompiled_widths_before_any_launch():
     """K4's, K5's and K8's wrappers take the hidden width from the weights
-    and raise for a width their source is not compiled for (48; K8 also at
-    128, which K4 and K5 take), naming that source's widths, before they look
-    at the device (so here, without a card)."""
+    and raise for a width their source is not compiled for (48; all three
+    take 128 and 256), naming that source's widths, before they look at the
+    device (so here, without a card)."""
     from mpe_tpu_torch.learner.maddpg import init_maddpg
     from mpe_tpu_torch.ops import fused_maddpg
 
@@ -282,10 +283,15 @@ def test_policy_kernel_wrappers_refuse_uncompiled_widths_before_any_launch():
         t_policy.policy_traj_cuda(kscn, weights, 64, 8, 4, 64, 4, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=named):
         t_policy.policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device="cpu")
-    for h in (48, 128):
+    actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=48)["actor"]
+    with pytest.raises(NotImplementedError, match=re.escape(
+            "(csrc/mpe_maddpg.cu) are compiled for hidden widths 8, 16, 32, 64, 128, 256; "
+            "got 48")):
+        fused_maddpg.maddpg_traj_cuda(kscn, fused_maddpg._kernel_weights(actor), 64, 10, 5, 64,
+                                      5, 0.1, 0, device="cpu")
+    for h in (128, 256):          # a width K8 takes gets past the width to the device check
         actor = init_maddpg(torch.Generator().manual_seed(0), 18, 5, 3, hidden=h)["actor"]
-        with pytest.raises(NotImplementedError, match=re.escape(
-                f"(csrc/mpe_maddpg.cu) are compiled for hidden widths 8, 16, 32, 64; got {h}")):
+        with pytest.raises(ValueError, match="needs a CUDA device"):
             fused_maddpg.maddpg_traj_cuda(kscn, fused_maddpg._kernel_weights(actor), 64, 10, 5,
                                           64, 5, 0.1, 0, device="cpu")
     assert before == (t_policy.policy_traj_cuda.launches, t_policy.policy_rollout_cuda.launches,

@@ -23,6 +23,7 @@ from mpe_tpu.policy import RandomPolicy as JRandomPolicy
 from mpe_tpu.policy import ScriptedKeySource as JScriptedKeySource
 from mpe_tpu_torch import ActionMode, make_env
 from mpe_tpu_torch.policy import InteractivePolicy, RandomPolicy, ScriptedKeySource
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 NAMES = ["simple", "simple_adversary", "simple_crypto", "simple_push", "simple_reference",

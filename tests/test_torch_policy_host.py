@@ -19,6 +19,7 @@ from mpe_tpu_torch.ops.fused_policy import (_kernel_weights, _pack_weights, plai
                                             plain_policy_trajectory)
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 from tests._csrc_host import build_host_libs
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ["simple_spread", "simple", "simple_reference", "simple_speaker_listener",
          "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
@@ -28,9 +29,8 @@ EXACT = ("act", "cact", "episodes")
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    return build_host_libs(tmp_path_factory.mktemp("policy_host"),
-                           ("mpe_policy.cu", "mpe_maddpg.cu"))
+def host_libs():
+    return build_host_libs(("mpe_policy.cu", "mpe_maddpg.cu"))
 
 
 def _hold(label, runs, ref):

@@ -29,6 +29,7 @@ from mpe_tpu_torch.convert import params_from_numpy, params_to_numpy
 from mpe_tpu_torch.learner import fused_ppo as t_ppo
 from mpe_tpu_torch.learner import optim
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario as t_kernel_scenario
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _leaves(tree):

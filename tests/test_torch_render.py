@@ -22,6 +22,7 @@ from mpe_tpu import make_env as j_make_env
 from mpe_tpu.policy import RandomPolicy as JRandomPolicy
 from mpe_tpu_torch import make_env
 from mpe_tpu_torch.convert import state_from_numpy
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ["simple", "simple_adversary", "simple_crypto", "simple_push", "simple_reference",
          "simple_speaker_listener", "simple_spread", "simple_tag", "simple_world_comm"]

@@ -24,6 +24,7 @@ from mpe_tpu_torch import scenarios as t_scenarios
 from mpe_tpu_torch.convert import state_from_numpy, state_to_numpy
 from mpe_tpu_torch.envs.functional import MpeEnv as TMpeEnv
 from mpe_tpu_torch.parallel.mesh import build_rollout
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 j_kscn = importlib.import_module("mpe_tpu.ops.kernel_scenarios")
 t_kscn = importlib.import_module("mpe_tpu_torch.ops.kernel_scenarios")

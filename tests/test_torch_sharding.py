@@ -56,6 +56,7 @@ from mpe_tpu_torch.ops.fused_rollout import fused_rollout
 from mpe_tpu_torch.parallel.launch import launch
 from mpe_tpu_torch.parallel.mesh import (EnvMesh, build_rollout, env_mesh, fold_host_key,
                                          init_multihost, pick_backend)
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist_worker.py")
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

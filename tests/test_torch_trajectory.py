@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from mpe_tpu_torch import scenarios as t_scenarios
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 j_traj = importlib.import_module("mpe_tpu.ops.fused_trajectory")
 j_fused = importlib.import_module("mpe_tpu.ops.fused_rollout")

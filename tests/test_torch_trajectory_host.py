@@ -17,6 +17,7 @@ from mpe_tpu_torch.ops import _build
 from mpe_tpu_torch.ops.fused_trajectory import GROUPS, TRAJ_GROUP, TRAJ_WIDE_ENVS, traj_group
 from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 from tests._csrc_host import build_host_libs
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ["simple_spread", "simple", "simple_reference", "simple_speaker_listener",
          "simple_adversary", "simple_push", "simple_crypto", "simple_tag", "simple_world_comm"]
@@ -25,9 +26,8 @@ LABELS = ("obs", "act", "rew", "pos", "vel")
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    return build_host_libs(tmp_path_factory.mktemp("trajectory_host"),
-                           ("mpe_trajectory.cu",))["mpe_trajectory.cu"]
+def lib():
+    return build_host_libs(("mpe_trajectory.cu",))["mpe_trajectory.cu"]
 
 
 def _outputs(kscn, fill=float("nan")):

@@ -32,6 +32,7 @@ from mpe_tpu.ops.fused_update import fused_ppo_update as j_fused_ppo_update
 from mpe_tpu.ops.kernel_scenarios import kernel_scenario as j_kernel_scenario
 from mpe_tpu_torch.convert import params_from_numpy
 from mpe_tpu_torch.ops import fused_update as t_update
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CLIP, VF, ENTC = 0.2, 0.5, 0.01
 T, N, HIDDEN = 4, 128, 16
@@ -280,14 +281,14 @@ def test_build_targets_name_each_hidden_width():
     that source's table), each name distinct, the width-64 name the one a
     build without the width had (a hash of the source, the headers and the
     flags); the sources without an MLP and the widths a source is not
-    compiled for (48 for every one, 128 and 256 for K8/K9's and the bf16
-    sources) are refused, naming that source's widths."""
+    compiled for (48 for every one, 128 and 256 for the bf16 sources) are
+    refused, naming that source's widths."""
     import hashlib
 
     from mpe_tpu_torch.ops import _build
 
     assert _build.HIDDEN_WIDTHS["mpe_policy.cu"] == _build.HIDDEN_WIDTHS["mpe_update.cu"] == (
-        8, 16, 32, 64, 128, 256)
+        _build.HIDDEN_WIDTHS["mpe_maddpg.cu"]) == (8, 16, 32, 64, 128, 256)
     for source in _build.HIDDEN_SOURCES:
         widths = _build.HIDDEN_WIDTHS[source]
         names = [_build._target(source, h).name for h in widths]
@@ -299,7 +300,8 @@ def test_build_targets_name_each_hidden_width():
         assert _build._target(source).name == f"lib{source[:-3]}_{digest}.so"
         assert _build._target(source, 8).name.startswith(f"lib{source[:-3]}_h8_")
         refused = [48] + [h for h in (128, 256) if h not in widths]
-        assert (source in ("mpe_policy.cu", "mpe_update.cu")) == (refused == [48])
+        assert (source in ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu")) == (
+            refused == [48])
         for h in refused:
             with pytest.raises(NotImplementedError, match=re.escape(
                     f"(csrc/{source}) are compiled for hidden widths "

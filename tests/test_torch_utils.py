@@ -33,6 +33,7 @@ from mpe_tpu_torch.learner.optim import tree_map
 from mpe_tpu_torch.utils import (load_checkpoint, load_train_state, save_checkpoint,
                                  save_train_state, step_phase, trace)
 from mpe_tpu_torch.utils.checkpoint import treedef
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax_states(name: str, n: int = 4):

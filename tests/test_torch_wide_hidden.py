@@ -50,6 +50,7 @@ from mpe_tpu_torch.learner import fused_ppo as t_ppo
 from mpe_tpu_torch.ops import fused_update as t_update
 from tests import test_torch_mappo as mappo_t
 from tests import test_torch_update as ppo_t
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_policy import F32_TOL, SMALL, _np, _params, j_kernel_scenario, j_policy, \
     t_policy
 

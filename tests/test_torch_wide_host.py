@@ -29,6 +29,7 @@ from mpe_tpu_torch.ops.kernel_scenarios import _KERNEL_SCENARIOS, kernel_scenari
 from tests._csrc_host import MAX_SMEM_FLOATS, build_host_libs_at
 from tests.test_torch_csrc_host import _check_host_update
 from tests.test_torch_policy_host import _check_policy_rollout, _check_policy_traj
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WIDTHS = (128, 256)
 NAMES = ["simple_spread", "simple_speaker_listener"]
@@ -36,10 +37,9 @@ SOURCES = ("mpe_policy.cu", "mpe_update.cu")
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def host_libs():
     """The two sources at widths 128 and 256: four libraries, built at once."""
-    return build_host_libs_at(tmp_path_factory.mktemp("wide_host"),
-                              [(source, h) for h in WIDTHS for source in SOURCES])
+    return build_host_libs_at([(source, h) for h in WIDTHS for source in SOURCES])
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -110,15 +110,25 @@ bit within one call; and the registers and spill bytes of each
 ``policy_traj_kernel``, ``policy_rollout_kernel`` and ``maddpg_traj_kernel``
 instantiation (the largest spill of the kernel and the functions it calls).
 
-With ``--wide`` (K4-K7 at hidden 128 and 256): at each width, K6 and K7 on
+With ``--wide`` (K4-K9 at hidden 128 and 256): at each width, K6 and K7 on
 paths b's and b2's batches (simple_spread at the learner batch, a trainer of
 that width from a seeded init) as without a mode (CUDA events, then
-torch.profiler), and K5 (4096 x 64) and K4 (4096 x 1000) with a seeded
+torch.profiler) and a SHA-256 of the gradient and metrics, and K5 (4096 x 64) and K4 (4096 x 1000) with a seeded
 ``init_policy`` actor of that width as with ``--policy`` (the rule's tile, a
 SHA-256 of each output); the registers and spill bytes of each
 ``ppo_update_wide_kernel``, ``policy_traj_kernel`` and
-``policy_rollout_kernel`` instantiation at that width. A checkout whose
-kernels refuse the width records the refusal.
+``policy_rollout_kernel`` instantiation at that width; then K8 (the rows form
+at 1024 envs x 25 steps) and K9 (its launcher on 1024 of those rows) on
+simple_spread and simple_world_comm with a seeded ``init_maddpg`` of that
+width: ms by CUDA events (K9 also over 100 back-to-back calls), K9's device
+ms a call (the mean of 5 calls under torch.profiler), a SHA-256 of K8's rows
+and of K9's gradient, and the
+registers and spill bytes of every ``mpe_maddpg.cu`` kernel. At hidden 8, 16,
+32 and 64 the same K8 and K9 figures on simple_spread (at 64 also on
+simple_speaker_listener and simple_world_comm, paths d2's and d3's comm
+heads), so that two checkouts
+show those widths' outputs bit for bit and K9's device time side by side. A
+checkout whose kernels refuse a width records the refusal.
 
 With ``--trajectory`` (K3): ``fused_trajectory`` on the nine scenarios at
 4096 envs x 64 steps and on simple_spread, simple_reference and
@@ -500,6 +510,15 @@ def sha256s(outs) -> list[str]:
             for x in outs]
 
 
+def leaves(tree) -> list:
+    """The tensors of a nest of dicts, lists and tuples, dicts by sorted key."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree] if hasattr(tree, "contiguous") else []
+
+
 def time_policy(result: dict, logs: dict) -> None:
     import torch
 
@@ -571,6 +590,93 @@ def time_policy(result: dict, logs: dict) -> None:
 
 
 WIDE = (128, 256)
+NARROW = (8, 16, 32, 64)
+WIDE_MADDPG_NAMES = ("simple_spread", "simple_world_comm")
+# at hidden 64 K8 and K9 also on paths d2's and d3's scenarios (the comm heads)
+NARROW_MADDPG_NAMES = {64: ("simple_spread", "simple_speaker_listener", "simple_world_comm")}
+K9_PROFILED_CALLS = 5
+
+
+def k9_device_ms(fn) -> float | None:
+    """The device ms of one call of ``fn`` (a K9 launch: four kernels whose
+    names hold "maddpg_"), the mean over K9_PROFILED_CALLS calls under
+    torch.profiler after one; None without device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(K9_PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    dev = [us(e) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "maddpg_" in e.key]
+    return sum(dev) / 1e3 / K9_PROFILED_CALLS if sum(dev) > 0 else None
+
+
+def loop_ms(fn, n: int = 100) -> float:
+    """The CUDA-event time of ``n`` back-to-back calls of ``fn`` over ``n``,
+    after a warm-up: where a call's device work outlasts its launches, its
+    device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_maddpg_at(name: str, h: int) -> dict:
+    """K8 (the rows form, 1024 envs x 25 steps, a seeded init_maddpg actor of
+    width ``h`` with O(1) logits) and K9 (its launcher on the first 1024 of
+    those rows, targets = params + 0.1) on ``name``: ms by CUDA events (K9
+    also a call of 100 back to back), K9's device ms a call, a SHA-256 of K8's
+    rows and of K9's gradient."""
+    import torch
+
+    from mpe_tpu_torch.learner.maddpg import collect_t_chunk, init_maddpg
+    from mpe_tpu_torch.ops import fused_maddpg as fm
+    from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    kscn = kernel_scenario(name)
+    a, ow, k = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits
+    k8 = POLICY_K8
+    params = {n: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
+              for n, net in init_maddpg(torch.Generator().manual_seed(90 + h), ow, k, a,
+                                        hidden=h).items()}
+    params["actor"]["out"]["w"] = params["actor"]["out"]["w"] * 100.0
+    weights = fm._kernel_weights(params["actor"], "cuda")
+    t_chunk = collect_t_chunk(k8["n_steps"])
+
+    def collect():
+        return fm.maddpg_traj_cuda(kscn, weights, k8["n_envs"], k8["n_steps"], k8["horizon"],
+                                   k8["block_envs"], t_chunk, k8["eps_greedy"], 1, 0, True,
+                                   "cuda")
+
+    rows = collect()
+    row = {"K8": {"ms": median_ms(collect), "sha256": sha256s((rows,)),
+                  "tile": fm.maddpg_tile(kscn, k8["n_envs"], hidden=h)}}
+    batch = MADDPG["batch"]
+    rows_b = rows.reshape(-1, rows.shape[-1])[:batch].contiguous()
+    k9 = MaddpgUpdateLauncher(a, ow, k, 5, h, batch, "cuda", gamma=0.95, ent_coef=0.01)
+    targets = {n: {q: {w: x + 0.1 for w, x in layer.items()} for q, layer in net.items()}
+               for n, net in params.items()}
+    wbuf = k9.layout.pack(params, targets).cuda()
+    grads = torch.empty(k9.layout.off_ta, device="cuda")
+    metrics = torch.empty(3, device="cuda")
+    launch = lambda: k9.launch(wbuf, rows_b, grads, metrics)
+    launch()
+    row["K9"] = {"ms": median_ms(launch), "loop_ms": loop_ms(launch),
+                 "device_ms": k9_device_ms(launch), "sha256": sha256s((grads, metrics))}
+    return row
 
 
 def time_wide(result: dict) -> None:
@@ -582,6 +688,10 @@ def time_wide(result: dict) -> None:
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     kscn = kernel_scenario("simple_spread")
+    # every library the checkout takes, built at once (one nvcc each, in parallel)
+    pairs = [(s, h) for h in WIDE for s in ("mpe_policy.cu", "mpe_update.cu")] + [
+        ("mpe_maddpg.cu", h) for h in WIDE + NARROW]
+    built = _build.build([(s, h) for s, h in pairs if h in _build.HIDDEN_WIDTHS.get(s, ())])
     for h in WIDE:
         row = result[f"hidden_{h}"] = {}
         try:
@@ -589,13 +699,15 @@ def time_wide(result: dict) -> None:
         except (NotImplementedError, ValueError) as e:
             row["refused"] = str(e)
             continue
+        logs = {pair: built.get(pair, "") for pair in logs}
         for path, build in (("b", build_fused_ppo_step), ("b2", build_fused_mappo_step)):
             step = build("simple_spread", **dict(TRAIN, hidden=h))
             params = step.init_params(torch.Generator().manual_seed(0))
             obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
             args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
             row[path] = {"ms": median_ms(lambda: step.update(*args)),
-                         **profile_call(lambda: step.update(*args))}
+                         **profile_call(lambda: step.update(*args)),
+                         "sha256": sha256s(leaves(step.update(*args)))}
             del step, args, obs, mv_oh, cm_oh, logp_old, value, adv_n, ret
             torch.cuda.empty_cache()
         actor = {k: {q: x.cuda() for q, x in layer.items()} for k, layer in
@@ -618,6 +730,25 @@ def time_wide(result: dict) -> None:
                         "ppo_update_wide_kernel"),
             **registers({s: logs[s, h] for s in ("mpe_policy.cu",)}, "mpe_policy.cu",
                         ("policy_traj_kernel", "policy_rollout_kernel"))}
+    # K8 and K9 at the wide widths (a checkout whose mpe_maddpg.cu refuses
+    # them records the refusal), and at 8-64, where both trees run the same
+    # kernels: the outputs' hashes and K9's device time, to compare
+    for h in WIDE + NARROW:
+        row = result.setdefault(f"hidden_{h}", {})
+        try:
+            logs = _build.build([("mpe_maddpg.cu", h)])
+        except (NotImplementedError, ValueError) as e:
+            row["maddpg_refused"] = str(e)
+            continue
+        logs = {pair: built.get(pair, "") for pair in logs}
+        names = WIDE_MADDPG_NAMES if h in WIDE else NARROW_MADDPG_NAMES.get(h, ("simple_spread",))
+        for name in names:
+            row[f"maddpg {name}"] = time_maddpg_at(name, h)
+            torch.cuda.empty_cache()
+        row["maddpg_registers_spill_bytes"] = registers(
+            {"mpe_maddpg.cu": logs["mpe_maddpg.cu", h]}, "mpe_maddpg.cu",
+            ("maddpg_traj_kernel", "maddpg_target_actions", "maddpg_td", "maddpg_update",
+             "maddpg_reduce"))
 
 
 TRAJ_AB = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
