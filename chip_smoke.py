@@ -9,10 +9,11 @@ failure ends the run with a non-zero exit code:
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time (every source at hidden width 64, the MLP sources
      of K4-K9, K6-bf16, K7-bf16 and K9-bf16 also at 8, 16 and 32, and those of
-     K4-K7 at 128 and 256, one nvcc each, all at once), the compiler's register report and the HMMA and LDSM
-     (ldmatrix) instructions that cuobjdump -sass finds in each bf16
-     library, mpe_update_bf16.cu's and mpe_maddpg_bf16.cu's at every width
-     (each must hold some of both);
+     K4-K9, K6-bf16 and K7-bf16 at 128 and 256, one nvcc each, all at once),
+     the compiler's register report and the HMMA and LDSM (ldmatrix)
+     instructions that cuobjdump -sass finds in each bf16 library,
+     mpe_update_bf16.cu's at 8-256 and mpe_maddpg_bf16.cu's at 8-64 (each
+     must hold some of both);
   2. sixteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
@@ -267,14 +268,18 @@ failure ends the run with a non-zero exit code:
      plain versions (params within 1e-5), and the MADDPG runner on
      simple_spread at hidden 8 for 2 chunks (K8, K9) and one update chunk
      against the plain chunk (within 1e-4); the phase's seconds printed;
-  3c. the wide widths, 128 and 256, which K4-K9 take (the bf16 kernels
-     refuse them): K4-K7 at each, on simple_spread and simple_world_comm
-     (K7's widest critic) at 1024 envs x 64 steps, K5 and K4 held as in 3b
-     and K6 and K7 on a trainer's batch and with both clips binding; then
-     paths b and b2 at TRAIN's shape with that width, 5 iterations each,
-     timed by phase, their launches read; K6 and K7 on the last iteration's
-     batch gated and timed beside their plain versions, autograd of the
-     trainer's loss and their bound (device time by the profiler); K5 on
+  3c. the wide widths, 128 and 256, which K4-K9, K6-bf16 and K7-bf16 take
+     (K9-bf16 refuses them): K4-K7, K6-bf16 and K7-bf16 at each, on
+     simple_spread and simple_world_comm (K7's widest critic) at 1024 envs x
+     64 steps, K5 and K4 held as in 3b and K6 and K7 on a trainer's batch
+     and with both clips binding, K6-bf16 and K7-bf16 the same way within
+     1e-3 of the plain bf16 version; then paths b, b2 and b5 (the bf16
+     trainers, no float32 update kernel launched) at TRAIN's shape with that
+     width, 5 iterations each, timed by phase, their launches read; K6, K7,
+     K6-bf16 and K7-bf16 on the last iteration's batch gated and timed
+     beside their plain versions, autograd of the trainer's loss and their
+     bound (device time by the profiler), the bf16 kernels also beside the
+     float32 kernel on the same batch; K5 on
      path b's actor at the training shape and K4's evaluation of it at 4096
      envs x 1000 steps (horizon 25, launches read), K5 against its plain
      version there, K4 at 4096 envs x 200 steps; `evaluate_policy` and `es_train` (2 generations) with
@@ -442,12 +447,13 @@ HIDDEN_NAMES = ("simple_spread", "simple_speaker_listener")
 HIDDEN_GATE = dict(n_envs=1024, n_steps=64, horizon=25, block_envs=1024, t_chunk=8)
 HIDDEN_TRAINERS = (("PPO", 16), ("MAPPO", 32))
 HIDDEN_MADDPG, HIDDEN_MADDPG_CHUNKS = 8, 2
-# phase 3c: hidden 128 and 256, which K4-K9 take (mpe_policy.cu, mpe_update.cu
-# and mpe_maddpg.cu; the bf16 kernels refuse them): K4-K7 against
-# their plain versions on WIDE_NAMES at HIDDEN_GATE's shape (simple_world_comm:
-# K7's widest critic, 204 inputs), then paths b and b2 at TRAIN's shape with
-# each width for WIDE_ITERS iterations, K5, K6 and K7 timed on their shapes
-# there, and K4's evaluation of path b's actor at path c's shape
+# phase 3c: hidden 128 and 256, which K4-K9, K6-bf16 and K7-bf16 take
+# (mpe_policy.cu, mpe_update.cu, mpe_maddpg.cu and mpe_update_bf16.cu;
+# K9-bf16 refuses them): K4-K7, K6-bf16 and K7-bf16 against their plain
+# versions on WIDE_NAMES at HIDDEN_GATE's shape (simple_world_comm: K7's
+# widest critic, 204 inputs), then paths b, b2 and b5 at TRAIN's shape with
+# each width for WIDE_ITERS iterations, K5 and the update kernels timed on
+# their shapes there, and K4's evaluation of path b's actor at path c's shape
 WIDE_PHASE = (128, 256)
 WIDE_NAMES = ("simple_spread", "simple_world_comm")
 WIDE_ITERS = 5
@@ -705,28 +711,29 @@ def update_sample(n_in: int, n_out: int, comm: int, value: bool, h: int = 64) ->
                 (1, {"fp32": h * n_in + h * h + n_out * h + 2 * h + n_out}))
 
 
-def update_bf16_sample(n_in: int, n_out: int, comm: int, value: bool) -> dict:
-    """K6-bf16 or K7-bf16's actor pass per sample (csrc/mpe_update_bf16.cu):
-    ``update_sample``'s function with every product on the tensor cores as
-    bf16 multiply-adds: the forward's 64 (n_in + 64) + n_out 64, the
-    backward's 64 n_out + 64 x 64 and the weight gradients' 64 (n_in + 64) +
-    n_out 64; the forward's bias adds (128 + n_out), both tanh layers, the
-    head, the backward's 1 - h^2 and products (64 x 4) and the bias sums (128
+def update_bf16_sample(n_in: int, n_out: int, comm: int, value: bool, h: int = 64) -> dict:
+    """K6-bf16 or K7-bf16's actor pass per sample (csrc/mpe_update_bf16.cu)
+    at hidden ``h``: ``update_sample``'s function with every product on the
+    tensor cores as bf16 multiply-adds: the forward's h (n_in + h) + n_out h,
+    the backward's h n_out + h x h and the weight gradients' h (n_in + h) +
+    n_out h; the forward's bias adds (2h + n_out), both tanh layers, the
+    head, the backward's 1 - h^2 and products (h x 4) and the bias sums (2h
     + n_out) in fp32; each product's operand rounded once per value (x, h1,
-    h2, g3, gh2, gh1: n_in + 256 + n_out values, two a conversion)."""
-    return _ops((1, {"tc_bf16": 2 * 64 * n_in + 3 * 64 * 64 + 3 * 64 * n_out,
-                     "fp32": 2 * (128 + n_out) + 64 * 4, "cvt": (n_in + 256 + n_out + 1) // 2}),
-                (128, TANH), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
+    h2, g3, gh2, gh1: n_in + 4h + n_out values, two a conversion)."""
+    return _ops((1, {"tc_bf16": 2 * h * n_in + 3 * h * h + 3 * h * n_out,
+                     "fp32": 2 * (2 * h + n_out) + h * 4,
+                     "cvt": (n_in + 4 * h + n_out + 1) // 2}),
+                (2 * h, TANH), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
                 (1 if comm else 0, {"fp32": 14 * comm, "sfu": comm + 2}))
 
 
-def critic_bf16_sample(n_in: int) -> dict:
-    """K7-bf16's critic pass per (t, env) sample: ``critic_sample``'s
-    function with the products on the tensor cores, as
+def critic_bf16_sample(n_in: int, h: int = 64) -> dict:
+    """K7-bf16's critic pass per (t, env) sample at hidden ``h``:
+    ``critic_sample``'s function with the products on the tensor cores, as
     ``update_bf16_sample`` with one output and the value clip's 13 fp32."""
-    return _ops((1, {"tc_bf16": 2 * 64 * n_in + 3 * 64 * 64 + 3 * 64,
-                     "fp32": 2 * 129 + 64 * 4 + 13, "cvt": (n_in + 257 + 1) // 2}),
-                (128, TANH))
+    return _ops((1, {"tc_bf16": 2 * h * n_in + 3 * h * h + 3 * h,
+                     "fp32": 2 * (2 * h + 1) + h * 4 + 13, "cvt": (n_in + 4 * h + 1 + 1) // 2}),
+                (2 * h, TANH))
 
 
 def critic_sample(n_in: int, h: int = 64) -> dict:
@@ -1014,15 +1021,17 @@ def maddpg_update_bf16_sample(name: str) -> dict:
             "reset": {}, "env": {"cvt": weights // 2}}
 
 
-def update_ops(kind: str, name: str, h: int = 64) -> dict:
+def update_ops(kind: str, name: str, h: int = 64, bf16: bool = False) -> dict:
     """OPS of K6 (``kind`` "ppo") or K7 ("mappo") on ``name`` at hidden
-    ``h``: a "step" is a sample, K6's (t, agent, env); K7's actor sample,
-    and as its "reset" a critic sample (t, env)."""
+    ``h`` (``bf16``: of K6-bf16 or K7-bf16): a "step" is a sample, K6's (t,
+    agent, env); K7's actor sample, and as its "reset" a critic sample (t,
+    env)."""
     a, ow, c, _, _ = widths(name)
+    sample, critic = ((update_bf16_sample, critic_bf16_sample) if bf16 else
+                      (update_sample, critic_sample))
     if kind == "ppo":
-        return {"step": update_sample(ow, 6 + c, c, True, h), "reset": {}, "env": {}}
-    return {"step": update_sample(ow, 5 + c, c, False, h), "reset": critic_sample(a * ow, h),
-            "env": {}}
+        return {"step": sample(ow, 6 + c, c, True, h), "reset": {}, "env": {}}
+    return {"step": sample(ow, 5 + c, c, False, h), "reset": critic(a * ow, h), "env": {}}
 
 
 def add_policy_ops() -> None:
@@ -1751,15 +1760,16 @@ def update_batches(step, params, label: str):
 
 def update_bound(kernel: str, name: str, batch, h: int = 64) -> tuple[float, str, float]:
     """``bound_ms`` of one epoch gradient of ``kernel`` (K6, K7 or their bf16
-    twins: OPS by sample; at another hidden width ``h`` than 64 K6's and
-    K7's ``update_ops``) on ``batch``: K6 reads obs, the one-hots, logp_old,
-    adv, ret and value per sample, K7 the first four per (t, agent, env) and
-    the team's three per (t, env); both read their weights and write the
-    gradient once."""
+    twins: OPS by sample; at another hidden width ``h`` than 64 the kernel's
+    ``update_ops``, the bf16 ones for a bf16 kernel) on ``batch``: K6 reads
+    obs, the one-hots, logp_old, adv, ret and value per sample, K7 the first
+    four per (t, agent, env) and the team's three per (t, env); both read
+    their weights and write the gradient once."""
     a, ow, c, _, _ = widths(name)
     t, n = batch[0].shape[0], batch[0].shape[3]
     per_sample = ow + 5 + c + 1                       # obs, one-hots, logp_old
-    ops = OPS[f"{kernel}[{name}]"] if h == 64 else update_ops(kernel.split("_")[0], name, h)
+    ops = (OPS[f"{kernel}[{name}]"] if h == 64 else
+           update_ops(kernel.split("_")[0], name, h, bf16="bf16" in kernel))
     if kernel.startswith("ppo"):
         n_w = h * (ow + h + 6 + c) + 2 * h + 6 + c
         return bound_ms(ops, t * a * n, 0, 0, t * a * n * (per_sample + 3) * 4 + 2 * n_w * 4)
@@ -2127,9 +2137,10 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
     if kernel in ("ppo", "mappo", "ppo_bf16", "mappo_bf16"):
         a, ow, c, _, _ = widths(name)
         kind, _, dtype = kernel.partition("_")
-        # hidden 128 and 256 compile ppo_update_wide_kernel in place of ppo_update_kernel
-        entries = ("ppo_update_bf16_kernel",) if dtype else ("ppo_update_kernel",
-                                                             "ppo_update_wide_kernel")
+        # hidden 128 and 256 compile the wide kernels in place of ppo_update_kernel and
+        # ppo_update_bf16_kernel
+        entries = (("ppo_update_bf16_kernel", "ppo_update_bf16_wide_kernel") if dtype else
+                   ("ppo_update_kernel", "ppo_update_wide_kernel"))
         flags = {"ppo": "ELb1ELb0E", "mappo": "ELb0ELb1E"}[kind]
         heads = [f"ILi{ow}ELi5ELi{c}{flags}"]
         if kind == "mappo":
@@ -2961,11 +2972,14 @@ def hidden_widths_phase(wrappers) -> dict:
 
 
 def wide_widths_phase(wrappers, regs_at: dict) -> dict:
-    """Phase 3c (the module docstring): K4-K7 at each width of WIDE_PHASE ->
-    {kernel: {hidden: row}} (each row as the kernels line's: launches on the
-    wide paths, max abs err over the gates, ms, plain ms, bound, library ms,
-    registers by scenario of WIDE_NAMES; K4 and K5 their tile), "paths":
+    """Phase 3c (the module docstring): K4-K7, K6-bf16 and K7-bf16 at each
+    width of WIDE_PHASE -> {kernel: {hidden: row}} (each row as the kernels
+    line's: launches on the wide paths, max abs err over the gates, ms, plain
+    ms, bound, library ms, registers by scenario of WIDE_NAMES; K4 and K5
+    their tile; the bf16 kernels the float32 kernel's ms beside), "paths":
     {path: transitions/s and ms by phase}, "seconds": s."""
+    import functools
+
     import torch
 
     from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
@@ -2978,9 +2992,11 @@ def wide_widths_phase(wrappers, regs_at: dict) -> dict:
     kscn = kernel_scenario(name)
     kernels = {"policy_traj_kernel": "policy_traj_kernel",
                "policy_rollout_kernel": "policy_rollout_kernel", "ppo_update_kernel": "ppo",
-               "mappo_update_kernel": "mappo"}
+               "mappo_update_kernel": "mappo", "ppo_update_bf16_kernel": "ppo_bf16",
+               "mappo_update_bf16_kernel": "mappo_bf16"}
     out = {k: {} for k in kernels}
     out["paths"] = {}
+    bf16 = torch.bfloat16
     for h in WIDE_PHASE:
         errs = {k: {} for k in kernels}
         for i, gname in enumerate(WIDE_NAMES):
@@ -2990,6 +3006,10 @@ def wide_widths_phase(wrappers, regs_at: dict) -> dict:
                                                               h, 90 + h + i)
             errs["mappo_update_kernel"][gname] = gate_update_at("K7", build_fused_mappo_step,
                                                                 gname, h, 90 + h + i)
+            errs["ppo_update_bf16_kernel"][gname] = gate_update_at(
+                "K6-bf16", build_fused_ppo_step, gname, h, 90 + h + i, bf16, BF16_GRAD_TOL)
+            errs["mappo_update_bf16_kernel"][gname] = gate_update_at(
+                "K7-bf16", build_fused_mappo_step, gname, h, 90 + h + i, bf16, BF16_GRAD_TOL)
         rows = {k: {"max_abs_err": max(e.values()), "registers_spill_bytes": {
             n: registers_of(regs_at[h], kernels[k], n) for n in WIDE_NAMES}}
             for k, e in errs.items()}
@@ -3032,6 +3052,49 @@ def wide_widths_phase(wrappers, regs_at: dict) -> dict:
             del batch, clipped, lib_batch
             if kind == "ppo":
                 actor = {"l1": params["l1"], "l2": params["l2"], "out": params["pi"]}
+        # path b5 at this width: the bf16 trainers; K6-bf16 and K7-bf16 gated
+        # and timed on the last iteration's batch beside the float32 wide
+        # kernel on the same batch
+        for label, kind in BF16_TRAINERS:
+            build = build_fused_ppo_step if kind == "ppo" else build_fused_mappo_step
+            kernel, key = f"{kind}_update_bf16_kernel", f"{label} on {name} at hidden {h}"
+            tag = "K6-bf16" if kind == "ppo" else "K7-bf16"
+            launches, step, _, state, phases, last = training_path(
+                wrappers, kscn, functools.partial(build, compute_dtype=bf16), key,
+                ["policy_traj_kernel", kernel], WIDE_ITERS, h)
+            assert wrappers[f"{kind}_update_kernel"].launches == 0, \
+                f"{key}: the float32 kernel launched on the bf16 path"
+            total = sum(phases.values())
+            out["paths"][key] = {"transitions_per_s": step.n_transitions / (total * 1e-3),
+                                 "ms_per_iteration_by_phase": phases, "iterations": WIDE_ITERS,
+                                 "launches": launches, "last_iteration": last}
+            rows["policy_traj_kernel"]["launches"] += launches["policy_traj_kernel"]
+            params = state[0]
+            s32 = build(kscn, **dict(TRAIN, hidden=h))
+            batch, clipped, lib_batch = update_batches(step, params, key)
+            gated = ("vloss", "entropy")
+            err = max(check_update(f"{tag} ({key}, trainer batch)", step.update, params, batch,
+                                   gated, BF16_GRAD_TOL),
+                      check_update(f"{tag} ({key}, clip-binding batch)", step.update, params,
+                                   clipped, ("pg",) + gated, BF16_GRAD_TOL))
+            ms, _ = cuda_time(lambda: step.update(params, *batch), REPEATS)
+            ms32, _ = cuda_time(lambda: s32.update(params, *batch), REPEATS)
+            plain_ms, _ = cuda_time(lambda: step.update.plain(params, *batch), REPEATS)
+            lib_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
+            # a pass: the weights' rounding, the gradient kernel, the reduce
+            device = update_device_ms(lambda: step.update(params, *batch),
+                                      3 if kind == "ppo" else 6)
+            bound = update_bound(kernel, name, batch, h)
+            print(f"{key}: {tag} {ms:.4f} ms a call (device {fmt_ms(device)}), the float32 "
+                  f"kernel {ms32:.4f} ms, plain {plain_ms:.3f} ms, autograd of the plain bf16 "
+                  f"loss {lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+                  f"({ms / bound[0]:.2f}x)")
+            rows[kernel].update(launches=launches[kernel],
+                                max_abs_err=max(rows[kernel]["max_abs_err"], err), ms=ms,
+                                device_ms=device, float32_kernel_ms=ms32, plain_ms=plain_ms,
+                                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
+                                timed_on=f"{name}, path b5's {label} last batch at hidden {h}")
+            del batch, clipped, lib_batch, s32, step, state
         # K5 at the training shape and K4 at path c's on path b's actor
         n, t = TRAIN["n_envs"], TRAIN["n_steps"]
         traj = fused_policy_trajectory(name, actor, n, t, horizon=TRAIN["horizon"],
@@ -4489,7 +4552,7 @@ def main() -> int:
     regs = ptxas_registers({k: v for k, v in logs.items() if isinstance(k, str)})
     regs_at = {h: ptxas_registers({k: v for k, v in logs.items() if k[1:] == (h,)})
                for h in HIDDEN_PHASE + WIDE_PHASE}
-    hmma = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE)
+    hmma = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE + WIDE_PHASE)
     hmma9 = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE, "mpe_maddpg_bf16.cu")
 
     spec = scenarios.load("simple_spread").spec

@@ -67,6 +67,41 @@
 // up to 204), the hidden units to 16 (hidden 8), the outputs to 8 or 16
 // (5 + C + 1 of 6-16 logits, the critic's 1): zeros in both operands, which
 // add exact zeros; padded units compute tanh(0) = 0 and are never stored.
+//
+// Hidden 128 and 256 (ppo_update_bf16_wide_kernel, WideDims). There the
+// design above does not fit: the bf16 w2 alone is 135 KB at 256 (the four
+// sample-major tiles another 135 KB), simple_world_comm's 204-wide critic
+// does not fit at 128 either, a warp's float32 h1 and h2 for its 16 samples
+// would take 128 registers a lane each at 256, and dW2 alone is 65,536
+// floats. So the wide kernel keeps the grid, the tiles of TS = 64 samples,
+// the staging, the head (the same function) and the fixed-order reduce, and
+// changes the products:
+//   layout    8 warps (256 threads); warp w owns UW = H / 8 units (16 at 128,
+//             32 at 256: the N side of its products) for the whole tile (the
+//             M side, 4 m16 blocks), so its float32 h1, h2 (64 registers a
+//             lane each at 256) and with them 1 - h^2 stay with the warp
+//             that needs them in the backward;
+//   weights   w1, w2 and w2^T rounded to bf16 once a call into the scratch
+//             after the partials (update_round_bf16_kernel, fragment-packed:
+//             bf16_wide.cuh), which L2 holds for every CTA; each lane streams
+//             its own B fragments through a ring of RING k16 steps by
+//             cp.async (BRing::product); w3 and the biases stay resident;
+//   operands  the next product's A fragments and the weight gradients'
+//             operands go through two bf16 sample-major tiles [TS][LH]: A
+//             holds h1, then gh1; B holds h2, then gh2 (eight __syncthreads a
+//             tile);
+//   gradient  dW3 (16 x H) stays in registers over the CTA's tiles; dW2 and
+//             dW1 are added into the CTA's partial, zeroed first, once a tile
+//             (add_outer: each lane owns its entries, reads them before its
+//             products). That read-modify-write is the price of the width:
+//             at 256, 2 x 4 (H^2 + H IN) bytes a tile, 0.56 MB on
+//             simple_spread's actor and 0.94 MB on simple_world_comm's critic
+//             (at 128, 0.15 and 0.34 MB). The samples between adds are one
+//             tile, 64: a second tile's h1, gh2 and gh1 tiles would need
+//             another 101 KB at 256, which the 204-wide critic's stage and x
+//             tile leave no room for.
+// The grid is all the CTAs the card holds at once (mpe_update_grid asks the
+// occupancy API). Widths 8-64 keep ppo_update_bf16_kernel unchanged.
 
 #include <cuda_runtime.h>
 #ifdef __CUDACC__
@@ -82,8 +117,10 @@ namespace {
 #ifndef MPE_HIDDEN
 #define MPE_HIDDEN 64
 #endif
-constexpr int H = MPE_HIDDEN;    // hidden width: 8, 16, 32 or 64 (ops/_build.py, one library each)
-static_assert(H == 8 || H == 16 || H == 32 || H == 64, "the kernels take hidden 8, 16, 32 or 64");
+constexpr int H = MPE_HIDDEN;    // hidden width (ops/_build.py::HIDDEN_WIDTHS, one library each)
+static_assert(H == 8 || H == 16 || H == 32 || H == 64 || H == 128 || H == 256,
+              "K6-bf16 and K7-bf16 take hidden 8, 16, 32, 64, 128 or 256");
+constexpr bool WIDE = H > 64;    // hidden 128 and 256: ppo_update_bf16_wide_kernel
 constexpr int HP = H < 16 ? 16 : H;   // hidden units padded to the mma's 16
 constexpr int NBH = HP / 8, KTH = HP / 16;   // the hidden units' n8 blocks and k16 steps
 constexpr int THREADS = 128;     // per CTA
@@ -98,6 +135,7 @@ constexpr size_t SM_SMEM = 233472;   // shared memory of an SM; a CTA takes 1 KB
 }  // namespace
 
 #include "bf16_mma.cuh"
+#include "bf16_wide.cuh"
 
 namespace {
 
@@ -124,11 +162,11 @@ __host__ __device__ constexpr bool smem_fits(size_t bytes, int ctas) {
   return ctas * (bytes + 1024) <= SM_SMEM;
 }
 
-// One instantiation's widths and shared-memory layout: IN inputs, KP policy
-// logits (0: the critic), KC comm logits, a value output (HAS_V), the team
-// advantage of (t, env) (TEAM)
+// One instantiation's widths and stage layout: IN inputs, KP policy logits
+// (0: the critic), KC comm logits, a value output (HAS_V), the team advantage
+// of (t, env) (TEAM)
 template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
-struct UpdateDims {
+struct StageDims {
   static constexpr int IN = IN_, KP = KP_, KC = KC_;
   static constexpr bool HAS_V = HAS_V_, TEAM = TEAM_;
   static constexpr int KO = KP + KC + (HAS_V ? 1 : 0);
@@ -141,6 +179,13 @@ struct UpdateDims {
   static constexpr int A_RET = KP > 0 ? A_ADV + 1 : IN, A_VOLD = A_RET + 1;
   static constexpr int NAUX = (KP > 0 ? KP + KC + 2 : 0) + (HAS_V ? 2 : 0);
   static constexpr int STAGE_ROWS = IN + NAUX;         // rows read from the batch
+};
+
+// ... and the shared-memory layout of ppo_update_bf16_kernel (hidden 8-64)
+template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
+struct UpdateDims : StageDims<IN_, KP_, KC_, HAS_V_, TEAM_> {
+  using S = StageDims<IN_, KP_, KC_, HAS_V_, TEAM_>;
+  using S::IN, S::KO, S::INP, S::IN8, S::STAGE_ROWS;
   // bf16 (in elements): the weights W1 [HP][L1], W2 [HP][LH], W3 [16][LH];
   // the tile's x [INP][LX] (feature-major, as the batch lays it out); the
   // sample-major operands of the weight gradients H1, H2, GH1, GH2 [TS][LH]
@@ -176,6 +221,47 @@ struct UpdateDims {
   // actor) is added into the partial tile by tile, not kept in registers
   static constexpr bool W1_REGS = J1 <= 3;
 };
+
+// ... and that of ppo_update_bf16_wide_kernel (hidden 128 and 256)
+constexpr int THREADS_W = 256;   // per CTA: 8 warps
+constexpr int WARPS_W = THREADS_W / 32;
+constexpr int UW = WIDE ? H / WARPS_W : 16;   // the units a warp owns: 16 at 128, 32 at 256
+constexpr int NBW = UW / 8, QW = NBW / 2;   // their n8 blocks, their k16 steps as an A operand
+constexpr int MTS = TS / 16;     // a tile's m16 row blocks
+constexpr int MTW = UW / 16;     // the warp's units' m16 row blocks (a weight gradient's rows)
+constexpr int NGW = 8 / MTW;     // add_outer's column blocks at a time
+constexpr int RING = 4;          // the k16 steps of a lane's weight ring
+template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
+struct WideDims : StageDims<IN_, KP_, KC_, HAS_V_, TEAM_> {
+  using S = StageDims<IN_, KP_, KC_, HAS_V_, TEAM_>;
+  using S::IN, S::KO, S::INP, S::IN8, S::STAGE_ROWS;
+  static constexpr int KTX = INP / 16, NC1 = IN8 / 8;
+  using P1 = PackedB<UW, KTX>;                         // w1 (the forward)
+  using P2 = PackedB<UW, H / 16>;                      // w2 (the forward), w2^T (the backward)
+  using Ring = BRing<NBW, RING>;
+  // the bf16 scratch after the partials, in words: w1, w2, w2^T
+  static constexpr int SCRATCH_WORDS = P1::WORDS + 2 * P2::WORDS;
+  // bf16 (in elements): W3 [16][LH]; the tile's x [INP][LX] (feature-major);
+  // A [TS][LH] (h1, then gh1) and B [TS][LH] (h2, then gh2), sample-major; G3
+  // [TS][L3]; the warps' weight rings
+  static constexpr int LH = lda(H), LX = lda(TS), L3 = lda(KO_MAX);
+  static constexpr int S_W3 = 0, S_X = S_W3 + KO_MAX * LH, S_A = S_X + INP * LX,
+                       S_B = S_A + TS * LH, S_G3 = S_B + TS * LH, S_RING = S_G3 + TS * L3,
+                       S_END = S_RING + 2 * WARPS_W * Ring::WARP_WORDS;
+  // then in floats: b1 [H], b2 [H], b3 [16], the logit tile [TS][ZLD], one stage
+  static constexpr int F_B1 = (S_END / 2 + 3) / 4 * 4, F_B2 = F_B1 + H, F_B3 = F_B2 + H,
+                       F_Z = F_B3 + KO_MAX, F_STAGE = (F_Z + TS * ZLD + 3) / 4 * 4;
+  static constexpr size_t SMEM = sizeof(float) * ((size_t)F_STAGE + STAGE_ROWS * LD);
+  static_assert(smem_fits(SMEM, 1), "the tiles, the rings and one stage must fit an SM");
+  // the closing reduce ([KO][TS], [3][TS] floats) reuses A
+  static_assert(!WIDE || (KO_MAX + 3) * TS * 4 <= TS * LH * 2, "the closing reduce fits A");
+};
+
+// where a wide pass's bf16 weights start in partials (floats): after its
+// n_parts partials, 16-byte aligned
+__host__ __device__ constexpr size_t scratch_offset(int n_parts, int ng) {
+  return ((size_t)n_parts * ng + 3) / 4 * 4;
+}
 
 struct UpdateConsts {
   float ratio_lo, ratio_hi;      // 1 - clip, 1 + clip
@@ -242,23 +328,23 @@ __device__ __forceinline__ const float* input_row(const Batch& b, int r, size_t 
   return (r == 0 ? b.ret : b.vold) + ta * N;
 }
 
-// tile ti's inputs into stage st: 16-byte pieces where the tile's samples are
-// one run of lanes in one batch row, else element by element, zeros past the
-// end
-template <class D>
+// tile ti's inputs into stage st by a CTA of NT threads: 16-byte pieces where
+// the tile's samples are one run of lanes in one batch row, else element by
+// element, zeros past the end
+template <class D, int NT = THREADS>
 __device__ __forceinline__ void stage_tile(const Batch& b, float* __restrict__ st, size_t ti,
                                            size_t n_samples, size_t N, int n_agents, int tid) {
   const size_t m0 = ti * TS;
   const size_t ta0 = m0 / N, lane0 = m0 - ta0 * N;
   if (m0 + TS <= n_samples && lane0 + TS <= N && N % 4 == 0) {
     constexpr int PIECES = TS / 4;
-    for (int i = tid; i < D::STAGE_ROWS * PIECES; i += THREADS) {
+    for (int i = tid; i < D::STAGE_ROWS * PIECES; i += NT) {
       const int r = i / PIECES, q = i - r * PIECES;
       stage16(st + r * LD + 4 * q,
               input_row<D>(b, r, ta0, N, n_agents) + lane0 + 4 * q);
     }
   } else {
-    for (int i = tid; i < D::STAGE_ROWS * TS; i += THREADS) {
+    for (int i = tid; i < D::STAGE_ROWS * TS; i += NT) {
       const int r = i / TS, s = i - r * TS;
       const size_t m = m0 + s;
       float* dst = st + r * LD + s;
@@ -763,6 +849,306 @@ ppo_update_bf16_kernel(const float* __restrict__ weights, const float* __restric
   }
 }
 
+// ---- the wide kernel (hidden 128 and 256) ---------------------------------------
+
+// w1, w2 and w2^T of a wide pass rounded to bf16 into the scratch, each
+// fragment-packed (PackedB; zeros past IN): a launch of the call, before the
+// gradient kernel
+template <int IN>
+__global__ void update_round_bf16_kernel(const float* __restrict__ weights,
+                                         uint32_t* __restrict__ scratch) {
+  using P1 = PackedB<UW, (IN + 15) / 16>;
+  using P2 = PackedB<UW, H / 16>;
+  constexpr Packed L = packed(IN, 1);                  // w1's and w2's offsets take no outputs
+  const float* w1 = weights + L.g_w1;
+  const float* w2 = weights + L.g_w2;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < P1::WORDS + 2 * P2::WORDS;
+       e += gridDim.x * blockDim.x) {
+    uint32_t v;
+    if (e < P1::WORDS) {
+      v = P1::word(e, [&](int n, int k) { return k < IN ? w1[n * IN + k] : 0.0f; });
+    } else if (e < P1::WORDS + P2::WORDS) {
+      v = P2::word(e - P1::WORDS, [&](int n, int k) { return w2[n * H + k]; });
+    } else {
+      v = P2::word(e - P1::WORDS - P2::WORDS, [&](int n, int k) { return w2[k * H + n]; });
+    }
+    scratch[e] = v;
+  }
+}
+
+// h[mt][nb] = tanh(h + b[unit]) for the warp's units (b from the first), then
+// rounded into rows of the sample-major bf16 tile T (the warp's columns)
+__device__ __forceinline__ void tanh_rows(float (&h)[MTS][NBW][4], const float* b, uint16_t* T,
+                                          int ld, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MTS; ++mt) {
+#pragma unroll
+    for (int nb = 0; nb < NBW; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[mt][nb][i] = tanhf(h[mt][nb][i] + b[8 * nb + 2 * t + (i & 1)]);
+    uint32_t a[QW][4];
+    pack_a(h[mt], a);
+    store_a(a, T, ld, 16 * mt, lane);
+  }
+}
+
+// g *= 1 - h^2 (float32), its two columns of each n8 block summed into db
+// over the lane's two rows
+__device__ __forceinline__ void tanh_grad(float (&g)[NBW][4], const float (&h)[NBW][4],
+                                          float (&db)[NBW][2]) {
+#pragma unroll
+  for (int nb = 0; nb < NBW; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[nb][i] = g[nb][i] * (1.0f - h[nb][i] * h[nb][i]);
+    db[nb][0] = db[nb][0] + (g[nb][0] + g[nb][2]);
+    db[nb][1] = db[nb][1] + (g[nb][1] + g[nb][3]);
+  }
+}
+
+// ppo_update_bf16_kernel's function at hidden 128 and 256 (the source note):
+// a persistent grid over tiles of TS samples, 8 warps each owning UW units;
+// the products streamed from the bf16 scratch (update_round_bf16_kernel),
+// dW1 and dW2 added into the CTA's partial tile by tile
+template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
+__global__ void __launch_bounds__(THREADS_W, 1)
+ppo_update_bf16_wide_kernel(const float* __restrict__ weights,
+                            const uint32_t* __restrict__ scratch, const float* __restrict__ obs,
+                            const float* __restrict__ mvoh, const float* __restrict__ cmoh,
+                            const float* __restrict__ lpo, const float* __restrict__ adv,
+                            const float* __restrict__ ret, const float* __restrict__ vold,
+                            float* __restrict__ partials, int n_rows, int n_envs,
+                            UpdateConsts k) {
+  using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+  using Ring = typename D::Ring;
+  constexpr int KO = D::KO, NBO = D::NBO, LH = D::LH, LX = D::LX, L3 = D::L3, KTW = H / 16;
+  constexpr Packed L = packed(IN, KO);
+  extern __shared__ __align__(16) float smem[];
+  uint16_t* w16 = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* W3s = w16 + D::S_W3;
+  uint16_t* Xf = w16 + D::S_X;
+  uint16_t* As = w16 + D::S_A;
+  uint16_t* Bs = w16 + D::S_B;
+  uint16_t* G3s = w16 + D::S_G3;
+  float* b1 = smem + D::F_B1;
+  float* b2 = smem + D::F_B2;
+  float* b3 = smem + D::F_B3;
+  float* zt = smem + D::F_Z;
+  float* st = smem + D::F_STAGE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int u0 = UW * warp;                            // the warp's units
+  uint32_t* ring = reinterpret_cast<uint32_t*>(w16 + D::S_RING) + warp * Ring::WARP_WORDS;
+  const uint32_t* p1 = scratch + warp * D::P1::WARP_WORDS;
+  const uint32_t* p2 = scratch + D::P1::WORDS + warp * D::P2::WARP_WORDS;
+  const uint32_t* p2t = p2 + D::P2::WORDS;
+  const size_t N = (size_t)n_envs;
+  const size_t n_samples = (size_t)n_rows * N;
+  const size_t n_tiles = (n_samples + TS - 1) / TS;
+  const Batch b{obs, mvoh, cmoh, lpo, adv, ret, vold};
+  float* part = partials + (size_t)blockIdx.x * L.ng;
+
+  if (blockIdx.x < n_tiles)
+    stage_tile<D, THREADS_W>(b, st, blockIdx.x, n_samples, N, k.n_agents, tid);
+  stage_commit();
+  for (int i = tid; i < KO_MAX * LH / 2; i += THREADS_W) {   // w3 in bf16 rows, zeros past KO
+    const int m = 2 * i / LH, c = 2 * i - m * LH;
+    const bool in = m < KO;
+    const float lo = in && c < H ? weights[L.g_w3 + m * H + c] : 0.0f;
+    const float hi = in && c + 1 < H ? weights[L.g_w3 + m * H + c + 1] : 0.0f;
+    *reinterpret_cast<uint32_t*>(W3s + 2 * i) = pack_bf16(lo, hi);
+  }
+  for (int i = tid; i < (D::INP - IN) * LX; i += THREADS_W) Xf[IN * LX + i] = 0;
+  for (int i = tid; i < TS * ZLD; i += THREADS_W) zt[i] = 0.0f;
+  for (int i = tid; i < H; i += THREADS_W) {
+    b1[i] = weights[L.g_b1 + i];
+    b2[i] = weights[L.g_b2 + i];
+  }
+  if (tid < KO_MAX) b3[tid] = tid < KO ? weights[L.g_b3 + tid] : 0.0f;
+  for (int i = tid; i < L.ng; i += THREADS_W) part[i] = 0.0f;   // dW1, dW2 are added into it
+
+  // dW3 of the warp's units over the CTA's tiles; db1, db2 of the lane's
+  // columns over its rows; db3 and the metrics of the head's threads
+  float a3[NBW][4], ab1[NBW][2], ab2[NBW][2], ab3[KO], ms[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int nb = 0; nb < NBW; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a3[nb][i] = 0.0f;
+    ab1[nb][0] = ab1[nb][1] = ab2[nb][0] = ab2[nb][1] = 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < KO; ++c) ab3[c] = 0.0f;
+
+  for (size_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
+    stage_wait<0>();
+    __syncthreads();                                   // the tile's inputs in, the last tile done
+    for (int e = tid; e < IN * (TS / 2); e += THREADS_W) {   // x in bf16, two samples at a time
+      const int r = e / (TS / 2), c = 2 * (e - r * (TS / 2));
+      *reinterpret_cast<uint32_t*>(Xf + r * LX + c) = pack_bf16(st[r * LD + c], st[r * LD + c + 1]);
+    }
+    __syncthreads();
+    // forward: h1 = tanh(x W1^T + b1), h2 = tanh(h1 W2^T + b2) of the warp's
+    // units, each rounded into its tile for the next product
+    float h1[MTS][NBW][4], h2[MTS][NBW][4];
+    Ring::template product<MTS, D::KTX>(
+        [&](int mt, int kt, uint32_t (&a)[4]) { frag_a_km(Xf, LX, 16 * kt, 16 * mt, lane, a); },
+        p1, ring, lane, h1);
+    tanh_rows(h1, b1 + u0, As + u0, LH, lane);
+    __syncthreads();
+    Ring::template product<MTS, KTW>(
+        [&](int mt, int kt, uint32_t (&a)[4]) { frag_a_mk(As, LH, 16 * mt, 16 * kt, lane, a); },
+        p2, ring, lane, h2);
+    tanh_rows(h2, b2 + u0, Bs + u0, LH, lane);
+    __syncthreads();
+    {                                    // z = h2 W3^T + b3: warp w one (16 x 8) tile
+      const int mt = warp % MTS, nb = warp / MTS;
+      if (nb < NBO) {
+        float z[1][4];
+        warp_dense_f<1, KTW, false>(
+            [&](int kt, uint32_t (&a)[4]) { frag_a_mk(Bs, LH, 16 * mt, 16 * kt, lane, a); },
+            W3s + 8 * nb * LH, LH, lane, z);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * nb + 2 * t + (i & 1);
+          zt[(16 * mt + g + 8 * (i >> 1)) * ZLD + c] = z[0][i] + b3[c];
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < TS) {                                    // the head, a sample a thread; G3 in bf16
+      const size_t m = ti * TS + tid;
+      float* zr = zt + tid * ZLD;
+      head<D>(st, zr, tid, m < n_samples, m / N, k, ms, ab3);
+#pragma unroll
+      for (int c = 0; c < KO_MAX; c += 2)
+        *reinterpret_cast<uint32_t*>(G3s + tid * L3 + c) = pack_bf16(zr[c], zr[c + 1]);
+    }
+    __syncthreads();
+    // dW3 += G3^T H2 over the tile's samples (the warp's units)
+#pragma unroll
+    for (int ks = 0; ks < MTS; ++ks) {
+      uint32_t a[4];
+      frag_a_km(G3s, L3, 16 * ks, 0, lane, a);
+#pragma unroll
+      for (int nb = 0; nb < NBW; nb += 2) {
+        uint32_t bb[2][2];
+        frag_b2_kn(Bs, LH, 16 * ks, u0 + 8 * nb, lane, bb);
+        mma_bf16(a3[nb], a, bb[0]);
+        mma_bf16(a3[nb + 1], a, bb[1]);
+      }
+    }
+    __syncwarp();
+    {                                                   // gh2 = (g3 W3) (1 - h2^2), into B
+      uint32_t bw[NBW][2];
+#pragma unroll
+      for (int nb = 0; nb < NBW; nb += 2) {
+        uint32_t bb[2][2];
+        frag_b2_kn(W3s, LH, 0, u0 + 8 * nb, lane, bb);
+        bw[nb][0] = bb[0][0];
+        bw[nb][1] = bb[0][1];
+        bw[nb + 1][0] = bb[1][0];
+        bw[nb + 1][1] = bb[1][1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MTS; ++mt) {
+        uint32_t a[4];
+        frag_a_mk(G3s, L3, 16 * mt, 0, lane, a);
+        float gh[NBW][4];
+#pragma unroll
+        for (int nb = 0; nb < NBW; ++nb) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gh[nb][i] = 0.0f;
+          mma_bf16(gh[nb], a, bw[nb]);
+        }
+        tanh_grad(gh, h2[mt], ab2);
+        uint32_t ap[QW][4];
+        pack_a(gh, ap);
+        store_a(ap, Bs + u0, LH, 16 * mt, lane);
+      }
+    }
+    __syncthreads();                                   // gh2 whole
+    // gh1 = (gh2 W2) (1 - h1^2), kept packed until every warp has read h1
+    uint32_t ag1[MTS][QW][4];
+    {
+      float gh[MTS][NBW][4];
+      Ring::template product<MTS, KTW>(
+          [&](int mt, int kt, uint32_t (&a)[4]) { frag_a_mk(Bs, LH, 16 * mt, 16 * kt, lane, a); },
+          p2t, ring, lane, gh);
+#pragma unroll
+      for (int mt = 0; mt < MTS; ++mt) {
+        tanh_grad(gh[mt], h1[mt], ab1);
+        pack_a(gh[mt], ag1[mt]);
+      }
+    }
+    // the stage is read: the next tile's inputs in flight
+    if (ti + gridDim.x < n_tiles)
+      stage_tile<D, THREADS_W>(b, st, ti + gridDim.x, n_samples, N, k.n_agents, tid);
+    stage_commit();
+    // dW2 += GH2^T H1: rows the warp's units of h2, columns every unit of h1
+    add_outer<MTW, MTS, H / 8, NGW>(
+        [&](int mt, int ks, uint32_t (&a)[4]) {
+          frag_a_km(Bs, LH, 16 * ks, u0 + 16 * mt, lane, a);
+        },
+        [&](int nb, int ks, uint32_t (&bb)[2][2]) {
+          frag_b2_kn(As, LH, 16 * ks, 8 * nb, lane, bb);
+        },
+        part + L.g_w2, H, H, u0, lane);
+    __syncthreads();                                   // every warp's reads of h1 done
+#pragma unroll
+    for (int mt = 0; mt < MTS; ++mt) store_a(ag1[mt], As + u0, LH, 16 * mt, lane);
+    __syncwarp();
+    // dW1 += GH1^T X: rows the warp's units of h1 (the padding rows of X add zeros)
+    add_outer<MTW, MTS, D::NC1, NGW>(
+        [&](int mt, int ks, uint32_t (&a)[4]) {
+          frag_a_km(As, LH, 16 * ks, u0 + 16 * mt, lane, a);
+        },
+        [&](int nb, int ks, uint32_t (&bb)[2][2]) {
+          frag_b2_nk(Xf, LX, 8 * nb, 16 * ks, lane, bb);
+        },
+        part + L.g_w1, IN, IN, u0, lane);
+  }
+  stage_wait<0>();
+
+  // dW3, db1 and db2 (each entry one lane's), then db3 and the metrics over
+  // the head's threads in a fixed order
+#pragma unroll
+  for (int nb = 0; nb < NBW; ++nb) {
+    store_tile(part + L.g_w3, KO, H, 0, u0 + 8 * nb, lane, a3[nb]);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float v1 = ab1[nb][p], v2 = ab2[nb][p];
+#pragma unroll
+      for (int mask = 4; mask < 32; mask <<= 1) {       // over the lane's row group g
+        v1 = v1 + __shfl_xor_sync(0xffffffffu, v1, mask);
+        v2 = v2 + __shfl_xor_sync(0xffffffffu, v2, mask);
+      }
+      if (g == 0) {
+        part[L.g_b1 + u0 + 8 * nb + 2 * t + p] = v1;
+        part[L.g_b2 + u0 + 8 * nb + 2 * t + p] = v2;
+      }
+    }
+  }
+  __syncthreads();
+  float* red3 = reinterpret_cast<float*>(As);           // [KO][TS], then [3][TS]
+  float* redm = red3 + KO * TS;
+  if (tid < TS) {
+#pragma unroll
+    for (int c = 0; c < KO; ++c) red3[c * TS + tid] = ab3[c];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) redm[q * TS + tid] = ms[q];
+  }
+  __syncthreads();
+  if (tid < KO) {
+    float s3 = 0.0f;
+    for (int s = 0; s < TS; ++s) s3 = s3 + red3[tid * TS + s];
+    part[L.g_b3 + tid] = s3;
+  }
+  if (tid < 3) {
+    float total = 0.0f;
+    for (int s = 0; s < TS; ++s) total = total + redm[tid * TS + s];
+    part[L.g_ms + tid] = total;
+  }
+}
+
 // out[e] = sum over CTAs b = 0, 1, ... of partials[b][e]; the three metric
 // sums at the end are scaled to means
 __global__ void update_reduce_kernel(const float* __restrict__ partials, float* __restrict__ out,
@@ -775,21 +1161,36 @@ __global__ void update_reduce_kernel(const float* __restrict__ partials, float* 
   out[e] = q < 0 ? total : total * (q == 0 ? ms_pg : q == 1 ? ms_v : ms_ent);
 }
 
-// one pass: the persistent grid of n_parts CTAs, then the reduce into out
+// one pass: the persistent grid of n_parts CTAs (at hidden 128 and 256 after
+// the weights' rounding into the scratch), then the reduce into out
 template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
 cudaError_t update_pass(const float* weights, const float* obs, const float* mvoh,
                         const float* cmoh, const float* lpo, const float* adv, const float* ret,
                         const float* vold, float* partials, float* out, int n_rows, int n_envs,
                         int n_parts, const UpdateConsts& k, float ms_pg, float ms_v,
                         float ms_ent, cudaStream_t stream) {
-  using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
-  const int ng = packed(IN, D::KO).ng;
-  auto kernel = ppo_update_bf16_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)D::SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<n_parts, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret, vold,
-                                                partials, n_rows, n_envs, k);
+  const int ng = packed(IN, KP + KC + (HAS_V ? 1 : 0)).ng;
+  cudaError_t err;
+  if constexpr (WIDE) {
+    using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+    auto kernel = ppo_update_bf16_wide_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
+    if (err != cudaSuccess) return err;
+    uint32_t* scratch = reinterpret_cast<uint32_t*>(partials + scratch_offset(n_parts, ng));
+    constexpr int ROUND_BLOCKS = (D::SCRATCH_WORDS + 8 * 256 - 1) / (8 * 256);
+    update_round_bf16_kernel<IN><<<ROUND_BLOCKS, 256, 0, stream>>>(weights, scratch);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kernel<<<n_parts, THREADS_W, D::SMEM, stream>>>(weights, scratch, obs, mvoh, cmoh, lpo, adv,
+                                                    ret, vold, partials, n_rows, n_envs, k);
+  } else {
+    using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+    auto kernel = ppo_update_bf16_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<n_parts, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret, vold,
+                                                  partials, n_rows, n_envs, k);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   update_reduce_kernel<<<(ng + 255) / 256, 256, 0, stream>>>(partials, out, n_parts, ng, ms_pg,
@@ -839,6 +1240,47 @@ cudaError_t by_joint_width(int j, F f) {
 
 constexpr int MOVES = 5;
 
+// f(integral_constant<IN>, <KP>, <KC>, <HAS_V>, <TEAM>) of K6's pass (pass 0)
+// or K7's actor pass (1) on the head (in, kc), or of K7's critic pass (2) on
+// the joint width in
+template <class F>
+cudaError_t by_pass(int in, int kc, int pass, F f) {
+  using std::integral_constant;
+  if (pass == 2)
+    return by_joint_width(in, [&](auto j) {
+      return f(j, integral_constant<int, 0>{}, integral_constant<int, 0>{}, std::true_type{},
+               std::false_type{});
+    });
+  if (pass != 0 && pass != 1) return cudaErrorInvalidValue;
+  return by_actor_head(in, kc, [&](auto ow, auto c) {
+    return pass == 0 ? f(ow, integral_constant<int, MOVES>{}, c, std::true_type{},
+                         std::false_type{})
+                     : f(ow, integral_constant<int, MOVES>{}, c, std::false_type{},
+                         std::true_type{});
+  });
+}
+
+// the CTAs of the card at once for a wide pass (its occupancy x the SMs;
+// -1 where the card cannot say)
+template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
+int wide_grid() {
+  static const int n = [] {
+    using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+    auto kernel = ppo_update_bf16_wide_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)D::SMEM) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS_W, D::SMEM) !=
+            cudaSuccess ||
+        per_sm < 1)
+      return -1;
+    return sms * per_sm;
+  }();
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -885,5 +1327,49 @@ int mpe_mappo_update(int ow, int kc, const float* actor_w, const float* critic_w
 }
 
 int mpe_update_packed_size(int in, int ko) { return packed(in, ko).ng; }
+
+// The wrappers' sizes of a pass (0: K6; 1: K7's actor; 2: K7's critic on the
+// joint width in), -1 for a head or width the kernels are not compiled for:
+// the dynamic shared memory of its kernel in bytes
+int mpe_update_smem(int in, int kc, int pass) {
+  size_t bytes = 0;
+  const cudaError_t err = by_pass(in, kc, pass, [&](auto i, auto p, auto c, auto v, auto team) {
+    if constexpr (WIDE) {
+      bytes = WideDims<decltype(i)::value, decltype(p)::value, decltype(c)::value,
+                       decltype(v)::value, decltype(team)::value>::SMEM;
+    } else {
+      bytes = UpdateDims<decltype(i)::value, decltype(p)::value, decltype(c)::value,
+                         decltype(v)::value, decltype(team)::value>::SMEM;
+    }
+    return cudaSuccess;
+  });
+  return err == cudaSuccess ? (int)bytes : -1;
+}
+
+// ... the floats of the bf16 weights a wide pass keeps in partials after its
+// n_parts partials (from scratch_offset); 0 at hidden 8-64
+int mpe_update_scratch(int in, int kc, int pass) {
+  int words = 0;
+  const cudaError_t err = by_pass(in, kc, pass, [&](auto i, auto p, auto c, auto v, auto team) {
+    if constexpr (WIDE)
+      words = WideDims<decltype(i)::value, decltype(p)::value, decltype(c)::value,
+                       decltype(v)::value, decltype(team)::value>::SCRATCH_WORDS;
+    return cudaSuccess;
+  });
+  return err == cudaSuccess ? words : -1;
+}
+
+// ... the persistent grid of a wide pass, all the CTAs the card holds at
+// once (wide_grid); 0 at hidden 8-64, where the wrapper sets the grid
+int mpe_update_grid(int in, int kc, int pass) {
+  int n = 0;
+  const cudaError_t err = by_pass(in, kc, pass, [&](auto i, auto p, auto c, auto v, auto team) {
+    if constexpr (WIDE)
+      n = wide_grid<decltype(i)::value, decltype(p)::value, decltype(c)::value,
+                    decltype(v)::value, decltype(team)::value>();
+    return cudaSuccess;
+  });
+  return err == cudaSuccess ? n : -1;
+}
 
 }  // extern "C"

@@ -36,7 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mpe_kernels.cu", "mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu",
            "mpe_trajectory.cu", "mpe_update_bf16.cu", "mpe_maddpg_bf16.cu")
 HEADERS = ("spread_common.cuh", "policy_mlp.cuh", "scenario_blocks.cuh", "bf16_mma.cuh",
-           "wide_stream.cuh")
+           "wide_stream.cuh", "bf16_wide.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # the sources whose kernels run an MLP (K4, K5; K6, K7; K8, K9; K6-bf16,
@@ -46,7 +46,7 @@ HIDDEN_WIDTHS = {
     "mpe_policy.cu": (8, 16, 32, 64, 128, 256),
     "mpe_update.cu": (8, 16, 32, 64, 128, 256),
     "mpe_maddpg.cu": (8, 16, 32, 64, 128, 256),
-    "mpe_update_bf16.cu": (8, 16, 32, 64),
+    "mpe_update_bf16.cu": (8, 16, 32, 64, 128, 256),
     "mpe_maddpg_bf16.cu": (8, 16, 32, 64),
 }
 HIDDEN_SOURCES = tuple(HIDDEN_WIDTHS)
@@ -153,10 +153,13 @@ SIGNATURES = {
         "mpe_update_packed_size": [_I] * 2,
         "mpe_update_smem": [_I] * 3,
     },
-    "mpe_update_bf16.cu": {                 # the same C entries as mpe_update.cu's
+    "mpe_update_bf16.cu": {                 # mpe_update.cu's C entries, and the wide grid's
         "mpe_ppo_update": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P],
         "mpe_mappo_update": [_I] * 2 + [_P] * 11 + [_I] * 5 + [_F] * 7 + [_P],
         "mpe_update_packed_size": [_I] * 2,
+        "mpe_update_smem": [_I] * 3,
+        "mpe_update_scratch": [_I] * 3,
+        "mpe_update_grid": [_I] * 3,
     },
     "mpe_maddpg.cu": {
         "mpe_maddpg_traj": [_I] + [_P] * 7 + [_I] * 5 + [_F, _U, _U, _I, _P],

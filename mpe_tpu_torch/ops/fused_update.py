@@ -43,8 +43,13 @@ softmaxes and the head stay float32 on float32 activations, and the grads
 and metrics come back in float32 whatever ``dtype`` is. On a CUDA device it
 launches ``ppo_update_bf16_kernel`` (K6-bf16, K7-bf16:
 ``csrc/mpe_update_bf16.cu``, the products on the tensor cores by
-``mma.sync``; hidden 8, 16, 32 and 64 only); on the CPU the plain version
-rounds as above.
+``mma.sync``; at hidden 128 and 256 ``update_round_bf16_kernel``, which
+rounds the weights into a bf16 scratch after the partials, then
+``ppo_update_bf16_wide_kernel``, which streams them, on a grid of all the
+CTAs the card holds at once; one library per width of
+``_build.HIDDEN_WIDTHS["mpe_update_bf16.cu"]``: 8, 16, 32, 64, 128, 256); on
+the CPU the plain version rounds as above. On the card no width falls back
+to the float32 kernels or to the plain version.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ import torch
 from mpe_tpu_torch._device import device_table, resolve_device
 from mpe_tpu_torch.ops._build import DEFAULT_HIDDEN, check_hidden
 # the update kernels' persistent grid: two CTAs per SM, the most that fit
-# (csrc/mpe_update.cu; an instantiation that fits one runs the grid in two waves)
+# (csrc/mpe_update.cu; an instantiation that fits one runs the grid in two
+# waves); the wide bf16 kernel asks the card instead (``_grid``)
 CTAS_PER_SM = 2
 
 
@@ -383,6 +389,33 @@ def _hidden_of(params, l1: str, source: str) -> int:
     return check_hidden(params[l1]["w"].shape[-1], "the update kernels", source)
 
 
+def _grid(lib, passes, device) -> int:
+    """The CTAs of a launch's persistent grid over its ``passes`` ((in, kc,
+    pass) of ``mpe_update_grid``): where the library sets its own grid (the
+    bf16 kernel at hidden 128 and 256: all the CTAs the card holds at once),
+    the fewest over the passes, else ``CTAS_PER_SM`` an SM."""
+    own = [lib.mpe_update_grid(*p) for p in passes] if hasattr(lib, "mpe_update_grid") else [0]
+    if min(own) < 0:
+        raise RuntimeError(f"the update kernels' grid query failed for the passes {passes}")
+    if max(own) > 0:
+        return min(own)
+    return CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _partials(lib, n_parts: int, passes, sizes, device):
+    """The launch's scratch: each pass's ``n_parts`` packed partials (its
+    packed length of ``sizes``) and, where the library keeps them there (the
+    bf16 kernel at hidden 128 and 256, ``mpe_update_scratch``), its bf16
+    weights after them, from a multiple of 4 floats."""
+    floats = []
+    for p, ng in zip(passes, sizes):
+        extra = lib.mpe_update_scratch(*p) if hasattr(lib, "mpe_update_scratch") else 0
+        if extra < 0:
+            raise RuntimeError(f"the update kernels' scratch query failed for the pass {p}")
+        floats.append(-(-n_parts * ng // 4) * 4 + extra)
+    return torch.empty(max(floats), dtype=torch.float32, device=device)
+
+
 def _check_weights(weights, want, what: str):
     shapes = [tuple(x.shape) for x in weights]
     if shapes != want:
@@ -408,8 +441,9 @@ def _ppo_launch(source, params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, 
     if lib.mpe_update_packed_size(ow, 5 + kc + 1) != n_packed:
         raise RuntimeError(f"csrc/{source} and ops/fused_update.py disagree on the layout")
     wbuf = torch.cat([w.reshape(-1) for w in weights]).contiguous()
-    n_parts = CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
-    partials = torch.empty((n_parts, n_packed), dtype=torch.float32, device=device)
+    passes = [(ow, kc, 0)]
+    n_parts = _grid(lib, passes, device)
+    partials = _partials(lib, n_parts, passes, [n_packed], device)
     out = torch.empty(n_packed, dtype=torch.float32, device=device)
     inv_b = 1.0 / float(t * a * n)
     with torch.cuda.device(device):
@@ -445,9 +479,11 @@ def ppo_update_bf16_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old,
                          speak=None, clip: float, vf_coef: float, ent_coef: float):
     """Launch kernel K6-bf16 (``ppo_update_bf16_kernel``: K6's grid and
     tiles, its products on the tensor cores in bf16 with float32 sums, then
-    ``update_reduce_kernel``) on the inputs' CUDA device: the outputs of
-    ``plain_ppo_update(..., compute_dtype=torch.bfloat16)`` in float32.
-    Counts launches in ``.launches``."""
+    ``update_reduce_kernel``; at hidden 128 and 256 the weights' rounding,
+    then ``ppo_update_bf16_wide_kernel``) on the inputs' CUDA device: the
+    outputs of ``plain_ppo_update(..., compute_dtype=torch.bfloat16)`` in
+    float32. Another width raises before any launch. Counts launches in
+    ``.launches``."""
     out = _ppo_launch("mpe_update_bf16.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret,
                       v_old, speak=speak, clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
     ppo_update_bf16_cuda.launches += 1
@@ -482,8 +518,9 @@ def _mappo_launch(source, params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old
         raise RuntimeError(f"csrc/{source} and ops/fused_update.py disagree on the layout")
     abuf = torch.cat([w.reshape(-1) for w in aw]).contiguous()
     cbuf = torch.cat([w.reshape(-1) for w in cw]).contiguous()
-    n_parts = CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
-    partials = torch.empty((n_parts, max(n_act, n_crit)), dtype=torch.float32, device=device)
+    passes = [(ow, kc, 1), (a * ow, 0, 2)]
+    n_parts = _grid(lib, passes, device)
+    partials = _partials(lib, n_parts, passes, [n_act, n_crit], device)
     out = torch.empty(n_act + n_crit, dtype=torch.float32, device=device)
     inv_b, inv_bv = 1.0 / float(t * a * n), 1.0 / float(t * n)
     with torch.cuda.device(device):
@@ -522,9 +559,11 @@ mappo_update_cuda.launches = 0
 def mappo_update_bf16_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
                            speak=None, clip: float, vf_coef: float, ent_coef: float):
     """Launch kernel K7-bf16 (``ppo_update_bf16_kernel``'s actor and critic
-    passes, as K7's, on the tensor cores) on the inputs' CUDA device: the
-    outputs of ``plain_mappo_update(..., compute_dtype=torch.bfloat16)`` in
-    float32. Counts launches in ``.launches``."""
+    passes, as K7's, on the tensor cores; at hidden 128 and 256
+    ``ppo_update_bf16_wide_kernel``'s, each after the weights' rounding) on
+    the inputs' CUDA device: the outputs of ``plain_mappo_update(...,
+    compute_dtype=torch.bfloat16)`` in float32. Counts launches in
+    ``.launches``."""
     out = _mappo_launch("mpe_update_bf16.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret,
                         v_old, speak=speak, clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
     mappo_update_bf16_cuda.launches += 1
@@ -588,7 +627,8 @@ def fused_ppo_update(kscn, n_envs: int, n_steps: int, hidden: int, clip: float =
     """Build ``update(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old)
     -> (grads, (pg, vloss, ent))``: on CUDA kernel K6 (float32 params;
     ``compute_dtype`` None or float32) or K6-bf16 (``compute_dtype=
-    torch.bfloat16``), on the CPU the plain version in ``dtype`` (bf16
+    torch.bfloat16``), each at hidden 8, 16, 32, 64, 128 or 256, on the CPU
+    the plain version in ``dtype`` (bf16
     products with float32 sums where ``compute_dtype`` is bfloat16);
     ``update.plain`` is the plain version. ``cm_oh`` is the comm one-hots
     where the scenario speaks, else None. The JAX builder's ``block_envs``

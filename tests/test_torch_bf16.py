@@ -75,14 +75,14 @@ def _onehot(rng, k, shape):
 
 
 @functools.cache
-def _batch(kind, name, clipped):
+def _batch(kind, name, clipped, hidden=HIDDEN):
     """float32 params and an epoch-shaped batch as numpy (made once per
     module, under ``bf16_dots``). logp_old and value_old are JAX's bf16
     forward of the params (epoch 0: every ratio is 1 up to rounding), or
     those moved by ``clip_binding_inputs`` so that both clips bind for about
     half of the samples. PPO's advantage, return and value are per agent
     [T, A, N], MAPPO's the team's [T, N]."""
-    kscn, params, (obs, mv_oh, cm_oh, logp, value, adv_n, ret) = _epoch0(kind, name)
+    kscn, params, (obs, mv_oh, cm_oh, logp, value, adv_n, ret) = _epoch0(kind, name, hidden)
     if clipped:
         logp, value, _ = t_update.clip_binding_inputs(
             torch.tensor(logp), torch.tensor(value), clip=CLIP,
@@ -92,14 +92,14 @@ def _batch(kind, name, clipped):
 
 
 @functools.cache
-def _epoch0(kind, name):
+def _epoch0(kind, name, hidden=HIDDEN):
     kscn = j_kernel_scenario(name)
     a, ow = kscn.spec.n_agents, kscn.obs_w
     dim_c = kscn.spec.dim_c if kscn.uses_comm else 0
     key = jax.random.PRNGKey(2)
-    params = jax.tree.map(np.asarray, (j_init_ac(key, ow, 5 + dim_c, hidden=HIDDEN)
+    params = jax.tree.map(np.asarray, (j_init_ac(key, ow, 5 + dim_c, hidden=hidden)
                                        if kind == "ppo" else
-                                       j_init_mappo(key, ow, 5 + dim_c, a, hidden=HIDDEN)))
+                                       j_init_mappo(key, ow, 5 + dim_c, a, hidden=hidden)))
     rng = np.random.default_rng(7)
     obs = rng.normal(size=(T, a, ow, N)).astype(np.float32)
     mv_oh = _onehot(rng, 5, (T, a, N))
@@ -134,7 +134,7 @@ def _port(kind, kscn, params, batch, compute_dtype=BF16):
     obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else torch.tensor(x)
                                                            for x in batch)
     build = t_update.fused_ppo_update if kind == "ppo" else t_update.fused_mappo_update
-    update = build(kscn.spec.name, N, T, HIDDEN, clip=CLIP, vf_coef=VF, ent_coef=ENTC,
+    update = build(kscn.spec.name, N, T, _hidden(params), clip=CLIP, vf_coef=VF, ent_coef=ENTC,
                    device="cpu", compute_dtype=compute_dtype)
     grads, metrics = update(params_from_numpy(params, device="cpu"), obs, mv_oh, cm_oh,
                             logp_old, adv_n, ret, value_old)
@@ -142,16 +142,21 @@ def _port(kind, kscn, params, batch, compute_dtype=BF16):
 
 
 @functools.cache
-def _jax_update(kind, name, clipped, compute_dtype):
-    """JAX's kernel on ``_batch(kind, name, clipped)`` (once per module)."""
-    return _jax(kind, *_batch(kind, name, clipped), compute_dtype)
+def _jax_update(kind, name, clipped, compute_dtype, hidden=HIDDEN):
+    """JAX's kernel on ``_batch(kind, name, clipped, hidden)`` (once per module)."""
+    return _jax(kind, *_batch(kind, name, clipped, hidden), compute_dtype)
+
+
+def _hidden(params):
+    """The params' hidden width (the first layer's outputs)."""
+    return params["l1" if "l1" in params else "a1"]["w"].shape[1]
 
 
 def _jax(kind, kscn, params, batch, compute_dtype):
     obs, mv_oh, cm_oh, logp_old, value_old, adv_n, ret = (None if x is None else jnp.asarray(x)
                                                            for x in batch)
     build = j_fused_ppo_update if kind == "ppo" else j_fused_mappo_update
-    update = build(kscn, n_envs=N, n_steps=T, hidden=HIDDEN, clip=CLIP, vf_coef=VF,
+    update = build(kscn, n_envs=N, n_steps=T, hidden=_hidden(params), clip=CLIP, vf_coef=VF,
                    ent_coef=ENTC, block_envs=64, t_chunk=4, interpret=True,
                    compute_dtype=compute_dtype)
     grads, metrics = update(jax.tree.map(jnp.asarray, params), obs, mv_oh, cm_oh, logp_old,

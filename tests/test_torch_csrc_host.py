@@ -240,13 +240,17 @@ def _update_params(kscn, team: bool, hidden: int = 64):
     return params
 
 
-def _logp_value(params, obs, mv_oh, cm_oh, speak, team: bool):
+def _logp_value(params, obs, mv_oh, cm_oh, speak, team: bool, compute_dtype=None):
     """The params' own log-prob of the batch's actions [T, A, N] and value
-    ([T, A, N] for PPO, the critic's [T, N] on the joint obs for MAPPO)."""
+    ([T, A, N] for PPO, the critic's [T, N] on the joint obs for MAPPO), in
+    the update's arithmetic (``compute_dtype=torch.bfloat16``: each product's
+    operands rounded to bf16, as the update's forward rounds them)."""
+    rnd = fused_update.compute_rounding(compute_dtype)[1]
+
     def mlp(w1, b1, w2, b2, w3, b3, x):
-        h1 = torch.tanh(torch.einsum("ho,...on->...hn", w1, x) + b1[:, None])
-        h2 = torch.tanh(torch.einsum("gh,...hn->...gn", w2, h1) + b2[:, None])
-        return torch.einsum("kg,...gn->...kn", w3, h2) + b3[:, None]
+        h1 = torch.tanh(torch.einsum("ho,...on->...hn", rnd(w1), rnd(x)) + b1[:, None])
+        h2 = torch.tanh(torch.einsum("gh,...hn->...gn", rnd(w2), rnd(h1)) + b2[:, None])
+        return torch.einsum("kg,...gn->...kn", rnd(w3), rnd(h2)) + b3[:, None]
 
     if team:
         z = mlp(*fused_update._mlp_weights(params, ("a1", "a2", "pi"), torch.float32), obs)
@@ -264,14 +268,17 @@ def _logp_value(params, obs, mv_oh, cm_oh, speak, team: bool):
 
 
 def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool,
-                       hidden: int = 64, compute_dtype=None, tol: float = 1e-4):
+                       hidden: int = 64, compute_dtype=None, tol: float = 1e-4,
+                       metric_rtol: float = 1e-4, clip_forward=None):
     """K6 (``mpe_ppo_update``) or K7 (``mpe_mappo_update``) of a library
     built at ``hidden`` over 3 CTAs on a random [t, A, *, n] epoch batch
     (``clip_binding``: its logp_old and v_old moved off the params' own by
-    ``clip_binding_inputs``) against the plain version with
+    ``clip_binding_inputs`` from the params' own, in the arithmetic of
+    ``clip_forward``, a compute dtype of ``_logp_value``) against the plain
+    version with
     ``compute_dtype``: every gradient leaf within ``tol`` of its largest
-    entry, the metric means within 1e-4 relative -> the largest leaf error
-    over its largest entry."""
+    entry, the metric means within ``metric_rtol`` relative -> the largest
+    leaf error over its largest entry."""
     spec = kscn.spec
     a, ow = spec.n_agents, kscn.obs_w
     dim_c = kscn.n_comm
@@ -281,7 +288,7 @@ def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool,
     speak = kscn.speak
     hp = dict(clip=0.2, vf_coef=0.5, ent_coef=0.01)
     if clip_binding:
-        logp, value = _logp_value(params, obs, mv_oh, cm_oh, speak, team)
+        logp, value = _logp_value(params, obs, mv_oh, cm_oh, speak, team, clip_forward)
         lpo, vold, shares = fused_update.clip_binding_inputs(
             logp, value, clip=hp["clip"], generator=torch.Generator().manual_seed(11))
         assert all(0.2 < x < 0.8 for x in shares), shares
@@ -304,7 +311,9 @@ def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool,
         inv_bv = 1.0 / (t * n)
         _host_update(lib, "mpe_mappo_update", ow, dim_c, torch.cat([w.reshape(-1) for w in aw]),
                      torch.cat([w.reshape(-1) for w in cw]), obs, mv_oh, cm_oh, lpo, adv, ret,
-                     vold, torch.empty((n_parts, max(n_act, n_crit))), out, t, a, n, mask, n_parts,
+                     vold, fused_update._partials(lib, n_parts, [(ow, dim_c, 1), (a * ow, 0, 2)],
+                                                  [n_act, n_crit], "cpu"),
+                     out, t, a, n, mask, n_parts,
                      *consts, hp["vf_coef"] * 2.0 * inv_bv, hp["ent_coef"] * inv_b, inv_b, inv_bv,
                      None)
         *ga, ms_a = fused_update._unpack(out[:n_act], actor)
@@ -319,7 +328,8 @@ def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool,
         weights = fused_update._update_weights(params, torch.float32)
         _host_update(lib, "mpe_ppo_update", ow, dim_c, torch.cat([w.reshape(-1) for w in weights]),
                      obs, mv_oh, cm_oh, lpo, adv, ret, vold,
-                     torch.empty((n_parts, out.numel())), out, t * a, n, a, mask, n_parts, *consts,
+                     fused_update._partials(lib, n_parts, [(ow, dim_c, 0)], [out.numel()], "cpu"),
+                     out, t * a, n, a, mask, n_parts, *consts,
                      hp["vf_coef"] * 2.0 * inv_b, hp["ent_coef"] * inv_b, inv_b, None)
         *g, ms = fused_update._unpack(out, layout)
         got, got_m = fused_update._grads_tree(*g), (ms[0], ms[1], ms[2])
@@ -327,7 +337,7 @@ def _check_host_update(lib, kscn, kind: str, t: int, n: int, clip_binding: bool,
         for q in ref[k]:
             torch.testing.assert_close(got[k][q], ref[k][q], rtol=0,
                                        atol=tol * float(ref[k][q].abs().max()), msg=lambda m, k=k, q=q: f"{k}.{q}: {m}")
-    torch.testing.assert_close(torch.stack(got_m), torch.stack(ref_m), rtol=1e-4, atol=0)
+    torch.testing.assert_close(torch.stack(got_m), torch.stack(ref_m), rtol=metric_rtol, atol=0)
     return max(float((got[k][q] - ref[k][q]).abs().max() / ref[k][q].abs().max())
                for k in ref for q in ref[k])
 

@@ -17,9 +17,10 @@ the batch in its own order: each gradient leaf within 1e-4 of the largest
 entry of the leaf, the metrics within 1e-4 relative, on a batch where both
 clips bind too; so does the MAPPO update kernel K7 (both also with comm
 heads, and K7 with simple_world_comm's 204-wide critic). K6-bf16 and K7-bf16
-(``compute_dtype=torch.bfloat16``) hold their plain bf16 versions within
-1e-3 of each leaf's largest entry: a bf16 operand that two right float32
-sums put on either side of a rounding boundary rounds a whole ulp apart.
+(``compute_dtype=torch.bfloat16``, hidden 16-256) hold their plain bf16
+versions within 1e-3 of each leaf's largest entry: a bf16 operand that two
+right float32 sums put on either side of a rounding boundary rounds a whole
+ulp apart.
 K9-bf16 holds its plain bf16 version the same way, its target actions
 equal wherever a head's two best logits lie clear of
 ``target_logit_tolerance``. The MADDPG collection kernel K8 takes the plain
@@ -250,13 +251,18 @@ def test_update_kernels_refuse_other_actor_heads(card):
 @pytest.mark.parametrize("kind, name, hidden", [("ppo", "simple_spread", 64),
                                                 ("ppo", "simple_reference", 16),
                                                 ("mappo", "simple_spread", 64),
-                                                ("mappo", "simple_speaker_listener", 32)])
+                                                ("mappo", "simple_speaker_listener", 32),
+                                                ("ppo", "simple_spread", 128),
+                                                ("ppo", "simple_world_comm", 256),
+                                                ("mappo", "simple_speaker_listener", 128),
+                                                ("mappo", "simple_world_comm", 256)])
 def test_bf16_update_kernels_match_plain_bf16(card, kind, name, hidden):
     """K6-bf16 and K7-bf16 through a trainer with ``compute_dtype=
     torch.bfloat16``: one epoch gradient on the epoch-0 batch and on it with
     both clips binding launches the bf16 kernel (not the float32 one), each
     leaf within 1e-3 of the largest entry of the plain bf16 version's (bf16
-    operands that two right sums round a whole ulp apart)."""
+    operands that two right sums round a whole ulp apart); at 128 and 256
+    the wide kernel (``ppo_update_bf16_wide_kernel``)."""
     build = build_fused_ppo_step if kind == "ppo" else build_fused_mappo_step
     bf16 = getattr(fused_update, f"{kind}_update_bf16_cuda")
     f32 = getattr(fused_update, f"{kind}_update_cuda")
@@ -720,9 +726,10 @@ def test_maddpg_kernels_at_wide_width_match_plain(card, name, hidden):
 def test_mlp_kernels_refuse_uncompiled_widths(card):
     """A hidden width a kernel's source is not compiled for raises before
     any launch, on the card too, naming that source's widths: no wrapper
-    falls back to the plain version. 48 for K5 and K8; 128 for K6-bf16 and,
-    through ``build_fused_update(compute_dtype=torch.bfloat16)``, K9-bf16
-    (K5 and K9 take 128)."""
+    falls back to the plain version. 48 for K5 and K8; 128 for K9-bf16,
+    through ``build_fused_update(compute_dtype=torch.bfloat16)`` (K5 and K9
+    take 128). K6-bf16 takes 128: the bf16 trainer's update launches it
+    once, and neither K6 nor the plain version."""
     import re
 
     from mpe_tpu_torch.learner import fused_loop
@@ -761,9 +768,9 @@ def test_mlp_kernels_refuse_uncompiled_widths(card):
     batch = wide.collect(wparams, 2)
     before[0] += 1                                       # K5 takes 128
     obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = batch
-    with pytest.raises(NotImplementedError, match=re.escape(
-            "(csrc/mpe_update_bf16.cu) are compiled for hidden widths 8, 16, 32, 64; got 128")):
-        wide.update(wparams, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+    grads, _ = wide.update(wparams, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+    assert grads["l1"]["w"].is_cuda and grads["l1"]["w"].shape == (18, 128)
+    before[2] += 1                                       # K6-bf16 takes 128
     assert before == [c.launches for c in counters]
 
 

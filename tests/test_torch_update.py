@@ -244,10 +244,11 @@ def test_update_builder_refuses_what_it_does_not_compute():
 
 
 def test_update_wrappers_refuse_uncompiled_widths_before_any_launch():
-    """K6's and K7's wrappers take the hidden width from the params and
-    raise for a width their source is not compiled for (48; the bf16 kernels
-    also at 128 and 256, which K6 and K7 take), naming that source's widths,
-    before they look at the device (so here, without a card)."""
+    """K6's and K7's wrappers and their bf16 twins' take the hidden width
+    from the params and raise for a width their source is not compiled for
+    (48), naming that source's widths, before they look at the device (so
+    here, without a card); at 128 and 256, which every one of them takes,
+    they get past the width and stop at the device."""
     wrappers = (t_update.ppo_update_cuda, t_update.mappo_update_cuda,
                 t_update.ppo_update_bf16_cuda, t_update.mappo_update_bf16_cuda)
     before = [w.launches for w in wrappers]
@@ -263,15 +264,15 @@ def test_update_wrappers_refuse_uncompiled_widths_before_any_launch():
         team = params_from_numpy(jax.tree.map(np.asarray, j_init_mappo(
             jax.random.PRNGKey(0), kscn.obs_w, 5, kscn.spec.n_agents, hidden=h)), device="cpu")
         bf16 = re.escape(f"(csrc/mpe_update_bf16.cu) are compiled for hidden widths "
-                         f"8, 16, 32, 64; got {h}")
+                         f"8, 16, 32, 64, 128, 256; got {h}")
         for ppo, mappo, named in ((t_update.ppo_update_cuda, t_update.mappo_update_cuda, f32),
                                   (t_update.ppo_update_bf16_cuda,
                                    t_update.mappo_update_bf16_cuda, bf16)):
-            if h != 48 and ppo is t_update.ppo_update_cuda:
-                continue                              # K6 and K7 take 128 and 256
-            with pytest.raises(NotImplementedError, match=named):
+            # every one takes 128 and 256: past the width, the CPU tensors are refused
+            error, named = (NotImplementedError, named) if h == 48 else (ValueError, "CUDA")
+            with pytest.raises(error, match=named):
                 ppo(tp, obs, mv_oh, cm_oh, lpo, adv, ret, vold, **hp)
-            with pytest.raises(NotImplementedError, match=named):
+            with pytest.raises(error, match=named):
                 mappo(team, obs, mv_oh, cm_oh, lpo, adv[:, 0], ret[:, 0], vold[:, 0], **hp)
     assert before == [w.launches for w in wrappers]
 
@@ -281,14 +282,16 @@ def test_build_targets_name_each_hidden_width():
     that source's table), each name distinct, the width-64 name the one a
     build without the width had (a hash of the source, the headers and the
     flags); the sources without an MLP and the widths a source is not
-    compiled for (48 for every one, 128 and 256 for the bf16 sources) are
+    compiled for (48 for every one, 128 and 256 for K9-bf16's source) are
     refused, naming that source's widths."""
     import hashlib
 
     from mpe_tpu_torch.ops import _build
 
     assert _build.HIDDEN_WIDTHS["mpe_policy.cu"] == _build.HIDDEN_WIDTHS["mpe_update.cu"] == (
-        _build.HIDDEN_WIDTHS["mpe_maddpg.cu"]) == (8, 16, 32, 64, 128, 256)
+        _build.HIDDEN_WIDTHS["mpe_maddpg.cu"]) == _build.HIDDEN_WIDTHS["mpe_update_bf16.cu"] == (
+        8, 16, 32, 64, 128, 256)
+    assert _build.HIDDEN_WIDTHS["mpe_maddpg_bf16.cu"] == (8, 16, 32, 64)
     for source in _build.HIDDEN_SOURCES:
         widths = _build.HIDDEN_WIDTHS[source]
         names = [_build._target(source, h).name for h in widths]
@@ -300,8 +303,8 @@ def test_build_targets_name_each_hidden_width():
         assert _build._target(source).name == f"lib{source[:-3]}_{digest}.so"
         assert _build._target(source, 8).name.startswith(f"lib{source[:-3]}_h8_")
         refused = [48] + [h for h in (128, 256) if h not in widths]
-        assert (source in ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu")) == (
-            refused == [48])
+        assert (source in ("mpe_policy.cu", "mpe_update.cu", "mpe_maddpg.cu",
+                           "mpe_update_bf16.cu")) == (refused == [48])
         for h in refused:
             with pytest.raises(NotImplementedError, match=re.escape(
                     f"(csrc/{source}) are compiled for hidden widths "

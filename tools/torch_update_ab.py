@@ -3,7 +3,8 @@
 card, one checkout after another.
 
     python3 tools/torch_update_ab.py [--maddpg | --maddpg-bf16 | --rollout | --det | --policy |
-        --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases | --wide] ROOT [ROOT ...]
+        --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases | --wide | --bf16-wide |
+        --bf16-wide-stages] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -67,6 +68,15 @@ built with the library's flags at hidden 64 into ``build/variants/``, and
 the bf16 trainer's ``step.update`` on paths b's and b2's batches with each:
 the device time of its ``ppo_update_bf16_kernel`` records by torch.profiler.
 
+With ``--bf16-wide-stages`` (K6-bf16, K7-bf16 at hidden 128 and 256, where
+their time goes): the same, on ``ppo_update_bf16_wide_kernel`` at each
+width, with ``csrc/bf16_wide.cuh`` inlined into each copy so that its parts
+can be cut too: the streamed weights' copies into the rings (the products
+run on what the rings hold), the partial's reads and writes in the
+weight-gradient adds (their products kept), the two weight-gradient adds
+whole, the head, the forward's tanh; each copy's ``update_round_bf16_kernel``
+and ``ppo_update_bf16_wide_kernel`` records summed.
+
 With ``--maddpg-bf16-phases`` (K9-bf16's phases): a copy of the checkout's
 ``csrc/mpe_maddpg_bf16.cu`` whose gradient and target/TD kernels stamp
 ``clock64`` at each phase boundary and ``%globaltimer`` at each CTA's start
@@ -128,6 +138,18 @@ registers and spill bytes of every ``mpe_maddpg.cu`` kernel. At hidden 8, 16,
 simple_speaker_listener and simple_world_comm, paths d2's and d3's comm
 heads), so that two checkouts
 show those widths' outputs bit for bit and K9's device time side by side. A
+checkout whose kernels refuse a width records the refusal.
+
+With ``--bf16-wide`` (K6, K7, K6-bf16, K7-bf16 at every hidden width): at
+each of 8, 16, 32, 64, 128 and 256, the float32 and the
+``compute_dtype=torch.bfloat16`` trainers of paths b and b2 (simple_spread
+at the learner batch, a seeded init of that width) on one batch of the
+float32 trainer's: each ``step.update`` timed by CUDA events (the median of
+CALLS calls after WARM_UP), one call under torch.profiler (device ms by
+kernel), and a SHA-256 of its gradient and metrics, so that two checkouts
+show each kernel's outputs bit for bit where both take the width; the
+registers and spill bytes of each ``ppo_update_bf16_kernel`` and
+``ppo_update_bf16_wide_kernel`` instantiation at 64, 128 and 256. A
 checkout whose kernels refuse a width records the refusal.
 
 With ``--trajectory`` (K3): ``fused_trajectory`` on the nine scenarios at
@@ -751,6 +773,46 @@ def time_wide(result: dict) -> None:
              "maddpg_reduce"))
 
 
+BF16_WIDE = (8, 16, 32, 64, 128, 256)
+
+
+def time_bf16_wide(result: dict, logs: dict) -> None:
+    import torch
+
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.ops import _build
+
+    # every library of the two update sources the checkout takes, built at once
+    built = _build.build([(s, h) for h in BF16_WIDE for s in ("mpe_update.cu", "mpe_update_bf16.cu")
+                          if h in _build.HIDDEN_WIDTHS.get(s, (64,))])
+    built["mpe_update_bf16.cu", 64] = logs.get("mpe_update_bf16.cu", "")
+    for h in BF16_WIDE:
+        row = result[f"hidden_{h}"] = {}
+        for path, build in (("b", build_fused_ppo_step), ("b2", build_fused_mappo_step)):
+            steps = {"float32": build("simple_spread", **dict(TRAIN, hidden=h)),
+                     "bf16": build("simple_spread", compute_dtype=torch.bfloat16,
+                                   **dict(TRAIN, hidden=h))}
+            params = steps["float32"].init_params(torch.Generator().manual_seed(0))
+            obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = steps["float32"].collect(params, 3)
+            args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+            row[path] = {}
+            for label, step in steps.items():
+                try:
+                    out = step.update(*args)
+                except NotImplementedError as e:
+                    row[path][label] = {"refused": str(e)}
+                    continue
+                row[path][label] = {"ms": median_ms(lambda: step.update(*args)),
+                                    **profile_call(lambda: step.update(*args)),
+                                    "sha256": sha256s(leaves(out))}
+            del steps, args, obs, mv_oh, cm_oh, logp_old, value, adv_n, ret
+            torch.cuda.empty_cache()
+        if h >= 64 and ("mpe_update_bf16.cu", h) in built:
+            row["registers_spill_bytes"] = registers(
+                {"mpe_update_bf16.cu": built["mpe_update_bf16.cu", h]}, "mpe_update_bf16.cu",
+                ("ppo_update_bf16_kernel", "ppo_update_bf16_wide_kernel"))
+
+
 TRAJ_AB = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
 TRAJ_AB_SHAPES = tuple((name, 4096) for name in SCENARIOS) + tuple(
     (name, 65_536) for name in ("simple_spread", "simple_reference", "simple_world_comm"))
@@ -832,9 +894,9 @@ STAGE_CUTS = {
 }
 
 
-def variant_libs(source: str, texts: dict) -> dict:
+def variant_libs(source: str, texts: dict, hidden: int = 64) -> dict:
     """{name: ctypes library} of each source text of ``texts``, built beside
-    the checkout's headers with the library's flags at hidden 64."""
+    the checkout's headers with the library's flags at ``hidden``."""
     import ctypes
     from pathlib import Path
 
@@ -846,17 +908,18 @@ def variant_libs(source: str, texts: dict) -> dict:
         (out / h).write_text((_build.CSRC / h).read_text())
     procs = {}
     for name, text in texts.items():
-        (out / f"{name}.cu").write_text(text)
+        stem = f"{name}_h{hidden}"          # a path a width: dlopen keeps a loaded path's library
+        (out / f"{stem}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")],
+            [_build.nvcc(), *_build._flags(source, hidden), "-o", str(out / f"{stem}.so"),
+             str(out / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"the {name} copy of {source} did not build:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        lib = ctypes.CDLL(str(out / f"{name}_h{hidden}.so"))
         for fn, argtypes in _build.SIGNATURES[source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
@@ -902,6 +965,71 @@ def time_bf16_stages(result: dict) -> None:
             result[path] = row
             del step, args
             torch.cuda.empty_cache()
+    finally:
+        _build.library = library
+
+
+# cuts of the wide kernel (hidden 128, 256): (file, old, new); the header's
+# cuts apply to the copy inlined into each variant
+WIDE_STAGE_CUTS = {
+    "weight_stream": [("bf16_wide.cuh", "copy16_async(ring + (",
+                       "if (src == nullptr) copy16_async(ring + (")],
+    "partial_rmw": [
+        ("bf16_wide.cuh", "old[mt][nb][i] = n < n_cols ? part[m * ldp + n] : 0.0f;",
+         "old[mt][nb][i] = 0.0f;"),
+        ("bf16_wide.cuh", "if (n < n_cols) part[m * ldp + n] = old[mt][nb][i] + acc[mt][nb][i];",
+         "if (part == nullptr) part[m * ldp + n] = old[mt][nb][i] + acc[mt][nb][i];")],
+    "weight_gradients": [("mpe_update_bf16.cu", "add_outer<MTW, MTS, H / 8, NGW>(",
+                          "if (part == nullptr) add_outer<MTW, MTS, H / 8, NGW>("),
+                         ("mpe_update_bf16.cu", "add_outer<MTW, MTS, D::NC1, NGW>(",
+                          "if (part == nullptr) add_outer<MTW, MTS, D::NC1, NGW>(")],
+    "head": [("mpe_update_bf16.cu", "head<D>(st, zr, tid, m < n_samples, m / N, k, ms, ab3);", "")],
+    "tanh": [("mpe_update_bf16.cu", "tanhf(", "(")],
+}
+WIDE_STAGE_WIDTHS = (128, 256)
+
+
+def time_bf16_wide_stages(result: dict) -> None:
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.ops import _build
+    import torch
+
+    src = (_build.CSRC / "mpe_update_bf16.cu").read_text()
+    header = (_build.CSRC / "bf16_wide.cuh").read_text()
+    include = '#include "bf16_wide.cuh"'
+
+    def variant(subs) -> str:
+        text, head = src, header
+        for where, old, new in subs:
+            text, head = (text, cut(head, [(old, new)])) if where == "bf16_wide.cuh" else (
+                cut(text, [(old, new)]), head)
+        return cut(text, [(include, head)])
+
+    texts = {"whole": variant([])}
+    texts.update({f"no_{k}": variant(subs) for k, subs in WIDE_STAGE_CUTS.items()})
+    library = _build.library
+    try:
+        for h in WIDE_STAGE_WIDTHS:
+            libs = variant_libs("mpe_update_bf16.cu", texts, h)
+            for path, build in (("b", build_fused_ppo_step), ("b2", build_fused_mappo_step)):
+                step = build("simple_spread", compute_dtype=torch.bfloat16,
+                             **dict(TRAIN, hidden=h))
+                params = step.init_params(torch.Generator().manual_seed(0))
+                obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
+                args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+                row = {}
+                for name, lib in libs.items():
+                    _build.library = (lambda source, hidden=64, lib=lib: lib if source ==
+                                      "mpe_update_bf16.cu" else library(source, hidden))
+                    step.update(*args)
+                    split = call_device_ms(lambda: step.update(*args)).get("device_ms_by_kernel")
+                    row[name] = (sum(split.get(k, [0.0])[0] for k in (
+                        "update_round_bf16_kernel", "ppo_update_bf16_wide_kernel"))
+                        if split else "not measured")
+                _build.library = library
+                result[f"{path} at hidden {h}"] = row
+                del step, args
+                torch.cuda.empty_cache()
     finally:
         _build.library = library
 
@@ -1055,6 +1183,10 @@ def child(mode: str, root: str) -> None:
         time_maddpg_bf16_phases(result)
     elif mode == "wide":
         time_wide(result)
+    elif mode == "bf16-wide":
+        time_bf16_wide(result, logs)
+    elif mode == "bf16-wide-stages":
+        time_bf16_wide_stages(result)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -1068,7 +1200,8 @@ def main() -> int:
     mode = {"--maddpg": "maddpg", "--maddpg-bf16": "maddpg-bf16", "--rollout": "rollout",
             "--det": "det", "--policy": "policy", "--trajectory": "trajectory",
             "--bf16": "bf16", "--bf16-stages": "bf16-stages",
-            "--maddpg-bf16-phases": "maddpg-bf16-phases", "--wide": "wide"}.get(
+            "--maddpg-bf16-phases": "maddpg-bf16-phases", "--wide": "wide",
+            "--bf16-wide": "bf16-wide", "--bf16-wide-stages": "bf16-wide-stages"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
