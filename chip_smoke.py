@@ -8,12 +8,12 @@ failure ends the run with a non-zero exit code:
 
   1. environment: card name and power limit, torch and CUDA versions,
      kernel build time (every source at hidden width 64, the MLP sources
-     of K4-K9, K6-bf16, K7-bf16 and K9-bf16 also at 8, 16 and 32, and those of
-     K4-K9, K6-bf16 and K7-bf16 at 128 and 256, one nvcc each, all at once),
-     the compiler's register report and the HMMA and LDSM (ldmatrix)
-     instructions that cuobjdump -sass finds in each bf16 library,
-     mpe_update_bf16.cu's at 8-256 and mpe_maddpg_bf16.cu's at 8-64 (each
-     must hold some of both);
+     of K4-K9, K6-bf16, K7-bf16 and K9-bf16 also at 8, 16, 32, 128 and 256,
+     one nvcc each, all at once; each library's compile seconds are printed
+     with the phases' seconds at the end), the compiler's register report and
+     the HMMA and LDSM (ldmatrix) instructions that cuobjdump -sass finds in
+     each bf16 library, mpe_update_bf16.cu's and mpe_maddpg_bf16.cu's at
+     8-256 (each must hold some of both);
   2. sixteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
@@ -268,8 +268,8 @@ failure ends the run with a non-zero exit code:
      plain versions (params within 1e-5), and the MADDPG runner on
      simple_spread at hidden 8 for 2 chunks (K8, K9) and one update chunk
      against the plain chunk (within 1e-4); the phase's seconds printed;
-  3c. the wide widths, 128 and 256, which K4-K9, K6-bf16 and K7-bf16 take
-     (K9-bf16 refuses them): K4-K7, K6-bf16 and K7-bf16 at each, on
+  3c. the wide widths, 128 and 256, which every MLP kernel takes: K4-K7,
+     K6-bf16 and K7-bf16 at each, on
      simple_spread and simple_world_comm (K7's widest critic) at 1024 envs x
      64 steps, K5 and K4 held as in 3b and K6 and K7 on a trainer's batch
      and with both clips binding, K6-bf16 and K7-bf16 the same way within
@@ -294,10 +294,19 @@ failure ends the run with a non-zero exit code:
      its bound; then the runner at that width for 12
      chunks (actor_start 0; 11 timed), by phase, its launches read, K9 gated again on
      its ring with the trained params and one update chunk under
-     torch.profiler; the phase's seconds;
+     torch.profiler; then K9-bf16 at that width on K8's rows, with fresh
+     init_maddpg params and with the runner's trained params, gated as in
+     phase 3 (BF16_GRAD_TOL, BF16_METRIC_RTOL, the target actions clear of
+     target_logit_tolerance, actor_flip_model's bound printed on the trained
+     batch) and timed per call beside K9 on the same packed buffers, the
+     plain bf16 version, autograd of the losses and its bound
+     (maddpg_update_bf16_sample at the width), and path d4's pieces at that
+     width for 12 chunks (actor_start 0), by phase, K9-bf16 launched once an
+     update and K9 never, every metric finite; the phase's seconds;
   4. the collect phases of paths b-b4 and d-d3 printed beside K5's and
      K8's times at the same shapes; the plain versions timed at the main
-     paths' shapes (K1's of the eight others at 4096 envs x 200 steps),
+     paths' shapes (K1's of all nine and simple_spread's K2 at 4096 envs x
+     200 steps, K1_PLAIN_STEPS: their outputs are compared nowhere),
      each kernel's bound from the
      operations its function needs (OPS below), and for K6, K7 and K9 the
      same gradient by autograd (the library yardstick), K4-K9 on every
@@ -329,7 +338,9 @@ failure ends the run with a non-zero exit code:
      scenario the float32 kernel's times and epoch-0 ratio beside theirs; the
      K9-bf16 row with its HMMA and LDSM counts and tolerances, by scenario
      its gates on both batches, K9's time on the same buffers and path d4's
-     figures, its four kernels' launches a call among them), the
+     figures, its four kernels' launches a call among them, and by wide width
+     phase 3d's figures), a line of each phase's seconds, each library's
+     compile seconds and the build's wall time, the
      ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -383,8 +394,9 @@ MADDPG_COMM = (("simple_speaker_listener", 40), ("simple_world_comm", 8))
 MADDPG_CKPT = "checkpoints/maddpg_spread_fused.npz"
 # K1: the spread-only kernel that det_rollout_kernel<S> replaced took 7.318 ms
 # at 4096 envs x 10,000 steps on an H100 80GB HBM3 at 700 W (PERF.md),
-# printed beside <SpreadScn>; the plain K1 of the eight others is timed over
-# K1_PLAIN_STEPS steps (simple_spread's takes 23 s at 10,000)
+# printed beside <SpreadScn>; the plain K1 of all nine and the plain K2 of
+# simple_spread are timed over K1_PLAIN_STEPS steps (simple_spread's plain K2
+# and K1 took 49 and 32 s at 10,000)
 K1_SPREAD_ONLY_MS = 7.318
 # the kernels line names K2's group rule and K9's tiling
 GROUP_RULE = ("ops/fused_rollout.py::rollout_group: G threads per env lane; below 16384 envs "
@@ -466,6 +478,12 @@ WIDE_MADDPG_NAMES = ("simple_spread", "simple_world_comm")
 WIDE_MADDPG_CHUNKS = 12
 K9_WIDE_KERNELS = ("maddpg_target_actions_wide_kernel", "maddpg_td_wide_kernel",
                    "maddpg_update_wide_kernel", "maddpg_reduce_kernel")
+# ... and K9-bf16 (mpe_maddpg_bf16.cu) at the same widths, on the same rows
+# and with the float32 runner's trained params, then its update chunk with K8's
+# collection for WIDE_MADDPG_CHUNKS chunks, as path d4 runs it at 64
+K9_BF16_WIDE_KERNELS = ("maddpg_round_bf16_wide_kernel", "maddpg_target_bf16_wide_kernel",
+                        "maddpg_td_bf16_wide_kernel", "maddpg_grad_bf16_wide_kernel",
+                        "maddpg_reduce_bf16_kernel")
 # the examples that take --hidden, run in phase 3c at each wide width (es_train
 # for 2 generations of its 16 members)
 WIDE_EXAMPLES = (("evaluate_policy", []), ("es_train", ["--gens", "2"]))
@@ -499,7 +517,15 @@ K9_BF16_TILE = {"samples_per_cta": 16, "threads": "256 (gradient), 128 (target a
                 "staging": "the weights rounded to bf16 once a call (maddpg_round_bf16_kernel), "
                            "each CTA's nets by 16-byte cp.async",
                 "kernels": ["maddpg_round_bf16_kernel", "maddpg_target_td_bf16_kernel",
-                            "maddpg_grad_bf16_kernel", "maddpg_reduce_bf16_kernel"]}
+                            "maddpg_grad_bf16_kernel", "maddpg_reduce_bf16_kernel"],
+                "at_128_and_256": "tiles of 64 samples, 8 warps each owning H / 8 units for the "
+                                  "tile; the weights rounded once a call into a fragment-packed "
+                                  "scratch and streamed through each lane's ring of 4 k16 "
+                                  "steps; the gradient on a persistent grid of the CTAs the "
+                                  "card holds, shared among the agents, each adding its tiles "
+                                  "into its partial; kernels maddpg_round_bf16_wide_kernel, "
+                                  "maddpg_target_bf16_wide_kernel, maddpg_td_bf16_wide_kernel, "
+                                  "maddpg_grad_bf16_wide_kernel, maddpg_reduce_bf16_kernel"}
 # path f: the env API at the verify recipe's calls (make_env on simple_spread
 # with benchmark info, VecMultiAgentEnv at 4096 envs), every registry id, the
 # PettingZoo adapters at PettingZoo's default max_cycles, and the non-fused
@@ -987,26 +1013,27 @@ def maddpg_update_ops(name: str, h: int = 64) -> dict:
     return {"step": sample, "reset": {}, "env": {}}
 
 
-def maddpg_update_bf16_sample(name: str) -> dict:
-    """K9-bf16's operations per (sample, agent) pair (csrc/mpe_maddpg_bf16.cu):
-    ``maddpg_update_ops``' function with every product on the tensor cores as
-    bf16 multiply-adds: the target actor (64 (OW + 64) + K 64) and target
-    critic (64 (J + 64) + 64), the critic's forward (the same), its backward
-    (64 for gh2, 64 x 64 for gh1) and weight gradients (64 (J + 64) + 64),
-    each candidate's layers 2-3 (64 x 64 + 64), the actor's forward, backward
-    (64 K + 64 x 64) and weight gradients; in fp32: the bias adds (64 x 2 +
-    K, 129 twice, 129 per candidate), the own-action columns of the base (64
-    x K), each candidate's h1 argument (64 x 2: the column sum and + base),
-    1 - h^2 and its product (3 per unit, 4 layers), y, d and g3 (3), the bias
-    sums (129 and 128 + K), the head (18 fp32 and 3 SFU per logit, the comm
-    qbar sums 2 per candidate) and the first argmax (2 per logit); every tanh
-    (2 x 64 for each of the four MLPs and per candidate); each product's
-    operand rounded once per value (two a conversion). The weights are
-    rounded once per launch (``env``, with ``envs`` 1)."""
+def maddpg_update_bf16_sample(name: str, h: int = 64) -> dict:
+    """K9-bf16's operations per (sample, agent) pair (csrc/mpe_maddpg_bf16.cu)
+    at hidden width h: ``maddpg_update_ops``' function with every product on
+    the tensor cores as bf16 multiply-adds: the target actor (h (OW + h) + K
+    h) and target critic (h (J + h) + h), the critic's forward (the same), its
+    backward (h for gh2, h x h for gh1) and weight gradients (h (J + h) + h),
+    each candidate's layers 2-3 (h x h + h), the actor's forward, backward (h
+    K + h x h) and weight gradients; in fp32: the bias adds (h x 2 + K, 2h + 1
+    twice, h + 1 per candidate), the own-action columns of the base (h x K),
+    each candidate's h1 argument (h x 2: the column sum and + base), 1 - h^2
+    and its product (3 per unit, 4 layers), y, d and g3 (3), the bias sums (2h
+    + 1 and 2h + K), the head (18 fp32 and 3 SFU per logit, the comm qbar sums
+    2 per candidate) and the first argmax (2 per logit); every tanh (2h for
+    each of the four MLPs and per candidate); each product's operand rounded
+    once per value (two a conversion). The weights are rounded once per
+    launch (``env``, with ``envs`` 1). What a kernel repeats by its own
+    design (the wide kernels' second pass of the critic's first layer for the
+    candidates' base) is not the function's and is not counted."""
     a, ow, c, _, _ = widths(name)
     k, n_cand = 5 + c, 5 * max(c, 1)
     j = a * (ow + k)
-    h = 64
     actor_fwd = h * (ow + h) + k * h
     critic_fwd = h * (j + h) + h
     tc = (2 * actor_fwd + 2 * critic_fwd + (h + h * h) + (h * (j + h) + h)
@@ -1051,6 +1078,9 @@ def add_policy_ops() -> None:
         OPS[f"maddpg_traj_kernel[{name}]"] = maddpg_ops(name)
         OPS[f"maddpg_update_kernel[{name}]"] = maddpg_update_ops(name)
         OPS[f"maddpg_update_bf16_kernel[{name}]"] = maddpg_update_bf16_sample(name)
+        for h in WIDE_PHASE:
+            OPS[f"maddpg_update_bf16_kernel[{name}, hidden {h}]"] = maddpg_update_bf16_sample(
+                name, h)
 
 
 def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
@@ -1418,17 +1448,19 @@ def maddpg_path(wrappers, name: str = "simple_spread", n_chunks: int = MADDPG_CH
             update_ms / len(steady))
 
 
-def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
-    """Path d4 (the module docstring): on each of D4_NAMES, the runner's pieces
-    with its defaults (RUNNER_HP, MADDPG's widths, a ring of n_envs x 1600 rows,
-    the warm-up collections, actor_start MADDPG_ACTOR_START, chunk keys and
-    gates as ``fused_loop``'s), the update chunk with
-    ``compute_dtype=torch.bfloat16``: MADDPG_CHUNKS chunks timed by CUDA events
-    split into collect and update. K9-bf16 launches exactly once an update and
-    K9 never; every metric finite; the last chunk's critic loss and mean
-    reward printed beside the float32 path's (``f32_runs``: d, d2), not gated
-    -> {name: {launches, transitions_per_s, collect_ms, update_ms, last
-    metrics, params, chunk, buffer}}."""
+def bf16_maddpg_path(wrappers, f32_runs: dict, names=D4_NAMES, n_chunks: int = MADDPG_CHUNKS,
+                     hidden: int = 64, actor_start: int = MADDPG_ACTOR_START) -> dict:
+    """Path d4 (the module docstring): on each of ``names``, the runner's
+    pieces with its defaults (RUNNER_HP, MADDPG's widths, a ring of n_envs x
+    1600 rows, the warm-up collections, ``actor_start``, chunk keys and gates
+    as ``fused_loop``'s), the update chunk with
+    ``compute_dtype=torch.bfloat16``: ``n_chunks`` chunks timed by CUDA
+    events split into collect and update (phase 3d runs it at the wide
+    ``hidden`` widths). K9-bf16 launches exactly once an update and K9 never;
+    every metric finite; the last chunk's critic loss and mean reward printed
+    beside the float32 path's (``f32_runs``: d, d2; phase 3d: the float32
+    runner at that width), not gated -> {name: {launches, transitions_per_s,
+    collect_ms, update_ms, last metrics, params, chunk, buffer}}."""
     import torch
 
     from mpe_tpu_torch import scenarios
@@ -1440,8 +1472,8 @@ def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
 
     n, horizon, batch = MADDPG["n_envs"], MADDPG["horizon"], MADDPG["batch"]
     out = {}
-    for name in D4_NAMES:
-        label = f"MADDPG-bf16 ({name})"
+    for name in names:
+        label = f"MADDPG-bf16 ({name}" + ("" if hidden == 64 else f", hidden {hidden}") + ")"
         env = MpeEnv(scenarios.load(name), max_steps=horizon, auto_reset=True, device="cuda")
         _, obs_dim, aw, _, _ = _dims(env)
         a = env.n_agents
@@ -1449,12 +1481,13 @@ def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
                                       block_envs=min(1024, n))
         chunk = build_fused_update_chunk(env, horizon, batch=batch, tau_polyak=RUNNER_HP["tau"],
                                          actor_lr=RUNNER_HP["lr"], critic_lr=RUNNER_HP["lr"],
-                                         ent_coef=RUNNER_HP["ent_coef"],
+                                         ent_coef=RUNNER_HP["ent_coef"], hidden=hidden,
                                          compute_dtype=torch.bfloat16)
         zero_launches(wrappers)
         t0 = time.perf_counter()
         params = _tree3(lambda x: x.to("cuda"),
-                        init_maddpg(torch.Generator().manual_seed(0), obs_dim, aw, a))
+                        init_maddpg(torch.Generator().manual_seed(0), obs_dim, aw, a,
+                                    hidden=hidden))
         targets = _tree3(torch.clone, params)
         buffer = init_buffer(n * 1600, a, obs_dim, aw, device="cuda")
         for i in range(max(1, 200 // horizon)):
@@ -1462,11 +1495,11 @@ def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
         state = chunk.pack_state(params, targets, chunk.init_opt(params))
         events, mean_rewards, critic_losses = [], [], []
         _mark(events, "start")
-        for i in range(MADDPG_CHUNKS):
+        for i in range(n_chunks):
             buffer, mr = collect(chunk.actor_of(state), buffer, 10_000 + i)
             _mark(events, "collect")
             state, m = chunk.packed_step(state, buffer, chunk_key(0, i),
-                                         actor_gates(i, horizon, MADDPG_ACTOR_START))
+                                         actor_gates(i, horizon, actor_start))
             _mark(events, "update")
             mean_rewards.append(mr)
             critic_losses.append(m["critic_loss"])
@@ -1474,7 +1507,7 @@ def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
         wall_s = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items() if w.launches}
         print(f"{label} path launches: {launches}")
-        want = MADDPG_CHUNKS * horizon
+        want = n_chunks * horizon
         assert launches.get("maddpg_update_bf16_kernel") == want, \
             f"{label}: K9-bf16 launched {launches.get('maddpg_update_bf16_kernel')}, not {want}"
         assert set(launches) == {"maddpg_traj_kernel", "maddpg_update_bf16_kernel"}, launches
@@ -1485,16 +1518,16 @@ def bf16_maddpg_path(wrappers, f32_runs: dict) -> dict:
         assert bool(torch.isfinite(mr).all()) and bool(torch.isfinite(cl).all()), (mr, cl)
         finite_tree(label, params)
         finite_tree(f"{label} targets", targets)
-        steady = chunk_phase_ms(events, MADDPG_CHUNKS)[1:]
+        steady = chunk_phase_ms(events, n_chunks)[1:]
         collect_ms, update_ms = (sum(x[q] for x in steady) / len(steady) for q in (0, 1))
         rate = n * horizon / ((collect_ms + update_ms) * 1e-3)
         f32_info, f32_rate = f32_runs[name][2], f32_runs[name][3]
-        print(f"{label}, chunks 1-{MADDPG_CHUNKS - 1}: {rate:.6g} transitions/s beside the float32 "
+        print(f"{label}, chunks 1-{n_chunks - 1}: {rate:.6g} transitions/s beside the float32 "
               f"path's {f32_rate:.6g}; mean per chunk {collect_ms + update_ms:.3f} ms: collect "
               f"{collect_ms:.3f} ms (K8 + insert), update {update_ms:.3f} ms ({horizon} x gather + "
               f"K9-bf16 + Adam + polyak); the whole run with the warm-up {wall_s:.2f} s (host "
               f"clock)")
-        print(f"{label} chunk {MADDPG_CHUNKS - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
+        print(f"{label} chunk {n_chunks - 1}: mean reward {float(mr[-1]):.6f}, critic loss "
               f"{float(cl[-1]):.6f}; the float32 path's {float(f32_info['mean_reward'][-1]):.6f}, "
               f"{float(f32_info['critic_loss'][-1]):.6f} (not gated: a bf16 run is another "
               f"function)")
@@ -2159,10 +2192,12 @@ def hmma_counts(widths_: tuple, source: str = "mpe_update_bf16.cu") -> dict:
     from mpe_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
+    procs = {h: subprocess.Popen([cuobjdump, "-sass", str(_build._target(source, h))],
+                                 stdout=subprocess.PIPE, text=True) for h in widths_}
     out = {}
-    for h in widths_:
-        sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source, h))],
-                              capture_output=True, text=True, check=True).stdout.splitlines()
+    for h, proc in procs.items():                    # the widths' disassemblies run side by side
+        sass = proc.communicate()[0].splitlines()
+        assert proc.returncode == 0, f"cuobjdump failed on {source} at hidden {h}"
         out[h] = {op: sum(op in line for line in sass) for op in ("HMMA", "LDSM")}
     print(f"HMMA and LDSM instructions in the SASS of {source} by hidden width: {out}")
     assert all(n["HMMA"] > 0 and n["LDSM"] > 0 for n in out.values()), \
@@ -2489,10 +2524,12 @@ def gate_maddpg_bf16(name: str, params: dict, targets: dict, rows, label: str,
             "actor_error_model": model}
 
 
-def check_maddpg_bf16(name: str, trained: dict, rows_all) -> dict:
-    """K9-bf16 on ``name`` on two batches of MADDPG["batch"] rows of
-    ``rows_all`` (the main path's ring): fresh init_maddpg params and the main
-    path's ``trained`` params, targets = params + 0.1 N(0, 1) in both
+def check_maddpg_bf16(name: str, trained: dict, rows_all, h: int = 64) -> dict:
+    """K9-bf16 on ``name`` at hidden ``h`` on two batches of MADDPG["batch"]
+    rows of ``rows_all`` (the main path's ring; phase 3d: K8's rows): fresh
+    init_maddpg params of that width and ``trained`` params (the main path's;
+    phase 3d: the float32 runner's at that width), targets = params + 0.1
+    N(0, 1) in both
     (``gate_maddpg_bf16``; on the fresh batch K9-bf16 lies at least 10x
     nearer the plain bf16 version than the plain float32 version); then on
     the trained batch K9-bf16 per call on the packed buffers beside K9 on the
@@ -2505,7 +2542,7 @@ def check_maddpg_bf16(name: str, trained: dict, rows_all) -> dict:
     from mpe_tpu_torch.ops.fused_maddpg_update import (MaddpgUpdateLauncher, _split_rows,
                                                        plain_maddpg_update)
 
-    a, ow, k, width, nw, nc = maddpg_widths(name)
+    a, ow, k, width, nw, nc = maddpg_widths(name, h)
     b = MADDPG["batch"]
     gen = torch.Generator("cuda").manual_seed(8)
     rows = rows_all[torch.randint(0, rows_all.shape[0], (b,), generator=gen,
@@ -2517,17 +2554,19 @@ def check_maddpg_bf16(name: str, trained: dict, rows_all) -> dict:
                 for n, net in p.items()}
 
     fresh = {n: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
-             for n, net in init_maddpg(torch.Generator().manual_seed(80), ow, k, a).items()}
-    row = {"fresh": gate_maddpg_bf16(name, fresh, perturbed(fresh), rows, "fresh params")}
+             for n, net in init_maddpg(torch.Generator().manual_seed(80), ow, k, a,
+                                       hidden=h).items()}
+    tag = "" if h == 64 else f", hidden {h}"
+    row = {"fresh": gate_maddpg_bf16(name, fresh, perturbed(fresh), rows, f"fresh params{tag}")}
     near, far = row["fresh"]["leaf_err"], row["fresh"]["leaf_err_vs_plain_float32"]
     assert 10 * near <= far, f"K9-bf16 ({name}): {near:.3g} from plain bf16, {far:.3g} from float32"
     targets = perturbed(trained)
-    row["trained"] = gate_maddpg_bf16(name, trained, targets, rows, "trained params",
+    row["trained"] = gate_maddpg_bf16(name, trained, targets, rows, f"trained params{tag}",
                                       trained=True)
 
     hp = dict(gamma=0.95, ent_coef=0.01)
-    lay_bf16 = MaddpgUpdateLauncher(a, ow, k, 5, 64, b, "cuda", compute_dtype=torch.bfloat16, **hp)
-    lay_f32 = MaddpgUpdateLauncher(a, ow, k, 5, 64, b, "cuda", **hp)
+    lay_bf16 = MaddpgUpdateLauncher(a, ow, k, 5, h, b, "cuda", compute_dtype=torch.bfloat16, **hp)
+    lay_f32 = MaddpgUpdateLauncher(a, ow, k, 5, h, b, "cuda", **hp)
     weights = lay_bf16.layout.pack(trained, targets).cuda()
     grads = torch.empty(lay_bf16.layout.off_ta, device="cuda")
     metrics = torch.empty(3, device="cuda")
@@ -2539,12 +2578,12 @@ def check_maddpg_bf16(name: str, trained: dict, rows_all) -> dict:
     split = _split_rows(rows, a, ow, k)
     lib_ms, _ = cuda_time(lambda: maddpg_xla_grads(trained, targets, *split, mw=5, cw=k - 5, **hp),
                           REPEATS)
-    bound = bound_ms(OPS[f"maddpg_update_bf16_kernel[{name}]"], b * a, 0, 1,
+    bound = bound_ms(OPS[f"maddpg_update_bf16_kernel[{name}{tag}]"], b * a, 0, 1,
                      4 * (b * width + 2 * a * (nw + nc) + a * (nw + nc + 3)))
-    print(f"K9-bf16 ({name}, trained params) {ms:.4f} ms per call on the packed buffers (batch "
-          f"{b}), K9 {ms32:.4f} ms on the same buffers; plain bf16 {plain_ms:.3f} ms, autograd of "
-          f"the losses in float32 {lib_ms:.3f} ms; bound {bound[0]:.5f} ms by {bound[1]} "
-          f"({ms / bound[0]:.2f}x); issue floor {bound[2]:.5f} ms")
+    print(f"K9-bf16 ({name}{tag}, trained params) {ms:.4f} ms per call on the packed buffers "
+          f"(batch {b}), K9 {ms32:.4f} ms on the same buffers; plain bf16 {plain_ms:.3f} ms, "
+          f"autograd of the losses in float32 {lib_ms:.3f} ms; bound {bound[0]:.5f} ms by "
+          f"{bound[1]} ({ms / bound[0]:.2f}x); issue floor {bound[2]:.5f} ms")
     return {"max_abs_err": max(r["max_abs_err"] for r in row.values()), "ms": ms,
             "float32_kernel_ms": ms32, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "gates": row}
@@ -3159,12 +3198,18 @@ def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
     on WIDE_MADDPG_NAMES at path d's shape against their plain versions and
     timed, then the MADDPG runner at that width on each for
     WIDE_MADDPG_CHUNKS chunks (K8, K9; actor_start 0), K9 gated again on its
-    ring with the trained params -> {kernel: {hidden: row}} (each row as the
-    kernels line's: launches on the runs, max abs err over the gates, ms,
-    plain ms, bound, library ms (K9: autograd of the losses), registers by
-    scenario; K8 its tile, K9 its device ms an update in the runner's
-    profiled chunk), "paths": {path:
-    transitions/s and ms by phase}, "seconds": s."""
+    ring with the trained params; then K9-bf16 on K8's rows with fresh params
+    and the runner's trained params (``check_maddpg_bf16``: gated against
+    the plain bf16 version, timed beside K9 on the same buffers, the plain
+    bf16 version, autograd of the losses and its bound) and its update chunk
+    with K8's collection for WIDE_MADDPG_CHUNKS chunks (``bf16_maddpg_path``,
+    actor_start 0: K9-bf16 once an update, K9 never) -> {kernel: {hidden:
+    row}} (each row as the kernels line's: launches on the runs, max abs err
+    over the gates, ms, plain ms, bound, library ms (K9, K9-bf16: autograd of
+    the losses), registers by scenario; K8 its tile, K9 its device ms an
+    update in the runner's profiled chunk, K9-bf16 K9's ms on the same
+    buffers and its gates), "paths": {path: transitions/s and ms by phase},
+    "seconds": s."""
     import torch
 
     from mpe_tpu_torch.learner.maddpg import collect_t_chunk, init_maddpg
@@ -3172,9 +3217,10 @@ def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     t0 = time.perf_counter()
-    kernels = ("maddpg_traj_kernel", "maddpg_update_kernel")
+    kernels = ("maddpg_traj_kernel", "maddpg_update_kernel", "maddpg_update_bf16_kernel")
     regs_key = {"maddpg_traj_kernel": "maddpg_traj_kernel",
-                "maddpg_update_kernel": "maddpg_update"}
+                "maddpg_update_kernel": "maddpg_update",
+                "maddpg_update_bf16_kernel": "maddpg_update_bf16"}
     out = {k: {} for k in kernels}
     out["paths"] = {}
     mn, mh, mb = MADDPG["n_envs"], MADDPG["horizon"], MADDPG["batch"]
@@ -3237,7 +3283,21 @@ def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
                                  "ms_per_chunk_by_phase": {"collect": collect_ms,
                                                            "update": update_ms},
                                  "launches": launches, **prof}
-            del run, params, info, ring
+            # K9-bf16 at this width: on K8's rows with fresh and the runner's
+            # trained params, then its update chunk with K8's collection
+            bf16_row = check_maddpg_bf16(name, params, flat, h)
+            d4w = bf16_maddpg_path(wrappers, {name: (run, params, info, rate)}, (name,),
+                                   WIDE_MADDPG_CHUNKS, h, 0)[name]
+            prof_b = profile_maddpg_update(
+                name, types.SimpleNamespace(update_chunk=d4w["chunk"]), d4w["params"],
+                {q: d4w[q] for q in ("targets", "opt_states", "buffer")}, K9_BF16_WIDE_KERNELS)
+            out["paths"][f"MADDPG-bf16 on {name} at hidden {h}"] = {
+                "transitions_per_s": d4w["transitions_per_s"], "chunks": WIDE_MADDPG_CHUNKS,
+                "ms_per_chunk_by_phase": {"collect": d4w["collect_ms"],
+                                          "update": d4w["update_ms"]},
+                "launches": d4w["launches"], "last_critic_loss": d4w["last_critic_loss"],
+                "float32_last_critic_loss": d4w["float32_last_critic_loss"], **prof_b}
+            del run, params, info, ring, flat, d4w
             scn = {"maddpg_traj_kernel": dict(
                        launches=by["maddpg_traj_kernel"][name], max_abs_err=err8, ms=ms8,
                        plain_ms=plain8, bound_ms=b8[0], bound_by=b8[1], library_ms=None,
@@ -3247,7 +3307,15 @@ def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
                        max_abs_err=max(err9, err_ring), ms=ms9,
                        device_ms_per_update=prof.get("device_ms_per_update", "not measured"),
                        plain_ms=plain9, bound_ms=b9[0], bound_by=b9[1], library_ms=lib9,
-                       from_trees_ms=tree9, timed_on=f"batch {mb} of K8's rows")}
+                       from_trees_ms=tree9, timed_on=f"batch {mb} of K8's rows"),
+                   "maddpg_update_bf16_kernel": dict(
+                       launches=out["paths"][f"MADDPG-bf16 on {name} at hidden {h}"]["launches"][
+                           "maddpg_update_bf16_kernel"],
+                       timed_on=f"batch {mb} of K8's rows, the runner's trained params",
+                       device_ms_per_update=prof_b.get("device_ms_per_update", "not measured"),
+                       **{q: bf16_row[q] for q in ("max_abs_err", "ms", "float32_kernel_ms",
+                                                   "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by", "gates")})}
             for kname, r in scn.items():
                 rows[kname]["by_scenario"][name] = r
                 rows[kname]["launches"] += r["launches"]
@@ -4506,6 +4574,21 @@ def multidevice_path(wrappers, one_process_ms: dict, card: str) -> dict:
     return h
 
 
+class Laps:
+    """The seconds of main's phases: each call records the time since the
+    last under the label of the phase that just ended (summed where a label
+    comes again)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.seconds[label] = self.seconds.get(label, 0.0) + now - self.t
+        self.t = now
+
+
 def main() -> int:
     import torch
 
@@ -4525,6 +4608,7 @@ def main() -> int:
     from mpe_tpu_torch.ops.fused_parity import det_group, plain_det_rollout_blocked
     from mpe_tpu_torch.ops.fused_policy import (fused_policy_rollout, fused_policy_trajectory,
                                                 policy_tile, policy_traj_cuda)
+    from mpe_tpu_torch.ops.fused_rollout import fused_spread_rollout
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     add_policy_ops()
@@ -4534,14 +4618,18 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t_start = t0 = time.perf_counter()
+    lap = Laps()
     logs = _build.build_all(HIDDEN_PHASE + WIDE_PHASE)
+    compile_s = {f"{src} at {h}": round(v, 1) for (src, h), v in _build.COMPILE_SECONDS.items()}
     for source in _build.SOURCES:
         _build.library(source)
     for h in HIDDEN_PHASE + WIDE_PHASE:
         for source in _build.HIDDEN_SOURCES:
             if h in _build.HIDDEN_WIDTHS[source]:
                 _build.library(source, h)
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s ({len(logs)} libraries: every source "
+    build_s = time.perf_counter() - t0
+    lap("1: build")
+    print(f"kernel build: {build_s:.1f} s ({len(logs)} libraries: every source "
           f"at hidden 64, {', '.join(_build.HIDDEN_SOURCES)} also at {HIDDEN_PHASE}, "
           + ", ".join(s for s in _build.HIDDEN_SOURCES if WIDE_PHASE[0] in _build.HIDDEN_WIDTHS[s])
           + f" also at {WIDE_PHASE})")
@@ -4553,15 +4641,17 @@ def main() -> int:
     regs_at = {h: ptxas_registers({k: v for k, v in logs.items() if k[1:] == (h,)})
                for h in HIDDEN_PHASE + WIDE_PHASE}
     hmma = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE + WIDE_PHASE)
-    hmma9 = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE, "mpe_maddpg_bf16.cu")
+    hmma9 = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE + WIDE_PHASE, "mpe_maddpg_bf16.cu")
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
     wrappers = kernel_wrappers()
+    lap("1: registers and SASS")
 
     # ---- main paths ----------------------------------------------------------
     launches, k2_by, k1_by, k2, k2_ms_at, k1_ms, det_inputs, generic_rate = rollout_path(
         wrappers, spec, torch.device("cuda"))
+    lap("2a: rollouts")
     # K5 runs in paths b, b2, b3 and b4; K6 in b and b3; K7 in b2 and b4. Each
     # path's launches are read just after it, by instantiation where the
     # kernel is a template over the scenarios
@@ -4583,6 +4673,7 @@ def main() -> int:
         trainers[label] = (step_, state0_, state_)
         collect_ms[f"{label} ({name})"] = phases_["collect"]
         iter_ms[label] = sum(phases_.values())
+    lap("2b-b4: trainers")
     # path b5: the bf16 trainers on simple_spread (K5, K6-bf16; K5, K7-bf16)
     bf16 = bf16_path(wrappers, {"ppo": last_metrics["train"], "mappo": last_metrics["MAPPO"]})
     for kind, (path_launches, _, _, _, phases_, _) in bf16.items():
@@ -4603,8 +4694,10 @@ def main() -> int:
                                    device="cuda")
     evals = {"simple_spread": actor_of(state[0]), COMM_PPO: actor_of(cstate[0]),
              COMM_MAPPO: ckpt_actor}
+    lap("2b5: bf16 trainers")
     eval_launches, k4_by, k4_runs = evaluation_path(wrappers, evals)
     launches.update(eval_launches)
+    lap("2c: evaluation")
     actor = evals["simple_spread"]
     # MADDPG: path d (simple_spread), then d2 and d3 with comm heads; K8 and K9
     # launches summed over the three paths, by scenario
@@ -4617,6 +4710,7 @@ def main() -> int:
         k8_by.update(by["maddpg_traj_kernel"])
         k9_by.update(by["maddpg_update_kernel"])
     run, mparams, minfo, *_ = maddpg_runs["simple_spread"]
+    lap("2d-d3: MADDPG")
     # path d4: the bf16 MADDPG update (K8, K9-bf16) on D4_NAMES
     d4 = bf16_maddpg_path(wrappers, maddpg_runs)
     launches["maddpg_update_bf16_kernel"] = 0
@@ -4626,8 +4720,10 @@ def main() -> int:
             launches[k] += v
         k8_by[name] += r["launches"]["maddpg_traj_kernel"]
         k9b_by[name] = r["launches"]["maddpg_update_bf16_kernel"]
+    lap("2d4: bf16 MADDPG")
     scn_launches, scn_by, k1_scn_ms, k2_scn_ms, k3_ms = scenarios_path(wrappers,
                                                                        torch.device("cuda"))
+    lap("2e: scenarios and trajectories")
     # K1 and K2 ran in path a (simple_spread) and path e (the eight others)
     launches["det_rollout_kernel"] += scn_launches["det_rollout_kernel"]
     launches["scenario_rollout_kernel"] += scn_launches["scenario_rollout_kernel"]
@@ -4642,10 +4738,12 @@ def main() -> int:
     for name, n in f_by.items():
         k4_by[name] = k4_by.get(name, 0) + n
     es_err, es_figures = check_es_generation(es_step, es_params0, es_ms)
+    lap("2f: env API and learners")
     # path g: the MADDPG variants (K8 collects in g1-g3, K9 runs in none, g4
     # runs no kernel), then g5: does the port's MADDPG learn (K8, K9)
     g_figures, k8_sub_err = variants_path(wrappers)
     g_figures["g5"] = maddpg_learns_phase(wrappers)
+    lap("2g: MADDPG variants")
     for phase, f in g_figures.items():
         for k, n in f.get("launches", {}).items():
             launches[k] += n
@@ -4671,6 +4769,7 @@ def main() -> int:
         for k, n in counts.items():
             launches[k] += n
     zero_launches(wrappers)
+    lap("2i: side layers")
 
     # ---- kernels against their plain versions -------------------------------
     k1_err, plain_k1_scn_ms = check_det_kernels(det_inputs)
@@ -4715,14 +4814,19 @@ def main() -> int:
     k4_main, k5_main = check_main_policy_shapes(k4_runs, evals, trainer_actors)
     k4_ms, plain_k4_ms = k4_main["simple_spread"][1:3]
     k5_ms, plain_k5_ms = k5_main["simple_spread"][1:3]
-    # the 10,000-step plain loops run once: one call is tens of seconds
-    plain_k2_ms, _ = cuda_time(lambda: k2.plain(1), 1, warm_up=False)
-    plain_k1 = plain_det_rollout_blocked("simple_spread", N_STEPS, BLOCK_ENVS)
+    # the plain K2 and K1 of simple_spread timed once at K1_PLAIN_STEPS steps,
+    # as the other scenarios' plain K1: their outputs are compared nowhere
+    plain_k2 = fused_spread_rollout(spec, N_ENVS, K1_PLAIN_STEPS, horizon=HORIZON,
+                                    block_envs=BLOCK_ENVS)
+    plain_k2_ms, _ = cuda_time(lambda: plain_k2.plain(1), 1, warm_up=False)
+    plain_k1 = plain_det_rollout_blocked("simple_spread", K1_PLAIN_STEPS, BLOCK_ENVS)
     plain_k1_ms, _ = cuda_time(lambda: plain_k1(*det_inputs), 1, warm_up=False)
     print(f"kernels at the main paths' shapes: K5 {k5_ms:.4f} ms ({TRAIN['n_envs']} envs x "
           f"{TRAIN['n_steps']} steps), K4 {k4_ms:.4f} ms; medians of {REPEATS}")
     print(f"plain versions on the card: K2 {plain_k2_ms:.1f} ms, K1 {plain_k1_ms:.1f} ms "
-          f"({N_ENVS} envs x {N_STEPS} steps); K5 {plain_k5_ms:.1f} ms, K4 {plain_k4_ms:.1f} ms")
+          f"({N_ENVS} envs x {K1_PLAIN_STEPS} steps); K5 {plain_k5_ms:.1f} ms, K4 "
+          f"{plain_k4_ms:.1f} ms")
+    lap("3: K1, K4-K7 against their plain versions")
 
     # ---- the MADDPG kernels (K8, K9) and the scenario kernels (K2, K3) ------
     # K8 and K9 on every scenario with its committed checkpoint (K8 also with
@@ -4772,6 +4876,7 @@ def main() -> int:
             name, types.SimpleNamespace(update_chunk=r["chunk"]), r["params"],
             {k: r[k] for k in ("targets", "opt_states", "buffer")}, K9_BF16_KERNELS))
     del d4
+    lap("3: K8, K9, K9-bf16 against their plain versions")
     k5_by_trainer = {"train (simple_spread)": "simple_spread",
                      "MAPPO (simple_spread)": "simple_spread", f"comm PPO ({COMM_PPO})": COMM_PPO,
                      f"comm MAPPO ({COMM_MAPPO})": COMM_MAPPO}
@@ -4782,9 +4887,13 @@ def main() -> int:
     k3_device_ms = profile_trajectories(k3_ms)
     k2_err, k2_check_ms, plain_k2_long_ms, k3_err, plain_k3_ms = check_scenario_kernels()
     k3_group_ms = check_trajectory_groups()
+    lap("3: K2, K3 against their plain versions")
     hidden = hidden_widths_phase(wrappers)
+    lap("3b: hidden 8-32")
     wide = wide_widths_phase(wrappers, regs_at)
+    lap("3c: hidden 128 and 256 (K4-K7)")
     wide_m = wide_maddpg_phase(wrappers, regs_at)
+    lap("3d: hidden 128 and 256 (K8, K9, K9-bf16)")
     # path h, the multi-device path and checkpoint/trace, runs after every other
     # phase: it starts a process group (nccl) and launches ranks, and the
     # profiler passes above then run in a process that has done neither. Its DP
@@ -4797,6 +4906,7 @@ def main() -> int:
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     zero_launches(wrappers)
+    lap("2h: multi-device and checkpoint")
 
     # ---- bounds ---------------------------------------------------------------
     # bytes: K2 writes pos and vel (2 E P floats), the R reward sums and the
@@ -4824,7 +4934,7 @@ def main() -> int:
         k1_rows[name] = scenario_row(
             k1_by, "det_rollout_kernel", name, k1_err[name], ms,
             plain_k1_ms if name == "simple_spread" else plain_k1_scn_ms[name], (b, by),
-            plain_steps=N_STEPS if name == "simple_spread" else K1_PLAIN_STEPS,
+            plain_steps=K1_PLAIN_STEPS,
             group=det_group(kernel_scenario(name), N_ENVS))
     b1 = (k1_rows["simple_spread"]["bound_ms"], k1_rows["simple_spread"]["bound_by"])
     b5, by5, issue5 = k5_main["simple_spread"][3]
@@ -4886,12 +4996,14 @@ def main() -> int:
     spread6, spread7 = k6_scn["simple_spread"], k7_scn["simple_spread"]
     kernels = [
         # K2, one template: its top-level numbers are simple_spread's at 4096
-        # envs x 10000 steps (path a); by_scenario holds every instantiation
-        # at 4096 envs x 10000 steps, with kernel and plain version also at
-        # the check shape (4096 envs x 20 steps)
+        # envs x 10000 steps (path a), the plain version's at plain_steps;
+        # by_scenario holds every instantiation at 4096 envs x 10000 steps,
+        # with kernel and plain version also at the check shape (4096 envs x
+        # 20 steps)
         record("scenario_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_rollout.py:359",
                max(k2_err.values()), k2_ms_at[N_ENVS], plain_k2_ms, b2,
-               scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k2_rows,
+               plain_steps=K1_PLAIN_STEPS, scenarios=list(ALL_SCENARIOS),
+               timed_on="simple_spread", by_scenario=k2_rows,
                pair_physics=pair_physics, group=k2_rows["simple_spread"]["group"],
                group_rule=GROUP_RULE),
         # K3's top-level numbers are simple_spread's at 4096 envs x 64 steps
@@ -4900,9 +5012,11 @@ def main() -> int:
                b3, scenarios=list(ALL_SCENARIOS), timed_on="simple_spread", by_scenario=k3_rows,
                pair_physics=pair_physics, group=k3_rows["simple_spread"]["group"],
                group_rule=TRAJ_GROUP_RULE),
-        # K1's top-level numbers are simple_spread's at 4096 envs x 10000 steps
+        # K1's top-level numbers are simple_spread's at 4096 envs x 10000 steps,
+        # the plain version's at plain_steps
         record("det_rollout_kernel", "mpe_kernels.cu", "mpe_tpu/ops/fused_parity.py:99",
-               max(k1_err.values()), k1_ms, plain_k1_ms, b1, scenarios=list(ALL_SCENARIOS),
+               max(k1_err.values()), k1_ms, plain_k1_ms, b1, plain_steps=K1_PLAIN_STEPS,
+               scenarios=list(ALL_SCENARIOS),
                timed_on="simple_spread", by_scenario=k1_rows, pair_physics=pair_physics,
                group=k1_rows["simple_spread"]["group"], group_rule=DET_GROUP_RULE),
         # K5's top-level numbers are simple_spread's at the training shape
@@ -5036,7 +5150,10 @@ def main() -> int:
                                            "all_reduce_ms": r["all_reduce_ms"][grad],
                                            "backend": r["backend"]}
                    for r in h["h2"]["ranks"]}}
+    lap("4-5: bounds and the kernels line")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in lap.seconds.items()},
+                      "compile_seconds": compile_s, "build_wall_seconds": round(build_s, 1)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -584,10 +584,11 @@ def build_fused_update_chunk(env, n_updates: int, batch: int = 256, gamma: float
 
     ``compute_dtype=torch.bfloat16`` is JAX's ``compute_dtype=bfloat16`` of
     the kernel engine: on CUDA kernel K9-bf16 in place of K9 (every product
-    on the tensor cores in bf16, float32 sums), on the CPU the plain version's
-    bf16 path; the params, the Adam moments and the Polyak targets stay in
-    ``dtype``. The default float32 (or None) is K9. The ``"autograd"`` engine
-    ignores it, as JAX's ``"xla"`` engine does.
+    on the tensor cores in bf16, float32 sums; at every hidden width K9
+    takes, 8-256, the wide kernels at 128 and 256), on the CPU the plain
+    version's bf16 path; the params, the Adam moments and the Polyak targets
+    stay in ``dtype``. The default float32 (or None) is K9. The
+    ``"autograd"`` engine ignores it, as JAX's ``"xla"`` engine does.
 
     ``local_critic=True`` (independent DDPG; ``grad_engine="autograd"``
     only, as in JAX) packs critics of the own ``obs+act`` input: the layout

@@ -21,12 +21,14 @@ without ``nvcc`` or a card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -47,7 +49,7 @@ HIDDEN_WIDTHS = {
     "mpe_update.cu": (8, 16, 32, 64, 128, 256),
     "mpe_maddpg.cu": (8, 16, 32, 64, 128, 256),
     "mpe_update_bf16.cu": (8, 16, 32, 64, 128, 256),
-    "mpe_maddpg_bf16.cu": (8, 16, 32, 64),
+    "mpe_maddpg_bf16.cu": (8, 16, 32, 64, 128, 256),
 }
 HIDDEN_SOURCES = tuple(HIDDEN_WIDTHS)
 DEFAULT_HIDDEN = 64
@@ -93,11 +95,16 @@ def _target(source: str, hidden: int = DEFAULT_HIDDEN) -> Path:
     return BUILD_DIR / f"lib{src.stem}{width}_{digest}.so"
 
 
+# the seconds each ``nvcc`` of the last ``build`` took, by (source, hidden),
+# from its start to its end (they run side by side)
+COMPILE_SECONDS: dict = {}
+
+
 def build(pairs) -> dict:
     """Compile every ``(source, hidden)`` of ``pairs`` whose library is
     missing, one ``nvcc`` each, all started together. Returns ``{(source,
     hidden): ptxas log}`` (the registers and spills of each kernel; empty for
-    a cached library)."""
+    a cached library); ``COMPILE_SECONDS`` holds each compile's seconds."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pairs = list(dict.fromkeys(pairs))
     procs = {}
@@ -106,13 +113,22 @@ def build(pairs) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        procs[source, hidden] = (out, tmp, subprocess.Popen(
+        procs[source, hidden] = (out, tmp, time.perf_counter(), subprocess.Popen(
             [nvcc(), *_flags(source, hidden), "-o", str(tmp), str(CSRC / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def finish(job):
+        start, proc = job[2], job[3]
+        log, _ = proc.communicate()
+        return log, time.perf_counter() - start
+
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(procs))) as pool:
+        done = dict(zip(procs, pool.map(finish, procs.values())))
+    COMPILE_SECONDS.clear()
     logs = {pair: "" for pair in pairs}
     failed = []
-    for pair, (out, tmp, proc) in procs.items():
-        logs[pair], _ = proc.communicate()
+    for pair, (out, tmp, _, proc) in procs.items():
+        logs[pair], COMPILE_SECONDS[pair] = done[pair]
         if proc.returncode != 0:
             failed.append(f"{pair[0]} (hidden {pair[1]}):\n{logs[pair]}")
             continue
@@ -171,6 +187,7 @@ SIGNATURES = {
     "mpe_maddpg_bf16.cu": {                 # mpe_maddpg.cu's K9 entries
         "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],
         "mpe_maddpg_update_layout": [_I, _I],
+        "mpe_maddpg_update_smem": [_I, _I],
     },
     "mpe_trajectory.cu": {
         "mpe_trajectory": [_I] + [_P] * 6 + [_I] * 5 + [_U, _U, _I, _P],

@@ -50,8 +50,14 @@ kernel and its plain version take the same target actions on the card.
 (``maddpg_rounding``): every product rounds both operands to bf16 and sums
 in float32, the rest stays float32 (``plain_maddpg_update``). On a CUDA
 device it launches K9-bf16 (``csrc/mpe_maddpg_bf16.cu``: K9's four stages
-and layout with the products on the tensor cores by ``mma.sync``; counted in
-``maddpg_update_bf16_cuda.launches``), on the same float32 weight buffer.
+and layout with the products on the tensor cores by ``mma.sync``, built at
+the params' hidden width, 8-256, ``_build.HIDDEN_WIDTHS["mpe_maddpg_bf16.cu"]``;
+at 128 and 256 the wide kernels ``maddpg_round_bf16_wide_kernel``,
+``maddpg_target_bf16_wide_kernel``, ``maddpg_td_bf16_wide_kernel`` and
+``maddpg_grad_bf16_wide_kernel``, the last on a persistent grid of at most
+layout constant 11 CTAs an agent that ``partials_floats`` sizes; counted in
+``maddpg_update_bf16_cuda.launches``), on the same float32 weight buffer;
+no width falls back to K9 or to the plain version.
 The two paths round an activation whose float32 sum they took in another
 order a whole bf16 ulp apart now and then, so a target action may differ
 where a head's two best logits lie within ``target_logit_tolerance``.
@@ -400,15 +406,14 @@ def _update_layout(scenario: int, hidden: int = DEFAULT_HIDDEN, source: str = "m
 def partials_floats(lib, scenario: int, n_agents: int, batch: int) -> int:
     """The floats of K9's (or K9-bf16's) ``partials`` buffer at ``batch``:
     the partial gradients, one per tile (at hidden 128 and 256 one per CTA of
-    K9's persistent grid, at most layout constant 6 an agent) and, for
-    K9-bf16, its bf16 scratch of the rounded nets after them (16-byte aligned;
-    layout constant 5)."""
+    the persistent gradient grid, at most layout constant 6 of K9's library
+    or 11 of K9-bf16's an agent) and, for K9-bf16, its bf16 scratch of the
+    rounded nets after them (16-byte aligned; layout constant 5)."""
     ng, ts, scratch = (lib.mpe_maddpg_update_layout(scenario, q) for q in (3, 4, 5))
     tiles = -(-batch // ts)
-    if scratch >= 0:
-        return -(-(n_agents * tiles * ng) // 4) * 4 + scratch
-    parts = lib.mpe_maddpg_update_layout(scenario, 6)
-    return n_agents * (tiles if parts < 0 else min(tiles, parts)) * ng
+    parts = lib.mpe_maddpg_update_layout(scenario, 6 if scratch < 0 else 11)
+    floats = n_agents * (tiles if parts < 0 else min(tiles, parts)) * ng
+    return floats if scratch < 0 else -(-floats // 4) * 4 + scratch
 
 
 class MaddpgUpdateLauncher:

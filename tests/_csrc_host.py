@@ -16,10 +16,11 @@ which the fibers run is fixed, so a launch does the same thing every time, and
 a block whose fibers all wait at barriers that can never open aborts with a
 message. A kernel's dynamic shared memory becomes one static buffer. The
 occupancy query answers 1 (one block at a time) and the card has
-``HOST_SMS`` SMs. For the bf16 kernels it has ``__nv_bfloat16`` with the
-device's round-to-nearest-even conversion and ``host_mma_m16n8k16_bf16``, the
-m16n8k16 bf16 ``mma.sync`` over the warp's fragments as the PTX ISA lays them
-out (each product exact, the sums in double).
+``HOST_SMS`` SMs (or the ``sms`` a build asks for). For the bf16 kernels it
+has ``__nv_bfloat16`` with the device's round-to-nearest-even conversion and
+``host_mma_m16n8k16_bf16``, the m16n8k16 bf16 ``mma.sync`` over the warp's
+fragments as the PTX ISA lays them out (each product exact, the sums in
+double).
 
 Each library is built once per (source, width, flags, stand-in header): into
 a directory under ``build/host/`` named by a hash of all of them and of the
@@ -44,7 +45,7 @@ MAX_SMEM_FLOATS = 232448 // 4          # a CTA's dynamic shared memory on the ca
 HOST_SMS = 4                           # the stand-in card's SMs
 HOST_BUILD_DIR = _build.BUILD_DIR.parent / "host"
 CXX_FLAGS = ("-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-w", "-shared", "-fPIC")
-CUDA_RUNTIME = """\
+CUDA_RUNTIME_TEXT = """\
 #pragma once
 #include <cfloat>
 #include <cmath>
@@ -245,7 +246,12 @@ template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
       }
     }
 }
-""".replace("@HOST_SMS@", str(HOST_SMS))
+"""
+
+
+def cuda_runtime(sms: int = HOST_SMS) -> str:
+    """The stand-in ``cuda_runtime.h`` of a card with ``sms`` SMs."""
+    return CUDA_RUNTIME_TEXT.replace("@HOST_SMS@", str(sms))
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?), (\w+), (.*?), stream>>>\((.*?)\);", re.S)
 DYNAMIC_SMEM = "extern __shared__ __align__(16) float smem[];"
 
@@ -274,18 +280,18 @@ def _host_text(source) -> str:
     return LAUNCH.sub(_launch, text)
 
 
-def _host_dir(text: str, hidden: int, cxx: str) -> Path:
+def _host_dir(text: str, hidden: int, cxx: str, runtime: str) -> Path:
     """The directory of one host library: a hash of its text, the headers, the
     stand-in header, the compiler and the flags."""
     digest = hashlib.sha256()
-    for part in (text, CUDA_RUNTIME, cxx, " ".join(CXX_FLAGS), str(hidden),
+    for part in (text, runtime, cxx, " ".join(CXX_FLAGS), str(hidden),
                  *((_build.CSRC / h).read_text() for h in _build.HEADERS)):
         digest.update(part.encode())
         digest.update(b"\0")
     return HOST_BUILD_DIR / digest.hexdigest()[:20]
 
 
-def build_host_libs_at(pairs, signatures=None) -> dict:
+def build_host_libs_at(pairs, signatures=None, sms: int = HOST_SMS) -> dict:
     """Compile each ``(source, hidden width)`` of ``pairs`` for the host
     (``-DMPE_HIDDEN``), all at once -> {(source, hidden): ctypes.CDLL}. A
     source is a file of ``_build.CSRC`` by name, or a path (a test's own
@@ -293,13 +299,15 @@ def build_host_libs_at(pairs, signatures=None) -> dict:
     ``signatures`` gives by file name. Each library is built into its own directory under
     ``HOST_BUILD_DIR`` (``_host_dir``) unless it is there already, under a lock
     that other processes building it wait on (taken in the directories' order,
-    so that two processes never wait on each other)."""
+    so that two processes never wait on each other). ``sms`` is the stand-in
+    card's SMs, which sets the persistent grids of the wide kernels."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler (g++ or c++) to build the CUDA sources for the host")
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    runtime = cuda_runtime(sms)
     texts = {pair: _host_text(pair[0]) for pair in pairs}
-    wheres = {pair: _host_dir(text, pair[1], cxx) for pair, text in texts.items()}
+    wheres = {pair: _host_dir(text, pair[1], cxx, runtime) for pair, text in texts.items()}
     jobs = {}
     for source, hidden in sorted(pairs, key=lambda pair: wheres[pair]):   # one lock order
         text, where = texts[source, hidden], wheres[source, hidden]
@@ -309,7 +317,7 @@ def build_host_libs_at(pairs, signatures=None) -> dict:
         fcntl.flock(lock, fcntl.LOCK_EX)
         proc = None
         if not lib.exists():
-            (where / "cuda_runtime.h").write_text(CUDA_RUNTIME)
+            (where / "cuda_runtime.h").write_text(runtime)
             for header in _build.HEADERS:
                 shutil.copy(_build.CSRC / header, where / header)
             cpp = where / f"{Path(source).name}.cpp"

@@ -382,6 +382,17 @@ def test_policy_kernels_refuse_other_specs(card, change):
         fused_policy.policy_rollout_cuda(kscn, weights, 64, 8, 4, 64, 0, device=card)
 
 
+def _reversed_sums(w, b, x):
+    """``fused_maddpg_update._seq_dense_agents`` with each sum over the inputs
+    taken from the last product to the first: the same function in another
+    right order (``tests/test_torch_maddpg_bf16_wide_host.py`` has its twin)."""
+    n = w.shape[1]
+    acc = x[..., n - 1:n] * w[:, n - 1]
+    for q in range(n - 2, -1, -1):
+        acc = acc + x[..., q:q + 1] * w[:, q]
+    return acc + b
+
+
 def _leaf_close(got, ref, rel: float, name: str):
     """Every leaf of a nested gradient tree within ``rel`` of its largest entry."""
     if isinstance(ref, dict):
@@ -480,9 +491,9 @@ def test_maddpg_update_kernel_matches_plain(card, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [64, 16])
+@pytest.mark.parametrize("hidden", [64, 16, 128, 256])
 @pytest.mark.parametrize("name", ["simple_spread"] + OTHER_EIGHT)
-def test_maddpg_bf16_update_kernel_matches_plain_bf16(card, name, hidden):
+def test_maddpg_bf16_update_kernel_matches_plain_bf16(card, monkeypatch, name, hidden):
     """K9-bf16 (``compute_dtype=torch.bfloat16``) on 1024 rows K8 collected,
     params of O(1) logits and targets = params + 0.1 N(0, 1): the target
     actions equal the plain bf16 version's wherever a head's two best logits
@@ -490,7 +501,10 @@ def test_maddpg_bf16_update_kernel_matches_plain_bf16(card, name, hidden):
     target actions fed to the plain bf16 version, each gradient leaf within
     1e-3 of its largest entry and the metrics within 1e-3 relative (a bf16
     activation that two right float32 sums put on either side of a rounding
-    boundary rounds a whole ulp apart); K9-bf16 counted, K9 not."""
+    boundary rounds a whole ulp apart); at 128 and 256 a leaf within 1e-3 or
+    within the plain version's own distance to itself with its forward sums
+    reversed, where that is larger (the rule and its measurements:
+    ``tests/test_torch_maddpg_bf16_wide_host.py``); K9-bf16 counted, K9 not."""
     from mpe_tpu_torch.learner.maddpg import init_maddpg
     from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update as fmu
 
@@ -523,26 +537,43 @@ def test_maddpg_bf16_update_kernel_matches_plain_bf16(card, name, hidden):
                         for lo, hi in heads], -1).permute(1, 2, 0)
     clear = gaps > fmu.target_logit_tolerance(targets["actor"])[:, None, None]
     assert torch.equal(act2.long()[clear], want[clear])
-    ref, ref_m = fmu.plain_maddpg_update(params, targets, rows, mw=5, gamma=0.95, ent_coef=0.01,
-                                         compute_dtype=torch.bfloat16, target_actions=act2)
-    _leaf_close(got, ref, 1e-3, "grads")
+    hp = dict(mw=5, gamma=0.95, ent_coef=0.01, compute_dtype=torch.bfloat16,
+              target_actions=act2)
+    ref, ref_m = fmu.plain_maddpg_update(params, targets, rows, **hp)
+    if hidden <= 64:
+        _leaf_close(got, ref, 1e-3, "grads")
+    else:
+        with monkeypatch.context() as m:
+            m.setattr(fmu, "_seq_dense_agents", _reversed_sums)
+            other, _ = fmu.plain_maddpg_update(params, targets, rows, **hp)
+        for n in ref:
+            for q in ref[n]:
+                for w in ref[n][q]:
+                    want = ref[n][q][w]
+                    atol = max(1e-3 * float(want.abs().max()),
+                               float((other[n][q][w] - want).abs().max()))
+                    torch.testing.assert_close(got[n][q][w], want, rtol=0, atol=atol,
+                                               msg=f"grads.{n}.{q}.{w}")
     for a_, b_ in zip(got_m, ref_m):
         torch.testing.assert_close(a_, b_, rtol=1e-3, atol=0)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 128])
 @pytest.mark.parametrize("name", ["simple_spread", "simple_speaker_listener"])
-def test_bf16_update_chunk_launches_k9_bf16(card, name):
+def test_bf16_update_chunk_launches_k9_bf16(card, name, hidden):
     """``build_fused_update_chunk(..., compute_dtype=torch.bfloat16)`` on a
     runner's ring: five updates launch K9-bf16 five times and K9 never, the
-    params finite and moved."""
+    params finite and moved; at hidden 64 and 128."""
     from mpe_tpu_torch.learner import fused_loop
     from mpe_tpu_torch.learner.maddpg import build_fused_update_chunk
     from mpe_tpu_torch.ops import fused_maddpg_update as fmu
 
-    run = fused_loop.build_fused_maddpg_runner(name, n_envs=64, horizon=5, batch=64)
+    run = fused_loop.build_fused_maddpg_runner(name, n_envs=64, horizon=5, batch=64,
+                                               hidden=hidden)
     params, info = run(10, seed=1, actor_start=0)
-    chunk = build_fused_update_chunk(run.env, 5, batch=64, compute_dtype=torch.bfloat16)
+    chunk = build_fused_update_chunk(run.env, 5, batch=64, hidden=hidden,
+                                     compute_dtype=torch.bfloat16)
     before = (fmu.maddpg_update_bf16_cuda.launches_by[name], fmu.maddpg_update_cuda.launches)
     got = chunk(params, info["targets"], chunk.init_opt(params), info["buffer"], 3,
                 fused_loop.actor_gates(2, 5, 0))
@@ -726,10 +757,11 @@ def test_maddpg_kernels_at_wide_width_match_plain(card, name, hidden):
 def test_mlp_kernels_refuse_uncompiled_widths(card):
     """A hidden width a kernel's source is not compiled for raises before
     any launch, on the card too, naming that source's widths: no wrapper
-    falls back to the plain version. 48 for K5 and K8; 128 for K9-bf16,
-    through ``build_fused_update(compute_dtype=torch.bfloat16)`` (K5 and K9
-    take 128). K6-bf16 takes 128: the bf16 trainer's update launches it
-    once, and neither K6 nor the plain version."""
+    falls back to the plain version. 48 for K5 and K8. K9-bf16 takes 128:
+    ``build_fused_update(compute_dtype=torch.bfloat16)`` launches it once,
+    and neither K9 nor the plain version. K6-bf16 takes 128: the bf16
+    trainer's update launches it once, and neither K6 nor the plain
+    version."""
     import re
 
     from mpe_tpu_torch.learner import fused_loop
@@ -759,9 +791,10 @@ def test_mlp_kernels_refuse_uncompiled_widths(card):
                                       1024, 5, 0.1, 0, device=card)
     update = build_fused_update(run.env, batch=64, hidden=128, device=card,
                                 compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=re.escape(
-            "(csrc/mpe_maddpg_bf16.cu) are compiled for hidden widths 8, 16, 32, 64; got 128")):
-        update(mparams, info["targets"], update.init_opt(mparams), info["buffer"], 3)
+    new_params = update(mparams, info["targets"], update.init_opt(mparams), info["buffer"], 3)[0]
+    assert all(bool(torch.isfinite(x).all()) for net in new_params.values()
+               for layer in net.values() for x in layer.values())
+    before[5] += 1                                       # K9-bf16 takes 128
     wide = build_fused_ppo_step("simple_spread", 1024, n_steps=16, horizon=8, block_envs=1024,
                                 hidden=128, device=card, compute_dtype=torch.bfloat16)
     wparams = wide.init_params(torch.Generator().manual_seed(0))

@@ -207,8 +207,8 @@ def test_update_chunk_at_256_matches_jax_over_two_chunks():
 def test_maddpg_update_wrappers_refuse_uncompiled_widths_before_any_launch(compute_dtype, hidden):
     """K9's wrappers (``maddpg_update_cuda``, ``MaddpgUpdateLauncher``) raise for
     a width their source is not compiled for, naming that source's widths,
-    before they look at the device (so here, without a card): K9 at 48, K9-bf16
-    at 48, 128 and 256; K9 at 128 and 256 gets past the width to the device
+    before they look at the device (so here, without a card): K9 and K9-bf16
+    at 48; K9 and K9-bf16 at 128 and 256 get past the width to the device
     check."""
     import re
 
@@ -218,11 +218,11 @@ def test_maddpg_update_wrappers_refuse_uncompiled_widths_before_any_launch(compu
     rows = torch.zeros((64, 3 * (2 * 18 + 5 + 1)))
     before = (fmu.maddpg_update_cuda.launches, fmu.maddpg_update_bf16_cuda.launches)
     f32 = compute_dtype == torch.float32
-    if f32 and hidden in (128, 256):
+    if hidden in (128, 256):
         error, match = ValueError, "needs"
     else:
-        source, widths = (("mpe_maddpg.cu", "8, 16, 32, 64, 128, 256") if f32
-                          else ("mpe_maddpg_bf16.cu", "8, 16, 32, 64"))
+        source = "mpe_maddpg.cu" if f32 else "mpe_maddpg_bf16.cu"
+        widths = "8, 16, 32, 64, 128, 256"
         error, match = NotImplementedError, re.escape(
             f"(csrc/{source}) are compiled for hidden widths {widths}; got {hidden}")
     with pytest.raises(error, match=match):

@@ -4,7 +4,7 @@ card, one checkout after another.
 
     python3 tools/torch_update_ab.py [--maddpg | --maddpg-bf16 | --rollout | --det | --policy |
         --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases | --wide | --bf16-wide |
-        --bf16-wide-stages] ROOT [ROOT ...]
+        --bf16-wide-stages | --maddpg-bf16-wide] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -151,6 +151,23 @@ show each kernel's outputs bit for bit where both take the width; the
 registers and spill bytes of each ``ppo_update_bf16_kernel`` and
 ``ppo_update_bf16_wide_kernel`` instantiation at 64, 128 and 256. A
 checkout whose kernels refuse a width records the refusal.
+
+With ``--maddpg-bf16-wide`` (K9-bf16 at every hidden width): on seeded
+``init_maddpg`` params of that width (the actors' head scaled to O(1)
+logits, targets = params + 0.1 N(0, 1)) and 1024 seeded replay rows with
+one-hot actions, K9-bf16's launcher (``MaddpgUpdateLauncher(...,
+compute_dtype=torch.bfloat16)`` on the packed buffers) at 8, 16, 32 and 64 on
+simple_spread (at 64 also on simple_speaker_listener and simple_world_comm)
+and at 128 and 256 on simple_spread and simple_world_comm: the median
+CUDA-event ms of CALLS calls after WARM_UP, the ms of 100 back-to-back calls,
+one call under torch.profiler (the device ms of every kernel it launched, by
+name, and their launches) and a SHA-256 of its gradient, metrics and target
+actions, so that two checkouts show the widths both take bit for bit; at 128
+and 256 also K9 (float32) on the same buffers the same way; the registers
+and spill bytes of every ``mpe_maddpg_bf16.cu`` kernel at 128 and 256. A
+checkout whose K9-bf16 refuses a width records the refusal. Only
+``mpe_maddpg_bf16.cu`` and ``mpe_maddpg.cu`` are built at the widths other
+than 64.
 
 With ``--trajectory`` (K3): ``fused_trajectory`` on the nine scenarios at
 4096 envs x 64 steps and on simple_spread, simple_reference and
@@ -813,6 +830,82 @@ def time_bf16_wide(result: dict, logs: dict) -> None:
                 ("ppo_update_bf16_kernel", "ppo_update_bf16_wide_kernel"))
 
 
+BF16_MADDPG_NAMES = {64: ("simple_spread", "simple_speaker_listener", "simple_world_comm"),
+                     128: WIDE_MADDPG_NAMES, 256: WIDE_MADDPG_NAMES}
+
+
+def maddpg_case(name: str, h: int):
+    """Seeded init_maddpg params of width ``h`` (the actors' head scaled to
+    O(1) logits), targets = params + 0.1 N(0, 1) and MADDPG["batch"] replay
+    rows with one-hot actions, on the card -> (agents, obs width, head width,
+    params, targets, rows)."""
+    import torch
+
+    from mpe_tpu_torch.learner.maddpg import init_maddpg
+    from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
+
+    kscn = kernel_scenario(name)
+    a, ow, k, b = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits, MADDPG["batch"]
+    gen = torch.Generator().manual_seed(60 + h)
+    params = init_maddpg(gen, ow, k, a, hidden=h)
+    params["actor"]["out"]["w"] = params["actor"]["out"]["w"] * 100.0
+    targets = {n: {q: {w: x + 0.1 * torch.randn(x.shape, generator=gen)
+                       for w, x in layer.items()} for q, layer in net.items()}
+               for n, net in params.items()}
+    act = torch.nn.functional.one_hot(torch.randint(0, 5, (b, a), generator=gen), 5).float()
+    if k > 5:
+        act = torch.cat([act, torch.nn.functional.one_hot(
+            torch.randint(0, k - 5, (b, a), generator=gen), k - 5).float()], -1)
+    rows = torch.cat([torch.randn((b, a * ow), generator=gen), act.reshape(b, -1),
+                      torch.randn((b, a), generator=gen) - 2.0,
+                      torch.randn((b, a * ow), generator=gen)], 1)
+    cuda = lambda t: {n: {q: {w: x.cuda() for w, x in layer.items()} for q, layer in net.items()}
+                      for n, net in t.items()}
+    return a, ow, k, cuda(params), cuda(targets), rows.cuda().contiguous()
+
+
+def time_maddpg_bf16_wide(result: dict, logs: dict) -> None:
+    import torch
+
+    from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher
+
+    # the two MADDPG update sources at every width each takes, built at once;
+    # a launcher loads only those (the other MLP sources are not needed here)
+    _build.HIDDEN_SOURCES = ("mpe_maddpg.cu", "mpe_maddpg_bf16.cu")
+    pairs = [("mpe_maddpg_bf16.cu", h) for h in BF16_WIDE] + [("mpe_maddpg.cu", h) for h in WIDE]
+    built = _build.build([(s, h) for s, h in pairs if h in _build.HIDDEN_WIDTHS[s]])
+    for h in BF16_WIDE:
+        row = result[f"hidden_{h}"] = {}
+        for name in BF16_MADDPG_NAMES.get(h, ("simple_spread",)):
+            a, ow, k, params, targets, rows = maddpg_case(name, h)
+            cell = row[name] = {}
+            kinds = (("K9-bf16", torch.bfloat16),) + ((("K9", torch.float32),) if h in WIDE else ())
+            for label, cd in kinds:
+                try:
+                    k9 = MaddpgUpdateLauncher(a, ow, k, 5, h, MADDPG["batch"], "cuda",
+                                              gamma=0.95, ent_coef=0.01, compute_dtype=cd)
+                except NotImplementedError as e:
+                    cell[label] = {"refused": str(e)}
+                    continue
+                weights = k9.layout.pack(params, targets).cuda()
+                grads = torch.empty(k9.layout.off_ta, device="cuda")
+                metrics = torch.empty(3, device="cuda")
+
+                def call(k9=k9, weights=weights, grads=grads, metrics=metrics):
+                    k9.launch(weights, rows, grads, metrics)
+
+                call()
+                cell[label] = {"sha256": sha256s((grads, metrics, k9.act2)),
+                               "ms": median_ms(call), "loop_ms": loop_ms(call),
+                               **call_device_ms(call)}
+            torch.cuda.empty_cache()
+        if h in WIDE and ("mpe_maddpg_bf16.cu", h) in built:
+            row["registers_spill_bytes"] = registers(
+                {"mpe_maddpg_bf16.cu": built["mpe_maddpg_bf16.cu", h]}, "mpe_maddpg_bf16.cu",
+                "MaddpgBf16Dims")
+
+
 TRAJ_AB = dict(n_steps=64, horizon=32, block_envs=1024, t_chunk=8)
 TRAJ_AB_SHAPES = tuple((name, 4096) for name in SCENARIOS) + tuple(
     (name, 65_536) for name in ("simple_spread", "simple_reference", "simple_world_comm"))
@@ -1187,6 +1280,8 @@ def child(mode: str, root: str) -> None:
         time_bf16_wide(result, logs)
     elif mode == "bf16-wide-stages":
         time_bf16_wide_stages(result)
+    elif mode == "maddpg-bf16-wide":
+        time_maddpg_bf16_wide(result, logs)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -1201,7 +1296,8 @@ def main() -> int:
             "--det": "det", "--policy": "policy", "--trajectory": "trajectory",
             "--bf16": "bf16", "--bf16-stages": "bf16-stages",
             "--maddpg-bf16-phases": "maddpg-bf16-phases", "--wide": "wide",
-            "--bf16-wide": "bf16-wide", "--bf16-wide-stages": "bf16-wide-stages"}.get(
+            "--bf16-wide": "bf16-wide", "--bf16-wide-stages": "bf16-wide-stages",
+            "--maddpg-bf16-wide": "maddpg-bf16-wide"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
