@@ -13,7 +13,9 @@ failure ends the run with a non-zero exit code:
      with the phases' seconds at the end), the compiler's register report and
      the HMMA and LDSM (ldmatrix) instructions that cuobjdump -sass finds in
      each bf16 library, mpe_update_bf16.cu's and mpe_maddpg_bf16.cu's at
-     8-256 (each must hold some of both);
+     8-256 (each must hold some of both), and the tf32 HMMA in
+     mpe_update.cu's at 128 and 256 (K6 and K7 in 3xTF32; each must hold
+     some);
   2. sixteen main paths, each with every kernel's launch count set to 0 just
      before it and read just after it:
        a. rollout: the generic engine (build_rollout over MpeEnv,
@@ -278,8 +280,10 @@ failure ends the run with a non-zero exit code:
      width, 5 iterations each, timed by phase, their launches read; K6, K7,
      K6-bf16 and K7-bf16 on the last iteration's batch gated and timed
      beside their plain versions, autograd of the trainer's loss and their
-     bound (device time by the profiler), the bf16 kernels also beside the
-     float32 kernel on the same batch; K5 on
+     bound (device time by the profiler), K6 and K7 beside both of theirs,
+     3xTF32 on the tensor cores ("tc_tf32") and fp32 on the CUDA cores, and
+     failing where one reads faster than its tensor-core bound, the bf16
+     kernels also beside the float32 kernel on the same batch; K5 on
      path b's actor at the training shape and K4's evaluation of it at 4096
      envs x 1000 steps (horizon 25, launches read), K5 against its plain
      version there, K4 at 4096 envs x 200 steps; `evaluate_policy` and `es_train` (2 generations) with
@@ -328,7 +332,8 @@ failure ends the run with a non-zero exit code:
      times at every G and its registers by G; K4-K9 their errors at the
      hidden widths and their registers at each width, the widths their
      source is compiled for, K4-K7 by wide width the row's own figures
-     (launches, time, plain, bound, library, registers, tile) and the wide
+     (launches, time, plain, bound, library, registers, tile; K6 and K7
+     their fp32 bound and tf32 HMMA counts too) and the wide
      paths' transitions/s by phase; K8 path g's figures
      by phase, its launches there by scenario and the sub-sliced gate's
      error, K9 its launches in each phase of path g; every row its launches
@@ -635,11 +640,14 @@ BF16_GRAD_TOL = 1e-3
 # table, compute capability 9.0).
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCKS_PER_S = 132 * 1.98e9
-PER_CLOCK = {"fp32": 128, "sfu": 16, "int": 64, "cvt": 16, "tc_bf16": 1892}
+PER_CLOCK = {"fp32": 128, "sfu": 16, "int": 64, "cvt": 16, "tc_bf16": 1892, "tc_tf32": 947}
 DISPATCH_PER_CLOCK = 128        # 4 schedulers x one 32-lane instruction each
 # tc_bf16: bf16 multiply-adds on the tensor cores, the data sheet's 989 TFLOP/s
 # dense over the 132 SMs at the clock above (989e12 / 2 / (132 x 1.98e9)); a
-# packed float32 -> bf16 conversion (two values) is one "cvt"
+# packed float32 -> bf16 conversion (two values) is one "cvt". tc_tf32: tf32
+# multiply-adds, 495 TFLOP/s dense (495e12 / 2 / (132 x 1.98e9)); a float32
+# product in 3xTF32 is three of them
+TENSOR_CORES = ("tc_bf16", "tc_tf32")
 
 
 def _ops(*terms: tuple[int, dict]) -> dict:
@@ -751,6 +759,33 @@ def update_bf16_sample(n_in: int, n_out: int, comm: int, value: bool, h: int = 6
                      "cvt": (n_in + 4 * h + n_out + 1) // 2}),
                 (2 * h, TANH), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
                 (1 if comm else 0, {"fp32": 14 * comm, "sfu": comm + 2}))
+
+
+def tf32_products(n_in: int, n_out: int, h: int) -> dict:
+    """The products of a wide float32 pass per sample as the 3xTF32 kernel
+    (csrc/mpe_update.cu at hidden 128 and 256) computes them: W1 X, W2 H1,
+    W2^T GH2, dW2 and dW1 on the tensor cores, each multiply-add three tf32
+    ones, each operand value split once a product (two cvt.rna and a
+    subtract: x twice, h1 twice, gh2 twice, gh1 once); W3 H2, W3^T G3 and dW3
+    in fp32 as ``update_sample`` counts them."""
+    return {"tc_tf32": 3 * (2 * h * n_in + 3 * h * h), "cvt": 2 * (2 * n_in + 5 * h),
+            "fp32": (2 * n_in + 5 * h) + 3 * h * n_out}
+
+
+def update_tf32_sample(n_in: int, n_out: int, comm: int, value: bool, h: int) -> dict:
+    """``update_sample``'s function with its products as ``tf32_products``:
+    the bias adds and both tanh layers, the head, the backward's 1 - h^2 and
+    products (h x 4) and the bias sums (2h + n_out) stay fp32."""
+    return _ops((1, tf32_products(n_in, n_out, h)), (1, {"fp32": 2 * (2 * h + n_out) + h * 4}),
+                (2 * h, TANH), (1, {"fp32": 81 + 13 * value, "sfu": 8}),
+                (1 if comm else 0, {"fp32": 14 * comm, "sfu": comm + 2}))
+
+
+def critic_tf32_sample(n_in: int, h: int) -> dict:
+    """K7's critic pass per (t, env) sample in 3xTF32, as
+    ``update_tf32_sample`` with one output and the value clip's 13 fp32."""
+    return _ops((1, tf32_products(n_in, 1, h)), (1, {"fp32": 2 * (2 * h + 1) + h * 4 + 13}),
+                (2 * h, TANH))
 
 
 def critic_bf16_sample(n_in: int, h: int = 64) -> dict:
@@ -1048,13 +1083,16 @@ def maddpg_update_bf16_sample(name: str, h: int = 64) -> dict:
             "reset": {}, "env": {"cvt": weights // 2}}
 
 
-def update_ops(kind: str, name: str, h: int = 64, bf16: bool = False) -> dict:
+def update_ops(kind: str, name: str, h: int = 64, bf16: bool = False,
+               tf32: bool = False) -> dict:
     """OPS of K6 (``kind`` "ppo") or K7 ("mappo") on ``name`` at hidden
-    ``h`` (``bf16``: of K6-bf16 or K7-bf16): a "step" is a sample, K6's (t,
+    ``h`` (``bf16``: of K6-bf16 or K7-bf16; ``tf32``: of the float32 kernel
+    at 128 and 256, its products in 3xTF32): a "step" is a sample, K6's (t,
     agent, env); K7's actor sample, and as its "reset" a critic sample (t,
     env)."""
     a, ow, c, _, _ = widths(name)
     sample, critic = ((update_bf16_sample, critic_bf16_sample) if bf16 else
+                      (update_tf32_sample, critic_tf32_sample) if tf32 else
                       (update_sample, critic_sample))
     if kind == "ppo":
         return {"step": sample(ow, 6 + c, c, True, h), "reset": {}, "env": {}}
@@ -1094,7 +1132,7 @@ def bound_ms(ops: dict, env_steps: int, resets: int, envs: int,
     t_ops = max(total[k] / (PER_CLOCK[k] * SM_CLOCKS_PER_S) for k in PER_CLOCK)
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     # (a tensor-core instruction issues thousands of multiply-adds: not counted)
-    t_issue = sum(v for k, v in total.items() if k != "tc_bf16") / (
+    t_issue = sum(v for k, v in total.items() if k not in TENSOR_CORES) / (
         DISPATCH_PER_CLOCK * SM_CLOCKS_PER_S)
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), 1e3 * t_issue
 
@@ -1791,10 +1829,12 @@ def update_batches(step, params, label: str):
             (obs, mv_oh, cm_oh, logp_old, value, adv_n, ret))
 
 
-def update_bound(kernel: str, name: str, batch, h: int = 64) -> tuple[float, str, float]:
+def update_bound(kernel: str, name: str, batch, h: int = 64,
+                 tf32: bool = False) -> tuple[float, str, float]:
     """``bound_ms`` of one epoch gradient of ``kernel`` (K6, K7 or their bf16
     twins: OPS by sample; at another hidden width ``h`` than 64 the kernel's
-    ``update_ops``, the bf16 ones for a bf16 kernel) on ``batch``: K6 reads
+    ``update_ops``, the bf16 ones for a bf16 kernel, with ``tf32`` the 3xTF32
+    ones of the float32 kernel at 128 and 256) on ``batch``: K6 reads
     obs, the one-hots, logp_old, adv, ret and value per sample, K7 the first
     four per (t, agent, env) and the team's three per (t, env); both read
     their weights and write the gradient once."""
@@ -1802,7 +1842,7 @@ def update_bound(kernel: str, name: str, batch, h: int = 64) -> tuple[float, str
     t, n = batch[0].shape[0], batch[0].shape[3]
     per_sample = ow + 5 + c + 1                       # obs, one-hots, logp_old
     ops = (OPS[f"{kernel}[{name}]"] if h == 64 else
-           update_ops(kernel.split("_")[0], name, h, bf16="bf16" in kernel))
+           update_ops(kernel.split("_")[0], name, h, bf16="bf16" in kernel, tf32=tf32))
     if kernel.startswith("ppo"):
         n_w = h * (ow + h + 6 + c) + 2 * h + 6 + c
         return bound_ms(ops, t * a * n, 0, 0, t * a * n * (per_sample + 3) * 4 + 2 * n_w * 4)
@@ -2185,10 +2225,12 @@ def registers_of(regs: dict, kernel: str, name: str) -> list:
 
 
 def hmma_counts(widths_: tuple, source: str = "mpe_update_bf16.cu") -> dict:
-    """{hidden: {"HMMA": n, "LDSM": n}}: the tensor-core mma and ldmatrix
-    instructions in the SASS of a bf16 library (K6-bf16 and K7-bf16's
-    ``mpe_update_bf16.cu``, K9-bf16's ``mpe_maddpg_bf16.cu``) at each width
-    (``cuobjdump -sass``); each must hold some of both."""
+    """{hidden: {"HMMA": n, "LDSM": n, "HMMA.TF32": n}}: the tensor-core mma,
+    ldmatrix and tf32 mma instructions in the SASS of a library at each width
+    (``cuobjdump -sass``): a bf16 library (K6-bf16 and K7-bf16's
+    ``mpe_update_bf16.cu``, K9-bf16's ``mpe_maddpg_bf16.cu``) must hold some
+    HMMA and LDSM, the float32 ``mpe_update.cu`` at 128 and 256 (K6 and K7 in
+    3xTF32) some tf32 HMMA."""
     from mpe_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
@@ -2199,9 +2241,14 @@ def hmma_counts(widths_: tuple, source: str = "mpe_update_bf16.cu") -> dict:
         sass = proc.communicate()[0].splitlines()
         assert proc.returncode == 0, f"cuobjdump failed on {source} at hidden {h}"
         out[h] = {op: sum(op in line for line in sass) for op in ("HMMA", "LDSM")}
-    print(f"HMMA and LDSM instructions in the SASS of {source} by hidden width: {out}")
-    assert all(n["HMMA"] > 0 and n["LDSM"] > 0 for n in out.values()), \
-        f"a bf16 library of {source} lacks HMMA or LDSM: {out}"
+        out[h]["HMMA.TF32"] = sum("HMMA" in line and "TF32" in line for line in sass)
+    print(f"HMMA, LDSM and tf32 HMMA instructions in the SASS of {source} by hidden width: {out}")
+    if source == "mpe_update.cu":
+        assert all(n["HMMA.TF32"] > 0 for n in out.values()), \
+            f"a library of {source} lacks tf32 HMMA: {out}"
+    else:
+        assert all(n["HMMA"] > 0 and n["LDSM"] > 0 for n in out.values()), \
+            f"a bf16 library of {source} lacks HMMA or LDSM: {out}"
     return out
 
 
@@ -3077,15 +3124,20 @@ def wide_widths_phase(wrappers, regs_at: dict) -> dict:
             lib_ms, _ = cuda_time(lambda: library_ppo_grads(step, params, lib_batch), REPEATS)
             device = update_device_ms(lambda: step.update(params, *batch),
                                       2 if kind == "ppo" else 4)
-            bound = update_bound(kernel, name, batch, h)
+            # the 3xTF32 kernel's own bound, and the fp32 CUDA cores' beside it
+            bound = update_bound(kernel, name, batch, h, tf32=True)
+            bound32 = update_bound(kernel, name, batch, h)
             print(f"{key}: K{6 if kind == 'ppo' else 7} {ms:.4f} ms a call (device "
                   f"{fmt_ms(device)}), plain {plain_ms:.3f} ms, autograd of the trainer's loss "
-                  f"{lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
-                  f"({ms / bound[0]:.2f}x)")
+                  f"{lib_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} in 3xTF32 "
+                  f"({ms / bound[0]:.2f}x), {bound32[0]:.4f} ms on the fp32 cores "
+                  f"({ms / bound32[0]:.2f}x)")
+            assert ms > bound[0], f"{key}: the kernel reads faster than its bound"
             rows[kernel].update(launches=launches[kernel],
                                 max_abs_err=max(rows[kernel]["max_abs_err"], err), ms=ms,
                                 device_ms=device, plain_ms=plain_ms, bound_ms=bound[0],
-                                bound_by=bound[1], library_ms=lib_ms,
+                                bound_by=bound[1], bound_fp32_ms=bound32[0],
+                                bound_fp32_by=bound32[1], library_ms=lib_ms,
                                 timed_on=f"{name}, path {'b' if kind == 'ppo' else 'b2'}'s "
                                          f"last batch at hidden {h}")
             del batch, clipped, lib_batch
@@ -4642,6 +4694,7 @@ def main() -> int:
                for h in HIDDEN_PHASE + WIDE_PHASE}
     hmma = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE + WIDE_PHASE)
     hmma9 = hmma_counts((_build.DEFAULT_HIDDEN,) + HIDDEN_PHASE + WIDE_PHASE, "mpe_maddpg_bf16.cu")
+    hmma32 = hmma_counts(WIDE_PHASE, "mpe_update.cu")
 
     spec = scenarios.load("simple_spread").spec
     kscn = kernel_scenario("simple_spread")
@@ -5125,6 +5178,9 @@ def main() -> int:
         # K4-K7 at 128 and 256 (phase 3c): by width the row's own figures
         if row["name"] in wide:
             row["wide_widths"] = wide[row["name"]]
+            if row["name"] in ("ppo_update_kernel", "mappo_update_kernel"):
+                for width, n in hmma32.items():
+                    row["wide_widths"][width]["sass_instructions"] = n
             row["wide_widths_phase"] = {"seconds": wide["seconds"], "paths": wide["paths"],
                                         "examples": wide["examples"]}
         # K8 and K9 at 128 and 256 (phase 3d)

@@ -1026,10 +1026,9 @@ constexpr int LDW = TSW + 4;                  // a wide tile row's stride
 constexpr int UBW = 128;                      // units of a unit block
 constexpr int KBW = 16;                       // inputs of a weight slice
 constexpr int SLDW = UBW + 4;                 // a slice row's stride
-// the streamed products and weight-gradient sums (wide_stream.cuh, which
-// ppo_update_wide_kernel shares): each product rounded before its add, from
-// the first, and the warps one column group in a gradient pass
-using WS = WideStream<THREADSW, TSW, LDW, H, UBW, KBW, SLDW, false, 1>;
+// the streamed products and weight-gradient sums (wide_stream.cuh): each
+// product rounded before its add, from the first
+using WS = WideStream<THREADSW, TSW, LDW, H, UBW, KBW, SLDW>;
 constexpr int SLICESW = WS::SLICES;           // the two slice buffers
 
 // a net's single output on the h2 rows at x (one sample's column, rows LDW

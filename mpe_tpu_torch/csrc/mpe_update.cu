@@ -67,32 +67,55 @@
 // in place of tanhf moved nothing (the products, not the activations, take
 // the time).
 //
-// Hidden 128 and 256 (ppo_update_wide_kernel, WideDims). There the resident
-// weights would not fit (w2 and w2t alone 512 KB at 256; simple_world_comm's
-// critic about 235 KB at 128), nor would the weight-gradient sums fit the
-// registers across tiles (dW2 alone 256 a thread at 256). So the wide kernel
-// keeps the same grid, tiles, staging and head, and changes three things:
-//   weights   w1 and w2 stay in device memory (the L2 cache holds them for
-//             every CTA); each product streams them in slices of KB (16 at
-//             128, 32 at 256) inputs x UB = 64 units through two shared
-//             buffers, the next slice loaded into registers while the CTA
-//             computes on the last one (WS::product, wide_stream.cuh, which
-//             K9's wide kernels share); no transposed
-//             copies; w3 and the biases (at most 16 x 256 floats) stay
-//             resident;
-//   products  the register tile of hidden 64, 4 units x 4 samples a thread,
-//             looped over the H / 64 unit blocks;
-//   gradient  each tile's dW1, dW2 (WS::outer: 4 rows x up to 4 columns a
-//             thread, over blocks of 64 rows) and dW3 sums are added into the
-//             CTA's partial in device memory, which the CTA zeroes first and
-//             in which one thread owns each entry, read before the pass's
-//             sums (at 128, two CTAs an SM under the 128-register cap, this
-//             spills some registers and still ran faster than reading them
-//             late); update_reduce_kernel sums the partials as at the other
-//             widths.
-// At 256 the tiles (H1, H2: 2 x 256 x 68 floats) take most of the shared
-// memory: one CTA per SM, two stages where they fit (simple_world_comm's
-// critic one). Widths 8-64 keep ppo_update_kernel unchanged.
+// Hidden 128 and 256 (ppo_update_wide_kernel, WideDims). There neither a
+// net's weights (w2 alone 256 KB at 256) nor its weight-gradient sums (dW2
+// 256 floats a thread of a 256-thread CTA) fit one SM. What bounds the
+// epoch gradient there is its multiply-adds: h (2 IN + 3 h) + 3 h KO a
+// sample, 210 k on simple_spread's actor at 256. A first wide kernel ran
+// them in fp32 FMA, streamed w1 and w2 from L2 three times a 64-sample tile
+// and added each tile's weight gradients into its CTA's partial in device
+// memory: 1.1 MB of L2 traffic a tile at 256. Its products took about 85%
+// of its time, the partials' read-modify-write 8-11% and the weights' loads
+// 6-9% (PERF.md §6, the stage cuts), so 3x faster products alone would
+// have left it waiting on L2. The design does two things about it.
+//   products  every large product (W1 X, W2 H1, W2^T GH2, dW2, dW1) is
+//             3xTF32 on the tensor cores (tf32_mma.cuh: mma.sync m16n8k8
+//             tf32 with float32 sums, about 2^-21 relative error a product,
+//             where one TF32 product keeps three digits). mma.sync and not
+//             wgmma: each warp loads its own fragments, so every operand can
+//             sit in shared memory in the orientation the other products
+//             left it in, and a CTA's 64 x 64 tiles are too small for
+//             wgmma's m64 rows across 8 warps. The small ones (W3 H2, W3^T
+//             G3, dW3: KO <= 16 outputs) stay fp32 FMA.
+//   traffic   a cluster of CL = H / 64 CTAs (2 at 128, 4 at 256) shares
+//             each tile of TS = 64 samples, CTA c owning the units [64 c,
+//             64 c + 64) of both hidden layers: its rows of w1 and w2 (64 KB
+//             at 256) stay in its shared memory for the whole launch (w1 is
+//             read from device memory where it does not fit: the 204-wide
+//             critic of simple_world_comm), and its rows of dW1 and dW2 stay
+//             in registers across the cluster's tiles (64 floats a thread at
+//             256), written once into the cluster's partial at the end. Per
+//             tile a CTA computes h1 of its units and writes it into every
+//             CTA's H1 tile (distributed shared memory); h2 = tanh(H1 W2^T +
+//             b2) of its units; its part of the logits, which every CTA sums
+//             in rank order and runs the head on; gh2 of its units; dW2 of
+//             its rows from gh2 and H1; GH2 W2 over its units for every
+//             column block, each block written into its owner's H1 tile once
+//             every CTA has read its H1; gh1 of its units from the parts in
+//             rank order; dW1 of its rows. Five cluster barriers a tile
+//             (split arrive / wait where work fits between). L2 now sees the
+//             batch (each CTA stages the tile's inputs) and one partial a
+//             cluster: about 27 KB a 64-sample tile on simple_spread's actor
+//             at 256, against 1.1 MB.
+// The sums run in a fixed order (the parts in rank order, the partials by
+// update_reduce_kernel), so the result does not change from run to run; no
+// float atomics; the tensor cores sum dW1, dW2 over one tile at a time
+// (add_tile). mpe_update_grid asks the card how many clusters it runs at once
+// (cudaOccupancyMaxActiveClusters), one partial each. What still bounds it on
+// an H100 (PERF.md §7): each product step splits every operand value once per
+// warp that reads it, so the splits and loads pace the tensor cores at two
+// warps a scheduler, and the writes into other CTAs take about a sixth of the
+// time. Widths 8-64 keep ppo_update_kernel unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,7 +123,7 @@
 
 #include <type_traits>
 
-#include "wide_stream.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -198,33 +221,46 @@ struct UpdateDims
   static_assert(KOP % (THREADS / TS) == 0, "the output rows split over a sample's threads");
 };
 
-// ... and that of ppo_update_wide_kernel (hidden 128 and 256): the products
-// take their weights from device memory in slices of KB inputs x UB units,
-// through two slice buffers; w3 [KOP][H] and the biases stay resident
-constexpr int UB = 64;           // units of a wide product's unit block
-// inputs of a weight slice: at 256 (one CTA an SM) 32, so that a slice's
-// work hides the next slice's load from L2; at 128 16, so that two CTAs fit
-constexpr int KB = H >= 256 ? 32 : 16;
-constexpr int SLD = UB + 4;      // a slice row's stride
-// the streamed products and weight-gradient sums (wide_stream.cuh)
-using WS = WideStream<THREADS, TS, LD, H, UB, KB, SLD, true, 2>;
+// ... and that of ppo_update_wide_kernel (hidden 128 and 256): a cluster of
+// CL CTAs shares each tile, CTA c owning the UO units [UO c, UO c + UO) of
+// both hidden layers, with its rows of w1 and w2 resident
+constexpr int UO = 64;           // units a CTA of the wide kernel owns
+constexpr int CL = WIDE ? H / UO : 1;   // CTAs a cluster: 2 at 128, 4 at 256
+constexpr int WLD = H + 4;       // a row of the w2 rows and of the H1 tile (4 mod 32 floats)
+// the first stride from k that is 8 mod 32 floats (w1's rows, read as float2s)
+__host__ __device__ constexpr int stride8(int k) { return k + ((40 - k % 32) % 32); }
 template <int IN_, int KP_, int KC_, bool HAS_V_, bool TEAM_>
-struct WideDims : StageDims<IN_, (IN_ + KB - 1) / KB * KB, KP_, KC_, HAS_V_, TEAM_> {
-  using S = StageDims<IN_, (IN_ + KB - 1) / KB * KB, KP_, KC_, HAS_V_, TEAM_>;
-  using S::KOP, S::STAGE_ROWS;
-  static constexpr int S_W3 = 0, S_B1 = KOP * H, S_B2 = S_B1 + H, S_B3 = S_B2 + H,
-                       S_SLICE = (S_B3 + KOP + 3) / 4 * 4, S_TILE = S_SLICE + 2 * KB * SLD;
-  static constexpr size_t SMEM2 = update_smem(S_TILE, STAGE_ROWS, KOP, 2),
-                          SMEM1 = update_smem(S_TILE, STAGE_ROWS, KOP, 1);
-  static constexpr int CTAS = smem_fits(SMEM1, 2) ? 2 : 1;
-  static constexpr int STAGES = smem_fits(SMEM2, CTAS) ? 2 : 1;
+struct WideDims : StageDims<IN_, (IN_ + 7) / 8 * 8, KP_, KC_, HAS_V_, TEAM_> {
+  using S = StageDims<IN_, (IN_ + 7) / 8 * 8, KP_, KC_, HAS_V_, TEAM_>;
+  using S::INP, S::KOP, S::STAGE_ROWS;
+  static constexpr int W1LD = stride8(INP);
+  // floats: the CTA's w2 rows [UO][WLD]; its w1 rows [UO][W1LD] where they fit
+  // (W1_RES; else read from device memory: simple_world_comm's 204-wide
+  // critic); its w3 columns [KOP][UO]; b1, b2 of its units, b3; the H1 tile
+  // [TS][WLD] (sample-major: every unit, pushed by the cluster's CTAs; then
+  // the GH1 parts [CL][TS][UO] the others push); the own-unit tiles [UO][LD]
+  // H2 (then GH1) and GH2 (the logit parts [CL][KOP][LD] the others push
+  // before it is written); the logits, then G3 [KOP][LD]; the stages
+  static constexpr int F_W2 = 0, F_W1 = UO * WLD;
+  static constexpr size_t BASE = (size_t)F_W1 + KOP * UO + 2 * UO + KOP +
+                                 (size_t)TS * WLD + (2 * UO + KOP) * LD;
+  static constexpr bool W1_RES = smem_fits(sizeof(float) * (BASE + UO * W1LD + STAGE_ROWS * LD), 1);
+  static constexpr int F_W3 = F_W1 + (W1_RES ? UO * W1LD : 0), F_B1 = F_W3 + KOP * UO,
+                       F_B2 = F_B1 + UO, F_B3 = F_B2 + UO, F_H1 = (F_B3 + KOP + 3) / 4 * 4,
+                       F_H2 = F_H1 + TS * WLD, F_GH2 = F_H2 + UO * LD, F_G = F_GH2 + UO * LD,
+                       F_ST = F_G + KOP * LD;
+  static constexpr size_t SMEM2 = sizeof(float) * ((size_t)F_ST + 2 * STAGE_ROWS * LD),
+                          SMEM1 = sizeof(float) * ((size_t)F_ST + STAGE_ROWS * LD);
+  static constexpr int STAGES = smem_fits(SMEM2, 1) ? 2 : 1;
   static constexpr size_t SMEM = STAGES == 2 ? SMEM2 : SMEM1;
-  static constexpr int T_H1 = STAGES * STAGE_ROWS, T_H2 = T_H1 + H, T_G = T_H2 + H;
-  static_assert(smem_fits(SMEM, 1), "the tiles and one stage must fit in shared memory");
-  static_assert(KOP % (THREADS / TS) == 0, "the output rows split over a sample's threads");
+  static_assert(smem_fits(SMEM, 1), "the weights, the tiles and one stage must fit an SM");
+  static_assert(CL * KOP <= UO, "the logit parts fit the GH2 tile");
+  static_assert(!WIDE || CL * TS * UO <= TS * WLD, "the GH1 parts fit the H1 tile");
+  static_assert(!WIDE || (2 * 4 + 3) * THREADS <= TS * WLD, "the closing sums fit the H1 tile");
+  static_assert(KOP % (THREADS / UO) == 0, "dW3's rows split over the CTA");
 };
-static_assert(!WIDE || (H % UB == 0 && UB * TS == 16 * THREADS && KB * UB % THREADS == 0),
-              "a unit block's 4 x 4 register tiles and a slice's loads cover the CTA");
+static_assert(!WIDE || (H % UO == 0 && CL <= 8 && THREADS == 256 && TS == 64),
+              "the wide kernel's warp tiles cover 64 samples x 64 units with 8 warps");
 
 struct UpdateConsts {
   float ratio_lo, ratio_hi;      // 1 - clip, 1 + clip
@@ -415,58 +451,6 @@ __device__ __forceinline__ void outer_sum(const float* __restrict__ P, const flo
 #pragma unroll
     for (int i = 0; i < RI; ++i)
       if (qn == i) bias = ((bias + pv[i][0]) + pv[i][1]) + pv[i][2] + pv[i][3];
-  }
-}
-
-// ---- the wide products (hidden 128 and 256) --------------------------------------
-
-// acc[i][e] += sum over the K inputs k, in order, of A[k][m0 + i] B[k][s0 + e]:
-// A [.][lda] and B [.][LD] in shared memory
-template <int K>
-__device__ __forceinline__ void block_acc(const float* __restrict__ A, int lda,
-                                          const float* __restrict__ B, int m0, int s0,
-                                          float (&acc)[4][4]) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
-    load_vec<4>(A + k * lda + m0, av);
-    load_vec<4>(B + k * LD + s0, bv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(av[i], bv[e], acc[i][e]);
-  }
-}
-
-// C[u0 + m0 + i][s0 + e] = epi(unit, acc[i][e], &C[unit][s0 + e])
-template <class Epi>
-__device__ __forceinline__ void block_store(float* __restrict__ C, int u0, int m0, int s0,
-                                            const float (&acc)[4][4], Epi epi) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* c = C + (u0 + m0 + i) * LD + s0;
-    float out[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[e] = epi(u0 + m0 + i, acc[i][e], c + e);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] = out[e];
-  }
-}
-
-// the same with A [K][H] resident in shared memory (w3 in the backward)
-template <int K, class Epi>
-__device__ __forceinline__ void resident_product(const float* __restrict__ A,
-                                                 const float* __restrict__ B,
-                                                 float* __restrict__ C, int tid, Epi epi) {
-  const int m0 = 4 * (tid / 16), s0 = 4 * (tid % 16);
-  for (int u0 = 0; u0 < H; u0 += UB) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-    block_acc<K>(A + u0, H, B, m0, s0, acc);
-    block_store(C, u0, m0, s0, acc, epi);
   }
 }
 
@@ -744,153 +728,410 @@ ppo_update_kernel(const float* __restrict__ weights, const float* __restrict__ o
   }
 }
 
-// The same gradient at hidden 128 and 256, where neither the weights nor the
-// weight gradients fit on the chip's SM: the tile loop of ppo_update_kernel,
-// with w1 and w2 streamed from device memory through two slice buffers
-// (WS::product; w3 and the biases resident), the products' register tiles
-// 4 units x 4 samples over unit blocks of UB units, and the weight gradients
-// summed over each tile in registers and added into the CTA's partial in
-// device memory, which the CTA zeroes first (WS::outer; dW3 and db3 as at
-// hidden 64, per tile). update_reduce_kernel then sums the partials as at the
-// other widths: no float atomics, the same result from run to run.
+// acc += d: a tile's weight-gradient sums into the CTA's, rounded to nearest.
+// The tensor cores' float32 sums do not round to nearest: carried across a
+// CTA's 200-400 tiles on an H100 they moved a leaf by up to 1.05e-4 of its
+// largest entry, so they run over one tile's samples only
+__device__ __forceinline__ void add_tile(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = acc[i] + d[i];
+}
+
+// The same gradient at hidden 128 and 256 (the source note): a cluster of CL
+// CTAs (2 at 128, 4 at 256) walks the tiles of TS samples; CTA c of the
+// cluster owns the units [UO c, UO c + UO) of both hidden layers, keeps its
+// rows of w1 and w2 resident, computes their activations and, over the
+// cluster's tiles, their weight-gradient rows in registers, and exchanges
+// H1, the logits' parts and the GH1 parts through the cluster's shared
+// memory. Every product is 3xTF32 on the tensor cores (tf32_mma.cuh). Warp w
+// (lane 4 g + t) takes, of a 64 x 64 tile of the CTA's units, the samples
+// ws = 16 (w & 3) and the units wu = 32 (w >> 2) (4 n8 blocks); each CTA
+// writes its rows into its cluster's partial, which update_reduce_kernel
+// sums as at the other widths: no float atomics, the same result every run.
 template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
-__global__ void __launch_bounds__(THREADS, (WideDims<IN, KP, KC, HAS_V, TEAM_ADV>::CTAS))
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
 ppo_update_wide_kernel(const float* __restrict__ weights, const float* __restrict__ obs,
                        const float* __restrict__ mvoh, const float* __restrict__ cmoh,
                        const float* __restrict__ lpo, const float* __restrict__ adv,
                        const float* __restrict__ ret, const float* __restrict__ vold,
                        float* __restrict__ partials, int n_rows, int n_envs, UpdateConsts k) {
   using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
-  constexpr int KO = D::KO, KOP = D::KOP;
+  constexpr int KO = D::KO, KOP = D::KOP, INP = D::INP, W1LD = D::W1LD;
+  constexpr int NB2 = H / 32, NB1 = INP / 8, NH1 = (NB1 + 1) / 2;   // dW2's, dW1's n8 blocks
+  constexpr int NC1 = NH1 < 4 ? NH1 : 4;                            // dW1's blocks at a time
+  constexpr int KS3 = THREADS / UO, R3 = KOP / KS3;                 // dW3's rows at a time
   constexpr Packed L = packed(IN, KO);
   extern __shared__ __align__(16) float smem[];
-  float* w3 = smem + D::S_W3;
-  float* b1 = smem + D::S_B1;
-  float* b2 = smem + D::S_B2;
-  float* b3 = smem + D::S_B3;
-  float* slices = smem + D::S_SLICE;
-  float* tile = smem + D::S_TILE;
-  float* h1t = tile + D::T_H1 * LD;
-  float* h2t = tile + D::T_H2 * LD;
-  float* gt = tile + D::T_G * LD;
-  const int tid = threadIdx.x;
+  float* const sm = cta_smem(smem);
+  float* w2s = sm + D::F_W2;
+  float* w1s = sm + D::F_W1;
+  float* w3s = sm + D::F_W3;
+  float* b1 = sm + D::F_B1;
+  float* b2 = sm + D::F_B2;
+  float* b3 = sm + D::F_B3;
+  float* h1t = sm + D::F_H1;       // [TS][WLD]; the GH1 parts [CL][TS][UO]
+  float* h2t = sm + D::F_H2;       // [UO][LD]: H2, then GH1
+  float* gh2t = sm + D::F_GH2;     // [UO][LD]; the logit parts [CL][KOP][LD]
+  float* gt = sm + D::F_G;         // [KOP][LD]: the logits, then G3
+  float* stages = sm + D::F_ST;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const unsigned rank = cluster_rank();
+  const int u0 = UO * (int)rank;
+  const size_t cid = blockIdx.x / CL, n_cl = gridDim.x / CL;
   const size_t N = (size_t)n_envs;
   const size_t n_samples = (size_t)n_rows * N;
   const size_t n_tiles = (n_samples + TS - 1) / TS;
   const Batch b{obs, mvoh, cmoh, lpo, adv, ret, vold};
-  float* part = partials + (size_t)blockIdx.x * L.ng;
+  const int ws = 16 * (warp & 3), wu = 32 * (warp >> 2);
 
-  if (blockIdx.x < n_tiles) stage_tile<D>(b, tile, blockIdx.x, n_samples, N, k.n_agents, tid);
+  if (cid < n_tiles) stage_tile<D>(b, stages, cid, n_samples, N, k.n_agents, tid);
   stage_commit();
-  for (int i = tid; i < KOP * H; i += THREADS) w3[i] = i < KO * H ? weights[L.g_w3 + i] : 0.0f;
-  for (int i = tid; i < H; i += THREADS) {
-    b1[i] = weights[L.g_b1 + i];
-    b2[i] = weights[L.g_b2 + i];
+  for (int i = tid; i < UO * H; i += THREADS) {
+    const int u = i / H, j = i - u * H;
+    w2s[u * WLD + j] = weights[L.g_w2 + (u0 + u) * H + j];
+  }
+  if constexpr (D::W1_RES) {
+    for (int i = tid; i < UO * INP; i += THREADS) {
+      const int u = i / INP, c = i - u * INP;
+      w1s[u * W1LD + c] = c < IN ? weights[L.g_w1 + (u0 + u) * IN + c] : 0.0f;
+    }
+  }
+  for (int i = tid; i < KOP * UO; i += THREADS) {      // w3's columns of the CTA's units
+    const int o = i / UO, u = i - o * UO;
+    w3s[i] = o < KO ? weights[L.g_w3 + o * H + u0 + u] : 0.0f;
+  }
+  if (tid < UO) {
+    b1[tid] = weights[L.g_b1 + u0 + tid];
+    b2[tid] = weights[L.g_b2 + u0 + tid];
   }
   if (tid < KOP) b3[tid] = tid < KO ? weights[L.g_b3 + tid] : 0.0f;
+  for (int i = tid; i < KOP * LD; i += THREADS) gt[i] = 0.0f;   // G3's padding rows stay zero
   for (int st = 0; st < D::STAGES; ++st)               // the x rows' padding stays zero
-    for (int i = tid; i < (D::INP - IN) * LD; i += THREADS)
-      tile[(st * D::STAGE_ROWS + IN) * LD + i] = 0.0f;
-  for (int i = tid; i < L.ng; i += THREADS) part[i] = 0.0f;
+    for (int i = tid; i < (INP - IN) * LD; i += THREADS)
+      stages[(st * D::STAGE_ROWS + IN) * LD + i] = 0.0f;
+  cluster_arrive();                // every CTA of the cluster has started (its first wait)
 
-  // dW3's threads: unit g3c of output rows k3 + KS r (db3 row k3 + KS g3c, g3c < R3)
-  const int g3c = tid % H, k3 = tid / H;
-  constexpr int KS = D::KS, R3 = D::R3;
+  // over the cluster's tiles: dW2 rows 32 (warp & 1) .. + 31 of the CTA's units,
+  // columns (H / 4) (warp >> 1) ..; dW1 rows ws .., n8 blocks NH1 (warp >> 2) ..;
+  // db1, db2 of the lane's columns over its rows; dW3 rows k3 + KS3 r, unit u3
+  // (db3 row k3 + KS3 u3, u3 < R3); the metrics of the head's threads
+  float a2[2][NB2][4], a1[1][NH1][4], a3[R3], ab1[4][2], ab2[4][2], ab3 = 0.0f;
   float ms[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int nb = 0; nb < NB2; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a2[0][nb][i] = a2[1][nb][i] = 0.0f;
+#pragma unroll
+  for (int nb = 0; nb < NH1; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a1[0][nb][i] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R3; ++r) a3[r] = 0.0f;
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) ab1[nb][0] = ab1[nb][1] = ab2[nb][0] = ab2[nb][1] = 0.0f;
+  const int u3 = tid % UO, k3 = tid / UO;
+  // element i of a warp's n8 block nb: sample ws + g + 8 (i >> 1), unit wu + 8 nb + 2t + (i & 1)
+  auto row_of = [&](int i) { return ws + g + 8 * (i >> 1); };
+  auto col_of = [&](int nb, int i) { return wu + 8 * nb + 2 * t + (i & 1); };
+
   int it = 0;
-  for (size_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x, ++it) {
-    float* st = tile + (D::STAGES == 2 ? (it & 1) : 0) * D::STAGE_ROWS * LD;
+  for (size_t ti = cid; ti < n_tiles; ti += n_cl, ++it) {
+    float* st = stages + (D::STAGES == 2 ? (it & 1) : 0) * D::STAGE_ROWS * LD;
     if constexpr (D::STAGES == 2) {                    // the next tile's inputs in flight
-      if (ti + gridDim.x < n_tiles)
-        stage_tile<D>(b, tile + ((it + 1) & 1) * D::STAGE_ROWS * LD, ti + gridDim.x, n_samples,
-                      N, k.n_agents, tid);
+      if (ti + n_cl < n_tiles)
+        stage_tile<D>(b, stages + ((it + 1) & 1) * D::STAGE_ROWS * LD, ti + n_cl, n_samples, N,
+                      k.n_agents, tid);
       stage_commit();
       stage_wait<1>();
     } else {
       stage_wait<0>();
     }
     __syncthreads();
-    // forward
-    WS::product<IN, true>(weights + L.g_w1, st, slices, [&](int m, int s, float v) {
-      h1t[m * LD + s] = tanhf(v + b1[m]);
-    });
-    WS::product<H, true>(weights + L.g_w2, h1t, slices, [&](int m, int s, float v) {
-      h2t[m * LD + s] = tanhf(v + b2[m]);
-    });
-    {                                                   // Z = W3 H2 + b3
+    // h1 = tanh(x W1^T + b1) of the CTA's units (k8 steps' columns 2t, 2t + 1)
+    float h1[1][4][4] = {};
+    warp_mma3<1, 4, INP / 8, true>(
+        [&](int, int ks, float (&a)[4]) {
+          const float* x = st + (8 * ks + 2 * t) * LD + ws + g;
+          a[0] = x[0];
+          a[1] = x[8];
+          a[2] = x[LD];
+          a[3] = x[LD + 8];
+        },
+        [&](int ks, int nb, float (&w)[2]) {
+          const int u = wu + 8 * nb + g, c = 8 * ks + 2 * t;
+          if constexpr (D::W1_RES) {
+            const float2 q = *reinterpret_cast<const float2*>(w1s + u * W1LD + c);
+            w[0] = q.x;
+            w[1] = q.y;
+          } else {
+            const float* p = weights + L.g_w1 + (size_t)(u0 + u) * IN + c;
+            w[0] = c < IN ? p[0] : 0.0f;
+            w[1] = c + 1 < IN ? p[1] : 0.0f;
+          }
+        },
+        h1);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h1[0][nb][i] = tanhf(h1[0][nb][i] + b1[col_of(nb, i)]);
+    cluster_wait();                // the others have read the last tile's GH1 parts from H1
+    for (unsigned r = 0; r < CL; ++r) {                // H1 of the CTA's units into every CTA's
+      float* dst = map_rank(h1t, r);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; i += 2)
+          *reinterpret_cast<float2*>(dst + row_of(i) * WLD + u0 + col_of(nb, i)) =
+              float2{h1[0][nb][i], h1[0][nb][i + 1]};
+    }
+    cluster_arrive();
+    cluster_wait();                // H1 whole in every CTA
+    // h2 = tanh(H1 W2^T + b2) of the CTA's units
+    float h2[1][4][4] = {};
+    warp_mma3<1, 4, H / 8, true>(
+        [&](int, int ks, float (&a)[4]) {
+          const float* x = h1t + (ws + g) * WLD + 8 * ks + t;
+          a[0] = x[0];
+          a[1] = x[8 * WLD];
+          a[2] = x[4];
+          a[3] = x[8 * WLD + 4];
+        },
+        [&](int ks, int nb, float (&w)[2]) {
+          const float* p = w2s + (wu + 8 * nb + g) * WLD + 8 * ks + t;
+          w[0] = p[0];
+          w[1] = p[4];
+        },
+        h2);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h2[0][nb][i] = tanhf(h2[0][nb][i] + b2[col_of(nb, i)]);
+        h2t[col_of(nb, i) * LD + row_of(i)] = h2[0][nb][i];
+      }
+    __syncthreads();
+    {                              // the logits' part of the CTA's units, into every CTA
       constexpr int PER = THREADS / TS, RZ = KOP / PER;
       const int s = tid % TS, kz = tid / TS;
       float z[RZ];
 #pragma unroll
       for (int r = 0; r < RZ; ++r) z[r] = 0.0f;
 #pragma unroll 4
-      for (int g = 0; g < H; ++g) {
-        const float h = h2t[g * LD + s];
+      for (int u = 0; u < UO; ++u) {
+        const float h = h2t[u * LD + s];
 #pragma unroll
-        for (int r = 0; r < RZ; ++r) z[r] = fmaf(w3[(kz + PER * r) * H + g], h, z[r]);
+        for (int r = 0; r < RZ; ++r) z[r] = fmaf(w3s[(kz + PER * r) * UO + u], h, z[r]);
       }
+      for (unsigned r = 0; r < CL; ++r) {
+        float* dst = map_rank(gh2t, r) + rank * KOP * LD;
 #pragma unroll
-      for (int r = 0; r < RZ; ++r) gt[(kz + PER * r) * LD + s] = z[r] + b3[kz + PER * r];
+        for (int q = 0; q < RZ; ++q) dst[(kz + PER * q) * LD + s] = z[q];
+      }
     }
-    __syncthreads();
-    if (tid < TS) {
+    cluster_arrive();
+    cluster_wait();                // every CTA's logit parts in
+    if (tid < TS) {                // the head, a sample a thread, in every CTA of the cluster
+#pragma unroll
+      for (int o = 0; o < KO; ++o) {
+        float z = gh2t[o * LD + tid];
+        for (int c = 1; c < CL; ++c) z = z + gh2t[(c * KOP + o) * LD + tid];
+        gt[o * LD + tid] = z + b3[o];
+      }
       const size_t m = ti * TS + tid;
       head<D>(st, gt, tid, m < n_samples, m / N, k, ms);
     }
     __syncthreads();
-    // dW3 += G3 H2^T (db3 beside it) over the tile, then GH2 over H2
-    if (k3 < KS) {
-      float a3[R3], ab3 = 0.0f;
-#pragma unroll
-      for (int r = 0; r < R3; ++r) a3[r] = 0.0f;
+    // dW3 += G3 H2^T (db3 beside it) of the CTA's units
 #pragma unroll 2
-      for (int s = 0; s < TS; s += 4) {
-        const float4 hq = *reinterpret_cast<const float4*>(h2t + g3c * LD + s);
+    for (int s = 0; s < TS; s += 4) {
+      const float4 hq = *reinterpret_cast<const float4*>(h2t + u3 * LD + s);
 #pragma unroll
-        for (int r = 0; r < R3; ++r) {
-          const float4 gq = *reinterpret_cast<const float4*>(gt + (k3 + KS * r) * LD + s);
-          a3[r] = fmaf(gq.x, hq.x, a3[r]);
-          a3[r] = fmaf(gq.y, hq.y, a3[r]);
-          a3[r] = fmaf(gq.z, hq.z, a3[r]);
-          a3[r] = fmaf(gq.w, hq.w, a3[r]);
-          if (g3c == r) ab3 = ((ab3 + gq.x) + gq.y) + gq.z + gq.w;
-        }
+      for (int r = 0; r < R3; ++r) {
+        const float4 gq = *reinterpret_cast<const float4*>(gt + (k3 + KS3 * r) * LD + s);
+        a3[r] = fmaf(gq.x, hq.x, a3[r]);
+        a3[r] = fmaf(gq.y, hq.y, a3[r]);
+        a3[r] = fmaf(gq.z, hq.z, a3[r]);
+        a3[r] = fmaf(gq.w, hq.w, a3[r]);
+        if (u3 == r) ab3 = ((ab3 + gq.x) + gq.y) + gq.z + gq.w;
       }
-#pragma unroll
-      for (int r = 0; r < R3; ++r)
-        if (k3 + KS * r < KO) part[L.g_w3 + (k3 + KS * r) * H + g3c] += a3[r];
-      if (g3c < R3 && k3 + KS * g3c < KO) part[L.g_b3 + k3 + KS * g3c] += ab3;
     }
+    // gh2 = (G3 W3) (1 - h2^2) of the CTA's units, into GH2
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = row_of(i), u = col_of(nb, i);
+        float v = 0.0f;
+#pragma unroll
+        for (int o = 0; o < KO; ++o) v = fmaf(w3s[o * UO + u], gt[o * LD + s], v);
+        v = v * (1.0f - h2[0][nb][i] * h2[0][nb][i]);
+        ab2[nb][i & 1] = ab2[nb][i & 1] + v;
+        gh2t[u * LD + s] = v;      // the logit parts there were read before the head's barrier
+      }
     __syncthreads();
-    resident_product<KO>(w3, gt, h2t, tid, [](int, float v, const float* c) {
-      return v * (1.0f - *c * *c);
-    });
+    // dW2 += GH2^T H1 over the tile's samples (k8 steps' samples 2t, 2t + 1),
+    // half the warp's columns at a time, each tile's sums added to the CTA's
+    // (add_tile: the tensor cores' own float32 sums are for a tile's samples)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float d[2][NB2 / 2][4] = {};
+      warp_mma3<2, NB2 / 2, TS / 8>(
+          [&](int mt, int ks, float (&a)[4]) {
+            const float* p = gh2t + (32 * (warp & 1) + 16 * mt + g) * LD + 8 * ks + 2 * t;
+            a[0] = p[0];
+            a[1] = p[8 * LD];
+            a[2] = p[1];
+            a[3] = p[8 * LD + 1];
+          },
+          [&](int ks, int nb, float (&x)[2]) {
+            const float* p = h1t + (8 * ks + 2 * t) * WLD + (H / 4) * (warp >> 1) +
+                             8 * (half * NB2 / 2 + nb) + g;
+            x[0] = p[0];
+            x[1] = p[WLD];
+          },
+          d);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < NB2 / 2; ++nb) add_tile(a2[mt][half * NB2 / 2 + nb], d[mt][nb]);
+    }
+    cluster_arrive();              // this CTA's reads of H1 are done
+    // the GH1 parts GH2 W2 over the CTA's units, each CTA's columns into its
+    // H1 tile (k8 steps' units 2t, 2t + 1; column j of sample s at j ^ 8 (s & 7))
+    for (unsigned r = 0; r < CL; ++r) {
+      float p[1][4][4] = {};
+      warp_mma3<1, 4, UO / 8, true>(
+          [&](int, int ks, float (&a)[4]) {
+            const float* q = gh2t + (8 * ks + 2 * t) * LD + ws + g;
+            a[0] = q[0];
+            a[1] = q[8];
+            a[2] = q[LD];
+            a[3] = q[LD + 8];
+          },
+          [&](int ks, int nb, float (&w)[2]) {
+            const float* q = w2s + (8 * ks + 2 * t) * WLD + UO * r + wu + 8 * nb + g;
+            w[0] = q[0];
+            w[1] = q[WLD];
+          },
+          p);
+      if (r == 0) cluster_wait();  // every CTA's reads of its H1 are done
+      float* dst = map_rank(h1t, r) + rank * TS * UO;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; i += 2) {
+          const int s = row_of(i);
+          *reinterpret_cast<float2*>(dst + s * UO + (col_of(nb, i) ^ (8 * (s & 7)))) =
+              float2{p[0][nb][i], p[0][nb][i + 1]};
+        }
+    }
+    cluster_arrive();
+    cluster_wait();                // the GH1 parts of the CTA's units in
+    // gh1 = (sum of the parts, in rank order) (1 - h1^2), into the H2 tile
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = row_of(i), u = col_of(nb, i), e = s * UO + (u ^ (8 * (s & 7)));
+        float v = h1t[e];
+        for (int c = 1; c < CL; ++c) v = v + h1t[c * TS * UO + e];
+        v = v * (1.0f - h1[0][nb][i] * h1[0][nb][i]);
+        ab1[nb][i & 1] = ab1[nb][i & 1] + v;
+        h2t[u * LD + s] = v;
+      }
     __syncthreads();
-    // dW2 += GH2 H1^T (db2), then GH1 over H1
-    WS::outer<H>(h2t, h1t, part + L.g_w2, H, part + L.g_b2, false);
-    __syncthreads();
-    WS::product<H, false>(weights + L.g_w2, h2t, slices, [&](int m, int s, float v) {
-      float* c = h1t + m * LD + s;
-      *c = v * (1.0f - *c * *c);
-    });
-    // dW1 += GH1 X^T (db1)
-    WS::outer<IN>(h1t, st, part + L.g_w1, IN, part + L.g_b1, false);
-    __syncthreads();                                    // this stage's reads are done
+    cluster_arrive();              // this CTA's H1 tile is free for the next tile's H1
+    // dW1 += GH1^T X over the tile's samples (the padding rows of X add zeros),
+    // NC1 of the warp's column blocks at a time, added as dW2's
+#pragma unroll
+    for (int c0 = 0; c0 < NH1; c0 += NC1) {
+      const int nb0 = NH1 * (warp >> 2) + c0;
+      float d[1][NC1][4] = {};
+      warp_mma3<1, NC1, TS / 8>(
+          [&](int, int ks, float (&a)[4]) {
+            const float* p = h2t + (ws + g) * LD + 8 * ks + t;
+            a[0] = p[0];
+            a[1] = p[8 * LD];
+            a[2] = p[4];
+            a[3] = p[8 * LD + 4];
+          },
+          [&](int ks, int nb, float (&x)[2]) {
+            const bool in = c0 + nb < NH1 && nb0 + nb < NB1;
+            const float* p = st + (in ? 8 * (nb0 + nb) + g : 0) * LD + 8 * ks + t;
+            x[0] = in ? p[0] : 0.0f;
+            x[1] = in ? p[4] : 0.0f;
+          },
+          d);
+#pragma unroll
+      for (int nb = 0; nb < NC1; ++nb)
+        if (c0 + nb < NH1) add_tile(a1[0][c0 + nb], d[0][nb]);
+    }
+    __syncthreads();               // this stage's reads are done
     if constexpr (D::STAGES == 1) {
-      if (ti + gridDim.x < n_tiles)
-        stage_tile<D>(b, tile, ti + gridDim.x, n_samples, N, k.n_agents, tid);
+      if (ti + n_cl < n_tiles)
+        stage_tile<D>(b, stages, ti + n_cl, n_samples, N, k.n_agents, tid);
       stage_commit();
     }
   }
+  cluster_wait();                  // no CTA of the cluster writes into another from here
 
-  // metric sums over the CTA's threads, in thread order
+  // the cluster's partial: the CTA's rows of dW1, dW2, db1, db2 and columns
+  // of dW3; db3 and the metrics from rank 0
+  float* part = partials + cid * L.ng;
 #pragma unroll
-  for (int q = 0; q < 3; ++q) tile[q * THREADS + tid] = ms[q];
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NB2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = 32 * (warp & 1) + 16 * mt + g + 8 * (i >> 1);
+        const int j = (H / 4) * (warp >> 1) + 8 * nb + 2 * t + (i & 1);
+        part[L.g_w2 + (u0 + u) * H + j] = a2[mt][nb][i];
+      }
+#pragma unroll
+  for (int nb = 0; nb < NH1; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = ws + g + 8 * (i >> 1), c = 8 * (NH1 * (warp >> 2) + nb) + 2 * t + (i & 1);
+      if (c < IN) part[L.g_w1 + (u0 + u) * IN + c] = a1[0][nb][i];
+    }
+#pragma unroll
+  for (int r = 0; r < R3; ++r)
+    if (k3 + KS3 * r < KO) part[L.g_w3 + (k3 + KS3 * r) * H + u0 + u3] = a3[r];
+  // db1, db2: the lanes' sums over their warp's rows, then over the four
+  // warps of each unit block in order; db3 and the metrics over the threads
+  float* red = h1t;                // [2][4][UO], then [3][THREADS]
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float v1 = ab1[nb][p], v2 = ab2[nb][p];
+#pragma unroll
+      for (int mask = 4; mask < 32; mask <<= 1) {
+        v1 = v1 + __shfl_xor_sync(0xffffffffu, v1, mask);
+        v2 = v2 + __shfl_xor_sync(0xffffffffu, v2, mask);
+      }
+      if (g == 0) {
+        red[(warp & 3) * UO + wu + 8 * nb + 2 * t + p] = v1;
+        red[(4 + (warp & 3)) * UO + wu + 8 * nb + 2 * t + p] = v2;
+      }
+    }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) red[8 * UO + q * THREADS + tid] = ms[q];
   __syncthreads();
-  if (tid < 3) {
-    float total = 0.0f;
-    for (int i = 0; i < THREADS; ++i) total = total + tile[tid * THREADS + i];
-    part[L.g_ms + tid] = total;
+  if (tid < 2 * UO) {
+    const int which = tid / UO, u = tid % UO;
+    float v = red[(4 * which) * UO + u];
+    for (int q = 1; q < 4; ++q) v = v + red[(4 * which + q) * UO + u];
+    part[(which == 0 ? L.g_b1 : L.g_b2) + u0 + u] = v;
+  }
+  if (rank == 0) {
+    if (u3 < R3 && k3 + KS3 * u3 < KO) part[L.g_b3 + k3 + KS3 * u3] = ab3;
+    if (tid < 3) {
+      float total = 0.0f;
+      for (int i = 0; i < THREADS; ++i) total = total + red[8 * UO + tid * THREADS + i];
+      part[L.g_ms + tid] = total;
+    }
   }
 }
 
@@ -914,13 +1155,16 @@ cudaError_t update_pass(const float* weights, const float* obs, const float* mvo
                         int n_parts, const UpdateConsts& k, float ms_pg, float ms_v,
                         float ms_ent, cudaStream_t stream) {
   cudaError_t err;
-  if constexpr (WIDE) {
+  if constexpr (WIDE) {            // n_parts clusters of CL CTAs, a partial each
     using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
     auto kernel = ppo_update_wide_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
     if (err != cudaSuccess) return err;
-    kernel<<<n_parts, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret, vold,
-                                                  partials, n_rows, n_envs, k);
+#ifndef __CUDACC__
+    host_cluster_size = CL;
+#endif
+    kernel<<<n_parts * CL, THREADS, D::SMEM, stream>>>(weights, obs, mvoh, cmoh, lpo, adv, ret,
+                                                       vold, partials, n_rows, n_envs, k);
   } else {
     using D = UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>;
     auto kernel = ppo_update_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
@@ -979,15 +1223,52 @@ cudaError_t by_joint_width(int j, F f) {
 
 constexpr int MOVES = 5;
 
-// the dynamic shared memory of one pass's kernel
-template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
-constexpr size_t pass_smem() {
-  if constexpr (WIDE) {
-    return WideDims<IN, KP, KC, HAS_V, TEAM_ADV>::SMEM;
-  } else {
-    return UpdateDims<IN, KP, KC, HAS_V, TEAM_ADV>::SMEM;
-  }
+// f(integral_constant<IN>, <KP>, <KC>, <HAS_V>, <TEAM>) of K6's pass (pass 0)
+// or K7's actor pass (1) on the head (in, kc), or of K7's critic pass (2) on
+// the joint width in
+template <class F>
+cudaError_t by_pass(int in, int kc, int pass, F f) {
+  using std::integral_constant;
+  if (pass == 2)
+    return by_joint_width(in, [&](auto j) {
+      return f(j, integral_constant<int, 0>{}, integral_constant<int, 0>{}, std::true_type{},
+               std::false_type{});
+    });
+  if (pass != 0 && pass != 1) return cudaErrorInvalidValue;
+  return by_actor_head(in, kc, [&](auto ow, auto c) {
+    return pass == 0 ? f(ow, integral_constant<int, MOVES>{}, c, std::true_type{},
+                         std::false_type{})
+                     : f(ow, integral_constant<int, MOVES>{}, c, std::false_type{},
+                         std::true_type{});
+  });
 }
+
+// the clusters of a wide pass the card runs at once (-1 where it cannot say)
+template <int IN, int KP, int KC, bool HAS_V, bool TEAM_ADV>
+int wide_clusters() {
+  static const int n = [] {
+    using D = WideDims<IN, KP, KC, HAS_V, TEAM_ADV>;
+    auto kernel = ppo_update_wide_kernel<IN, KP, KC, HAS_V, TEAM_ADV>;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)D::SMEM) != cudaSuccess)
+      return -1;
+#ifdef __CUDACC__
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(CL);
+    config.blockDim = dim3(THREADS);
+    config.dynamicSmemBytes = D::SMEM;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &config) != cudaSuccess ||
+        clusters < 1)
+      return -1;
+    return clusters;
+#else
+    return HOST_SMS / CL;
+#endif
+  }();
+  return n;
+}
+
 
 }  // namespace
 
@@ -1039,6 +1320,21 @@ int mpe_mappo_update(int ow, int kc, const float* actor_w, const float* critic_w
   });
 }
 
+// the persistent grid of a pass (0: K6; 1: K7's actor; 2: K7's critic on the
+// joint width in): at hidden 128 and 256 the clusters the card runs at once,
+// each its own partial (the wrapper's n_parts); 0 at 8-64, where the wrapper
+// sets the grid; -1 for a head or width the kernels are not compiled for
+int mpe_update_grid(int in, int kc, int pass) {
+  int n = 0;
+  const cudaError_t err = by_pass(in, kc, pass, [&](auto i, auto p, auto c, auto v, auto team) {
+    if constexpr (WIDE)
+      n = wide_clusters<decltype(i)::value, decltype(p)::value, decltype(c)::value,
+                        decltype(v)::value, decltype(team)::value>();
+    return cudaSuccess;
+  });
+  return err == cudaSuccess ? n : -1;
+}
+
 // the packed gradient's length of an in-H-H-ko MLP (ops/fused_update.py::_packed)
 int mpe_update_packed_size(int in, int ko) { return packed(in, ko).ng; }
 
@@ -1047,16 +1343,16 @@ int mpe_update_packed_size(int in, int ko) { return packed(in, ko).ng; }
 // -1 for a head or width the kernels are not compiled for
 int mpe_update_smem(int in, int kc, int pass) {
   size_t bytes = 0;
-  const cudaError_t err =
-      pass == 2 ? by_joint_width(in, [&](auto j) {
-        bytes = pass_smem<decltype(j)::value, 0, 0, true, false>();
-        return cudaSuccess;
-      })
-      : by_actor_head(in, kc, [&](auto ow, auto c) {
-          bytes = pass == 0 ? pass_smem<decltype(ow)::value, MOVES, decltype(c)::value, true, false>()
-                            : pass_smem<decltype(ow)::value, MOVES, decltype(c)::value, false, true>();
-          return cudaSuccess;
-        });
+  const cudaError_t err = by_pass(in, kc, pass, [&](auto i, auto p, auto c, auto v, auto team) {
+    if constexpr (WIDE) {
+      bytes = WideDims<decltype(i)::value, decltype(p)::value, decltype(c)::value,
+                       decltype(v)::value, decltype(team)::value>::SMEM;
+    } else {
+      bytes = UpdateDims<decltype(i)::value, decltype(p)::value, decltype(c)::value,
+                         decltype(v)::value, decltype(team)::value>::SMEM;
+    }
+    return cudaSuccess;
+  });
   return err == cudaSuccess ? (int)bytes : -1;
 }
 

@@ -1,26 +1,23 @@
-// The streamed products and weight-gradient sums of the wide kernels (hidden
-// 128 and 256): ppo_update_wide_kernel (mpe_update.cu: K6, K7) and K9's wide
-// kernels (mpe_maddpg.cu). At those widths neither a net's weights nor its
-// weight gradients fit a CTA, so both kernels keep the weights in device
+// The streamed products and weight-gradient sums of K9's wide kernels (hidden
+// 128 and 256, mpe_maddpg.cu). At those widths neither a net's weights nor its
+// weight gradients fit a CTA, so the kernels keep the weights in device
 // memory (the L2 cache holds them for every CTA) and stream each product's
-// weights through two shared slice buffers, and both add each tile's weight
+// weights through two shared slice buffers, and add each tile's weight
 // gradients into the CTA's partial in device memory, one thread owning each
 // entry, for a reduce kernel to sum the partials in a fixed order.
 //
-// WideStream<THREADS, TS, LD, H, UB, KB, SLD, FUSED, CG>: a CTA of THREADS
-// threads works on a tile of TS samples, the sample columns of rows [.][LD] in
-// shared memory; the layers have H units, taken in unit blocks of UB; a weight
-// slice holds KB inputs x UB units, its rows SLD apart. FUSED: a product's
-// sums are fused multiply-adds from +0 (K6, K7); otherwise each product is
-// rounded before it is added, from -0 (-0 + x is x: the first product), so
-// that K9's forward sums are the plain version's. CG: the column groups of
-// warps in a weight-gradient pass.
+// WideStream<THREADS, TS, LD, H, UB, KB, SLD>: a CTA of THREADS threads works
+// on a tile of TS samples, the sample columns of rows [.][LD] in shared
+// memory; the layers have H units, taken in unit blocks of UB; a weight slice
+// holds KB inputs x UB units, its rows SLD apart. Each product is rounded
+// before it is added, from -0 (-0 + x is x: the first product), so that K9's
+// forward sums are the plain version's.
 
 #pragma once
 
 namespace {
 
-template <int THREADS, int TS, int LD, int H, int UB, int KB, int SLD, bool FUSED, int CG>
+template <int THREADS, int TS, int LD, int H, int UB, int KB, int SLD>
 struct WideStream {
   static constexpr int SLICES = 2 * KB * SLD;   // the two slice buffers (floats)
 
@@ -79,7 +76,7 @@ struct WideStream {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][e] = FUSED ? 0.0f : -0.0f;
+          for (int e = 0; e < 4; ++e) acc[i][e] = -0.0f;
       }
       const float* sl = slices + (q & 1) * KB * SLD;
       const float* b = B + j * KB * LD;
@@ -91,7 +88,7 @@ struct WideStream {
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            acc[i][e] = FUSED ? fmaf(ai[i], be[e], acc[i][e]) : acc[i][e] + ai[i] * be[e];
+            acc[i][e] = acc[i][e] + ai[i] * be[e];
       };
       if (K % KB == 0 || j < NS - 1) {                // a whole slice, its count known
 #pragma unroll 4
@@ -120,17 +117,17 @@ struct WideStream {
   // x 8 RN columns of a pass, its 8 column lanes consecutive columns (one
   // 32-byte run of part per row), each thread 4 rows x RN columns in
   // registers, per four samples 4 + RN float4s for 16 RN multiply-adds; the
-  // warps stand CG abreast over the columns. A column past NQ reads row NQ - 1
-  // and is not stored. The partial's entries are read before the sums, so
+  // warps stand one above another. A column past NQ reads row NQ - 1 and is
+  // not stored. The partial's entries are read before the sums, so
   // their latency hides behind them.
   template <int NQ>
   static __device__ __forceinline__ void outer(const float* P, const float* Q, float* part,
                                                int ldp, float* db, bool first) {
-    constexpr int RN = NQ >= 32 * CG ? 4 : (NQ + 8 * CG - 1) / (8 * CG);
-    constexpr int RB = 16 * (THREADS / 32) / CG, CB = 8 * RN * CG;
+    constexpr int RN = NQ >= 32 ? 4 : (NQ + 7) / 8;
+    constexpr int RB = 16 * (THREADS / 32), CB = 8 * RN;
     static_assert(H % RB == 0, "a pass's rows divide H");
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int r0 = 16 * (warp / CG) + 4 * (lane >> 3), c0 = 8 * RN * (warp % CG) + (lane & 7);
+    const int r0 = 16 * warp + 4 * (lane >> 3), c0 = lane & 7;
     for (int mb = 0; mb < H; mb += RB) {
       for (int nb = 0; nb < NQ; nb += CB) {
         float acc[4][RN], old[4][RN];

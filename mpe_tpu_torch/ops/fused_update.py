@@ -26,11 +26,14 @@ also holds wherever the clip does not bind (see ``_value_clip_grad``).
 ``fused_policy_trajectory`` emits them.
 
 On a CUDA device ``update`` launches ``ppo_update_kernel`` (K6: one pass;
-K7: an actor pass and a critic pass; ``ppo_update_wide_kernel`` at hidden
-128 and 256) and ``update_reduce_kernel`` (``csrc/mpe_update.cu``, float32,
-compiled for the nine scenarios' actor heads and critic joint widths, one
-library per hidden width of ``_build.HIDDEN_WIDTHS["mpe_update.cu"]``: 8,
-16, 32, 64, 128, 256, the width taken from the params; another raises
+K7: an actor pass and a critic pass; at hidden 128 and 256
+``ppo_update_wide_kernel``, its products 3xTF32 on the tensor cores, on a
+grid of all the thread-block clusters the card runs at once, each cluster's
+CTAs sharing its tiles by units) and ``update_reduce_kernel``
+(``csrc/mpe_update.cu``, float32, compiled for the nine scenarios' actor
+heads and critic joint widths, one library per hidden width of
+``_build.HIDDEN_WIDTHS["mpe_update.cu"]``: 8, 16, 32, 64, 128, 256, the
+width taken from the params; another raises
 ``NotImplementedError`` before any launch); on the CPU it runs the plain
 version in ``dtype`` (float32 or float64).
 
@@ -63,7 +66,7 @@ from mpe_tpu_torch._device import device_table, resolve_device
 from mpe_tpu_torch.ops._build import DEFAULT_HIDDEN, check_hidden
 # the update kernels' persistent grid: two CTAs per SM, the most that fit
 # (csrc/mpe_update.cu; an instantiation that fits one runs the grid in two
-# waves); the wide bf16 kernel asks the card instead (``_grid``)
+# waves); the wide kernels ask the card instead (``_grid``)
 CTAS_PER_SM = 2
 
 
@@ -390,10 +393,11 @@ def _hidden_of(params, l1: str, source: str) -> int:
 
 
 def _grid(lib, passes, device) -> int:
-    """The CTAs of a launch's persistent grid over its ``passes`` ((in, kc,
-    pass) of ``mpe_update_grid``): where the library sets its own grid (the
-    bf16 kernel at hidden 128 and 256: all the CTAs the card holds at once),
-    the fewest over the passes, else ``CTAS_PER_SM`` an SM."""
+    """The partials of a launch's persistent grid over its ``passes`` ((in,
+    kc, pass) of ``mpe_update_grid``): where the library sets its own grid
+    (at hidden 128 and 256: the bf16 kernel's CTAs, the float32 kernel's
+    clusters, each all that the card holds at once), the fewest over the
+    passes, else ``CTAS_PER_SM`` CTAs an SM."""
     own = [lib.mpe_update_grid(*p) for p in passes] if hasattr(lib, "mpe_update_grid") else [0]
     if min(own) < 0:
         raise RuntimeError(f"the update kernels' grid query failed for the passes {passes}")
@@ -463,9 +467,10 @@ def _ppo_launch(source, params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, 
 def ppo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *, speak=None,
                     clip: float, vf_coef: float, ent_coef: float):
     """Launch kernel K6 (``ppo_update_kernel`` over a persistent grid of two
-    256-thread CTAs per SM, then ``update_reduce_kernel``) on the inputs' CUDA device:
-    the outputs of ``plain_ppo_update`` in float32. Counts launches in
-    ``.launches``."""
+    256-thread CTAs per SM; at hidden 128 and 256 ``ppo_update_wide_kernel``
+    over the clusters the card runs at once; then ``update_reduce_kernel``)
+    on the inputs' CUDA device: the outputs of ``plain_ppo_update`` in
+    float32. Counts launches in ``.launches``."""
     out = _ppo_launch("mpe_update.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old,
                       speak=speak, clip=clip, vf_coef=vf_coef, ent_coef=ent_coef)
     ppo_update_cuda.launches += 1
@@ -544,7 +549,8 @@ def mappo_update_cuda(params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old, *,
                       clip: float, vf_coef: float, ent_coef: float):
     """Launch kernel K7 (``ppo_update_kernel``'s actor pass over the
     (t, agent, env) samples and critic pass over the (t, env) samples on the
-    joint obs, each a persistent grid of two CTAs per SM followed by
+    joint obs, each a persistent grid of two CTAs per SM, or at hidden 128
+    and 256 of clusters (``ppo_update_wide_kernel``), followed by
     ``update_reduce_kernel``) on the inputs' CUDA device: the outputs of
     ``plain_mappo_update`` in float32. Counts launches in ``.launches``."""
     out = _mappo_launch("mpe_update.cu", params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, v_old,

@@ -14,13 +14,19 @@ consecutive threads) and then hands over to the next; ``__shfl_sync`` and
 ``__shfl_xor_sync`` exchange values through the warp's barrier. The order in
 which the fibers run is fixed, so a launch does the same thing every time, and
 a block whose fibers all wait at barriers that can never open aborts with a
-message. A kernel's dynamic shared memory becomes one static buffer. The
-occupancy query answers 1 (one block at a time) and the card has
+message. A kernel's dynamic shared memory becomes one static buffer. A cluster
+kernel (``host_cluster_size`` set before its launch) runs the blocks of each
+cluster together, their threads' fibers interleaved, each block with its own
+shared memory (``host_block_smem``, ``host_map_rank``) and the cluster's
+split barrier (``HostSplitBarrier``); shuffle, warp and mma slots are the
+fiber's. The occupancy query answers 1 (one block at a time) and the card has
 ``HOST_SMS`` SMs (or the ``sms`` a build asks for). For the bf16 kernels it
 has ``__nv_bfloat16`` with the device's round-to-nearest-even conversion and
 ``host_mma_m16n8k16_bf16``, the m16n8k16 bf16 ``mma.sync`` over the warp's
 fragments as the PTX ISA lays them out (each product exact, the sums in
-double).
+double); for the float32 wide kernel ``host_cvt_rna_tf32``
+(``cvt.rna.tf32.f32``) and ``host_mma_m16n8k8_tf32``, the m16n8k8 tf32
+``mma.sync`` by the same rule.
 
 Each library is built once per (source, width, flags, stand-in header): into
 a directory under ``build/host/`` named by a hash of all of them and of the
@@ -63,6 +69,7 @@ CUDA_RUNTIME_TEXT = """\
 #define __forceinline__ inline
 #define __noinline__
 #define __launch_bounds__(...)
+#define __cluster_dims__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__ static
 typedef void* cudaStream_t;
@@ -86,6 +93,16 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 inline host_dim3 blockIdx, threadIdx, blockDim, gridDim;   // of the running fiber
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
 // A block's threads are fibers that one host thread runs in turn; a fiber
@@ -97,6 +114,12 @@ struct HostFiber {
   void* sp;
   bool done;
 };
+// a launch's fibers: the threads of one block, or of the blocks of one
+// cluster (host_cluster_size of them, set before a cluster kernel's launch),
+// fiber f being thread f % blockDim.x of the cluster's block f / blockDim.x
+constexpr unsigned HOST_MAX_FIBERS = 1024;
+inline unsigned host_cluster_size = 1;
+inline unsigned host_fiber_id;
 inline std::vector<HostFiber> host_fibers;
 inline std::vector<char*> host_stacks;
 inline void* host_sched_sp;
@@ -137,20 +160,47 @@ struct HostBarrier {
     do host_yield(); while (gen == generation);
   }
 };
-inline HostBarrier host_barrier;
-inline void __syncthreads() { host_barrier.wait(); }
+inline HostBarrier host_block_barriers[HOST_MAX_FIBERS / 32];
+inline void __syncthreads() { host_block_barriers[host_fiber_id / blockDim.x].wait(); }
 // a warp's lanes (32 consecutive threads) meet at their warp's barrier
-inline HostBarrier host_warp_barriers[32];
-inline void __syncwarp(unsigned = 0xffffffffu) { host_warp_barriers[threadIdx.x / 32].wait(); }
-inline unsigned long long host_lanes[1024];
+inline HostBarrier host_warp_barriers[HOST_MAX_FIBERS / 32];
+inline void __syncwarp(unsigned = 0xffffffffu) { host_warp_barriers[host_fiber_id / 32].wait(); }
+inline unsigned long long host_lanes[HOST_MAX_FIBERS];
 template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
   static_assert(sizeof(T) <= sizeof(unsigned long long), "a shuffled value fits a slot");
-  std::memcpy(&host_lanes[threadIdx.x], &v, sizeof(T));
+  std::memcpy(&host_lanes[host_fiber_id], &v, sizeof(T));
   __syncwarp();
   T out;
-  std::memcpy(&out, &host_lanes[(threadIdx.x & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
+  std::memcpy(&out, &host_lanes[(host_fiber_id & ~(unsigned)(width - 1)) + (unsigned)src], sizeof(T));
   __syncwarp();
   return out;
+}
+// the cluster's split barrier (barrier.cluster.arrive / .wait): a fiber's
+// wait returns once every fiber of the cluster has arrived since its own arrive
+struct HostSplitBarrier {
+  unsigned count = 0, arrived = 0, generation = 0, mine[HOST_MAX_FIBERS] = {};
+  void arrive() {
+    mine[host_fiber_id] = generation;
+    host_progress = true;
+    if (++arrived == count) {
+      arrived = 0;
+      ++generation;
+    }
+  }
+  void wait() {
+    while (mine[host_fiber_id] == generation) host_yield();
+  }
+};
+inline HostSplitBarrier host_cluster_barrier;
+inline unsigned host_cluster_rank() { return host_fiber_id / blockDim.x; }
+// each block of a cluster has its own dynamic shared memory (a cluster kernel
+// takes it from here; its peers' through host_map_rank)
+alignas(16) inline float host_cluster_smem[8][232448 / 4];
+inline float* host_block_smem() { return host_cluster_smem[host_cluster_rank()]; }
+template <class T> inline T* host_map_rank(T* p, unsigned rank) {
+  return reinterpret_cast<T*>(reinterpret_cast<char*>(p) -
+                              reinterpret_cast<char*>(host_block_smem()) +
+                              reinterpret_cast<char*>(host_cluster_smem[rank]));
 }
 template <class T> inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask, int width = 32) {
   return __shfl_sync(mask, v, (int)((threadIdx.x & (unsigned)(width - 1)) ^ (unsigned)lane_mask),
@@ -175,7 +225,7 @@ inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
 // c plus the 16 exact products, summed in double and rounded once
 #define MPE_HOST_MMA 1
 struct HostMmaSlot { uint32_t a[4], b[2]; };
-inline HostMmaSlot host_mma_slots[1024];
+inline HostMmaSlot host_mma_slots[HOST_MAX_FIBERS];
 inline float host_bf16_float(uint32_t bits) {
   const uint32_t u = (bits & 0xffffu) << 16;
   float f;
@@ -183,8 +233,8 @@ inline float host_bf16_float(uint32_t bits) {
   return f;
 }
 inline void host_mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  const unsigned lane = threadIdx.x & 31u, base = threadIdx.x - lane;
-  HostMmaSlot& mine = host_mma_slots[threadIdx.x];
+  const unsigned lane = threadIdx.x & 31u, base = host_fiber_id - lane;
+  HostMmaSlot& mine = host_mma_slots[host_fiber_id];
   for (int i = 0; i < 4; ++i) mine.a[i] = a[i];
   mine.b[0] = b[0];
   mine.b[1] = b[1];
@@ -206,16 +256,64 @@ inline void host_mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4], const 
   __syncwarp();
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
-template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
-  host_barrier = HostBarrier{threads};
+// cvt.rna.tf32.f32: x rounded to tf32 (10 fraction bits), to nearest with
+// ties away from zero, in a 32-bit word whose low 13 bits are zero; NaN and
+// infinity pass
+inline uint32_t host_cvt_rna_tf32(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, sizeof u);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 over the warp's
+// fragments (PTX ISA, "Matrix Fragments for mma.m16n8k8", .tf32): lane 4 g + t
+// holds a[0] = A[g][t], a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4],
+// b[0] = B[t][g], b[1] = B[t+4][g] and d = D[g][2t, 2t+1], D[g+8][2t, 2t+1];
+// an operand's low 13 bits are not read; each output is its c plus the 8
+// exact products, summed in double and rounded once
+struct HostTf32Slot { uint32_t a[4], b[2]; };
+inline HostTf32Slot host_tf32_slots[HOST_MAX_FIBERS];
+inline void host_mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const unsigned lane = threadIdx.x & 31u, base = host_fiber_id - lane;
+  HostTf32Slot& mine = host_tf32_slots[host_fiber_id];
+  for (int i = 0; i < 4; ++i) mine.a[i] = a[i];
+  mine.b[0] = b[0];
+  mine.b[1] = b[1];
+  __syncwarp();
+  const int g = (int)(lane >> 2), t = (int)(lane & 3u);
+  auto val = [](uint32_t bits) { return (double)__uint_as_float(bits & 0xffffe000u); };
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    double sum = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t ar = host_tf32_slots[base + (row % 8) * 4 + k % 4].a[(row >= 8) + 2 * (k >= 4)];
+      const uint32_t br = host_tf32_slots[base + col * 4 + k % 4].b[k >= 4];
+      sum += val(ar) * val(br);
+    }
+    out[i] = (float)sum;
+  }
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+template <class F> void host_launch(dim3 grid, unsigned block, F body) {
+  const unsigned cl = host_cluster_size, threads = cl * block;
+  host_cluster_size = 1;
+  if (threads > HOST_MAX_FIBERS || grid.x % cl != 0) {
+    std::fprintf(stderr, "host_launch: %u blocks of %u threads in clusters of %u\\n", grid.x, block, cl);
+    std::abort();
+  }
+  for (unsigned r = 0; r < cl; ++r) host_block_barriers[r] = HostBarrier{block};
+  host_cluster_barrier.count = threads;
+  host_cluster_barrier.arrived = 0;
   for (unsigned w = 0; 32 * w < threads; ++w)
-    host_warp_barriers[w] = HostBarrier{threads - 32 * w < 32 ? threads - 32 * w : 32};
+    host_warp_barriers[w] = HostBarrier{block - (32 * w) % block < 32 ? block - (32 * w) % block : 32};
   while (host_stacks.size() < threads) host_stacks.push_back(static_cast<char*>(std::malloc(HOST_STACK)));
   host_fibers.assign(threads, HostFiber{nullptr, false});
   host_body = [](void* f) { (*static_cast<F*>(f))(); };
   host_body_arg = &body;
   for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
+    for (unsigned bx = 0; bx < grid.x; bx += cl) {
       for (unsigned t = 0; t < threads; ++t) {   // each fiber enters host_fiber_entry
         void** sp = reinterpret_cast<void**>(
             reinterpret_cast<uintptr_t>(host_stacks[t] + HOST_STACK) & ~uintptr_t(15));
@@ -224,16 +322,17 @@ template <class F> void host_launch(dim3 grid, unsigned threads, F body) {
         for (int r = 0; r < 6; ++r) *--sp = nullptr;
         host_fibers[t] = HostFiber{sp, false};
       }
-      blockIdx.x = bx;
       blockIdx.y = by;
-      blockDim.x = threads;
+      blockDim.x = block;
       gridDim.x = grid.x;
       gridDim.y = grid.y;
       for (unsigned live = threads; live > 0;) {
         host_progress = false;
         for (unsigned t = 0; t < threads; ++t) {
           if (host_fibers[t].done) continue;
-          threadIdx.x = t;
+          blockIdx.x = bx + t / block;
+          threadIdx.x = t % block;
+          host_fiber_id = t;
           host_current = t;
           host_fiber_switch(&host_sched_sp, host_fibers[t].sp);
           live -= host_fibers[t].done ? 1 : 0;

@@ -698,6 +698,31 @@ def test_mlp_kernels_at_hidden_width_match_plain(card, hidden):
 
 
 @pytest.mark.cuda
+def test_wide_mappo_kernel_on_the_widest_critic_where_clips_bind(card):
+    """K7 at hidden 256 on simple_world_comm, whose 204-wide joint critic is
+    the widest (the wide kernel reads its w1 rows from device memory): one
+    launch, both passes, on the trainer's epoch-0 batch and on the same batch
+    with both clips binding for about half of the samples; the counter + 1
+    each time, each leaf within 1e-4 of its largest entry of the plain
+    version, the metrics within 1e-4 relative."""
+    step = build_fused_mappo_step("simple_world_comm", 1024, n_steps=16, horizon=8,
+                                  block_envs=1024, hidden=256, device=card)
+    params = step.init_params(torch.Generator().manual_seed(7))
+    obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 2)
+    lpo_c, v_c, shares = fused_update.clip_binding_inputs(
+        logp_old, value, clip=0.2, generator=torch.Generator(card).manual_seed(3))
+    assert all(0.2 < s < 0.8 for s in shares), shares
+    for lpo, v_old, first_metric in ((logp_old, value, 1), (lpo_c, v_c, 0)):
+        before = fused_update.mappo_update_cuda.launches
+        got, got_m = step.update(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
+        assert fused_update.mappo_update_cuda.launches == before + 1
+        ref, ref_m = step.update.plain(params, obs, mv_oh, cm_oh, lpo, adv_n, ret, v_old)
+        _leaf_close(got, ref, 1e-4, "grads at hidden 256")
+        for a, b in zip(got_m[first_metric:], ref_m[first_metric:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [128, 256])
 @pytest.mark.parametrize("name", ["simple_spread", "simple_world_comm"])
 def test_maddpg_kernels_at_wide_width_match_plain(card, name, hidden):

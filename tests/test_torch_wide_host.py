@@ -7,9 +7,9 @@
   simple_spread and simple_speaker_listener: actions and episodes equal to
   the plain version's, the rest within float32 tolerances, the two tiles
   equal bit for bit;
-- K6 and K7 (``mpe_update.cu``: ``ppo_update_wide_kernel``, the weights
-  streamed in slices, the weight gradients added into each CTA's partial
-  tile by tile) over 3 CTAs, on simple_spread (96 envs: ragged tiles staged
+- K6 and K7 (``mpe_update.cu``: ``ppo_update_wide_kernel``, thread-block
+  clusters whose CTAs own blocks of units, the products 3xTF32) over 3
+  clusters, on simple_spread (96 envs: ragged tiles staged
   element by element) and on simple_speaker_listener (128 envs, staged in
   16-byte pieces) where both clips bind: every gradient leaf within 1e-4 of
   its largest entry;
@@ -59,8 +59,8 @@ def test_host_built_policy_kernels_at_wide_width(host_libs, hidden, name):
 @pytest.mark.parametrize("hidden", WIDTHS)
 def test_host_built_update_kernels_at_wide_width(host_libs, hidden, name, kind):
     """K6 (``ppo``) and K7 (``mappo``) of the library built at ``hidden``
-    over 3 CTAs on one step of the batch (5 or 6 tiles: two tiles a CTA for
-    some): simple_spread at epoch 0 on 96 envs, simple_speaker_listener on
+    over 3 clusters on one step of the batch (5 or 6 tiles: two tiles a
+    cluster for some): simple_spread at epoch 0 on 96 envs, simple_speaker_listener on
     128 envs whose logp_old and v_old make both clips bind; every gradient
     leaf within 1e-4 of its largest entry."""
     clip_binding = name == "simple_speaker_listener"

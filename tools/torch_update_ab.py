@@ -4,7 +4,7 @@ card, one checkout after another.
 
     python3 tools/torch_update_ab.py [--maddpg | --maddpg-bf16 | --rollout | --det | --policy |
         --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases | --wide | --bf16-wide |
-        --bf16-wide-stages | --maddpg-bf16-wide] ROOT [ROOT ...]
+        --bf16-wide-stages | --wide-stages | --maddpg-bf16-wide] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -77,6 +77,22 @@ weight-gradient adds (their products kept), the two weight-gradient adds
 whole, the head, the forward's tanh; each copy's ``update_round_bf16_kernel``
 and ``ppo_update_bf16_wide_kernel`` records summed.
 
+With ``--wide-stages`` (K6, K7 at hidden 128 and 256, where their time
+goes): copies of the checkout's float32 ``csrc/mpe_update.cu`` with its
+headers inlined and one stage of the wide kernel cut at a time (the cut
+copies compute a wrong gradient and are only timed), built as above at each
+width, and the float32 trainer's ``step.update`` (the wide kernel and its
+reduce) on paths b's and b2's batches with each, by CUDA events (the median
+of CALLS calls after WARM_UP; no profiler, so one process serves every
+copy). The cuts of the kernel that streams its weights from L2
+(``F32_WIDE_STREAM_CUTS``): the partial's reads and writes (the sums kept),
+the weights' loads from L2 (the products run on constant slices), each
+product whole (W1 X, W2 H1, W3 H2, W3^T G3, W2^T GH2, dW3, dW2, dW1), the
+tanh, the head; of the cluster kernel (``F32_WIDE_CLUSTER_CUTS``, chosen by
+the source): the writes into the other CTAs' shared memory, 3xTF32 as one
+TF32 product, each tensor-core product, the fp32 sums
+(logits, gh2, dW3), the tanh, the head.
+
 With ``--maddpg-bf16-phases`` (K9-bf16's phases): a copy of the checkout's
 ``csrc/mpe_maddpg_bf16.cu`` whose gradient and target/TD kernels stamp
 ``clock64`` at each phase boundary and ``%globaltimer`` at each CTA's start
@@ -120,7 +136,9 @@ bit within one call; and the registers and spill bytes of each
 ``policy_traj_kernel``, ``policy_rollout_kernel`` and ``maddpg_traj_kernel``
 instantiation (the largest spill of the kernel and the functions it calls).
 
-With ``--wide`` (K4-K9 at hidden 128 and 256): at each width, K6 and K7 on
+With ``--wide`` (K4-K9 at hidden 128 and 256): K6 and K7 on paths b's and
+b2's batches at hidden 8, 16, 32 and 64 (CUDA events and a SHA-256 of the
+gradient and metrics: two checkouts bit for bit); at 128 and 256, K6 and K7 on
 paths b's and b2's batches (simple_spread at the learner batch, a trainer of
 that width from a seeded init) as without a mode (CUDA events, then
 torch.profiler) and a SHA-256 of the gradient and metrics, and K5 (4096 x 64) and K4 (4096 x 1000) with a seeded
@@ -727,10 +745,23 @@ def time_wide(result: dict) -> None:
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     kscn = kernel_scenario("simple_spread")
-    # every library the checkout takes, built at once (one nvcc each, in parallel)
-    pairs = [(s, h) for h in WIDE for s in ("mpe_policy.cu", "mpe_update.cu")] + [
-        ("mpe_maddpg.cu", h) for h in WIDE + NARROW]
-    built = _build.build([(s, h) for s, h in pairs if h in _build.HIDDEN_WIDTHS.get(s, ())])
+    # every library the checkout takes at the widths other than 64, built at
+    # once (one nvcc each, in parallel)
+    built = _build.build([(s, h) for h in WIDE + NARROW if h != _build.DEFAULT_HIDDEN
+                          for s in _build.HIDDEN_SOURCES if h in _build.HIDDEN_WIDTHS[s]])
+    # K6 and K7 at 8-64, where both trees run ppo_update_kernel: the gradient's
+    # hashes and the time
+    for h in NARROW:
+        row = result.setdefault(f"hidden_{h}", {})
+        for path, build in (("b", build_fused_ppo_step), ("b2", build_fused_mappo_step)):
+            step = build("simple_spread", **dict(TRAIN, hidden=h))
+            params = step.init_params(torch.Generator().manual_seed(0))
+            obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
+            args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+            row[path] = {"ms": median_ms(lambda: step.update(*args)),
+                         "sha256": sha256s(leaves(step.update(*args)))}
+            del step, args, obs, mv_oh, cm_oh, logp_old, value, adv_n, ret
+            torch.cuda.empty_cache()
     for h in WIDE:
         row = result[f"hidden_{h}"] = {}
         try:
@@ -1127,6 +1158,143 @@ def time_bf16_wide_stages(result: dict) -> None:
         _build.library = library
 
 
+# cuts of the float32 wide kernel (ppo_update_wide_kernel, hidden 128 and 256)
+# as it streams w1 and w2 from L2 and adds each tile's weight gradients into
+# the CTA's partial (wide_stream.cuh, inlined into each copy): (file, old, new)
+F32_WIDE_STREAM_CUTS = {
+    "partial_rmw": [
+        ("wide_stream.cuh",
+         "old[i][j] = !first && n < NQ ? part[(size_t)(mb + r0 + i) * ldp + n] : 0.0f;",
+         "old[i][j] = 0.0f;"),
+        ("wide_stream.cuh",
+         "if (n < NQ) part[(size_t)(mb + r0 + i) * ldp + n] = old[i][j] + acc[i][j];",
+         "if (part == nullptr) part[(size_t)(mb + r0 + i) * ldp + n] = old[i][j] + acc[i][j];"),
+        ("wide_stream.cuh", "db[m] = first ? b : db[m] + b;", "if (db == nullptr) db[m] = b;"),
+        ("mpe_update.cu", "if (k3 + KS * r < KO) part[L.g_w3 + (k3 + KS * r) * H + g3c] += a3[r];",
+         "if (part == nullptr) part[L.g_w3 + (k3 + KS * r) * H + g3c] += a3[r];"),
+        ("mpe_update.cu", "if (g3c < R3 && k3 + KS * g3c < KO) part[L.g_b3 + k3 + KS * g3c] += ab3;",
+         "if (part == nullptr) part[L.g_b3 + k3 + KS * g3c] += ab3;")],
+    "weight_stream": [
+        ("wide_stream.cuh",
+         "pre[p] = k >= K ? 0.0f : TRANS ? a[(size_t)(u0 + mm) * K + k] : a[(size_t)k * H + u0 + mm];",
+         "pre[p] = k >= K ? 0.0f : 1.0e-3f;")],
+    "product_w1x": [("mpe_update.cu", "WS::product<IN, true>(weights + L.g_w1, st, slices, [&](int m, "
+                     "int s, float v) {\n      h1t[m * LD + s] = tanhf(v + b1[m]);\n    });", "")],
+    "product_w2h1": [("mpe_update.cu", "WS::product<H, true>(weights + L.g_w2, h1t, slices, [&](int m, "
+                      "int s, float v) {\n      h2t[m * LD + s] = tanhf(v + b2[m]);\n    });", "")],
+    "product_w3h2": [("mpe_update.cu", "z[r] = fmaf(w3[(kz + PER * r) * H + g], h, z[r]);", ";")],
+    "product_w3g3": [("mpe_update.cu", "resident_product<KO>(w3, gt, h2t, tid, [](int, float v, const "
+                      "float* c) {\n      return v * (1.0f - *c * *c);\n    });", "")],
+    "product_w2gh2": [("mpe_update.cu", "WS::product<H, false>(weights + L.g_w2, h2t, slices, [&](int m, "
+                       "int s, float v) {\n      float* c = h1t + m * LD + s;\n      *c = v * (1.0f - "
+                       "*c * *c);\n    });", "")],
+    "outer_dw3": [("mpe_update.cu", "a3[r] = fmaf(gq.x, hq.x, a3[r]);\n          a3[r] = fmaf(gq.y, "
+                   "hq.y, a3[r]);\n          a3[r] = fmaf(gq.z, hq.z, a3[r]);\n          a3[r] = "
+                   "fmaf(gq.w, hq.w, a3[r]);", "")],
+    "outer_dw2": [("mpe_update.cu", "WS::outer<H>(h2t, h1t, part + L.g_w2, H, part + L.g_b2, false);",
+                   "")],
+    "outer_dw1": [("mpe_update.cu", "WS::outer<IN>(h1t, st, part + L.g_w1, IN, part + L.g_b1, false);",
+                   "")],
+    "tanh": [("mpe_update.cu", "tanhf(", "(")],
+    "head": [("mpe_update.cu", "head<D>(st, gt, tid, m < n_samples, m / N, k, ms);", "")],
+}
+
+
+# ... and as the cluster kernel computes it (3xTF32 products, each CTA of a
+# cluster owning a block of units; tf32_mma.cuh inlined): the writes into the
+# other CTAs' shared memory (each CTA writes its own; the cluster barriers
+# cannot be cut, since a CTA may not leave while another writes into it),
+# 3xTF32 as one TF32 product, each
+# tensor-core product whole (W1 X, W2 H1, dW2, the GH1 parts W2^T GH2, dW1;
+# a runtime condition the compiler cannot fold keeps the call), the fp32
+# logits, gh2 and dW3 sums, the tanh, the head
+_SKIP = "if (n_rows < 0) "
+F32_WIDE_CLUSTER_CUTS = {
+    "cluster_writes": [
+        ("tf32_mma.cuh", "return reinterpret_cast<T*>(out);", "return rank == 1000u ? "
+         "reinterpret_cast<T*>(out) : p;")],
+    "3xtf32": [
+        ("tf32_mma.cuh", "mma_tf32(lo_acc(mt, nb), al[mt], bh[nb]);", ";"),
+        ("tf32_mma.cuh", "mma_tf32(lo_acc(mt, nb), ah[mt], bl[nb]);", ";"),
+        ("tf32_mma.cuh", "lo[i] = tf32_rna(x[i] - __uint_as_float(hi[i]));", "lo[i] = 0u;")],
+    "product_w1x": [("mpe_update.cu", "warp_mma3<1, 4, INP / 8, true>(",
+                     _SKIP + "warp_mma3<1, 4, INP / 8, true>(")],
+    "product_w2h1": [("mpe_update.cu", "warp_mma3<1, 4, H / 8, true>(",
+                      _SKIP + "warp_mma3<1, 4, H / 8, true>(")],
+    "outer_dw2": [("mpe_update.cu", "warp_mma3<2, NB2 / 2, TS / 8>(",
+                   _SKIP + "warp_mma3<2, NB2 / 2, TS / 8>(")],
+    "product_w2gh2": [("mpe_update.cu", "warp_mma3<1, 4, UO / 8, true>(",
+                       _SKIP + "warp_mma3<1, 4, UO / 8, true>(")],
+    "outer_dw1": [("mpe_update.cu", "warp_mma3<1, NC1, TS / 8>(",
+                   _SKIP + "warp_mma3<1, NC1, TS / 8>(")],
+    "fp32_sums": [
+        ("mpe_update.cu", "z[r] = fmaf(w3s[(kz + PER * r) * UO + u], h, z[r]);", ";"),
+        ("mpe_update.cu", "for (int o = 0; o < KO; ++o) v = fmaf(w3s[o * UO + u], gt[o * LD + s], v);",
+         ""),
+        ("mpe_update.cu", "a3[r] = fmaf(gq.x, hq.x, a3[r]);\n        a3[r] = fmaf(gq.y, hq.y, "
+         "a3[r]);\n        a3[r] = fmaf(gq.z, hq.z, a3[r]);\n        a3[r] = fmaf(gq.w, hq.w, "
+         "a3[r]);", "")],
+    "tanh": [("mpe_update.cu", "tanhf(", "(")],
+    "head": [("mpe_update.cu", "head<D>(st, gt, tid, m < n_samples, m / N, k, ms);", "")],
+}
+
+
+def f32_wide_stage_texts(src: str, headers: dict) -> dict:
+    """{variant: source text} of the float32 wide kernel's stage cuts on the
+    checkout's ``mpe_update.cu`` (``src``) with the headers it includes
+    (``headers``: {file name: text}) inlined, so that their parts can be cut
+    too; "whole" is the uncut copy."""
+    cuts = F32_WIDE_CLUSTER_CUTS if "warp_mma3<" in src else F32_WIDE_STREAM_CUTS
+
+    def variant(subs) -> str:
+        text, heads = src, dict(headers)
+        for where, old, new in subs:
+            if where == "mpe_update.cu":
+                text = cut(text, [(old, new)])
+            else:
+                heads[where] = cut(heads[where], [(old, new)])
+        for name, head in heads.items():
+            text = cut(text, [(f'#include "{name}"', head)])
+        return text
+
+    return {"whole": variant([]), **{f"no_{k}": variant(subs) for k, subs in cuts.items()}}
+
+
+def time_f32_wide_stages(result: dict) -> None:
+    from mpe_tpu_torch.learner import build_fused_mappo_step, build_fused_ppo_step
+    from mpe_tpu_torch.ops import _build
+    import torch
+
+    src = (_build.CSRC / "mpe_update.cu").read_text()
+    headers = {h: (_build.CSRC / h).read_text() for h in _build.HEADERS
+               if f'#include "{h}"' in src}
+    texts = f32_wide_stage_texts(src, headers)
+    result["cuts"] = sorted(texts)
+    library = _build.library
+    try:
+        for h in WIDE_STAGE_WIDTHS:
+            libs = variant_libs("mpe_update.cu", texts, h)
+            if hasattr(libs["whole"], "mpe_update_grid"):   # K6's, K7's actor and critic pass
+                result[f"grid at hidden {h}"] = [libs["whole"].mpe_update_grid(*p) for p in (
+                    (18, 0, 0), (18, 0, 1), (54, 0, 2))]
+            for path, build in (("b", build_fused_ppo_step), ("b2", build_fused_mappo_step)):
+                step = build("simple_spread", **dict(TRAIN, hidden=h))
+                params = step.init_params(torch.Generator().manual_seed(0))
+                obs, mv_oh, cm_oh, logp_old, value, adv_n, ret = step.collect(params, 3)
+                args = (params, obs, mv_oh, cm_oh, logp_old, adv_n, ret, value)
+                row = {}
+                for name, lib in libs.items():
+                    _build.library = (lambda source, hidden=64, lib=lib: lib if source ==
+                                      "mpe_update.cu" else library(source, hidden))
+                    row[name] = median_ms(lambda: step.update(*args))
+                _build.library = library
+                result[f"{path} at hidden {h}"] = row
+                del step, args
+                torch.cuda.empty_cache()
+    finally:
+        _build.library = library
+
+
 PHASE_STAMPS = r"""
 __device__ unsigned long long mpe_stamps[16384];
 __device__ __forceinline__ unsigned long long stamp_clock() {
@@ -1280,6 +1448,8 @@ def child(mode: str, root: str) -> None:
         time_bf16_wide(result, logs)
     elif mode == "bf16-wide-stages":
         time_bf16_wide_stages(result)
+    elif mode == "wide-stages":
+        time_f32_wide_stages(result)
     elif mode == "maddpg-bf16-wide":
         time_maddpg_bf16_wide(result, logs)
     else:
@@ -1297,7 +1467,7 @@ def main() -> int:
             "--bf16": "bf16", "--bf16-stages": "bf16-stages",
             "--maddpg-bf16-phases": "maddpg-bf16-phases", "--wide": "wide",
             "--bf16-wide": "bf16-wide", "--bf16-wide-stages": "bf16-wide-stages",
-            "--maddpg-bf16-wide": "maddpg-bf16-wide"}.get(
+            "--wide-stages": "wide-stages", "--maddpg-bf16-wide": "maddpg-bf16-wide"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
