@@ -317,7 +317,8 @@ failure ends the run with a non-zero exit code:
      scenario at the gate's shape; K9 as the trainer calls it (its launcher
      on the packed weight buffer) and from trees; one MADDPG update chunk of
      each of paths d, d2, d3 as the runner runs it (packed_step) under
-     torch.profiler (K9's device time split by its four kernels, the
+     torch.profiler (K9's device time split by its kernels, four at hidden
+     64 and five at 128 and 256 (K9_WIDE_KERNELS), the
      device's busy share, kernel launches per update) and of path d4 (K9-bf16's
      four kernels), and each K3 call of path e (its device time);
   5. a ``{"kernels": [...]}`` line (the K1-K9 rows name their scenarios
@@ -433,9 +434,19 @@ POLICY_TILE_RULE = ("ops/fused_policy.py::pick_tile (policy_tile for K4 and K5, 
 K9_TILE = {"samples_per_cta": "1024 / hidden (16 at 64)", "threads": 128,
            "micro_tile": "2 samples x 4 units", "grid": "batch / samples_per_cta x agents",
            "weight_grad_micro_tile": "4 x 4",
-           "at_128_and_256": "tiles of 32 samples, 256 threads, 4 units x 4 samples a thread; "
-                             "the gradient on a persistent grid of the CTAs the card holds, "
-                             "shared among the agents, each adding its tiles into its partial"}
+           "at_128_and_256": "five kernels: the nets' layer-1 and layer-2 weights transposed "
+                             "once a call; the critic's forward (h1, h2, q and the candidates' "
+                             "base into scratch) beside the target actions, one tile of 32 "
+                             "samples a CTA; the TD targets beside the candidates' Q, every "
+                             "(agent, candidate, sample) a column, 16384 / hidden columns a "
+                             "CTA, 8 units x 8 columns a thread; the critic's backward beside "
+                             "the actor, a partial per CTA; the reduce. Every product streams "
+                             "its weights by bulk copies (TMA) through a ring of 2 stages with "
+                             "mbarriers, two CTAs an SM",
+           "kernels_at_128_and_256": ["maddpg_transpose_wide_kernel",
+                                      "maddpg_forward_wide_kernel",
+                                      "maddpg_td_cand_wide_kernel",
+                                      "maddpg_backward_wide_kernel", "maddpg_reduce_kernel"]}
 K1_PLAIN_STEPS = 200
 # the other scenarios (K2) and the trajectories (K3): the learner batch of
 # tools/train_bench.py and tools/tpu_smoke.py's t_chunk; the gate's shape
@@ -481,8 +492,7 @@ WIDE_ITERS = 5
 # timed chunks, where 2 let one slow chunk (the host's, at 128) set the rate
 WIDE_MADDPG_NAMES = ("simple_spread", "simple_world_comm")
 WIDE_MADDPG_CHUNKS = 12
-K9_WIDE_KERNELS = ("maddpg_target_actions_wide_kernel", "maddpg_td_wide_kernel",
-                   "maddpg_update_wide_kernel", "maddpg_reduce_kernel")
+K9_WIDE_KERNELS = tuple(K9_TILE["kernels_at_128_and_256"])
 # ... and K9-bf16 (mpe_maddpg_bf16.cu) at the same widths, on the same rows
 # and with the float32 runner's trained params, then its update chunk with K8's
 # collection for WIDE_MADDPG_CHUNKS chunks, as path d4 runs it at 64
@@ -2513,17 +2523,60 @@ def actor_flip_model(params, rows, name: str, ref) -> dict:
     return tol
 
 
+def plain_maddpg_reordered(*args, seed: int | None = None, **kw):
+    """``plain_maddpg_update(*args, **kw)`` with each of its ordered sums (a
+    forward layer's over its inputs, the sums over candidates, heads and
+    logits) taken in another order: from the last term to the first, or with
+    ``seed`` in a random order drawn for each sum. Beside the plain version it
+    shows how far the order of the sums alone moves the result."""
+    import torch
+
+    from mpe_tpu_torch.ops import fused_maddpg_update as fmu
+
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+
+    def order(n: int) -> list:
+        if gen is None:
+            return list(range(n - 1, -1, -1))
+        return torch.randperm(n, generator=gen).tolist()
+
+    def dense(w, b, x):
+        q0, *rest = order(w.shape[1])
+        acc = x[..., q0:q0 + 1] * w[:, q0]
+        for q in rest:
+            acc = acc + x[..., q:q + 1] * w[:, q]
+        return acc + b
+
+    def seq_sum(terms):
+        m0, *rest = order(terms.shape[-1])
+        acc = terms[..., m0]
+        for m in rest:
+            acc = acc + terms[..., m]
+        return acc
+
+    kept = fmu._seq_dense_agents, fmu._seq_sum
+    fmu._seq_dense_agents, fmu._seq_sum = dense, seq_sum
+    try:
+        return fmu.plain_maddpg_update(*args, **kw)
+    finally:
+        fmu._seq_dense_agents, fmu._seq_sum = kept
+
+
 def gate_maddpg_bf16(name: str, params: dict, targets: dict, rows, label: str,
-                     trained: bool = False) -> dict:
+                     trained: bool = False, draws: int = 0) -> dict:
     """K9-bf16 on ``name`` against its plain bf16 version on ``rows``: the
     target actions equal wherever a head's two best target logits lie further
     apart than ``target_logit_tolerance`` (the flips below it counted and
     printed with their gaps); the gradient, with the kernel's own target
     actions fed to the plain version, each leaf within BF16_GRAD_TOL of its
     largest entry (on a ``trained`` batch ``actor_flip_model``'s bound printed
-    beside the actor leaves); the metrics within BF16_METRIC_RTOL; the
-    distance to the plain float32 version (the same target actions) printed
-    -> {max_abs_err, leaf errors, float32 distance, flips, ...}."""
+    beside the actor leaves, and, before the gate, the plain bf16 version's
+    leaf distances to itself with its sums reversed, ``plain_maddpg_reordered``:
+    what the order of the sums alone moves on this batch, and with ``draws``
+    the largest and the median of that many random orders); the metrics within
+    BF16_METRIC_RTOL; the distance to the plain float32 version (the same
+    target actions) printed -> {max_abs_err, leaf errors, float32 distance,
+    flips, ...}."""
     import torch
 
     from mpe_tpu_torch.ops.fused_maddpg_update import (maddpg_update_bf16_cuda, plain_maddpg_update,
@@ -2554,6 +2607,24 @@ def gate_maddpg_bf16(name: str, params: dict, targets: dict, rows, label: str,
     f32, _ = plain_maddpg_update(params, targets, rows, target_actions=act2, **hp)
     errs = tree_leaf_errors(got, ref)
     model = actor_flip_model(params, rows, name, ref) if trained else {}
+    reordered = {}
+    if trained:
+        rev = plain_maddpg_reordered(params, targets, rows, compute_dtype=torch.bfloat16,
+                                     target_actions=act2, **hp)[0]
+        reordered = tree_leaf_errors(rev, ref)
+        print(f"K9-bf16 ({name}, {label}) the plain bf16 version with its sums reversed "
+              "against itself: " + ", ".join(f"{key} {v:.3g}" for key, v in reordered.items()))
+        if draws:
+            runs = [tree_leaf_errors(plain_maddpg_reordered(
+                params, targets, rows, compute_dtype=torch.bfloat16, target_actions=act2,
+                seed=d, **hp)[0], ref) for d in range(draws)]
+            reordered = {"reversed": reordered,
+                         "random_max": {key: max(r[key] for r in runs) for key in errs},
+                         "random_median": {key: statistics.median(r[key] for r in runs)
+                                           for key in errs}}
+            print(f"K9-bf16 ({name}, {label}) ... in {draws} random orders, largest (median): "
+                  + ", ".join(f"{key} {reordered['random_max'][key]:.3g} "
+                              f"({reordered['random_median'][key]:.3g})" for key in errs))
     far = max(tree_leaf_errors(got, f32).values())
     m_err = [abs(float(x) - float(y)) / abs(float(y)) for x, y in zip(got_m, ref_m)]
     print(f"K9-bf16 ({name}, {label}) leaf errors against the plain bf16 version: "
@@ -2568,10 +2639,10 @@ def gate_maddpg_bf16(name: str, params: dict, targets: dict, rows, label: str,
     return {"max_abs_err": worst, "leaf_err": max(errs.values()), "leaf_errors": errs,
             "leaf_err_vs_plain_float32": far, "target_flips": int(flips.sum()),
             "target_flip_gaps": below[:8], "clear_share": float(clear.double().mean()),
-            "actor_error_model": model}
+            "actor_error_model": model, "plain_reversed_leaf_errors": reordered}
 
 
-def check_maddpg_bf16(name: str, trained: dict, rows_all, h: int = 64) -> dict:
+def check_maddpg_bf16(name: str, trained: dict, rows_all, h: int = 64, draws: int = 0) -> dict:
     """K9-bf16 on ``name`` at hidden ``h`` on two batches of MADDPG["batch"]
     rows of ``rows_all`` (the main path's ring; phase 3d: K8's rows): fresh
     init_maddpg params of that width and ``trained`` params (the main path's;
@@ -2582,7 +2653,8 @@ def check_maddpg_bf16(name: str, trained: dict, rows_all, h: int = 64) -> dict:
     the trained batch K9-bf16 per call on the packed buffers beside K9 on the
     same buffers, the plain bf16 version and autograd of the losses in
     float32 (no bf16 library computation exists), and the bound -> the
-    kernels line's by_scenario row."""
+    kernels line's by_scenario row. ``draws``: the trained gate's random-order
+    witnesses (``gate_maddpg_bf16``)."""
     import torch
 
     from mpe_tpu_torch.learner.maddpg import init_maddpg, maddpg_xla_grads
@@ -2609,7 +2681,7 @@ def check_maddpg_bf16(name: str, trained: dict, rows_all, h: int = 64) -> dict:
     assert 10 * near <= far, f"K9-bf16 ({name}): {near:.3g} from plain bf16, {far:.3g} from float32"
     targets = perturbed(trained)
     row["trained"] = gate_maddpg_bf16(name, trained, targets, rows, f"trained params{tag}",
-                                      trained=True)
+                                      trained=True, draws=draws)
 
     hp = dict(gamma=0.95, ent_coef=0.01)
     lay_bf16 = MaddpgUpdateLauncher(a, ow, k, 5, h, b, "cuda", compute_dtype=torch.bfloat16, **hp)
@@ -3265,7 +3337,7 @@ def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
     import torch
 
     from mpe_tpu_torch.learner.maddpg import collect_t_chunk, init_maddpg
-    from mpe_tpu_torch.ops import fused_maddpg
+    from mpe_tpu_torch.ops import _build, fused_maddpg
     from mpe_tpu_torch.ops.kernel_scenarios import kernel_scenario
 
     t0 = time.perf_counter()
@@ -3323,9 +3395,17 @@ def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
             err9, ms9, plain9, lib9, b9, tree9 = check_maddpg_update(name, mp, flat, tag)
             del got, ref, got_rows, tens, emit
             # the runner at this width: WIDE_MADDPG_CHUNKS chunks by phase, its
-            # launches read; K9 gated on its ring with the trained params
+            # launches read, each of K9's kernels counted by the library where
+            # it launched it; K9 gated on its ring with the trained params
+            k9_so = _build.library("mpe_maddpg.cu", h)
+            k9_so.mpe_maddpg_update_launched(-1)
             (launches, by, run, params, info, rate, collect_ms,
              update_ms) = maddpg_path(wrappers, name, WIDE_MADDPG_CHUNKS, hidden=h, actor_start=0)
+            by_kernel = {q: k9_so.mpe_maddpg_update_launched(j)
+                         for j, q in enumerate(K9_WIDE_KERNELS)}
+            calls9 = by["maddpg_update_kernel"][name]
+            assert all(n == calls9 for n in by_kernel.values()), \
+                f"K9 ({tag}): the runner's {calls9} calls launched {by_kernel}"
             ring = info["buffer"]
             err_ring = check_maddpg_update(name, params, ring.data[:ring.size],
                                            f"{tag}, the runner's ring and params")[0]
@@ -3359,7 +3439,9 @@ def wide_maddpg_phase(wrappers, regs_at: dict) -> dict:
                        max_abs_err=max(err9, err_ring), ms=ms9,
                        device_ms_per_update=prof.get("device_ms_per_update", "not measured"),
                        plain_ms=plain9, bound_ms=b9[0], bound_by=b9[1], library_ms=lib9,
-                       from_trees_ms=tree9, timed_on=f"batch {mb} of K8's rows"),
+                       from_trees_ms=tree9, timed_on=f"batch {mb} of K8's rows",
+                       launches_by_kernel=by_kernel,
+                       device_split_ms=prof.get("device_split_ms", "not measured")),
                    "maddpg_update_bf16_kernel": dict(
                        launches=out["paths"][f"MADDPG-bf16 on {name} at hidden {h}"]["launches"][
                            "maddpg_update_bf16_kernel"],

@@ -64,6 +64,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 #endif
 }
 
+// acc += A B over one m16n8k16 tile with the tile's 16 products summed from 0
+// by the tensor core and that sum added to acc in float32, rounded to nearest:
+// into a running accumulator the tensor core adds the new products truncated
+// against the accumulator's exponent, which biases a long sum of products by
+// some ulps of its own size
+__device__ __forceinline__ void mma_bf16_add(float (&acc)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_bf16(t, a, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = acc[i] + t[i];
+}
+
 // ---- ldmatrix -----------------------------------------------------------------
 //
 // q[i] of the 8 x 8 matrix i of a row-major bf16 tile M (ld elements a row):
@@ -181,8 +194,9 @@ __device__ __forceinline__ void frag_b_kn(const uint16_t* M, int ld, int k0, int
 
 // acc[NB] = A W^T (TB false: W [n][k], a forward product) or A W (TB true: W
 // [k][n], a backward product): the warp's 16 samples as A, a_of(kt, a) giving
-// k16 step kt's fragment, against NB n8 blocks of the bf16 tile W (ld a row)
-template <int NB, int KT, bool TB, class AF>
+// k16 step kt's fragment, against NB n8 blocks of the bf16 tile W (ld a row);
+// SPLIT: each step's sum added in float32 (mma_bf16_add)
+template <int NB, int KT, bool TB, bool SPLIT = false, class AF>
 __device__ __forceinline__ void warp_dense_f(AF a_of, const uint16_t* W, int ld, int lane,
                                              float (&acc)[NB][4]) {
 #pragma unroll
@@ -201,8 +215,13 @@ __device__ __forceinline__ void warp_dense_f(AF a_of, const uint16_t* W, int ld,
       } else {
         frag_b2_nk(W, ld, 8 * nb, 16 * kt, lane, b);
       }
-      mma_bf16(acc[nb], a, b[0]);
-      mma_bf16(acc[nb + 1], a, b[1]);
+      if constexpr (SPLIT) {
+        mma_bf16_add(acc[nb], a, b[0]);
+        mma_bf16_add(acc[nb + 1], a, b[1]);
+      } else {
+        mma_bf16(acc[nb], a, b[0]);
+        mma_bf16(acc[nb + 1], a, b[1]);
+      }
     }
     if constexpr (NB % 2 == 1) {
       uint32_t b[2];
@@ -211,7 +230,10 @@ __device__ __forceinline__ void warp_dense_f(AF a_of, const uint16_t* W, int ld,
       } else {
         frag_b_nk(W, ld, 8 * (NB - 1), 16 * kt, lane, b);
       }
-      mma_bf16(acc[NB - 1], a, b);
+      if constexpr (SPLIT)
+        mma_bf16_add(acc[NB - 1], a, b);
+      else
+        mma_bf16(acc[NB - 1], a, b);
     }
   }
 }

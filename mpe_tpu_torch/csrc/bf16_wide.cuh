@@ -95,8 +95,9 @@ struct BRing {
   // acc[mt][nb] = sum over the KT k16 steps of A(mt, kt) B(kt, nb): the warp's
   // MT m16 row blocks (a_of(mt, kt, a) gives A's fragment) against its NBW n8
   // blocks, streamed from src (the warp's part of a PackedB) through ring (the
-  // warp's ring), R - 1 steps ahead of the one computed on
-  template <int MT, int KT, class AF>
+  // warp's ring), R - 1 steps ahead of the one computed on; SPLIT: each step's
+  // sum added in float32 (bf16_mma.cuh::mma_bf16_add)
+  template <int MT, int KT, bool SPLIT = false, class AF>
   static __device__ __forceinline__ void product(AF a_of, const uint32_t* __restrict__ src,
                                                  uint32_t* ring, int lane,
                                                  float (&acc)[MT][NBW][4]) {
@@ -136,7 +137,12 @@ struct BRing {
         uint32_t a[4];
         a_of(mt, kt, a);
 #pragma unroll
-        for (int nb = 0; nb < NBW; ++nb) mma_bf16(acc[mt][nb], a, b[nb]);
+        for (int nb = 0; nb < NBW; ++nb) {
+          if constexpr (SPLIT)
+            mma_bf16_add(acc[mt][nb], a, b[nb]);
+          else
+            mma_bf16(acc[mt][nb], a, b[nb]);
+        }
       }
     }
   }

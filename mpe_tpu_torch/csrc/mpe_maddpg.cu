@@ -12,7 +12,10 @@
 //     replay rows [T,N,W], W = A*(2*OW + 5 + C + 1), the shared reward
 //     broadcast to every agent.
 // K9  maddpg_target_actions_kernel<D> + maddpg_td_kernel<D> +
-//     maddpg_update_kernel<D> + maddpg_reduce_kernel<D>, D = MaddpgDims<A, OW, C>,
+//     maddpg_update_kernel<D> + maddpg_reduce_kernel<D>, D = MaddpgDims<A, OW, C>
+//     (from hidden 128 maddpg_transpose_wide_kernel<D> +
+//     maddpg_forward_wide_kernel<D> + maddpg_td_cand_wide_kernel<D> +
+//     maddpg_backward_wide_kernel<D> + maddpg_reduce_kernel<D>),
 //     replace  mpe_tpu/ops/fused_maddpg_update.py::_maddpg_update_kernel
 //     (fused_maddpg_update): on a batch of replay rows [B, W], the first-argmax
 //     target actions per head, the TD targets y = r + gamma Q'(s', a'), the
@@ -28,9 +31,13 @@
 // H + 5 + C) multiply-adds each, H the hidden width of policy_mlp.cuh) and writes 4 W bytes of replay row; K9
 // needs per (sample, agent) pair the target and live critics on the J = A (OW
 // + 5 + C) joint inputs, 5 max(C, 1) candidates' layers 2-3 and the backward
-// passes (chip_smoke.py::OPS counts them) against 4 W bytes read per sample;
-// on the card a CTA also waits on its shared-memory reads and, at path d's
-// 192 CTAs, on the one wave it fills.
+// passes (chip_smoke.py::OPS counts them) against 4 W bytes read per sample.
+// Every forward sum keeps the plain version's order, each product rounded
+// before its add, so a multiply-add is two instructions and the floor is
+// about twice the bound; on the card a CTA also waits on its shared-memory
+// reads and on how evenly its grid fills the SMs. From hidden 128 the
+// candidates' layer 2 is most of the work (63% of the multiply-adds on
+// simple_world_comm, 36% on simple_spread).
 //
 // What the designs do about it.
 // K8 is K5's lane tile (mpe_policy.cu, policy_mlp.cuh) with a weight block per
@@ -80,18 +87,21 @@
 // sums the partials of an agent over the tiles in a fixed order, into the
 // live nets' padded layout (the gradient buffer the trainer's Adam reads), and
 // scales the metric sums. No float atomics: the result is the same from run
-// to run. Tensor cores (TF32 or 3xTF32) would sum in another order and are
-// left out.
+// to run. The forward products stay on the fp32 cores: tensor cores (TF32 or
+// 3xTF32) would sum in another order, and the expected-Q gradient needs the
+// plain version's; the backward ones are small at these widths.
 //
 // Hidden 128 and 256. The A actors no longer fit a CTA (235 KB at 128 on
 // simple_spread), so K8 reads them from device memory (ACTORS_SMEM), its
 // hidden layers on 8-row items that share each weight load within an agent's
 // rows, as K4 and K5 do there. K9's nets and its per-tile partials would not
 // fit either (about 480 MB of partials an update on simple_spread at 256):
-// it runs three wide kernels on tiles of 32 samples that stream the nets from
-// device memory in slices, its gradient on a persistent grid whose CTAs add
-// each tile into their own partial ("K9 at hidden 128 and 256" below). Widths
-// 8-64 keep the kernels above unchanged.
+// it runs five wide kernels ("K9 at hidden 128 and 256" below) whose
+// products stream the weights by bulk copies through a ring of
+// mbarrier-guarded stages (wide_stream.cuh), the candidates' Q a pass of its
+// own over (agent, candidate, sample) columns, and each kernel's units
+// sharing the card with other units that do not depend on them. Widths 8-64
+// keep the kernels above unchanged.
 
 #include "policy_mlp.cuh"
 #include "wide_stream.cuh"
@@ -997,46 +1007,70 @@ maddpg_update_kernel(const float* __restrict__ weights, const float* __restrict_
 
 // There the nets do not fit a CTA (simple_world_comm's critic alone 517 KB at
 // 256), nor would one partial gradient per tile of 1024 / H samples (about
-// 480 MB an update on simple_spread at 256). So the wide kernels keep K9's
-// four stages, its sums' order and its reduce, and change three things:
-//   tiles    TSW = 32 samples, 256 threads; every dense layer a product of
-//            unit blocks of UBW = 128 units, each thread 4 units x 4 samples;
-//   weights  every net stays in device memory (the L2 cache holds them for
-//            every CTA); a product streams its weights in slices of KBW
-//            inputs x UBW units through two shared buffers, the next slice
-//            loaded into registers while the CTA computes on the last one
-//            (WS::product), read in place: no transposed copies; w3, the
-//            biases and the candidates' own-action columns are read where
-//            they lie;
-//   gradient a persistent grid of wide_parts CTAs an agent (the card's
-//            occupancy), each striding over its agent's tiles; each tile's
-//            weight gradients are summed over its samples in registers and
-//            added into the CTA's partial in device memory (WS::outer; the
-//            CTA's first tile writes it), and maddpg_reduce_kernel sums the
-//            partials in a fixed order: no float atomics.
-// Each (sample, unit) sum of a forward product still runs over its inputs in
-// order from the first product, each product rounded before it is added, so
-// the target logits, the Q of every candidate, qbar, p and E are the plain
-// version's, as at the other widths. The candidates run one at a time: the
-// candidate's layer-1 rows tanh(base + (w1[:, m] + w1[:, C + j])) over the
-// critic's h1 rows, its layer 2 streamed into the h2 rows, its Q kept.
+// 480 MB an update on simple_spread at 256). And the candidates' layers 2-3
+// (NCAND H x H products a sample and agent) are most of the work: 63% of the
+// multiply-adds on simple_world_comm, 36% on simple_spread. So the wide path
+// keeps K9's sums, their order and its reduce, and runs five kernels:
+//   transpose   every agent's layer-1 and layer-2 weights of its four nets
+//               into [in][out] rows in scratch (WideT), once a call;
+//   forward     one CTA a unit, tiles of TSW = 32 samples: the critic's
+//               forward (h1, h2 and q for the backward, and the candidates'
+//               base, the pre-activation minus the own-action terms, into
+//               scratch) beside the target actions;
+//   td_cand     the TD targets of each tile beside the candidates' Q: every
+//               (agent, candidate, sample) a column, NCC = 16384 / H of one
+//               agent's columns a CTA: each column's h1 = tanh(base + (w1[:,
+//               m] + w1[:, C + j])) staged in shared memory, its layer 2
+//               against the critic's w2 (one w2 slice feeds 64 or 128
+//               columns), Q = w3 h2 + b3 -> [A][NCAND][B];
+//   backward    grid (2 P, agents): the critic's backward beside the actor
+//               (its forward, the expected-Q and entropy gradient from the
+//               candidates' Q, its backward), each CTA striding over its
+//               agent's tiles and adding them into its side of a partial (at
+//               path d's batch one tile a CTA, written once);
+//   reduce      each agent's partials summed in order.
+// Units of two kinds share a launch so that the card's scheduler fills the
+// SMs that one kind alone leaves idle (192 tiles of equal work on 132 SMs on
+// simple_world_comm, 96 on simple_spread); each unit writes its own outputs,
+// so the result does not depend on which SM ran it.
+// Every product streams its weights as [in][out] rows (the transposed copy in
+// the forward, w2 itself in the backward) through WideRing (wide_stream.cuh):
+// one bulk copy (TMA) a slice of 16 input rows into a ring of 2 stages with
+// mbarriers, warp 0 keeping the next in flight while the CTA computes on one,
+// two CTAs an SM (108 KB of shared memory and 128 registers a thread at
+// most, so that one CTA's staging, serial sums and barriers overlap the
+// other's products), each thread a register tile of
+// 8 units x 8 columns (candidates) or H / 32 units x 4 samples (tiles): per
+// input (RU + RC) / 4 float4 shared loads for RU RC multiply-adds. The weight
+// gradients are WideStream's: each tile's sums added into the CTA's partial
+// in device memory, the CTA's first tile writing it. Each (sample, unit) sum
+// of a forward product still runs over its inputs in order from the first
+// product, each product rounded before it is added, so the target logits,
+// the Q of every candidate, qbar, p and E are the plain version's, as at the
+// other widths. No float atomics: the result is the same from run to run.
 constexpr int THREADSW = 256;                 // a wide CTA's threads
 constexpr int TSW = 32;                       // samples per wide tile
 constexpr int LDW = TSW + 4;                  // a wide tile row's stride
-constexpr int UBW = 128;                      // units of a unit block
-constexpr int KBW = 16;                       // inputs of a weight slice
-constexpr int SLDW = UBW + 4;                 // a slice row's stride
-// the streamed products and weight-gradient sums (wide_stream.cuh): each
-// product rounded before its add, from the first
-using WS = WideStream<THREADSW, TSW, LDW, H, UBW, KBW, SLDW>;
-constexpr int SLICESW = WS::SLICES;           // the two slice buffers
+// the weight-gradient sums (wide_stream.cuh)
+using WS = WideStream<THREADSW, TSW, LDW, H>;
+// every product: slices of 16 input rows through a ring of 2 stages, so that
+// two CTAs fit an SM at 256 and one's serial phases overlap the other's
+// products
+using WR = WideRing<THREADSW, H, 16, 2>;
+// ... on a tile: 8 column groups of 4 samples, H / 32 units a thread
+constexpr int CGT = TSW / 4, RCT = 4, RUT = H * CGT / THREADSW;
+// ... on the candidates' columns: 8 units x 8 columns a thread
+constexpr int RUC = 8, RCC = 8, CGC = THREADSW * RUC / H, NCC = CGC * RCC, LDC = NCC + 4;
+// every wide kernel's shared memory starts with the ring's barriers and stages
+constexpr int S_RINGW = WR::BAR_FLOATS, S_ENDW = S_RINGW + WR::FLOATS;
 
-// a net's single output on the h2 rows at x (one sample's column, rows LDW
-// apart): the sum over the H units in order, then b3 (right after w3)
+// a net's single output on the h2 rows at x (one column, rows ld apart): the
+// sum over the H units in order, then b3 (right after w3)
+template <int LD = LDW>
 __device__ __forceinline__ float net_out_w(const float* __restrict__ w3, const float* x) {
   float q = w3[0] * x[0];
 #pragma unroll 16
-  for (int g = 1; g < H; ++g) q = q + w3[g] * x[g * LDW];
+  for (int g = 1; g < H; ++g) q = q + w3[g] * x[g * LD];
   return q + w3[H];
 }
 
@@ -1076,57 +1110,159 @@ __device__ __forceinline__ void wide_out_grads(const float* G, const float* H2, 
   }
 }
 
-// the wide kernels' shared memory (floats): the slice buffers, the
-// per-sample scalars (the gradient kernel's y, q, the candidates' Q [NCAND],
-// logits [K], metric terms [3]; the target kernel's logits [K]), then tile
-// rows [.][LDW]: the inputs (the joint; the agent's obs or s'), h1, h2, and in
-// the gradient kernel the candidates' base and the output gradients (1
-// critic, K actor). The candidates' layer-1 and layer-2 rows take h1 and h2.
+// epi(u, s, the sum over the K inputs, in order, of wt[k][u] X[k][s]) for
+// the H units and the tile's samples: wt a layer's transposed copy [K][H]
+// streamed through the ring, X [K][LDW]; ends at a barrier
+template <int K, class Epi>
+__device__ __forceinline__ void wide_dense(WR& ring, const float* __restrict__ wt,
+                                           const float* X, Epi epi) {
+  float acc[RUT][RCT];
+  ring.product<K, CGT, RCT, LDW>(wt, X, acc);
+  const int s0 = RCT * ((int)threadIdx.x % CGT), u0 = RUT * ((int)threadIdx.x / CGT);
+#pragma unroll
+  for (int r = 0; r < RUT; ++r)
+#pragma unroll
+    for (int e = 0; e < RCT; ++e) epi(u0 + r, s0 + e, acc[r][e]);
+  __syncthreads();
+}
+
+// h[u][s] = tanh(W x + b) on a tile: a layer of K inputs (wt its transposed
+// copy), x [K][LDW], h [H][LDW]; ends at a barrier
+template <int K>
+__device__ __forceinline__ void wide_tanh_layer(WR& ring, const float* __restrict__ wt,
+                                                const float* __restrict__ b, const float* x,
+                                                float* h) {
+  wide_dense<K>(ring, wt, x, [&](int u, int s, float v) { h[u * LDW + s] = tanhf(v + b[u]); });
+}
+
+// gh1 = (w2^T gh2) (1 - h1^2) on a tile, into h1's rows (gh2 [H][LDW]); w2
+// [H out][H in] streamed through the ring, its rows the inputs here; ends at
+// a barrier (a template, compiled only where a wide kernel calls it)
+template <int = 0>
+__device__ __forceinline__ void wide_back2(WR& ring, const float* __restrict__ w2,
+                                           const float* gh2, float* h1) {
+  wide_dense<H>(ring, w2, gh2, [&](int u, int s, float v) {
+    float* c = h1 + u * LDW + s;
+    *c = v * (1.0f - *c * *c);
+  });
+}
+
+// The transposed copies ([in][out] rows) of an agent's nets, so that each
+// ring slice of a forward product is one contiguous copy: the actor's w1
+// [OW][H] and w2 [H][H], the critic's w1 [J][H] and w2, then (at LIVE) the
+// same of the target nets; N floats an agent
+template <class D>
+struct WideT {
+  static constexpr int A1 = 0, A2 = A1 + D::OW * H, C1 = A2 + H * H, C2 = C1 + D::J * H,
+                       LIVE = C2 + H * H, N = 2 * LIVE;
+};
+
+// wt [A][WideT::N]: every agent's eight layer-1 and layer-2 weights
+// transposed; grid (blocks of 32 x 32, 8 matrices: net m / 2 (actor, critic,
+// target actor, target critic), layer m % 2; agents), 256 threads
+template <class D>
+__global__ void __launch_bounds__(256)
+maddpg_transpose_wide_kernel(const float* __restrict__ weights, float* __restrict__ wt) {
+  using T = WideT<D>;
+  __shared__ float blk[32][33];
+  const int m = blockIdx.y, i = blockIdx.z, net = m >> 1, layer = m & 1;
+  const bool critic = (net & 1) != 0, target = net >= 2;
+  const int K = layer ? H : critic ? D::J : D::OW;
+  const int bu = blockIdx.x % (H / 32), bk = blockIdx.x / (H / 32);
+  if (32 * bk >= K) return;                  // the whole block: K is per matrix
+  const float* w = weights + (target ? D::OFF_TA : 0) +
+                   (critic ? D::OFF_C + i * D::NCP + (layer ? D::CW2 : D::CW1)
+                           : D::OFF_A + i * D::NWP + (layer ? D::Actor::W2 : D::Actor::W1));
+  float* out = wt + (size_t)i * T::N + (target ? T::LIVE : 0) +
+               (critic ? (layer ? T::C2 : T::C1) : (layer ? T::A2 : T::A1));
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += 8)
+    if (32 * bk + tx < K) blk[r][tx] = w[(size_t)(32 * bu + r) * K + 32 * bk + tx];
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8)
+    if (32 * bk + r < K) out[(size_t)(32 * bk + r) * H + 32 * bu + tx] = blk[tx][r];
+}
+
+// the wide units' shared memory (floats): the ring's barriers and stages,
+// the per-sample scalars, then tile rows [.][LDW], the rows of an input that
+// is read no longer taking the next layer's output, so that two CTAs share an
+// SM at 256. Target actions: logits [K]; rows the agent's s' (then h2), h1.
+// TD targets and the critic's forward: rows the joint (then h2), h1. The
+// critic's backward: y, q, the metric terms [2]; rows h2 (then gh2, then the
+// joint), h1 (then gh1), the TD gradient. Actor: the candidates' Q [NCAND],
+// logits [K], the objective terms; rows the agent's obs (then h2, gh2, the
+// obs again), h1 (then gh1), the logit gradients [K]. Candidates: the columns'
+// rows [H][LDC] (h1, then h2). A kernel that runs two kinds of unit takes the
+// larger.
 template <class D>
 struct WideTaLayout {
-  static constexpr int S_Z = SLICESW, S_TILE = (S_Z + D::K * TSW + 3) / 4 * 4;
-  static constexpr int R_X = 0, R_H1 = D::OW, R_H2 = R_H1 + H, R_N = R_H2 + H;
+  static constexpr int S_Z = S_ENDW, S_TILE = (S_Z + D::K * TSW + 3) / 4 * 4;
+  static constexpr int R_X = 0, R_H2 = 0, R_H1 = D::OW > H ? D::OW : H, R_N = R_H1 + H;
   static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LDW) * sizeof(float);
 };
 template <class D>
 struct WideTdLayout {
-  static constexpr int S_TILE = SLICESW;
-  static constexpr int R_X = 0, R_H1 = D::J, R_H2 = R_H1 + H, R_N = R_H2 + H;
+  static constexpr int S_TILE = S_ENDW;
+  static constexpr int R_X = 0, R_H2 = 0, R_H1 = D::J > H ? D::J : H, R_N = R_H1 + H;
   static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LDW) * sizeof(float);
 };
 template <class D>
-struct WideLayout9 {
-  static constexpr int S_Y = SLICESW, S_Q = S_Y + TSW, S_QC = S_Q + TSW,
-                       S_Z = S_QC + D::NCAND * TSW, S_MS = S_Z + D::K * TSW,
-                       S_TILE = (S_MS + 3 * TSW + 3) / 4 * 4;
-  static constexpr int R_X = 0, R_H1 = D::J, R_H2 = R_H1 + H, R_BASE = R_H2 + H,
-                       R_G = R_BASE + H, R_N = R_G + D::K;
+struct WideCbLayout {
+  static constexpr int S_Y = S_ENDW, S_Q = S_Y + TSW, S_MS = S_Q + TSW,
+                       S_TILE = S_MS + 2 * TSW;
+  static constexpr int R_H2 = 0, R_X = 0, R_H1 = D::J > H ? D::J : H, R_G = R_H1 + H,
+                       R_N = R_G + 1;
   static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LDW) * sizeof(float);
+};
+template <class D>
+struct WideActorLayout {
+  static constexpr int S_QC = S_ENDW, S_Z = S_QC + D::NCAND * TSW,
+                       S_MS = S_Z + D::K * TSW, S_TILE = (S_MS + TSW + 3) / 4 * 4;
+  static constexpr int R_X = 0, R_H2 = 0, R_H1 = D::OW > H ? D::OW : H, R_G = R_H1 + H,
+                       R_N = R_G + D::K;
+  static constexpr size_t SMEM = (size_t)(S_TILE + R_N * LDW) * sizeof(float);
+};
+struct WideCandLayout {
+  static constexpr int S_H = S_ENDW;
+  static constexpr size_t SMEM = (size_t)(S_H + H * LDC) * sizeof(float);
+};
+constexpr size_t max_smem(size_t a, size_t b) { return a > b ? a : b; }
+template <class D>
+struct WideSmem {
+  static constexpr size_t FORWARD = max_smem(WideTaLayout<D>::SMEM, WideTdLayout<D>::SMEM),
+                          TD_CAND = max_smem(WideTdLayout<D>::SMEM, WideCandLayout::SMEM),
+                          BACKWARD = max_smem(WideCbLayout<D>::SMEM, WideActorLayout<D>::SMEM);
 };
 
-// grid (batch tiles of TSW samples, agents): agent i's target actor on s',
-// streamed; the first-argmax move and comm -> act2 [A, NH, B]
+// The scratch after the partials (floats, 16-byte aligned blocks): the nets'
+// transposed copies [A][WideT::N], then per sample the candidates' base
+// [A][H][B], the critic's h1 and h2 [A][2][H][B] and Q [A][B], and last the
+// candidates' Q [A][NCAND][B]
 template <class D>
-__global__ void __launch_bounds__(THREADSW)
-maddpg_target_actions_wide_kernel(const float* __restrict__ weights,
-                                  const float* __restrict__ rows, int* __restrict__ act2,
-                                  int batch) {
+struct WideScratch {
+  static constexpr int FIXED = D::A * WideT<D>::N;
+  static constexpr int PER_SAMPLE = D::A * (3 * H + 1 + D::NCAND);
+};
+
+// agent i's target actor on s' of the tile at b0: the first-argmax move and
+// comm -> act2 [A, NH, B]
+template <class D>
+__device__ __forceinline__ void target_unit(WR& ring, float* smem, const float* __restrict__ weights,
+                                            const float* __restrict__ wtr,
+                                            const float* __restrict__ rows, int* __restrict__ act2,
+                                            int batch, int i, int b0) {
   using L = WideTaLayout<D>;
   using M = typename D::Actor;
-  extern __shared__ __align__(16) float smem[];
-  const int i = blockIdx.y, b0 = blockIdx.x * TSW;
+  using T = WideT<D>;
   const float* wt = weights + D::OFF_TA + i * D::NWP;
+  const float* tt = wtr + (size_t)i * T::N + T::LIVE;        // the target actor's copies
   float* tile = smem + L::S_TILE;
   float* h1 = tile + L::R_H1 * LDW;
   float* h2 = tile + L::R_H2 * LDW;
   load_rows<D::OW, TSW, LDW>(rows, D::RW, D::R_OBS2 + i * D::OW, b0, batch, tile);
   __syncthreads();
-  WS::product<D::OW, true>(wt + M::W1, tile, smem, [&](int u, int s, float v) {
-    h1[u * LDW + s] = tanhf(v + wt[M::B1 + u]);
-  });
-  WS::product<H, true>(wt + M::W2, h1, smem, [&](int u, int s, float v) {
-    h2[u * LDW + s] = tanhf(v + wt[M::B2 + u]);
-  });
+  wide_tanh_layer<D::OW>(ring, tt + T::A1, wt + M::B1, tile, h1);
+  wide_tanh_layer<H>(ring, tt + T::A2, wt + M::B2, h1, h2);
   wide_logits<D::K>(wt + M::W3, wt + M::B3, h2, smem + L::S_Z);
   __syncthreads();
   const int s = threadIdx.x;
@@ -1139,17 +1275,62 @@ maddpg_target_actions_wide_kernel(const float* __restrict__ weights,
   }
 }
 
-// grid (batch tiles of TSW samples, agents): y [A, B] = r_i + gamma Q'_i(s', a'),
-// the target critic streamed
+// agent i's critic forward on the tile at b0: h1 and h2 [A][2][H][B] and q
+// [A][B] for the backward, the candidates' base [A][H][B] (pre-activation
+// minus the own-action terms), for the samples < batch
 template <class D>
-__global__ void __launch_bounds__(THREADSW)
-maddpg_td_wide_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
-                      const int* __restrict__ act2, float* __restrict__ y, int batch,
-                      float gamma) {
+__device__ __forceinline__ void critic_fwd_unit(WR& ring, float* smem,
+                                                const float* __restrict__ weights,
+                                                const float* __restrict__ wtr,
+                                                const float* __restrict__ rows,
+                                                float* __restrict__ base, float* __restrict__ hs,
+                                                float* __restrict__ q, int batch, int i, int b0) {
   using L = WideTdLayout<D>;
-  extern __shared__ __align__(16) float smem[];
-  const int i = blockIdx.y, b0 = blockIdx.x * TSW;
+  constexpr int K = D::K, J = D::J;
+  const float* wc = weights + D::OFF_C + i * D::NCP;
+  const float* tc = wtr + (size_t)i * WideT<D>::N;          // the critic's copies
+  float* xr = smem + L::S_TILE;
+  float* h1 = xr + L::R_H1 * LDW;
+  float* h2 = xr + L::R_H2 * LDW;
+  float* bi = base + (size_t)i * H * batch;
+  float* h1g = hs + (size_t)i * 2 * H * batch;
+  float* h2g = h1g + (size_t)H * batch;
+  const int own = D::AO + i * K;             // the agent's own-action inputs of the joint
+  load_rows<J, TSW, LDW>(rows, D::RW, 0, b0, batch, xr);                      // (s, a)
+  __syncthreads();
+  wide_dense<J>(ring, tc + WideT<D>::C1, xr, [&](int u, int s, float v) {
+    const float pre = v + wc[D::CB1 + u];
+    const float* w = wc + D::CW1 + (size_t)u * J + own;
+    float o = w[0] * xr[own * LDW + s];
+#pragma unroll
+    for (int c = 1; c < K; ++c) o = o + w[c] * xr[(own + c) * LDW + s];
+    const float h = tanhf(pre);
+    h1[u * LDW + s] = h;
+    if (b0 + s < batch) {
+      bi[(size_t)u * batch + b0 + s] = pre - o;
+      h1g[(size_t)u * batch + b0 + s] = h;
+    }
+  });
+  wide_dense<H>(ring, tc + WideT<D>::C2, h1, [&](int u, int s, float v) {
+    const float h = tanhf(v + wc[D::CB2 + u]);
+    h2[u * LDW + s] = h;
+    if (b0 + s < batch) h2g[(size_t)u * batch + b0 + s] = h;
+  });
+  const int s = threadIdx.x;
+  if (s < TSW && b0 + s < batch) q[(size_t)i * batch + b0 + s] = net_out_w(wc + D::CW3, h2 + s);
+}
+
+// y [A, B] = r_i + gamma Q'_i(s', a') on the tile at b0, agent i's target critic
+template <class D>
+__device__ __forceinline__ void td_unit(WR& ring, float* smem, const float* __restrict__ weights,
+                                        const float* __restrict__ wtr,
+                                        const float* __restrict__ rows,
+                                        const int* __restrict__ act2, float* __restrict__ y,
+                                        int batch, float gamma, int i, int b0) {
+  using L = WideTdLayout<D>;
+  using T = WideT<D>;
   const float* wt = weights + D::OFF_TC + i * D::NCP;
+  const float* tt = wtr + (size_t)i * T::N + T::LIVE;        // the target critic's copies
   float* tile = smem + L::S_TILE;
   float* h1 = tile + L::R_H1 * LDW;
   float* h2 = tile + L::R_H2 * LDW;
@@ -1163,12 +1344,8 @@ maddpg_td_wide_kernel(const float* __restrict__ weights, const float* __restrict
     tile[(D::AO + r) * LDW + s] = hot ? 1.0f : 0.0f;
   }
   __syncthreads();
-  WS::product<D::J, true>(wt + D::CW1, tile, smem, [&](int u, int s, float v) {
-    h1[u * LDW + s] = tanhf(v + wt[D::CB1 + u]);
-  });
-  WS::product<H, true>(wt + D::CW2, h1, smem, [&](int u, int s, float v) {
-    h2[u * LDW + s] = tanhf(v + wt[D::CB2 + u]);
-  });
+  wide_tanh_layer<D::J>(ring, tt + T::C1, wt + D::CB1, tile, h1);
+  wide_tanh_layer<H>(ring, tt + T::C2, wt + D::CB2, h1, h2);
   const int s = threadIdx.x;
   if (s < TSW && b0 + s < batch) {
     const float* rb = rows + (size_t)(b0 + s) * D::RW;
@@ -1176,67 +1353,106 @@ maddpg_td_wide_kernel(const float* __restrict__ weights, const float* __restrict
   }
 }
 
-// grid (wide_parts CTAs, agents), THREADSW threads: CTA p of agent i takes the
-// tiles p, p + P, ... of TSW samples (P = gridDim.x) and adds each tile's
-// gradient into its partial, partials [A][P][NG]
+// the candidates' column tile t of the A x per (per = ceil(NCAND B / NCC)):
+// agent t / per's columns n0 = (t % per) NCC .. + NCC, column n = cand B + b;
+// q [A][NCAND][B] each candidate's Q of each sample, as the plain version's
+// _critic_tail gives it
 template <class D>
-__global__ void __launch_bounds__(THREADSW, 1)
-maddpg_update_wide_kernel(const float* __restrict__ weights, const float* __restrict__ rows,
-                          const float* __restrict__ y, float* __restrict__ partials, int batch,
-                          MaddpgConsts k) {
-  using L = WideLayout9<D>;
-  using M = typename D::Actor;
-  constexpr int K = D::K, C = D::C, CX = D::CX, J = D::J, OWN = D::AO;
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, i = blockIdx.y;
+__device__ __forceinline__ void cand_unit(WR& ring, float* smem, const float* __restrict__ weights,
+                                          const float* __restrict__ wtr,
+                                          const float* __restrict__ base, float* __restrict__ q,
+                                          int batch, int t) {
+  constexpr int C = D::C, CX = D::CX, J = D::J;
+  static_assert(H <= 64 || THREADSW % NCC == 0, "a staging thread keeps one column");
+  float* hc = smem + WideCandLayout::S_H;
+  const int tid = threadIdx.x;
+  const int n_cols = D::NCAND * batch, per = (n_cols + NCC - 1) / NCC;
+  const int i = t / per, n0 = (t - i * per) * NCC;
+  const float* wc = weights + D::OFF_C + i * D::NCP;
+  {
+    // column n's layer 1: h1 = tanh(base + (w1[:, own move m] + w1[:, own comm
+    // j])), each thread one column; a column past the end repeats the tile's
+    // first and is not stored
+    const int col = tid % NCC;
+    const int n = n0 + col < n_cols ? n0 + col : n0;
+    const int cand = n / batch, b = n - cand * batch;
+    const int m = cand / CX, jc = cand - m * CX;
+    const float* wm = wc + D::CW1 + D::AO + i * D::K + m;   // w1[u][own + m] at wm[u J]
+    const float* wj = wm + MW - m + jc;                      // w1[u][own + MW + j]
+    const float* bu = base + (size_t)i * H * batch + b;      // base[i][u][b] at bu[u B]
+#pragma unroll 8
+    for (int u = tid / NCC; u < H; u += THREADSW / NCC) {
+      const float dc = C > 0 ? wm[(size_t)u * J] + wj[(size_t)u * J] : wm[(size_t)u * J];
+      hc[u * LDC + col] = tanhf(bu[(size_t)u * batch] + dc);
+    }
+  }
+  __syncthreads();
+  float acc[RUC][RCC];
+  ring.product<H, CGC, RCC, LDC>(wtr + (size_t)i * WideT<D>::N + WideT<D>::C2, hc, acc);
+  __syncthreads();                            // every warp has read the h1 rows
+  const int s0 = RCC * (tid % CGC), u0 = RUC * (tid / CGC);
+#pragma unroll
+  for (int r = 0; r < RUC; ++r)
+#pragma unroll
+    for (int e = 0; e < RCC; ++e)
+      hc[(u0 + r) * LDC + s0 + e] = tanhf(acc[r][e] + wc[D::CB2 + u0 + r]);
+  __syncthreads();
+  for (int col = tid; col < NCC; col += THREADSW)
+    if (n0 + col < n_cols)
+      q[(size_t)i * n_cols + n0 + col] = net_out_w<LDC>(wc + D::CW3, hc + col);
+}
+
+// agent i's critic backward over the tiles p, p + P, ... (each tile's
+// gradient added into the partial part): dW3, gh2 = w3 g3 (1 - h2^2), dW2,
+// gh1 = (w2^T gh2) (1 - h1^2), dW1, and the tile's critic loss and Q sums
+template <class D>
+__device__ __forceinline__ void critic_bwd_loop(WR& ring, float* smem,
+                                                const float* __restrict__ weights,
+                                                const float* __restrict__ rows,
+                                                const float* __restrict__ y,
+                                                const float* __restrict__ hs,
+                                                const float* __restrict__ q, float* part,
+                                                int batch, int i, int p, int P,
+                                                const MaddpgConsts& k) {
+  using L = WideCbLayout<D>;
+  constexpr int J = D::J;
+  const int tid = threadIdx.x;
   const int n_tiles = (batch + TSW - 1) / TSW;
   const float* wc = weights + D::OFF_C + i * D::NCP;
-  const float* wa = weights + D::OFF_A + i * D::NWP;
-  float* tile = smem + L::S_TILE;
-  float* xr = tile + L::R_X * LDW;
-  float* h1 = tile + L::R_H1 * LDW;
-  float* h2 = tile + L::R_H2 * LDW;
-  float* base = tile + L::R_BASE * LDW;
-  float* g = tile + L::R_G * LDW;
+  const float* h1g = hs + (size_t)i * 2 * H * batch;
+  const float* h2g = h1g + (size_t)H * batch;
+  float* xr = smem + L::S_TILE;
+  float* h1 = xr + L::R_H1 * LDW;
+  float* h2 = xr + L::R_H2 * LDW;
+  float* g = xr + L::R_G * LDW;
   float* ms = smem + L::S_MS;
-  float* part = partials + ((size_t)i * gridDim.x + blockIdx.x) * D::NG;
   float* pc = part + D::G_CRITIC;
-  float* pa = part + D::G_ACTOR;
-  const int own = OWN + i * K;               // the agent's own-action inputs of the joint
-
-  for (int ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
-    const bool first = ti == (int)blockIdx.x;
+  for (int ti = p; ti < n_tiles; ti += P) {
+    const bool first = ti == p;
     const int b0 = ti * TSW;
-    if (tid < TSW) smem[L::S_Y + tid] = b0 + tid < batch ? y[(size_t)i * batch + b0 + tid] : 0.0f;
-    load_rows<J, TSW, LDW>(rows, D::RW, 0, b0, batch, xr);                    // (s, a)
-    __syncthreads();
-
-    // ---- critic forward and the candidates' base: pre - the own-action terms ----
-    WS::product<J, true>(wc + D::CW1, xr, smem, [&](int u, int s, float v) {
-      const float pre = v + wc[D::CB1 + u];
-      const float* w = wc + D::CW1 + (size_t)u * J + own;
-      float o = w[0] * xr[own * LDW + s];
-#pragma unroll
-      for (int c = 1; c < K; ++c) o = o + w[c] * xr[(own + c) * LDW + s];
-      h1[u * LDW + s] = tanhf(pre);
-      base[u * LDW + s] = pre - o;
-    });
-    WS::product<H, true>(wc + D::CW2, h1, smem, [&](int u, int s, float v) {
-      h2[u * LDW + s] = tanhf(v + wc[D::CB2 + u]);
-    });
-    if (tid < TSW) {                          // q and the TD gradient
-      const int s = tid;
+    if (tid < TSW) {
+      const bool valid = b0 + tid < batch;
+      smem[L::S_Y + tid] = valid ? y[(size_t)i * batch + b0 + tid] : 0.0f;
+      smem[L::S_Q + tid] = valid ? q[(size_t)i * batch + b0 + tid] : 0.0f;
+    }
+#pragma unroll 4
+    for (int e = tid; e < H * TSW; e += THREADSW) {   // h1, h2 of the forward (0 past the batch)
+      const int u = e / TSW, s = e - u * TSW;
       const bool valid = b0 + s < batch;
-      const float q = net_out_w(wc + D::CW3, h2 + s);
-      const float d = valid ? q - smem[L::S_Y + s] : 0.0f;
-      smem[L::S_Q + s] = q;
-      g[s] = (2.0f * k.inv) * d;
-      ms[s] = d * d;
-      ms[TSW + s] = valid ? q : 0.0f;
+      h1[u * LDW + s] = valid ? h1g[(size_t)u * batch + b0 + s] : 0.0f;
+      h2[u * LDW + s] = valid ? h2g[(size_t)u * batch + b0 + s] : 0.0f;
     }
     __syncthreads();
-
-    // ---- critic backward: dW3, gh2 = w3 g3 (1 - h2^2), dW2, gh1 = (w2^T gh2) (1 - h1^2), dW1 ----
+    if (tid < TSW) {                          // the TD gradient
+      const int s = tid;
+      const bool valid = b0 + s < batch;
+      const float qs = smem[L::S_Q + s];
+      const float d = valid ? qs - smem[L::S_Y + s] : 0.0f;
+      g[s] = (2.0f * k.inv) * d;
+      ms[s] = d * d;
+      ms[TSW + s] = valid ? qs : 0.0f;
+    }
+    __syncthreads();
     wide_out_grads<1>(g, h2, pc + D::CW3, pc + D::CB3, first);
     __syncthreads();
     for (int e = tid; e < H * TSW; e += THREADSW) {
@@ -1247,45 +1463,58 @@ maddpg_update_wide_kernel(const float* __restrict__ weights, const float* __rest
     __syncthreads();
     WS::outer<H>(h2, h1, pc + D::CW2, H, pc + D::CB2, first);
     __syncthreads();
-    WS::product<H, false>(wc + D::CW2, h2, smem, [&](int u, int s, float v) {
-      const float hv = h1[u * LDW + s];
-      h1[u * LDW + s] = v * (1.0f - hv * hv);
-    });
-    WS::outer<J>(h1, xr, pc + D::CW1, J, pc + D::CB1, first);
+    wide_back2(ring, wc + D::CW2, h2, h1);
+    load_rows<J, TSW, LDW>(rows, D::RW, 0, b0, batch, xr);    // (s, a), over gh2's rows
     __syncthreads();
-
-    // ---- the candidates' Q, one at a time: candidate m CX + j's h1 =
-    // tanh(base + (w1[:, own move m] + w1[:, own comm j])) into the h1 rows,
-    // its h2 into the h2 rows, then its Q ----
-    for (int cand = 0; cand < D::NCAND; ++cand) {
-      const int m = cand / CX, jc = cand % CX;
-      for (int e = tid; e < H * TSW; e += THREADSW) {
-        const int u = e / TSW, s = e - u * TSW;
-        const float* w = wc + D::CW1 + (size_t)u * J + own;
-        const float dc = C > 0 ? w[m] + w[MW + jc] : w[m];
-        h1[u * LDW + s] = tanhf(base[u * LDW + s] + dc);
-      }
-      __syncthreads();
-      WS::product<H, true>(wc + D::CW2, h1, smem, [&](int u, int s, float v) {
-        h2[u * LDW + s] = tanhf(v + wc[D::CB2 + u]);
-      });
-      if (tid < TSW) smem[L::S_QC + cand * TSW + tid] = net_out_w(wc + D::CW3, h2 + tid);
+    WS::outer<J>(h1, xr, pc + D::CW1, J, pc + D::CB1, first);
+    if (tid < 2) {                            // the tile's critic loss and Q sums, in order
+      float total = 0.0f;
+      for (int s = 0; s < TSW; ++s) total = total + ms[tid * TSW + s];
+      part[D::G_MS + tid] = first ? total : part[D::G_MS + tid] + total;
     }
+    __syncthreads();                          // the tile's reads are done
+  }
+}
 
-    // ---- actor: forward, expected-Q and entropy gradient, backward ----
+// agent i's actor over the tiles p, p + P, ...: the forward, the expected-Q and
+// entropy gradient from the candidates' Q (qc [A][NCAND][B]), the backward,
+// each tile's gradient added into the partial part, and its objective sum
+template <class D>
+__device__ __forceinline__ void actor_loop(WR& ring, float* smem, const float* __restrict__ weights,
+                                           const float* __restrict__ wtr,
+                                           const float* __restrict__ rows,
+                                           const float* __restrict__ qc, float* part, int batch,
+                                           int i, int p, int P, const MaddpgConsts& k) {
+  using L = WideActorLayout<D>;
+  using M = typename D::Actor;
+  constexpr int K = D::K;
+  const int tid = threadIdx.x;
+  const int n_tiles = (batch + TSW - 1) / TSW;
+  const float* wa = weights + D::OFF_A + i * D::NWP;
+  const float* ta = wtr + (size_t)i * WideT<D>::N;          // the actor's copies
+  const float* qi = qc + (size_t)i * D::NCAND * batch;
+  float* xr = smem + L::S_TILE;
+  float* h1 = xr + L::R_H1 * LDW;
+  float* h2 = xr + L::R_H2 * LDW;
+  float* g = xr + L::R_G * LDW;
+  float* ms = smem + L::S_MS;
+  float* pa = part + D::G_ACTOR;
+  for (int ti = p; ti < n_tiles; ti += P) {
+    const bool first = ti == p;
+    const int b0 = ti * TSW;
+    for (int e = tid; e < D::NCAND * TSW; e += THREADSW) {   // the candidates' Q of the tile
+      const int c = e / TSW, s = e - c * TSW;
+      smem[L::S_QC + e] = b0 + s < batch ? qi[(size_t)c * batch + b0 + s] : 0.0f;
+    }
     load_rows<D::OW, TSW, LDW>(rows, D::RW, i * D::OW, b0, batch, xr);
     __syncthreads();
-    WS::product<D::OW, true>(wa + M::W1, xr, smem, [&](int u, int s, float v) {
-      h1[u * LDW + s] = tanhf(v + wa[M::B1 + u]);
-    });
-    WS::product<H, true>(wa + M::W2, h1, smem, [&](int u, int s, float v) {
-      h2[u * LDW + s] = tanhf(v + wa[M::B2 + u]);
-    });
+    wide_tanh_layer<D::OW>(ring, ta + WideT<D>::A1, wa + M::B1, xr, h1);
+    wide_tanh_layer<H>(ring, ta + WideT<D>::A2, wa + M::B2, h1, h2);
     wide_logits<K>(wa + M::W3, wa + M::B3, h2, smem + L::S_Z);
     __syncthreads();
     if (tid < TSW)
-      ms[2 * TSW + tid] = actor_head<D, TSW>(smem + L::S_Z + tid, smem + L::S_QC + tid, g + tid,
-                                             LDW, b0 + tid < batch, k);
+      ms[tid] = actor_head<D, TSW>(smem + L::S_Z + tid, smem + L::S_QC + tid, g + tid, LDW,
+                                   b0 + tid < batch, k);
     __syncthreads();
     wide_out_grads<K>(g, h2, pa + M::W3, pa + M::B3, first);
     __syncthreads();
@@ -1300,49 +1529,123 @@ maddpg_update_wide_kernel(const float* __restrict__ weights, const float* __rest
     __syncthreads();
     WS::outer<H>(h2, h1, pa + M::W2, H, pa + M::B2, first);
     __syncthreads();
-    WS::product<H, false>(wa + M::W2, h2, smem, [&](int u, int s, float v) {
-      const float hv = h1[u * LDW + s];
-      h1[u * LDW + s] = v * (1.0f - hv * hv);
-    });
+    wide_back2(ring, wa + M::W2, h2, h1);
+    load_rows<D::OW, TSW, LDW>(rows, D::RW, i * D::OW, b0, batch, xr);   // over gh2's rows
+    __syncthreads();
     WS::outer<D::OW>(h1, xr, pa + M::W1, D::OW, pa + M::B1, first);
-    if (tid < 3) {                            // the tile's metric sums, in order
+    if (tid == 0) {                           // the tile's actor objective sum, in order
       float total = 0.0f;
-      for (int s = 0; s < TSW; ++s) total = total + ms[tid * TSW + s];
-      part[D::G_MS + tid] = first ? total : part[D::G_MS + tid] + total;
+      for (int s = 0; s < TSW; ++s) total = total + ms[s];
+      part[D::G_MS + 2] = first ? total : part[D::G_MS + 2] + total;
     }
     __syncthreads();                          // the tile's reads are done
   }
 }
 
-// the wide gradient kernel's CTAs an agent: all that the card holds at once,
-// shared among the agents (at least one each)
+// grid (2 tiles, agents): CTA x < tiles runs agent y's critic forward on tile
+// x, the others its target actions on tile x - tiles; the two kinds share
+// the card, each CTA one unit
+template <class D>
+__global__ void __launch_bounds__(THREADSW, 2)
+maddpg_forward_wide_kernel(const float* __restrict__ weights, const float* __restrict__ wtr,
+                           const float* __restrict__ rows, int* __restrict__ act2,
+                           float* __restrict__ base, float* __restrict__ hs,
+                           float* __restrict__ q, int batch) {
+  extern __shared__ __align__(16) float smem[];
+  WR ring(smem, smem + S_RINGW);
+  __syncthreads();                            // the ring's barriers
+  const int nt = (int)gridDim.x / 2, i = blockIdx.y;
+  if ((int)blockIdx.x < nt)
+    critic_fwd_unit<D>(ring, smem, weights, wtr, rows, base, hs, q, batch, i, blockIdx.x * TSW);
+  else
+    target_unit<D>(ring, smem, weights, wtr, rows, act2, batch, i, (blockIdx.x - nt) * TSW);
+}
+
+// 1-D grid: the first A tiles CTAs the TD targets of (agent x / tiles, tile
+// x % tiles), the rest one candidates' column tile each (cand_unit)
+template <class D>
+__global__ void __launch_bounds__(THREADSW, 2)
+maddpg_td_cand_wide_kernel(const float* __restrict__ weights, const float* __restrict__ wtr,
+                           const float* __restrict__ rows, const int* __restrict__ act2,
+                           float* __restrict__ y, const float* __restrict__ base,
+                           float* __restrict__ qc, int batch, float gamma) {
+  extern __shared__ __align__(16) float smem[];
+  WR ring(smem, smem + S_RINGW);
+  __syncthreads();                            // the ring's barriers
+  const int nt = (batch + TSW - 1) / TSW, x = blockIdx.x;
+  if (x < D::A * nt)
+    td_unit<D>(ring, smem, weights, wtr, rows, act2, y, batch, gamma, x / nt, (x % nt) * TSW);
+  else
+    cand_unit<D>(ring, smem, weights, wtr, base, qc, batch, x - D::A * nt);
+}
+
+// grid (2 P, agents): CTA x < P runs agent y's critic backward over its tiles
+// x, x + P, ..., the others its actor over the tiles x - P, ...; each adds its
+// tiles into its side of partial slot (y, x mod P), partials [A][P][NG]
+template <class D>
+__global__ void __launch_bounds__(THREADSW, 2)
+maddpg_backward_wide_kernel(const float* __restrict__ weights, const float* __restrict__ wtr,
+                            const float* __restrict__ rows, const float* __restrict__ y,
+                            const float* __restrict__ hs, const float* __restrict__ q,
+                            const float* __restrict__ qc, float* __restrict__ partials,
+                            int batch, MaddpgConsts k) {
+  extern __shared__ __align__(16) float smem[];
+  WR ring(smem, smem + S_RINGW);
+  __syncthreads();                            // the ring's barriers
+  const int P = (int)gridDim.x / 2, i = blockIdx.y;
+  const int p = (int)blockIdx.x < P ? (int)blockIdx.x : (int)blockIdx.x - P;
+  float* part = partials + ((size_t)i * P + p) * D::NG;
+  if ((int)blockIdx.x < P)
+    critic_bwd_loop<D>(ring, smem, weights, rows, y, hs, q, part, batch, i, p, P, k);
+  else
+    actor_loop<D>(ring, smem, weights, wtr, rows, qc, part, batch, i, p, P, k);
+}
+
+// KERNEL's CTAs that one SM of the current card holds at once with SMEM bytes
+// (its shared-memory attribute set first), or 0 on an error
+template <auto KERNEL, size_t SMEM>
+int wide_ctas_per_sm() {
+  static const int n = [] {
+    int per_sm = 0;
+    if (cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, THREADSW, SMEM) !=
+            cudaSuccess)
+      return 0;
+    return per_sm;
+  }();
+  return n;
+}
+
+// the backward kernel's partials an agent at most, P: twice the CTAs the
+// card holds at once, shared among the agents (at least one each), so that
+// at path d's batch each CTA takes one tile and writes its partial once (no
+// reads back) and the card's scheduler deals the 2 P A CTAs out as SMs free;
+// -1 on an error
 template <class D>
 int wide_parts() {
   static const int parts = [] {
-    int dev = 0, sms = 0, per_sm = 0;
+    const int per_sm =
+        wide_ctas_per_sm<maddpg_backward_wide_kernel<D>, WideSmem<D>::BACKWARD>();
+    int dev = 0, sms = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaFuncSetAttribute(maddpg_update_wide_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)WideLayout9<D>::SMEM) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, maddpg_update_wide_kernel<D>,
-                                                      THREADSW, WideLayout9<D>::SMEM) !=
-            cudaSuccess)
+        sms < 1 || per_sm < 1)
       return -1;
-    const int n = sms * per_sm / D::A;
+    const int n = 2 * sms * per_sm / D::A;
     return n > 0 ? n : 1;
   }();
   return parts;
 }
 
 // The gradient in the parameters' layout, grads [A NWP + A NCP]: the actors
-// [A][NWP], then the critics [A][NCP], each entry summed over the tiles in order,
-// the padding 0; metrics [3] = (critic loss, actor loss, Q mean): each term
-// summed over an agent's tiles, the agents in order, times inv, the actor
-// objective negated
+// [A][NWP], then the critics [A][NCP], each entry summed over an agent's
+// n_parts partials in order, the padding 0; metrics [3] = (critic loss, actor
+// loss, Q mean): each term summed over an agent's partials, the agents in
+// order, times inv, the actor objective negated
 template <class D>
 __global__ void maddpg_reduce_kernel(const float* __restrict__ partials, float* __restrict__ grads,
-                                     float* __restrict__ metrics, int n_tiles, float inv) {
+                                     float* __restrict__ metrics, int n_parts, float inv) {
   constexpr int NA = D::A * D::NWP, NT = NA + D::A * D::NCP;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < NT) {
@@ -1358,9 +1661,9 @@ __global__ void maddpg_reduce_kernel(const float* __restrict__ partials, float* 
     }
     float total = 0.0f;
     if (e >= 0) {
-      const float* p = partials + (size_t)a * n_tiles * D::NG + e;
+      const float* p = partials + (size_t)a * n_parts * D::NG + e;
 #pragma unroll 8
-      for (int t = 0; t < n_tiles; ++t) total = total + p[(size_t)t * D::NG];
+      for (int t = 0; t < n_parts; ++t) total = total + p[(size_t)t * D::NG];
     }
     grads[idx] = total;
   } else if (idx < NT + 3) {
@@ -1368,9 +1671,9 @@ __global__ void maddpg_reduce_kernel(const float* __restrict__ partials, float* 
     float sum = 0.0f;
     for (int a = 0; a < D::A; ++a) {
       float ta = 0.0f;
-      const float* p = partials + (size_t)a * n_tiles * D::NG + D::G_MS + term;
+      const float* p = partials + (size_t)a * n_parts * D::NG + D::G_MS + term;
 #pragma unroll 8
-      for (int t = 0; t < n_tiles; ++t) ta = ta + p[(size_t)t * D::NG];
+      for (int t = 0; t < n_parts; ++t) ta = ta + p[(size_t)t * D::NG];
       sum = a == 0 ? ta : sum + ta;
     }
     metrics[m] = m == 1 ? -sum * inv : sum * inv;
@@ -1409,6 +1712,19 @@ int launch_traj(const void* params, const float* weights, float* obs, float* act
   return (int)cudaGetLastError();
 }
 
+// K9's kernels that this library has launched since the counts were last
+// zeroed (mpe_maddpg_update_launched), each counted where its launch returned
+// no error: at 8-64 the target-actions, TD, gradient and reduce kernels (0-3),
+// at 128 and 256 the transpose, forward, TD-and-candidates, backward and
+// reduce kernels (0-4)
+int k9_launched[5];
+
+inline cudaError_t counted(int which) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++k9_launched[which];
+  return err;
+}
+
 // hidden 8-64: grid (batch tiles of TS9, agents), a partial per tile
 template <class D>
 int launch_update_narrow(const float* weights, const float* rows, int* act2, float* y,
@@ -1435,64 +1751,81 @@ int launch_update_narrow(const float* weights, const float* rows, int* act2, flo
   const dim3 grid(n_tiles, D::A);
   maddpg_target_actions_kernel<D><<<grid, THREADS9, TaLayout<D>::SMEM, stream>>>(weights, rows,
                                                                                  act2, batch);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = counted(0);
   if (err != cudaSuccess) return (int)err;
   maddpg_td_kernel<D><<<grid, THREADS9, TdLayout<D>::SMEM, stream>>>(weights, rows, act2, y,
                                                                       batch, gamma);
-  err = cudaGetLastError();
+  err = counted(1);
   if (err != cudaSuccess) return (int)err;
   const MaddpgConsts k{gamma, ent_coef, inv};
   maddpg_update_kernel<D><<<grid, THREADS9, Layout9<D>::SMEM, stream>>>(weights, rows, y,
                                                                          partials, batch, k);
-  err = cudaGetLastError();
+  err = counted(2);
   if (err != cudaSuccess) return (int)err;
   constexpr int n_out = D::A * (D::NWP + D::NCP) + 3;
   maddpg_reduce_kernel<D><<<(n_out + 255) / 256, 256, 0, stream>>>(partials, grads, metrics,
                                                                    n_tiles, inv);
-  return (int)cudaGetLastError();
+  return (int)counted(3);
 }
 
-// hidden 128 and 256: the wide kernels, the gradient on a persistent grid of
-// min(tiles, wide_parts) CTAs an agent, a partial per CTA
+// hidden 128 and 256: five wide kernels (transpose, forward, td_cand,
+// backward, reduce); the backward on a grid of 2 P CTAs an agent, P = min(tiles,
+// wide_parts), a partial per critic and actor CTA pair (pair p adds the tiles
+// p, p + P, ...), which the reduce sums in order; after the partials (16-byte
+// aligned) the scratch of WideScratch (layout constants 7 and 8)
 template <class D>
 int launch_update_wide(const float* weights, const float* rows, int* act2, float* y,
                        float* partials, float* grads, float* metrics, int batch, float gamma,
                        float ent_coef, float inv, cudaStream_t stream) {
-  static_assert(WideLayout9<D>::SMEM <= SMEM_MAX && WideTdLayout<D>::SMEM <= SMEM_MAX &&
-                    WideTaLayout<D>::SMEM <= SMEM_MAX,
+  using SM = WideSmem<D>;
+  static_assert(SM::FORWARD <= SMEM_MAX && SM::TD_CAND <= SMEM_MAX && SM::BACKWARD <= SMEM_MAX,
                 "a wide K9 CTA exceeds the shared memory of an SM");
+  static_assert(WideT<D>::N % 4 == 0, "the transposed copies start on 16 bytes (bulk copies)");
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(maddpg_target_actions_wide_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(maddpg_forward_wide_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)WideTaLayout<D>::SMEM);
+                                         (int)SM::FORWARD);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(maddpg_td_wide_kernel<D>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)WideTdLayout<D>::SMEM);
+    return cudaFuncSetAttribute(maddpg_td_cand_wide_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SM::TD_CAND);
   }();
   if (attr != cudaSuccess) return (int)attr;
   const int parts = wide_parts<D>();
-  if (parts < 1) return (int)cudaErrorInvalidValue;
+  if (parts < 1 || (reinterpret_cast<uintptr_t>(weights) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = (batch + TSW - 1) / TSW;
   const int n_parts = n_tiles < parts ? n_tiles : parts;
-  const dim3 grid(n_tiles, D::A);
-  maddpg_target_actions_wide_kernel<D><<<grid, THREADSW, WideTaLayout<D>::SMEM, stream>>>(
-      weights, rows, act2, batch);
-  cudaError_t err = cudaGetLastError();
+  const int cand_tiles = D::A * ((D::NCAND * batch + NCC - 1) / NCC);
+  float* wtr = partials + ((size_t)D::A * n_parts * D::NG + 3) / 4 * 4;
+  float* base = wtr + WideScratch<D>::FIXED;
+  float* hs = base + (size_t)D::A * H * batch;
+  float* q = hs + (size_t)D::A * 2 * H * batch;
+  float* qc = q + (size_t)D::A * batch;
+  constexpr int kmax = D::J > H ? D::J : H;  // the widest input of the eight layers
+  const dim3 wt_grid((kmax + 31) / 32 * (H / 32), 8, D::A);
+  maddpg_transpose_wide_kernel<D><<<wt_grid, 256, 0, stream>>>(weights, wtr);
+  cudaError_t err = counted(0);
   if (err != cudaSuccess) return (int)err;
-  maddpg_td_wide_kernel<D><<<grid, THREADSW, WideTdLayout<D>::SMEM, stream>>>(
-      weights, rows, act2, y, batch, gamma);
-  err = cudaGetLastError();
+  const dim3 fwd_grid(2 * n_tiles, D::A);
+  maddpg_forward_wide_kernel<D><<<fwd_grid, THREADSW, SM::FORWARD, stream>>>(
+      weights, wtr, rows, act2, base, hs, q, batch);
+  err = counted(1);
+  if (err != cudaSuccess) return (int)err;
+  const int tc_grid = D::A * n_tiles + cand_tiles;
+  maddpg_td_cand_wide_kernel<D><<<tc_grid, THREADSW, SM::TD_CAND, stream>>>(
+      weights, wtr, rows, act2, y, base, qc, batch, gamma);
+  err = counted(2);
   if (err != cudaSuccess) return (int)err;
   const MaddpgConsts k{gamma, ent_coef, inv};
-  maddpg_update_wide_kernel<D><<<dim3(n_parts, D::A), THREADSW, WideLayout9<D>::SMEM, stream>>>(
-      weights, rows, y, partials, batch, k);
-  err = cudaGetLastError();
+  const dim3 bwd_grid(2 * n_parts, D::A);
+  maddpg_backward_wide_kernel<D><<<bwd_grid, THREADSW, SM::BACKWARD, stream>>>(
+      weights, wtr, rows, y, hs, q, qc, partials, batch, k);
+  err = counted(3);
   if (err != cudaSuccess) return (int)err;
   constexpr int n_out = D::A * (D::NWP + D::NCP) + 3;
   maddpg_reduce_kernel<D><<<(n_out + 255) / 256, 256, 0, stream>>>(partials, grads, metrics,
                                                                    n_parts, inv);
-  return (int)cudaGetLastError();
+  return (int)counted(4);
 }
 
 template <class D>
@@ -1511,22 +1844,32 @@ int launch_update(const float* weights, const float* rows, int* act2, float* y, 
 // the layout constants the wrapper mirrors: 0 actor stride, 1 critic stride,
 // 2 weights, 3 gradient per agent, 4 samples per tile, 5 no bf16 scratch (-1;
 // mpe_maddpg_bf16.cu's), 6 the partial gradients an agent at most (from
-// hidden 128 the wide grid's CTAs an agent, wide_parts; else -1: one a tile)
+// hidden 128 the backward kernel's partials an agent, wide_parts; else -1:
+// one a tile), 7 the floats a sample of the scratch after the partials
+// (from hidden 128 WideScratch's PER_SAMPLE; else -1), 8 the floats of the
+// scratch that no sample sets (from hidden 128 the nets' transposed copies,
+// WideScratch's FIXED; else -1)
 template <class D>
 int layout(int which) {
-  if (which == 6) {
-    if constexpr (H > 64) return wide_parts<D>();
+  if (which >= 6 && which <= 8) {
+    if constexpr (H > 64) {
+      if (which == 6) return wide_parts<D>();
+      return which == 7 ? WideScratch<D>::PER_SAMPLE : WideScratch<D>::FIXED;
+    }
     return -1;
   }
   const int v[5] = {D::NWP, D::NCP, D::N_WEIGHTS, D::NG, H > 64 ? TSW : TS9};
   return (which >= 0 && which < 5) ? v[which] : -1;
 }
 
+// the dynamic shared memory (bytes) of the target-action (which 0), TD (1)
+// and gradient (2) kernels; from hidden 128 of the forward (0), TD and
+// candidates (1) and backward (2) kernels
 template <class D>
 int update_smem(int which) {
   size_t v[3];
   if constexpr (H > 64) {
-    v[0] = WideTaLayout<D>::SMEM, v[1] = WideTdLayout<D>::SMEM, v[2] = WideLayout9<D>::SMEM;
+    v[0] = WideSmem<D>::FORWARD, v[1] = WideSmem<D>::TD_CAND, v[2] = WideSmem<D>::BACKWARD;
   } else {
     v[0] = TaLayout<D>::SMEM, v[1] = TdLayout<D>::SMEM, v[2] = Layout9<D>::SMEM;
   }
@@ -1571,6 +1914,16 @@ int mpe_maddpg_update(int scenario, const float* weights, const float* rows, int
                                   ent_coef, inv, stream)
   MPE_SCENARIO_SWITCH(MPE_MADDPG_UPDATE)
 #undef MPE_MADDPG_UPDATE
+}
+
+// K9's kernel `which` (k9_launched's order) launched since the counts were
+// last zeroed; which -1 zeroes them and returns 0
+int mpe_maddpg_update_launched(int which) {
+  if (which == -1) {
+    for (int& n : k9_launched) n = 0;
+    return 0;
+  }
+  return (which >= 0 && which < 5) ? k9_launched[which] : -1;
 }
 
 int mpe_maddpg_update_layout(int scenario, int which) {

@@ -106,6 +106,15 @@
 // 32 took 0.094 / 0.255 ms a call on simple_spread at 128 / 256 (tiles of 64:
 // 0.106 / 0.266) but 0.323 / 0.751 on simple_world_comm (0.226 / 0.484),
 // whose grid of 22 CTAs an agent then takes some tiles twice.
+//
+// Their sums over a product's k16 steps (every layer, the candidates' Q, the
+// logits) are taken in float32, each step's tensor-core sum started from 0
+// and added to the running sum rounded to nearest (bf16_mma.cuh::
+// mma_bf16_add): chained through the tensor core's accumulator, each step's
+// products were truncated against the running sum, which biased a layer's
+// pre-activation by some ulps and, on one trained batch, put actor.l1.w six
+// times further from the plain bf16 version than the plain version with its
+// sums reversed lies from itself (PERF.md, PR 24).
 
 #include <cuda_runtime.h>
 #ifdef __CUDACC__
@@ -1197,11 +1206,12 @@ __device__ __forceinline__ auto w3_part(const float* __restrict__ net, uint16_t*
 
 // acc = X W^T over the tile's MTS row blocks and the warp's units: X the
 // sample-major bf16 tile [TSW][ldx], W streamed from p (the warp's part of a
-// PackedB of KT k16 steps) through the warp's ring
+// PackedB of KT k16 steps) through the warp's ring, each step's sum added in
+// float32 (mma_bf16_add)
 template <int KT>
 __device__ __forceinline__ void wide_dense(const uint16_t* X, int ldx, const uint32_t* p,
                                            uint32_t* ring, int lane, float (&acc)[MTS][NBW][4]) {
-  WRing::product<MTS, KT>(
+  WRing::product<MTS, KT, true>(
       [&](int mt, int kt, uint32_t (&a)[4]) { frag_a_mk(X, ldx, 16 * mt, 16 * kt, lane, a); }, p,
       ring, lane, acc);
 }
@@ -1272,7 +1282,8 @@ __device__ __forceinline__ void tanh_grad(float (&g)[MTS][NBW][4], const float (
 }
 
 // the warp's part of a single output h W3^T over its units (h post-tanh,
-// rounded here), rows 16 mt + g and + 8 from the lanes t = 0 into qp [TSW]
+// rounded here; each k16 step's sum added in float32), rows 16 mt + g and + 8
+// from the lanes t = 0 into qp [TSW]
 __device__ __forceinline__ void q_part(const float (&h)[MTS][NBW][4], const uint16_t* W3, int u0,
                                        float* qp, int lane) {
   uint32_t bw[QW][2];
@@ -1284,7 +1295,7 @@ __device__ __forceinline__ void q_part(const float (&h)[MTS][NBW][4], const uint
     pack_a(h[mt], a);
     float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < QW; ++j) mma_bf16(z, a[j], bw[j]);
+    for (int j = 0; j < QW; ++j) mma_bf16_add(z, a[j], bw[j]);
     if ((lane & 3) == 0) {
       qp[16 * mt + (lane >> 2)] = z[0];
       qp[16 * mt + (lane >> 2) + 8] = z[2];
@@ -1301,7 +1312,7 @@ __device__ __forceinline__ void wide_logits(const uint16_t* H2, const uint16_t* 
   const int mt = warp % MTS, nb = warp / MTS;
   if (nb < NBO) {
     float z[1][4];
-    warp_dense_f<1, KTW, false>(
+    warp_dense_f<1, KTW, false, true>(
         [&](int kt, uint32_t (&a)[4]) { frag_a_mk(H2, LHW, 16 * mt, 16 * kt, lane, a); },
         W3 + 8 * nb * LHW, LHW, lane, z);
 #pragma unroll

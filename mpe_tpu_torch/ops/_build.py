@@ -184,6 +184,7 @@ SIGNATURES = {
         "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],
         "mpe_maddpg_update_layout": [_I, _I],
         "mpe_maddpg_update_smem": [_I, _I],
+        "mpe_maddpg_update_launched": [_I],
     },
     "mpe_maddpg_bf16.cu": {                 # mpe_maddpg.cu's K9 entries
         "mpe_maddpg_update": [_I] + [_P] * 7 + [_I] + [_F] * 3 + [_P],

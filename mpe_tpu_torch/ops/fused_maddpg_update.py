@@ -37,10 +37,16 @@ into one buffer (``PackedLayout``). On a CUDA device ``from_rows`` launches
 ``maddpg_target_actions_kernel``, ``maddpg_td_kernel``,
 ``maddpg_update_kernel`` and ``maddpg_reduce_kernel`` (``csrc/mpe_maddpg.cu``,
 float32, built at the params' hidden width: 8, 16, 32, 64, 128 or 256,
-``_build.HIDDEN_WIDTHS["mpe_maddpg.cu"]``; at 128 and 256 the wide kernels
-``maddpg_target_actions_wide_kernel``, ``maddpg_td_wide_kernel`` and
-``maddpg_update_wide_kernel``, the last on a persistent grid that
-``partials_floats`` sizes), instantiated for the scenario whose widths the
+``_build.HIDDEN_WIDTHS["mpe_maddpg.cu"]``; at 128 and 256 five wide kernels:
+``maddpg_transpose_wide_kernel`` (the nets' weights as [in][out] rows),
+``maddpg_forward_wide_kernel`` (the critic's forward beside the target
+actions), ``maddpg_td_cand_wide_kernel`` (the TD targets beside the
+candidates' Q, a pass of its own over (agent, candidate, sample) columns,
+left last in the scratch as ``plain_candidate_q`` lays it out),
+``maddpg_backward_wide_kernel`` (the critic's backward beside the actor) and
+the reduce; ``partials_floats`` sizes the partials and the scratch; the
+library counts each kernel where it launches it, ``mpe_maddpg_update_launched``),
+instantiated for the scenario whose widths the
 params have; on the CPU it runs ``plain_maddpg_update`` in ``dtype``. The
 trainer's chunk (``learner.maddpg.build_fused_update_chunk``) keeps its
 state in that buffer and launches K9 through ``MaddpgUpdateLauncher``. The target actors sum each layer in the kernel's order, so the
@@ -183,6 +189,35 @@ def _head_grad(p, s, qbar, exp_q, ent_coef: float, inv: float):
             + (ent_coef * p) * (s - _seq_sum(p * s)[..., None])) * inv
 
 
+def _candidate_q(c, pre, act, mw: int, rnd=_keep):
+    """Every candidate's Q on the (move x comm) grid -> [B, A, mw cx]: the
+    critic's layer-1 pre-activation ``pre [B, A, H]`` without each agent's
+    own-action columns (a product with ``act [B, A, K]``), plus the
+    candidate's column sum (float32, as JAX's dcand), through layers 2-3."""
+    a, k = act.shape[1], act.shape[-1]
+    ao = c["l1"]["w"].shape[1] - a * k
+    cw = k - mw
+    w_act = torch.stack([c["l1"]["w"][i, ao + i * k:ao + (i + 1) * k] for i in range(a)])
+    base = pre - _seq_sum(rnd(act)[..., None, :] * rnd(w_act).transpose(1, 2))  # [B, A, H]
+    dcand = [w_act[:, m] + w_act[:, mw + j] if cw else w_act[:, m]
+             for m in range(mw) for j in range(max(cw, 1))]                 # [A, H] each
+    return torch.stack([_critic_tail(c, torch.tanh(base + dc), rnd)[1] for dc in dcand], dim=-1)
+
+
+def plain_candidate_q(params, rows_b, *, mw: int):
+    """The Q of every agent's candidates on replay rows ``[B, W]``, as the
+    plain version computes them (float32) -> ``[A, mw cx, B]``, the layout of
+    the wide K9's candidates' Q at the end of its scratch."""
+    c = {q: {w: x.detach().float() for w, x in layer.items()} for q, layer in
+         params["critic"].items()}
+    a, o, _ = params["actor"]["l1"]["w"].shape
+    k = params["actor"]["out"]["w"].shape[-1]
+    rows = rows_b.float()
+    act = _split_rows(rows, a, o, k)[1]
+    pre = _critic_layers(c, rows[:, :a * (o + k)])[0]
+    return _candidate_q(c, pre, act, mw).permute(1, 2, 0)
+
+
 def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_coef: float,
                         dtype=torch.float32, compute_dtype=None, target_actions=None):
     """The JAX ``_maddpg_update_kernel`` on the whole batch at once, in
@@ -244,15 +279,8 @@ def plain_maddpg_update(params, targets, rows_b, *, mw: int, gamma: float, ent_c
               "out": {"w": torch.einsum("bag,ba->ag", rnd(h2), rnd(g3))[..., None],
                       "b": g3.sum(0)[:, None]}}
 
-    # 4. candidate Q on the (move x comm) grid: layer-1 reuse without each
-    # agent's own-action columns (a product), plus the candidate's column sum
-    # (float32, as JAX's dcand)
-    w_act = torch.stack([c["l1"]["w"][i, a * o + i * k:a * o + (i + 1) * k] for i in range(a)])
-    base = pre - _seq_sum(rnd(act)[..., None, :] * rnd(w_act).transpose(1, 2))  # [B, A, H]
-    dcand = [w_act[:, m] + w_act[:, mw + j] if cw else w_act[:, m]
-             for m in range(mw) for j in range(max(cw, 1))]                 # [A, H] each
-    qc = torch.stack([_critic_tail(c, torch.tanh(base + dc), rnd)[1] for dc in dcand],
-                     dim=-1)                                                # [B, A, mw cx]
+    # 4. candidate Q on the (move x comm) grid
+    qc = _candidate_q(c, pre, act, mw, rnd)                                  # [B, A, mw cx]
 
     # actors: forward, expected-Q and entropy gradient at the logits, backward
     ac = p["actor"]
@@ -405,14 +433,20 @@ def _update_layout(scenario: int, hidden: int = DEFAULT_HIDDEN, source: str = "m
 
 def partials_floats(lib, scenario: int, n_agents: int, batch: int) -> int:
     """The floats of K9's (or K9-bf16's) ``partials`` buffer at ``batch``:
-    the partial gradients, one per tile (at hidden 128 and 256 one per CTA of
-    the persistent gradient grid, at most layout constant 6 of K9's library
-    or 11 of K9-bf16's an agent) and, for K9-bf16, its bf16 scratch of the
-    rounded nets after them (16-byte aligned; layout constant 5)."""
+    the partial gradients, one per tile (at hidden 128 and 256 one per CTA
+    pair of K9's backward kernel, at most layout constant 6 of K9's library
+    an agent; K9-bf16's at most its layout constant 11) and after them (16-byte aligned) K9-bf16's
+    bf16 scratch of the rounded nets (layout constant 5) or, at K9's hidden
+    128 and 256, w2's transposed copies (layout constant 8) and the
+    candidates' base pre-activation and Q (layout constant 7 floats a
+    sample)."""
     ng, ts, scratch = (lib.mpe_maddpg_update_layout(scenario, q) for q in (3, 4, 5))
     tiles = -(-batch // ts)
     parts = lib.mpe_maddpg_update_layout(scenario, 6 if scratch < 0 else 11)
     floats = n_agents * (tiles if parts < 0 else min(tiles, parts)) * ng
+    if scratch < 0 and lib.mpe_maddpg_update_layout(scenario, 7) > 0:
+        scratch = (lib.mpe_maddpg_update_layout(scenario, 8)
+                   + lib.mpe_maddpg_update_layout(scenario, 7) * batch)
     return floats if scratch < 0 else -(-floats // 4) * 4 + scratch
 
 
@@ -480,6 +514,8 @@ class MaddpgUpdateLauncher:
                     or tuple(x.shape) != shape):
                 raise ValueError(f"K9 takes contiguous float32 {shape} buffers on "
                                  f"{self.device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if weights.data_ptr() % 16:                # the wide kernels' bulk copies
+            raise ValueError("K9 takes a 16-byte aligned weight buffer")
 
     def launch(self, weights, rows, grads, metrics, target_actions=None):
         act2 = self.act2 if target_actions is None else target_actions

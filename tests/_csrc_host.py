@@ -26,7 +26,11 @@ has ``__nv_bfloat16`` with the device's round-to-nearest-even conversion and
 fragments as the PTX ISA lays them out (each product exact, the sums in
 double); for the float32 wide kernel ``host_cvt_rna_tf32``
 (``cvt.rna.tf32.f32``) and ``host_mma_m16n8k8_tf32``, the m16n8k8 tf32
-``mma.sync`` by the same rule.
+``mma.sync`` by the same rule; for K9's wide kernels an mbarrier
+(``host_mbar_init``, ``host_mbar_arrive`` with the bytes it expects,
+``host_mbar_wait`` on a phase's parity, yielding until it completes) and
+``host_bulk_load``, a ``cp.async.bulk`` that lands when it is issued and
+counts its bytes on the barrier.
 
 Each library is built once per (source, width, flags, stand-in header): into
 a directory under ``build/host/`` named by a hash of all of them and of the
@@ -296,6 +300,41 @@ inline void host_mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4], const u
   __syncwarp();
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
+// an mbarrier in its 8 bytes of shared memory: the bulk copies' bytes still
+// to land (a copy may land before its bytes are expected), the arrivals still
+// to come, and the arrivals a phase takes with the current phase's parity in
+// its top bit; a phase completes when both counts reach 0
+struct HostMbar { int32_t tx; uint16_t pending, count; };
+static_assert(sizeof(HostMbar) == 8, "an mbarrier is 8 bytes");
+inline void host_mbar_init(uint64_t* bar, unsigned count) {
+  *reinterpret_cast<HostMbar*>(bar) = HostMbar{0, (uint16_t)count, (uint16_t)count};
+}
+inline void host_mbar_complete(uint64_t* bar) {
+  HostMbar& m = *reinterpret_cast<HostMbar*>(bar);
+  if (m.pending == 0 && m.tx == 0) {
+    m.count ^= 0x8000u;
+    m.pending = m.count & 0x7fffu;
+    host_progress = true;
+  }
+}
+// an arrival, expecting `tx` more bytes of copies in this phase
+inline void host_mbar_arrive(uint64_t* bar, int tx) {
+  HostMbar& m = *reinterpret_cast<HostMbar*>(bar);
+  m.tx += tx;
+  --m.pending;
+  host_progress = true;
+  host_mbar_complete(bar);
+}
+// mbarrier.try_wait.parity in a loop: returns once the phase of this parity completed
+inline void host_mbar_wait(uint64_t* bar, unsigned parity) {
+  while ((reinterpret_cast<HostMbar*>(bar)->count >> 15) == parity) host_yield();
+}
+// cp.async.bulk: the copy lands when it is issued, and its bytes count on bar
+inline void host_bulk_load(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  reinterpret_cast<HostMbar*>(bar)->tx -= (int)bytes;
+  host_mbar_complete(bar);
+}
 template <class F> void host_launch(dim3 grid, unsigned block, F body) {
   const unsigned cl = host_cluster_size, threads = cl * block;
   host_cluster_size = 1;
@@ -312,6 +351,7 @@ template <class F> void host_launch(dim3 grid, unsigned block, F body) {
   host_fibers.assign(threads, HostFiber{nullptr, false});
   host_body = [](void* f) { (*static_cast<F*>(f))(); };
   host_body_arg = &body;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; bx += cl) {
       for (unsigned t = 0; t < threads; ++t) {   // each fiber enters host_fiber_entry
@@ -323,9 +363,11 @@ template <class F> void host_launch(dim3 grid, unsigned block, F body) {
         host_fibers[t] = HostFiber{sp, false};
       }
       blockIdx.y = by;
+      blockIdx.z = bz;
       blockDim.x = block;
       gridDim.x = grid.x;
       gridDim.y = grid.y;
+      gridDim.z = grid.z;
       for (unsigned live = threads; live > 0;) {
         host_progress = false;
         for (unsigned t = 0; t < threads; ++t) {

@@ -464,7 +464,9 @@ def test_host_built_maddpg_update_kernel_matches_plain(host_libs, name):
 def _check_host_maddpg_update(lib, kscn, batch: int, hidden: int = 64):
     """K9 of a library built at ``hidden`` on ``batch`` random replay rows
     (tiles of ``1024 / hidden`` samples; from hidden 128 of 32, on the
-    persistent grid's CTAs), held as above."""
+    backward kernel's CTA pairs), held as above, each of its kernels (four
+    at 8-64, five from 128) counted once by the library -> (params, rows,
+    partials: the scratch the launch left)."""
     scenario = _build.SCENARIO_IDS[type(kscn).__name__]
     a, o, k, mw = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits, 5
     cw, nh = k - mw, 2 if k > mw else 1
@@ -490,8 +492,11 @@ def _check_host_maddpg_update(lib, kscn, batch: int, hidden: int = 64):
     y = torch.empty((a, batch))
     partials = torch.empty(fused_maddpg_update.partials_floats(lib, scenario, a, batch))
     grads, metrics = torch.empty(lay.off_ta), torch.empty(3)
+    assert lib.mpe_maddpg_update_launched(-1) == 0
     _host_update(lib, "mpe_maddpg_update", scenario, wbuf, rows, act2, y, partials, grads, metrics,
                  batch, 0.95, 0.01, 1.0 / (a * batch), None)
+    assert [lib.mpe_maddpg_update_launched(j) for j in range(5)] == \
+        [1, 1, 1, 1, 1 if hidden > 64 else 0]
     ref, ref_m = fused_maddpg_update.plain_maddpg_update(params, targets, rows, mw=mw, gamma=0.95,
                                                          ent_coef=0.01)
     obs2 = rows[:, a * (o + k + 1):].reshape(batch, a, o)
@@ -509,3 +514,4 @@ def _check_host_maddpg_update(lib, kscn, batch: int, hidden: int = 64):
                                            atol=1e-4 * float(ref[n][q][w].abs().max()),
                                            msg=lambda m, n=n, q=q, w=w: f"{n}.{q}.{w}: {m}")
     torch.testing.assert_close(metrics, torch.stack(ref_m), rtol=1e-4, atol=0)
+    return params, rows, partials

@@ -727,12 +727,15 @@ def test_wide_mappo_kernel_on_the_widest_critic_where_clips_bind(card):
 @pytest.mark.parametrize("name", ["simple_spread", "simple_world_comm"])
 def test_maddpg_kernels_at_wide_width_match_plain(card, name, hidden):
     """K8 and K9 of the library built at ``hidden`` (the actors read from
-    device memory; K9's wide kernels): K8 at two tiles, actions equal to the
-    plain version's and the tiles bit for bit; K9 on 512 of its rows, target
-    actions equal, each leaf within 1e-4 of its largest entry; both kernels
-    counted."""
+    device memory; K9's five wide kernels): K8 at two tiles, actions equal to
+    the plain version's and the tiles bit for bit; K9 on 512 of its rows,
+    target actions equal, each leaf within 1e-4 of its largest entry; both
+    kernels counted; then K9 as the trainer launches it on the same rows, one
+    launch counted, each of its five kernels counted once by the library, and
+    the candidates' Q it leaves in its scratch within 1e-6 of the largest |Q|
+    of the plain version's."""
     from mpe_tpu_torch.learner.maddpg import init_maddpg
-    from mpe_tpu_torch.ops import fused_maddpg, fused_maddpg_update as fmu
+    from mpe_tpu_torch.ops import _build, fused_maddpg, fused_maddpg_update as fmu
 
     kscn = kernel_scenario(name)
     a, o, k = kscn.spec.n_agents, kscn.obs_w, kscn.n_logits
@@ -776,6 +779,19 @@ def test_maddpg_kernels_at_wide_width_match_plain(card, name, hidden):
     _leaf_close(got, ref, 1e-4, "grads")
     for x, y in zip(got_m, ref_m):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=0)
+    k9 = fmu.MaddpgUpdateLauncher(a, o, k, 5, hidden, 512, card, gamma=0.95, ent_coef=0.01)
+    weights = k9.layout.pack(params, targets).to(card)
+    grads = torch.empty(k9.layout.off_ta, device=card)
+    metrics = torch.empty(3, device=card)
+    before = fmu.maddpg_update_cuda.launches_by[name]
+    lib = _build.library("mpe_maddpg.cu", hidden)
+    lib.mpe_maddpg_update_launched(-1)
+    k9.launch(weights, rows, grads, metrics)
+    assert fmu.maddpg_update_cuda.launches_by[name] == before + 1
+    assert [lib.mpe_maddpg_update_launched(j) for j in range(5)] == [1] * 5
+    want_q = fmu.plain_candidate_q(params, rows, mw=5)           # the scratch's last block
+    got_q = k9.partials[k9.partials.numel() - want_q.numel():].view(want_q.shape)
+    torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-6 * float(want_q.abs().max()))
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@ card, one checkout after another.
 
     python3 tools/torch_update_ab.py [--maddpg | --maddpg-bf16 | --rollout | --det | --policy |
         --trajectory | --bf16 | --bf16-stages | --maddpg-bf16-phases | --wide | --bf16-wide |
-        --bf16-wide-stages | --wide-stages | --maddpg-bf16-wide] ROOT [ROOT ...]
+        --bf16-wide-stages | --wide-stages | --maddpg-bf16-wide | --maddpg-wide-stages]
+        ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``mpe_tpu_torch/``. Each runs in a process
 of its own, which imports that checkout's package and builds its kernels,
@@ -84,14 +85,20 @@ copies compute a wrong gradient and are only timed), built as above at each
 width, and the float32 trainer's ``step.update`` (the wide kernel and its
 reduce) on paths b's and b2's batches with each, by CUDA events (the median
 of CALLS calls after WARM_UP; no profiler, so one process serves every
-copy). The cuts of the kernel that streams its weights from L2
-(``F32_WIDE_STREAM_CUTS``): the partial's reads and writes (the sums kept),
-the weights' loads from L2 (the products run on constant slices), each
-product whole (W1 X, W2 H1, W3 H2, W3^T G3, W2^T GH2, dW3, dW2, dW1), the
-tanh, the head; of the cluster kernel (``F32_WIDE_CLUSTER_CUTS``, chosen by
-the source): the writes into the other CTAs' shared memory, 3xTF32 as one
-TF32 product, each tensor-core product, the fp32 sums
-(logits, gh2, dW3), the tanh, the head.
+copy). The cuts of the cluster kernel (``F32_WIDE_CLUSTER_CUTS``): the
+writes into the other CTAs' shared memory, 3xTF32 as one TF32 product, each
+tensor-core product, the fp32 sums (logits, gh2, dW3), the tanh, the head.
+
+With ``--maddpg-wide-stages`` (K9 at hidden 128 and 256, where its time
+goes): copies of the checkout's ``csrc/mpe_maddpg.cu`` with its wide-kernel
+headers inlined, its scenario switch cut to simple_spread and
+simple_world_comm, and one stage cut at a time (``K9_WIDE_SPLIT_CUTS``: each
+of its five kernels and the stages inside them), built at 128 and 256 (one
+nvcc each, all at once, without the other sources), and K9's launcher on
+each copy on ``maddpg_case``'s seeded params and 1024 rows of
+simple_spread and simple_world_comm: the median of CALLS CUDA-event timed
+calls after WARM_UP and the ms of 100 calls back to back (no profiler: it
+drops device records after earlier passes in one process).
 
 With ``--maddpg-bf16-phases`` (K9-bf16's phases): a copy of the checkout's
 ``csrc/mpe_maddpg_bf16.cu`` whose gradient and target/TD kernels stamp
@@ -818,7 +825,8 @@ def time_wide(result: dict) -> None:
         row["maddpg_registers_spill_bytes"] = registers(
             {"mpe_maddpg.cu": logs["mpe_maddpg.cu", h]}, "mpe_maddpg.cu",
             ("maddpg_traj_kernel", "maddpg_target_actions", "maddpg_td", "maddpg_update",
-             "maddpg_reduce"))
+             "maddpg_transpose_wide", "maddpg_forward_wide", "maddpg_td_cand_wide",
+             "maddpg_backward_wide", "maddpg_reduce"))
 
 
 BF16_WIDE = (8, 16, 32, 64, 128, 256)
@@ -1021,6 +1029,13 @@ STAGE_CUTS = {
 def variant_libs(source: str, texts: dict, hidden: int = 64) -> dict:
     """{name: ctypes library} of each source text of ``texts``, built beside
     the checkout's headers with the library's flags at ``hidden``."""
+    return {name: lib for (name, _), lib in variant_libs_at(source, texts, (hidden,)).items()}
+
+
+def variant_libs_at(source: str, texts: dict, widths) -> dict:
+    """{(name, width): ctypes library} of each source text of ``texts`` at each
+    of ``widths``, all built at once (one nvcc each) beside the checkout's
+    headers with the library's flags."""
     import ctypes
     from pathlib import Path
 
@@ -1031,15 +1046,16 @@ def variant_libs(source: str, texts: dict, hidden: int = 64) -> dict:
     for h in _build.HEADERS:
         (out / h).write_text((_build.CSRC / h).read_text())
     procs = {}
-    for name, text in texts.items():
-        stem = f"{name}_h{hidden}"          # a path a width: dlopen keeps a loaded path's library
-        (out / f"{stem}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build._flags(source, hidden), "-o", str(out / f"{stem}.so"),
-             str(out / f"{stem}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for hidden in widths:
+        for name, text in texts.items():
+            stem = f"{name}_h{hidden}"      # a path a width: dlopen keeps a loaded path's library
+            (out / f"{stem}.cu").write_text(text)
+            procs[name, hidden] = subprocess.Popen(
+                [_build.nvcc(), *_build._flags(source, hidden), "-o", str(out / f"{stem}.so"),
+                 str(out / f"{stem}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    for name, proc in procs.items():
+    for (name, hidden), proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"the {name} copy of {source} did not build:\n{log[-4000:]}")
@@ -1047,7 +1063,7 @@ def variant_libs(source: str, texts: dict, hidden: int = 64) -> dict:
         for fn, argtypes in _build.SIGNATURES[source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        libs[name, hidden] = lib
     return libs
 
 
@@ -1158,50 +1174,9 @@ def time_bf16_wide_stages(result: dict) -> None:
         _build.library = library
 
 
-# cuts of the float32 wide kernel (ppo_update_wide_kernel, hidden 128 and 256)
-# as it streams w1 and w2 from L2 and adds each tile's weight gradients into
-# the CTA's partial (wide_stream.cuh, inlined into each copy): (file, old, new)
-F32_WIDE_STREAM_CUTS = {
-    "partial_rmw": [
-        ("wide_stream.cuh",
-         "old[i][j] = !first && n < NQ ? part[(size_t)(mb + r0 + i) * ldp + n] : 0.0f;",
-         "old[i][j] = 0.0f;"),
-        ("wide_stream.cuh",
-         "if (n < NQ) part[(size_t)(mb + r0 + i) * ldp + n] = old[i][j] + acc[i][j];",
-         "if (part == nullptr) part[(size_t)(mb + r0 + i) * ldp + n] = old[i][j] + acc[i][j];"),
-        ("wide_stream.cuh", "db[m] = first ? b : db[m] + b;", "if (db == nullptr) db[m] = b;"),
-        ("mpe_update.cu", "if (k3 + KS * r < KO) part[L.g_w3 + (k3 + KS * r) * H + g3c] += a3[r];",
-         "if (part == nullptr) part[L.g_w3 + (k3 + KS * r) * H + g3c] += a3[r];"),
-        ("mpe_update.cu", "if (g3c < R3 && k3 + KS * g3c < KO) part[L.g_b3 + k3 + KS * g3c] += ab3;",
-         "if (part == nullptr) part[L.g_b3 + k3 + KS * g3c] += ab3;")],
-    "weight_stream": [
-        ("wide_stream.cuh",
-         "pre[p] = k >= K ? 0.0f : TRANS ? a[(size_t)(u0 + mm) * K + k] : a[(size_t)k * H + u0 + mm];",
-         "pre[p] = k >= K ? 0.0f : 1.0e-3f;")],
-    "product_w1x": [("mpe_update.cu", "WS::product<IN, true>(weights + L.g_w1, st, slices, [&](int m, "
-                     "int s, float v) {\n      h1t[m * LD + s] = tanhf(v + b1[m]);\n    });", "")],
-    "product_w2h1": [("mpe_update.cu", "WS::product<H, true>(weights + L.g_w2, h1t, slices, [&](int m, "
-                      "int s, float v) {\n      h2t[m * LD + s] = tanhf(v + b2[m]);\n    });", "")],
-    "product_w3h2": [("mpe_update.cu", "z[r] = fmaf(w3[(kz + PER * r) * H + g], h, z[r]);", ";")],
-    "product_w3g3": [("mpe_update.cu", "resident_product<KO>(w3, gt, h2t, tid, [](int, float v, const "
-                      "float* c) {\n      return v * (1.0f - *c * *c);\n    });", "")],
-    "product_w2gh2": [("mpe_update.cu", "WS::product<H, false>(weights + L.g_w2, h2t, slices, [&](int m, "
-                       "int s, float v) {\n      float* c = h1t + m * LD + s;\n      *c = v * (1.0f - "
-                       "*c * *c);\n    });", "")],
-    "outer_dw3": [("mpe_update.cu", "a3[r] = fmaf(gq.x, hq.x, a3[r]);\n          a3[r] = fmaf(gq.y, "
-                   "hq.y, a3[r]);\n          a3[r] = fmaf(gq.z, hq.z, a3[r]);\n          a3[r] = "
-                   "fmaf(gq.w, hq.w, a3[r]);", "")],
-    "outer_dw2": [("mpe_update.cu", "WS::outer<H>(h2t, h1t, part + L.g_w2, H, part + L.g_b2, false);",
-                   "")],
-    "outer_dw1": [("mpe_update.cu", "WS::outer<IN>(h1t, st, part + L.g_w1, IN, part + L.g_b1, false);",
-                   "")],
-    "tanh": [("mpe_update.cu", "tanhf(", "(")],
-    "head": [("mpe_update.cu", "head<D>(st, gt, tid, m < n_samples, m / N, k, ms);", "")],
-}
-
-
-# ... and as the cluster kernel computes it (3xTF32 products, each CTA of a
-# cluster owning a block of units; tf32_mma.cuh inlined): the writes into the
+# cuts of the float32 wide kernel (K6, K7 at hidden 128 and 256) as the cluster
+# kernel computes it (3xTF32 products, each CTA of a cluster owning a block of
+# units; tf32_mma.cuh inlined): the writes into the
 # other CTAs' shared memory (each CTA writes its own; the cluster barriers
 # cannot be cut, since a CTA may not leave while another writes into it),
 # 3xTF32 as one TF32 product, each
@@ -1244,8 +1219,6 @@ def f32_wide_stage_texts(src: str, headers: dict) -> dict:
     checkout's ``mpe_update.cu`` (``src``) with the headers it includes
     (``headers``: {file name: text}) inlined, so that their parts can be cut
     too; "whole" is the uncut copy."""
-    cuts = F32_WIDE_CLUSTER_CUTS if "warp_mma3<" in src else F32_WIDE_STREAM_CUTS
-
     def variant(subs) -> str:
         text, heads = src, dict(headers)
         for where, old, new in subs:
@@ -1257,7 +1230,8 @@ def f32_wide_stage_texts(src: str, headers: dict) -> dict:
             text = cut(text, [(f'#include "{name}"', head)])
         return text
 
-    return {"whole": variant([]), **{f"no_{k}": variant(subs) for k, subs in cuts.items()}}
+    return {"whole": variant([]), **{f"no_{k}": variant(subs) for k, subs in
+                                     F32_WIDE_CLUSTER_CUTS.items()}}
 
 
 def time_f32_wide_stages(result: dict) -> None:
@@ -1294,6 +1268,135 @@ def time_f32_wide_stages(result: dict) -> None:
     finally:
         _build.library = library
 
+
+
+# cuts of K9's wide float32 kernels (mpe_maddpg.cu at hidden 128 and 256): each
+# (kind, a, b): "span" removes the text from the line holding a up to the line
+# holding b, "sub" replaces a with b; wide_stream.cuh is inlined first, so its
+# parts can be cut too. The cut copies compute a wrong gradient and are only
+# timed. Each launch, each unit of the fused kernels (the critic's forward, the
+# target actions; the TD targets, the candidates; the critic's backward, the
+# actor), the candidates' staging, product and Q sums, the partial's reads and
+# writes and the ring's bulk copies (its barriers kept)
+K9_WIDE_SPLIT_CUTS = {
+    "transpose": [("sub", "  maddpg_transpose_wide_kernel<D><<<wt_grid, 256, 0, stream>>>(weights, "
+                   "wtr);\n", "")],
+    "forward": [("sub", "  maddpg_forward_wide_kernel<D><<<fwd_grid, THREADSW, SM::FORWARD, "
+                 "stream>>>(\n      weights, wtr, rows, act2, base, hs, q, batch);\n", "")],
+    "critic_forward": [("sub", "    critic_fwd_unit<D>(ring, smem, weights, wtr, rows, base, hs, q, "
+                        "batch, i, blockIdx.x * TSW);", "    ;")],
+    "target_actions": [("sub", "    target_unit<D>(ring, smem, weights, wtr, rows, act2, batch, i, "
+                        "(blockIdx.x - nt) * TSW);", "    ;")],
+    "td_cand": [("sub", "  maddpg_td_cand_wide_kernel<D><<<tc_grid, THREADSW, SM::TD_CAND, "
+                 "stream>>>(\n      weights, wtr, rows, act2, y, base, qc, batch, gamma);\n", "")],
+    "td": [("sub", "    td_unit<D>(ring, smem, weights, wtr, rows, act2, y, batch, gamma, x / nt, "
+            "(x % nt) * TSW);", "    ;")],
+    "candidates": [("sub", "    cand_unit<D>(ring, smem, weights, wtr, base, qc, batch, "
+                    "x - D::A * nt);", "    ;")],
+    "cand_staging": [("span", "  {\n    // column n's layer 1: h1 = tanh(base",
+                      "  float acc[RUC][RCC];")],
+    "cand_product": [("sub", "  float acc[RUC][RCC];\n  ring.product<H, CGC, RCC, LDC>(wtr + "
+                      "(size_t)i * WideT<D>::N + WideT<D>::C2, hc, acc);",
+                      "  float acc[RUC][RCC] = {};")],
+    "cand_q": [("sub", "  for (int col = tid; col < NCC; col += THREADSW)\n    if (n0 + col < "
+                "n_cols)\n      q[(size_t)i * n_cols + n0 + col] = net_out_w<LDC>(wc + D::CW3, "
+                "hc + col);\n", "")],
+    "backward": [("sub", "  maddpg_backward_wide_kernel<D><<<bwd_grid, THREADSW, SM::BACKWARD, "
+                  "stream>>>(\n      weights, wtr, rows, y, hs, q, qc, partials, batch, k);\n", "")],
+    "critic_backward": [("sub", "    critic_bwd_loop<D>(ring, smem, weights, rows, y, hs, q, part, "
+                         "batch, i, p, P, k);", "    ;")],
+    "actor": [("sub", "    actor_loop<D>(ring, smem, weights, wtr, rows, qc, part, batch, i, p, P, "
+               "k);", "    ;")],
+    "reduce": [("sub", "  maddpg_reduce_kernel<D><<<(n_out + 255) / 256, 256, 0, stream>>>(partials, "
+                "grads, metrics,\n                                                                   "
+                "n_parts, inv);\n", "")],
+    "partial_rmw": [
+        ("sub", "old[i][j] = !first && n < NQ ? part[(size_t)(mb + r0 + 4 * i) * ldp + n] : 0.0f;",
+         "old[i][j] = 0.0f;"),
+        ("sub", "if (n < NQ) part[(size_t)(mb + r0 + 4 * i) * ldp + n] = old[i][j] + acc[i][j];",
+         "if (part == nullptr) part[(size_t)(mb + r0 + 4 * i) * ldp + n] = old[i][j] + acc[i][j];"),
+        ("sub", "db[m] = first ? b : db[m] + b;", "if (db == nullptr) db[m] = b;")],
+    "ring_copies": [
+        ("sub", "      mbar_arrive_expect(full + st, bytes);\n      bulk_load(buf + st * STAGE, w + "
+         "(size_t)j * STAGE, bytes, full + st);", "      mbar_arrive(full + st);")],
+}
+# the scenarios the stage cuts time, and the switch their copies are cut to
+# (one instantiation each, so that the copies build in a fraction of the time)
+K9_STAGE_NAMES = ("simple_spread", "simple_world_comm")
+K9_STAGE_SWITCH = ("#undef MPE_SCENARIO_SWITCH\n#define MPE_SCENARIO_SWITCH(CALL) switch "
+                   "(scenario) { case 0: CALL(SpreadScn); case 8: CALL(WorldCommScn); default: "
+                   "return (int)cudaErrorInvalidValue; }\n")
+
+
+def k9_wide_stage_texts(src: str, headers: dict) -> dict:
+    """{variant: source text} of K9's wide stage cuts on ``src`` with the
+    headers it includes (``headers``: {file name: text}) inlined and the
+    scenario switch cut to K9_STAGE_NAMES; "whole" is the uncut copy."""
+    for name, head in headers.items():
+        src = cut(src, [(f'#include "{name}"', head)])
+    src = src.replace('extern "C" {', K9_STAGE_SWITCH + 'extern "C" {', 1)
+
+    def variant(subs) -> str:
+        text = src
+        for kind, a, b in subs:
+            if kind == "sub":
+                text = cut(text, [(a, b)])
+                continue
+            i = text.find(a)
+            j = text.find(b, i + 1)
+            if i < 0 or j < 0:
+                raise RuntimeError(f"the checkout's source has no span {a!r} .. {b!r} to cut")
+            i = text.rfind("\n", 0, i) + 1
+            text = text[:i] + text[text.rfind("\n", 0, j) + 1:]
+        return text
+
+    return {"whole": variant([]), **{f"no_{k}": variant(subs) for k, subs in
+                                     K9_WIDE_SPLIT_CUTS.items()}}
+
+
+def time_k9_wide_stages(result: dict) -> None:
+    """--maddpg-wide-stages: K9's launcher on each stage-cut copy at hidden 128
+    and 256 on K9_STAGE_NAMES' seeded cases (``maddpg_case``), by CUDA events:
+    the median of CALLS calls after WARM_UP and 100 calls back to back."""
+    import torch
+
+    from mpe_tpu_torch.ops import _build
+    from mpe_tpu_torch.ops.fused_maddpg_update import MaddpgUpdateLauncher
+
+    src = (_build.CSRC / "mpe_maddpg.cu").read_text()
+    headers = {h: (_build.CSRC / h).read_text() for h in _build.HEADERS
+               if f'#include "{h}"' in src and h != "policy_mlp.cuh"}
+    texts = k9_wide_stage_texts(src, headers)
+    result["cuts"] = sorted(texts)
+    libs = variant_libs_at("mpe_maddpg.cu", texts, WIDE_STAGE_WIDTHS)
+    library = _build.library
+    try:
+        for h in WIDE_STAGE_WIDTHS:
+            for name in K9_STAGE_NAMES:
+                a, ow, k, params, targets, rows = maddpg_case(name, h)
+                row = {}
+                for variant in texts:
+                    lib = libs[variant, h]
+                    _build.library = (lambda source, hidden=64, lib=lib, h=h: lib if (
+                        source, hidden) == ("mpe_maddpg.cu", h) else library(source, hidden))
+                    k9 = MaddpgUpdateLauncher(a, ow, k, 5, h, MADDPG["batch"], "cuda",
+                                              gamma=0.95, ent_coef=0.01)
+                    weights = k9.layout.pack(params, targets).cuda()
+                    grads = torch.empty(k9.layout.off_ta, device="cuda")
+                    metrics = torch.empty(3, device="cuda")
+                    call = lambda: k9.launch(weights, rows, grads, metrics)
+                    call()
+                    torch.cuda.synchronize()
+                    row[variant] = {"ms": median_ms(call), "loop_ms": loop_ms(call)}
+                    _build.library = library
+                    del k9, weights, grads, metrics
+                row["parts_an_agent"] = libs["whole", h].mpe_maddpg_update_layout(
+                    _build.SCENARIO_IDS[{"simple_spread": "KernelSpread",
+                                         "simple_world_comm": "KernelWorldComm"}[name]], 6)
+                result[f"{name} at hidden {h}"] = row
+                torch.cuda.empty_cache()
+    finally:
+        _build.library = library
 
 PHASE_STAMPS = r"""
 __device__ unsigned long long mpe_stamps[16384];
@@ -1420,7 +1523,8 @@ def child(mode: str, root: str) -> None:
     from mpe_tpu_torch.ops import _build
 
     assert mpe_tpu_torch.__file__.startswith(root), mpe_tpu_torch.__file__
-    logs = _build.build_all()
+    # the stage cuts build only their own copies of mpe_maddpg.cu
+    logs = {} if mode == "maddpg-wide-stages" else _build.build_all()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     result = {"root": root, "card": smi.splitlines()[0]}
@@ -1452,6 +1556,8 @@ def child(mode: str, root: str) -> None:
         time_f32_wide_stages(result)
     elif mode == "maddpg-bf16-wide":
         time_maddpg_bf16_wide(result, logs)
+    elif mode == "maddpg-wide-stages":
+        time_k9_wide_stages(result)
     else:
         time_ppo(result, logs)
     print(json.dumps(result), flush=True)
@@ -1467,7 +1573,8 @@ def main() -> int:
             "--bf16": "bf16", "--bf16-stages": "bf16-stages",
             "--maddpg-bf16-phases": "maddpg-bf16-phases", "--wide": "wide",
             "--bf16-wide": "bf16-wide", "--bf16-wide-stages": "bf16-wide-stages",
-            "--wide-stages": "wide-stages", "--maddpg-bf16-wide": "maddpg-bf16-wide"}.get(
+            "--wide-stages": "wide-stages", "--maddpg-bf16-wide": "maddpg-bf16-wide",
+            "--maddpg-wide-stages": "maddpg-wide-stages"}.get(
         args[0] if args else "", "ppo")
     roots = args if mode == "ppo" else args[1:]
     if not roots or any(r.startswith("-") for r in roots):
